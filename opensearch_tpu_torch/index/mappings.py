@@ -1,0 +1,205 @@
+"""Field mappings and document parsing (the text/keyword subset of
+opensearch_tpu/index/mappings.py).
+
+Documents are parsed on the host into per-field term lists; the device
+only ever sees term rows. Explicit and dynamic `text` and `keyword`
+fields are served, with the reference's dynamic rule for strings
+(text + a `.keyword` subfield with ignore_above 256, ISO-date strings map
+to `date`). Every other field type, mapping option or dynamic value type
+raises `NotPortedError`.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+from dataclasses import dataclass, field as dc_field
+from typing import Any, Dict, List, Optional
+
+from ..analysis import AnalysisRegistry, Analyzer
+from ..errors import NotPortedError
+
+TEXT_TYPES = {"text"}
+KEYWORD_TYPES = {"keyword"}
+_FIELD_OPTIONS = {"type", "analyzer", "search_analyzer", "normalizer",
+                  "index", "doc_values", "ignore_above", "norms", "fields"}
+_MAPPING_KEYS = {"properties", "dynamic", "_meta"}
+
+
+@dataclass
+class FieldType:
+    name: str
+    type: str
+    analyzer: str = "standard"
+    search_analyzer: Optional[str] = None
+    normalizer: Optional[str] = None
+    index: bool = True
+    ignore_above: Optional[int] = None
+    norms: bool = True
+    subfields: Dict[str, "FieldType"] = dc_field(default_factory=dict)
+
+    @property
+    def has_norms(self) -> bool:
+        return self.type in TEXT_TYPES and self.norms
+
+
+@dataclass
+class ParsedDocument:
+    """Index-ready view of one document: field -> analyzed terms (text:
+    tokens incl. duplicates for tf; keyword: normalized exact values)."""
+
+    doc_id: str
+    source: dict
+    routing: Optional[str]
+    terms: Dict[str, List[str]] = dc_field(default_factory=dict)
+
+
+class Mappings:
+    """Per-index mappings with dynamic mapping for strings."""
+
+    def __init__(self, mapping: dict | None = None,
+                 analysis: AnalysisRegistry | None = None,
+                 dynamic: bool | str = True):
+        self.analysis = analysis or AnalysisRegistry()
+        self.fields: Dict[str, FieldType] = {}
+        self.dynamic = dynamic
+        self._meta: dict = {}
+        if mapping:
+            self.merge(mapping)
+
+    def merge(self, mapping: dict) -> None:
+        for key in mapping:
+            if key not in _MAPPING_KEYS:
+                raise NotPortedError(f"mapping parameter [{key}]")
+        if "dynamic" in mapping:
+            self.dynamic = mapping["dynamic"]
+        self._meta.update(mapping.get("_meta", {}))
+        self._merge_props(mapping.get("properties", {}), prefix="")
+
+    def _merge_props(self, props: dict, prefix: str) -> None:
+        for name, cfg in props.items():
+            path = f"{prefix}{name}"
+            ftype = cfg.get("type", "object" if "properties" in cfg else "text")
+            if ftype == "object":
+                self._merge_props(cfg.get("properties", {}), prefix=f"{path}.")
+                continue
+            self.fields[path] = self._build_field(path, ftype, cfg)
+
+    def _build_field(self, path: str, ftype: str, cfg: dict) -> FieldType:
+        if ftype not in TEXT_TYPES | KEYWORD_TYPES:
+            raise NotPortedError(f"field type [{ftype}] (field [{path}])")
+        for key in cfg:
+            if key not in _FIELD_OPTIONS:
+                raise NotPortedError(f"field parameter [{key}] (field [{path}])")
+        ft = FieldType(
+            name=path, type=ftype,
+            analyzer=cfg.get("analyzer", "standard"),
+            search_analyzer=cfg.get("search_analyzer"),
+            normalizer=cfg.get("normalizer"),
+            index=cfg.get("index", True),
+            ignore_above=cfg.get("ignore_above"),
+            norms=cfg.get("norms", True))
+        for sub, subcfg in cfg.get("fields", {}).items():
+            ft.subfields[sub] = self._build_field(
+                f"{path}.{sub}", subcfg.get("type", "keyword"), subcfg)
+        return ft
+
+    # ---------------- field resolution ----------------
+
+    def resolve_field(self, name: str) -> Optional[FieldType]:
+        ft = self.fields.get(name)
+        if ft is not None:
+            return ft
+        if "." in name:   # multi-field lookup: "title.keyword"
+            parent, sub = name.rsplit(".", 1)
+            pft = self.fields.get(parent)
+            if pft and sub in pft.subfields:
+                return pft.subfields[sub]
+        return None
+
+    def index_analyzer(self, ft: FieldType) -> Analyzer:
+        if ft.type in KEYWORD_TYPES:
+            return self.analysis.normalizer(ft.normalizer)
+        return self.analysis.get(ft.analyzer)
+
+    def search_analyzer_for(self, ft: FieldType) -> Analyzer:
+        if ft.type in KEYWORD_TYPES:
+            return self.analysis.normalizer(ft.normalizer)
+        return self.analysis.get(ft.search_analyzer or ft.analyzer)
+
+    # ---------------- dynamic mapping ----------------
+
+    def _dynamic_type(self, path: str, value: Any) -> FieldType:
+        if isinstance(value, bool):
+            raise NotPortedError(f"dynamic field type [boolean] (field [{path}])")
+        if isinstance(value, int):
+            raise NotPortedError(f"dynamic field type [long] (field [{path}])")
+        if isinstance(value, float):
+            raise NotPortedError(f"dynamic field type [double] (field [{path}])")
+        if isinstance(value, str):
+            try:   # the reference's ISO date detection
+                _dt.datetime.fromisoformat(value.replace("Z", "+00:00"))
+            except ValueError:
+                return self._build_field(
+                    path, "text", {"fields": {"keyword": {
+                        "type": "keyword", "ignore_above": 256}}})
+            raise NotPortedError(f"dynamic field type [date] (field [{path}])")
+        raise NotPortedError(
+            f"dynamic value of type [{type(value).__name__}] (field [{path}])")
+
+    # ---------------- document parsing ----------------
+
+    def parse(self, doc_id: str, source: dict,
+              routing: Optional[str] = None) -> ParsedDocument:
+        parsed = ParsedDocument(doc_id=doc_id, source=source, routing=routing)
+        self._parse_obj(source, "", parsed)
+        return parsed
+
+    def _parse_obj(self, obj: dict, prefix: str, parsed: ParsedDocument) -> None:
+        for key, value in obj.items():
+            path = f"{prefix}{key}"
+            if isinstance(value, dict):
+                self._parse_obj(value, f"{path}.", parsed)
+                continue
+            values = value if isinstance(value, list) else [value]
+            if values and all(isinstance(v, dict) for v in values):
+                for v in values:
+                    self._parse_obj(v, f"{path}.", parsed)
+                continue
+            ft = self.resolve_field(path)
+            if ft is None:
+                if self.dynamic in (False, "false"):
+                    continue
+                if self.dynamic == "strict":
+                    raise ValueError(
+                        f"strict_dynamic_mapping_exception: [{path}] not allowed")
+                sample = next((v for v in values if v is not None), None)
+                if sample is None:
+                    continue
+                ft = self._dynamic_type(path, sample)
+                self.fields[path] = ft
+            self._index_value(ft, value, parsed)
+
+    def _index_value(self, ft: FieldType, value: Any,
+                     parsed: ParsedDocument) -> None:
+        values = value if isinstance(value, list) else [value]
+        for v in values:
+            if v is not None:
+                self._index_single(ft, v, parsed)
+        for sub in ft.subfields.values():
+            self._index_value(sub, value, parsed)
+
+    def _index_single(self, ft: FieldType, v: Any,
+                      parsed: ParsedDocument) -> None:
+        name = ft.name
+        if ft.type in TEXT_TYPES:
+            if ft.index:
+                tokens = self.index_analyzer(ft).analyze(str(v))
+                parsed.terms.setdefault(name, []).extend(t.text for t in tokens)
+            return
+        s = str(v)      # keyword
+        if ft.ignore_above is not None and len(s) > ft.ignore_above:
+            return
+        norm = self.index_analyzer(ft).terms(s)
+        s = norm[0] if norm else s
+        if ft.index:
+            parsed.terms.setdefault(name, []).append(s)

@@ -1,0 +1,92 @@
+"""Build the port's CUDA sources (`opensearch_tpu_torch/csrc/*.cu`) with
+nvcc into shared libraries with a plain C interface, and load them with
+ctypes.
+
+Each library is built at first use into `opensearch_tpu_torch/_build/`,
+named by a hash of its source and flags, so an edited source never loads a
+stale binary.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# library -> C function -> (restype, argtypes)
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "bm25_tfdl": {
+        "bm25_tfdl_launch": (_I, [_P, _P, ctypes.c_longlong,
+                                  _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _F, _F, _F,
+                                  _P, _P, _I, _P, _P, _P, _P]),
+        "bm25_tfdl_resident_blocks": (_I, [_P]),
+        "bm25_tfdl_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the card")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build(name: str) -> str:
+    """Compile library `name` unless its binary exists. Returns nvcc's
+    ptxas report ("" when nothing was compiled); raises with nvcc's output
+    on a failure."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA build of {name} failed: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if it has no binary."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
+        build(name)
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (restype, argtypes) in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.restype = restype
+            f.argtypes = argtypes
+        _LOADED[name] = lib
+        return lib

@@ -1,0 +1,284 @@
+"""Fused BM25 top-k over packed (tf, dl) postings: the counterpart of
+opensearch_tpu/ops/pallas_bm25.py (`fused_bm25_topk_tfdl`, `align_csr_rows`
+and the layout constants).
+
+`fused_bm25_topk_tfdl` takes one kernel row per query (or per doc-range
+chunk of a query). Each row names up to T term windows in the aligned CSR
+buffers, and the function returns the row's top-K docs by (score desc, doc
+asc), padded with -inf/-1 to 128 lanes, plus the exact count of docs that
+pass the row's minimum-should-match.
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+`csrc/bm25_tfdl.cu`; on a CPU tensor it runs `fused_bm25_topk_tfdl_plain`,
+the plain PyTorch version of the same function. Nothing else selects
+between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ._build import load_library
+
+INT_SENTINEL = np.int32(2**31 - 1)
+LANES = 128
+# CSR windows start at 1024-element tiles below the window (a TPU DMA rule
+# kept so the host planner's rowstarts/nrows/skips are the reference's)
+HBM_ALIGN = 1024
+NEG_INF = float("-inf")
+
+# tf and doc length packed losslessly into one i32 per posting:
+#   packed = tf << DL_BITS | dl    (tf < 2^TF_BITS, dl < 2^DL_BITS)
+TF_BITS = 11
+DL_BITS = 21
+DL_MASK = (1 << DL_BITS) - 1
+TF_MAX = (1 << TF_BITS) - 1
+DL_MAX = DL_MASK
+
+# Calls made through each route since the last reset_counts(): "launches"
+# counts kernel launches (one per launch, nowhere else), "rows" the kernel
+# rows those launches scored, "plain_calls" the CPU-tensor calls that ran
+# the plain version instead.
+COUNTS = {"launches": 0, "rows": 0, "plain_calls": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def align_csr_rows(starts: np.ndarray, doc_ids: np.ndarray, *vals: np.ndarray,
+                   margin: int, alignment: int = HBM_ALIGN):
+    """Re-pack CSR postings so every row begins at an `alignment`-aligned
+    offset (sentinel-padded gaps), with `margin` sentinel slack at the end
+    so a fixed-size window never runs off the buffer. Returns (new_starts
+    i64[nrows+1], docs, *aligned vals); each `vals` array is scattered to
+    the same layout with zero fill."""
+    nrows = len(starts) - 1
+    lens = np.diff(starts)
+    aligned_lens = ((lens + alignment - 1) // alignment) * alignment
+    new_starts = np.zeros(nrows + 1, dtype=np.int64)
+    np.cumsum(aligned_lens, out=new_starts[1:])
+    total = int(new_starts[-1]) + margin
+    total = ((total + LANES - 1) // LANES) * LANES
+    new_docs = np.full(total, INT_SENTINEL, dtype=np.int32)
+    # every posting moves by its row's shift (aligned start - old start)
+    shift = np.repeat(new_starts[:-1] - starts[:-1], lens)
+    dst = np.arange(len(doc_ids), dtype=np.int64) + shift
+    new_docs[dst] = doc_ids
+    out_vals = []
+    for v in vals:
+        nv = np.zeros(total, dtype=v.dtype)
+        nv[dst] = v
+        out_vals.append(nv)
+    return (new_starts, new_docs, *out_vals)
+
+
+def _check_inputs(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
+                  avgdl, dlo, dhi, T, L, K):
+    if not (T in (1, 2, 4, 8)):
+        raise ValueError(f"T must be 1, 2, 4 or 8, got {T}")
+    if L < 1 or L & (L - 1) or L % LANES:
+        raise ValueError(f"L must be a power of two multiple of {LANES}, "
+                         f"got {L}")
+    if not 1 <= K <= LANES:
+        raise ValueError(f"K must be in [1, {LANES}], got {K}")
+    dev = docs.device
+    QB = rowstarts.shape[0]
+    shapes = {"docs": (docs, torch.int32, None), "tfdl": (tfdl, torch.int32,
+                                                          None),
+              "rowstarts": (rowstarts, torch.int32, (QB, T)),
+              "nrows": (nrows, torch.int32, (QB, T)),
+              "lens": (lens, torch.int32, (QB, T)),
+              "skips": (skips, torch.int32, (QB, T)),
+              "weights": (weights, torch.float32, (QB, T)),
+              "msm": (msm, torch.float32, (QB, 1)),
+              "avgdl": (avgdl, torch.float32, (QB, 1)),
+              "dlo": (dlo, torch.int32, (QB, 1)),
+              "dhi": (dhi, torch.int32, (QB, 1))}
+    for name, (t, dtype, shape) in shapes.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, docs on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, "
+                             f"got {tuple(t.shape)}")
+    if docs.dim() != 1 or tuple(tfdl.shape) != tuple(docs.shape) \
+            or docs.shape[0] % LANES:
+        raise ValueError("docs and tfdl must be i32[P] with P a multiple "
+                         f"of {LANES}")
+
+
+def fused_bm25_topk_tfdl(docs: torch.Tensor, tfdl: torch.Tensor,
+                         rowstarts: torch.Tensor, nrows: torch.Tensor,
+                         lens: torch.Tensor, skips: torch.Tensor,
+                         weights: torch.Tensor, msm: torch.Tensor,
+                         avgdl: torch.Tensor, dlo: torch.Tensor,
+                         dhi: torch.Tensor, T: int, L: int, K: int,
+                         k1: float, b: float):
+    """Batched fused BM25 top-k over packed (tf, dl) postings.
+
+    docs      i32[P] - doc ids, CSR-flat, rows 128-lane aligned
+    tfdl      i32[P] - tf << DL_BITS | dl per posting
+    rowstarts i32[QB, T] - window starts in 128-lane row units
+    nrows     i32[QB, T] - pow2 rows in each window (0 = absent term)
+    lens      i32[QB, T] - true posting counts of the windows
+    skips     i32[QB, T] - spilled-in prefix before each window's postings
+    weights   f32[QB, T] - query-time idf * boost
+    msm       f32[QB, 1] - minimum matching terms
+    avgdl     f32[QB, 1] - average doc length
+    dlo/dhi   i32[QB, 1] - doc-id range [dlo, dhi) of the row
+    T, L, K   slots (1, 2, 4, 8), window size (pow2), top-k (<= 128)
+    k1, b     similarity parameters (b already 0 when norms are off)
+
+    Slot t of row q covers positions [skips, skips + lens) of the window
+    at element rowstarts * 128, cut to [0, nrows * 128) and [0, L).
+    Returns (scores f32[QB, 128], doc_ids i32[QB, 128], totals i32[QB, 128]).
+    """
+    _check_inputs(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
+                  avgdl, dlo, dhi, T, L, K)
+    if docs.device.type == "cpu":
+        COUNTS["plain_calls"] += 1
+        return fused_bm25_topk_tfdl_plain(docs, tfdl, rowstarts, nrows, lens,
+                                          skips, weights, msm, avgdl, dlo,
+                                          dhi, T, L, K, k1, b)
+    if docs.device.type != "cuda":
+        raise ValueError(f"unsupported device {docs.device}")
+    QB = rowstarts.shape[0]
+    dev = docs.device
+    scores = torch.empty((QB, LANES), dtype=torch.float32, device=dev)
+    ids = torch.empty((QB, LANES), dtype=torch.int32, device=dev)
+    totals = torch.empty((QB, LANES), dtype=torch.int32, device=dev)
+    if QB == 0:
+        return scores, ids, totals
+    with torch.cuda.device(dev):
+        lib = load_library("bm25_tfdl")
+        grid = min(QB, _resident_blocks(lib, dev))
+        # per-block candidate scratch: a row has at most T*L valid postings
+        cand_s = torch.empty((grid, T * L), dtype=torch.float32, device=dev)
+        cand_d = torch.empty((grid, T * L), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bm25_tfdl_launch(
+            docs.data_ptr(), tfdl.data_ptr(), docs.shape[0],
+            rowstarts.data_ptr(), nrows.data_ptr(), lens.data_ptr(),
+            skips.data_ptr(), weights.data_ptr(), msm.data_ptr(),
+            avgdl.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
+            QB, T, L, K, float(k1), float(b), float(np.float32(1.0 - b)),
+            cand_s.data_ptr(), cand_d.data_ptr(), grid,
+            scores.data_ptr(), ids.data_ptr(), totals.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"bm25_tfdl kernel launch failed: CUDA error "
+                           f"{err} ({lib.bm25_tfdl_error_string(err).decode()})")
+    COUNTS["launches"] += 1
+    COUNTS["rows"] += QB
+    return scores, ids, totals
+
+
+_RESIDENT: dict = {}
+
+
+def _resident_blocks(lib, dev: torch.device) -> int:
+    """Blocks of the kernel that fit on the card at once (SMs x blocks
+    per SM): the grid of the persistent launch, cached per device."""
+    if dev.index not in _RESIDENT:
+        out = ctypes.c_int(0)
+        err = lib.bm25_tfdl_resident_blocks(ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"bm25_tfdl occupancy query failed: CUDA "
+                               f"error {err}")
+        _RESIDENT[dev.index] = max(int(out.value), 1)
+    return _RESIDENT[dev.index]
+
+
+# rows per plain-version block: bounds its [rows, T, L] temporaries
+_PLAIN_ELEMS = 1 << 22
+
+
+def fused_bm25_topk_tfdl_plain(docs, tfdl, rowstarts, nrows, lens, skips,
+                               weights, msm, avgdl, dlo, dhi, T: int, L: int,
+                               K: int, k1: float, b: float):
+    """The plain PyTorch version of `fused_bm25_topk_tfdl` (same signature,
+    same results bit for bit): gather each slot's window, score every
+    valid posting with the same f32 expression, stable-sort by doc
+    (slot-major input, so a doc's postings stay in slot order), sum each
+    doc's run in slot order with shifted adds, apply msm, count, and take
+    the top K by (score desc, doc asc) with two stable sorts."""
+    QB = rowstarts.shape[0]
+    step = max(1, _PLAIN_ELEMS // (T * L))
+    parts = [_plain_rows(docs, tfdl, rowstarts[i:i + step],
+                         nrows[i:i + step], lens[i:i + step],
+                         skips[i:i + step], weights[i:i + step],
+                         msm[i:i + step], avgdl[i:i + step], dlo[i:i + step],
+                         dhi[i:i + step], T, L, K, k1, b)
+             for i in range(0, QB, step)]
+    if not parts:
+        dev = docs.device
+        return (torch.empty((0, LANES), dtype=torch.float32, device=dev),
+                torch.empty((0, LANES), dtype=torch.int32, device=dev),
+                torch.empty((0, LANES), dtype=torch.int32, device=dev))
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+
+
+def _plain_rows(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
+                avgdl, dlo, dhi, T, L, K, k1, b):
+    from .scoring import posting_contrib
+
+    dev = docs.device
+    QB = rowstarts.shape[0]
+    P = docs.shape[0]
+    pos = torch.arange(L, dtype=torch.int64, device=dev)
+    start = rowstarts.long()[:, :, None] * LANES
+    sk = skips.long()[:, :, None]
+    hi = torch.minimum(sk + lens.long()[:, :, None],
+                       nrows.long()[:, :, None] * LANES)
+    at = start + pos                                   # [QB, T, L]
+    in_win = (pos >= sk) & (pos < hi) & (at < P)
+    at = at.clamp(max=P - 1)
+    d = docs[at]
+    p = tfdl[at]
+    valid = in_win & (d >= dlo[:, :, None]) & (d < dhi[:, :, None])
+    # mask after the arithmetic shift: tf >= 1024 sets the sign bit
+    tf = ((p >> DL_BITS) & TF_MAX).to(torch.float32)
+    dl = (p & DL_MASK).to(torch.float32)
+    c = posting_contrib(tf, dl, weights[:, :, None], k1, b,
+                        avgdl[:, :, None])
+    sent = int(INT_SENTINEL)
+    keys = torch.where(valid, d, torch.full_like(d, sent)).reshape(QB, T * L)
+    c = torch.where(valid, c, torch.zeros_like(c)).reshape(QB, T * L)
+    keys, order = torch.sort(keys, dim=1, stable=True)
+    c = torch.gather(c, 1, order)
+    n = T * L
+    # a doc's run holds <= T postings, in slot order; the run's first
+    # element accumulates the rest left to right
+    acc = c.clone()
+    cnt = torch.ones_like(c)
+    for s in range(1, T):
+        same = torch.zeros_like(keys, dtype=torch.bool)
+        same[:, :n - s] = keys[:, s:] == keys[:, :n - s]
+        nxt = torch.zeros_like(c)
+        nxt[:, :n - s] = c[:, s:]
+        acc = torch.where(same, acc + nxt, acc)
+        cnt = cnt + same.to(torch.float32)
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    passed = first & (keys != sent) & (cnt >= msm)
+    final = torch.where(passed, acc, torch.full_like(acc, NEG_INF))
+    total = passed.sum(dim=1, dtype=torch.int32)
+    # keys are doc-ascending, so a stable sort on -score breaks ties by doc
+    _, top = torch.sort(-final, dim=1, stable=True)
+    top = top[:, :K]
+    sc = torch.gather(final, 1, top)
+    ids = torch.where(sc > NEG_INF, torch.gather(keys, 1, top),
+                      torch.full_like(top, -1, dtype=torch.int32))
+    scores = torch.full((QB, LANES), NEG_INF, dtype=torch.float32,
+                        device=dev)
+    out_ids = torch.full((QB, LANES), -1, dtype=torch.int32, device=dev)
+    scores[:, :K] = sc
+    out_ids[:, :K] = ids.to(torch.int32)
+    return scores, out_ids, total[:, None].expand(QB, LANES).contiguous()

@@ -1,0 +1,153 @@
+"""Rewrite: DSL tree -> logical plan with index-wide statistics (the
+ShardContext and the LTerms rewrite of opensearch_tpu/search/compiler.py).
+
+A term, terms or match query becomes one weighted term group (`LTerms`)
+with the reference's per-term weights (idf x boost, f32) and minimum
+should match. A match whose terms analyze away becomes `LMatchNone`. A
+rewrite the reference would turn into a boolean plan raises
+`NotPortedError`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field as dc_field
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+
+from ..errors import NotPortedError
+from ..index.mappings import KEYWORD_TYPES, Mappings
+from ..index.segment import Segment
+from ..models.similarity import Similarity, resolve_similarity
+from . import query_dsl as dsl
+
+
+class ShardContext:
+    """Index-wide view used during rewrite (reference QueryShardContext)."""
+
+    def __init__(self, mappings: Mappings, segments: List[Segment],
+                 similarity=None):
+        self.mappings = mappings
+        self.segments = segments
+        self.default_sim = resolve_similarity(similarity)
+
+    def sim_for(self, field: str) -> Similarity:
+        return self.default_sim
+
+    @property
+    def num_docs(self) -> int:
+        # incl. deleted, like Lucene maxDoc
+        return sum(s.ndocs for s in self.segments)
+
+    def doc_freq(self, field: str, term: str) -> int:
+        return sum(s.postings[field].doc_freq(term)
+                   for s in self.segments if field in s.postings)
+
+    def field_stats(self, field: str) -> Tuple[int, int]:
+        doc_count, sum_dl = 0, 0
+        for s in self.segments:
+            st = s.text_stats.get(field)
+            if st:
+                doc_count += st.doc_count
+                sum_dl += st.sum_dl
+        return doc_count, sum_dl
+
+    def avgdl(self, field: str) -> float:
+        dc, sdl = self.field_stats(field)
+        return (sdl / dc) if dc > 0 else 1.0
+
+
+@dataclass
+class LNode:
+    name: Optional[str] = None
+
+
+@dataclass
+class LTerms(LNode):
+    """One weighted term group over a field: the fused scoring leaf.
+    mode "filter" scores every match with the constant `boost`."""
+
+    field: str = ""
+    terms: List[str] = dc_field(default_factory=list)
+    weights: Optional[np.ndarray] = None   # f32[T] idf*boost
+    msm: int = 1
+    mode: str = "score"                    # score | filter
+    sim: Optional[Similarity] = None
+    has_norms: bool = True
+    boost: float = 1.0
+
+
+@dataclass
+class LMatchNone(LNode):
+    pass
+
+
+def rewrite(q: dsl.Query, ctx: ShardContext) -> LNode:
+    if isinstance(q, dsl.TermQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        field = ft.name if ft else q.field
+        term = _index_term(q.field, q.value, ctx)
+        if q.case_insensitive:
+            term = term.lower()
+        return _weighted_terms(field, [term], [1.0], ctx, 1, "score", q.boost)
+
+    if isinstance(q, dsl.TermsQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        field = ft.name if ft else q.field
+        terms = [_index_term(q.field, v, ctx) for v in q.values]
+        # terms query is constant-score (reference TermInSetQuery)
+        return _weighted_terms(field, terms, [1.0] * len(terms), ctx, 1,
+                               "filter", q.boost)
+
+    if isinstance(q, dsl.MatchQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        field = ft.name if ft else q.field
+        terms = _analyze_query_text(field, q.query, ctx, q.analyzer)
+        if not terms:
+            return LMatchNone()
+        if q.fuzziness is not None:
+            raise NotPortedError("match [fuzziness] (a bool plan of "
+                                 "expanded terms)")
+        msm = len(terms) if q.operator == "and" else \
+            dsl.parse_minimum_should_match(q.minimum_should_match,
+                                           len(terms)) or 1
+        return _weighted_terms(field, terms, [1.0] * len(terms), ctx, msm,
+                               "score", q.boost)
+
+    raise NotPortedError(f"query [{type(q).__name__}]")
+
+
+def _weighted_terms(field: str, terms: List[str], boosts: List[float],
+                    ctx: ShardContext, msm: int, mode: str,
+                    boost: float) -> LTerms:
+    ft = ctx.mappings.resolve_field(field)
+    sim = ctx.sim_for(field)
+    has_norms = bool(ft is not None and ft.has_norms and sim.uses_norms)
+    n = ctx.num_docs
+    weights = np.zeros(len(terms), dtype=np.float32)
+    for i, t in enumerate(terms):
+        df = ctx.doc_freq(field, t)
+        weights[i] = (sim.term_weight(boosts[i] * boost, n, max(df, 0))
+                      if df > 0 else 0.0)
+    return LTerms(field=field, terms=terms, weights=weights, msm=msm,
+                  mode=mode, sim=sim, has_norms=has_norms, boost=boost)
+
+
+def _analyze_query_text(field: str, text: Any, ctx: ShardContext,
+                        analyzer_override: Optional[str] = None) -> List[str]:
+    ft = ctx.mappings.resolve_field(field)
+    if ft is None:
+        return [str(text)]
+    if analyzer_override:
+        return ctx.mappings.analysis.get(analyzer_override).terms(str(text))
+    return ctx.mappings.search_analyzer_for(ft).terms(str(text))
+
+
+def _index_term(field: str, value: Any, ctx: ShardContext) -> str:
+    """Single exact term for term/terms queries: the keyword normalizer
+    applies, text fields match the raw token (reference TermQueryBuilder)."""
+    ft = ctx.mappings.resolve_field(field)
+    if ft is not None and ft.type in KEYWORD_TYPES:
+        norm = ctx.mappings.index_analyzer(ft).terms(str(value))
+        return norm[0] if norm else str(value)
+    return str(value)
