@@ -5,14 +5,22 @@
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
-  2. build: every CUDA source of the port, compiled with nvcc for sm_90a;
-  3. kernel vs plain: fused_bm25_topk_tfdl against its plain PyTorch
-     version on the card over a grid of shapes; results must be equal;
+  2. build: every CUDA source of the port, compiled with nvcc for sm_90a,
+     one nvcc per library, all started together;
+  3. kernel vs plain: fused_bm25_topk_tfdl and fused_bm25_topk_impact
+     against their plain PyTorch versions on the card over a grid of
+     shapes; results must be equal bit for bit;
   4. slice, small: the same bulk and queries through RestClient on the
-     card and on the CPU; responses must be identical apart from `took`;
+     card and on the CPU over codec-v2 segments, with a term whose row
+     exceeds L_HEAD; responses must be identical apart from `took`, and
+     the verify and candidate-union rungs must each serve a query;
   5. slice at MS MARCO passage scale: a synthetic corpus of --ndocs
-     passages searched with RestClient.msearch, sampled queries held
-     against the plain version on the card.
+     passages attached as one codec-v2 segment, searched with
+     RestClient.msearch twice: the pruned match ladder (the default
+     bodies) and the dense path (the same bodies with track_total_hits);
+     kernel groups of the first batch timed and held against the plain
+     versions, the device phase-2 rescore held against the host oracle,
+     and sampled bodies on the card held against the CPU.
 Then a line with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 """
@@ -25,12 +33,16 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
 NDOCS_MSMARCO = 8_800_000
 BATCH = 64                     # msearch bodies per request in phase 5
+RUNGS = ("pruned_served", "pruned_rescued", "pruned_rescued2",
+         "pruned_dview", "pruned_escalated", "impact_frontier",
+         "shard_view_served")
 
 
 def log(msg: str) -> None:
@@ -134,6 +146,20 @@ def grid_rows(rng, starts, a_starts, QB, T, L):
     return rowstarts, nrows, lens, skips, weights, msm, avgdl, dlo, dhi
 
 
+def _check_equal(got, want, what: str) -> float:
+    """Raise unless kernel and plain outputs are equal bit for bit;
+    returns the largest |score difference| over finite lanes (0.0)."""
+    import torch
+    for g, w, name in zip(got, want, ("scores", "ids", "totals")):
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:4].tolist()
+            raise AssertionError(f"kernel != plain ({name}) at {what}: "
+                                 f"first differing [row, lane] {bad}")
+    fin = torch.isfinite(want[0])
+    return (float((got[0][fin] - want[0][fin]).abs().max())
+            if fin.any() else 0.0)
+
+
 def phase_kernel_grid(dev, rng) -> dict:
     import torch
     from opensearch_tpu_torch.ops import bm25
@@ -163,25 +189,76 @@ def phase_kernel_grid(dev, rng) -> dict:
                 want = plain()
                 torch.cuda.synchronize()
                 launches = bm25.COUNTS["launches"] - before
-                for g, w, what in zip(got, want, ("scores", "ids", "totals")):
-                    if not torch.equal(g, w):
-                        bad = (g != w).nonzero()[:4].tolist()
-                        raise AssertionError(
-                            f"kernel != plain ({what}) at T={T} L={L} K={K}:"
-                            f" first differing [row, lane] {bad}")
-                fin = torch.isfinite(want[0])
-                err = float((got[0][fin] - want[0][fin]).abs().max()) \
-                    if fin.any() else 0.0
-                worst = max(worst, err)
+                worst = max(worst, _check_equal(got, want,
+                                                f"T={T} L={L} K={K}"))
                 nv = valid_postings(a_docs, *host[:4], host[7], host[8], L)
                 b_ms, nbytes = bound_ms(nv, 64)
                 k_ms = cuda_ms(kern, 20)
                 p_ms = cuda_ms(plain, 3)
                 points += 1
-                log(f"  T={T} L={L:6d} K={K:3d} QB=64 equal=yes "
+                log(f"  tfdl   T={T} L={L:6d} K={K:3d} QB=64 equal=yes "
                     f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                     f"bound_ms={b_ms:.5f} bytes={nbytes} "
                     f"valid_postings={nv} launches={launches}")
+    return {"points": points, "max_abs_err": worst}
+
+
+def phase_impact_grid(dev, rng) -> dict:
+    """fused_bm25_topk_impact == plain over T x L x K x QB: msm 1 and T,
+    absent slots, skip prefixes, [dlo, dhi) rows (grid_rows), and a
+    16-bit plane (q up to 65535, at K = 16) and an 8-bit one (q up to
+    255, at K = 128) over the same postings."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+
+    starts, docs, packed = random_csr(rng, 200_000, 120)
+    imp16 = rng.integers(0, 1 << 16, len(docs)).astype(np.int32)
+    imp16[::97] = 65535
+    imp8 = (imp16 >> 8).astype(np.int32)
+    a_starts, a_docs, _a_packed, a16, a8 = bm25.align_csr_rows(
+        starts, docs, packed, imp16, imp8, margin=1 << 17, alignment=128)
+    d_docs = torch.from_numpy(a_docs).to(dev)
+    planes = {16: torch.from_numpy(a16).to(dev),
+              8: torch.from_numpy(a8).to(dev)}
+    worst = 0.0
+    points = 0
+    for T in (1, 2, 4, 8):
+        for L in sorted({1024, 4096, 32768 // T}):
+            for QB in (64, 1024):
+                host = grid_rows(rng, starts, a_starts[:-1], QB, T, L)
+                host = list(host[:4]) + [
+                    (host[4] / 65535.0).astype(np.float32), host[5],
+                    host[7], host[8]]
+                args = [torch.from_numpy(a).to(dev) for a in host]
+                for K in (16, 128):
+                    bits = 16 if K == 16 else 8
+                    d_imp = planes[bits]
+
+                    def kern():
+                        return bm25.fused_bm25_topk_impact(
+                            d_docs, d_imp, *args, T=T, L=L, K=K)
+
+                    def plain():
+                        return bm25.fused_bm25_topk_impact_plain(
+                            d_docs, d_imp, *args, T=T, L=L, K=K)
+                    before = bm25.COUNTS["impact_launches"]
+                    got = kern()
+                    want = plain()
+                    torch.cuda.synchronize()
+                    launches = bm25.COUNTS["impact_launches"] - before
+                    worst = max(worst, _check_equal(
+                        got, want, f"impact T={T} L={L} K={K} QB={QB}"))
+                    nv = valid_postings(a_docs, *host[:4], host[6],
+                                        host[7], L)
+                    b_ms, nbytes = bound_ms(nv, QB)
+                    k_ms = cuda_ms(kern, 10)
+                    p_ms = cuda_ms(plain, 3)
+                    points += 1
+                    log(f"  impact T={T} L={L:6d} K={K:3d} QB={QB:4d} "
+                        f"u{bits} equal=yes kernel_ms={k_ms:.4f} "
+                        f"plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} "
+                        f"bytes={nbytes} valid_postings={nv} "
+                        f"launches={launches}")
     return {"points": points, "max_abs_err": worst}
 
 
@@ -194,7 +271,10 @@ STOPWORDS = ["the", "of", "and", "a", "to", "in", "is"]
 
 def make_text_corpus(rng, ndocs: int):
     """Sentences of Zipf-distributed pseudo-words, stopwords, mixed case,
-    punctuation and a few non-ASCII words."""
+    punctuation and a few non-ASCII words. Each word draw is
+    `rng.choice(words, p=p)` and each stopword `rng.choice(STOPWORDS)`,
+    written out (one uniform against the cumulative p, one integer) so the
+    weights are not re-validated per token; the stream is the same."""
     sy = ["ka", "lo", "mi", "ra", "te", "su", "no", "vi", "de", "po", "zu",
           "an", "el", "or", "ix", "qu"]
     words = sorted({"".join(rng.choice(sy, int(rng.integers(1, 4))))
@@ -202,12 +282,17 @@ def make_text_corpus(rng, ndocs: int):
     words += ["café", "naïve", "Zürich", "straße"]
     p = 1.0 / np.arange(1, len(words) + 1) ** 1.05
     p /= p.sum()
+    cdf = np.cumsum(p)
+    cdf /= cdf[-1]
     docs = []
     for _ in range(ndocs):
         toks = []
         for _ in range(int(rng.integers(4, 60))):
-            toks.append(str(rng.choice(STOPWORDS)) if rng.random() < 0.25
-                        else str(rng.choice(words, p=p)))
+            if rng.random() < 0.25:
+                toks.append(STOPWORDS[int(rng.integers(0, len(STOPWORDS)))])
+            else:
+                toks.append(words[int(cdf.searchsorted(rng.random(),
+                                                       side="right"))])
         toks[0] = toks[0].capitalize()
         text = " ".join(toks).replace(" qu", ", qu") + "."
         docs.append({"body": text, "tag": str(rng.choice(["x", "y", "z"]))})
@@ -251,64 +336,153 @@ def strip_took(resp):
     return resp
 
 
-def phase_slice_small(rng) -> dict:
+def small_corpus(rng, l_head: int):
+    """make_text_corpus grown until "the" (the queried stopword) has more
+    than `l_head` postings in the first segment: (bulk, split, bodies)."""
+    import re
+    ndocs = 8000
+    while True:
+        docs, words = make_text_corpus(rng, ndocs)
+        split = ndocs - 500          # two segments: most docs, then 500
+        df = sum(1 for d in docs[:split]
+                 if "the" in re.findall(r"\w+", d["body"].lower()))
+        if df > l_head:
+            break
+        ndocs *= 2
+    bulk = []
+    for i, d in enumerate(docs):
+        bulk += [{"index": {"_index": "t", "_id": f"d{i}"}}, d]
+    bodies = slice_queries(rng, words) + [
+        {"query": {"match": {"body": "the"}}, "size": 10},
+        {"query": {"match": {"body": "the of"}}, "size": 10},
+        {"query": {"match": {"body": "the of and"}}, "size": 100},
+        {"query": {"match": {"body": f"the {words[0]}"}}, "size": 10},
+        {"query": {"match": {"body": f"the {words[1]} {words[2]}"}},
+         "size": 20},
+        {"query": {"match": {"body": "the a"}}, "track_total_hits": True},
+    ]
+    return bulk, split, df, bodies
+
+
+def run_slice_small(name: str, bulk, split: int, bodies) -> tuple:
+    """Index `bulk` as two segments on a client on `name` and serve
+    `bodies` through msearch, single searches and one chunked search:
+    -> (responses without `took`, kernel counts, rung counts)."""
     from opensearch_tpu_torch import RestClient
     from opensearch_tpu_torch.ops import bm25
     from opensearch_tpu_torch.search import fastpath
 
-    docs, words = make_text_corpus(rng, 4000)
-    bulk = []
-    for i, d in enumerate(docs):
-        bulk += [{"index": {"_index": "t", "_id": f"d{i}"}}, d]
-    queries = slice_queries(rng, words)
-    out = {}
-    counts = {}
-    for name in ("cuda", "cpu"):
-        c = RestClient(device=name)
-        c.indices.create("t", {"mappings": {"properties": {
-            "body": {"type": "text"}}}})
-        t0 = time.perf_counter()
-        c.bulk(bulk[:4000], refresh=True)    # two segments
-        c.bulk(bulk[4000:], refresh=True)
-        t_bulk = time.perf_counter() - t0
-        bm25.reset_counts()
-        t0 = time.perf_counter()
-        ms = c.msearch(sum([[{}, q] for q in queries], []), index="t")
-        singles = [c.search("t", q) for q in queries[:10]]
-        # a stopword-class term split into doc-range chunks: the per-row
-        # budget lowered for this one search
-        saved = fastpath.MAX_TL
-        fastpath.MAX_TL = 2048
-        try:
-            chunked = c.search("t", {"query": {"match": {"body": "the"}},
-                                     "size": 50})
-        finally:
-            fastpath.MAX_TL = saved
-        t_search = time.perf_counter() - t0
-        counts[name] = dict(bm25.COUNTS)
-        out[name] = strip_took([ms, singles, chunked])
-        log(f"  {name}: bulk+refresh {t_bulk:.2f}s, 51 searches "
-            f"{t_search:.2f}s, counts {counts[name]}")
-    if out["cuda"] != out["cpu"]:
-        for i, (a, b) in enumerate(zip(out["cuda"][0]["responses"],
-                                       out["cpu"][0]["responses"])):
+    c = RestClient(device=name)
+    c.indices.create("t", {"mappings": {"properties": {
+        "body": {"type": "text"}}}})
+    t0 = time.perf_counter()
+    c.bulk(bulk[:2 * split], refresh=True)
+    c.bulk(bulk[2 * split:], refresh=True)
+    t_bulk = time.perf_counter() - t0
+    bm25.reset_counts()
+    fastpath.reset_stats()
+    t0 = time.perf_counter()
+    ms = c.msearch(sum([[{}, q] for q in bodies], []), index="t")
+    singles = [c.search("t", q) for q in bodies[:10] + bodies[-6:]]
+    # a stopword-class term split into doc-range chunks: the per-row
+    # budget lowered for this one search
+    saved = fastpath.MAX_TL
+    fastpath.MAX_TL = 2048
+    try:
+        chunked = c.search("t", {"query": {"match": {"body": "the"}},
+                                 "size": 50, "track_total_hits": True})
+    finally:
+        fastpath.MAX_TL = saved
+    t_search = time.perf_counter() - t0
+    counts, rungs = dict(bm25.COUNTS), dict(fastpath.STATS)
+    log(f"  {name}: bulk+refresh {t_bulk:.2f}s, {len(bodies) + 17} "
+        f"searches {t_search:.2f}s, counts {counts}")
+    log(f"  {name}: rungs {rungs}")
+    return strip_took([ms, singles, chunked]), counts, rungs
+
+
+def phase_slice_small(rng) -> dict:
+    from opensearch_tpu_torch.search import fastpath
+
+    bulk, split, df, bodies = small_corpus(rng, fastpath.L_HEAD)
+    log(f"  corpus: {len(bulk) // 2} docs in two segments ({split} + "
+        f"{len(bulk) // 2 - split}); df(the) in the first = {df} > "
+        f"L_HEAD = {fastpath.L_HEAD}")
+    out = {name: run_slice_small(name, bulk, split, bodies)
+           for name in ("cuda", "cpu")}
+    if out["cuda"][0] != out["cpu"][0]:
+        for i, (a, b) in enumerate(zip(out["cuda"][0][0]["responses"],
+                                       out["cpu"][0][0]["responses"])):
             if a != b:
                 raise AssertionError(f"msearch response {i} differs: "
-                                     f"{queries[i]}\n{a}\n{b}")
+                                     f"{bodies[i]}\n{a}\n{b}")
         raise AssertionError("search responses differ between cuda and cpu")
-    if counts["cuda"]["launches"] == 0 or counts["cuda"]["plain_calls"]:
-        raise AssertionError(f"cuda slice did not run the kernel only: "
-                             f"{counts['cuda']}")
-    hits = sum(r["hits"]["total"]["value"]
-               for r in out["cuda"][0]["responses"])
-    log(f"  responses identical over {len(queries)} msearch bodies, 10 "
-        f"searches and 1 chunked search ({hits} total hits)")
-    return counts["cuda"]
+    counts, rungs = out["cuda"][1], out["cuda"][2]
+    if counts["launches"] == 0 or counts["impact_launches"] == 0 \
+            or counts["plain_calls"]:
+        raise AssertionError(f"cuda slice did not run both kernels only: "
+                             f"{counts}")
+    if rungs != out["cpu"][2]:
+        raise AssertionError(f"rungs differ: cuda {rungs} cpu "
+                             f"{out['cpu'][2]}")
+    if rungs["pruned_served"] == 0 or rungs["pruned_rescued"] == 0:
+        raise AssertionError(f"no query served by verify or by phase 2: "
+                             f"{rungs}")
+    if rungs["pruned_dview"] == 0:
+        log(f"  no query reached the quality tier: its segments hold "
+            f"fewer than QUALITY_MIN_NDOCS = {fastpath.QUALITY_MIN_NDOCS} "
+            f"docs")
+    rels = Counter(r["hits"]["total"]["relation"]
+                   for r in out["cuda"][0][0]["responses"])
+    log(f"  responses identical over {len(bodies)} msearch bodies, 16 "
+        f"searches and 1 chunked search (relations {dict(rels)})")
+    return counts
 
 
 # ---------------------------------------------------------------------
 # phase 5: MS MARCO passage scale
 # ---------------------------------------------------------------------
+
+def run_batches(client, bodies) -> tuple:
+    """`bodies` through RestClient.msearch in BATCH-body requests, counts
+    and rungs set to 0 just before: -> (responses, wall s, batch ms,
+    kernel counts, rung counts)."""
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import fastpath
+
+    bm25.reset_counts()
+    fastpath.reset_stats()
+    lat = []
+    resps = []
+    t0 = time.perf_counter()
+    for i in range(0, len(bodies), BATCH):
+        tb = time.perf_counter()
+        resps += client.msearch(sum([[{}, b] for b in bodies[i:i + BATCH]],
+                                    []), index="bench")["responses"]
+        lat.append((time.perf_counter() - tb) * 1e3)
+    wall = time.perf_counter() - t0
+    counts, rungs = dict(bm25.COUNTS), dict(fastpath.STATS)
+    for r in resps:
+        hits = r["hits"]["hits"]
+        if r["hits"]["total"]["value"] and not hits:
+            raise AssertionError(f"hits missing from a response: {r}")
+        sc = [h["_score"] for h in hits]
+        if not all(np.isfinite(sc)) or sc != sorted(sc, reverse=True):
+            raise AssertionError(f"bad scores in a response: {sc}")
+    return resps, wall, lat, counts, rungs
+
+
+def log_run(what: str, n: int, wall: float, lat, counts, rungs, resps):
+    rels = Counter(r["hits"]["total"]["relation"] for r in resps)
+    log(f"  {what}: queries={n} batch={BATCH} wall_s={wall:.2f} "
+        f"qps={n / wall:.1f} batch_ms_p50={np.percentile(lat, 50):.1f} "
+        f"batch_ms_p99={np.percentile(lat, 99):.1f} "
+        f"tfdl_launches={counts['launches']} tfdl_rows={counts['rows']} "
+        f"impact_launches={counts['impact_launches']} "
+        f"impact_rows={counts['impact_rows']} "
+        f"plain_calls={counts['plain_calls']} relations={dict(rels)}")
+    log(f"  {what}: rungs " + " ".join(f"{k}={rungs[k]}" for k in RUNGS))
+
 
 def phase_msmarco(ndocs: int, nq: int) -> dict:
     import torch
@@ -321,16 +495,28 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
     corpus = bc.build_corpus(ndocs)
     t_corpus = time.perf_counter() - t0
     client = RestClient(device="cuda")
-    seg = bc.make_index(client, corpus)
+    dev = client.device
     t1 = time.perf_counter()
-    al = fastpath.get_aligned(seg, "body", client.device)
+    seg = bc.make_index(client, corpus)
+    torch.cuda.synchronize()
+    t_planes = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    al = fastpath.get_aligned(seg, "body", dev)
     torch.cuda.synchronize()
     t_align = time.perf_counter() - t1
     starts, _docs, _tfs, dl, df = corpus
-    P = len(corpus[1])
-    log(f"  corpus: ndocs={ndocs} postings={P} tokens={int(dl.sum())} "
-        f"host_build_s={t_corpus:.1f} align_upload_s={t_align:.1f} "
-        f"resident_bytes={al.nbytes}")
+    pb = seg.postings["body"]
+    big = al.lens > fastpath.L_HEAD
+    n_head = int(al.head_lens[big].sum())
+    log(f"  corpus: ndocs={ndocs} postings={pb.size} tokens={int(dl.sum())}"
+        f" codec=v{seg.codec_version} impact_bits={pb.impact.bits} "
+        f"host_build_s={t_corpus:.1f} planes_s={t_planes:.1f} "
+        f"heads_align_upload_s={t_align:.1f} clamped_rows={int(big.sum())}"
+        f" clamped_postings={int(al.lens[big].sum())}")
+    log(f"  resident bytes: docs={al.d_docs.numel() * 4} "
+        f"tfdl={al.d_tfdl.numel() * 4} impacts={al.d_imp.numel() * 4} "
+        f"(of which heads: {12 * n_head} over {n_head} head postings) "
+        f"total={al.nbytes}")
     vs = bc.vocab_strings(len(starts) - 1)
     q2 = bc.pick_queries(df, nq // 2)
     q6 = bc.pick_queries_real(df, nq // 2)
@@ -341,112 +527,165 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
                        "size": 10})
         bodies.append({"query": {"match": {"body": " ".join(
             vs[t] for t in q6[i])}}, "size": 10})
-    # main path: RestClient.msearch in batches, counts from 0
-    bm25.reset_counts()
-    lat = []
-    resps = []
-    t2 = time.perf_counter()
-    for i in range(0, nq, BATCH):
-        tb = time.perf_counter()
-        resps += client.msearch(sum([[{}, b] for b in bodies[i:i + BATCH]],
-                                    []), index="bench")["responses"]
-        lat.append((time.perf_counter() - tb) * 1e3)
-    wall = time.perf_counter() - t2
-    counts = dict(bm25.COUNTS)
-    for r in resps:
-        hits = r["hits"]["hits"]
-        if r["hits"]["total"]["value"] and not hits:
-            raise AssertionError(f"hits missing from a response: {r}")
-        sc = [h["_score"] for h in hits]
-        if not all(np.isfinite(sc)) or sc != sorted(sc, reverse=True):
-            raise AssertionError(f"bad scores in a response: {sc}")
-    log(f"  msearch: queries={nq} batch={BATCH} wall_s={wall:.2f} "
-        f"qps={nq / wall:.1f} batch_ms_p50={np.percentile(lat, 50):.1f} "
-        f"batch_ms_p99={np.percentile(lat, 99):.1f} "
-        f"kernel_launches={counts['launches']} kernel_rows={counts['rows']}"
-        f" plain_calls={counts['plain_calls']}")
-    if counts["launches"] == 0 or counts["plain_calls"] != 0:
-        raise AssertionError(f"main path did not run the kernel only: "
-                             f"{counts}")
+
+    # the main path: the pruned match ladder (slice 2)
+    resps, wall, lat, counts, rungs = run_batches(client, bodies)
+    log_run("pruned msearch", nq, wall, lat, counts, rungs, resps)
+    if counts["impact_launches"] == 0 or counts["plain_calls"] != 0:
+        raise AssertionError(f"pruned path did not run the impact kernel "
+                             f"only: {counts}")
+    # the dense path (slice 1): exact totals demanded
+    dense_bodies = [dict(b, track_total_hits=True) for b in bodies]
+    d_resps, d_wall, d_lat, d_counts, d_rungs = run_batches(client,
+                                                            dense_bodies)
+    log_run("dense msearch (track_total_hits)", nq, d_wall, d_lat,
+            d_counts, d_rungs, d_resps)
+    if d_counts["launches"] == 0 or d_counts["plain_calls"] != 0 \
+            or d_counts["impact_launches"] != 0:
+        raise AssertionError(f"dense path did not run the tf.dl kernel "
+                             f"only: {d_counts}")
+    # every pruned page is the exact page: same ids and scores as the
+    # dense kernel's; totals equal or, relation gte, a lower bound
+    for b, r, d in zip(bodies, resps, d_resps):
+        rh = [(h["_id"], h["_score"]) for h in r["hits"]["hits"]]
+        dh = [(h["_id"], h["_score"]) for h in d["hits"]["hits"]]
+        rt, dt = r["hits"]["total"], d["hits"]["total"]
+        if rh != dh or dt["relation"] != "eq" or not (
+                rt == dt if rt["relation"] == "eq"
+                else rt["value"] <= dt["value"]):
+            raise AssertionError(f"pruned page != dense page for {b}:\n"
+                                 f"{r['hits']}\n{d['hits']}")
+    log(f"  pruned pages == dense pages (ids and scores) for all {nq} "
+        f"bodies; totals equal or lower bounds")
+    qv = seg.aligned.get(("quality", "body", str(dev)))
+    if qv is not None:
+        fp = fastpath._filtered_postings(seg, "body", qv[0], dev)
+        vb = fastpath.get_aligned(fp.view, "body", dev).nbytes
+        log(f"  quality view resident bytes: {vb} over {qv[0].n} docs "
+            f"(mask and list {qv[0].nbytes})")
 
     profile_batch(client, bodies[:BATCH])
 
     ctx = client._indices["bench"].searcher.context()
 
-    def plan(idx):
-        lts = [C.rewrite(dsl.parse_query(bodies[i]["query"]), ctx)
-               for i in idx]
-        return fastpath._prepare_vqueries(seg, ctx, lts, {}, client.device)
+    def lts_of(idx):
+        return [C.rewrite(dsl.parse_query(bodies[i]["query"]), ctx)
+                for i in idx]
 
-    # kernel rows per query, as the planner made them for the main path
+    # kernel rows per query: pruned (one head row) and dense (chunks)
     rows_q = {2: [], 6: []}
     for i in range(0, nq, BATCH):
         idx = range(i, min(nq, i + BATCH))
-        for j, vq in zip(idx, plan(idx)):
+        for j, vq in zip(idx, fastpath._prepare_vqueries(
+                seg, ctx, lts_of(idx), {}, dev)):
             rows_q[2 if j % 2 == 0 else 6].append(vq.n if vq else 0)
     for nt, rs in rows_q.items():
         hist = sorted(Counter(rs).items())
-        log(f"  rows per {nt}-term query: {len(rs)} queries, "
+        log(f"  dense rows per {nt}-term query: {len(rs)} queries, "
             f"{sum(rs)} rows, histogram (rows: queries) "
             f"{', '.join(f'{r}: {c}' for r, c in hist)}")
-    per_batch = [sum(rows_q[2][i:i + BATCH // 2]) +
-                 sum(rows_q[6][i:i + BATCH // 2])
-                 for i in range(0, nq // 2, BATCH // 2)]
-    log(f"  kernel rows per {BATCH}-body batch: min {min(per_batch)} "
-        f"median {int(np.median(per_batch))} max {max(per_batch)}")
+    first = range(BATCH)
+    pruned = fastpath._prepare_vqueries(seg, ctx, lts_of(first), {}, dev,
+                                        prune=[True] * BATCH)
+    log(f"  pruned rows per query: 1 (first batch: {len(pruned)} head rows,"
+        f" {sum(v.clamped for v in pruned)} clamped, "
+        f"{sum(v.impact_pass for v in pruned)} on the impact kernel)")
 
+    a_docs = al.d_docs.cpu().numpy()
     worst = 0.0
 
-    def check(pend, what):
+    def timed(gvqs, kl, impact):
+        """One group of the first batch, launched whole as the main path
+        launches it: kernel == plain, then both timed."""
         nonlocal worst
-        for gvqs, got in pend:
-            # rebuild the group's inputs exactly as the launch made them
-            sub = fastpath._launch_inputs(gvqs, client.device)
-            T, L = gvqs[0].T_pad, max(v.L for v in gvqs)
+        T, L = gvqs[0].T_pad, max(v.L for v in gvqs)
+        if impact:
+            sub = fastpath._launch_inputs(gvqs, dev, pb.impact.scale)
+
+            def kern():
+                return bm25.fused_bm25_topk_impact(
+                    al.d_docs, al.d_imp, *sub, T=T, L=L, K=kl)
+
+            def plain():
+                return bm25.fused_bm25_topk_impact_plain(
+                    al.d_docs, al.d_imp, *sub, T=T, L=L, K=kl)
+            lo_hi = (sub[6], sub[7])
+        else:
+            sub = fastpath._launch_inputs(gvqs, dev)
             k1, b = gvqs[0].k1, gvqs[0].b_eff
-            want = bm25.fused_bm25_topk_tfdl_plain(
-                al.d_docs, al.d_tfdl, *sub, T=T, L=L, K=16, k1=k1, b=b)
-            for g, w, name in zip(got, want, ("scores", "ids", "totals")):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"{what}: kernel != plain ({name}) "
-                                         f"for group T={T} L={L}")
-            fin = torch.isfinite(want[0])
-            if fin.any():
-                worst = max(worst, float((got[0][fin] - want[0][fin]).abs()
-                                         .max()))
-            yield T, L, k1, b, sub
 
-    # 32 sampled queries: kernel rows against the plain version on the card
-    srng = np.random.default_rng(7)
-    sample = sorted(srng.choice(nq, 32, replace=False).tolist())
-    vqs = plan(sample)
-    rows = sum(v.n for v in vqs if v)
-    for _ in check(fastpath._launch_groups(seg, vqs, 16, client.device),
-                   "sampled queries"):
-        pass
-    log(f"  32 sampled queries ({rows} kernel rows): kernel == plain")
+            def kern():
+                return bm25.fused_bm25_topk_tfdl(
+                    al.d_docs, al.d_tfdl, *sub, T=T, L=L, K=kl, k1=k1, b=b)
 
-    # kernel time: every group of the first batch, launched whole as the
-    # main path launches it (K = 16 for size 10)
-    a_docs = al.d_docs.cpu().numpy()
-    timed = None
-    for T, L, k1, b, sub in check(fastpath._launch_groups(
-            seg, plan(range(BATCH)), 16, client.device), "first batch"):
+            def plain():
+                return bm25.fused_bm25_topk_tfdl_plain(
+                    al.d_docs, al.d_tfdl, *sub, T=T, L=L, K=kl, k1=k1, b=b)
+            lo_hi = (sub[7], sub[8])
+        what = f"first batch {'impact' if impact else 'tfdl'} T={T} L={L}"
+        worst = max(worst, _check_equal(kern(), plain(), what))
         QB = sub[0].shape[0]
-        k_ms = cuda_ms(lambda: bm25.fused_bm25_topk_tfdl(
-            al.d_docs, al.d_tfdl, *sub, T=T, L=L, K=16, k1=k1, b=b), 20)
-        p_ms = cuda_ms(lambda: bm25.fused_bm25_topk_tfdl_plain(
-            al.d_docs, al.d_tfdl, *sub, T=T, L=L, K=16, k1=k1, b=b), 3)
-        host = [s.cpu().numpy() for s in sub]
-        nv = valid_postings(a_docs, *host[:4], host[7], host[8], L)
+        k_ms = cuda_ms(kern, 20)
+        p_ms = cuda_ms(plain, 3)
+        host = [x.cpu().numpy() for x in sub[:4] + list(lo_hi)]
+        nv = valid_postings(a_docs, *host, L)
         b_ms, nbytes = bound_ms(nv, QB)
-        log(f"  first batch, group T={T} L={L} QB={QB} (whole launch): "
-            f"kernel == plain, kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} "
-            f"bound_ms={b_ms:.4f} bytes={nbytes} valid_postings={nv}")
-        if timed is None or QB > timed["QB"]:
-            timed = {"QB": QB, "ms": k_ms, "plain_ms": p_ms,
-                     "bound_ms": b_ms}
-    return {"launches": counts["launches"], "max_abs_err": worst, **timed}
+        log(f"  {what} QB={QB} K={kl} (whole launch): kernel == plain, "
+            f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f}"
+            f" bytes={nbytes} valid_postings={nv}")
+        return {"QB": QB, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
+
+    def largest(groups):
+        return max(groups, key=lambda g: g["bound_ms"]) if groups else None
+
+    # B1: the dense plan of the first batch (K = 16 for size 10)
+    dense_plan = fastpath._prepare_vqueries(seg, ctx, lts_of(first), {},
+                                            dev)
+    b1 = largest([timed(g, kl, False) for g, kl, _ in
+                  fastpath._launch_groups(seg, dense_plan, 16, dev)])
+    # B2: the pruned plan of the first batch (K = 128 on head rows)
+    b2 = largest([timed(g, kl, True) for g, kl, _ in
+                  fastpath._launch_groups(seg, pruned, 16, dev)
+                  if g[0].impact_pass])
+    torch.cuda.synchronize()
+
+    # phase-2 rescore of the first batch's clamped queries: device
+    # batches == the host oracle, bit for bit
+    jobs = [(vq, fastpath._p2_candidates(vq, pb, al.head_ids.get))
+            for vq in pruned if vq.clamped]
+    t2 = time.perf_counter()
+    got = fastpath._rescore_many_device(seg, jobs, dev)
+    t_dev = time.perf_counter() - t2
+    ncand = 0
+    for (vq, cand), (exact, cnt) in zip(jobs, got):
+        want_x, want_c = fastpath._exact_rescore(seg, vq, cand)
+        if exact.tobytes() != want_x.tobytes() \
+                or not np.array_equal(cnt, want_c):
+            raise AssertionError("device rescore != host _exact_rescore")
+        ncand += len(cand)
+    log(f"  device phase-2 rescore == host _exact_rescore over {len(jobs)}"
+        f" jobs, {ncand} candidates (device {t_dev * 1e3:.1f} ms)")
+
+    # sampled bodies through the port on the card and on the CPU, the
+    # same segment object
+    srng = np.random.default_rng(7)
+    sample = sorted(srng.choice(nq, 64, replace=False).tolist())
+    lines = sum([[{}, bodies[i]] for i in sample], [])
+    cpu = RestClient(device="cpu")
+    cpu.indices.create("bench", {"mappings": {"properties": {
+        "body": {"type": "text"}}}})
+    cpu._indices["bench"].engine.segments = [seg]
+    t3 = time.perf_counter()
+    on_cpu = strip_took(cpu.msearch(lines, index="bench"))
+    t_cpu = time.perf_counter() - t3
+    on_card = strip_took(client.msearch(lines, index="bench"))
+    if on_card != on_cpu:
+        raise AssertionError("64 sampled bodies: card and CPU responses "
+                             "differ")
+    log(f"  64 sampled bodies: card == CPU responses (CPU {t_cpu:.1f}s)")
+    return {"tfdl_launches": d_counts["launches"],
+            "impact_launches": counts["impact_launches"],
+            "max_abs_err": worst, "b1": b1, "b2": b2}
 
 
 def profile_batch(client, bodies) -> None:
@@ -516,16 +755,25 @@ def main() -> int:
 
     log("[2] build")
     t0 = time.perf_counter()
-    report = _build.build("bm25_tfdl")
-    log(f"  built bm25_tfdl in {time.perf_counter() - t0:.1f}s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  bm25_tfdl: {line.strip()}")
+    names = sorted(_build.SIGNATURES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        reports = dict(zip(names, pool.map(_build.build, names)))
+    log(f"  built {', '.join(names)} in {time.perf_counter() - t0:.1f}s "
+        f"(one nvcc each, in parallel)")
+    for name in names:
+        for line in reports[name].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    from opensearch_tpu_torch.ops import bm25
+    log("  resident blocks (persistent grid): " + ", ".join(
+        f"{n}={bm25.resident_blocks(n, dev)}" for n in names))
 
     rng = np.random.default_rng(args.seed)
     log("[3] kernel vs plain")
     grid = phase_kernel_grid(dev, rng)
-    log(f"  {grid['points']} grid points equal")
+    log(f"  tfdl: {grid['points']} grid points equal")
+    igrid = phase_impact_grid(dev, rng)
+    log(f"  impact: {igrid['points']} grid points equal")
 
     log("[4] slice, small: RestClient on cuda vs cpu")
     phase_slice_small(rng)
@@ -540,10 +788,18 @@ def main() -> int:
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_tfdl.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:343",
-        "launches": big["launches"],
+        "launches": big["tfdl_launches"],
         "max_abs_err": max(grid["max_abs_err"], big["max_abs_err"]),
-        "ms": big["ms"], "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"], "bound_by": "bytes",
+        "ms": big["b1"]["ms"], "plain_ms": big["b1"]["plain_ms"],
+        "bound_ms": big["b1"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "parity": "exact"}, {
+        "name": "fused_bm25_topk_impact", "route": "cuda",
+        "source": "opensearch_tpu_torch/csrc/bm25_impact.cu",
+        "replaces": "opensearch_tpu/ops/pallas_bm25.py:820",
+        "launches": big["impact_launches"],
+        "max_abs_err": max(igrid["max_abs_err"], big["max_abs_err"]),
+        "ms": big["b2"]["ms"], "plain_ms": big["b2"]["plain_ms"],
+        "bound_ms": big["b2"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "parity": "exact"}]
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,8 @@
 """MS-MARCO-passage-shaped synthetic corpus and query pickers (copies of
 the corpus builder, index attach and query pickers of the repo's bench.py),
-attached to a port index as one codec-v1 segment.
+attached to a port index as one segment, codec v2 (impact planes built on
+the client's device) unless OPENSEARCH_TPU_CODEC=1, as bench.py attaches
+it.
 
 The corpus is made from a seed: lognormal doc lengths around 56 tokens
 (8..256), Zipf(1.15) terms over a 200k vocabulary, one posting per
@@ -80,7 +82,7 @@ def make_index(client, corpus, name: str = "bench"):
         {"body": {"vocab": vocab_strings(len(starts) - 1), "starts": starts,
                   "doc_ids": doc_ids, "tfs": tfs}},
         {"body": dl}, {"body": (ndocs, int(dl.sum()))},
-        LazyIds(ndocs), LazySources(ndocs))
+        LazyIds(ndocs), LazySources(ndocs), device=client.device)
     client.indices.create(name, {"mappings": {"properties": {
         "body": {"type": "text"}}}})
     client._indices[name].engine.segments = [seg]

@@ -1,8 +1,10 @@
 """Build a port Segment from plain numpy arrays and Python lists.
 
-The arguments are exactly what a codec-v1 opensearch_tpu Segment holds for
-its inverted fields, so a segment built there (or a CSR corpus made from a
-seed, as `bench_corpus.py` does) carries across without re-indexing.
+The arguments are exactly what an opensearch_tpu Segment holds for its
+inverted fields (CSR postings, doc lengths, text stats and, on codec v2,
+each field's ImpactPlane arrays), so a segment built there (or a CSR
+corpus made from a seed, as `bench_corpus.py` does) carries across without
+re-indexing.
 """
 
 from __future__ import annotations
@@ -11,7 +13,11 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .segment import PostingsBlock, Segment, TextFieldStats
+from .segment import (CODEC_V2, ImpactPlane, PostingsBlock, Segment,
+                      TextFieldStats, default_codec_version)
+
+IMPACT_FIELDS = ("q", "scale", "bits", "k1", "b", "avgdl", "dl_max",
+                 "block_starts", "block_off", "block_max")
 
 
 def segment_from_arrays(name: str, ndocs: int,
@@ -19,11 +25,19 @@ def segment_from_arrays(name: str, ndocs: int,
                         doc_lens: Dict[str, np.ndarray],
                         text_stats: Dict[str, Tuple[int, int]],
                         ids: Sequence[str], sources: Sequence[dict],
-                        live: Optional[np.ndarray] = None) -> Segment:
+                        live: Optional[np.ndarray] = None,
+                        impacts: Optional[Dict[str, dict]] = None,
+                        device=None) -> Segment:
     """`postings[field]` = dict(vocab, starts, doc_ids, tfs) in CSR form
     (vocab sorted, docs ascending per row); `text_stats[field]` =
     (doc_count, sum_dl); `live` None means no deletes. `ids`/`sources` may
-    be any indexable sequences (a lazy view serves a synthetic corpus)."""
+    be any indexable sequences (a lazy view serves a synthetic corpus).
+
+    `impacts[field]` = dict of IMPACT_FIELDS (a reference segment's
+    ImpactPlane) attaches those planes as they are and stamps the segment
+    codec v2. Without it the segment is codec v2 with planes built here
+    (quantized on `device`), unless OPENSEARCH_TPU_CODEC=1 pins v1, as a
+    refresh does."""
     blocks = {}
     for field, p in postings.items():
         vocab = list(p["vocab"])
@@ -48,4 +62,11 @@ def segment_from_arrays(name: str, ndocs: int,
                   else {})
     if live is not None:
         seg.live = np.asarray(live, bool).copy()
+    if impacts is not None:
+        for field, fields in impacts.items():
+            blocks[field].impact = ImpactPlane(
+                **{k: fields[k] for k in IMPACT_FIELDS})
+        seg.codec_version = CODEC_V2
+    elif default_codec_version() >= CODEC_V2:
+        seg.build_impacts(device=device)
     return seg

@@ -3,7 +3,8 @@ opensearch_tpu/index/engine.py; no translog, no flush, no merge in this
 slice).
 
 Write path: parse -> version/concurrency check -> in-memory buffer.
-`refresh()` turns the buffer into an immutable Segment.
+`refresh()` turns the buffer into an immutable Segment (codec v2 by
+default, its impact planes quantized on the engine's device).
 """
 
 from __future__ import annotations
@@ -34,8 +35,10 @@ class DocLocation:
 
 
 class Engine:
-    def __init__(self, mappings: Mappings, primary_term: int = 1):
+    def __init__(self, mappings: Mappings, primary_term: int = 1,
+                 device=None):
         self.mappings = mappings
+        self.device = device
         self.primary_term = primary_term
         self.segments: List[Segment] = []
         self.buffer: List[Optional[ParsedDocument]] = []
@@ -122,7 +125,7 @@ class Engine:
         docs = [d for d, _ in live]
         seqs = [s for _, s in live]
         seg = build_segment(f"_{self._seg_counter}", docs, self.mappings,
-                            seq_nos=seqs)
+                            seq_nos=seqs, device=self.device)
         self._seg_counter += 1
         self.segments.append(seg)
         for local, (d, s) in enumerate(live):

@@ -1,5 +1,5 @@
-"""Immutable index segments, codec v1 (the CSR-postings subset of
-opensearch_tpu/index/segment.py).
+"""Immutable index segments, codecs v1 and v2 (the CSR-postings and
+impact-plane subset of opensearch_tpu/index/segment.py).
 
 Postings for one field are a CSR matrix over (term row -> doc postings):
 `starts[t]..starts[t+1]` index flat `doc_ids` / `tfs` arrays, rows in
@@ -7,19 +7,178 @@ sorted-vocab order, docs ascending within a row. `doc_lens` holds each text
 field's per-doc token count and `text_stats` its (doc_count, sum_dl), the
 collection statistics BM25 reads. Everything here is host numpy: the
 search layer builds the device-resident aligned layout it needs
-(`search/fastpath.py`). No impact plane (codec v2) in this slice.
+(`search/fastpath.py`).
+
+Codec v2 (the default for new segments, as in the reference) adds a
+per-field impact plane: the BM25 tf-saturation tf/(tf + k1(1-b+b dl/avgdl))
+evaluated at build time under nominal similarity parameters, quantized to
+u8/u16 with one global per-field scale, plus a per-128-posting block-max
+sidecar. The quantizer runs as torch ops on the engine's device for large
+planes (`ops/device_merge.py`) and in numpy below DEVICE_IMPACT_MIN
+postings, as the reference does. Feature planes (rank_features) are not
+ported.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..errors import NotPortedError
 from .mappings import Mappings
 
 CODEC_V1 = 1
+CODEC_V2 = 2
+IMPACT_BLOCK = 128        # postings per block-max sidecar entry
+IMPACT_K1 = 1.2           # nominal build-time similarity params; query-time
+IMPACT_B = 0.75           # drift is bounded by ImpactPlane.drift_bound
+
+
+def default_codec_version() -> int:
+    """Codec for NEW segments (refresh). OPENSEARCH_TPU_CODEC=1 pins the
+    tf-only format, as in the reference."""
+    return CODEC_V1 if os.environ.get("OPENSEARCH_TPU_CODEC") == "1" \
+        else CODEC_V2
+
+
+def default_impact_bits() -> int:
+    """Impact quantization width: 16 (default) or 8 via
+    OPENSEARCH_TPU_IMPACT_BITS=8, as in the reference."""
+    return 8 if os.environ.get("OPENSEARCH_TPU_IMPACT_BITS") == "8" else 16
+
+
+@dataclass
+class ImpactPlane:
+    """Quantized eager BM25 impacts for one field's CSR postings (codec
+    v2). `q[i] * scale` ~= tf_i/(tf_i + k1(1-b+b dl_i/avgdl)) at the
+    BUILD-time nominal (k1, b, avgdl); dequantize through
+    `ops/scoring.dequant_impact_np`. The block sidecar stores, per
+    IMPACT_BLOCK-posting run of each row, the max quantized impact."""
+
+    q: np.ndarray             # u8/u16[P] quantized impacts, CSR-flat
+    scale: float              # dequant scale: impact ~= q * scale
+    bits: int                 # 8 | 16
+    k1: float                 # build-time nominal similarity params
+    b: float
+    avgdl: float
+    dl_max: int               # max doc length seen (drift bound input)
+    block_starts: np.ndarray  # i64[nterms+1] block-CSR row pointers
+    block_off: np.ndarray     # i64[nblocks] flat element start per block
+    block_max: np.ndarray     # u8/u16[nblocks] max q per block
+
+    @property
+    def qmax(self) -> int:
+        return (1 << self.bits) - 1
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.q.nbytes + self.block_max.nbytes
+                   + self.block_off.nbytes + self.block_starts.nbytes)
+
+    def quant_err(self) -> float:
+        """Sound per-posting |exact f32 impact - q*scale| bound at the
+        BUILD params: half a quantization step plus f32 slack for the
+        dequant multiply."""
+        top = np.float32(self.scale) * np.float32(self.qmax)
+        return float(self.scale) * 0.5 + 2.0 * float(np.spacing(top))
+
+    def drift_bound(self, k1q: float, bq: float, avgdlq: float) -> float:
+        """Sound bound on |f_query - f_build| per posting when query-time
+        (k1, b, avgdl) differ from the baked build params: with
+        k(dl) = k1(1-b+b dl/avgdl) linear in dl, dk is maximized at a dl
+        endpoint, and tf/((tf+ka)(tf+kb)) <= 1/(sqrt(ka)+sqrt(kb))^2 (or
+        its tf=1 value when the unconstrained max lies below tf=1)."""
+        if (float(k1q) == float(self.k1) and float(bq) == float(self.b)
+                and float(avgdlq) == float(self.avgdl)):
+            return 0.0
+
+        def k_of(dl, k1, b, avg):
+            return k1 * (1.0 - b + b * dl / max(avg, 1e-9))
+
+        dk = max(abs(k_of(0.0, k1q, bq, avgdlq)
+                     - k_of(0.0, self.k1, self.b, self.avgdl)),
+                 abs(k_of(float(self.dl_max), k1q, bq, avgdlq)
+                     - k_of(float(self.dl_max), self.k1, self.b,
+                            self.avgdl)))
+        ka = max(k_of(0.0, k1q, bq, avgdlq), 0.0)
+        kb = max(k_of(0.0, self.k1, self.b, self.avgdl), 0.0)
+        if ka * kb >= 1.0:
+            g = 1.0 / (math.sqrt(ka) + math.sqrt(kb)) ** 2
+        else:
+            g = 1.0 / ((1.0 + ka) * (1.0 + kb))
+        return min(dk * g, 1.0)
+
+    def row_block_range(self, row: int) -> Tuple[int, int]:
+        return int(self.block_starts[row]), int(self.block_starts[row + 1])
+
+
+def build_impact_plane(pb: "PostingsBlock", dl: Optional[np.ndarray],
+                       avgdl: Optional[float] = None,
+                       bits: Optional[int] = None,
+                       device=None) -> Optional[ImpactPlane]:
+    """Quantize one field's eager impacts + block-max sidecar (the codec
+    v2 build step of refresh and of direct corpus wrappers). Planes of at
+    least DEVICE_IMPACT_MIN postings quantize as torch ops on `device`
+    (the CPU when None), smaller ones in numpy, as the reference splits
+    them."""
+    if pb.size == 0:
+        return None
+    bits = default_impact_bits() if bits is None else int(bits)
+    tfs = pb.tfs.astype(np.float32)
+    if dl is not None:
+        dl_of = dl[pb.doc_ids].astype(np.float32)
+        dl_max = int(dl.max()) if len(dl) else 0
+    else:
+        dl_of = np.zeros(pb.size, np.float32)
+        dl_max = 0
+    if avgdl is None:
+        pos = dl_of[dl_of > 0]
+        avgdl = float(pos.mean()) if len(pos) else 1.0
+    avgdl = max(float(avgdl), 1e-9)
+    from ..ops.device_merge import quantize_impacts, use_device_impacts
+    qmax = (1 << bits) - 1
+    if use_device_impacts(pb.size):
+        q32, scale = quantize_impacts(tfs, dl_of, IMPACT_K1, IMPACT_B,
+                                      avgdl, qmax, device)
+        q = q32.astype(np.uint8 if bits == 8 else np.uint16)
+    else:
+        kfac = IMPACT_K1 * (1.0 - IMPACT_B + IMPACT_B * dl_of / avgdl)
+        imp = tfs / (tfs + kfac)
+        m = float(imp.max()) if len(imp) else 0.0
+        scale = (m / qmax) if m > 0 else 1.0
+        q = np.minimum(np.round(imp / np.float32(scale)), qmax).astype(
+            np.uint8 if bits == 8 else np.uint16)
+    block_starts, block_off, block_max = _impact_sidecar(pb, q)
+    return ImpactPlane(q=q, scale=float(scale), bits=bits,
+                       k1=IMPACT_K1, b=IMPACT_B, avgdl=float(avgdl),
+                       dl_max=dl_max, block_starts=block_starts,
+                       block_off=block_off, block_max=block_max)
+
+
+def _impact_sidecar(pb: "PostingsBlock", q: np.ndarray):
+    """Per-IMPACT_BLOCK-posting block-max sidecar over one quantized
+    plane: (block_starts i64[nterms+1], block_off i64[nblocks],
+    block_max u8/u16[nblocks])."""
+    lens = np.diff(pb.starts)
+    nblk = -(-lens // IMPACT_BLOCK)           # ceil; empty rows -> 0 blocks
+    block_starts = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(nblk, out=block_starts[1:])
+    nblocks = int(block_starts[-1])
+    if nblocks:
+        # flat element offset of each block: row start + j*IMPACT_BLOCK
+        row_of_blk = np.repeat(np.arange(len(lens), dtype=np.int64), nblk)
+        j = np.arange(nblocks, dtype=np.int64) - block_starts[row_of_blk]
+        block_off = pb.starts[row_of_blk].astype(np.int64) \
+            + j * IMPACT_BLOCK
+        block_max = np.maximum.reduceat(q, block_off)
+    else:
+        block_off = np.zeros(0, np.int64)
+        block_max = np.zeros(0, q.dtype)
+    return block_starts, block_off, block_max
 
 
 def next_pow2(n: int, floor: int = 16) -> int:
@@ -37,6 +196,8 @@ class PostingsBlock:
     starts: np.ndarray                  # i64[nterms+1] row pointers
     doc_ids: np.ndarray                 # i32[P]
     tfs: np.ndarray                     # f32[P]
+    # codec v2: quantized eager impacts + block-max sidecar (None on v1)
+    impact: Optional[ImpactPlane] = None
 
     @property
     def nterms(self) -> int:
@@ -75,7 +236,8 @@ class Segment:
                  postings: Dict[str, PostingsBlock],
                  doc_lens: Dict[str, np.ndarray],
                  text_stats: Dict[str, TextFieldStats],
-                 ids, sources, seq_nos: Optional[np.ndarray] = None):
+                 ids, sources, seq_nos: Optional[np.ndarray] = None,
+                 codec_version: int = CODEC_V1):
         Segment._seq += 1
         self.uid = Segment._seq
         self.name = name
@@ -89,9 +251,44 @@ class Segment:
                         else np.zeros(ndocs, dtype=np.int64))
         self.live = np.ones(ndocs, dtype=bool)
         self.id2doc: Dict[str, int] = {d: i for i, d in enumerate(ids)}
-        self.codec_version = CODEC_V1
-        # (field, device) -> AlignedPostings, built by search/fastpath.py
+        # segment codec (CODEC_V1 | CODEC_V2): consumers branching on the
+        # posting layout consult this attribute
+        self.codec_version = int(codec_version)
+        # search-layer caches keyed by (field, device): AlignedPostings,
+        # quality tiers and filtered views, built by search/fastpath.py
         self.aligned: dict = {}
+
+    # ---------------- codec v2: impact planes ----------------
+
+    def build_impacts(self, bits: Optional[int] = None,
+                      feature_fields: Sequence[str] = (),
+                      device=None) -> None:
+        """Build quantized impact planes for every text-scored field
+        (fields with a doc-length column) and stamp the segment codec v2.
+        Idempotent. Feature planes (rank_features fields that opted into
+        `index_impacts`) are not ported and raise."""
+        if feature_fields:
+            raise NotPortedError("feature impact planes (rank_features "
+                                 "fields with index_impacts)")
+        for f, pb in self.postings.items():
+            if pb.impact is not None or f not in self.doc_lens:
+                continue
+            st = self.text_stats.get(f)
+            avgdl = (st.sum_dl / st.doc_count
+                     if st is not None and st.doc_count > 0 else None)
+            pb.impact = build_impact_plane(pb, self.doc_lens.get(f),
+                                           avgdl=avgdl, bits=bits,
+                                           device=device)
+        self.codec_version = CODEC_V2
+        self.aligned = {}
+
+    def drop_impacts(self) -> None:
+        """Demote to codec v1: planes dropped, the search layer's device
+        layouts rebuilt without them on next use."""
+        for pb in self.postings.values():
+            pb.impact = None
+        self.codec_version = CODEC_V1
+        self.aligned = {}
 
     def delete_doc(self, local_doc: int) -> None:
         self.live[local_doc] = False
@@ -135,9 +332,11 @@ def pack_postings(parsed_docs: list) -> Dict[str, PostingsBlock]:
 
 
 def build_segment(name: str, parsed_docs: list, mappings: Mappings,
-                  seq_nos: Optional[List[int]] = None) -> Segment:
+                  seq_nos: Optional[List[int]] = None,
+                  device=None) -> Segment:
     """Build an immutable segment from buffered parsed docs (the refresh
-    path)."""
+    path); codec v2 unless OPENSEARCH_TPU_CODEC=1, with large impact
+    planes quantized on `device`."""
     ndocs = len(parsed_docs)
     doc_lens: Dict[str, np.ndarray] = {}
     text_stats: Dict[str, TextFieldStats] = {}
@@ -151,6 +350,9 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                 dl = doc_lens.setdefault(fname, np.zeros(ndocs, dtype=np.int64))
                 dl[doc_i] = len(terms)
     seq = np.asarray(seq_nos, dtype=np.int64) if seq_nos is not None else None
-    return Segment(name, ndocs, pack_postings(parsed_docs), doc_lens,
-                   text_stats, [d.doc_id for d in parsed_docs],
-                   [d.source for d in parsed_docs], seq_nos=seq)
+    seg = Segment(name, ndocs, pack_postings(parsed_docs), doc_lens,
+                  text_stats, [d.doc_id for d in parsed_docs],
+                  [d.source for d in parsed_docs], seq_nos=seq)
+    if default_codec_version() >= CODEC_V2:
+        seg.build_impacts(device=device)
+    return seg

@@ -3,8 +3,9 @@ nvcc into shared libraries with a plain C interface, and load them with
 ctypes.
 
 Each library is built at first use into `opensearch_tpu_torch/_build/`,
-named by a hash of its source and flags, so an edited source never loads a
-stale binary.
+named by a hash of its source, every header it includes from `csrc/` and
+the flags, so an edited source or shared header never loads a stale
+binary.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,7 +39,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "bm25_tfdl_resident_blocks": (_I, [_P]),
         "bm25_tfdl_error_string": (ctypes.c_char_p, [_I]),
     },
+    "bm25_impact": {
+        "bm25_impact_launch": (_I, [_P, _P, ctypes.c_longlong,
+                                    _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I,
+                                    _P, _P, _I, _P, _P, _P, _P]),
+        "bm25_impact_resident_blocks": (_I, [_P]),
+        "bm25_impact_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -51,10 +62,28 @@ def nvcc() -> str:
     return found
 
 
+def sources(name: str) -> list:
+    """The `.cu` of library `name` and every header it includes from
+    `csrc/` (quoted includes, followed transitively), in include order."""
+    out = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> str:

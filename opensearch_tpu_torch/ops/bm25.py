@@ -1,17 +1,21 @@
-"""Fused BM25 top-k over packed (tf, dl) postings: the counterpart of
-opensearch_tpu/ops/pallas_bm25.py (`fused_bm25_topk_tfdl`, `align_csr_rows`
-and the layout constants).
+"""Fused BM25 top-k over aligned CSR postings: the counterpart of
+opensearch_tpu/ops/pallas_bm25.py (`fused_bm25_topk_tfdl`,
+`fused_bm25_topk_impact`, `align_csr_rows` and the layout constants).
 
-`fused_bm25_topk_tfdl` takes one kernel row per query (or per doc-range
-chunk of a query). Each row names up to T term windows in the aligned CSR
-buffers, and the function returns the row's top-K docs by (score desc, doc
-asc), padded with -inf/-1 to 128 lanes, plus the exact count of docs that
-pass the row's minimum-should-match.
+Both kernels take one kernel row per query (or per doc-range chunk, or per
+impact-head form of a query). Each row names up to T term windows in the
+aligned CSR buffers, and the function returns the row's top-K docs by
+(score desc, doc asc), padded with -inf/-1 to 128 lanes, plus the exact
+count of docs that pass the row's minimum-should-match.
+`fused_bm25_topk_tfdl` scores exact f32 BM25 from packed (tf, dl);
+`fused_bm25_topk_impact` scores `w * f32(imp)` from a codec-v2 quantized
+impact plane, one multiply per posting.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-`csrc/bm25_tfdl.cu`; on a CPU tensor it runs `fused_bm25_topk_tfdl_plain`,
-the plain PyTorch version of the same function. Nothing else selects
-between them.
+On a CUDA tensor each wrapper launches its hand-written kernel
+(`csrc/bm25_tfdl.cu`, `csrc/bm25_impact.cu`, both on the row machinery of
+`csrc/bm25_rows.cuh`); on a CPU tensor it runs its `_plain` version, the
+plain PyTorch version of the same function. Nothing else selects between
+them.
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ TF_MAX = (1 << TF_BITS) - 1
 DL_MAX = DL_MASK
 
 # Calls made through each route since the last reset_counts(): "launches"
-# counts kernel launches (one per launch, nowhere else), "rows" the kernel
-# rows those launches scored, "plain_calls" the CPU-tensor calls that ran
-# the plain version instead.
-COUNTS = {"launches": 0, "rows": 0, "plain_calls": 0}
+# counts fused_bm25_topk_tfdl kernel launches (one per launch, nowhere
+# else) and "rows" the kernel rows they scored; "impact_launches" and
+# "impact_rows" the same for fused_bm25_topk_impact; "plain_calls" the
+# CPU-tensor calls of either wrapper that ran the plain version instead.
+COUNTS = {"launches": 0, "rows": 0, "impact_launches": 0, "impact_rows": 0,
+          "plain_calls": 0}
 
 
 def reset_counts() -> None:
@@ -77,8 +83,8 @@ def align_csr_rows(starts: np.ndarray, doc_ids: np.ndarray, *vals: np.ndarray,
     return (new_starts, new_docs, *out_vals)
 
 
-def _check_inputs(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
-                  avgdl, dlo, dhi, T, L, K):
+def _check_inputs(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
+                  avgdl, dlo, dhi, T, L, K, vals_name="tfdl"):
     if not (T in (1, 2, 4, 8)):
         raise ValueError(f"T must be 1, 2, 4 or 8, got {T}")
     if L < 1 or L & (L - 1) or L % LANES:
@@ -88,17 +94,18 @@ def _check_inputs(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
         raise ValueError(f"K must be in [1, {LANES}], got {K}")
     dev = docs.device
     QB = rowstarts.shape[0]
-    shapes = {"docs": (docs, torch.int32, None), "tfdl": (tfdl, torch.int32,
-                                                          None),
+    shapes = {"docs": (docs, torch.int32, None),
+              vals_name: (vals, torch.int32, None),
               "rowstarts": (rowstarts, torch.int32, (QB, T)),
               "nrows": (nrows, torch.int32, (QB, T)),
               "lens": (lens, torch.int32, (QB, T)),
               "skips": (skips, torch.int32, (QB, T)),
               "weights": (weights, torch.float32, (QB, T)),
               "msm": (msm, torch.float32, (QB, 1)),
-              "avgdl": (avgdl, torch.float32, (QB, 1)),
               "dlo": (dlo, torch.int32, (QB, 1)),
               "dhi": (dhi, torch.int32, (QB, 1))}
+    if avgdl is not None:
+        shapes["avgdl"] = (avgdl, torch.float32, (QB, 1))
     for name, (t, dtype, shape) in shapes.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, docs on {dev}")
@@ -109,10 +116,10 @@ def _check_inputs(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, "
                              f"got {tuple(t.shape)}")
-    if docs.dim() != 1 or tuple(tfdl.shape) != tuple(docs.shape) \
+    if docs.dim() != 1 or tuple(vals.shape) != tuple(docs.shape) \
             or docs.shape[0] % LANES:
-        raise ValueError("docs and tfdl must be i32[P] with P a multiple "
-                         f"of {LANES}")
+        raise ValueError(f"docs and {vals_name} must be i32[P] with P a "
+                         f"multiple of {LANES}")
 
 
 def fused_bm25_topk_tfdl(docs: torch.Tensor, tfdl: torch.Tensor,
@@ -148,6 +155,60 @@ def fused_bm25_topk_tfdl(docs: torch.Tensor, tfdl: torch.Tensor,
         return fused_bm25_topk_tfdl_plain(docs, tfdl, rowstarts, nrows, lens,
                                           skips, weights, msm, avgdl, dlo,
                                           dhi, T, L, K, k1, b)
+    return _launch("bm25_tfdl", docs, rowstarts, T, L,
+                   lambda lib, grid, cand_s, cand_d, out, stream:
+                   lib.bm25_tfdl_launch(
+                       docs.data_ptr(), tfdl.data_ptr(), docs.shape[0],
+                       rowstarts.data_ptr(), nrows.data_ptr(),
+                       lens.data_ptr(), skips.data_ptr(),
+                       weights.data_ptr(), msm.data_ptr(), avgdl.data_ptr(),
+                       dlo.data_ptr(), dhi.data_ptr(),
+                       rowstarts.shape[0], T, L, K, float(k1), float(b),
+                       float(np.float32(1.0 - b)), cand_s, cand_d, grid,
+                       *out, stream),
+                   ("launches", "rows"))
+
+
+def fused_bm25_topk_impact(docs: torch.Tensor, imp: torch.Tensor,
+                           rowstarts: torch.Tensor, nrows: torch.Tensor,
+                           lens: torch.Tensor, skips: torch.Tensor,
+                           weights: torch.Tensor, msm: torch.Tensor,
+                           dlo: torch.Tensor, dhi: torch.Tensor,
+                           T: int, L: int, K: int):
+    """Batched fused top-k over codec-v2 quantized impacts.
+
+    docs      i32[P] - doc ids, CSR-flat, rows 128-lane aligned
+    imp       i32[P] - quantized impact per posting (u8/u16 widened)
+    weights   f32[QB, T] - idf * boost * plane scale, folded on the host
+    (rowstarts/nrows/lens/skips/msm/dlo/dhi as in fused_bm25_topk_tfdl.)
+    Each valid posting contributes `weights * f32(imp)`, one f32 multiply;
+    no similarity parameters. Returns (scores f32[QB, 128],
+    doc_ids i32[QB, 128], totals i32[QB, 128]).
+    """
+    _check_inputs(docs, imp, rowstarts, nrows, lens, skips, weights, msm,
+                  None, dlo, dhi, T, L, K, vals_name="imp")
+    if docs.device.type == "cpu":
+        COUNTS["plain_calls"] += 1
+        return fused_bm25_topk_impact_plain(docs, imp, rowstarts, nrows,
+                                            lens, skips, weights, msm, dlo,
+                                            dhi, T, L, K)
+    return _launch("bm25_impact", docs, rowstarts, T, L,
+                   lambda lib, grid, cand_s, cand_d, out, stream:
+                   lib.bm25_impact_launch(
+                       docs.data_ptr(), imp.data_ptr(), docs.shape[0],
+                       rowstarts.data_ptr(), nrows.data_ptr(),
+                       lens.data_ptr(), skips.data_ptr(),
+                       weights.data_ptr(), msm.data_ptr(), dlo.data_ptr(),
+                       dhi.data_ptr(), rowstarts.shape[0], T, L, K,
+                       cand_s, cand_d, grid, *out, stream),
+                   ("impact_launches", "impact_rows"))
+
+
+def _launch(name: str, docs, rowstarts, T: int, L: int, call,
+            counts: tuple):
+    """Launch library `name`'s kernel on the card: output and per-block
+    scratch allocation, the persistent grid, the error check, and the
+    launch/row counts (`counts` names the two COUNTS keys)."""
     if docs.device.type != "cuda":
         raise ValueError(f"unsupported device {docs.device}")
     QB = rowstarts.shape[0]
@@ -158,42 +219,41 @@ def fused_bm25_topk_tfdl(docs: torch.Tensor, tfdl: torch.Tensor,
     if QB == 0:
         return scores, ids, totals
     with torch.cuda.device(dev):
-        lib = load_library("bm25_tfdl")
-        grid = min(QB, _resident_blocks(lib, dev))
+        lib = load_library(name)
+        grid = min(QB, resident_blocks(name, dev))
         # per-block candidate scratch: a row has at most T*L valid postings
         cand_s = torch.empty((grid, T * L), dtype=torch.float32, device=dev)
         cand_d = torch.empty((grid, T * L), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bm25_tfdl_launch(
-            docs.data_ptr(), tfdl.data_ptr(), docs.shape[0],
-            rowstarts.data_ptr(), nrows.data_ptr(), lens.data_ptr(),
-            skips.data_ptr(), weights.data_ptr(), msm.data_ptr(),
-            avgdl.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
-            QB, T, L, K, float(k1), float(b), float(np.float32(1.0 - b)),
-            cand_s.data_ptr(), cand_d.data_ptr(), grid,
-            scores.data_ptr(), ids.data_ptr(), totals.data_ptr(), stream)
+        err = call(lib, grid, cand_s.data_ptr(), cand_d.data_ptr(),
+                   (scores.data_ptr(), ids.data_ptr(), totals.data_ptr()),
+                   stream)
     if err != 0:
-        raise RuntimeError(f"bm25_tfdl kernel launch failed: CUDA error "
-                           f"{err} ({lib.bm25_tfdl_error_string(err).decode()})")
-    COUNTS["launches"] += 1
-    COUNTS["rows"] += QB
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+    COUNTS[counts[0]] += 1
+    COUNTS[counts[1]] += QB
     return scores, ids, totals
 
 
 _RESIDENT: dict = {}
 
 
-def _resident_blocks(lib, dev: torch.device) -> int:
-    """Blocks of the kernel that fit on the card at once (SMs x blocks
-    per SM): the grid of the persistent launch, cached per device."""
-    if dev.index not in _RESIDENT:
+def resident_blocks(name: str, dev: torch.device) -> int:
+    """Blocks of library `name`'s kernel that fit on the card at once (SMs
+    x blocks per SM): the grid of the persistent launch, cached per
+    (library, device)."""
+    key = (name, dev.index)
+    if key not in _RESIDENT:
         out = ctypes.c_int(0)
-        err = lib.bm25_tfdl_resident_blocks(ctypes.byref(out))
+        err = getattr(load_library(name), f"{name}_resident_blocks")(
+            ctypes.byref(out))
         if err != 0:
-            raise RuntimeError(f"bm25_tfdl occupancy query failed: CUDA "
+            raise RuntimeError(f"{name} occupancy query failed: CUDA "
                                f"error {err}")
-        _RESIDENT[dev.index] = max(int(out.value), 1)
-    return _RESIDENT[dev.index]
+        _RESIDENT[key] = max(int(out.value), 1)
+    return _RESIDENT[key]
 
 
 # rows per plain-version block: bounds its [rows, T, L] temporaries
@@ -209,13 +269,42 @@ def fused_bm25_topk_tfdl_plain(docs, tfdl, rowstarts, nrows, lens, skips,
     (slot-major input, so a doc's postings stay in slot order), sum each
     doc's run in slot order with shifted adds, apply msm, count, and take
     the top K by (score desc, doc asc) with two stable sorts."""
+    from .scoring import posting_contrib
+
+    def contrib(p, w, rows):
+        # mask after the arithmetic shift: tf >= 1024 sets the sign bit
+        tf = ((p >> DL_BITS) & TF_MAX).to(torch.float32)
+        dl = (p & DL_MASK).to(torch.float32)
+        return posting_contrib(tf, dl, w, k1, b, avgdl[rows][:, :, None])
+
+    return _plain(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
+                  dlo, dhi, T, L, K, contrib)
+
+
+def fused_bm25_topk_impact_plain(docs, imp, rowstarts, nrows, lens, skips,
+                                 weights, msm, dlo, dhi, T: int, L: int,
+                                 K: int):
+    """The plain PyTorch version of `fused_bm25_topk_impact` (same
+    signature, same results bit for bit): as the tf.dl plain version, with
+    each valid posting's contribution `weights * f32(imp)`."""
+    return _plain(docs, imp, rowstarts, nrows, lens, skips, weights, msm,
+                  dlo, dhi, T, L, K,
+                  lambda p, w, rows: w * p.to(torch.float32))
+
+
+def _plain(docs, vals, rowstarts, nrows, lens, skips, weights, msm, dlo,
+           dhi, T: int, L: int, K: int, contrib):
+    """Row blocks of the plain version; `contrib(vals_window f32/i32[n, T,
+    L], weights f32[n, T, 1], rows slice)` scores the gathered postings."""
     QB = rowstarts.shape[0]
     step = max(1, _PLAIN_ELEMS // (T * L))
-    parts = [_plain_rows(docs, tfdl, rowstarts[i:i + step],
+    parts = [_plain_rows(docs, vals, rowstarts[i:i + step],
                          nrows[i:i + step], lens[i:i + step],
                          skips[i:i + step], weights[i:i + step],
-                         msm[i:i + step], avgdl[i:i + step], dlo[i:i + step],
-                         dhi[i:i + step], T, L, K, k1, b)
+                         msm[i:i + step], dlo[i:i + step], dhi[i:i + step],
+                         T, L, K,
+                         lambda p, w, _i=i: contrib(p, w,
+                                                    slice(_i, _i + step)))
              for i in range(0, QB, step)]
     if not parts:
         dev = docs.device
@@ -225,10 +314,8 @@ def fused_bm25_topk_tfdl_plain(docs, tfdl, rowstarts, nrows, lens, skips,
     return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
 
 
-def _plain_rows(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
-                avgdl, dlo, dhi, T, L, K, k1, b):
-    from .scoring import posting_contrib
-
+def _plain_rows(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
+                dlo, dhi, T, L, K, contrib):
     dev = docs.device
     QB = rowstarts.shape[0]
     P = docs.shape[0]
@@ -241,13 +328,8 @@ def _plain_rows(docs, tfdl, rowstarts, nrows, lens, skips, weights, msm,
     in_win = (pos >= sk) & (pos < hi) & (at < P)
     at = at.clamp(max=P - 1)
     d = docs[at]
-    p = tfdl[at]
     valid = in_win & (d >= dlo[:, :, None]) & (d < dhi[:, :, None])
-    # mask after the arithmetic shift: tf >= 1024 sets the sign bit
-    tf = ((p >> DL_BITS) & TF_MAX).to(torch.float32)
-    dl = (p & DL_MASK).to(torch.float32)
-    c = posting_contrib(tf, dl, weights[:, :, None], k1, b,
-                        avgdl[:, :, None])
+    c = contrib(vals[at], weights[:, :, None])
     sent = int(INT_SENTINEL)
     keys = torch.where(valid, d, torch.full_like(d, sent)).reshape(QB, T * L)
     c = torch.where(valid, c, torch.zeros_like(c)).reshape(QB, T * L)

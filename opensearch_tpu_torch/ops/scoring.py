@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 SIM_BM25 = 0
@@ -68,3 +69,9 @@ def score_term_group(starts: torch.Tensor, doc_ids: torch.Tensor,
 def bm25_idf(n_docs: int, df: int) -> float:
     """Lucene BM25Similarity.idfExplain: ln(1 + (N - df + 0.5)/(df + 0.5))."""
     return math.log(1.0 + (n_docs - df + 0.5) / (df + 0.5))
+
+
+def dequant_impact_np(q, scale):
+    """Host dequantizer of a codec-v2 impact plane: q * f32(scale) in f32
+    (planning bounds, head selection, the quality tier)."""
+    return np.asarray(q).astype(np.float32) * np.float32(scale)

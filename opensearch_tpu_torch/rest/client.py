@@ -66,7 +66,7 @@ class IndexService:
         sim = settings.get("similarity", {})
         self.similarity = resolve_similarity(
             sim.get("default") if isinstance(sim, dict) else None)
-        self.engine = Engine(self.mappings)
+        self.engine = Engine(self.mappings, device=device)
         self.searcher = ShardSearcher(self.engine, device,
                                       similarity=self.similarity)
 

@@ -17,7 +17,7 @@ import numpy as np
 
 from ..errors import NotPortedError
 from ..index.mappings import KEYWORD_TYPES, Mappings
-from ..index.segment import Segment
+from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
 from . import query_dsl as dsl
 
@@ -151,3 +151,20 @@ def _index_term(field: str, value: Any, ctx: ShardContext) -> str:
         norm = ctx.mappings.index_analyzer(ft).terms(str(value))
         return norm[0] if norm else str(value)
     return str(value)
+
+
+# ---------------------------------------------------------------------
+# phase-2 rescore shapes (search/fastpath.py escalation rung)
+# ---------------------------------------------------------------------
+
+RESCORE_C_MIN = 1 << 8          # pad floor: tiny unions share one shape
+RESCORE_C_MAX = 1 << 17         # == MAX_T * 4 * L_HEAD (deepest tier-2
+                                # union); beyond -> the host pass
+
+
+def rescore_cand_bucket(n: int) -> Optional[int]:
+    """Candidate-axis pow2 bucket for a union of `n` ids; None when the
+    union exceeds every bucket (host pass instead)."""
+    if n <= 0 or n > RESCORE_C_MAX:
+        return None
+    return min(max(next_pow2(n), RESCORE_C_MIN), RESCORE_C_MAX)

@@ -1,9 +1,12 @@
 """Per-shard search execution and the coordinator reduce (the query-phase,
 fetch and batched-msearch subset of opensearch_tpu/search/executor.py).
 
-Query-then-fetch: the query phase runs the fused kernel per segment and
-returns light candidate descriptors; the coordinator merges them, and the
-fetch phase materializes `_id`, `_score` and `_source` for the winners.
+Query-then-fetch: the query phase runs the fused kernels per segment (or,
+for a single search over a shard of several segments, once over the
+concatenated shard view) and returns light candidate descriptors; the
+coordinator merges them, and the fetch phase materializes `_id`, `_score`
+and `_source` for the winners. A pruned segment result that certified its
+page but counted a lower bound marks the shard total "gte".
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ class ShardQueryResult:
     shard: int
     candidates: List[Candidate] = dc_field(default_factory=list)
     total: int = 0
+    total_rel: str = "eq"   # "gte" when a pruned segment undercounted
     max_score: float = float("-inf")
     segments: List[Segment] = dc_field(default_factory=list)
 
@@ -86,7 +90,7 @@ class ShardSearcher:
         lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
         if isinstance(lroot, C.LMatchNone):
             return None
-        return fastpath.make_spec(lroot, window)
+        return fastpath.make_spec(lroot, window, body)
 
     def query_phase(self, body: dict) -> ShardQueryResult:
         segments = list(self.engine.segments)
@@ -95,6 +99,16 @@ class ShardSearcher:
         result = ShardQueryResult(shard=self.shard_id, segments=segments)
         if spec is None:
             return result
+        if len(segments) > 1:
+            # a many-segment shard runs as ONE frontier launch over the
+            # concatenated shard view
+            sv = fastpath.shard_search(self.engine, ctx, spec, spec.window,
+                                       self.device)
+            if sv is not None:
+                view, out = sv
+                self.collect_view_topk(result, view, out)
+                finish_candidates(result, spec.window)
+                return result
         for seg_ord, seg in enumerate(segments):
             if seg.live_count == 0:
                 continue
@@ -104,15 +118,34 @@ class ShardSearcher:
         finish_candidates(result, spec.window)
         return result
 
+    def collect_view_topk(self, result: ShardQueryResult, view,
+                          out: dict) -> None:
+        """Fold the shard-view launch's top-k (view-space doc ids) into
+        the shard result, translating to (segment, local doc)."""
+        self._fold_totals(result, out)
+        for d, sc in zip(out["topk_idx"], out["topk_scores"]):
+            d = int(d)
+            if sc == float("-inf") or d < 0 or d >= view.ndocs:
+                continue
+            seg_ord, _seg, local = view.locate(d)
+            result.candidates.append(Candidate(self.shard_id, seg_ord, local,
+                                               float(sc), (-float(sc),)))
+
+    @staticmethod
+    def _fold_totals(result: ShardQueryResult, out: dict) -> None:
+        result.total += int(out["total"])
+        if out.get("total_rel") == "gte":
+            result.total_rel = "gte"
+        ms = float(out["max_score"])
+        if ms > result.max_score:
+            result.max_score = ms
+
     def collect_topk(self, result: ShardQueryResult, out: dict,
                      seg: Segment, seg_ord: int) -> None:
         """Fold one segment's top-k output into the shard result."""
         idx = out["topk_idx"]
         scores = out["topk_scores"]
-        result.total += int(out["total"])
-        ms = float(out["max_score"])
-        if ms > result.max_score:
-            result.max_score = ms
+        self._fold_totals(result, out)
         for j in range(len(scores)):
             d = int(idx[j])
             if scores[j] == float("-inf") or d < 0 or d >= seg.ndocs:
@@ -149,13 +182,17 @@ def reduce_shard_results(shard_results: List[ShardQueryResult],
     frm = int(body.get("from", 0))
     all_cands: List[Candidate] = []
     total = 0
+    total_rel = "eq"
     max_score = float("-inf")
     for r in shard_results:
         all_cands.extend(r.candidates)
         total += r.total
+        if r.total_rel == "gte":
+            total_rel = "gte"
         max_score = max(max_score, r.max_score)
     all_cands.sort(key=lambda c: c.sort_values)
     return {"selected": all_cands[frm: frm + size], "total": total,
+            "total_rel": total_rel,
             "max_score": None if max_score == float("-inf") else max_score}
 
 
@@ -171,7 +208,7 @@ def finish_search(searchers: List[ShardSearcher],
         if sel:
             hits += s.fetch_phase(r, sel, body, index_name)
     track = body.get("track_total_hits", True)
-    relation = "eq"
+    relation = reduced["total_rel"]
     total = reduced["total"]
     if track is not True and track is not False:
         track_n = int(track)

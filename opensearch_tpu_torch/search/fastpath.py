@@ -1,15 +1,25 @@
-"""The dense term-group fast path: term / terms / match queries through the
-fused kernel `ops/bm25.fused_bm25_topk_tfdl` (the dense, exact part of
-opensearch_tpu/search/fastpath.py).
+"""The term-group fast path: term / terms / match queries through the fused
+kernels `ops/bm25.fused_bm25_topk_impact` and `fused_bm25_topk_tfdl`, with
+the reference's impact-head pruning and its certify-or-escalate ladder (the
+pure term-group part of opensearch_tpu/search/fastpath.py).
 
 Per (segment, field, device) the postings are laid out once as aligned CSR
-rows of (doc_id i32, tf<<21|dl i32) resident on the device. Each query
-becomes one kernel row, or, when a term's postings exceed the per-slot
-budget, one row per doc-range chunk (every doc's postings live in exactly
-one chunk, so sums, msm counts and totals stay exact). The host planner
-keeps the reference's constants, so kernel rows and chunking are the
-reference's. All rows of one shape group ride one launch, and all groups of
-a batch come back in ONE device-to-host copy.
+rows of (doc_id i32, tf<<21|dl i32) resident on the device; a term with
+more than L_HEAD postings also keeps its L_HEAD highest-impact postings
+(doc-ascending) as an extra "head" row in the same buffers, plus the
+frontier of the postings left out. On codec-v2 segments the quantized
+impact plane rides the same layout (u8/u16 widened to i32).
+
+A score-mode BM25 query without `track_total_hits` is prune-eligible: its
+frontier pass streams heads only, on the impact kernel (codec v2,
+non-negative weights) or the exact tf.dl kernel (codec v1, negative
+boosts, shard views). The host then certifies the page or escalates it:
+verify (exact rescore of the kernel's candidates against an unseen-doc
+bound) -> candidate-union rescore (every head doc, then 4x deeper heads)
+-> quality tier (a dense launch over the 1/8 of docs with the best
+impacts) -> dense (the query's full rows, chunked by doc range when
+oversized). Certified pruned pages report totals as a lower bound
+(relation "gte"). Other queries go straight to the dense kernel rows.
 
 Unlike the reference there is no general path behind this one: a search
 the fast path cannot serve raises `NotPortedError` naming what it met.
@@ -23,9 +33,12 @@ import numpy as np
 import torch
 
 from ..errors import NotPortedError
-from ..index.segment import Segment, next_pow2
+from ..index.segment import (CODEC_V1, CODEC_V2, PostingsBlock, Segment,
+                             next_pow2)
 from ..ops.bm25 import (DL_BITS, DL_MAX, HBM_ALIGN, LANES, TF_MAX,
-                        align_csr_rows, fused_bm25_topk_tfdl)
+                        align_csr_rows, fused_bm25_topk_impact,
+                        fused_bm25_topk_tfdl)
+from ..ops.scoring import SIM_BM25, dequant_impact_np
 from . import compiler as C
 
 MAX_T = 8            # pow2-padded term slots per query group
@@ -35,32 +48,226 @@ MAX_K = 128          # top-k lanes the kernel returns
 MAX_CHUNKS = 4096    # doc-range split bound
 INT_MAX = np.int32(2**31 - 1)
 
+# impact-ordered heads: a term with more than L_HEAD postings keeps an
+# extra copy of its L_HEAD highest-impact postings, doc-ascending
+L_HEAD = 1 << 12
+
+QUALITY_SHARE = 8             # quality tier keeps ~ndocs/QUALITY_SHARE docs
+QUALITY_MIN_NDOCS = 1 << 16   # below this, dense is already cheap
+
+# rung counters since the last reset_stats(): which rung served each
+# prune-eligible query (the reference's fastpath STATS subset)
+STATS = {"pruned_served": 0, "pruned_rescued": 0, "pruned_rescued2": 0,
+         "pruned_dview": 0, "pruned_escalated": 0, "impact_frontier": 0,
+         "shard_view_served": 0}
+
+
+def reset_stats() -> None:
+    for k in STATS:
+        STATS[k] = 0
+
+
+# ---------------------------------------------------------------------
+# frontiers, heads and the aligned layout
+# ---------------------------------------------------------------------
+
+def _frontier(tfs: np.ndarray, dls: np.ndarray, ids: np.ndarray = None
+              ) -> tuple:
+    """(tf -> min dl over docs with that tf) of a posting set: its Pareto
+    frontier under the BM25 contribution tf/(tf+k(dl)), which is
+    increasing in tf and decreasing in dl, so the max contribution of the
+    set under ANY (k1, b, avgdl) is attained on it. With `ids`, also per
+    frontier point the MIN doc id attaining it exactly (tf, min dl) and the
+    MIN doc id over the whole tf class (boundary-tie witnesses)."""
+    if len(tfs) == 0:
+        z = np.zeros(0, np.float32)
+        zi = np.zeros(0, np.int64)
+        return (z, z) if ids is None else (z, z, zi, zi)
+    tf = tfs.astype(np.int64)
+    dl_s32 = dls.astype(np.float32)
+    if ids is not None:
+        order = np.lexsort((ids, dl_s32, tf))
+        tf_s = tf[order]
+        id_s = ids[order].astype(np.int64)
+        first = np.flatnonzero(
+            np.concatenate(([True], tf_s[1:] != tf_s[:-1])))
+        id_any = np.minimum.reduceat(id_s, first)
+        return (tf_s[first].astype(np.float32), dl_s32[order][first],
+                id_s[first], id_any)
+    order = np.argsort(tf, kind="stable")
+    tf_s = tf[order]
+    dl_s = dl_s32[order]
+    heads = np.flatnonzero(np.concatenate(([True], tf_s[1:] != tf_s[:-1])))
+    return (tf_s[heads].astype(np.float32),
+            np.minimum.reduceat(dl_s, heads).astype(np.float32))
+
+
+def _frontier_bound(fr: Tuple[np.ndarray, np.ndarray], k1: float,
+                    b_eff: float, avgdl: float) -> float:
+    """Max contribution tf/(tf+k1(1-b+b dl/avgdl)) over a frontier."""
+    tf, dl = fr[0], fr[1]
+    if len(tf) == 0:
+        return 0.0
+    k = k1 * (1.0 - b_eff + b_eff * dl / max(avgdl, 1e-9))
+    return float(np.max(tf / (tf + np.maximum(k, 1e-9))))
+
 
 class AlignedPostings:
-    """Device-resident aligned (doc, tf.dl) postings of one segment field."""
+    """Device-resident aligned (doc, tf.dl[, impact]) postings of one
+    segment field, plus the impact-selected heads of oversized rows
+    (appended to the same buffers) and the remainder frontiers that make
+    pruned results provable."""
 
-    __slots__ = ("starts_rows", "lens", "d_docs", "d_tfdl", "nbytes")
+    __slots__ = ("starts_rows", "lens", "d_docs", "d_tfdl", "nbytes",
+                 "head_starts_rows", "head_lens", "rem_frontiers",
+                 "head_ids", "_full_frontiers", "_head2", "d_imp")
 
     def __init__(self, starts_rows: np.ndarray, lens: np.ndarray,
-                 d_docs: torch.Tensor, d_tfdl: torch.Tensor):
+                 d_docs: torch.Tensor, d_tfdl: torch.Tensor,
+                 head_starts_rows: Optional[np.ndarray] = None,
+                 head_lens: Optional[np.ndarray] = None,
+                 rem_frontiers: Optional[dict] = None,
+                 head_ids: Optional[dict] = None,
+                 d_imp: Optional[torch.Tensor] = None):
         self.starts_rows = starts_rows    # i64[nterms] aligned start / LANES
         self.lens = lens                  # i64[nterms] true posting counts
         self.d_docs = d_docs
         self.d_tfdl = d_tfdl
-        self.nbytes = (d_docs.numel() + d_tfdl.numel()) * 4
+        # head view: == (starts_rows, lens) for rows with <= L_HEAD
+        # postings; the appended head region for clamped rows
+        self.head_starts_rows = (head_starts_rows if head_starts_rows
+                                 is not None else starts_rows)
+        self.head_lens = (head_lens if head_lens is not None
+                          else np.minimum(lens, L_HEAD))
+        # row -> frontier of the postings OUTSIDE the head (clamped rows)
+        self.rem_frontiers = rem_frontiers or {}
+        # row -> doc ids of the head postings (clamped rows)
+        self.head_ids = head_ids or {}
+        self._full_frontiers: dict = {}
+        # row -> (ids, remainder frontier) of the 4x deeper tier-2 head
+        self._head2: dict = {}
+        # codec v2: the quantized plane in the same layout, widened to i32
+        self.d_imp = d_imp
+        self.nbytes = sum(t.numel() * 4 for t in (d_docs, d_tfdl, d_imp)
+                          if t is not None)
+
+    def head2(self, pb, dl_col, row: int) -> tuple:
+        """Lazy 4x-deeper head for the second escalation rung: ids of the
+        top 4*L_HEAD postings by nominal impact plus the frontier of what
+        remains, cached per row."""
+        got = self._head2.get(row)
+        if got is None:
+            a, b = pb.row_slice(row)
+            dls = (dl_col[pb.doc_ids[a:b]] if dl_col is not None
+                   else np.zeros(b - a, np.int64))
+            plane = pb.impact
+            keep, fr = _head_select(pb.doc_ids[a:b], pb.tfs[a:b],
+                                    np.asarray(dls, np.int64),
+                                    l_head=4 * L_HEAD,
+                                    imp=(_plane_impacts_slice(plane, a, b)
+                                         if plane is not None else None))
+            got = (pb.doc_ids[a:b][keep], fr)
+            self._head2[row] = got
+        return got
+
+    def clamped(self, row: int) -> bool:
+        return row in self.rem_frontiers
+
+    def rem_bound(self, row: int, k1: float, b_eff: float,
+                  avgdl: float) -> float:
+        """Upper bound of one remaining (non-head) posting's contribution
+        for this row under query-time similarity params."""
+        fr = self.rem_frontiers.get(row)
+        return 0.0 if fr is None else _frontier_bound(fr, k1, b_eff, avgdl)
+
+    def full_bound(self, pb, row: int, k1: float, b_eff: float,
+                   avgdl: float, dl_col) -> float:
+        """Upper bound of ANY single posting's contribution in this row
+        (lazy per-row frontier, cached)."""
+        fr = self._full_frontiers.get(row)
+        if fr is None:
+            a, b = pb.row_slice(row)
+            dls = (dl_col[pb.doc_ids[a:b]] if dl_col is not None
+                   else np.zeros(b - a, np.float32))
+            fr = _frontier(pb.tfs[a:b], dls)
+            self._full_frontiers[row] = fr
+        return _frontier_bound(fr, k1, b_eff, avgdl)
 
 
-def get_aligned(seg: Segment, field: str,
+def get_aligned(seg, field: str,
                 device: torch.device) -> Optional[AlignedPostings]:
     """Build (or fetch cached) aligned postings; None when the segment has
     no postings for the field."""
     key = (field, str(device))
     if key not in seg.aligned:
-        seg.aligned[key] = _build_aligned(seg, field, device)
+        # the host side of a layout (rows, heads, frontiers) does not
+        # depend on the device: a second device copies the buffers
+        other = next((al for k, al in seg.aligned.items()
+                      if len(k) == 2 and k[0] == field), False)
+        seg.aligned[key] = (_build_aligned(seg, field, device)
+                            if other is False else
+                            None if other is None else
+                            _copy_aligned(other, device))
     return seg.aligned[key]
 
 
-def _build_aligned(seg: Segment, field: str,
+def _copy_aligned(al: AlignedPostings,
+                  device: torch.device) -> AlignedPostings:
+    """`al` with its device buffers copied to `device`; the host-side
+    metadata and its lazy caches are shared."""
+    out = AlignedPostings(
+        al.starts_rows, al.lens, al.d_docs.to(device), al.d_tfdl.to(device),
+        al.head_starts_rows, al.head_lens, al.rem_frontiers, al.head_ids,
+        d_imp=None if al.d_imp is None else al.d_imp.to(device))
+    out._full_frontiers = al._full_frontiers
+    out._head2 = al._head2
+    return out
+
+
+def _nominal_impact(tfs: np.ndarray, dls: np.ndarray,
+                    avg: float) -> np.ndarray:
+    """The ONE nominal-similarity impact (k1=1.2, b=0.75) head selection
+    and the quality tier order by on codec-v1 layouts."""
+    return tfs / (tfs + 1.2 * (0.25 + 0.75 * dls / avg))
+
+
+def _plane_impacts(pb) -> Optional[np.ndarray]:
+    """Codec-v2 source of the nominal impact order: the dequantized plane
+    (built under the same nominal params); None without a plane."""
+    plane = pb.impact
+    if plane is None:
+        return None
+    return dequant_impact_np(plane.q, plane.scale)
+
+
+def _plane_impacts_slice(plane, a: int, b: int) -> np.ndarray:
+    """Dequantized impacts of ONE row slice."""
+    return dequant_impact_np(plane.q[a:b], plane.scale)
+
+
+def _head_select(doc_ids: np.ndarray, tfs: np.ndarray, dl_of: np.ndarray,
+                 l_head: int = None, imp: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, tuple]:
+    """Pick the L_HEAD highest-impact postings of one oversized row.
+    Returns (kept positions ascending, i.e. doc-ascending, remainder
+    frontier with tie witnesses). The order only steers which postings are
+    kept; correctness rides on the remainder frontier."""
+    tf = tfs.astype(np.float32)
+    dlf = dl_of.astype(np.float32)
+    if imp is not None:
+        c = imp
+    else:
+        avg = max(float(dlf.mean()), 1.0)
+        c = _nominal_impact(tf, dlf, avg)
+    # stable sort: impact ties keep doc-ascending order
+    order = np.argsort(-c, kind="stable")
+    lh = L_HEAD if l_head is None else l_head
+    keep = order[:lh]
+    rest = order[lh:]
+    return np.sort(keep), _frontier(tf[rest], dlf[rest], doc_ids[rest])
+
+
+def _build_aligned(seg, field: str,
                    device: torch.device) -> Optional[AlignedPostings]:
     pb = seg.postings.get(field)
     dl = seg.doc_lens.get(field)
@@ -74,27 +281,93 @@ def _build_aligned(seg: Segment, field: str,
             f"field [{field}] of segment [{seg.name}] with a term frequency "
             f"above {TF_MAX} or a doc length above {DL_MAX}")
     packed = ((tfs.astype(np.int64) << DL_BITS) | dl_of).astype(np.int32)
+    lens = np.diff(pb.starts).astype(np.int64)
+    nterms = len(lens)
+
+    # impact heads for oversized rows, appended as EXTRA CSR rows so one
+    # aligned buffer serves the dense rows (offsets unchanged) and the
+    # pruned path (the head region for big rows)
+    big = np.nonzero(lens > L_HEAD)[0]
+    rem_frontiers: dict = {}
+    head_ids: dict = {}
+    cat_starts = pb.starts
+    cat_docs = pb.doc_ids
+    cat_packed = packed
+    # codec v2: carry the quantized plane through the same aligned layout
+    plane = (pb.impact
+             if getattr(seg, "codec_version", CODEC_V1) >= CODEC_V2
+             else None)
+    cat_imp = (plane.q.astype(np.int32) if plane is not None else None)
+    if len(big):
+        plane_imp = _plane_impacts(pb)
+        h_docs, h_packed, h_lens, h_imp = [], [], [], []
+        for r in big:
+            a, b = int(pb.starts[r]), int(pb.starts[r + 1])
+            keep, rem_fr = _head_select(pb.doc_ids[a:b], tfs[a:b],
+                                        dl_of[a:b],
+                                        imp=(plane_imp[a:b]
+                                             if plane_imp is not None
+                                             else None))
+            h_docs.append(pb.doc_ids[a:b][keep])
+            h_packed.append(packed[a:b][keep])
+            h_lens.append(len(keep))
+            if cat_imp is not None:
+                h_imp.append(plane.q[a:b][keep].astype(np.int32))
+            rem_frontiers[int(r)] = rem_fr
+            head_ids[int(r)] = h_docs[-1]
+        cat_docs = np.concatenate([pb.doc_ids] + h_docs)
+        cat_packed = np.concatenate([packed] + h_packed)
+        if cat_imp is not None:
+            cat_imp = np.concatenate([cat_imp] + h_imp)
+        cat_starts = np.concatenate([
+            pb.starts,
+            pb.starts[-1] + np.cumsum(np.asarray(h_lens, np.int64))])
+
     # rows align to 128 lanes only; windows align DOWN to the 1024 tile
     # and the kernel masks the spilled prefix positionally (skip)
-    a_starts, a_docs, a_packed = align_csr_rows(
-        pb.starts, pb.doc_ids, packed, margin=MAX_L, alignment=LANES)
-    return AlignedPostings((a_starts[:-1] // LANES).astype(np.int64),
-                           np.diff(pb.starts).astype(np.int64),
-                           torch.from_numpy(a_docs).to(device),
-                           torch.from_numpy(a_packed).to(device))
+    extra = (cat_imp,) if cat_imp is not None else ()
+    aligned = align_csr_rows(cat_starts, cat_docs, cat_packed, *extra,
+                             margin=MAX_L, alignment=LANES)
+    a_starts, a_docs, a_packed = aligned[0], aligned[1], aligned[2]
+    starts_rows = (a_starts[:-1] // LANES).astype(np.int64)
+    head_starts_rows = starts_rows[:nterms].copy()
+    head_lens = np.minimum(lens, L_HEAD)
+    if len(big):
+        head_starts_rows[big] = starts_rows[nterms:]
+    return AlignedPostings(
+        starts_rows[:nterms], lens, torch.from_numpy(a_docs).to(device),
+        torch.from_numpy(a_packed).to(device), head_starts_rows, head_lens,
+        rem_frontiers, head_ids,
+        d_imp=(torch.from_numpy(aligned[3]).to(device)
+               if cat_imp is not None else None))
 
+
+# ---------------------------------------------------------------------
+# specs and kernel rows
+# ---------------------------------------------------------------------
 
 class FastSpec:
-    """A search the dense fast path serves: one BM25 term group."""
+    """A search the fast path serves: one BM25 term group. `prune_ok`:
+    the body allows impact-head pruning (no explicit track_total_hits)."""
 
-    __slots__ = ("lt", "window")
+    __slots__ = ("lt", "window", "prune_ok")
 
-    def __init__(self, lt: C.LTerms, window: int):
+    def __init__(self, lt: C.LTerms, window: int, prune_ok: bool = False):
         self.lt = lt
         self.window = window
+        self.prune_ok = prune_ok
 
 
-def make_spec(lroot: C.LNode, window: int) -> FastSpec:
+def _ok_group(lt) -> bool:
+    """LTerms usable as a prunable scoring clause (plain BM25 group)."""
+    if not isinstance(lt, C.LTerms):
+        return False
+    if lt.mode != "score" or lt.sim is None or lt.sim.sim_id != SIM_BM25:
+        return False
+    return len(lt.terms) >= 1
+
+
+def make_spec(lroot: C.LNode, window: int, body: dict) -> FastSpec:
     """-> FastSpec for a term-group plan, else NotPortedError."""
     if window > MAX_K:
         raise NotPortedError(f"from + size > {MAX_K}")
@@ -102,18 +375,32 @@ def make_spec(lroot: C.LNode, window: int) -> FastSpec:
         raise NotPortedError(f"plan [{type(lroot).__name__}]")
     if next_pow2(len(lroot.terms), floor=1) > MAX_T:
         raise NotPortedError(f"a term group of more than {MAX_T} terms")
-    return FastSpec(lroot, window)
+    # pruning changes total-hit semantics on clamped terms (lower bound,
+    # relation "gte"); an explicit track_total_hits demands exact counts,
+    # so those bodies ride the dense kernel
+    prune_ok = "track_total_hits" not in body and _ok_group(lroot)
+    return FastSpec(lroot, window, prune_ok)
 
 
 class _VQuery:
-    """The kernel rows of one query over one segment: 1 row, or one row
-    per doc-range chunk. Row arrays are [n, T_pad]; dlo/dhi are [n]."""
+    """The kernel rows of one query over one segment: 1 row, one row per
+    doc-range chunk, or its impact-head pruned form (`head=True`, 1 row).
+    Row arrays are [n, T_pad]; dlo/dhi are [n]; weights f32[T_pad]."""
 
     __slots__ = ("T_pad", "L", "rowstarts", "nrows", "lens", "skips",
                  "weights", "msm", "avgdl", "dlo", "dhi", "k1", "b_eff",
-                 "field")
+                 "field", "head", "clamped", "miss", "msm_true", "rows",
+                 "impact_pass", "eps")
 
     def __init__(self, **kw):
+        self.head = False       # streams impact heads instead of full rows
+        self.clamped = False    # at least one term's head excludes postings
+        self.miss = None        # f32[T_pad]: w_t * remainder bound per term
+        self.msm_true = 1.0     # real msm (the kernel gets 1 when clamped)
+        self.rows = None        # i64[T_pad] term-dict rows (for rescore)
+        self.impact_pass = False  # frontier pass rides the impact kernel
+        self.eps = 0.0          # per-doc |exact - kernel| bound (impact
+        #                         kernel only; 0.0 = exact f32 kernel)
         for k, v in kw.items():
             setattr(self, k, v)
 
@@ -181,14 +468,25 @@ def _chunk_slots(slots: List[Optional[Tuple[np.ndarray, int]]], ndocs: int,
     return None
 
 
-def _prepare_vqueries(seg: Segment, ctx: C.ShardContext,
-                      lts: Sequence[C.LTerms], avgdl_cache: dict,
-                      device: torch.device) -> List[Optional[_VQuery]]:
+def _impact_eps(plane, weights: np.ndarray, rows: np.ndarray, k1: float,
+                b_eff: float, avgdl: float) -> float:
+    """Sound per-doc |exact f32 score - impact-kernel score| bound: THE
+    impactpath._error_bound serve margin."""
+    from .impactpath import _error_bound
+    return _error_bound(plane, weights, rows, k1, b_eff, avgdl)
+
+
+def _prepare_vqueries(seg, ctx: C.ShardContext, lts: Sequence[C.LTerms],
+                      avgdl_cache: dict, device: torch.device,
+                      prune: Optional[Sequence[bool]] = None
+                      ) -> List[Optional[_VQuery]]:
     """-> per input query, its kernel rows over `seg`; None = the segment
-    holds no postings of the query's field (no hits there)."""
+    holds no postings of the query's field (no hits there). When
+    `prune[qi]` is true the query streams impact heads and carries the
+    verify metadata; otherwise the full rows, chunked when oversized."""
     out: List[Optional[_VQuery]] = []
     min_rows = HBM_ALIGN // LANES
-    for lt in lts:
+    for qi, lt in enumerate(lts):
         al = get_aligned(seg, lt.field, device)
         pb = seg.postings.get(lt.field)
         if al is None:
@@ -208,24 +506,34 @@ def _prepare_vqueries(seg: Segment, ctx: C.ShardContext,
             avgdl_cache[lt.field] = np.float32(ctx.avgdl(lt.field))
         sim = lt.sim
         b_eff = float(sim.b) if lt.has_norms else 0.0
-        common = dict(T_pad=T_pad, weights=weights[None, :],
-                      msm=float(lt.msm), avgdl=avgdl_cache[lt.field],
-                      k1=float(sim.k1), b_eff=b_eff, field=lt.field)
+        common = dict(T_pad=T_pad, weights=weights, msm=float(lt.msm),
+                      avgdl=avgdl_cache[lt.field], k1=float(sim.k1),
+                      b_eff=b_eff, field=lt.field)
+        use_head = bool(prune[qi]) if prune is not None else False
+        src_starts = al.head_starts_rows if use_head else al.starts_rows
+        src_lens = al.head_lens if use_head else al.lens
 
         # single-row case: every term's window fits the per-term bucket
+        # (always true for heads: L_HEAD <= MAX_L)
         rowstarts = np.zeros(T_pad, np.int32)
         nrows = np.zeros(T_pad, np.int32)
         lens = np.zeros(T_pad, np.int32)
         skips = np.zeros(T_pad, np.int32)
         max_nr = min_rows
         fits = True
+        clamped = False
+        miss = np.zeros(T_pad, np.float32)
         for i, r in enumerate(rows):
             if r < 0:
                 continue
-            ln = int(al.lens[r])
+            ln = int(src_lens[r])
+            if use_head and al.clamped(int(r)):
+                clamped = True
+                miss[i] = float(weights[i]) * al.rem_bound(
+                    int(r), float(sim.k1), b_eff, float(common["avgdl"]))
             if ln == 0:
                 continue
-            abs_el = int(al.starts_rows[r]) * LANES
+            abs_el = int(src_starts[r]) * LANES
             dma_el = (abs_el // HBM_ALIGN) * HBM_ALIGN
             skip = abs_el - dma_el
             if skip + ln > MAX_L:
@@ -238,14 +546,37 @@ def _prepare_vqueries(seg: Segment, ctx: C.ShardContext,
             skips[i] = skip
             max_nr = max(max_nr, nr)
         if fits and T_pad * max_nr * LANES <= MAX_TL:
-            out.append(_VQuery(L=max_nr * LANES, rowstarts=rowstarts[None],
-                               nrows=nrows[None], lens=lens[None],
-                               skips=skips[None],
-                               dlo=np.zeros(1, np.int32),
-                               dhi=np.full(1, INT_MAX, np.int32), **common))
+            vq = _VQuery(L=max_nr * LANES, rowstarts=rowstarts[None],
+                         nrows=nrows[None], lens=lens[None],
+                         skips=skips[None], dlo=np.zeros(1, np.int32),
+                         dhi=np.full(1, INT_MAX, np.int32), **common)
+            if use_head:
+                vq.head = True
+                vq.clamped = clamped
+                vq.miss = miss
+                vq.msm_true = float(lt.msm)
+                vq.rows = rows
+                # codec-v2 frontier kernel: the head pass scores from the
+                # aligned quantized plane and the verify rungs absorb the
+                # kernel epsilon. Negative boosts void the one-sided error
+                # bound; those stay on the exact tf.dl kernel
+                plane = pb.impact
+                if (plane is not None and al.d_imp is not None
+                        and not np.any(weights[:nt] < 0)):
+                    vq.impact_pass = True
+                    vq.eps = _impact_eps(plane, weights, rows,
+                                         float(sim.k1), b_eff,
+                                         float(common["avgdl"]))
+                if clamped and vq.msm_true > 1.0:
+                    # the kernel collects by raw sum; the true msm filter
+                    # runs in the exact rescore
+                    vq.msm = 1.0
+            out.append(vq)
             continue
 
-        # oversized: doc-range chunk decomposition
+        # oversized: doc-range chunk decomposition (every doc's postings
+        # live in exactly one chunk, so sums, msm counts and totals stay
+        # exact)
         slots = []
         for r in rows:
             if r < 0:
@@ -266,128 +597,821 @@ def _prepare_vqueries(seg: Segment, ctx: C.ShardContext,
     return out
 
 
-def _launch_groups(seg: Segment, vqs: List[Optional[_VQuery]], K: int,
+# ---------------------------------------------------------------------
+# launch and fetch
+# ---------------------------------------------------------------------
+
+def _keeps_lanes(vq: _VQuery) -> bool:
+    """Clamped and impact-frontier rows keep all 128 output lanes: the
+    verifier's unseen-doc bound uses the deepest kernel partial."""
+    return vq.head and (vq.clamped or vq.impact_pass)
+
+
+def _launch_groups(seg, vqs: List[Optional[_VQuery]], K: int,
                    device: torch.device) -> list:
     """LAUNCH stage: group kernel rows by shape, enqueue one kernel per
-    group, and return the pending launches without any device sync."""
+    group, and return the pending launches without any device sync:
+    [(gvqs, K_launch, (scores, docs, totals)), ...]."""
     groups: dict = {}
     for vq in vqs:
         if vq is not None:
-            key = (vq.field, vq.T_pad, vq.k1, vq.b_eff)
+            # impact rows take no similarity params, so (k1, b) does not
+            # split their groups
+            key = ((vq.field, vq.T_pad, None, None, True) if vq.impact_pass
+                   else (vq.field, vq.T_pad, vq.k1, vq.b_eff, False))
             groups.setdefault(key, []).append(vq)
     pending = []
-    for (field, T_pad, k1, b_eff), gvqs in groups.items():
+    for (field, T_pad, k1, b_eff, impact), gvqs in groups.items():
         al = get_aligned(seg, field, device)
         # ONE launch per group: every row rides the group's largest L
         L = max(v.L for v in gvqs)
-        pending.append((gvqs, fused_bm25_topk_tfdl(
+        K_launch = LANES if any(_keeps_lanes(v) for v in gvqs) else K
+        if impact:
+            # frontier pass on the quantized plane: weights fold
+            # idf * boost * scale on the host in f32, so the kernel is ONE
+            # multiply per posting
+            assert getattr(seg, "codec_version", CODEC_V1) >= CODEC_V2
+            scale = seg.postings[field].impact.scale
+            STATS["impact_frontier"] += len(gvqs)
+            pending.append((gvqs, K_launch, fused_bm25_topk_impact(
+                al.d_docs, al.d_imp, *_launch_inputs(gvqs, device, scale),
+                T=T_pad, L=L, K=K_launch)))
+            continue
+        pending.append((gvqs, K_launch, fused_bm25_topk_tfdl(
             al.d_docs, al.d_tfdl, *_launch_inputs(gvqs, device),
-            T=T_pad, L=L, K=K, k1=k1, b=b_eff)))
+            T=T_pad, L=L, K=K_launch, k1=k1, b=b_eff)))
     return pending
 
 
-def _launch_inputs(gvqs: List[_VQuery], device: torch.device) -> list:
-    """The kernel inputs of a group's rows (rowstarts, nrows, lens, skips,
-    weights, msm, avgdl, dlo, dhi), in ONE host-to-device copy: the
-    tensors are views of one buffer."""
+def _launch_inputs(gvqs: List[_VQuery], device: torch.device,
+                   scale: Optional[float] = None) -> list:
+    """The kernel inputs of a group's rows, in ONE host-to-device copy (the
+    tensors are views of one buffer): rowstarts, nrows, lens, skips,
+    weights, msm, avgdl, dlo, dhi for the tf.dl kernel; with the impact
+    plane's `scale`, weights folded as f32(weights * f32(scale)) and no
+    avgdl, for the impact kernel."""
     T_pad = gvqs[0].T_pad
     n = [v.n for v in gvqs]
     QB = sum(n)
     ints = np.concatenate([
         np.concatenate([getattr(v, a) for v in gvqs]).ravel()
         for a in ("rowstarts", "nrows", "lens", "skips", "dlo", "dhi")])
-    floats = np.concatenate([
-        np.concatenate([np.broadcast_to(v.weights, (v.n, T_pad))
-                        for v in gvqs]).ravel(),
-        np.repeat([v.msm for v in gvqs], n).astype(np.float32),
-        np.repeat([v.avgdl for v in gvqs], n).astype(np.float32)])
+    weights = np.concatenate([np.broadcast_to(v.weights, (v.n, T_pad))
+                              for v in gvqs])
+    if scale is not None:
+        weights = (weights * np.float32(scale)).astype(np.float32)
+    floats = [weights.ravel(),
+              np.repeat([v.msm for v in gvqs], n).astype(np.float32)]
+    if scale is None:
+        floats.append(np.repeat([v.avgdl for v in gvqs], n).astype(
+            np.float32))
     buf = torch.from_numpy(np.concatenate(
-        [ints.astype(np.int32), floats.view(np.int32)])).to(device)
+        [ints.astype(np.int32)] + [f.view(np.int32) for f in floats])
+    ).to(device)
     QT = QB * T_pad
     i32 = [buf[k * QT:(k + 1) * QT].view(QB, T_pad) for k in range(4)]
     dlo = buf[4 * QT:4 * QT + QB].view(QB, 1)
     dhi = buf[4 * QT + QB:4 * QT + 2 * QB].view(QB, 1)
     f32 = buf[4 * QT + 2 * QB:].view(torch.float32)
-    return [*i32, f32[:QT].view(QB, T_pad), f32[QT:QT + QB].view(QB, 1),
-            f32[QT + QB:].view(QB, 1), dlo, dhi]
+    tail = [f32[:QT].view(QB, T_pad), f32[QT:QT + QB].view(QB, 1)]
+    if scale is None:
+        tail.append(f32[QT + QB:].view(QB, 1))
+    return [*i32, *tail, dlo, dhi]
 
 
 def _fetch_groups(pending: list, K: int) -> dict:
-    """FETCH stage: id(vq) -> (scores f32[n, K], docs i32[n, K], totals
-    i64[n]), all groups' outputs in ONE device-to-host copy."""
+    """FETCH stage: id(vq) -> (scores, docs, total, "eq"), all groups'
+    outputs in ONE device-to-host copy. A chunked query's rows merge their
+    top-Ks here (score desc, doc asc, as the kernel)."""
     if not pending:
         return {}
     flat = []
-    for _gvqs, (scores, docs, totals) in pending:
-        flat += [scores[:, :K].reshape(-1).view(torch.int32),
-                 docs[:, :K].reshape(-1), totals[:, 0]]
+    for _gvqs, kl, (scores, docs, totals) in pending:
+        flat += [scores[:, :kl].reshape(-1).view(torch.int32),
+                 docs[:, :kl].reshape(-1), totals[:, 0]]
     host = torch.cat(flat).cpu().numpy()
     results = {}
     at = 0
-    for gvqs, (scores, _d, _t) in pending:
+    for gvqs, kl, (scores, _d, _t) in pending:
         QB = scores.shape[0]
-        sc = host[at:at + QB * K].view(np.float32).reshape(QB, K)
-        at += QB * K
-        dc = host[at:at + QB * K].reshape(QB, K)
-        at += QB * K
+        sc = host[at:at + QB * kl].view(np.float32).reshape(QB, kl)
+        at += QB * kl
+        dc = host[at:at + QB * kl].reshape(QB, kl)
+        at += QB * kl
         tot = host[at:at + QB].astype(np.int64)
         at += QB
         row = 0
         for vq in gvqs:
-            results[id(vq)] = (sc[row:row + vq.n], dc[row:row + vq.n],
-                               tot[row:row + vq.n])
+            s, d = sc[row:row + vq.n], dc[row:row + vq.n]
+            total = int(tot[row:row + vq.n].sum())
             row += vq.n
+            if vq.n == 1:
+                keep = kl if _keeps_lanes(vq) else K
+                results[id(vq)] = (s[0, :keep], d[0, :keep], total, "eq")
+                continue
+            s_all, d_all = s[:, :K].ravel(), d[:, :K].ravel()
+            key = np.where(d_all >= 0, d_all.astype(np.int64),
+                           np.int64(np.iinfo(np.int64).max))
+            order = np.lexsort((key, -s_all))[:K]
+            results[id(vq)] = (s_all[order], d_all[order], total, "eq")
     return results
 
 
-def _assemble(vqs: List[Optional[_VQuery]], lts: Sequence[C.LTerms],
-              results: dict, K: int) -> List[dict]:
-    """Per-query outputs from per-kernel-row results: chunked queries merge
-    their chunk top-Ks on host (score desc, doc asc, as the kernel);
-    constant-score (filter mode) queries take their boost."""
+def _launch_pure_groups(seg, vqs: List[Optional[_VQuery]], K: int,
+                        device: torch.device) -> dict:
+    """Synchronous launch + fetch (the escalation rungs)."""
+    return _fetch_groups(_launch_groups(seg, vqs, K, device), K)
+
+
+# ---------------------------------------------------------------------
+# verify: the unseen-doc bounds
+# ---------------------------------------------------------------------
+
+def _unseen_bound(al: AlignedPostings, pb, dl_col, vq: _VQuery,
+                  partial_k: float) -> float:
+    """Max possible TRUE score of any doc OUTSIDE the kernel's candidate
+    set. An unseen doc misses some subset S of the clamped terms' heads;
+    its score is at most min(partial_k, sum of full bounds of the terms
+    not in S) plus the remainder bounds of S, maximized over nonempty S.
+    S = {} is no threat when msm == 1 on the exact kernel (the kernel
+    already ranked the loser); with msm > 1, or on the impact kernel (its
+    partials live in the quantized domain, and callers pass partial_k
+    already inflated by eps), it stays in."""
+    T = len(vq.rows)
+    cl = [i for i in range(T) if vq.miss is not None and vq.miss[i] > 0.0]
+    fb = np.zeros(T, np.float32)
+    for i, r in enumerate(vq.rows):
+        if r >= 0:
+            fb[i] = vq.weights[i] * al.full_bound(
+                pb, int(r), vq.k1, vq.b_eff, float(vq.avgdl), dl_col)
+    best = partial_k if (vq.msm_true > 1.0 or vq.eps > 0.0) else -np.inf
+    for mask in range(1, 1 << len(cl)):
+        in_s = [cl[j] for j in range(len(cl)) if mask >> j & 1]
+        rem_part = float(sum(vq.miss[i] for i in in_s))
+        inhead = float(sum(fb[i] for i in range(T) if i not in in_s))
+        best = max(best, min(partial_k + rem_part, inhead + rem_part))
+    return best
+
+
+def _tie_serves(al: AlignedPostings, vq: _VQuery, theta: float,
+                cand: np.ndarray, order: np.ndarray, window: int) -> bool:
+    """Boundary-tie witness for SINGLE-term pruned queries: when the
+    unseen bound exactly ties theta, only remainder postings on the
+    frontier points whose contribution equals theta can attain it; they
+    displace the window only if one sorts before the window's worst member
+    by doc id, so min attaining id > id(window[-1]) proves the page."""
+    if len(vq.rows) != 1 or theta == -np.inf:
+        return False
+    fr = al.rem_frontiers.get(int(vq.rows[0]))
+    if fr is None or len(fr) != 4:
+        return False
+    tfv, dlv, id_dlmin, id_any = fr
+    if len(tfv) == 0:
+        return False
+    # mirror `_exact_rescore`'s arithmetic (same dtypes, same op order) so
+    # the tie test is bit-exact in the f32 domain theta lives in
+    avg = max(float(vq.avgdl), 1e-9)
+    kfac = vq.k1 * (1.0 - vq.b_eff + vq.b_eff * dlv / avg)
+    contrib = (vq.weights[0] * tfv / (tfv + kfac)).astype(np.float32)
+    theta32 = np.float32(theta)
+    if np.any(contrib > theta32):
+        return False                      # genuinely above: real displacer
+    att = contrib == theta32
+    if not att.any():
+        return True                       # no remainder doc reaches theta
+    # the dl_min witness covers a point only when one dl step strictly
+    # lowers the f32 contribution; otherwise the whole-tf-class min id
+    kfac2 = vq.k1 * (1.0 - vq.b_eff
+                     + vq.b_eff * (dlv + np.float32(1.0)) / avg)
+    contrib2 = (vq.weights[0] * tfv / (tfv + kfac2)).astype(np.float32)
+    ids = np.where(contrib2 < contrib, id_dlmin, id_any)
+    return int(ids[att].min()) > int(cand[order[window - 1]])
+
+
+def _tie_key(seg, cand: np.ndarray) -> np.ndarray:
+    """Tie-break key for host (score, tie) sorts: the doc id itself (the
+    port has no doc-id reorder, so doc order IS arrival order). Returns
+    `cand` itself: `_verify_pruned` tests the identity."""
+    return cand
+
+
+def _exact_rescore(seg, vq: _VQuery, cand: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact scores + per-term match counts of `cand` against the FULL
+    rows (vectorized searchsorted per term): the host oracle."""
+    pb = seg.postings.get(vq.field)
+    dl = seg.doc_lens.get(vq.field)
+    dl_c = (dl[cand].astype(np.float32) if dl is not None
+            else np.zeros(len(cand), np.float32))
+    kfac = vq.k1 * (1.0 - vq.b_eff
+                    + vq.b_eff * dl_c / max(float(vq.avgdl), 1e-9))
+    exact = np.zeros(len(cand), np.float32)
+    counts = np.zeros(len(cand), np.int64)
+    for i, r in enumerate(vq.rows):
+        if r < 0:
+            continue
+        a, b = pb.row_slice(int(r))
+        if b <= a:
+            continue
+        rowdocs = pb.doc_ids[a:b]
+        pos = np.searchsorted(rowdocs, cand)
+        pos_c = np.minimum(pos, b - a - 1)
+        found = rowdocs[pos_c] == cand
+        tf = np.where(found, pb.tfs[a + pos_c], 0.0).astype(np.float32)
+        exact += np.where(found, vq.weights[i] * tf / (tf + kfac),
+                          0.0).astype(np.float32)
+        counts += found
+    return exact, counts
+
+
+def _noheads_bound(al: AlignedPostings, vq: _VQuery,
+                   frontier_of=None, rows_all: bool = False) -> float:
+    """Max TRUE score of any doc outside EVERY queried head: all of its
+    contributions come from clamped remainders and share ONE doc length
+    d, so bound = max_d sum_t w_t * max{tf/(tf+k(d)) : (tf, dlmin) in the
+    remainder frontier of t, dlmin <= d}, with d over the frontier dl
+    minima; grid points with fewer than msm feasible terms are skipped.
+    `frontier_of` overrides the per-row remainder frontier (tier-2 heads,
+    the quality view); `rows_all` makes every valid row participate."""
+    if rows_all:
+        cl = [i for i, r in enumerate(vq.rows) if r >= 0]
+    else:
+        cl = [i for i, r in enumerate(vq.rows)
+              if r >= 0 and al.clamped(int(r))]
+    if not cl:
+        return -np.inf
+    fronts = []
+    ds = []
+    for i in cl:
+        row = int(vq.rows[i])
+        fr = (frontier_of(row) if frontier_of is not None
+              else al.rem_frontiers.get(row))
+        if fr is None:
+            continue
+        tfv = np.asarray(fr[0], np.float64)
+        dlv = np.asarray(fr[1], np.float64)
+        if len(tfv):
+            fronts.append((i, tfv, dlv))
+            ds.append(dlv)
+    if not fronts:
+        return -np.inf
+    avg = max(float(vq.avgdl), 1e-9)
+    best = -np.inf
+    for d in np.unique(np.concatenate(ds)):
+        k = max(vq.k1 * (1.0 - vq.b_eff + vq.b_eff * float(d) / avg),
+                1e-9)
+        total = 0.0
+        nfeas = 0
+        for i, tfv, dlv in fronts:
+            feas = dlv <= d
+            if not feas.any():
+                continue
+            nfeas += 1
+            total += float(vq.weights[i]) * float(
+                np.max(tfv[feas] / (tfv[feas] + k)))
+        if nfeas and nfeas >= vq.msm_true:
+            best = max(best, total)
+    return best
+
+
+def _verify_pruned(seg, vq: _VQuery, sc: np.ndarray, dc: np.ndarray,
+                   total: int, window: int, K: int,
+                   device: torch.device) -> Optional[tuple]:
+    """Prove a clamped pruned result exact, or None -> escalate. The
+    candidates are exact-rescored on the host, and the page is accepted
+    iff the `_unseen_bound` subset analysis proves no unseen doc can
+    displace it. Totals become a lower bound (relation "gte")."""
+    pb = seg.postings.get(vq.field)
+    dl = seg.doc_lens.get(vq.field)
+    al = get_aligned(seg, vq.field, device)
+    valid = np.isfinite(sc) & (dc >= 0)
+    cand = dc[valid].astype(np.int64)
+    if len(cand) == 0:
+        # heads matched nothing; matches could still exist past the heads
+        if any(vq.miss[i] > 0 for i in range(len(vq.rows))):
+            return None
+        return (sc[:K], dc[:K], total, "eq")
+    exact, counts = _exact_rescore(seg, vq, cand)
+    pass_msm = counts >= vq.msm_true
+    n_pass = int(pass_msm.sum())
+    exact_m = np.where(pass_msm, exact, -np.inf).astype(np.float32)
+    # the unseen-doc in-head bound: the DEEPEST kernel partial (zero when
+    # the window wasn't full); impact partials + eps lift it to a sound
+    # exact-domain bound (eps == 0.0 on the tf.dl kernel)
+    partial_k = (float(sc[valid][-1]) + vq.eps
+                 if len(cand) == len(sc) else 0.0)
+    bound = _unseen_bound(al, pb, dl, vq, partial_k)
+    tie = _tie_key(seg, cand)
+    order = np.lexsort((tie, -exact_m))
+    theta = (float(exact_m[order[window - 1]]) if n_pass >= window
+             else -np.inf)
+    # >= not >: frontier bounds are ATTAINED, so an unseen doc can tie
+    # theta; equality escalates unless the tie witness proves every
+    # attaining doc sorts after the window (exact kernel only)
+    if bound >= theta:
+        if (vq.eps > 0.0 or tie is not cand
+                or not _tie_serves(al, vq, theta, cand, order, window)):
+            return None
+    keep = order[pass_msm[order]][:K]
+    sc2 = np.full(K, -np.inf, np.float32)
+    dc2 = np.full(K, -1, np.int32)
+    sc2[: len(keep)] = exact_m[keep]
+    dc2[: len(keep)] = cand[keep]
+    total_out = n_pass if vq.msm_true > 1 else total
+    return (sc2, dc2, total_out, "gte")
+
+
+def _verify_impact_exact(seg, vq: _VQuery, sc: np.ndarray, dc: np.ndarray,
+                         total: int, window: int, K: int) -> Optional[tuple]:
+    """Certify an UNCLAMPED impact-kernel frontier pass (the heads were
+    the full rows, but the partials are quantized-domain): the candidates
+    are exact-rescored; when the kernel window wasn't full they are every
+    matching doc, else a seen-but-lost doc's exact score is <= the
+    deepest extracted partial + eps and must sit under theta. Totals are
+    exact either way."""
+    valid = np.isfinite(sc) & (dc >= 0)
+    cand = dc[valid].astype(np.int64)
+    if len(cand) == 0:
+        return (sc[:K], dc[:K], total, "eq")    # truly empty result set
+    exact, counts = _exact_rescore(seg, vq, cand)
+    pass_msm = counts >= vq.msm_true
+    n_pass = int(pass_msm.sum())
+    exact_m = np.where(pass_msm, exact, -np.inf).astype(np.float32)
+    order = np.lexsort((_tie_key(seg, cand), -exact_m))
+    if len(cand) == len(sc):
+        theta = (float(exact_m[order[window - 1]]) if n_pass >= window
+                 else -np.inf)
+        bound = float(sc[valid][-1]) + vq.eps
+        # equality escalates: a lost doc's exact score can tie theta
+        if bound >= theta:
+            return None
+    keep = order[pass_msm[order]][:K]
+    sc2 = np.full(K, -np.inf, np.float32)
+    dc2 = np.full(K, -1, np.int32)
+    sc2[: len(keep)] = exact_m[keep]
+    dc2[: len(keep)] = cand[keep]
+    return (sc2, dc2, total, "eq")
+
+
+# ---------------------------------------------------------------------
+# phase 2: the candidate-union rescore
+# ---------------------------------------------------------------------
+
+def _p2_candidates(vq: _VQuery, pb, ids_of) -> Optional[np.ndarray]:
+    """The candidate union of one query: every doc any queried head
+    mentions (`ids_of(row)`; None = the head is the full row)."""
+    ids = []
+    for r in vq.rows:
+        if r < 0:
+            continue
+        r = int(r)
+        hid = ids_of(r)
+        if hid is None:
+            a, b = pb.row_slice(r)
+            hid = pb.doc_ids[a:b]
+        ids.append(np.asarray(hid, np.int64))
+    if not ids:
+        return None
+    cand = np.unique(np.concatenate(ids))
+    return cand if len(cand) else None
+
+
+def _p2_decide(al: AlignedPostings, vq: _VQuery, cand: np.ndarray,
+               exact: np.ndarray, counts: np.ndarray, window: int, K: int,
+               frontier_of, tie: Optional[np.ndarray] = None
+               ) -> Optional[tuple]:
+    """Serve-or-escalate decision on exact-rescored candidates: certify the
+    window against the dl-consistent `_noheads_bound` or return None."""
+    pass_msm = counts >= vq.msm_true
+    n_pass = int(pass_msm.sum())
+    exact_m = np.where(pass_msm, exact, -np.inf).astype(np.float32)
+    order = np.lexsort((cand if tie is None else tie, -exact_m))
+    theta = (float(exact_m[order[window - 1]]) if n_pass >= window
+             else -np.inf)
+    bound = _noheads_bound(al, vq, frontier_of)
+    # equality escalates (frontier bounds are attained), as in phase 1
+    if bound >= theta:
+        return None
+    keep = order[pass_msm[order]][:K]
+    sc2 = np.full(K, -np.inf, np.float32)
+    dc2 = np.full(K, -1, np.int32)
+    sc2[: len(keep)] = exact_m[keep]
+    dc2[: len(keep)] = cand[keep].astype(np.int32)
+    return (sc2, dc2, n_pass, "gte")
+
+
+def _rescore_many(seg, jobs: List[tuple],
+                  device: torch.device) -> List[tuple]:
+    """Exact scores + match counts for a batch of (vq, cand) rescore jobs:
+    on the card, batched device launches over the resident aligned
+    buffers (`_rescore_many_device`); on the CPU, the host oracle
+    `_exact_rescore` per job."""
+    if not jobs:
+        return []
+    if device.type != "cuda":
+        return [_exact_rescore(seg, vq, cand) for vq, cand in jobs]
+    return _rescore_many_device(seg, jobs, device)
+
+
+def _rescore_many_device(seg, jobs: List[tuple],
+                         device: torch.device) -> List[tuple]:
+    """One `ops/rescore.exact_rescore_batch` launch per (field, T,
+    candidate bucket, similarity) group and budget step; a job whose union
+    exceeds every bucket, or whose offsets pass i32, takes the host pass."""
+    from ..ops.rescore import exact_rescore_batch, rescore_elem_budget
+
+    out: List[Optional[tuple]] = [None] * len(jobs)
+    groups: dict = {}
+    for j, (vq, cand) in enumerate(jobs):
+        cb = C.rescore_cand_bucket(len(cand))
+        al = get_aligned(seg, vq.field, device)
+        if (cb is None or al is None
+                or int(al.starts_rows[-1] + 1) * LANES + int(al.lens[-1])
+                > 2**31 - 1):
+            out[j] = _exact_rescore(seg, vq, cand)
+            continue
+        key = (vq.field, len(vq.rows), cb, vq.k1, vq.b_eff)
+        groups.setdefault(key, []).append(j)
+    for (field, T, cb, k1, b_eff), idxs in groups.items():
+        al = get_aligned(seg, field, device)
+        step = rescore_elem_budget(T, cb)
+        for lo in range(0, len(idxs), step):
+            part = idxs[lo: lo + step]
+            QB = next_pow2(len(part), floor=1)
+            starts = np.zeros((QB, T), np.int32)
+            lens = np.zeros((QB, T), np.int32)
+            weights = np.zeros((QB, T), np.float32)
+            avgdl = np.ones((QB, 1), np.float32)
+            cands = np.full((QB, cb), INT_MAX, np.int32)
+            for qj, j in enumerate(part):
+                vq, cand = jobs[j]
+                for i, r in enumerate(vq.rows):
+                    if r < 0:
+                        continue
+                    starts[qj, i] = int(al.starts_rows[int(r)]) * LANES
+                    lens[qj, i] = int(al.lens[int(r)])
+                weights[qj] = vq.weights
+                avgdl[qj, 0] = vq.avgdl
+                cands[qj, : len(cand)] = cand.astype(np.int32)
+            ops = [torch.from_numpy(a).to(device)
+                   for a in (starts, lens, weights, avgdl, cands)]
+            exact, counts = exact_rescore_batch(al.d_docs, al.d_tfdl, *ops,
+                                                T=T, C=cb, k1=k1, b=b_eff)
+            exact, counts = exact.cpu().numpy(), counts.cpu().numpy()
+            for qj, j in enumerate(part):
+                n = len(jobs[j][1])
+                out[j] = (exact[qj, :n], counts[qj, :n].astype(np.int64))
+    return out
+
+
+def _phase2_batch(seg, vq_lists, specs: Sequence, results: dict,
+                  redo: List[int], K: int,
+                  device: torch.device) -> List[int]:
+    """Candidate-union escalation, batched across every query the phase-1
+    verify failed: rescore each query's head union (every doc any head
+    mentions) exactly and certify it against `_noheads_bound`; the tail
+    retries on lazily built 4x deeper tier-2 heads. Returns the queries
+    still unproven (-> quality tier, then dense). Totals stay "gte"."""
+    jobs: List[tuple] = []
+    meta: List[tuple] = []          # (qi, vq, cand)
+    still: List[int] = []
+    for qi in redo:
+        vq = vq_lists[qi]
+        pb = seg.postings.get(vq.field)
+        al = get_aligned(seg, vq.field, device)
+        cand = _p2_candidates(vq, pb, al.head_ids.get)
+        if cand is None:
+            still.append(qi)
+            continue
+        jobs.append((vq, cand))
+        meta.append((qi, vq, cand))
+    tier2: List[tuple] = []
+    for (qi, vq, cand), (exact, counts) in zip(
+            meta, _rescore_many(seg, jobs, device)):
+        al = get_aligned(seg, vq.field, device)
+        ver = _p2_decide(al, vq, cand, exact, counts,
+                         int(specs[qi].window or K), K, None,
+                         tie=_tie_key(seg, cand))
+        if ver is not None:
+            results[id(vq)] = ver
+            STATS["pruned_rescued"] += 1
+        else:
+            tier2.append((qi, vq))
+    jobs2: List[tuple] = []
+    meta2: List[tuple] = []
+    for qi, vq in tier2:
+        pb = seg.postings.get(vq.field)
+        al = get_aligned(seg, vq.field, device)
+        dl_col = seg.doc_lens.get(vq.field)
+        h2 = {int(r): al.head2(pb, dl_col, int(r))
+              for r in vq.rows if r >= 0 and al.clamped(int(r))}
+        cand = _p2_candidates(
+            vq, pb, lambda row: h2[row][0] if row in h2 else None)
+        if cand is None:
+            still.append(qi)
+            continue
+        jobs2.append((vq, cand))
+        meta2.append((qi, vq, cand, h2))
+    for (qi, vq, cand, h2), (exact, counts) in zip(
+            meta2, _rescore_many(seg, jobs2, device)):
+        al = get_aligned(seg, vq.field, device)
+        ver = _p2_decide(al, vq, cand, exact, counts,
+                         int(specs[qi].window or K), K,
+                         lambda row, _h2=h2, _al=al:
+                         _h2[row][1] if row in _h2
+                         else _al.rem_frontiers.get(row),
+                         tie=_tie_key(seg, cand))
+        if ver is not None:
+            results[id(vq)] = ver
+            STATS["pruned_rescued"] += 1
+            STATS["pruned_rescued2"] += 1
+        else:
+            still.append(qi)
+    return still
+
+
+# ---------------------------------------------------------------------
+# the quality-tier rung: a dense launch over a filtered view
+# ---------------------------------------------------------------------
+
+class FilterList:
+    """Dense mask of one (segment, filter) with its doc count (the
+    mask/key part of the reference's FilterList)."""
+
+    __slots__ = ("n", "nbytes", "mask", "key")
+
+    def __init__(self, n: int, nbytes: int, mask: np.ndarray, key):
+        self.n = n
+        self.nbytes = nbytes      # mask + doc-id list, as the reference
+        self.mask = mask          # dense bool[ndocs]
+        self.key = key
+
+
+class FilteredPostings:
+    """Filter-specialized postings of one (segment, field, filter): the
+    term rows of `field` restricted to filter-passing docs."""
+
+    __slots__ = ("starts", "host_docs", "host_tfs", "view")
+
+    def __init__(self, starts: np.ndarray, host_docs: np.ndarray,
+                 host_tfs: np.ndarray):
+        self.starts = starts        # i64[nterms+1] filtered CSR row bounds
+        self.host_docs = host_docs  # i32 filtered doc ids
+        self.host_tfs = host_tfs    # f32 filtered tfs
+        self.view = None            # lazy FilteredSegView
+
+
+def _filtered_postings(seg, field: str, fl: FilterList,
+                       device: torch.device) -> Optional[FilteredPostings]:
+    """Cached per (field, filter, device) on the segment."""
+    key = ("filtered", field, fl.key, str(device))
+    if key in seg.aligned:
+        return seg.aligned[key]
+    fp = None
+    pb = seg.postings.get(field)
+    if get_aligned(seg, field, device) is not None:
+        keep = fl.mask[pb.doc_ids]
+        kc = np.zeros(len(pb.doc_ids) + 1, np.int64)
+        np.cumsum(keep, out=kc[1:])
+        fp = FilteredPostings(kc[pb.starts], pb.doc_ids[keep],
+                              pb.tfs[keep])
+    seg.aligned[key] = fp
+    return fp
+
+
+class FilteredSegView:
+    """Segment facade over filter-specialized postings: the filtered CSR
+    (ORIGINAL doc ids) as a one-field segment, so the dense pipeline runs
+    unchanged on it. Doc lengths come from the real segment; docs outside
+    the filter appear in no row."""
+
+    def __init__(self, seg, field: str, fp: FilteredPostings):
+        pb = seg.postings[field]
+        self.name = f"{seg.name}|filtered"
+        self.ndocs = seg.ndocs
+        self.live_count = seg.live_count
+        self.postings = {field: PostingsBlock(
+            field=field, vocab=pb.vocab, terms=pb.terms,
+            starts=fp.starts.astype(np.int64), doc_ids=fp.host_docs,
+            tfs=fp.host_tfs)}
+        self.doc_lens = seg.doc_lens
+        self.aligned: dict = {}
+
+
+def _filtered_view(seg, field: str, fp: FilteredPostings,
+                   device: torch.device) -> FilteredSegView:
+    if fp.view is None:
+        view = FilteredSegView(seg, field, fp)
+        get_aligned(view, field, device)
+        fp.view = view
+    return fp.view
+
+
+def _quality_tier(seg, field: str, device: torch.device):
+    """Query-independent static pruning: keep the ~1/QUALITY_SHARE docs
+    whose BEST per-posting nominal impact is highest. Scores on the view
+    are EXACT for view docs (the view restricts DOCS), and every posting
+    of an outside doc has nominal impact < tau, so the per-row
+    out-of-view frontiers certify a served window. One vectorized pass
+    per (segment, field), cached. Returns (FilterList, frontier_of) or
+    None (segment too small, or a facade without a `uid`)."""
+    key = ("quality", field, str(device))
+    if key in seg.aligned:
+        return seg.aligned[key]
+    out = None
+    pb = seg.postings.get(field)
+    dl = seg.doc_lens.get(field)
+    if (pb is not None and pb.size > 0 and seg.ndocs >= QUALITY_MIN_NDOCS
+            and getattr(seg, "uid", None) is not None
+            and get_aligned(seg, field, device) is not None):
+        imp = _plane_impacts(pb)
+        if imp is None:
+            dl_of = (dl[pb.doc_ids].astype(np.float32) if dl is not None
+                     else np.zeros(len(pb.doc_ids), np.float32))
+            avg = max(float(dl_of.mean()), 1.0)
+            imp = _nominal_impact(pb.tfs, dl_of, avg)
+        docmax = np.zeros(seg.ndocs, np.float32)
+        np.maximum.at(docmax, pb.doc_ids, imp)
+        target = max(seg.ndocs // QUALITY_SHARE, QUALITY_MIN_NDOCS // 4)
+        tau = np.float32(np.partition(docmax, seg.ndocs - target)
+                         [seg.ndocs - target])
+        mask = docmax >= tau
+        # impact ties at tau can inflate the kept set far past the
+        # target: decline rather than launch a near-dense-sized view
+        n = int(mask.sum())
+        if 0 < n <= 2 * target:
+            fl = FilterList(n, mask.nbytes + 4 * n, mask,
+                            ("_quality", field, QUALITY_SHARE))
+            frontiers: dict = {}
+
+            def frontier_of(row: int, _f=frontiers, _pb=pb, _dl=dl,
+                            _mask=mask):
+                fr = _f.get(row)
+                if fr is None:
+                    a, b = _pb.row_slice(row)
+                    rd = _pb.doc_ids[a:b]
+                    sel = ~_mask[rd]
+                    dls = (_dl[rd[sel]].astype(np.float32)
+                           if _dl is not None
+                           else np.zeros(int(sel.sum()), np.float32))
+                    fr = _frontier(_pb.tfs[a:b][sel], dls)
+                    _f[row] = fr
+                return fr
+
+            out = (fl, frontier_of)
+    seg.aligned[key] = out
+    return out
+
+
+def _dview_rescue(seg, ctx, lts: Sequence, specs: Sequence, vq_lists,
+                  results: dict, redo: List[int], K: int,
+                  device: torch.device) -> List[int]:
+    """Quality-tier escalation rung: ALL still-unproven queries as one
+    batched dense launch per field over the quality view, each certified
+    against the out-of-view frontiers. Returns the queries that still
+    need the full dense pass."""
+    by_field: dict = {}
+    for qi in redo:
+        by_field.setdefault(vq_lists[qi].field, []).append(qi)
+    still: List[int] = []
+    for field, qis in by_field.items():
+        still.extend(_dview_rescue_field(seg, ctx, lts, specs, vq_lists,
+                                         results, qis, K, field, device))
+    STATS["pruned_dview"] += len(redo) - len(still)
+    return still
+
+
+def _dview_rescue_field(seg, ctx, lts: Sequence, specs: Sequence, vq_lists,
+                        results: dict, redo: List[int], K: int, field: str,
+                        device: torch.device) -> List[int]:
+    qt = _quality_tier(seg, field, device)
+    if qt is None:
+        return redo
+    fl, frontier_of = qt
+    fp = _filtered_postings(seg, field, fl, device)
+    if fp is None:
+        return redo
+    view = _filtered_view(seg, field, fp, device)
+    al = get_aligned(seg, field, device)
+    dvqs = _prepare_vqueries(view, ctx, [lts[qi] for qi in redo], {},
+                             device)
+    vres = _launch_pure_groups(view, dvqs, K, device)
+    still = []
+    for qi, dvq in zip(redo, dvqs):
+        served = False
+        if dvq is not None:
+            sc, dc, total, _ = vres[id(dvq)]
+            valid = np.isfinite(sc) & (dc >= 0)
+            window = int(specs[qi].window or K)
+            theta = (float(sc[valid][window - 1])
+                     if int(valid.sum()) >= window else -np.inf)
+            # the ORIGINAL (pruned) vq carries .rows/.weights: the same
+            # term rows as the view launch
+            ovq = vq_lists[qi]
+            bound = _noheads_bound(al, ovq, frontier_of, rows_all=True)
+            if bound < theta:
+                results[id(ovq)] = (sc[:K], dc[:K], int(total), "gte")
+                served = True
+        if not served:
+            still.append(qi)
+    return still
+
+
+# ---------------------------------------------------------------------
+# the pure term-group path
+# ---------------------------------------------------------------------
+
+def _launch_pure(seg, ctx, lts: Sequence, specs: Sequence[FastSpec], K: int,
+                 device: torch.device) -> tuple:
+    """LAUNCH stage: kernel rows (heads for prune-eligible specs) and the
+    frontier pass, enqueued but unfetched."""
+    prune = [bool(s.prune_ok) for s in specs]
+    vq_lists = _prepare_vqueries(seg, ctx, lts, {}, device, prune=prune)
+    return vq_lists, _launch_groups(seg, vq_lists, K, device)
+
+
+def _finish_pure(seg, ctx, lts: Sequence, specs: Sequence[FastSpec], K: int,
+                 state: tuple, device: torch.device) -> List[dict]:
+    """FETCH stage: one device sync for the frontier pass, then the host
+    verify and the escalation ladder (whose rungs launch and sync their
+    own device work), and final assembly."""
+    vq_lists, pending = state
+    results = _fetch_groups(pending, K)
+    redo = []
+    for qi, vq in enumerate(vq_lists):
+        if vq is None or not vq.head:
+            continue
+        if not vq.clamped and not vq.impact_pass:
+            continue                # heads were the full rows: exact
+        sc, dc, total, _ = results[id(vq)]
+        window = int(specs[qi].window or K)
+        if vq.clamped:
+            ver = _verify_pruned(seg, vq, sc, dc, total, window, K, device)
+        else:
+            ver = _verify_impact_exact(seg, vq, sc, dc, total, window, K)
+        if ver is None:
+            redo.append(qi)
+        else:
+            results[id(vq)] = ver
+    before = redo
+    if redo:
+        redo = _phase2_batch(seg, vq_lists, specs, results, redo, K,
+                             device)
+    if redo:
+        redo = _dview_rescue(seg, ctx, lts, specs, vq_lists, results, redo,
+                             K, device)
+    # rescued CLAMPED queries only: `pruned_served` counts clamped heads
+    rescued_clamped = sum(1 for qi in set(before) - set(redo)
+                          if vq_lists[qi].clamped)
+    if redo:
+        STATS["pruned_escalated"] += len(redo)
+        dense = _prepare_vqueries(seg, ctx, [lts[qi] for qi in redo], {},
+                                  device)
+        for qi, dvq in zip(redo, dense):
+            vq_lists[qi] = dvq
+        results.update(_launch_pure_groups(seg, dense, K, device))
+    STATS["pruned_served"] += sum(
+        1 for vq in vq_lists
+        if vq is not None and vq.head and vq.clamped) - rescued_clamped
+    return _assemble(vq_lists, lts, results)
+
+
+def _assemble(vq_lists: List[Optional[_VQuery]], lts: Sequence[C.LTerms],
+              results: dict) -> List[dict]:
+    """Per-query outputs; constant-score (filter mode) queries take their
+    boost."""
     out = []
-    for vq, lt in zip(vqs, lts):
+    for vq, lt in zip(vq_lists, lts):
         if vq is None:
             sc = np.full(0, -np.inf, np.float32)
             dc = np.full(0, -1, np.int32)
-            total = 0
+            total, rel = 0, "eq"
         else:
-            sc_rows, dc_rows, tot = results[id(vq)]
-            total = int(tot.sum())
-            if vq.n == 1:
-                sc, dc = sc_rows[0], dc_rows[0]
-            else:
-                sc_all = sc_rows.ravel()
-                dc_all = dc_rows.ravel()
-                key = np.where(dc_all >= 0, dc_all.astype(np.int64),
-                               np.int64(np.iinfo(np.int64).max))
-                order = np.lexsort((key, -sc_all))[:K]
-                sc, dc = sc_all[order], dc_all[order]
+            sc, dc, total, rel = results[id(vq)]
         if lt.mode == "filter":
             sc = np.where(np.isfinite(sc), np.float32(lt.boost),
                           sc).astype(np.float32)
+        total = int(total)
         ms = (float(sc[0]) if total > 0 and len(sc) and np.isfinite(sc[0])
               else -np.inf)
         out.append({"topk_idx": dc, "topk_scores": sc, "total": total,
-                    "max_score": ms})
+                    "max_score": ms, "total_rel": rel})
     return out
 
 
 class LaunchHandle:
-    """Launched kernel rows of a batch over one segment; `fetch()` syncs
-    them and returns the per-spec result dicts."""
+    """Launched frontier pass of a batch over one segment; `fetch()` syncs
+    it, runs the ladder and returns the per-spec result dicts."""
 
-    def __init__(self, vqs, lts, pending, K):
-        self._vqs, self._lts, self._pending, self._K = vqs, lts, pending, K
+    def __init__(self, finish):
+        self._finish = finish
 
     def fetch(self) -> List[dict]:
-        return _assemble(self._vqs, self._lts,
-                         _fetch_groups(self._pending, self._K), self._K)
+        return self._finish()
 
 
-def launch_batch(seg: Segment, ctx: C.ShardContext,
-                 specs: Sequence[FastSpec], k: int,
-                 device: torch.device) -> LaunchHandle:
+def launch_batch(seg, ctx: C.ShardContext, specs: Sequence[FastSpec],
+                 k: int, device: torch.device) -> LaunchHandle:
     """LAUNCH stage of the batched kernel path: many FastSpecs over ONE
     segment in as few kernel launches as possible."""
     if seg.live_count != seg.ndocs:
@@ -395,12 +1419,139 @@ def launch_batch(seg: Segment, ctx: C.ShardContext,
                              f"deleted docs")
     K = min(next_pow2(max(k, 16)), MAX_K)
     lts = [s.lt for s in specs]
-    vqs = _prepare_vqueries(seg, ctx, lts, {}, device)
-    return LaunchHandle(vqs, lts, _launch_groups(seg, vqs, K, device), K)
+    state = _launch_pure(seg, ctx, lts, specs, K, device)
+    return LaunchHandle(lambda: _finish_pure(seg, ctx, lts, specs, K, state,
+                                             device))
 
 
-def batch_search(seg: Segment, ctx: C.ShardContext,
-                 specs: Sequence[FastSpec], k: int,
-                 device: torch.device) -> List[dict]:
+def batch_search(seg, ctx: C.ShardContext, specs: Sequence[FastSpec],
+                 k: int, device: torch.device) -> List[dict]:
     """Synchronous batched kernel path: `launch_batch(...).fetch()`."""
     return launch_batch(seg, ctx, specs, k, device).fetch()
+
+
+# ---------------------------------------------------------------------
+# one launch per shard: the concatenated shard view
+# ---------------------------------------------------------------------
+
+def _concat_shard(segs: List[Segment], field: str) -> dict:
+    """A shard's segments -> one host CSR: union term dict, per-term
+    postings concatenated segment by segment with doc offsets (the CSR
+    part of opensearch_tpu/parallel/spmd.py:_concat_shard)."""
+    ndocs = sum(s.ndocs for s in segs)
+    dl = np.zeros(ndocs, np.float32)
+    off = 0
+    for s in segs:
+        sdl = s.doc_lens.get(field)
+        if sdl is not None:
+            dl[off: off + s.ndocs] = sdl
+        off += s.ndocs
+    pbs = [s.postings.get(field) for s in segs]
+    vocab: dict = {}
+    for pb in pbs:
+        if pb is None:
+            continue
+        for t in pb.vocab:
+            vocab.setdefault(t, len(vocab))
+    nterms = len(vocab)
+    # vectorized merge: per-posting (target row, offset doc) keys, one
+    # stable sort
+    trows_parts, docs_parts, tfs_parts = [], [], []
+    off = 0
+    for s, pb in zip(segs, pbs):
+        if pb is not None and pb.size:
+            rows = np.array([vocab[t] for t in pb.vocab], np.int64)
+            trows_parts.append(np.repeat(rows, np.diff(pb.starts)))
+            docs_parts.append(pb.doc_ids.astype(np.int64) + off)
+            tfs_parts.append(pb.tfs)
+        off += s.ndocs
+    if trows_parts:
+        trows = np.concatenate(trows_parts)
+        docs_all = np.concatenate(docs_parts)
+        tfs_all = np.concatenate(tfs_parts)
+        order = np.lexsort((docs_all, trows))
+        doc_ids = docs_all[order].astype(np.int32)
+        tfs = tfs_all[order]
+        lens = np.bincount(trows, minlength=nterms)
+    else:
+        doc_ids = np.zeros(0, np.int32)
+        tfs = np.zeros(0, np.float32)
+        lens = np.zeros(nterms, np.int64)
+    starts = np.zeros(nterms + 1, np.int64)
+    np.cumsum(lens, out=starts[1:])
+    return {"terms": vocab, "starts": starts, "doc_ids": doc_ids, "tfs": tfs,
+            "dl": dl}
+
+
+class ShardView:
+    """Segment-shaped facade over a shard's concatenated postings: the
+    attribute surface the pure fast path touches. It carries no impact
+    plane and no `uid`, so its frontier pass rides the exact tf.dl kernel
+    and its ladder skips the quality tier, as the reference's does."""
+
+    def __init__(self, name: str, segments: List[Segment],
+                 seg_ords: List[int]):
+        self.name = name
+        self.segments = segments
+        # original positions in the engine's segment list
+        self.seg_ords = seg_ords
+        self.seg_bases = np.cumsum([0] + [s.ndocs for s in segments])
+        self.ndocs = int(self.seg_bases[-1])
+        self.live_count = sum(s.live_count for s in segments)
+        self.postings: dict = {}
+        self.doc_lens: dict = {}
+        self.aligned: dict = {}
+        self._built: set = set()
+
+    def ensure_field(self, field: str) -> bool:
+        if field in self._built:
+            return field in self.postings
+        self._built.add(field)
+        if not any(field in s.postings for s in self.segments):
+            return False
+        m = _concat_shard(self.segments, field)
+        self.postings[field] = PostingsBlock(
+            field=field, vocab=list(m["terms"]), terms=m["terms"],
+            starts=np.asarray(m["starts"], np.int64),
+            doc_ids=m["doc_ids"], tfs=m["tfs"])
+        if any(s.doc_lens.get(field) is not None for s in self.segments):
+            self.doc_lens[field] = m["dl"]
+        return True
+
+    def locate(self, view_doc: int):
+        """view-space doc -> (engine seg_ord, segment, local doc)."""
+        vi = int(np.searchsorted(self.seg_bases, view_doc, "right") - 1)
+        return (self.seg_ords[vi], self.segments[vi],
+                int(view_doc - self.seg_bases[vi]))
+
+
+def shard_view(engine) -> Optional[ShardView]:
+    """Cached per engine and identity of its segment list: rebuilt
+    whenever refresh changes the segment set. None below two live
+    segments or with deletes."""
+    pairs = [(i, s) for i, s in enumerate(engine.segments)
+             if s.live_count > 0]
+    if len(pairs) < 2:
+        return None
+    if any(s.live_count != s.ndocs for _, s in pairs):
+        return None
+    key = tuple(id(s) for _, s in pairs)
+    cached = engine.__dict__.get("_shard_view")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    view = ShardView(f"view:{id(engine):x}", [s for _, s in pairs],
+                     [i for i, _ in pairs])
+    engine.__dict__["_shard_view"] = (key, view)
+    return view
+
+
+def shard_search(engine, ctx, spec: FastSpec, k: int,
+                 device: torch.device) -> Optional[Tuple[ShardView, dict]]:
+    """One frontier launch over ALL the shard's segments for a spec; None
+    -> the per-segment loop."""
+    view = shard_view(engine)
+    if view is None or not view.ensure_field(spec.lt.field):
+        return None
+    out = batch_search(view, ctx, [spec], k, device)[0]
+    STATS["shard_view_served"] += 1
+    return view, out

@@ -1,10 +1,10 @@
 """The PyTorch port's slice (opensearch_tpu_torch: analysis -> bulk ->
 refresh -> term / terms / match search) against the JAX package on the CPU.
 
-The JAX package indexes codec-v1 segments (OPENSEARCH_TPU_CODEC=1) and, on
-the CPU, serves these queries through its general XLA path; the port runs
-`RestClient(device="cpu")`, whose kernel wrappers take their plain PyTorch
-versions. Same documents, same bodies. Tolerances:
+Both packages index codec-v1 segments (OPENSEARCH_TPU_CODEC=1); the JAX
+package, on the CPU, serves these queries through its general XLA path,
+and the port runs `RestClient(device="cpu")`, whose kernel wrappers take
+their plain PyTorch versions. Same documents, same bodies. Tolerances:
 - hits.total (value and relation), `_id` order, `_source` and max_score
   presence: identical;
 - `_score`: relative 1e-6. Both sides sum the same f32 contributions, but
@@ -69,8 +69,7 @@ def clients(corpus):
     bulk = corpus[2]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OPENSEARCH_TPU_CODEC", "1")
-        ref = _fill(RefClient(), bulk)
-    return ref, _fill(RestClient(device="cpu"), bulk)
+        return _fill(RefClient(), bulk), _fill(RestClient(device="cpu"), bulk)
 
 
 def _ref_segments(ref):
@@ -139,9 +138,9 @@ def stopword_clients():
         ref = RefClient()
         ref.indices.create("t", MAPPING)
         ref.bulk(bulk, refresh=True)
-    port = RestClient(device="cpu")
-    port.indices.create("t", MAPPING)
-    port.bulk(bulk, refresh=True)
+        port = RestClient(device="cpu")
+        port.indices.create("t", MAPPING)
+        port.bulk(bulk, refresh=True)
     return ref, port
 
 
@@ -212,8 +211,9 @@ def test_segments_match_reference(clients):
             == {f: (s.doc_count, s.sum_dl) for f, s in p.text_stats.items()}
 
 
-def test_segment_from_arrays_round_trip(clients, corpus):
+def test_segment_from_arrays_round_trip(clients, corpus, monkeypatch):
     ref, _ = clients
+    monkeypatch.setenv("OPENSEARCH_TPU_CODEC", "1")
     port = RestClient(device="cpu")
     port.indices.create("t", MAPPING)
     segs = []
@@ -298,7 +298,11 @@ def test_no_card_raises_instead_of_running_on_the_cpu():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
-        "import json, sys\n"
+        "import importlib, json, pkgutil, sys\n"
+        "import opensearch_tpu_torch\n"
+        "for m in pkgutil.walk_packages(opensearch_tpu_torch.__path__,\n"
+        "                               'opensearch_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from opensearch_tpu_torch import RestClient\n"
         "c = RestClient(device='cpu')\n"
         "c.index('t', {'body': 'hello world'}, id='1', refresh=True)\n"
