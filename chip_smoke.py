@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (opensearch_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--ndocs N] [--seed S]
+    python3 chip_smoke.py [--ndocs N] [--queries Q] [--bool-queries B]
+                          [--seed S]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
   2. build: every CUDA source of the port, compiled with nvcc for sm_90a,
      one nvcc per library, all started together;
-  3. kernel vs plain: fused_bm25_topk_tfdl and fused_bm25_topk_impact
-     against their plain PyTorch versions on the card over a grid of
-     shapes; results must be equal bit for bit;
-  4. slice, small: the same bulk and queries through RestClient on the
-     card and on the CPU over codec-v2 segments, with a term whose row
-     exceeds L_HEAD; responses must be identical apart from `took`, and
-     the verify and candidate-union rungs must each serve a query;
+  3. kernel vs plain: fused_bm25_topk_tfdl, fused_bm25_topk_impact,
+     fused_bm25_bool_topk and fused_bm25_topk against their plain PyTorch
+     versions on the card over a grid of shapes; results must be equal
+     bit for bit;
+  4. slice, small: the same bulk and queries, term groups and bool
+     bodies, through RestClient on the card and on the CPU over codec-v2
+     segments, with a term whose row exceeds L_HEAD; responses must be
+     identical apart from `took`, the verify and candidate-union rungs
+     must each serve a query, and each bool route a body;
   5. slice at MS MARCO passage scale: a synthetic corpus of --ndocs
      passages attached as one codec-v2 segment, searched with
      RestClient.msearch twice: the pruned match ladder (the default
      bodies) and the dense path (the same bodies with track_total_hits);
      kernel groups of the first batch timed and held against the plain
      versions, the device phase-2 rescore held against the host oracle,
-     and sampled bodies on the card held against the CPU.
+     and sampled bodies on the card held against the CPU;
+  6. bool traffic over the same segment, with bench.py's status keyword
+     and price integer columns: the guardrail mix (bench.py's second
+     configuration, after one warm pass over its three filters) and the
+     b3 mix (shapes that keep every query on the bool kernel), each run
+     with default totals and with track_total_hits; the bool kernel's
+     groups of the first b3 batch held against the plain version and
+     timed, sampled bodies on the card held against the CPU, default
+     pages against exact pages, and bodies against a numpy brute force.
 Then a line with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 """
@@ -109,6 +120,17 @@ def random_csr(rng, ndocs: int, nterms: int):
     return starts, docs, packed
 
 
+def window_at(abs_el: int, avail: int, L: int) -> tuple:
+    """(rowstart, nrows, len, skip) of a window over `avail` postings at
+    element `abs_el` of an aligned buffer, starting at the 1024 tile below
+    it, as the host planner cuts it."""
+    dma = (abs_el // 1024) * 1024
+    skip = abs_el - dma
+    ln = min(avail, L - skip)
+    nr = max(8, 1 << int(np.ceil(np.log2(-(-(skip + ln) // 128)))))
+    return dma // 128, nr, ln, skip
+
+
 def grid_rows(rng, starts, a_starts, QB, T, L):
     """QB kernel rows of T slots: partial windows spilling from the tile
     below, absent slots, partial [dlo, dhi) ranges, msm in {1, T}."""
@@ -123,17 +145,8 @@ def grid_rows(rng, starts, a_starts, QB, T, L):
             r = int(rng.integers(0, nterms))
             df = int(starts[r + 1] - starts[r])
             off = int(rng.integers(0, max(df // 4, 1)))
-            abs_el = int(a_starts[r]) + off
-            dma = (abs_el // 1024) * 1024
-            skip = abs_el - dma
-            ln = min(df - off, L - skip)
-            if ln <= 0:
-                continue
-            nr = max(8, 1 << int(np.ceil(np.log2(-(-(skip + ln) // 128)))))
-            rowstarts[q, t] = dma // 128
-            nrows[q, t] = nr
-            lens[q, t] = ln
-            skips[q, t] = skip
+            rowstarts[q, t], nrows[q, t], lens[q, t], skips[q, t] = \
+                window_at(int(a_starts[r]) + off, df - off, L)
     weights = rng.uniform(0.1, 5.0, shape).astype(np.float32)
     msm = np.where(np.arange(QB) % 2 == 0, 1.0, float(T)).astype(
         np.float32)[:, None]
@@ -262,6 +275,201 @@ def phase_impact_grid(dev, rng) -> dict:
     return {"points": points, "max_abs_err": worst}
 
 
+REQ_W = 1024.0
+
+
+def bool_grid_rows(rng, starts, a_starts, n_filt: int, QB: int, TS: int,
+                   filtered: bool, L: int) -> list:
+    """QB rows of B3: TS term slots (+ the filter slot TS over a filter
+    list of n_filt docs). Per row one count-weight pattern (all required,
+    required + a counted family, a family alone, required + bonus), its
+    threshold at the pass edge (every 7th row one past it), absent slots,
+    const-score rows without term slots (every 8th row when filtered),
+    windows spilling from the tile below, partial [dlo, dhi) ranges."""
+    nterms = len(starts) - 1
+    T = 2 * TS if filtered else TS
+    rowstarts, nrows, lens, skips = (np.zeros((QB, T), np.int32)
+                                     for _ in range(4))
+    weights = rng.uniform(0.1, 5.0, (QB, TS)).astype(np.float32)
+    cw = np.zeros((QB, T), np.float32)
+    thresh = np.zeros((QB, 1), np.float32)
+    for q in range(QB):
+        pattern = q % 4
+        nt = (0 if filtered and q % 8 == 7
+              else int(rng.integers(1, TS + 1)))
+        n_req = fam = 0
+        for t in range(nt):
+            kind = ("req" if pattern == 0 or (pattern in (1, 3) and t == 0)
+                    else "fam" if pattern in (1, 2) else "bonus")
+            cw[q, t] = {"req": REQ_W, "fam": 1.0, "bonus": 0.0}[kind]
+            n_req += kind == "req"
+            fam += kind == "fam"
+            if rng.random() < 0.15:
+                continue                      # absent term: a dead slot
+            r = int(rng.integers(0, nterms))
+            df = int(starts[r + 1] - starts[r])
+            off = int(rng.integers(0, max(df // 4, 1)))
+            rowstarts[q, t], nrows[q, t], lens[q, t], skips[q, t] = \
+                window_at(int(a_starts[r]) + off, df - off, L)
+        if filtered:
+            cw[q, TS] = REQ_W
+            off = int(rng.integers(0, n_filt // 4))
+            rowstarts[q, TS], nrows[q, TS], lens[q, TS], skips[q, TS] = \
+                window_at(off, n_filt - off, L)
+        thresh[q, 0] = (REQ_W * (n_req + filtered)
+                        + (min(fam, 1 + q % 2) if fam else 0))
+        if q % 7 == 6:
+            thresh[q, 0] += 1.0
+    avgdl = np.full((QB, 1), 57.3, np.float32)
+    dlo = np.zeros((QB, 1), np.int32)
+    dhi = np.full((QB, 1), 2**31 - 1, np.int32)
+    part = np.arange(QB) % 3 == 1
+    dlo[part, 0] = rng.integers(0, 50_000, part.sum())
+    dhi[part, 0] = dlo[part, 0] + rng.integers(1, 100_000, part.sum())
+    return [rowstarts, nrows, lens, skips, weights, cw, thresh, avgdl, dlo,
+            dhi]
+
+
+def bool_bound(a_docs, filt, host, TS: int, filtered: bool, L: int) -> tuple:
+    """(bound ms, bytes, valid term postings, valid filter postings) of B3
+    rows: 8 B per valid term posting, 4 B per valid filter posting, 12 B x
+    128 per row of output, over the card's memory rate."""
+    rowstarts, nrows, lens, skips = host[:4]
+    dlo, dhi = host[8], host[9]
+    n_term = valid_postings(a_docs, rowstarts[:, :TS], nrows[:, :TS],
+                            lens[:, :TS], skips[:, :TS], dlo, dhi, L)
+    n_filt = (valid_postings(filt, rowstarts[:, TS:TS + 1],
+                             nrows[:, TS:TS + 1], lens[:, TS:TS + 1],
+                             skips[:, TS:TS + 1], dlo, dhi, L)
+              if filtered else 0)
+    nbytes = 8 * n_term + 4 * n_filt + 12 * 128 * rowstarts.shape[0]
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, n_term, n_filt
+
+
+def phase_bool_grid(dev, rng) -> dict:
+    """fused_bm25_bool_topk == plain over TS x filtered x L x QB: the
+    count-weight patterns, edge thresholds, const-score rows, dead slots,
+    skips and doc windows of bool_grid_rows, the filter list in a buffer
+    of another length than the postings."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+
+    starts, docs, packed = random_csr(rng, 200_000, 120)
+    a_starts, a_docs, a_packed = bm25.align_csr_rows(
+        starts, docs, packed, margin=1 << 17, alignment=128)
+    fdocs = np.sort(rng.choice(200_000, 70_000, replace=False))
+    filt = np.full(((len(fdocs) + 127) // 128) * 128 + (1 << 17),
+                   2**31 - 1, np.int32)
+    filt[:len(fdocs)] = fdocs
+    d_docs = torch.from_numpy(a_docs).to(dev)
+    d_tfdl = torch.from_numpy(a_packed).to(dev)
+    d_filt = torch.from_numpy(filt).to(dev)
+    worst = 0.0
+    points = 0
+    for TS in (1, 2, 4, 8):
+        for filtered in (False, True):
+            T = 2 * TS if filtered else TS
+            for L in sorted({1024, (1 << 17) // T}):
+                for QB in (64, 1024):
+                    K = 128 if QB == 64 else 16
+                    host = bool_grid_rows(rng, starts, a_starts[:-1],
+                                          len(fdocs), QB, TS, filtered, L)
+                    args = [torch.from_numpy(a).to(dev) for a in host]
+
+                    def kern():
+                        return bm25.fused_bm25_bool_topk(
+                            d_docs, d_tfdl, d_filt, *args, TS=TS, L=L, K=K,
+                            k1=1.2, b=0.75, filtered=filtered)
+
+                    def plain():
+                        return bm25.fused_bm25_bool_topk_plain(
+                            d_docs, d_tfdl, d_filt, *args, TS=TS, L=L, K=K,
+                            k1=1.2, b=0.75, filtered=filtered)
+                    before = bm25.COUNTS["bool_launches"]
+                    got = kern()
+                    want = plain()
+                    torch.cuda.synchronize()
+                    launches = bm25.COUNTS["bool_launches"] - before
+                    what = f"bool TS={TS} filtered={filtered} L={L} QB={QB}"
+                    worst = max(worst, _check_equal(got, want, what))
+                    passed = int((want[2][:, 0] > 0).sum())
+                    b_ms, nbytes, n_t, n_f = bool_bound(
+                        a_docs, filt, host, TS, filtered, L)
+                    k_ms = cuda_ms(kern, 10)
+                    p_ms = cuda_ms(plain, 3)
+                    points += 1
+                    log(f"  bool   TS={TS} T={T:2d} L={L:6d} K={K:3d} "
+                        f"QB={QB:4d} equal=yes rows_with_hits={passed} "
+                        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                        f"bound_ms={b_ms:.5f} bytes={nbytes} "
+                        f"term_postings={n_t} filter_postings={n_f} "
+                        f"launches={launches}")
+    return {"points": points, "max_abs_err": worst}
+
+
+def phase_norms_grid(dev, rng) -> dict:
+    """fused_bm25_topk (B4, no caller in the package) == plain over T x L
+    x K: fixed-L windows at 1024-aligned starts over f32 norms, absent
+    slots, msm in {1, T}. Returns the grid's numbers and its largest
+    point's times for the kernels line."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+
+    starts, docs, _packed = random_csr(rng, 200_000, 120)
+    norms = rng.uniform(0.01, 0.99, len(docs)).astype(np.float32)
+    a_starts, a_docs, a_norms = bm25.align_csr_rows(
+        starts, docs, norms, margin=1 << 14, alignment=1024)
+    d_docs = torch.from_numpy(a_docs).to(dev)
+    d_norms = torch.from_numpy(a_norms).to(dev)
+    nterms = len(starts) - 1
+    worst = 0.0
+    points = 0
+    largest = None
+    QB = 64
+    for T in (1, 2, 4, 8):
+        for L in (1024, 8192):
+            w_starts = np.zeros((QB, T), np.int32)
+            w_lens = np.zeros((QB, T), np.int32)
+            for q in range(QB):
+                for t in range(T):
+                    if rng.random() < 0.15:
+                        continue
+                    r = int(rng.integers(0, nterms))
+                    w_starts[q, t] = a_starts[r]
+                    w_lens[q, t] = min(int(starts[r + 1] - starts[r]), L)
+            weights = rng.uniform(0.1, 5.0, (QB, T)).astype(np.float32)
+            msm = np.where(np.arange(QB) % 2 == 0, 1.0, float(T)).astype(
+                np.float32)[:, None]
+            host = [w_starts, w_lens, weights, msm]
+            args = [torch.from_numpy(a).to(dev) for a in host]
+            for K in (16, 128):
+                def kern():
+                    return bm25.fused_bm25_topk(d_docs, d_norms, *args,
+                                                T=T, L=L, K=K)
+
+                def plain():
+                    return bm25.fused_bm25_topk_plain(d_docs, d_norms, *args,
+                                                      T=T, L=L, K=K)
+                got = kern()
+                want = plain()
+                torch.cuda.synchronize()
+                worst = max(worst, _check_equal(got, want,
+                                                f"norms T={T} L={L} K={K}"))
+                n_valid = int(np.minimum(w_lens, L).sum())
+                b_ms, nbytes = bound_ms(n_valid, QB)
+                k_ms = cuda_ms(kern, 10)
+                p_ms = cuda_ms(plain, 3)
+                points += 1
+                log(f"  norms  T={T} L={L:5d} K={K:3d} QB={QB} equal=yes "
+                    f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                    f"bound_ms={b_ms:.5f} bytes={nbytes} "
+                    f"valid_postings={n_valid}")
+                if largest is None or b_ms > largest["bound_ms"]:
+                    largest = {"ms": k_ms, "plain_ms": p_ms,
+                               "bound_ms": b_ms, "T": T, "L": L, "K": K}
+    return {"points": points, "max_abs_err": worst, "largest": largest}
+
+
 # ---------------------------------------------------------------------
 # phase 4: the slice on the card and on the CPU, small
 # ---------------------------------------------------------------------
@@ -349,6 +557,11 @@ def small_corpus(rng, l_head: int):
         if df > l_head:
             break
         ndocs *= 2
+    # the guardrail columns of the bool bodies, from their own stream
+    grng = np.random.default_rng(17)
+    for d in docs:
+        d["status"] = STATUS[int(grng.integers(0, 3))]
+        d["price"] = int(grng.integers(0, 1000))
     bulk = []
     for i, d in enumerate(docs):
         bulk += [{"index": {"_index": "t", "_id": f"d{i}"}}, d]
@@ -361,29 +574,94 @@ def small_corpus(rng, l_head: int):
          "size": 20},
         {"query": {"match": {"body": "the a"}}, "track_total_hits": True},
     ]
-    return bulk, split, df, bodies
+    return bulk, split, df, bodies, bool_slice_bodies(words)
 
 
-def run_slice_small(name: str, bulk, split: int, bodies) -> tuple:
+STATUS = ("archived", "draft", "published")
+BOOL_ROUTES = ("b3_filter_slot", "b3_filtered_postings", "b3_unfiltered",
+               "filtered_pure")
+
+
+def bool_slice_bodies(words) -> list:
+    """Bool bodies over the small slice, one of each shape: must / should
+    / filter / must_not, constant_score, range, boost != 1, exact totals.
+    A filter's first use takes the filter slot, later uses the
+    filter-specialized postings or the filtered-pure rung."""
+    a, b, c, d, e = words[1:6]
+    pub = {"term": {"status": "published"}}
+    draft = {"term": {"status": "draft"}}
+    price = {"range": {"price": {"gte": 250, "lt": 750}}}
+    fam = {"match": {"body": f"{a} {b}"}}
+    return [
+        {"query": {"bool": {"must": [fam], "filter": [pub]}}},
+        {"query": {"bool": {"must": [{"match": {"body": {
+            "query": f"the {c}", "operator": "and"}}}],
+            "filter": [pub, price]}}, "size": 20},
+        {"query": {"bool": {"must": [{"match": {"body": {
+            "query": f"{a} {c} {e}", "minimum_should_match": 2}}}],
+            "filter": [draft]}}},
+        {"query": {"bool": {"must": [{"match": {"body": f"the {d}"}}],
+                            "filter": [pub]}}},
+        {"query": {"bool": {"must": [fam], "should": [{"term": {
+            "body": "the"}}], "filter": [pub]}}, "size": 30},
+        {"query": {"bool": {"must": [{"term": {"body": "the"}}],
+                            "should": [{"term": {"body": a}},
+                                       {"term": {"body": d}}],
+                            "minimum_should_match": 1,
+                            "must_not": [{"term": {"status": "archived"}}]}}},
+        {"query": {"bool": {"must": [{"term": {"body": "of"}}],
+                            "should": [{"term": {"body": b}},
+                                       {"term": {"body": e}}],
+                            "minimum_should_match": 1,
+                            "must_not": [{"term": {"status": "archived"}}]}}},
+        {"query": {"bool": {"must": [fam], "filter": [{"range": {
+            "price": {"gte": 250, "lt": 300}}}]}}},
+        {"query": {"constant_score": {"filter": {"bool": {"filter": [
+            draft, {"range": {"price": {"gte": 500, "lt": 600}}}]}},
+            "boost": 2.0}}, "size": 20},
+        {"query": {"bool": {"must": [fam], "should": [{"term": {
+            "body": c}}], "filter": [pub], "boost": 1.5}}},
+        {"query": {"bool": {"should": [{"term": {"body": a}},
+                                       {"term": {"body": b}},
+                                       {"term": {"body": c}}],
+                            "minimum_should_match": 2}}},
+        {"query": {"bool": {"filter": [{"range": {"price": {"gt": 990}}}]}}},
+        {"query": {"bool": {"must": [fam], "filter": [pub]}},
+         "track_total_hits": True},
+    ]
+
+
+def run_slice_small(name: str, bulk, split: int, bodies,
+                    bool_bodies) -> tuple:
     """Index `bulk` as two segments on a client on `name` and serve
-    `bodies` through msearch, single searches and one chunked search:
-    -> (responses without `took`, kernel counts, rung counts)."""
+    `bodies` and `bool_bodies` through msearch, single searches and one
+    chunked search: -> (responses without `took`, kernel counts, rung and
+    route counts). Filters of more than 256 docs count as dense here, so
+    a few thousand docs reach every bool route."""
     from opensearch_tpu_torch import RestClient
     from opensearch_tpu_torch.ops import bm25
     from opensearch_tpu_torch.search import fastpath
 
     c = RestClient(device=name)
     c.indices.create("t", {"mappings": {"properties": {
-        "body": {"type": "text"}}}})
+        "body": {"type": "text"}, "status": {"type": "keyword"},
+        "price": {"type": "integer"}}}})
     t0 = time.perf_counter()
     c.bulk(bulk[:2 * split], refresh=True)
     c.bulk(bulk[2 * split:], refresh=True)
     t_bulk = time.perf_counter() - t0
     bm25.reset_counts()
     fastpath.reset_stats()
+    saved_min = fastpath.MATERIALIZE_MIN_DOCS
+    fastpath.MATERIALIZE_MIN_DOCS = 256
     t0 = time.perf_counter()
-    ms = c.msearch(sum([[{}, q] for q in bodies], []), index="t")
-    singles = [c.search("t", q) for q in bodies[:10] + bodies[-6:]]
+    try:
+        ms = c.msearch(sum([[{}, q] for q in bodies + bool_bodies], []),
+                       index="t")
+        singles = [c.search("t", q)
+                   for q in bodies[:10] + bodies[-6:] + bool_bodies]
+    finally:
+        fastpath.MATERIALIZE_MIN_DOCS = saved_min
     # a stopword-class term split into doc-range chunks: the per-row
     # budget lowered for this one search
     saved = fastpath.MAX_TL
@@ -395,8 +673,9 @@ def run_slice_small(name: str, bulk, split: int, bodies) -> tuple:
         fastpath.MAX_TL = saved
     t_search = time.perf_counter() - t0
     counts, rungs = dict(bm25.COUNTS), dict(fastpath.STATS)
-    log(f"  {name}: bulk+refresh {t_bulk:.2f}s, {len(bodies) + 17} "
-        f"searches {t_search:.2f}s, counts {counts}")
+    log(f"  {name}: bulk+refresh {t_bulk:.2f}s, "
+        f"{len(bodies) + 2 * len(bool_bodies) + 17} searches "
+        f"{t_search:.2f}s, counts {counts}")
     log(f"  {name}: rungs {rungs}")
     return strip_took([ms, singles, chunked]), counts, rungs
 
@@ -404,12 +683,13 @@ def run_slice_small(name: str, bulk, split: int, bodies) -> tuple:
 def phase_slice_small(rng) -> dict:
     from opensearch_tpu_torch.search import fastpath
 
-    bulk, split, df, bodies = small_corpus(rng, fastpath.L_HEAD)
+    bulk, split, df, bodies, bool_bodies = small_corpus(rng, fastpath.L_HEAD)
     log(f"  corpus: {len(bulk) // 2} docs in two segments ({split} + "
         f"{len(bulk) // 2 - split}); df(the) in the first = {df} > "
-        f"L_HEAD = {fastpath.L_HEAD}")
-    out = {name: run_slice_small(name, bulk, split, bodies)
+        f"L_HEAD = {fastpath.L_HEAD}; {len(bool_bodies)} bool bodies")
+    out = {name: run_slice_small(name, bulk, split, bodies, bool_bodies)
            for name in ("cuda", "cpu")}
+    bodies = bodies + bool_bodies
     if out["cuda"][0] != out["cpu"][0]:
         for i, (a, b) in enumerate(zip(out["cuda"][0][0]["responses"],
                                        out["cpu"][0][0]["responses"])):
@@ -419,9 +699,13 @@ def phase_slice_small(rng) -> dict:
         raise AssertionError("search responses differ between cuda and cpu")
     counts, rungs = out["cuda"][1], out["cuda"][2]
     if counts["launches"] == 0 or counts["impact_launches"] == 0 \
-            or counts["plain_calls"]:
-        raise AssertionError(f"cuda slice did not run both kernels only: "
-                             f"{counts}")
+            or counts["bool_launches"] == 0 or counts["plain_calls"]:
+        raise AssertionError(f"cuda slice did not run the three kernels "
+                             f"only: {counts}")
+    missing = [r for r in BOOL_ROUTES if rungs[r] == 0]
+    if missing:
+        raise AssertionError(f"no bool body took the routes {missing}: "
+                             f"{rungs}")
     if rungs != out["cpu"][2]:
         raise AssertionError(f"rungs differ: cuda {rungs} cpu "
                              f"{out['cpu'][2]}")
@@ -434,8 +718,10 @@ def phase_slice_small(rng) -> dict:
             f"docs")
     rels = Counter(r["hits"]["total"]["relation"]
                    for r in out["cuda"][0][0]["responses"])
-    log(f"  responses identical over {len(bodies)} msearch bodies, 16 "
-        f"searches and 1 chunked search (relations {dict(rels)})")
+    log(f"  responses identical over {len(bodies)} msearch bodies, "
+        f"{16 + len(bool_bodies)} searches and 1 chunked search (relations "
+        f"{dict(rels)}); bool routes " + " ".join(
+            f"{r}={rungs[r]}" for r in BOOL_ROUTES))
     return counts
 
 
@@ -443,15 +729,21 @@ def phase_slice_small(rng) -> dict:
 # phase 5: MS MARCO passage scale
 # ---------------------------------------------------------------------
 
-def run_batches(client, bodies) -> tuple:
+def run_batches(client, bodies, warm=()) -> tuple:
     """`bodies` through RestClient.msearch in BATCH-body requests, counts
-    and rungs set to 0 just before: -> (responses, wall s, batch ms,
-    kernel counts, rung counts)."""
+    and rungs set to 0 just before (and before the one msearch of `warm`
+    bodies, when given): -> (responses, wall s, batch ms, kernel counts,
+    rung counts)."""
     from opensearch_tpu_torch.ops import bm25
     from opensearch_tpu_torch.search import fastpath
 
     bm25.reset_counts()
     fastpath.reset_stats()
+    if warm:
+        t0 = time.perf_counter()
+        client.msearch(sum([[{}, b] for b in warm], []), index="bench")
+        log(f"  warm pass: {len(warm)} bodies in "
+            f"{time.perf_counter() - t0:.2f}s, counts {dict(bm25.COUNTS)}")
     lat = []
     resps = []
     t0 = time.perf_counter()
@@ -484,6 +776,18 @@ def log_run(what: str, n: int, wall: float, lat, counts, rungs, resps):
     log(f"  {what}: rungs " + " ".join(f"{k}={rungs[k]}" for k in RUNGS))
 
 
+def cpu_twin(seg):
+    """A RestClient on the CPU over the same segment object (the bench
+    index's mappings)."""
+    from opensearch_tpu_torch import RestClient
+    cpu = RestClient(device="cpu")
+    cpu.indices.create("bench", {"mappings": {"properties": {
+        "body": {"type": "text"}, "status": {"type": "keyword"},
+        "price": {"type": "integer"}}}})
+    cpu._indices["bench"].engine.segments = [seg]
+    return cpu
+
+
 def phase_msmarco(ndocs: int, nq: int) -> dict:
     import torch
     from opensearch_tpu_torch import RestClient, bench_corpus as bc
@@ -493,11 +797,14 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
 
     t0 = time.perf_counter()
     corpus = bc.build_corpus(ndocs)
+    columns = bc.guardrail_columns(ndocs)
     t_corpus = time.perf_counter() - t0
     client = RestClient(device="cuda")
     dev = client.device
     t1 = time.perf_counter()
-    seg = bc.make_index(client, corpus)
+    # the guardrail columns ride the same segment for phase 6; no query
+    # of this phase reads them
+    seg = bc.make_index(client, corpus, columns=columns)
     torch.cuda.synchronize()
     t_planes = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -559,7 +866,7 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
         f"bodies; totals equal or lower bounds")
     qv = seg.aligned.get(("quality", "body", str(dev)))
     if qv is not None:
-        fp = fastpath._filtered_postings(seg, "body", qv[0], dev)
+        fp = fastpath._filtered_postings(seg, "body", qv[0])
         vb = fastpath.get_aligned(fp.view, "body", dev).nbytes
         log(f"  quality view resident bytes: {vb} over {qv[0].n} docs "
             f"(mask and list {qv[0].nbytes})")
@@ -671,10 +978,7 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
     srng = np.random.default_rng(7)
     sample = sorted(srng.choice(nq, 64, replace=False).tolist())
     lines = sum([[{}, bodies[i]] for i in sample], [])
-    cpu = RestClient(device="cpu")
-    cpu.indices.create("bench", {"mappings": {"properties": {
-        "body": {"type": "text"}}}})
-    cpu._indices["bench"].engine.segments = [seg]
+    cpu = cpu_twin(seg)
     t3 = time.perf_counter()
     on_cpu = strip_took(cpu.msearch(lines, index="bench"))
     t_cpu = time.perf_counter() - t3
@@ -685,37 +989,314 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
     log(f"  64 sampled bodies: card == CPU responses (CPU {t_cpu:.1f}s)")
     return {"tfdl_launches": d_counts["launches"],
             "impact_launches": counts["impact_launches"],
-            "max_abs_err": worst, "b1": b1, "b2": b2}
+            "max_abs_err": worst, "b1": b1, "b2": b2, "client": client,
+            "seg": seg, "corpus": corpus, "columns": columns,
+            "a_docs": a_docs}
+
+
+# ---------------------------------------------------------------------
+# phase 6: bool traffic at MS MARCO passage scale
+# ---------------------------------------------------------------------
+
+def bool_oracle(mix: str, i: int, queries, status, price) -> tuple:
+    """What body i of a phase-6 mix asks, straight from the columns: (term
+    slots [(term, "req" | "fam" | "bonus")], family msm, filter mask,
+    constant score or None)."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    if mix == "guardrail":
+        qt, msm, fk = bc.bool_shape(i, queries[i])
+        mask = bc.guardrail_masks(status, price)[fk]
+        if msm == len(qt):
+            return [(int(t), "req") for t in qt], 0, mask, None
+        return [(int(t), "fam") for t in qt], max(msm, 1), mask, None
+    a, b, c = (int(t) for t in queries[i][:3])
+    kind = i % 4
+    if kind == 0:
+        return [(a, "fam"), (b, "fam"), (c, "bonus")], 1, status == 2, None
+    if kind == 1:
+        return [(a, "req"), (b, "fam"), (c, "fam")], 1, status != 0, None
+    if kind == 2:
+        return ([(a, "fam"), (b, "fam")], 1,
+                (price >= 250) & (price < 260), None)
+    return [], 0, (status == 1) & (price >= 500) & (price < 510), 2.0
+
+
+def oracle_page(corpus, slots, fam_msm, mask, const, size: int) -> tuple:
+    """Independent numpy brute force of one bool body: exact f32 BM25
+    (k1 1.2, b 0.75, Lucene idf) of every doc, summed in slot order,
+    kept where the mask, every required slot and fam_msm family slots
+    pass: -> (ids, scores, total) of the top `size` by (score desc, doc
+    asc)."""
+    import math
+    starts, doc_ids, tfs, dl, df = corpus
+    n = len(dl)
+    avgdl = np.float32(float(dl.sum()) / n)
+    k1, b, omb = np.float32(1.2), np.float32(0.75), np.float32(1.0 - 0.75)
+    score = np.zeros(n, np.float32)
+    n_req = np.zeros(n, np.int32)
+    n_fam = np.zeros(n, np.int32)
+    for t, kind in slots:
+        lo, hi = int(starts[t]), int(starts[t + 1])
+        d = doc_ids[lo:hi]
+        tf = tfs[lo:hi]
+        w = np.float32(math.log(1.0 + (n - int(df[t]) + 0.5)
+                                / (int(df[t]) + 0.5)))
+        k = k1 * (omb + (b * dl[d].astype(np.float32)) / avgdl)
+        score[d] += (w * tf) / (tf + k)
+        if kind == "req":
+            n_req[d] += 1
+        elif kind == "fam":
+            n_fam[d] += 1
+    want_req = sum(1 for _t, kind in slots if kind == "req")
+    passed = mask & (n_req == want_req) & (n_fam >= fam_msm)
+    docs = np.flatnonzero(passed)
+    sc = (np.full(len(docs), np.float32(const), np.float32)
+          if const is not None else score[docs])
+    order = np.lexsort((docs, -sc))[:size]
+    return docs[order].tolist(), sc[order].tolist(), int(len(docs))
+
+
+def filter_bytes(seg, dev) -> dict:
+    """Resident bytes the bool path added to the segment: filter lists
+    (device doc lists and the dense masks kept on the host), filter
+    masks on the device, filter-specialized rows and views."""
+    from opensearch_tpu_torch.search import fastpath
+    out = {"filter_lists": 0, "masks": 0, "filtered_rows": 0,
+           "filtered_views": 0}
+    for fl in seg.__dict__.get("filter_lists", {}).values():
+        out["filter_lists"] += fl.nbytes
+    for key, v in seg.aligned.items():
+        if key[0] == "mask" and key[-1] == str(dev):
+            out["masks"] += v.numel()
+        elif key[0] == "filtered" and v is not None:
+            al = v._al.get(str(dev))
+            out["filtered_rows"] += al.nbytes if al is not None else 0
+            if v.view is not None and ("body", str(dev)) in v.view.aligned:
+                out["filtered_views"] += fastpath.get_aligned(
+                    v.view, "body", dev).nbytes
+    return out
+
+
+def time_bool_groups(client, seg, bodies, base_docs: np.ndarray) -> dict:
+    """The bool kernel's groups of a first batch, planned again after the
+    mix ran (its filters are hot): kernel == plain bit for bit, then both
+    timed and the largest group held against its byte bound."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C, fastpath
+    from opensearch_tpu_torch.search import query_dsl as dsl
+
+    dev = client.device
+    ctx = client._indices["bench"].searcher.context()
+    specs = [fastpath.make_spec(C.rewrite(dsl.parse_query(b["query"]), ctx),
+                                10, b) for b in bodies]
+    specs = [sp for sp in specs if sp.kind == "bool"]
+    vqs = fastpath._prepare_bool_vqueries(seg, ctx, specs, {}, dev)
+    base = fastpath.get_aligned(seg, "body", dev)
+    worst, timed = 0.0, []
+    for gvqs in fastpath.bool_groups(vqs):
+        args, kw = fastpath.bool_group_call(gvqs, 16, dev)
+
+        def kern():
+            return bm25.fused_bm25_bool_topk(*args, **kw)
+
+        def plain():
+            return bm25.fused_bm25_bool_topk_plain(*args, **kw)
+        v0 = gvqs[0]
+        route = ("filter slot" if v0.filtered else "filtered postings"
+                 if v0.al is not base else "unfiltered")
+        what = (f"first batch bool TS={kw['TS']} T={v0.T} L={kw['L']} "
+                f"({route})")
+        worst = max(worst, _check_equal(kern(), plain(), what))
+        QB = args[3].shape[0]
+        k_ms = cuda_ms(kern, 20)
+        p_ms = cuda_ms(plain, 3)
+        h_docs = (base_docs if v0.al is base else args[0].cpu().numpy())
+        host = [x.cpu().numpy() for x in args[3:]]
+        b_ms, nbytes, n_t, n_f = bool_bound(h_docs, args[2].cpu().numpy(),
+                                            host, kw["TS"], kw["filtered"],
+                                            kw["L"])
+        log(f"  {what} QB={QB} K=16 (whole launch): kernel == plain, "
+            f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f}"
+            f" bytes={nbytes} term_postings={n_t} filter_postings={n_f}")
+        timed.append({"QB": QB, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": b_ms})
+    torch.cuda.synchronize()
+    return {"max_abs_err": worst,
+            "largest": max(timed, key=lambda g: g["bound_ms"])}
+
+
+def phase_bool_msmarco(big: dict, nq: int) -> dict:
+    """Two bool traffic mixes of nq bodies over phase 5's segment, in
+    BATCH-body msearch requests: bench.py's guardrail configuration
+    (after one warm pass over its three filters) and the b3 mix. Each mix
+    runs twice, with default totals and with track_total_hits; then the
+    checks (the bool kernel == plain on the first b3 batch, card == CPU,
+    default page == exact page, the numpy brute force)."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    from opensearch_tpu_torch.search import fastpath
+
+    client, seg, corpus = big["client"], big["seg"], big["corpus"]
+    status, price = big["columns"]
+    dev = client.device
+    df = corpus[4]
+    vs = bc.vocab_strings(len(df))
+    queries = bc.pick_queries(df, nq)
+    mixes = {"guardrail": [bc.bool_body(i, queries, vs) for i in range(nq)],
+             "b3": [bc.b3_body(i, queries, vs) for i in range(nq)]}
+    warm = [bc.bool_body(i, queries, vs) for i in range(3)]
+    res = {}
+    for name, bodies in mixes.items():
+        resps, wall, lat, counts, rungs = run_batches(
+            client, bodies, warm if name == "guardrail" else ())
+        log_bool_run(name, nq, wall, lat, counts, rungs, resps)
+        if counts["bool_launches"] == 0 or counts["plain_calls"] != 0:
+            raise AssertionError(f"{name} mix did not run the bool kernel "
+                                 f"only: {counts}")
+        exact = [dict(b, track_total_hits=True) for b in bodies]
+        e_resps, e_wall, e_lat, e_counts, e_rungs = run_batches(client,
+                                                                exact)
+        log_bool_run(name + " exact (track_total_hits)", nq, e_wall, e_lat,
+                     e_counts, e_rungs, e_resps)
+        for b, r, e in zip(bodies, resps, e_resps):
+            rh = [(h["_id"], h["_score"]) for h in r["hits"]["hits"]]
+            eh = [(h["_id"], h["_score"]) for h in e["hits"]["hits"]]
+            rt, et = r["hits"]["total"], e["hits"]["total"]
+            if rh != eh or et["relation"] != "eq" or not (
+                    rt == et if rt["relation"] == "eq"
+                    else rt["value"] <= et["value"]):
+                raise AssertionError(f"{name}: default page != exact page "
+                                     f"for {b}:\n{r['hits']}\n{e['hits']}")
+        log(f"  {name}: default pages == exact pages (ids and scores) for "
+            f"all {nq} bodies; totals equal or lower bounds")
+        res[name] = {"resps": resps, "counts": counts}
+        profile_batch(client, bodies[:BATCH])
+    log("  resident bytes added by the bool path: " + " ".join(
+        f"{k}={v}" for k, v in filter_bytes(seg, dev).items()))
+    b3 = time_bool_groups(client, seg, mixes["b3"][:BATCH], big["a_docs"])
+
+    # 64 sampled bodies per mix, on the card and on the CPU (one segment,
+    # one set of filter lists: the same routes)
+    cpu = cpu_twin(seg)
+    srng = np.random.default_rng(11)
+    for name, bodies in mixes.items():
+        sample = sorted(srng.choice(nq, 64, replace=False).tolist())
+        lines = sum([[{}, bodies[i]] for i in sample], [])
+        on_card = strip_took(client.msearch(lines, index="bench"))
+        t0 = time.perf_counter()
+        on_cpu = strip_took(cpu.msearch(lines, index="bench"))
+        if on_card != on_cpu:
+            raise AssertionError(f"{name}: 64 sampled bodies: card and "
+                                 f"CPU responses differ")
+        log(f"  {name}: 64 sampled bodies, card == CPU responses (CPU "
+            f"{time.perf_counter() - t0:.1f}s)")
+        # 16 of them against the numpy brute force
+        t0 = time.perf_counter()
+        for i in sample[:16]:
+            slots, fam_msm, mask, const = bool_oracle(name, i, queries,
+                                                      status, price)
+            ids, scores, total = oracle_page(corpus, slots, fam_msm, mask,
+                                             const, 10)
+            r = res[name]["resps"][i]["hits"]
+            got_ids = [int(h["_id"]) for h in r["hits"]]
+            got_sc = np.asarray([h["_score"] for h in r["hits"]])
+            T = 2 * (1 << max(len(slots) - 1, 0).bit_length())
+            rtol = (T + 1) * 2.0**-23
+            t = r["total"]
+            if got_ids != ids or not np.allclose(got_sc, scores, rtol=rtol,
+                                                 atol=0) or not (
+                    t["value"] == total if t["relation"] == "eq"
+                    else t["value"] <= total):
+                raise AssertionError(
+                    f"{name} body {i} != numpy brute force: {got_ids} "
+                    f"{got_sc.tolist()} {t} vs {ids} {scores} {total}")
+        log(f"  {name}: 16 bodies == numpy brute force (ids, order, scores "
+            f"within (T+1)*2^-23, totals) ({time.perf_counter() - t0:.1f}s)")
+    return {"guardrail_bool_launches":
+            res["guardrail"]["counts"]["bool_launches"],
+            "b3_bool_launches": res["b3"]["counts"]["bool_launches"],
+            "bool_launches": sum(r["counts"]["bool_launches"]
+                                 for r in res.values()),
+            "b3": b3["largest"], "max_abs_err": b3["max_abs_err"]}
+
+
+def log_bool_run(what: str, n: int, wall: float, lat, counts, rungs,
+                 resps) -> None:
+    from opensearch_tpu_torch.search import fastpath
+    rels = Counter(r["hits"]["total"]["relation"] for r in resps)
+    rest_s = wall - lat[0] / 1e3
+    log(f"  {what}: queries={n} batch={BATCH} wall_s={wall:.2f} "
+        f"qps={n / wall:.1f} batch_ms_p50={np.percentile(lat, 50):.1f} "
+        f"batch_ms_p99={np.percentile(lat, 99):.1f} first_batch_ms="
+        f"{lat[0]:.1f} qps_after_first_batch={(n - BATCH) / rest_s:.1f} "
+        f"B1 launches={counts['launches']} rows={counts['rows']} "
+        f"B2 launches={counts['impact_launches']} "
+        f"rows={counts['impact_rows']} "
+        f"B3 launches={counts['bool_launches']} rows={counts['bool_rows']} "
+        f"plain_calls={counts['plain_calls']} relations={dict(rels)}")
+    log(f"  {what}: routes " + " ".join(
+        f"{k}={rungs[k]}" for k in BOOL_ROUTES) + " rungs " + " ".join(
+        f"{k}={rungs[k]}" for k in RUNGS if k != "shard_view_served"))
 
 
 def profile_batch(client, bodies) -> None:
-    """Where one msearch batch's time goes: device time by kernel from
-    torch.profiler, and the host functions that hold it, from cProfile
-    on a second run of the same batch."""
+    """Where one msearch batch's time goes: device time by kernel and the
+    device idle share, then the host functions that hold the time, from
+    cProfile on a second run of the same batch. torch.profiler times the
+    PyTorch ops; the hand-written kernels, launched through ctypes, are
+    timed with CUDA events recorded on their stream right around each C
+    launch call (the profiler has been seen to drop their records)."""
     import cProfile
     import pstats
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from opensearch_tpu_torch.ops import _build
 
     lines = sum([[{}, b] for b in bodies], [])
+    spans = []
+    saved = {}
+    for name in _build.SIGNATURES:
+        lib = _build.load_library(name)
+        fn = getattr(lib, f"{name}_launch")
+        saved[name] = (lib, fn)
+
+        def timed(*args, _fn=fn, _name=name):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            err = _fn(*args)
+            b.record()
+            spans.append((_name, a, b))
+            return err
+        setattr(lib, f"{name}_launch", timed)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        client.msearch(lines, index="bench")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            client.msearch(lines, index="bench")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, (lib, fn) in saved.items():
+            setattr(lib, f"{name}_launch", fn)
     dev = {}
     for e in prof.key_averages():
+        if "rows_topk_kernel" in e.key:
+            continue                  # counted from the CUDA events below
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
         if us > 0:
             dev[e.key] = dev.get(e.key, 0.0) + us / 1e3
+    for name, a, b in spans:
+        key = f"{name} kernel (CUDA events)"
+        dev[key] = dev.get(key, 0.0) + a.elapsed_time(b)
     busy = sum(dev.values())
     log(f"  profile of one batch ({len(bodies)} bodies): wall_ms="
         f"{wall_ms:.1f} device_busy_ms={busy:.2f} device_idle_share="
-        f"{1 - busy / wall_ms:.4f}")
+        f"{1 - busy / wall_ms:.4f} (hand-written kernel launches: "
+        f"{len(spans)})")
     for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:4]:
         log(f"    device {v:9.3f} ms  {k[:90]}")
     pr = cProfile.Profile()
@@ -733,7 +1314,9 @@ def profile_batch(client, bodies) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
-    ap.add_argument("--queries", type=int, default=2048)
+    # phase 5 ran 2,048 queries before phase 6 shared the time limit
+    ap.add_argument("--queries", type=int, default=1024)
+    ap.add_argument("--bool-queries", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch
@@ -774,6 +1357,10 @@ def main() -> int:
     log(f"  tfdl: {grid['points']} grid points equal")
     igrid = phase_impact_grid(dev, rng)
     log(f"  impact: {igrid['points']} grid points equal")
+    bgrid = phase_bool_grid(dev, rng)
+    log(f"  bool: {bgrid['points']} grid points equal")
+    ngrid = phase_norms_grid(dev, rng)
+    log(f"  norms: {ngrid['points']} grid points equal")
 
     log("[4] slice, small: RestClient on cuda vs cpu")
     phase_slice_small(rng)
@@ -782,7 +1369,13 @@ def main() -> int:
     if args.ndocs < NDOCS_MSMARCO:
         log(f"  cut: ndocs {args.ndocs} < {NDOCS_MSMARCO} as asked on the "
             f"command line")
+    if args.queries < 2048:
+        log(f"  cut: {args.queries} match queries (2048 uncut), so that "
+            f"phase 6 fits the same time limit")
     big = phase_msmarco(args.ndocs, args.queries)
+
+    log(f"[6] bool traffic at MS MARCO passage scale (ndocs={args.ndocs})")
+    bools = phase_bool_msmarco(big, args.bool_queries)
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -800,7 +1393,24 @@ def main() -> int:
         "max_abs_err": max(igrid["max_abs_err"], big["max_abs_err"]),
         "ms": big["b2"]["ms"], "plain_ms": big["b2"]["plain_ms"],
         "bound_ms": big["b2"]["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "parity": "exact"}]
+        "library_ms": None, "parity": "exact"}, {
+        "name": "fused_bm25_bool_topk", "route": "cuda",
+        "source": "opensearch_tpu_torch/csrc/bm25_bool.cu",
+        "replaces": "opensearch_tpu/ops/pallas_bm25.py:570",
+        "launches": bools["bool_launches"],
+        "max_abs_err": max(bgrid["max_abs_err"], bools["max_abs_err"]),
+        "ms": bools["b3"]["ms"], "plain_ms": bools["b3"]["plain_ms"],
+        "bound_ms": bools["b3"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "parity": "exact"}, {
+        "name": "fused_bm25_topk", "route": "cuda",
+        "source": "opensearch_tpu_torch/csrc/bm25_norms.cu",
+        "replaces": "opensearch_tpu/ops/pallas_bm25.py:175",
+        "launches": 0, "max_abs_err": ngrid["max_abs_err"],
+        "ms": ngrid["largest"]["ms"],
+        "plain_ms": ngrid["largest"]["plain_ms"],
+        "bound_ms": ngrid["largest"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "parity": "exact",
+        "note": "no caller in the package; times from the phase-3 grid"}]
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """MS-MARCO-passage-shaped synthetic corpus and query pickers (copies of
-the corpus builder, index attach and query pickers of the repo's bench.py),
-attached to a port index as one segment, codec v2 (impact planes built on
-the client's device) unless OPENSEARCH_TPU_CODEC=1, as bench.py attaches
-it.
+the corpus builder, index attach, guardrail columns, query pickers and
+bool bodies of the repo's bench.py), attached to a port index as one
+segment, codec v2 (impact planes built on the client's device) unless
+OPENSEARCH_TPU_CODEC=1, as bench.py attaches it.
 
 The corpus is made from a seed: lognormal doc lengths around 56 tokens
 (8..256), Zipf(1.15) terms over a 200k vocabulary, one posting per
-(term, doc) with its tf.
+(term, doc) with its tf. Its guardrail columns, as bench.py's second
+configuration has them: a `status` keyword (archived / draft /
+published, uniform) as one postings row per value, and an `integer`
+`price` uniform over 0..999.
 """
 
 from __future__ import annotations
@@ -72,19 +75,48 @@ class LazySources:
         return {"doc": int(i)}
 
 
-def make_index(client, corpus, name: str = "bench"):
+STATUS_VALUES = ["archived", "draft", "published"]
+
+
+def guardrail_columns(ndocs: int, seed: int = 3) -> tuple:
+    """(status ordinals i32[ndocs] into STATUS_VALUES, price i64[ndocs]),
+    drawn as bench.py draws them."""
+    rng = np.random.default_rng(seed)
+    status_ord = rng.integers(0, 3, ndocs).astype(np.int32)
+    price = rng.integers(0, 1000, ndocs).astype(np.int64)
+    return status_ord, price
+
+
+def make_index(client, corpus, name: str = "bench", columns=None):
     """Create index `name` with a text field `body` and attach the CSR
-    corpus as its one segment. Returns the segment."""
+    corpus as its one segment; with `columns` (guardrail_columns), also
+    the `status` keyword postings and the `price` integer column, as
+    bench.py's make_index builds them. Returns the segment."""
     starts, doc_ids, tfs, dl, _df = corpus
     ndocs = len(dl)
+    postings = {"body": {"vocab": vocab_strings(len(starts) - 1),
+                         "starts": starts, "doc_ids": doc_ids, "tfs": tfs}}
+    props = {"body": {"type": "text"}}
+    numeric = None
+    if columns is not None:
+        status_ord, price = columns
+        # keyword term queries run against postings: one row per value
+        scounts = np.bincount(status_ord, minlength=3)
+        sstarts = np.zeros(4, np.int64)
+        np.cumsum(scounts, out=sstarts[1:])
+        postings["status"] = {
+            "vocab": STATUS_VALUES, "starts": sstarts,
+            "doc_ids": np.argsort(status_ord, kind="stable").astype(np.int32),
+            "tfs": np.ones(ndocs, np.float32)}
+        numeric = {"price": {"kind": "int", "values": price.astype(np.int64),
+                             "present": np.ones(ndocs, bool)}}
+        props.update({"status": {"type": "keyword"},
+                      "price": {"type": "integer"}})
     seg = segment_from_arrays(
-        "bench0", ndocs,
-        {"body": {"vocab": vocab_strings(len(starts) - 1), "starts": starts,
-                  "doc_ids": doc_ids, "tfs": tfs}},
-        {"body": dl}, {"body": (ndocs, int(dl.sum()))},
-        LazyIds(ndocs), LazySources(ndocs), device=client.device)
-    client.indices.create(name, {"mappings": {"properties": {
-        "body": {"type": "text"}}}})
+        "bench0", ndocs, postings, {"body": dl},
+        {"body": (ndocs, int(dl.sum()))}, LazyIds(ndocs), LazySources(ndocs),
+        numeric_cols=numeric, device=client.device)
+    client.indices.create(name, {"mappings": {"properties": props}})
     client._indices[name].engine.segments = [seg]
     return seg
 
@@ -119,3 +151,81 @@ def pick_queries_real(df_per_term, nq: int, nterms: int = 6, seed: int = 9):
                 uniq.append(t)
         out[qi] = uniq
     return out
+
+
+# ---------------------------------------------------------------------
+# bool traffic: bench.py's guardrail filters and config-2 bodies, and the
+# mix that keeps every query on the bool kernel
+# ---------------------------------------------------------------------
+
+FILTERS_DSL = {
+    "pub": [{"term": {"status": "published"}}],
+    "pubprice": [{"term": {"status": "published"}},
+                 {"range": {"price": {"gte": 250, "lt": 750}}}],
+    "draft": [{"term": {"status": "draft"}}],
+}
+
+
+def guardrail_masks(status_ord: np.ndarray, price: np.ndarray) -> dict:
+    """The docs each FILTERS_DSL entry keeps, from the columns."""
+    pub = status_ord == 2
+    return {"pub": pub, "pubprice": pub & (price >= 250) & (price < 750),
+            "draft": status_ord == 1}
+
+
+def bool_shape(i: int, q) -> tuple:
+    """bench.py's config 2: i%3 == 0 a 2-term OR match under
+    status:published, 1 a 2-term AND under published and a price range, 2
+    a 3-term match with minimum_should_match 2 under status:draft."""
+    if i % 3 == 0:
+        return q[:2], 1, "pub"
+    if i % 3 == 1:
+        return q[:2], 2, "pubprice"
+    return q[:3], 2, "draft"
+
+
+def bool_body(i: int, queries, vs, size: int = 10) -> dict:
+    """bench.py's config-2 body for query row i."""
+    qt, msm, fk = bool_shape(i, queries[i])
+    terms = " ".join(vs[t] for t in qt)
+    if msm == len(qt):
+        must = {"match": {"body": {"query": terms, "operator": "and"}}}
+    elif msm > 1:
+        must = {"match": {"body": {"query": terms,
+                                   "minimum_should_match": msm}}}
+    else:
+        must = {"match": {"body": terms}}
+    return {"query": {"bool": {"must": [must], "filter": FILTERS_DSL[fk]}},
+            "size": size}
+
+
+def b3_body(i: int, queries, vs, size: int = 10) -> dict:
+    """Bool shapes that no pure rung serves, so every one rides the bool
+    kernel: i%4 == 0 a 2-term match, a bonus should term and
+    status:published; 1 a required term, two should terms (one must
+    match) and must_not status:archived; 2 a 2-term match under a ~1%
+    price range; 3 a constant_score (boost 2) of status:draft and a
+    price range."""
+    q = queries[i]
+    a, b, c = (vs[t] for t in q[:3])
+    kind = i % 4
+    if kind == 0:
+        query = {"bool": {"must": [{"match": {"body": f"{a} {b}"}}],
+                          "should": [{"term": {"body": c}}],
+                          "filter": FILTERS_DSL["pub"]}}
+    elif kind == 1:
+        query = {"bool": {"must": [{"term": {"body": a}}],
+                          "should": [{"term": {"body": b}},
+                                     {"term": {"body": c}}],
+                          "minimum_should_match": 1,
+                          "must_not": [{"term": {"status": "archived"}}]}}
+    elif kind == 2:
+        query = {"bool": {"must": [{"match": {"body": f"{a} {b}"}}],
+                          "filter": [{"range": {"price": {"gte": 250,
+                                                          "lt": 260}}}]}}
+    else:
+        query = {"constant_score": {"filter": {"bool": {"filter": [
+            {"term": {"status": "draft"}},
+            {"range": {"price": {"gte": 500, "lt": 510}}}]}},
+            "boost": 2.0}}
+    return {"query": query, "size": size}

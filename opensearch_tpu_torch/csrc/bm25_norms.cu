@@ -1,0 +1,57 @@
+// Fused top-k over precomputed f32 posting norms, for Hopper (sm_90a).
+//
+// Replaces opensearch_tpu/ops/pallas_bm25.py::_bm25_kernel (the TPU kernel
+// behind fused_bm25_topk, the first fused kernel of the reference, which
+// no search path of either package calls). Its fixed-L windows at
+// 128-aligned element starts are rows of the machinery in bm25_rows.cuh
+// (rowstart = start / 128, nrows = L / 128, no skip, every doc id in
+// range), so the wrapper maps them there; this file supplies the
+// contribution of one valid posting: c = w * norm, one round-to-nearest
+// multiply, where `norm` is the posting's eager impact tf / (tf + K_d).
+//
+// Bound: memory. A row reads 8 B per valid posting (doc + norm) and writes
+// 12 B x 128 of output, with one multiply and one add per posting.
+
+#include "bm25_rows.cuh"
+
+namespace {
+
+struct NormsContrib {
+  const float* norms;
+
+  struct Row {
+    const float* norms;
+    __device__ __forceinline__ float operator()(long long at, float w) const {
+      return __fmul_rn(w, __ldg(norms + at));
+    }
+  };
+
+  __device__ __forceinline__ Row row(int) const { return Row{norms}; }
+};
+
+}  // namespace
+
+extern "C" {
+
+int bm25_norms_launch(const int* docs, const float* norms, long long P,
+                      const int* rowstarts, const int* nrows,
+                      const int* lens, const int* skips,
+                      const float* weights, const float* msm,
+                      const int* dlo, const int* dhi, int QB, int T, int L,
+                      int K, float* cand_s, int* cand_d, int grid,
+                      float* out_s, int* out_d, int* out_tot, void* stream) {
+  const bm25rows::Rows a = {docs, P, rowstarts, nrows, lens, skips, weights,
+                            msm, dlo, dhi, QB, T, L, K, cand_s, cand_d,
+                            out_s, out_d, out_tot};
+  return bm25rows::launch_rows(a, NormsContrib{norms}, grid, stream);
+}
+
+int bm25_norms_resident_blocks(int* out) {
+  return bm25rows::resident_blocks<NormsContrib>(out);
+}
+
+const char* bm25_norms_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

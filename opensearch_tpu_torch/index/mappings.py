@@ -1,12 +1,14 @@
-"""Field mappings and document parsing (the text/keyword subset of
-opensearch_tpu/index/mappings.py).
+"""Field mappings and document parsing (the text/keyword/integer/long
+subset of opensearch_tpu/index/mappings.py).
 
-Documents are parsed on the host into per-field term lists; the device
-only ever sees term rows. Explicit and dynamic `text` and `keyword`
-fields are served, with the reference's dynamic rule for strings
-(text + a `.keyword` subfield with ignore_above 256, ISO-date strings map
-to `date`). Every other field type, mapping option or dynamic value type
-raises `NotPortedError`.
+Documents are parsed on the host into per-field term lists (text and
+keyword) and numeric doc values (integer and long, exact i64); the device
+only ever sees term rows and numeric columns. Explicit and dynamic
+fields are served with the reference's dynamic rules: strings map to text
++ a `.keyword` subfield with ignore_above 256 (ISO-date strings map to
+`date`), JSON integers to `long`. Every other field type (`double`,
+`date`, ...), mapping option or dynamic value type raises
+`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ from ..errors import NotPortedError
 
 TEXT_TYPES = {"text"}
 KEYWORD_TYPES = {"keyword"}
+# the ported subset of the reference's long family: exact i64 doc values
+INT_TYPES = {"integer", "long"}
+_INT_BITS = {"integer": 31, "long": 63}
 _FIELD_OPTIONS = {"type", "analyzer", "search_analyzer", "normalizer",
                   "index", "doc_values", "ignore_above", "norms", "fields"}
 _MAPPING_KEYS = {"properties", "dynamic", "_meta"}
@@ -51,6 +56,19 @@ class ParsedDocument:
     source: dict
     routing: Optional[str]
     terms: Dict[str, List[str]] = dc_field(default_factory=dict)
+    # field -> numeric values (the segment's column keeps the first)
+    numerics: Dict[str, List[int]] = dc_field(default_factory=dict)
+
+
+def coerce_value(ft: "FieldType", value: Any) -> int:
+    """A raw JSON value as the i64 column value of an integer/long field,
+    range-checked as the reference's coerce_value does."""
+    iv = int(value)
+    bits = _INT_BITS[ft.type]
+    if not (-(1 << bits)) <= iv < (1 << bits):
+        raise ValueError(f"value [{value}] out of range for field type "
+                         f"[{ft.type}]")
+    return iv
 
 
 class Mappings:
@@ -85,7 +103,7 @@ class Mappings:
             self.fields[path] = self._build_field(path, ftype, cfg)
 
     def _build_field(self, path: str, ftype: str, cfg: dict) -> FieldType:
-        if ftype not in TEXT_TYPES | KEYWORD_TYPES:
+        if ftype not in TEXT_TYPES | KEYWORD_TYPES | INT_TYPES:
             raise NotPortedError(f"field type [{ftype}] (field [{path}])")
         for key in cfg:
             if key not in _FIELD_OPTIONS:
@@ -132,7 +150,7 @@ class Mappings:
         if isinstance(value, bool):
             raise NotPortedError(f"dynamic field type [boolean] (field [{path}])")
         if isinstance(value, int):
-            raise NotPortedError(f"dynamic field type [long] (field [{path}])")
+            return self._build_field(path, "long", {})
         if isinstance(value, float):
             raise NotPortedError(f"dynamic field type [double] (field [{path}])")
         if isinstance(value, str):
@@ -195,6 +213,9 @@ class Mappings:
             if ft.index:
                 tokens = self.index_analyzer(ft).analyze(str(v))
                 parsed.terms.setdefault(name, []).extend(t.text for t in tokens)
+            return
+        if ft.type in INT_TYPES:
+            parsed.numerics.setdefault(name, []).append(coerce_value(ft, v))
             return
         s = str(v)      # keyword
         if ft.ignore_above is not None and len(s) > ft.ignore_above:

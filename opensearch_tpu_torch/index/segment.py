@@ -5,7 +5,9 @@ Postings for one field are a CSR matrix over (term row -> doc postings):
 `starts[t]..starts[t+1]` index flat `doc_ids` / `tfs` arrays, rows in
 sorted-vocab order, docs ascending within a row. `doc_lens` holds each text
 field's per-doc token count and `text_stats` its (doc_count, sum_dl), the
-collection statistics BM25 reads. Everything here is host numpy: the
+collection statistics BM25 reads. `numeric_cols` holds each integer/long
+field's doc values (the first value of each doc, exact i64, and a
+`present` mask), which range filters read. Everything here is host numpy: the
 search layer builds the device-resident aligned layout it needs
 (`search/fastpath.py`).
 
@@ -222,6 +224,24 @@ class PostingsBlock:
 
 
 @dataclass
+class NumericColumn:
+    """Doc values of one integer/long field: `values[d]` is the first
+    value of doc d (0 where `present[d]` is false)."""
+
+    field: str
+    kind: str                 # "int" (integer/long, exact i64)
+    values: np.ndarray        # i64[ndocs]
+    present: np.ndarray       # bool[ndocs]
+
+    @property
+    def min_max(self) -> Tuple[float, float]:
+        if not self.present.any():
+            return (0.0, 0.0)
+        vals = self.values[self.present]
+        return (float(vals.min()), float(vals.max()))
+
+
+@dataclass
 class TextFieldStats:
     doc_count: int = 0        # docs containing this field
     sum_dl: int = 0           # total tokens across docs
@@ -237,7 +257,8 @@ class Segment:
                  doc_lens: Dict[str, np.ndarray],
                  text_stats: Dict[str, TextFieldStats],
                  ids, sources, seq_nos: Optional[np.ndarray] = None,
-                 codec_version: int = CODEC_V1):
+                 codec_version: int = CODEC_V1,
+                 numeric_cols: Optional[Dict[str, NumericColumn]] = None):
         Segment._seq += 1
         self.uid = Segment._seq
         self.name = name
@@ -245,6 +266,7 @@ class Segment:
         self.postings = postings
         self.doc_lens = doc_lens
         self.text_stats = text_stats
+        self.numeric_cols = numeric_cols or {}
         self.ids = ids
         self.sources = sources
         self.seq_nos = (seq_nos if seq_nos is not None
@@ -255,7 +277,8 @@ class Segment:
         # posting layout consult this attribute
         self.codec_version = int(codec_version)
         # search-layer caches keyed by (field, device): AlignedPostings,
-        # quality tiers and filtered views, built by search/fastpath.py
+        # quality tiers and filtered views, built by search/fastpath.py,
+        # and filter masks, built by search/filters.py
         self.aligned: dict = {}
 
     # ---------------- codec v2: impact planes ----------------
@@ -349,10 +372,21 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                 stats.sum_dl += len(terms)
                 dl = doc_lens.setdefault(fname, np.zeros(ndocs, dtype=np.int64))
                 dl[doc_i] = len(terms)
+    numeric_cols: Dict[str, NumericColumn] = {}
+    for fname in sorted({f for pd in parsed_docs for f in pd.numerics}):
+        values = np.zeros(ndocs, dtype=np.int64)
+        present = np.zeros(ndocs, dtype=bool)
+        for doc_i, pd in enumerate(parsed_docs):
+            vals = pd.numerics.get(fname)
+            if vals:
+                values[doc_i] = vals[0]
+                present[doc_i] = True
+        numeric_cols[fname] = NumericColumn(fname, "int", values, present)
     seq = np.asarray(seq_nos, dtype=np.int64) if seq_nos is not None else None
     seg = Segment(name, ndocs, pack_postings(parsed_docs), doc_lens,
                   text_stats, [d.doc_id for d in parsed_docs],
-                  [d.source for d in parsed_docs], seq_nos=seq)
+                  [d.source for d in parsed_docs], seq_nos=seq,
+                  numeric_cols=numeric_cols)
     if default_codec_version() >= CODEC_V2:
         seg.build_impacts(device=device)
     return seg

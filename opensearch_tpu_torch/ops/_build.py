@@ -29,10 +29,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # library -> C function -> (restype, argtypes)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "bm25_tfdl": {
-        "bm25_tfdl_launch": (_I, [_P, _P, ctypes.c_longlong,
+        "bm25_tfdl_launch": (_I, [_P, _P, _L,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _F, _F, _F,
                                   _P, _P, _I, _P, _P, _P, _P]),
@@ -40,12 +41,28 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "bm25_tfdl_error_string": (ctypes.c_char_p, [_I]),
     },
     "bm25_impact": {
-        "bm25_impact_launch": (_I, [_P, _P, ctypes.c_longlong,
+        "bm25_impact_launch": (_I, [_P, _P, _L,
                                     _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I,
                                     _P, _P, _I, _P, _P, _P, _P]),
         "bm25_impact_resident_blocks": (_I, [_P]),
         "bm25_impact_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "bm25_bool": {
+        "bm25_bool_launch": (_I, [_P, _P, _L, _P, _L,
+                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _F, _F, _F,
+                                  _P, _P, _I, _P, _P, _P, _P]),
+        "bm25_bool_resident_blocks": (_I, [_P]),
+        "bm25_bool_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "bm25_norms": {
+        "bm25_norms_launch": (_I, [_P, _P, _L,
+                                   _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I,
+                                   _P, _P, _I, _P, _P, _P, _P]),
+        "bm25_norms_resident_blocks": (_I, [_P]),
+        "bm25_norms_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)

@@ -1,21 +1,25 @@
 """Fused BM25 top-k over aligned CSR postings: the counterpart of
 opensearch_tpu/ops/pallas_bm25.py (`fused_bm25_topk_tfdl`,
-`fused_bm25_topk_impact`, `align_csr_rows` and the layout constants).
+`fused_bm25_topk_impact`, `fused_bm25_bool_topk`, `fused_bm25_topk`,
+`align_csr_rows` and the layout constants).
 
-Both kernels take one kernel row per query (or per doc-range chunk, or per
-impact-head form of a query). Each row names up to T term windows in the
+Every kernel takes one kernel row per query (or per doc-range chunk, or per
+impact-head form of a query). Each row names up to T slot windows in the
 aligned CSR buffers, and the function returns the row's top-K docs by
 (score desc, doc asc), padded with -inf/-1 to 128 lanes, plus the exact
-count of docs that pass the row's minimum-should-match.
+count of docs that pass the row's minimum-should-match (its threshold).
 `fused_bm25_topk_tfdl` scores exact f32 BM25 from packed (tf, dl);
 `fused_bm25_topk_impact` scores `w * f32(imp)` from a codec-v2 quantized
-impact plane, one multiply per posting.
+impact plane, one multiply per posting; `fused_bm25_bool_topk` is the
+tf.dl kernel with per-slot count weights against a threshold and an
+optional filter slot read from its own doc list; `fused_bm25_topk` scores
+`w * norm` over precomputed f32 norms in fixed-L windows.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
-(`csrc/bm25_tfdl.cu`, `csrc/bm25_impact.cu`, both on the row machinery of
-`csrc/bm25_rows.cuh`); on a CPU tensor it runs its `_plain` version, the
-plain PyTorch version of the same function. Nothing else selects between
-them.
+(`csrc/bm25_tfdl.cu`, `csrc/bm25_impact.cu`, `csrc/bm25_bool.cu`,
+`csrc/bm25_norms.cu`, all on the row machinery of `csrc/bm25_rows.cuh`);
+on a CPU tensor it runs its `_plain` version, the plain PyTorch version of
+the same function. Nothing else selects between them.
 """
 
 from __future__ import annotations
@@ -42,13 +46,22 @@ DL_MASK = (1 << DL_BITS) - 1
 TF_MAX = (1 << TF_BITS) - 1
 DL_MAX = DL_MASK
 
+# count weight of a required bool slot (and of the filter slot): larger
+# than any sum of optional weights, so `thresh = REQ_W * n_required +
+# fam_msm` demands every required slot and fam_msm family slots
+REQ_W = 1024.0
+INT_MIN = -(2**31)
+
 # Calls made through each route since the last reset_counts(): "launches"
 # counts fused_bm25_topk_tfdl kernel launches (one per launch, nowhere
 # else) and "rows" the kernel rows they scored; "impact_launches" and
-# "impact_rows" the same for fused_bm25_topk_impact; "plain_calls" the
-# CPU-tensor calls of either wrapper that ran the plain version instead.
+# "impact_rows" the same for fused_bm25_topk_impact, "bool_launches" and
+# "bool_rows" for fused_bm25_bool_topk, "norms_launches" and "norms_rows"
+# for fused_bm25_topk; "plain_calls" the CPU-tensor calls of any wrapper
+# that ran the plain version instead.
 COUNTS = {"launches": 0, "rows": 0, "impact_launches": 0, "impact_rows": 0,
-          "plain_calls": 0}
+          "bool_launches": 0, "bool_rows": 0, "norms_launches": 0,
+          "norms_rows": 0, "plain_calls": 0}
 
 
 def reset_counts() -> None:
@@ -83,29 +96,18 @@ def align_csr_rows(starts: np.ndarray, doc_ids: np.ndarray, *vals: np.ndarray,
     return (new_starts, new_docs, *out_vals)
 
 
-def _check_inputs(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
-                  avgdl, dlo, dhi, T, L, K, vals_name="tfdl"):
+def _check_sizes(T: int, L: int, K: int, slot_name: str = "T") -> None:
     if not (T in (1, 2, 4, 8)):
-        raise ValueError(f"T must be 1, 2, 4 or 8, got {T}")
+        raise ValueError(f"{slot_name} must be 1, 2, 4 or 8, got {T}")
     if L < 1 or L & (L - 1) or L % LANES:
         raise ValueError(f"L must be a power of two multiple of {LANES}, "
                          f"got {L}")
     if not 1 <= K <= LANES:
         raise ValueError(f"K must be in [1, {LANES}], got {K}")
-    dev = docs.device
-    QB = rowstarts.shape[0]
-    shapes = {"docs": (docs, torch.int32, None),
-              vals_name: (vals, torch.int32, None),
-              "rowstarts": (rowstarts, torch.int32, (QB, T)),
-              "nrows": (nrows, torch.int32, (QB, T)),
-              "lens": (lens, torch.int32, (QB, T)),
-              "skips": (skips, torch.int32, (QB, T)),
-              "weights": (weights, torch.float32, (QB, T)),
-              "msm": (msm, torch.float32, (QB, 1)),
-              "dlo": (dlo, torch.int32, (QB, 1)),
-              "dhi": (dhi, torch.int32, (QB, 1))}
-    if avgdl is not None:
-        shapes["avgdl"] = (avgdl, torch.float32, (QB, 1))
+
+
+def _check_tensors(dev, shapes: dict) -> None:
+    """Each `name: (tensor, dtype, shape or None)` on `dev`, contiguous."""
     for name, (t, dtype, shape) in shapes.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, docs on {dev}")
@@ -116,10 +118,34 @@ def _check_inputs(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, "
                              f"got {tuple(t.shape)}")
+
+
+def _check_postings(docs, vals, vals_name: str) -> None:
     if docs.dim() != 1 or tuple(vals.shape) != tuple(docs.shape) \
             or docs.shape[0] % LANES:
         raise ValueError(f"docs and {vals_name} must be i32[P] with P a "
                          f"multiple of {LANES}")
+
+
+def _check_inputs(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
+                  avgdl, dlo, dhi, T, L, K, vals_name="tfdl",
+                  vals_dtype=torch.int32):
+    _check_sizes(T, L, K)
+    QB = rowstarts.shape[0]
+    shapes = {"docs": (docs, torch.int32, None),
+              vals_name: (vals, vals_dtype, None),
+              "rowstarts": (rowstarts, torch.int32, (QB, T)),
+              "nrows": (nrows, torch.int32, (QB, T)),
+              "lens": (lens, torch.int32, (QB, T)),
+              "skips": (skips, torch.int32, (QB, T)),
+              "weights": (weights, torch.float32, (QB, T)),
+              "msm": (msm, torch.float32, (QB, 1)),
+              "dlo": (dlo, torch.int32, (QB, 1)),
+              "dhi": (dhi, torch.int32, (QB, 1))}
+    if avgdl is not None:
+        shapes["avgdl"] = (avgdl, torch.float32, (QB, 1))
+    _check_tensors(docs.device, shapes)
+    _check_postings(docs, vals, vals_name)
 
 
 def fused_bm25_topk_tfdl(docs: torch.Tensor, tfdl: torch.Tensor,
@@ -202,6 +228,143 @@ def fused_bm25_topk_impact(docs: torch.Tensor, imp: torch.Tensor,
                        dhi.data_ptr(), rowstarts.shape[0], T, L, K,
                        cand_s, cand_d, grid, *out, stream),
                    ("impact_launches", "impact_rows"))
+
+
+def fused_bm25_bool_topk(docs: torch.Tensor, tfdl: torch.Tensor,
+                         filt: torch.Tensor, rowstarts: torch.Tensor,
+                         nrows: torch.Tensor, lens: torch.Tensor,
+                         skips: torch.Tensor, weights: torch.Tensor,
+                         cw: torch.Tensor, thresh: torch.Tensor,
+                         avgdl: torch.Tensor, dlo: torch.Tensor,
+                         dhi: torch.Tensor, TS: int, L: int, K: int,
+                         k1: float, b: float, filtered: bool):
+    """Batched fused bool/filtered BM25 top-k over packed (tf, dl) postings.
+
+    docs, tfdl i32[P] - as in fused_bm25_topk_tfdl
+    filt      i32[Pf] - filter doc lists, sorted runs, sentinel padded
+              (read only when `filtered`; Pf a multiple of 128)
+    rowstarts, nrows, lens, skips i32[QB, T] - slot windows; slots
+              [0, TS) index docs/tfdl, slot TS (when filtered) indexes filt,
+              slots (TS, 2 TS) are dead (nrows 0)
+    weights   f32[QB, TS] - term weights (idf * boost)
+    cw        f32[QB, T] - count weight per slot (REQ_W required, 1 family,
+              0 bonus or dead)
+    thresh    f32[QB, 1] - a doc passes iff its summed cw >= thresh
+    avgdl     f32[QB, 1]; dlo/dhi i32[QB, 1] - as in fused_bm25_topk_tfdl
+    TS, L, K  term slots (1, 2, 4, 8), window size (pow2), top-k (<= 128);
+              T = 2 TS when filtered, else TS
+    k1, b     similarity parameters (b already 0 when norms are off)
+
+    The filter slot contributes score 0 and cw[q, TS]. Returns
+    (scores f32[QB, 128], doc_ids i32[QB, 128], totals i32[QB, 128]).
+    """
+    T = 2 * TS if filtered else TS
+    _check_sizes(TS, L, K, "TS")
+    QB = rowstarts.shape[0]
+    shapes = {"docs": (docs, torch.int32, None),
+              "tfdl": (tfdl, torch.int32, None),
+              "filt": (filt, torch.int32, None)}
+    for name, t in (("rowstarts", rowstarts), ("nrows", nrows),
+                    ("lens", lens), ("skips", skips)):
+        shapes[name] = (t, torch.int32, (QB, T))
+    shapes.update({"weights": (weights, torch.float32, (QB, TS)),
+                   "cw": (cw, torch.float32, (QB, T)),
+                   "thresh": (thresh, torch.float32, (QB, 1)),
+                   "avgdl": (avgdl, torch.float32, (QB, 1)),
+                   "dlo": (dlo, torch.int32, (QB, 1)),
+                   "dhi": (dhi, torch.int32, (QB, 1))})
+    _check_tensors(docs.device, shapes)
+    _check_postings(docs, tfdl, "tfdl")
+    if filt.dim() != 1 or filt.shape[0] % LANES:
+        raise ValueError(f"filt must be i32[Pf] with Pf a multiple of "
+                         f"{LANES}")
+    if docs.device.type == "cpu":
+        COUNTS["plain_calls"] += 1
+        return fused_bm25_bool_topk_plain(docs, tfdl, filt, rowstarts, nrows,
+                                          lens, skips, weights, cw, thresh,
+                                          avgdl, dlo, dhi, TS, L, K, k1, b,
+                                          filtered)
+    return _launch("bm25_bool", docs, rowstarts, T, L,
+                   lambda lib, grid, cand_s, cand_d, out, stream:
+                   lib.bm25_bool_launch(
+                       docs.data_ptr(), tfdl.data_ptr(), docs.shape[0],
+                       filt.data_ptr() if filtered else None,
+                       filt.shape[0], rowstarts.data_ptr(),
+                       nrows.data_ptr(), lens.data_ptr(), skips.data_ptr(),
+                       weights.data_ptr(), cw.data_ptr(), thresh.data_ptr(),
+                       avgdl.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
+                       QB, TS, T, L, K, float(k1), float(b),
+                       float(np.float32(1.0 - b)), cand_s, cand_d, grid,
+                       *out, stream),
+                   ("bool_launches", "bool_rows"))
+
+
+def fused_bm25_topk(docs: torch.Tensor, norms: torch.Tensor,
+                    starts: torch.Tensor, lens: torch.Tensor,
+                    weights: torch.Tensor, msm: torch.Tensor,
+                    T: int, L: int, K: int):
+    """Batched fused top-k over precomputed per-posting f32 norms.
+
+    docs      i32[P] - doc ids, CSR-flat, rows 128-aligned, >= L tail margin
+    norms     f32[P] - per-posting eager impacts tf / (tf + K_d)
+    starts    i32[QB, T] - 128-aligned element starts of the windows
+    lens      i32[QB, T] - postings of each window (0 = absent term)
+    weights   f32[QB, T] - query-time idf * boost
+    msm       f32[QB, 1] - minimum matching terms
+    Each window is the L elements at its start; its first `lens` postings
+    are valid and contribute `weights * norm`. No caller in the package
+    uses it. Returns (scores f32[QB, 128], doc_ids i32[QB, 128],
+    totals i32[QB, 128]).
+    """
+    _check_sizes(T, L, K)
+    QB = starts.shape[0]
+    _check_tensors(docs.device, {
+        "docs": (docs, torch.int32, None),
+        "norms": (norms, torch.float32, None),
+        "starts": (starts, torch.int32, (QB, T)),
+        "lens": (lens, torch.int32, (QB, T)),
+        "weights": (weights, torch.float32, (QB, T)),
+        "msm": (msm, torch.float32, (QB, 1))})
+    _check_postings(docs, norms, "norms")
+    if docs.device.type == "cpu":
+        COUNTS["plain_calls"] += 1
+        return fused_bm25_topk_plain(docs, norms, starts, lens, weights, msm,
+                                     T, L, K)
+    rows = _window_rows(starts, L)
+    return _launch("bm25_norms", docs, starts, T, L,
+                   lambda lib, grid, cand_s, cand_d, out, stream:
+                   lib.bm25_norms_launch(
+                       docs.data_ptr(), norms.data_ptr(), docs.shape[0],
+                       rows[0].data_ptr(), rows[1].data_ptr(),
+                       lens.data_ptr(), rows[2].data_ptr(),
+                       weights.data_ptr(), msm.data_ptr(),
+                       rows[3].data_ptr(), rows[4].data_ptr(), QB, T, L, K,
+                       cand_s, cand_d, grid, *out, stream),
+                   ("norms_launches", "norms_rows"))
+
+
+def _window_rows(starts: torch.Tensor, L: int) -> tuple:
+    """fused_bm25_topk's fixed-L windows as rows of the shared machinery:
+    (rowstarts = starts / 128, nrows = L / 128, skips = 0, dlo = INT_MIN,
+    dhi = INT_MAX) on the device of `starts`."""
+    QB, T = starts.shape
+    dev = starts.device
+    return (torch.div(starts, LANES, rounding_mode="floor"),
+            torch.full((QB, T), L // LANES, dtype=torch.int32, device=dev),
+            torch.zeros((QB, T), dtype=torch.int32, device=dev),
+            torch.full((QB, 1), INT_MIN, dtype=torch.int32, device=dev),
+            torch.full((QB, 1), int(INT_SENTINEL), dtype=torch.int32,
+                       device=dev))
+
+
+def fused_bm25_topk_plain(docs, norms, starts, lens, weights, msm, T: int,
+                          L: int, K: int):
+    """The plain PyTorch version of `fused_bm25_topk` (same signature, same
+    results bit for bit): the windows mapped to rows as the wrapper maps
+    them, each valid posting scored `weights * norm`."""
+    rs, nr, sk, dlo, dhi = _window_rows(starts, L)
+    return _plain(docs, norms, rs, nr, lens, sk, weights, msm, dlo, dhi, T,
+                  L, K, lambda p, w, _rows: w * p)
 
 
 def _launch(name: str, docs, rowstarts, T: int, L: int, call,
@@ -292,10 +455,38 @@ def fused_bm25_topk_impact_plain(docs, imp, rowstarts, nrows, lens, skips,
                   lambda p, w, rows: w * p.to(torch.float32))
 
 
+def fused_bm25_bool_topk_plain(docs, tfdl, filt, rowstarts, nrows, lens,
+                               skips, weights, cw, thresh, avgdl, dlo, dhi,
+                               TS: int, L: int, K: int, k1: float, b: float,
+                               filtered: bool):
+    """The plain PyTorch version of `fused_bm25_bool_topk` (same
+    signature, same results bit for bit): as the tf.dl plain version, with
+    the term weights padded to T slots, the filter slot's docs gathered
+    from `filt` and scored 0.0 without a decode, and each doc's count
+    weights summed in slot order against `thresh`."""
+    from .scoring import posting_contrib
+
+    T = 2 * TS if filtered else TS
+    if T > TS:
+        weights = torch.cat([weights, torch.zeros_like(weights)], dim=1)
+
+    def contrib(p, w, rows):
+        tf = ((p >> DL_BITS) & TF_MAX).to(torch.float32)
+        dl = (p & DL_MASK).to(torch.float32)
+        return posting_contrib(tf, dl, w, k1, b, avgdl[rows][:, :, None])
+
+    return _plain(docs, tfdl, rowstarts, nrows, lens, skips, weights, thresh,
+                  dlo, dhi, T, L, K, contrib, cw=cw,
+                  filt=filt if filtered else None, TS=TS)
+
+
 def _plain(docs, vals, rowstarts, nrows, lens, skips, weights, msm, dlo,
-           dhi, T: int, L: int, K: int, contrib):
+           dhi, T: int, L: int, K: int, contrib, cw=None, filt=None,
+           TS: int = 0):
     """Row blocks of the plain version; `contrib(vals_window f32/i32[n, T,
-    L], weights f32[n, T, 1], rows slice)` scores the gathered postings."""
+    L], weights f32[n, T, 1], rows slice)` scores the gathered postings.
+    `cw` f32[QB, T] count weights (None: 1 per slot); `filt` the filter
+    doc lists that slot TS reads (None: no filter slot)."""
     QB = rowstarts.shape[0]
     step = max(1, _PLAIN_ELEMS // (T * L))
     parts = [_plain_rows(docs, vals, rowstarts[i:i + step],
@@ -304,7 +495,8 @@ def _plain(docs, vals, rowstarts, nrows, lens, skips, weights, msm, dlo,
                          msm[i:i + step], dlo[i:i + step], dhi[i:i + step],
                          T, L, K,
                          lambda p, w, _i=i: contrib(p, w,
-                                                    slice(_i, _i + step)))
+                                                    slice(_i, _i + step)),
+                         None if cw is None else cw[i:i + step], filt, TS)
              for i in range(0, QB, step)]
     if not parts:
         dev = docs.device
@@ -315,7 +507,7 @@ def _plain(docs, vals, rowstarts, nrows, lens, skips, weights, msm, dlo,
 
 
 def _plain_rows(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
-                dlo, dhi, T, L, K, contrib):
+                dlo, dhi, T, L, K, contrib, cw, filt, TS):
     dev = docs.device
     QB = rowstarts.shape[0]
     P = docs.shape[0]
@@ -325,28 +517,45 @@ def _plain_rows(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
     hi = torch.minimum(sk + lens.long()[:, :, None],
                        nrows.long()[:, :, None] * LANES)
     at = start + pos                                   # [QB, T, L]
-    in_win = (pos >= sk) & (pos < hi) & (at < P)
-    at = at.clamp(max=P - 1)
-    d = docs[at]
+    if filt is None:
+        in_win = (pos >= sk) & (pos < hi) & (at < P)
+        at = at.clamp(max=P - 1)
+        d = docs[at]
+        term = in_win
+    else:
+        # slot TS reads its docs from `filt`, of its own length, and has
+        # no payload to decode
+        is_f = (torch.arange(T, device=dev) == TS)[None, :, None]
+        Pf = filt.shape[0]
+        in_win = (pos >= sk) & (pos < hi) & (at < torch.where(is_f, Pf, P))
+        at_f = torch.where(is_f, at, 0).clamp(max=Pf - 1)
+        at = torch.where(is_f, 0, at).clamp(max=P - 1)
+        d = torch.where(is_f, filt[at_f], docs[at])
+        term = in_win & ~is_f
     valid = in_win & (d >= dlo[:, :, None]) & (d < dhi[:, :, None])
     c = contrib(vals[at], weights[:, :, None])
     sent = int(INT_SENTINEL)
     keys = torch.where(valid, d, torch.full_like(d, sent)).reshape(QB, T * L)
-    c = torch.where(valid, c, torch.zeros_like(c)).reshape(QB, T * L)
+    c = torch.where(valid & term, c, torch.zeros_like(c)).reshape(QB, T * L)
+    w_cnt = (torch.ones_like(c) if cw is None else
+             torch.where(valid, cw[:, :, None], 0.0).reshape(QB, T * L))
     keys, order = torch.sort(keys, dim=1, stable=True)
     c = torch.gather(c, 1, order)
+    w_cnt = torch.gather(w_cnt, 1, order)
     n = T * L
     # a doc's run holds <= T postings, in slot order; the run's first
     # element accumulates the rest left to right
     acc = c.clone()
-    cnt = torch.ones_like(c)
+    cnt = w_cnt.clone()
     for s in range(1, T):
         same = torch.zeros_like(keys, dtype=torch.bool)
         same[:, :n - s] = keys[:, s:] == keys[:, :n - s]
         nxt = torch.zeros_like(c)
         nxt[:, :n - s] = c[:, s:]
         acc = torch.where(same, acc + nxt, acc)
-        cnt = cnt + same.to(torch.float32)
+        nxt_cnt = torch.zeros_like(c)
+        nxt_cnt[:, :n - s] = w_cnt[:, s:]
+        cnt = torch.where(same, cnt + nxt_cnt, cnt)
     first = torch.ones_like(keys, dtype=torch.bool)
     first[:, 1:] = keys[:, 1:] != keys[:, :-1]
     passed = first & (keys != sent) & (cnt >= msm)

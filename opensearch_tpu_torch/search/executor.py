@@ -2,11 +2,12 @@
 fetch and batched-msearch subset of opensearch_tpu/search/executor.py).
 
 Query-then-fetch: the query phase runs the fused kernels per segment (or,
-for a single search over a shard of several segments, once over the
-concatenated shard view) and returns light candidate descriptors; the
+for a single term-group search over a shard of several segments, once over
+the concatenated shard view) and returns light candidate descriptors; the
 coordinator merges them, and the fetch phase materializes `_id`, `_score`
-and `_source` for the winners. A pruned segment result that certified its
-page but counted a lower bound marks the shard total "gte".
+and `_source` for the winners. A single search skips the segments that
+`can_match` rules out. A pruned segment result that certified its page
+but counted a lower bound marks the shard total "gte".
 """
 
 from __future__ import annotations
@@ -84,24 +85,26 @@ class ShardSearcher:
                               self.similarity)
 
     def plan(self, body: dict, ctx: C.ShardContext
-             ) -> Optional[fastpath.FastSpec]:
-        """-> the FastSpec of a body, or None for a plan with no hits."""
+             ) -> Optional[Tuple[C.LNode, fastpath.FastSpec]]:
+        """-> (plan, FastSpec) of a body, or None for a plan with no
+        hits."""
         window = check_body(body)
         lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
         if isinstance(lroot, C.LMatchNone):
             return None
-        return fastpath.make_spec(lroot, window, body)
+        return lroot, fastpath.make_spec(lroot, window, body)
 
     def query_phase(self, body: dict) -> ShardQueryResult:
         segments = list(self.engine.segments)
         ctx = C.ShardContext(self.engine.mappings, segments, self.similarity)
-        spec = self.plan(body, ctx)
+        planned = self.plan(body, ctx)
         result = ShardQueryResult(shard=self.shard_id, segments=segments)
-        if spec is None:
+        if planned is None:
             return result
+        lroot, spec = planned
         if len(segments) > 1:
-            # a many-segment shard runs as ONE frontier launch over the
-            # concatenated shard view
+            # a many-segment shard runs a term group as ONE frontier launch
+            # over the concatenated shard view
             sv = fastpath.shard_search(self.engine, ctx, spec, spec.window,
                                        self.device)
             if sv is not None:
@@ -110,7 +113,7 @@ class ShardSearcher:
                 finish_candidates(result, spec.window)
                 return result
         for seg_ord, seg in enumerate(segments):
-            if seg.live_count == 0:
+            if seg.live_count == 0 or not C.can_match(lroot, seg):
                 continue
             out = fastpath.batch_search(seg, ctx, [spec], spec.window,
                                         self.device)[0]
@@ -235,10 +238,10 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
 
 def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
                     index_name: str = "") -> List[dict]:
-    """Batched msearch: every body's query over each segment runs in ONE
-    kernel launch per shape group (grid over queries); all segments'
-    launches are enqueued before the first fetch. A body that fails to
-    parse gets an error entry; any other failure raises."""
+    """Batched msearch: every body's query, term group or bool, over each
+    segment runs in ONE kernel launch per shape group (grid over queries);
+    all segments' launches are enqueued before the first fetch. A body
+    that fails to parse gets an error entry; any other failure raises."""
     t0 = time.monotonic()
     nb = len(bodies)
     responses: List[Optional[dict]] = [None] * nb
@@ -253,13 +256,13 @@ def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
             if responses[bi] is not None:
                 continue
             try:
-                spec = s.plan(body, ctx)
+                planned = s.plan(body, ctx)
             except dsl.QueryParseError as e:
                 responses[bi] = {"error": {"type": "ApiError",
                                            "reason": str(e)}}
                 continue
-            if spec is not None:
-                specs[bi] = spec
+            if planned is not None:
+                specs[bi] = planned[1]
         if not specs:
             continue
         bis = list(specs)

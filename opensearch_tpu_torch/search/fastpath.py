@@ -21,12 +21,24 @@ impacts) -> dense (the query's full rows, chunked by doc range when
 oversized). Certified pruned pages report totals as a lower bound
 (relation "gte"). Other queries go straight to the dense kernel rows.
 
+Bool and filtered queries (`bool`, `constant_score`, filtered `match`)
+flatten onto the weighted-threshold slot model of the reference: required
+slots, one counted family and bonus terms, with the filter clauses ANDed
+into one sorted doc list per segment (`FilterList`, from the masks of
+`search/filters.py`). They ride the bool kernel `fused_bm25_bool_topk`,
+with the filter list as one more slot ("b3_filter_slot") or, for a dense
+filter on its second use, over filter-specialized postings
+("b3_filtered_postings"); a family-only spec over a dense hot filter
+rides the pure pruned pipeline over the filtered postings instead
+("filtered_pure").
+
 Unlike the reference there is no general path behind this one: a search
 the fast path cannot serve raises `NotPortedError` naming what it met.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,11 +47,12 @@ import torch
 from ..errors import NotPortedError
 from ..index.segment import (CODEC_V1, CODEC_V2, PostingsBlock, Segment,
                              next_pow2)
-from ..ops.bm25 import (DL_BITS, DL_MAX, HBM_ALIGN, LANES, TF_MAX,
-                        align_csr_rows, fused_bm25_topk_impact,
-                        fused_bm25_topk_tfdl)
+from ..ops.bm25 import (DL_BITS, DL_MAX, HBM_ALIGN, INT_SENTINEL, LANES,
+                        REQ_W, TF_MAX, align_csr_rows, fused_bm25_bool_topk,
+                        fused_bm25_topk_impact, fused_bm25_topk_tfdl)
 from ..ops.scoring import SIM_BM25, dequant_impact_np
 from . import compiler as C
+from . import filters
 
 MAX_T = 8            # pow2-padded term slots per query group
 MAX_L = 1 << 16      # per-term window cap (elements)
@@ -59,7 +72,10 @@ QUALITY_MIN_NDOCS = 1 << 16   # below this, dense is already cheap
 # prune-eligible query (the reference's fastpath STATS subset)
 STATS = {"pruned_served": 0, "pruned_rescued": 0, "pruned_rescued2": 0,
          "pruned_dview": 0, "pruned_escalated": 0, "impact_frontier": 0,
-         "shard_view_served": 0}
+         "shard_view_served": 0, "pure_served": 0, "bool_served": 0,
+         # the route of each bool spec over each segment (port only)
+         "b3_filter_slot": 0, "b3_filtered_postings": 0, "b3_unfiltered": 0,
+         "filtered_pure": 0}
 
 
 def reset_stats() -> None:
@@ -267,20 +283,28 @@ def _head_select(doc_ids: np.ndarray, tfs: np.ndarray, dl_of: np.ndarray,
     return np.sort(keep), _frontier(tf[rest], dlf[rest], doc_ids[rest])
 
 
-def _build_aligned(seg, field: str,
-                   device: torch.device) -> Optional[AlignedPostings]:
-    pb = seg.postings.get(field)
+def _pack_tfdl(seg, field: str, doc_ids: np.ndarray,
+               tfs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(doc lengths i64, packed tf << DL_BITS | dl i32) of postings of
+    `field`; raises NotPortedError past the packing bounds."""
     dl = seg.doc_lens.get(field)
-    if pb is None or pb.size == 0:
-        return None
-    tfs = pb.tfs
-    dl_of = (dl[pb.doc_ids].astype(np.int64) if dl is not None
-             else np.zeros(len(pb.doc_ids), np.int64))
-    if tfs.max() > TF_MAX or dl_of.max() > DL_MAX:
+    dl_of = (dl[doc_ids].astype(np.int64) if dl is not None
+             else np.zeros(len(doc_ids), np.int64))
+    if len(tfs) and (tfs.max() > TF_MAX or dl_of.max() > DL_MAX):
         raise NotPortedError(
             f"field [{field}] of segment [{seg.name}] with a term frequency "
             f"above {TF_MAX} or a doc length above {DL_MAX}")
-    packed = ((tfs.astype(np.int64) << DL_BITS) | dl_of).astype(np.int32)
+    return dl_of, ((tfs.astype(np.int64) << DL_BITS) | dl_of).astype(
+        np.int32)
+
+
+def _build_aligned(seg, field: str,
+                   device: torch.device) -> Optional[AlignedPostings]:
+    pb = seg.postings.get(field)
+    if pb is None or pb.size == 0:
+        return None
+    tfs = pb.tfs
+    dl_of, packed = _pack_tfdl(seg, field, pb.doc_ids, tfs)
     lens = np.diff(pb.starts).astype(np.int64)
     nterms = len(lens)
 
@@ -347,15 +371,39 @@ def _build_aligned(seg, field: str,
 # ---------------------------------------------------------------------
 
 class FastSpec:
-    """A search the fast path serves: one BM25 term group. `prune_ok`:
-    the body allows impact-head pruning (no explicit track_total_hits)."""
+    """A search the fast path serves. kind "pure": one BM25 term group
+    (`lt`); kind "bool": the weighted-threshold shape of a bool/filtered
+    query (reference BooleanQuery semantics): `slots` [(term, weight,
+    cw)] with cw REQ_W for a required term, 1 for a member of the one
+    count-constrained family (`fam_msm` of them must match) and 0 for a
+    bonus term, `filter_clauses` [(node, negated)] ANDed, a `boost`, and
+    `const_score` (every hit's score, for a spec without slots).
+    `prune_ok`: the body allows impact-head pruning (no explicit
+    track_total_hits)."""
 
-    __slots__ = ("lt", "window", "prune_ok")
+    __slots__ = ("kind", "lt", "slots", "fam_msm", "filter_clauses",
+                 "field", "sim", "has_norms", "boost", "const_score",
+                 "window", "prune_ok")
 
-    def __init__(self, lt: C.LTerms, window: int, prune_ok: bool = False):
-        self.lt = lt
-        self.window = window
-        self.prune_ok = prune_ok
+    def __init__(self, kind: str, **kw):
+        self.kind = kind
+        self.lt = None
+        self.slots = []
+        self.fam_msm = 0
+        self.filter_clauses = []
+        self.field = None
+        self.sim = None
+        self.has_norms = True
+        self.boost = 1.0
+        self.const_score = None
+        self.window = None
+        self.prune_ok = False
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+    @property
+    def n_required(self) -> int:
+        return sum(1 for _, _, cw in self.slots if cw == REQ_W)
 
 
 def _ok_group(lt) -> bool:
@@ -367,19 +415,121 @@ def _ok_group(lt) -> bool:
     return len(lt.terms) >= 1
 
 
+def _flatten_bool(lroot) -> FastSpec:
+    """Map an LBool/LConstScore tree onto the weighted-threshold slot
+    model (the reference's `_flatten_bool`). Where the reference returns
+    None and falls back to its general XLA plan, raises NotPortedError
+    naming the shape."""
+    if isinstance(lroot, C.LConstScore):
+        if lroot.child is None or lroot.boost < 0:
+            raise NotPortedError("a [constant_score] with a negative boost")
+        return FastSpec("bool", filter_clauses=[(lroot.child, False)],
+                        const_score=float(lroot.boost), boost=1.0)
+    if not isinstance(lroot, C.LBool):
+        name = {"LRange": "a top-level [range] query"}.get(
+            type(lroot).__name__, f"plan [{type(lroot).__name__}]")
+        raise NotPortedError(name)
+    b = lroot
+    if b.boost <= 0:
+        # boost 0 zeroes every score BEFORE top-k in the reference's
+        # general path (ties then break by doc id); the kernel ranks
+        # pre-boost
+        raise NotPortedError("a [bool] with boost <= 0")
+    for g in b.musts + b.shoulds:
+        if not _ok_group(g):
+            kind = ("a nested bool" if isinstance(g, (C.LBool,
+                                                      C.LConstScore))
+                    else f"a scoring clause [{type(g).__name__}]"
+                    if not isinstance(g, C.LTerms)
+                    else "a non-scoring or empty term group")
+            raise NotPortedError(f"{kind} in a [bool] must/should")
+    groups = b.musts + b.shoulds
+    field = sim = None
+    has_norms = True
+    if groups:
+        field, sim, has_norms = (groups[0].field, groups[0].sim,
+                                 groups[0].has_norms)
+        for g in groups:
+            if (g.field != field or g.sim.k1 != sim.k1 or g.sim.b != sim.b
+                    or g.has_norms != has_norms):
+                raise NotPortedError("a [bool] over mixed fields or "
+                                     "similarities")
+
+    req: List[Tuple[str, float]] = []
+    fam: List[Tuple[str, float]] = []
+    bonus: List[Tuple[str, float]] = []
+    fam_msm = 0
+
+    def slot_weights(g):
+        return [(t, float(np.asarray(g.weights)[i]))
+                for i, t in enumerate(g.terms)]
+
+    two = NotPortedError("a [bool] with two count-constrained families")
+    for m in b.musts:
+        if len(m.terms) == 1 or m.msm >= len(m.terms):
+            req.extend(slot_weights(m))        # AND semantics: all required
+        elif not fam:
+            fam.extend(slot_weights(m))        # the one constrained family
+            fam_msm = max(int(m.msm), 1)
+        else:
+            raise two
+    if b.shoulds:
+        outer = int(b.msm)
+        if outer == 0:
+            # pure score bonus: cw 0, so a bonus match never stands in for
+            # a missing required or family slot
+            for g in b.shoulds:
+                if len(g.terms) > 1 and g.msm > 1:
+                    raise NotPortedError("a [bool] bonus should with its "
+                                         "own minimum_should_match")
+                bonus.extend(slot_weights(g))
+        else:
+            if fam:
+                raise two
+            if all(len(g.terms) == 1 for g in b.shoulds):
+                for g in b.shoulds:
+                    fam.extend(slot_weights(g))
+                fam_msm = outer
+            elif len(b.shoulds) == 1 and outer == 1:
+                g = b.shoulds[0]
+                fam.extend(slot_weights(g))
+                fam_msm = max(int(g.msm), 1)
+            else:
+                raise NotPortedError("a [bool] minimum_should_match over "
+                                     "multi-term shoulds")
+
+    filter_clauses = ([(f, False) for f in b.filters]
+                      + [(n, True) for n in b.must_nots])
+    slots = ([(t, w, REQ_W) for t, w in req]
+             + [(t, w, 1.0) for t, w in fam]
+             + [(t, w, 0.0) for t, w in bonus])
+    if not slots and not filter_clauses:
+        raise NotPortedError("an empty [bool] (match_all)")
+    if len(slots) > MAX_T:
+        raise NotPortedError(f"a [bool] of more than {MAX_T} term slots")
+    return FastSpec("bool", slots=slots, fam_msm=fam_msm,
+                    filter_clauses=filter_clauses, field=field, sim=sim,
+                    has_norms=has_norms, boost=float(b.boost),
+                    const_score=0.0 if not slots else None)
+
+
 def make_spec(lroot: C.LNode, window: int, body: dict) -> FastSpec:
-    """-> FastSpec for a term-group plan, else NotPortedError."""
+    """-> FastSpec for a term-group or bool plan, else NotPortedError."""
     if window > MAX_K:
         raise NotPortedError(f"from + size > {MAX_K}")
-    if not isinstance(lroot, C.LTerms):
-        raise NotPortedError(f"plan [{type(lroot).__name__}]")
-    if next_pow2(len(lroot.terms), floor=1) > MAX_T:
-        raise NotPortedError(f"a term group of more than {MAX_T} terms")
     # pruning changes total-hit semantics on clamped terms (lower bound,
     # relation "gte"); an explicit track_total_hits demands exact counts,
     # so those bodies ride the dense kernel
-    prune_ok = "track_total_hits" not in body and _ok_group(lroot)
-    return FastSpec(lroot, window, prune_ok)
+    prune_ok = "track_total_hits" not in body
+    if isinstance(lroot, C.LTerms):
+        if next_pow2(len(lroot.terms), floor=1) > MAX_T:
+            raise NotPortedError(f"a term group of more than {MAX_T} terms")
+        return FastSpec("pure", lt=lroot, field=lroot.field, window=window,
+                        prune_ok=prune_ok and _ok_group(lroot))
+    spec = _flatten_bool(lroot)
+    spec.window = window
+    spec.prune_ok = prune_ok
+    return spec
 
 
 class _VQuery:
@@ -643,40 +793,51 @@ def _launch_groups(seg, vqs: List[Optional[_VQuery]], K: int,
     return pending
 
 
+def _upload(arrays: Sequence[np.ndarray], device: torch.device) -> list:
+    """i32 / f32 host arrays on `device` in ONE host-to-device copy: views
+    of one buffer, each in its own shape."""
+    buf = torch.from_numpy(np.concatenate([
+        np.ascontiguousarray(a).view(np.int32).ravel() for a in arrays])
+    ).to(device)
+    out, at = [], 0
+    for a in arrays:
+        t = buf[at:at + a.size]
+        if a.dtype == np.float32:
+            t = t.view(torch.float32)
+        out.append(t.view(a.shape))
+        at += a.size
+    return out
+
+
+def _cat(gvqs: Sequence, name: str, dtype) -> np.ndarray:
+    """The row arrays `name` of a group's queries, concatenated."""
+    return np.concatenate([getattr(v, name) for v in gvqs]).astype(dtype)
+
+
+def _rep(gvqs: Sequence, name: str, width: int, dtype) -> np.ndarray:
+    """A per-query vector (or scalar, width 1) `name` repeated over each
+    query's rows: [rows, width]."""
+    return np.concatenate([np.broadcast_to(getattr(v, name), (v.n, width))
+                           for v in gvqs]).astype(dtype)
+
+
 def _launch_inputs(gvqs: List[_VQuery], device: torch.device,
                    scale: Optional[float] = None) -> list:
-    """The kernel inputs of a group's rows, in ONE host-to-device copy (the
-    tensors are views of one buffer): rowstarts, nrows, lens, skips,
-    weights, msm, avgdl, dlo, dhi for the tf.dl kernel; with the impact
-    plane's `scale`, weights folded as f32(weights * f32(scale)) and no
-    avgdl, for the impact kernel."""
-    T_pad = gvqs[0].T_pad
-    n = [v.n for v in gvqs]
-    QB = sum(n)
-    ints = np.concatenate([
-        np.concatenate([getattr(v, a) for v in gvqs]).ravel()
-        for a in ("rowstarts", "nrows", "lens", "skips", "dlo", "dhi")])
-    weights = np.concatenate([np.broadcast_to(v.weights, (v.n, T_pad))
-                              for v in gvqs])
+    """The kernel inputs of a group's rows, in ONE host-to-device copy:
+    rowstarts, nrows, lens, skips, weights, msm, avgdl, dlo, dhi for the
+    tf.dl kernel; with the impact plane's `scale`, weights folded as
+    f32(weights * f32(scale)) and no avgdl, for the impact kernel."""
+    weights = _rep(gvqs, "weights", gvqs[0].T_pad, np.float32)
     if scale is not None:
         weights = (weights * np.float32(scale)).astype(np.float32)
-    floats = [weights.ravel(),
-              np.repeat([v.msm for v in gvqs], n).astype(np.float32)]
-    if scale is None:
-        floats.append(np.repeat([v.avgdl for v in gvqs], n).astype(
-            np.float32))
-    buf = torch.from_numpy(np.concatenate(
-        [ints.astype(np.int32)] + [f.view(np.int32) for f in floats])
-    ).to(device)
-    QT = QB * T_pad
-    i32 = [buf[k * QT:(k + 1) * QT].view(QB, T_pad) for k in range(4)]
-    dlo = buf[4 * QT:4 * QT + QB].view(QB, 1)
-    dhi = buf[4 * QT + QB:4 * QT + 2 * QB].view(QB, 1)
-    f32 = buf[4 * QT + 2 * QB:].view(torch.float32)
-    tail = [f32[:QT].view(QB, T_pad), f32[QT:QT + QB].view(QB, 1)]
-    if scale is None:
-        tail.append(f32[QT + QB:].view(QB, 1))
-    return [*i32, *tail, dlo, dhi]
+    return _upload(
+        [_cat(gvqs, a, np.int32)
+         for a in ("rowstarts", "nrows", "lens", "skips")]
+        + [weights]
+        + [_rep(gvqs, a, 1, np.float32)
+           for a in ("msm",) + (("avgdl",) if scale is None else ())]
+        + [_cat(gvqs, a, np.int32).reshape(-1, 1) for a in ("dlo", "dhi")],
+        device)
 
 
 def _fetch_groups(pending: list, K: int) -> dict:
@@ -1135,23 +1296,93 @@ def _phase2_batch(seg, vq_lists, specs: Sequence, results: dict,
 # ---------------------------------------------------------------------
 
 class FilterList:
-    """Dense mask of one (segment, filter) with its doc count (the
-    mask/key part of the reference's FilterList)."""
+    """The ANDed filter clauses of a bool spec over one segment: the
+    sorted doc list (`host_docs`, and per device a sentinel-padded buffer
+    with MAX_L slack that the bool kernel's filter slot reads), the dense
+    mask when the filter is dense enough to ever take filter-specialized
+    postings, and how often a query has used it (`hits`). The quality
+    tier uses the mask part alone."""
 
-    __slots__ = ("n", "nbytes", "mask", "key")
+    __slots__ = ("host_docs", "n", "nbytes", "mask", "key", "hits", "_dev")
 
-    def __init__(self, n: int, nbytes: int, mask: np.ndarray, key):
+    def __init__(self, host_docs: Optional[np.ndarray], n: int, nbytes: int,
+                 mask: Optional[np.ndarray], key):
+        self.host_docs = host_docs    # i32 sorted doc ids
         self.n = n
-        self.nbytes = nbytes      # mask + doc-id list, as the reference
-        self.mask = mask          # dense bool[ndocs]
+        self.nbytes = nbytes          # device list + kept mask, as the
+        #                               reference charges them
+        self.mask = mask              # dense bool[ndocs], or None
         self.key = key
+        self.hits = 0
+        self._dev: dict = {}
+
+    def d_docs(self, device: torch.device) -> torch.Tensor:
+        """The padded doc list on `device` (copied on first use)."""
+        key = str(device)
+        if key not in self._dev:
+            total = ((self.n + LANES - 1) // LANES) * LANES + MAX_L
+            buf = np.full(total, INT_SENTINEL, np.int32)
+            buf[:self.n] = self.host_docs
+            self._dev[key] = torch.from_numpy(buf).to(device)
+        return self._dev[key]
+
+
+MAX_FILTER_LISTS = 32          # per segment, least recently used first out
+MATERIALIZE_MIN_DOCS = 1 << 18  # a filter list this long or shorter...
+MATERIALIZE_DENSITY = 8         # ...or under 1/8 of the docs is never dense
+
+
+def _filter_list(seg, ctx, clauses, device: torch.device) -> FilterList:
+    """The FilterList of [(node, negated), ...] over `seg`, cached per
+    segment (LRU of MAX_FILTER_LISTS) under the clauses' mask keys."""
+    cache = seg.__dict__.setdefault("filter_lists",
+                                    collections.OrderedDict())
+    key = tuple((filters.mask_key(node, seg, ctx), neg)
+                for node, neg in clauses)
+    fl = cache.get(key)
+    if fl is not None:
+        cache.move_to_end(key)
+        return fl
+    combined = torch.ones(seg.ndocs, dtype=torch.bool, device=device)
+    for node, neg in clauses:
+        m = filters.filter_mask(node, seg, ctx, device)
+        combined &= ~m if neg else m
+    docs = torch.nonzero(combined).flatten().to(torch.int32).cpu().numpy()
+    n = len(docs)
+    # keep the dense mask only when this filter could ever take the
+    # filter-specialized postings
+    dense_capable = (n > MATERIALIZE_MIN_DOCS
+                     and n * MATERIALIZE_DENSITY > seg.ndocs)
+    mask = combined.cpu().numpy() if dense_capable else None
+    nbytes = 4 * (((n + LANES - 1) // LANES) * LANES + MAX_L) + (
+        mask.nbytes if mask is not None else 0)
+    fl = FilterList(docs, n, nbytes, mask, key)
+    while len(cache) >= MAX_FILTER_LISTS:
+        cache.popitem(last=False)
+    cache[key] = fl
+    return fl
+
+
+def _dense_hot(seg, fl: FilterList, nslots: int) -> bool:
+    """Filter-specialized postings when the filter is dense (mask kept)
+    AND either repeated (hits are counted after this check, so >= 1 means
+    a second use) or too long for the filter slot's chunks at all."""
+    if fl.mask is None:
+        return False
+    ts = next_pow2(max(nslots, 1), floor=1)
+    list_cap = MAX_CHUNKS * (MAX_TL // (2 * ts))
+    return fl.hits >= 1 or fl.n > list_cap // 2
 
 
 class FilteredPostings:
     """Filter-specialized postings of one (segment, field, filter): the
-    term rows of `field` restricted to filter-passing docs."""
+    term rows of `field` restricted to filter-passing docs, on the host.
+    Their aligned rows without heads (what the bool kernel reads, the
+    reference's `fp.al`) and their segment view (what the pruned pipeline
+    reads) are built on first use, each on its own, and copied to each
+    device that asks."""
 
-    __slots__ = ("starts", "host_docs", "host_tfs", "view")
+    __slots__ = ("starts", "host_docs", "host_tfs", "view", "_al")
 
     def __init__(self, starts: np.ndarray, host_docs: np.ndarray,
                  host_tfs: np.ndarray):
@@ -1159,17 +1390,19 @@ class FilteredPostings:
         self.host_docs = host_docs  # i32 filtered doc ids
         self.host_tfs = host_tfs    # f32 filtered tfs
         self.view = None            # lazy FilteredSegView
+        self._al: dict = {}         # device -> AlignedPostings
 
 
-def _filtered_postings(seg, field: str, fl: FilterList,
-                       device: torch.device) -> Optional[FilteredPostings]:
-    """Cached per (field, filter, device) on the segment."""
-    key = ("filtered", field, fl.key, str(device))
+def _filtered_postings(seg, field: str,
+                       fl: FilterList) -> Optional[FilteredPostings]:
+    """Cached per (field, filter) on the segment; None when the segment
+    holds no postings of the field."""
+    key = ("filtered", field, fl.key)
     if key in seg.aligned:
         return seg.aligned[key]
     fp = None
     pb = seg.postings.get(field)
-    if get_aligned(seg, field, device) is not None:
+    if pb is not None and pb.size > 0:
         keep = fl.mask[pb.doc_ids]
         kc = np.zeros(len(pb.doc_ids) + 1, np.int64)
         np.cumsum(keep, out=kc[1:])
@@ -1177,6 +1410,28 @@ def _filtered_postings(seg, field: str, fl: FilterList,
                               pb.tfs[keep])
     seg.aligned[key] = fp
     return fp
+
+
+def _filtered_rows(seg, field: str, fp: FilteredPostings,
+                   device: torch.device) -> AlignedPostings:
+    """The aligned rows of filter-specialized postings on `device` (a
+    second device copies the first one's)."""
+    key = str(device)
+    if key not in fp._al:
+        other = next(iter(fp._al.values()), None)
+        if other is not None:
+            fp._al[key] = _copy_aligned(other, device)
+        else:
+            _dl, packed = _pack_tfdl(seg, field, fp.host_docs, fp.host_tfs)
+            a_starts, a_docs, a_packed = align_csr_rows(
+                fp.starts, fp.host_docs, packed, margin=MAX_L,
+                alignment=LANES)
+            fp._al[key] = AlignedPostings(
+                (a_starts[:-1] // LANES).astype(np.int64),
+                np.diff(fp.starts).astype(np.int64),
+                torch.from_numpy(a_docs).to(device),
+                torch.from_numpy(a_packed).to(device))
+    return fp._al[key]
 
 
 class FilteredSegView:
@@ -1200,10 +1455,11 @@ class FilteredSegView:
 
 def _filtered_view(seg, field: str, fp: FilteredPostings,
                    device: torch.device) -> FilteredSegView:
+    """The segment view of filter-specialized postings, with its aligned
+    layout on `device` (a second device copies the first one's)."""
     if fp.view is None:
-        view = FilteredSegView(seg, field, fp)
-        get_aligned(view, field, device)
-        fp.view = view
+        fp.view = FilteredSegView(seg, field, fp)
+    get_aligned(fp.view, field, device)
     return fp.view
 
 
@@ -1240,7 +1496,7 @@ def _quality_tier(seg, field: str, device: torch.device):
         # target: decline rather than launch a near-dense-sized view
         n = int(mask.sum())
         if 0 < n <= 2 * target:
-            fl = FilterList(n, mask.nbytes + 4 * n, mask,
+            fl = FilterList(None, n, mask.nbytes + 4 * n, mask,
                             ("_quality", field, QUALITY_SHARE))
             frontiers: dict = {}
 
@@ -1288,7 +1544,7 @@ def _dview_rescue_field(seg, ctx, lts: Sequence, specs: Sequence, vq_lists,
     if qt is None:
         return redo
     fl, frontier_of = qt
-    fp = _filtered_postings(seg, field, fl, device)
+    fp = _filtered_postings(seg, field, fl)
     if fp is None:
         return redo
     view = _filtered_view(seg, field, fp, device)
@@ -1373,30 +1629,322 @@ def _finish_pure(seg, ctx, lts: Sequence, specs: Sequence[FastSpec], K: int,
     STATS["pruned_served"] += sum(
         1 for vq in vq_lists
         if vq is not None and vq.head and vq.clamped) - rescued_clamped
-    return _assemble(vq_lists, lts, results)
+    return _assemble(vq_lists, results, _filter_mode_boost(lts))
 
 
-def _assemble(vq_lists: List[Optional[_VQuery]], lts: Sequence[C.LTerms],
-              results: dict) -> List[dict]:
-    """Per-query outputs; constant-score (filter mode) queries take their
-    boost."""
+def _assemble(vq_lists: Sequence, results: dict,
+              transform=None) -> List[dict]:
+    """Per-query outputs; `transform(qi, scores)` maps a query's kernel
+    scores to its final ones (a boost, a constant score)."""
     out = []
-    for vq, lt in zip(vq_lists, lts):
+    for qi, vq in enumerate(vq_lists):
         if vq is None:
             sc = np.full(0, -np.inf, np.float32)
             dc = np.full(0, -1, np.int32)
             total, rel = 0, "eq"
         else:
             sc, dc, total, rel = results[id(vq)]
-        if lt.mode == "filter":
-            sc = np.where(np.isfinite(sc), np.float32(lt.boost),
-                          sc).astype(np.float32)
+        if transform is not None:
+            sc = transform(qi, sc)
         total = int(total)
         ms = (float(sc[0]) if total > 0 and len(sc) and np.isfinite(sc[0])
               else -np.inf)
         out.append({"topk_idx": dc, "topk_scores": sc, "total": total,
                     "max_score": ms, "total_rel": rel})
     return out
+
+
+def _filter_mode_boost(lts: Sequence):
+    """The pure path's transform: a filter-mode (terms) query scores every
+    match with its constant boost."""
+    def transform(qi, sc):
+        lt = lts[qi]
+        if lt.mode != "filter":
+            return sc
+        return np.where(np.isfinite(sc), np.float32(lt.boost),
+                        sc).astype(np.float32)
+    return transform
+
+
+# ---------------------------------------------------------------------
+# the bool/filtered path: filter lists + weighted-threshold kernel rows
+# ---------------------------------------------------------------------
+
+class _PseudoLT:
+    """LTerms-shaped adapter for a family-only bool spec, so that it rides
+    the pure pruned pipeline over a FilteredSegView."""
+
+    def __init__(self, spec: FastSpec):
+        self.field = spec.field
+        self.terms = [t for t, _w, _c in spec.slots]
+        self.weights = np.asarray([w for _t, w, _c in spec.slots],
+                                  np.float32)
+        # all-required slots (operator and) == msm over every term
+        self.msm = (len(spec.slots) if spec.n_required == len(spec.slots)
+                    else max(int(spec.fam_msm), 1))
+        self.sim = spec.sim
+        self.has_norms = spec.has_norms
+        self.mode = "score"
+        self.boost = 1.0
+
+
+def _family_only(spec: FastSpec) -> bool:
+    """A bool spec that is one term group plus filters, whose pass rule is
+    a plain minimum-match count: one counted family, or every slot
+    required (operator and: msm = nterms)."""
+    if not (spec.kind == "bool" and spec.filter_clauses
+            and spec.const_score is None and spec.field is not None
+            and len(spec.slots) > 0
+            and spec.sim is not None and spec.sim.sim_id == SIM_BM25):
+        return False
+    counted_family = (spec.fam_msm >= 1
+                      and all(cw == 1 for _t, _w, cw in spec.slots))
+    all_required = (spec.n_required == len(spec.slots)
+                    and spec.fam_msm == 0)
+    return counted_family or all_required
+
+
+_DUMMY: dict = {}
+
+
+def _dummy_buffer(device: torch.device) -> torch.Tensor:
+    """A sentinel buffer for kernel operands no slot reads."""
+    key = str(device)
+    if key not in _DUMMY:
+        _DUMMY[key] = torch.full((HBM_ALIGN,), int(INT_SENTINEL),
+                                 dtype=torch.int32, device=device)
+    return _DUMMY[key]
+
+
+class _BVQuery:
+    """The bool-kernel rows of one query over one segment: one row, or one
+    per doc-range chunk. Row arrays are [n, T]; weights f32[TS]; cw
+    f32[T]; dlo/dhi [n]."""
+
+    __slots__ = ("TS", "T", "L", "filtered", "rowstarts", "nrows", "lens",
+                 "skips", "weights", "cw", "thresh", "avgdl", "dlo", "dhi",
+                 "field", "k1", "b_eff", "fl", "al", "head")
+
+    def __init__(self, **kw):
+        self.head = False
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+    @property
+    def n(self) -> int:
+        return self.rowstarts.shape[0]
+
+
+def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
+                           avgdl_cache: dict,
+                           device: torch.device) -> List[_BVQuery]:
+    """-> per bool spec its kernel rows over `seg`: the filter slot or the
+    filter-specialized postings (`_dense_hot`), the count weights and the
+    threshold, chunked by doc range when a window exceeds its budget."""
+    out: List[_BVQuery] = []
+    for spec in specs:
+        fl = fp = None
+        nslots = len(spec.slots)
+        if spec.filter_clauses:
+            fl = _filter_list(seg, ctx, spec.filter_clauses, device)
+            # specialized postings only hold docs that match SOME term, so
+            # the route is sound only when passing needs a term match; a
+            # bonus-only bool's hits are the whole filter
+            needs_term = spec.n_required > 0 or spec.fam_msm >= 1
+            if (nslots and needs_term and spec.field is not None
+                    and _dense_hot(seg, fl, nslots)):
+                fp = _filtered_postings(seg, spec.field, fl)
+            fl.hits += 1
+        TS = next_pow2(max(nslots, 1), floor=1)
+        filtered = fl is not None and fp is None
+        T = 2 * TS if filtered else TS
+        STATS["b3_filter_slot" if filtered else "b3_filtered_postings"
+              if fp is not None else "b3_unfiltered"] += 1
+        al = pb = None
+        if nslots:
+            al = (_filtered_rows(seg, spec.field, fp, device)
+                  if fp is not None else get_aligned(seg, spec.field, device))
+            pb = seg.postings.get(spec.field)
+        weights = np.zeros(TS, np.float32)
+        cw = np.zeros(T, np.float32)
+        slot_descs: List[Optional[Tuple[np.ndarray, int]]] = [None] * T
+        for i, (term, w, cwv) in enumerate(spec.slots):
+            weights[i] = w
+            cw[i] = cwv
+            # a segment without the field holds no posting of any slot:
+            # its term slots stay dead
+            r = pb.row(term) if al is not None else -1
+            if r < 0:
+                continue
+            if fp is not None:
+                a, b = int(fp.starts[r]), int(fp.starts[r + 1])
+                docs = fp.host_docs[a:b]
+            else:
+                a, b = pb.row_slice(r)
+                docs = pb.doc_ids[a:b]
+            if b > a:
+                slot_descs[i] = (docs, int(al.starts_rows[r]) * LANES)
+        if filtered:
+            cw[TS] = REQ_W
+            slot_descs[TS] = (fl.host_docs, 0)
+        thresh = REQ_W * (spec.n_required + (1 if filtered else 0)) \
+            + spec.fam_msm
+        if spec.field is not None and spec.field not in avgdl_cache:
+            avgdl_cache[spec.field] = np.float32(ctx.avgdl(spec.field))
+        avgdl = avgdl_cache.get(spec.field, np.float32(1.0))
+        k1 = float(spec.sim.k1) if spec.sim is not None else 1.2
+        b_eff = (float(spec.sim.b)
+                 if spec.sim is not None and spec.has_norms else 0.0)
+        chunks = _chunk_slots(slot_descs, seg.ndocs, T, nchunk=1)
+        if chunks is None:
+            raise NotPortedError(
+                f"a bool query on [{spec.field}] that needs more than "
+                f"{MAX_CHUNKS} doc-range chunks")
+        edges, rowstarts, nrows, lens, skips, max_nr = chunks
+        out.append(_BVQuery(
+            TS=TS, T=T, L=int(max_nr.max()) * LANES, filtered=filtered,
+            rowstarts=rowstarts, nrows=nrows, lens=lens, skips=skips,
+            weights=weights, cw=cw, thresh=np.float32(thresh), avgdl=avgdl,
+            dlo=edges[:-1].astype(np.int32), dhi=edges[1:].astype(np.int32),
+            field=spec.field, k1=k1, b_eff=b_eff,
+            fl=fl if filtered else None, al=al))
+    return out
+
+
+def _bool_launch_inputs(gvqs: List[_BVQuery],
+                        device: torch.device) -> list:
+    """The bool kernel inputs of a group's rows in ONE host-to-device
+    copy: rowstarts, nrows, lens, skips, weights, cw, thresh, avgdl, dlo,
+    dhi."""
+    T, TS = gvqs[0].T, gvqs[0].TS
+    return _upload(
+        [_cat(gvqs, a, np.int32)
+         for a in ("rowstarts", "nrows", "lens", "skips")]
+        + [_rep(gvqs, "weights", TS, np.float32),
+           _rep(gvqs, "cw", T, np.float32),
+           _rep(gvqs, "thresh", 1, np.float32),
+           _rep(gvqs, "avgdl", 1, np.float32)]
+        + [_cat(gvqs, a, np.int32).reshape(-1, 1) for a in ("dlo", "dhi")],
+        device)
+
+
+def bool_groups(vqs: List[_BVQuery]) -> List[List[_BVQuery]]:
+    """Kernel rows grouped into launches: one per (buffers, TS, filter,
+    similarity)."""
+    groups: dict = {}
+    for vq in vqs:
+        gk = (id(vq.al), vq.TS, vq.filtered,
+              id(vq.fl) if vq.fl is not None else None, vq.k1, vq.b_eff)
+        groups.setdefault(gk, []).append(vq)
+    return list(groups.values())
+
+
+def bool_group_call(gvqs: List[_BVQuery], K: int,
+                    device: torch.device) -> Tuple[list, dict]:
+    """The (positional, keyword) arguments of the bool kernel for one
+    group, its inputs on `device`."""
+    v0 = gvqs[0]
+    if v0.al is not None:
+        d_docs, d_tfdl = v0.al.d_docs, v0.al.d_tfdl
+    else:
+        d_docs = d_tfdl = _dummy_buffer(device)
+    filt = v0.fl.d_docs(device) if v0.filtered else _dummy_buffer(device)
+    return ([d_docs, d_tfdl, filt, *_bool_launch_inputs(gvqs, device)],
+            dict(TS=v0.TS, L=max(v.L for v in gvqs), K=K, k1=v0.k1,
+                 b=v0.b_eff, filtered=v0.filtered))
+
+
+def _launch_bool(seg, ctx, specs: Sequence[FastSpec], K: int,
+                 device: torch.device) -> tuple:
+    """LAUNCH stage of the bool/filtered path: one kernel launch per
+    group, no device sync; state for `_finish_bool`."""
+    vqs = _prepare_bool_vqueries(seg, ctx, specs, {}, device)
+    pending = []
+    for gvqs in bool_groups(vqs):
+        args, kw = bool_group_call(gvqs, K, device)
+        pending.append((gvqs, K, fused_bm25_bool_topk(*args, **kw)))
+    return vqs, pending
+
+
+def _bool_transform(specs: Sequence[FastSpec]):
+    """The bool path's score transform: a constant score, or the boost,
+    applied to the kernel's pre-boost ranking."""
+    def transform(qi, sc):
+        spec = specs[qi]
+        finite = np.isfinite(sc)
+        if spec.const_score is not None:
+            return np.where(finite, np.float32(spec.const_score),
+                            -np.inf).astype(np.float32)
+        if spec.boost != 1.0:
+            return np.where(finite, sc * np.float32(spec.boost),
+                            -np.inf).astype(np.float32)
+        return sc
+    return transform
+
+
+def _finish_bool(specs: Sequence[FastSpec], K: int,
+                 state: tuple) -> List[dict]:
+    """FETCH stage of the bool/filtered path: one transfer for all groups,
+    then the boost / const-score transform and assembly."""
+    vqs, pending = state
+    return _assemble(vqs, _fetch_groups(pending, K), _bool_transform(specs))
+
+
+def _run_bool(seg, ctx, specs: Sequence[FastSpec], K: int,
+              device: torch.device) -> List[dict]:
+    return _finish_bool(specs, K, _launch_bool(seg, ctx, specs, K, device))
+
+
+def _launch_filtered_pure_batch(seg, ctx, idx_specs, K: int,
+                                device: torch.device) -> list:
+    """LAUNCH stage of the filtered-pure rung: family-only bool specs over
+    a dense hot filter ride the pure pruned pipeline over their
+    FilteredSegView, ONE frontier launch per (field, filter) group."""
+    groups: dict = {}
+    for i, spec in idx_specs:
+        if not _family_only(spec):
+            continue
+        fl = _filter_list(seg, ctx, spec.filter_clauses, device)
+        if not _dense_hot(seg, fl, len(spec.slots)):
+            continue
+        fp = _filtered_postings(seg, spec.field, fl)
+        if fp is None:
+            continue
+        groups.setdefault((spec.field, fl.key),
+                          (spec.field, fl, fp, []))[3].append((i, spec))
+    launched = []
+    for field, fl, fp, items in groups.values():
+        view = _filtered_view(seg, field, fp, device)
+        lts = [_PseudoLT(s) for _, s in items]
+        sspecs = [s for _, s in items]
+        state = _launch_pure(view, ctx, lts, sspecs, K, device)
+        launched.append((view, fl, items, lts, sspecs, state))
+    return launched
+
+
+def _finish_filtered_pure_batch(ctx, K: int, launched: list,
+                                device: torch.device) -> dict:
+    """FETCH stage of the filtered-pure rung: {spec index: result}."""
+    out: dict = {}
+    for view, fl, items, lts, sspecs, state in launched:
+        res = _finish_pure(view, ctx, lts, sspecs, K, state, device)
+        for (i, spec), r in zip(items, res):
+            fl.hits += 1
+            STATS["filtered_pure"] += 1
+            if spec.boost != 1.0:
+                sc = r["topk_scores"]
+                sc = np.where(np.isfinite(sc), sc * np.float32(spec.boost),
+                              sc).astype(np.float32)
+                r = dict(r, topk_scores=sc,
+                         max_score=(float(sc[0]) if r["total"] > 0
+                                    and np.isfinite(sc[0]) else -np.inf))
+            out[i] = r
+    return out
+
+
+def count_served(specs: Sequence[FastSpec]) -> None:
+    for spec in specs:
+        STATS["pure_served" if spec.kind == "pure" else "bool_served"] += 1
 
 
 class LaunchHandle:
@@ -1413,15 +1961,44 @@ class LaunchHandle:
 def launch_batch(seg, ctx: C.ShardContext, specs: Sequence[FastSpec],
                  k: int, device: torch.device) -> LaunchHandle:
     """LAUNCH stage of the batched kernel path: many FastSpecs over ONE
-    segment in as few kernel launches as possible."""
+    segment in as few kernel launches as possible. Pure term groups and
+    the filtered-pure rung enqueue their frontier launches here; `fetch()`
+    syncs them, runs the ladder, then launches and fetches the remaining
+    bool specs (whose routes read the filter lists' use counts as the
+    rung left them), as the reference orders them."""
     if seg.live_count != seg.ndocs:
         raise NotPortedError(f"search over segment [{seg.name}] with "
                              f"deleted docs")
     K = min(next_pow2(max(k, 16)), MAX_K)
-    lts = [s.lt for s in specs]
-    state = _launch_pure(seg, ctx, lts, specs, K, device)
-    return LaunchHandle(lambda: _finish_pure(seg, ctx, lts, specs, K, state,
-                                             device))
+    pure_idx = [i for i, s in enumerate(specs) if s.kind == "pure"]
+    bool_idx = [i for i, s in enumerate(specs) if s.kind == "bool"]
+    lts = [specs[i].lt for i in pure_idx]
+    pure_specs = [specs[i] for i in pure_idx]
+    pure_state = (_launch_pure(seg, ctx, lts, pure_specs, K, device)
+                  if pure_idx else None)
+    filtered = (_launch_filtered_pure_batch(
+        seg, ctx, [(i, specs[i]) for i in bool_idx], K, device)
+        if bool_idx else [])
+
+    def finish() -> List[dict]:
+        out: List[Optional[dict]] = [None] * len(specs)
+        if pure_state is not None:
+            for i, r in zip(pure_idx, _finish_pure(seg, ctx, lts, pure_specs,
+                                                   K, pure_state, device)):
+                out[i] = r
+        served = (_finish_filtered_pure_batch(ctx, K, filtered, device)
+                  if filtered else {})
+        for i, r in served.items():
+            out[i] = r
+        rem = [i for i in bool_idx if i not in served]
+        if rem:
+            for i, r in zip(rem, _run_bool(seg, ctx, [specs[i] for i in rem],
+                                           K, device)):
+                out[i] = r
+        count_served(specs)
+        return out
+
+    return LaunchHandle(finish)
 
 
 def batch_search(seg, ctx: C.ShardContext, specs: Sequence[FastSpec],
@@ -1547,8 +2124,11 @@ def shard_view(engine) -> Optional[ShardView]:
 
 def shard_search(engine, ctx, spec: FastSpec, k: int,
                  device: torch.device) -> Optional[Tuple[ShardView, dict]]:
-    """One frontier launch over ALL the shard's segments for a spec; None
-    -> the per-segment loop."""
+    """One frontier launch over ALL the shard's segments for a pure spec;
+    None -> the per-segment loop (bool specs always: their filters live
+    per segment)."""
+    if spec.kind != "pure":
+        return None
     view = shard_view(engine)
     if view is None or not view.ensure_field(spec.lt.field):
         return None

@@ -1,5 +1,6 @@
-"""Query DSL parsing for the query kinds this slice serves (the term,
-terms and match subset of opensearch_tpu/search/query_dsl.py).
+"""Query DSL parsing for the query kinds the port serves (the term, terms,
+match, bool, constant_score and range subset of
+opensearch_tpu/search/query_dsl.py).
 
 Any other query kind raises `NotPortedError` naming it; malformed bodies
 raise `QueryParseError` (HTTP 400), as in the reference.
@@ -44,6 +45,29 @@ class MatchQuery(Query):
     minimum_should_match: Optional[str] = None
     analyzer: Optional[str] = None
     fuzziness: Optional[Any] = None
+
+
+@dataclass
+class BoolQuery(Query):
+    must: List[Query] = dc_field(default_factory=list)
+    should: List[Query] = dc_field(default_factory=list)
+    must_not: List[Query] = dc_field(default_factory=list)
+    filter: List[Query] = dc_field(default_factory=list)
+    minimum_should_match: Optional[str] = None
+
+
+@dataclass
+class RangeQuery(Query):
+    field: str = ""
+    gte: Any = None
+    gt: Any = None
+    lte: Any = None
+    lt: Any = None
+
+
+@dataclass
+class ConstantScoreQuery(Query):
+    filter: Optional[Query] = None
 
 
 def _one_entry(d: dict, what: str) -> Tuple[str, Any]:
@@ -103,6 +127,33 @@ def parse_query(dsl: Optional[dict]) -> Query:
             _common(q, spec)
         else:
             q = MatchQuery(field=f, query=spec)
+        return q
+
+    if kind == "bool":
+        def many(key):
+            v = body.get(key, [])
+            v = v if isinstance(v, list) else [v]
+            return [parse_query(x) for x in v]
+        q = BoolQuery(must=many("must"), should=many("should"),
+                      must_not=many("must_not"), filter=many("filter"),
+                      minimum_should_match=body.get("minimum_should_match"))
+        _common(q, body)
+        return q
+
+    if kind == "range":
+        f, spec = _one_entry(body, "range")
+        for key in ("format", "relation", "time_zone"):
+            if key in spec:
+                raise NotPortedError(f"[range] option [{key}]")
+        q = RangeQuery(field=f, gte=spec.get("gte", spec.get("from")),
+                       gt=spec.get("gt"), lte=spec.get("lte", spec.get("to")),
+                       lt=spec.get("lt"))
+        _common(q, spec)
+        return q
+
+    if kind == "constant_score":
+        q = ConstantScoreQuery(filter=parse_query(body["filter"]))
+        _common(q, body)
         return q
 
     raise NotPortedError(f"query [{kind}]")

@@ -27,7 +27,7 @@ def test_every_library_lists_the_shared_header(tmp_path, monkeypatch):
 def test_header_edit_renames_both_libraries(tmp_path, monkeypatch):
     csrc = _copy_csrc(tmp_path, monkeypatch)
     names = sorted(_build.SIGNATURES)
-    assert names == ["bm25_impact", "bm25_tfdl"]
+    assert names == ["bm25_bool", "bm25_impact", "bm25_norms", "bm25_tfdl"]
     before = {n: _build.library_path(n) for n in names}
     assert before == {n: _build.library_path(n) for n in names}
     hdr = csrc / "bm25_rows.cuh"
@@ -41,7 +41,14 @@ def test_header_edit_renames_both_libraries(tmp_path, monkeypatch):
     src.write_bytes(src.read_bytes() + b"\n// edited\n")
     again = {n: _build.library_path(n) for n in names}
     assert again["bm25_impact"] != after["bm25_impact"]
-    assert again["bm25_tfdl"] == after["bm25_tfdl"]
+    for n in ("bm25_bool", "bm25_norms", "bm25_tfdl"):
+        assert again[n] == after[n], n
+    # the tf.dl contribution header renames B1 and B3 only
+    hdr = csrc / "bm25_tfdl.cuh"
+    hdr.write_bytes(hdr.read_bytes() + b"\n// edited\n")
+    third = {n: _build.library_path(n) for n in names}
+    assert {n for n in names if third[n] != again[n]} \
+        == {"bm25_bool", "bm25_tfdl"}
 
 
 def test_unrelated_file_keeps_the_names(tmp_path, monkeypatch):

@@ -257,8 +257,9 @@ def test_score_term_group_matches_reference(clients):
 
 
 @pytest.mark.parametrize("body,names", [
-    ({"query": {"bool": {"must": [{"match": {"body": "a"}}]}}}, "bool"),
-    ({"query": {"range": {"n": {"gte": 1}}}}, "range"),
+    ({"query": {"bool": {"must": [{"bool": {"should": [
+        {"match": {"body": "a"}}]}}]}}}, "bool"),
+    ({"query": {"range": {"body": {"gte": 1}}}}, "range"),
     ({"query": {"match": {"body": "the"}},
       "aggs": {"a": {"terms": {"field": "tag.keyword"}}}}, "aggs"),
     ({"query": {"match": {"body": "the"}}, "from": 100, "size": 29},
@@ -305,8 +306,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "from opensearch_tpu_torch import RestClient\n"
         "c = RestClient(device='cpu')\n"
-        "c.index('t', {'body': 'hello world'}, id='1', refresh=True)\n"
-        "r = c.search('t', {'query': {'match': {'body': 'hello'}}})\n"
+        "c.index('t', {'body': 'hello world', 'n': 3}, id='1',\n"
+        "        refresh=True)\n"
+        "r = c.search('t', {'query': {'bool': {\n"
+        "    'must': [{'match': {'body': 'hello'}}],\n"
+        "    'filter': [{'range': {'n': {'gte': 1}}}]}}})\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'opensearch_tpu' or "
         "m.startswith('opensearch_tpu.'))\n"
