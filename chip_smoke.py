@@ -10,8 +10,10 @@ Phases, each of which fails the script when it fails:
      one nvcc per library, all started together;
   3. kernel vs plain: fused_bm25_topk_tfdl, fused_bm25_topk_impact,
      fused_bm25_bool_topk and fused_bm25_topk against their plain PyTorch
-     versions on the card over a grid of shapes; results must be equal
-     bit for bit;
+     versions on the card over a grid of shapes, then over edge points of
+     the row machinery (rows of many tiles in every slot, mass ties,
+     zero weights, fewer passers than K, launches of 1 and 8 rows that
+     split each row over blocks); results must be equal bit for bit;
   4. slice, small: the same bulk and queries, term groups and bool
      bodies, through RestClient on the card and on the CPU over codec-v2
      segments, with a term whose row exceeds L_HEAD; responses must be
@@ -34,6 +36,8 @@ Phases, each of which fails the script when it fails:
      pages against exact pages, and bodies against a numpy brute force.
 Then a line with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
+`--stop-after N` ends after phase N (a quick build-and-check run); it
+prints neither result line.
 """
 
 from __future__ import annotations
@@ -76,6 +80,23 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def group_sums(what: str, groups: list) -> dict:
+    """The largest of a first batch's kernel groups (by bound), with the
+    group count and the sums of kernel, plain and bound ms over all of
+    them; logged."""
+    out = dict(max(groups, key=lambda g: g["bound_ms"]))
+    out.update(groups=len(groups),
+               sum_ms=sum(g["ms"] for g in groups),
+               sum_plain_ms=sum(g["plain_ms"] for g in groups),
+               sum_bound_ms=sum(g["bound_ms"] for g in groups))
+    log(f"  {what}: first batch, {len(groups)} groups: kernel_ms sum="
+        f"{out['sum_ms']:.3f} plain_ms sum={out['sum_plain_ms']:.3f} "
+        f"bound_ms sum={out['sum_bound_ms']:.4f}; largest group QB="
+        f"{out['QB']} kernel_ms={out['ms']:.3f} bound_ms="
+        f"{out['bound_ms']:.4f}")
+    return out
 
 
 def valid_postings(docs, rowstarts, nrows, lens, skips, dlo, dhi, L) -> int:
@@ -468,6 +489,167 @@ def phase_norms_grid(dev, rng) -> dict:
                     largest = {"ms": k_ms, "plain_ms": p_ms,
                                "bound_ms": b_ms, "T": T, "L": L, "K": K}
     return {"points": points, "max_abs_err": worst, "largest": largest}
+
+
+def edge_rows(rng, starts, a_starts, QB: int, T: int, L: int,
+              mode: str) -> list:
+    """QB rows of T slots for the edge grid. "long": every slot one of the
+    8 longest terms (rows of many tiles in every slot), every third row
+    cut to a doc window; "ties": the same windows for a payload of one
+    value and equal weights (thousands of docs share a score); "zero":
+    zero weights (every score 0, as `terms` rows); "rare": terms of at
+    most 60 postings and msm = T (fewer passers than K, often none).
+    -> [rowstarts, nrows, lens, skips, weights, msm, dlo, dhi]."""
+    dfs = np.diff(starts)
+    order = np.argsort(-dfs, kind="stable")
+    pool = order[:8] if mode != "rare" else np.flatnonzero(dfs <= 60)
+    rowstarts, nrows, lens, skips = (np.zeros((QB, T), np.int32)
+                                     for _ in range(4))
+    for q in range(QB):
+        for t in range(T):
+            r = int(pool[rng.integers(0, len(pool))])
+            off = int(rng.integers(0, 64))
+            rowstarts[q, t], nrows[q, t], lens[q, t], skips[q, t] = \
+                window_at(int(a_starts[r]) + off, int(dfs[r]) - off, L)
+    weights = rng.uniform(0.1, 5.0, (QB, T)).astype(np.float32)
+    if mode == "ties":
+        weights[:] = np.float32(1.5)
+    elif mode == "zero":
+        weights[:] = 0.0
+    msm = np.full((QB, 1), float(T) if mode == "rare" else 1.0, np.float32)
+    dlo = np.zeros((QB, 1), np.int32)
+    dhi = np.full((QB, 1), 2**31 - 1, np.int32)
+    if mode == "long":
+        part = np.arange(QB) % 3 == 1
+        dlo[part, 0] = rng.integers(0, 50_000, part.sum())
+        dhi[part, 0] = dlo[part, 0] + rng.integers(10_000, 100_000,
+                                                   part.sum())
+    return [rowstarts, nrows, lens, skips, weights, msm, dlo, dhi]
+
+
+def phase_edge_grid(dev, rng) -> dict:
+    """The four kernels == plain at the row machinery's edges: each of
+    edge_rows' modes, T in {1, 8} (B3: TS in {1, 8} with the filter slot,
+    T up to 16), launches of 1, 8 and 64 rows (the first two split each
+    row over blocks), K = 128 (and 10 on B1). Logs kernel ms beside the
+    byte bound; the plain versions are only compared."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+
+    starts, docs, packed = random_csr(rng, 200_000, 120)
+    imp = rng.integers(0, 1 << 16, len(docs)).astype(np.int32)
+    norms = rng.uniform(0.01, 0.99, len(docs)).astype(np.float32)
+    flat = [np.full_like(packed, (3 << 21) | 100), np.full_like(imp, 4321),
+            np.full_like(norms, np.float32(0.25))]
+    a_starts, a_docs, *planes = bm25.align_csr_rows(
+        starts, docs, packed, imp, norms, *flat, margin=1 << 17,
+        alignment=1024)
+    d_docs = torch.from_numpy(a_docs).to(dev)
+    d = [torch.from_numpy(x).to(dev) for x in planes]
+    pay = {False: {"tfdl": d[0], "impact": d[1], "norms": d[2]},
+           True: {"tfdl": d[3], "impact": d[4], "norms": d[5]}}
+    fdocs = np.sort(rng.choice(200_000, 70_000, replace=False))
+    filt = np.full(((len(fdocs) + 127) // 128) * 128 + (1 << 17),
+                   2**31 - 1, np.int32)
+    filt[:len(fdocs)] = fdocs
+    d_filt = torch.from_numpy(filt).to(dev)
+    worst, points = 0.0, 0
+    for kind in ("tfdl", "impact", "bool", "norms"):
+        for T in (1, 8):
+            L = (1 << 17) // (2 * T if kind == "bool" else T)
+            L = min(L, 8192) if kind == "norms" else L
+            for mode in ("long", "ties", "zero", "rare"):
+                for QB in (1, 8, 64):
+                    for K in ((10, 128) if kind == "tfdl" else (128,)):
+                        host = edge_rows(rng, starts, a_starts[:-1], QB, T,
+                                         L, mode)
+                        v = pay[mode == "ties"]
+                        kern, plain, nbytes = _edge_call(
+                            kind, host, d_docs, v, d_filt, filt, a_docs,
+                            len(fdocs), a_starts, T, L, K, rng, dev)
+                        what = f"edge {kind} T={T} L={L} {mode} QB={QB} K={K}"
+                        got = kern()
+                        want = plain()
+                        torch.cuda.synchronize()
+                        worst = max(worst, _check_equal(got, want, what))
+                        passers = int(want[2][:, 0].max())
+                        k_ms = cuda_ms(kern, 5)
+                        S = bm25.split_rows(QB, 2 * T if kind == "bool"
+                                            else T, L,
+                                            bm25.resident_blocks(
+                                                "bm25_" + kind, dev))
+                        points += 1
+                        log(f"  {what} split={S} equal=yes "
+                            f"kernel_ms={k_ms:.4f} bound_ms="
+                            f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} "
+                            f"bytes={nbytes} max_passers={passers}")
+    return {"points": points, "max_abs_err": worst}
+
+
+def _edge_call(kind, host, d_docs, v, d_filt, filt, a_docs, n_filt,
+               a_starts, T, L, K, rng, dev):
+    """(kernel thunk, plain thunk, bound bytes) of one edge-grid point."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+    rowstarts, nrows, lens, skips, weights, msm, dlo, dhi = host
+    QB = rowstarts.shape[0]
+    if kind == "norms":
+        # fixed-L windows at the terms' 1024-aligned starts
+        w_starts = (rowstarts.astype(np.int64) * 128).astype(np.int32)
+        w_lens = np.minimum(lens + skips, L).astype(np.int32)
+        args = [torch.from_numpy(a).to(dev)
+                for a in (w_starts, w_lens, weights, msm)]
+        n_valid = int(w_lens.sum())
+        return (lambda: bm25.fused_bm25_topk(d_docs, v["norms"], *args, T=T,
+                                             L=L, K=K),
+                lambda: bm25.fused_bm25_topk_plain(d_docs, v["norms"], *args,
+                                                   T=T, L=L, K=K),
+                8 * n_valid + 12 * 128 * QB)
+    if kind == "bool":
+        # TS = T term slots and the filter slot T: the first slot
+        # required, the rest one counted family, the filter required
+        TS, Tb = T, 2 * T
+        pad = [np.zeros((QB, Tb), np.int32) for _ in range(4)]
+        for a, b in zip(pad, (rowstarts, nrows, lens, skips)):
+            a[:, :TS] = b
+        for q in range(QB):
+            off = int(rng.integers(0, n_filt // 4))
+            pad[0][q, TS], pad[1][q, TS], pad[2][q, TS], pad[3][q, TS] = \
+                window_at(off, n_filt - off, L)
+        cw = np.zeros((QB, Tb), np.float32)
+        cw[:, 0] = REQ_W
+        cw[:, 1:TS] = 1.0
+        cw[:, TS] = REQ_W
+        thresh = np.full((QB, 1), 2 * REQ_W + (1.0 if TS > 1 else 0.0),
+                         np.float32)
+        if msm[0, 0] > 1:
+            thresh[:, 0] = 2 * REQ_W + (TS - 1)
+        avgdl = np.full((QB, 1), 57.3, np.float32)
+        b_host = pad + [weights, cw, thresh, avgdl, dlo, dhi]
+        args = [torch.from_numpy(a).to(dev) for a in b_host]
+        nbytes = bool_bound(a_docs, filt, b_host, TS, True, L)[1]
+        kw = dict(TS=TS, L=L, K=K, k1=1.2, b=0.75, filtered=True)
+        return (lambda: bm25.fused_bm25_bool_topk(d_docs, v["tfdl"], d_filt,
+                                                  *args, **kw),
+                lambda: bm25.fused_bm25_bool_topk_plain(
+                    d_docs, v["tfdl"], d_filt, *args, **kw),
+                nbytes)
+    nv = valid_postings(a_docs, rowstarts, nrows, lens, skips, dlo, dhi, L)
+    if kind == "tfdl":
+        avgdl = np.full((QB, 1), 57.3, np.float32)
+        args = [torch.from_numpy(a).to(dev)
+                for a in host[:6] + [avgdl] + host[6:]]
+        return (lambda: bm25.fused_bm25_topk_tfdl(
+                    d_docs, v["tfdl"], *args, T=T, L=L, K=K, k1=1.2, b=0.75),
+                lambda: bm25.fused_bm25_topk_tfdl_plain(
+                    d_docs, v["tfdl"], *args, T=T, L=L, K=K, k1=1.2, b=0.75),
+                bound_ms(nv, QB)[1])
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    return (lambda: bm25.fused_bm25_topk_impact(d_docs, v["impact"], *args,
+                                                T=T, L=L, K=K),
+            lambda: bm25.fused_bm25_topk_impact_plain(d_docs, v["impact"],
+                                                      *args, T=T, L=L, K=K),
+            bound_ms(nv, QB)[1])
 
 
 # ---------------------------------------------------------------------
@@ -942,18 +1124,17 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
             f" bytes={nbytes} valid_postings={nv}")
         return {"QB": QB, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
 
-    def largest(groups):
-        return max(groups, key=lambda g: g["bound_ms"]) if groups else None
-
     # B1: the dense plan of the first batch (K = 16 for size 10)
     dense_plan = fastpath._prepare_vqueries(seg, ctx, lts_of(first), {},
                                             dev)
-    b1 = largest([timed(g, kl, False) for g, kl, _ in
-                  fastpath._launch_groups(seg, dense_plan, 16, dev)])
+    b1 = group_sums("B1 tfdl", [timed(g, kl, False) for g, kl, _ in
+                                fastpath._launch_groups(seg, dense_plan, 16,
+                                                        dev)])
     # B2: the pruned plan of the first batch (K = 128 on head rows)
-    b2 = largest([timed(g, kl, True) for g, kl, _ in
-                  fastpath._launch_groups(seg, pruned, 16, dev)
-                  if g[0].impact_pass])
+    b2 = group_sums("B2 impact", [timed(g, kl, True) for g, kl, _ in
+                                  fastpath._launch_groups(seg, pruned, 16,
+                                                          dev)
+                                  if g[0].impact_pass])
     torch.cuda.synchronize()
 
     # phase-2 rescore of the first batch's clamped queries: device
@@ -1122,8 +1303,7 @@ def time_bool_groups(client, seg, bodies, base_docs: np.ndarray) -> dict:
         timed.append({"QB": QB, "ms": k_ms, "plain_ms": p_ms,
                       "bound_ms": b_ms})
     torch.cuda.synchronize()
-    return {"max_abs_err": worst,
-            "largest": max(timed, key=lambda g: g["bound_ms"])}
+    return {"max_abs_err": worst, "largest": group_sums("B3 bool", timed)}
 
 
 def phase_bool_msmarco(big: dict, nq: int) -> dict:
@@ -1250,7 +1430,7 @@ def profile_batch(client, bodies) -> None:
     import pstats
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.ops import _build, bm25
 
     lines = sum([[{}, b] for b in bodies], [])
     spans = []
@@ -1282,7 +1462,7 @@ def profile_batch(client, bodies) -> None:
             setattr(lib, f"{name}_launch", fn)
     dev = {}
     for e in prof.key_averages():
-        if "rows_topk_kernel" in e.key:
+        if bm25.KERNEL_NAME in e.key:
             continue                  # counted from the CUDA events below
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1318,6 +1498,8 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=1024)
     ap.add_argument("--bool-queries", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stop-after", type=int, default=0,
+                    help="end after this phase (3, 4 or 5); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1349,7 +1531,9 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     from opensearch_tpu_torch.ops import bm25
     log("  resident blocks (persistent grid): " + ", ".join(
-        f"{n}={bm25.resident_blocks(n, dev)}" for n in names))
+        f"{n}={bm25.resident_blocks(n, dev)}" for n in names)
+        + f"; dynamic shared memory per block: "
+        f"{bm25.smem_bytes(names[0], dev)} bytes")
 
     rng = np.random.default_rng(args.seed)
     log("[3] kernel vs plain")
@@ -1361,9 +1545,15 @@ def main() -> int:
     log(f"  bool: {bgrid['points']} grid points equal")
     ngrid = phase_norms_grid(dev, rng)
     log(f"  norms: {ngrid['points']} grid points equal")
+    egrid = phase_edge_grid(dev, rng)
+    log(f"  edges: {egrid['points']} points equal over the four kernels")
+    if args.stop_after == 3:
+        return 0
 
     log("[4] slice, small: RestClient on cuda vs cpu")
     phase_slice_small(rng)
+    if args.stop_after == 4:
+        return 0
 
     log(f"[5] slice at MS MARCO passage scale (ndocs={args.ndocs})")
     if args.ndocs < NDOCS_MSMARCO:
@@ -1373,6 +1563,8 @@ def main() -> int:
         log(f"  cut: {args.queries} match queries (2048 uncut), so that "
             f"phase 6 fits the same time limit")
     big = phase_msmarco(args.ndocs, args.queries)
+    if args.stop_after == 5:
+        return 0
 
     log(f"[6] bool traffic at MS MARCO passage scale (ndocs={args.ndocs})")
     bools = phase_bool_msmarco(big, args.bool_queries)
@@ -1382,30 +1574,43 @@ def main() -> int:
         "source": "opensearch_tpu_torch/csrc/bm25_tfdl.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:343",
         "launches": big["tfdl_launches"],
-        "max_abs_err": max(grid["max_abs_err"], big["max_abs_err"]),
+        "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
+                           big["max_abs_err"]),
         "ms": big["b1"]["ms"], "plain_ms": big["b1"]["plain_ms"],
         "bound_ms": big["b1"]["bound_ms"], "bound_by": "bytes",
+        "first_batch_groups": big["b1"]["groups"],
+        "first_batch_sum_ms": big["b1"]["sum_ms"],
+        "first_batch_sum_bound_ms": big["b1"]["sum_bound_ms"],
         "library_ms": None, "parity": "exact"}, {
         "name": "fused_bm25_topk_impact", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_impact.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:820",
         "launches": big["impact_launches"],
-        "max_abs_err": max(igrid["max_abs_err"], big["max_abs_err"]),
+        "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
+                           big["max_abs_err"]),
         "ms": big["b2"]["ms"], "plain_ms": big["b2"]["plain_ms"],
         "bound_ms": big["b2"]["bound_ms"], "bound_by": "bytes",
+        "first_batch_groups": big["b2"]["groups"],
+        "first_batch_sum_ms": big["b2"]["sum_ms"],
+        "first_batch_sum_bound_ms": big["b2"]["sum_bound_ms"],
         "library_ms": None, "parity": "exact"}, {
         "name": "fused_bm25_bool_topk", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_bool.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:570",
         "launches": bools["bool_launches"],
-        "max_abs_err": max(bgrid["max_abs_err"], bools["max_abs_err"]),
+        "max_abs_err": max(bgrid["max_abs_err"], egrid["max_abs_err"],
+                           bools["max_abs_err"]),
         "ms": bools["b3"]["ms"], "plain_ms": bools["b3"]["plain_ms"],
         "bound_ms": bools["b3"]["bound_ms"], "bound_by": "bytes",
+        "first_batch_groups": bools["b3"]["groups"],
+        "first_batch_sum_ms": bools["b3"]["sum_ms"],
+        "first_batch_sum_bound_ms": bools["b3"]["sum_bound_ms"],
         "library_ms": None, "parity": "exact"}, {
         "name": "fused_bm25_topk", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_norms.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:175",
-        "launches": 0, "max_abs_err": ngrid["max_abs_err"],
+        "launches": 0,
+        "max_abs_err": max(ngrid["max_abs_err"], egrid["max_abs_err"]),
         "ms": ngrid["largest"]["ms"],
         "plain_ms": ngrid["largest"]["plain_ms"],
         "bound_ms": ngrid["largest"]["bound_ms"], "bound_by": "bytes",

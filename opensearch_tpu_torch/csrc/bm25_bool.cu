@@ -9,9 +9,10 @@
 // weights of its matching slots, taken in slot order, reaches the row's
 // threshold. With a filter, slot TS is the filter's sorted doc list, read
 // from its own buffer `filt` with count weight 1024 and score 0; slots
-// (TS, 2 TS) are dead. The row semantics and the design (per-posting
-// leader search, slot-order sums, persistent grid, K rounds of block
-// argmax) are in bm25_rows.cuh, the contribution in bm25_tfdl.cuh.
+// (TS, 2 TS) are dead. The row semantics and the design (tiles cut at one
+// doc through shared-memory rings, a merge-path merge with slot-order
+// sums, a running top K, rows split over blocks when a launch has few) are
+// in bm25_rows.cuh, the contribution in bm25_tfdl.cuh.
 //
 // Bound: memory. A row reads 8 B per valid term posting and 4 B per valid
 // filter posting and writes 12 B x 128 of output, with a handful of flops
@@ -27,12 +28,12 @@ int bm25_bool_launch(const int* docs, const int* tfdl, long long P,
                      const float* weights, const float* cw,
                      const float* thresh, const float* avgdl, const int* dlo,
                      const int* dhi, int QB, int TS, int T, int L, int K,
-                     float k1, float b, float omb, float* cand_s,
-                     int* cand_d, int grid, float* out_s, int* out_d,
-                     int* out_tot, void* stream) {
+                     float k1, float b, float omb, int split, float* part_s,
+                     int* part_d, int* part_tot, int* counters, int grid,
+                     float* out_s, int* out_d, int* out_tot, void* stream) {
   bm25rows::Rows a = {docs, P, rowstarts, nrows, lens, skips, weights,
-                      thresh, dlo, dhi, QB, T, L, K, cand_s, cand_d,
-                      out_s, out_d, out_tot};
+                      thresh, dlo, dhi, QB, T, L, K, split, part_s, part_d,
+                      part_tot, counters, out_s, out_d, out_tot};
   a.cw = cw;
   a.filt = filt;  // null: no filter slot
   a.Pf = Pf;
@@ -41,8 +42,8 @@ int bm25_bool_launch(const int* docs, const int* tfdl, long long P,
       a, bm25tfdl::TfdlContrib{tfdl, avgdl, k1, b, omb}, grid, stream);
 }
 
-int bm25_bool_resident_blocks(int* out) {
-  return bm25rows::resident_blocks<bm25tfdl::TfdlContrib>(out);
+int bm25_bool_resident_blocks(int* out, int* smem_bytes) {
+  return bm25rows::resident_blocks<bm25tfdl::TfdlContrib>(out, smem_bytes);
 }
 
 const char* bm25_bool_error_string(int err) {

@@ -17,16 +17,15 @@
 namespace {
 
 struct NormsContrib {
-  const float* norms;
+  const int* vals;  // the f32 norm per posting, as its bits
 
   struct Row {
-    const float* norms;
-    __device__ __forceinline__ float operator()(long long at, float w) const {
-      return __fmul_rn(w, __ldg(norms + at));
+    __device__ __forceinline__ float operator()(int norm, float w) const {
+      return __fmul_rn(w, __int_as_float(norm));
     }
   };
 
-  __device__ __forceinline__ Row row(int) const { return Row{norms}; }
+  __device__ __forceinline__ Row row(int) const { return Row{}; }
 };
 
 }  // namespace
@@ -38,16 +37,18 @@ int bm25_norms_launch(const int* docs, const float* norms, long long P,
                       const int* lens, const int* skips,
                       const float* weights, const float* msm,
                       const int* dlo, const int* dhi, int QB, int T, int L,
-                      int K, float* cand_s, int* cand_d, int grid,
-                      float* out_s, int* out_d, int* out_tot, void* stream) {
+                      int K, int split, float* part_s, int* part_d,
+                      int* part_tot, int* counters, int grid, float* out_s,
+                      int* out_d, int* out_tot, void* stream) {
   const bm25rows::Rows a = {docs, P, rowstarts, nrows, lens, skips, weights,
-                            msm, dlo, dhi, QB, T, L, K, cand_s, cand_d,
-                            out_s, out_d, out_tot};
-  return bm25rows::launch_rows(a, NormsContrib{norms}, grid, stream);
+                            msm, dlo, dhi, QB, T, L, K, split, part_s,
+                            part_d, part_tot, counters, out_s, out_d, out_tot};
+  return bm25rows::launch_rows(
+      a, NormsContrib{reinterpret_cast<const int*>(norms)}, grid, stream);
 }
 
-int bm25_norms_resident_blocks(int* out) {
-  return bm25rows::resident_blocks<NormsContrib>(out);
+int bm25_norms_resident_blocks(int* out, int* smem_bytes) {
+  return bm25rows::resident_blocks<NormsContrib>(out, smem_bytes);
 }
 
 const char* bm25_norms_error_string(int err) {

@@ -15,15 +15,13 @@ constexpr int kDlMask = (1 << kDlBits) - 1;
 constexpr int kTfMax = 2047;
 
 struct TfdlContrib {
-  const int* tfdl;
+  const int* vals;  // packed tf << 21 | dl per posting
   const float* avgdl;
   float k1, b, omb;
 
   struct Row {
-    const int* tfdl;
     float k1, b, omb, avgdl;
-    __device__ __forceinline__ float operator()(long long at, float w) const {
-      const int p = __ldg(tfdl + at);
+    __device__ __forceinline__ float operator()(int p, float w) const {
       // arithmetic shift, then mask: tf >= 1024 sets the sign bit
       const float tf = static_cast<float>((p >> kDlBits) & kTfMax);
       const float dl = static_cast<float>(p & kDlMask);
@@ -34,7 +32,7 @@ struct TfdlContrib {
   };
 
   __device__ __forceinline__ Row row(int q) const {
-    return Row{tfdl, k1, b, omb, avgdl[q]};
+    return Row{k1, b, omb, avgdl[q]};
   }
 };
 

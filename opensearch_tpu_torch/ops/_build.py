@@ -36,32 +36,36 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "bm25_tfdl_launch": (_I, [_P, _P, _L,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _F, _F, _F,
-                                  _P, _P, _I, _P, _P, _P, _P]),
-        "bm25_tfdl_resident_blocks": (_I, [_P]),
+                                  _I, _P, _P, _P, _P,
+                                  _I, _P, _P, _P, _P]),
+        "bm25_tfdl_resident_blocks": (_I, [_P, _P]),
         "bm25_tfdl_error_string": (ctypes.c_char_p, [_I]),
     },
     "bm25_impact": {
         "bm25_impact_launch": (_I, [_P, _P, _L,
                                     _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I,
-                                    _P, _P, _I, _P, _P, _P, _P]),
-        "bm25_impact_resident_blocks": (_I, [_P]),
+                                    _I, _P, _P, _P, _P,
+                                    _I, _P, _P, _P, _P]),
+        "bm25_impact_resident_blocks": (_I, [_P, _P]),
         "bm25_impact_error_string": (ctypes.c_char_p, [_I]),
     },
     "bm25_bool": {
         "bm25_bool_launch": (_I, [_P, _P, _L, _P, _L,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _F, _F, _F,
-                                  _P, _P, _I, _P, _P, _P, _P]),
-        "bm25_bool_resident_blocks": (_I, [_P]),
+                                  _I, _P, _P, _P, _P,
+                                  _I, _P, _P, _P, _P]),
+        "bm25_bool_resident_blocks": (_I, [_P, _P]),
         "bm25_bool_error_string": (ctypes.c_char_p, [_I]),
     },
     "bm25_norms": {
         "bm25_norms_launch": (_I, [_P, _P, _L,
                                    _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I,
-                                   _P, _P, _I, _P, _P, _P, _P]),
-        "bm25_norms_resident_blocks": (_I, [_P]),
+                                   _I, _P, _P, _P, _P,
+                                   _I, _P, _P, _P, _P]),
+        "bm25_norms_resident_blocks": (_I, [_P, _P]),
         "bm25_norms_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -19,7 +19,9 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/bm25_tfdl.cu`, `csrc/bm25_impact.cu`, `csrc/bm25_bool.cu`,
 `csrc/bm25_norms.cu`, all on the row machinery of `csrc/bm25_rows.cuh`);
 on a CPU tensor it runs its `_plain` version, the plain PyTorch version of
-the same function. Nothing else selects between them.
+the same function. Nothing else selects between them. A launch of fewer
+rows than the card holds blocks splits each row into `split_rows(...)`
+doc sub-ranges, one block each, merged inside the launch.
 """
 
 from __future__ import annotations
@@ -51,6 +53,12 @@ DL_MAX = DL_MASK
 # fam_msm` demands every required slot and fam_msm family slots
 REQ_W = 1024.0
 INT_MIN = -(2**31)
+
+# the row machinery's tile (csrc/bm25_rows.cuh kTile), the most doc
+# sub-ranges a row is split into, and the kernel's symbol
+TILE = 2048
+MAX_SPLIT = 32
+KERNEL_NAME = "rows_tile_kernel"
 
 # Calls made through each route since the last reset_counts(): "launches"
 # counts fused_bm25_topk_tfdl kernel launches (one per launch, nowhere
@@ -181,8 +189,8 @@ def fused_bm25_topk_tfdl(docs: torch.Tensor, tfdl: torch.Tensor,
         return fused_bm25_topk_tfdl_plain(docs, tfdl, rowstarts, nrows, lens,
                                           skips, weights, msm, avgdl, dlo,
                                           dhi, T, L, K, k1, b)
-    return _launch("bm25_tfdl", docs, rowstarts, T, L,
-                   lambda lib, grid, cand_s, cand_d, out, stream:
+    return _launch("bm25_tfdl", docs, rowstarts, T, L, K,
+                   lambda lib, split, part, grid, out, stream:
                    lib.bm25_tfdl_launch(
                        docs.data_ptr(), tfdl.data_ptr(), docs.shape[0],
                        rowstarts.data_ptr(), nrows.data_ptr(),
@@ -190,7 +198,7 @@ def fused_bm25_topk_tfdl(docs: torch.Tensor, tfdl: torch.Tensor,
                        weights.data_ptr(), msm.data_ptr(), avgdl.data_ptr(),
                        dlo.data_ptr(), dhi.data_ptr(),
                        rowstarts.shape[0], T, L, K, float(k1), float(b),
-                       float(np.float32(1.0 - b)), cand_s, cand_d, grid,
+                       float(np.float32(1.0 - b)), split, *part, grid,
                        *out, stream),
                    ("launches", "rows"))
 
@@ -218,15 +226,15 @@ def fused_bm25_topk_impact(docs: torch.Tensor, imp: torch.Tensor,
         return fused_bm25_topk_impact_plain(docs, imp, rowstarts, nrows,
                                             lens, skips, weights, msm, dlo,
                                             dhi, T, L, K)
-    return _launch("bm25_impact", docs, rowstarts, T, L,
-                   lambda lib, grid, cand_s, cand_d, out, stream:
+    return _launch("bm25_impact", docs, rowstarts, T, L, K,
+                   lambda lib, split, part, grid, out, stream:
                    lib.bm25_impact_launch(
                        docs.data_ptr(), imp.data_ptr(), docs.shape[0],
                        rowstarts.data_ptr(), nrows.data_ptr(),
                        lens.data_ptr(), skips.data_ptr(),
                        weights.data_ptr(), msm.data_ptr(), dlo.data_ptr(),
                        dhi.data_ptr(), rowstarts.shape[0], T, L, K,
-                       cand_s, cand_d, grid, *out, stream),
+                       split, *part, grid, *out, stream),
                    ("impact_launches", "impact_rows"))
 
 
@@ -284,8 +292,8 @@ def fused_bm25_bool_topk(docs: torch.Tensor, tfdl: torch.Tensor,
                                           lens, skips, weights, cw, thresh,
                                           avgdl, dlo, dhi, TS, L, K, k1, b,
                                           filtered)
-    return _launch("bm25_bool", docs, rowstarts, T, L,
-                   lambda lib, grid, cand_s, cand_d, out, stream:
+    return _launch("bm25_bool", docs, rowstarts, T, L, K,
+                   lambda lib, split, part, grid, out, stream:
                    lib.bm25_bool_launch(
                        docs.data_ptr(), tfdl.data_ptr(), docs.shape[0],
                        filt.data_ptr() if filtered else None,
@@ -294,7 +302,7 @@ def fused_bm25_bool_topk(docs: torch.Tensor, tfdl: torch.Tensor,
                        weights.data_ptr(), cw.data_ptr(), thresh.data_ptr(),
                        avgdl.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
                        QB, TS, T, L, K, float(k1), float(b),
-                       float(np.float32(1.0 - b)), cand_s, cand_d, grid,
+                       float(np.float32(1.0 - b)), split, *part, grid,
                        *out, stream),
                    ("bool_launches", "bool_rows"))
 
@@ -331,15 +339,15 @@ def fused_bm25_topk(docs: torch.Tensor, norms: torch.Tensor,
         return fused_bm25_topk_plain(docs, norms, starts, lens, weights, msm,
                                      T, L, K)
     rows = _window_rows(starts, L)
-    return _launch("bm25_norms", docs, starts, T, L,
-                   lambda lib, grid, cand_s, cand_d, out, stream:
+    return _launch("bm25_norms", docs, starts, T, L, K,
+                   lambda lib, split, part, grid, out, stream:
                    lib.bm25_norms_launch(
                        docs.data_ptr(), norms.data_ptr(), docs.shape[0],
                        rows[0].data_ptr(), rows[1].data_ptr(),
                        lens.data_ptr(), rows[2].data_ptr(),
                        weights.data_ptr(), msm.data_ptr(),
                        rows[3].data_ptr(), rows[4].data_ptr(), QB, T, L, K,
-                       cand_s, cand_d, grid, *out, stream),
+                       split, *part, grid, *out, stream),
                    ("norms_launches", "norms_rows"))
 
 
@@ -367,11 +375,23 @@ def fused_bm25_topk_plain(docs, norms, starts, lens, weights, msm, T: int,
                   L, K, lambda p, w, _rows: w * p)
 
 
-def _launch(name: str, docs, rowstarts, T: int, L: int, call,
+def split_rows(QB: int, T: int, L: int, resident: int) -> int:
+    """Doc sub-ranges per row of a launch: the largest power of two S <=
+    MAX_SPLIT with QB * S within the resident grid and a row's T * L
+    window elements at least a tile per sub-range."""
+    S = 1
+    while (S < MAX_SPLIT and QB * 2 * S <= resident
+           and T * L >= 2 * S * TILE):
+        S *= 2
+    return S
+
+
+def _launch(name: str, docs, rowstarts, T: int, L: int, K: int, call,
             counts: tuple):
-    """Launch library `name`'s kernel on the card: output and per-block
-    scratch allocation, the persistent grid, the error check, and the
-    launch/row counts (`counts` names the two COUNTS keys)."""
+    """Launch library `name`'s kernel on the card: the outputs, the split
+    and its [QB, S, K] partials, the zeroed counters (per-row arrivals and
+    the work-item counter of the persistent grid), the error check, and
+    the launch/row counts (`counts` names the two COUNTS keys)."""
     if docs.device.type != "cuda":
         raise ValueError(f"unsupported device {docs.device}")
     QB = rowstarts.shape[0]
@@ -383,12 +403,19 @@ def _launch(name: str, docs, rowstarts, T: int, L: int, call,
         return scores, ids, totals
     with torch.cuda.device(dev):
         lib = load_library(name)
-        grid = min(QB, resident_blocks(name, dev))
-        # per-block candidate scratch: a row has at most T*L valid postings
-        cand_s = torch.empty((grid, T * L), dtype=torch.float32, device=dev)
-        cand_d = torch.empty((grid, T * L), dtype=torch.int32, device=dev)
+        resident = resident_blocks(name, dev)
+        S = split_rows(QB, T, L, resident)
+        # per-row arrival counts and the work-item counter, zeroed
+        counters = torch.zeros(QB + 1, dtype=torch.int32, device=dev)
+        part = (None, None, None, counters.data_ptr())
+        if S > 1:
+            bufs = (torch.empty(QB * S * K, dtype=torch.float32, device=dev),
+                    torch.empty(QB * S * K, dtype=torch.int32, device=dev),
+                    torch.empty(QB * S, dtype=torch.int32, device=dev))
+            part = tuple(b.data_ptr() for b in bufs) + part[3:]
+        grid = min(QB * S, resident)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = call(lib, grid, cand_s.data_ptr(), cand_d.data_ptr(),
+        err = call(lib, S, part, grid,
                    (scores.data_ptr(), ids.data_ptr(), totals.data_ptr()),
                    stream)
     if err != 0:
@@ -403,20 +430,29 @@ def _launch(name: str, docs, rowstarts, T: int, L: int, call,
 _RESIDENT: dict = {}
 
 
-def resident_blocks(name: str, dev: torch.device) -> int:
-    """Blocks of library `name`'s kernel that fit on the card at once (SMs
-    x blocks per SM): the grid of the persistent launch, cached per
-    (library, device)."""
+def _occupancy(name: str, dev: torch.device) -> tuple:
     key = (name, dev.index)
     if key not in _RESIDENT:
-        out = ctypes.c_int(0)
+        out, smem = ctypes.c_int(0), ctypes.c_int(0)
         err = getattr(load_library(name), f"{name}_resident_blocks")(
-            ctypes.byref(out))
+            ctypes.byref(out), ctypes.byref(smem))
         if err != 0:
             raise RuntimeError(f"{name} occupancy query failed: CUDA "
                                f"error {err}")
-        _RESIDENT[key] = max(int(out.value), 1)
+        _RESIDENT[key] = (max(int(out.value), 1), int(smem.value))
     return _RESIDENT[key]
+
+
+def resident_blocks(name: str, dev: torch.device) -> int:
+    """Blocks of library `name`'s kernel that fit on the card at once (SMs
+    x blocks per SM at its dynamic shared memory): the grid of the
+    persistent launch, cached per (library, device)."""
+    return _occupancy(name, dev)[0]
+
+
+def smem_bytes(name: str, dev: torch.device) -> int:
+    """Dynamic shared memory of one block of library `name`'s kernel."""
+    return _occupancy(name, dev)[1]
 
 
 # rows per plain-version block: bounds its [rows, T, L] temporaries

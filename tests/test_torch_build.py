@@ -4,6 +4,8 @@ from `csrc/`, and the flags, so an edited shared header rebuilds every
 library that includes it. No nvcc is needed: only the names are computed.
 """
 
+import ctypes
+import re
 import shutil
 
 from opensearch_tpu_torch.ops import _build
@@ -56,3 +58,61 @@ def test_unrelated_file_keeps_the_names(tmp_path, monkeypatch):
     before = {n: _build.library_path(n) for n in _build.SIGNATURES}
     (csrc / "unrelated.cuh").write_text("// not included anywhere\n")
     assert before == {n: _build.library_path(n) for n in _build.SIGNATURES}
+
+
+_PROTO = re.compile(r"^([A-Za-z_][\w ]*?[\w*])\s*\b(\w+)\(([^)]*)\)\s*\{",
+                    re.M)
+
+
+def _c_prototypes() -> dict:
+    """name -> (return type, [argument types]) of every function in the
+    `extern "C"` blocks of csrc/*.cu."""
+    out = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        text = path.read_text()
+        block = text[text.index('extern "C" {'):]
+        for ret, name, args in _PROTO.findall(block):
+            types = []
+            for arg in " ".join(args.split()).split(","):
+                arg = arg.strip()
+                if arg:
+                    # drop the parameter name
+                    types.append(re.sub(r"\s*\b\w+$", "", arg).strip())
+            out[name] = (ret.strip(), types)
+    return out
+
+
+def _ctype_of(c_type: str):
+    if "*" in c_type:
+        return (ctypes.c_char_p if c_type.replace(" ", "") == "constchar*"
+                else ctypes.c_void_p)
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}[c_type]
+
+
+def test_signatures_match_the_c_prototypes():
+    """Every SIGNATURES entry has the arity of its C prototype, a pointer
+    type where the C side has a pointer and c_longlong where it has
+    `long long`: an argtypes list out of step with the prototype cuts
+    pointers silently."""
+    protos = _c_prototypes()
+    assert set(protos) == {fn for lib in _build.SIGNATURES.values()
+                           for fn in lib}
+    for lib, fns in _build.SIGNATURES.items():
+        for fn, (restype, argtypes) in fns.items():
+            ret, args = protos[fn]
+            assert restype is _ctype_of(ret), (fn, ret)
+            assert len(argtypes) == len(args), (fn, len(argtypes), len(args))
+            for i, (py, c) in enumerate(zip(argtypes, args)):
+                assert py is _ctype_of(c), (fn, i, c, py)
+
+
+def test_prototype_parser_sees_a_mismatch(tmp_path, monkeypatch):
+    csrc = _copy_csrc(tmp_path, monkeypatch)
+    src = csrc / "bm25_impact.cu"
+    text = src.read_text()
+    # a pointer argument dropped from the C side
+    src.write_text(text.replace("int split, float* part_s,", "int split,"))
+    ret, args = _c_prototypes()["bm25_impact_launch"]
+    want = _build.SIGNATURES["bm25_impact"]["bm25_impact_launch"][1]
+    assert len(args) == len(want) - 1
