@@ -10,7 +10,8 @@ Phases, each of which fails the script when it fails:
      one nvcc per library, all started together;
   3. kernel vs plain: fused_bm25_topk_tfdl, fused_bm25_topk_impact,
      fused_bm25_bool_topk and fused_bm25_topk against their plain PyTorch
-     versions on the card over a grid of shapes, then over edge points of
+     versions on the card over a grid of shapes, B3's two filter forms
+     (list and probe) on the same logical rows, then over edge points of
      the row machinery (rows of many tiles in every slot, mass ties,
      zero weights, fewer passers than K, launches of 1 and 8 rows that
      split each row over blocks); results must be equal bit for bit;
@@ -31,10 +32,14 @@ Phases, each of which fails the script when it fails:
      configuration, after one warm pass over its three filters) and the
      b3 mix (shapes that keep every query on the bool kernel), each run
      with default totals and with track_total_hits; the bool kernel's
-     groups of the first b3 batch held against the plain version and
-     timed, sampled bodies on the card held against the CPU, default
-     pages against exact pages, and bodies against a numpy brute force.
-Then a line with the kernels' numbers and, last, the device line.
+     launches of the warm pass and its groups of the first b3 batch held
+     against the plain version and timed, sampled bodies on the card held
+     against the CPU, default pages against exact pages, and bodies
+     against a numpy brute force.
+Every timed kernel reports device ms (the card's time alone: calls queued
+behind a sleep kernel, `device_ms`) and call ms (events around one whole
+call, the wrapper's host work inside). Then a line with the kernels'
+numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -43,6 +48,7 @@ prints neither result line.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -65,8 +71,9 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of `fn` on the card over `reps` runs (CUDA
-    events around each run, after one warm-up run)."""
+    """Call ms: median milliseconds of `fn` over `reps` runs, CUDA events
+    around each whole call (the host's work inside), after one warm-up
+    run."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -82,20 +89,72 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep per millisecond on this card (timed
+    once with events)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    return 10_000_000 / a.elapsed_time(b)
+
+
+def device_ms(fn, n: int) -> float:
+    """Device ms: the card's milliseconds per call of `fn`, the host's
+    work hidden. A sleep kernel holds the stream while n calls are queued
+    behind it (their arguments made before, outside), so the card runs
+    them back to back between two events; the span over n. The sleep is
+    doubled until the card had not reached the first call when the host
+    queued the last."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = 2.0 * n * host_ms + 1.0
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / n
+        sleep_ms *= 2
+    raise AssertionError("device_ms: the card caught up with the host")
+
+
+def kernel_ms(fn, n: int) -> tuple:
+    """(device ms, call ms) of a kernel's wrapper call `fn`."""
+    return device_ms(fn, n), cuda_ms(fn, n)
+
+
 def group_sums(what: str, groups: list) -> dict:
-    """The largest of a first batch's kernel groups (by bound), with the
-    group count and the sums of kernel, plain and bound ms over all of
-    them; logged."""
+    """The largest of a batch's kernel groups (by bound), with the group
+    count, the rows and the sums of device, call, plain and bound ms over
+    all of them; logged. `ms` is device ms."""
     out = dict(max(groups, key=lambda g: g["bound_ms"]))
-    out.update(groups=len(groups),
+    out.update(groups=len(groups), rows=sum(g["QB"] for g in groups),
                sum_ms=sum(g["ms"] for g in groups),
+               sum_call_ms=sum(g["call_ms"] for g in groups),
                sum_plain_ms=sum(g["plain_ms"] for g in groups),
                sum_bound_ms=sum(g["bound_ms"] for g in groups))
-    log(f"  {what}: first batch, {len(groups)} groups: kernel_ms sum="
-        f"{out['sum_ms']:.3f} plain_ms sum={out['sum_plain_ms']:.3f} "
-        f"bound_ms sum={out['sum_bound_ms']:.4f}; largest group QB="
-        f"{out['QB']} kernel_ms={out['ms']:.3f} bound_ms="
-        f"{out['bound_ms']:.4f}")
+    log(f"  {what}: {len(groups)} groups, {out['rows']} rows: device_ms "
+        f"sum={out['sum_ms']:.4f} call_ms sum={out['sum_call_ms']:.4f} "
+        f"plain_ms sum={out['sum_plain_ms']:.3f} bound_ms sum="
+        f"{out['sum_bound_ms']:.4f}; largest group QB={out['QB']} "
+        f"device_ms={out['ms']:.4f} call_ms={out['call_ms']:.4f} "
+        f"bound_ms={out['bound_ms']:.4f}")
     return out
 
 
@@ -181,11 +240,12 @@ def grid_rows(rng, starts, a_starts, QB, T, L):
 
 
 def _check_equal(got, want, what: str) -> float:
-    """Raise unless kernel and plain outputs are equal bit for bit;
-    returns the largest |score difference| over finite lanes (0.0)."""
+    """Raise unless kernel and plain outputs are equal bit for bit (scores
+    compared as their bits: +0.0 is not -0.0); returns the largest |score
+    difference| over finite lanes (0.0)."""
     import torch
     for g, w, name in zip(got, want, ("scores", "ids", "totals")):
-        if not torch.equal(g, w):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
             bad = (g != w).nonzero()[:4].tolist()
             raise AssertionError(f"kernel != plain ({name}) at {what}: "
                                  f"first differing [row, lane] {bad}")
@@ -227,11 +287,12 @@ def phase_kernel_grid(dev, rng) -> dict:
                                                 f"T={T} L={L} K={K}"))
                 nv = valid_postings(a_docs, *host[:4], host[7], host[8], L)
                 b_ms, nbytes = bound_ms(nv, 64)
-                k_ms = cuda_ms(kern, 20)
+                d_ms, c_ms = kernel_ms(kern, 20)
                 p_ms = cuda_ms(plain, 3)
                 points += 1
                 log(f"  tfdl   T={T} L={L:6d} K={K:3d} QB=64 equal=yes "
-                    f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                    f"device_ms={d_ms:.4f} call_ms={c_ms:.4f} "
+                    f"plain_ms={p_ms:.4f} "
                     f"bound_ms={b_ms:.5f} bytes={nbytes} "
                     f"valid_postings={nv} launches={launches}")
     return {"points": points, "max_abs_err": worst}
@@ -285,11 +346,12 @@ def phase_impact_grid(dev, rng) -> dict:
                     nv = valid_postings(a_docs, *host[:4], host[6],
                                         host[7], L)
                     b_ms, nbytes = bound_ms(nv, QB)
-                    k_ms = cuda_ms(kern, 10)
+                    d_ms, c_ms = kernel_ms(kern, 10)
                     p_ms = cuda_ms(plain, 3)
                     points += 1
                     log(f"  impact T={T} L={L:6d} K={K:3d} QB={QB:4d} "
-                        f"u{bits} equal=yes kernel_ms={k_ms:.4f} "
+                        f"u{bits} equal=yes device_ms={d_ms:.4f} "
+                        f"call_ms={c_ms:.4f} "
                         f"plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} "
                         f"bytes={nbytes} valid_postings={nv} "
                         f"launches={launches}")
@@ -351,10 +413,13 @@ def bool_grid_rows(rng, starts, a_starts, n_filt: int, QB: int, TS: int,
             dhi]
 
 
-def bool_bound(a_docs, filt, host, TS: int, filtered: bool, L: int) -> tuple:
+def bool_bound(a_docs, filt, host, TS: int, filtered: bool, L: int,
+               probe: bool = False) -> tuple:
     """(bound ms, bytes, valid term postings, valid filter postings) of B3
-    rows: 8 B per valid term posting, 4 B per valid filter posting, 12 B x
-    128 per row of output, over the card's memory rate."""
+    rows: 8 B per valid term posting, 4 B per valid filter posting of a
+    filter slot (none for a probe: 8 B per term posting is a lower bound
+    of any design), 12 B x 128 per row of output, over the card's memory
+    rate."""
     rowstarts, nrows, lens, skips = host[:4]
     dlo, dhi = host[8], host[9]
     n_term = valid_postings(a_docs, rowstarts[:, :TS], nrows[:, :TS],
@@ -362,7 +427,7 @@ def bool_bound(a_docs, filt, host, TS: int, filtered: bool, L: int) -> tuple:
     n_filt = (valid_postings(filt, rowstarts[:, TS:TS + 1],
                              nrows[:, TS:TS + 1], lens[:, TS:TS + 1],
                              skips[:, TS:TS + 1], dlo, dhi, L)
-              if filtered else 0)
+              if filtered and not probe else 0)
     nbytes = 8 * n_term + 4 * n_filt + 12 * 128 * rowstarts.shape[0]
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, n_term, n_filt
 
@@ -416,16 +481,138 @@ def phase_bool_grid(dev, rng) -> dict:
                     passed = int((want[2][:, 0] > 0).sum())
                     b_ms, nbytes, n_t, n_f = bool_bound(
                         a_docs, filt, host, TS, filtered, L)
-                    k_ms = cuda_ms(kern, 10)
+                    d_ms, c_ms = kernel_ms(kern, 10)
                     p_ms = cuda_ms(plain, 3)
                     points += 1
                     log(f"  bool   TS={TS} T={T:2d} L={L:6d} K={K:3d} "
                         f"QB={QB:4d} equal=yes rows_with_hits={passed} "
-                        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                        f"device_ms={d_ms:.4f} call_ms={c_ms:.4f} "
+                        f"plain_ms={p_ms:.4f} "
                         f"bound_ms={b_ms:.5f} bytes={nbytes} "
                         f"term_postings={n_t} filter_postings={n_f} "
                         f"launches={launches}")
     return {"points": points, "max_abs_err": worst}
+
+
+def has_probe() -> bool:
+    """The package's B3 has the probe form (run against the slice before
+    it, the probe points are skipped and say so)."""
+    from opensearch_tpu_torch.ops import bm25
+    return hasattr(bm25, "pack_bits")
+
+
+def filter_window_rows(fdocs: np.ndarray, host: list, TS: int, L: int,
+                       rng) -> None:
+    """Set each list-form row's filter window (slot TS) to every filter
+    doc of the row's [dlo, dhi), cutting dhi so that they fit the window,
+    as the planner's doc-range chunks do: the probe form of the same row
+    then reads the same logical filter from the bitmap. In place."""
+    rowstarts, nrows, lens, skips = host[:4]
+    dlo, dhi = host[8], host[9]
+    for q in range(rowstarts.shape[0]):
+        a = int(np.searchsorted(fdocs, dlo[q, 0]))
+        cap = a + L - 1024 - int(rng.integers(0, 4096))
+        if cap < len(fdocs) and fdocs[cap] < dhi[q, 0]:
+            dhi[q, 0] = fdocs[cap]
+        e = int(np.searchsorted(fdocs, dhi[q, 0]))
+        if e > a:
+            rowstarts[q, TS], nrows[q, TS], lens[q, TS], skips[q, TS] = \
+                window_at(a, e - a, L)
+        else:
+            rowstarts[q, TS] = nrows[q, TS] = lens[q, TS] = skips[q, TS] = 0
+
+
+def probe_rows(host: list, TS: int) -> list:
+    """The probe form of list-form B3 rows: the term slots only, the count
+    weights [QB, TS + 1] with the filter's last."""
+    cw = host[5]
+    return ([x[:, :TS].copy() for x in host[:4]] + [host[4]]
+            + [np.concatenate([cw[:, :TS], cw[:, TS:TS + 1]], axis=1)]
+            + host[6:])
+
+
+def phase_probe_grid(dev, rng) -> dict:
+    """B3's two filter forms on the same logical rows, in one call each:
+    list-form kernel == list-form plain == probe-form plain == probe-form
+    kernel, bit for bit, over TS x QB, with every term-needing count-weight
+    pattern (bool_grid_rows without its const-score rows), thresholds at
+    the pass edge, zero and negative weights (a -0.0 sum must come out
+    +0.0 on a filter hit) and doc windows; device ms side by side."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+
+    starts, docs, packed = random_csr(rng, 200_000, 120)
+    a_starts, a_docs, a_packed = bm25.align_csr_rows(
+        starts, docs, packed, margin=1 << 17, alignment=128)
+    fdocs = np.sort(rng.choice(200_000, 70_000, replace=False))
+    filt = np.full(((len(fdocs) + 127) // 128) * 128 + (1 << 17),
+                   2**31 - 1, np.int32)
+    filt[:len(fdocs)] = fdocs
+    mask = np.zeros(200_000, bool)
+    mask[fdocs] = True
+    d_docs = torch.from_numpy(a_docs).to(dev)
+    d_tfdl = torch.from_numpy(a_packed).to(dev)
+    d_filt = torch.from_numpy(filt).to(dev)
+    d_bits = bm25.pack_bits(torch.from_numpy(mask).to(dev))
+    worst, points, largest = 0.0, 0, None
+    for TS in (1, 2, 4, 8):
+        L = (1 << 17) // (2 * TS)
+        for QB in (64, 1024):
+            K = 128 if QB == 64 else 16
+            host = bool_grid_rows(rng, starts, a_starts[:-1], len(fdocs),
+                                  QB, TS, False, L)
+            # widen to the list form (filter slot TS, dead slots after it)
+            for i in range(4):
+                wide = np.zeros((QB, 2 * TS), np.int32)
+                wide[:, :TS] = host[i]
+                host[i] = wide
+            cw = np.zeros((QB, 2 * TS), np.float32)
+            cw[:, :TS] = host[5]
+            cw[:, TS] = REQ_W
+            host[5] = cw
+            host[6] = host[6] + REQ_W
+            neg = np.arange(QB) % 5 == 4
+            host[4][neg] = -host[4][neg]
+            host[4][np.arange(QB) % 10 == 9] = np.float32(-0.0)
+            filter_window_rows(fdocs, host, TS, L, rng)
+            p_host = probe_rows(host, TS)
+            args = [torch.from_numpy(a).to(dev) for a in host]
+            p_args = [torch.from_numpy(a).to(dev) for a in p_host]
+            kw = dict(TS=TS, L=L, K=K, k1=1.2, b=0.75, filtered=True)
+
+            def kern():
+                return bm25.fused_bm25_bool_topk(d_docs, d_tfdl, d_filt,
+                                                 *args, **kw)
+
+            def pkern():
+                return bm25.fused_bm25_bool_topk(d_docs, d_tfdl, d_bits,
+                                                 *p_args, **kw, probe=True)
+            want = bm25.fused_bm25_bool_topk_plain(d_docs, d_tfdl, d_filt,
+                                                   *args, **kw)
+            p_want = bm25.fused_bm25_bool_topk_plain(
+                d_docs, d_tfdl, d_bits, *p_args, **kw, probe=True)
+            what = f"probe TS={TS} L={L} QB={QB}"
+            worst = max(worst, _check_equal(kern(), want, what + " list"),
+                        _check_equal(pkern(), p_want, what + " probe"))
+            _check_equal(p_want, want, what + " probe plain vs list plain")
+            torch.cuda.synchronize()
+            zeros = int(((want[0] == 0) & ~torch.signbit(want[0])).sum())
+            b_ms, nbytes, n_t, n_f = bool_bound(a_docs, filt, host, TS,
+                                                True, L)
+            pb_ms = bool_bound(a_docs, filt, p_host, TS, True, L, True)[0]
+            d_list, c_list = kernel_ms(kern, 10)
+            d_probe, c_probe = kernel_ms(pkern, 10)
+            points += 1
+            log(f"  probe  TS={TS} L={L:6d} K={K:3d} QB={QB:4d} "
+                f"list == probe == plain, +0.0 scores={zeros} "
+                f"device_ms list={d_list:.4f} probe={d_probe:.4f} "
+                f"call_ms list={c_list:.4f} probe={c_probe:.4f} "
+                f"bound_ms list={b_ms:.5f} probe={pb_ms:.5f} "
+                f"term_postings={n_t} filter_postings={n_f}")
+            if largest is None or pb_ms > largest["bound_ms"]:
+                largest = {"ms": d_probe, "list_ms": d_list,
+                           "bound_ms": pb_ms, "TS": TS, "QB": QB}
+    return {"points": points, "max_abs_err": worst, "largest": largest}
 
 
 def phase_norms_grid(dev, rng) -> dict:
@@ -478,16 +665,18 @@ def phase_norms_grid(dev, rng) -> dict:
                                                 f"norms T={T} L={L} K={K}"))
                 n_valid = int(np.minimum(w_lens, L).sum())
                 b_ms, nbytes = bound_ms(n_valid, QB)
-                k_ms = cuda_ms(kern, 10)
+                d_ms, c_ms = kernel_ms(kern, 10)
                 p_ms = cuda_ms(plain, 3)
                 points += 1
                 log(f"  norms  T={T} L={L:5d} K={K:3d} QB={QB} equal=yes "
-                    f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                    f"device_ms={d_ms:.4f} call_ms={c_ms:.4f} "
+                    f"plain_ms={p_ms:.4f} "
                     f"bound_ms={b_ms:.5f} bytes={nbytes} "
                     f"valid_postings={n_valid}")
                 if largest is None or b_ms > largest["bound_ms"]:
-                    largest = {"ms": k_ms, "plain_ms": p_ms,
-                               "bound_ms": b_ms, "T": T, "L": L, "K": K}
+                    largest = {"ms": d_ms, "call_ms": c_ms,
+                               "plain_ms": p_ms, "bound_ms": b_ms, "T": T,
+                               "L": L, "K": K}
     return {"points": points, "max_abs_err": worst, "largest": largest}
 
 
@@ -530,9 +719,10 @@ def edge_rows(rng, starts, a_starts, QB: int, T: int, L: int,
 def phase_edge_grid(dev, rng) -> dict:
     """The four kernels == plain at the row machinery's edges: each of
     edge_rows' modes, T in {1, 8} (B3: TS in {1, 8} with the filter slot,
-    T up to 16), launches of 1, 8 and 64 rows (the first two split each
-    row over blocks), K = 128 (and 10 on B1). Logs kernel ms beside the
-    byte bound; the plain versions are only compared."""
+    T up to 16, and in probe form), launches of 1, 8 and 64 rows (the
+    first two split each row over blocks), K = 128 (and 10 on B1). Logs
+    device ms beside the byte bound; the plain versions are only
+    compared."""
     import torch
     from opensearch_tpu_torch.ops import bm25
 
@@ -553,8 +743,18 @@ def phase_edge_grid(dev, rng) -> dict:
                    2**31 - 1, np.int32)
     filt[:len(fdocs)] = fdocs
     d_filt = torch.from_numpy(filt).to(dev)
+    kinds = ("tfdl", "impact", "bool", "norms")
+    if has_probe():
+        mask = np.zeros(200_000, bool)
+        mask[fdocs] = True
+        d_filt = (d_filt, bm25.pack_bits(torch.from_numpy(mask).to(dev)))
+        kinds += ("probe",)
+    else:
+        log("  edge probe points skipped: this package's B3 has no probe "
+            "form")
+        d_filt = (d_filt, None)
     worst, points = 0.0, 0
-    for kind in ("tfdl", "impact", "bool", "norms"):
+    for kind in kinds:
         for T in (1, 8):
             L = (1 << 17) // (2 * T if kind == "bool" else T)
             L = min(L, 8192) if kind == "norms" else L
@@ -573,17 +773,21 @@ def phase_edge_grid(dev, rng) -> dict:
                         torch.cuda.synchronize()
                         worst = max(worst, _check_equal(got, want, what))
                         passers = int(want[2][:, 0].max())
-                        k_ms = cuda_ms(kern, 5)
+                        d_ms = device_ms(kern, 5)
                         S = bm25.split_rows(QB, 2 * T if kind == "bool"
                                             else T, L,
                                             bm25.resident_blocks(
-                                                "bm25_" + kind, dev))
+                                                "bm25_" + LIBRARY.get(
+                                                    kind, kind), dev))
                         points += 1
                         log(f"  {what} split={S} equal=yes "
-                            f"kernel_ms={k_ms:.4f} bound_ms="
+                            f"device_ms={d_ms:.4f} bound_ms="
                             f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} "
                             f"bytes={nbytes} max_passers={passers}")
     return {"points": points, "max_abs_err": worst}
+
+
+LIBRARY = {"probe": "bool"}    # edge kinds that are not a library's name
 
 
 def _edge_call(kind, host, d_docs, v, d_filt, filt, a_docs, n_filt,
@@ -605,9 +809,10 @@ def _edge_call(kind, host, d_docs, v, d_filt, filt, a_docs, n_filt,
                 lambda: bm25.fused_bm25_topk_plain(d_docs, v["norms"], *args,
                                                    T=T, L=L, K=K),
                 8 * n_valid + 12 * 128 * QB)
-    if kind == "bool":
+    if kind in ("bool", "probe"):
         # TS = T term slots and the filter slot T: the first slot
         # required, the rest one counted family, the filter required
+        # (probe: the term slots, and the bitmap for the filter)
         TS, Tb = T, 2 * T
         pad = [np.zeros((QB, Tb), np.int32) for _ in range(4)]
         for a, b in zip(pad, (rowstarts, nrows, lens, skips)):
@@ -626,13 +831,18 @@ def _edge_call(kind, host, d_docs, v, d_filt, filt, a_docs, n_filt,
             thresh[:, 0] = 2 * REQ_W + (TS - 1)
         avgdl = np.full((QB, 1), 57.3, np.float32)
         b_host = pad + [weights, cw, thresh, avgdl, dlo, dhi]
+        probe = kind == "probe"
+        if probe:
+            b_host = probe_rows(b_host, TS)
         args = [torch.from_numpy(a).to(dev) for a in b_host]
-        nbytes = bool_bound(a_docs, filt, b_host, TS, True, L)[1]
-        kw = dict(TS=TS, L=L, K=K, k1=1.2, b=0.75, filtered=True)
-        return (lambda: bm25.fused_bm25_bool_topk(d_docs, v["tfdl"], d_filt,
+        nbytes = bool_bound(a_docs, filt, b_host, TS, True, L, probe)[1]
+        kw = dict(TS=TS, L=L, K=K, k1=1.2, b=0.75, filtered=True,
+                  **({"probe": True} if probe else {}))
+        f = d_filt[1] if probe else d_filt[0]
+        return (lambda: bm25.fused_bm25_bool_topk(d_docs, v["tfdl"], f,
                                                   *args, **kw),
                 lambda: bm25.fused_bm25_bool_topk_plain(
-                    d_docs, v["tfdl"], d_filt, *args, **kw),
+                    d_docs, v["tfdl"], f, *args, **kw),
                 nbytes)
     nv = valid_postings(a_docs, rowstarts, nrows, lens, skips, dlo, dhi, L)
     if kind == "tfdl":
@@ -911,19 +1121,29 @@ def phase_slice_small(rng) -> dict:
 # phase 5: MS MARCO passage scale
 # ---------------------------------------------------------------------
 
-def run_batches(client, bodies, warm=()) -> tuple:
+def run_batches(client, bodies, warm=(), warm_launches=None) -> tuple:
     """`bodies` through RestClient.msearch in BATCH-body requests, counts
     and rungs set to 0 just before (and before the one msearch of `warm`
-    bodies, when given): -> (responses, wall s, batch ms, kernel counts,
-    rung counts)."""
+    bodies, when given, whose B3 launches' arguments are appended to
+    `warm_launches`): -> (responses, wall s, batch ms, kernel counts, rung
+    counts)."""
     from opensearch_tpu_torch.ops import bm25
     from opensearch_tpu_torch.search import fastpath
 
     bm25.reset_counts()
     fastpath.reset_stats()
     if warm:
+        real = fastpath.fused_bm25_bool_topk
+
+        def kept(*args, **kw):
+            warm_launches.append((args, kw))
+            return real(*args, **kw)
+        fastpath.fused_bm25_bool_topk = kept
         t0 = time.perf_counter()
-        client.msearch(sum([[{}, b] for b in warm], []), index="bench")
+        try:
+            client.msearch(sum([[{}, b] for b in warm], []), index="bench")
+        finally:
+            fastpath.fused_bm25_bool_topk = real
         log(f"  warm pass: {len(warm)} bodies in "
             f"{time.perf_counter() - t0:.2f}s, counts {dict(bm25.COUNTS)}")
     lat = []
@@ -1114,15 +1334,16 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
         what = f"first batch {'impact' if impact else 'tfdl'} T={T} L={L}"
         worst = max(worst, _check_equal(kern(), plain(), what))
         QB = sub[0].shape[0]
-        k_ms = cuda_ms(kern, 20)
+        d_ms, c_ms = kernel_ms(kern, 20)
         p_ms = cuda_ms(plain, 3)
         host = [x.cpu().numpy() for x in sub[:4] + list(lo_hi)]
         nv = valid_postings(a_docs, *host, L)
         b_ms, nbytes = bound_ms(nv, QB)
         log(f"  {what} QB={QB} K={kl} (whole launch): kernel == plain, "
-            f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f}"
-            f" bytes={nbytes} valid_postings={nv}")
-        return {"QB": QB, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
+            f"device_ms={d_ms:.4f} call_ms={c_ms:.4f} plain_ms={p_ms:.3f} "
+            f"bound_ms={b_ms:.4f} bytes={nbytes} valid_postings={nv}")
+        return {"QB": QB, "ms": d_ms, "call_ms": c_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms}
 
     # B1: the dense plan of the first batch (K = 16 for size 10)
     dense_plan = fastpath._prepare_vqueries(seg, ctx, lts_of(first), {},
@@ -1260,10 +1481,7 @@ def filter_bytes(seg, dev) -> dict:
 
 def time_bool_groups(client, seg, bodies, base_docs: np.ndarray) -> dict:
     """The bool kernel's groups of a first batch, planned again after the
-    mix ran (its filters are hot): kernel == plain bit for bit, then both
-    timed and the largest group held against its byte bound."""
-    import torch
-    from opensearch_tpu_torch.ops import bm25
+    mix ran (its filters are hot): time_bool_launches of them."""
     from opensearch_tpu_torch.search import compiler as C, fastpath
     from opensearch_tpu_torch.search import query_dsl as dsl
 
@@ -1273,37 +1491,51 @@ def time_bool_groups(client, seg, bodies, base_docs: np.ndarray) -> dict:
                                 10, b) for b in bodies]
     specs = [sp for sp in specs if sp.kind == "bool"]
     vqs = fastpath._prepare_bool_vqueries(seg, ctx, specs, {}, dev)
-    base = fastpath.get_aligned(seg, "body", dev)
-    worst, timed = 0.0, []
-    for gvqs in fastpath.bool_groups(vqs):
-        args, kw = fastpath.bool_group_call(gvqs, 16, dev)
+    return time_bool_launches(
+        "first b3 batch", [fastpath.bool_group_call(gvqs, 16, dev)
+                           for gvqs in fastpath.bool_groups(vqs)],
+        fastpath.get_aligned(seg, "body", dev), base_docs)
 
+
+def time_bool_launches(what: str, launches: list, base,
+                       base_docs: np.ndarray) -> dict:
+    """B3 launches given as (args, kwargs): kernel == plain bit for bit,
+    then device, call and plain ms, and each held against its byte
+    bound; the largest by bound and the sums."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+
+    worst, timed = 0.0, []
+    for args, kw in launches:
         def kern():
             return bm25.fused_bm25_bool_topk(*args, **kw)
 
         def plain():
             return bm25.fused_bm25_bool_topk_plain(*args, **kw)
-        v0 = gvqs[0]
-        route = ("filter slot" if v0.filtered else "filtered postings"
-                 if v0.al is not base else "unfiltered")
-        what = (f"first batch bool TS={kw['TS']} T={v0.T} L={kw['L']} "
-                f"({route})")
-        worst = max(worst, _check_equal(kern(), plain(), what))
+        probe = kw.get("probe", False)
+        on_base = args[0] is base.d_docs
+        route = ("filter probe" if probe else "filter slot" if kw["filtered"]
+                 else "unfiltered" if on_base else "filtered postings")
+        T = args[3].shape[1]
+        label = f"{what} bool TS={kw['TS']} T={T} L={kw['L']} ({route})"
+        worst = max(worst, _check_equal(kern(), plain(), label))
         QB = args[3].shape[0]
-        k_ms = cuda_ms(kern, 20)
+        d_ms, c_ms = kernel_ms(kern, 20)
         p_ms = cuda_ms(plain, 3)
-        h_docs = (base_docs if v0.al is base else args[0].cpu().numpy())
+        h_docs = base_docs if on_base else args[0].cpu().numpy()
         host = [x.cpu().numpy() for x in args[3:]]
-        b_ms, nbytes, n_t, n_f = bool_bound(h_docs, args[2].cpu().numpy(),
-                                            host, kw["TS"], kw["filtered"],
-                                            kw["L"])
-        log(f"  {what} QB={QB} K=16 (whole launch): kernel == plain, "
-            f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f}"
-            f" bytes={nbytes} term_postings={n_t} filter_postings={n_f}")
-        timed.append({"QB": QB, "ms": k_ms, "plain_ms": p_ms,
-                      "bound_ms": b_ms})
+        b_ms, nbytes, n_t, n_f = bool_bound(
+            h_docs, None if probe else args[2].cpu().numpy(), host,
+            kw["TS"], kw["filtered"], kw["L"], probe)
+        log(f"  {label} QB={QB} K={kw['K']} (whole launch): kernel == "
+            f"plain, device_ms={d_ms:.4f} call_ms={c_ms:.4f} plain_ms="
+            f"{p_ms:.3f} bound_ms={b_ms:.4f} bytes={nbytes} term_postings="
+            f"{n_t} filter_postings={n_f}")
+        timed.append({"QB": QB, "ms": d_ms, "call_ms": c_ms,
+                      "plain_ms": p_ms, "bound_ms": b_ms})
     torch.cuda.synchronize()
-    return {"max_abs_err": worst, "largest": group_sums("B3 bool", timed)}
+    return {"max_abs_err": worst, "largest": group_sums(f"B3 {what}",
+                                                       timed)}
 
 
 def phase_bool_msmarco(big: dict, nq: int) -> dict:
@@ -1325,10 +1557,12 @@ def phase_bool_msmarco(big: dict, nq: int) -> dict:
     mixes = {"guardrail": [bc.bool_body(i, queries, vs) for i in range(nq)],
              "b3": [bc.b3_body(i, queries, vs) for i in range(nq)]}
     warm = [bc.bool_body(i, queries, vs) for i in range(3)]
+    warm_launches = []
     res = {}
     for name, bodies in mixes.items():
         resps, wall, lat, counts, rungs = run_batches(
-            client, bodies, warm if name == "guardrail" else ())
+            client, bodies, warm if name == "guardrail" else (),
+            warm_launches)
         log_bool_run(name, nq, wall, lat, counts, rungs, resps)
         if counts["bool_launches"] == 0 or counts["plain_calls"] != 0:
             raise AssertionError(f"{name} mix did not run the bool kernel "
@@ -1353,6 +1587,9 @@ def phase_bool_msmarco(big: dict, nq: int) -> dict:
         profile_batch(client, bodies[:BATCH])
     log("  resident bytes added by the bool path: " + " ".join(
         f"{k}={v}" for k, v in filter_bytes(seg, dev).items()))
+    base = fastpath.get_aligned(seg, "body", dev)
+    warm_b3 = time_bool_launches("guardrail warm pass", warm_launches, base,
+                                 big["a_docs"])
     b3 = time_bool_groups(client, seg, mixes["b3"][:BATCH], big["a_docs"])
 
     # 64 sampled bodies per mix, on the card and on the CPU (one segment,
@@ -1397,7 +1634,8 @@ def phase_bool_msmarco(big: dict, nq: int) -> dict:
             "b3_bool_launches": res["b3"]["counts"]["bool_launches"],
             "bool_launches": sum(r["counts"]["bool_launches"]
                                  for r in res.values()),
-            "b3": b3["largest"], "max_abs_err": b3["max_abs_err"]}
+            "b3": b3["largest"], "warm": warm_b3["largest"],
+            "max_abs_err": max(b3["max_abs_err"], warm_b3["max_abs_err"])}
 
 
 def log_bool_run(what: str, n: int, wall: float, lat, counts, rungs,
@@ -1491,6 +1729,18 @@ def profile_batch(client, bodies) -> None:
             f"{fn.split('opensearch_tpu_torch/')[-1]}:{line} {name}")
 
 
+def times(g: dict) -> dict:
+    """A kernel's numbers for the kernels line from its largest group
+    (group_sums): `ms` is device ms, the card's time alone; `call_ms` has
+    the wrapper's host work inside."""
+    return {"ms": g["ms"], "device_ms": g["ms"], "call_ms": g["call_ms"],
+            "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+            "first_batch_groups": g["groups"], "first_batch_rows": g["rows"],
+            "first_batch_sum_device_ms": g["sum_ms"],
+            "first_batch_sum_call_ms": g["sum_call_ms"],
+            "first_batch_sum_bound_ms": g["sum_bound_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
@@ -1535,23 +1785,33 @@ def main() -> int:
         + f"; dynamic shared memory per block: "
         f"{bm25.smem_bytes(names[0], dev)} bytes")
 
-    rng = np.random.default_rng(args.seed)
+    def rng(part: int):
+        # each part's data from its own stream: a part added or changed
+        # leaves the others' data as it was
+        return np.random.default_rng([args.seed, part])
     log("[3] kernel vs plain")
-    grid = phase_kernel_grid(dev, rng)
+    grid = phase_kernel_grid(dev, rng(1))
     log(f"  tfdl: {grid['points']} grid points equal")
-    igrid = phase_impact_grid(dev, rng)
+    igrid = phase_impact_grid(dev, rng(2))
     log(f"  impact: {igrid['points']} grid points equal")
-    bgrid = phase_bool_grid(dev, rng)
+    bgrid = phase_bool_grid(dev, rng(3))
     log(f"  bool: {bgrid['points']} grid points equal")
-    ngrid = phase_norms_grid(dev, rng)
+    if has_probe():
+        pgrid = phase_probe_grid(dev, rng(4))
+        log(f"  probe: {pgrid['points']} points, list form == probe form "
+            f"== plain")
+    else:
+        pgrid = {"max_abs_err": 0.0}
+        log("  probe points skipped: this package's B3 has no probe form")
+    ngrid = phase_norms_grid(dev, rng(5))
     log(f"  norms: {ngrid['points']} grid points equal")
-    egrid = phase_edge_grid(dev, rng)
+    egrid = phase_edge_grid(dev, rng(6))
     log(f"  edges: {egrid['points']} points equal over the four kernels")
     if args.stop_after == 3:
         return 0
 
     log("[4] slice, small: RestClient on cuda vs cpu")
-    phase_slice_small(rng)
+    phase_slice_small(rng(7))
     if args.stop_after == 4:
         return 0
 
@@ -1576,11 +1836,7 @@ def main() -> int:
         "launches": big["tfdl_launches"],
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
-        "ms": big["b1"]["ms"], "plain_ms": big["b1"]["plain_ms"],
-        "bound_ms": big["b1"]["bound_ms"], "bound_by": "bytes",
-        "first_batch_groups": big["b1"]["groups"],
-        "first_batch_sum_ms": big["b1"]["sum_ms"],
-        "first_batch_sum_bound_ms": big["b1"]["sum_bound_ms"],
+        **times(big["b1"]), "bound_by": "bytes",
         "library_ms": None, "parity": "exact"}, {
         "name": "fused_bm25_topk_impact", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_impact.cu",
@@ -1588,30 +1844,28 @@ def main() -> int:
         "launches": big["impact_launches"],
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
-        "ms": big["b2"]["ms"], "plain_ms": big["b2"]["plain_ms"],
-        "bound_ms": big["b2"]["bound_ms"], "bound_by": "bytes",
-        "first_batch_groups": big["b2"]["groups"],
-        "first_batch_sum_ms": big["b2"]["sum_ms"],
-        "first_batch_sum_bound_ms": big["b2"]["sum_bound_ms"],
+        **times(big["b2"]), "bound_by": "bytes",
         "library_ms": None, "parity": "exact"}, {
         "name": "fused_bm25_bool_topk", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_bool.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:570",
         "launches": bools["bool_launches"],
-        "max_abs_err": max(bgrid["max_abs_err"], egrid["max_abs_err"],
-                           bools["max_abs_err"]),
-        "ms": bools["b3"]["ms"], "plain_ms": bools["b3"]["plain_ms"],
-        "bound_ms": bools["b3"]["bound_ms"], "bound_by": "bytes",
-        "first_batch_groups": bools["b3"]["groups"],
-        "first_batch_sum_ms": bools["b3"]["sum_ms"],
-        "first_batch_sum_bound_ms": bools["b3"]["sum_bound_ms"],
+        "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
+                           egrid["max_abs_err"], bools["max_abs_err"]),
+        **times(bools["b3"]), "bound_by": "bytes",
+        "warm_pass_groups": bools["warm"]["groups"],
+        "warm_pass_rows": bools["warm"]["rows"],
+        "warm_pass_sum_device_ms": bools["warm"]["sum_ms"],
+        "warm_pass_sum_call_ms": bools["warm"]["sum_call_ms"],
+        "warm_pass_sum_bound_ms": bools["warm"]["sum_bound_ms"],
         "library_ms": None, "parity": "exact"}, {
         "name": "fused_bm25_topk", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_norms.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:175",
         "launches": 0,
         "max_abs_err": max(ngrid["max_abs_err"], egrid["max_abs_err"]),
-        "ms": ngrid["largest"]["ms"],
+        "ms": ngrid["largest"]["ms"], "device_ms": ngrid["largest"]["ms"],
+        "call_ms": ngrid["largest"]["call_ms"],
         "plain_ms": ngrid["largest"]["plain_ms"],
         "bound_ms": ngrid["largest"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "parity": "exact",

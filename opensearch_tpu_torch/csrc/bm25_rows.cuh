@@ -16,9 +16,20 @@
 // each doc id, `Contrib::row(q)` returns the row's evaluator, called as
 // `r(payload word, weight)`.
 //
-// A row may carry a filter slot (bm25_bool.cu): slot TS then reads its doc
-// list from a separate buffer `filt` of its own length, contributes 0.0
-// and is never decoded, and the term weights are [QB, TS].
+// A row may carry a filter slot (bm25_bool.cu, list form): slot TS then
+// reads its doc list from a separate buffer `filt` of its own length,
+// contributes 0.0 and is never decoded, and the term weights are [QB, TS].
+// Or it may probe the filter instead (bm25_bool.cu, probe form): the row
+// has only its term slots, and a bitmap of the filter's docs (bit d & 31 of
+// word d >> 5) with the filter's count weight cw_f stands for slot T, the
+// last in slot order: a doc whose bit is set adds cw_f to its count and
+// 0.0 to its score. That equals the list form for every doc with a term
+// posting; docs of the filter alone never pass, so the two forms agree
+// when cw_f is below the threshold, which the planner ensures.
+//
+// Fixed windows (bm25_norms.cu): a row's slot t may instead be the first
+// lens[q, t] elements from element starts[q, t], cut to [0, L), with no
+// doc range: a sentinel doc (INT_MAX) is no doc, as in the plain version.
 //
 // Design. The TPU kernels merge the T doc-sorted windows with a bitonic
 // network over T*L <= 131072 elements held in VMEM; 227 KB of shared
@@ -32,10 +43,14 @@
 //    so every tile advances, and every doc's postings from every slot fall
 //    in one tile.
 //  - Rings. Slot t keeps the B_t postings after its cursor (doc id and
-//    payload word) in a ring of 2 B_t entries in shared memory, filled by
-//    4-byte cp.async from device memory: each valid posting is read from
-//    device memory once. The refill for the next tile starts before
-//    this tile's merge and lands in ring entries the merge does not read.
+//    payload word) in a ring of 2 B_t entries in shared memory (B_t even,
+//    so every ring starts and ends at a multiple of 4 entries), filled by
+//    cp.async from device memory: each valid posting is read from device
+//    memory once. A posting's ring entry is congruent to its element
+//    index mod 4, so a refill copies 16 bytes at a time over its aligned
+//    interior and 4 bytes at its head and tail. The refill for the next
+//    tile starts before this tile's merge and lands in ring entries the
+//    merge does not read.
 //  - Table tile. When the tile's docs span fewer than kSpan ids (dense
 //    rows: a doc-range chunk of stopword-class terms), each doc has an
 //    entry in a table in shared memory. The slots go in order, one block
@@ -66,7 +81,10 @@
 //    K-th score across sub-ranges resolve by doc, as `better` does.
 // A persistent grid of kBlocksPerSm blocks per SM takes the (row,
 // sub-range) items in order from a counter, so rows of uneven length
-// spread over the blocks.
+// spread over the blocks. The counters are zero when a launch starts and
+// the launch leaves them zero: a row's last block resets its arrival
+// count, the last block to leave the grid the item counter, so the
+// wrapper keeps one workspace per stream and sets nothing before a launch.
 
 #pragma once
 
@@ -134,6 +152,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src));
 }
 
+// dst and src 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -158,16 +183,24 @@ struct Rows {
   float* part_s;         // [QB, S, K] partial top K (S > 1 only)
   int* part_d;
   int* part_tot;         // [QB, S] partial counts
-  int* counters;         // [QB + 1] zeroed: blocks of each row done so
-                         // far (S > 1), then the next work item
+  int* counters;         // [QB + 2], zero at the start and at the end:
+                         // blocks of each row done so far (S > 1), the
+                         // next work item, blocks that left the grid
   float* out_s;          // [QB, 128]
   int* out_d;
   int* out_tot;
   // bm25_bool.cu only; the other kernels leave the defaults
-  const float* cw = nullptr;  // [QB, T] count weights (null: 1 per slot)
+  const float* cw = nullptr;  // [QB, T] count weights (null: 1 per slot);
+                              // [QB, T + 1] with a probe, cw_f last
   const int* filt = nullptr;  // filter doc list read by slot TS (null: none)
   long long Pf = 0;
   int TS = 0;
+  const int* fbits = nullptr;  // probe form: the filter's bitmap (null: none)
+  long long nwords = 0;
+  // bm25_norms.cu only: fixed windows at element starts [QB, T] (null:
+  // rowstarts, nrows, skips, dlo and dhi name the windows)
+  const int* starts = nullptr;
+  bool vec = false;  // 16-byte copies: every buffer a slot reads is aligned
 };
 
 // per-slot cursors and the row's scalars, in static shared memory
@@ -179,12 +212,14 @@ struct State {
   int rb[kMaxT];             // ring base entry
   int cur[kMaxT], cmod[kMaxT];  // consumed postings, and their ring offset
   int ld[kMaxT], lmod[kMaxT];   // loaded postings, and their ring offset
-  int rf_from[kMaxT], rf_cnt[kMaxT], rf_mod[kMaxT];  // next refill
-  int rf_off[kMaxT + 1];     // slot offsets in the refill
+  int rf_from[kMaxT], rf_mod[kMaxT];  // next refill: first posting, ring
+  int rf_h[kMaxT], rf_c[kMaxT];      // 4-byte head copies, 16-byte copies
+  int rf_off[kMaxT + 1];     // slot offsets in the refill's copies
   int take[kMaxT], tmod[kMaxT];  // this tile's postings and ring offset
   int off[kMaxT + 1];        // slot offsets in the tile
   int dense, base_doc;       // table tile: its docs in [base_doc, + kSpan)
   float w[kMaxT], cw[kMaxT];
+  float cwf;                 // the probed filter's count weight
   bool term[kMaxT];          // false for the filter slot
   Entry thr;                 // running K-th entry (none until K are kept)
   int item, more, total, ntop, ncand, last;
@@ -234,15 +269,33 @@ __device__ __forceinline__ void merge_top(State& st, Entry* top, Entry* cand,
   __syncthreads();
 }
 
-// Start the cp.async copies the refill plan names (slot t: positions
-// [rf_from, rf_from + rf_cnt) to ring offsets from rf_mod), the slots'
-// runs laid end to end over the block's threads.
+// The copies of a refill of cnt postings from element g: h 4-byte copies
+// up to a 16-byte boundary, c 16-byte copies, then 4-byte copies of the
+// rest (all 4-byte without `vec`). Returns the number of copies.
+__device__ __forceinline__ int refill_copies(long long g, int cnt, bool vec,
+                                             int& h, int& c) {
+  if (!vec) {
+    h = cnt;
+    c = 0;
+    return cnt;
+  }
+  h = min(cnt, static_cast<int>((4 - (g & 3)) & 3));
+  c = (cnt - h) >> 2;
+  return cnt - 3 * c;
+}
+
+// Start the cp.async copies the refill plan names (slot t: positions from
+// rf_from to ring offsets from rf_mod, as rf_h head copies and rf_c
+// 16-byte copies, then single ones), the slots' copies laid end to end
+// over the block's threads. A 16-byte copy starts at a ring entry that is
+// a multiple of 4 (the entry is congruent to the element index mod 4) and
+// never wraps (rings end at a multiple of 4).
 __device__ __forceinline__ void start_refill(const State& st, int T,
                                              const int* __restrict__ vals,
                                              int* ring_doc, int* ring_val,
                                              int tid) {
   const int total = st.rf_off[T];
-  int t = -1, end = 0, from = 0, cap = 0, m0 = 0, rb = 0;
+  int t = -1, end = 0, from = 0, cap = 0, m0 = 0, rb = 0, h = 0, c = 0;
   const int* sd = nullptr;
   const int* sv = nullptr;
   bool term = false;
@@ -254,18 +307,44 @@ __device__ __forceinline__ void start_refill(const State& st, int T,
       cap = 2 * st.B[t];
       m0 = st.rf_mod[t];
       rb = st.rb[t];
+      h = st.rf_h[t];
+      c = st.rf_c[t];
       const long long g = st.base[t] + st.rf_from[t];
       sd = st.src[t] + g;
       sv = vals + g;
       term = st.term[t];
     }
-    const int j = i - from;
+    const int u = i - from;
+    const bool wide = u >= h && u < h + c;
+    const int j = u < h ? u : wide ? h + 4 * (u - h) : u + 3 * c;
     int r = m0 + j;
     if (r >= cap) r -= cap;
-    cp_async4(ring_doc + rb + r, sd + j);
-    if (term) cp_async4(ring_val + rb + r, sv + j);
+    if (wide) {
+      cp_async16(ring_doc + rb + r, sd + j);
+      if (term) cp_async16(ring_val + rb + r, sv + j);
+    } else {
+      cp_async4(ring_doc + rb + r, sd + j);
+      if (term) cp_async4(ring_val + rb + r, sv + j);
+    }
   }
   cp_async_commit();
+}
+
+// The probe form's filter, as the last slot of a leader's sums: on a hit
+// the count takes cw_f and the score adds 0.0 (a -0.0 sum becomes +0.0),
+// as the list form's filter slot does. The bit is read only when it can
+// decide whether the doc passes.
+__device__ __forceinline__ void probe_filter(const int* __restrict__ bits,
+                                             long long nwords, int d,
+                                             float cwf, float msm,
+                                             float& acc, float& cnt) {
+  const float with = __fadd_rn(cnt, cwf);
+  if (!(with >= msm) && !(cnt >= msm)) return;
+  const long long wd = d >> 5;
+  if (d >= 0 && wd < nwords && ((__ldg(bits + wd) >> (d & 31)) & 1)) {
+    cnt = with;
+    acc = __fadd_rn(acc, 0.0f);
+  }
 }
 
 // Inclusive sum of v over lanes 0..lane of a full warp.
@@ -314,6 +393,8 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
   const int K = a.K;
   const int fslot = a.filt != nullptr ? a.TS : -1;
   const int wT = a.filt != nullptr ? a.TS : T;  // weights per row
+  const bool probe = a.fbits != nullptr;
+  const int cwT = probe ? T + 1 : T;            // count weights per row
   const Entry none = {-CUDART_INF_F, kIntMax};
   const unsigned full = 0xffffffffu;
   const int* vals = contrib.vals;
@@ -334,8 +415,6 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
     if (warp == 0) {
       const int t = lane;
       const bool on = t < T;
-      const int lo_doc = a.dlo[q];
-      const int hi_doc = a.dhi[q];
       const int* w = nullptr;
       long long win = 0;
       int lo = 0, e = 0;
@@ -343,23 +422,41 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
         const int i = q * T + t;
         const bool is_filter = t == fslot;
         const int* src = is_filter ? a.filt : a.docs;
-        const long long start = static_cast<long long>(a.rowstarts[i]) * kLanes;
-        const int sk = a.skips[i];
-        long long hi = min(static_cast<long long>(sk) + a.lens[i],
-                           static_cast<long long>(a.nrows[i]) * kLanes);
-        hi = min(hi, static_cast<long long>(a.L));
-        hi = min(hi, (is_filter ? a.Pf : a.P) - start);
-        const int n = hi > sk ? static_cast<int>(hi - sk) : 0;
-        // the window is doc-ascending: [dlo, dhi) is a contiguous sub-range
-        win = start + sk;
-        w = src + win;
-        lo = (n == 0 || __ldg(w) >= lo_doc) ? 0 : lower_bound(w, n, lo_doc);
-        e = (n == 0 || __ldg(w + n - 1) < hi_doc)
-                ? n
-                : lo + lower_bound(w + lo, n - lo, hi_doc);
+        if (a.starts != nullptr) {
+          // a fixed window: no skip and no doc range
+          win = a.starts[i];
+          const long long hi = min(min(static_cast<long long>(a.lens[i]),
+                                       static_cast<long long>(a.L)),
+                                   a.P - win);
+          const int n = hi > 0 ? static_cast<int>(hi) : 0;
+          w = src + win;
+          e = (n == 0 || __ldg(w + n - 1) != kIntMax)
+                  ? n
+                  : lower_bound(w, n, kIntMax);
+        } else {
+          const long long start =
+              static_cast<long long>(a.rowstarts[i]) * kLanes;
+          const int sk = a.skips[i];
+          long long hi = min(static_cast<long long>(sk) + a.lens[i],
+                             static_cast<long long>(a.nrows[i]) * kLanes);
+          hi = min(hi, static_cast<long long>(a.L));
+          hi = min(hi, (is_filter ? a.Pf : a.P) - start);
+          const int n = hi > sk ? static_cast<int>(hi - sk) : 0;
+          // the window is doc-ascending: [dlo, dhi) is a contiguous
+          // sub-range
+          const int lo_doc = a.dlo[q];
+          const int hi_doc = a.dhi[q];
+          win = start + sk;
+          w = src + win;
+          lo = (n == 0 || __ldg(w) >= lo_doc) ? 0
+                                               : lower_bound(w, n, lo_doc);
+          e = (n == 0 || __ldg(w + n - 1) < hi_doc)
+                  ? n
+                  : lo + lower_bound(w + lo, n - lo, hi_doc);
+        }
         st.src[t] = src;
         st.w[t] = t < wT ? a.weights[q * wT + t] : 0.0f;
-        st.cw[t] = a.cw != nullptr ? a.cw[i] : 1.0f;
+        st.cw[t] = a.cw != nullptr ? a.cw[q * cwT + t] : 1.0f;
         st.term[t] = !is_filter;
       }
       if (S > 1) {
@@ -392,29 +489,36 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
       const int tot = __reduce_add_sync(full, n);
       int B = 0;
       if (n > 0)
-        B = kMinBudget + static_cast<int>(
-            static_cast<long long>(kTile - T * kMinBudget) * n / tot);
-      // ring bases: exclusive scan of 2 B over the slots
+        B = (kMinBudget + static_cast<int>(
+            static_cast<long long>(kTile - T * kMinBudget) * n / tot)) & ~1;
+      // ring bases: exclusive scan of 2 B over the slots (multiples of 4)
       const int inc = warp_scan(2 * B, lane);
       const int first = min(B, n);
-      const int rf = warp_scan(first, lane);
+      const long long base = win + lo;
+      // the first posting's ring entry: its element index mod 4
+      const int s0 = n > 0 ? static_cast<int>(base & 3) : 0;
+      int h = 0, c = 0;
+      const int copies = refill_copies(base, first, a.vec, h, c);
+      const int rf = warp_scan(copies, lane);
       if (on) {
-        st.rf_off[t] = rf - first;
-        st.base[t] = win + lo;
+        st.rf_off[t] = rf - copies;
+        st.base[t] = base;
         st.n[t] = n;
         st.B[t] = B;
         st.rb[t] = inc - 2 * B;
         st.cur[t] = 0;
-        st.cmod[t] = 0;
+        st.cmod[t] = s0;
         st.ld[t] = first;
-        st.lmod[t] = first;
+        st.lmod[t] = s0 + first;
         st.rf_from[t] = 0;
-        st.rf_cnt[t] = first;
-        st.rf_mod[t] = 0;
+        st.rf_mod[t] = s0;
+        st.rf_h[t] = h;
+        st.rf_c[t] = c;
       }
       const int rf_total = __shfl_sync(full, rf, 31);
       if (lane == 0) {
         st.rf_off[T] = rf_total;
+        st.cwf = probe ? a.cw[q * cwT + T] : 0.0f;
         st.more = tot > 0;
         st.total = 0;
         st.ntop = 0;
@@ -475,7 +579,10 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
         const int ncur = cur + take;
         const int to = min(ncur + B, n);
         const int cnt = to - ld;
-        const int rf = warp_scan(cnt, lane);
+        int h = 0, c = 0;
+        const int copies =
+            refill_copies(on ? st.base[t] + ld : 0, cnt, a.vec, h, c);
+        const int rf = warp_scan(copies, lane);
         const int rf_total = __shfl_sync(full, rf, 31);
         const int left = __reduce_add_sync(full, n - ncur);
         if (on) {
@@ -489,9 +596,10 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
           st.cur[t] = ncur;
           st.cmod[t] = nc;
           st.rf_from[t] = ld;
-          st.rf_cnt[t] = cnt;
           st.rf_mod[t] = lmod;
-          st.rf_off[t] = rf - cnt;
+          st.rf_h[t] = h;
+          st.rf_c[t] = c;
+          st.rf_off[t] = rf - copies;
           st.ld[t] = to;
           st.lmod[t] = nl;
         }
@@ -560,13 +668,17 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
           if (i < m) {
             const int d = ring_doc[tile_entry(st, i, t)];
             const int x = d - base_doc;
-            if (tlead[x] == t && tcnt[x] >= row_msm) {
-              ++passed;
-              const float acc = tacc[x];
-              if (better(acc, d, st.thr.s, st.thr.d)) {
-                const int k = atomicAdd(&st.ncand, 1);
-                cand[k] = Entry{acc, d};
-                full_now = k + 1 >= kCand;
+            if (tlead[x] == t) {
+              float acc = tacc[x], cnt = tcnt[x];
+              if (probe)
+                probe_filter(a.fbits, a.nwords, d, st.cwf, row_msm, acc, cnt);
+              if (cnt >= row_msm) {
+                ++passed;
+                if (better(acc, d, st.thr.s, st.thr.d)) {
+                  const int k = atomicAdd(&st.ncand, 1);
+                  cand[k] = Entry{acc, d};
+                  full_now = k + 1 >= kCand;
+                }
               }
             }
           }
@@ -642,6 +754,8 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
                                        : 0.0f);
               cnt = __fadd_rn(cnt, st.cw[t]);
             }
+            if (probe)
+              probe_filter(a.fbits, a.nwords, e.x, st.cwf, row_msm, acc, cnt);
             if (cnt >= row_msm) {
               ++passed;
               if (better(acc, e.x, st.thr.s, st.thr.d)) {
@@ -680,9 +794,11 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
       __syncthreads();
       write = st.last;
       if (write) {
-        // the last block of the row merges the S partials
+        // the last block of the row merges the S partials, and resets
+        // the row's arrival count for the next launch
         __threadfence();
         if (tid == 0) {
+          a.counters[q] = 0;
           int total = 0;
           for (int s = 0; s < S; ++s)
             total += __ldcg(a.part_tot + static_cast<long long>(q) * S + s);
@@ -719,6 +835,16 @@ rows_tile_kernel(const Rows a, const Contrib contrib) {
     }
     __syncthreads();
   }
+  // every block has taken its last item: the last one to leave resets
+  // the item counter for the next launch
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(a.counters + a.QB + 1, 1) ==
+        static_cast<int>(gridDim.x) - 1) {
+      a.counters[a.QB] = 0;
+      a.counters[a.QB + 1] = 0;
+    }
+  }
 }
 
 // Devices whose kernel of this library may use kSmemBytes (bit d). Each
@@ -747,11 +873,16 @@ cudaError_t allow_smem() {
   return err;
 }
 
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 template <class Contrib>
-int launch_rows(const Rows& a, const Contrib& contrib, int grid,
-                void* stream) {
+int launch_rows(Rows a, const Contrib& contrib, int grid, void* stream) {
   cudaError_t err = allow_smem<Contrib>();
   if (err != cudaSuccess) return static_cast<int>(err);
+  a.vec = aligned16(a.docs) && aligned16(contrib.vals) &&
+          (a.filt == nullptr || aligned16(a.filt));
   rows_tile_kernel<Contrib><<<grid, kThreads, kSmemBytes,
                               static_cast<cudaStream_t>(stream)>>>(a, contrib);
   return static_cast<int>(cudaGetLastError());

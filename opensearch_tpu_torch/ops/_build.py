@@ -51,7 +51,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "bm25_impact_error_string": (ctypes.c_char_p, [_I]),
     },
     "bm25_bool": {
-        "bm25_bool_launch": (_I, [_P, _P, _L, _P, _L,
+        "bm25_bool_launch": (_I, [_P, _P, _L, _P, _L, _P, _L,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _F, _F, _F,
                                   _I, _P, _P, _P, _P,
@@ -61,7 +61,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "bm25_norms": {
         "bm25_norms_launch": (_I, [_P, _P, _L,
-                                   _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _P,
                                    _I, _I, _I, _I,
                                    _I, _P, _P, _P, _P,
                                    _I, _P, _P, _P, _P]),

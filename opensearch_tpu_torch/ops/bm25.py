@@ -12,8 +12,9 @@ count of docs that pass the row's minimum-should-match (its threshold).
 `fused_bm25_topk_impact` scores `w * f32(imp)` from a codec-v2 quantized
 impact plane, one multiply per posting; `fused_bm25_bool_topk` is the
 tf.dl kernel with per-slot count weights against a threshold and an
-optional filter slot read from its own doc list; `fused_bm25_topk` scores
-`w * norm` over precomputed f32 norms in fixed-L windows.
+optional filter, either a slot read from its own doc list or a probe of
+the filter's bitmap (`pack_bits`); `fused_bm25_topk` scores `w * norm`
+over precomputed f32 norms in fixed-L windows.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/bm25_tfdl.cu`, `csrc/bm25_impact.cu`, `csrc/bm25_bool.cu`,
@@ -21,7 +22,9 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 on a CPU tensor it runs its `_plain` version, the plain PyTorch version of
 the same function. Nothing else selects between them. A launch of fewer
 rows than the card holds blocks splits each row into `split_rows(...)`
-doc sub-ranges, one block each, merged inside the launch.
+doc sub-ranges, one block each, merged inside the launch. The kernels'
+counters and partials live in a workspace kept per (device, stream); each
+launch leaves its counters zero, so nothing is set before a launch.
 """
 
 from __future__ import annotations
@@ -189,7 +192,7 @@ def fused_bm25_topk_tfdl(docs: torch.Tensor, tfdl: torch.Tensor,
         return fused_bm25_topk_tfdl_plain(docs, tfdl, rowstarts, nrows, lens,
                                           skips, weights, msm, avgdl, dlo,
                                           dhi, T, L, K, k1, b)
-    return _launch("bm25_tfdl", docs, rowstarts, T, L, K,
+    return _launch("bm25_tfdl", docs.device, rowstarts.shape[0], T, L, K,
                    lambda lib, split, part, grid, out, stream:
                    lib.bm25_tfdl_launch(
                        docs.data_ptr(), tfdl.data_ptr(), docs.shape[0],
@@ -226,7 +229,7 @@ def fused_bm25_topk_impact(docs: torch.Tensor, imp: torch.Tensor,
         return fused_bm25_topk_impact_plain(docs, imp, rowstarts, nrows,
                                             lens, skips, weights, msm, dlo,
                                             dhi, T, L, K)
-    return _launch("bm25_impact", docs, rowstarts, T, L, K,
+    return _launch("bm25_impact", docs.device, rowstarts.shape[0], T, L, K,
                    lambda lib, split, part, grid, out, stream:
                    lib.bm25_impact_launch(
                        docs.data_ptr(), imp.data_ptr(), docs.shape[0],
@@ -245,28 +248,37 @@ def fused_bm25_bool_topk(docs: torch.Tensor, tfdl: torch.Tensor,
                          cw: torch.Tensor, thresh: torch.Tensor,
                          avgdl: torch.Tensor, dlo: torch.Tensor,
                          dhi: torch.Tensor, TS: int, L: int, K: int,
-                         k1: float, b: float, filtered: bool):
+                         k1: float, b: float, filtered: bool,
+                         probe: bool = False):
     """Batched fused bool/filtered BM25 top-k over packed (tf, dl) postings.
 
     docs, tfdl i32[P] - as in fused_bm25_topk_tfdl
-    filt      i32[Pf] - filter doc lists, sorted runs, sentinel padded
-              (read only when `filtered`; Pf a multiple of 128)
+    filt      list form: i32[Pf] filter doc lists, sorted runs, sentinel
+              padded (read only when `filtered`; Pf a multiple of 128);
+              probe form: the filter's bitmap, `pack_bits(mask)`
     rowstarts, nrows, lens, skips i32[QB, T] - slot windows; slots
-              [0, TS) index docs/tfdl, slot TS (when filtered) indexes filt,
+              [0, TS) index docs/tfdl, slot TS (list form) indexes filt,
               slots (TS, 2 TS) are dead (nrows 0)
     weights   f32[QB, TS] - term weights (idf * boost)
     cw        f32[QB, T] - count weight per slot (REQ_W required, 1 family,
-              0 bonus or dead)
+              0 bonus or dead); probe form f32[QB, TS + 1], the last
+              column the filter's
     thresh    f32[QB, 1] - a doc passes iff its summed cw >= thresh
     avgdl     f32[QB, 1]; dlo/dhi i32[QB, 1] - as in fused_bm25_topk_tfdl
     TS, L, K  term slots (1, 2, 4, 8), window size (pow2), top-k (<= 128);
-              T = 2 TS when filtered, else TS
+              T = 2 TS in list form, else TS
     k1, b     similarity parameters (b already 0 when norms are off)
+    filtered  the rows carry a filter; `probe` in its probe form
 
-    The filter slot contributes score 0 and cw[q, TS]. Returns
+    The filter is the last slot in slot order: it contributes score 0 and
+    its count weight. In probe form a doc's bit stands for its filter
+    posting, so docs of the filter alone never pass: the two forms agree
+    on rows whose threshold exceeds the filter's count weight. Returns
     (scores f32[QB, 128], doc_ids i32[QB, 128], totals i32[QB, 128]).
     """
-    T = 2 * TS if filtered else TS
+    if probe and not filtered:
+        raise ValueError("probe needs filtered")
+    T = 2 * TS if filtered and not probe else TS
     _check_sizes(TS, L, K, "TS")
     QB = rowstarts.shape[0]
     shapes = {"docs": (docs, torch.int32, None),
@@ -276,35 +288,50 @@ def fused_bm25_bool_topk(docs: torch.Tensor, tfdl: torch.Tensor,
                     ("lens", lens), ("skips", skips)):
         shapes[name] = (t, torch.int32, (QB, T))
     shapes.update({"weights": (weights, torch.float32, (QB, TS)),
-                   "cw": (cw, torch.float32, (QB, T)),
+                   "cw": (cw, torch.float32, (QB, T + probe)),
                    "thresh": (thresh, torch.float32, (QB, 1)),
                    "avgdl": (avgdl, torch.float32, (QB, 1)),
                    "dlo": (dlo, torch.int32, (QB, 1)),
                    "dhi": (dhi, torch.int32, (QB, 1))})
     _check_tensors(docs.device, shapes)
     _check_postings(docs, tfdl, "tfdl")
-    if filt.dim() != 1 or filt.shape[0] % LANES:
+    if filt.dim() != 1 or (not probe and filt.shape[0] % LANES):
         raise ValueError(f"filt must be i32[Pf] with Pf a multiple of "
-                         f"{LANES}")
+                         f"{LANES} (a bitmap i32[W] in probe form)")
     if docs.device.type == "cpu":
         COUNTS["plain_calls"] += 1
         return fused_bm25_bool_topk_plain(docs, tfdl, filt, rowstarts, nrows,
                                           lens, skips, weights, cw, thresh,
                                           avgdl, dlo, dhi, TS, L, K, k1, b,
-                                          filtered)
-    return _launch("bm25_bool", docs, rowstarts, T, L, K,
+                                          filtered, probe)
+    slot = filtered and not probe
+    return _launch("bm25_bool", docs.device, QB, T, L, K,
                    lambda lib, split, part, grid, out, stream:
                    lib.bm25_bool_launch(
                        docs.data_ptr(), tfdl.data_ptr(), docs.shape[0],
-                       filt.data_ptr() if filtered else None,
-                       filt.shape[0], rowstarts.data_ptr(),
-                       nrows.data_ptr(), lens.data_ptr(), skips.data_ptr(),
+                       filt.data_ptr() if slot else None, filt.shape[0],
+                       filt.data_ptr() if probe else None, filt.shape[0],
+                       rowstarts.data_ptr(), nrows.data_ptr(),
+                       lens.data_ptr(), skips.data_ptr(),
                        weights.data_ptr(), cw.data_ptr(), thresh.data_ptr(),
                        avgdl.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
                        QB, TS, T, L, K, float(k1), float(b),
                        float(np.float32(1.0 - b)), split, *part, grid,
                        *out, stream),
                    ("bool_launches", "bool_rows"))
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """The bitmap of a bool[n] mask on its device: i32[ceil(n / 32)], bit
+    d & 31 of word d >> 5 set iff mask[d] (the probe form's filter)."""
+    n = mask.shape[0]
+    nw = (n + 31) // 32
+    bits = torch.zeros(nw * 32, dtype=torch.int64, device=mask.device)
+    bits[:n] = mask
+    shift = torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (bits.view(nw, 32) << shift).sum(dim=1)
+    # words >= 2^31 as their two's-complement i32
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def fused_bm25_topk(docs: torch.Tensor, norms: torch.Tensor,
@@ -338,23 +365,21 @@ def fused_bm25_topk(docs: torch.Tensor, norms: torch.Tensor,
         COUNTS["plain_calls"] += 1
         return fused_bm25_topk_plain(docs, norms, starts, lens, weights, msm,
                                      T, L, K)
-    rows = _window_rows(starts, L)
-    return _launch("bm25_norms", docs, starts, T, L, K,
+    return _launch("bm25_norms", docs.device, QB, T, L, K,
                    lambda lib, split, part, grid, out, stream:
                    lib.bm25_norms_launch(
                        docs.data_ptr(), norms.data_ptr(), docs.shape[0],
-                       rows[0].data_ptr(), rows[1].data_ptr(),
-                       lens.data_ptr(), rows[2].data_ptr(),
-                       weights.data_ptr(), msm.data_ptr(),
-                       rows[3].data_ptr(), rows[4].data_ptr(), QB, T, L, K,
+                       starts.data_ptr(), lens.data_ptr(),
+                       weights.data_ptr(), msm.data_ptr(), QB, T, L, K,
                        split, *part, grid, *out, stream),
                    ("norms_launches", "norms_rows"))
 
 
 def _window_rows(starts: torch.Tensor, L: int) -> tuple:
-    """fused_bm25_topk's fixed-L windows as rows of the shared machinery:
-    (rowstarts = starts / 128, nrows = L / 128, skips = 0, dlo = INT_MIN,
-    dhi = INT_MAX) on the device of `starts`."""
+    """fused_bm25_topk's fixed-L windows as rows of the general plain
+    version: (rowstarts = starts / 128, nrows = L / 128, skips = 0, dlo =
+    INT_MIN, dhi = INT_MAX) on the device of `starts` (the kernel reads
+    the windows as they are)."""
     QB, T = starts.shape
     dev = starts.device
     return (torch.div(starts, LANES, rounding_mode="floor"),
@@ -386,36 +411,29 @@ def split_rows(QB: int, T: int, L: int, resident: int) -> int:
     return S
 
 
-def _launch(name: str, docs, rowstarts, T: int, L: int, K: int, call,
-            counts: tuple):
-    """Launch library `name`'s kernel on the card: the outputs, the split
-    and its [QB, S, K] partials, the zeroed counters (per-row arrivals and
-    the work-item counter of the persistent grid), the error check, and
-    the launch/row counts (`counts` names the two COUNTS keys)."""
-    if docs.device.type != "cuda":
-        raise ValueError(f"unsupported device {docs.device}")
-    QB = rowstarts.shape[0]
-    dev = docs.device
-    scores = torch.empty((QB, LANES), dtype=torch.float32, device=dev)
-    ids = torch.empty((QB, LANES), dtype=torch.int32, device=dev)
-    totals = torch.empty((QB, LANES), dtype=torch.int32, device=dev)
+def _launch(name: str, dev: torch.device, QB: int, T: int, L: int, K: int,
+            call, counts: tuple):
+    """Launch library `name`'s kernel on the card: the outputs (three
+    views of one allocation), the split and its [QB, S, K] partials and
+    the counters (per-row arrivals, the work-item counter of the
+    persistent grid, the blocks that left it) from the stream's workspace,
+    the error check, and the launch/row counts (`counts` names the two
+    COUNTS keys)."""
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty((3, QB, LANES), dtype=torch.int32, device=dev)
+    scores, ids, totals = out[0].view(torch.float32), out[1], out[2]
     if QB == 0:
         return scores, ids, totals
     with torch.cuda.device(dev):
         lib = load_library(name)
         resident = resident_blocks(name, dev)
         S = split_rows(QB, T, L, resident)
-        # per-row arrival counts and the work-item counter, zeroed
-        counters = torch.zeros(QB + 1, dtype=torch.int32, device=dev)
-        part = (None, None, None, counters.data_ptr())
-        if S > 1:
-            bufs = (torch.empty(QB * S * K, dtype=torch.float32, device=dev),
-                    torch.empty(QB * S * K, dtype=torch.int32, device=dev),
-                    torch.empty(QB * S, dtype=torch.int32, device=dev))
-            part = tuple(b.data_ptr() for b in bufs) + part[3:]
-        grid = min(QB * S, resident)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = call(lib, S, part, grid,
+        counters, part = _workspace(dev, stream, QB + 2,
+                                    QB * S * K if S > 1 else 0, QB * S)
+        grid = min(QB * S, resident)
+        err = call(lib, S, part + (counters.data_ptr(),), grid,
                    (scores.data_ptr(), ids.data_ptr(), totals.data_ptr()),
                    stream)
     if err != 0:
@@ -425,6 +443,34 @@ def _launch(name: str, docs, rowstarts, T: int, L: int, K: int, call,
     COUNTS[counts[0]] += 1
     COUNTS[counts[1]] += QB
     return scores, ids, totals
+
+
+# (device index, stream) -> (counters i32, partials i32): the kernels'
+# workspace, grown on demand. The counters are zero between launches (each
+# launch resets what it used); a launch on the same stream reuses both
+# after the previous one ends.
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int, n_counters: int, n_part: int,
+               n_tot: int) -> tuple:
+    """(counters, (part_s, part_d, part_tot) pointers, None without a
+    split) of the (device, stream) workspace, at least this large."""
+    key = (dev.index, stream)
+    counters, part = _WORKSPACE.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        size = max(n_counters, 2 * (0 if counters is None
+                                    else counters.numel()))
+        counters = torch.zeros(size, dtype=torch.int32, device=dev)
+    need = 2 * n_part + n_tot if n_part else 0
+    if part is None or part.numel() < need:
+        size = max(need, 2 * (0 if part is None else part.numel()), 1)
+        part = torch.empty(size, dtype=torch.int32, device=dev)
+    _WORKSPACE[key] = (counters, part)
+    if not n_part:
+        return counters, (None, None, None)
+    at = part.data_ptr()
+    return counters, (at, at + 4 * n_part, at + 8 * n_part)
 
 
 _RESIDENT: dict = {}
@@ -494,15 +540,17 @@ def fused_bm25_topk_impact_plain(docs, imp, rowstarts, nrows, lens, skips,
 def fused_bm25_bool_topk_plain(docs, tfdl, filt, rowstarts, nrows, lens,
                                skips, weights, cw, thresh, avgdl, dlo, dhi,
                                TS: int, L: int, K: int, k1: float, b: float,
-                               filtered: bool):
+                               filtered: bool, probe: bool = False):
     """The plain PyTorch version of `fused_bm25_bool_topk` (same
     signature, same results bit for bit): as the tf.dl plain version, with
     the term weights padded to T slots, the filter slot's docs gathered
     from `filt` and scored 0.0 without a decode, and each doc's count
-    weights summed in slot order against `thresh`."""
+    weights summed in slot order against `thresh`; in probe form each
+    doc's bit gathered from the bitmap and, where set, its count weight
+    and 0.0 added last."""
     from .scoring import posting_contrib
 
-    T = 2 * TS if filtered else TS
+    T = 2 * TS if filtered and not probe else TS
     if T > TS:
         weights = torch.cat([weights, torch.zeros_like(weights)], dim=1)
 
@@ -511,6 +559,10 @@ def fused_bm25_bool_topk_plain(docs, tfdl, filt, rowstarts, nrows, lens,
         dl = (p & DL_MASK).to(torch.float32)
         return posting_contrib(tf, dl, w, k1, b, avgdl[rows][:, :, None])
 
+    if probe:
+        return _plain(docs, tfdl, rowstarts, nrows, lens, skips, weights,
+                      thresh, dlo, dhi, T, L, K, contrib, cw=cw[:, :TS],
+                      bits=filt, cwf=cw[:, TS:])
     return _plain(docs, tfdl, rowstarts, nrows, lens, skips, weights, thresh,
                   dlo, dhi, T, L, K, contrib, cw=cw,
                   filt=filt if filtered else None, TS=TS)
@@ -518,11 +570,13 @@ def fused_bm25_bool_topk_plain(docs, tfdl, filt, rowstarts, nrows, lens,
 
 def _plain(docs, vals, rowstarts, nrows, lens, skips, weights, msm, dlo,
            dhi, T: int, L: int, K: int, contrib, cw=None, filt=None,
-           TS: int = 0):
+           TS: int = 0, bits=None, cwf=None):
     """Row blocks of the plain version; `contrib(vals_window f32/i32[n, T,
     L], weights f32[n, T, 1], rows slice)` scores the gathered postings.
     `cw` f32[QB, T] count weights (None: 1 per slot); `filt` the filter
-    doc lists that slot TS reads (None: no filter slot)."""
+    doc lists that slot TS reads (None: no filter slot); `bits` the probed
+    filter's bitmap and `cwf` f32[QB, 1] its count weight (None: no
+    probe)."""
     QB = rowstarts.shape[0]
     step = max(1, _PLAIN_ELEMS // (T * L))
     parts = [_plain_rows(docs, vals, rowstarts[i:i + step],
@@ -532,7 +586,8 @@ def _plain(docs, vals, rowstarts, nrows, lens, skips, weights, msm, dlo,
                          T, L, K,
                          lambda p, w, _i=i: contrib(p, w,
                                                     slice(_i, _i + step)),
-                         None if cw is None else cw[i:i + step], filt, TS)
+                         None if cw is None else cw[i:i + step], filt, TS,
+                         None if bits is None else (bits, cwf[i:i + step]))
              for i in range(0, QB, step)]
     if not parts:
         dev = docs.device
@@ -543,7 +598,7 @@ def _plain(docs, vals, rowstarts, nrows, lens, skips, weights, msm, dlo,
 
 
 def _plain_rows(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
-                dlo, dhi, T, L, K, contrib, cw, filt, TS):
+                dlo, dhi, T, L, K, contrib, cw, filt, TS, probe):
     dev = docs.device
     QB = rowstarts.shape[0]
     P = docs.shape[0]
@@ -592,6 +647,16 @@ def _plain_rows(docs, vals, rowstarts, nrows, lens, skips, weights, msm,
         nxt_cnt = torch.zeros_like(c)
         nxt_cnt[:, :n - s] = w_cnt[:, s:]
         cnt = torch.where(same, cnt + nxt_cnt, cnt)
+    if probe is not None:
+        # the probed filter as the last slot: where the doc's bit is set,
+        # its count weight and 0.0 (a -0.0 sum becomes +0.0)
+        bits, cwf = probe
+        word = (keys >> 5).long()
+        inside = (keys >= 0) & (word < bits.shape[0])
+        bit = (bits[word.clamp(0, bits.shape[0] - 1)] >> (keys & 31)) & 1
+        hit = inside & (bit == 1)
+        cnt = torch.where(hit, cnt + cwf, cnt)
+        acc = torch.where(hit, acc + 0.0, acc)
     first = torch.ones_like(keys, dtype=torch.bool)
     first[:, 1:] = keys[:, 1:] != keys[:, :-1]
     passed = first & (keys != sent) & (cnt >= msm)

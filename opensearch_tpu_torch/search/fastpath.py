@@ -26,11 +26,14 @@ flatten onto the weighted-threshold slot model of the reference: required
 slots, one counted family and bonus terms, with the filter clauses ANDed
 into one sorted doc list per segment (`FilterList`, from the masks of
 `search/filters.py`). They ride the bool kernel `fused_bm25_bool_topk`,
-with the filter list as one more slot ("b3_filter_slot") or, for a dense
+with the filter as one more slot ("b3_filter_slot") or, for a dense
 filter on its second use, over filter-specialized postings
 ("b3_filtered_postings"); a family-only spec over a dense hot filter
 rides the pure pruned pipeline over the filtered postings instead
-("filtered_pure").
+("filtered_pure"). On the filter-slot route a row that needs a term match
+probes the filter's bitmap instead of merging its doc list (the probe
+form: term slots only, chunked by their own lengths); rows that every
+filter doc may pass (bonus-only, constant score) merge the list.
 
 Unlike the reference there is no general path behind this one: a search
 the fast path cannot serve raises `NotPortedError` naming what it met.
@@ -49,7 +52,8 @@ from ..index.segment import (CODEC_V1, CODEC_V2, PostingsBlock, Segment,
                              next_pow2)
 from ..ops.bm25 import (DL_BITS, DL_MAX, HBM_ALIGN, INT_SENTINEL, LANES,
                         REQ_W, TF_MAX, align_csr_rows, fused_bm25_bool_topk,
-                        fused_bm25_topk_impact, fused_bm25_topk_tfdl)
+                        fused_bm25_topk_impact, fused_bm25_topk_tfdl,
+                        pack_bits)
 from ..ops.scoring import SIM_BM25, dequant_impact_np
 from . import compiler as C
 from . import filters
@@ -1298,20 +1302,25 @@ def _phase2_batch(seg, vq_lists, specs: Sequence, results: dict,
 class FilterList:
     """The ANDed filter clauses of a bool spec over one segment: the
     sorted doc list (`host_docs`, and per device a sentinel-padded buffer
-    with MAX_L slack that the bool kernel's filter slot reads), the dense
-    mask when the filter is dense enough to ever take filter-specialized
-    postings, and how often a query has used it (`hits`). The quality
-    tier uses the mask part alone."""
+    with MAX_L slack that the bool kernel's filter slot reads), its bitmap
+    (`pack_bits`, what the kernel's probe form reads), the dense mask when
+    the filter is dense enough to ever take filter-specialized postings,
+    and how often a query has used it (`hits`). The quality tier uses the
+    mask part alone."""
 
-    __slots__ = ("host_docs", "n", "nbytes", "mask", "key", "hits", "_dev")
+    __slots__ = ("host_docs", "n", "nbytes", "mask", "bits", "key", "hits",
+                 "_dev")
 
     def __init__(self, host_docs: Optional[np.ndarray], n: int, nbytes: int,
-                 mask: Optional[np.ndarray], key):
+                 mask: Optional[np.ndarray], key,
+                 bits: Optional[torch.Tensor] = None):
         self.host_docs = host_docs    # i32 sorted doc ids
         self.n = n
         self.nbytes = nbytes          # device list + kept mask, as the
-        #                               reference charges them
+        #                               reference charges them, + bitmap
         self.mask = mask              # dense bool[ndocs], or None
+        self.bits = bits              # pack_bits of the filter, on the
+        #                               device that built it
         self.key = key
         self.hits = 0
         self._dev: dict = {}
@@ -1324,6 +1333,13 @@ class FilterList:
             buf = np.full(total, INT_SENTINEL, np.int32)
             buf[:self.n] = self.host_docs
             self._dev[key] = torch.from_numpy(buf).to(device)
+        return self._dev[key]
+
+    def d_bits(self, device: torch.device) -> torch.Tensor:
+        """The bitmap on `device` (copied on first use)."""
+        key = ("bits", str(device))
+        if key not in self._dev:
+            self._dev[key] = self.bits.to(device)
         return self._dev[key]
 
 
@@ -1349,14 +1365,15 @@ def _filter_list(seg, ctx, clauses, device: torch.device) -> FilterList:
         combined &= ~m if neg else m
     docs = torch.nonzero(combined).flatten().to(torch.int32).cpu().numpy()
     n = len(docs)
+    bits = pack_bits(combined)
     # keep the dense mask only when this filter could ever take the
     # filter-specialized postings
     dense_capable = (n > MATERIALIZE_MIN_DOCS
                      and n * MATERIALIZE_DENSITY > seg.ndocs)
     mask = combined.cpu().numpy() if dense_capable else None
     nbytes = 4 * (((n + LANES - 1) // LANES) * LANES + MAX_L) + (
-        mask.nbytes if mask is not None else 0)
-    fl = FilterList(docs, n, nbytes, mask, key)
+        mask.nbytes if mask is not None else 0) + 4 * bits.numel()
+    fl = FilterList(docs, n, nbytes, mask, key, bits)
     while len(cache) >= MAX_FILTER_LISTS:
         cache.popitem(last=False)
     cache[key] = fl
@@ -1719,11 +1736,11 @@ def _dummy_buffer(device: torch.device) -> torch.Tensor:
 class _BVQuery:
     """The bool-kernel rows of one query over one segment: one row, or one
     per doc-range chunk. Row arrays are [n, T]; weights f32[TS]; cw
-    f32[T]; dlo/dhi [n]."""
+    f32[T] (f32[TS + 1] with a probe, the filter's last); dlo/dhi [n]."""
 
-    __slots__ = ("TS", "T", "L", "filtered", "rowstarts", "nrows", "lens",
-                 "skips", "weights", "cw", "thresh", "avgdl", "dlo", "dhi",
-                 "field", "k1", "b_eff", "fl", "al", "head")
+    __slots__ = ("TS", "T", "L", "filtered", "probe", "rowstarts", "nrows",
+                 "lens", "skips", "weights", "cw", "thresh", "avgdl", "dlo",
+                 "dhi", "field", "k1", "b_eff", "fl", "al", "head")
 
     def __init__(self, **kw):
         self.head = False
@@ -1735,12 +1752,26 @@ class _BVQuery:
         return self.rowstarts.shape[0]
 
 
+def _needs_term(spec: FastSpec) -> bool:
+    """Passing needs a term match: a required slot or a counted family.
+    Then the filter alone never reaches the threshold."""
+    return spec.n_required > 0 or spec.fam_msm >= 1
+
+
+def _probe_form(spec: FastSpec) -> bool:
+    """A filter-slot row whose threshold the filter cannot reach alone
+    probes the filter's bitmap; a bonus-only or const-score row, which
+    every filter doc may pass, merges the filter's doc list."""
+    return _needs_term(spec)
+
+
 def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
                            avgdl_cache: dict,
                            device: torch.device) -> List[_BVQuery]:
-    """-> per bool spec its kernel rows over `seg`: the filter slot or the
-    filter-specialized postings (`_dense_hot`), the count weights and the
-    threshold, chunked by doc range when a window exceeds its budget."""
+    """-> per bool spec its kernel rows over `seg`: the filter slot (as a
+    probe or a doc list) or the filter-specialized postings
+    (`_dense_hot`), the count weights and the threshold, chunked by doc
+    range when a window exceeds its budget."""
     out: List[_BVQuery] = []
     for spec in specs:
         fl = fp = None
@@ -1750,14 +1781,14 @@ def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
             # specialized postings only hold docs that match SOME term, so
             # the route is sound only when passing needs a term match; a
             # bonus-only bool's hits are the whole filter
-            needs_term = spec.n_required > 0 or spec.fam_msm >= 1
-            if (nslots and needs_term and spec.field is not None
+            if (nslots and _needs_term(spec) and spec.field is not None
                     and _dense_hot(seg, fl, nslots)):
                 fp = _filtered_postings(seg, spec.field, fl)
             fl.hits += 1
         TS = next_pow2(max(nslots, 1), floor=1)
         filtered = fl is not None and fp is None
-        T = 2 * TS if filtered else TS
+        probe = filtered and _probe_form(spec)
+        T = 2 * TS if filtered and not probe else TS
         STATS["b3_filter_slot" if filtered else "b3_filtered_postings"
               if fp is not None else "b3_unfiltered"] += 1
         al = pb = None
@@ -1766,7 +1797,7 @@ def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
                   if fp is not None else get_aligned(seg, spec.field, device))
             pb = seg.postings.get(spec.field)
         weights = np.zeros(TS, np.float32)
-        cw = np.zeros(T, np.float32)
+        cw = np.zeros(T + probe, np.float32)
         slot_descs: List[Optional[Tuple[np.ndarray, int]]] = [None] * T
         for i, (term, w, cwv) in enumerate(spec.slots):
             weights[i] = w
@@ -1785,8 +1816,10 @@ def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
             if b > a:
                 slot_descs[i] = (docs, int(al.starts_rows[r]) * LANES)
         if filtered:
+            # the filter's count weight: slot TS, or the probe's (last)
             cw[TS] = REQ_W
-            slot_descs[TS] = (fl.host_docs, 0)
+            if not probe:
+                slot_descs[TS] = (fl.host_docs, 0)
         thresh = REQ_W * (spec.n_required + (1 if filtered else 0)) \
             + spec.fam_msm
         if spec.field is not None and spec.field not in avgdl_cache:
@@ -1803,7 +1836,8 @@ def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
         edges, rowstarts, nrows, lens, skips, max_nr = chunks
         out.append(_BVQuery(
             TS=TS, T=T, L=int(max_nr.max()) * LANES, filtered=filtered,
-            rowstarts=rowstarts, nrows=nrows, lens=lens, skips=skips,
+            probe=probe, rowstarts=rowstarts, nrows=nrows, lens=lens,
+            skips=skips,
             weights=weights, cw=cw, thresh=np.float32(thresh), avgdl=avgdl,
             dlo=edges[:-1].astype(np.int32), dhi=edges[1:].astype(np.int32),
             field=spec.field, k1=k1, b_eff=b_eff,
@@ -1816,12 +1850,12 @@ def _bool_launch_inputs(gvqs: List[_BVQuery],
     """The bool kernel inputs of a group's rows in ONE host-to-device
     copy: rowstarts, nrows, lens, skips, weights, cw, thresh, avgdl, dlo,
     dhi."""
-    T, TS = gvqs[0].T, gvqs[0].TS
+    TS, ncw = gvqs[0].TS, len(gvqs[0].cw)
     return _upload(
         [_cat(gvqs, a, np.int32)
          for a in ("rowstarts", "nrows", "lens", "skips")]
         + [_rep(gvqs, "weights", TS, np.float32),
-           _rep(gvqs, "cw", T, np.float32),
+           _rep(gvqs, "cw", ncw, np.float32),
            _rep(gvqs, "thresh", 1, np.float32),
            _rep(gvqs, "avgdl", 1, np.float32)]
         + [_cat(gvqs, a, np.int32).reshape(-1, 1) for a in ("dlo", "dhi")],
@@ -1829,11 +1863,11 @@ def _bool_launch_inputs(gvqs: List[_BVQuery],
 
 
 def bool_groups(vqs: List[_BVQuery]) -> List[List[_BVQuery]]:
-    """Kernel rows grouped into launches: one per (buffers, TS, filter,
-    similarity)."""
+    """Kernel rows grouped into launches: one per (buffers, TS, filter and
+    its form, similarity)."""
     groups: dict = {}
     for vq in vqs:
-        gk = (id(vq.al), vq.TS, vq.filtered,
+        gk = (id(vq.al), vq.TS, vq.filtered, vq.probe,
               id(vq.fl) if vq.fl is not None else None, vq.k1, vq.b_eff)
         groups.setdefault(gk, []).append(vq)
     return list(groups.values())
@@ -1848,10 +1882,11 @@ def bool_group_call(gvqs: List[_BVQuery], K: int,
         d_docs, d_tfdl = v0.al.d_docs, v0.al.d_tfdl
     else:
         d_docs = d_tfdl = _dummy_buffer(device)
-    filt = v0.fl.d_docs(device) if v0.filtered else _dummy_buffer(device)
+    filt = (v0.fl.d_bits(device) if v0.probe else v0.fl.d_docs(device)
+            if v0.filtered else _dummy_buffer(device))
     return ([d_docs, d_tfdl, filt, *_bool_launch_inputs(gvqs, device)],
             dict(TS=v0.TS, L=max(v.L for v in gvqs), K=K, k1=v0.k1,
-                 b=v0.b_eff, filtered=v0.filtered))
+                 b=v0.b_eff, filtered=v0.filtered, probe=v0.probe))
 
 
 def _launch_bool(seg, ctx, specs: Sequence[FastSpec], K: int,

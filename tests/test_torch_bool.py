@@ -258,6 +258,57 @@ def test_rest_matches_reference_fastpath(reference_fastpath, bulk):
         assert chip_smoke.strip_took(g) == chip_smoke.strip_took(w), name
 
 
+def test_probe_plans_fewer_rows_than_the_list_form(reference_fastpath,
+                                                   bulk, monkeypatch):
+    """A body that needs a term, over a filter of 99% of the docs, with the
+    per-row budget lowered so that the filter's doc list sets the chunk
+    count: its probe form (the filter's bitmap, term slots only) plans
+    fewer B3 rows than its list form (`_probe_form` forced off), and the
+    route and the response equal the reference's either way. A
+    constant-score body keeps the list form."""
+    monkeypatch.setattr(fastpath, "MAX_TL", 4096)
+    bodies = [
+        ("needs a term", {"query": {"bool": {
+            "must": [{"match": {"body": "w1 w4"}}],
+            "filter": [{"range": {"price": {"gte": 10}}}]}},
+            "size": 20}),
+        ("const score", {"query": {"constant_score": {"filter": {"range": {
+            "price": {"gte": 100}}}}}, "size": 20}),
+    ]
+    plans = []
+    real = fastpath._prepare_bool_vqueries
+
+    def spy(seg, ctx, specs, avgdl_cache, device):
+        out = real(seg, ctx, specs, avgdl_cache, device)
+        plans.extend((vq.probe, vq.T, vq.n) for vq in out)
+        return out
+    monkeypatch.setattr(fastpath, "_prepare_bool_vqueries", spy)
+    rows = {}
+    for form in ("probe", "list"):
+        if form == "list":
+            monkeypatch.setattr(fastpath, "_probe_form", lambda spec: False)
+        ref = fill(RefClient(), bulk)
+        port = fill(RestClient(device="cpu"), bulk)
+        for name, body in bodies:
+            del plans[:]
+            del reference_fastpath[:]
+            before = dict(fastpath.STATS)
+            want = ref.search("t", body)
+            got = port.search("t", body)
+            assert {r: fastpath.STATS[r] - before[r] for r in ROUTES} \
+                == _route_counts(reference_fastpath) \
+                == {**dict.fromkeys(ROUTES, 0), "b3_filter_slot": 2}, name
+            assert chip_smoke.strip_took(got) == chip_smoke.strip_took(want), \
+                (form, name)
+            rows[form, name] = list(plans)
+    probe, listed = rows["probe", "needs a term"], rows["list", "needs a term"]
+    assert [p for p, _t, _n in probe] == [True, True]
+    assert all(T == 2 for _p, T, _n in probe)      # TS = 2, no dead slots
+    assert [p for p, _t, _n in listed] == [False, False]
+    assert sum(n for *_, n in probe) < sum(n for *_, n in listed), rows
+    assert not any(p for p, _t, _n in rows["probe", "const score"])
+
+
 def _assert_close_response(got, want, name):
     gt, wt = got["hits"]["total"], want["hits"]["total"]
     assert wt["relation"] == "eq"

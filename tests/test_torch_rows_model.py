@@ -9,7 +9,9 @@ slot taking its postings up to it; the pairwise merge rounds with ties to
 the lower slot, or, when the tile's docs span less than `span`, the
 table tile (each doc's sums taken slot after slot); the leader (the lowest
 slot holding the doc) summing contributions and count weights in slot
-order in f32; the candidate buffer against the
+order in f32; in B3's probe form, the leader's filter bit read from the
+bitmap (when it can decide the doc) and, where set, the filter's count
+weight and 0.0 added last; the candidate buffer against the
 running K-th entry, merged when it reaches `cand` after a step of
 `threads` elements and at the end; the last block's merge of the S
 partials through the same buffer. It takes the tile budget and the split
@@ -95,12 +97,26 @@ def merge_rounds(lists):
     return lists[0]
 
 
-def walk(slots, cws, msm, K, p, stats):
+def probe_of(bits, cwf, msm):
+    """The probe form's filter at a leader, as the kernel applies it: the
+    bit is read only when it can decide the doc; on a hit the count takes
+    cwf and the score adds 0.0."""
+    def apply(d, acc, cnt):
+        with_f = F32(cnt + cwf)
+        if not (with_f >= msm or cnt >= msm):
+            return acc, cnt
+        if (int(bits[d >> 5]) >> (d & 31)) & 1:
+            return F32(acc + F32(0.0)), with_f
+        return acc, cnt
+    return apply
+
+
+def walk(slots, cws, msm, K, p, stats, probe=None):
     """One block's (row, sub-range): slots[t] = (docs, contributions) of
-    its valid postings. -> (top K entries, count of passing docs). Adds
-    to `stats`: tiles, table tiles, slots exhausted while another slot had
-    postings left, the longest doc run (slots holding one doc), top-K
-    merges."""
+    its valid postings; `probe` the row's probe_of (None: no probe). ->
+    (top K entries, count of passing docs). Adds to `stats`: tiles, table
+    tiles, slots exhausted while another slot had postings left, the
+    longest doc run (slots holding one doc), top-K merges."""
     T = len(slots)
     n = [len(d) for d, _ in slots]
     tot = sum(n)
@@ -149,7 +165,11 @@ def walk(slots, cws, msm, K, p, stats):
             for base in range(0, m, p.threads):
                 for d, t, _ in flat[base:base + p.threads]:
                     lead, acc, cnt, _ = table[d]
-                    if lead == t and cnt >= msm:
+                    if lead != t:
+                        continue
+                    if probe is not None:
+                        acc, cnt = probe(d, acc, cnt)
+                    if cnt >= msm:
                         passed += 1
                         top.offer((float(acc), d))
                 top.step_end()
@@ -168,6 +188,8 @@ def walk(slots, cws, msm, K, p, stats):
                     cnt = F32(cnt + cws[u])
                     k += 1
                 stats["max_run"] = max(stats["max_run"], k - i)
+                if probe is not None:
+                    acc, cnt = probe(d, acc, cnt)
                 if cnt >= msm:
                     passed += 1
                     top.offer((float(acc), d))
@@ -195,10 +217,12 @@ def sub_ranges(docs, S):
     return out
 
 
-def model(kind, bufs, rows, T, L, K, p, TS=0, stats=None):
+def model(kind, bufs, rows, T, L, K, p, TS=0, stats=None, probe=False):
     """The kernel's results for `rows` of contribution `kind` ("tfdl",
-    "impact", "norms", "bool"): (scores f32[QB, 128], ids i32[QB, 128],
-    totals i32[QB, 128]). `stats` collects walk()'s counts."""
+    "impact", "norms", "bool"; with `probe`, B3's probe form: T = TS term
+    slots, cw [QB, TS + 1] and the filter's bitmap bufs["bits"]): (scores
+    f32[QB, 128], ids i32[QB, 128], totals i32[QB, 128]). `stats` collects
+    walk()'s counts."""
     if stats is None:
         stats = {}
     for k in ("tiles", "table_tiles", "exhausted_mid", "max_run", "merges"):
@@ -212,7 +236,7 @@ def model(kind, bufs, rows, T, L, K, p, TS=0, stats=None):
     for q in range(QB):
         wins = []
         for t in range(T):
-            is_f = kind == "bool" and filt is not None and t == TS
+            is_f = kind == "bool" and not probe and t == TS
             src = filt if is_f else docs
             start = int(rowstarts[q, t]) * 128
             sk = int(skips[q, t])
@@ -242,7 +266,9 @@ def model(kind, bufs, rows, T, L, K, p, TS=0, stats=None):
         for rng_t in sub_ranges([d for d, _ in wins], p.split):
             slots = [(d[lo:e], c[lo:e])
                      for (d, c), (lo, e) in zip(wins, rng_t)]
-            parts.append(walk(slots, cws, F32(msm[q, 0]), K, p, stats))
+            parts.append(walk(slots, cws, F32(msm[q, 0]), K, p, stats,
+                              probe_of(bufs["bits"], F32(cw[q, TS]),
+                                       F32(msm[q, 0])) if probe else None))
         if p.split == 1:
             top, total = parts[0]
         else:
@@ -299,8 +325,11 @@ def buffers(seed, ties=False, ndocs=3000):
     filt = np.full(((len(fdocs) + 127) // 128) * 128 + (1 << 12), SENT,
                    np.int32)
     filt[:len(fdocs)] = fdocs
+    mask = np.zeros(ndocs, bool)
+    mask[fdocs] = True
     return {"docs": a_docs, "tfdl": a_packed, "bool": a_packed,
             "impact": a_imp, "norms": a_norms, "filt": filt,
+            "bits": bm25.pack_bits(torch.from_numpy(mask)).numpy(),
             "starts": a_starts, "dfs": [len(x) for x in lists],
             "nfilt": len(fdocs)}
 
@@ -377,7 +406,25 @@ def case_rows(seed, bufs, kind, T, L, QB, TS=0):
     return rowstarts, nrows, lens, skips, weights, msm, avgdl, dlo, dhi, cw
 
 
-def plain(kind, bufs, rows, T, L, K, TS=0):
+def probe_form(rows, TS):
+    """B3's probe form of case_rows' bool rows: the term slots, the count
+    weights [QB, TS + 1] with the filter's last, and thresholds of those
+    weights (required slots and the filter, the family's msm 1 or 2,
+    every 4th row one past the edge)."""
+    rows = list(rows)
+    cw = rows[9]
+    for i in range(4):
+        rows[i] = rows[i][:, :TS].copy()
+    rows[9] = np.concatenate([cw[:, :TS], cw[:, TS:TS + 1]], axis=1)
+    n_req = (cw[:, :TS] == bm25.REQ_W).sum(axis=1)
+    fam = (cw[:, :TS] == 1.0).sum(axis=1)
+    q = np.arange(cw.shape[0])
+    msm = bm25.REQ_W * (n_req + 1) + np.minimum(fam, 1 + q % 2)
+    rows[5] = (msm + (q % 4 == 3)).astype(np.float32)[:, None]
+    return rows
+
+
+def plain(kind, bufs, rows, T, L, K, TS=0, probe=False):
     rowstarts, nrows, lens, skips, weights, msm, avgdl, dlo, dhi, cw = [
         None if a is None else torch.from_numpy(a) for a in rows]
     d = torch.from_numpy(bufs["docs"])
@@ -396,10 +443,11 @@ def plain(kind, bufs, rows, T, L, K, TS=0):
         out = bm25._plain(d, v, rowstarts, nrows, lens, skips, weights, msm,
                           dlo, dhi, T, L, K, lambda p, w, _rows: w * p)
     else:
+        filt = bufs["bits" if probe else "filt"]
         out = bm25.fused_bm25_bool_topk_plain(
-            d, v, torch.from_numpy(bufs["filt"]), rowstarts, nrows, lens,
-            skips, weights, cw, msm, avgdl, dlo, dhi, TS, L, K, 1.2, 0.75,
-            True)
+            d, v, torch.from_numpy(filt), rowstarts, nrows, lens, skips,
+            weights, cw, msm, avgdl, dlo, dhi, TS, L, K, 1.2, 0.75, True,
+            probe)
     return [o.numpy() for o in out]
 
 
@@ -433,6 +481,32 @@ def test_model_equals_plain(kind, B, S):
                                                   "totals")):
                     np.testing.assert_array_equal(
                         g, w, err_msg=f"{name} ties={ties} T={T} K={K}")
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("B", [4, 8, 16])
+def test_model_probe_equals_plain(B, S):
+    """B3's probe form (term slots, the filter's bitmap read at leaders):
+    model == plain bit for bit, scores compared as their bits."""
+    seed = 3000 + 100 * B + S
+    L = 512
+    for ties in (False, True):
+        bufs = buffers(seed, ties=ties)
+        for i, TS in enumerate((1, 2, 8)):
+            p = Params(tile=2 * B * TS, min_b=B, threads=max(B, 4), cand=B,
+                       split=S, span=16 * B)
+            rows = probe_form(case_rows(seed + i, bufs, "bool", 2 * TS, L, 6,
+                                        TS), TS)
+            for K in (1, 128) if i % 2 == 0 else (128, 1):
+                want = plain("bool", bufs, rows, TS, L, K, TS, probe=True)
+                got = model("bool", bufs, rows, TS, L, K, p, TS, probe=True)
+                np.testing.assert_array_equal(
+                    got[0].view(np.int32), want[0].view(np.int32),
+                    err_msg=f"scores ties={ties} TS={TS} K={K}")
+                for g, w, name in zip(got[1:], want[1:], ("ids", "totals")):
+                    np.testing.assert_array_equal(
+                        g, w, err_msg=f"{name} ties={ties} TS={TS} K={K}")
+                assert want[2][:, 0].any()
 
 
 def test_model_reaches_its_edges():
