@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (opensearch_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--ndocs N] [--queries Q] [--bool-queries B]
-                          [--seed S]
+                          [--general-queries G] [--seed S]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -15,11 +15,13 @@ Phases, each of which fails the script when it fails:
      the row machinery (rows of many tiles in every slot, mass ties,
      zero weights, fewer passers than K, launches of 1 and 8 rows that
      split each row over blocks); results must be equal bit for bit;
-  4. slice, small: the same bulk and queries, term groups and bool
-     bodies, through RestClient on the card and on the CPU over codec-v2
-     segments, with a term whose row exceeds L_HEAD; responses must be
-     identical apart from `took`, the verify and candidate-union rungs
-     must each serve a query, and each bool route a body;
+  4. slice, small: the same bulk and queries, term groups, bool bodies
+     and bodies the kernels decline (then a re-indexed _id), through
+     RestClient on the card and on the CPU over codec-v2 segments, with a
+     term whose row exceeds L_HEAD; responses must be identical apart
+     from `took`, the verify and candidate-union rungs must each serve a
+     query, each bool route a body, and the impact rung and the general
+     path a body each;
   5. slice at MS MARCO passage scale: a synthetic corpus of --ndocs
      passages attached as one codec-v2 segment, searched with
      RestClient.msearch twice: the pruned match ladder (the default
@@ -35,11 +37,20 @@ Phases, each of which fails the script when it fails:
      launches of the warm pass and its groups of the first b3 batch held
      against the plain version and timed, sampled bodies on the card held
      against the CPU, default pages against exact pages, and bodies
-     against a numpy brute force.
+     against a numpy brute force;
+  7. the general path and the impact rung over the same segment: bodies
+     the fused kernels decline, --general-queries of each class (match_all
+     from 0 and from 1000, a ~1% price range, a 9-term match with
+     stopword-class terms with default and with exact totals, a 2-term
+     match at from 200, a mixed-field bool, a should holding a nested bool
+     and a range), then re-indexed _ids and phase 5's match bodies over
+     the segments with deletes; every page against a numpy brute force,
+     sampled bodies on the card against the CPU, the rung counts, the
+     ops' times per body and the device arrays' bytes.
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
-call, the wrapper's host work inside). Then a line with the kernels'
-numbers and, last, the device line.
+call, the wrapper's host work inside). Then a line with phase 7's
+numbers, a line with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -938,7 +949,8 @@ def strip_took(resp):
 
 def small_corpus(rng, l_head: int):
     """make_text_corpus grown until "the" (the queried stopword) has more
-    than `l_head` postings in the first segment: (bulk, split, bodies)."""
+    than `l_head` postings in the first segment: (bulk, split, df(the),
+    term-group bodies, bool bodies, general-path bodies)."""
     import re
     ndocs = 8000
     while True:
@@ -966,7 +978,8 @@ def small_corpus(rng, l_head: int):
          "size": 20},
         {"query": {"match": {"body": "the a"}}, "track_total_hits": True},
     ]
-    return bulk, split, df, bodies, bool_slice_bodies(words)
+    return (bulk, split, df, bodies, bool_slice_bodies(words),
+            general_slice_bodies(words))
 
 
 STATUS = ("archived", "draft", "published")
@@ -1023,16 +1036,45 @@ def bool_slice_bodies(words) -> list:
     ]
 
 
+def general_slice_bodies(words) -> list:
+    """Bodies the fused kernels decline, over the small slice: match_all
+    (from 0 and from 1000), a top-level range, a 9-token match (default
+    totals and exact), a window past MAX_K, a mixed-field bool, a should
+    holding a nested bool and a range, exists and ids."""
+    a, b, c = words[1:4]
+    nine = " ".join(["the", "of"] + list(words[4:11]))
+    pub = {"term": {"status": "published"}}
+    return [
+        {"query": {"match_all": {}}},
+        {"query": {"match_all": {}}, "from": 1000, "size": 10},
+        {"query": {"range": {"price": {"gte": 500, "lt": 510}}}},
+        {"query": {"match": {"body": nine}}},
+        {"query": {"match": {"body": nine}}, "track_total_hits": True},
+        {"query": {"match": {"body": f"{a} {b}"}}, "from": 200, "size": 10},
+        {"query": {"bool": {"must": [{"match": {"body": f"{a} {c}"}},
+                                     {"term": {"status": "draft"}}]}}},
+        {"query": {"bool": {"should": [
+            {"bool": {"must": [{"match": {"body": a}}], "filter": [pub]}},
+            {"match": {"body": b}},
+            {"range": {"price": {"gte": 100, "lt": 150}}}]}}},
+        {"query": {"exists": {"field": "price"}}, "size": 5},
+        {"query": {"ids": {"values": ["d3", "d7600", "d42"]}}},
+    ]
+
+
 def run_slice_small(name: str, bulk, split: int, bodies,
-                    bool_bodies) -> tuple:
+                    bool_bodies, general_bodies) -> tuple:
     """Index `bulk` as two segments on a client on `name` and serve
     `bodies` and `bool_bodies` through msearch, single searches and one
-    chunked search: -> (responses without `took`, kernel counts, rung and
-    route counts). Filters of more than 256 docs count as dense here, so
-    a few thousand docs reach every bool route."""
+    chunked search, then `general_bodies` (which the fused kernels
+    decline), then re-index two `_id`s and serve a few bodies over the
+    segments with deletes: -> (responses without `took`, kernel counts,
+    rung and route counts). Filters of more than 256 docs count as dense
+    here, so a few thousand docs reach every bool route."""
     from opensearch_tpu_torch import RestClient
     from opensearch_tpu_torch.ops import bm25
-    from opensearch_tpu_torch.search import fastpath
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, impactpath
 
     c = RestClient(device=name)
     c.indices.create("t", {"mappings": {"properties": {
@@ -1044,6 +1086,8 @@ def run_slice_small(name: str, bulk, split: int, bodies,
     t_bulk = time.perf_counter() - t0
     bm25.reset_counts()
     fastpath.reset_stats()
+    impactpath.reset_stats()
+    C.reset_stats()
     saved_min = fastpath.MATERIALIZE_MIN_DOCS
     fastpath.MATERIALIZE_MIN_DOCS = 256
     t0 = time.perf_counter()
@@ -1063,23 +1107,43 @@ def run_slice_small(name: str, bulk, split: int, bodies,
                                  "size": 50, "track_total_hits": True})
     finally:
         fastpath.MAX_TL = saved
+    general = [c.msearch(sum([[{}, q] for q in general_bodies], []),
+                         index="t"),
+               [c.search("t", q) for q in general_bodies]]
+    # re-indexed ids: both segments get a deleted doc
+    for i in (5, len(bulk) // 2 - 3):
+        c.index("t", {"body": "the of reindexed", "status": "draft",
+                      "price": 7}, id=f"d{i}")
+    c.indices.refresh("t")
+    after = bodies[:4] + general_bodies[:4] + bool_bodies[:2]
+    reindexed = [c.msearch(sum([[{}, q] for q in after], []), index="t"),
+                 [c.search("t", q) for q in after]]
     t_search = time.perf_counter() - t0
-    counts, rungs = dict(bm25.COUNTS), dict(fastpath.STATS)
+    counts = dict(bm25.COUNTS)
+    rungs = {**fastpath.STATS, **{f"impact_{k}": v for k, v in
+                                  impactpath.STATS.items()},
+             **C.STATS}
     log(f"  {name}: bulk+refresh {t_bulk:.2f}s, "
-        f"{len(bodies) + 2 * len(bool_bodies) + 17} searches "
-        f"{t_search:.2f}s, counts {counts}")
+        f"{len(bodies) + 2 * len(bool_bodies) + 17} searches, "
+        f"{3 * len(general_bodies)} general-path bodies, "
+        f"{2 * len(after)} after re-indexing {t_search:.2f}s, "
+        f"counts {counts}")
     log(f"  {name}: rungs {rungs}")
-    return strip_took([ms, singles, chunked]), counts, rungs
+    return (strip_took([ms, singles, chunked, general, reindexed]), counts,
+            rungs)
 
 
 def phase_slice_small(rng) -> dict:
     from opensearch_tpu_torch.search import fastpath
 
-    bulk, split, df, bodies, bool_bodies = small_corpus(rng, fastpath.L_HEAD)
+    bulk, split, df, bodies, bool_bodies, general_bodies = small_corpus(
+        rng, fastpath.L_HEAD)
     log(f"  corpus: {len(bulk) // 2} docs in two segments ({split} + "
         f"{len(bulk) // 2 - split}); df(the) in the first = {df} > "
-        f"L_HEAD = {fastpath.L_HEAD}; {len(bool_bodies)} bool bodies")
-    out = {name: run_slice_small(name, bulk, split, bodies, bool_bodies)
+        f"L_HEAD = {fastpath.L_HEAD}; {len(bool_bodies)} bool bodies, "
+        f"{len(general_bodies)} general-path bodies")
+    out = {name: run_slice_small(name, bulk, split, bodies, bool_bodies,
+                                 general_bodies)
            for name in ("cuda", "cpu")}
     bodies = bodies + bool_bodies
     if out["cuda"][0] != out["cpu"][0]:
@@ -1104,6 +1168,9 @@ def phase_slice_small(rng) -> dict:
     if rungs["pruned_served"] == 0 or rungs["pruned_rescued"] == 0:
         raise AssertionError(f"no query served by verify or by phase 2: "
                              f"{rungs}")
+    if rungs["impact_served"] == 0 or rungs["general_served"] == 0:
+        raise AssertionError(f"the impact rung or the general path served "
+                             f"no body: {rungs}")
     if rungs["pruned_dview"] == 0:
         log(f"  no query reached the quality tier: its segments hold "
             f"fewer than QUALITY_MIN_NDOCS = {fastpath.QUALITY_MIN_NDOCS} "
@@ -1112,8 +1179,13 @@ def phase_slice_small(rng) -> dict:
                    for r in out["cuda"][0][0]["responses"])
     log(f"  responses identical over {len(bodies)} msearch bodies, "
         f"{16 + len(bool_bodies)} searches and 1 chunked search (relations "
-        f"{dict(rels)}); bool routes " + " ".join(
-            f"{r}={rungs[r]}" for r in BOOL_ROUTES))
+        f"{dict(rels)}), the general-path bodies and the bodies after "
+        f"re-indexing; bool routes " + " ".join(
+            f"{r}={rungs[r]}" for r in BOOL_ROUTES) + "; impact rung "
+        f"served={rungs['impact_served']} "
+        f"phase2={rungs['impact_phase2_served']} "
+        f"escalated={rungs['impact_escalated']}, general "
+        f"served={rungs['general_served']}")
     return counts
 
 
@@ -1156,9 +1228,9 @@ def run_batches(client, bodies, warm=(), warm_launches=None) -> tuple:
         lat.append((time.perf_counter() - tb) * 1e3)
     wall = time.perf_counter() - t0
     counts, rungs = dict(bm25.COUNTS), dict(fastpath.STATS)
-    for r in resps:
+    for b, r in zip(bodies, resps):
         hits = r["hits"]["hits"]
-        if r["hits"]["total"]["value"] and not hits:
+        if r["hits"]["total"]["value"] > b.get("from", 0) and not hits:
             raise AssertionError(f"hits missing from a response: {r}")
         sc = [h["_score"] for h in hits]
         if not all(np.isfinite(sc)) or sc != sorted(sc, reverse=True):
@@ -1393,7 +1465,9 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
             "impact_launches": counts["impact_launches"],
             "max_abs_err": worst, "b1": b1, "b2": b2, "client": client,
             "seg": seg, "corpus": corpus, "columns": columns,
-            "a_docs": a_docs}
+            "a_docs": a_docs, "bodies": bodies,
+            "body_terms": [t for i in range(nq // 2)
+                           for t in (list(q2[i][:2]), list(q6[i]))]}
 
 
 # ---------------------------------------------------------------------
@@ -1638,6 +1712,387 @@ def phase_bool_msmarco(big: dict, nq: int) -> dict:
             "max_abs_err": max(b3["max_abs_err"], warm_b3["max_abs_err"])}
 
 
+# ---------------------------------------------------------------------
+# phase 7: the general path and the impact rung at MS MARCO passage scale
+# ---------------------------------------------------------------------
+
+K1, B, OMB = np.float32(1.2), np.float32(0.75), np.float32(1.0 - 0.75)
+OP_BODIES = 16     # bodies of a class timed op by op, and profiled
+
+
+class NumpyIndex:
+    """What phase 7's brute force reads, apart from the port: the corpus
+    CSR (global doc ids 0..n0-1), the docs indexed after it (global ids
+    n0..), the deleted docs and the status / price columns, with the
+    collection statistics BM25 takes from them (deleted docs count, as
+    Lucene's maxDoc and doc freqs do)."""
+
+    def __init__(self, corpus, columns):
+        starts, doc_ids, tfs, dl, df = corpus
+        self.starts, self.doc_ids, self.tfs, self.df0 = starts, doc_ids, tfs, df
+        self.n0 = len(dl)
+        self.dl = dl.astype(np.float32)
+        self.sum_dl = int(dl.sum())
+        self.status, self.price = columns
+        self.live = np.ones(self.n0, bool)
+        self.extra: dict = {}          # term -> ([global docs], [tfs])
+        self.new_ids: list = []
+        self.contrib: dict = {}        # long row -> (docs, BM25 terms)
+
+    @property
+    def n(self) -> int:
+        return len(self.live)
+
+    def avgdl(self) -> np.float32:
+        return np.float32(self.sum_dl / self.n)
+
+    def reindex(self, docs) -> None:
+        """docs: [(old local doc, term ids with repeats, status, price)],
+        indexed after the corpus under the old doc's `_id`."""
+        self.contrib = {}              # the statistics change
+        for old, terms, st, pr in docs:
+            g = self.n
+            self.live[old] = False
+            self.live = np.append(self.live, True)
+            self.dl = np.append(self.dl, np.float32(len(terms)))
+            self.sum_dl += len(terms)
+            self.status = np.append(self.status, np.int32(st))
+            self.price = np.append(self.price, np.int64(pr))
+            for t, tf in Counter(terms).items():
+                e = self.extra.setdefault(int(t), ([], []))
+                e[0].append(g)
+                e[1].append(np.float32(tf))
+            self.new_ids.append(str(old))
+
+    def row(self, t: int):
+        lo, hi = int(self.starts[t]), int(self.starts[t + 1])
+        d, tf = self.doc_ids[lo:hi].astype(np.int64), self.tfs[lo:hi]
+        e = self.extra.get(int(t))
+        if e is not None:
+            d = np.concatenate([d, np.asarray(e[0], np.int64)])
+            tf = np.concatenate([tf, np.asarray(e[1], np.float32)])
+        return d, tf
+
+    def weight(self, df: int) -> np.float32:
+        import math
+        return np.float32(math.log(1.0 + (self.n - df + 0.5) / (df + 0.5))
+                          if df > 0 else 0.0)
+
+    def group(self, terms, msm: int = 1):
+        """BM25 of a `match` (distinct term ids, query order): (scores
+        where at least msm terms match, else 0; that mask)."""
+        score = np.zeros(self.n, np.float32)
+        count = np.zeros(self.n, np.int32)
+        avgdl = self.avgdl()
+        for t in terms:
+            got = self.contrib.get(int(t))
+            if got is None:
+                d, tf = self.row(t)
+                w = self.weight(len(d))
+                k = K1 * (OMB + (B * self.dl[d]) / avgdl)
+                got = (d, (w * tf) / (tf + k))
+                if len(d) >= 1 << 17:  # stopword-class rows recur
+                    self.contrib[int(t)] = got
+            d, c = got
+            score[d] += c
+            count[d] += 1
+        ok = count >= max(msm, 1)
+        return np.where(ok, score, np.float32(0.0)), ok
+
+    def keyword(self, value: int):
+        """A `term` on the status keyword in scoring context: BM25 with no
+        norms (b 0, dl 0, tf 1)."""
+        ok = self.status == value
+        k = K1 * (np.float32(1.0) + (np.float32(0.0) * np.float32(0.0))
+                  / np.float32(1.0))
+        w = self.weight(int(ok.sum()))
+        return np.where(ok, (w * np.float32(1.0)) / (np.float32(1.0) + k),
+                        np.float32(0.0)).astype(np.float32), ok
+
+    def id_of(self, g: int) -> str:
+        return str(g) if g < self.n0 else self.new_ids[g - self.n0]
+
+    def page(self, score, matched, frm: int, size: int) -> tuple:
+        """-> (ids, scores, total) of the live matched docs ranked by
+        (score desc, doc asc), positions frm..frm+size."""
+        docs = np.flatnonzero(matched & self.live)
+        sc = score[docs]
+        need = frm + size
+        if len(docs) > need:
+            thr = np.partition(sc, len(sc) - need)[len(sc) - need]
+            cand = np.concatenate([docs[sc > thr], docs[sc == thr][:need]])
+        else:
+            cand = docs
+        sel = cand[np.lexsort((cand, -score[cand]))][frm:need]
+        return ([self.id_of(int(g)) for g in sel],
+                score[sel].astype(np.float32).tolist(), len(docs))
+
+
+def general_classes(big: dict, n: int) -> dict:
+    """Phase 7's traffic: `n` bodies per class, over pick_queries rows
+    (mid-df terms, phase 6's seed) and 9-term rows sampled by token mass
+    (stopword-class terms in): (name -> [(body, oracle)]), where
+    oracle(ix) computes the page's brute force."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    q = bc.pick_queries(df, n)
+    q9 = bc.pick_queries_real(df, n, nterms=9, seed=9)
+    pub = {"term": {"status": "published"}}
+
+    def text(ts):
+        return " ".join(vs[int(t)] for t in ts)
+
+    def match_all(boost, frm):
+        return lambda ix: ix.page(np.full(ix.n, np.float32(boost)),
+                                  np.ones(ix.n, bool), frm, 10)
+
+    def price(lo, hi):
+        return lambda ix: (ix.price >= lo) & (ix.price < hi)
+
+    def rng_page(lo):
+        return lambda ix: ix.page(np.ones(ix.n, np.float32),
+                                  price(lo, lo + 10)(ix), 0, 10)
+
+    def group_page(ts, frm):
+        return lambda ix: ix.page(*ix.group(ts), frm, 10)
+
+    def mixed(ts, st):
+        def f(ix):
+            s1, ok1 = ix.group(ts)
+            s2, ok2 = ix.keyword(st)
+            return ix.page((np.float32(0.0) + s1) + s2, ok1 & ok2, 0, 10)
+        return f
+
+    def nested(a, b_, lo):
+        def f(ix):
+            sa, oka = ix.group([a])
+            inner = oka & (ix.status == 2) & ix.live
+            s_in = np.where(inner, (np.float32(0.0) + sa) * np.float32(1.0),
+                            np.float32(0.0))
+            sb, okb = ix.group([b_])
+            rm = price(lo, lo + 20)(ix) & ix.live
+            score = ((np.float32(0.0) + s_in) + sb) + rm.astype(np.float32)
+            return ix.page(score, inner | okb | rm, 0, 10)
+        return f
+
+    classes = {
+        "match_all": [({"query": {"match_all": {"boost": 1.0 + i % 4}},
+                        "size": 10}, match_all(1.0 + i % 4, 0))
+                      for i in range(n)],
+        "match_all_from_1000": [
+            ({"query": {"match_all": {"boost": 1.0 + i % 4}}, "from": 1000,
+              "size": 10}, match_all(1.0 + i % 4, 1000)) for i in range(n)],
+        "range_1pct": [({"query": {"range": {"price": {
+            "gte": (97 * i) % 990, "lt": (97 * i) % 990 + 10}}}},
+            rng_page((97 * i) % 990)) for i in range(n)],
+        "match9": [({"query": {"match": {"body": text(q9[i])}}},
+                    group_page(list(q9[i]), 0)) for i in range(n)],
+        "match9_exact": [({"query": {"match": {"body": text(q9[i])}},
+                           "track_total_hits": True},
+                          group_page(list(q9[i]), 0)) for i in range(n)],
+        "match2_from_200": [({"query": {"match": {"body": text(q[i][:2])}},
+                              "from": 200, "size": 10},
+                             group_page(list(q[i][:2]), 200))
+                            for i in range(n)],
+        "mixed_field_bool": [({"query": {"bool": {"must": [
+            {"match": {"body": text(q[i][:2])}},
+            {"term": {"status": bc.STATUS_VALUES[i % 3]}}]}}},
+            mixed(list(q[i][:2]), i % 3)) for i in range(n)],
+        "nested_should_range": [({"query": {"bool": {"should": [
+            {"bool": {"must": [{"match": {"body": vs[int(q[i][0])]}}],
+                      "filter": [pub]}},
+            {"match": {"body": vs[int(q[i][1])]}},
+            {"range": {"price": {"gte": (31 * i) % 980,
+                                 "lt": (31 * i) % 980 + 20}}}]}}},
+            nested(int(q[i][0]), int(q[i][1]), (31 * i) % 980))
+            for i in range(n)],
+    }
+    return classes
+
+
+def check_page(resp: dict, want: tuple, what: str) -> None:
+    """One response against its brute force: ids and order equal (two hits
+    may swap only when their scores agree within 1e-6), scores within
+    1e-6 relative, the total equal where the relation is eq, else a lower
+    bound."""
+    ids, scores, total = want
+    h = resp["hits"]
+    got_ids = [x["_id"] for x in h["hits"]]
+    got_sc = np.asarray([x["_score"] for x in h["hits"]], np.float64)
+    t = h["total"]
+    ok = len(got_ids) == len(ids) and np.allclose(got_sc, scores, rtol=1e-6,
+                                                  atol=0) and (
+        t["value"] == total if t["relation"] == "eq"
+        else t["value"] <= total)
+    for j, (g, w) in enumerate(zip(got_ids, ids)):
+        if ok and g != w:
+            twin = [k for k, x in enumerate(ids) if x == g]
+            ok = bool(twin) and abs(scores[twin[0]] - got_sc[j]) \
+                <= 1e-6 * abs(scores[twin[0]])
+    if not ok:
+        raise AssertionError(f"{what} != numpy brute force: {got_ids} "
+                             f"{got_sc.tolist()} {t} vs {ids} {scores} "
+                             f"{total}")
+
+
+def op_timer():
+    """Wrap the general path's largest ops (the term gather + contribution
+    + scatter, the top-k, the impact program) with CUDA events around
+    their launches: -> (restore(), {op: [(start, end)]})."""
+    import torch
+    from opensearch_tpu_torch.ops import scoring
+    from opensearch_tpu_torch.search import impactpath
+    spans: dict = {}
+    saved = []
+    for mod, name, label in ((scoring, "score_term_group", "term_scatter"),
+                             (scoring, "topk_docs", "topk"),
+                             (impactpath, "impact_program",
+                              "impact_program")):
+        real = getattr(mod, name)
+
+        def timed(*a, _real=real, _label=label, **kw):
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            out = _real(*a, **kw)
+            s1.record()
+            spans.setdefault(_label, []).append((s0, s1))
+            return out
+        setattr(mod, name, timed)
+        saved.append((mod, name, real))
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return restore, spans
+
+
+def run_general_class(client, name: str, items, ix, sample, cpu,
+                      op_ms: dict, memo: dict) -> dict:
+    """One class through msearch in BATCH-body requests (counts and rungs
+    set to 0 just before), every page against the brute force, the
+    sampled bodies on the card against the CPU, OP_BODIES bodies again
+    under the op timer: -> the class's numbers."""
+    import torch
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import impactpath
+    bodies = [b for b, _o in items]
+    impactpath.reset_stats()
+    C.reset_stats()
+    resps, wall, lat, counts, _fp = run_batches(client, bodies)
+    rungs = {**{k: impactpath.STATS[k] for k in
+                ("served", "pruned_served", "phase2_served", "escalated")},
+             "general": C.STATS["general_served"]}
+    t0 = time.perf_counter()
+    for (b, oracle), r in zip(items, resps):
+        # exact-total twins of a body share its brute force
+        key = json.dumps({k: v for k, v in b.items()
+                          if k != "track_total_hits"}, sort_keys=True)
+        if key not in memo:
+            memo[key] = oracle(ix)
+        check_page(r, memo[key], f"{name} body {b}")
+    t_oracle = time.perf_counter() - t0
+    lines = sum([[{}, bodies[i]] for i in sample], [])
+    t0 = time.perf_counter()
+    if strip_took(client.msearch(lines, index="bench")) \
+            != strip_took(cpu.msearch(lines, index="bench")):
+        raise AssertionError(f"{name}: sampled bodies: card and CPU "
+                             f"responses differ")
+    t_cpu = time.perf_counter() - t0
+    nb = min(OP_BODIES, len(bodies))
+    restore, spans = op_timer()
+    try:
+        client.msearch(sum([[{}, b] for b in bodies[:nb]], []),
+                       index="bench")
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    ops_ms = {k: sum(a.elapsed_time(e) for a, e in v) / nb
+              for k, v in spans.items()}
+    op_ms[name] = ops_ms
+    rels = Counter(r["hits"]["total"]["relation"] for r in resps)
+    n = len(bodies)
+    log(f"  {name}: queries={n} batch={BATCH} wall_s={wall:.2f} "
+        f"qps={n / wall:.1f} batch_ms_p50={np.percentile(lat, 50):.1f} "
+        f"batch_ms_p99={np.percentile(lat, 99):.1f} rungs impact_served="
+        f"{rungs['served']} pruned_served={rungs['pruned_served']} "
+        f"phase2={rungs['phase2_served']} escalated={rungs['escalated']} "
+        f"general={rungs['general']} relations={dict(rels)} kernel "
+        f"launches B1={counts['launches']} B2={counts['impact_launches']} "
+        f"B3={counts['bool_launches']}; {n} pages == numpy brute force "
+        f"({t_oracle:.1f}s); {len(sample)} sampled card == CPU "
+        f"({t_cpu:.1f}s); op ms per body " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(ops_ms.items())))
+    return {"qps": n / wall, "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99)), "rungs": rungs,
+            "op_ms": ops_ms}
+
+
+def phase_general_msmarco(big: dict, n: int) -> dict:
+    """The general path and the impact rung over phase 5's segment: `n`
+    bodies per class that the fused kernels decline, then `n` re-indexed
+    `_id`s and `n` of phase 5's match bodies over the segments with
+    deletes."""
+    from opensearch_tpu_torch import RestClient
+    from opensearch_tpu_torch import bench_corpus as bc
+    client, seg = big["client"], big["seg"]
+    dev = client.device
+    ix = NumpyIndex(big["corpus"], big["columns"])
+    cpu = cpu_twin(seg)
+    classes = general_classes(big, n)
+    srng = np.random.default_rng(13)
+    out: dict = {}
+    op_ms: dict = {}
+    memo: dict = {}
+    idle = {}
+    for name, items in classes.items():
+        sample = sorted(srng.choice(len(items), 2, replace=False).tolist())
+        out[name] = run_general_class(client, name, items, ix, sample, cpu,
+                                      op_ms, memo)
+        if name in ("match9", "mixed_field_bool"):
+            idle[name] = profile_batch(client,
+                                       [b for b, _o in items[:OP_BODIES]])
+    # re-index n existing _ids: the big segment gets n deleted docs, a new
+    # segment takes their new versions
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    olds = sorted(srng.choice(seg.ndocs, n, replace=False).tolist())
+    terms = big["body_terms"][:n]
+    docs = [(old, list(terms[j]) + [terms[j][0]], j % 3, j)
+            for j, old in enumerate(olds)]
+    t0 = time.perf_counter()
+    for old, ts, st, pr in docs:
+        r = client.index("bench", {
+            "body": " ".join(vs[int(t)] for t in ts),
+            "status": bc.STATUS_VALUES[st], "price": pr}, id=str(old))
+        if r["result"] != "updated":
+            raise AssertionError(f"re-index of _id {old}: {r}")
+    client.indices.refresh("bench")
+    t_reindex = time.perf_counter() - t0
+    ix.reindex(docs)
+    segs = client._indices["bench"].engine.segments
+    if len(segs) != 2 or segs[0].live_count != seg.ndocs - n:
+        raise AssertionError("re-indexing did not leave n deleted docs")
+    cpu2 = RestClient(device="cpu")
+    cpu2.indices.create("bench", {"mappings": {"properties": {
+        "body": {"type": "text"}, "status": {"type": "keyword"},
+        "price": {"type": "integer"}}}})
+    cpu2._indices["bench"].engine.segments = list(segs)
+    items = [(big["bodies"][j], (lambda ts: lambda ix_: ix_.page(
+        *ix_.group(ts), 0, 10))(list(terms[j]))) for j in range(n)]
+    sample = sorted(srng.choice(n, 2, replace=False).tolist())
+    log(f"  re-indexed {n} _ids in {t_reindex:.2f}s: segments "
+        f"{[(s.ndocs, s.live_count) for s in segs]}")
+    out["reindexed_match"] = run_general_class(
+        client, "reindexed_match", items, ix, sample, cpu2, op_ms, {})
+    nbytes = {s.name: s.device_nbytes(dev) for s in segs}
+    log(f"  general path device arrays (live masks, numeric columns, doc "
+        f"lengths, CSR copies; the postings are the aligned layout's): "
+        f"{nbytes} bytes")
+    return {"classes": out, "device_bytes": nbytes,
+            "idle_share_one_batch": idle}
+
+
 def log_bool_run(what: str, n: int, wall: float, lat, counts, rungs,
                  resps) -> None:
     from opensearch_tpu_torch.search import fastpath
@@ -1657,7 +2112,7 @@ def log_bool_run(what: str, n: int, wall: float, lat, counts, rungs,
         f"{k}={rungs[k]}" for k in RUNGS if k != "shard_view_served"))
 
 
-def profile_batch(client, bodies) -> None:
+def profile_batch(client, bodies) -> float:
     """Where one msearch batch's time goes: device time by kernel and the
     device idle share, then the host functions that hold the time, from
     cProfile on a second run of the same batch. torch.profiler times the
@@ -1667,6 +2122,7 @@ def profile_batch(client, bodies) -> None:
     import cProfile
     import pstats
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from opensearch_tpu_torch.ops import _build, bm25
 
@@ -1702,6 +2158,10 @@ def profile_batch(client, bodies) -> None:
     for e in prof.key_averages():
         if bm25.KERNEL_NAME in e.key:
             continue                  # counted from the CUDA events below
+        if e.device_type == DeviceType.CPU:
+            # a host op's device time is its kernels', which are entries
+            # of their own
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -1711,10 +2171,10 @@ def profile_batch(client, bodies) -> None:
         key = f"{name} kernel (CUDA events)"
         dev[key] = dev.get(key, 0.0) + a.elapsed_time(b)
     busy = sum(dev.values())
+    idle = 1 - busy / wall_ms
     log(f"  profile of one batch ({len(bodies)} bodies): wall_ms="
         f"{wall_ms:.1f} device_busy_ms={busy:.2f} device_idle_share="
-        f"{1 - busy / wall_ms:.4f} (hand-written kernel launches: "
-        f"{len(spans)})")
+        f"{idle:.4f} (hand-written kernel launches: {len(spans)})")
     for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:4]:
         log(f"    device {v:9.3f} ms  {k[:90]}")
     pr = cProfile.Profile()
@@ -1727,6 +2187,7 @@ def profile_batch(client, bodies) -> None:
     for cum, tot, (fn, line, name) in rows[:8]:
         log(f"    host cum {cum * 1e3:9.1f} ms self {tot * 1e3:8.1f} ms  "
             f"{fn.split('opensearch_tpu_torch/')[-1]}:{line} {name}")
+    return idle
 
 
 def times(g: dict) -> dict:
@@ -1747,9 +2208,11 @@ def main() -> int:
     # phase 5 ran 2,048 queries before phase 6 shared the time limit
     ap.add_argument("--queries", type=int, default=1024)
     ap.add_argument("--bool-queries", type=int, default=1024)
+    ap.add_argument("--general-queries", type=int, default=64,
+                    help="phase-7 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3, 4 or 5); no result line")
+                    help="end after this phase (3 to 6); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1828,6 +2291,12 @@ def main() -> int:
 
     log(f"[6] bool traffic at MS MARCO passage scale (ndocs={args.ndocs})")
     bools = phase_bool_msmarco(big, args.bool_queries)
+    if args.stop_after == 6:
+        return 0
+
+    log(f"[7] the general path and the impact rung at MS MARCO passage "
+        f"scale (ndocs={args.ndocs})")
+    general = phase_general_msmarco(big, args.general_queries)
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -1871,6 +2340,7 @@ def main() -> int:
         "library_ms": None, "parity": "exact",
         "note": "no caller in the package; times from the phase-3 grid"}]
     log(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"general_path": general}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

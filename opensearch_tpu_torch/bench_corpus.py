@@ -63,6 +63,11 @@ class LazyIds:
     def __getitem__(self, i):
         return str(i)
 
+    def find(self, doc_id: str) -> int:
+        """Local doc of an id string, or -1."""
+        ok = doc_id.isdigit() and str(int(doc_id)) == doc_id
+        return int(doc_id) if ok and int(doc_id) < self.n else -1
+
 
 class LazySources:
     def __init__(self, n):

@@ -78,6 +78,7 @@ def segment_from_arrays(name: str, ndocs: int,
                   else {})
     if live is not None:
         seg.live = np.asarray(live, bool).copy()
+        seg.live_gen += 1
     if impacts is not None:
         for field, fields in impacts.items():
             blocks[field].impact = ImpactPlane(

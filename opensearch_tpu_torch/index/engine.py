@@ -72,7 +72,8 @@ class Engine:
                   if_primary_term: Optional[int] = None,
                   op_type: str = "index") -> dict:
         self._check_concurrency(doc_id, if_seq_no, if_primary_term)
-        existed = doc_id in self.version_map
+        existed = (doc_id in self.version_map
+                   or bool(self._attached_copies(doc_id)))
         if op_type == "create" and existed:
             raise VersionConflictError(f"[{doc_id}]: document already exists")
         parsed = self.mappings.parse(doc_id, source, routing)
@@ -86,17 +87,30 @@ class Engine:
                 "_primary_term": self.primary_term,
                 "result": "updated" if existed else "created"}
 
+    def _attached_copies(self, doc_id: str) -> list:
+        """(segment, local doc) of each live copy of `doc_id` that no
+        version map entry knows: segments attached from arrays."""
+        out = []
+        for seg in self.segments:
+            d = seg.local_doc(doc_id)
+            if d >= 0 and seg.live[d]:
+                out.append((seg, d))
+        return out
+
     def _delete_previous(self, doc_id: str) -> None:
         loc = self.version_map.get(doc_id)
         if loc is None:
+            for seg, d in self._attached_copies(doc_id):
+                seg.delete_doc(d)
             return
         if loc.in_buffer:
             idx = self._buffer_ids.pop(doc_id, None)
             if idx is not None:
                 self.buffer[idx] = None    # compacted away at refresh
         else:
-            # the refreshed copy becomes a deleted doc of its segment; a
-            # search over a segment with deletes raises NotPortedError
+            # the refreshed copy becomes a deleted doc of its segment: the
+            # kernels decline that segment, and the impact rung and the
+            # general path serve it with its live mask
             loc.segment.delete_doc(loc.local_doc)
 
     def _check_no_merge(self) -> None:

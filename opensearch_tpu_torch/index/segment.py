@@ -7,9 +7,12 @@ sorted-vocab order, docs ascending within a row. `doc_lens` holds each text
 field's per-doc token count and `text_stats` its (doc_count, sum_dl), the
 collection statistics BM25 reads. `numeric_cols` holds each integer/long
 field's doc values (the first value of each doc, exact i64, and a
-`present` mask), which range filters read. Everything here is host numpy: the
+`present` mask), which range filters read. The host arrays are numpy. The
 search layer builds the device-resident aligned layout it needs
-(`search/fastpath.py`).
+(`search/fastpath.py`); the general query path reads, per device and
+cached on the segment, the live mask, doc lengths, numeric columns and,
+for a field the aligned layout cannot pack, a CSR copy of its postings
+(`live_on`, `doc_lens_on`, `numeric_on`, `csr_on`).
 
 Codec v2 (the default for new segments, as in the reference) adds a
 per-field impact plane: the BM25 tf-saturation tf/(tf + k1(1-b+b dl/avgdl))
@@ -23,12 +26,14 @@ ported.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..errors import NotPortedError
 from .mappings import Mappings
@@ -233,7 +238,7 @@ class NumericColumn:
     values: np.ndarray        # i64[ndocs]
     present: np.ndarray       # bool[ndocs]
 
-    @property
+    @functools.cached_property
     def min_max(self) -> Tuple[float, float]:
         if not self.present.any():
             return (0.0, 0.0)
@@ -272,6 +277,7 @@ class Segment:
         self.seq_nos = (seq_nos if seq_nos is not None
                         else np.zeros(ndocs, dtype=np.int64))
         self.live = np.ones(ndocs, dtype=bool)
+        self.live_gen = 0         # bumped by every delete
         self.id2doc: Dict[str, int] = {d: i for i, d in enumerate(ids)}
         # segment codec (CODEC_V1 | CODEC_V2): consumers branching on the
         # posting layout consult this attribute
@@ -280,6 +286,8 @@ class Segment:
         # quality tiers and filtered views, built by search/fastpath.py,
         # and filter masks, built by search/filters.py
         self.aligned: dict = {}
+        # the general path's device arrays (see `device_cached`)
+        self.device_arrays: dict = {}
 
     # ---------------- codec v2: impact planes ----------------
 
@@ -304,6 +312,7 @@ class Segment:
                                            device=device)
         self.codec_version = CODEC_V2
         self.aligned = {}
+        self.device_arrays = {}
 
     def drop_impacts(self) -> None:
         """Demote to codec v1: planes dropped, the search layer's device
@@ -312,13 +321,99 @@ class Segment:
             pb.impact = None
         self.codec_version = CODEC_V1
         self.aligned = {}
+        self.device_arrays = {}
 
     def delete_doc(self, local_doc: int) -> None:
         self.live[local_doc] = False
+        self.live_gen += 1
 
     @property
     def live_count(self) -> int:
-        return int(self.live.sum())
+        """Live docs, counted once per `live_gen` (every search asks)."""
+        got = self.__dict__.get("_live_count")
+        if got is None or got[0] != self.live_gen:
+            got = (self.live_gen, int(self.live.sum()))
+            self.__dict__["_live_count"] = got
+        return got[1]
+
+    @property
+    def ndocs_pad(self) -> int:
+        """The reference's pow2 doc-axis padding; the port's arrays are
+        unpadded, but window sizes are computed from it as there."""
+        return next_pow2(self.ndocs)
+
+    def local_doc(self, doc_id: str) -> int:
+        """Local doc of an `_id`, or -1. A lazy id view answers through
+        its own `find`."""
+        d = self.id2doc.get(doc_id)
+        if d is None:
+            find = getattr(self.ids, "find", None)
+            d = find(doc_id) if find is not None else -1
+        return int(d)
+
+    # ---------------- the general path's device arrays ----------------
+
+    def device_cached(self, key: tuple, device, make):
+        """The device array(s) `make()` builds, cached per (key,
+        device)."""
+        k = key + (str(device),)
+        got = self.device_arrays.get(k)
+        if got is None:
+            got = make()
+            self.device_arrays[k] = got
+        return got
+
+    def live_on(self, device):
+        """bool[ndocs] live mask on `device`, rebuilt after a delete."""
+        for k in [k for k in self.device_arrays
+                  if k[0] == "live" and k[1] != self.live_gen]:
+            del self.device_arrays[k]
+        return self.device_cached(
+            ("live", self.live_gen), device,
+            lambda: torch.from_numpy(self.live).to(device))
+
+    def doc_lens_on(self, field: str, device):
+        """f32[ndocs] doc lengths of `field` (zeros without norms)."""
+
+        def make():
+            dl = self.doc_lens.get(field)
+            host = (np.zeros(self.ndocs, np.float32) if dl is None
+                    else dl.astype(np.float32))
+            return torch.from_numpy(host).to(device)
+        return self.device_cached(("dl", field), device, make)
+
+    def numeric_on(self, field: str, device):
+        """(values i64[ndocs], present bool[ndocs]) of a numeric column,
+        or None when the segment has no such column."""
+        col = self.numeric_cols.get(field)
+        if col is None:
+            return None
+        return self.device_cached(("numeric", field), device, lambda: (
+            torch.from_numpy(col.values).to(device),
+            torch.from_numpy(col.present).to(device)))
+
+    def csr_on(self, field: str, device):
+        """(doc ids i32[P], tfs f32[P], impacts i32[P] or None) of a
+        field's CSR postings: the general path's copy of a field that the
+        aligned layout cannot pack."""
+        pb = self.postings[field]
+
+        def make():
+            imp = (None if pb.impact is None else
+                   torch.from_numpy(pb.impact.q.astype(np.int32)).to(device))
+            return (torch.from_numpy(pb.doc_ids).to(device),
+                    torch.from_numpy(pb.tfs).to(device), imp)
+        return self.device_cached(("csr", field), device, make)
+
+    def device_nbytes(self, device) -> int:
+        """Bytes of the general path's device arrays on `device`."""
+        n = 0
+        for k, v in self.device_arrays.items():
+            if k[-1] == str(device):
+                for t in (v if isinstance(v, tuple) else (v,)):
+                    if isinstance(t, torch.Tensor):
+                        n += t.numel() * t.element_size()
+        return n
 
 
 def pack_postings(parsed_docs: list) -> Dict[str, PostingsBlock]:

@@ -1,16 +1,26 @@
-"""Rewrite: DSL tree -> logical plan with index-wide statistics (the
-ShardContext, the rewrite and `can_match` of opensearch_tpu/search/
-compiler.py for the node kinds the port serves).
+"""Rewrite: DSL tree -> logical plan with index-wide statistics, and the
+general query path that serves any plan over one segment (the
+ShardContext, the rewrite, `can_match` and the prepare / emit / executor
+programs of opensearch_tpu/search/compiler.py for the node kinds the port
+serves).
 
 A term, terms or match query on a text or keyword field becomes one
 weighted term group (`LTerms`) with the reference's per-term weights (idf
 x boost, f32) and minimum should match; on an integer/long field it
 becomes an exact `LRange` (terms: a bool of them). A match whose terms
-analyze away, or a range on an unmapped field, becomes `LMatchNone`.
+analyze away, a range on an unmapped field, or `match_none` becomes
+`LMatchNone`; `match_all` `LMatchAll`, `exists` `LExists`, `ids` `LIds`.
 `bool` becomes `LBool` and `constant_score` `LConstScore`, their filter
 and must_not clauses rewritten in filter context (`scoring=False`: a
 term there is a non-scoring match), as in the reference. Any other query
 or field kind raises `NotPortedError`.
+
+The general path (`emit`, `run_segment`) evaluates a plan as torch ops on
+the engine's device: every node becomes dense per-doc (scores, match
+count) arrays (`ops/scoring.ScoredMask`), filter and must_not clauses
+come from the cached masks of `search/filters.py`, and a masked top-k
+closes it. It serves every shape the fused kernels and the impact rung
+decline.
 """
 
 from __future__ import annotations
@@ -19,11 +29,14 @@ from dataclasses import dataclass, field as dc_field
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..errors import NotPortedError
 from ..index.mappings import INT_TYPES, KEYWORD_TYPES, Mappings, coerce_value
 from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
+from ..ops import scoring as ops
+from ..ops.bm25 import LANES
 from . import query_dsl as dsl
 
 
@@ -83,8 +96,25 @@ class LTerms(LNode):
 
 
 @dataclass
+class LMatchAll(LNode):
+    boost: float = 1.0
+
+
+@dataclass
 class LMatchNone(LNode):
     pass
+
+
+@dataclass
+class LExists(LNode):
+    field: str = ""
+    boost: float = 1.0
+
+
+@dataclass
+class LIds(LNode):
+    ids: List[str] = dc_field(default_factory=list)
+    boost: float = 1.0
 
 
 @dataclass
@@ -124,6 +154,11 @@ def _numeric_eq_node(ft, value: Any, boost: float) -> LRange:
 
 
 def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
+    if isinstance(q, dsl.MatchAllQuery):
+        return LMatchAll(boost=q.boost)
+    if isinstance(q, dsl.MatchNoneQuery):
+        return LMatchNone()
+
     if isinstance(q, dsl.TermQuery):
         ft = ctx.mappings.resolve_field(q.field)
         if ft is not None and ft.type in INT_TYPES:
@@ -199,6 +234,13 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
         return LRange(field=ft.name, kind="int", lo=lo, hi=hi,
                       include_lo=inc_lo, include_hi=inc_hi, boost=q.boost)
 
+    if isinstance(q, dsl.ExistsQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        return LExists(field=ft.name if ft else q.field, boost=q.boost)
+
+    if isinstance(q, dsl.IdsQuery):
+        return LIds(ids=list(q.values), boost=q.boost)
+
     if isinstance(q, dsl.ConstantScoreQuery):
         return LConstScore(child=rewrite(q.filter, ctx, False), boost=q.boost)
 
@@ -236,6 +278,12 @@ def can_match(node: LNode, seg: Segment) -> bool:
         return can_match(node.child, seg)
     if isinstance(node, LMatchNone):
         return False
+    if isinstance(node, LExists):
+        f = node.field
+        return (f in seg.postings or f in seg.numeric_cols
+                or f in seg.doc_lens)
+    if isinstance(node, LIds):
+        return any(seg.local_doc(i) >= 0 for i in node.ids)
     return True
 
 
@@ -290,3 +338,150 @@ def rescore_cand_bucket(n: int) -> Optional[int]:
     if n <= 0 or n > RESCORE_C_MAX:
         return None
     return min(max(next_pow2(n), RESCORE_C_MIN), RESCORE_C_MAX)
+
+
+# ---------------------------------------------------------------------
+# the general path: one plan over one segment, as torch ops
+# ---------------------------------------------------------------------
+
+STATS = {"general_served": 0}
+
+
+def reset_stats() -> None:
+    for k in STATS:
+        STATS[k] = 0
+
+
+def field_postings(seg: Segment, field: str,
+                   device: torch.device) -> Optional[ops.FieldPostings]:
+    """The postings of `field` over `seg` on `device`, cached: windows
+    into the fastpath's resident aligned layout (no bytes added), or a CSR
+    copy where that layout cannot pack the field. None without
+    postings."""
+    pb = seg.postings.get(field)
+    if pb is None or pb.size == 0:
+        return None
+    from . import fastpath      # fastpath imports this module
+
+    def make():
+        csr_off = pb.starts[:-1].astype(np.int64)
+        if fastpath.packable(seg, field):
+            al = fastpath.get_aligned(seg, field, device)
+            return ops.FieldPostings(al.starts_rows * LANES, al.lens,
+                                     csr_off, al.d_docs, d_tfdl=al.d_tfdl,
+                                     d_imp=al.d_imp)
+        docs, tfs, imp = seg.csr_on(field, device)
+        return ops.FieldPostings(csr_off, np.diff(pb.starts), csr_off, docs,
+                                 d_tfs=tfs,
+                                 d_dl=seg.doc_lens_on(field, device),
+                                 d_imp=imp)
+    return seg.device_cached(("postings", field), device, make)
+
+
+def _term_rows(node: LTerms, seg: Segment) -> list:
+    """The group's term-dict rows over `seg`, pow2-padded with -1."""
+    pb = seg.postings.get(node.field)
+    rows = [-1] * next_pow2(len(node.terms), floor=1)
+    for i, t in enumerate(node.terms):
+        rows[i] = pb.row(t)
+    return rows
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def _flag(mask: torch.Tensor, boost: float) -> ops.ScoredMask:
+    """A non-scoring match as a node: scores `boost` where it matches."""
+    m = mask.to(torch.float32)
+    return ops.ScoredMask(m * _f32(boost), m)
+
+
+def emit(node: LNode, seg: Segment, ctx: ShardContext,
+         device: torch.device) -> ops.ScoredMask:
+    """Dense (scores, match count) of `node` over `seg`: the reference's
+    `prepare` (host parameters) and `emit` (device program) in one pass,
+    node by node, with the reference's arithmetic and order."""
+    from . import filters       # filters imports this module
+
+    nd = seg.ndocs
+    live = seg.live_on(device)
+    zeros = torch.zeros(nd, dtype=torch.float32, device=device)
+    if isinstance(node, LTerms):
+        post = field_postings(seg, node.field, device)
+        if post is None:
+            return ops.ScoredMask(zeros, zeros)
+        rows = _term_rows(node, seg)
+        if node.mode == "filter":
+            return _flag(ops.term_match_mask(post, live, rows, nd),
+                         node.boost)
+        w = np.zeros(len(rows), np.float32)
+        w[:len(node.terms)] = node.weights
+        b_eff = node.sim.b if node.has_norms else 0.0
+        sm = ops.score_term_group(post, rows, w, live, nd,
+                                  float(node.sim.k1), float(b_eff),
+                                  ctx.avgdl(node.field))
+        ok = sm.count >= _f32(node.msm)
+        return ops.ScoredMask(torch.where(ok, sm.scores, zeros),
+                              torch.where(ok, sm.count, zeros))
+    if isinstance(node, LMatchAll):
+        return _flag(live, node.boost)
+    if isinstance(node, LMatchNone):
+        return ops.ScoredMask(zeros, zeros)
+    if isinstance(node, LRange):
+        col = seg.numeric_on(node.field, device)
+        if col is None:
+            return ops.ScoredMask(zeros, zeros)
+        lo = filters.I64_MIN if node.lo is None else int(node.lo)
+        hi = filters.I64_MAX if node.hi is None else int(node.hi)
+        return _flag(ops.int64_range_mask(*col, lo, hi, node.include_lo,
+                                          node.include_hi) & live,
+                     node.boost)
+    if isinstance(node, LExists):
+        return _flag(ops.exists_mask(filters.present_mask(
+            node.field, seg, device), live), node.boost)
+    if isinstance(node, LIds):
+        docs = [d for d in (seg.local_doc(i) for i in node.ids) if d >= 0]
+        return _flag(ops.docs_mask(docs, nd, device) & live, node.boost)
+    if isinstance(node, LBool):
+        m_sms = [emit(c, seg, ctx, device) for c in node.musts]
+        s_sms = [emit(c, seg, ctx, device) for c in node.shoulds]
+        scores = zeros
+        for sm in m_sms + s_sms:
+            scores = scores + sm.scores
+        matched = live
+        for sm in m_sms:
+            matched = matched & sm.matched
+        for c in node.filters:
+            matched = matched & filters.filter_mask(c, seg, ctx, device)
+        for c in node.must_nots:
+            matched = matched & ~filters.filter_mask(c, seg, ctx, device)
+        if s_sms:
+            s_count = zeros
+            for sm in s_sms:
+                s_count = s_count + sm.matched.to(torch.float32)
+            matched = matched & (s_count >= _f32(node.msm))
+        scores = torch.where(matched, scores * _f32(node.boost), zeros)
+        return ops.ScoredMask(scores, matched.to(torch.float32))
+    if isinstance(node, LConstScore):
+        return _flag(filters.filter_mask(node.child, seg, ctx, device)
+                     & live, node.boost)
+    raise NotPortedError(f"plan [{type(node).__name__}] on the general path")
+
+
+def run_segment(lroot: LNode, seg: Segment, ctx: ShardContext, k_pad: int,
+                device: torch.device) -> dict:
+    """The executor body: `lroot` over `seg`, its masked top `k_pad` (score
+    desc, doc asc), the total and the max score, fetched in one copy."""
+    sm = emit(lroot, seg, ctx, device)
+    live = seg.live_on(device)
+    vals, idx = ops.topk_docs(sm.scores, sm.matched, live, k_pad)
+    total = ops.total_hits(sm.matched, live)
+    host = torch.cat([vals.double(), idx.double(),
+                      total.double().reshape(1)]).cpu().numpy()
+    k = len(idx)
+    sc = host[:k].astype(np.float32)
+    STATS["general_served"] += 1
+    return {"topk_idx": host[k:2 * k].astype(np.int64), "topk_scores": sc,
+            "total": int(host[-1]), "total_rel": "eq",
+            "max_score": float(sc[0]) if k else float("-inf")}

@@ -1,13 +1,19 @@
 """Per-shard search execution and the coordinator reduce (the query-phase,
 fetch and batched-msearch subset of opensearch_tpu/search/executor.py).
 
-Query-then-fetch: the query phase runs the fused kernels per segment (or,
-for a single term-group search over a shard of several segments, once over
-the concatenated shard view) and returns light candidate descriptors; the
-coordinator merges them, and the fetch phase materializes `_id`, `_score`
-and `_source` for the winners. A single search skips the segments that
-`can_match` rules out. A pruned segment result that certified its page
-but counted a lower bound marks the shard total "gte".
+Query-then-fetch: the query phase serves each segment through three
+rungs in the reference's order: the fused kernels (`search/fastpath.py`;
+for a single term-group search over a shard of several segments, once
+over the concatenated shard view), then, for a pure term group they
+decline, the codec-v2 impact rung (`search/impactpath.py`), then the
+general program (`compiler.run_segment`), which serves any plan. It
+returns light candidate descriptors; the coordinator merges them, and the
+fetch phase materializes `_id`, `_score` and `_source` for the winners.
+A single search skips the segments that `can_match` rules out. A pruned
+segment result that certified its page but counted a lower bound marks
+the shard total "gte". A batched msearch runs the bodies the kernels
+serve on every segment as one launch per shape group; the others run as
+single searches.
 """
 
 from __future__ import annotations
@@ -20,9 +26,9 @@ import torch
 
 from ..errors import NotPortedError
 from ..index.engine import Engine
-from ..index.segment import Segment
+from ..index.segment import Segment, next_pow2
 from . import compiler as C
-from . import fastpath
+from . import fastpath, impactpath
 from . import query_dsl as dsl
 
 # body keys this slice serves; any other key raises NotPortedError
@@ -38,6 +44,18 @@ class Candidate:
     local_doc: int
     score: float
     sort_values: Tuple
+
+
+@dataclass
+class Plan:
+    """One body's plan over a shard: the rewritten root, the specs of the
+    rungs that may serve it (None where a rung declines the body), and
+    the window (from + size)."""
+
+    lroot: C.LNode
+    fast: Optional[fastpath.FastSpec]
+    impact: Optional[impactpath.ImpactSpec]
+    window: int
 
 
 @dataclass
@@ -84,42 +102,57 @@ class ShardSearcher:
         return C.ShardContext(self.engine.mappings, self.engine.segments,
                               self.similarity)
 
-    def plan(self, body: dict, ctx: C.ShardContext
-             ) -> Optional[Tuple[C.LNode, fastpath.FastSpec]]:
-        """-> (plan, FastSpec) of a body, or None for a plan with no
-        hits."""
+    def plan(self, body: dict, ctx: C.ShardContext) -> Optional[Plan]:
+        """-> the Plan of a body, or None for a plan with no hits."""
         window = check_body(body)
         lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
         if isinstance(lroot, C.LMatchNone):
             return None
-        return lroot, fastpath.make_spec(lroot, window, body)
+        return Plan(lroot, fastpath.make_spec(lroot, window, body),
+                    impactpath.make_spec(lroot, window, body), window)
 
     def query_phase(self, body: dict) -> ShardQueryResult:
         segments = list(self.engine.segments)
         ctx = C.ShardContext(self.engine.mappings, segments, self.similarity)
-        planned = self.plan(body, ctx)
+        plan = self.plan(body, ctx)
         result = ShardQueryResult(shard=self.shard_id, segments=segments)
-        if planned is None:
+        if plan is None:
             return result
-        lroot, spec = planned
-        if len(segments) > 1:
+        if plan.fast is not None and len(segments) > 1:
             # a many-segment shard runs a term group as ONE frontier launch
             # over the concatenated shard view
-            sv = fastpath.shard_search(self.engine, ctx, spec, spec.window,
-                                       self.device)
+            sv = fastpath.shard_search(self.engine, ctx, plan.fast,
+                                       plan.window, self.device)
             if sv is not None:
                 view, out = sv
                 self.collect_view_topk(result, view, out)
-                finish_candidates(result, spec.window)
+                finish_candidates(result, plan.window)
                 return result
         for seg_ord, seg in enumerate(segments):
-            if seg.live_count == 0 or not C.can_match(lroot, seg):
+            if seg.live_count == 0 or not C.can_match(plan.lroot, seg):
                 continue
-            out = fastpath.batch_search(seg, ctx, [spec], spec.window,
-                                        self.device)[0]
-            self.collect_topk(result, out, seg, seg_ord)
-        finish_candidates(result, spec.window)
+            self.collect_topk(result, self.segment_query(plan, ctx, seg),
+                              seg, seg_ord)
+        finish_candidates(result, plan.window)
         return result
+
+    def segment_query(self, plan: Plan, ctx: C.ShardContext,
+                      seg: Segment) -> dict:
+        """One segment's top-k: the fused kernels, else the impact rung,
+        else the general program."""
+        if plan.fast is not None:
+            outs = fastpath.batch_search(seg, ctx, [plan.fast], plan.window,
+                                         self.device)
+            if outs is not None and outs[0] is not None:
+                return outs[0]
+        if plan.impact is not None:
+            out = impactpath.segment_search(seg, ctx, plan.impact,
+                                            plan.window, self.device)
+            if out is not None:
+                return out
+        # the reference's window (oversample 1: score order only)
+        k_pad = min(next_pow2(max(plan.window, 16)), seg.ndocs_pad)
+        return C.run_segment(plan.lroot, seg, ctx, k_pad, self.device)
 
     def collect_view_topk(self, result: ShardQueryResult, view,
                           out: dict) -> None:
@@ -238,46 +271,76 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
 
 def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
                     index_name: str = "") -> List[dict]:
-    """Batched msearch: every body's query, term group or bool, over each
-    segment runs in ONE kernel launch per shape group (grid over queries);
-    all segments' launches are enqueued before the first fetch. A body
-    that fails to parse gets an error entry; any other failure raises."""
+    """Batched msearch: the bodies the fused kernels serve, term group or
+    bool, run over each segment in ONE kernel launch per shape group (grid
+    over queries), all segments' launches enqueued before the first fetch.
+    A body the kernels decline on any segment (at planning, or where a
+    segment has deleted docs, or in the fetched results) runs as a single
+    search instead, through every rung, as the reference's caller does. A
+    body that fails to parse gets an error entry; any other failure
+    raises."""
     t0 = time.monotonic()
     nb = len(bodies)
     responses: List[Optional[dict]] = [None] * nb
     results = [[ShardQueryResult(shard=s.shard_id,
                                  segments=list(s.engine.segments))
                 for s in searchers] for _ in range(nb)]
+    ok = [True] * nb
+    specs: dict = {}
     launches = []
     for si, s in enumerate(searchers):
         ctx = s.context()
-        specs = {}
         for bi, body in enumerate(bodies):
-            if responses[bi] is not None:
+            if responses[bi] is not None or not ok[bi]:
                 continue
             try:
-                planned = s.plan(body, ctx)
+                plan = s.plan(body, ctx)
             except dsl.QueryParseError as e:
                 responses[bi] = {"error": {"type": "ApiError",
                                            "reason": str(e)}}
                 continue
-            if planned is not None:
-                specs[bi] = planned[1]
-        if not specs:
+            if plan is None:
+                continue                 # no hits: the empty response
+            if plan.fast is None:
+                ok[bi] = False
+            else:
+                specs[bi] = plan.fast
+        bis = [bi for bi in specs if ok[bi] and responses[bi] is None]
+        if not bis:
             continue
-        bis = list(specs)
         k = max(specs[bi].window for bi in bis)
         for seg_ord, seg in enumerate(results[0][si].segments):
             if seg.live_count == 0:
                 continue
             handle = fastpath.launch_batch(seg, ctx, [specs[bi] for bi in bis],
-                                           k, s.device)
+                                           k, s.device, count_stats=False)
+            if handle is None:
+                for bi in bis:
+                    ok[bi] = False
+                break
             launches.append((si, seg, seg_ord, bis, handle))
+    served = []
     for si, seg, seg_ord, bis, handle in launches:
-        for bi, out in zip(bis, handle.fetch()):
-            searchers[si].collect_topk(results[bi][si], out, seg, seg_ord)
+        live = [bi for bi in bis if ok[bi]]
+        if not live:
+            continue
+        outs = dict(zip(bis, handle.fetch()))
+        for bi in live:
+            if outs[bi] is None:
+                ok[bi] = False
+                continue
+            served.append((bi, outs[bi]))
+            searchers[si].collect_topk(results[bi][si], outs[bi], seg,
+                                       seg_ord)
+    # served counts only for bodies the kernels served on every segment
+    for bi, out in served:
+        if ok[bi]:
+            fastpath.count_served([specs[bi]], [out])
     for bi, body in enumerate(bodies):
         if responses[bi] is not None:
+            continue
+        if not ok[bi]:
+            responses[bi] = search_shards(searchers, body, index_name)
             continue
         window = check_body(body)
         for r in results[bi]:

@@ -35,8 +35,15 @@ probes the filter's bitmap instead of merging its doc list (the probe
 form: term slots only, chunked by their own lengths); rows that every
 filter doc may pass (bonus-only, constant score) merge the list.
 
-Unlike the reference there is no general path behind this one: a search
-the fast path cannot serve raises `NotPortedError` naming what it met.
+A search or a segment the fast path cannot serve is declined, at the
+reference's conditions: `make_spec` returns None for a shape outside the
+slot model, a window past MAX_K or a group of more than MAX_T terms;
+`launch_batch` returns None for a segment with deleted docs; a query
+whose field exceeds the (tf, dl) packing bounds, or whose rows need more
+than MAX_CHUNKS doc-range chunks, gets None among the results. The
+executor then runs the impact rung (`search/impactpath.py`) and the
+general path (`compiler.run_segment`) for it. A kernel that fails to
+build or launch raises.
 """
 
 from __future__ import annotations
@@ -47,7 +54,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..errors import NotPortedError
 from ..index.segment import (CODEC_V1, CODEC_V2, PostingsBlock, Segment,
                              next_pow2)
 from ..ops.bm25 import (DL_BITS, DL_MAX, HBM_ALIGN, INT_SENTINEL, LANES,
@@ -63,6 +69,7 @@ MAX_L = 1 << 16      # per-term window cap (elements)
 MAX_TL = 1 << 17     # T_pad * L cap per kernel row
 MAX_K = 128          # top-k lanes the kernel returns
 MAX_CHUNKS = 4096    # doc-range split bound
+DECLINED = "declined"  # a query's rows where the fast path declines it
 INT_MAX = np.int32(2**31 - 1)
 
 # impact-ordered heads: a term with more than L_HEAD postings keeps an
@@ -77,6 +84,7 @@ QUALITY_MIN_NDOCS = 1 << 16   # below this, dense is already cheap
 STATS = {"pruned_served": 0, "pruned_rescued": 0, "pruned_rescued2": 0,
          "pruned_dview": 0, "pruned_escalated": 0, "impact_frontier": 0,
          "shard_view_served": 0, "pure_served": 0, "bool_served": 0,
+         "fallback": 0,
          # the route of each bool spec over each segment (port only)
          "b3_filter_slot": 0, "b3_filtered_postings": 0, "b3_unfiltered": 0,
          "filtered_pure": 0}
@@ -214,10 +222,28 @@ class AlignedPostings:
         return _frontier_bound(fr, k1, b_eff, avgdl)
 
 
+def packable(seg, field: str) -> bool:
+    """False when a posting of `field` exceeds the packing bounds (tf
+    above TF_MAX or a doc length above DL_MAX): the fast path declines the
+    field on this segment. Cached on the segment."""
+    key = ("packable", field, "")
+    got = seg.aligned.get(key)
+    if got is None:
+        pb = seg.postings.get(field)
+        dl = seg.doc_lens.get(field)
+        # a doc's length counts its tokens in the field, each of which
+        # is in one of its postings: the longest doc bounds every posting
+        got = pb is None or pb.size == 0 or (
+            float(pb.tfs.max()) <= TF_MAX
+            and (dl is None or len(dl) == 0 or int(dl.max()) <= DL_MAX))
+        seg.aligned[key] = got
+    return got
+
+
 def get_aligned(seg, field: str,
                 device: torch.device) -> Optional[AlignedPostings]:
     """Build (or fetch cached) aligned postings; None when the segment has
-    no postings for the field."""
+    no postings for the field. The field must be `packable`."""
     key = (field, str(device))
     if key not in seg.aligned:
         # the host side of a layout (rows, heads, frontiers) does not
@@ -289,15 +315,11 @@ def _head_select(doc_ids: np.ndarray, tfs: np.ndarray, dl_of: np.ndarray,
 
 def _pack_tfdl(seg, field: str, doc_ids: np.ndarray,
                tfs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """(doc lengths i64, packed tf << DL_BITS | dl i32) of postings of
-    `field`; raises NotPortedError past the packing bounds."""
+    """(doc lengths i64, packed tf << DL_BITS | dl i32) of postings of a
+    `packable` field."""
     dl = seg.doc_lens.get(field)
     dl_of = (dl[doc_ids].astype(np.int64) if dl is not None
              else np.zeros(len(doc_ids), np.int64))
-    if len(tfs) and (tfs.max() > TF_MAX or dl_of.max() > DL_MAX):
-        raise NotPortedError(
-            f"field [{field}] of segment [{seg.name}] with a term frequency "
-            f"above {TF_MAX} or a doc length above {DL_MAX}")
     return dl_of, ((tfs.astype(np.int64) << DL_BITS) | dl_of).astype(
         np.int32)
 
@@ -419,34 +441,24 @@ def _ok_group(lt) -> bool:
     return len(lt.terms) >= 1
 
 
-def _flatten_bool(lroot) -> FastSpec:
+def _flatten_bool(lroot) -> Optional[FastSpec]:
     """Map an LBool/LConstScore tree onto the weighted-threshold slot
-    model (the reference's `_flatten_bool`). Where the reference returns
-    None and falls back to its general XLA plan, raises NotPortedError
-    naming the shape."""
+    model (the reference's `_flatten_bool`); None where the shape is not
+    expressible (the general path serves it)."""
     if isinstance(lroot, C.LConstScore):
         if lroot.child is None or lroot.boost < 0:
-            raise NotPortedError("a [constant_score] with a negative boost")
+            return None
         return FastSpec("bool", filter_clauses=[(lroot.child, False)],
                         const_score=float(lroot.boost), boost=1.0)
     if not isinstance(lroot, C.LBool):
-        name = {"LRange": "a top-level [range] query"}.get(
-            type(lroot).__name__, f"plan [{type(lroot).__name__}]")
-        raise NotPortedError(name)
+        return None
     b = lroot
     if b.boost <= 0:
-        # boost 0 zeroes every score BEFORE top-k in the reference's
-        # general path (ties then break by doc id); the kernel ranks
-        # pre-boost
-        raise NotPortedError("a [bool] with boost <= 0")
-    for g in b.musts + b.shoulds:
-        if not _ok_group(g):
-            kind = ("a nested bool" if isinstance(g, (C.LBool,
-                                                      C.LConstScore))
-                    else f"a scoring clause [{type(g).__name__}]"
-                    if not isinstance(g, C.LTerms)
-                    else "a non-scoring or empty term group")
-            raise NotPortedError(f"{kind} in a [bool] must/should")
+        # boost 0 zeroes every score BEFORE top-k on the general path
+        # (ties then break by doc id); the kernel ranks pre-boost
+        return None
+    if not all(_ok_group(g) for g in b.musts + b.shoulds):
+        return None
     groups = b.musts + b.shoulds
     field = sim = None
     has_norms = True
@@ -456,8 +468,7 @@ def _flatten_bool(lroot) -> FastSpec:
         for g in groups:
             if (g.field != field or g.sim.k1 != sim.k1 or g.sim.b != sim.b
                     or g.has_norms != has_norms):
-                raise NotPortedError("a [bool] over mixed fields or "
-                                     "similarities")
+                return None
 
     req: List[Tuple[str, float]] = []
     fam: List[Tuple[str, float]] = []
@@ -468,7 +479,6 @@ def _flatten_bool(lroot) -> FastSpec:
         return [(t, float(np.asarray(g.weights)[i]))
                 for i, t in enumerate(g.terms)]
 
-    two = NotPortedError("a [bool] with two count-constrained families")
     for m in b.musts:
         if len(m.terms) == 1 or m.msm >= len(m.terms):
             req.extend(slot_weights(m))        # AND semantics: all required
@@ -476,7 +486,7 @@ def _flatten_bool(lroot) -> FastSpec:
             fam.extend(slot_weights(m))        # the one constrained family
             fam_msm = max(int(m.msm), 1)
         else:
-            raise two
+            return None                        # two constrained families
     if b.shoulds:
         outer = int(b.msm)
         if outer == 0:
@@ -484,12 +494,11 @@ def _flatten_bool(lroot) -> FastSpec:
             # a missing required or family slot
             for g in b.shoulds:
                 if len(g.terms) > 1 and g.msm > 1:
-                    raise NotPortedError("a [bool] bonus should with its "
-                                         "own minimum_should_match")
+                    return None
                 bonus.extend(slot_weights(g))
         else:
             if fam:
-                raise two
+                return None                    # two constrained families
             if all(len(g.terms) == 1 for g in b.shoulds):
                 for g in b.shoulds:
                     fam.extend(slot_weights(g))
@@ -499,8 +508,7 @@ def _flatten_bool(lroot) -> FastSpec:
                 fam.extend(slot_weights(g))
                 fam_msm = max(int(g.msm), 1)
             else:
-                raise NotPortedError("a [bool] minimum_should_match over "
-                                     "multi-term shoulds")
+                return None
 
     filter_clauses = ([(f, False) for f in b.filters]
                       + [(n, True) for n in b.must_nots])
@@ -508,31 +516,34 @@ def _flatten_bool(lroot) -> FastSpec:
              + [(t, w, 1.0) for t, w in fam]
              + [(t, w, 0.0) for t, w in bonus])
     if not slots and not filter_clauses:
-        raise NotPortedError("an empty [bool] (match_all)")
+        return None                            # empty bool = match_all
     if len(slots) > MAX_T:
-        raise NotPortedError(f"a [bool] of more than {MAX_T} term slots")
+        return None
     return FastSpec("bool", slots=slots, fam_msm=fam_msm,
                     filter_clauses=filter_clauses, field=field, sim=sim,
                     has_norms=has_norms, boost=float(b.boost),
                     const_score=0.0 if not slots else None)
 
 
-def make_spec(lroot: C.LNode, window: int, body: dict) -> FastSpec:
-    """-> FastSpec for a term-group or bool plan, else NotPortedError."""
-    if window > MAX_K:
-        raise NotPortedError(f"from + size > {MAX_K}")
+def make_spec(lroot: C.LNode, window: int,
+              body: dict) -> Optional[FastSpec]:
+    """-> FastSpec for a term-group or bool plan the kernels serve, else
+    None (the reference's `_body_eligible` and `_flatten_bool`)."""
+    if window > MAX_K or window < 1:
+        return None
     # pruning changes total-hit semantics on clamped terms (lower bound,
     # relation "gte"); an explicit track_total_hits demands exact counts,
     # so those bodies ride the dense kernel
     prune_ok = "track_total_hits" not in body
     if isinstance(lroot, C.LTerms):
         if next_pow2(len(lroot.terms), floor=1) > MAX_T:
-            raise NotPortedError(f"a term group of more than {MAX_T} terms")
+            return None
         return FastSpec("pure", lt=lroot, field=lroot.field, window=window,
                         prune_ok=prune_ok and _ok_group(lroot))
     spec = _flatten_bool(lroot)
-    spec.window = window
-    spec.prune_ok = prune_ok
+    if spec is not None:
+        spec.window = window
+        spec.prune_ok = prune_ok
     return spec
 
 
@@ -635,12 +646,17 @@ def _prepare_vqueries(seg, ctx: C.ShardContext, lts: Sequence[C.LTerms],
                       prune: Optional[Sequence[bool]] = None
                       ) -> List[Optional[_VQuery]]:
     """-> per input query, its kernel rows over `seg`; None = the segment
-    holds no postings of the query's field (no hits there). When
-    `prune[qi]` is true the query streams impact heads and carries the
-    verify metadata; otherwise the full rows, chunked when oversized."""
-    out: List[Optional[_VQuery]] = []
+    holds no postings of the query's field (no hits there), DECLINED = the
+    field is not `packable` or the rows need more than MAX_CHUNKS chunks.
+    When `prune[qi]` is true the query streams impact heads and carries
+    the verify metadata; otherwise the full rows, chunked when
+    oversized."""
+    out: list = []
     min_rows = HBM_ALIGN // LANES
     for qi, lt in enumerate(lts):
+        if not packable(seg, lt.field):
+            out.append(DECLINED)
+            continue
         al = get_aligned(seg, lt.field, device)
         pb = seg.postings.get(lt.field)
         if al is None:
@@ -740,9 +756,8 @@ def _prepare_vqueries(seg, ctx: C.ShardContext, lts: Sequence[C.LTerms],
             slots.append((pb.doc_ids[a:e], int(al.starts_rows[r]) * LANES))
         chunks = _chunk_slots(slots, seg.ndocs, T_pad)
         if chunks is None:
-            raise NotPortedError(
-                f"a query on [{lt.field}] that needs more than {MAX_CHUNKS} "
-                f"doc-range chunks")
+            out.append(DECLINED)
+            continue
         edges, rowstarts, nrows, lens, skips, max_nr = chunks
         out.append(_VQuery(L=int(max_nr.max()) * LANES, rowstarts=rowstarts,
                            nrows=nrows, lens=lens, skips=skips,
@@ -768,7 +783,7 @@ def _launch_groups(seg, vqs: List[Optional[_VQuery]], K: int,
     [(gvqs, K_launch, (scores, docs, totals)), ...]."""
     groups: dict = {}
     for vq in vqs:
-        if vq is not None:
+        if vq is not None and vq is not DECLINED:
             # impact rows take no similarity params, so (k1, b) does not
             # split their groups
             key = ((vq.field, vq.T_pad, None, None, True) if vq.impact_pass
@@ -1572,7 +1587,7 @@ def _dview_rescue_field(seg, ctx, lts: Sequence, specs: Sequence, vq_lists,
     still = []
     for qi, dvq in zip(redo, dvqs):
         served = False
-        if dvq is not None:
+        if dvq is not None and dvq is not DECLINED:
             sc, dc, total, _ = vres[id(dvq)]
             valid = np.isfinite(sc) & (dc >= 0)
             window = int(specs[qi].window or K)
@@ -1612,7 +1627,7 @@ def _finish_pure(seg, ctx, lts: Sequence, specs: Sequence[FastSpec], K: int,
     results = _fetch_groups(pending, K)
     redo = []
     for qi, vq in enumerate(vq_lists):
-        if vq is None or not vq.head:
+        if vq is None or vq is DECLINED or not vq.head:
             continue
         if not vq.clamped and not vq.impact_pass:
             continue                # heads were the full rows: exact
@@ -1645,16 +1660,21 @@ def _finish_pure(seg, ctx, lts: Sequence, specs: Sequence[FastSpec], K: int,
         results.update(_launch_pure_groups(seg, dense, K, device))
     STATS["pruned_served"] += sum(
         1 for vq in vq_lists
-        if vq is not None and vq.head and vq.clamped) - rescued_clamped
+        if vq is not None and vq is not DECLINED and vq.head
+        and vq.clamped) - rescued_clamped
     return _assemble(vq_lists, results, _filter_mode_boost(lts))
 
 
 def _assemble(vq_lists: Sequence, results: dict,
-              transform=None) -> List[dict]:
-    """Per-query outputs; `transform(qi, scores)` maps a query's kernel
-    scores to its final ones (a boost, a constant score)."""
-    out = []
+              transform=None) -> List[Optional[dict]]:
+    """Per-query outputs (None for a DECLINED query); `transform(qi,
+    scores)` maps a query's kernel scores to its final ones (a boost, a
+    constant score)."""
+    out: List[Optional[dict]] = []
     for qi, vq in enumerate(vq_lists):
+        if vq is DECLINED:
+            out.append(None)
+            continue
         if vq is None:
             sc = np.full(0, -np.inf, np.float32)
             dc = np.full(0, -1, np.int32)
@@ -1772,19 +1792,24 @@ def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
     probe or a doc list) or the filter-specialized postings
     (`_dense_hot`), the count weights and the threshold, chunked by doc
     range when a window exceeds its budget."""
-    out: List[_BVQuery] = []
+    out: list = []
     for spec in specs:
         fl = fp = None
         nslots = len(spec.slots)
+        ok = not nslots or packable(seg, spec.field)
         if spec.filter_clauses:
             fl = _filter_list(seg, ctx, spec.filter_clauses, device)
             # specialized postings only hold docs that match SOME term, so
             # the route is sound only when passing needs a term match; a
             # bonus-only bool's hits are the whole filter
-            if (nslots and _needs_term(spec) and spec.field is not None
+            if (ok and nslots and _needs_term(spec)
+                    and spec.field is not None
                     and _dense_hot(seg, fl, nslots)):
                 fp = _filtered_postings(seg, spec.field, fl)
             fl.hits += 1
+        if not ok:
+            out.append(DECLINED)
+            continue
         TS = next_pow2(max(nslots, 1), floor=1)
         filtered = fl is not None and fp is None
         probe = filtered and _probe_form(spec)
@@ -1830,9 +1855,8 @@ def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
                  if spec.sim is not None and spec.has_norms else 0.0)
         chunks = _chunk_slots(slot_descs, seg.ndocs, T, nchunk=1)
         if chunks is None:
-            raise NotPortedError(
-                f"a bool query on [{spec.field}] that needs more than "
-                f"{MAX_CHUNKS} doc-range chunks")
+            out.append(DECLINED)
+            continue
         edges, rowstarts, nrows, lens, skips, max_nr = chunks
         out.append(_BVQuery(
             TS=TS, T=T, L=int(max_nr.max()) * LANES, filtered=filtered,
@@ -1867,6 +1891,8 @@ def bool_groups(vqs: List[_BVQuery]) -> List[List[_BVQuery]]:
     its form, similarity)."""
     groups: dict = {}
     for vq in vqs:
+        if vq is DECLINED:
+            continue
         gk = (id(vq.al), vq.TS, vq.filtered, vq.probe,
               id(vq.fl) if vq.fl is not None else None, vq.k1, vq.b_eff)
         groups.setdefault(gk, []).append(vq)
@@ -1940,7 +1966,8 @@ def _launch_filtered_pure_batch(seg, ctx, idx_specs, K: int,
         if not _family_only(spec):
             continue
         fl = _filter_list(seg, ctx, spec.filter_clauses, device)
-        if not _dense_hot(seg, fl, len(spec.slots)):
+        if not packable(seg, spec.field) \
+                or not _dense_hot(seg, fl, len(spec.slots)):
             continue
         fp = _filtered_postings(seg, spec.field, fl)
         if fp is None:
@@ -1964,6 +1991,8 @@ def _finish_filtered_pure_batch(ctx, K: int, launched: list,
     for view, fl, items, lts, sspecs, state in launched:
         res = _finish_pure(view, ctx, lts, sspecs, K, state, device)
         for (i, spec), r in zip(items, res):
+            if r is None:
+                continue    # the bool path takes it (and counts its use)
             fl.hits += 1
             STATS["filtered_pure"] += 1
             if spec.boost != 1.0:
@@ -1977,9 +2006,11 @@ def _finish_filtered_pure_batch(ctx, K: int, launched: list,
     return out
 
 
-def count_served(specs: Sequence[FastSpec]) -> None:
-    for spec in specs:
-        STATS["pure_served" if spec.kind == "pure" else "bool_served"] += 1
+def count_served(specs: Sequence[FastSpec],
+                 outs: Sequence[Optional[dict]]) -> None:
+    for spec, r in zip(specs, outs):
+        STATS["fallback" if r is None else "pure_served"
+              if spec.kind == "pure" else "bool_served"] += 1
 
 
 class LaunchHandle:
@@ -1994,16 +2025,18 @@ class LaunchHandle:
 
 
 def launch_batch(seg, ctx: C.ShardContext, specs: Sequence[FastSpec],
-                 k: int, device: torch.device) -> LaunchHandle:
+                 k: int, device: torch.device,
+                 count_stats: bool = True) -> Optional[LaunchHandle]:
     """LAUNCH stage of the batched kernel path: many FastSpecs over ONE
     segment in as few kernel launches as possible. Pure term groups and
     the filtered-pure rung enqueue their frontier launches here; `fetch()`
     syncs them, runs the ladder, then launches and fetches the remaining
     bool specs (whose routes read the filter lists' use counts as the
-    rung left them), as the reference orders them."""
+    rung left them), as the reference orders them. A result is None where
+    the fast path declines its query; the handle is None for a segment
+    with deleted docs (the kernels read no live mask)."""
     if seg.live_count != seg.ndocs:
-        raise NotPortedError(f"search over segment [{seg.name}] with "
-                             f"deleted docs")
+        return None
     K = min(next_pow2(max(k, 16)), MAX_K)
     pure_idx = [i for i, s in enumerate(specs) if s.kind == "pure"]
     bool_idx = [i for i, s in enumerate(specs) if s.kind == "bool"]
@@ -2030,16 +2063,19 @@ def launch_batch(seg, ctx: C.ShardContext, specs: Sequence[FastSpec],
             for i, r in zip(rem, _run_bool(seg, ctx, [specs[i] for i in rem],
                                            K, device)):
                 out[i] = r
-        count_served(specs)
+        if count_stats:
+            count_served(specs, out)
         return out
 
     return LaunchHandle(finish)
 
 
 def batch_search(seg, ctx: C.ShardContext, specs: Sequence[FastSpec],
-                 k: int, device: torch.device) -> List[dict]:
+                 k: int, device: torch.device
+                 ) -> Optional[List[Optional[dict]]]:
     """Synchronous batched kernel path: `launch_batch(...).fetch()`."""
-    return launch_batch(seg, ctx, specs, k, device).fetch()
+    handle = launch_batch(seg, ctx, specs, k, device)
+    return None if handle is None else handle.fetch()
 
 
 # ---------------------------------------------------------------------
@@ -2167,6 +2203,8 @@ def shard_search(engine, ctx, spec: FastSpec, k: int,
     view = shard_view(engine)
     if view is None or not view.ensure_field(spec.lt.field):
         return None
-    out = batch_search(view, ctx, [spec], k, device)[0]
+    out = batch_search(view, ctx, [spec], k, device)
+    if out is None or out[0] is None:
+        return None
     STATS["shard_view_served"] += 1
-    return view, out
+    return view, out[0]

@@ -11,8 +11,13 @@ Served nodes:
   value only;
 - `LBool` of served nodes: musts and filters ANDed, must_nots negated,
   shoulds counted against `msm`;
-- `LConstScore`: its child's mask; `LMatchNone`: no doc.
-Any other node raises `NotPortedError`.
+- `LConstScore`: its child's mask; `LMatchNone`: no doc; `LMatchAll`:
+  every doc;
+- `LExists`: docs with a value (`present_mask`); `LIds`: the listed docs.
+Any other node raises `NotPortedError`. A mask ignores deletes: every
+consumer ANDs the segment's live mask itself (the general path starts
+each bool from it; the fast path serves no segment with deletes), so a
+delete leaves the cached masks valid.
 
 Masks are cached per (segment, device) under a structural key made of
 what the reference's mask-cache digest hashes: a term group's rows,
@@ -28,6 +33,7 @@ import torch
 
 from ..errors import NotPortedError
 from ..index.segment import next_pow2
+from ..ops import scoring as ops
 from . import compiler as C
 
 I64_MIN = -(2**63)
@@ -69,6 +75,14 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
                 mask_key(node.child, seg, ctx))
     if isinstance(node, C.LMatchNone):
         return ("match_none",)
+    if isinstance(node, C.LMatchAll):
+        return ("match_all",)
+    if isinstance(node, C.LExists):
+        return ("exists", node.field)
+    if isinstance(node, C.LIds):
+        return ("ids", tuple(sorted({d for d in (seg.local_doc(i)
+                                                  for i in node.ids)
+                                     if d >= 0})))
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 
@@ -104,7 +118,7 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
         return (count > 0) & (count.to(torch.float32)
                               >= float(np.float32(node.msm)))
     if isinstance(node, C.LRange):
-        col = _numeric_on(seg, node.field, device)
+        col = seg.numeric_on(node.field, device)
         if col is None:
             return torch.zeros(nd, dtype=torch.bool, device=device)
         values, present = col
@@ -129,19 +143,30 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
         return filter_mask(node.child, seg, ctx, device)
     if isinstance(node, C.LMatchNone):
         return torch.zeros(nd, dtype=torch.bool, device=device)
+    if isinstance(node, C.LMatchAll):
+        return torch.ones(nd, dtype=torch.bool, device=device)
+    if isinstance(node, C.LExists):
+        return present_mask(node.field, seg, device)
+    if isinstance(node, C.LIds):
+        return ops.docs_mask(mask_key(node, seg, ctx)[1], nd, device)
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 
-def _numeric_on(seg, field: str, device: torch.device):
-    """(values i64, present bool) of a numeric column on `device`, cached
-    per segment; None when the segment has no such column."""
-    col = seg.numeric_cols.get(field)
-    if col is None:
-        return None
-    key = ("numeric", field, str(device))
-    got = seg.aligned.get(key)
-    if got is None:
-        got = (torch.from_numpy(col.values).to(device),
-               torch.from_numpy(col.present).to(device))
-        seg.aligned[key] = got
-    return got
+def present_mask(field: str, seg, device: torch.device) -> torch.Tensor:
+    """bool[ndocs]: the docs of `seg` with a value in `field`, as the
+    reference's `exists` reads them: a numeric column's present flags, a
+    text field's nonzero doc lengths, else (a keyword field) any posting
+    of the field. Cached per segment and device."""
+    def make():
+        nd = seg.ndocs
+        col = seg.numeric_on(field, device)
+        if col is not None:
+            return col[1]
+        if field in seg.doc_lens:
+            return torch.from_numpy(seg.doc_lens[field] > 0).to(device)
+        m = torch.zeros(nd, dtype=torch.bool, device=device)
+        pb = seg.postings.get(field)
+        if pb is not None and pb.size:
+            m[torch.from_numpy(pb.doc_ids).to(device).long()] = True
+        return m
+    return seg.device_cached(("present", field), device, make)

@@ -1,6 +1,7 @@
-"""Query DSL parsing for the query kinds the port serves (the term, terms,
-match, bool, constant_score and range subset of
-opensearch_tpu/search/query_dsl.py).
+"""Query DSL parsing for the query kinds the port serves (the match_all,
+match_none, term, terms, match, bool, constant_score, range, exists and
+ids subset of opensearch_tpu/search/query_dsl.py). A body without a query
+is `match_all`.
 
 Any other query kind raises `NotPortedError` naming it; malformed bodies
 raise `QueryParseError` (HTTP 400), as in the reference.
@@ -22,6 +23,26 @@ class QueryParseError(ValueError):
 class Query:
     boost: float = 1.0
     name: Optional[str] = None  # _name for matched_queries
+
+
+@dataclass
+class MatchAllQuery(Query):
+    pass
+
+
+@dataclass
+class MatchNoneQuery(Query):
+    pass
+
+
+@dataclass
+class ExistsQuery(Query):
+    field: str = ""
+
+
+@dataclass
+class IdsQuery(Query):
+    values: List[str] = dc_field(default_factory=list)
 
 
 @dataclass
@@ -88,8 +109,28 @@ def _common(q: Query, body: Any) -> None:
 def parse_query(dsl: Optional[dict]) -> Query:
     """DSL dict -> Query tree."""
     if dsl is None:
-        raise NotPortedError("query [match_all]")
+        return MatchAllQuery()
     kind, body = _one_entry(dsl, "query")
+
+    if kind == "match_all":
+        q = MatchAllQuery()
+        _common(q, body)
+        return q
+
+    if kind == "match_none":
+        q = MatchNoneQuery()
+        _common(q, body)
+        return q
+
+    if kind == "exists":
+        q = ExistsQuery(field=body["field"])
+        _common(q, body)
+        return q
+
+    if kind == "ids":
+        q = IdsQuery(values=list(body.get("values", [])))
+        _common(q, body)
+        return q
 
     if kind == "term":
         f, spec = _one_entry(body, "term")

@@ -6,7 +6,7 @@ against the JAX package on the CPU.
 - Specs: per body, the port's FastSpec (kind, slots with their weights and
   count weights, fam_msm, filter clauses, boost, const score) equals the
   reference's; where the reference returns None (its general XLA path),
-  the port raises NotPortedError naming the shape.
+  so does the port's `make_spec` (its general path serves the body).
 - Masks: `search/filters.filter_mask` equals the reference's
   `compiler.filter_mask_for` bit for bit.
 - Numeric fields: mapping types and refreshed columns equal the
@@ -387,11 +387,10 @@ def test_flatten_bool_matches_reference(one_segment, qi):
     rroot = RC.rewrite(rdsl.parse_query(query), rctx, scoring=True)
     want = rfp.make_spec(rroot, [], [], [], None, 10, {})
     proot = C.rewrite(dsl.parse_query(query), pctx)
-    if want is None:
-        with pytest.raises(NotPortedError):
-            fastpath.make_spec(proot, 10, {})
-        return
     got = fastpath.make_spec(proot, 10, {})
+    if want is None:
+        assert got is None
+        return
     assert got.kind == want.kind
     if want.kind == "pure":
         return
