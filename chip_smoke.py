@@ -46,11 +46,24 @@ Phases, each of which fails the script when it fails:
      and a range), then re-indexed _ids and phase 5's match bodies over
      the segments with deletes; every page against a numpy brute force,
      sampled bodies on the card against the CPU, the rung counts, the
-     ops' times per body and the device arrays' bytes.
+     ops' times per body and the device arrays' bytes;
+  8. writes and a merge over the same segment: bulk deletes of 1% of its
+     _ids, updates of phase 7's re-indexed _ids and as many upserts, a
+     refresh, 16 of phase 5's match bodies on the segments with deletes,
+     then a forcemerge into one segment with OPENSEARCH_TPU_REORDER=0
+     (the reference's BP reorder is not ported; the merge's time by
+     step, the device bytes around it) and, on it, the same 16 bodies
+     in one batch, phase 5's match bodies pruned and with exact totals
+     and b3-mix bodies, each class on its kernel alone;
+     every page against the numpy brute force with the writes applied,
+     2 bodies a class on the card against the CPU. Phase 4 runs the write
+     path small on the card and the CPU (tiered and forced merges, bulk
+     deletes and updates, flush and recovery).
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 7's
-numbers, a line with the kernels' numbers and, last, the device line.
+numbers, one with phase 8's, a line with the kernels' numbers and, last,
+the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -61,6 +74,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1133,6 +1147,65 @@ def run_slice_small(name: str, bulk, split: int, bodies,
             rungs)
 
 
+def run_writes_small(name: str, bulk, bodies) -> tuple:
+    """The write path at phase 4's size on `name`, under a data path: 8
+    refreshes of 250 docs (the 8th merges the tier), a 9th refresh, then
+    a bulk that deletes most of the 9th segment's docs and updates and
+    upserts others (its refresh merges that segment alone), `bodies`
+    served; flush, a second RestClient on the same data path serving
+    `bodies` equal; a forcemerge into one segment, whose `bodies` the
+    kernels serve: -> (responses without `took`, layouts, kernel counts
+    after the forcemerge)."""
+    import tempfile
+    from opensearch_tpu_torch import RestClient
+    from opensearch_tpu_torch.ops import bm25
+
+    docs = [dict(bulk[2 * i + 1]) for i in range(2250)]
+    mapping = {"mappings": {"properties": {
+        "body": {"type": "text"}, "status": {"type": "keyword"},
+        "price": {"type": "integer"}}}}
+    lines = sum([[{}, q] for q in bodies], [])
+    with tempfile.TemporaryDirectory() as path:
+        c = RestClient(device=name, data_path=path)
+        c.indices.create("w", mapping)
+        layouts = []
+        for r in range(9):
+            c.bulk(sum([[{"index": {"_index": "w", "_id": f"d{i}"}},
+                         docs[i]] for i in range(250 * r, 250 * (r + 1))],
+                       []), refresh=True)
+            layouts.append([(s.name, s.ndocs, s.live_count)
+                            for s in c._indices["w"].engine.segments])
+        writes = [{"delete": {"_index": "w", "_id": f"d{i}"}}
+                  for i in range(2000, 2200)]
+        for i in range(0, 2000, 97):
+            writes += [{"update": {"_index": "w", "_id": f"d{i}"}},
+                       {"doc": {"price": 1000 + i, "status": "draft"}}]
+        for i in range(20):
+            writes += [{"update": {"_index": "w", "_id": f"u{i}"}},
+                       {"doc": docs[i], "doc_as_upsert": True}]
+        res = [strip_took(c.bulk(writes, refresh=True))]
+        layouts.append([(s.name, s.ndocs, s.live_count)
+                        for s in c._indices["w"].engine.segments])
+        res.append(strip_took(c.msearch(lines, index="w")))
+        c.indices.flush("w")
+        c.close()
+        c = RestClient(device=name, data_path=path)
+        again = strip_took(c.msearch(lines, index="w"))
+        if again != res[-1]:
+            raise AssertionError(f"{name}: responses after recovery differ")
+        c.indices.forcemerge("w")
+        layouts.append([(s.name, s.ndocs, s.live_count)
+                        for s in c._indices["w"].engine.segments])
+        bm25.reset_counts()
+        res.append(strip_took(c.msearch(lines, index="w")))
+        counts = dict(bm25.COUNTS)
+        c.close()
+    log(f"  {name}: writes, small: layouts after each refresh (name, "
+        f"ndocs, live) {layouts[7:]}; flush + recovery served equal "
+        f"responses; after the forcemerge counts {counts}")
+    return res, layouts, counts
+
+
 def phase_slice_small(rng) -> dict:
     from opensearch_tpu_torch.search import fastpath
 
@@ -1171,6 +1244,25 @@ def phase_slice_small(rng) -> dict:
     if rungs["impact_served"] == 0 or rungs["general_served"] == 0:
         raise AssertionError(f"the impact rung or the general path served "
                              f"no body: {rungs}")
+    wr = {name: run_writes_small(name, bulk, bodies[:8] + bool_bodies[:3]
+                                 + general_bodies[:3])
+          for name in ("cuda", "cpu")}
+    if wr["cuda"][:2] != wr["cpu"][:2]:
+        raise AssertionError("writes, small: responses or segment layouts "
+                             "differ between cuda and cpu")
+    layouts, wcounts = wr["cuda"][1], wr["cuda"][2]
+    if not layouts[7][0][0].startswith("_m") \
+            or not any(n.startswith("_m") for n, _d, _l in layouts[9][1:]) \
+            or len(layouts[10]) != 1:
+        raise AssertionError(f"writes, small: the tiered merge, the "
+                             f"mostly-deleted segment's merge or the "
+                             f"forcemerge did not run: {layouts}")
+    if wcounts["launches"] + wcounts["impact_launches"] == 0 \
+            or wcounts["bool_launches"] == 0 or wcounts["plain_calls"]:
+        raise AssertionError(f"writes, small: the kernels did not serve "
+                             f"the merged segment: {wcounts}")
+    log("  writes, small: cuda == cpu (bulk items, responses after the "
+        "merges, after recovery and after the forcemerge; segment layouts)")
     if rungs["pruned_dview"] == 0:
         log(f"  no query reached the quality tier: its segments hold "
             f"fewer than QUALITY_MIN_NDOCS = {fastpath.QUALITY_MIN_NDOCS} "
@@ -1238,11 +1330,27 @@ def run_batches(client, bodies, warm=(), warm_launches=None) -> tuple:
     return resps, wall, lat, counts, rungs
 
 
+def at(t_start: float) -> str:
+    """' (t=.. s)': seconds since the run started, for a phase header."""
+    return f" (t={time.perf_counter() - t_start:.1f} s)"
+
+
+def after_first(n: int, wall: float, lat) -> str:
+    """'first_batch_ms=.. qps_after_first_batch=.. ' for a run of more
+    than one batch (the first pays the lazily built per-row state), else
+    ''."""
+    if len(lat) < 2:
+        return ""
+    return (f"first_batch_ms={lat[0]:.1f} qps_after_first_batch="
+            f"{(n - BATCH) / (wall - lat[0] / 1e3):.1f} ")
+
+
 def log_run(what: str, n: int, wall: float, lat, counts, rungs, resps):
     rels = Counter(r["hits"]["total"]["relation"] for r in resps)
     log(f"  {what}: queries={n} batch={BATCH} wall_s={wall:.2f} "
         f"qps={n / wall:.1f} batch_ms_p50={np.percentile(lat, 50):.1f} "
         f"batch_ms_p99={np.percentile(lat, 99):.1f} "
+        f"{after_first(n, wall, lat)}"
         f"tfdl_launches={counts['launches']} tfdl_rows={counts['rows']} "
         f"impact_launches={counts['impact_launches']} "
         f"impact_rows={counts['impact_rows']} "
@@ -1718,14 +1826,18 @@ def phase_bool_msmarco(big: dict, nq: int) -> dict:
 
 K1, B, OMB = np.float32(1.2), np.float32(0.75), np.float32(1.0 - 0.75)
 OP_BODIES = 16     # bodies of a class timed op by op, and profiled
+REINDEXED = 64     # _ids phase 7 re-indexes and phase 8 updates
 
 
 class NumpyIndex:
-    """What phase 7's brute force reads, apart from the port: the corpus
-    CSR (global doc ids 0..n0-1), the docs indexed after it (global ids
-    n0..), the deleted docs and the status / price columns, with the
-    collection statistics BM25 takes from them (deleted docs count, as
-    Lucene's maxDoc and doc freqs do)."""
+    """What phases 7 and 8's brute force reads, apart from the port: the
+    corpus CSR (global doc ids 0..n0-1), the docs indexed after it (global
+    ids n0.., in indexing order), the deleted docs and the status / price
+    columns, with the collection statistics BM25 takes from them: deleted
+    docs count, as Lucene's maxDoc and doc freqs do, until `compact()`
+    drops them (a merge compacted their segment). Global ids keep their
+    order across a merge, so they break score ties as the merged ids
+    do."""
 
     def __init__(self, corpus, columns):
         starts, doc_ids, tfs, dl, df = corpus
@@ -1738,31 +1850,53 @@ class NumpyIndex:
         self.extra: dict = {}          # term -> ([global docs], [tfs])
         self.new_ids: list = []
         self.contrib: dict = {}        # long row -> (docs, BM25 terms)
+        self.counted = np.ones(self.n0, bool)   # docs in the statistics
+        self.n_stats = self.n0                  # maxDoc
 
     @property
     def n(self) -> int:
+        """Docs ever indexed: the length of every per-doc array."""
         return len(self.live)
 
     def avgdl(self) -> np.float32:
-        return np.float32(self.sum_dl / self.n)
+        return np.float32(self.sum_dl / self.n_stats)
+
+    def add(self, terms, st: int, pr: int, doc_id: str) -> int:
+        """Index a doc (term ids with repeats) after every other: -> its
+        global id."""
+        self.contrib = {}              # the statistics change
+        g = self.n
+        self.live = np.append(self.live, True)
+        self.counted = np.append(self.counted, True)
+        self.n_stats += 1
+        self.dl = np.append(self.dl, np.float32(len(terms)))
+        self.sum_dl += len(terms)
+        self.status = np.append(self.status, np.int32(st))
+        self.price = np.append(self.price, np.int64(pr))
+        for t, tf in Counter(terms).items():
+            e = self.extra.setdefault(int(t), ([], []))
+            e[0].append(g)
+            e[1].append(np.float32(tf))
+        self.new_ids.append(doc_id)
+        return g
 
     def reindex(self, docs) -> None:
         """docs: [(old local doc, term ids with repeats, status, price)],
         indexed after the corpus under the old doc's `_id`."""
-        self.contrib = {}              # the statistics change
         for old, terms, st, pr in docs:
-            g = self.n
             self.live[old] = False
-            self.live = np.append(self.live, True)
-            self.dl = np.append(self.dl, np.float32(len(terms)))
-            self.sum_dl += len(terms)
-            self.status = np.append(self.status, np.int32(st))
-            self.price = np.append(self.price, np.int64(pr))
-            for t, tf in Counter(terms).items():
-                e = self.extra.setdefault(int(t), ([], []))
-                e[0].append(g)
-                e[1].append(np.float32(tf))
-            self.new_ids.append(str(old))
+            self.add(terms, st, pr, str(old))
+
+    def compact(self, docs=slice(None)) -> None:
+        """The deleted docs among global ids `docs` (all by default) leave
+        the statistics: a merge dropped them."""
+        drop = np.zeros(self.n, bool)
+        drop[docs] = True
+        drop &= self.counted & ~self.live
+        self.counted &= ~drop
+        self.n_stats -= int(drop.sum())
+        self.sum_dl -= int(self.dl[drop].sum())
+        self.contrib = {}
 
     def row(self, t: int):
         lo, hi = int(self.starts[t]), int(self.starts[t + 1])
@@ -1771,33 +1905,61 @@ class NumpyIndex:
         if e is not None:
             d = np.concatenate([d, np.asarray(e[0], np.int64)])
             tf = np.concatenate([tf, np.asarray(e[1], np.float32)])
+        if self.n_stats != self.n:
+            keep = self.counted[d]
+            d, tf = d[keep], tf[keep]
         return d, tf
 
     def weight(self, df: int) -> np.float32:
         import math
-        return np.float32(math.log(1.0 + (self.n - df + 0.5) / (df + 0.5))
+        n = self.n_stats
+        return np.float32(math.log(1.0 + (n - df + 0.5) / (df + 0.5))
                           if df > 0 else 0.0)
+
+    def contributions(self, t: int):
+        """(docs, BM25 terms) of one term row."""
+        got = self.contrib.get(int(t))
+        if got is None:
+            d, tf = self.row(t)
+            w = self.weight(len(d))
+            k = K1 * (OMB + (B * self.dl[d]) / self.avgdl())
+            got = (d, (w * tf) / (tf + k))
+            if len(d) >= 1 << 17:  # stopword-class rows recur
+                self.contrib[int(t)] = got
+        return got
 
     def group(self, terms, msm: int = 1):
         """BM25 of a `match` (distinct term ids, query order): (scores
         where at least msm terms match, else 0; that mask)."""
         score = np.zeros(self.n, np.float32)
         count = np.zeros(self.n, np.int32)
-        avgdl = self.avgdl()
         for t in terms:
-            got = self.contrib.get(int(t))
-            if got is None:
-                d, tf = self.row(t)
-                w = self.weight(len(d))
-                k = K1 * (OMB + (B * self.dl[d]) / avgdl)
-                got = (d, (w * tf) / (tf + k))
-                if len(d) >= 1 << 17:  # stopword-class rows recur
-                    self.contrib[int(t)] = got
-            d, c = got
+            d, c = self.contributions(t)
             score[d] += c
             count[d] += 1
         ok = count >= max(msm, 1)
         return np.where(ok, score, np.float32(0.0)), ok
+
+    def bool_page(self, slots, fam_msm: int, mask, const,
+                  size: int = 10) -> tuple:
+        """A bool body as phase 6's `oracle_page` reads it (term slots
+        "req" / "fam" / "bonus" summed in slot order, a filter mask, a
+        constant score or None), over the live docs: -> page()."""
+        score = np.zeros(self.n, np.float32)
+        n_req = np.zeros(self.n, np.int32)
+        n_fam = np.zeros(self.n, np.int32)
+        for t, kind in slots:
+            d, c = self.contributions(t)
+            score[d] += c
+            if kind == "req":
+                n_req[d] += 1
+            elif kind == "fam":
+                n_fam[d] += 1
+        want_req = sum(1 for _t, kind in slots if kind == "req")
+        passed = mask & (n_req == want_req) & (n_fam >= fam_msm)
+        if const is not None:
+            score = np.full(self.n, np.float32(const), np.float32)
+        return self.page(score, passed, 0, size)
 
     def keyword(self, value: int):
         """A `term` on the status keyword in scoring context: BM25 with no
@@ -1805,7 +1967,7 @@ class NumpyIndex:
         ok = self.status == value
         k = K1 * (np.float32(1.0) + (np.float32(0.0) * np.float32(0.0))
                   / np.float32(1.0))
-        w = self.weight(int(ok.sum()))
+        w = self.weight(int((ok & self.counted).sum()))
         return np.where(ok, (w * np.float32(1.0)) / (np.float32(1.0) + k),
                         np.float32(0.0)).astype(np.float32), ok
 
@@ -1911,17 +2073,18 @@ def general_classes(big: dict, n: int) -> dict:
     return classes
 
 
-def check_page(resp: dict, want: tuple, what: str) -> None:
+def check_page(resp: dict, want: tuple, what: str,
+               rtol: float = 1e-6) -> None:
     """One response against its brute force: ids and order equal (two hits
-    may swap only when their scores agree within 1e-6), scores within
-    1e-6 relative, the total equal where the relation is eq, else a lower
-    bound."""
+    may swap only when their scores agree within rtol), scores within
+    rtol (1e-6) relative, the total equal where the relation is eq, else
+    a lower bound."""
     ids, scores, total = want
     h = resp["hits"]
     got_ids = [x["_id"] for x in h["hits"]]
     got_sc = np.asarray([x["_score"] for x in h["hits"]], np.float64)
     t = h["total"]
-    ok = len(got_ids) == len(ids) and np.allclose(got_sc, scores, rtol=1e-6,
+    ok = len(got_ids) == len(ids) and np.allclose(got_sc, scores, rtol=rtol,
                                                   atol=0) and (
         t["value"] == total if t["relation"] == "eq"
         else t["value"] <= total)
@@ -1929,7 +2092,7 @@ def check_page(resp: dict, want: tuple, what: str) -> None:
         if ok and g != w:
             twin = [k for k, x in enumerate(ids) if x == g]
             ok = bool(twin) and abs(scores[twin[0]] - got_sc[j]) \
-                <= 1e-6 * abs(scores[twin[0]])
+                <= rtol * abs(scores[twin[0]])
     if not ok:
         raise AssertionError(f"{what} != numpy brute force: {got_ids} "
                              f"{got_sc.tolist()} {t} vs {ids} {scores} "
@@ -2031,9 +2194,9 @@ def run_general_class(client, name: str, items, ix, sample, cpu,
 
 def phase_general_msmarco(big: dict, n: int) -> dict:
     """The general path and the impact rung over phase 5's segment: `n`
-    bodies per class that the fused kernels decline, then `n` re-indexed
-    `_id`s and `n` of phase 5's match bodies over the segments with
-    deletes."""
+    bodies per class that the fused kernels decline, then REINDEXED
+    re-indexed `_id`s (phase 8 updates them) and `n` of phase 5's match
+    bodies over the segments with deletes."""
     from opensearch_tpu_torch import RestClient
     from opensearch_tpu_torch import bench_corpus as bc
     client, seg = big["client"], big["seg"]
@@ -2056,8 +2219,8 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     # re-index n existing _ids: the big segment gets n deleted docs, a new
     # segment takes their new versions
     vs = bc.vocab_strings(len(big["corpus"][4]))
-    olds = sorted(srng.choice(seg.ndocs, n, replace=False).tolist())
-    terms = big["body_terms"][:n]
+    olds = sorted(srng.choice(seg.ndocs, REINDEXED, replace=False).tolist())
+    terms = big["body_terms"][:REINDEXED]
     docs = [(old, list(terms[j]) + [terms[j][0]], j % 3, j)
             for j, old in enumerate(olds)]
     t0 = time.perf_counter()
@@ -2071,17 +2234,19 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     t_reindex = time.perf_counter() - t0
     ix.reindex(docs)
     segs = client._indices["bench"].engine.segments
-    if len(segs) != 2 or segs[0].live_count != seg.ndocs - n:
-        raise AssertionError("re-indexing did not leave n deleted docs")
+    if len(segs) != 2 or segs[0].live_count != seg.ndocs - REINDEXED:
+        raise AssertionError("re-indexing did not leave REINDEXED deleted "
+                             "docs")
     cpu2 = RestClient(device="cpu")
     cpu2.indices.create("bench", {"mappings": {"properties": {
         "body": {"type": "text"}, "status": {"type": "keyword"},
         "price": {"type": "integer"}}}})
     cpu2._indices["bench"].engine.segments = list(segs)
     items = [(big["bodies"][j], (lambda ts: lambda ix_: ix_.page(
-        *ix_.group(ts), 0, 10))(list(terms[j]))) for j in range(n)]
+        *ix_.group(ts), 0, 10))(list(big["body_terms"][j])))
+        for j in range(n)]
     sample = sorted(srng.choice(n, 2, replace=False).tolist())
-    log(f"  re-indexed {n} _ids in {t_reindex:.2f}s: segments "
+    log(f"  re-indexed {REINDEXED} _ids in {t_reindex:.2f}s: segments "
         f"{[(s.ndocs, s.live_count) for s in segs]}")
     out["reindexed_match"] = run_general_class(
         client, "reindexed_match", items, ix, sample, cpu2, op_ms, {})
@@ -2089,8 +2254,280 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     log(f"  general path device arrays (live masks, numeric columns, doc "
         f"lengths, CSR copies; the postings are the aligned layout's): "
         f"{nbytes} bytes")
+    big["ix"], big["reindexed"] = ix, docs
     return {"classes": out, "device_bytes": nbytes,
             "idle_share_one_batch": idle}
+
+
+# ---------------------------------------------------------------------
+# phase 8: deletes, updates and a forced merge at MS MARCO passage scale
+# ---------------------------------------------------------------------
+
+DELETE_SHARE = 100     # 1 in 100 of the big segment's _ids is deleted
+BULK_ITEMS = 1000      # items per bulk request
+
+
+def bulk_checked(client, lines, action: str, want: dict) -> None:
+    """One bulk request whose every item must be `action` with a result
+    and status in `want` ({result: status})."""
+    r = client.bulk(lines)
+    for it in r["items"]:
+        got = it.get(action, {})
+        if want.get(got.get("result")) != got.get("status"):
+            raise AssertionError(f"bulk {action} item: {it}")
+
+
+def run_write_class(client, name: str, items, ix, cpu, rtol=1e-6,
+                    memo=None) -> dict:
+    """One class of bodies through msearch (counts and rungs set to 0
+    just before), every page against the brute force (kept in `memo` by
+    item index, when given, for a class of the same pages), 2 bodies on
+    the card against `cpu`: -> the class's numbers."""
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import impactpath
+    bodies = [b for b, _o in items]
+    impactpath.reset_stats()
+    C.reset_stats()
+    resps, wall, lat, counts, rungs = run_batches(client, bodies)
+    rungs = {**rungs, "impact_served": impactpath.STATS["served"],
+             "general": C.STATS["general_served"]}
+    t0 = time.perf_counter()
+    memo = {} if memo is None else memo
+    for j, ((b, oracle), r) in enumerate(zip(items, resps)):
+        if j not in memo:
+            memo[j] = oracle(ix)
+        check_page(r, memo[j], f"{name} body {b}", rtol)
+    t_oracle = time.perf_counter() - t0
+    lines = sum([[{}, b] for b in bodies[:2]], [])
+    t0 = time.perf_counter()
+    if strip_took(client.msearch(lines, index="bench")) \
+            != strip_took(cpu.msearch(lines, index="bench")):
+        raise AssertionError(f"{name}: 2 bodies: card and CPU responses "
+                             f"differ")
+    t_cpu = time.perf_counter() - t0
+    n = len(bodies)
+    rels = Counter(r["hits"]["total"]["relation"] for r in resps)
+    log(f"  {name}: queries={n} batch={BATCH} wall_s={wall:.2f} "
+        f"qps={n / wall:.1f} batch_ms_p50={np.percentile(lat, 50):.1f} "
+        f"batch_ms_p99={np.percentile(lat, 99):.1f} "
+        f"{after_first(n, wall, lat)}kernel launches "
+        f"B1={counts['launches']} B2={counts['impact_launches']} "
+        f"B3={counts['bool_launches']} plain_calls={counts['plain_calls']}"
+        f" rungs " + " ".join(f"{k}={v}" for k, v in rungs.items() if v)
+        + f" relations={dict(rels)}; {n} pages == numpy brute force "
+        f"({t_oracle:.1f}s); 2 bodies card == CPU ({t_cpu:.1f}s)")
+    out = {"qps": n / wall, "p50": float(np.percentile(lat, 50)),
+           "p99": float(np.percentile(lat, 99)), "batch_ms": lat,
+           "counts": counts, "rungs": rungs}
+    if len(lat) > 1:
+        out["qps_after_first_batch"] = (n - BATCH) / (wall - lat[0] / 1e3)
+    return out
+
+
+def phase_writes_msmarco(big: dict, rng) -> dict:
+    """Phase 7's end state (the big segment with phase 7's re-indexed
+    _ids deleted, and their new versions in a small segment): bulk-delete
+    1% of the big segment's _ids, bulk-update the re-indexed _ids (a
+    partial doc: new status and price) and upsert as many new _ids,
+    refresh; phase 5's match bodies on that state (the impact rung); then
+    forcemerge into one segment and, on it, phase 5's match bodies
+    pruned, the same with exact totals and b3-mix bodies, each class on
+    its kernel. Every page against the numpy brute force with the writes
+    applied, 2 bodies a class on the card against the CPU."""
+    import torch
+    from opensearch_tpu_torch import RestClient
+    from opensearch_tpu_torch import bench_corpus as bc
+    from opensearch_tpu_torch.index import merge as M
+    from opensearch_tpu_torch.ops import device_merge
+    from opensearch_tpu_torch.search import fastpath
+
+    client, seg, ix = big["client"], big["seg"], big["ix"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    # the reference would run its BP doc-id reorder on this merge, which
+    # the port refuses (NotPortedError "BP reorder"); with the reorder
+    # off, as its own switch sets it, both merge in concatenation order
+    os.environ["OPENSEARCH_TPU_REORDER"] = "0"
+    log("  OPENSEARCH_TPU_REORDER=0: the merge runs as the reference's "
+        "does with its BP reorder off (not ported: with it on, a merge "
+        "of 32,768 docs or more raises)")
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    reidx = big["reindexed"]
+    nq = len(reidx)
+
+    def twin():
+        cpu = RestClient(device="cpu")
+        cpu.indices.create("bench", {"mappings": {"properties": {
+            "body": {"type": "text"}, "status": {"type": "keyword"},
+            "price": {"type": "integer"}}}})
+        cpu._indices["bench"].engine.segments = list(eng.segments)
+        return cpu
+
+    # 1. bulk-delete 1% of the big segment's _ids (not the re-indexed ones)
+    n_del = seg.ndocs // DELETE_SHARE
+    cand = np.flatnonzero(seg.live)
+    dels = rng.choice(cand, n_del, replace=False)
+    t0 = time.perf_counter()
+    for i in range(0, n_del, BULK_ITEMS):
+        bulk_checked(client, [{"delete": {"_index": "bench", "_id": str(d)}}
+                              for d in dels[i:i + BULK_ITEMS]], "delete",
+                     {"deleted": 200})
+    t_del = time.perf_counter() - t0
+    ix.live[dels] = False
+    # 2. update the re-indexed _ids (their versions are ix's first added
+    # docs), upsert as many new ones
+    lines = []
+    adds = []
+    for j, (old, terms, _st, _pr) in enumerate(reidx):
+        st, pr = (j + 1) % 3, (7 * j) % 1000
+        lines += [{"update": {"_index": "bench", "_id": str(old)}},
+                  {"doc": {"status": bc.STATUS_VALUES[st], "price": pr}}]
+        ix.live[ix.n0 + j] = False
+        adds.append((terms, st, pr, str(old)))
+    up_terms = big["body_terms"][nq:2 * nq]
+    for j, terms in enumerate(up_terms):
+        st, pr = j % 3, (13 * j) % 1000
+        lines += [{"update": {"_index": "bench", "_id": f"new{j}"}},
+                  {"doc": {"body": " ".join(vs[int(t)] for t in terms),
+                           "status": bc.STATUS_VALUES[st], "price": pr},
+                   "doc_as_upsert": True}]
+        adds.append((list(terms), st, pr, f"new{j}"))
+    t0 = time.perf_counter()
+    bulk_checked(client, lines, "update", {"updated": 200, "created": 200})
+    t_upd = time.perf_counter() - t0
+    for a in adds:
+        ix.add(*a)
+    # 3. refresh: the re-indexed versions' segment, now all deleted,
+    # merges away alone
+    t0 = time.perf_counter()
+    client.indices.refresh("bench")
+    t_refresh = time.perf_counter() - t0
+    ix.compact(slice(ix.n0, ix.n0 + len(reidx)))
+    layout = [(s.name, s.ndocs, s.live_count) for s in eng.segments]
+    log(f"  bulk-deleted {n_del} _ids in {-(-n_del // BULK_ITEMS)} "
+        f"requests of "
+        f"{BULK_ITEMS} ({t_del:.2f}s); updated {len(reidx)} and upserted "
+        f"{len(up_terms)} _ids in one bulk ({t_upd:.2f}s); refresh "
+        f"{t_refresh:.2f}s; segments (name, ndocs, live) {layout}")
+    if sum(s.live_count for s in eng.segments) != int(ix.live.sum()):
+        raise AssertionError("live docs != the brute force's after the "
+                             "writes")
+    out: dict = {"deleted": n_del, "updated": len(reidx),
+                 "upserted": len(up_terms), "delete_s": t_del,
+                 "update_s": t_upd, "refresh_s": t_refresh}
+
+    def match_items(n):
+        return [(big["bodies"][j], (lambda ts: lambda ix_: ix_.page(
+            *ix_.group(ts), 0, 10))(list(big["body_terms"][j])))
+            for j in range(n)]
+
+    # 4. phase 5's match bodies on the segments with deletes
+    out["before_merge"] = run_write_class(client, "match, deletes",
+                                          match_items(16), ix, twin())
+
+    # 5. forcemerge
+    spans = []
+    real_sort = device_merge.merge_sorted_runs
+
+    def timed_sort(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got = real_sort(*a, **kw)
+        e1.record()
+        spans.append((e0, e1))
+        return got
+    torch.cuda.synchronize()
+    bytes_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    device_merge.merge_sorted_runs = timed_sort
+    t0 = time.perf_counter()
+    try:
+        client.indices.forcemerge("bench", max_num_segments=1)
+    finally:
+        device_merge.merge_sorted_runs = real_sort
+    torch.cuda.synchronize()
+    t_merge = time.perf_counter() - t0
+    bytes_after = torch.cuda.memory_allocated(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    (merged,) = eng.segments
+    t0 = time.perf_counter()
+    fastpath.get_aligned(merged, "body", dev)
+    torch.cuda.synchronize()
+    t_align = time.perf_counter() - t0
+    bytes_aligned = torch.cuda.memory_allocated(dev)
+    sort_ms = sum(a.elapsed_time(b) for a, b in spans)
+    ix.compact()
+    split = dict(M.LAST_MERGE, sort_event_ms=sort_ms, aligned_heads_s=t_align,
+                 merge_wall_s=t_merge)
+    log(f"  forcemerge: {merged.ndocs} docs, {merged.postings['body'].size}"
+        f" body postings; wall {t_merge:.2f}s = host concat "
+        f"{split['host_concat_s']:.2f}s + sort {split['sort_s']:.2f}s "
+        f"(merge_sorted_runs event ms {sort_ms:.1f}, {len(spans)} calls) + "
+        f"quantize {split['quantize_s']:.2f}s; then aligned layout + heads "
+        f"{t_align:.2f}s")
+    log(f"  device bytes: before the merge {bytes_before}, after it "
+        f"{bytes_after} (the replaced segments' device state released), "
+        f"with the merged segment's aligned layout {bytes_aligned}; peak "
+        f"during the merge {peak}")
+    live = int(ix.live.sum())
+    if not merged.ndocs == merged.live_count == live:
+        raise AssertionError(f"merged segment: ndocs {merged.ndocs} live "
+                             f"{merged.live_count}, the brute force {live}")
+    # a sample of rows against a numpy merge of the same rows
+    pb = merged.postings["body"]
+    rank = np.cumsum(ix.live) - 1
+    srng = np.random.default_rng(19)
+    rows = srng.choice(len(df), 1000, replace=False)
+    n_post = 0
+    for t in rows:
+        d, tf = ix.row(int(t))
+        r = pb.row(vs[int(t)])
+        a, b = pb.row_slice(r) if r >= 0 else (0, 0)
+        if not (np.array_equal(pb.doc_ids[a:b], rank[d])
+                and np.array_equal(pb.tfs[a:b], tf)):
+            raise AssertionError(f"merged row {vs[int(t)]} != numpy merge")
+        n_post += b - a
+    log(f"  merged segment: ndocs == live == {live} (the brute force's); "
+        f"1000 sampled rows ({n_post} postings) == a numpy merge")
+    out.update(merge=split, device_bytes_before=bytes_before,
+               device_bytes_after=bytes_after,
+               device_bytes_with_aligned=bytes_aligned, device_peak=peak,
+               sampled_rows=1000, sampled_postings=n_post)
+
+    # 6. on the merged segment: the kernels serve. First the 16 bodies
+    # of step 4, the same count in one batch (their first use builds the
+    # merged segment's lazy per-row state), then 128 pruned
+    cpu = twin()
+    n_after = min(128, len(big["bodies"]))
+    items = match_items(n_after)
+    pages: dict = {}
+    out["first_use"] = run_write_class(
+        client, "match, merged, the 16 bodies of the segments with deletes",
+        items[:16], ix, cpu, memo=pages)
+    out["pruned"] = run_write_class(client, "match, merged, pruned", items,
+                                    ix, cpu, memo=pages)
+    out["dense"] = run_write_class(
+        client, "match, merged, track_total_hits",
+        [(dict(b, track_total_hits=True), o) for b, o in items], ix, cpu,
+        memo=pages)
+    queries = bc.pick_queries(df, 64)
+    b3 = [(bc.b3_body(i, queries, vs), (lambda i_: lambda ix_: ix_.bool_page(
+        *bool_oracle("b3", i_, queries, ix_.status, ix_.price)))(i))
+        for i in range(64)]
+    # B3 sums in slot order; phase 6's tolerance for three slots
+    out["b3"] = run_write_class(client, "b3 mix, merged", b3, ix, cpu,
+                                rtol=9 * 2.0**-23)
+    for name, key in (("first_use", "impact_launches"),
+                      ("pruned", "impact_launches"), ("dense", "launches"),
+                      ("b3", "bool_launches")):
+        c, r = out[name]["counts"], out[name]["rungs"]
+        if c[key] == 0 or c["plain_calls"] or r["impact_served"] \
+                or r["general"]:
+            raise AssertionError(f"merged segment, {name}: not served by "
+                                 f"its kernel alone: {c} {r}")
+    return out
 
 
 def log_bool_run(what: str, n: int, wall: float, lat, counts, rungs,
@@ -2205,14 +2642,16 @@ def times(g: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
-    # phase 5 ran 2,048 queries before phase 6 shared the time limit
-    ap.add_argument("--queries", type=int, default=1024)
+    # phase 5 ran 2,048 queries before phase 6 shared the time limit,
+    # 1,024 before phase 8 did; phase 7 ran 64 bodies a class before
+    # phase 8 did
+    ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--bool-queries", type=int, default=1024)
-    ap.add_argument("--general-queries", type=int, default=64,
+    ap.add_argument("--general-queries", type=int, default=32,
                     help="phase-7 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 6); no result line")
+                    help="end after this phase (3 to 7); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2273,30 +2712,43 @@ def main() -> int:
     if args.stop_after == 3:
         return 0
 
-    log("[4] slice, small: RestClient on cuda vs cpu")
+    log("[4] slice, small: RestClient on cuda vs cpu" + at(t_start))
     phase_slice_small(rng(7))
     if args.stop_after == 4:
         return 0
 
-    log(f"[5] slice at MS MARCO passage scale (ndocs={args.ndocs})")
+    log(f"[5] slice at MS MARCO passage scale (ndocs={args.ndocs})"
+        + at(t_start))
     if args.ndocs < NDOCS_MSMARCO:
         log(f"  cut: ndocs {args.ndocs} < {NDOCS_MSMARCO} as asked on the "
             f"command line")
     if args.queries < 2048:
         log(f"  cut: {args.queries} match queries (2048 uncut), so that "
-            f"phase 6 fits the same time limit")
+            f"phases 6-8 fit the same time limit")
     big = phase_msmarco(args.ndocs, args.queries)
     if args.stop_after == 5:
         return 0
 
-    log(f"[6] bool traffic at MS MARCO passage scale (ndocs={args.ndocs})")
+    log(f"[6] bool traffic at MS MARCO passage scale (ndocs={args.ndocs})"
+        + at(t_start))
     bools = phase_bool_msmarco(big, args.bool_queries)
     if args.stop_after == 6:
         return 0
 
     log(f"[7] the general path and the impact rung at MS MARCO passage "
-        f"scale (ndocs={args.ndocs})")
+        f"scale (ndocs={args.ndocs})" + at(t_start))
+    if args.general_queries < 64:
+        log(f"  cut: {args.general_queries} bodies a class (64 uncut), so "
+            f"that phase 8 fits the same time limit")
     general = phase_general_msmarco(big, args.general_queries)
+    if args.stop_after == 7:
+        return 0
+
+    log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
+        f"scale (ndocs={args.ndocs})" + at(t_start))
+    log("  cut: no flush and recovery at this size (about 6 GB to write "
+        "and read, and the heads' build again); phase 4 runs them small")
+    writes = phase_writes_msmarco(big, rng(8))
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -2341,6 +2793,7 @@ def main() -> int:
         "note": "no caller in the package; times from the phase-3 grid"}]
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"general_path": general}), flush=True)
+    print(json.dumps({"writes": writes}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,33 @@
-"""The index engine: buffered writes and refresh (the in-memory subset of
-opensearch_tpu/index/engine.py; no translog, no flush, no merge in this
-slice).
+"""The index engine: buffered writes, realtime get, refresh, tiered merge,
+flush and recovery (opensearch_tpu/index/engine.py without its ingest
+instrumentation and its streaming refresh builder).
 
-Write path: parse -> version/concurrency check -> in-memory buffer.
-`refresh()` turns the buffer into an immutable Segment (codec v2 by
-default, its impact planes quantized on the engine's device).
+Write path: parse -> version/concurrency check -> translog append (when
+the engine has a path) -> in-memory buffer. `refresh()` turns the buffer
+into an immutable Segment (codec v2 by default, its impact planes
+quantized on the engine's device), publishes it, then runs the tiered
+merge policy. `flush()` writes the segments and a commit point and rolls
+the translog; opening an engine on an existing path recovers from the
+last commit point plus a translog replay.
+
+Segments attached from arrays (`index/convert.py`) carry docs that no
+version map entry knows: writes, deletes and gets reach those copies
+through the segments' `_id` lookups.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
-from ..errors import NotPortedError
 from .mappings import Mappings, ParsedDocument
+from .merge import (TieredMergePolicy, check_no_reorder, doc_maps,
+                    merge_segments)
 from .segment import Segment, build_segment
-
-# the reference's TieredMergePolicy defaults: a refresh that leaves this
-# many segments under MAX_MERGED_DOCS live docs would merge them there
-SEGMENTS_PER_TIER = 8
-MAX_MERGED_DOCS = 1 << 24
+from .translog import Translog
 
 
 class VersionConflictError(Exception):
@@ -35,9 +43,11 @@ class DocLocation:
 
 
 class Engine:
-    def __init__(self, mappings: Mappings, primary_term: int = 1,
-                 device=None):
+    def __init__(self, mappings: Mappings, path: Optional[str] = None,
+                 primary_term: int = 1, device=None):
         self.mappings = mappings
+        self.path = path
+        self.merge_policy = TieredMergePolicy()
         self.device = device
         self.primary_term = primary_term
         self.segments: List[Segment] = []
@@ -47,13 +57,19 @@ class Engine:
         self.seq_no = -1
         self._seg_counter = 0
         self.version_map: Dict[str, DocLocation] = {}
+        self.translog: Optional[Translog] = None
+        if path is not None:
+            os.makedirs(path, exist_ok=True)
+            self._recover()
+
+    # ---------------- write path ----------------
 
     def _next_seq(self) -> int:
         self.seq_no += 1
         return self.seq_no
 
     def _check_concurrency(self, doc_id: str, if_seq_no: Optional[int],
-                           if_primary_term: Optional[int]) -> None:
+                           if_primary_term: Optional[int], op: str) -> None:
         if if_seq_no is None and if_primary_term is None:
             return
         loc = self.version_map.get(doc_id)
@@ -61,23 +77,28 @@ class Engine:
         if if_seq_no is not None and cur != if_seq_no:
             raise VersionConflictError(
                 f"[{doc_id}]: version conflict, required seqNo [{if_seq_no}], "
-                f"current document has seqNo [{cur}] (index)")
+                f"current document has seqNo [{cur}] ({op})")
         if if_primary_term is not None and self.primary_term != if_primary_term:
             raise VersionConflictError(
-                f"[{doc_id}]: version conflict on primary term (index)")
+                f"[{doc_id}]: version conflict on primary term ({op})")
+
+    def _exists(self, doc_id: str) -> bool:
+        return (doc_id in self.version_map
+                or bool(self._attached_copies(doc_id)))
 
     def index_doc(self, doc_id: str, source: dict,
                   routing: Optional[str] = None,
                   if_seq_no: Optional[int] = None,
                   if_primary_term: Optional[int] = None,
-                  op_type: str = "index") -> dict:
-        self._check_concurrency(doc_id, if_seq_no, if_primary_term)
-        existed = (doc_id in self.version_map
-                   or bool(self._attached_copies(doc_id)))
+                  op_type: str = "index", translog_op: bool = True) -> dict:
+        self._check_concurrency(doc_id, if_seq_no, if_primary_term, "index")
+        existed = self._exists(doc_id)
         if op_type == "create" and existed:
             raise VersionConflictError(f"[{doc_id}]: document already exists")
         parsed = self.mappings.parse(doc_id, source, routing)
         seq = self._next_seq()
+        if translog_op and self.translog is not None:
+            self.translog.add_index(doc_id, source, routing, seq)
         self._delete_previous(doc_id)
         self._buffer_ids[doc_id] = len(self.buffer)
         self.buffer.append(parsed)
@@ -87,9 +108,26 @@ class Engine:
                 "_primary_term": self.primary_term,
                 "result": "updated" if existed else "created"}
 
+    def delete_doc(self, doc_id: str, if_seq_no: Optional[int] = None,
+                   if_primary_term: Optional[int] = None,
+                   translog_op: bool = True) -> dict:
+        self._check_concurrency(doc_id, if_seq_no, if_primary_term, "delete")
+        found = self._exists(doc_id)
+        seq = self._next_seq()
+        if translog_op and self.translog is not None:
+            self.translog.add_delete(doc_id, seq)
+        if found:
+            self._delete_previous(doc_id)
+            self.version_map.pop(doc_id, None)
+        return {"_id": doc_id, "_seq_no": seq,
+                "_primary_term": self.primary_term,
+                "result": "deleted" if found else "not_found"}
+
     def _attached_copies(self, doc_id: str) -> list:
         """(segment, local doc) of each live copy of `doc_id` that no
         version map entry knows: segments attached from arrays."""
+        if doc_id in self.version_map:
+            return []
         out = []
         for seg in self.segments:
             d = seg.local_doc(doc_id)
@@ -109,28 +147,39 @@ class Engine:
                 self.buffer[idx] = None    # compacted away at refresh
         else:
             # the refreshed copy becomes a deleted doc of its segment: the
-            # kernels decline that segment, and the impact rung and the
-            # general path serve it with its live mask
+            # kernels decline that segment until a merge compacts it
             loc.segment.delete_doc(loc.local_doc)
 
-    def _check_no_merge(self) -> None:
-        """Raise where the reference's tiered merge policy would merge
-        after this refresh: a full tier, or a segment with most of its
-        docs deleted."""
-        if 1 + sum(1 for s in self.segments
-                   if s.live_count < MAX_MERGED_DOCS) >= SEGMENTS_PER_TIER:
-            raise NotPortedError(
-                f"segment merge ({SEGMENTS_PER_TIER} segments in one tier)")
-        if any(s.ndocs > 0 and s.live_count < 0.5 * s.ndocs
-               for s in self.segments):
-            raise NotPortedError("segment merge (a segment with most of "
-                                 "its docs deleted)")
+    # ---------------- realtime get ----------------
+
+    def get(self, doc_id: str) -> Optional[dict]:
+        """Realtime get through the version map (the buffer is readable
+        as it is, so no refresh), then through attached segments."""
+        loc = self.version_map.get(doc_id)
+        if loc is None:
+            copies = self._attached_copies(doc_id)
+            if not copies:
+                return None
+            seg, d = copies[0]
+            loc = DocLocation(int(seg.seq_nos[d]), in_buffer=False,
+                              segment=seg, local_doc=d)
+        if loc.in_buffer:
+            source = self.buffer[self._buffer_ids[doc_id]].source
+        else:
+            source = loc.segment.sources[loc.local_doc]
+        return {"_id": doc_id, "_source": source, "_seq_no": loc.seq_no,
+                "_primary_term": self.primary_term, "found": True}
+
+    # ---------------- refresh / merge / flush ----------------
+
+    @property
+    def num_docs(self) -> int:
+        return sum(s.live_count for s in self.segments) + \
+            sum(1 for d in self.buffer if d is not None)
 
     def refresh(self) -> bool:
         live = [(d, s) for d, s in zip(self.buffer, self.buffer_seq)
                 if d is not None]
-        if live:
-            self._check_no_merge()
         self.buffer = []
         self.buffer_seq = []
         self._buffer_ids = {}
@@ -145,4 +194,112 @@ class Engine:
         for local, (d, s) in enumerate(live):
             self.version_map[d.doc_id] = DocLocation(
                 s, in_buffer=False, segment=seg, local_doc=local)
+        self.maybe_merge()
         return True
+
+    def maybe_merge(self) -> None:
+        for group in self.merge_policy.find_merges(self.segments):
+            if len(group) < 2 and not any(s.live_count < s.ndocs
+                                          for s in group):
+                continue
+            self.force_merge_group(group)
+
+    def force_merge_group(self, group: List[Segment]) -> Segment:
+        """Merge `group` into one segment, publish it in their place,
+        re-anchor the version map on it and release the merged-away
+        segments' device state."""
+        name = f"_m{self._seg_counter}"
+        self._seg_counter += 1
+        merged = merge_segments(name, group, device=self.device)
+        where = {id(s): dmap for s, dmap in zip(group, doc_maps(group))}
+        self.segments = [s for s in self.segments if id(s) not in where]
+        self.segments.append(merged)
+        for loc in self.version_map.values():
+            if not loc.in_buffer and id(loc.segment) in where:
+                loc.local_doc = int(where[id(loc.segment)][loc.local_doc])
+                loc.segment = merged
+        for s in group:
+            s.release_device()
+        self.__dict__.pop("_shard_view", None)
+        return merged
+
+    def force_merge(self, max_num_segments: int = 1) -> None:
+        """Merge every segment into one when there are more than
+        `max_num_segments`. A lone segment stays as it is, except where
+        the reference would merge it alone to run its BP doc-id reorder,
+        which is not ported: there this raises."""
+        if len(self.segments) > max_num_segments:
+            self.force_merge_group(list(self.segments))
+        elif len(self.segments) == 1:
+            seg = self.segments[0]
+            check_no_reorder(seg.ndocs, getattr(seg, "codec_version", 1))
+
+    def flush(self) -> None:
+        """Durable commit: segments to disk plus a commit point, translog
+        rolled (reference: InternalEngine#flush)."""
+        self.refresh()
+        if self.path is None:
+            return
+        seg_dir = os.path.join(self.path, "segments")
+        committed = []
+        for seg in self.segments:
+            # every flush rewrites each segment: live masks change
+            seg.save(os.path.join(seg_dir, seg.name))
+            committed.append(seg.name)
+        gen = self.translog.rollover() if self.translog else 0
+        commit = {"segments": committed, "seq_no": self.seq_no,
+                  "translog_gen": gen, "primary_term": self.primary_term,
+                  "ts": time.time()}
+        tmp = os.path.join(self.path, "commit.json.tmp")
+        with open(tmp, "w") as fh:
+            json.dump(commit, fh)
+        os.replace(tmp, os.path.join(self.path, "commit.json"))
+        if self.translog:
+            self.translog.prune_below(gen)
+
+    # ---------------- recovery ----------------
+
+    def _recover(self) -> None:
+        commit_path = os.path.join(self.path, "commit.json")
+        translog_dir = os.path.join(self.path, "translog")
+        gen = 0
+        committed = os.path.exists(commit_path)
+        if committed:
+            with open(commit_path) as fh:
+                commit = json.load(fh)
+            for name in commit["segments"]:
+                seg = Segment.load(os.path.join(self.path, "segments", name))
+                self.segments.append(seg)
+                num = int(name.lstrip("_m").lstrip("_") or 0)
+                self._seg_counter = max(self._seg_counter, num + 1)
+                for local, doc_id in enumerate(seg.ids):
+                    if seg.live[local]:
+                        self.version_map[doc_id] = DocLocation(
+                            int(seg.seq_nos[local]), in_buffer=False,
+                            segment=seg, local_doc=local)
+            self.seq_no = commit["seq_no"]
+            gen = commit["translog_gen"]
+            self.primary_term = commit.get("primary_term", 1)
+        self.translog = Translog(translog_dir, generation=gen)
+        replayed = 0
+        for rec in self.translog.replay_from(gen):
+            if committed and rec["seq_no"] <= self.seq_no:
+                continue
+            if rec["op"] == "index":
+                self.index_doc(rec["_id"], rec["_source"], rec.get("routing"),
+                               translog_op=False)
+            else:
+                self.delete_doc(rec["_id"], translog_op=False)
+            replayed += 1
+        if replayed:
+            self.refresh()
+
+    # ---------------- index-wide stats ----------------
+
+    def doc_freq(self, field: str, term: str) -> int:
+        return sum(s.postings[field].doc_freq(term)
+                   for s in self.segments if field in s.postings)
+
+    def close(self) -> None:
+        if self.translog:
+            self.translog.close()

@@ -1,0 +1,264 @@
+"""Segment merging (the tiered policy and the compacting merge of
+opensearch_tpu/index/merge.py, for the planes a port Segment has).
+
+`merge_segments` compacts deleted docs away and concatenates the inputs'
+live docs in input order, as the reference does, so the merged internal
+ids equal the reference's (with its BP doc-id reorder off: the port keeps
+concatenation order, its tie key). Postings (text and keyword rows) merge
+as one sort of (union row, new doc) triples: on the engine's device at
+DEVICE_MERGE_MIN postings and above (`ops/device_merge.merge_sorted_runs`),
+else `np.lexsort`. Codec-v2 impact planes are rebuilt from the merged tf
+and doc-length planes: the merged field's avgdl differs from every
+input's, so carried quantized values would bake a stale norm.
+
+The reference runs a BP doc-id reorder on a codec-v2 merge of
+REORDER_MIN_DOCS docs or more (opensearch_tpu/index/reorder.py), and its
+served pages then can differ from those of its unreordered merge
+(tests/test_torch_merge.py). The port has no reorder: such a merge
+raises NotPortedError("BP reorder"), unless OPENSEARCH_TPU_REORDER=0
+(the reference's own switch) turns the reorder off, as it does there.
+
+Inputs whose `ids` / `sources` are lazy views (a synthetic corpus) merge
+into `MergedView`s that map a new doc to (input, old doc), so no list of
+millions of strings is built.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..errors import NotPortedError
+from ..ops import device_merge
+from .segment import (CODEC_V2, NumericColumn, PostingsBlock, Segment,
+                      TextFieldStats, default_codec_version)
+
+# planes of a reference segment that no port segment carries
+_UNPORTED_PLANES = ("keyword_cols", "geo_cols", "vector_cols", "shape_cols",
+                    "nested", "term_vectors", "stored_vals")
+
+# the reference's reorder threshold (index/reorder.py)
+REORDER_MIN_DOCS = 1 << 15
+
+# wall seconds of the last merge by step: host_concat_s (doc maps, row
+# remap, concatenation, CSR slicing and the other planes), sort_s (the
+# (row, doc) sort, merge_sorted_runs on the device or np.lexsort) and
+# quantize_s (the impact planes' rebuild)
+LAST_MERGE: Dict[str, float] = {}
+
+
+class TieredMergePolicy:
+    """Size-tiered selection: merge when >= `segments_per_tier` segments
+    share a size tier (by live doc count), preferring the smallest; below
+    that, merge alone each segment with most of its docs deleted."""
+
+    def __init__(self, segments_per_tier: int = 8,
+                 max_merged_docs: int = 1 << 24):
+        self.segments_per_tier = segments_per_tier
+        self.max_merged_docs = max_merged_docs
+
+    def find_merges(self, segments: List[Segment]) -> List[List[Segment]]:
+        candidates = [s for s in segments
+                      if s.live_count < self.max_merged_docs]
+        if len(candidates) < self.segments_per_tier:
+            heavy = [s for s in segments
+                     if s.ndocs > 0 and s.live_count < 0.5 * s.ndocs]
+            return [[s] for s in heavy]
+        candidates.sort(key=lambda s: s.live_count)
+        return [candidates[: self.segments_per_tier]]
+
+
+def doc_maps(segments: List[Segment]) -> List[np.ndarray]:
+    """Per input, i64[ndocs]: its docs' ids in the merged segment (live
+    docs in input order, then doc order), -1 for a deleted doc."""
+    out = []
+    base = 0
+    for s in segments:
+        live = s.live.astype(bool)
+        dmap = np.full(s.ndocs, -1, np.int64)
+        n = int(live.sum())
+        dmap[live] = base + np.arange(n, dtype=np.int64)
+        out.append(dmap)
+        base += n
+    return out
+
+
+class MergedView:
+    """The merged segment's `ids` or `sources` where an input's are lazy:
+    new doc -> (input, old doc), resolved on access. `find` (ids only)
+    answers an `_id`'s new doc, or -1."""
+
+    def __init__(self, parts: list, kept: List[np.ndarray],
+                 finders: Optional[list] = None):
+        self.parts = parts
+        self.kept = kept                      # per input: old live docs
+        self.bases = np.cumsum([0] + [len(k) for k in kept])
+        self.finders = finders
+
+    def __len__(self) -> int:
+        return int(self.bases[-1])
+
+    def __getitem__(self, i):
+        i = int(i)
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        k = int(np.searchsorted(self.bases, i, "right") - 1)
+        return self.parts[k][int(self.kept[k][i - self.bases[k]])]
+
+    def find(self, doc_id: str) -> int:
+        for k, find in enumerate(self.finders):
+            old = find(doc_id)
+            if old is None or old < 0:
+                continue
+            j = int(np.searchsorted(self.kept[k], old))
+            if j < len(self.kept[k]) and int(self.kept[k][j]) == old:
+                return int(self.bases[k]) + j
+        return -1
+
+
+def check_no_reorder(ndocs: int, codec_version: int) -> None:
+    """Raise where the reference would run its BP doc-id reorder on a
+    merged segment of `ndocs` docs and this codec."""
+    if (os.environ.get("OPENSEARCH_TPU_REORDER", "1") != "0"
+            and codec_version >= CODEC_V2 and ndocs >= REORDER_MIN_DOCS):
+        raise NotPortedError(
+            f"BP reorder (a codec-v2 merge of {ndocs} docs; "
+            f"OPENSEARCH_TPU_REORDER=0 merges without it)")
+
+
+def _check_ported(segments: List[Segment]) -> None:
+    for s in segments:
+        for attr in _UNPORTED_PLANES:
+            if getattr(s, attr, None):
+                raise NotPortedError(f"merging a segment with [{attr}]")
+        for f, pb in s.postings.items():
+            if getattr(pb, "pos_starts", None) is not None:
+                raise NotPortedError(f"merging positions (field [{f}])")
+            if pb.impact is not None and \
+                    getattr(pb.impact, "kind", "bm25") != "bm25":
+                raise NotPortedError(f"merging a feature impact plane "
+                                     f"(field [{f}])")
+
+
+def _merge_ids_sources(segments, live_masks):
+    """-> (ids, sources): lists as the reference builds them, or
+    MergedViews where an input's are lazy."""
+    kept = [np.flatnonzero(m) for m in live_masks]
+    if all(isinstance(s.ids, list) and isinstance(s.sources, list)
+           for s in segments):
+        ids, sources = [], []
+        for s, k in zip(segments, kept):
+            ids.extend(s.ids[i] for i in k)
+            sources.extend(s.sources[i] for i in k)
+        return ids, sources
+    finders = [getattr(s.ids, "find", None) or s.id2doc.get
+               for s in segments]
+    return (MergedView([s.ids for s in segments], kept, finders),
+            MergedView([s.sources for s in segments], kept))
+
+
+def _merge_postings(field: str, segments, dmaps, device):
+    """One field's CSR postings over the merged doc ids, or None when no
+    input holds a posting of it; -> (PostingsBlock, sort seconds)."""
+    vocab_union = sorted({t for s in segments if field in s.postings
+                          for t in s.postings[field].vocab})
+    new_row_of = {t: i for i, t in enumerate(vocab_union)}
+    rows_parts, docs_parts, tfs_parts = [], [], []
+    for s, dmap in zip(segments, dmaps):
+        pb = s.postings.get(field)
+        if pb is None or pb.size == 0:
+            continue
+        row_map = np.fromiter((new_row_of[t] for t in pb.vocab), np.int32,
+                              count=len(pb.vocab))
+        rows = np.repeat(row_map, np.diff(pb.starts))
+        new_docs = dmap.astype(np.int32)[pb.doc_ids]
+        tfs = pb.tfs
+        if s.live_count != s.ndocs:
+            keep = new_docs >= 0
+            rows, new_docs, tfs = rows[keep], new_docs[keep], tfs[keep]
+        rows_parts.append(rows)
+        docs_parts.append(new_docs)
+        tfs_parts.append(tfs)
+    if not rows_parts:
+        return None, 0.0
+    rows = np.concatenate(rows_parts)
+    docs = np.concatenate(docs_parts)
+    tfs = np.concatenate(tfs_parts)
+    del rows_parts, docs_parts, tfs_parts
+    starts = np.zeros(len(vocab_union) + 1, np.int64)
+    t0 = time.perf_counter()
+    if device_merge.use_device_merge(len(rows)):
+        _r, docs, tfs, _order, counts = device_merge.merge_sorted_runs(
+            rows, docs, tfs, len(vocab_union), device)
+        np.cumsum(counts.astype(np.int64), out=starts[1:])
+    else:
+        order = np.lexsort((docs, rows))
+        rows, docs, tfs = rows[order], docs[order], tfs[order]
+        np.cumsum(np.bincount(rows, minlength=len(vocab_union)),
+                  out=starts[1:])
+    t_sort = time.perf_counter() - t0
+    return PostingsBlock(field, vocab_union, new_row_of, starts,
+                         docs.astype(np.int32, copy=False),
+                         tfs.astype(np.float32, copy=False)), t_sort
+
+
+def merge_segments(name: str, segments: List[Segment],
+                   device=None) -> Segment:
+    """Compacting multiway merge of N segments into one; large postings
+    sort and impact planes quantize on `device` (the CPU when None)."""
+    _check_ported(segments)
+    t0 = time.perf_counter()
+    live_masks = [s.live.astype(bool) for s in segments]
+    ndocs = sum(int(m.sum()) for m in live_masks)
+    check_no_reorder(ndocs, default_codec_version())
+    dmaps = doc_maps(segments)
+    ids, sources = _merge_ids_sources(segments, live_masks)
+    seq_nos = np.empty(ndocs, np.int64)
+    for s, m, dmap in zip(segments, live_masks, dmaps):
+        seq_nos[dmap[m]] = s.seq_nos[m]
+
+    t_sort = 0.0
+    postings: Dict[str, PostingsBlock] = {}
+    for f in sorted({f for s in segments for f in s.postings}):
+        pb, ts = _merge_postings(f, segments, dmaps, device)
+        t_sort += ts
+        if pb is not None:
+            postings[f] = pb
+
+    numeric_cols: Dict[str, NumericColumn] = {}
+    for f in sorted({f for s in segments for f in s.numeric_cols}):
+        values = np.zeros(ndocs, np.int64)
+        present = np.zeros(ndocs, bool)
+        for s, m, dmap in zip(segments, live_masks, dmaps):
+            col = s.numeric_cols.get(f)
+            if col is None:
+                continue
+            values[dmap[m]] = col.values[m]
+            present[dmap[m]] = col.present[m]
+        numeric_cols[f] = NumericColumn(f, "int", values, present)
+
+    doc_lens: Dict[str, np.ndarray] = {}
+    text_stats: Dict[str, TextFieldStats] = {}
+    for f in sorted({f for s in segments for f in s.doc_lens}):
+        dl = np.zeros(ndocs, np.int64)
+        for s, m, dmap in zip(segments, live_masks, dmaps):
+            sdl = s.doc_lens.get(f)
+            if sdl is not None:
+                dl[dmap[m]] = sdl[m]
+        doc_lens[f] = dl
+        text_stats[f] = TextFieldStats(doc_count=int((dl > 0).sum()),
+                                       sum_dl=int(dl.sum()))
+
+    merged = Segment(name, ndocs, postings, doc_lens, text_stats, ids,
+                     sources, seq_nos=seq_nos, numeric_cols=numeric_cols)
+    t_host = time.perf_counter() - t0 - t_sort
+    t1 = time.perf_counter()
+    if default_codec_version() >= CODEC_V2:
+        merged.build_impacts(device=device)
+    LAST_MERGE.clear()
+    LAST_MERGE.update(host_concat_s=t_host, sort_s=t_sort,
+                      quantize_s=time.perf_counter() - t1)
+    return merged

@@ -27,6 +27,7 @@ ported.
 from __future__ import annotations
 
 import functools
+import json
 import math
 import os
 from dataclasses import dataclass
@@ -278,7 +279,10 @@ class Segment:
                         else np.zeros(ndocs, dtype=np.int64))
         self.live = np.ones(ndocs, dtype=bool)
         self.live_gen = 0         # bumped by every delete
-        self.id2doc: Dict[str, int] = {d: i for i, d in enumerate(ids)}
+        # a lazy id view is not enumerated: it answers through `find`
+        self.id2doc: Dict[str, int] = (
+            {d: i for i, d in enumerate(ids)} if isinstance(ids, list)
+            else {})
         # segment codec (CODEC_V1 | CODEC_V2): consumers branching on the
         # posting layout consult this attribute
         self.codec_version = int(codec_version)
@@ -414,6 +418,126 @@ class Segment:
                     if isinstance(t, torch.Tensor):
                         n += t.numel() * t.element_size()
         return n
+
+    def release_device(self) -> None:
+        """Drop the search layer's device state now (aligned postings,
+        heads, filtered views, quality tiers, filter masks and lists, the
+        general path's arrays), not at garbage collection: a merge calls
+        it on the segments it replaces."""
+        self.aligned = {}
+        self.device_arrays = {}
+        self.__dict__.pop("filter_lists", None)
+
+    # ---------------- persistence (flush / recovery) ----------------
+
+    def save(self, path: str) -> None:
+        """Write the segment under `path` in the reference's layout
+        (arrays.npz, meta.json, vocab files, stored.jsonl): live mask,
+        seq_nos, codec, postings, impact planes and their sidecars,
+        numeric columns, doc lengths and text stats, so that `load`
+        serves bit-equal pages without re-quantizing."""
+        os.makedirs(path, exist_ok=True)
+        arrays: Dict[str, np.ndarray] = {"live": self.live,
+                                         "seq_nos": self.seq_nos}
+        meta: dict = {"name": self.name, "ndocs": self.ndocs,
+                      "codec": self.codec_version, "postings": {},
+                      "numeric": {}, "keyword": {}, "geo": {},
+                      "impacts": {},
+                      "text_stats": {f: [st.doc_count, st.sum_dl]
+                                     for f, st in self.text_stats.items()}}
+        for f, pb in self.postings.items():
+            key = f"post__{f}"
+            arrays[f"{key}__starts"] = pb.starts
+            arrays[f"{key}__doc_ids"] = pb.doc_ids
+            arrays[f"{key}__tfs"] = pb.tfs
+            ip = pb.impact
+            if ip is not None:
+                arrays[f"imp__{f}__q"] = ip.q
+                arrays[f"imp__{f}__bstarts"] = ip.block_starts
+                arrays[f"imp__{f}__boff"] = ip.block_off
+                arrays[f"imp__{f}__bmax"] = ip.block_max
+                meta["impacts"][f] = {"scale": ip.scale, "bits": ip.bits,
+                                      "k1": ip.k1, "b": ip.b,
+                                      "avgdl": ip.avgdl,
+                                      "dl_max": ip.dl_max, "kind": "bm25"}
+            meta["postings"][f] = {"vocab_file": True, "positional": False}
+            with open(os.path.join(path, f"vocab__{_fname(f)}.txt"),
+                      "w") as fh:
+                fh.write("\n".join(pb.vocab))
+        for f, col in self.numeric_cols.items():
+            arrays[f"num__{f}__values"] = col.values
+            arrays[f"num__{f}__present"] = col.present
+            meta["numeric"][f] = {"kind": col.kind}
+        for f, dl in self.doc_lens.items():
+            arrays[f"dl__{f}"] = dl
+        np.savez(os.path.join(path, "arrays.npz"), **arrays)
+        with open(os.path.join(path, "meta.json"), "w") as fh:
+            json.dump(meta, fh)
+        with open(os.path.join(path, "stored.jsonl"), "w") as fh:
+            for i in range(self.ndocs):
+                fh.write(json.dumps({"_id": self.ids[i],
+                                     "_source": self.sources[i]}) + "\n")
+
+    @classmethod
+    def load(cls, path: str) -> "Segment":
+        """A segment written by `save`. Planes the port does not have
+        (positions, keyword columns, geo) raise NotPortedError."""
+        with open(os.path.join(path, "meta.json")) as fh:
+            meta = json.load(fh)
+        if meta.get("keyword") or meta.get("geo") or meta.get("vector") \
+                or meta.get("shape") or meta.get("nested") \
+                or any(p.get("positional")
+                       for p in meta["postings"].values()):
+            raise NotPortedError("loading a segment with planes the port "
+                                 "does not have")
+        arrays = np.load(os.path.join(path, "arrays.npz"),
+                         allow_pickle=False)
+        ids, sources = [], []
+        with open(os.path.join(path, "stored.jsonl")) as fh:
+            for line in fh:
+                rec = json.loads(line)
+                ids.append(rec["_id"])
+                sources.append(rec["_source"])
+        postings = {}
+        for f in meta["postings"]:
+            with open(os.path.join(path, f"vocab__{_fname(f)}.txt")) as fh:
+                content = fh.read()
+            vocab = content.split("\n") if content else []
+            key = f"post__{f}"
+            pb = PostingsBlock(f, vocab, {t: i for i, t in enumerate(vocab)},
+                               arrays[f"{key}__starts"],
+                               arrays[f"{key}__doc_ids"],
+                               arrays[f"{key}__tfs"])
+            im = meta["impacts"].get(f)
+            if im is not None:
+                pb.impact = ImpactPlane(
+                    q=arrays[f"imp__{f}__q"], scale=float(im["scale"]),
+                    bits=int(im["bits"]), k1=float(im["k1"]),
+                    b=float(im["b"]), avgdl=float(im["avgdl"]),
+                    dl_max=int(im["dl_max"]),
+                    block_starts=arrays[f"imp__{f}__bstarts"],
+                    block_off=arrays[f"imp__{f}__boff"],
+                    block_max=arrays[f"imp__{f}__bmax"])
+            postings[f] = pb
+        numeric = {f: NumericColumn(f, m["kind"],
+                                    arrays[f"num__{f}__values"],
+                                    arrays[f"num__{f}__present"])
+                   for f, m in meta["numeric"].items()}
+        doc_lens = {k[len("dl__"):]: arrays[k] for k in arrays.files
+                    if k.startswith("dl__")}
+        seg = cls(meta["name"], meta["ndocs"], postings, doc_lens,
+                  {f: TextFieldStats(dc, sd)
+                   for f, (dc, sd) in meta["text_stats"].items()},
+                  ids, sources, seq_nos=arrays["seq_nos"],
+                  codec_version=int(meta.get("codec", CODEC_V1)),
+                  numeric_cols=numeric)
+        seg.live = arrays["live"].copy()
+        seg.id2doc = {d: i for i, d in enumerate(ids) if seg.live[i]}
+        return seg
+
+
+def _fname(field: str) -> str:
+    return field.replace("/", "_")
 
 
 def pack_postings(parsed_docs: list) -> Dict[str, PostingsBlock]:

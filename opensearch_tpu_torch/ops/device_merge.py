@@ -1,6 +1,14 @@
-"""Device-side codec-v2 impact quantizer (the impact subset of
-opensearch_tpu/ops/device_merge.py; its sorted-run merge comes with segment
-merges).
+"""Device-side sorted-run merge and codec-v2 impact quantizer (a port of
+opensearch_tpu/ops/device_merge.py as torch ops on the engine's device).
+
+`merge_sorted_runs` is the compute core of a segment merge
+(`index/merge.py`): each input's postings, remapped to (union row, new
+doc, tf) triples, are sorted by (row, doc) and sliced into CSR runs. At
+DEVICE_MERGE_MIN postings and above the sort runs on the device as one
+stable sort of the composite key `row << 32 | doc`, carrying the source
+index (`order`) and the tf; below it the numpy branch of the merge runs,
+as the reference splits them. Both equal `np.lexsort((docs, rows))`
+bit for bit.
 
 Above DEVICE_IMPACT_MIN postings the quantizer runs as torch ops on the
 engine's device, so refresh does not serialize on a host pass; below it
@@ -17,7 +25,36 @@ from typing import Tuple
 import numpy as np
 import torch
 
+# below this many postings the device round trip costs more than numpy
+DEVICE_MERGE_MIN = 1 << 16
 DEVICE_IMPACT_MIN = 1 << 16
+
+
+def merge_sorted_runs(rows: np.ndarray, docs: np.ndarray, tfs: np.ndarray,
+                      n_rows: int, device=None
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray, np.ndarray]:
+    """-> (rows i32, docs i32, tfs f32, order i32, per-row counts i32),
+    sorted by (row, doc) on `device` (the CPU when None). `order` is the
+    permutation applied; rows lie in [0, n_rows) and docs in [0, 2^31)."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    r = torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(dev)
+    d = torch.from_numpy(np.ascontiguousarray(docs, np.int32)).to(dev)
+    key = (r.to(torch.int64) << 32) | d.to(torch.int64)
+    del r, d
+    key, order = torch.sort(key, stable=True)
+    t = torch.from_numpy(np.ascontiguousarray(tfs, np.float32)).to(dev)
+    t = t[order]
+    r = (key >> 32).to(torch.int32)
+    d = (key & 0xFFFFFFFF).to(torch.int32)
+    del key
+    counts = torch.bincount(r, minlength=n_rows)[:n_rows].to(torch.int32)
+    return (r.cpu().numpy(), d.cpu().numpy(), t.cpu().numpy(),
+            order.to(torch.int32).cpu().numpy(), counts.cpu().numpy())
+
+
+def use_device_merge(total_postings: int) -> bool:
+    return total_postings >= DEVICE_MERGE_MIN
 
 
 def quantize_impacts(tfs: np.ndarray, dl_of: np.ndarray, k1: float,

@@ -1,14 +1,19 @@
-"""RestClient: the dict-in / dict-out API facade (the index, bulk, search,
-msearch and indices subset of opensearch_tpu/rest/client.py), with the
-same request and response shapes for this subset.
+"""RestClient: the dict-in / dict-out API facade (the document, bulk,
+search, msearch and indices subset of opensearch_tpu/rest/client.py),
+with the same request and response shapes for this subset.
 
 An index has one shard and no replicas. Its segments' postings live on the
-client's device: a card unless the caller asks for the CPU.
+client's device: a card unless the caller asks for the CPU. With a
+`data_path`, each index keeps its metadata in
+`<data_path>/<index>/index_meta.json` and its shard (translog, segments,
+commit point) under `<data_path>/<index>/0`, and a client opened on the
+same path recovers every index found there.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import uuid
 from typing import Dict, List, Optional
 
@@ -40,10 +45,12 @@ class ApiError(Exception):
 
 
 class IndexService:
-    """One index: its mappings, its single shard's engine and searcher."""
+    """One index: its mappings, its single shard's engine and searcher.
+    With a `data_path` the shard's engine lives under
+    `<data_path>/<name>/0`."""
 
     def __init__(self, name: str, body: Optional[dict],
-                 device: torch.device):
+                 device: torch.device, data_path: Optional[str] = None):
         body = body or {}
         for key in body:
             if key not in ("settings", "mappings"):
@@ -66,7 +73,9 @@ class IndexService:
         sim = settings.get("similarity", {})
         self.similarity = resolve_similarity(
             sim.get("default") if isinstance(sim, dict) else None)
-        self.engine = Engine(self.mappings, device=device)
+        self.body = body
+        path = os.path.join(data_path, name, "0") if data_path else None
+        self.engine = Engine(self.mappings, path=path, device=device)
         self.searcher = ShardSearcher(self.engine, device,
                                       similarity=self.similarity)
 
@@ -76,10 +85,30 @@ class RestClient:
     current card by default; "cpu" runs the plain versions and is taken
     only when asked for."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", data_path: Optional[str] = None):
         self.device = resolve_device(device)
+        self.data_path = data_path
         self.indices = IndicesClient(self)
         self._indices: Dict[str, IndexService] = {}
+        if data_path is not None:
+            os.makedirs(data_path, exist_ok=True)
+            self._recover_indices()
+
+    def _recover_indices(self) -> None:
+        """Open every index persisted under `data_path`: its metadata,
+        then its shard from the last commit point and the translog."""
+        for name in sorted(os.listdir(self.data_path)):
+            meta = os.path.join(self.data_path, name, "index_meta.json")
+            if not os.path.exists(meta):
+                continue
+            with open(meta) as fh:
+                body = json.load(fh)
+            self._indices[name] = IndexService(name, body, self.device,
+                                               self.data_path)
+
+    def close(self) -> None:
+        for svc in self._indices.values():
+            svc.engine.close()
 
     # ---------------- index resolution ----------------
 
@@ -120,10 +149,87 @@ class RestClient:
         res["_shards"] = {"total": 1, "successful": 1, "failed": 0}
         return res
 
+    def get(self, index: str, id: str, routing: Optional[str] = None
+            ) -> dict:
+        svc = self._svc(index)
+        res = svc.engine.get(id)
+        if res is None:
+            raise ApiError(404, "document_missing_exception",
+                           f"[{id}]: document missing")
+        res["_index"] = svc.name
+        return res
+
+    def exists(self, index: str, id: str,
+               routing: Optional[str] = None) -> bool:
+        try:
+            self.get(index, id, routing)
+            return True
+        except ApiError:
+            return False
+
+    def mget(self, body: dict, index: Optional[str] = None) -> dict:
+        docs = []
+        for spec in body.get("docs", []):
+            idx = spec.get("_index", index)
+            try:
+                docs.append(self.get(idx, spec["_id"], spec.get("routing")))
+            except ApiError:
+                docs.append({"_index": idx, "_id": spec["_id"],
+                             "found": False})
+        return {"docs": docs}
+
+    def delete(self, index: str, id: str, routing: Optional[str] = None,
+               refresh: bool = False, if_seq_no: Optional[int] = None,
+               if_primary_term: Optional[int] = None) -> dict:
+        svc = self._svc(index)
+        try:
+            res = svc.engine.delete_doc(id, if_seq_no, if_primary_term)
+        except VersionConflictError as e:
+            raise ApiError(409, "version_conflict_engine_exception", str(e))
+        if refresh:
+            svc.engine.refresh()
+        res["_index"] = svc.name
+        if res["result"] == "not_found":
+            raise ApiError(404, "document_missing_exception",
+                           f"[{id}]: not found")
+        return res
+
+    def update(self, index: str, id: str, body: dict,
+               routing: Optional[str] = None, refresh: bool = False) -> dict:
+        """Partial-doc update and upserts (reference UpdateHelper): `doc`
+        deep-merged into the current source (a no-op when nothing changes
+        and `detect_noop` holds), `doc_as_upsert`, `upsert`. Update
+        scripts are not ported and raise."""
+        svc = self._svc_for_write(index)
+        current = svc.engine.get(id)
+        if current is None:
+            if body.get("doc_as_upsert") and "doc" in body:
+                return self.index(index, body["doc"], id=id,
+                                  routing=routing, refresh=refresh)
+            if "upsert" in body:
+                if body.get("scripted_upsert") and "script" in body:
+                    raise NotPortedError("update script")
+                return self.index(index, dict(body["upsert"]), id=id,
+                                  routing=routing, refresh=refresh)
+            raise ApiError(404, "document_missing_exception",
+                           f"[{id}]: document missing")
+        src = dict(current["_source"])
+        if "doc" in body:
+            merged = _deep_merge(src, body["doc"])
+            if body.get("detect_noop", True) and merged == src:
+                return {"_index": svc.name, "_id": id, "result": "noop"}
+            return self.index(index, merged, id=id, routing=routing,
+                              refresh=refresh)
+        if "script" in body:
+            raise NotPortedError("update script")
+        raise ApiError(400, "action_request_validation_exception",
+                       "update requires doc, upsert or script")
+
     def bulk(self, body, index: Optional[str] = None,
              refresh: bool = False) -> dict:
         """Bulk API: an NDJSON string or a list of alternating action and
-        source dicts. `index` and `create` actions are served."""
+        source dicts; `index`, `create`, `delete` and `update` actions,
+        each item's status and error as the reference reports them."""
         if isinstance(body, str):
             lines = [json.loads(ln) for ln in body.splitlines() if ln.strip()]
         else:
@@ -135,18 +241,36 @@ class RestClient:
         while i < len(lines):
             ((action, meta),) = lines[i].items()
             i += 1
-            if action not in ("index", "create"):
-                raise NotPortedError(f"bulk action [{action}]")
             idx = meta.get("_index", index)
             doc_id = meta.get("_id")
             routing = meta.get("routing", meta.get("_routing"))
-            src = lines[i]
-            i += 1
             try:
-                res = self.index(idx, src, id=doc_id, routing=routing,
-                                 op_type=action)
-                status = 201 if res.get("result") == "created" else 200
-                items.append({action: {**res, "status": status}})
+                if action in ("index", "create"):
+                    src = lines[i]
+                    i += 1
+                    res = self.index(idx, src, id=doc_id, routing=routing,
+                                     op_type=action)
+                    status = 201 if res.get("result") == "created" else 200
+                    items.append({action: {**res, "status": status}})
+                elif action == "delete":
+                    try:
+                        res = self.delete(idx, doc_id, routing=routing)
+                        items.append({"delete": {**res, "status": 200}})
+                    except ApiError as e:
+                        if e.status != 404 or e.err_type \
+                                != "document_missing_exception":
+                            raise
+                        items.append({"delete": {
+                            "_index": idx, "_id": doc_id,
+                            "result": "not_found", "status": 404}})
+                elif action == "update":
+                    src = lines[i]
+                    i += 1
+                    res = self.update(idx, doc_id, src, routing=routing)
+                    items.append({"update": {**res, "status": 200}})
+                else:
+                    raise ApiError(400, "illegal_argument_exception",
+                                   f"unknown bulk action [{action}]")
                 touched.add(idx)
             except ApiError as e:
                 errors = True
@@ -196,7 +320,12 @@ class IndicesClient:
         if index in self.c._indices:
             raise ApiError(400, "resource_already_exists_exception",
                            f"index [{index}] already exists")
-        self.c._indices[index] = IndexService(index, body, self.c.device)
+        svc = IndexService(index, body, self.c.device, self.c.data_path)
+        self.c._indices[index] = svc
+        if self.c.data_path is not None:
+            with open(os.path.join(self.c.data_path, index,
+                                   "index_meta.json"), "w") as fh:
+                json.dump(svc.body, fh)
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": index}
 
@@ -205,3 +334,26 @@ class IndicesClient:
         for n in names:
             self.c._svc(n).engine.refresh()
         return {"_shards": {"successful": 1, "failed": 0}}
+
+    def flush(self, index: str = "_all") -> dict:
+        names = list(self.c._indices) if index == "_all" else [index]
+        for n in names:
+            self.c._svc(n).engine.flush()
+        return {"_shards": {"successful": len(names), "failed": 0}}
+
+    def forcemerge(self, index: str = "_all",
+                   max_num_segments: int = 1) -> dict:
+        names = list(self.c._indices) if index == "_all" else [index]
+        for n in names:
+            self.c._svc(n).engine.force_merge(max_num_segments)
+        return {"_shards": {"successful": 1, "failed": 0}}
+
+
+def _deep_merge(base: dict, patch: dict) -> dict:
+    out = dict(base)
+    for k, v in patch.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out

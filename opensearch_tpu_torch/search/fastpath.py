@@ -114,14 +114,22 @@ def _frontier(tfs: np.ndarray, dls: np.ndarray, ids: np.ndarray = None
     tf = tfs.astype(np.int64)
     dl_s32 = dls.astype(np.float32)
     if ids is not None:
-        order = np.lexsort((ids, dl_s32, tf))
+        # per tf class, in tf order: the min dl, the min id at that dl
+        # and the min id of the class (what a lexsort by (tf, dl, id)
+        # puts first), from one stable sort by tf and segment reductions
+        order = np.argsort(tf, kind="stable")
         tf_s = tf[order]
+        dl_s = dl_s32[order]
         id_s = ids[order].astype(np.int64)
         first = np.flatnonzero(
             np.concatenate(([True], tf_s[1:] != tf_s[:-1])))
-        id_any = np.minimum.reduceat(id_s, first)
-        return (tf_s[first].astype(np.float32), dl_s32[order][first],
-                id_s[first], id_any)
+        dl_min = np.minimum.reduceat(dl_s, first)
+        cls = np.cumsum(np.concatenate(([False], tf_s[1:] != tf_s[:-1])))
+        at_min = np.where(dl_s == dl_min[cls], id_s,
+                          np.iinfo(np.int64).max)
+        return (tf_s[first].astype(np.float32), dl_min,
+                np.minimum.reduceat(at_min, first),
+                np.minimum.reduceat(id_s, first))
     order = np.argsort(tf, kind="stable")
     tf_s = tf[order]
     dl_s = dl_s32[order]
@@ -305,12 +313,21 @@ def _head_select(doc_ids: np.ndarray, tfs: np.ndarray, dl_of: np.ndarray,
     else:
         avg = max(float(dlf.mean()), 1.0)
         c = _nominal_impact(tf, dlf, avg)
-    # stable sort: impact ties keep doc-ascending order
-    order = np.argsort(-c, kind="stable")
+    # the lh highest impacts, ties kept in doc-ascending order (what a
+    # stable sort by descending impact puts first); the frontier of the
+    # rest does not depend on the rest's order
     lh = L_HEAD if l_head is None else l_head
-    keep = order[:lh]
-    rest = order[lh:]
-    return np.sort(keep), _frontier(tf[rest], dlf[rest], doc_ids[rest])
+    n = len(c)
+    if n <= lh:
+        keep = np.arange(n)
+    else:
+        kth = np.partition(c, n - lh)[n - lh]
+        above = np.flatnonzero(c > kth)
+        ties = np.flatnonzero(c == kth)[:lh - len(above)]
+        keep = np.sort(np.concatenate([above, ties]))
+    rest = np.ones(n, bool)
+    rest[keep] = False
+    return keep, _frontier(tf[rest], dlf[rest], doc_ids[rest])
 
 
 def _pack_tfdl(seg, field: str, doc_ids: np.ndarray,

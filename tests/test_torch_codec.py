@@ -144,6 +144,43 @@ def test_error_bounds_match(segments, k1, b, avg):
         == ref_impactpath._error_bound(r, weights, rows, k1, b, avg)
 
 
+def _sorted_head_select(doc_ids, tfs, dl_of, lh, imp):
+    """The head selection written as sorts: a stable sort by descending
+    impact keeps the first lh, a lexsort by (tf, dl, id) of the rest
+    gives each tf class's first posting."""
+    tf, dlf = tfs.astype(np.float32), dl_of.astype(np.float32)
+    order = np.argsort(-imp, kind="stable")
+    keep, rest = np.sort(order[:lh]), order[lh:]
+    if len(rest) == 0:
+        return keep, fastpath._frontier(tf[rest], dlf[rest], doc_ids[rest])
+    t = tf[rest].astype(np.int64)
+    o = np.lexsort((doc_ids[rest], dlf[rest], t))
+    t_s, id_s = t[o], doc_ids[rest][o].astype(np.int64)
+    first = np.flatnonzero(np.concatenate(([True], t_s[1:] != t_s[:-1])))
+    return keep, (t_s[first].astype(np.float32), dlf[rest][o][first],
+                  id_s[first], np.minimum.reduceat(id_s, first))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_head_select_matches_its_sort_formulation(seed):
+    """_head_select and _frontier (a partition and one radix sort by tf)
+    equal the sorts they stand for, byte for byte, over rows of heavy
+    impact, tf and doc-length ties."""
+    rng = np.random.default_rng(seed)
+    for _ in range(40):
+        n = int(rng.integers(1, 4000))
+        tfs = rng.integers(1, int(rng.integers(2, 40)), n).astype(np.float32)
+        dls = rng.integers(1, int(rng.integers(2, 300)), n)
+        ids = np.sort(rng.choice(1 << 20, n, replace=False)).astype(np.int32)
+        imp = rng.integers(0, int(rng.integers(1, 50)), n) * 0.01
+        lh = int(rng.integers(1, 300))
+        got = fastpath._head_select(ids, tfs, dls, l_head=lh, imp=imp)
+        want = _sorted_head_select(ids, tfs, dls, lh, imp)
+        assert got[0].tobytes() == want[0].tobytes()
+        for g, w in zip(got[1], want[1]):
+            assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
 def test_heads_and_frontiers_match(segments, monkeypatch):
     rseg, pseg = segments
     monkeypatch.setattr(ref_fastpath, "L_HEAD", 64)
