@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (opensearch_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--ndocs N] [--queries Q] [--bool-queries B]
-                          [--general-queries G] [--seed S]
+                          [--general-queries G] [--phrase-queries P]
+                          [--phrase-sloppy S] [--seed S]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -23,7 +24,8 @@ Phases, each of which fails the script when it fails:
      query, each bool route a body, and the impact rung and the general
      path a body each;
   5. slice at MS MARCO passage scale: a synthetic corpus of --ndocs
-     passages attached as one codec-v2 segment, searched with
+     passages (with bench.py's guardrail columns and its positional
+     `title` field) attached as one codec-v2 segment, searched with
      RestClient.msearch twice: the pruned match ladder (the default
      bodies) and the dense path (the same bodies with track_total_hits);
      kernel groups of the first batch timed and held against the plain
@@ -38,6 +40,14 @@ Phases, each of which fails the script when it fails:
      against the plain version and timed, sampled bodies on the card held
      against the CPU, default pages against exact pages, and bodies
      against a numpy brute force;
+  9. (run after 6, before 7) phrase traffic over the same segment:
+     bench.py's config 3 (match_phrase over the title field), 3-term
+     sloppy phrases and phrase prefixes from seeded titles, and bench.py's
+     mixed stream (50% guardrail bools, 30% matches, 20% phrases); every
+     page against the numpy brute force (the exact phrase or the
+     median-cost join; the stream's bools against phase 6's pages), 2
+     bodies a class on the card against the CPU, the phrase program's
+     steps timed, one batch profiled;
   7. the general path and the impact rung over the same segment: bodies
      the fused kernels decline, --general-queries of each class (match_all
      from 0 and from 1000, a ~1% price range, a 9-term match with
@@ -54,16 +64,17 @@ Phases, each of which fails the script when it fails:
      (the reference's BP reorder is not ported; the merge's time by
      step, the device bytes around it) and, on it, the same 16 bodies
      in one batch, phase 5's match bodies pruned and with exact totals
-     and b3-mix bodies, each class on its kernel alone;
+     and b3-mix bodies, each class on its kernel alone, and 16 config-3
+     phrases on the general path (positions through the merge);
      every page against the numpy brute force with the writes applied,
      2 bodies a class on the card against the CPU. Phase 4 runs the write
      path small on the card and the CPU (tiered and forced merges, bulk
      deletes and updates, flush and recovery).
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
-call, the wrapper's host work inside). Then a line with phase 7's
-numbers, one with phase 8's, a line with the kernels' numbers and, last,
-the device line.
+call, the wrapper's host work inside). Then a line with phase 9's
+numbers, one with phase 7's, one with phase 8's, a line with the kernels'
+numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -1054,7 +1065,9 @@ def general_slice_bodies(words) -> list:
     """Bodies the fused kernels decline, over the small slice: match_all
     (from 0 and from 1000), a top-level range, a 9-token match (default
     totals and exact), a window past MAX_K, a mixed-field bool, a should
-    holding a nested bool and a range, exists and ids."""
+    holding a nested bool and a range, exists and ids, and phrases (a
+    sloppy match_phrase, a match_phrase_prefix, an unordered span_near,
+    a phrase filter)."""
     a, b, c = words[1:4]
     nine = " ".join(["the", "of"] + list(words[4:11]))
     pub = {"term": {"status": "published"}}
@@ -1073,6 +1086,14 @@ def general_slice_bodies(words) -> list:
             {"range": {"price": {"gte": 100, "lt": 150}}}]}}},
         {"query": {"exists": {"field": "price"}}, "size": 5},
         {"query": {"ids": {"values": ["d3", "d7600", "d42"]}}},
+        {"query": {"match_phrase": {"body": {"query": f"{a} {b}",
+                                             "slop": 3}}}},
+        {"query": {"match_phrase_prefix": {"body": f"{a} {b[:1]}"}}},
+        {"query": {"span_near": {"clauses": [
+            {"span_term": {"body": a}}, {"span_term": {"body": c}}],
+            "slop": 4, "in_order": False}}},
+        {"query": {"bool": {"must": [{"match": {"body": a}}], "filter": [
+            {"match_phrase": {"body": {"query": f"{b} {c}", "slop": 2}}}]}}},
     ]
 
 
@@ -1358,14 +1379,17 @@ def log_run(what: str, n: int, wall: float, lat, counts, rungs, resps):
     log(f"  {what}: rungs " + " ".join(f"{k}={rungs[k]}" for k in RUNGS))
 
 
+BENCH_MAPPING = {"mappings": {"properties": {
+    "body": {"type": "text"}, "title": {"type": "text"},
+    "status": {"type": "keyword"}, "price": {"type": "integer"}}}}
+
+
 def cpu_twin(seg):
     """A RestClient on the CPU over the same segment object (the bench
     index's mappings)."""
     from opensearch_tpu_torch import RestClient
     cpu = RestClient(device="cpu")
-    cpu.indices.create("bench", {"mappings": {"properties": {
-        "body": {"type": "text"}, "status": {"type": "keyword"},
-        "price": {"type": "integer"}}}})
+    cpu.indices.create("bench", BENCH_MAPPING)
     cpu._indices["bench"].engine.segments = [seg]
     return cpu
 
@@ -1378,15 +1402,19 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
     from opensearch_tpu_torch.search import query_dsl as dsl
 
     t0 = time.perf_counter()
-    corpus = bc.build_corpus(ndocs)
+    corpus = bc.build_corpus(ndocs, device="cuda")
     columns = bc.guardrail_columns(ndocs)
     t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    title = bc.build_title_corpus(ndocs)
+    t_title = time.perf_counter() - t0
     client = RestClient(device="cuda")
     dev = client.device
     t1 = time.perf_counter()
-    # the guardrail columns ride the same segment for phase 6; no query
-    # of this phase reads them
-    seg = bc.make_index(client, corpus, columns=columns)
+    # the guardrail columns ride the same segment for phase 6, the
+    # positional title field for phase 9; no query of this phase reads
+    # them
+    seg = bc.make_index(client, corpus, columns=columns, title=title)
     torch.cuda.synchronize()
     t_planes = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -1402,6 +1430,10 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
         f"host_build_s={t_corpus:.1f} planes_s={t_planes:.1f} "
         f"heads_align_upload_s={t_align:.1f} clamped_rows={int(big.sum())}"
         f" clamped_postings={int(al.lens[big].sum())}")
+    tpb = seg.postings["title"]
+    log(f"  title (positional, bench.py's config 3): postings={tpb.size} "
+        f"positions={len(tpb.positions)} host_build_s={t_title:.1f} "
+        f"(planes_s includes its impact plane)")
     log(f"  resident bytes: docs={al.d_docs.numel() * 4} "
         f"tfdl={al.d_tfdl.numel() * 4} impacts={al.d_imp.numel() * 4} "
         f"(of which heads: {12 * n_head} over {n_head} head postings) "
@@ -1573,7 +1605,7 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
             "impact_launches": counts["impact_launches"],
             "max_abs_err": worst, "b1": b1, "b2": b2, "client": client,
             "seg": seg, "corpus": corpus, "columns": columns,
-            "a_docs": a_docs, "bodies": bodies,
+            "title": title, "a_docs": a_docs, "bodies": bodies,
             "body_terms": [t for i in range(nq // 2)
                            for t in (list(q2[i][:2]), list(q6[i]))]}
 
@@ -1811,13 +1843,291 @@ def phase_bool_msmarco(big: dict, nq: int) -> dict:
                     f"{got_sc.tolist()} {t} vs {ids} {scores} {total}")
         log(f"  {name}: 16 bodies == numpy brute force (ids, order, scores "
             f"within (T+1)*2^-23, totals) ({time.perf_counter() - t0:.1f}s)")
-    return {"guardrail_bool_launches":
+    return {"queries": queries,
+            "guardrail_resps": res["guardrail"]["resps"],
+            "guardrail_bool_launches":
             res["guardrail"]["counts"]["bool_launches"],
             "b3_bool_launches": res["b3"]["counts"]["bool_launches"],
             "bool_launches": sum(r["counts"]["bool_launches"]
                                  for r in res.values()),
             "b3": b3["largest"], "warm": warm_b3["largest"],
             "max_abs_err": max(b3["max_abs_err"], warm_b3["max_abs_err"])}
+
+
+# ---------------------------------------------------------------------
+# phase 9: phrase traffic (bench.py's config 3 and its mixed stream)
+# ---------------------------------------------------------------------
+
+def title_tokens(title, docs, ndocs: int) -> dict:
+    """{doc: [title term row by position]} of the docs `docs` (of
+    `ndocs`), read back from the positional CSR."""
+    starts, tdocs, _tfs, pos_starts, positions = title[:5]
+    want = np.zeros(ndocs, bool)
+    want[np.asarray(docs, np.int64)] = True
+    idx = np.flatnonzero(want[tdocs])
+    rows = np.searchsorted(starts, idx, side="right") - 1
+    out = {int(d): {} for d in docs}
+    for j, r in zip(idx.tolist(), rows.tolist()):
+        d = int(tdocs[j])
+        for p in positions[pos_starts[j]:pos_starts[j + 1]].tolist():
+            out[d][p] = r
+    return {d: [t[p] for p in sorted(t)] for d, t in out.items()}
+
+
+def phrase_classes(title, ndocs: int, nq: int, n_sp: int,
+                   seed: int = 23) -> dict:
+    """Phase 9's phrase bodies with their brute-force oracles: config 3
+    (bench.py's phrase_body, `nq` of them) and `n_sp` bodies taken from
+    seeded titles, half a 3-term match_phrase with slop 2 (the tokens as
+    they stand, or with one token between the first and second), half a
+    match_phrase_prefix whose last term is cut to 2 characters."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+    first, second = title[5], title[6]
+    pairs = bc.pick_phrase_pairs(title[7], nq)
+
+    def oracle(terms, slop=0, prefix=False):
+        return lambda ix: ix.phrase_page(terms, slop, prefix)
+
+    config3 = [(bc.phrase_body(i, pairs, title),
+                oracle([tvs[first[pairs[i]]], tvs[second[pairs[i]]]]))
+               for i in range(nq)]
+    rng = np.random.default_rng(seed)
+    docs = sorted(rng.choice(ndocs, n_sp, replace=False).tolist())
+    toks = title_tokens(title, docs, ndocs)
+    sloppy, prefix = [], []
+    for k, d in enumerate(docs):
+        t = [tvs[r] for r in toks[d]]
+        j = int(rng.integers(0, len(t) - 3))
+        if k % 2 == 0:
+            terms = ([t[j], t[j + 1], t[j + 2]] if k % 4 == 0
+                     else [t[j], t[j + 2], t[j + 3]])
+            sloppy.append(({"query": {"match_phrase": {"title": {
+                "query": " ".join(terms), "slop": 2}}}, "size": 10},
+                oracle(terms, 2)))
+        else:
+            terms = [t[j], t[j + 1], t[j + 2][:2]]
+            prefix.append(({"query": {"match_phrase_prefix": {
+                "title": " ".join(terms)}}, "size": 10},
+                oracle(terms, 0, True)))
+    return {"config3": config3, "sloppy": sloppy, "prefix": prefix,
+            "pairs": pairs}
+
+
+def phrase_op_timer():
+    """Wrap the phrase program's steps: the host pair build (host
+    seconds) and, with CUDA events around their launches, the pair join
+    (searches and costs), the frequency accumulation, the score and the
+    top-k: -> (restore(), {step: [(start, end)]}, {host step: s})."""
+    import torch
+    from opensearch_tpu_torch.ops import positions, scoring
+    from opensearch_tpu_torch.search import compiler as C
+    spans: dict = {}
+    host = {"pair_build_s": 0.0}
+    saved = []
+    for mod, name, label in ((positions, "anchor_weights", "pair_join"),
+                             (positions, "accumulate_freqs",
+                              "freq_accumulate"),
+                             (positions, "phrase_score", "phrase_score"),
+                             (scoring, "topk_docs", "topk")):
+        real = getattr(mod, name)
+
+        def timed(*a, _real=real, _label=label, **kw):
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            out = _real(*a, **kw)
+            s1.record()
+            spans.setdefault(_label, []).append((s0, s1))
+            return out
+        setattr(mod, name, timed)
+        saved.append((mod, name, real))
+    real_pairs = C.phrase_pairs
+
+    def pairs(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_pairs(*a, **kw)
+        host["pair_build_s"] += time.perf_counter() - t0
+        return out
+    C.phrase_pairs = pairs
+    saved.append((C, "phrase_pairs", real_pairs))
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return restore, spans, host
+
+
+def pair_cache_bytes(seg, dev) -> int:
+    """Device bytes of the segment's phrase pair keys on `dev`."""
+    return sum(v.numel() * v.element_size()
+               for k, v in seg.device_arrays.items()
+               if k[0] == "pairs" and k[-1] == str(dev))
+
+
+def run_phrase_class(client, name: str, bodies, check, sample, cpu,
+                     seg) -> dict:
+    """One phase-9 class through msearch in BATCH-body requests (counts,
+    rungs and the general path's count set to 0 just before; the host
+    pair build timed through the run), `check(i, response)` on every
+    page, the sampled bodies on the card against the CPU, OP_BODIES
+    phrase bodies again under the step timer, one batch profiled: -> the
+    class's numbers."""
+    import torch
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import impactpath
+    dev = client.device
+    impactpath.reset_stats()
+    C.reset_stats()
+    restore, _spans, host = phrase_op_timer()
+    try:
+        resps, wall, lat, counts, rungs = run_batches(client, bodies)
+    finally:
+        restore()
+    general = C.STATS["general_served"]
+    impact = impactpath.STATS["served"]
+    t0 = time.perf_counter()
+    for i, r in enumerate(resps):
+        check(i, r)
+    t_oracle = time.perf_counter() - t0
+    lines = sum([[{}, bodies[i]] for i in sample], [])
+    t0 = time.perf_counter()
+    if strip_took(client.msearch(lines, index="bench")) \
+            != strip_took(cpu.msearch(lines, index="bench")):
+        raise AssertionError(f"{name}: sampled bodies: card and CPU "
+                             f"responses differ")
+    t_cpu = time.perf_counter() - t0
+    phr = [b for b in bodies if "match_phrase" in b["query"]
+           or "match_phrase_prefix" in b["query"]][:OP_BODIES]
+    restore, spans, _host = phrase_op_timer()
+    try:
+        client.msearch(sum([[{}, b] for b in phr], []), index="bench")
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    step_ms = {k: sum(a.elapsed_time(e) for a, e in v) / max(len(phr), 1)
+               for k, v in spans.items()}
+    idle = profile_batch(client, bodies[:BATCH])
+    n = len(bodies)
+    nbytes = pair_cache_bytes(seg, dev)
+    log(f"  {name}: queries={n} batch={BATCH} wall_s={wall:.2f} "
+        f"qps={n / wall:.1f} batch_ms_p50={np.percentile(lat, 50):.1f} "
+        f"batch_ms_p99={np.percentile(lat, 99):.1f} "
+        f"{after_first(n, wall, lat)}routes general={general} "
+        f"impact_served={impact} kernel launches B1={counts['launches']} "
+        f"B2={counts['impact_launches']} B3={counts['bool_launches']} "
+        f"plain_calls={counts['plain_calls']} rungs " + " ".join(
+            f"{k}={v}" for k, v in rungs.items() if v)
+        + f"; host pair build {host['pair_build_s']:.2f}s; {n} pages "
+        f"checked ({t_oracle:.1f}s); {len(sample)} sampled card == CPU "
+        f"({t_cpu:.1f}s); event ms per phrase body "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(step_ms.items()))
+        + f"; pair cache device bytes {nbytes}")
+    out = {"qps": n / wall, "p50": float(np.percentile(lat, 50)),
+           "p99": float(np.percentile(lat, 99)), "first_batch_ms": lat[0],
+           "general": general, "impact_served": impact, "counts": counts,
+           "rungs": rungs, "host_pair_build_s": host["pair_build_s"],
+           "step_event_ms_per_body": step_ms, "idle_share_one_batch": idle,
+           "pair_cache_bytes": nbytes}
+    if len(lat) > 1:
+        out["qps_after_first_batch"] = (n - BATCH) / (wall - lat[0] / 1e3)
+    return out
+
+
+def phase_phrase_msmarco(big: dict, bools: dict, nq: int, n_sp: int,
+                         n_mixed: int) -> dict:
+    """bench.py's config 3 (`nq` phrase_body bodies), sloppy and prefix
+    phrases (`n_sp`, from seeded titles) and its mixed stream (`n_mixed`
+    mixed_body bodies) over phase 5's segment after phase 6's filters
+    were built; no state changes. Every config-3, sloppy and prefix page
+    against the numpy brute force's phrase (exact or median-cost join);
+    the mixed stream's bools against phase 6's responses to the same
+    bodies (checked there), its matches and phrases against the brute
+    force; 2 bodies a class on the card against the CPU."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    client, seg = big["client"], big["seg"]
+    ix = big.get("ix")
+    if ix is None:
+        ix = big["ix"] = NumpyIndex(big["corpus"], big["columns"],
+                                    big["title"])
+    cpu = cpu_twin(seg)
+    title = big["title"]
+    t0 = time.perf_counter()
+    classes = phrase_classes(title, seg.ndocs, nq, n_sp)
+    log(f"  bodies: {nq} config 3, {len(classes['sloppy'])} sloppy, "
+        f"{len(classes['prefix'])} prefix, {n_mixed} mixed "
+        f"({time.perf_counter() - t0:.1f}s to pick)")
+    srng = np.random.default_rng(29)
+    memo: dict = {}
+    out: dict = {}
+
+    def checker(name, items):
+        def check(i, r):
+            b = json.dumps(items[i][0], sort_keys=True)
+            if b not in memo:
+                memo[b] = items[i][1](ix)
+            check_page(r, memo[b], f"{name} body {items[i][0]}")
+        return check
+
+    for name in ("config3", "sloppy", "prefix"):
+        items = classes[name]
+        sample = sorted(srng.choice(len(items), 2, replace=False).tolist())
+        out[name] = run_phrase_class(client, name, [b for b, _o in items],
+                                     checker(name, items), sample, cpu, seg)
+        c = out[name]["counts"]
+        if out[name]["general"] != len(items) or c["launches"] \
+                or c["impact_launches"] or c["bool_launches"] \
+                or c["plain_calls"]:
+            raise AssertionError(f"{name}: phrases not served by the "
+                                 f"general path alone: {out[name]}")
+    # the mixed stream: bench.py's mixed_body over phase 6's queries
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    queries = bools["queries"]
+    if n_mixed > len(queries):
+        raise AssertionError("the mixed stream needs phase 6's bodies")
+    pairs = classes["pairs"]
+    if n_mixed > len(pairs):
+        pairs = bc.pick_phrase_pairs(title[7], n_mixed)
+    bodies = [bc.mixed_body(i, queries, vs, pairs, title)
+              for i in range(n_mixed)]
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+
+    def check_mixed(i, r):
+        r10 = i % 10
+        if r10 < 5:
+            if strip_took(r) != strip_took(bools["guardrail_resps"][i]):
+                raise AssertionError(f"mixed body {i}: the guardrail bool's"
+                                     f" page differs from phase 6's")
+        elif r10 < 8:
+            check_page(r, ix.group_page([int(t) for t in queries[i][:2]]),
+                       f"mixed match body {bodies[i]}")
+        else:
+            b = json.dumps(bodies[i], sort_keys=True)
+            if b not in memo:
+                pi = pairs[i]
+                memo[b] = ix.phrase_page([tvs[title[5][pi]],
+                                          tvs[title[6][pi]]])
+            check_page(r, memo[b], f"mixed phrase body {bodies[i]}")
+
+    sample = sorted(srng.choice(n_mixed, 2, replace=False).tolist())
+    out["mixed"] = run_phrase_class(client, "mixed", bodies, check_mixed,
+                                    sample, cpu, seg)
+    c = out["mixed"]
+    kinds = Counter("bool" if i % 10 < 5 else "match" if i % 10 < 8
+                    else "phrase" for i in range(n_mixed))
+    launched = sum(c["counts"][k] for k in ("launches", "impact_launches",
+                                            "bool_launches"))
+    if c["general"] != kinds["phrase"] \
+            or c["rungs"]["bool_served"] != kinds["bool"] \
+            or c["rungs"]["pure_served"] != kinds["match"] or not launched \
+            or c["counts"]["plain_calls"]:
+        raise AssertionError(f"mixed: the bools and matches did not keep "
+                             f"their kernels, or the phrases their general "
+                             f"path: {c}")
+    log(f"  mixed: {n_mixed} pages checked (bools == phase 6's pages, "
+        f"matches and phrases == numpy brute force)")
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -1839,7 +2149,7 @@ class NumpyIndex:
     order across a merge, so they break score ties as the merged ids
     do."""
 
-    def __init__(self, corpus, columns):
+    def __init__(self, corpus, columns, title=None):
         starts, doc_ids, tfs, dl, df = corpus
         self.starts, self.doc_ids, self.tfs, self.df0 = starts, doc_ids, tfs, df
         self.n0 = len(dl)
@@ -1852,6 +2162,10 @@ class NumpyIndex:
         self.contrib: dict = {}        # long row -> (docs, BM25 terms)
         self.counted = np.ones(self.n0, bool)   # docs in the statistics
         self.n_stats = self.n0                  # maxDoc
+        # the positional title field of the corpus docs (bench_corpus.
+        # build_title_corpus); docs indexed later have no title
+        self.title = title
+        self.has_title = np.full(self.n0, title is not None)
 
     @property
     def n(self) -> int:
@@ -1868,6 +2182,7 @@ class NumpyIndex:
         g = self.n
         self.live = np.append(self.live, True)
         self.counted = np.append(self.counted, True)
+        self.has_title = np.append(self.has_title, False)
         self.n_stats += 1
         self.dl = np.append(self.dl, np.float32(len(terms)))
         self.sum_dl += len(terms)
@@ -1940,6 +2255,20 @@ class NumpyIndex:
         ok = count >= max(msm, 1)
         return np.where(ok, score, np.float32(0.0)), ok
 
+    def group_page(self, terms, frm: int = 0, size: int = 10) -> tuple:
+        """page() of group(terms) from the terms' postings alone (the
+        scores of the docs they hold, summed in term order)."""
+        parts = [self.contributions(t) for t in terms]
+        docs, inv = np.unique(np.concatenate([d for d, _c in parts]),
+                              return_inverse=True)
+        score = np.zeros(len(docs), np.float32)
+        np.add.at(score, inv, np.concatenate([c for _d, c in parts]))
+        keep = self.live[docs]
+        docs, score = docs[keep], score[keep]
+        sel = np.lexsort((docs, -score))[frm:frm + size]
+        return ([self.id_of(int(g)) for g in docs[sel]],
+                score[sel].astype(np.float32).tolist(), len(docs))
+
     def bool_page(self, slots, fam_msm: int, mask, const,
                   size: int = 10) -> tuple:
         """A bool body as phase 6's `oracle_page` reads it (term slots
@@ -1960,6 +2289,151 @@ class NumpyIndex:
         if const is not None:
             score = np.full(self.n, np.float32(const), np.float32)
         return self.page(score, passed, 0, size)
+
+    # ---------------- the positional title field ----------------
+
+    def title_rows(self, term: str, prefix: bool = False,
+                   cap: int = 50) -> list:
+        """Title vocab rows of `term`, or the first `cap` rows starting
+        with it (`prefix`); the vocab is bench_corpus.title_vocab_strings,
+        sorted."""
+        from opensearch_tpu_torch import bench_corpus as bc
+        vocab = bc.title_vocab_strings(len(self.title[0]) - 1)
+        if prefix:
+            return [r for r, v in enumerate(vocab)
+                    if v.startswith(term)][:cap]
+        return [vocab.index(term)] if term in vocab else []
+
+    def title_docs(self, r: int) -> np.ndarray:
+        """Counted docs of title row r (ascending)."""
+        starts, docs = self.title[0], self.title[1]
+        d = docs[int(starts[r]):int(starts[r + 1])].astype(np.int64)
+        return d[self.counted[d]] if self.n_stats != self.n else d
+
+    def title_pairs(self, rows, cand: np.ndarray) -> np.ndarray:
+        """Lex-sorted (doc << 32 | position + 2^31) keys of the title
+        rows' occurrences in the docs `cand` (sorted)."""
+        starts, docs, _tfs, pos_starts, positions = self.title[:5]
+        keys = []
+        for r in rows:
+            a, b = int(starts[r]), int(starts[r + 1])
+            if b == a:
+                continue
+            rd = docs[a:b]
+            j = np.searchsorted(rd, cand)
+            j = j[(j < len(rd)) & (rd[np.minimum(j, len(rd) - 1)] == cand)]
+            lens = (pos_starts[a + j + 1] - pos_starts[a + j]).astype(
+                np.int64)
+            idx = (np.repeat(pos_starts[a + j] - (np.cumsum(lens) - lens),
+                             lens) + np.arange(int(lens.sum())))
+            keys.append((np.repeat(rd[j].astype(np.int64), lens) << 32)
+                        | (positions[idx].astype(np.int64) + (1 << 31)))
+        out = np.concatenate(keys) if keys else np.zeros(0, np.int64)
+        return np.sort(out) if len(rows) > 1 else out
+
+    def title_stats(self):
+        """(avgdl f32, maxDoc) of the title field over the counted docs:
+        every title holds TITLE_DL tokens."""
+        from opensearch_tpu_torch import bench_corpus as bc
+        got = self.contrib.get("title_stats")     # reset by add, compact
+        if got is None:
+            dc = int((self.counted & self.has_title).sum())
+            got = (np.float32(bc.TITLE_DL * dc / dc) if dc else
+                   np.float32(1.0), self.n_stats)
+            self.contrib["title_stats"] = got
+        return got
+
+    def phrase(self, terms, slop: int = 0, prefix_last: bool = False,
+               max_expansions: int = 50):
+        """A title match_phrase(_prefix) over the brute force, as Lucene
+        defines it with the reference's total-movement slop: each
+        occurrence of term 0 anchors the others at their nearest
+        occurrence (the later one on a tie) shifted by their query offset;
+        its cost is the moves' total distance to their median, it counts
+        1/(1 + cost) where every term occurs and cost <= slop, summed per
+        doc in anchor order; BM25 over that frequency with the terms' idf
+        sum as weight (a prefix last term: its first `max_expansions`
+        expansions, their union df capped at maxDoc). -> (docs, scores)
+        of the docs the phrase occurs in, deleted ones included."""
+        import math
+        from opensearch_tpu_torch import bench_corpus as bc
+        avgdl, n = self.title_stats()
+        m = len(terms)
+        rows = [tuple(self.title_rows(t, prefix_last and i == m - 1,
+                                      max_expansions))
+                for i, t in enumerate(terms)]
+        none = (np.zeros(0, np.int64), np.zeros(0, np.float32))
+        w = 0.0
+        for rr in rows:
+            df = sum(len(self.title_docs(r)) for r in rr)
+            if df > 0:
+                df = min(df, n)
+                w += math.log(1.0 + (n - df + 0.5) / (df + 0.5))
+        if not all(rows):
+            return none
+        # candidates: docs holding every term
+        sets = [self.title_set(rr) for rr in rows]
+        cand = min(sets, key=len)
+        for other in sets:
+            if len(other) == 0:
+                return none
+            j = np.searchsorted(other, cand)
+            cand = cand[(j < len(other))
+                        & (other[np.minimum(j, len(other) - 1)] == cand)]
+        if len(cand) == 0:
+            return none
+        keys = [self.title_pairs(rr, cand) for rr in rows]
+        d0 = keys[0] >> 32
+        p0 = (keys[0] & 0xFFFFFFFF) - (1 << 31)
+        ok = np.ones(len(d0), bool)
+        deltas = [np.zeros(len(d0), np.float32)]
+        for i, k in enumerate(keys[1:], start=1):
+            q = (d0 << 32) | (p0 + i + (1 << 31))
+            j = np.searchsorted(k, q)
+            jr = np.minimum(j, len(k) - 1)
+            jl = np.maximum(j - 1, 0)
+            r_ok = (j < len(k)) & ((k[jr] >> 32) == d0)
+            l_ok = (j > 0) & ((k[jl] >> 32) == d0)
+            r_d = ((k[jr] & 0xFFFFFFFF) - (1 << 31) - i - p0)
+            l_d = ((k[jl] & 0xFFFFFFFF) - (1 << 31) - i - p0)
+            r_cost = np.where(r_ok, r_d, np.iinfo(np.int64).max)
+            l_cost = np.where(l_ok, -l_d, np.iinfo(np.int64).max)
+            deltas.append(np.where(r_cost <= l_cost, r_d, l_d).astype(
+                np.float32))
+            ok &= r_ok | l_ok
+        med = np.sort(np.stack(deltas), axis=0)[m // 2]
+        cost = np.zeros(len(d0), np.float32)
+        for dl_ in deltas:
+            cost = cost + np.abs(dl_ - med)
+        ok &= cost <= np.float32(slop)
+        docs, inv = np.unique(d0[ok], return_inverse=True)
+        freq = np.zeros(len(docs), np.float32)
+        # np.add.at adds in anchor order, one f32 add at a time
+        np.add.at(freq, inv, np.float32(1.0) / (np.float32(1.0) + cost[ok]))
+        k = K1 * (OMB + (B * np.float32(bc.TITLE_DL)) / avgdl)
+        return docs, (np.float32(w) * freq) / (freq + k)
+
+    def title_set(self, rows) -> np.ndarray:
+        """Counted docs holding any of the title rows `rows`, sorted;
+        cached until the statistics change."""
+        key = ("title_set", rows)
+        got = self.contrib.get(key)
+        if got is None:
+            parts = [self.title_docs(r) for r in rows]
+            got = (parts[0] if len(parts) == 1
+                   else np.unique(np.concatenate(parts)))
+            self.contrib[key] = got
+        return got
+
+    def phrase_page(self, terms, slop: int = 0, prefix_last: bool = False,
+                    frm: int = 0, size: int = 10) -> tuple:
+        """page() of a title phrase, from its sparse hits."""
+        docs, score = self.phrase(terms, slop, prefix_last)
+        keep = self.live[docs]
+        docs, score = docs[keep], score[keep]
+        sel = np.lexsort((docs, -score))[frm:frm + size]
+        return ([self.id_of(int(g)) for g in docs[sel]],
+                score[sel].astype(np.float32).tolist(), len(docs))
 
     def keyword(self, value: int):
         """A `term` on the status keyword in scoring context: BM25 with no
@@ -2201,7 +2675,8 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     from opensearch_tpu_torch import bench_corpus as bc
     client, seg = big["client"], big["seg"]
     dev = client.device
-    ix = NumpyIndex(big["corpus"], big["columns"])
+    ix = big.get("ix") or NumpyIndex(big["corpus"], big["columns"],
+                                     big["title"])
     cpu = cpu_twin(seg)
     classes = general_classes(big, n)
     srng = np.random.default_rng(13)
@@ -2238,9 +2713,7 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
         raise AssertionError("re-indexing did not leave REINDEXED deleted "
                              "docs")
     cpu2 = RestClient(device="cpu")
-    cpu2.indices.create("bench", {"mappings": {"properties": {
-        "body": {"type": "text"}, "status": {"type": "keyword"},
-        "price": {"type": "integer"}}}})
+    cpu2.indices.create("bench", BENCH_MAPPING)
     cpu2._indices["bench"].engine.segments = list(segs)
     items = [(big["bodies"][j], (lambda ts: lambda ix_: ix_.page(
         *ix_.group(ts), 0, 10))(list(big["body_terms"][j])))
@@ -2358,9 +2831,7 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
 
     def twin():
         cpu = RestClient(device="cpu")
-        cpu.indices.create("bench", {"mappings": {"properties": {
-            "body": {"type": "text"}, "status": {"type": "keyword"},
-            "price": {"type": "integer"}}}})
+        cpu.indices.create("bench", BENCH_MAPPING)
         cpu._indices["bench"].engine.segments = list(eng.segments)
         return cpu
 
@@ -2465,6 +2936,8 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
         f" body postings; wall {t_merge:.2f}s = host concat "
         f"{split['host_concat_s']:.2f}s + sort {split['sort_s']:.2f}s "
         f"(merge_sorted_runs event ms {sort_ms:.1f}, {len(spans)} calls) + "
+        f"title positions {split['positions_s']:.2f}s "
+        f"({len(merged.postings['title'].positions)} positions) + "
         f"quantize {split['quantize_s']:.2f}s; then aligned layout + heads "
         f"{t_align:.2f}s")
     log(f"  device bytes: before the merge {bytes_before}, after it "
@@ -2519,6 +2992,22 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
     # B3 sums in slot order; phase 6's tolerance for three slots
     out["b3"] = run_write_class(client, "b3 mix, merged", b3, ix, cpu,
                                 rtol=9 * 2.0**-23)
+    # phrases: positions survived the deletes and the merge
+    title = big["title"]
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+    pairs = bc.pick_phrase_pairs(title[7], 16)
+    out["phrase"] = run_write_class(
+        client, "config-3 phrases, merged",
+        [(bc.phrase_body(i, pairs, title),
+          (lambda ts: lambda ix_: ix_.phrase_page(ts))(
+              [tvs[title[5][pairs[i]]], tvs[title[6][pairs[i]]]]))
+         for i in range(16)], ix, cpu)
+    r = out["phrase"]
+    if r["rungs"]["general"] != 16 or any(
+            r["counts"][k] for k in ("launches", "impact_launches",
+                                     "bool_launches", "plain_calls")):
+        raise AssertionError(f"merged segment, phrases: not served by the "
+                             f"general path alone: {r}")
     for name, key in (("first_use", "impact_launches"),
                       ("pruned", "impact_launches"), ("dense", "launches"),
                       ("b3", "bool_launches")):
@@ -2649,9 +3138,14 @@ def main() -> int:
     ap.add_argument("--bool-queries", type=int, default=1024)
     ap.add_argument("--general-queries", type=int, default=32,
                     help="phase-7 bodies per class")
+    ap.add_argument("--phrase-queries", type=int, default=1024,
+                    help="phase-9 config-3 and mixed bodies each")
+    ap.add_argument("--phrase-sloppy", type=int, default=64,
+                    help="phase-9 sloppy and prefix bodies together")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 7); no result line")
+                    help="end after this phase (3 to 9; they run 3, 4, 5, "
+                    "6, 9, 7, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2735,6 +3229,18 @@ def main() -> int:
     if args.stop_after == 6:
         return 0
 
+    log(f"[9] phrase traffic at MS MARCO passage scale (ndocs="
+        f"{args.ndocs}): bench.py's config 3, sloppy and prefix phrases, "
+        f"its mixed stream" + at(t_start))
+    n_mixed = min(args.phrase_queries, args.bool_queries)
+    if args.phrase_queries < 1024:
+        log(f"  cut: {args.phrase_queries} config-3 and mixed bodies "
+            f"(1024 uncut), so that phases 7-8 fit the same time limit")
+    phrase = phase_phrase_msmarco(big, bools, args.phrase_queries,
+                                  args.phrase_sloppy, n_mixed)
+    if args.stop_after == 9:
+        return 0
+
     log(f"[7] the general path and the impact rung at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     if args.general_queries < 64:
@@ -2792,6 +3298,9 @@ def main() -> int:
         "library_ms": None, "parity": "exact",
         "note": "no caller in the package; times from the phase-3 grid"}]
     log(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"phrase": {k: {kk: vv for kk, vv in v.items()
+                                     if kk != "batch_ms"}
+                                 for k, v in phrase.items()}}), flush=True)
     print(json.dumps({"general_path": general}), flush=True)
     print(json.dumps({"writes": writes}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,10 @@ The corpus is made from a seed: lognormal doc lengths around 56 tokens
 (term, doc) with its tf. Its guardrail columns, as bench.py's second
 configuration has them: a `status` keyword (archived / draft /
 published, uniform) as one postings row per value, and an `integer`
-`price` uniform over 0..999.
+`price` uniform over 0..999. Its positional `title` field, as bench.py's
+third configuration has it: 8 tokens a passage, 4 bigrams from a
+2,000-pair Zipf(1.3) pool over 1,000 terms; the phrase and mixed bodies
+are bench.py's.
 """
 
 from __future__ import annotations
@@ -20,9 +23,12 @@ from .index.convert import segment_from_arrays
 
 
 def build_corpus(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
-                 seed: int = 0):
+                 seed: int = 0, device=None):
     """-> (starts i64[vocab+1], doc_ids i32[P], tfs f32[P], dl i64[ndocs],
-    df i64[vocab]) of a CSR body field."""
+    df i64[vocab]) of a CSR body field. The (term, doc) keys are counted
+    on `device` (the CPU when None): the same sorted keys and counts as
+    bench.py's np.unique."""
+    import torch
     rng = np.random.default_rng(seed)
     dl = np.clip(rng.lognormal(np.log(avg_dl), 0.4, ndocs), 8,
                  256).astype(np.int64)
@@ -32,8 +38,11 @@ def build_corpus(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
     terms = np.where(terms > vocab, rng.integers(1, vocab, total), terms) - 1
     keys = terms * ndocs + doc_of_tok
     del terms, doc_of_tok
-    uniq, counts = np.unique(keys, return_counts=True)
+    u, c = torch.unique(torch.from_numpy(keys).to(device or "cpu"),
+                        sorted=True, return_counts=True)
     del keys
+    uniq, counts = u.cpu().numpy(), c.cpu().numpy()
+    del u, c
     term_arr = (uniq // ndocs).astype(np.int64)
     doc_ids = (uniq % ndocs).astype(np.int32)
     del uniq
@@ -49,6 +58,56 @@ def build_corpus(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
 
 def vocab_strings(n: int) -> list:
     return [f"t{i:07d}" for i in range(n)]
+
+
+def build_title_corpus(ndocs: int, npairs: int = 2000, tvocab: int = 1000,
+                       seed: int = 2):
+    """bench.py's positional short field: 8 tokens a passage, 4 bigrams
+    drawn Zipf(1.3) from a pool of `npairs` (first, second) term pairs
+    over `tvocab` terms, so phrase queries on pool bigrams match. -> (starts
+    i64[tvocab+1], doc_ids i32[P], tfs f32[P], pos_starts i64[P+1],
+    positions i32, first i64[npairs], second i64[npairs], pair_counts
+    i64[npairs])."""
+    assert tvocab <= 1 << 15
+    rng = np.random.default_rng(seed)
+    first = rng.integers(0, tvocab, npairs).astype(np.int64)
+    second = rng.integers(0, tvocab, npairs).astype(np.int64)
+    pr = rng.zipf(1.3, (ndocs, 4)).astype(np.int64)
+    pr = np.where(pr > npairs, rng.integers(1, npairs, (ndocs, 4)), pr) - 1
+    tok = np.empty((ndocs, 8), np.int64)
+    tok[:, 0::2] = first[pr]
+    tok[:, 1::2] = second[pr]
+    t = tok.ravel()
+    doc = np.repeat(np.arange(ndocs, dtype=np.int64), 8)
+    pos = np.tile(np.arange(8, dtype=np.int64), ndocs)
+    # tokens lie in (doc, pos) order: a stable sort by term alone (a
+    # radix sort of 16-bit terms) is bench.py's sort by (term, doc, pos)
+    order = np.argsort(t.astype(np.int16), kind="stable")
+    t, doc, pos = t[order], doc[order], pos[order]
+    td = t * ndocs + doc
+    head = np.empty(len(td), bool)
+    head[0] = True
+    head[1:] = td[1:] != td[:-1]
+    idx = np.flatnonzero(head)
+    doc_ids = doc[idx].astype(np.int32)
+    term_arr = t[idx]
+    counts = np.diff(np.append(idx, len(td)))
+    tfs = counts.astype(np.float32)
+    df = np.bincount(term_arr, minlength=tvocab)
+    starts = np.zeros(tvocab + 1, np.int64)
+    np.cumsum(df, out=starts[1:])
+    pos_starts = np.zeros(len(doc_ids) + 1, np.int64)
+    np.cumsum(counts, out=pos_starts[1:])
+    pair_counts = np.bincount(pr.ravel(), minlength=npairs)
+    return (starts, doc_ids, tfs, pos_starts, pos.astype(np.int32), first,
+            second, pair_counts)
+
+
+def title_vocab_strings(n: int) -> list:
+    return [f"p{i:04d}" for i in range(n)]
+
+
+TITLE_DL = 8                   # tokens of every title
 
 
 class LazyIds:
@@ -92,16 +151,29 @@ def guardrail_columns(ndocs: int, seed: int = 3) -> tuple:
     return status_ord, price
 
 
-def make_index(client, corpus, name: str = "bench", columns=None):
+def make_index(client, corpus, name: str = "bench", columns=None,
+               title=None):
     """Create index `name` with a text field `body` and attach the CSR
     corpus as its one segment; with `columns` (guardrail_columns), also
-    the `status` keyword postings and the `price` integer column, as
-    bench.py's make_index builds them. Returns the segment."""
+    the `status` keyword postings and the `price` integer column, and
+    with `title` (build_title_corpus) the positional `title` text field,
+    as bench.py's make_index builds them. Returns the segment."""
     starts, doc_ids, tfs, dl, _df = corpus
     ndocs = len(dl)
     postings = {"body": {"vocab": vocab_strings(len(starts) - 1),
                          "starts": starts, "doc_ids": doc_ids, "tfs": tfs}}
     props = {"body": {"type": "text"}}
+    doc_lens = {"body": dl}
+    text_stats = {"body": (ndocs, int(dl.sum()))}
+    if title is not None:
+        tstarts, tdocs, ttfs, tpos_starts, tpositions = title[:5]
+        postings["title"] = {"vocab": title_vocab_strings(len(tstarts) - 1),
+                             "starts": tstarts, "doc_ids": tdocs,
+                             "tfs": ttfs, "pos_starts": tpos_starts,
+                             "positions": tpositions}
+        props["title"] = {"type": "text"}
+        doc_lens["title"] = np.full(ndocs, TITLE_DL, np.int64)
+        text_stats["title"] = (ndocs, TITLE_DL * ndocs)
     numeric = None
     if columns is not None:
         status_ord, price = columns
@@ -118,9 +190,8 @@ def make_index(client, corpus, name: str = "bench", columns=None):
         props.update({"status": {"type": "keyword"},
                       "price": {"type": "integer"}})
     seg = segment_from_arrays(
-        "bench0", ndocs, postings, {"body": dl},
-        {"body": (ndocs, int(dl.sum()))}, LazyIds(ndocs), LazySources(ndocs),
-        numeric_cols=numeric, device=client.device)
+        "bench0", ndocs, postings, doc_lens, text_stats, LazyIds(ndocs),
+        LazySources(ndocs), numeric_cols=numeric, device=client.device)
     client.indices.create(name, {"mappings": {"properties": props}})
     client._indices[name].engine.segments = [seg]
     return seg
@@ -234,3 +305,43 @@ def b3_body(i: int, queries, vs, size: int = 10) -> dict:
             {"range": {"price": {"gte": 500, "lt": 510}}}]}},
             "boost": 2.0}}
     return {"query": query, "size": size}
+
+
+# ---------------------------------------------------------------------
+# phrase traffic: bench.py's config 3 and its mixed stream
+# ---------------------------------------------------------------------
+
+def pick_phrase_pairs(pair_counts, nq: int, seed: int = 5) -> np.ndarray:
+    """bench.py's phrase picks: pool pairs ranked 200-1,200 by count
+    (selective phrases), drawn with replacement."""
+    rng = np.random.default_rng(seed)
+    pool = np.argsort(-pair_counts)[200:1200]
+    return rng.choice(pool, size=nq, replace=True)
+
+
+def phrase_body(i: int, pairs, title, size: int = 10) -> dict:
+    """bench.py's config-3 body: the i-th picked pair as a match_phrase
+    over `title`."""
+    first, second = title[5], title[6]
+    tvs = title_vocab_strings(len(title[0]) - 1)
+    pi = pairs[i]
+    return {"query": {"match_phrase": {
+        "title": f"{tvs[first[pi]]} {tvs[second[pi]]}"}}, "size": size}
+
+
+def match_body(i: int, queries, vs, size: int = 10) -> dict:
+    """bench.py's config-1 body: a 2-term match over `body`."""
+    q = queries[i]
+    return {"query": {"match": {"body": f"{vs[q[0]]} {vs[q[1]]}"}},
+            "size": size}
+
+
+def mixed_body(i: int, queries, vs, pairs, title, size: int = 10) -> dict:
+    """bench.py's mixed stream: of every 10 bodies, 5 config-2 bools, 3
+    config-1 matches and 2 config-3 phrases."""
+    r = i % 10
+    if r < 5:
+        return bool_body(i, queries, vs, size)
+    if r < 8:
+        return match_body(i, queries, vs, size)
+    return phrase_body(i, pairs, title, size)

@@ -1,11 +1,11 @@
 """Build a port Segment from plain numpy arrays and Python lists.
 
 The arguments are exactly what an opensearch_tpu Segment holds for its
-inverted fields (CSR postings, doc lengths, text stats and, on codec v2,
-each field's ImpactPlane arrays) and its integer/long doc values (each
-NumericColumn's kind, values and present mask), so a segment built there
-(or a CSR corpus made from a seed, as `bench_corpus.py` does) carries
-across without re-indexing.
+inverted fields (CSR postings with their positions, doc lengths, text
+stats and, on codec v2, each field's ImpactPlane arrays) and its
+integer/long doc values (each NumericColumn's kind, values and present
+mask), so a segment built there (or a CSR corpus made from a seed, as
+`bench_corpus.py` does) carries across without re-indexing.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ def segment_from_arrays(name: str, ndocs: int,
                         numeric_cols: Optional[Dict[str, object]] = None,
                         device=None) -> Segment:
     """`postings[field]` = dict(vocab, starts, doc_ids, tfs) in CSR form
-    (vocab sorted, docs ascending per row); `text_stats[field]` =
+    (vocab sorted, docs ascending per row), with `pos_starts` and
+    `positions` for a positional field; `text_stats[field]` =
     (doc_count, sum_dl); `live` None means no deletes. `ids`/`sources` may
     be any indexable sequences (a lazy view serves a synthetic corpus).
 
@@ -54,9 +55,16 @@ def segment_from_arrays(name: str, ndocs: int,
         if len(starts) != len(vocab) + 1 or int(starts[-1]) != len(doc_ids) \
                 or len(tfs) != len(doc_ids):
             raise ValueError(f"inconsistent CSR arrays for field [{field}]")
-        blocks[field] = PostingsBlock(field, vocab,
-                                      {t: i for i, t in enumerate(vocab)},
-                                      starts, doc_ids, tfs)
+        pb = PostingsBlock(field, vocab, {t: i for i, t in enumerate(vocab)},
+                           starts, doc_ids, tfs)
+        if p.get("pos_starts") is not None:
+            pb.pos_starts = np.asarray(p["pos_starts"], np.int64)
+            pb.positions = np.asarray(p["positions"], np.int32)
+            if len(pb.pos_starts) != len(doc_ids) + 1 \
+                    or int(pb.pos_starts[-1]) != len(pb.positions):
+                raise ValueError(f"inconsistent position arrays for field "
+                                 f"[{field}]")
+        blocks[field] = pb
     cols = {}
     for field, col in (numeric_cols or {}).items():
         get = col.get if isinstance(col, dict) else col.__getattribute__

@@ -2,8 +2,9 @@
 subset of opensearch_tpu/index/mappings.py).
 
 Documents are parsed on the host into per-field term lists (text and
-keyword) and numeric doc values (integer and long, exact i64); the device
-only ever sees term rows and numeric columns. Explicit and dynamic
+keyword), the token positions of text fields and numeric doc values
+(integer and long, exact i64); the device only ever sees term rows,
+positions and numeric columns. Explicit and dynamic
 fields are served with the reference's dynamic rules: strings map to text
 + a `.keyword` subfield with ignore_above 256 (ISO-date strings map to
 `date`), JSON integers to `long`. Every other field type (`double`,
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import datetime as _dt
 from dataclasses import dataclass, field as dc_field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..analysis import AnalysisRegistry, Analyzer
 from ..errors import NotPortedError
@@ -58,6 +59,10 @@ class ParsedDocument:
     terms: Dict[str, List[str]] = dc_field(default_factory=dict)
     # field -> numeric values (the segment's column keeps the first)
     numerics: Dict[str, List[int]] = dc_field(default_factory=dict)
+    # text field -> (term, position) per token, in token order; the
+    # values of an array field are 100 positions apart
+    positions: Dict[str, List[Tuple[str, int]]] = dc_field(
+        default_factory=dict)
 
 
 def coerce_value(ft: "FieldType", value: Any) -> int:
@@ -213,6 +218,10 @@ class Mappings:
             if ft.index:
                 tokens = self.index_analyzer(ft).analyze(str(v))
                 parsed.terms.setdefault(name, []).extend(t.text for t in tokens)
+                pl = parsed.positions.setdefault(name, [])
+                # the position gap between the values of an array field
+                base = max(p for _, p in pl) + 100 if pl else 0
+                pl.extend((t.text, base + t.position) for t in tokens)
             return
         if ft.type in INT_TYPES:
             parsed.numerics.setdefault(name, []).append(coerce_value(ft, v))

@@ -7,9 +7,11 @@ ids equal the reference's (with its BP doc-id reorder off: the port keeps
 concatenation order, its tie key). Postings (text and keyword rows) merge
 as one sort of (union row, new doc) triples: on the engine's device at
 DEVICE_MERGE_MIN postings and above (`ops/device_merge.merge_sorted_runs`),
-else `np.lexsort`. Codec-v2 impact planes are rebuilt from the merged tf
-and doc-length planes: the merged field's avgdl differs from every
-input's, so carried quantized values would bake a stale norm.
+else `np.lexsort`; a positional field's position runs follow their
+postings through the sort's order. Codec-v2 impact planes are rebuilt
+from the merged tf and doc-length planes: the merged field's avgdl
+differs from every input's, so carried quantized values would bake a
+stale norm.
 
 The reference runs a BP doc-id reorder on a codec-v2 merge of
 REORDER_MIN_DOCS docs or more (opensearch_tpu/index/reorder.py), and its
@@ -45,7 +47,8 @@ REORDER_MIN_DOCS = 1 << 15
 
 # wall seconds of the last merge by step: host_concat_s (doc maps, row
 # remap, concatenation, CSR slicing and the other planes), sort_s (the
-# (row, doc) sort, merge_sorted_runs on the device or np.lexsort) and
+# (row, doc) sort, merge_sorted_runs on the device or np.lexsort),
+# positions_s (the positions' gather and regather, on the host) and
 # quantize_s (the impact planes' rebuild)
 LAST_MERGE: Dict[str, float] = {}
 
@@ -135,8 +138,6 @@ def _check_ported(segments: List[Segment]) -> None:
             if getattr(s, attr, None):
                 raise NotPortedError(f"merging a segment with [{attr}]")
         for f, pb in s.postings.items():
-            if getattr(pb, "pos_starts", None) is not None:
-                raise NotPortedError(f"merging positions (field [{f}])")
             if pb.impact is not None and \
                     getattr(pb.impact, "kind", "bm25") != "bm25":
                 raise NotPortedError(f"merging a feature impact plane "
@@ -160,13 +161,34 @@ def _merge_ids_sources(segments, live_masks):
             MergedView([s.sources for s in segments], kept))
 
 
+def ranges_gather(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """i64 indices of the runs [starts[i], starts[i] + lens[i]) laid end
+    to end (the reference's `_ranges_gather`)."""
+    lens = np.asarray(lens, np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return np.empty(0, np.int64)
+    run_first = np.cumsum(lens) - lens
+    return np.repeat(np.asarray(starts, np.int64) - run_first, lens) \
+        + np.arange(total, dtype=np.int64)
+
+
 def _merge_postings(field: str, segments, dmaps, device):
     """One field's CSR postings over the merged doc ids, or None when no
-    input holds a posting of it; -> (PostingsBlock, sort seconds)."""
+    input holds a posting of it; -> (PostingsBlock, sort seconds,
+    positions seconds). Positions merge when every input that has the
+    field has them: deleted docs' runs are dropped, the kept runs are
+    regathered in the sort's order and `pos_starts` is rebuilt from
+    their lengths, as the reference does."""
     vocab_union = sorted({t for s in segments if field in s.postings
                           for t in s.postings[field].vocab})
     new_row_of = {t: i for i, t in enumerate(vocab_union)}
+    has_pos = all(field not in s.postings
+                  or s.postings[field].pos_starts is not None
+                  for s in segments)
     rows_parts, docs_parts, tfs_parts = [], [], []
+    plen_parts, pos_parts = [], []
+    t_pos = 0.0
     for s, dmap in zip(segments, dmaps):
         pb = s.postings.get(field)
         if pb is None or pb.size == 0:
@@ -176,14 +198,26 @@ def _merge_postings(field: str, segments, dmaps, device):
         rows = np.repeat(row_map, np.diff(pb.starts))
         new_docs = dmap.astype(np.int32)[pb.doc_ids]
         tfs = pb.tfs
+        keep = None
         if s.live_count != s.ndocs:
             keep = new_docs >= 0
             rows, new_docs, tfs = rows[keep], new_docs[keep], tfs[keep]
         rows_parts.append(rows)
         docs_parts.append(new_docs)
         tfs_parts.append(tfs)
+        if has_pos:
+            t1 = time.perf_counter()
+            plens = np.diff(pb.pos_starts)
+            if keep is None:
+                pos_parts.append(pb.positions)
+            else:
+                plens = plens[keep]
+                pos_parts.append(pb.positions[ranges_gather(
+                    pb.pos_starts[:-1][keep], plens)])
+            plen_parts.append(plens)
+            t_pos += time.perf_counter() - t1
     if not rows_parts:
-        return None, 0.0
+        return None, 0.0, 0.0
     rows = np.concatenate(rows_parts)
     docs = np.concatenate(docs_parts)
     tfs = np.concatenate(tfs_parts)
@@ -191,7 +225,7 @@ def _merge_postings(field: str, segments, dmaps, device):
     starts = np.zeros(len(vocab_union) + 1, np.int64)
     t0 = time.perf_counter()
     if device_merge.use_device_merge(len(rows)):
-        _r, docs, tfs, _order, counts = device_merge.merge_sorted_runs(
+        _r, docs, tfs, order, counts = device_merge.merge_sorted_runs(
             rows, docs, tfs, len(vocab_union), device)
         np.cumsum(counts.astype(np.int64), out=starts[1:])
     else:
@@ -200,9 +234,22 @@ def _merge_postings(field: str, segments, dmaps, device):
         np.cumsum(np.bincount(rows, minlength=len(vocab_union)),
                   out=starts[1:])
     t_sort = time.perf_counter() - t0
-    return PostingsBlock(field, vocab_union, new_row_of, starts,
-                         docs.astype(np.int32, copy=False),
-                         tfs.astype(np.float32, copy=False)), t_sort
+    pb = PostingsBlock(field, vocab_union, new_row_of, starts,
+                       docs.astype(np.int32, copy=False),
+                       tfs.astype(np.float32, copy=False))
+    if has_pos:
+        t1 = time.perf_counter()
+        # positions were concatenated in pre-sort posting order
+        plens = np.concatenate(plen_parts)
+        pre_starts = np.cumsum(plens) - plens
+        plens = plens[order]
+        pb.positions = np.concatenate(pos_parts)[
+            ranges_gather(pre_starts[order], plens)].astype(np.int32,
+                                                           copy=False)
+        pb.pos_starts = np.zeros(len(plens) + 1, np.int64)
+        np.cumsum(plens, out=pb.pos_starts[1:])
+        t_pos += time.perf_counter() - t1
+    return pb, t_sort, t_pos
 
 
 def merge_segments(name: str, segments: List[Segment],
@@ -220,11 +267,12 @@ def merge_segments(name: str, segments: List[Segment],
     for s, m, dmap in zip(segments, live_masks, dmaps):
         seq_nos[dmap[m]] = s.seq_nos[m]
 
-    t_sort = 0.0
+    t_sort = t_pos = 0.0
     postings: Dict[str, PostingsBlock] = {}
     for f in sorted({f for s in segments for f in s.postings}):
-        pb, ts = _merge_postings(f, segments, dmaps, device)
+        pb, ts, tp = _merge_postings(f, segments, dmaps, device)
         t_sort += ts
+        t_pos += tp
         if pb is not None:
             postings[f] = pb
 
@@ -254,11 +302,11 @@ def merge_segments(name: str, segments: List[Segment],
 
     merged = Segment(name, ndocs, postings, doc_lens, text_stats, ids,
                      sources, seq_nos=seq_nos, numeric_cols=numeric_cols)
-    t_host = time.perf_counter() - t0 - t_sort
+    t_host = time.perf_counter() - t0 - t_sort - t_pos
     t1 = time.perf_counter()
     if default_codec_version() >= CODEC_V2:
         merged.build_impacts(device=device)
     LAST_MERGE.clear()
     LAST_MERGE.update(host_concat_s=t_host, sort_s=t_sort,
-                      quantize_s=time.perf_counter() - t1)
+                      positions_s=t_pos, quantize_s=time.perf_counter() - t1)
     return merged

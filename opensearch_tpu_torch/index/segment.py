@@ -3,7 +3,9 @@ impact-plane subset of opensearch_tpu/index/segment.py).
 
 Postings for one field are a CSR matrix over (term row -> doc postings):
 `starts[t]..starts[t+1]` index flat `doc_ids` / `tfs` arrays, rows in
-sorted-vocab order, docs ascending within a row. `doc_lens` holds each text
+sorted-vocab order, docs ascending within a row; a text field's postings
+also carry token positions (`pos_starts` / `positions`), which phrase
+queries read. `doc_lens` holds each text
 field's per-doc token count and `text_stats` its (doc_count, sum_dl), the
 collection statistics BM25 reads. `numeric_cols` holds each integer/long
 field's doc values (the first value of each doc, exact i64, and a
@@ -204,6 +206,10 @@ class PostingsBlock:
     starts: np.ndarray                  # i64[nterms+1] row pointers
     doc_ids: np.ndarray                 # i32[P]
     tfs: np.ndarray                     # f32[P]
+    # positions (text fields): posting i's positions, ascending, are
+    # positions[pos_starts[i]:pos_starts[i + 1]] (None: not positional)
+    pos_starts: Optional[np.ndarray] = None   # i64[P+1]
+    positions: Optional[np.ndarray] = None    # i32[total positions]
     # codec v2: quantized eager impacts + block-max sidecar (None on v1)
     impact: Optional[ImpactPlane] = None
 
@@ -420,13 +426,15 @@ class Segment:
         return n
 
     def release_device(self) -> None:
-        """Drop the search layer's device state now (aligned postings,
-        heads, filtered views, quality tiers, filter masks and lists, the
-        general path's arrays), not at garbage collection: a merge calls
-        it on the segments it replaces."""
+        """Drop the search layer's state now (aligned postings, heads,
+        filtered views, quality tiers, filter masks and lists, the general
+        path's arrays, the phrase pairs on the host and the device), not
+        at garbage collection: a merge calls it on the segments it
+        replaces."""
         self.aligned = {}
         self.device_arrays = {}
         self.__dict__.pop("filter_lists", None)
+        self.__dict__.pop("phrase_pairs", None)
 
     # ---------------- persistence (flush / recovery) ----------------
 
@@ -450,6 +458,9 @@ class Segment:
             arrays[f"{key}__starts"] = pb.starts
             arrays[f"{key}__doc_ids"] = pb.doc_ids
             arrays[f"{key}__tfs"] = pb.tfs
+            if pb.pos_starts is not None:
+                arrays[f"{key}__pos_starts"] = pb.pos_starts
+                arrays[f"{key}__positions"] = pb.positions
             ip = pb.impact
             if ip is not None:
                 arrays[f"imp__{f}__q"] = ip.q
@@ -460,7 +471,8 @@ class Segment:
                                       "k1": ip.k1, "b": ip.b,
                                       "avgdl": ip.avgdl,
                                       "dl_max": ip.dl_max, "kind": "bm25"}
-            meta["postings"][f] = {"vocab_file": True, "positional": False}
+            meta["postings"][f] = {"vocab_file": True,
+                                   "positional": pb.pos_starts is not None}
             with open(os.path.join(path, f"vocab__{_fname(f)}.txt"),
                       "w") as fh:
                 fh.write("\n".join(pb.vocab))
@@ -481,13 +493,11 @@ class Segment:
     @classmethod
     def load(cls, path: str) -> "Segment":
         """A segment written by `save`. Planes the port does not have
-        (positions, keyword columns, geo) raise NotPortedError."""
+        (keyword columns, geo) raise NotPortedError."""
         with open(os.path.join(path, "meta.json")) as fh:
             meta = json.load(fh)
         if meta.get("keyword") or meta.get("geo") or meta.get("vector") \
-                or meta.get("shape") or meta.get("nested") \
-                or any(p.get("positional")
-                       for p in meta["postings"].values()):
+                or meta.get("shape") or meta.get("nested"):
             raise NotPortedError("loading a segment with planes the port "
                                  "does not have")
         arrays = np.load(os.path.join(path, "arrays.npz"),
@@ -508,6 +518,9 @@ class Segment:
                                arrays[f"{key}__starts"],
                                arrays[f"{key}__doc_ids"],
                                arrays[f"{key}__tfs"])
+            if f"{key}__pos_starts" in arrays.files:
+                pb.pos_starts = arrays[f"{key}__pos_starts"]
+                pb.positions = arrays[f"{key}__positions"]
             im = meta["impacts"].get(f)
             if im is not None:
                 pb.impact = ImpactPlane(
@@ -543,14 +556,22 @@ def _fname(field: str) -> str:
 def pack_postings(parsed_docs: list) -> Dict[str, PostingsBlock]:
     """Pack per-doc term lists into CSR PostingsBlocks: one posting per
     (term, doc) with its tf, vocab sorted, docs ascending per term. A
-    field whose term lists are all empty still gets an (empty) block."""
+    field whose term lists are all empty still gets an (empty) block.
+    Every field gets its token positions (none for a keyword field: an
+    all-empty positions CSR, as in the reference), flattened in posting
+    order, ascending within a posting."""
     field_term_docs: Dict[str, Dict[str, dict]] = {}
+    field_term_pos: Dict[str, Dict[str, dict]] = {}
     for doc_i, pd in enumerate(parsed_docs):
         for fname, terms in pd.terms.items():
             td = field_term_docs.setdefault(fname, {})
             for t in terms:
                 postings = td.setdefault(t, {})
                 postings[doc_i] = postings.get(doc_i, 0) + 1
+        for fname, tps in pd.positions.items():
+            tp = field_term_pos.setdefault(fname, {})
+            for t, p in tps:
+                tp.setdefault(t, {}).setdefault(doc_i, []).append(p)
     out: Dict[str, PostingsBlock] = {}
     for fname, term_docs in field_term_docs.items():
         vocab = sorted(term_docs)
@@ -560,16 +581,27 @@ def pack_postings(parsed_docs: list) -> Dict[str, PostingsBlock]:
         np.cumsum(lens, out=starts[1:])
         doc_ids = np.empty(int(starts[-1]), dtype=np.int32)
         tfs = np.empty(int(starts[-1]), dtype=np.float32)
+        tp = field_term_pos.get(fname, {})
+        plens = np.zeros(int(starts[-1]), np.int64)
+        chunks: List[List[int]] = []
         k = 0
         for t in vocab:
             d = term_docs[t]
             for doc_i in sorted(d):
                 doc_ids[k] = doc_i
                 tfs[k] = d[doc_i]
+                plist = sorted(tp.get(t, {}).get(doc_i, ()))
+                plens[k] = len(plist)
+                chunks.append(plist)
                 k += 1
+        pos_starts = np.zeros(len(plens) + 1, np.int64)
+        np.cumsum(plens, out=pos_starts[1:])
+        positions = np.fromiter((p for c in chunks for p in c), np.int32,
+                                count=int(pos_starts[-1]))
         out[fname] = PostingsBlock(fname, vocab,
                                    {t: i for i, t in enumerate(vocab)},
-                                   starts, doc_ids, tfs)
+                                   starts, doc_ids, tfs, pos_starts,
+                                   positions)
     return out
 
 
@@ -577,8 +609,8 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                   seq_nos: Optional[List[int]] = None,
                   device=None) -> Segment:
     """Build an immutable segment from buffered parsed docs (the refresh
-    path); codec v2 unless OPENSEARCH_TPU_CODEC=1, with large impact
-    planes quantized on `device`."""
+    path): positional postings, codec v2 unless OPENSEARCH_TPU_CODEC=1,
+    with large impact planes quantized on `device`."""
     ndocs = len(parsed_docs)
     doc_lens: Dict[str, np.ndarray] = {}
     text_stats: Dict[str, TextFieldStats] = {}
@@ -602,8 +634,8 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                 present[doc_i] = True
         numeric_cols[fname] = NumericColumn(fname, "int", values, present)
     seq = np.asarray(seq_nos, dtype=np.int64) if seq_nos is not None else None
-    seg = Segment(name, ndocs, pack_postings(parsed_docs), doc_lens,
-                  text_stats, [d.doc_id for d in parsed_docs],
+    seg = Segment(name, ndocs, pack_postings(parsed_docs),
+                  doc_lens, text_stats, [d.doc_id for d in parsed_docs],
                   [d.source for d in parsed_docs], seq_nos=seq,
                   numeric_cols=numeric_cols)
     if default_codec_version() >= CODEC_V2:

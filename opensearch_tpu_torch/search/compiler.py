@@ -10,6 +10,12 @@ x boost, f32) and minimum should match; on an integer/long field it
 becomes an exact `LRange` (terms: a bool of them). A match whose terms
 analyze away, a range on an unmapped field, or `match_none` becomes
 `LMatchNone`; `match_all` `LMatchAll`, `exists` `LExists`, `ids` `LIds`.
+A `match_phrase`, a `match_phrase_prefix`, a `span_near` of `span_term`s
+on one field and an `intervals` lone `match` rule of two terms or more
+become `LPhrase` (one term: a term group, or for a prefix an
+`LExpandTerms` over the prefix's rows); any other span or intervals form
+raises `NotPortedError` (the reference serves them on its host span
+engine).
 `bool` becomes `LBool` and `constant_score` `LConstScore`, their filter
 and must_not clauses rewritten in filter context (`scoring=False`: a
 term there is a non-scoring match), as in the reference. Any other query
@@ -18,15 +24,17 @@ or field kind raises `NotPortedError`.
 The general path (`emit`, `run_segment`) evaluates a plan as torch ops on
 the engine's device: every node becomes dense per-doc (scores, match
 count) arrays (`ops/scoring.ScoredMask`), filter and must_not clauses
-come from the cached masks of `search/filters.py`, and a masked top-k
-closes it. It serves every shape the fused kernels and the impact rung
-decline.
+come from the cached masks of `search/filters.py`, a phrase is the pair
+join of `ops/positions.py` over pair keys cached per segment and device,
+and a masked top-k closes it. It serves every shape the fused kernels
+and the impact rung decline.
 """
 
 from __future__ import annotations
 
+from bisect import bisect_left
 from dataclasses import dataclass, field as dc_field
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +43,7 @@ from ..errors import NotPortedError
 from ..index.mappings import INT_TYPES, KEYWORD_TYPES, Mappings, coerce_value
 from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
+from ..ops import positions as pos_ops
 from ..ops import scoring as ops
 from ..ops.bm25 import LANES
 from . import query_dsl as dsl
@@ -93,6 +102,36 @@ class LTerms(LNode):
     sim: Optional[Similarity] = None
     has_norms: bool = True
     boost: float = 1.0
+
+
+@dataclass
+class LExpandTerms(LNode):
+    """A term expansion, rows resolved per segment by `expander(segment)
+    -> rows`: constant score, as Lucene's MultiTermQuery CONSTANT_SCORE
+    rewrite. Only the prefix expander is ported."""
+
+    field: str = ""
+    expander: Optional[Callable[[Segment], np.ndarray]] = None
+    boost: float = 1.0
+
+
+@dataclass
+class LPhrase(LNode):
+    """Positional phrase / span near: the pair join of `ops/positions.py`
+    over the segment's positions. `weight` is the terms' summed idf x
+    boost (Lucene's PhraseWeight); the last term may expand by prefix
+    (match_phrase_prefix)."""
+
+    field: str = ""
+    terms: List[str] = dc_field(default_factory=list)
+    slop: int = 0
+    weight: float = 0.0
+    sim: Optional[Similarity] = None
+    has_norms: bool = True
+    prefix_last: bool = False
+    max_expansions: int = 50
+    ordered: bool = False              # span_near in_order, intervals ordered
+    gap_cost: bool = False             # span / intervals gaps, not moves
 
 
 @dataclass
@@ -200,6 +239,73 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
         return _weighted_terms(field, terms, [1.0] * len(terms), ctx, msm,
                                "score", q.boost)
 
+    if isinstance(q, dsl.MatchPhraseQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        field = ft.name if ft else q.field
+        terms = _analyze_query_text(field, q.query, ctx, q.analyzer)
+        if not terms:
+            return LMatchNone()
+        if len(terms) == 1 and not q.prefix:
+            # Lucene rewrites a single-term phrase to a term query
+            return _weighted_terms(field, terms, [1.0], ctx, 1, "score",
+                                   q.boost)
+        if len(terms) == 1:
+            return LExpandTerms(field=field,
+                                expander=_prefix_expander(
+                                    field, terms[0], q.max_expansions),
+                                boost=q.boost)
+        return _phrase_node(field, terms, q.slop, ctx, q.boost,
+                            prefix_last=q.prefix,
+                            max_expansions=q.max_expansions)
+
+    if isinstance(q, dsl.SpanTermQuery):
+        term = _index_term(q.field, q.value, ctx)
+        return _weighted_terms(q.field, [term], [1.0], ctx, 1, "score",
+                               q.boost)
+
+    if isinstance(q, dsl.SpanNearQuery):
+        for c in q.clauses:
+            if not isinstance(c, (dsl.SpanTermQuery, dsl.SpanNearQuery)):
+                raise dsl.QueryParseError(
+                    f"[{type(c).__name__}] is not a span query")
+        if not all(isinstance(c, dsl.SpanTermQuery) for c in q.clauses):
+            raise NotPortedError("span_near over span queries other than "
+                                 "span_term (the host span engine)")
+        if len({c.field for c in q.clauses}) > 1:
+            raise dsl.QueryParseError("[span_near] clauses must share a "
+                                      "field")
+        if not q.clauses:
+            return LMatchNone()
+        field = q.clauses[0].field
+        terms = [_index_term(c.field, c.value, ctx) for c in q.clauses]
+        if len(terms) == 1:
+            return _weighted_terms(field, terms, [1.0], ctx, 1, "score",
+                                   q.boost)
+        # span slop counts the gaps, not the moves
+        return _phrase_node(field, terms, q.slop, ctx, q.boost,
+                            ordered=q.in_order, gap_cost=True)
+
+    if isinstance(q, dsl.IntervalsQuery):
+        r = q.rule
+        if r.kind != "match":
+            raise NotPortedError(f"intervals rule [{r.kind}] (the host "
+                                 f"span engine)")
+        if r.filter_kind is not None:
+            raise NotPortedError(f"intervals [filter] [{r.filter_kind}] "
+                                 f"(the host span engine)")
+        ft = ctx.mappings.resolve_field(q.field)
+        field = ft.name if ft else q.field
+        terms = _analyze_query_text(field, r.query, ctx, r.analyzer)
+        if not terms:
+            return LMatchNone()
+        if len(terms) == 1:
+            return _weighted_terms(field, terms, [1.0], ctx, 1, "score",
+                                   q.boost)
+        # max_gaps -1 is unbounded: a window no span reaches
+        slop = r.max_gaps if r.max_gaps >= 0 else 1 << 20
+        return _phrase_node(field, terms, slop, ctx, q.boost,
+                            ordered=r.ordered, gap_cost=True)
+
     if isinstance(q, dsl.BoolQuery):
         musts = [rewrite(c, ctx, scoring) for c in q.must]
         shoulds = [rewrite(c, ctx, scoring) for c in q.should]
@@ -257,6 +363,12 @@ def can_match(node: LNode, seg: Segment) -> bool:
         if node.msm >= len(node.terms):
             return all(pb.row(t) >= 0 for t in node.terms)
         return any(pb.row(t) >= 0 for t in node.terms)
+    if isinstance(node, LPhrase):
+        pb = seg.postings.get(node.field)
+        if pb is None or pb.pos_starts is None:
+            return False
+        return all(_phrase_rows(node, pb, i)
+                   for i in range(len(node.terms)))
     if isinstance(node, LRange):
         col = seg.numeric_cols.get(node.field)
         if col is None:
@@ -301,6 +413,58 @@ def _weighted_terms(field: str, terms: List[str], boosts: List[float],
                       if df > 0 else 0.0)
     return LTerms(field=field, terms=terms, weights=weights, msm=msm,
                   mode=mode, sim=sim, has_norms=has_norms, boost=boost)
+
+
+def _prefix_rows(pb, term: str, cap: Optional[int] = None) -> range:
+    """Vocab rows whose terms start with `term`, at most `cap` of them
+    (Lucene's maxExpansions)."""
+    lo = bisect_left(pb.vocab, term)
+    hi = bisect_left(pb.vocab, term + "\uffff")
+    if cap is not None:
+        hi = min(hi, lo + cap)
+    return range(lo, hi)
+
+
+def _prefix_expander(field: str, prefix: str, cap: Optional[int] = None):
+    def expand(seg: Segment) -> np.ndarray:
+        pb = seg.postings.get(field)
+        if pb is None:
+            return np.empty(0, np.int32)
+        r = _prefix_rows(pb, prefix, cap)
+        return np.arange(r.start, r.stop, dtype=np.int32)
+    return expand
+
+
+def _phrase_node(field: str, terms: List[str], slop: int, ctx: ShardContext,
+                 boost: float, prefix_last: bool = False,
+                 max_expansions: int = 50, ordered: bool = False,
+                 gap_cost: bool = False) -> LPhrase:
+    """The phrase scores as one pseudo-term whose idf is the terms' idf
+    sum (Lucene's PhraseWeight); a prefix last term stands in with the df
+    of its expansions' union, capped at N."""
+    ft = ctx.mappings.resolve_field(field)
+    sim = ctx.sim_for(field)
+    has_norms = bool(ft is not None and ft.has_norms and sim.uses_norms)
+    n = ctx.num_docs
+    w = 0.0
+    last = len(terms) - 1
+    for i, t in enumerate(terms):
+        if prefix_last and i == last:
+            df = 0
+            for s in ctx.segments:
+                pb = s.postings.get(field)
+                if pb is None:
+                    continue
+                for r in _prefix_rows(pb, t, max_expansions):
+                    df += int(pb.starts[r + 1] - pb.starts[r])
+        else:
+            df = ctx.doc_freq(field, t)
+        if df > 0:
+            w += sim.term_weight(1.0, n, min(df, n))
+    return LPhrase(field=field, terms=terms, slop=slop, weight=w * boost,
+                   sim=sim, has_norms=has_norms, prefix_last=prefix_last,
+                   max_expansions=max_expansions, ordered=ordered,
+                   gap_cost=gap_cost)
 
 
 def _analyze_query_text(field: str, text: Any, ctx: ShardContext,
@@ -391,6 +555,121 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+# ---------------------------------------------------------------------
+# phrase pairs: host arrays and device keys, cached per segment
+# ---------------------------------------------------------------------
+
+MAX_PAIR_KEYS = 1024           # device pair arrays per segment, oldest out
+
+
+def _phrase_rows(node: LPhrase, pb, i: int) -> Tuple[int, ...]:
+    """Term i's rows over `pb`: its row, or the prefix expansion of a
+    prefix last term; () when it has none."""
+    t = node.terms[i]
+    if node.prefix_last and i == len(node.terms) - 1:
+        return tuple(_prefix_rows(pb, t, node.max_expansions))
+    r = pb.row(t)
+    return (r,) if r >= 0 else ()
+
+
+def phrase_pairs(seg: Segment, pb, rows: Tuple[int, ...]) -> tuple:
+    """(docs i32, positions i32) of the postings of `rows` (a union for a
+    prefix expansion), lex-sorted; cached per segment on the host (a
+    merge drops the replaced segments' caches)."""
+    cache = seg.__dict__.setdefault("phrase_pairs", {})
+    key = (pb.field, rows)
+    got = cache.get(key)
+    if got is not None:
+        return got
+    d_parts, p_parts = [], []
+    for r in rows:
+        a, b = pb.row_slice(r)
+        counts = np.diff(pb.pos_starts[a: b + 1])
+        d_parts.append(np.repeat(pb.doc_ids[a:b], counts))
+        p_parts.append(pb.positions[pb.pos_starts[a]: pb.pos_starts[b]])
+    d = np.concatenate(d_parts) if d_parts else np.empty(0, np.int32)
+    p = np.concatenate(p_parts) if p_parts else np.empty(0, np.int32)
+    if len(rows) > 1 and len(d):
+        order = np.lexsort((p, d))
+        d, p = d[order], p[order]
+    got = (d.astype(np.int32, copy=False), p.astype(np.int32, copy=False))
+    cache[key] = got
+    return got
+
+
+def pair_keys_on(seg: Segment, pb, rows: Tuple[int, ...],
+                 device: torch.device) -> torch.Tensor:
+    """The pair keys of `rows` (`ops/positions.pair_keys`) on `device`,
+    cached with the general path's device arrays (at most MAX_PAIR_KEYS
+    per segment and device), unpadded: queries of any df share them."""
+    key = ("pairs", pb.field, rows, str(device))
+    got = seg.device_arrays.get(key)
+    if got is None:
+        d, p = phrase_pairs(seg, pb, rows)
+        old = [k for k in seg.device_arrays
+               if k[0] == "pairs" and k[-1] == str(device)]
+        for k in old[:max(0, len(old) + 1 - MAX_PAIR_KEYS)]:
+            del seg.device_arrays[k]
+        got = pos_ops.pair_keys(torch.from_numpy(d).to(device),
+                                torch.from_numpy(p).to(device))
+        seg.device_arrays[key] = got
+    return got
+
+
+def phrase_freq(node: LPhrase, seg: Segment,
+                device: torch.device) -> Optional[torch.Tensor]:
+    """f32[ndocs] phrase frequency of `node` over `seg` (deleted docs
+    included), or None where the segment holds no occurrence of some
+    term or no positions of the field."""
+    pb = seg.postings.get(node.field)
+    if pb is None or pb.pos_starts is None:
+        return None
+    rows = [_phrase_rows(node, pb, i) for i in range(len(node.terms))]
+    if not all(rows):
+        return None            # a phrase needs every term
+    keys = [pair_keys_on(seg, pb, r, device) for r in rows]
+    # term i's query offset rides as a shift on its raw pairs
+    return pos_ops.phrase_freqs(
+        pos_ops.key_docs(keys[0]), pos_ops.key_positions(keys[0]),
+        keys[1:], float(np.float32(node.slop)), seg.ndocs,
+        ordered=node.ordered, gap_cost=node.gap_cost,
+        shifts=list(range(1, len(keys))))
+
+
+def reference_param_bytes(node: LNode, seg: Segment) -> int:
+    """Bytes of the pair arrays the reference ships for the phrases of a
+    filter clause over `seg` (pairs padded to its pow4 buckets, 8 bytes
+    a pair, and the phrase's scalars); its fastpath declines a filter
+    whose parameters exceed FILTER_HASH_BYTE_CAP. Phrases in the clause's
+    scoring children count; other parameters are a few bytes each and
+    are not counted."""
+    if isinstance(node, LPhrase):
+        pb = seg.postings.get(node.field)
+        if pb is None or pb.pos_starts is None:
+            return 0
+        rows = [_phrase_rows(node, pb, i) for i in range(len(node.terms))]
+        if not all(rows):
+            return 0
+        total = 4 * len(rows) + 12
+        for rr in rows:
+            n = sum(int(pb.pos_starts[pb.starts[r + 1]]
+                        - pb.pos_starts[pb.starts[r]]) for r in rr)
+            bucket = next_pow2(max(n, 1), floor=64)
+            if bucket.bit_length() % 2 == 0:
+                bucket <<= 1
+            total += 8 * bucket
+        return total
+    if isinstance(node, LBool):
+        return sum(reference_param_bytes(c, seg)
+                   for c in node.musts + node.shoulds)
+    if isinstance(node, LConstScore):
+        return reference_param_bytes(node.child, seg)
+    return 0
+
+
+FILTER_HASH_BYTE_CAP = 1 << 20
+
+
 def _flag(mask: torch.Tensor, boost: float) -> ops.ScoredMask:
     """A non-scoring match as a node: scores `boost` where it matches."""
     m = mask.to(torch.float32)
@@ -424,6 +703,22 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
         ok = sm.count >= _f32(node.msm)
         return ops.ScoredMask(torch.where(ok, sm.scores, zeros),
                               torch.where(ok, sm.count, zeros))
+    if isinstance(node, LPhrase):
+        freq = phrase_freq(node, seg, device)
+        if freq is None:
+            return ops.ScoredMask(zeros, zeros)
+        b_eff = node.sim.b if node.has_norms else 0.0
+        scores, matched = pos_ops.phrase_score(
+            freq, seg.doc_lens_on(node.field, device), live,
+            _f32(node.weight), float(node.sim.k1), float(b_eff),
+            _f32(ctx.avgdl(node.field)))
+        return ops.ScoredMask(scores, matched.to(torch.float32))
+    if isinstance(node, LExpandTerms):
+        post = field_postings(seg, node.field, device)
+        if post is None:
+            return ops.ScoredMask(zeros, zeros)
+        rows = node.expander(seg).tolist() or [-1]
+        return _flag(ops.term_match_mask(post, live, rows, nd), node.boost)
     if isinstance(node, LMatchAll):
         return _flag(live, node.boost)
     if isinstance(node, LMatchNone):

@@ -1380,9 +1380,15 @@ MATERIALIZE_MIN_DOCS = 1 << 18  # a filter list this long or shorter...
 MATERIALIZE_DENSITY = 8         # ...or under 1/8 of the docs is never dense
 
 
-def _filter_list(seg, ctx, clauses, device: torch.device) -> FilterList:
+def _filter_list(seg, ctx, clauses,
+                 device: torch.device) -> Optional[FilterList]:
     """The FilterList of [(node, negated), ...] over `seg`, cached per
-    segment (LRU of MAX_FILTER_LISTS) under the clauses' mask keys."""
+    segment (LRU of MAX_FILTER_LISTS) under the clauses' mask keys; None
+    (the body is declined) where a clause's phrase pairs are too large
+    for the reference to hash, as its fastpath declines them."""
+    if any(C.reference_param_bytes(node, seg) > C.FILTER_HASH_BYTE_CAP
+           for node, _neg in clauses):
+        return None
     cache = seg.__dict__.setdefault("filter_lists",
                                     collections.OrderedDict())
     key = tuple((filters.mask_key(node, seg, ctx), neg)
@@ -1816,6 +1822,9 @@ def _prepare_bool_vqueries(seg, ctx, specs: Sequence[FastSpec],
         ok = not nslots or packable(seg, spec.field)
         if spec.filter_clauses:
             fl = _filter_list(seg, ctx, spec.filter_clauses, device)
+            if fl is None:
+                out.append(DECLINED)
+                continue
             # specialized postings only hold docs that match SOME term, so
             # the route is sound only when passing needs a term match; a
             # bonus-only bool's hits are the whole filter
@@ -1983,7 +1992,7 @@ def _launch_filtered_pure_batch(seg, ctx, idx_specs, K: int,
         if not _family_only(spec):
             continue
         fl = _filter_list(seg, ctx, spec.filter_clauses, device)
-        if not packable(seg, spec.field) \
+        if fl is None or not packable(seg, spec.field) \
                 or not _dense_hot(seg, fl, len(spec.slots)):
             continue
         fp = _filtered_postings(seg, spec.field, fl)

@@ -11,6 +11,8 @@ Served nodes:
   value only;
 - `LBool` of served nodes: musts and filters ANDed, must_nots negated,
   shoulds counted against `msm`;
+- `LPhrase`: docs where the phrase occurs (its frequency is above 0);
+  `LExpandTerms`: docs with a posting in any of the expanded rows;
 - `LConstScore`: its child's mask; `LMatchNone`: no doc; `LMatchAll`:
   every doc;
 - `LExists`: docs with a value (`present_mask`); `LIds`: the listed docs.
@@ -23,7 +25,8 @@ Masks are cached per (segment, device) under a structural key made of
 what the reference's mask-cache digest hashes: a term group's rows,
 weights, msm, avgdl, boost, similarity and mode; a range's i64 bounds,
 flags and boost; a bool's msm, boost and children. Clauses the reference
-caches as one mask share one mask here.
+caches as one mask share one mask here. A phrase's key is its term rows,
+slop and cost mode, an expansion's its rows.
 """
 
 from __future__ import annotations
@@ -57,6 +60,14 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
                 float(np.float32(ctx.avgdl(node.field))),
                 float(np.float32(node.boost)), node.sim.sim_id,
                 float(node.sim.k1), float(b_eff), node.mode)
+    if isinstance(node, C.LPhrase):
+        pb = seg.postings.get(node.field)
+        rows = ((C._phrase_rows(node, pb, i) for i in range(len(node.terms)))
+                if pb is not None and pb.pos_starts is not None else ())
+        return ("phrase", node.field, tuple(rows), node.slop, node.ordered,
+                node.gap_cost)
+    if isinstance(node, C.LExpandTerms):
+        return ("xterms", node.field, tuple(node.expander(seg).tolist()))
     if isinstance(node, C.LRange):
         return ("range", node.field, node.kind, node.include_lo,
                 node.include_hi, node.field in seg.numeric_cols,
@@ -117,6 +128,18 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
             return count > 0
         return (count > 0) & (count.to(torch.float32)
                               >= float(np.float32(node.msm)))
+    if isinstance(node, C.LPhrase):
+        freq = C.phrase_freq(node, seg, device)
+        if freq is None:
+            return torch.zeros(nd, dtype=torch.bool, device=device)
+        return freq > 0
+    if isinstance(node, C.LExpandTerms):
+        post = C.field_postings(seg, node.field, device)
+        if post is None:
+            return torch.zeros(nd, dtype=torch.bool, device=device)
+        return ops.term_match_mask(post, torch.ones(nd, dtype=torch.bool,
+                                                    device=device),
+                                   node.expander(seg).tolist() or [-1], nd)
     if isinstance(node, C.LRange):
         col = seg.numeric_on(node.field, device)
         if col is None:

@@ -1,5 +1,6 @@
 """Query DSL parsing for the query kinds the port serves (the match_all,
-match_none, term, terms, match, bool, constant_score, range, exists and
+match_none, term, terms, match, match_phrase, match_phrase_prefix,
+span_term, span_near, intervals, bool, constant_score, range, exists and
 ids subset of opensearch_tpu/search/query_dsl.py). A body without a query
 is `match_all`.
 
@@ -66,6 +67,51 @@ class MatchQuery(Query):
     minimum_should_match: Optional[str] = None
     analyzer: Optional[str] = None
     fuzziness: Optional[Any] = None
+
+
+@dataclass
+class MatchPhraseQuery(Query):
+    field: str = ""
+    query: Any = None
+    slop: int = 0
+    analyzer: Optional[str] = None
+    prefix: bool = False               # match_phrase_prefix
+    max_expansions: int = 50
+
+
+@dataclass
+class SpanTermQuery(Query):
+    field: str = ""
+    value: str = ""
+
+
+@dataclass
+class SpanNearQuery(Query):
+    clauses: List[Query] = dc_field(default_factory=list)
+    slop: int = 0
+    in_order: bool = True
+
+
+@dataclass
+class IntervalRule:
+    """One node of an intervals source tree (the reference's
+    IntervalsSourceProvider): match/prefix/wildcard/fuzzy/all_of/any_of
+    with an optional filter. Only a lone `match` rule without a filter is
+    served."""
+
+    kind: str
+    query: str = ""
+    max_gaps: int = -1
+    ordered: bool = False
+    analyzer: Optional[str] = None
+    rules: List["IntervalRule"] = dc_field(default_factory=list)
+    filter_kind: Optional[str] = None
+
+
+@dataclass
+class IntervalsQuery(Query):
+    field: str = ""
+    rule: Optional[IntervalRule] = None
 
 
 @dataclass
@@ -170,6 +216,46 @@ def parse_query(dsl: Optional[dict]) -> Query:
             q = MatchQuery(field=f, query=spec)
         return q
 
+    if kind in ("match_phrase", "match_phrase_prefix"):
+        f, spec = _one_entry(body, kind)
+        prefix = kind == "match_phrase_prefix"
+        if isinstance(spec, dict):
+            q = MatchPhraseQuery(field=f, query=spec.get("query"),
+                                 slop=int(spec.get("slop", 0)),
+                                 analyzer=spec.get("analyzer"),
+                                 prefix=prefix,
+                                 max_expansions=int(spec.get(
+                                     "max_expansions", 50)))
+            _common(q, spec)
+        else:
+            q = MatchPhraseQuery(field=f, query=spec, prefix=prefix)
+        return q
+
+    if kind == "span_term":
+        f, spec = _one_entry(body, "span_term")
+        if isinstance(spec, dict):
+            q = SpanTermQuery(field=f, value=str(spec.get("value")))
+            _common(q, spec)
+        else:
+            q = SpanTermQuery(field=f, value=str(spec))
+        return q
+
+    if kind == "span_near":
+        q = SpanNearQuery(clauses=[parse_query(c)
+                                   for c in body.get("clauses", [])],
+                          slop=int(body.get("slop", 0)),
+                          in_order=bool(body.get("in_order", True)))
+        _common(q, body)
+        return q
+
+    if kind == "intervals":
+        f, spec = _one_entry(body, "intervals")
+        if not isinstance(spec, dict):
+            raise QueryParseError("[intervals] needs a rule object")
+        q = IntervalsQuery(field=f, rule=parse_interval_rule(spec))
+        _common(q, spec)
+        return q
+
     if kind == "bool":
         def many(key):
             v = body.get(key, [])
@@ -198,6 +284,49 @@ def parse_query(dsl: Optional[dict]) -> Query:
         return q
 
     raise NotPortedError(f"query [{kind}]")
+
+
+_INTERVAL_RULES = ("match", "prefix", "wildcard", "fuzzy", "all_of",
+                   "any_of")
+_INTERVAL_FILTERS = ("containing", "contained_by", "not_containing",
+                     "not_contained_by", "not_overlapping", "before",
+                     "after")
+
+
+def parse_interval_rule(spec: dict) -> IntervalRule:
+    """One intervals source node, validated as the reference validates
+    it; the rules and filters the port does not serve are kept by kind
+    (the rewrite raises NotPortedError naming them)."""
+    kinds = [k for k in spec if k in _INTERVAL_RULES]
+    if len(kinds) != 1:
+        raise QueryParseError(
+            "[intervals] rule must define exactly one of "
+            "[match|prefix|wildcard|fuzzy|all_of|any_of]")
+    kind = kinds[0]
+    body = spec[kind]
+    if not isinstance(body, dict):
+        body = {"query": body}
+    rule = IntervalRule(kind=kind,
+                        max_gaps=int(body.get("max_gaps", -1)),
+                        ordered=bool(body.get("ordered", False)))
+    if kind in ("match", "prefix", "wildcard", "fuzzy"):
+        rule.query = str(body.get("query", body.get(kind, body.get(
+            "prefix" if kind == "prefix" else "pattern", ""))))
+        rule.analyzer = body.get("analyzer")
+    else:
+        rule.rules = [parse_interval_rule(r)
+                      for r in body.get("intervals", [])]
+        if not rule.rules:
+            raise QueryParseError(f"[intervals] [{kind}] needs [intervals]")
+    filt = body.get("filter")
+    if filt:
+        fk = [k for k in filt if k in _INTERVAL_FILTERS]
+        if len(fk) != 1:
+            raise QueryParseError(
+                f"[intervals] filter must be one of {_INTERVAL_FILTERS}")
+        rule.filter_kind = fk[0]
+        parse_interval_rule(filt[fk[0]])
+    return rule
 
 
 def parse_minimum_should_match(spec: Optional[str], n_optional: int) -> int:

@@ -126,6 +126,12 @@ def assert_same_planes(rs, ps):
         for a in ("starts", "doc_ids", "tfs"):
             got, want = getattr(pp, a), getattr(rp, a)
             assert got.tobytes() == want.astype(got.dtype).tobytes(), (f, a)
+        assert (rp.pos_starts is None) == (pp.pos_starts is None), f
+        if rp.pos_starts is not None:
+            for a in ("pos_starts", "positions"):
+                got, want = getattr(pp, a), getattr(rp, a)
+                assert got.dtype == want.dtype and \
+                    got.tobytes() == want.tobytes(), (f, a)
         assert (rp.impact is None) == (pp.impact is None)
         if rp.impact is not None:
             for a in ("q", "block_starts", "block_off", "block_max"):
@@ -220,6 +226,53 @@ def test_merged_planes_match_reference(codec, monkeypatch):
     assert_same_responses(ref, port)
 
 
+PHRASE_BODIES = [
+    {"query": {"match_phrase": {"body": "w0 w1"}}},
+    {"query": {"match_phrase": {"body": {"query": "w2 w0 w1", "slop": 3}}}},
+    {"query": {"match_phrase_prefix": {"body": "w0 w1"}}, "size": 20},
+    {"query": {"span_near": {"clauses": [{"span_term": {"body": "w1"}},
+                                         {"span_term": {"body": "w0"}}],
+                             "slop": 2, "in_order": True}}},
+    {"query": {"bool": {"must": [{"match": {"body": "w3"}}],
+                        "filter": [{"match_phrase": {"body": "w0 w2"}}]}}},
+]
+
+
+@pytest.mark.parametrize("device_sort", [False, True],
+                         ids=["lexsort", "merge_sorted_runs"])
+def test_merged_positions_match_reference(device_sort, monkeypatch):
+    """Positions through a merge with deletes and updates: dropped with
+    their docs, regathered in the sort's order (np.lexsort below
+    DEVICE_MERGE_MIN, merge_sorted_runs' order at and above it), equal to
+    the reference's; phrase pages on the merged segment equal too."""
+    monkeypatch.setenv("OPENSEARCH_TPU_REORDER", "0")
+    if device_sort:
+        monkeypatch.setattr(device_merge, "DEVICE_MERGE_MIN", 64)
+        monkeypatch.setattr(ref_device_merge, "DEVICE_MERGE_MIN", 64)
+    docs = make_docs(240, seed=6)
+    run = write_script(docs, 3, deletes=range(1, 240, 7),
+                       updates=range(3, 240, 29))
+    ref, port = run(RefClient()), run(RestClient(device="cpu"))
+    ref.indices.forcemerge("x")
+    port.indices.forcemerge("x")
+    (rs,), (ps,) = segs(ref, True), segs(port, False)
+    assert ps.postings["body"].pos_starts is not None
+    assert ps.postings["tag"].positions.size == 0
+    assert_same_planes(rs, ps)
+    assert merge.LAST_MERGE["positions_s"] >= 0.0
+    for body in PHRASE_BODIES:
+        assert_same_response(port.search("x", body), ref.search("x", body))
+
+
+def test_ranges_gather_matches_a_python_loop():
+    rng = np.random.default_rng(8)
+    starts = rng.integers(0, 1000, 50)
+    lens = rng.integers(0, 6, 50)
+    want = [s + j for s, n in zip(starts, lens) for j in range(n)]
+    np.testing.assert_array_equal(merge.ranges_gather(starts, lens), want)
+    assert merge.ranges_gather(starts[:0], lens[:0]).size == 0
+
+
 def test_merged_segment_serves_through_the_kernels():
     """Deletes send a segment to the impact rung; once merged, the fast
     path serves it again (on the CPU the kernel wrappers count their plain
@@ -245,13 +298,16 @@ def test_merge_releases_the_replaced_segments_device_state():
     port = write_script(docs, 2, deletes=range(0, 200, 9))(
         RestClient(device="cpu"))
     eng = port._indices["x"].engine
-    for body in BODIES:
+    for body in BODIES + PHRASE_BODIES:
         port.search("x", body)
     old = list(eng.segments)
     assert any(s.aligned or s.device_arrays for s in old)
+    assert any("phrase_pairs" in s.__dict__ for s in old)
+    assert any(k[0] == "pairs" for s in old for k in s.device_arrays)
     port.indices.forcemerge("x")
     assert all(not s.aligned and not s.device_arrays
-               and "filter_lists" not in s.__dict__ for s in old)
+               and "filter_lists" not in s.__dict__
+               and "phrase_pairs" not in s.__dict__ for s in old)
     assert "_shard_view" not in eng.__dict__
 
 

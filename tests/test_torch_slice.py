@@ -260,7 +260,8 @@ def test_score_term_group_matches_reference(clients):
 
 @pytest.mark.parametrize("body,names", [
     ({"query": {"bool": {"must": [{"bool": {"should": [
-        {"match_phrase": {"body": "a b"}}]}}]}}}, "match_phrase"),
+        {"span_or": {"clauses": [{"span_term": {"body": "a"}}]}}]}}]}}},
+     "span_or"),
     ({"query": {"range": {"body": {"gte": 1}}}}, "range"),
     ({"query": {"match": {"body": "the"}},
       "aggs": {"a": {"terms": {"field": "tag.keyword"}}}}, "aggs"),
@@ -281,11 +282,14 @@ def test_unported_shapes_raise(clients, body, names):
     {"query": {"bool": {"must": [{"bool": {"should": [
         {"match": {"body": "a"}}]}}]}}},
     {"query": {"match": {"body": "the"}}, "from": 100, "size": 29},
+    {"query": {"bool": {"must": [{"bool": {"should": [
+        {"match_phrase": {"body": "a b"}}]}}]}}},
 ])
 def test_formerly_unported_shapes_match_reference(clients, body):
-    """A nested bool and a window past MAX_K: the fast path declines them
-    (they raised before the general path was ported), the general path
-    serves the reference's response."""
+    """A nested bool, a window past MAX_K and a nested phrase: the fast
+    path declines them (they raised before the general path and the
+    phrase slice were ported), the general path serves the reference's
+    response."""
     ref, port = clients
     ctx = port._indices["t"].searcher.context()
     assert fastpath.make_spec(C.rewrite(dsl.parse_query(body["query"]), ctx),

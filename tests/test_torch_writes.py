@@ -220,3 +220,42 @@ def test_recovered_dynamic_mappings_match_reference(tmp_path):
     assert out[0] == out[1]
     assert out[1][0]["hits"]["total"]["value"] == 1
     assert out[1][1]["hits"]["total"]["value"] == 0
+
+
+PHRASES = [
+    {"query": {"match_phrase": {"body": "alpha beta"}}},
+    {"query": {"match_phrase": {"body": {"query": "beta alpha",
+                                         "slop": 2}}}},
+    {"query": {"match_phrase_prefix": {"body": "beta gam"}}},
+    {"query": {"span_near": {"clauses": [
+        {"span_term": {"body": "alpha"}}, {"span_term": {"body": "gamma"}}],
+        "slop": 1, "in_order": True}}},
+]
+
+
+@pytest.mark.parametrize("body", PHRASES,
+                         ids=["exact", "sloppy", "prefix", "span_near"])
+def test_positions_survive_flush_and_recovery(tmp_path, monkeypatch, body):
+    """Positional segments flushed (positions saved with their postings),
+    a translog tail, a recovery and a merge: phrase responses equal the
+    reference's at each step."""
+    monkeypatch.setenv("OPENSEARCH_TPU_REORDER", "0")
+    made = {"ref": lambda p: RefClient(data_path=p),
+            "port": lambda p: RestClient(device="cpu", data_path=p)}
+    out = {}
+    for name, make in made.items():
+        path = str(tmp_path / name)
+        c = seed(make(path))
+        c.delete("w", "5")
+        c.indices.flush("w")
+        c.index("w", {"body": "gamma alpha beta gamma"}, id="tail")
+        if name == "port":
+            c.close()
+        out[name] = make(path)
+    ref, port = out["ref"], out["port"]
+    assert_same_response(port.search("w", body), ref.search("w", body))
+    ref.indices.refresh("w")
+    port.indices.refresh("w")
+    ref.indices.forcemerge("w")
+    port.indices.forcemerge("w")
+    assert_same_response(port.search("w", body), ref.search("w", body))
