@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--ndocs N] [--queries Q] [--bool-queries B]
                           [--general-queries G] [--phrase-queries P]
-                          [--phrase-sloppy S] [--seed S]
+                          [--phrase-sloppy S] [--agg-queries A] [--seed S]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -24,8 +24,9 @@ Phases, each of which fails the script when it fails:
      query, each bool route a body, and the impact rung and the general
      path a body each;
   5. slice at MS MARCO passage scale: a synthetic corpus of --ndocs
-     passages (with bench.py's guardrail columns and its positional
-     `title` field) attached as one codec-v2 segment, searched with
+     passages (with bench.py's guardrail columns, its positional `title`
+     field and the aggregation columns `ts` and `rating`) attached as one
+     codec-v2 segment, searched with
      RestClient.msearch twice: the pruned match ladder (the default
      bodies) and the dense path (the same bodies with track_total_hits);
      kernel groups of the first batch timed and held against the plain
@@ -57,6 +58,18 @@ Phases, each of which fails the script when it fails:
      the segments with deletes; every page against a numpy brute force,
      sampled bodies on the card against the CPU, the rung counts, the
      ops' times per body and the device arrays' bytes;
+ 10. (run after 7, before 8) size-0 analytics bodies over phase 7's end
+     state, --agg-queries of each class: (a) terms on status with a
+     stats sub on price; (b) a one-month ts filter with a daily or
+     monthly date_histogram and an avg of rating; (c) a 2-term match of
+     phase 5 with a page, a price histogram and range, rating
+     percentiles, price and status cardinalities; (d) filters, missing
+     and global; (e) 4 bodies of a weekly date_histogram with a terms
+     sub (one sub-search per bucket); every response against a numpy
+     brute force (counts, keys, minima, maxima and pages exact, f32 sums
+     within a probabilistic bound, HLL registers and sketch bins by a
+     numpy copy of the reference's arithmetic), 2 bodies a class on the
+     card against the CPU, the ops' times by step, the device bytes;
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 16 of phase 5's match bodies on the segments with deletes,
@@ -64,8 +77,9 @@ Phases, each of which fails the script when it fails:
      (the reference's BP reorder is not ported; the merge's time by
      step, the device bytes around it) and, on it, the same 16 bodies
      in one batch, phase 5's match bodies pruned and with exact totals
-     and b3-mix bodies, each class on its kernel alone, and 16 config-3
-     phrases on the general path (positions through the merge);
+     and b3-mix bodies, each class on its kernel alone, 16 config-3
+     phrases on the general path (positions through the merge) and 4
+     class-(a)/(b) agg bodies (keyword and date columns through it);
      every page against the numpy brute force with the writes applied,
      2 bodies a class on the card against the CPU. Phase 4 runs the write
      path small on the card and the CPU (tiered and forced merges, bulk
@@ -73,8 +87,8 @@ Phases, each of which fails the script when it fails:
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
-numbers, one with phase 7's, one with phase 8's, a line with the kernels'
-numbers and, last, the device line.
+numbers, one with phase 7's, one with phase 10's, one with phase 8's, a
+line with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -1381,7 +1395,8 @@ def log_run(what: str, n: int, wall: float, lat, counts, rungs, resps):
 
 BENCH_MAPPING = {"mappings": {"properties": {
     "body": {"type": "text"}, "title": {"type": "text"},
-    "status": {"type": "keyword"}, "price": {"type": "integer"}}}}
+    "status": {"type": "keyword"}, "price": {"type": "integer"},
+    "ts": {"type": "date"}, "rating": {"type": "double"}}}}
 
 
 def cpu_twin(seg):
@@ -1404,6 +1419,7 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
     t0 = time.perf_counter()
     corpus = bc.build_corpus(ndocs, device="cuda")
     columns = bc.guardrail_columns(ndocs)
+    aggcols = bc.agg_columns(ndocs)
     t_corpus = time.perf_counter() - t0
     t0 = time.perf_counter()
     title = bc.build_title_corpus(ndocs)
@@ -1412,9 +1428,10 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
     dev = client.device
     t1 = time.perf_counter()
     # the guardrail columns ride the same segment for phase 6, the
-    # positional title field for phase 9; no query of this phase reads
-    # them
-    seg = bc.make_index(client, corpus, columns=columns, title=title)
+    # positional title field for phase 9, the aggregation columns for
+    # phases 10 and 8; no query of this phase reads them
+    seg = bc.make_index(client, corpus, columns=columns, title=title,
+                        aggs=aggcols)
     torch.cuda.synchronize()
     t_planes = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -1605,7 +1622,8 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
             "impact_launches": counts["impact_launches"],
             "max_abs_err": worst, "b1": b1, "b2": b2, "client": client,
             "seg": seg, "corpus": corpus, "columns": columns,
-            "title": title, "a_docs": a_docs, "bodies": bodies,
+            "title": title, "aggs": aggcols, "a_docs": a_docs,
+            "bodies": bodies,
             "body_terms": [t for i in range(nq // 2)
                            for t in (list(q2[i][:2]), list(q6[i]))]}
 
@@ -2733,6 +2751,580 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------
+# phase 10: size-0 analytics bodies (aggregations) at MS MARCO passage
+# scale
+# ---------------------------------------------------------------------
+
+DAY_MS = 86_400_000
+F32_U = 2.0 ** -24
+# the probabilistic bound on an f32 sum of n terms in any order (Higham
+# and Mary): |error| <= LAMBDA * sqrt(n) * u * sum|v| fails with
+# probability below 2 exp(-LAMBDA^2 / 2) ~ 2.5e-14 per sum, for rounding
+# errors that are independent and of mean zero
+LAMBDA = 8.0
+AGG_PRICE_RANGES = [{"to": 250}, {"from": 250, "to": 750}, {"from": 750}]
+
+
+def month_ms(m: int) -> int:
+    """Epoch ms of 2024-(m+1)-01 UTC (m = 12: 2025-01-01)."""
+    return int(np.datetime64(f"{2024 + m // 12}-{m % 12 + 1:02d}-01",
+                             "ms").astype(np.int64))
+
+
+def agg_classes(big: dict, n: int, n_refine: int) -> dict:
+    """Phase 10's bodies: class -> [body], `n` a class (`n_refine` for
+    the refinement class (e))."""
+    months = [f"{2024 + m // 12}-{m % 12 + 1:02d}-01" for m in range(13)]
+    out = {"a_terms_stats": [
+        {"size": 0, "query": {"match_all": {}}, "aggs": {"st": {
+            "terms": {"field": "status", "size": 1 + i % 3,
+                      "order": {"_key" if i % 2 else "_count":
+                                "asc" if i % 4 == 1 else "desc"}},
+            "aggs": {"p": {"stats": {"field": "price"}}}}}}
+        for i in range(n)],
+        "b_month_date_hist": [
+        {"size": 0, "query": {"bool": {"filter": [{"range": {"ts": {
+            "gte": months[i % 12], "lt": months[i % 12 + 1]}}}]}},
+         "aggs": {"d": {"date_histogram": {
+             "field": "ts", "calendar_interval": "day" if i % 2 == 0
+             else "month"}, "aggs": {"avg_rating": {"avg": {
+                 "field": "rating"}}}}}}
+        for i in range(n)],
+        "c_match_metrics": [
+        {"size": 10, "query": big["bodies"][2 * i]["query"], "aggs": {
+            "h": {"histogram": {"field": "price", "interval": 50}},
+            "r": {"range": {"field": "price", "ranges": AGG_PRICE_RANGES}},
+            "p": {"percentiles": {"field": "rating"}},
+            "cp": {"cardinality": {"field": "price"}},
+            "cs": {"cardinality": {"field": "status"}}}}
+        for i in range(n)],
+        "d_filters_missing_global": [
+        {"size": 0, "query": {"range": {"price": {
+            "gte": 50 * (i % 18), "lt": 50 * (i % 18) + 100}}},
+         "aggs": {"f": {"filters": {"filters": {
+             "published": {"term": {"status": "published"}},
+             "draft": {"term": {"status": "draft"}}}}},
+             "m": {"missing": {"field": "rating"}},
+             "g": {"global": {}, "aggs": {"vc": {"value_count": {
+                 "field": "price"}}}}}}
+        for i in range(n)],
+        "e_week_terms_refined": [
+        {"size": 0, "query": {"range": {"price": {"gte": 0,
+                                                  "lt": 250 * (i + 1)}}},
+         "aggs": {"w": {"date_histogram": {"field": "ts",
+                                           "calendar_interval": "week"},
+                        "aggs": {"st": {"terms": {"field": "status"}}}}}}
+        for i in range(n_refine)]}
+    return out
+
+
+class AggOracle:
+    """Phase 10's numpy brute force over NumpyIndex's docs (the corpus's,
+    then those indexed later, with deletes): the status and price
+    columns, and the corpus docs' `ts` and `rating` (later docs have
+    neither). Values are the f32 views the aggregations read; counts,
+    keys, minima, maxima, HLL registers and sketch bins are computed
+    exactly (a numpy copy of the reference's arithmetic), sums in f64."""
+
+    def __init__(self, ix, aggcols):
+        self.ix = ix
+        self.ts0, self.rating0, self.rpresent0 = aggcols
+        self.static: dict = {}
+
+    def cols(self) -> dict:
+        ix = self.ix
+        n, n0 = ix.n, ix.n0
+        if self.static.get("n") != n:     # docs added since: pad again
+            pad = n - n0
+            self.static = {
+                "n": n,
+                "ts": np.concatenate([self.ts0, np.zeros(pad, np.int64)]),
+                "ts_present": np.arange(n) < n0,
+                "rating": np.concatenate([self.rating0, np.zeros(pad)])
+                .astype(np.float32),
+                "rating_present": np.concatenate(
+                    [self.rpresent0, np.zeros(pad, bool)])}
+        return {**self.static, "live": ix.live, "status": ix.status,
+                "price": ix.price.astype(np.float32)}
+
+    def match(self, body: dict, c: dict) -> np.ndarray:
+        """The live docs a phase-10 query matches."""
+        q = body["query"]
+        if "match_all" in q:
+            return c["live"].copy()
+        if "bool" in q:           # a ts month filter
+            r = q["bool"]["filter"][0]["range"]["ts"]
+            lo = int(np.datetime64(r["gte"], "ms").astype(np.int64))
+            hi = int(np.datetime64(r["lt"], "ms").astype(np.int64))
+            return c["live"] & c["ts_present"] & (c["ts"] >= lo) \
+                & (c["ts"] < hi)
+        if "range" in q:          # a price range
+            r = q["range"]["price"]
+            return c["live"] & (c["price"] >= r["gte"]) \
+                & (c["price"] < r["lt"])
+        raise AssertionError(f"no brute force for {q}")
+
+
+def sum_bound(v: np.ndarray) -> float:
+    return LAMBDA * np.sqrt(max(len(v), 1)) * F32_U * float(
+        np.abs(v.astype(np.float64)).sum())
+
+
+class SumCheck:
+    """f32 sums against their exact value within `sum_bound`; keeps the
+    largest relative error and error / bound seen."""
+
+    def __init__(self):
+        self.rel = 0.0
+        self.of_bound = 0.0
+
+    def __call__(self, got, v: np.ndarray, what: str, div: int = 1):
+        exact = float(v.astype(np.float64).sum()) / div
+        bound = sum_bound(v) / div
+        err = abs(float(got) - exact)
+        if err > bound:
+            raise AssertionError(f"{what}: {got} vs exact {exact}: error "
+                                 f"{err} > bound {bound}")
+        if exact:
+            self.rel = max(self.rel, err / abs(exact))
+        if bound:
+            self.of_bound = max(self.of_bound, err / bound)
+
+
+def check_stats(got: dict, v: np.ndarray, sums: SumCheck, what: str):
+    """A stats agg's count, min and max exact, sum and avg in bound."""
+    n = len(v)
+    if got["count"] != n or (n and (got["min"] != float(v.min())
+                                   or got["max"] != float(v.max()))):
+        raise AssertionError(f"{what}: stats {got} vs count {n} min/max "
+                             f"{v.min() if n else None}/"
+                             f"{v.max() if n else None}")
+    if n:
+        sums(got["sum"], v, f"{what} sum")
+        sums(got["avg"], v, f"{what} avg", n)
+
+
+def np_hash_f32(v: np.ndarray) -> np.ndarray:
+    """The reference's fmix32 of f32 bit patterns, in numpy u32."""
+    h = v.astype(np.float32).view(np.uint32).astype(np.uint64)
+    m = np.uint64(0xFFFFFFFF)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x85EBCA6B)) & m
+    h ^= h >> np.uint64(13)
+    h = (h * np.uint64(0xC2B2AE35)) & m
+    return h ^ (h >> np.uint64(16))
+
+
+def np_hll_registers(hashes: np.ndarray, log2m: int = 14) -> np.ndarray:
+    """The reference's registers: the low log2m bits pick the register,
+    the rank is (33 - log2m) - ceil(log2(rest + 1)), i.e. the remainder's
+    bit length subtracted."""
+    m = 1 << log2m
+    h = hashes.astype(np.uint64)
+    reg = (h & np.uint64(m - 1)).astype(np.int64)
+    rest = (h >> np.uint64(log2m)).astype(np.int64)
+    bitlen = np.zeros(len(rest), np.int64)
+    r = rest.copy()
+    while (r > 0).any():
+        bitlen += r > 0
+        r >>= 1
+    rank = (32 - log2m + 1) - bitlen
+    out = np.zeros(m, np.int32)
+    np.maximum.at(out, reg, rank.astype(np.int32))
+    return out
+
+
+def np_dd_bins(v: np.ndarray) -> np.ndarray:
+    """The reference's sketch bins in numpy f32 (its host arithmetic)."""
+    from opensearch_tpu_torch.ops import aggs as A
+    mag = np.abs(v).astype(np.float32)
+    ln = np.log(np.maximum(mag, np.float32(A.DD_MIN_MAG)))
+    idx = np.floor((ln - np.float32(np.log(A.DD_MIN_MAG)))
+                   / np.float32(A.DD_LN_GAMMA)).astype(np.int64)
+    idx = np.clip(idx, 0, A.DD_HALF - 1)
+    return np.where(v > 0, A.DD_HALF + 1 + idx,
+                    np.where(v < 0, A.DD_HALF - 1 - idx, A.DD_HALF))
+
+
+def expected_terms(keys: np.ndarray, vocab, size: int, order) -> tuple:
+    """([(key, count)] shown, sum_other) of a terms agg over the matched
+    docs' ordinals `keys`, as the reference orders them."""
+    counts = np.bincount(keys, minlength=len(vocab))
+    items = [(vocab[o], int(c)) for o, c in enumerate(counts) if c > 0]
+    (okey, odir), = order.items()
+    if okey == "_key":
+        items.sort(key=lambda kv: kv[0], reverse=odir == "desc")
+    else:
+        items.sort(key=lambda kv: (-kv[1], kv[0]) if odir == "desc"
+                   else (kv[1], kv[0]))
+    shown = items[:size]
+    return shown, sum(c for _k, c in items) - sum(c for _k, c in shown)
+
+
+def check_terms(got: dict, keys: np.ndarray, body: dict, what: str):
+    from opensearch_tpu_torch import bench_corpus as bc
+    shown, other = expected_terms(keys, bc.STATUS_VALUES,
+                                  int(body.get("size", 10)),
+                                  body.get("order", {"_count": "desc"}))
+    if [(b["key"], b["doc_count"]) for b in got["buckets"]] != shown \
+            or got["sum_other_doc_count"] != other:
+        raise AssertionError(f"{what}: terms {got} vs {shown} other {other}")
+
+
+def check_agg_response(resp: dict, body: dict, oracle: AggOracle,
+                       sums: SumCheck, sketch: Counter, what: str,
+                       page=None) -> None:
+    """One phase-10 response against the brute force."""
+    from opensearch_tpu_torch.search import aggregations as A
+    from opensearch_tpu_torch.search.compiler import DEFAULT_PERCENTS
+    c = oracle.cols()
+    m = oracle.match(body, c) if page is None else page[1]
+    aggs = resp["aggregations"]
+    if page is not None:
+        check_page(resp, page[0], what)
+    elif resp["hits"]["total"]["value"] != int(m.sum()):
+        raise AssertionError(f"{what}: total {resp['hits']['total']} != "
+                             f"{int(m.sum())}")
+    if "st" in aggs:                                         # (a)
+        spec = body["aggs"]["st"]["terms"]
+        check_terms(aggs["st"], c["status"][m], spec, what)
+        for b in aggs["st"]["buckets"]:
+            o = ["archived", "draft", "published"].index(b["key"])
+            check_stats(b["p"], c["price"][m & (c["status"] == o)], sums,
+                        f"{what} {b['key']}")
+    if "d" in aggs:                                          # (b)
+        cal = body["aggs"]["d"]["date_histogram"]["calendar_interval"]
+        ts = c["ts"][m]
+        if cal == "day":
+            ids = ts // DAY_MS
+            keys = ids * DAY_MS
+        else:
+            ids = (ts // DAY_MS).astype("datetime64[D]").astype(
+                "datetime64[M]").astype(np.int64)
+            keys = ids.astype("datetime64[M]").astype(
+                "datetime64[ms]").astype(np.int64)
+        uniq, counts = np.unique(ids, return_counts=True)
+        got = aggs["d"]["buckets"]
+        want_keys = [int(keys[ids == u][0]) for u in uniq]
+        if [(b["key"], b["doc_count"]) for b in got] \
+                != list(zip(want_keys, counts.tolist())):
+            raise AssertionError(f"{what}: date_histogram "
+                                 f"{[(b['key'], b['doc_count']) for b in got]}"
+                                 f" vs {list(zip(want_keys, counts))}")
+        rp = c["rating_present"][m]
+        rv = c["rating"][m]
+        for b, u in zip(got, uniq):
+            v = rv[(ids == u) & rp]
+            if len(v) == 0:
+                if b["avg_rating"]["value"] is not None:
+                    raise AssertionError(f"{what}: avg of no ratings")
+                continue
+            sums(b["avg_rating"]["value"], v, f"{what} avg", len(v))
+    if "h" in aggs:                                          # (c)
+        pb = np.floor(c["price"][m] / np.float32(50.0)).astype(np.int64)
+        uniq, counts = np.unique(pb, return_counts=True)
+        if [(b["key"], b["doc_count"]) for b in aggs["h"]["buckets"]] \
+                != [(float(u) * 50.0, int(k)) for u, k in zip(uniq, counts)]:
+            raise AssertionError(f"{what}: histogram {aggs['h']}")
+        pr = c["price"][m]
+        want = [int(((pr >= r.get("from", -np.inf))
+                     & (pr < r.get("to", np.inf))).sum())
+                for r in AGG_PRICE_RANGES]
+        if [b["doc_count"] for b in aggs["r"]["buckets"]] != want:
+            raise AssertionError(f"{what}: range {aggs['r']} vs {want}")
+        rv = c["rating"][m & c["rating_present"]]
+        hist = np.bincount(np_dd_bins(rv), minlength=8193)
+        want_p = A.hist_percentiles({"hist": hist, "percents": list(
+            DEFAULT_PERCENTS)})
+        for k, v in aggs["p"]["values"].items():
+            if v != want_p[k]:
+                sketch["percentile_mismatches"] += 1
+                if not np.isclose(v, want_p[k], rtol=0.0102):
+                    raise AssertionError(f"{what}: percentile {k} {v} vs "
+                                         f"{want_p[k]}: more than one bin")
+        regs = np_hll_registers(np_hash_f32(c["price"][m]))
+        if aggs["cp"]["value"] != int(round(A.hll_estimate(regs))):
+            raise AssertionError(f"{what}: price cardinality "
+                                 f"{aggs['cp']} vs registers' "
+                                 f"{A.hll_estimate(regs)}")
+        import zlib
+        from opensearch_tpu_torch import bench_corpus as bc
+        held = np.unique(c["status"][m])
+        sregs = np_hll_registers(np.asarray(
+            [zlib.crc32(bc.STATUS_VALUES[o].encode()) for o in held],
+            np.uint64))
+        if aggs["cs"]["value"] != int(round(A.hll_estimate(sregs))):
+            raise AssertionError(f"{what}: status cardinality {aggs['cs']}")
+    if "f" in aggs:                                          # (d)
+        f = aggs["f"]["buckets"]
+        want = {"published": int((m & (c["status"] == 2)).sum()),
+                "draft": int((m & (c["status"] == 1)).sum())}
+        if {k: v["doc_count"] for k, v in f.items()} != want:
+            raise AssertionError(f"{what}: filters {f} vs {want}")
+        if aggs["m"]["doc_count"] != int((m & ~c["rating_present"]).sum()):
+            raise AssertionError(f"{what}: missing {aggs['m']}")
+        nlive = int(c["live"].sum())
+        if aggs["g"]["doc_count"] != nlive \
+                or aggs["g"]["vc"]["value"] != nlive:
+            raise AssertionError(f"{what}: global {aggs['g']} vs {nlive}")
+    if "w" in aggs:                                          # (e)
+        mt = m & c["ts_present"]
+        wk = (c["ts"][mt] // DAY_MS + 3) // 7
+        st = c["status"][mt]
+        uniq, counts = np.unique(wk, return_counts=True)
+        got = aggs["w"]["buckets"]
+        if [(b["key"], b["doc_count"]) for b in got] != [
+                (int((u * 7 - 3) * DAY_MS), int(k))
+                for u, k in zip(uniq, counts)]:
+            raise AssertionError(f"{what}: week buckets")
+        for b, u in zip(got, uniq):
+            check_terms(b["st"], st[wk == u], {}, f"{what} week {u}")
+
+
+def split_sums(resp, out=None, key=None):
+    """(the response with its sum-derived floats set to None, those floats
+    in order): card and CPU responses must agree exactly on the rest."""
+    out = [] if out is None else out
+    if isinstance(resp, dict):
+        d = {}
+        for k, v in resp.items():
+            if isinstance(v, float) and (k in ("sum", "avg") or key in (
+                    "avg_rating",)):
+                out.append(v)
+                d[k] = None
+            else:
+                d[k] = split_sums(v, out, k)[0]
+        return d, out
+    if isinstance(resp, list):
+        return [split_sums(v, out, key)[0] for v in resp], out
+    return resp, out
+
+
+def agg_op_timer():
+    """CUDA events around the query's mask (`compiler.emit`), the agg
+    tree's device ops (top-level `emit_agg` calls) and the top-k, and
+    host seconds in the partials and the finalize: -> (restore(),
+    {op: [(start, end)]}, {host op: s})."""
+    import torch
+    from opensearch_tpu_torch.ops import scoring
+    from opensearch_tpu_torch.search import aggregations as A
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import executor as E
+    spans: dict = {}
+    host: dict = {}
+    depth = [0]
+    saved = []
+
+    def wrap(mod, name, label, device):
+        real = getattr(mod, name)
+
+        def timed(*a, **kw):
+            if device:
+                if depth[0]:
+                    return real(*a, **kw)
+                depth[0] += 1
+                s0 = torch.cuda.Event(enable_timing=True)
+                s1 = torch.cuda.Event(enable_timing=True)
+                s0.record()
+                try:
+                    out = real(*a, **kw)
+                finally:
+                    depth[0] -= 1
+                s1.record()
+                spans.setdefault(label, []).append((s0, s1))
+                return out
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            host[label] = host.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(mod, name, timed)
+        saved.append((mod, name, real))
+    wrap(C, "emit", "query_mask", True)
+    wrap(C, "emit_agg", "agg_ops", True)
+    wrap(scoring, "topk_docs", "topk", True)
+    wrap(E, "device_agg_to_partial", "partials_host", False)
+    wrap(A, "finalize", "finalize_host", False)
+
+    def restore():
+        for mod, name, real in reversed(saved):
+            setattr(mod, name, real)
+    return restore, spans, host
+
+
+def agg_column_bytes(segs, dev) -> int:
+    """Device bytes of the aggregations' arrays: f32 views, keyword
+    ordinals, date buckets, keyword hashes."""
+    n = 0
+    for s in segs:
+        for k, v in s.device_arrays.items():
+            if k[0] in ("f32", "keyword", "dbuckets", "kw_hashes") \
+                    and k[-1] == str(dev):
+                for t in (v if isinstance(v, tuple) else (v,)):
+                    n += t.numel() * t.element_size()
+    return n
+
+
+def run_agg_class(client, name: str, bodies, oracle: AggOracle, cpu,
+                  ncpu: int, pages=None) -> dict:
+    """One class body by body through RestClient.search (the path a
+    size-0 analytics request takes), every response against the brute
+    force, `ncpu` bodies on the card against the CPU twin, the class's
+    first 2 bodies through msearch (a body with aggs reruns as a single
+    search there), then OP_BODIES bodies under the op timer."""
+    import torch
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath
+    from opensearch_tpu_torch.ops import bm25
+    sums = SumCheck()
+    sketch: Counter = Counter()
+    C.reset_stats()
+    bm25.reset_counts()
+    fastpath.reset_stats()
+    lat, resps = [], []
+    t_all = time.perf_counter()
+    for b in bodies:
+        t0 = time.perf_counter()
+        resps.append(client.search("bench", b))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_all
+    general = C.STATS["general_served"]
+    launches = dict(bm25.COUNTS)
+    t0 = time.perf_counter()
+    for i, (b, r) in enumerate(zip(bodies, resps)):
+        check_agg_response(r, b, oracle, sums, sketch, f"{name} body {i}",
+                           None if pages is None else pages(i))
+    t_oracle = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b in bodies[:ncpu]:
+        got, gs = split_sums(strip_took(client.search("bench", b)))
+        want, ws = split_sums(strip_took(cpu.search("bench", b)))
+        if got != want or not np.allclose(gs, ws, rtol=1e-4, atol=0):
+            raise AssertionError(f"{name}: card and CPU responses differ "
+                                 f"for {b}")
+    t_cpu = time.perf_counter() - t0
+    ms = client.msearch(sum([[{}, b] for b in bodies[:2]], []),
+                        index="bench")["responses"]
+    if [split_sums(strip_took(r))[0] for r in ms] != \
+            [split_sums(strip_took(r))[0] for r in resps[:2]]:
+        raise AssertionError(f"{name}: msearch != search")
+    nb = min(OP_BODIES, len(bodies))
+    restore, spans, host = agg_op_timer()
+    try:
+        for b in bodies[:nb]:
+            client.search("bench", b)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    ops_ms = {k: sum(a.elapsed_time(e) for a, e in v) / nb
+              for k, v in spans.items()}
+    host_ms = {k: v * 1e3 / nb for k, v in host.items()}
+    n = len(bodies)
+    log(f"  {name}: bodies={n} wall_s={wall:.2f} bodies_per_s={n / wall:.1f}"
+        f" ms_p50={np.percentile(lat, 50):.1f} "
+        f"ms_p99={np.percentile(lat, 99):.1f} first_ms={lat[0]:.1f} "
+        f"general={general} kernel_launches="
+        f"{ {k: v for k, v in launches.items() if v} }; {n} responses == "
+        f"numpy brute force ({t_oracle:.1f}s; sums: max relative error "
+        f"{sums.rel:.3e}, {sums.of_bound:.3e} of the bound; percentile "
+        f"values one bin off: {sketch['percentile_mismatches']}); {ncpu} "
+        f"card == CPU ({t_cpu:.1f}s); device ms per body (events) " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(ops_ms.items()))
+        + "; host ms per body " + " ".join(
+            f"{k}={v:.2f}" for k, v in sorted(host_ms.items())))
+    if any(launches.values()) or general < n:
+        raise AssertionError(f"{name}: bodies with aggs left the general "
+                             f"path: {launches} general={general}")
+    return {"bodies": n, "bodies_per_s": n / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
+            "sum_max_rel_err": sums.rel, "sum_err_of_bound": sums.of_bound,
+            "percentile_mismatches": sketch["percentile_mismatches"],
+            "op_ms": ops_ms, "host_ms": host_ms}
+
+
+def agg_register_check(client, seg, body) -> dict:
+    """The card's HLL registers (price) and sketch histogram (rating) of
+    one class-(c) body's match, called on the ops directly, against the
+    numpy copy of the reference's arithmetic: mismatches counted."""
+    from opensearch_tpu_torch.ops import aggs as agg_ops
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import query_dsl as dsl
+    dev = client.device
+    ctx = client._indices["bench"].searcher.context()
+    lroot = C.rewrite(dsl.parse_query(body["query"]), ctx)
+    match = C.emit(lroot, seg, ctx, dev).matched & seg.live_on(dev)
+    price = seg.f32_on("price", dev)
+    rating = seg.f32_on("rating", dev)
+    regs = agg_ops.cardinality_numeric_registers(*price, match).cpu().numpy()
+    hist = agg_ops.ddsketch_hist(*rating, match).cpu().numpy()
+    m = match.cpu().numpy()
+    pv = price[0].cpu().numpy()[m]
+    rp = rating[1].cpu().numpy()
+    rv = rating[0].cpu().numpy()[m & rp]
+    want_r = np_hll_registers(np_hash_f32(pv))
+    want_h = np.bincount(np_dd_bins(rv), minlength=agg_ops.DD_NBINS)
+    return {"register_mismatches": int((regs != want_r).sum()),
+            "sketch_bin_mismatches": int(np.abs(hist - want_h).sum() // 2),
+            "values": int(len(rv))}
+
+
+def phase_aggs_msmarco(big: dict, n: int) -> dict:
+    """Size-0 analytics bodies over phase 7's end state (the big segment
+    with phase 7's re-indexed _ids deleted, their new versions in a small
+    segment): classes (a)-(e) of `agg_classes`, each against the numpy
+    brute force, 2 bodies a class on the card against the CPU (1 for the
+    refinement class), the ops timed by step."""
+    from opensearch_tpu_torch import RestClient
+    client = big["client"]
+    dev = client.device
+    ix = big["ix"]
+    segs = list(client._indices["bench"].engine.segments)
+    oracle = AggOracle(ix, big["aggs"])
+    cpu = RestClient(device="cpu")
+    cpu.indices.create("bench", BENCH_MAPPING)
+    cpu._indices["bench"].engine.segments = segs
+    n_refine = min(4, n)
+    classes = agg_classes(big, n, n_refine)
+    log(f"  {n} bodies a class, {n_refine} of the refinement class (e) "
+        f"(each runs one size-0 sub-search per week bucket)")
+    out: dict = {}
+    bytes_before = agg_column_bytes(segs, dev)
+    # the host's date buckets of the big segment, built once per calendar
+    # and cached (the classes below find them built)
+    from opensearch_tpu_torch.search import compiler as C
+    build_s = {}
+    for cal in ("day", "month", "week"):
+        t0 = time.perf_counter()
+        C.host_date_buckets(segs[0], "ts", 1, 0, cal)
+        build_s[cal] = time.perf_counter() - t0
+    log("  date buckets' host build (once per segment and calendar): "
+        + " ".join(f"{k}={v:.3f}s" for k, v in build_s.items()))
+    for name, bodies in classes.items():
+        pages = None
+        if name == "c_match_metrics":
+            def pages(i, _ix=ix):
+                score, ok = _ix.group(list(big["body_terms"][2 * i]))
+                return _ix.page(score, ok, 0, 10), ok & _ix.live
+        out[name] = run_agg_class(client, name, bodies, oracle, cpu,
+                                  1 if name.startswith("e_") else 2, pages)
+    check = agg_register_check(client, segs[0],
+                               classes["c_match_metrics"][0])
+    log(f"  ops on the card vs numpy (class (c), body 0): HLL register "
+        f"mismatches {check['register_mismatches']} of 16384, sketch "
+        f"values in another bin {check['sketch_bin_mismatches']} of "
+        f"{check['values']}")
+    if check["register_mismatches"]:
+        raise AssertionError("HLL registers differ from the reference's "
+                             "arithmetic")
+    nbytes = agg_column_bytes(segs, dev)
+    log(f"  aggregation device arrays (f32 views of price, ts and rating, "
+        f"status ordinals, date buckets, keyword hashes): {nbytes} bytes "
+        f"(before the phase: {bytes_before})")
+    return {"classes": out, "device_bytes": nbytes, "ops_check": check,
+            "date_buckets_build_s": build_s}
+
+
+# ---------------------------------------------------------------------
 # phase 8: deletes, updates and a forced merge at MS MARCO passage scale
 # ---------------------------------------------------------------------
 
@@ -3008,6 +3600,13 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
                                      "bool_launches", "plain_calls")):
         raise AssertionError(f"merged segment, phrases: not served by the "
                              f"general path alone: {r}")
+    # size-0 analytics bodies: the status keyword column, ts and rating
+    # went through the deletes and the merge
+    classes = agg_classes(big, 2, 0)
+    out["aggs"] = run_agg_class(
+        client, "aggs (a) and (b), merged",
+        classes["a_terms_stats"] + classes["b_month_date_hist"],
+        AggOracle(ix, big["aggs"]), cpu, 2)
     for name, key in (("first_use", "impact_launches"),
                       ("pruned", "impact_launches"), ("dense", "launches"),
                       ("b3", "bool_launches")):
@@ -3142,10 +3741,13 @@ def main() -> int:
                     help="phase-9 config-3 and mixed bodies each")
     ap.add_argument("--phrase-sloppy", type=int, default=64,
                     help="phase-9 sloppy and prefix bodies together")
+    ap.add_argument("--agg-queries", type=int, default=16,
+                    help="phase-10 bodies per class (the refinement class "
+                    "takes at most 4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 9; they run 3, 4, 5, "
-                    "6, 9, 7, 8); no result line")
+                    help="end after this phase (3 to 10; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3250,6 +3852,12 @@ def main() -> int:
     if args.stop_after == 7:
         return 0
 
+    log(f"[10] size-0 analytics bodies (aggregations) at MS MARCO passage "
+        f"scale (ndocs={args.ndocs})" + at(t_start))
+    aggs = phase_aggs_msmarco(big, args.agg_queries)
+    if args.stop_after == 10:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
@@ -3302,6 +3910,7 @@ def main() -> int:
                                      if kk != "batch_ms"}
                                  for k, v in phrase.items()}}), flush=True)
     print(json.dumps({"general_path": general}), flush=True)
+    print(json.dumps({"aggs": aggs}), flush=True)
     print(json.dumps({"writes": writes}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ The corpus is made from a seed: lognormal doc lengths around 56 tokens
 (8..256), Zipf(1.15) terms over a 200k vocabulary, one posting per
 (term, doc) with its tf. Its guardrail columns, as bench.py's second
 configuration has them: a `status` keyword (archived / draft /
-published, uniform) as one postings row per value, and an `integer`
-`price` uniform over 0..999. Its positional `title` field, as bench.py's
+published, uniform) as one postings row per value and its keyword doc
+values, and an `integer` `price` uniform over 0..999. Its aggregation
+columns (`agg_columns`): a `date` `ts` over 2024 and a `double`
+`rating` that about 5% of docs lack. Its positional `title` field, as bench.py's
 third configuration has it: 8 tokens a passage, 4 bigrams from a
 2,000-pair Zipf(1.3) pool over 1,000 terms; the phrase and mixed bodies
 are bench.py's.
@@ -151,13 +153,30 @@ def guardrail_columns(ndocs: int, seed: int = 3) -> tuple:
     return status_ord, price
 
 
+# epoch ms of 2024-01-01 and 2025-01-01, UTC
+TS_LO, TS_HI = 1_704_067_200_000, 1_735_689_600_000
+
+
+def agg_columns(ndocs: int, seed: int = 4) -> tuple:
+    """(ts i64[ndocs], rating f64[ndocs], rating present bool[ndocs]):
+    epoch ms uniform over 2024 UTC, and a positive lognormal rating
+    around 2.7 that about 5% of docs lack (0.0 there)."""
+    rng = np.random.default_rng(seed)
+    ts = rng.integers(TS_LO, TS_HI, ndocs, dtype=np.int64)
+    rating = rng.lognormal(1.0, 0.5, ndocs)
+    present = rng.random(ndocs) >= 0.05
+    return ts, np.where(present, rating, 0.0), present
+
+
 def make_index(client, corpus, name: str = "bench", columns=None,
-               title=None):
+               title=None, aggs=None):
     """Create index `name` with a text field `body` and attach the CSR
     corpus as its one segment; with `columns` (guardrail_columns), also
-    the `status` keyword postings and the `price` integer column, and
-    with `title` (build_title_corpus) the positional `title` text field,
-    as bench.py's make_index builds them. Returns the segment."""
+    the `status` keyword postings and doc values and the `price` integer
+    column, with `title` (build_title_corpus) the positional `title`
+    text field, as bench.py's make_index builds them, and with `aggs`
+    (agg_columns) the `ts` date and `rating` double columns. Returns the
+    segment."""
     starts, doc_ids, tfs, dl, _df = corpus
     ndocs = len(dl)
     postings = {"body": {"vocab": vocab_strings(len(starts) - 1),
@@ -174,7 +193,7 @@ def make_index(client, corpus, name: str = "bench", columns=None,
         props["title"] = {"type": "text"}
         doc_lens["title"] = np.full(ndocs, TITLE_DL, np.int64)
         text_stats["title"] = (ndocs, TITLE_DL * ndocs)
-    numeric = None
+    numeric, keyword = {}, None
     if columns is not None:
         status_ord, price = columns
         # keyword term queries run against postings: one row per value
@@ -185,13 +204,27 @@ def make_index(client, corpus, name: str = "bench", columns=None,
             "vocab": STATUS_VALUES, "starts": sstarts,
             "doc_ids": np.argsort(status_ord, kind="stable").astype(np.int32),
             "tfs": np.ones(ndocs, np.float32)}
-        numeric = {"price": {"kind": "int", "values": price.astype(np.int64),
-                             "present": np.ones(ndocs, bool)}}
+        keyword = {"status": {
+            "vocab": STATUS_VALUES,
+            "starts": np.arange(ndocs + 1, dtype=np.int64),
+            "ords": status_ord, "doc_of_value": np.arange(ndocs,
+                                                          dtype=np.int32),
+            "min_ord": status_ord}}
+        numeric["price"] = {"kind": "int", "values": price.astype(np.int64),
+                            "present": np.ones(ndocs, bool)}
         props.update({"status": {"type": "keyword"},
                       "price": {"type": "integer"}})
+    if aggs is not None:
+        ts, rating, present = aggs
+        numeric["ts"] = {"kind": "int", "values": ts,
+                         "present": np.ones(ndocs, bool)}
+        numeric["rating"] = {"kind": "float", "values": rating,
+                             "present": present}
+        props.update({"ts": {"type": "date"}, "rating": {"type": "double"}})
     seg = segment_from_arrays(
         "bench0", ndocs, postings, doc_lens, text_stats, LazyIds(ndocs),
-        LazySources(ndocs), numeric_cols=numeric, device=client.device)
+        LazySources(ndocs), numeric_cols=numeric, keyword_cols=keyword,
+        device=client.device)
     client.indices.create(name, {"mappings": {"properties": props}})
     client._indices[name].engine.segments = [seg]
     return seg

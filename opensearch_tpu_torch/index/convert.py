@@ -2,9 +2,9 @@
 
 The arguments are exactly what an opensearch_tpu Segment holds for its
 inverted fields (CSR postings with their positions, doc lengths, text
-stats and, on codec v2, each field's ImpactPlane arrays) and its
-integer/long doc values (each NumericColumn's kind, values and present
-mask), so a segment built there (or a CSR corpus made from a seed, as
+stats and, on codec v2, each field's ImpactPlane arrays) and its doc
+values (each NumericColumn's kind, values and present mask, each
+KeywordColumn's vocab and ordinal arrays), so a segment built there (or a CSR corpus made from a seed, as
 `bench_corpus.py` does) carries across without re-indexing.
 """
 
@@ -15,11 +15,17 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from ..errors import NotPortedError
-from .segment import (CODEC_V2, ImpactPlane, NumericColumn, PostingsBlock,
-                      Segment, TextFieldStats, default_codec_version)
+from .segment import (CODEC_V2, ImpactPlane, KeywordColumn, NumericColumn,
+                      PostingsBlock, Segment, TextFieldStats,
+                      default_codec_version)
 
 IMPACT_FIELDS = ("q", "scale", "bits", "k1", "b", "avgdl", "dl_max",
                  "block_starts", "block_off", "block_max")
+
+
+def _getter(col):
+    """Field access for a column given as a dict or as an object."""
+    return col.get if isinstance(col, dict) else col.__getattribute__
 
 
 def segment_from_arrays(name: str, ndocs: int,
@@ -30,6 +36,7 @@ def segment_from_arrays(name: str, ndocs: int,
                         live: Optional[np.ndarray] = None,
                         impacts: Optional[Dict[str, dict]] = None,
                         numeric_cols: Optional[Dict[str, object]] = None,
+                        keyword_cols: Optional[Dict[str, object]] = None,
                         device=None) -> Segment:
     """`postings[field]` = dict(vocab, starts, doc_ids, tfs) in CSR form
     (vocab sorted, docs ascending per row), with `pos_starts` and
@@ -44,8 +51,10 @@ def segment_from_arrays(name: str, ndocs: int,
     refresh does.
 
     `numeric_cols[field]` = a reference segment's NumericColumn, or a dict
-    of its `kind`, `values` and `present`, taken as it is; only the "int"
-    kind (integer/long fields) is ported."""
+    of its `kind`, `values` and `present`, taken as it is: kind "int"
+    (exact i64) or "float" (f64). `keyword_cols[field]` = a reference
+    segment's KeywordColumn, or a dict of its `vocab`, `starts`, `ords`,
+    `doc_of_value` and `min_ord`."""
     blocks = {}
     for field, p in postings.items():
         vocab = list(p["vocab"])
@@ -67,18 +76,28 @@ def segment_from_arrays(name: str, ndocs: int,
         blocks[field] = pb
     cols = {}
     for field, col in (numeric_cols or {}).items():
-        get = col.get if isinstance(col, dict) else col.__getattribute__
-        if get("kind") != "int":
+        get = _getter(col)
+        kind = get("kind")
+        if kind not in ("int", "float"):
             raise NotPortedError(f"numeric column [{field}] of kind "
-                                 f"[{get('kind')}]")
-        cols[field] = NumericColumn(field, "int",
-                                    np.asarray(get("values"), np.int64),
-                                    np.asarray(get("present"), bool))
+                                 f"[{kind}]")
+        cols[field] = NumericColumn(
+            field, kind, np.asarray(get("values"), np.float64
+                                    if kind == "float" else np.int64),
+            np.asarray(get("present"), bool))
+    kcols = {}
+    for field, col in (keyword_cols or {}).items():
+        get = _getter(col)
+        kcols[field] = KeywordColumn(
+            field, list(get("vocab")), np.asarray(get("starts"), np.int64),
+            np.asarray(get("ords"), np.int32),
+            np.asarray(get("doc_of_value"), np.int32),
+            np.asarray(get("min_ord"), np.int32))
     seg = Segment(name, int(ndocs), blocks,
                   {f: np.asarray(v, np.int64) for f, v in doc_lens.items()},
                   {f: TextFieldStats(int(dc), int(sdl))
                    for f, (dc, sdl) in text_stats.items()},
-                  [], [], numeric_cols=cols)
+                  [], [], numeric_cols=cols, keyword_cols=kcols)
     seg.ids = ids
     seg.sources = sources
     # a lazy id view is not enumerated: nothing in this slice looks ids up

@@ -1,20 +1,24 @@
-"""Field mappings and document parsing (the text/keyword/integer/long
-subset of opensearch_tpu/index/mappings.py).
+"""Field mappings and document parsing (the text, keyword, integer,
+long, date, boolean, double and float subset of
+opensearch_tpu/index/mappings.py).
 
 Documents are parsed on the host into per-field term lists (text and
-keyword), the token positions of text fields and numeric doc values
-(integer and long, exact i64); the device only ever sees term rows,
-positions and numeric columns. Explicit and dynamic
+keyword), the token positions of text fields, keyword doc values (the
+normalized values of keyword fields and subfields) and numeric doc
+values: integer, long, date (epoch millis) and boolean (0/1) as exact
+i64, double and float as f64. The device only ever sees term rows,
+positions, keyword ordinals and numeric columns. Explicit and dynamic
 fields are served with the reference's dynamic rules: strings map to text
-+ a `.keyword` subfield with ignore_above 256 (ISO-date strings map to
-`date`), JSON integers to `long`. Every other field type (`double`,
-`date`, ...), mapping option or dynamic value type raises
-`NotPortedError`.
++ a `.keyword` subfield with ignore_above 256, ISO-date strings to
+`date`, JSON integers to `long`, floats to `double` and booleans to
+`boolean`. Every other field type, mapping option, dynamic template or
+dynamic value type raises `NotPortedError`.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import numbers
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -23,11 +27,15 @@ from ..errors import NotPortedError
 
 TEXT_TYPES = {"text"}
 KEYWORD_TYPES = {"keyword"}
-# the ported subset of the reference's long family: exact i64 doc values
-INT_TYPES = {"integer", "long"}
+# the ported subset of the reference's long family (exact i64 doc values:
+# dates as epoch millis, booleans as 0/1) and of its float family (f64)
+INT_TYPES = {"integer", "long", "date", "boolean"}
+FLOAT_TYPES = {"double", "float"}
+NUMERIC_TYPES = INT_TYPES | FLOAT_TYPES
 _INT_BITS = {"integer": 31, "long": 63}
 _FIELD_OPTIONS = {"type", "analyzer", "search_analyzer", "normalizer",
-                  "index", "doc_values", "ignore_above", "norms", "fields"}
+                  "index", "doc_values", "ignore_above", "norms", "fields",
+                  "format"}
 _MAPPING_KEYS = {"properties", "dynamic", "_meta"}
 
 
@@ -41,6 +49,8 @@ class FieldType:
     index: bool = True
     ignore_above: Optional[int] = None
     norms: bool = True
+    doc_values: bool = True
+    date_format: Optional[str] = None
     subfields: Dict[str, "FieldType"] = dc_field(default_factory=dict)
 
     @property
@@ -58,21 +68,65 @@ class ParsedDocument:
     routing: Optional[str]
     terms: Dict[str, List[str]] = dc_field(default_factory=dict)
     # field -> numeric values (the segment's column keeps the first)
-    numerics: Dict[str, List[int]] = dc_field(default_factory=dict)
+    numerics: Dict[str, List[Any]] = dc_field(default_factory=dict)
+    # keyword field -> its doc values (terms aggs read them)
+    keywords: Dict[str, List[str]] = dc_field(default_factory=dict)
     # text field -> (term, position) per token, in token order; the
     # values of an array field are 100 positions apart
     positions: Dict[str, List[Tuple[str, int]]] = dc_field(
         default_factory=dict)
 
 
-def coerce_value(ft: "FieldType", value: Any) -> int:
-    """A raw JSON value as the i64 column value of an integer/long field,
-    range-checked as the reference's coerce_value does."""
+def _parse_date(value: Any, fmt: Optional[str]) -> int:
+    """A date as epoch millis (the reference's DateFieldMapper parse;
+    default format `strict_date_optional_time||epoch_millis`)."""
+    if isinstance(value, bool):
+        raise ValueError(f"cannot parse date from boolean [{value}]")
+    if isinstance(value, numbers.Number):
+        return int(value)
+    s = str(value).strip()
+    if fmt == "epoch_second":
+        return int(float(s) * 1000)
+    if s.isdigit() or (s[:1] == "-" and s[1:].isdigit()):
+        return int(s)
+    try:
+        dt = _dt.datetime.fromisoformat(s.replace("Z", "+00:00"))
+    except ValueError:
+        for f in ("%Y/%m/%d", "%Y/%m/%d %H:%M:%S", "%d-%m-%Y", "%m/%d/%Y"):
+            try:
+                dt = _dt.datetime.strptime(s, f)
+                break
+            except ValueError:
+                continue
+        else:
+            raise ValueError(f"failed to parse date field [{s}]")
+    if dt.tzinfo is None:
+        dt = dt.replace(tzinfo=_dt.timezone.utc)
+    return int(dt.timestamp() * 1000)
+
+
+def coerce_value(ft: "FieldType", value: Any):
+    """A raw JSON value as its column value, as the reference's
+    coerce_value: epoch millis for a date, 0/1 for a boolean, a
+    range-checked int for integer/long, a float for double/float."""
+    t = ft.type
+    if t == "date":
+        return _parse_date(value, ft.date_format)
+    if t == "boolean":
+        if isinstance(value, str):
+            if value in ("true", "True"):
+                return 1
+            if value in ("false", "False", ""):
+                return 0
+            raise ValueError(f"cannot parse boolean [{value}]")
+        return 1 if bool(value) else 0
+    if t in FLOAT_TYPES:
+        return float(value)
     iv = int(value)
-    bits = _INT_BITS[ft.type]
+    bits = _INT_BITS[t]
     if not (-(1 << bits)) <= iv < (1 << bits):
         raise ValueError(f"value [{value}] out of range for field type "
-                         f"[{ft.type}]")
+                         f"[{t}]")
     return iv
 
 
@@ -108,7 +162,7 @@ class Mappings:
             self.fields[path] = self._build_field(path, ftype, cfg)
 
     def _build_field(self, path: str, ftype: str, cfg: dict) -> FieldType:
-        if ftype not in TEXT_TYPES | KEYWORD_TYPES | INT_TYPES:
+        if ftype not in TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES:
             raise NotPortedError(f"field type [{ftype}] (field [{path}])")
         for key in cfg:
             if key not in _FIELD_OPTIONS:
@@ -120,7 +174,9 @@ class Mappings:
             normalizer=cfg.get("normalizer"),
             index=cfg.get("index", True),
             ignore_above=cfg.get("ignore_above"),
-            norms=cfg.get("norms", True))
+            norms=cfg.get("norms", True),
+            doc_values=cfg.get("doc_values", True),
+            date_format=cfg.get("format"))
         for sub, subcfg in cfg.get("fields", {}).items():
             ft.subfields[sub] = self._build_field(
                 f"{path}.{sub}", subcfg.get("type", "keyword"), subcfg)
@@ -153,11 +209,11 @@ class Mappings:
 
     def _dynamic_type(self, path: str, value: Any) -> FieldType:
         if isinstance(value, bool):
-            raise NotPortedError(f"dynamic field type [boolean] (field [{path}])")
+            return self._build_field(path, "boolean", {})
         if isinstance(value, int):
             return self._build_field(path, "long", {})
         if isinstance(value, float):
-            raise NotPortedError(f"dynamic field type [double] (field [{path}])")
+            return self._build_field(path, "double", {})
         if isinstance(value, str):
             try:   # the reference's ISO date detection
                 _dt.datetime.fromisoformat(value.replace("Z", "+00:00"))
@@ -165,7 +221,7 @@ class Mappings:
                 return self._build_field(
                     path, "text", {"fields": {"keyword": {
                         "type": "keyword", "ignore_above": 256}}})
-            raise NotPortedError(f"dynamic field type [date] (field [{path}])")
+            return self._build_field(path, "date", {})
         raise NotPortedError(
             f"dynamic value of type [{type(value).__name__}] (field [{path}])")
 
@@ -223,7 +279,7 @@ class Mappings:
                 base = max(p for _, p in pl) + 100 if pl else 0
                 pl.extend((t.text, base + t.position) for t in tokens)
             return
-        if ft.type in INT_TYPES:
+        if ft.type in NUMERIC_TYPES:
             parsed.numerics.setdefault(name, []).append(coerce_value(ft, v))
             return
         s = str(v)      # keyword
@@ -233,3 +289,5 @@ class Mappings:
         s = norm[0] if norm else s
         if ft.index:
             parsed.terms.setdefault(name, []).append(s)
+        if ft.doc_values:
+            parsed.keywords.setdefault(name, []).append(s)

@@ -4,7 +4,9 @@ opensearch_tpu/index/merge.py, for the planes a port Segment has).
 `merge_segments` compacts deleted docs away and concatenates the inputs'
 live docs in input order, as the reference does, so the merged internal
 ids equal the reference's (with its BP doc-id reorder off: the port keeps
-concatenation order, its tie key). Postings (text and keyword rows) merge
+concatenation order, its tie key). Numeric columns keep their kind;
+keyword columns merge over the union of their vocabs with ordinals
+remapped and deleted docs' values dropped. Postings (text and keyword rows) merge
 as one sort of (union row, new doc) triples: on the engine's device at
 DEVICE_MERGE_MIN postings and above (`ops/device_merge.merge_sorted_runs`),
 else `np.lexsort`; a positional field's position runs follow their
@@ -35,12 +37,13 @@ import numpy as np
 
 from ..errors import NotPortedError
 from ..ops import device_merge
-from .segment import (CODEC_V2, NumericColumn, PostingsBlock, Segment,
-                      TextFieldStats, default_codec_version)
+from .segment import (CODEC_V2, KeywordColumn, NumericColumn,
+                      PostingsBlock, Segment, TextFieldStats,
+                      default_codec_version)
 
 # planes of a reference segment that no port segment carries
-_UNPORTED_PLANES = ("keyword_cols", "geo_cols", "vector_cols", "shape_cols",
-                    "nested", "term_vectors", "stored_vals")
+_UNPORTED_PLANES = ("geo_cols", "vector_cols", "shape_cols", "nested",
+                    "term_vectors", "stored_vals")
 
 # the reference's reorder threshold (index/reorder.py)
 REORDER_MIN_DOCS = 1 << 15
@@ -252,6 +255,39 @@ def _merge_postings(field: str, segments, dmaps, device):
     return pb, t_sort, t_pos
 
 
+def _merge_keywords(field: str, segments, dmaps,
+                    ndocs: int) -> KeywordColumn:
+    """One keyword column over the merged doc ids: the inputs' vocabs'
+    union, their ordinals remapped, deleted docs' values dropped, values
+    sorted by (doc, ordinal), as the reference merges them."""
+    vocab_union = sorted({v for s in segments if field in s.keyword_cols
+                          for v in s.keyword_cols[field].vocab})
+    new_ord_of = {v: i for i, v in enumerate(vocab_union)}
+    doc_parts, ord_parts = [], []
+    for s, dmap in zip(segments, dmaps):
+        col = s.keyword_cols.get(field)
+        if col is None or len(col.ords) == 0:
+            continue
+        remap = np.fromiter((new_ord_of[v] for v in col.vocab), np.int64,
+                            count=len(col.vocab))
+        new_docs = dmap[col.doc_of_value]
+        keep = new_docs >= 0
+        doc_parts.append(new_docs[keep])
+        ord_parts.append(remap[col.ords[keep]])
+    docs = np.concatenate(doc_parts) if doc_parts else np.empty(0, np.int64)
+    ords = np.concatenate(ord_parts) if ord_parts else np.empty(0, np.int64)
+    order = np.lexsort((ords, docs))
+    docs, ords = docs[order], ords[order]
+    starts = np.zeros(ndocs + 1, dtype=np.int64)
+    np.cumsum(np.bincount(docs, minlength=ndocs), out=starts[1:])
+    min_ord = np.full(ndocs, -1, dtype=np.int32)
+    if len(docs):
+        first, at = np.unique(docs, return_index=True)
+        min_ord[first] = ords[at].astype(np.int32)
+    return KeywordColumn(field, vocab_union, starts, ords.astype(np.int32),
+                         docs.astype(np.int32), min_ord)
+
+
 def merge_segments(name: str, segments: List[Segment],
                    device=None) -> Segment:
     """Compacting multiway merge of N segments into one; large postings
@@ -278,7 +314,9 @@ def merge_segments(name: str, segments: List[Segment],
 
     numeric_cols: Dict[str, NumericColumn] = {}
     for f in sorted({f for s in segments for f in s.numeric_cols}):
-        values = np.zeros(ndocs, np.int64)
+        kind = next(s.numeric_cols[f].kind for s in segments
+                    if f in s.numeric_cols)
+        values = np.zeros(ndocs, np.float64 if kind == "float" else np.int64)
         present = np.zeros(ndocs, bool)
         for s, m, dmap in zip(segments, live_masks, dmaps):
             col = s.numeric_cols.get(f)
@@ -286,7 +324,10 @@ def merge_segments(name: str, segments: List[Segment],
                 continue
             values[dmap[m]] = col.values[m]
             present[dmap[m]] = col.present[m]
-        numeric_cols[f] = NumericColumn(f, "int", values, present)
+        numeric_cols[f] = NumericColumn(f, kind, values, present)
+    keyword_cols = {f: _merge_keywords(f, segments, dmaps, ndocs)
+                    for f in sorted({f for s in segments
+                                     for f in s.keyword_cols})}
 
     doc_lens: Dict[str, np.ndarray] = {}
     text_stats: Dict[str, TextFieldStats] = {}
@@ -301,7 +342,8 @@ def merge_segments(name: str, segments: List[Segment],
                                        sum_dl=int(dl.sum()))
 
     merged = Segment(name, ndocs, postings, doc_lens, text_stats, ids,
-                     sources, seq_nos=seq_nos, numeric_cols=numeric_cols)
+                     sources, seq_nos=seq_nos, numeric_cols=numeric_cols,
+                     keyword_cols=keyword_cols)
     t_host = time.perf_counter() - t0 - t_sort - t_pos
     t1 = time.perf_counter()
     if default_codec_version() >= CODEC_V2:

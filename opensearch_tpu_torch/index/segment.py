@@ -7,14 +7,21 @@ sorted-vocab order, docs ascending within a row; a text field's postings
 also carry token positions (`pos_starts` / `positions`), which phrase
 queries read. `doc_lens` holds each text
 field's per-doc token count and `text_stats` its (doc_count, sum_dl), the
-collection statistics BM25 reads. `numeric_cols` holds each integer/long
-field's doc values (the first value of each doc, exact i64, and a
-`present` mask), which range filters read. The host arrays are numpy. The
+collection statistics BM25 reads. `numeric_cols` holds each numeric
+field's doc values (the first value of each doc and a `present` mask):
+exact i64 for integer, long, date and boolean fields (kind "int"), f64
+for double and float fields (kind "float"); range filters and
+aggregations read them. `keyword_cols` holds each keyword field's doc
+values as segment-local ordinals into a sorted vocab (a doc-major CSR of
+the doc's distinct values, and the doc's least ordinal), which terms
+aggregations read. The host arrays are numpy. The
 search layer builds the device-resident aligned layout it needs
-(`search/fastpath.py`); the general query path reads, per device and
-cached on the segment, the live mask, doc lengths, numeric columns and,
-for a field the aligned layout cannot pack, a CSR copy of its postings
-(`live_on`, `doc_lens_on`, `numeric_on`, `csr_on`).
+(`search/fastpath.py`); the general query path and the aggregations
+read, per device and cached on the segment, the live mask, doc lengths,
+numeric columns, their f32 aggregation view, keyword ordinals and, for a
+field the aligned layout cannot pack, a CSR copy of its postings
+(`live_on`, `doc_lens_on`, `numeric_on`, `f32_on`, `keyword_on`,
+`csr_on`).
 
 Codec v2 (the default for new segments, as in the reference) adds a
 per-field impact plane: the BM25 tf-saturation tf/(tf + k1(1-b+b dl/avgdl))
@@ -39,7 +46,7 @@ import numpy as np
 import torch
 
 from ..errors import NotPortedError
-from .mappings import Mappings
+from .mappings import FLOAT_TYPES, Mappings
 
 CODEC_V1 = 1
 CODEC_V2 = 2
@@ -237,12 +244,12 @@ class PostingsBlock:
 
 @dataclass
 class NumericColumn:
-    """Doc values of one integer/long field: `values[d]` is the first
-    value of doc d (0 where `present[d]` is false)."""
+    """Doc values of one numeric field: `values[d]` is the first value of
+    doc d (0 where `present[d]` is false)."""
 
     field: str
-    kind: str                 # "int" (integer/long, exact i64)
-    values: np.ndarray        # i64[ndocs]
+    kind: str                 # "int" (exact i64) | "float" (f64)
+    values: np.ndarray        # i64[ndocs] | f64[ndocs]
     present: np.ndarray       # bool[ndocs]
 
     @functools.cached_property
@@ -251,6 +258,19 @@ class NumericColumn:
             return (0.0, 0.0)
         vals = self.values[self.present]
         return (float(vals.min()), float(vals.max()))
+
+
+@dataclass
+class KeywordColumn:
+    """Doc values of one keyword field: the distinct values of doc d are
+    `vocab[ords[starts[d]:starts[d + 1]]]`, ordinals ascending."""
+
+    field: str
+    vocab: List[str]          # sorted distinct values
+    starts: np.ndarray        # i64[ndocs+1] doc-major CSR
+    ords: np.ndarray          # i32[total_values]
+    doc_of_value: np.ndarray  # i32[total_values] (doc id per flat value)
+    min_ord: np.ndarray       # i32[ndocs], -1 = missing
 
 
 @dataclass
@@ -270,7 +290,8 @@ class Segment:
                  text_stats: Dict[str, TextFieldStats],
                  ids, sources, seq_nos: Optional[np.ndarray] = None,
                  codec_version: int = CODEC_V1,
-                 numeric_cols: Optional[Dict[str, NumericColumn]] = None):
+                 numeric_cols: Optional[Dict[str, NumericColumn]] = None,
+                 keyword_cols: Optional[Dict[str, KeywordColumn]] = None):
         Segment._seq += 1
         self.uid = Segment._seq
         self.name = name
@@ -279,6 +300,7 @@ class Segment:
         self.doc_lens = doc_lens
         self.text_stats = text_stats
         self.numeric_cols = numeric_cols or {}
+        self.keyword_cols = keyword_cols or {}
         self.ids = ids
         self.sources = sources
         self.seq_nos = (seq_nos if seq_nos is not None
@@ -402,6 +424,29 @@ class Segment:
             torch.from_numpy(col.values).to(device),
             torch.from_numpy(col.present).to(device)))
 
+    def f32_on(self, field: str, device):
+        """(values f32[ndocs], present bool[ndocs]): the f32 view of a
+        numeric column that aggregations read, cast on the host as the
+        reference's `_num_field_arrays` casts it (a long or date column
+        rounds to f32 there too), or None without the column."""
+        col = self.numeric_cols.get(field)
+        if col is None:
+            return None
+        return self.device_cached(("f32", field), device, lambda: (
+            torch.from_numpy(col.values.astype(np.float32)).to(device),
+            torch.from_numpy(col.present).to(device)))
+
+    def keyword_on(self, field: str, device):
+        """(ords i64[V], doc_of_value i64[V], min_ord i32[ndocs]) of a
+        keyword column on `device`, or None without the column."""
+        col = self.keyword_cols.get(field)
+        if col is None:
+            return None
+        return self.device_cached(("keyword", field), device, lambda: (
+            torch.from_numpy(col.ords.astype(np.int64)).to(device),
+            torch.from_numpy(col.doc_of_value.astype(np.int64)).to(device),
+            torch.from_numpy(col.min_ord).to(device)))
+
     def csr_on(self, field: str, device):
         """(doc ids i32[P], tfs f32[P], impacts i32[P] or None) of a
         field's CSR postings: the general path's copy of a field that the
@@ -428,13 +473,14 @@ class Segment:
     def release_device(self) -> None:
         """Drop the search layer's state now (aligned postings, heads,
         filtered views, quality tiers, filter masks and lists, the general
-        path's arrays, the phrase pairs on the host and the device), not
-        at garbage collection: a merge calls it on the segments it
-        replaces."""
+        path's arrays, the phrase pairs on the host and the device, the
+        aggregations' date buckets and keyword hashes), not at garbage
+        collection: a merge calls it on the segments it replaces."""
         self.aligned = {}
         self.device_arrays = {}
-        self.__dict__.pop("filter_lists", None)
-        self.__dict__.pop("phrase_pairs", None)
+        for k in ("filter_lists", "phrase_pairs", "date_buckets",
+                  "kw_hashes"):
+            self.__dict__.pop(k, None)
 
     # ---------------- persistence (flush / recovery) ----------------
 
@@ -442,8 +488,8 @@ class Segment:
         """Write the segment under `path` in the reference's layout
         (arrays.npz, meta.json, vocab files, stored.jsonl): live mask,
         seq_nos, codec, postings, impact planes and their sidecars,
-        numeric columns, doc lengths and text stats, so that `load`
-        serves bit-equal pages without re-quantizing."""
+        numeric and keyword columns, doc lengths and text stats, so that
+        `load` serves bit-equal pages without re-quantizing."""
         os.makedirs(path, exist_ok=True)
         arrays: Dict[str, np.ndarray] = {"live": self.live,
                                          "seq_nos": self.seq_nos}
@@ -480,6 +526,15 @@ class Segment:
             arrays[f"num__{f}__values"] = col.values
             arrays[f"num__{f}__present"] = col.present
             meta["numeric"][f] = {"kind": col.kind}
+        for f, col in self.keyword_cols.items():
+            arrays[f"kw__{f}__starts"] = col.starts
+            arrays[f"kw__{f}__ords"] = col.ords
+            arrays[f"kw__{f}__docs"] = col.doc_of_value
+            arrays[f"kw__{f}__min_ord"] = col.min_ord
+            meta["keyword"][f] = {"vocab_file": True}
+            with open(os.path.join(path, f"kwvocab__{_fname(f)}.txt"),
+                      "w") as fh:
+                fh.write("\n".join(col.vocab))
         for f, dl in self.doc_lens.items():
             arrays[f"dl__{f}"] = dl
         np.savez(os.path.join(path, "arrays.npz"), **arrays)
@@ -492,11 +547,12 @@ class Segment:
 
     @classmethod
     def load(cls, path: str) -> "Segment":
-        """A segment written by `save`. Planes the port does not have
-        (keyword columns, geo) raise NotPortedError."""
+        """A segment written by `save` (or by the reference's). Planes the
+        port does not have (geo, vectors, shapes, nested) raise
+        NotPortedError."""
         with open(os.path.join(path, "meta.json")) as fh:
             meta = json.load(fh)
-        if meta.get("keyword") or meta.get("geo") or meta.get("vector") \
+        if meta.get("geo") or meta.get("vector") \
                 or meta.get("shape") or meta.get("nested"):
             raise NotPortedError("loading a segment with planes the port "
                                  "does not have")
@@ -536,6 +592,14 @@ class Segment:
                                     arrays[f"num__{f}__values"],
                                     arrays[f"num__{f}__present"])
                    for f, m in meta["numeric"].items()}
+        keyword = {}
+        for f in meta["keyword"]:
+            with open(os.path.join(path, f"kwvocab__{_fname(f)}.txt")) as fh:
+                content = fh.read()
+            keyword[f] = KeywordColumn(
+                f, content.split("\n") if content else [],
+                arrays[f"kw__{f}__starts"], arrays[f"kw__{f}__ords"],
+                arrays[f"kw__{f}__docs"], arrays[f"kw__{f}__min_ord"])
         doc_lens = {k[len("dl__"):]: arrays[k] for k in arrays.files
                     if k.startswith("dl__")}
         seg = cls(meta["name"], meta["ndocs"], postings, doc_lens,
@@ -543,7 +607,7 @@ class Segment:
                    for f, (dc, sd) in meta["text_stats"].items()},
                   ids, sources, seq_nos=arrays["seq_nos"],
                   codec_version=int(meta.get("codec", CODEC_V1)),
-                  numeric_cols=numeric)
+                  numeric_cols=numeric, keyword_cols=keyword)
         seg.live = arrays["live"].copy()
         seg.id2doc = {d: i for i, d in enumerate(ids) if seg.live[i]}
         return seg
@@ -605,6 +669,29 @@ def pack_postings(parsed_docs: list) -> Dict[str, PostingsBlock]:
     return out
 
 
+def _keyword_column(fname: str, parsed_docs: list) -> KeywordColumn:
+    """One keyword field's doc values: sorted vocab, each doc's distinct
+    ordinals ascending, its least ordinal (-1 without a value)."""
+    vocab = sorted({v for pd in parsed_docs
+                    for v in pd.keywords.get(fname, ())})
+    ord_of = {v: i for i, v in enumerate(vocab)}
+    ndocs = len(parsed_docs)
+    starts = np.zeros(ndocs + 1, dtype=np.int64)
+    flat_ords: List[int] = []
+    flat_docs: List[int] = []
+    min_ord = np.full(ndocs, -1, dtype=np.int32)
+    for doc_i, pd in enumerate(parsed_docs):
+        ords = sorted(ord_of[v] for v in set(pd.keywords.get(fname, ())))
+        flat_ords.extend(ords)
+        flat_docs.extend([doc_i] * len(ords))
+        if ords:
+            min_ord[doc_i] = ords[0]
+        starts[doc_i + 1] = len(flat_ords)
+    return KeywordColumn(fname, vocab, starts,
+                         np.asarray(flat_ords, dtype=np.int32),
+                         np.asarray(flat_docs, dtype=np.int32), min_ord)
+
+
 def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                   seq_nos: Optional[List[int]] = None,
                   device=None) -> Segment:
@@ -625,19 +712,26 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                 dl[doc_i] = len(terms)
     numeric_cols: Dict[str, NumericColumn] = {}
     for fname in sorted({f for pd in parsed_docs for f in pd.numerics}):
-        values = np.zeros(ndocs, dtype=np.int64)
+        ft = mappings.resolve_field(fname)
+        kind = "float" if ft is not None and ft.type in FLOAT_TYPES \
+            else "int"
+        values = np.zeros(ndocs, dtype=np.float64 if kind == "float"
+                          else np.int64)
         present = np.zeros(ndocs, dtype=bool)
         for doc_i, pd in enumerate(parsed_docs):
             vals = pd.numerics.get(fname)
             if vals:
                 values[doc_i] = vals[0]
                 present[doc_i] = True
-        numeric_cols[fname] = NumericColumn(fname, "int", values, present)
+        numeric_cols[fname] = NumericColumn(fname, kind, values, present)
+    keyword_cols = {f: _keyword_column(f, parsed_docs)
+                    for f in sorted({f for pd in parsed_docs
+                                     for f in pd.keywords})}
     seq = np.asarray(seq_nos, dtype=np.int64) if seq_nos is not None else None
     seg = Segment(name, ndocs, pack_postings(parsed_docs),
                   doc_lens, text_stats, [d.doc_id for d in parsed_docs],
                   [d.source for d in parsed_docs], seq_nos=seq,
-                  numeric_cols=numeric_cols)
+                  numeric_cols=numeric_cols, keyword_cols=keyword_cols)
     if default_codec_version() >= CODEC_V2:
         seg.build_impacts(device=device)
     return seg

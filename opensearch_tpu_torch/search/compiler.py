@@ -6,8 +6,12 @@ serves).
 
 A term, terms or match query on a text or keyword field becomes one
 weighted term group (`LTerms`) with the reference's per-term weights (idf
-x boost, f32) and minimum should match; on an integer/long field it
-becomes an exact `LRange` (terms: a bool of them). A match whose terms
+x boost, f32) and minimum should match; on a numeric field it becomes an
+`LRange` (terms: a bool of them): exact i64 on an integer, long, date or
+boolean field, f32 on a double or float field (a `match` on a date field
+analyzes its text, as in the reference). A date bound parses as the
+field's dates do (`index/mappings._parse_date`); a `range` on a keyword
+field raises `NotPortedError`. A match whose terms
 analyze away, a range on an unmapped field, or `match_none` becomes
 `LMatchNone`; `match_all` `LMatchAll`, `exists` `LExists`, `ids` `LIds`.
 A `match_phrase`, a `match_phrase_prefix`, a `span_near` of `span_term`s
@@ -32,6 +36,9 @@ and the impact rung decline.
 
 from __future__ import annotations
 
+import datetime as _dt
+import re
+import zlib
 from bisect import bisect_left
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Callable, List, Optional, Tuple
@@ -40,11 +47,14 @@ import numpy as np
 import torch
 
 from ..errors import NotPortedError
-from ..index.mappings import INT_TYPES, KEYWORD_TYPES, Mappings, coerce_value
+from ..index.mappings import (FLOAT_TYPES, KEYWORD_TYPES, NUMERIC_TYPES,
+                              Mappings, coerce_value)
 from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
+from ..ops import aggs as agg_ops
 from ..ops import positions as pos_ops
 from ..ops import scoring as ops
+from .aggregations import STATS_FAMILY
 from ..ops.bm25 import LANES
 from . import query_dsl as dsl
 
@@ -158,8 +168,8 @@ class LIds(LNode):
 
 @dataclass
 class LRange(LNode):
-    """Exact i64 range over an integer/long column; a bound of None is
-    open."""
+    """Range over a numeric column: exact i64 (kind "int"), or the f32
+    view against f32 bounds (kind "float"); a bound of None is open."""
 
     field: str = ""
     kind: str = "int"
@@ -188,8 +198,12 @@ class LConstScore(LNode):
 
 def _numeric_eq_node(ft, value: Any, boost: float) -> LRange:
     cv = coerce_value(ft, value)
-    return LRange(field=ft.name, kind="int", lo=cv, hi=cv, include_lo=True,
-                  include_hi=True, boost=boost)
+    return LRange(field=ft.name, kind=_range_kind(ft), lo=cv, hi=cv,
+                  include_lo=True, include_hi=True, boost=boost)
+
+
+def _range_kind(ft) -> str:
+    return "float" if ft.type in FLOAT_TYPES else "int"
 
 
 def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
@@ -200,7 +214,7 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
 
     if isinstance(q, dsl.TermQuery):
         ft = ctx.mappings.resolve_field(q.field)
-        if ft is not None and ft.type in INT_TYPES:
+        if ft is not None and ft.type in NUMERIC_TYPES:
             return _numeric_eq_node(ft, q.value, q.boost)
         field = ft.name if ft else q.field
         term = _index_term(q.field, q.value, ctx)
@@ -211,7 +225,7 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
 
     if isinstance(q, dsl.TermsQuery):
         ft = ctx.mappings.resolve_field(q.field)
-        if ft is not None and ft.type in INT_TYPES:
+        if ft is not None and ft.type in NUMERIC_TYPES:
             return LBool(shoulds=[_numeric_eq_node(ft, v, 1.0)
                                   for v in q.values], msm=1, boost=q.boost)
         field = ft.name if ft else q.field
@@ -222,7 +236,7 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
 
     if isinstance(q, dsl.MatchQuery):
         ft = ctx.mappings.resolve_field(q.field)
-        if ft is not None and ft.type in INT_TYPES:
+        if ft is not None and ft.type in NUMERIC_TYPES - {"date"}:
             return _numeric_eq_node(ft, q.query, q.boost)
         field = ft.name if ft else q.field
         terms = _analyze_query_text(field, q.query, ctx, q.analyzer)
@@ -324,7 +338,7 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
         ft = ctx.mappings.resolve_field(q.field)
         if ft is None:
             return LMatchNone()
-        if ft.type not in INT_TYPES:
+        if ft.type not in NUMERIC_TYPES:
             raise NotPortedError(f"[range] on field [{ft.name}] of type "
                                  f"[{ft.type}]")
         lo = hi = None
@@ -337,7 +351,7 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
             hi, inc_hi = coerce_value(ft, q.lte), True
         if q.lt is not None:
             hi, inc_hi = coerce_value(ft, q.lt), False
-        return LRange(field=ft.name, kind="int", lo=lo, hi=hi,
+        return LRange(field=ft.name, kind=_range_kind(ft), lo=lo, hi=hi,
                       include_lo=inc_lo, include_hi=inc_hi, boost=q.boost)
 
     if isinstance(q, dsl.ExistsQuery):
@@ -393,7 +407,7 @@ def can_match(node: LNode, seg: Segment) -> bool:
     if isinstance(node, LExists):
         f = node.field
         return (f in seg.postings or f in seg.numeric_cols
-                or f in seg.doc_lens)
+                or f in seg.keyword_cols or f in seg.doc_lens)
     if isinstance(node, LIds):
         return any(seg.local_doc(i) >= 0 for i in node.ids)
     return True
@@ -724,14 +738,10 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
     if isinstance(node, LMatchNone):
         return ops.ScoredMask(zeros, zeros)
     if isinstance(node, LRange):
-        col = seg.numeric_on(node.field, device)
-        if col is None:
+        mask = filters.range_mask(node, seg, device)
+        if mask is None:
             return ops.ScoredMask(zeros, zeros)
-        lo = filters.I64_MIN if node.lo is None else int(node.lo)
-        hi = filters.I64_MAX if node.hi is None else int(node.hi)
-        return _flag(ops.int64_range_mask(*col, lo, hi, node.include_lo,
-                                          node.include_hi) & live,
-                     node.boost)
+        return _flag(mask & live, node.boost)
     if isinstance(node, LExists):
         return _flag(ops.exists_mask(filters.present_mask(
             node.field, seg, device), live), node.boost)
@@ -765,18 +775,412 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
 
 
 def run_segment(lroot: LNode, seg: Segment, ctx: ShardContext, k_pad: int,
-                device: torch.device) -> dict:
+                device: torch.device, agg_nodes=()) -> dict:
     """The executor body: `lroot` over `seg`, its masked top `k_pad` (score
-    desc, doc asc), the total and the max score, fetched in one copy."""
+    desc, doc asc), the total, the max score and, under "aggs", each agg
+    node's (spec, outputs) over the live-masked match (`emit_agg`, its
+    tensors as numpy arrays), all fetched in one copy."""
     sm = emit(lroot, seg, ctx, device)
     live = seg.live_on(device)
     vals, idx = ops.topk_docs(sm.scores, sm.matched, live, k_pad)
     total = ops.total_hits(sm.matched, live)
-    host = torch.cat([vals.double(), idx.double(),
-                      total.double().reshape(1)]).cpu().numpy()
+    match = sm.matched & live
+    aggs = {n.name: emit_agg(n, seg, ctx, match, device) for n in agg_nodes}
+    leaves: List[torch.Tensor] = [vals, idx, total]
+    tree = _leaves_to_slots(aggs, leaves)
+    host = torch.cat([t.double().reshape(-1) for t in leaves]).cpu().numpy()
     k = len(idx)
     sc = host[:k].astype(np.float32)
     STATS["general_served"] += 1
     return {"topk_idx": host[k:2 * k].astype(np.int64), "topk_scores": sc,
-            "total": int(host[-1]), "total_rel": "eq",
-            "max_score": float(sc[0]) if k else float("-inf")}
+            "total": int(host[2 * k]), "total_rel": "eq",
+            "max_score": float(sc[0]) if k else float("-inf"),
+            "aggs": _slots_to_arrays(tree, host, leaves, np.cumsum(
+                [0] + [t.numel() for t in leaves]))}
+
+
+def _leaves_to_slots(tree, leaves: List[torch.Tensor]):
+    """`tree` with each tensor appended to `leaves` and replaced by its
+    slot; dicts and tuples are walked, anything else kept."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return _Slot(len(leaves) - 1)
+    if isinstance(tree, dict):
+        return {k: _leaves_to_slots(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_leaves_to_slots(v, leaves) for v in tree)
+    return tree
+
+
+@dataclass(frozen=True)
+class _Slot:
+    i: int
+
+
+def _slots_to_arrays(tree, host: np.ndarray, leaves: List[torch.Tensor],
+                     offs: np.ndarray):
+    """The inverse of `_leaves_to_slots` over the fetched f64 copy (leaf
+    i at `offs[i]`): each slot back as a numpy array of its tensor's
+    dtype and shape."""
+    if isinstance(tree, _Slot):
+        off = int(offs[tree.i])
+        t = leaves[tree.i]
+        dtype = {torch.float32: np.float32, torch.int32: np.int32}.get(
+            t.dtype, np.int64)
+        return host[off: off + t.numel()].astype(dtype).reshape(t.shape)
+    if isinstance(tree, dict):
+        return {k: _slots_to_arrays(v, host, leaves, offs)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_slots_to_arrays(v, host, leaves, offs) for v in tree)
+    return tree
+
+
+# ---------------------------------------------------------------------
+# aggregations: the reference's prepare_agg + emit_agg in one pass
+# ---------------------------------------------------------------------
+
+HLL_LOG2M = 14
+DEFAULT_PERCENTS = (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0)
+_DAY_MS = 86400000
+_FIXED_MS = {"ms": 1, "s": 1000, "m": 60000, "h": 3600000, "d": 86400000}
+
+
+def parse_interval_ms(s, allow_negative: bool = False) -> int:
+    """A fixed interval ("30d", "6h", ...) in millis; a sign only where the
+    caller allows it (a date_histogram `offset`)."""
+    if isinstance(s, (int, float)):
+        return int(s)
+    sign_re = r"([+-]?)" if allow_negative else r"()"
+    mm = re.fullmatch(sign_re + r"(\d+)(ms|s|m|h|d)", str(s))
+    if not mm:
+        raise ValueError(f"invalid fixed_interval [{s}]")
+    v = int(mm.group(2)) * _FIXED_MS[mm.group(3)]
+    return -v if mm.group(1) == "-" else v
+
+
+def calendar_bucket_ids(ms: np.ndarray, calendar: str) -> np.ndarray:
+    """i64 calendar bucket of each epoch-ms value: the reference's
+    per-value `datetime` loop (months, quarters and years since 1970-01,
+    weeks from epoch day 0, a Thursday, shifted to Mondays; days, hours,
+    minutes), vectorised with floor division (so negative epochs floor)
+    and numpy's civil calendar."""
+    ms = np.asarray(ms, np.int64)
+    if calendar in ("day", "1d"):
+        return ms // _DAY_MS
+    if calendar in ("hour", "1h"):
+        return ms // 3600000
+    if calendar in ("minute", "1m"):
+        return ms // 60000
+    if calendar in ("week", "1w"):
+        return (ms // _DAY_MS + 3) // 7
+    if calendar in ("month", "1M", "quarter", "1q", "year", "1y"):
+        months = (ms // _DAY_MS).astype("datetime64[D]").astype(
+            "datetime64[M]").astype(np.int64)
+        if calendar in ("month", "1M"):
+            return months
+        return months // 3 if calendar in ("quarter", "1q") else months // 12
+    raise ValueError(f"unknown calendar_interval [{calendar}]")
+
+
+def calendar_bucket_to_epoch_ms(b: int, calendar: str) -> int:
+    """The epoch ms where calendar bucket `b` starts."""
+    if calendar in ("month", "1M"):
+        return _epoch_ms(1970 + b // 12, b % 12 + 1)
+    if calendar in ("year", "1y"):
+        return _epoch_ms(1970 + b, 1)
+    if calendar in ("quarter", "1q"):
+        return _epoch_ms(1970 + b // 4, (b % 4) * 3 + 1)
+    if calendar in ("week", "1w"):
+        return (b * 7 - 3) * _DAY_MS
+    if calendar in ("day", "1d"):
+        return b * _DAY_MS
+    if calendar in ("hour", "1h"):
+        return b * 3600000
+    if calendar in ("minute", "1m"):
+        return b * 60000
+    raise ValueError(calendar)
+
+
+def _epoch_ms(year: int, month: int) -> int:
+    return int(_dt.datetime(year, month, 1, tzinfo=_dt.timezone.utc)
+               .timestamp() * 1000)
+
+
+def host_date_buckets(seg: Segment, field: str, interval_ms: int,
+                      offset_ms: int, calendar: Optional[str]) -> tuple:
+    """(bucket id i32[ndocs] (-1 without a value), min bucket, bucket
+    count) of a date column: floor((v - offset) / interval) on i64, or the
+    calendar's buckets; cached per segment (a merge drops the cache)."""
+    cache = seg.__dict__.setdefault("date_buckets", {})
+    key = (field, interval_ms, offset_ms, calendar)
+    got = cache.get(key)
+    if got is not None:
+        return got
+    col = seg.numeric_cols.get(field)
+    if col is None or not col.present.any():
+        got = (np.full(seg.ndocs, -1, np.int32), 0, 1)
+    else:
+        vals = col.values.astype(np.int64)
+        b = (np.floor_divide(vals - offset_ms, interval_ms)
+             if calendar is None else calendar_bucket_ids(vals, calendar))
+        bp = b[col.present]
+        mn, mx = int(bp.min()), int(bp.max())
+        got = (np.where(col.present, b - mn, -1).astype(np.int32), mn,
+               mx - mn + 1)
+    cache[key] = got
+    return got
+
+
+def crc32_vocab_hashes(vocab) -> np.ndarray:
+    """i64 crc32 of each vocab string: the keyword cardinality's value
+    hashes."""
+    return np.fromiter((zlib.crc32(v.encode()) for v in vocab), np.int64,
+                       count=len(vocab))
+
+
+def _kw_hashes_on(seg: Segment, field: str, device) -> torch.Tensor:
+    def make():
+        cache = seg.__dict__.setdefault("kw_hashes", {})
+        if field not in cache:
+            cache[field] = crc32_vocab_hashes(seg.keyword_cols[field].vocab)
+        return torch.from_numpy(cache[field]).to(device)
+    return seg.device_cached(("kw_hashes", field), device, make)
+
+
+def coerce_agg_ranges(kind: str, body: dict, field: str,
+                      mappings: Mappings) -> list:
+    """A range agg's ranges; a date_range's from/to parse as the field's
+    values do (epoch ms)."""
+    ranges = body.get("ranges", [])
+    if kind != "date_range":
+        return ranges
+    ft = mappings.resolve_field(field)
+    coerced = []
+    for r in ranges:
+        r2 = dict(r)
+        for end in ("from", "to"):
+            if r.get(end) is not None:
+                r2[end] = coerce_value(ft, r[end])
+        coerced.append(r2)
+    return coerced
+
+
+def range_agg_spec(ranges: List[dict]) -> tuple:
+    """(f32 lows, f32 highs, bucket keys, from/to metas) of a range agg."""
+    nr = len(ranges)
+    lows = np.full(nr, -np.inf, dtype=np.float32)
+    highs = np.full(nr, np.inf, dtype=np.float32)
+    keys, metas = [], []
+    for i, r in enumerate(ranges):
+        frm, to = r.get("from"), r.get("to")
+        if frm is not None:
+            lows[i] = float(frm)
+        if to is not None:
+            highs[i] = float(to)
+        keys.append(r.get("key", f"{frm if frm is not None else '*'}-"
+                                 f"{to if to is not None else '*'}"))
+        meta = {}
+        if frm is not None:
+            meta["from"] = float(np.float32(frm))
+        if to is not None:
+            meta["to"] = float(np.float32(to))
+        metas.append(meta)
+    return lows, highs, keys, metas
+
+
+def filters_agg_items(body: dict) -> list:
+    """(key, clause) pairs of a `filters` agg: its dict's items, or "0",
+    "1", ... for the anonymous list form."""
+    raw = body.get("filters", {})
+    return (list(raw.items()) if isinstance(raw, dict)
+            else [(str(i), f) for i, f in enumerate(raw)])
+
+
+def agg_field(node, ctx: ShardContext) -> str:
+    field = node.body.get("field", "")
+    ft = ctx.mappings.resolve_field(field)
+    return ft.name if ft else field
+
+
+def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
+             device: torch.device) -> tuple:
+    """-> (spec, out): the host spec of one agg node over `seg` (what the
+    partial needs: fields, bucket windows, keys, sub specs) and its
+    device outputs (a dict of tensors, None where the reference emits
+    nothing). `match` is the query's live-masked bool[ndocs] match.
+    Ordinal bucket kinds (terms, histogram, date_histogram) fuse only
+    their stats-family subs into per-bucket scatters, as the reference's
+    device pass does; the executor's refinement serves the other subs.
+    The container kinds (range, filter, filters, global, missing) run
+    every sub over their bucket's match."""
+    from . import filters
+
+    kind = node.kind
+    body = node.body
+
+    def stats_col(sub):
+        """The f32 view a stats-family sub fuses into its parent's
+        buckets, or None (another kind, a keyword value_count, no
+        column)."""
+        f = agg_field(sub, ctx)
+        if sub.kind not in STATS_FAMILY or (
+                sub.kind == "value_count" and f in seg.keyword_cols):
+            return None
+        return seg.f32_on(f, device)
+
+    def bucketed_subs(b: torch.Tensor, nb: int) -> tuple:
+        """Stats-family subs per bucket (`_emit_bucketed_sub`)."""
+        specs, out = [], {}
+        for i, sub in enumerate(node.subs):
+            col = stats_col(sub)
+            specs.append(col is not None)
+            if col is not None:
+                vals, present = col
+                sb = torch.where(present, b, torch.full_like(b, nb))
+                out[f"sub{i}"] = agg_ops.bucket_metrics(sb, nb, vals)
+        return tuple(specs), out
+
+    def container_subs(bucket_match: torch.Tensor, out: dict,
+                       prefix: str = "") -> tuple:
+        specs = []
+        for i, sub in enumerate(node.subs):
+            sspec, sout = emit_agg(sub, seg, ctx, bucket_match, device)
+            specs.append(sspec)
+            if sout:
+                out[f"{prefix}sub{i}"] = sout
+        return tuple(specs)
+
+    if kind == "terms":
+        field = agg_field(node, ctx)
+        col = seg.keyword_cols.get(field)
+        if col is None:
+            return ("terms_missing",), None
+        kw = seg.keyword_on(field, device)
+        nv = len(col.vocab)
+        out = {"counts": agg_ops.terms_counts(kw, match, nv)}
+        specs = []
+        for i, sub in enumerate(node.subs):
+            scol = stats_col(sub)
+            specs.append(scol is not None)
+            if scol is not None:
+                out[f"sub{i}"] = agg_ops.terms_sub_metric(kw, match, *scol,
+                                                          nv)
+        return ("terms", field, tuple(specs)), out
+
+    if kind == "histogram":
+        field = agg_field(node, ctx)
+        interval = float(body["interval"])
+        offset = float(body.get("offset", 0.0))
+        col = seg.numeric_cols.get(field)
+        if col is None or not col.present.any():
+            return ("hist_missing",), None
+        mn, mx = col.min_max
+        min_b = int(np.floor((mn - offset) / interval))
+        nb = int(np.floor((mx - offset) / interval)) - min_b + 1
+        vals, present = seg.f32_on(field, device)
+        b = agg_ops.histogram_buckets(vals, present, match, interval, offset,
+                                      min_b, nb)
+        specs, out = bucketed_subs(b, nb)
+        out["counts"] = agg_ops.bucket_counts(b, nb)
+        return ("hist", min_b, interval, offset, specs), out
+
+    if kind == "date_histogram":
+        field = agg_field(node, ctx)
+        calendar = body.get("calendar_interval")
+        interval_ms = 0 if calendar is not None else parse_interval_ms(
+            body.get("fixed_interval", body.get("interval", "1d")))
+        offset_ms = (parse_interval_ms(body.get("offset", 0),
+                                       allow_negative=True)
+                     if body.get("offset") else 0)
+        key = (field, max(interval_ms, 1), offset_ms, calendar)
+        ids, min_b, nb = host_date_buckets(seg, *key)
+        d_ids = seg.device_cached(("dbuckets",) + key, device,
+                                  lambda: torch.from_numpy(ids).to(device))
+        b = agg_ops.doc_buckets(d_ids, match, nb)
+        specs, out = bucketed_subs(b, nb)
+        out["counts"] = agg_ops.bucket_counts(b, nb)
+        return ("date_hist", min_b, interval_ms, offset_ms, calendar,
+                specs), out
+
+    if kind in ("range", "date_range"):
+        field = agg_field(node, ctx)
+        ranges = coerce_agg_ranges(kind, body, field, ctx.mappings)
+        lows, highs, keys, _metas = range_agg_spec(ranges)
+        bounds = tuple((float(lo), float(hi)) for lo, hi in zip(lows, highs))
+        col = seg.f32_on(field, device)
+        if col is None:
+            return ("range", tuple(keys), bounds, ()), None
+        vals, present = col
+        out = {"counts": agg_ops.range_counts(vals, present, match, lows,
+                                              highs)}
+        specs = ()       # the same for every bucket
+        for ri, (lo, hi) in enumerate(bounds):
+            bm = match & present & (vals >= lo) & (vals < hi)
+            specs = container_subs(bm, out, prefix=f"r{ri}_")
+        return ("range", tuple(keys), bounds, specs), out
+
+    if kind in ("filter", "filters"):
+        items = ([(None, body)] if kind == "filter"
+                 else filters_agg_items(body))
+        out, specs = {}, ()      # specs: the same for every bucket
+        for ki, (_key, clause) in enumerate(items):
+            fnode = rewrite(dsl.parse_query(clause), ctx, scoring=False)
+            bm = match & filters.filter_mask(fnode, seg, ctx, device)
+            entry = {"count": bm.sum()}
+            specs = container_subs(bm, entry)
+            out[f"k{ki}"] = entry
+        return (kind, tuple(k for k, _ in items), specs), out
+
+    if kind in ("global", "missing"):
+        if kind == "global":
+            bm = seg.live_on(device)
+        else:
+            field = agg_field(node, ctx)
+            col = seg.f32_on(field, device)
+            kw = seg.keyword_on(field, device)
+            bm = (match & ~col[1] if col is not None else
+                  match & (kw[2] < 0) if kw is not None else match)
+        out = {"count": bm.sum()}
+        return (kind, container_subs(bm, out)), out
+
+    if kind in STATS_FAMILY:
+        field = agg_field(node, ctx)
+        if kind == "value_count" and field in seg.keyword_cols:
+            return ("vc_keyword",), {"count": agg_ops.value_count_keyword(
+                seg.keyword_on(field, device), match)}
+        col = seg.f32_on(field, device)
+        if col is None:      # an empty partial, not none
+            return ("stats_missing",), {"empty": None}
+        return ("stats",), dict(zip(
+            ("count", "sum", "min", "max", "sumsq"),
+            agg_ops.stats_agg(*col, match)))
+
+    if kind == "cardinality":
+        field = agg_field(node, ctx)
+        if field in seg.keyword_cols:
+            regs = agg_ops.cardinality_keyword_registers(
+                seg.keyword_on(field, device), match,
+                len(seg.keyword_cols[field].vocab),
+                _kw_hashes_on(seg, field, device), HLL_LOG2M)
+        else:
+            col = seg.f32_on(field, device)
+            regs = (torch.zeros(1 << HLL_LOG2M, dtype=torch.int32,
+                                device=device) if col is None else
+                    agg_ops.cardinality_numeric_registers(*col, match,
+                                                          HLL_LOG2M))
+        return ("card",), {"registers": regs}
+
+    if kind in ("percentiles", "percentile_ranks"):
+        field = agg_field(node, ctx)
+        col = seg.f32_on(field, device)
+        hist = (torch.zeros(agg_ops.DD_NBINS, dtype=torch.int64,
+                            device=device) if col is None
+                else agg_ops.ddsketch_hist(*col, match))
+        if kind == "percentiles":
+            pv = tuple(body.get("percents", DEFAULT_PERCENTS))
+        else:
+            pv = tuple(float(v) for v in body.get("values", ()))
+        return (kind, pv), {"hist": hist}
+
+    raise NotPortedError(f"aggs: aggregation kind [{kind}]")

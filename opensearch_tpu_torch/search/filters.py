@@ -7,8 +7,9 @@ Served nodes:
 - `LTerms` in filter mode (a term or terms clause): docs with a posting in
   any of the term rows; in score mode (a match in filter context): docs
   with postings in at least `msm` of the term rows;
-- `LRange`: the exact i64 bounds over the numeric column, docs with a
-  value only;
+- `LRange`: the exact i64 bounds over an integer/long/date/boolean
+  column, or f32 bounds over the f32 view of a double/float column (the
+  reference's `float_range_mask`), docs with a value only;
 - `LBool` of served nodes: musts and filters ANDed, must_nots negated,
   shoulds counted against `msm`;
 - `LPhrase`: docs where the phrase occurs (its frequency is above 0);
@@ -23,8 +24,8 @@ delete leaves the cached masks valid.
 
 Masks are cached per (segment, device) under a structural key made of
 what the reference's mask-cache digest hashes: a term group's rows,
-weights, msm, avgdl, boost, similarity and mode; a range's i64 bounds,
-flags and boost; a bool's msm, boost and children. Clauses the reference
+weights, msm, avgdl, boost, similarity and mode; a range's kind, its
+i64 or f32 bounds, flags and boost; a bool's msm, boost and children. Clauses the reference
 caches as one mask share one mask here. A phrase's key is its term rows,
 slop and cost mode, an expansion's its rows.
 """
@@ -71,9 +72,7 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
     if isinstance(node, C.LRange):
         return ("range", node.field, node.kind, node.include_lo,
                 node.include_hi, node.field in seg.numeric_cols,
-                float(np.float32(node.boost)),
-                I64_MIN if node.lo is None else int(node.lo),
-                I64_MAX if node.hi is None else int(node.hi))
+                float(np.float32(node.boost))) + _bounds(node)
     if isinstance(node, C.LBool):
         def keys(nodes):
             return tuple(mask_key(c, seg, ctx) for c in nodes)
@@ -141,15 +140,9 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
                                                     device=device),
                                    node.expander(seg).tolist() or [-1], nd)
     if isinstance(node, C.LRange):
-        col = seg.numeric_on(node.field, device)
-        if col is None:
-            return torch.zeros(nd, dtype=torch.bool, device=device)
-        values, present = col
-        lo = I64_MIN if node.lo is None else int(node.lo)
-        hi = I64_MAX if node.hi is None else int(node.hi)
-        lower = values >= lo if node.include_lo else values > lo
-        upper = values <= hi if node.include_hi else values < hi
-        return lower & upper & present
+        mask = range_mask(node, seg, device)
+        return (torch.zeros(nd, dtype=torch.bool, device=device)
+                if mask is None else mask)
     if isinstance(node, C.LBool):
         m = torch.ones(nd, dtype=torch.bool, device=device)
         for c in node.musts + node.filters:
@@ -175,21 +168,47 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 
+def _bounds(node: C.LRange) -> tuple:
+    """(lo, hi) of a range: i64 for kind "int" (open = the i64 extremes),
+    f32 values for kind "float" (open = -inf / +inf)."""
+    if node.kind == "float":
+        return (float(np.float32(-np.inf if node.lo is None else node.lo)),
+                float(np.float32(np.inf if node.hi is None else node.hi)))
+    return (I64_MIN if node.lo is None else int(node.lo),
+            I64_MAX if node.hi is None else int(node.hi))
+
+
+def range_mask(node: C.LRange, seg, device: torch.device):
+    """bool[ndocs] of the docs whose value lies in the range (deletes
+    ignored), or None when the segment has no such column."""
+    lo, hi = _bounds(node)
+    if node.kind == "int":
+        col = seg.numeric_on(node.field, device)
+        return None if col is None else ops.int64_range_mask(
+            *col, lo, hi, node.include_lo, node.include_hi)
+    col = seg.f32_on(node.field, device)
+    if col is None:
+        return None
+    v, present = col
+    lower = v >= lo if node.include_lo else v > lo
+    upper = v <= hi if node.include_hi else v < hi
+    return lower & upper & present
+
+
 def present_mask(field: str, seg, device: torch.device) -> torch.Tensor:
     """bool[ndocs]: the docs of `seg` with a value in `field`, as the
     reference's `exists` reads them: a numeric column's present flags, a
-    text field's nonzero doc lengths, else (a keyword field) any posting
-    of the field. Cached per segment and device."""
+    keyword column's docs with a value, a text field's nonzero doc
+    lengths, else no doc (a keyword field without doc values). Cached per
+    segment and device."""
     def make():
-        nd = seg.ndocs
         col = seg.numeric_on(field, device)
         if col is not None:
             return col[1]
+        kw = seg.keyword_on(field, device)
+        if kw is not None:
+            return kw[2] >= 0
         if field in seg.doc_lens:
             return torch.from_numpy(seg.doc_lens[field] > 0).to(device)
-        m = torch.zeros(nd, dtype=torch.bool, device=device)
-        pb = seg.postings.get(field)
-        if pb is not None and pb.size:
-            m[torch.from_numpy(pb.doc_ids).to(device).long()] = True
-        return m
+        return torch.zeros(seg.ndocs, dtype=torch.bool, device=device)
     return seg.device_cached(("present", field), device, make)

@@ -142,9 +142,19 @@ def assert_same_planes(rs, ps):
                 assert getattr(pp.impact, a) == getattr(rp.impact, a)
     assert set(rs.numeric_cols) == set(ps.numeric_cols)
     for f, rc in rs.numeric_cols.items():
+        assert ps.numeric_cols[f].kind == rc.kind
+        assert ps.numeric_cols[f].values.dtype == rc.values.dtype
         np.testing.assert_array_equal(ps.numeric_cols[f].values, rc.values)
         np.testing.assert_array_equal(ps.numeric_cols[f].present,
                                       rc.present)
+    assert set(rs.keyword_cols) == set(ps.keyword_cols)
+    for f, rc in rs.keyword_cols.items():
+        pc = ps.keyword_cols[f]
+        assert pc.vocab == rc.vocab
+        for a in ("starts", "ords", "doc_of_value", "min_ord"):
+            got, want = getattr(pc, a), getattr(rc, a)
+            assert got.dtype == want.dtype and \
+                got.tobytes() == want.tobytes(), (f, a)
     assert set(rs.doc_lens) == set(ps.doc_lens)
     for f, dl in rs.doc_lens.items():
         np.testing.assert_array_equal(ps.doc_lens[f], dl)
@@ -298,16 +308,24 @@ def test_merge_releases_the_replaced_segments_device_state():
     port = write_script(docs, 2, deletes=range(0, 200, 9))(
         RestClient(device="cpu"))
     eng = port._indices["x"].engine
-    for body in BODIES + PHRASE_BODIES:
+    aggs = {"size": 0, "aggs": {
+        "d": {"date_histogram": {"field": "n", "calendar_interval": "day"}},
+        "c": {"cardinality": {"field": "tag"}}}}
+    for body in BODIES + PHRASE_BODIES + [aggs]:
         port.search("x", body)
     old = list(eng.segments)
     assert any(s.aligned or s.device_arrays for s in old)
     assert any("phrase_pairs" in s.__dict__ for s in old)
     assert any(k[0] == "pairs" for s in old for k in s.device_arrays)
+    assert all("date_buckets" in s.__dict__ and "kw_hashes" in s.__dict__
+               for s in old)
+    assert any(k[0] == "dbuckets" for s in old for k in s.device_arrays)
     port.indices.forcemerge("x")
     assert all(not s.aligned and not s.device_arrays
                and "filter_lists" not in s.__dict__
-               and "phrase_pairs" not in s.__dict__ for s in old)
+               and "phrase_pairs" not in s.__dict__
+               and "date_buckets" not in s.__dict__
+               and "kw_hashes" not in s.__dict__ for s in old)
     assert "_shard_view" not in eng.__dict__
 
 

@@ -264,7 +264,7 @@ def test_score_term_group_matches_reference(clients):
      "span_or"),
     ({"query": {"range": {"body": {"gte": 1}}}}, "range"),
     ({"query": {"match": {"body": "the"}},
-      "aggs": {"a": {"terms": {"field": "tag.keyword"}}}}, "aggs"),
+      "aggs": {"a": {"top_hits": {"size": 1}}}}, "aggs"),
     ({"query": {"match_all": {}}, "from": 100, "size": 29,
       "search_after": [1.0]}, "search_after"),
     ({"query": {"match": {"body": "the"}}, "sort": ["_doc"]}, "sort"),
