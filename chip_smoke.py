@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--ndocs N] [--queries Q] [--bool-queries B]
                           [--general-queries G] [--phrase-queries P]
-                          [--phrase-sloppy S] [--agg-queries A] [--seed S]
+                          [--phrase-sloppy S] [--agg-queries A]
+                          [--sort-queries R] [--seed S]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -70,6 +71,26 @@ Phases, each of which fails the script when it fails:
      within a probabilistic bound, HLL registers and sketch bins by a
      numpy copy of the reference's arithmetic), 2 bodies a class on the
      card against the CPU, the ops' times by step, the device bytes;
+ 11. (run after 10, before 8) a search results page over phase 7's end
+     state (phase 7's re-indexed docs carry ts and a rating in
+     [2.0, 2.1) that the big segment lacks), --sort-queries bodies a
+     class, body by body through RestClient.search: (a) a 2-term match
+     sorted by price asc then ts desc with docvalue_fields and _source
+     includes; (b) a ~10% price range newest first, then 4 search_after
+     pages each; (c) a rating range sorted ascending, 4 search_after
+     pages each, crossing segments at values the other lacks; (d) a
+     keyword sort descending then a rating with missing first,
+     track_scores; (e) collapse on price (4 bodies with inner_hits);
+     every response against a numpy brute force of the sort contract
+     (each segment's window by primary key and ascending doc, then the
+     full tuple and _id; the cursor strictly after), with the pages that
+     differ from the exact page and the hits the reference's cursor
+     would drop counted; 2 requests a class on the card against the CPU;
+     the sort key, top-k and collapse ops' event ms, the host's sort
+     tuples, fetch and highlight ms; and, after phase 8 on the merged
+     segment (the kernels decline a segment with deletes), (f) title
+     matches with highlighted titles on B2 (pruned) and B1 (exact
+     totals), each highlight against the rendered title;
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 16 of phase 5's match bodies on the segments with deletes,
@@ -87,8 +108,9 @@ Phases, each of which fails the script when it fails:
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
-numbers, one with phase 7's, one with phase 10's, one with phase 8's, a
-line with the kernels' numbers and, last, the device line.
+numbers, one with phase 7's, one with phase 10's, one with phase 8's,
+one with phase 11's, a line with the kernels' numbers and, last, the
+device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -1428,10 +1450,11 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
     dev = client.device
     t1 = time.perf_counter()
     # the guardrail columns ride the same segment for phase 6, the
-    # positional title field for phase 9, the aggregation columns for
-    # phases 10 and 8; no query of this phase reads them
+    # positional title field for phase 9 (its text in each _source for
+    # phase 11's highlights), the aggregation columns for phases 10, 11
+    # and 8; no query of this phase reads them
     seg = bc.make_index(client, corpus, columns=columns, title=title,
-                        aggs=aggcols)
+                        aggs=aggcols, title_source=True)
     torch.cuda.synchronize()
     t_planes = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -2157,6 +2180,15 @@ OP_BODIES = 16     # bodies of a class timed op by op, and profiled
 REINDEXED = 64     # _ids phase 7 re-indexes and phase 8 updates
 
 
+def reindexed_cols(j: int) -> dict:
+    """The ts and rating of phase 7's j-th re-indexed doc: a day of 2024,
+    and a rating in [2.0, 2.1) that no corpus doc holds (phase 11's
+    ascending cursors cross segments at values the other lacks)."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    return {"ts": bc.TS_LO + (5 * j + 2) * 86_400_000 + 12_345,
+            "rating": 2.0 + (j + 0.5) / 640}
+
+
 class NumpyIndex:
     """What phases 7 and 8's brute force reads, apart from the port: the
     corpus CSR (global doc ids 0..n0-1), the docs indexed after it (global
@@ -2184,6 +2216,8 @@ class NumpyIndex:
         # build_title_corpus); docs indexed later have no title
         self.title = title
         self.has_title = np.full(self.n0, title is not None)
+        # global id -> {"ts", "rating"} of a doc indexed later with them
+        self.later: dict = {}
 
     @property
     def n(self) -> int:
@@ -2193,9 +2227,10 @@ class NumpyIndex:
     def avgdl(self) -> np.float32:
         return np.float32(self.sum_dl / self.n_stats)
 
-    def add(self, terms, st: int, pr: int, doc_id: str) -> int:
-        """Index a doc (term ids with repeats) after every other: -> its
-        global id."""
+    def add(self, terms, st: int, pr: int, doc_id: str,
+            cols: dict = None) -> int:
+        """Index a doc (term ids with repeats, with `cols` its ts and
+        rating) after every other: -> its global id."""
         self.contrib = {}              # the statistics change
         g = self.n
         self.live = np.append(self.live, True)
@@ -2211,14 +2246,28 @@ class NumpyIndex:
             e[0].append(g)
             e[1].append(np.float32(tf))
         self.new_ids.append(doc_id)
+        if cols:
+            self.later[g] = cols
         return g
 
+    def later_arrays(self) -> tuple:
+        """(ts i64, rating f64, present bool) of the docs indexed after
+        the corpus, in global-id order (0 and False without them)."""
+        pad = self.n - self.n0
+        ts, rating = np.zeros(pad, np.int64), np.zeros(pad)
+        has = np.zeros(pad, bool)
+        for g, c in self.later.items():
+            j = g - self.n0
+            ts[j], rating[j], has[j] = c["ts"], c["rating"], True
+        return ts, rating, has
+
     def reindex(self, docs) -> None:
-        """docs: [(old local doc, term ids with repeats, status, price)],
-        indexed after the corpus under the old doc's `_id`."""
-        for old, terms, st, pr in docs:
+        """docs: [(old local doc, term ids with repeats, status, price[,
+        {"ts", "rating"}])], indexed after the corpus under the old doc's
+        `_id`."""
+        for old, terms, st, pr, *cols in docs:
             self.live[old] = False
-            self.add(terms, st, pr, str(old))
+            self.add(terms, st, pr, str(old), cols[0] if cols else None)
 
     def compact(self, docs=slice(None)) -> None:
         """The deleted docs among global ids `docs` (all by default) leave
@@ -2714,13 +2763,14 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     vs = bc.vocab_strings(len(big["corpus"][4]))
     olds = sorted(srng.choice(seg.ndocs, REINDEXED, replace=False).tolist())
     terms = big["body_terms"][:REINDEXED]
-    docs = [(old, list(terms[j]) + [terms[j][0]], j % 3, j)
-            for j, old in enumerate(olds)]
+    docs = [(old, list(terms[j]) + [terms[j][0]], j % 3, j,
+             reindexed_cols(j)) for j, old in enumerate(olds)]
     t0 = time.perf_counter()
-    for old, ts, st, pr in docs:
+    for old, ts, st, pr, cols in docs:
         r = client.index("bench", {
             "body": " ".join(vs[int(t)] for t in ts),
-            "status": bc.STATUS_VALUES[st], "price": pr}, id=str(old))
+            "status": bc.STATUS_VALUES[st], "price": pr, **cols},
+            id=str(old))
         if r["result"] != "updated":
             raise AssertionError(f"re-index of _id {old}: {r}")
     client.indices.refresh("bench")
@@ -2821,8 +2871,9 @@ def agg_classes(big: dict, n: int, n_refine: int) -> dict:
 class AggOracle:
     """Phase 10's numpy brute force over NumpyIndex's docs (the corpus's,
     then those indexed later, with deletes): the status and price
-    columns, and the corpus docs' `ts` and `rating` (later docs have
-    neither). Values are the f32 views the aggregations read; counts,
+    columns, the corpus docs' `ts` and `rating`, and those of the docs
+    indexed later with them (phase 7's re-indexed _ids). Values are the
+    f32 views the aggregations read; counts,
     keys, minima, maxima, HLL registers and sketch bins are computed
     exactly (a numpy copy of the reference's arithmetic), sums in f64."""
 
@@ -2835,15 +2886,14 @@ class AggOracle:
         ix = self.ix
         n, n0 = ix.n, ix.n0
         if self.static.get("n") != n:     # docs added since: pad again
-            pad = n - n0
+            ts, rating, has = ix.later_arrays()
             self.static = {
                 "n": n,
-                "ts": np.concatenate([self.ts0, np.zeros(pad, np.int64)]),
-                "ts_present": np.arange(n) < n0,
-                "rating": np.concatenate([self.rating0, np.zeros(pad)])
+                "ts": np.concatenate([self.ts0, ts]),
+                "ts_present": np.concatenate([np.ones(n0, bool), has]),
+                "rating": np.concatenate([self.rating0, rating])
                 .astype(np.float32),
-                "rating_present": np.concatenate(
-                    [self.rpresent0, np.zeros(pad, bool)])}
+                "rating_present": np.concatenate([self.rpresent0, has])}
         return {**self.static, "live": ix.live, "status": ix.status,
                 "price": ix.price.astype(np.float32)}
 
@@ -3325,6 +3375,618 @@ def phase_aggs_msmarco(big: dict, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------
+# phase 11: a search results page (sort, search_after, collapse, the
+# fetch options) at MS MARCO passage scale
+# ---------------------------------------------------------------------
+
+SORT_CHAIN = 4     # search_after pages after each first page in (b), (c)
+
+
+def sort_classes(big: dict, n: int) -> dict:
+    """Phase 11's bodies, `n` a class: class -> [body] ((b) and (c): each
+    chain's first page). Matches are phase 5's 2-term bodies."""
+    m = len(big["bodies"]) // 2
+
+    def match(i):
+        return big["bodies"][2 * (i % m)]["query"]
+    return {
+        "a_price_listing": [
+            {"query": match(i), "sort": [{"price": "asc"}, {"ts": "desc"}],
+             "size": 10, "docvalue_fields": ["price", "status", "ts"],
+             "_source": {"includes": ["doc"]}} for i in range(n)],
+        "b_newest_first": [
+            {"query": {"range": {"price": {"gte": (61 * i) % 900,
+                                           "lt": (61 * i) % 900 + 100}}},
+             "sort": [{"ts": "desc"}], "size": 20} for i in range(n)],
+        # each range starts just below a re-indexed doc's rating, which
+        # the big segment lacks: a page of the chain holds it
+        "c_rating_ascending": [
+            {"query": {"range": {"rating": {
+                "gte": reindexed_cols(4 * i % REINDEXED)["rating"] - 1.2e-5,
+                "lt": 2.1}}},
+             "sort": [{"rating": "asc"}], "size": 10} for i in range(n)],
+        "d_keyword_missing": [
+            {"query": match(i + 16), "sort": [
+                {"status": "desc"},
+                {"rating": {"order": "asc", "missing": "_first"}}],
+             "size": 10, "track_scores": True} for i in range(n)],
+        "e_collapse": [
+            dict({"query": match(i + 32), "size": 10},
+                 collapse=dict({"field": "price"}, **(
+                     {"inner_hits": {"name": "more", "size": 2}}
+                     if i % 4 == 1 else {}))) for i in range(n)],
+    }
+
+
+def snippet_bodies(big: dict, n: int) -> list:
+    """Class (f): 2-term matches of title pool pairs (phase 9's picks),
+    score order, highlighted titles; half with exact totals."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    title = big["title"]
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+    pairs = bc.pick_phrase_pairs(title[7], n, seed=11)
+    return [dict({"query": {"match": {"title": f"{tvs[title[5][p]]} "
+                                               f"{tvs[title[6][p]]}"}},
+                  "size": 10, "highlight": {"fields": {"title": {}}},
+                  "_source": ["title"]},
+                 **({"track_total_hits": True} if i % 2 else {}))
+            for i, p in enumerate(pairs)]
+
+
+class SortOracle:
+    """Phase 11's numpy brute force over NumpyIndex's docs in phase 7's
+    end state (the big segment, global ids 0..n0-1 with deletes, then the
+    re-indexed docs' segment): the contract of a sorted page. Per
+    segment, the best next_pow2(max(need, 16)) matched live docs by
+    (primary key, ascending doc), after the cursor where one is given;
+    those of both segments by the full tuple, then `_id`; `need` =
+    twice the window under a field sort. The cursor keeps the docs
+    strictly after its value; the reference's rule (`ref_cursor`) keeps,
+    ascending, the docs whose rank in their segment is above the count of
+    the segment's values below the cursor."""
+
+    def __init__(self, ix, aggcols):
+        self.ix = ix
+        n0, n = ix.n0, ix.n
+        ts0, r0, rp0 = aggcols
+        ts, rating, has = ix.later_arrays()
+        self.vals = {"price": ix.price.astype(np.int64),
+                     "status": ix.status.astype(np.int64),
+                     "ts": np.concatenate([ts0, ts]),
+                     "rating": np.concatenate([r0, rating])}
+        ones = np.ones(n, bool)
+        self.present = {"price": ones, "status": ones,
+                        "ts": np.concatenate([np.ones(n0, bool), has]),
+                        "rating": np.concatenate([rp0, has])}
+        self.seg_of = (np.arange(n) >= n0).astype(np.int64)
+        self._docs = (None, None)
+
+    def seg_docs(self, matched: np.ndarray) -> list:
+        """Each segment's matched live docs, ascending; kept for the
+        last `matched` (a chain's pages share it)."""
+        if self._docs[0] is not matched:
+            m = matched & self.ix.live
+            self._docs = (matched, [np.flatnonzero(m & (self.seg_of == s))
+                                    for s in (0, 1)])
+        return self._docs[1]
+
+    def render(self, f: str, g: int):
+        from opensearch_tpu_torch import bench_corpus as bc
+        if not self.present[f][g]:
+            return None
+        v = self.vals[f][g]
+        if f == "status":
+            return bc.STATUS_VALUES[int(v)]
+        return float(v) if f == "rating" else int(v)
+
+    def primary(self, spec: dict, docs: np.ndarray) -> np.ndarray:
+        """f64 key per doc, larger first (the device's rank key)."""
+        f, desc, last = self.spec_parts(spec)
+        v = self.vals[f][docs].astype(np.float64)
+        k = v if desc else -v
+        return np.where(self.present[f][docs], k,
+                        -np.inf if last else np.inf)
+
+    @functools.lru_cache(maxsize=8)
+    def distinct(self, f: str, s: int) -> np.ndarray:
+        """The distinct values of a field in segment s, deleted docs'
+        included (its sort ordinals rank them)."""
+        return np.unique(self.vals[f][(self.seg_of == s)
+                                      & self.present[f]])
+
+    @staticmethod
+    def spec_parts(spec: dict) -> tuple:
+        ((f, o),) = spec.items()
+        if isinstance(o, str):
+            o = {"order": o}
+        return (f, o.get("order", "asc") == "desc",
+                o.get("missing", "_last") == "_last")
+
+    def comp(self, specs, g: int) -> tuple:
+        out = []
+        for spec in specs:
+            f, desc, last = self.spec_parts(spec)
+            if not self.present[f][g]:
+                out.append((1 if last else -1, 0))
+                continue
+            v = self.vals[f][g]
+            v = float(v) if f == "rating" else int(v)
+            out.append((0, -v if desc else v))
+        return tuple(out) + (self.ix.id_of(g),)
+
+    def after_mask(self, spec: dict, docs: np.ndarray, v,
+                   ref_cursor: bool) -> np.ndarray:
+        f, desc, last = self.spec_parts(spec)
+        x = self.vals[f][docs]
+        pres = self.present[f][docs]
+        if ref_cursor and not desc:
+            keep = np.zeros(len(docs), bool)
+            for s in (0, 1):
+                u = self.distinct(f, s)
+                lo = int(np.searchsorted(u, v, "left"))
+                on = self.seg_of[docs] == s
+                keep[on] = np.searchsorted(u, x[on]) > lo
+            return (pres & keep) | (~pres & last)
+        after = (x < v) if desc else (x > v)
+        return (pres & after) | (~pres & last)
+
+    def page(self, matched: np.ndarray, score, body: dict,
+             ref_cursor: bool = False) -> dict:
+        """The port's page of a sorted body over `matched` (live docs are
+        taken here): {"ids", "hits": [(g, score)], "total"}."""
+        ix = self.ix
+        specs = body["sort"]
+        size = int(body.get("size", 10))
+        need = 2 * size
+        k = next_pow2_16(need)
+        after = body.get("search_after")
+        cands = []
+        total = 0
+        for d in self.seg_docs(matched):
+            if after is not None:
+                d = d[self.after_mask(specs[0], d, after[0], ref_cursor)]
+            total += len(d)
+            cands += top_by(self.primary(specs[0], d), d, k).tolist()
+        cands.sort(key=lambda g: self.comp(specs, g))
+        sel = cands[:need][:size]
+        return {"ids": [ix.id_of(g) for g in sel],
+                "hits": [(g, None if score is None else
+                          float(score[g])) for g in sel], "total": total}
+
+    def exact_ids(self, matched: np.ndarray, body: dict) -> list:
+        """The exact page: every matched live doc by the full tuple."""
+        d = np.flatnonzero(matched & self.ix.live)
+        specs = body["sort"]
+        keys = [self.comp(specs, int(g)) for g in d] if len(d) < 5000 \
+            else None
+        if keys is None:
+            # narrow first: the best docs by the primary key, whole tie
+            # classes at the edge
+            pk = self.primary(specs[0], d)
+            kth = np.partition(-pk, 20)[20]
+            d = d[-pk <= kth]
+            keys = [self.comp(specs, int(g)) for g in d]
+        order = sorted(range(len(d)), key=keys.__getitem__)
+        return [self.ix.id_of(int(d[j])) for j in order[:body["size"]]]
+
+    def collapse_page(self, matched, score, size: int = 10) -> list:
+        """A score-ordered body collapsed on price: per segment, the best
+        doc of each price group (ties: the lowest doc), the
+        next_pow2(max(size, 16)) best groups (ties: the lowest price);
+        both segments' by score (stable), cut to the window, one per price
+        across segments: -> [(g, score)]."""
+        ix = self.ix
+        k = next_pow2_16(size)
+        m = matched & ix.live
+        cands = []
+        for s in (0, 1):
+            d = np.flatnonzero(m & (self.seg_of == s))
+            sc = score[d]
+            p = self.vals["price"][d]
+            o = np.lexsort((d, -sc, p))
+            _u, first = np.unique(p[o], return_index=True)
+            best = o[first]
+            best = best[np.lexsort((p[best], -sc[best]))][:k]
+            cands += [(int(d[j]), float(sc[j])) for j in best]
+        cands.sort(key=lambda c: -c[1])
+        seen, out = set(), []
+        for g, sc in cands[:size]:
+            pv = int(self.vals["price"][g])
+            if pv not in seen:
+                seen.add(pv)
+                out.append((g, sc))
+        return out
+
+
+def top_by(key: np.ndarray, d: np.ndarray, k: int) -> np.ndarray:
+    """The k docs of `d` (ascending) with the largest keys, ties by
+    ascending doc, in that order."""
+    if len(d) > k:
+        kth = np.partition(-key, k - 1)[k - 1]
+        sel = -key <= kth
+        key, d = key[sel], d[sel]
+    return d[np.lexsort((d, -key))[:k]]
+
+
+def next_pow2_16(n: int) -> int:
+    return 1 << (max(int(n), 16) - 1).bit_length()
+
+
+def title_group(ix, terms) -> tuple:
+    """BM25 of a 2-term `match` on the title field over the counted docs
+    (every title holds TITLE_DL tokens): (scores f32[n], matched)."""
+    import math
+    from opensearch_tpu_torch import bench_corpus as bc
+    avgdl, n = ix.title_stats()
+    starts, docs_all, tfs_all = ix.title[:3]
+    score = np.zeros(ix.n, np.float32)
+    ok = np.zeros(ix.n, bool)
+    k = K1 * (OMB + (B * np.float32(bc.TITLE_DL)) / avgdl)
+    for t in terms:
+        (r,) = ix.title_rows(t)
+        a, b_ = int(starts[r]), int(starts[r + 1])
+        d = docs_all[a:b_].astype(np.int64)
+        tf = tfs_all[a:b_]
+        if ix.n_stats != ix.n:
+            keep = ix.counted[d]
+            d, tf = d[keep], tf[keep]
+        w = np.float32(math.log(1.0 + (n - len(d) + 0.5) / (len(d) + 0.5)))
+        score[d] += (w * tf) / (tf + k)
+        ok[d] = True
+    return score, ok
+
+
+def query_match(ix, oracle: SortOracle, body: dict, terms) -> tuple:
+    """(scores or None, matched over every doc) of a phase-11 query."""
+    q = body["query"]
+    if "match" in q:
+        return ix.group(terms)
+    ((f, r),) = q["range"].items()
+    x = oracle.vals[f]
+    if f == "rating":
+        x = x.astype(np.float32)
+        lo, hi = np.float32(r["gte"]), np.float32(r["lt"])
+    else:
+        lo, hi = r["gte"], r["lt"]
+    m = oracle.present[f] & (x >= lo) & (x < hi)
+    return np.where(m, np.float32(1.0), np.float32(0.0)), m
+
+
+def check_hits(resp: dict, want_hits: list, total: int, max_score,
+               what: str, score_order: bool = False, rtol: float = 1e-6):
+    """A response's hits against the brute force's: [{"_id", "_score",
+    and any of "sort", "fields", "_source", "highlight",
+    "inner_hits"}]; ids in order (two hits may swap under score order
+    when their scores agree within rtol), scores within rtol, the rest
+    equal; the total equal (a lower bound where its relation is gte);
+    max_score within rtol or both None."""
+    h = resp["hits"]
+    t = h["total"]
+    ok = (t["value"] == total if t["relation"] == "eq"
+          else t["value"] <= total) and len(h["hits"]) == len(want_hits)
+    ms = h["max_score"]
+    ok = ok and (ms is None) == (max_score is None) and (
+        ms is None or np.isclose(ms, max_score, rtol=rtol, atol=0))
+    by_id = {w["_id"]: w for w in want_hits}
+    for got, want in zip(h["hits"], want_hits):
+        if not ok:
+            break
+        if got["_id"] != want["_id"]:
+            twin = by_id.get(got["_id"])
+            ok = score_order and twin is not None and np.isclose(
+                twin["_score"], want["_score"], rtol=rtol, atol=0)
+            want = twin if ok else want
+        ok = ok and np.isclose(got["_score"], want["_score"], rtol=rtol,
+                               atol=0)
+        for key, v in want.items():
+            if not ok:
+                break
+            if key in ("_id", "_score"):
+                continue
+            if key == "inner_hits":
+                for name, (iw, itotal, ims) in v.items():
+                    check_hits(got["inner_hits"][name], iw, itotal, ims,
+                               f"{what} inner hits {name}", True, rtol)
+            else:
+                ok = got.get(key) == v
+    if not ok:
+        raise AssertionError(f"{what} != numpy brute force: "
+                             f"{json.dumps(h)[:1500]} vs "
+                             f"{json.dumps([want_hits, total, max_score])[:1500]}")
+
+
+def sort_op_timer():
+    """Events around the sort key, the top-k and the collapse scatters on
+    the card, host clocks around the sort tuples, the fetch and the
+    highlighter: -> (restore(), {op: [(start, end)]}, {host op: s},
+    {host op: calls})."""
+    import torch
+    from opensearch_tpu_torch.ops import scoring
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import executor as E
+    spans: dict = {}
+    host: Counter = Counter()
+    calls: Counter = Counter()
+    saved = []
+
+    def wrap(owner, name, label, device):
+        real = getattr(owner, name)
+
+        def timed(*a, _real=real, **kw):
+            if device:
+                s0 = torch.cuda.Event(enable_timing=True)
+                s1 = torch.cuda.Event(enable_timing=True)
+                s0.record()
+                out = _real(*a, **kw)
+                s1.record()
+                spans.setdefault(label, []).append((s0, s1))
+                return out
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            host[label] += time.perf_counter() - t0
+            calls[label] += 1
+            return out
+        setattr(owner, name, timed)
+        saved.append((owner, name, real))
+    wrap(C, "sort_key", "sort_key", True)
+    wrap(scoring, "topk_docs", "topk", True)
+    wrap(scoring, "collapse_topk", "collapse", True)
+    wrap(E, "host_sort_values", "sort_tuple", False)
+    wrap(E.ShardSearcher, "fetch_phase", "fetch", False)
+    wrap(E.ShardSearcher, "highlight", "highlight", False)
+
+    def restore():
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+    return restore, spans, host, calls
+
+
+def sort_ords_bytes(segs, dev) -> int:
+    n = 0
+    for s in segs:
+        for k, v in s.device_arrays.items():
+            if k[0] == "sort_ords" and k[-1] == str(dev):
+                n += v.numel() * v.element_size()
+    return n
+
+
+def run_sort_class(client, name: str, bodies, chain: int, want_of,
+                   cpu) -> dict:
+    """One class body by body through RestClient.search (a results page
+    is one request; a chain's next page is the same body after the last
+    hit's sort values), every response against the brute force
+    (`want_of(body, resp) -> Counter`, raising on a difference), the
+    first 2 requests on the card against the CPU, then OP_BODIES
+    requests under the op timer."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, impactpath
+    C.reset_stats()
+    bm25.reset_counts()
+    fastpath.reset_stats()
+    impactpath.reset_stats()
+    lat, reqs, resps = [], [], []
+    t_all = time.perf_counter()
+    for b in bodies:
+        body = b
+        for page in range(1 + chain):
+            t0 = time.perf_counter()
+            r = client.search("bench", body)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            reqs.append(body)
+            resps.append(r)
+            hits = r["hits"]["hits"]
+            if page == chain or not hits:
+                break
+            body = dict(b, search_after=hits[-1]["sort"])
+    wall = time.perf_counter() - t_all
+    general = C.STATS["general_served"]
+    launches = {k: v for k, v in bm25.COUNTS.items() if v}
+    rungs = {k: v for k, v in fastpath.STATS.items() if v}
+    t0 = time.perf_counter()
+    extra: Counter = Counter()
+    for body, r in zip(reqs, resps):
+        extra.update(want_of(body, r))
+    t_oracle = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ncpu = 2
+    for body in reqs[:ncpu]:
+        if strip_took(client.search("bench", body)) \
+                != strip_took(cpu.search("bench", body)):
+            raise AssertionError(f"{name}: card and CPU responses differ "
+                                 f"for {body}")
+    t_cpu = time.perf_counter() - t0
+    nb = min(OP_BODIES, len(reqs))
+    restore, spans, host, calls = sort_op_timer()
+    try:
+        for body in reqs[:nb]:
+            client.search("bench", body)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    ops_ms = {k: sum(a.elapsed_time(e) for a, e in v) / nb
+              for k, v in spans.items()}
+    host_ms = {k: v * 1e3 / nb for k, v in host.items()
+               if k != "highlight"}
+    if calls["highlight"]:
+        host_ms["highlight_per_hit"] = host["highlight"] * 1e3 / calls[
+            "highlight"]
+    n = len(reqs)
+    rest = lat[1:] or lat
+    log(f"  {name}: requests={n} ({len(bodies)} bodies) wall_s={wall:.2f} "
+        f"bodies_per_s={n / wall:.1f} ms_p50={np.percentile(lat, 50):.1f} "
+        f"ms_p99={np.percentile(lat, 99):.1f} first_ms={lat[0]:.1f} "
+        f"after_first_per_s={len(rest) / (sum(rest) / 1e3):.1f} "
+        f"general={general} kernel_launches={launches} rungs={rungs}; {n} "
+        f"responses == numpy brute force ({t_oracle:.1f}s) "
+        f"{dict(extra)}; {ncpu} card == CPU ({t_cpu:.1f}s); device ms "
+        f"per body (events) " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(ops_ms.items()))
+        + "; host ms per body " + " ".join(
+            f"{k}={v:.3f}" for k, v in sorted(host_ms.items())))
+    return {"requests": n, "bodies": len(bodies), "bodies_per_s": n / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
+            "general": general, "launches": launches, "rungs": rungs,
+            "op_ms": ops_ms, "host_ms": host_ms, **dict(extra)}
+
+
+def sort_checker(big: dict, oracle: SortOracle):
+    """-> want_of(body, resp) -> Counter: a phase-11 response of classes
+    (a)-(e) against SortOracle (raises on a difference), with the counts
+    of pages other than the exact page ((a), (d): several keys) and of
+    hits the reference's cursor would drop ((c))."""
+    ix = oracle.ix
+    terms_of = {json.dumps(big["bodies"][j]["query"], sort_keys=True):
+                big["body_terms"][j] for j in range(0, len(big["bodies"]),
+                                                    2)}
+    memo: dict = {}
+
+    def matched_of(body):
+        key = json.dumps(body["query"], sort_keys=True)
+        if key not in memo:
+            memo.clear()       # one query's dense arrays at a time
+            memo[key] = query_match(ix, oracle, body, terms_of.get(key))
+        return memo[key]
+
+    def sorted_want(body, r):
+        score, m = matched_of(body)
+        want = oracle.page(m, score, body)
+        hits = []
+        for g, sc in want["hits"]:
+            h = {"_id": ix.id_of(g), "_score": sc,
+                 "sort": [oracle.render(oracle.spec_parts(s)[0], g)
+                          for s in body["sort"]]}
+            if "docvalue_fields" in body:
+                h["fields"] = {f: [oracle.render(f, g)]
+                               for f in body["docvalue_fields"]}
+                h["_source"] = {"doc": g} if g < ix.n0 else {}
+            hits.append(h)
+        ms = (float(np.max(score[m & ix.live])) if body.get("track_scores")
+              else None)
+        check_hits(r, hits, want["total"], ms, f"body {body}")
+        extra: Counter = Counter()
+        if len(body["sort"]) > 1:
+            extra["pages_not_exact"] += oracle.exact_ids(m, body) \
+                != want["ids"]
+        if body["sort"] == [{"rating": "asc"}] and "search_after" in body:
+            ref = oracle.page(m, score, body, ref_cursor=True)["ids"]
+            extra["reference_cursor_drops"] += len(set(want["ids"])
+                                                   - set(ref))
+        return extra
+
+    def collapse_want(body, r):
+        score, m = matched_of(body)
+        hits = []
+        for g, sc in oracle.collapse_page(m, score):
+            pv = int(oracle.vals["price"][g])
+            h = {"_id": ix.id_of(g), "_score": sc, "fields": {"price": [pv]}}
+            if "inner_hits" in body["collapse"]:
+                grp = m & (oracle.vals["price"] == pv)
+                ids, scs, tot = ix.page(score, grp, 0, 2)
+                h["inner_hits"] = {"more": (
+                    [{"_id": i, "_score": s} for i, s in zip(ids, scs)],
+                    tot, scs[0] if scs else None)}
+            hits.append(h)
+        live = m & ix.live
+        check_hits(r, hits, int(live.sum()), float(np.max(score[live])),
+                   f"body {body}", True)
+        return Counter()
+
+    return lambda body, r: (collapse_want if "collapse" in body
+                            else sorted_want)(body, r)
+
+
+def phase_sort_msmarco(big: dict, n: int) -> dict:
+    """Classes (a)-(e) over phase 7's end state (the big segment with
+    phase 7's re-indexed _ids deleted, their new versions, with ts and
+    ratings, in a small segment), body by body through `search`, each
+    response against SortOracle; (a) and (d) also count the pages that
+    differ from the exact page (the window approximation at this size),
+    (c) the hits the reference's cursor would drop. Class (f) runs on the
+    merged segment (`phase_snippets_merged`): the kernels decline a
+    segment with deletes."""
+    client = big["client"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    segs = list(eng.segments)
+    oracle = SortOracle(big["ix"], big["aggs"])
+    want_of = sort_checker(big, oracle)
+    cpu = twin_of(eng)
+    out: dict = {}
+    nbytes0 = sort_ords_bytes(segs, dev)
+    for name, bodies in sort_classes(big, n).items():
+        out[name] = run_sort_class(client, name, bodies,
+                                   SORT_CHAIN if name[0] in "bc" else 0,
+                                   want_of, cpu)
+        # (e)'s inner hits are sub-searches that any rung may serve
+        if (out[name]["launches"] and name[0] != "e") \
+                or out[name]["general"] < out[name]["requests"]:
+            raise AssertionError(f"{name}: not on the general path: "
+                                 f"{out[name]}")
+    nbytes = sort_ords_bytes(segs, dev)
+    slots = next_pow2_16(segs[0].ndocs + 1)
+    log(f"  sort ordinals on the card (price, ts, rating of both "
+        f"segments; i32 a doc): {nbytes} bytes (before the phase: "
+        f"{nbytes0}); collapse on price, transient a body: {slots} group "
+        f"slots (f32 best key + i64 best doc, {slots * 12} bytes) and the "
+        f"big segment's i64 group and candidate per doc "
+        f"({segs[0].ndocs * 16} bytes)")
+    return {"classes": out, "sort_ords_bytes": nbytes,
+            "collapse_slot_bytes": slots * 12,
+            "collapse_doc_bytes": segs[0].ndocs * 16}
+
+
+def snippet_checker(big: dict):
+    """-> want_of(body, resp): a class-(f) response against the title
+    BM25 brute force and the rendered title with each query term
+    wrapped."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    ix = big["ix"]
+    src = bc.LazySources(ix.n0, big["title"])
+
+    def want_of(body, r):
+        terms = body["query"]["match"]["title"].split()
+        score, m = title_group(ix, terms)
+        ids, scs, total = ix.page(score, m, 0, 10)
+        hits = []
+        for i, s in zip(ids, scs):
+            text = src[int(i)]["title"]
+            hl = " ".join(f"<em>{t}</em>" if t in terms else t
+                          for t in text.split(" "))
+            hits.append({"_id": i, "_score": s, "_source": {"title": text},
+                         "highlight": {"title": [hl]}})
+        check_hits(r, hits, total, scs[0] if scs else None,
+                   f"body {body}", True)
+        return Counter()
+    return want_of
+
+
+def phase_snippets_merged(big: dict, n: int) -> dict:
+    """Class (f) on phase 8's merged segment (no deletes, so the fused
+    kernels serve it): score-ordered title matches with highlighted
+    titles, B2 on the default bodies, B1 on those with exact totals."""
+    client = big["client"]
+    out = run_sort_class(client, "f_snippets (merged segment)",
+                         snippet_bodies(big, n), 0, snippet_checker(big),
+                         twin_of(client._indices["bench"].engine))
+    la = out["launches"]
+    if not la.get("launches") or not la.get("impact_launches") \
+            or la.get("plain_calls") or out["general"]:
+        raise AssertionError(f"class (f): not on B1 and B2 alone: {out}")
+    return out
+
+
+def twin_of(eng):
+    from opensearch_tpu_torch import RestClient
+    cpu = RestClient(device="cpu")
+    cpu.indices.create("bench", BENCH_MAPPING)
+    cpu._indices["bench"].engine.segments = list(eng.segments)
+    return cpu
+
+
+# ---------------------------------------------------------------------
 # phase 8: deletes, updates and a forced merge at MS MARCO passage scale
 # ---------------------------------------------------------------------
 
@@ -3442,12 +4104,13 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
     # docs), upsert as many new ones
     lines = []
     adds = []
-    for j, (old, terms, _st, _pr) in enumerate(reidx):
+    for j, (old, terms, _st, _pr, cols) in enumerate(reidx):
         st, pr = (j + 1) % 3, (7 * j) % 1000
         lines += [{"update": {"_index": "bench", "_id": str(old)}},
                   {"doc": {"status": bc.STATUS_VALUES[st], "price": pr}}]
         ix.live[ix.n0 + j] = False
-        adds.append((terms, st, pr, str(old)))
+        # a partial update keeps the source's ts and rating
+        adds.append((terms, st, pr, str(old), cols))
     up_terms = big["body_terms"][nq:2 * nq]
     for j, terms in enumerate(up_terms):
         st, pr = j % 3, (13 * j) % 1000
@@ -3732,10 +4395,10 @@ def main() -> int:
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
     # phase 5 ran 2,048 queries before phase 6 shared the time limit,
     # 1,024 before phase 8 did; phase 7 ran 64 bodies a class before
-    # phase 8 did
+    # phase 8 did, 32 before phase 11 did
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--bool-queries", type=int, default=1024)
-    ap.add_argument("--general-queries", type=int, default=32,
+    ap.add_argument("--general-queries", type=int, default=16,
                     help="phase-7 bodies per class")
     ap.add_argument("--phrase-queries", type=int, default=1024,
                     help="phase-9 config-3 and mixed bodies each")
@@ -3744,10 +4407,13 @@ def main() -> int:
     ap.add_argument("--agg-queries", type=int, default=16,
                     help="phase-10 bodies per class (the refinement class "
                     "takes at most 4)")
+    ap.add_argument("--sort-queries", type=int, default=16,
+                    help="phase-11 bodies per class (the chains of (b) "
+                    "and (c) add 4 pages each)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 10; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 8); no result line")
+                    help="end after this phase (3 to 11; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3847,7 +4513,7 @@ def main() -> int:
         f"scale (ndocs={args.ndocs})" + at(t_start))
     if args.general_queries < 64:
         log(f"  cut: {args.general_queries} bodies a class (64 uncut), so "
-            f"that phase 8 fits the same time limit")
+            f"that phases 8 and 11 fit the same time limit")
     general = phase_general_msmarco(big, args.general_queries)
     if args.stop_after == 7:
         return 0
@@ -3858,17 +4524,31 @@ def main() -> int:
     if args.stop_after == 10:
         return 0
 
+    log(f"[11] a search results page (sort, search_after, collapse, the "
+        f"fetch options) at MS MARCO passage scale (ndocs={args.ndocs}): "
+        f"classes (a)-(e) here, (f) after phase 8" + at(t_start))
+    sort = phase_sort_msmarco(big, args.sort_queries)
+    if args.stop_after == 11:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
         "and read, and the heads' build again); phase 4 runs them small")
     writes = phase_writes_msmarco(big, rng(8))
+    log("[11f] class (f), a results page with snippets, on phase 8's "
+        "merged segment (the kernels decline a segment with deletes)"
+        + at(t_start))
+    sort["classes"]["f_snippets"] = phase_snippets_merged(
+        big, args.sort_queries)
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_tfdl.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:343",
         "launches": big["tfdl_launches"],
+        "launches_results_page": sort["classes"]["f_snippets"]["launches"]
+        .get("launches", 0),
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -3877,6 +4557,8 @@ def main() -> int:
         "source": "opensearch_tpu_torch/csrc/bm25_impact.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:820",
         "launches": big["impact_launches"],
+        "launches_results_page": sort["classes"]["f_snippets"]["launches"]
+        .get("impact_launches", 0),
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -3912,6 +4594,7 @@ def main() -> int:
     print(json.dumps({"general_path": general}), flush=True)
     print(json.dumps({"aggs": aggs}), flush=True)
     print(json.dumps({"writes": writes}), flush=True)
+    print(json.dumps({"results_page": sort}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

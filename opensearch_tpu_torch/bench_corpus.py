@@ -69,7 +69,8 @@ def build_title_corpus(ndocs: int, npairs: int = 2000, tvocab: int = 1000,
     over `tvocab` terms, so phrase queries on pool bigrams match. -> (starts
     i64[tvocab+1], doc_ids i32[P], tfs f32[P], pos_starts i64[P+1],
     positions i32, first i64[npairs], second i64[npairs], pair_counts
-    i64[npairs])."""
+    i64[npairs], the draw u16[ndocs, 4]: each passage's pairs, doc-major,
+    from which `LazySources` renders the text)."""
     assert tvocab <= 1 << 15
     rng = np.random.default_rng(seed)
     first = rng.integers(0, tvocab, npairs).astype(np.int64)
@@ -101,8 +102,9 @@ def build_title_corpus(ndocs: int, npairs: int = 2000, tvocab: int = 1000,
     pos_starts = np.zeros(len(doc_ids) + 1, np.int64)
     np.cumsum(counts, out=pos_starts[1:])
     pair_counts = np.bincount(pr.ravel(), minlength=npairs)
+    assert npairs <= 1 << 16
     return (starts, doc_ids, tfs, pos_starts, pos.astype(np.int32), first,
-            second, pair_counts)
+            second, pair_counts, pr.astype(np.uint16))
 
 
 def title_vocab_strings(n: int) -> list:
@@ -131,14 +133,28 @@ class LazyIds:
 
 
 class LazySources:
-    def __init__(self, n):
+    """Sources materialized on demand: {"doc": i}, and with a title
+    corpus (`build_title_corpus`) the passage's `title` text too, its 8
+    tokens rendered from the pair draw."""
+
+    def __init__(self, n, title=None):
         self.n = n
+        self.title = None
+        if title is not None:
+            self.title = (title[8], title[5], title[6],
+                          title_vocab_strings(len(title[0]) - 1))
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, i):
-        return {"doc": int(i)}
+        src = {"doc": int(i)}
+        if self.title is not None:
+            draw, first, second, tvs = self.title
+            pr = draw[i].astype(np.int64)
+            src["title"] = " ".join(
+                f"{tvs[first[p]]} {tvs[second[p]]}" for p in pr)
+        return src
 
 
 STATUS_VALUES = ["archived", "draft", "published"]
@@ -169,14 +185,15 @@ def agg_columns(ndocs: int, seed: int = 4) -> tuple:
 
 
 def make_index(client, corpus, name: str = "bench", columns=None,
-               title=None, aggs=None):
+               title=None, aggs=None, title_source: bool = False):
     """Create index `name` with a text field `body` and attach the CSR
     corpus as its one segment; with `columns` (guardrail_columns), also
     the `status` keyword postings and doc values and the `price` integer
     column, with `title` (build_title_corpus) the positional `title`
     text field, as bench.py's make_index builds them, and with `aggs`
-    (agg_columns) the `ts` date and `rating` double columns. Returns the
-    segment."""
+    (agg_columns) the `ts` date and `rating` double columns, and with
+    `title_source` the title text in each `_source` (bench.py's sources
+    are {"doc": i}). Returns the segment."""
     starts, doc_ids, tfs, dl, _df = corpus
     ndocs = len(dl)
     postings = {"body": {"vocab": vocab_strings(len(starts) - 1),
@@ -223,7 +240,7 @@ def make_index(client, corpus, name: str = "bench", columns=None,
         props.update({"ts": {"type": "date"}, "rating": {"type": "double"}})
     seg = segment_from_arrays(
         "bench0", ndocs, postings, doc_lens, text_stats, LazyIds(ndocs),
-        LazySources(ndocs), numeric_cols=numeric, keyword_cols=keyword,
+        LazySources(ndocs, title if title_source else None), numeric_cols=numeric, keyword_cols=keyword,
         device=client.device)
     client.indices.create(name, {"mappings": {"properties": props}})
     client._indices[name].engine.segments = [seg]

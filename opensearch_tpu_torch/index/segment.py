@@ -259,6 +259,25 @@ class NumericColumn:
         vals = self.values[self.present]
         return (float(vals.min()), float(vals.max()))
 
+    @functools.cached_property
+    def _ranks(self) -> Tuple[np.ndarray, np.ndarray]:
+        distinct, inv = np.unique(self.values[self.present],
+                                  return_inverse=True)
+        ords = np.full(len(self.values), -1, dtype=np.int32)
+        ords[self.present] = inv.reshape(-1)
+        return distinct, ords
+
+    @property
+    def distinct(self) -> np.ndarray:
+        """The segment's distinct present values, ascending."""
+        return self._ranks[0]
+
+    def sort_ords(self) -> np.ndarray:
+        """i32[ndocs]: each doc's rank among the segment's distinct
+        values, -1 where missing: exact sort and collapse keys even for
+        values that need 64 bits."""
+        return self._ranks[1]
+
 
 @dataclass
 class KeywordColumn:
@@ -435,6 +454,16 @@ class Segment:
         return self.device_cached(("f32", field), device, lambda: (
             torch.from_numpy(col.values.astype(np.float32)).to(device),
             torch.from_numpy(col.present).to(device)))
+
+    def sort_ords_on(self, field: str, device):
+        """i32[ndocs] `NumericColumn.sort_ords()` of a numeric column on
+        `device`, or None without the column."""
+        col = self.numeric_cols.get(field)
+        if col is None:
+            return None
+        return self.device_cached(("sort_ords", field), device, lambda:
+                                  torch.from_numpy(col.sort_ords()).to(
+                                      device))
 
     def keyword_on(self, field: str, device):
         """(ords i64[V], doc_of_value i64[V], min_ord i32[ndocs]) of a

@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .bm25 import DL_BITS, DL_MASK, TF_MAX
+from .bm25 import DL_BITS, DL_MASK, INT_SENTINEL, TF_MAX
 
 SIM_BM25 = 0
 NEG_INF = float("-inf")
@@ -291,6 +291,33 @@ def topk_docs(scores: torch.Tensor, matched: torch.Tensor,
     k = min(int(k), scores.shape[0])
     _, idx = torch.topk(rank_keys(masked), k)
     return masked[idx], idx
+
+
+def collapse_topk(key: torch.Tensor, matched: torch.Tensor,
+                  live: torch.Tensor, ords: torch.Tensor, n_ord_pad: int,
+                  k: int) -> tuple:
+    """Field-collapsed top-k (the reference's `collapse_topk`): one best
+    doc per group ordinal, (vals f32[k], idx i64[k]). A scatter-max of
+    the key into group space, a scatter-min of the doc ids that equal
+    their group's best (ties: the lowest doc), then the top k groups
+    (ties: the lowest group). Docs with ord < 0 share the null group,
+    the last slot; an empty group's value is -inf."""
+    nd = key.shape[0]
+    dev = key.device
+    neg = torch.full((), NEG_INF, device=dev)
+    masked = torch.where(matched & live, key, neg)
+    g = torch.where(ords >= 0, ords.to(torch.int64),
+                    n_ord_pad - 1).clamp_(0, n_ord_pad - 1)
+    gbest = torch.full((n_ord_pad,), NEG_INF, dtype=torch.float32,
+                       device=dev).scatter_reduce_(0, g, masked, "amax")
+    doc = torch.arange(nd, dtype=torch.int64, device=dev)
+    best = (masked > NEG_INF) & (masked == gbest[g])
+    none = int(INT_SENTINEL)
+    cand = torch.where(best, doc, torch.full((), none, device=dev))
+    gdoc = torch.full((n_ord_pad,), none, dtype=torch.int64,
+                      device=dev).scatter_reduce_(0, g, cand, "amin")
+    _, gsel = torch.topk(rank_keys(gbest), min(int(k), n_ord_pad))
+    return gbest[gsel], torch.clamp(gdoc[gsel], max=nd - 1)
 
 
 def total_hits(matched: torch.Tensor, live: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,7 @@ from __future__ import annotations
 import datetime as _dt
 import re
 import zlib
-from bisect import bisect_left
+from bisect import bisect_left, bisect_right
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -775,28 +775,163 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
 
 
 def run_segment(lroot: LNode, seg: Segment, ctx: ShardContext, k_pad: int,
-                device: torch.device, agg_nodes=()) -> dict:
+                device: torch.device, agg_nodes=(), order=None) -> dict:
     """The executor body: `lroot` over `seg`, its masked top `k_pad` (score
     desc, doc asc), the total, the max score and, under "aggs", each agg
     node's (spec, outputs) over the live-masked match (`emit_agg`, its
-    tensors as numpy arrays), all fetched in one copy."""
+    tensors as numpy arrays), all fetched in one copy.
+
+    With an `order` (`body.Order`) that ranks by more than the score, the
+    top-k runs over its sort key (`sort_key`; ties by ascending doc), a
+    `search_after` cursor keeps the docs strictly after it on that key
+    (`after_key`), `collapse` keeps one doc per group (`collapse_ords`,
+    `ops.collapse_topk`), and "topk_key" holds the keys beside the
+    candidates' scores. The total, the max score and the aggs count the
+    docs after the cursor's primary key. Under several sort keys (and no
+    collapse) a cursor whose primary value the segment holds also keeps
+    the docs tied with it, whose order the host's full tuple decides, and
+    the top-k grows by their count, so that it holds all of them."""
     sm = emit(lroot, seg, ctx, device)
     live = seg.live_on(device)
-    vals, idx = ops.topk_docs(sm.scores, sm.matched, live, k_pad)
-    total = ops.total_hits(sm.matched, live)
     match = sm.matched & live
+    ordered = order is not None and order.on_device
+    if ordered:
+        key = sort_key(order.specs, seg, sm.scores, device)
+        keep = match
+        if order.after is not None:
+            ak, ties = after_key(order.after, order.specs, seg)
+            match = match & (key < ak)
+            keep = match
+            if ties and order.multi and order.collapse is None:
+                keep = keep | (sm.matched & live & (key == ak))
+                n_tied = int((keep & ~match).sum())
+                k_pad = min(next_pow2(max(order.need + n_tied, 16)),
+                            seg.ndocs_pad)
+        if order.collapse is not None:
+            ords, n_ord_pad = collapse_ords(order.collapse, seg, device)
+            vals, idx = ops.collapse_topk(key, keep, live, ords, n_ord_pad,
+                                          k_pad)
+        else:
+            vals, idx = ops.topk_docs(key, keep, live, k_pad)
+        top = torch.where(match, sm.scores,
+                          torch.full((), float("-inf"), device=device)).max()
+        leaves: List[torch.Tensor] = [vals, idx, match.sum(),
+                                      sm.scores[idx], top.reshape(1)]
+    else:
+        vals, idx = ops.topk_docs(sm.scores, sm.matched, live, k_pad)
+        leaves = [vals, idx, ops.total_hits(sm.matched, live)]
     aggs = {n.name: emit_agg(n, seg, ctx, match, device) for n in agg_nodes}
-    leaves: List[torch.Tensor] = [vals, idx, total]
     tree = _leaves_to_slots(aggs, leaves)
     host = torch.cat([t.double().reshape(-1) for t in leaves]).cpu().numpy()
     k = len(idx)
     sc = host[:k].astype(np.float32)
     STATS["general_served"] += 1
-    return {"topk_idx": host[k:2 * k].astype(np.int64), "topk_scores": sc,
-            "total": int(host[2 * k]), "total_rel": "eq",
-            "max_score": float(sc[0]) if k else float("-inf"),
-            "aggs": _slots_to_arrays(tree, host, leaves, np.cumsum(
-                [0] + [t.numel() for t in leaves]))}
+    out = {"topk_idx": host[k:2 * k].astype(np.int64), "topk_scores": sc,
+           "total": int(host[2 * k]), "total_rel": "eq",
+           "max_score": float(sc[0]) if k else float("-inf"),
+           "aggs": _slots_to_arrays(tree, host, leaves, np.cumsum(
+               [0] + [t.numel() for t in leaves]))}
+    if ordered:
+        out["topk_key"] = sc
+        out["topk_scores"] = host[2 * k + 1:3 * k + 1].astype(np.float32)
+        out["max_score"] = float(host[3 * k + 1])
+    return out
+
+
+# ---------------------------------------------------------------------
+# sort keys, the search_after cursor and field collapsing
+# ---------------------------------------------------------------------
+
+MISSING_KEY = 2.0 ** 30   # a missing value's key: below or above any rank
+
+
+def sort_key(specs: List[dict], seg: Segment, scores: torch.Tensor,
+             device: torch.device) -> torch.Tensor:
+    """f32[ndocs] ranking key of the primary sort (the reference's
+    `prepare_sort` and `emit_sort_key`): larger ranks first. The score
+    (or its negation ascending), the negated doc for `_doc`, and for a
+    field its exact rank among the segment's distinct values (a numeric
+    field's `sort_ords`, a keyword field's smallest ordinal), negated
+    ascending, with a missing value at -2^30 (`_last`) or 2^30
+    (`_first`); a field the segment lacks is missing everywhere."""
+    if not specs:
+        return scores
+    primary = specs[0]
+    field = primary["field"]
+    if field == "_score":
+        desc = primary.get("order", "desc") == "desc"
+        return scores if desc else -scores
+    nd = seg.ndocs
+    if field == "_doc":
+        return -torch.arange(nd, dtype=torch.float32, device=device)
+    desc = primary.get("order", "asc") == "desc"
+    missing_last = primary.get("missing", "_last") == "_last"
+    if field in seg.numeric_cols:
+        o = seg.sort_ords_on(field, device)
+    elif field in seg.keyword_cols:
+        o = seg.keyword_on(field, device)[2]
+    else:
+        o = torch.full((nd,), -1, dtype=torch.int32, device=device)
+    ords = o.to(torch.float32)
+    miss = torch.full((), -MISSING_KEY if missing_last else MISSING_KEY,
+                      dtype=torch.float32, device=device)
+    return torch.where(o >= 0, ords if desc else -ords, miss)
+
+
+def after_key(after: list, specs: List[dict],
+              seg: Segment) -> Tuple[float, bool]:
+    """The cursor on this segment's primary key: (k, ties) where the
+    docs after the cursor are exactly those with key < k, and `ties` is
+    True when docs may hold the cursor's own primary value (key == k).
+    A value the segment lacks takes the ordinal on the side its order
+    needs: descending the count of smaller values, ascending one minus
+    the count of values up to it."""
+    v = after[0]
+    primary = specs[0] if specs else {"field": "_score"}
+    field = primary["field"]
+    if field == "_score":
+        k = _f32(v)
+        desc = primary.get("order", "desc") == "desc"
+        return (k if desc else -k), True
+    if field == "_doc":
+        d = int(v)
+        return -float(d), 0 <= d < seg.ndocs
+    desc = primary.get("order", "asc") == "desc"
+    missing_last = primary.get("missing", "_last") == "_last"
+    if v is None:
+        return (-MISSING_KEY if missing_last else MISSING_KEY), True
+    col = seg.numeric_cols.get(field)
+    kcol = seg.keyword_cols.get(field)
+    if col is not None:
+        if isinstance(v, (bool, str)) or not isinstance(v, (int, float)):
+            raise dsl.QueryParseError(
+                f"[search_after] value [{v}] of numeric field [{field}]")
+        vocab = col.distinct
+        lo = int(np.searchsorted(vocab, v, side="left"))
+        hi = int(np.searchsorted(vocab, v, side="right"))
+    elif kcol is not None:
+        vocab = kcol.vocab
+        lo = bisect_left(vocab, str(v))
+        hi = bisect_right(vocab, str(v))
+    else:
+        # missing everywhere here: after any value when missing sorts last
+        return (float("inf") if missing_last else float("-inf")), False
+    return (float(lo) if desc else float(1 - hi)), hi > lo
+
+
+def collapse_ords(field: str, seg: Segment,
+                  device: torch.device) -> Tuple[torch.Tensor, int]:
+    """(group ordinal per doc, -1 in the null group; group slots) of a
+    collapse field (the reference's `prepare_collapse`): a keyword
+    field's smallest ordinal, a numeric field's `sort_ords`, and for a
+    field the segment lacks every doc in the null group."""
+    if field in seg.keyword_cols:
+        return (seg.keyword_on(field, device)[2],
+                next_pow2(len(seg.keyword_cols[field].vocab) + 1))
+    if field in seg.numeric_cols:
+        return seg.sort_ords_on(field, device), next_pow2(seg.ndocs + 1)
+    return torch.full((seg.ndocs,), -1, dtype=torch.int32,
+                      device=device), 2
 
 
 def _leaves_to_slots(tree, leaves: List[torch.Tensor]):

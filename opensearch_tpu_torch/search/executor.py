@@ -1,5 +1,5 @@
 """Per-shard search execution and the coordinator reduce (the query-phase,
-fetch, aggregation and batched-msearch subset of
+fetch, aggregation, sort, collapse and batched-msearch subset of
 opensearch_tpu/search/executor.py).
 
 Query-then-fetch: the query phase serves each segment through three
@@ -9,12 +9,28 @@ over the concatenated shard view), then, for a pure term group they
 decline, the codec-v2 impact rung (`search/impactpath.py`), then the
 general program (`compiler.run_segment`), which serves any plan. It
 returns light candidate descriptors; the coordinator merges them, and the
-fetch phase materializes `_id`, `_score` and `_source` for the winners.
+fetch phase materializes each winner's hit: `_id`, `_score`, `sort`,
+`_source` (filtered), `fields` (doc values, source values), `highlight`.
 A single search skips the segments that `can_match` rules out. A pruned
 segment result that certified its page but counted a lower bound marks
 the shard total "gte". A batched msearch runs the bodies the kernels
 serve on every segment as one launch per shape group; the others run as
 single searches.
+
+Sort, `search_after`, `collapse` and `min_score` (`body.Order`) leave the
+kernels and the impact rung unless the body ranks by the score alone
+(`body.rungs_eligible`). The general program ranks each segment by the
+primary sort key and keeps its best `need` docs (twice the window under
+a field sort or several keys); the host then orders every candidate by
+the full sort tuple (`host_sort_values`, the `_id` last), as the
+reference does. Where the primary key ties past a segment's window the
+page is the window's best, not the exact best (the reference's
+approximation). A `search_after` cursor serves every hit strictly after
+the cursor's full tuple: under several keys the device also keeps the
+docs tied with the cursor's primary value and the host drops those not
+after it. Collapse keeps one candidate per group per segment on the
+device and per group across segments at the reduce; each group's
+`inner_hits` run as one sub-search.
 
 A body with `aggs` (or `aggregations`) leaves the kernels and the impact
 rung, as the reference's does: the general program serves each segment
@@ -31,25 +47,22 @@ the reference does.
 
 from __future__ import annotations
 
+import fnmatch
 import time
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..errors import NotPortedError
 from ..index.engine import Engine
 from ..index.segment import Segment, next_pow2
 from . import aggregations as A
+from . import body as B
 from . import compiler as C
 from . import fastpath, impactpath
+from . import highlight as H
 from . import query_dsl as dsl
-
-# body keys this slice serves; any other key raises NotPortedError
-BODY_KEYS = {"query", "size", "from", "track_total_hits", "_source", "aggs",
-             "aggregations"}
-
 
 @dataclass
 class Candidate:
@@ -59,19 +72,22 @@ class Candidate:
     seg_ord: int
     local_doc: int
     score: float
-    sort_values: Tuple
+    sort_values: Tuple            # host-comparable, direction-adjusted
+    raw_sort_values: Tuple = ()   # the hit's `sort` array
+    collapse_key: Any = None      # the collapse group (None: null group)
 
 
 @dataclass
 class Plan:
     """One body's plan over a shard: the rewritten root, the specs of the
-    rungs that may serve it (None where a rung declines the body), and
-    the window (from + size)."""
+    rungs that may serve it (None where a rung declines the body), the
+    window (from + size) and the body's ranking."""
 
     lroot: C.LNode
     fast: Optional[fastpath.FastSpec]
     impact: Optional[impactpath.ImpactSpec]
     window: int
+    order: B.Order
     aggs: List[A.AggNode] = dc_field(default_factory=list)
 
 
@@ -87,26 +103,6 @@ class ShardQueryResult:
     agg_partials: Dict[str, list] = dc_field(default_factory=dict)
 
 
-def check_body(body: dict) -> int:
-    """Validate a search body against this slice; returns from + size."""
-    for key in body:
-        if key not in BODY_KEYS:
-            raise NotPortedError(f"search body option [{key}]")
-    src = body.get("_source", True)
-    if not isinstance(src, bool):
-        raise NotPortedError("[_source] filtering")
-    track = body.get("track_total_hits", True)
-    if not isinstance(track, (bool, int)):
-        raise dsl.QueryParseError(
-            f"[track_total_hits] must be a boolean or an integer, got "
-            f"[{track}]")
-    size = int(body.get("size", 10))
-    frm = int(body.get("from", 0))
-    if size < 0 or frm < 0:
-        raise dsl.QueryParseError("[from] and [size] must be >= 0")
-    return frm + size
-
-
 class ShardSearcher:
     """Executes searches over one shard's engine on one device."""
 
@@ -117,28 +113,32 @@ class ShardSearcher:
         self.shard_id = shard_id
         self.similarity = similarity
 
-    def context(self) -> C.ShardContext:
-        return C.ShardContext(self.engine.mappings, self.engine.segments,
-                              self.similarity)
+    def context(self, segments: Optional[List[Segment]] = None
+                ) -> C.ShardContext:
+        return C.ShardContext(self.engine.mappings,
+                              self.engine.segments if segments is None
+                              else segments, self.similarity)
 
     def plan(self, body: dict, ctx: C.ShardContext) -> Optional[Plan]:
         """-> the Plan of a body, or None for a plan with no hits and no
         aggs. A body with aggs has no fast or impact spec (the
         reference's `_body_eligible`)."""
-        window = check_body(body)
+        window = B.check_body(body)
+        order = B.Order.of(body, window)
         aggs = A.parse_aggs(body.get("aggs", body.get("aggregations")))
         A.check_ported(aggs)
         lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
         if aggs:
-            return Plan(lroot, None, None, window, aggs)
+            return Plan(lroot, None, None, window, order, aggs)
         if isinstance(lroot, C.LMatchNone):
             return None
         return Plan(lroot, fastpath.make_spec(lroot, window, body),
-                    impactpath.make_spec(lroot, window, body), window)
+                    impactpath.make_spec(lroot, window, body), window,
+                    order)
 
     def query_phase(self, body: dict) -> ShardQueryResult:
         segments = list(self.engine.segments)
-        ctx = C.ShardContext(self.engine.mappings, segments, self.similarity)
+        ctx = self.context(segments)
         plan = self.plan(body, ctx)
         result = ShardQueryResult(shard=self.shard_id, segments=segments)
         if plan is None:
@@ -150,8 +150,8 @@ class ShardSearcher:
                                        plan.window, self.device)
             if sv is not None:
                 view, out = sv
-                self.collect_view_topk(result, view, out)
-                finish_candidates(result, plan.window)
+                self.collect_view_topk(result, view, out, plan.order)
+                finish_candidates(result, plan.order.need)
                 return result
         need_all = aggs_need_all_segments(plan.aggs)
         for seg_ord, seg in enumerate(segments):
@@ -159,12 +159,12 @@ class ShardSearcher:
                                        not C.can_match(plan.lroot, seg)):
                 continue
             out = self.segment_query(plan, ctx, seg)
-            self.collect_topk(result, out, seg, seg_ord)
+            self.collect_topk(result, out, seg, seg_ord, plan.order)
             for node in plan.aggs:
                 spec, dev = out["aggs"][node.name]
                 result.agg_partials.setdefault(node.name, []).append(
                     device_agg_to_partial(node, spec, dev, seg))
-        finish_candidates(result, plan.window)
+        finish_candidates(result, plan.order.need)
         return result
 
     def segment_query(self, plan: Plan, ctx: C.ShardContext,
@@ -181,13 +181,14 @@ class ShardSearcher:
                                             plan.window, self.device)
             if out is not None:
                 return out
-        # the reference's window (oversample 1: score order only)
-        k_pad = min(next_pow2(max(plan.window, 16)), seg.ndocs_pad)
+        # the reference's window: the body's need, at least 16, a power
+        # of two
+        k_pad = min(next_pow2(max(plan.order.need, 16)), seg.ndocs_pad)
         return C.run_segment(plan.lroot, seg, ctx, k_pad, self.device,
-                             plan.aggs)
+                             plan.aggs, plan.order)
 
     def collect_view_topk(self, result: ShardQueryResult, view,
-                          out: dict) -> None:
+                          out: dict, order: B.Order) -> None:
         """Fold the shard-view launch's top-k (view-space doc ids) into
         the shard result, translating to (segment, local doc)."""
         self._fold_totals(result, out)
@@ -195,9 +196,9 @@ class ShardSearcher:
             d = int(d)
             if sc == float("-inf") or d < 0 or d >= view.ndocs:
                 continue
-            seg_ord, _seg, local = view.locate(d)
-            result.candidates.append(Candidate(self.shard_id, seg_ord, local,
-                                               float(sc), (-float(sc),)))
+            seg_ord, seg, local = view.locate(d)
+            result.candidates.append(self._candidate(
+                seg, seg_ord, local, float(sc), order))
 
     @staticmethod
     def _fold_totals(result: ShardQueryResult, out: dict) -> None:
@@ -208,40 +209,311 @@ class ShardSearcher:
         if ms > result.max_score:
             result.max_score = ms
 
+    def _candidate(self, seg: Segment, seg_ord: int, d: int, sc: float,
+                   order: B.Order) -> Candidate:
+        sort_vals, raw = host_sort_values(order.specs, seg, d, sc)
+        c = Candidate(self.shard_id, seg_ord, d, sc, sort_vals, raw)
+        if order.collapse is not None:
+            c.collapse_key = collapse_key_value(seg, order.collapse, d)
+        return c
+
     def collect_topk(self, result: ShardQueryResult, out: dict,
-                     seg: Segment, seg_ord: int) -> None:
-        """Fold one segment's top-k output into the shard result."""
+                     seg: Segment, seg_ord: int, order: B.Order) -> None:
+        """Fold one segment's top-k output into the shard result: every
+        valid candidate with its host sort tuple, less those under
+        `min_score` (score order only) and, under several sort keys,
+        those not strictly after the cursor; the device counted the docs
+        after the cursor's primary key, and the host adds those tied with
+        it that are after its full tuple (the segment's window holds all
+        of them, `compiler.run_segment`)."""
         idx = out["topk_idx"]
         scores = out["topk_scores"]
+        keys = out.get("topk_key", scores)
         self._fold_totals(result, out)
+        cursor = (cursor_tuple(order)
+                  if order.after is not None and order.multi else None)
         for j in range(len(scores)):
             d = int(idx[j])
-            if scores[j] == float("-inf") or d < 0 or d >= seg.ndocs:
+            if keys[j] == float("-inf") or d < 0 or d >= seg.ndocs:
                 continue
             sc = float(scores[j])
-            # score ties break by (shard, segment, local doc) through the
-            # stable sorts over candidates appended in that order
-            result.candidates.append(
-                Candidate(self.shard_id, seg_ord, d, sc, (-sc,)))
+            # ties of the full tuple break by (shard, segment, local doc)
+            # through the stable sorts over candidates appended in that
+            # order
+            c = self._candidate(seg, seg_ord, d, sc, order)
+            if cursor is not None:
+                if not cursor < c.sort_values[:len(cursor)]:
+                    continue
+                if c.sort_values[0] == cursor[0] and order.collapse is None:
+                    result.total += 1
+                    result.max_score = max(result.max_score, sc)
+            if order.min_score is not None and not order.field_sort \
+                    and sc < order.min_score:
+                continue
+            result.candidates.append(c)
 
     def fetch_phase(self, result: ShardQueryResult,
                     selected: List[Candidate], body: dict,
                     index_name: str) -> List[dict]:
-        hits = []
-        for c in selected:
-            seg = result.segments[c.seg_ord]
-            hit = {"_index": index_name, "_id": seg.ids[c.local_doc],
-                   "_score": c.score}
-            if body.get("_source", True) is not False:
-                hit["_source"] = seg.sources[c.local_doc]
-            hits.append(hit)
-        return hits
+        hl_terms = {}
+        if body.get("highlight"):
+            ctx = self.context(result.segments)
+            hl_terms = H.collect_query_terms(
+                C.rewrite(dsl.parse_query(body.get("query")), ctx))
+        suppress = B.suppress_score(body)
+        return [self.fetch_one(result.segments[c.seg_ord], c, body,
+                               index_name, hl_terms, suppress)
+                for c in selected]
+
+    def fetch_one(self, seg: Segment, c: Candidate, body: dict,
+                  index_name: str, hl_terms: dict,
+                  suppress: bool) -> dict:
+        """One hit (the reference's `_fetch_one`)."""
+        doc = c.local_doc
+        hit = {"_index": index_name, "_id": seg.ids[doc], "_score": c.score}
+        if body.get("sort"):
+            hit["sort"] = list(c.raw_sort_values)
+            if suppress:
+                hit["_score"] = None
+        stored_opt = body.get("stored_fields")
+        # asking for stored_fields suppresses _source unless the body
+        # opts back in; the port stores no field apart from _source
+        src_opt = body.get("_source", True if stored_opt is None else False)
+        if src_opt is not False:
+            hit["_source"] = filter_source(seg.sources[doc], src_opt)
+        if stored_opt and stored_opt != "_none_":
+            hit.setdefault("fields", {})
+        if body.get("docvalue_fields"):
+            hit.setdefault("fields", {}).update(
+                docvalue_fields(seg, doc, body["docvalue_fields"]))
+        if body.get("fields"):
+            flds = hit.setdefault("fields", {})
+            for f in body["fields"]:
+                fname = f if isinstance(f, str) else f.get("field")
+                vals = extract_source_values(seg.sources[doc], fname)
+                if vals:
+                    flds[fname] = vals
+        if body.get("highlight"):
+            hl = self.highlight(seg.sources[doc], body["highlight"],
+                                hl_terms)
+            if hl:
+                hit["highlight"] = hl
+        return hit
+
+    def highlight(self, source: dict, hl_body: dict, hl_terms: dict) -> dict:
+        """field -> fragments of the body's `highlight` (plain or
+        unified; `fvh` is unified here, as the reference runs it without
+        stored term vectors)."""
+        mappings = self.engine.mappings
+        hl = {}
+        for fname, fopts in hl_body.get("fields", {}).items():
+            ft = mappings.resolve_field(fname)
+            if ft is None:
+                continue
+            fopts = fopts or {}
+            kw = dict(
+                pre_tag=(hl_body.get("pre_tags") or ["<em>"])[0],
+                post_tag=(hl_body.get("post_tags") or ["</em>"])[0],
+                fragment_size=int(fopts.get(
+                    "fragment_size", hl_body.get("fragment_size", 100))),
+                number_of_fragments=int(fopts.get(
+                    "number_of_fragments",
+                    hl_body.get("number_of_fragments", 5))))
+            kind = fopts.get("type", hl_body.get("type", "plain"))
+            fn = (H.highlight_unified if kind in ("unified", "fvh")
+                  else H.highlight_field)
+            analyzer = mappings.index_analyzer(ft)
+            terms = hl_terms.get(fname, set())
+            frags = []
+            for v in extract_source_values(source, fname):
+                frags.extend(fn(str(v), terms, analyzer, **kw))
+            if frags:
+                hl[fname] = frags
+        return hl
 
 
-def finish_candidates(result: ShardQueryResult, window: int) -> None:
-    """Keep only the best window of a shard."""
+def finish_candidates(result: ShardQueryResult, need: int) -> None:
+    """Keep only a shard's best `need` candidates."""
     result.candidates.sort(key=lambda c: c.sort_values)
-    result.candidates = result.candidates[:window]
+    result.candidates = result.candidates[:need]
+
+
+# ---------------------------------------------------------------------
+# host sort tuples, the cursor, collapse keys and the fetch's fields
+# ---------------------------------------------------------------------
+
+class StrKey:
+    """A string sort key that can order descending inside a tuple."""
+
+    __slots__ = ("s", "desc")
+
+    def __init__(self, s: str, desc: bool):
+        self.s = s
+        self.desc = desc
+
+    def __lt__(self, other):
+        return (self.s > other.s) if self.desc else (self.s < other.s)
+
+    def __eq__(self, other):
+        return self.s == other.s
+
+
+def render_numeric(col, doc: int):
+    """A numeric column's value of `doc` as JSON shows it."""
+    v = col.values[doc]
+    return float(v) if col.kind == "float" else int(v)
+
+
+def _field_order(spec: dict) -> Tuple[bool, bool]:
+    """(descending, missing last) of a sort spec."""
+    f = spec["field"]
+    desc = spec.get("order", "desc" if f == "_score" else "asc") == "desc"
+    return desc, spec.get("missing", "_last") == "_last"
+
+
+def host_sort_values(specs: List[dict], seg: Segment, doc: int,
+                     score: float) -> Tuple[Tuple, Tuple]:
+    """(comparison tuple, ascending; the hit's raw sort values) of one
+    doc (the reference's `_host_sort_values`): per key the score
+    (negated descending), the local doc, or for a field (0, value) with
+    a missing value at (1, 0) last or (-1, 0) first; then the `_id`.
+    Without a sort: (-score,), ties left to the stable sorts."""
+    if not specs:
+        return (-score,), (score,)
+    comp: list = []
+    raw: list = []
+    for spec in specs:
+        f = spec["field"]
+        desc, missing_last = _field_order(spec)
+        if f == "_score":
+            comp.append(-score if desc else score)
+            raw.append(score)
+            continue
+        if f == "_doc":
+            comp.append(doc)
+            raw.append(doc)
+            continue
+        col = seg.numeric_cols.get(f)
+        if col is not None and col.present[doc]:
+            v = render_numeric(col, doc)
+            comp.append((0, -v if desc else v))
+            raw.append(v)
+            continue
+        kcol = seg.keyword_cols.get(f)
+        if kcol is not None and kcol.min_ord[doc] >= 0:
+            sv = kcol.vocab[kcol.min_ord[doc]]
+            comp.append((0, StrKey(sv, desc)))
+            raw.append(sv)
+            continue
+        comp.append((1 if missing_last else -1, 0))
+        raw.append(None)
+    comp.append(seg.ids[doc])
+    return tuple(comp), tuple(raw)
+
+
+def cursor_tuple(order: B.Order) -> Tuple:
+    """The `search_after` cursor as `host_sort_values` compares (without
+    the `_id`): a candidate is after it when its tuple is greater."""
+    comp: list = []
+    specs = order.specs or [{"field": "_score", "order": "desc"}]
+    for spec, v in zip(specs, order.after):
+        f = spec["field"]
+        desc, missing_last = _field_order(spec)
+        if f == "_score":
+            comp.append(-float(v) if desc else float(v))
+        elif f == "_doc":
+            comp.append(int(v))
+        elif v is None:
+            comp.append((1 if missing_last else -1, 0))
+        elif isinstance(v, str):
+            comp.append((0, StrKey(v, desc)))
+        else:
+            comp.append((0, -v if desc else v))
+    return tuple(comp)
+
+
+def collapse_key_value(seg: Segment, field: str, doc: int):
+    """The collapse group of one doc: a keyword's smallest value, a
+    numeric value, or None (the null group)."""
+    kcol = seg.keyword_cols.get(field)
+    if kcol is not None:
+        o = int(kcol.min_ord[doc])
+        return kcol.vocab[o] if o >= 0 else None
+    ncol = seg.numeric_cols.get(field)
+    if ncol is not None and ncol.present[doc]:
+        return render_numeric(ncol, doc)
+    return None
+
+
+def filter_source(src: dict, opt) -> dict:
+    """`_source` filtering (the reference's `_filter_source`): paths of
+    the flattened source kept by `includes` (a glob, or a prefix of the
+    path) and not dropped by `excludes`."""
+    if opt is True:
+        return src
+    if isinstance(opt, str):
+        opt = {"includes": [opt]}
+    if isinstance(opt, list):
+        opt = {"includes": opt}
+    includes = opt.get("includes", [])
+    excludes = opt.get("excludes", [])
+
+    def flatten(d, prefix=""):
+        for k, v in d.items():
+            path = f"{prefix}{k}"
+            if isinstance(v, dict):
+                yield from flatten(v, f"{path}.")
+            else:
+                yield path, v
+
+    def keep(path):
+        if includes and not any(fnmatch.fnmatch(path, p)
+                                or path.startswith(p + ".")
+                                for p in includes):
+            return False
+        return not any(fnmatch.fnmatch(path, p) for p in excludes)
+
+    out: dict = {}
+    for path, v in flatten(src):
+        if keep(path):
+            node = out
+            parts = path.split(".")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = v
+    return out
+
+
+def docvalue_fields(seg: Segment, doc: int, specs: List) -> dict:
+    """field -> the doc's values from its numeric or keyword column."""
+    out = {}
+    for spec in specs:
+        f = spec if isinstance(spec, str) else spec.get("field")
+        col = seg.numeric_cols.get(f)
+        if col is not None and col.present[doc]:
+            out[f] = [render_numeric(col, doc)]
+            continue
+        kcol = seg.keyword_cols.get(f)
+        if kcol is not None:
+            a, b = int(kcol.starts[doc]), int(kcol.starts[doc + 1])
+            if b > a:
+                out[f] = [kcol.vocab[o] for o in kcol.ords[a:b]]
+    return out
+
+
+def extract_source_values(src: dict, path: str) -> List:
+    """The values at a dotted path of a source, as a list."""
+    node: Any = src
+    for part in path.split("."):
+        if isinstance(node, dict):
+            node = node.get(part)
+        elif isinstance(node, list):
+            node = [n.get(part) for n in node if isinstance(n, dict)]
+        else:
+            return []
+        if node is None:
+            return []
+    return node if isinstance(node, list) else [node]
 
 
 def aggs_need_all_segments(agg_nodes: List[A.AggNode]) -> bool:
@@ -380,6 +652,17 @@ def reduce_shard_results(shard_results: List[ShardQueryResult],
             total_rel = "gte"
         max_score = max(max_score, r.max_score)
     all_cands.sort(key=lambda c: c.sort_values)
+    if body.get("collapse"):
+        # the best candidate of each group across segments and shards
+        seen = set()
+        kept = []
+        for c in all_cands:
+            gk = ("null",) if c.collapse_key is None else ("v",
+                                                          c.collapse_key)
+            if gk not in seen:
+                seen.add(gk)
+                kept.append(c)
+        all_cands = kept
     aggs_out = {}
     for node in agg_nodes or ():
         partials = [p for r in shard_results
@@ -396,14 +679,21 @@ def finish_search(searchers: List[ShardSearcher],
                   results: List[ShardQueryResult], body: dict,
                   index_name: str, t0: float) -> dict:
     """Coordinator reduce + fetch + response assembly (shared by search
-    and batched msearch), then the refinement of complex bucket subs."""
+    and batched msearch), then collapse's inner hits and the refinement
+    of complex bucket subs."""
     agg_nodes = A.parse_aggs(body.get("aggs", body.get("aggregations")))
     reduced = reduce_shard_results(results, body, agg_nodes)
-    hits = []
+    hits_by_key: Dict[Tuple, dict] = {}
     for s, r in zip(searchers, results):
         sel = [c for c in reduced["selected"] if c.shard == r.shard]
         if sel:
-            hits += s.fetch_phase(r, sel, body, index_name)
+            for c, h in zip(sel, s.fetch_phase(r, sel, body, index_name)):
+                hits_by_key[(c.shard, c.seg_ord, c.local_doc)] = h
+    hits = [hits_by_key[(c.shard, c.seg_ord, c.local_doc)]
+            for c in reduced["selected"]]
+    if body.get("collapse"):
+        collapse_inner_hits(searchers, body, index_name, body["collapse"],
+                            reduced["selected"], hits_by_key)
     for node in agg_nodes:
         refine_complex_subs(searchers, index_name, node,
                             reduced["aggs"][node.name], body.get("query"),
@@ -415,18 +705,51 @@ def finish_search(searchers: List[ShardSearcher],
         track_n = int(track)
         if total > track_n:
             total, relation = track_n, "gte"
+    # a sorted body shows max_score only with track_scores
+    show_max = not body.get("sort") or bool(body.get("track_scores"))
     resp = {
         "took": int((time.monotonic() - t0) * 1000.0),
         "timed_out": False,
         "_shards": {"total": len(searchers), "successful": len(searchers),
                     "skipped": 0, "failed": 0},
         "hits": {"total": {"value": total, "relation": relation},
-                 "max_score": reduced["max_score"],
+                 "max_score": reduced["max_score"] if show_max else None,
                  "hits": hits},
     }
     if reduced["aggs"]:
         resp["aggregations"] = reduced["aggs"]
     return resp
+
+
+def collapse_inner_hits(searchers: List[ShardSearcher], body: dict,
+                        index_name: str, collapse: dict,
+                        selected: List[Candidate],
+                        hits_by_key: Dict[Tuple, dict]) -> None:
+    """Each collapsed hit's `fields` get its group value, and each
+    `inner_hits` spec one sub-search of the query within the group (the
+    reference's `_apply_collapse_inner_hits`)."""
+    field = collapse["field"]
+    ih_specs = collapse.get("inner_hits") or []
+    if isinstance(ih_specs, dict):
+        ih_specs = [ih_specs]
+    for c in selected:
+        h = hits_by_key[(c.shard, c.seg_ord, c.local_doc)]
+        h.setdefault("fields", {})[field] = [c.collapse_key]
+        for ih in ih_specs:
+            if c.collapse_key is None:
+                group = {"bool": {"must_not": [{"exists": {"field": field}}]}}
+            else:
+                group = {"term": {field: c.collapse_key}}
+            sub = {"query": {"bool": {
+                "must": [body.get("query") or {"match_all": {}}],
+                "filter": [group]}},
+                "size": int(ih.get("size", 3)),
+                "from": int(ih.get("from", 0))}
+            if ih.get("sort"):
+                sub["sort"] = ih["sort"]
+            resp = search_shards(searchers, sub, index_name)
+            h.setdefault("inner_hits", {})[ih.get("name", field)] = {
+                "hits": resp["hits"]}
 
 
 _ORDINAL_KINDS = ("terms", "histogram", "date_histogram")
@@ -540,6 +863,7 @@ def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
                 for s in searchers] for _ in range(nb)]
     ok = [True] * nb
     specs: dict = {}
+    orders: dict = {}
     launches = []
     for si, s in enumerate(searchers):
         ctx = s.context()
@@ -557,7 +881,7 @@ def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
             if plan.fast is None:
                 ok[bi] = False
             else:
-                specs[bi] = plan.fast
+                specs[bi], orders[bi] = plan.fast, plan.order
         bis = [bi for bi in specs if ok[bi] and responses[bi] is None]
         if not bis:
             continue
@@ -584,7 +908,7 @@ def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
                 continue
             served.append((bi, outs[bi]))
             searchers[si].collect_topk(results[bi][si], outs[bi], seg,
-                                       seg_ord)
+                                       seg_ord, orders[bi])
     # served counts only for bodies the kernels served on every segment
     for bi, out in served:
         if ok[bi]:
@@ -595,9 +919,9 @@ def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
         if not ok[bi]:
             responses[bi] = search_shards(searchers, body, index_name)
             continue
-        window = check_body(body)
         for r in results[bi]:
-            finish_candidates(r, window)
+            # a body without hits (its plan None) has no order
+            finish_candidates(r, orders[bi].need if bi in orders else 0)
         responses[bi] = finish_search(searchers, results[bi], body,
                                       index_name, t0)
     return responses

@@ -63,6 +63,7 @@ from ..ops.bm25 import (DL_BITS, DL_MAX, HBM_ALIGN, INT_SENTINEL, LANES,
 from ..ops.scoring import SIM_BM25, dequant_impact_np
 from . import compiler as C
 from . import filters
+from .body import rungs_eligible
 
 MAX_T = 8            # pow2-padded term slots per query group
 MAX_L = 1 << 16      # per-term window cap (elements)
@@ -546,7 +547,7 @@ def make_spec(lroot: C.LNode, window: int,
               body: dict) -> Optional[FastSpec]:
     """-> FastSpec for a term-group or bool plan the kernels serve, else
     None (the reference's `_body_eligible` and `_flatten_bool`)."""
-    if window > MAX_K or window < 1:
+    if window > MAX_K or window < 1 or not rungs_eligible(body):
         return None
     # pruning changes total-hit semantics on clamped terms (lower bound,
     # relation "gte"); an explicit track_total_hits demands exact counts,

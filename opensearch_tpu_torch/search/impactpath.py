@@ -44,6 +44,7 @@ from ..index.segment import CODEC_V1, CODEC_V2, IMPACT_BLOCK, next_pow2
 from ..ops import scoring as ops
 from ..ops.scoring import dequant_impact_np
 from . import compiler as C
+from .body import rungs_eligible
 from .fastpath import MAX_K, _ok_group
 
 # candidate window floor for the first pass; the block prune keeps at
@@ -76,7 +77,8 @@ class ImpactSpec:
 
 
 def make_spec(lroot, window: int, body: dict) -> Optional[ImpactSpec]:
-    if window > MAX_K or window < 1 or not _ok_group(lroot):
+    if window > MAX_K or window < 1 or not _ok_group(lroot) \
+            or not rungs_eligible(body):
         return None
     # pruning changes total-hit semantics (lower bound, "gte") and
     # relaxed-msm counting is unsound: explicit total tracking or msm > 1

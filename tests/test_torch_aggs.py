@@ -776,7 +776,7 @@ BENCH_NDOCS = 3000
 def bench_aggs():
     """The bench corpus with its guardrail and aggregation columns at a
     small size on the CPU, 8 of its _ids re-indexed (as phase 7 leaves
-    them: no ts or rating), and phase 10's numpy brute force."""
+    them: with a ts and a rating), and phase 10's numpy brute force."""
     import chip_smoke
     from opensearch_tpu_torch import bench_corpus as bc
     corpus = bc.build_corpus(BENCH_NDOCS)
@@ -792,12 +792,13 @@ def bench_aggs():
         bodies += [{"query": {"match": {"body": f"{vs[q2[i][0]]} "
                                                 f"{vs[q2[i][1]]}"}}}, None]
         terms += [list(q2[i][:2]), None]
-    docs = [(int(old), [int(q2[j][0])] * 2, j % 3, 7 * j)
+    docs = [(int(old), [int(q2[j][0])] * 2, j % 3, 7 * j,
+             chip_smoke.reindexed_cols(j))
             for j, old in enumerate(np.arange(8) * 311 + 5)]
-    for old, ts, st, pr in docs:
+    for old, ts, st, pr, cols in docs:
         port.index("bench", {"body": " ".join(vs[t] for t in ts),
-                             "status": bc.STATUS_VALUES[st], "price": pr},
-                   id=str(old))
+                             "status": bc.STATUS_VALUES[st], "price": pr,
+                             **cols}, id=str(old))
     port.indices.refresh("bench")
     ix.reindex(docs)
     big = {"bodies": bodies, "body_terms": terms, "aggs": aggcols}

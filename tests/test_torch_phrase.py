@@ -552,11 +552,11 @@ def test_unported_span_and_interval_forms_raise(query, what):
         port.search("t", {"query": query})
 
 
-@pytest.mark.parametrize("option", ["highlight", "explain"])
+@pytest.mark.parametrize("option", ["rescore", "explain"])
 def test_phrase_body_options_outside_the_slice_raise(option):
     _ref, port = clients("fox")
-    body = dict(mp("quick brown"), **{option: {"fields": {"body": {}}}
-                                      if option == "highlight" else True})
+    body = dict(mp("quick brown"), **{option: {"window_size": 5}
+                                      if option == "rescore" else True})
     with pytest.raises(NotPortedError, match=option):
         port.search("t", body)
 

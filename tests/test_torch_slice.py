@@ -265,9 +265,10 @@ def test_score_term_group_matches_reference(clients):
     ({"query": {"range": {"body": {"gte": 1}}}}, "range"),
     ({"query": {"match": {"body": "the"}},
       "aggs": {"a": {"top_hits": {"size": 1}}}}, "aggs"),
-    ({"query": {"match_all": {}}, "from": 100, "size": 29,
-      "search_after": [1.0]}, "search_after"),
-    ({"query": {"match": {"body": "the"}}, "sort": ["_doc"]}, "sort"),
+    ({"query": {"match_all": {}}, "sort": [{"_geo_distance": {
+        "loc": [0.0, 0.0]}}]}, "_geo_distance"),
+    ({"query": {"match": {"body": "the"}}, "rescore": {"window_size": 5}},
+     "rescore"),
     ({"query": {"match": {"body": {"query": "the",
                                    "fuzziness": 1}}}}, "fuzziness"),
 ])
@@ -284,12 +285,15 @@ def test_unported_shapes_raise(clients, body, names):
     {"query": {"match": {"body": "the"}}, "from": 100, "size": 29},
     {"query": {"bool": {"must": [{"bool": {"should": [
         {"match_phrase": {"body": "a b"}}]}}]}}},
+    {"query": {"match_all": {}}, "from": 100, "size": 29,
+     "search_after": [1.0]},
+    {"query": {"match": {"body": "the"}}, "sort": ["_doc"]},
 ])
 def test_formerly_unported_shapes_match_reference(clients, body):
-    """A nested bool, a window past MAX_K and a nested phrase: the fast
-    path declines them (they raised before the general path and the
-    phrase slice were ported), the general path serves the reference's
-    response."""
+    """A nested bool, a window past MAX_K, a nested phrase, a
+    search_after cursor and a `_doc` sort: the fast path declines them
+    (they raised before the general path, the phrase slice and sort were
+    ported), the general path serves the reference's response."""
     ref, port = clients
     ctx = port._indices["t"].searcher.context()
     assert fastpath.make_spec(C.rewrite(dsl.parse_query(body["query"]), ctx),
