@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--ndocs N] [--queries Q] [--bool-queries B]
                           [--general-queries G] [--phrase-queries P]
                           [--phrase-sloppy S] [--agg-queries A]
-                          [--sort-queries R] [--seed S]
+                          [--sort-queries R] [--expand-queries E]
+                          [--seed S]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -91,6 +92,22 @@ Phases, each of which fails the script when it fails:
      segment (the kernels decline a segment with deletes), (f) title
      matches with highlighted titles on B2 (pruned) and B1 (exact
      totals), each highlight against the rendered title;
+ 12. (run after 11, before 8) term-expanding queries over phase 7's end
+     state, --expand-queries bodies a class from mid-df terms, through
+     RestClient.msearch: a 7- and a 6-char prefix (10 and 100 rows), a
+     wildcard with one ? and one *, a regexp with a class and a bound and
+     one with an alternation, a fuzzy term (AUTO: 2 edits of 8 chars), a
+     fuzzy 2-term match (half with operator and), a match_bool_prefix of
+     two terms and a 6-char prefix; and, after phase 8 on the merged
+     segment, a 2-term match must with a status keyword range or a body
+     prefix in the filter (B3, or the pruned ladder over the filtered
+     view); every page against a numpy brute force whose expansion reads
+     the vocabulary strings alone (startswith, fnmatch, re.fullmatch, the
+     strings within two single edits and a plain OSA check), 2 bodies a
+     class on the card against the CPU, the expansions' host ms by kind
+     with their rows and postings, the regexp DFA's and fuzzy DP's event
+     ms, the gather + mask, term scatter and top-k event ms, one batch a
+     class profiled;
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 16 of phase 5's match bodies on the segments with deletes,
@@ -109,8 +126,8 @@ Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
-one with phase 11's, a line with the kernels' numbers and, last, the
-device line.
+one with phase 11's, one with phase 12's, a line with the kernels'
+numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -133,6 +150,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
 NDOCS_MSMARCO = 8_800_000
 BATCH = 64                     # msearch bodies per request in phase 5
+PHASE5_CPU_BODIES = 16         # phase 5's bodies held card == CPU
 RUNGS = ("pruned_served", "pruned_rescued", "pruned_rescued2",
          "pruned_dview", "pruned_escalated", "impact_frontier",
          "shard_view_served")
@@ -1628,9 +1646,11 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
         f" jobs, {ncand} candidates (device {t_dev * 1e3:.1f} ms)")
 
     # sampled bodies through the port on the card and on the CPU, the
-    # same segment object
+    # same segment object (16 of them since phase 12 shares the time
+    # limit: the CPU took 26.5-43.0 s for 64)
     srng = np.random.default_rng(7)
-    sample = sorted(srng.choice(nq, 64, replace=False).tolist())
+    sample = sorted(srng.choice(nq, PHASE5_CPU_BODIES, replace=False)
+                    .tolist())
     lines = sum([[{}, bodies[i]] for i in sample], [])
     cpu = cpu_twin(seg)
     t3 = time.perf_counter()
@@ -1638,9 +1658,10 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
     t_cpu = time.perf_counter() - t3
     on_card = strip_took(client.msearch(lines, index="bench"))
     if on_card != on_cpu:
-        raise AssertionError("64 sampled bodies: card and CPU responses "
-                             "differ")
-    log(f"  64 sampled bodies: card == CPU responses (CPU {t_cpu:.1f}s)")
+        raise AssertionError(f"{len(sample)} sampled bodies: card and CPU "
+                             f"responses differ")
+    log(f"  {len(sample)} sampled bodies: card == CPU responses (CPU "
+        f"{t_cpu:.1f}s)")
     return {"tfdl_launches": d_counts["launches"],
             "impact_launches": counts["impact_launches"],
             "max_abs_err": worst, "b1": b1, "b2": b2, "client": client,
@@ -2177,6 +2198,7 @@ def phase_phrase_msmarco(big: dict, bools: dict, nq: int, n_sp: int,
 
 K1, B, OMB = np.float32(1.2), np.float32(0.75), np.float32(1.0 - 0.75)
 OP_BODIES = 16     # bodies of a class timed op by op, and profiled
+IMPACT_OP_BODIES = 4   # the same for the classes on the impact rung
 REINDEXED = 64     # _ids phase 7 re-indexes and phase 8 updates
 
 
@@ -2673,10 +2695,11 @@ def op_timer():
 
 
 def run_general_class(client, name: str, items, ix, sample, cpu,
-                      op_ms: dict, memo: dict) -> dict:
+                      op_ms: dict, memo: dict,
+                      op_bodies: int = OP_BODIES) -> dict:
     """One class through msearch in BATCH-body requests (counts and rungs
     set to 0 just before), every page against the brute force, the
-    sampled bodies on the card against the CPU, OP_BODIES bodies again
+    sampled bodies on the card against the CPU, `op_bodies` bodies again
     under the op timer: -> the class's numbers."""
     import torch
     from opensearch_tpu_torch.search import compiler as C
@@ -2704,7 +2727,7 @@ def run_general_class(client, name: str, items, ix, sample, cpu,
         raise AssertionError(f"{name}: sampled bodies: card and CPU "
                              f"responses differ")
     t_cpu = time.perf_counter() - t0
-    nb = min(OP_BODIES, len(bodies))
+    nb = min(op_bodies, len(bodies))
     restore, spans = op_timer()
     try:
         client.msearch(sum([[{}, b] for b in bodies[:nb]], []),
@@ -2753,9 +2776,12 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     idle = {}
     for name, items in classes.items():
         sample = sorted(srng.choice(len(items), 2, replace=False).tolist())
-        out[name] = run_general_class(client, name, items, ix, sample, cpu,
-                                      op_ms, memo)
-        if name in ("match9", "mixed_field_bool"):
+        # the impact rung's host work makes a re-run of a 9-term class
+        # cost as much as its run: 4 bodies under the op timer
+        out[name] = run_general_class(
+            client, name, items, ix, sample, cpu, op_ms, memo,
+            IMPACT_OP_BODIES if name.startswith("match9") else OP_BODIES)
+        if name == "mixed_field_bool":
             idle[name] = profile_batch(client,
                                        [b for b, _o in items[:OP_BODIES]])
     # re-index n existing _ids: the big segment gets n deleted docs, a new
@@ -2790,7 +2816,8 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     log(f"  re-indexed {REINDEXED} _ids in {t_reindex:.2f}s: segments "
         f"{[(s.ndocs, s.live_count) for s in segs]}")
     out["reindexed_match"] = run_general_class(
-        client, "reindexed_match", items, ix, sample, cpu2, op_ms, {})
+        client, "reindexed_match", items, ix, sample, cpu2, op_ms, {},
+        IMPACT_OP_BODIES)
     nbytes = {s.name: s.device_nbytes(dev) for s in segs}
     log(f"  general path device arrays (live masks, numeric columns, doc "
         f"lengths, CSR copies; the postings are the aligned layout's): "
@@ -3987,6 +4014,369 @@ def twin_of(eng):
 
 
 # ---------------------------------------------------------------------
+# phase 12: term-expanding queries and keyword ranges at MS MARCO scale
+# ---------------------------------------------------------------------
+
+VOCAB_ALPHABET = "t0123456789"    # every body term is "t" and 7 digits
+
+
+def osa_distance(a: str, b: str) -> int:
+    """Plain optimal string alignment distance: insertions, deletions,
+    substitutions and swaps of two adjacent chars each count 1."""
+    d = [[i + j if i * j == 0 else 0 for j in range(len(b) + 1)]
+         for i in range(len(a) + 1)]
+    for i in range(1, len(a) + 1):
+        for j in range(1, len(b) + 1):
+            d[i][j] = min(d[i - 1][j] + 1, d[i][j - 1] + 1,
+                          d[i - 1][j - 1] + (a[i - 1] != b[j - 1]))
+            if i > 1 and j > 1 and a[i - 1] == b[j - 2] \
+                    and a[i - 2] == b[j - 1]:
+                d[i][j] = min(d[i][j], d[i - 2][j - 2] + 1)
+    return d[-1][-1]
+
+
+def one_edit(s: str) -> set:
+    """The strings one insertion, deletion, substitution or adjacent swap
+    from `s` over the vocabulary's alphabet."""
+    out = set()
+    for i in range(len(s) + 1):
+        out.update(s[:i] + c + s[i:] for c in VOCAB_ALPHABET)
+        if i < len(s):
+            out.add(s[:i] + s[i + 1:])
+            out.update(s[:i] + c + s[i + 1:] for c in VOCAB_ALPHABET)
+        if i < len(s) - 1:
+            out.add(s[:i] + s[i + 1] + s[i] + s[i + 2:])
+    return out
+
+
+def fuzzy_ids(term: str, k: int, index: dict) -> list:
+    """Vocabulary ids within k single edits of `term` that pass a plain
+    OSA check (two edits can compose to more than two OSA steps)."""
+    cands = frontier = {term}
+    for _ in range(k):
+        frontier = set().union(*(one_edit(s) for s in frontier))
+        cands = cands | frontier
+    return sorted(index[s] for s in cands
+                  if s in index and osa_distance(s, term) <= k)
+
+
+def auto_k(term: str) -> int:
+    """OpenSearch's AUTO fuzziness: 0 below 3 chars, 1 up to 5, else 2."""
+    return 0 if len(term) < 3 else (1 if len(term) <= 5 else 2)
+
+
+def rows_mask(ix, ids, cap=None, vs=None) -> np.ndarray:
+    """bool[ix.n]: the docs holding any of the term ids. With `cap` (a
+    prefix's max expansions) each segment keeps its own first `cap` rows:
+    the corpus segment's vocabulary is every vocab string, the
+    re-indexed docs' segment's the terms they hold."""
+    m = np.zeros(ix.n, bool)
+    big = ids if cap is None else ids[:cap]
+    small = ids if cap is None else [t for t in ids if t in ix.extra][:cap]
+    for part, keep in ((big, lambda d: d < ix.n0),
+                       (small, lambda d: d >= ix.n0)):
+        for t in part:
+            d, _tf = ix.row(int(t))
+            m[d[keep(d)]] = True
+    return m
+
+
+def expand_classes(big: dict, n: int) -> dict:
+    """Phase 12's traffic, `n` bodies a class from pick_queries rows (the
+    mid-df band) over the body vocabulary t0000000..t0199999: name ->
+    [(body, oracle(ix))], each oracle expanding from the vocabulary
+    strings alone (str.startswith, fnmatch, re.fullmatch, the strings
+    within two single edits with a plain OSA check) and scoring with the
+    NumpyIndex."""
+    import fnmatch
+    import re
+    from opensearch_tpu_torch import bench_corpus as bc
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    index = {v: i for i, v in enumerate(vs)}
+    q = bc.pick_queries(df, n, seed=12)
+
+    def ids_where(pred):
+        return lambda: [i for i, v in enumerate(vs) if pred(v)]
+
+    def const(ids_fn):
+        def f(ix):
+            return ix.page(np.ones(ix.n, np.float32), rows_mask(
+                ix, ids_fn()), 0, 10)
+        return f
+
+    def t(i, j=0):
+        return vs[int(q[i][j])]
+
+    def changed(s: str, i: int) -> str:
+        p = 4 + i % 4               # one digit of the last four
+        return s[:p] + str((int(s[p]) + 1) % 10) + s[p + 1:]
+
+    def match_fuzzy(terms, msm):
+        def f(ix):
+            score = np.zeros(ix.n, np.float32)
+            for s in terms:
+                score = score + rows_mask(
+                    ix, fuzzy_ids(s, auto_k(s), index)).astype(np.float32)
+            return ix.page(score, score >= np.float32(msm), 0, 10)
+        return f
+
+    def bool_prefix(a, b_, prefix):
+        def f(ix):
+            s1, ok1 = ix.group([a])
+            s2, ok2 = ix.group([b_])
+            m = rows_mask(ix, [i for i, v in enumerate(vs)
+                               if v.startswith(prefix)], cap=50)
+            score = ((np.float32(0.0) + s1) + s2) + m.astype(np.float32)
+            return ix.page(score, ok1 | ok2 | m, 0, 10)
+        return f
+
+    classes = {
+        "prefix7": [({"query": {"prefix": {"body": t(i)[:7]}}},
+                     const(ids_where((lambda p: lambda v: v.startswith(p))(
+                         t(i)[:7])))) for i in range(n)],
+        "prefix6": [({"query": {"prefix": {"body": t(i)[:6]}}},
+                     const(ids_where((lambda p: lambda v: v.startswith(p))(
+                         t(i)[:6])))) for i in range(n)],
+        "wildcard": [({"query": {"wildcard": {"body": p}}},
+                      const(ids_where((lambda p_: lambda v: fnmatch
+                                       .fnmatchcase(v, p_))(p))))
+                     for p in (t(i)[:5] + "?" + t(i)[6] + "*"
+                               for i in range(n))],
+        "regexp": [({"query": {"regexp": {"body": p}}},
+                    const(ids_where((lambda r: lambda v: r.fullmatch(v)
+                                     is not None)(re.compile(p)))))
+                   for p in (t(i)[:4] + "[0-9]{2}" + t(i)[6] + "[0-9]"
+                             for i in range(n))],
+        "regexp_alt": [({"query": {"regexp": {"body": p}}},
+                        const(ids_where((lambda r: lambda v: r.fullmatch(v)
+                                         is not None)(re.compile(p)))))
+                       for p in (t(i)[:5] + "(" + "|".join(
+                           t(i, j)[5:7] for j in range(3)) + ")[0-9]"
+                           for i in range(n))],
+        "fuzzy": [({"query": {"fuzzy": {"body": t(i)}}},
+                   const((lambda s: lambda: fuzzy_ids(s, auto_k(s), index))(
+                       t(i)))) for i in range(n)],
+        "match_fuzzy": [({"query": {"match": {"body": dict(
+            query=f"{changed(t(i), i)} {changed(t(i, 1), i + 1)}",
+            fuzziness="AUTO", **({"operator": "and"} if i % 2 else {}))}}},
+            match_fuzzy([changed(t(i), i), changed(t(i, 1), i + 1)],
+                        2 if i % 2 else 1)) for i in range(n)],
+        "bool_prefix": [({"query": {"match_bool_prefix": {
+            "body": f"{t(i)} {t(i, 1)} {t(i, 2)[:6]}"}}},
+            bool_prefix(int(q[i][0]), int(q[i][1]), t(i, 2)[:6]))
+            for i in range(n)],
+    }
+    return classes
+
+
+def filter_classes(big: dict, n: int) -> list:
+    """The bool class with an expanded filter (run on phase 8's merged
+    segment, which the kernels serve): a 2-term match must of mid-df
+    terms with, in the filter, a keyword range on status (draft and
+    published: 2/3 of the docs, a dense filter) in body 0, a 6-char
+    prefix of a third mid-df term on body (100 rows) in the others. One
+    use of the dense filter builds its mask and list; a second would
+    build its filter-specialized postings (24.7 s at 8.8M passages on an
+    H100 80GB HBM3, 700 W) and a third its filtered view (22.4 s), which
+    phases 6 and 8 measure."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    q = bc.pick_queries(df, n, seed=12)
+    lo = bc.STATUS_VALUES.index("draft")
+    hi = bc.STATUS_VALUES.index("published")
+    items = []
+    for i in range(n):
+        a, b_ = int(q[i][0]), int(q[i][1])
+        if i == 0:
+            filt = {"range": {"status": {"gte": "b", "lt": "q"}}}
+
+            def mask(ix):
+                return (ix.status >= lo) & (ix.status <= hi)
+        else:
+            p = vs[int(q[i][2])][:6]
+            filt = {"prefix": {"body": p}}
+
+            def mask(ix, p=p):
+                return rows_mask(ix, [j for j, v in enumerate(vs)
+                                      if v.startswith(p)])
+        body = {"query": {"bool": {"must": [
+            {"match": {"body": f"{vs[a]} {vs[b_]}"}}], "filter": [filt]}}}
+        items.append((body, (lambda a_, b2, mk: lambda ix: ix.bool_page(
+            [(a_, "fam"), (b2, "fam")], 1, mk(ix), None))(a, b_, mask)))
+    return items
+
+
+def expand_timer():
+    """Time the expansions: host ms of each expander call by kind (the
+    nonzero copy back syncs the card), rows and postings per call, and
+    CUDA events around the regexp DFA and the fuzzy DP; and the event ms
+    of the general path's gather + mask (`term_match_mask`), BM25 term
+    scatter and top-k. -> (restore(), stats)."""
+    import torch
+    from opensearch_tpu_torch.ops import scoring
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import regexp as rx
+    st = {"host": {}, "rows": {}, "postings": {}, "events": {}}
+    saved = []
+
+    def patch(obj, name, new):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    def factory(kind, real):
+        def make(field, *a, **kw):
+            expand = real(field, *a, **kw)
+
+            def timed(seg):
+                t0 = time.perf_counter()
+                rows = expand(seg)
+                st["host"].setdefault(kind, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                pb = seg.postings.get(field)
+                npost = (int((pb.starts[rows + 1] - pb.starts[rows]).sum())
+                         if pb is not None and len(rows) else 0)
+                st["rows"].setdefault(kind, []).append(len(rows))
+                st["postings"].setdefault(kind, []).append(npost)
+                return rows
+            return timed
+        return make
+
+    for kind in ("prefix", "wildcard", "regexp", "fuzzy",
+                 "keyword_range"):
+        name = f"_{kind}_expander"
+        patch(C, name, factory(kind, getattr(C, name)))
+
+    def evented(label, real):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real(*a, **kw)
+            e1.record()
+            st["events"].setdefault(label, []).append((e0, e1))
+            return out
+        return run
+
+    patch(rx, "osa_within", evented("fuzzy_dp", rx.osa_within))
+    patch(rx.Dfa, "match_matrix", evented("regexp_dfa",
+                                          rx.Dfa.match_matrix))
+    for name, label in (("term_match_mask", "gather_mask"),
+                        ("score_term_group", "term_scatter"),
+                        ("topk_docs", "topk")):
+        patch(scoring, name, evented(label, getattr(scoring, name)))
+
+    def restore():
+        for obj, name, real in reversed(saved):
+            setattr(obj, name, real)
+    return restore, st
+
+
+def run_expand_class(client, name: str, items, ix, cpu, rtol=1e-6,
+                     cpu_bodies=(0, 1), profiled=slice(None)) -> dict:
+    """One class through msearch (counts set to 0 just before) under the
+    expansion timer, every page against the brute force, the 2 bodies
+    `cpu_bodies` on the card against the CPU, the bodies `profiled` again
+    in one profiled batch: -> the class's numbers."""
+    import torch
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import impactpath
+    bodies = [b for b, _o in items]
+    impactpath.reset_stats()
+    C.reset_stats()
+    restore, st = expand_timer()
+    try:
+        resps, wall, lat, counts, rungs = run_batches(client, bodies)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    rungs = {**rungs, "impact_served": impactpath.STATS["served"],
+             "general": C.STATS["general_served"]}
+    t0 = time.perf_counter()
+    for (b, oracle), r in zip(items, resps):
+        check_page(r, oracle(ix), f"{name} body {b}", rtol)
+    t_oracle = time.perf_counter() - t0
+    lines = sum([[{}, bodies[i]] for i in cpu_bodies if i < len(bodies)],
+                [])
+    t0 = time.perf_counter()
+    if strip_took(client.msearch(lines, index="bench")) \
+            != strip_took(cpu.msearch(lines, index="bench")):
+        raise AssertionError(f"{name}: 2 bodies: card and CPU responses "
+                             f"differ")
+    t_cpu = time.perf_counter() - t0
+    n = len(bodies)
+    ev = {k: sum(a.elapsed_time(e) for a, e in v) / n
+          for k, v in st["events"].items()}
+    host = {k: sum(v) / n for k, v in st["host"].items()}
+    rows = {k: (min(v), max(v), sum(v) / len(v))
+            for k, v in st["rows"].items()}
+    post = {k: sum(v) / n for k, v in st["postings"].items()}
+    idle = profile_batch(client, bodies[profiled])
+    rels = Counter(r["hits"]["total"]["relation"] for r in resps)
+    log(f"  {name}: queries={n} batch={BATCH} wall_s={wall:.2f} "
+        f"qps={n / wall:.1f} batch_ms_p50={np.percentile(lat, 50):.1f} "
+        f"batch_ms_p99={np.percentile(lat, 99):.1f} kernel launches "
+        f"B1={counts['launches']} B2={counts['impact_launches']} "
+        f"B3={counts['bool_launches']} plain_calls={counts['plain_calls']}"
+        f" rungs " + " ".join(f"{k}={v}" for k, v in rungs.items() if v)
+        + f" relations={dict(rels)}; {n} pages == numpy brute force "
+        f"({t_oracle:.1f}s); 2 bodies card == CPU ({t_cpu:.1f}s)")
+    log(f"  {name}: per body: expansion host ms " + " ".join(
+        f"{k}={v:.3f}" for k, v in sorted(host.items()))
+        + "; rows (min, max, mean over segments) " + " ".join(
+        f"{k}={v[0]}/{v[1]}/{v[2]:.1f}" for k, v in sorted(rows.items()))
+        + "; postings " + " ".join(
+        f"{k}={v:.0f}" for k, v in sorted(post.items()))
+        + "; event ms " + " ".join(
+        f"{k}={v:.4f}" for k, v in sorted(ev.items())))
+    return {"qps": n / wall, "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99)), "batch_ms": lat,
+            "counts": counts, "rungs": rungs, "expand_host_ms": host,
+            "rows": rows, "postings": post, "event_ms": ev,
+            "idle_share_one_batch": idle}
+
+
+def phase_expand_msmarco(big: dict, n: int) -> dict:
+    """Phase 12 over phase 7's end state (the corpus segment with 64
+    deletes, the re-indexed docs' segment): every class on the general
+    path (no fused kernel serves an expansion in scoring position, and
+    none serves a segment with deletes)."""
+    client = big["client"]
+    cpu = twin_of(client._indices["bench"].engine)
+    out = {}
+    for name, items in expand_classes(big, n).items():
+        out[name] = r = run_expand_class(client, name, items, big["ix"], cpu)
+        c = r["counts"]
+        if r["rungs"]["general"] == 0 or c["plain_calls"] or any(
+                c[k] for k in ("launches", "impact_launches",
+                               "bool_launches")):
+            raise AssertionError(f"{name}: not on the general path alone: "
+                                 f"{r}")
+    return out
+
+
+def phase_expand_filter_merged(big: dict, n: int) -> dict:
+    """Phase 12's filter class on phase 8's merged segment: B3 (the filter
+    as a slot or a probe, filter-specialized postings from a dense
+    filter's second use) or the pruned ladder over the filtered view."""
+    client = big["client"]
+    # the dense filter once: card == CPU and the profile on prefix-filter
+    # bodies (see filter_classes)
+    out = run_expand_class(client, "bool_expanded_filter (merged segment)",
+                           filter_classes(big, n), big["ix"],
+                           twin_of(client._indices["bench"].engine),
+                           rtol=9 * 2.0**-23, cpu_bodies=(1, 3),
+                           profiled=slice(1, None))
+    c = out["counts"]
+    if not (c["bool_launches"] or c["launches"]) or c["plain_calls"] \
+            or out["rungs"]["general"]:
+        raise AssertionError(f"bool_expanded_filter: not on the kernels: "
+                             f"{out}")
+    return out
+
+
+# ---------------------------------------------------------------------
 # phase 8: deletes, updates and a forced merge at MS MARCO passage scale
 # ---------------------------------------------------------------------
 
@@ -4396,7 +4786,7 @@ def main() -> int:
     # phase 5 ran 2,048 queries before phase 6 shared the time limit,
     # 1,024 before phase 8 did; phase 7 ran 64 bodies a class before
     # phase 8 did, 32 before phase 11 did
-    ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--queries", type=int, default=128)
     ap.add_argument("--bool-queries", type=int, default=1024)
     ap.add_argument("--general-queries", type=int, default=16,
                     help="phase-7 bodies per class")
@@ -4410,10 +4800,12 @@ def main() -> int:
     ap.add_argument("--sort-queries", type=int, default=16,
                     help="phase-11 bodies per class (the chains of (b) "
                     "and (c) add 4 pages each)")
+    ap.add_argument("--expand-queries", type=int, default=8,
+                    help="phase-12 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 11; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 8); no result line")
+                    help="end after this phase (3 to 12; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4486,7 +4878,7 @@ def main() -> int:
             f"command line")
     if args.queries < 2048:
         log(f"  cut: {args.queries} match queries (2048 uncut), so that "
-            f"phases 6-8 fit the same time limit")
+            f"phases 6-12 fit the same time limit")
     big = phase_msmarco(args.ndocs, args.queries)
     if args.stop_after == 5:
         return 0
@@ -4531,6 +4923,14 @@ def main() -> int:
     if args.stop_after == 11:
         return 0
 
+    log(f"[12] term-expanding queries and keyword ranges (prefix, "
+        f"wildcard, regexp, fuzzy, fuzzy match, match_bool_prefix) at MS "
+        f"MARCO passage scale (ndocs={args.ndocs}), on phase 7's end "
+        f"state; the expanded-filter class after phase 8" + at(t_start))
+    expand = phase_expand_msmarco(big, args.expand_queries)
+    if args.stop_after == 12:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
@@ -4541,6 +4941,12 @@ def main() -> int:
         + at(t_start))
     sort["classes"]["f_snippets"] = phase_snippets_merged(
         big, args.sort_queries)
+    log("[12f] phase 12's bool with an expanded filter, on phase 8's "
+        "merged segment (the kernels decline a segment with deletes)"
+        + at(t_start))
+    expand["bool_expanded_filter"] = phase_expand_filter_merged(
+        big, args.expand_queries)
+    xf = expand["bool_expanded_filter"]["counts"]
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -4549,6 +4955,7 @@ def main() -> int:
         "launches": big["tfdl_launches"],
         "launches_results_page": sort["classes"]["f_snippets"]["launches"]
         .get("launches", 0),
+        "launches_expanded_filter": xf["launches"],
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -4567,6 +4974,7 @@ def main() -> int:
         "source": "opensearch_tpu_torch/csrc/bm25_bool.cu",
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:570",
         "launches": bools["bool_launches"],
+        "launches_expanded_filter": xf["bool_launches"],
         "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
                            egrid["max_abs_err"], bools["max_abs_err"]),
         **times(bools["b3"]), "bound_by": "bytes",
@@ -4595,6 +5003,9 @@ def main() -> int:
     print(json.dumps({"aggs": aggs}), flush=True)
     print(json.dumps({"writes": writes}), flush=True)
     print(json.dumps({"results_page": sort}), flush=True)
+    print(json.dumps({"expand": {k: {kk: vv for kk, vv in v.items()
+                                     if kk != "batch_ms"}
+                                 for k, v in expand.items()}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

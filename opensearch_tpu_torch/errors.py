@@ -1,4 +1,6 @@
-"""Errors of the port's own (no counterpart in opensearch_tpu)."""
+"""The port's errors: `NotPortedError` (its own), and copies of the
+reference's cluster-state errors (opensearch_tpu/cluster/state.py), which
+its client raises for a missing or an existing index."""
 
 
 class NotPortedError(NotImplementedError):
@@ -9,3 +11,15 @@ class NotPortedError(NotImplementedError):
     def __init__(self, what: str):
         super().__init__(f"{what} is not ported to opensearch_tpu_torch yet")
         self.what = what
+
+
+class ClusterStateError(Exception):
+    pass
+
+
+class IndexNotFoundError(ClusterStateError):
+    """HTTP 404 analog."""
+
+
+class ResourceAlreadyExistsError(ClusterStateError):
+    """HTTP 400 analog of ResourceAlreadyExistsException."""

@@ -122,6 +122,8 @@ def coerce_value(ft: "FieldType", value: Any):
         return 1 if bool(value) else 0
     if t in FLOAT_TYPES:
         return float(value)
+    if t not in _INT_BITS:
+        raise ValueError(f"cannot coerce for type [{t}]")
     iv = int(value)
     bits = _INT_BITS[t]
     if not (-(1 << bits)) <= iv < (1 << bits):

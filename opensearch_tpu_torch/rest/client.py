@@ -8,6 +8,10 @@ client's device: a card unless the caller asks for the CPU. With a
 `<data_path>/<index>/index_meta.json` and its shard (translog, segments,
 commit point) under `<data_path>/<index>/0`, and a client opened on the
 same path recovers every index found there.
+
+A missing index raises `IndexNotFoundError` and creating an existing one
+`ResourceAlreadyExistsError` (`errors.py`), where the reference's client
+raises them; msearch turns a missing index into its per-body error entry.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch
 
 from ..analysis import AnalysisRegistry
 from ..device import resolve_device
-from ..errors import NotPortedError
+from ..errors import (IndexNotFoundError, NotPortedError,
+                      ResourceAlreadyExistsError)
 from ..index.engine import Engine, VersionConflictError
 from ..index.mappings import Mappings
 from ..models.similarity import resolve_similarity
@@ -119,8 +124,7 @@ class RestClient:
             return next(iter(self._indices.values()))
         svc = self._indices.get(index)
         if svc is None:
-            raise ApiError(404, "index_not_found_exception",
-                           f"no such index [{index}]")
+            raise IndexNotFoundError(f"no such index [{index}]")
         return svc
 
     def _svc_for_write(self, index: str) -> IndexService:
@@ -164,7 +168,7 @@ class RestClient:
         try:
             self.get(index, id, routing)
             return True
-        except ApiError:
+        except (ApiError, IndexNotFoundError):
             return False
 
     def mget(self, body: dict, index: Optional[str] = None) -> dict:
@@ -173,7 +177,7 @@ class RestClient:
             idx = spec.get("_index", index)
             try:
                 docs.append(self.get(idx, spec["_id"], spec.get("routing")))
-            except ApiError:
+            except (ApiError, IndexNotFoundError):
                 docs.append({"_index": idx, "_id": spec["_id"],
                              "found": False})
         return {"docs": docs}
@@ -296,7 +300,9 @@ class RestClient:
 
     def msearch(self, body: List[dict], index: Optional[str] = None) -> dict:
         """Alternating header / body dicts. Bodies that name one index run
-        as one batch: one kernel launch per shape group and segment."""
+        as one batch: one kernel launch per shape group and segment. A
+        missing index or a body that fails to parse gets the reference's
+        per-body error entry."""
         pairs = []
         for i in range(0, len(body), 2):
             pairs.append((body[i].get("index", index or "_all"),
@@ -306,7 +312,12 @@ class RestClient:
             raise NotPortedError("an msearch over several indices")
         if not pairs:
             return {"took": 0, "responses": []}
-        svc = self._svc(names.pop())
+        try:
+            svc = self._svc(names.pop())
+        except IndexNotFoundError as e:
+            return {"took": 0, "responses": [
+                {"error": {"type": type(e).__name__, "reason": str(e)}}
+                for _ in pairs]}
         responses = msearch_batched([svc.searcher], [b for _, b in pairs],
                                     index_name=svc.name)
         return {"took": 0, "responses": responses}
@@ -318,8 +329,8 @@ class IndicesClient:
 
     def create(self, index: str, body: Optional[dict] = None) -> dict:
         if index in self.c._indices:
-            raise ApiError(400, "resource_already_exists_exception",
-                           f"index [{index}] already exists")
+            raise ResourceAlreadyExistsError(
+                f"index [{index}] already exists")
         svc = IndexService(index, body, self.c.device, self.c.data_path)
         self.c._indices[index] = svc
         if self.c.data_path is not None:

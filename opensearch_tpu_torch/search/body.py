@@ -90,10 +90,10 @@ def check_body(body: dict) -> int:
         raise dsl.QueryParseError(
             f"[track_total_hits] must be a boolean or an integer, got "
             f"[{track}]")
+    # a negative size or from is served as the reference serves it (its
+    # window and page slices run with the negative bound)
     size = int(body.get("size", 10))
     frm = int(body.get("from", 0))
-    if size < 0 or frm < 0:
-        raise dsl.QueryParseError("[from] and [size] must be >= 0")
     norm_sort_specs(body)
     collapse = body.get("collapse")
     if collapse is not None and (not isinstance(collapse, dict)

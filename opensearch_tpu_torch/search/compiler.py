@@ -10,10 +10,16 @@ x boost, f32) and minimum should match; on a numeric field it becomes an
 `LRange` (terms: a bool of them): exact i64 on an integer, long, date or
 boolean field, f32 on a double or float field (a `match` on a date field
 analyzes its text, as in the reference). A date bound parses as the
-field's dates do (`index/mappings._parse_date`); a `range` on a keyword
-field raises `NotPortedError`. A match whose terms
+field's dates do (`index/mappings._parse_date`); a `range` on any other
+field type raises the reference's `ValueError`. A match whose terms
 analyze away, a range on an unmapped field, or `match_none` becomes
 `LMatchNone`; `match_all` `LMatchAll`, `exists` `LExists`, `ids` `LIds`.
+`prefix`, `wildcard`, `regexp`, `fuzzy` and a `range` on a keyword field
+become `LExpandTerms` over the reference's host expanders (the regexp DFA
+and the fuzzy edit distance run as torch ops over the dictionary's
+codepoint matrix, `search/regexp.py`); a `match` with `fuzziness` an
+`LBool` of one fuzzy `LExpandTerms` per term, and `match_bool_prefix` an
+`LBool` of term groups and a prefix expansion of the last term.
 A `match_phrase`, a `match_phrase_prefix`, a `span_near` of `span_term`s
 on one field and an `intervals` lone `match` rule of two terms or more
 become `LPhrase` (one term: a term group, or for a prefix an
@@ -37,6 +43,7 @@ and the impact rung decline.
 from __future__ import annotations
 
 import datetime as _dt
+import fnmatch
 import re
 import zlib
 from bisect import bisect_left, bisect_right
@@ -57,16 +64,19 @@ from ..ops import scoring as ops
 from .aggregations import STATS_FAMILY
 from ..ops.bm25 import LANES
 from . import query_dsl as dsl
+from . import regexp as rx
 
 
 class ShardContext:
     """Index-wide view used during rewrite (reference QueryShardContext)."""
 
     def __init__(self, mappings: Mappings, segments: List[Segment],
-                 similarity=None):
+                 similarity=None, device=None):
         self.mappings = mappings
         self.segments = segments
         self.default_sim = resolve_similarity(similarity)
+        # where the expanders' device passes run: the engine's device
+        self.device = torch.device("cpu") if device is None else device
 
     def sim_for(self, field: str) -> Similarity:
         return self.default_sim
@@ -116,13 +126,23 @@ class LTerms(LNode):
 
 @dataclass
 class LExpandTerms(LNode):
-    """A term expansion, rows resolved per segment by `expander(segment)
-    -> rows`: constant score, as Lucene's MultiTermQuery CONSTANT_SCORE
-    rewrite. Only the prefix expander is ported."""
+    """A multi-term expansion (prefix, wildcard, regexp, fuzzy, a keyword
+    range, a phrase's lone prefix term): the dictionary rows of its terms
+    over a segment, from `expander(segment) -> i32 rows`, resolved once
+    per segment (`rows`) whoever asks (the emit, the filter mask and its
+    key); constant score, as Lucene's MultiTermQuery CONSTANT_SCORE
+    rewrite."""
 
     field: str = ""
     expander: Optional[Callable[[Segment], np.ndarray]] = None
     boost: float = 1.0
+    _rows: dict = dc_field(default_factory=dict, repr=False, compare=False)
+
+    def rows(self, seg: Segment) -> np.ndarray:
+        got = self._rows.get(seg.uid)
+        if got is None:
+            got = self._rows[seg.uid] = self.expander(seg)
+        return got
 
 
 @dataclass
@@ -243,8 +263,16 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
         if not terms:
             return LMatchNone()
         if q.fuzziness is not None:
-            raise NotPortedError("match [fuzziness] (a bool plan of "
-                                 "expanded terms)")
+            # one constant-score expansion per term (the reference's)
+            expanded: List[LNode] = [
+                LExpandTerms(field=field,
+                             expander=_fuzzy_expander(field, t, q.fuzziness,
+                                                      0, ctx.device),
+                             boost=q.boost) for t in terms]
+            msm = len(expanded) if q.operator == "and" else \
+                dsl.parse_minimum_should_match(q.minimum_should_match,
+                                               len(expanded)) or 1
+            return LBool(shoulds=expanded, msm=msm, boost=1.0)
         msm = len(terms) if q.operator == "and" else \
             dsl.parse_minimum_should_match(q.minimum_should_match,
                                            len(terms)) or 1
@@ -252,6 +280,22 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
         # msm count
         return _weighted_terms(field, terms, [1.0] * len(terms), ctx, msm,
                                "score", q.boost)
+
+    if isinstance(q, dsl.MatchBoolPrefixQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        field = ft.name if ft else q.field
+        terms = _analyze_query_text(field, q.query, ctx, q.analyzer)
+        if not terms:
+            return LMatchNone()
+        children: List[LNode] = [
+            _weighted_terms(field, [t], [1.0], ctx, 1, "score", q.boost)
+            for t in terms[:-1]]
+        children.append(LExpandTerms(
+            field=field, expander=_prefix_expander(field, terms[-1], False,
+                                                   cap=50),
+            boost=q.boost))
+        msm = len(children) if q.operator == "and" else 1
+        return LBool(shoulds=children, msm=msm, boost=1.0)
 
     if isinstance(q, dsl.MatchPhraseQuery):
         ft = ctx.mappings.resolve_field(q.field)
@@ -266,7 +310,8 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
         if len(terms) == 1:
             return LExpandTerms(field=field,
                                 expander=_prefix_expander(
-                                    field, terms[0], q.max_expansions),
+                                    field, terms[0], False,
+                                    cap=q.max_expansions),
                                 boost=q.boost)
         return _phrase_node(field, terms, q.slop, ctx, q.boost,
                             prefix_last=q.prefix,
@@ -338,9 +383,12 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
         ft = ctx.mappings.resolve_field(q.field)
         if ft is None:
             return LMatchNone()
-        if ft.type not in NUMERIC_TYPES:
-            raise NotPortedError(f"[range] on field [{ft.name}] of type "
-                                 f"[{ft.type}]")
+        if ft.type in KEYWORD_TYPES:
+            return LExpandTerms(field=ft.name,
+                                expander=_keyword_range_expander(ft.name, q),
+                                boost=q.boost)
+        # any other type goes the numeric way: a bound on a text field
+        # raises the reference's ValueError in `coerce_value`
         lo = hi = None
         inc_lo = inc_hi = True
         if q.gte is not None:
@@ -363,6 +411,29 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
 
     if isinstance(q, dsl.ConstantScoreQuery):
         return LConstScore(child=rewrite(q.filter, ctx, False), boost=q.boost)
+
+    if isinstance(q, dsl.PrefixQuery):
+        return LExpandTerms(field=q.field,
+                            expander=_prefix_expander(q.field, q.value,
+                                                      q.case_insensitive),
+                            boost=q.boost)
+    if isinstance(q, dsl.WildcardQuery):
+        return LExpandTerms(field=q.field,
+                            expander=_wildcard_expander(q.field, q.value,
+                                                        q.case_insensitive),
+                            boost=q.boost)
+    if isinstance(q, dsl.RegexpQuery):
+        return LExpandTerms(field=q.field,
+                            expander=_regexp_expander(q.field, q.value,
+                                                      ctx.device),
+                            boost=q.boost)
+    if isinstance(q, dsl.FuzzyQuery):
+        return LExpandTerms(field=q.field,
+                            expander=_fuzzy_expander(q.field, q.value,
+                                                     q.fuzziness,
+                                                     q.prefix_length,
+                                                     ctx.device),
+                            boost=q.boost)
 
     raise NotPortedError(f"query [{type(q).__name__}]")
 
@@ -439,13 +510,114 @@ def _prefix_rows(pb, term: str, cap: Optional[int] = None) -> range:
     return range(lo, hi)
 
 
-def _prefix_expander(field: str, prefix: str, cap: Optional[int] = None):
+# ---------------------------------------------------------------------
+# multi-term expanders: a segment's dictionary rows (the reference's
+# host expanders; the regexp DFA and the fuzzy edit distance as torch
+# ops over the dictionary's codepoint matrix)
+# ---------------------------------------------------------------------
+
+def _prefix_expander(field: str, prefix: str, ci: bool,
+                     cap: Optional[int] = None):
     def expand(seg: Segment) -> np.ndarray:
         pb = seg.postings.get(field)
         if pb is None:
             return np.empty(0, np.int32)
+        if ci:
+            low = prefix.lower()
+            rows = [i for i, t in enumerate(pb.vocab)
+                    if t.lower().startswith(low)]
+            return np.asarray(rows[:cap] if cap is not None else rows,
+                              np.int32)
         r = _prefix_rows(pb, prefix, cap)
         return np.arange(r.start, r.stop, dtype=np.int32)
+    return expand
+
+
+def _wildcard_expander(field: str, pattern: str, ci: bool):
+    """`fnmatch` over the dictionary, as the reference has it: `[...]` is
+    a character class there (Lucene reads `[` literally)."""
+    def expand(seg: Segment) -> np.ndarray:
+        pb = seg.postings.get(field)
+        if pb is None:
+            return np.empty(0, np.int32)
+        pat = pattern.lower() if ci else pattern
+        rows = [i for i, t in enumerate(pb.vocab)
+                if fnmatch.fnmatchcase(t.lower() if ci else t, pat)]
+        return np.asarray(rows, np.int32)
+    return expand
+
+
+def vocab_matrix_on(seg: Segment, field: str, device) -> tuple:
+    """The codepoint matrix of `field`'s dictionary on `device`
+    (`regexp.vocab_matrix`), cached per segment and field with the
+    general path's device arrays: a merge drops it with the segment."""
+    pb = seg.postings[field]
+    return seg.device_cached(("vocab_cp", field), device,
+                             lambda: rx.vocab_matrix(pb.vocab, device))
+
+
+def _regexp_expander(field: str, pattern: str, device):
+    """Full Lucene regexp syntax; a bad pattern raises the parse error
+    once, here, not per segment."""
+    try:
+        rx.compile_regexp(pattern)
+    except rx.RegexpError as e:
+        raise dsl.QueryParseError(f"[regexp] {e}")
+
+    def expand(seg: Segment) -> np.ndarray:
+        pb = seg.postings.get(field)
+        if pb is None or not pb.vocab:
+            return np.empty(0, np.int32)
+        hits = rx.match_vocab(pattern, pb.vocab,
+                              vocab_matrix_on(seg, field, device))
+        return np.flatnonzero(hits).astype(np.int32)
+    return expand
+
+
+def _auto_fuzz(term: str, fuzziness) -> int:
+    if fuzziness in ("AUTO", "auto", None):
+        # Fuzziness.AUTO: 0 for < 3 chars, 1 for 3-5, 2 for more
+        return 0 if len(term) < 3 else (1 if len(term) <= 5 else 2)
+    return int(fuzziness)
+
+
+def _fuzzy_expander(field: str, term: str, fuzziness, prefix_length: int,
+                    device):
+    """The rows within `fuzziness` edits of `term` (optimal string
+    alignment, the reference's `_edit_distance_le`) that start with its
+    first `prefix_length` chars: one DP over the dictionary's codepoint
+    matrix (`regexp.osa_within`), no per-term loop."""
+    k = None
+
+    def expand(seg: Segment) -> np.ndarray:
+        nonlocal k
+        if k is None:
+            k = _auto_fuzz(term, fuzziness)
+        pb = seg.postings.get(field)
+        if pb is None or not pb.vocab:
+            return np.empty(0, np.int32)
+        mat, lens = vocab_matrix_on(seg, field, device)
+        hits = rx.osa_within(mat, lens, term, k, term[:prefix_length])
+        return torch.nonzero(hits).flatten().to(torch.int32).cpu().numpy()
+    return expand
+
+
+def _keyword_range_expander(field: str, q: dsl.RangeQuery):
+    def expand(seg: Segment) -> np.ndarray:
+        pb = seg.postings.get(field)
+        if pb is None:
+            return np.empty(0, np.int32)
+        lo = 0
+        hi = len(pb.vocab)
+        if q.gte is not None:
+            lo = bisect_left(pb.vocab, str(q.gte))
+        if q.gt is not None:
+            lo = bisect_right(pb.vocab, str(q.gt))
+        if q.lte is not None:
+            hi = bisect_right(pb.vocab, str(q.lte))
+        if q.lt is not None:
+            hi = bisect_left(pb.vocab, str(q.lt))
+        return np.arange(lo, max(hi, lo), dtype=np.int32)
     return expand
 
 
@@ -651,12 +823,14 @@ def phrase_freq(node: LPhrase, seg: Segment,
 
 
 def reference_param_bytes(node: LNode, seg: Segment) -> int:
-    """Bytes of the pair arrays the reference ships for the phrases of a
-    filter clause over `seg` (pairs padded to its pow4 buckets, 8 bytes
-    a pair, and the phrase's scalars); its fastpath declines a filter
-    whose parameters exceed FILTER_HASH_BYTE_CAP. Phrases in the clause's
-    scoring children count; other parameters are a few bytes each and
-    are not counted."""
+    """Bytes of the arrays the reference ships for the phrases and
+    expansions of a filter clause over `seg`; its fastpath declines a
+    filter whose parameters exceed FILTER_HASH_BYTE_CAP. A phrase ships
+    its pairs padded to the reference's pow4 buckets (8 bytes a pair) and
+    its scalars; an expansion its rows padded to a power of two (4 bytes
+    a row) and its boost. Phrases and expansions in the clause's scoring
+    children count; a term group's rows and weights and a range's bounds
+    are a few bytes each and are not counted."""
     if isinstance(node, LPhrase):
         pb = seg.postings.get(node.field)
         if pb is None or pb.pos_starts is None:
@@ -673,6 +847,8 @@ def reference_param_bytes(node: LNode, seg: Segment) -> int:
                 bucket <<= 1
             total += 8 * bucket
         return total
+    if isinstance(node, LExpandTerms):
+        return 4 * next_pow2(max(len(node.rows(seg)), 1), floor=1) + 4
     if isinstance(node, LBool):
         return sum(reference_param_bytes(c, seg)
                    for c in node.musts + node.shoulds)
@@ -731,7 +907,7 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
         post = field_postings(seg, node.field, device)
         if post is None:
             return ops.ScoredMask(zeros, zeros)
-        rows = node.expander(seg).tolist() or [-1]
+        rows = node.rows(seg).tolist() or [-1]
         return _flag(ops.term_match_mask(post, live, rows, nd), node.boost)
     if isinstance(node, LMatchAll):
         return _flag(live, node.boost)

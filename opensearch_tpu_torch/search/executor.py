@@ -117,7 +117,7 @@ class ShardSearcher:
                 ) -> C.ShardContext:
         return C.ShardContext(self.engine.mappings,
                               self.engine.segments if segments is None
-                              else segments, self.similarity)
+                              else segments, self.similarity, self.device)
 
     def plan(self, body: dict, ctx: C.ShardContext) -> Optional[Plan]:
         """-> the Plan of a body, or None for a plan with no hits and no

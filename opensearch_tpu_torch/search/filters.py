@@ -68,7 +68,7 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
         return ("phrase", node.field, tuple(rows), node.slop, node.ordered,
                 node.gap_cost)
     if isinstance(node, C.LExpandTerms):
-        return ("xterms", node.field, tuple(node.expander(seg).tolist()))
+        return ("xterms", node.field, tuple(node.rows(seg).tolist()))
     if isinstance(node, C.LRange):
         return ("range", node.field, node.kind, node.include_lo,
                 node.include_hi, node.field in seg.numeric_cols,
@@ -138,7 +138,7 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
             return torch.zeros(nd, dtype=torch.bool, device=device)
         return ops.term_match_mask(post, torch.ones(nd, dtype=torch.bool,
                                                     device=device),
-                                   node.expander(seg).tolist() or [-1], nd)
+                                   node.rows(seg).tolist() or [-1], nd)
     if isinstance(node, C.LRange):
         mask = range_mask(node, seg, device)
         return (torch.zeros(nd, dtype=torch.bool, device=device)

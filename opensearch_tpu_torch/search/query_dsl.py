@@ -1,11 +1,13 @@
 """Query DSL parsing for the query kinds the port serves (the match_all,
-match_none, term, terms, match, match_phrase, match_phrase_prefix,
-span_term, span_near, intervals, bool, constant_score, range, exists and
-ids subset of opensearch_tpu/search/query_dsl.py). A body without a query
-is `match_all`.
+match_none, term, terms, match, match_bool_prefix, match_phrase,
+match_phrase_prefix, span_term, span_near, intervals, bool,
+constant_score, range, exists, ids, prefix, wildcard, regexp and fuzzy
+subset of opensearch_tpu/search/query_dsl.py). A body without a query is
+`match_all`.
 
-Any other query kind raises `NotPortedError` naming it; malformed bodies
-raise `QueryParseError` (HTTP 400), as in the reference.
+Another kind the reference parses raises `NotPortedError` naming it; a
+kind it does not know, and malformed bodies, raise `QueryParseError`
+(HTTP 400), as in the reference.
 """
 
 from __future__ import annotations
@@ -130,6 +132,44 @@ class RangeQuery(Query):
     gt: Any = None
     lte: Any = None
     lt: Any = None
+    date_format: Optional[str] = None  # parsed; the rewrite does not read it
+    relation: str = "intersects"       # range-field targets only
+
+
+@dataclass
+class PrefixQuery(Query):
+    field: str = ""
+    value: str = ""
+    case_insensitive: bool = False
+
+
+@dataclass
+class WildcardQuery(Query):
+    field: str = ""
+    value: str = ""
+    case_insensitive: bool = False
+
+
+@dataclass
+class RegexpQuery(Query):
+    field: str = ""
+    value: str = ""
+
+
+@dataclass
+class FuzzyQuery(Query):
+    field: str = ""
+    value: str = ""
+    fuzziness: Any = "AUTO"
+    prefix_length: int = 0
+
+
+@dataclass
+class MatchBoolPrefixQuery(Query):
+    field: str = ""
+    query: Any = None
+    operator: str = "or"
+    analyzer: Optional[str] = None
 
 
 @dataclass
@@ -269,12 +309,11 @@ def parse_query(dsl: Optional[dict]) -> Query:
 
     if kind == "range":
         f, spec = _one_entry(body, "range")
-        for key in ("format", "relation", "time_zone"):
-            if key in spec:
-                raise NotPortedError(f"[range] option [{key}]")
         q = RangeQuery(field=f, gte=spec.get("gte", spec.get("from")),
                        gt=spec.get("gt"), lte=spec.get("lte", spec.get("to")),
-                       lt=spec.get("lt"))
+                       lt=spec.get("lt"), date_format=spec.get("format"),
+                       relation=str(spec.get("relation",
+                                             "intersects")).lower())
         _common(q, spec)
         return q
 
@@ -283,7 +322,54 @@ def parse_query(dsl: Optional[dict]) -> Query:
         _common(q, body)
         return q
 
-    raise NotPortedError(f"query [{kind}]")
+    if kind == "match_bool_prefix":
+        f, spec = _one_entry(body, "match_bool_prefix")
+        if isinstance(spec, dict):
+            q = MatchBoolPrefixQuery(field=f, query=spec.get("query"),
+                                     operator=str(spec.get("operator",
+                                                           "or")).lower(),
+                                     analyzer=spec.get("analyzer"))
+            _common(q, spec)
+        else:
+            q = MatchBoolPrefixQuery(field=f, query=spec)
+        return q
+
+    if kind in ("prefix", "wildcard", "regexp", "fuzzy"):
+        f, spec = _one_entry(body, kind)
+        if isinstance(spec, dict):
+            value = spec.get("value", spec.get(kind))
+            ci = spec.get("case_insensitive", False)
+        else:
+            value, ci, spec = spec, False, {}
+        if kind == "prefix":
+            q = PrefixQuery(field=f, value=str(value), case_insensitive=ci)
+        elif kind == "wildcard":
+            q = WildcardQuery(field=f, value=str(value), case_insensitive=ci)
+        elif kind == "regexp":
+            q = RegexpQuery(field=f, value=str(value))
+        else:
+            q = FuzzyQuery(field=f, value=str(value),
+                           fuzziness=spec.get("fuzziness", "AUTO"),
+                           prefix_length=int(spec.get("prefix_length", 0)))
+        _common(q, spec)
+        return q
+
+    if kind in REFERENCE_KINDS:
+        raise NotPortedError(f"query [{kind}]")
+    raise QueryParseError(f"unknown query [{kind}]")
+
+
+# the other kinds the reference parses (opensearch_tpu/search/query_dsl.py
+# `parse_query`); any kind outside them and the port's is unknown there too
+REFERENCE_KINDS = frozenset((
+    "multi_match", "terms_set", "combined_fields", "wrapper", "pinned",
+    "span_or", "span_not", "span_first", "span_containing", "span_within",
+    "span_multi", "field_masking_span", "boosting", "dis_max",
+    "query_string", "simple_query_string", "geo_distance",
+    "geo_bounding_box", "geo_polygon", "geo_shape", "more_like_this",
+    "function_score", "script", "script_score", "knn", "nested",
+    "has_child", "has_parent", "parent_id", "rank_feature",
+    "distance_feature", "neural_sparse", "hybrid", "percolate"))
 
 
 _INTERVAL_RULES = ("match", "prefix", "wildcard", "fuzzy", "all_of",

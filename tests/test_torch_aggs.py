@@ -128,6 +128,37 @@ def test_histogram_counts(data, interval, offset):
                                   want.astype(np.int64))
 
 
+def test_histogram_edges_against_the_reference_served_path():
+    """The reference's served program folds the bucket division into a
+    multiply by f32(1 / interval) (XLA-CPU, the interval a constant of
+    its jitted spec); the port divides, as numpy, the reference's
+    function run eagerly and OpenSearch's floor((value - offset) /
+    interval) do (ROADMAP Queue 3, kept). Integer prices -20..59,
+    interval 7, offset 3, through both RestClients: -18 falls in bucket
+    -25 in the reference (-21 x f32(1/7) = -3.0000002) and in -18 in the
+    port; every other bucket is equal."""
+    got = []
+    for c in (RefClient(), RestClient(device="cpu")):
+        c.indices.create("h", {"settings": {"number_of_replicas": 0},
+                               "mappings": {"properties": {
+                                   "price": {"type": "integer"}}}})
+        c.bulk(sum([[{"index": {"_index": "h", "_id": str(v)}},
+                     {"price": v}] for v in range(-20, 60)], []),
+               refresh=True)
+        r = c.search("h", {"size": 0, "aggs": {"h": {"histogram": {
+            "field": "price", "interval": 7, "offset": 3}}}})
+        got.append({b["key"]: b["doc_count"]
+                    for b in r["aggregations"]["h"]["buckets"]})
+    ref, port = got
+    assert ref[-25.0] == 3 and ref[-18.0] == 6
+    assert port[-25.0] == 2 and port[-18.0] == 7
+    assert port[-25.0] == sum(1 for v in range(-20, 60)
+                              if np.floor((v - 3) / 7) * 7 + 3 == -25)
+    assert {k: v for k, v in ref.items() if k not in (-25.0, -18.0)} \
+        == {k: v for k, v in port.items() if k not in (-25.0, -18.0)}
+    assert sum(port.values()) == sum(ref.values()) == 80
+
+
 def test_range_counts_and_stats(data):
     d = data
     lows = np.array([-np.inf, -100.0, 0.1, 250.0], np.float32)

@@ -539,7 +539,8 @@ UNPORTED = [
      r"intervals \[filter\] \[not_containing\]"),
     ({"multi_match": {"query": "quick brown", "fields": ["body"],
                       "type": "phrase"}}, "multi_match"),
-    ({"prefix": {"body": "qu"}}, r"query \[prefix\]"),
+    ({"query_string": {"query": "quick", "default_field": "body"}},
+     r"query \[query_string\]"),
 ]
 
 

@@ -269,11 +269,18 @@ def test_score_term_group_matches_reference(clients):
         "loc": [0.0, 0.0]}}]}, "_geo_distance"),
     ({"query": {"match": {"body": "the"}}, "rescore": {"window_size": 5}},
      "rescore"),
-    ({"query": {"match": {"body": {"query": "the",
-                                   "fuzziness": 1}}}}, "fuzziness"),
 ])
 def test_unported_shapes_raise(clients, body, names):
-    _, port = clients
+    """Unported shapes raise NotPortedError naming them; a `range` on a
+    text field (it raised NotPortedError before keyword ranges were
+    ported) raises the reference's ValueError in both packages."""
+    _ref, port = clients
+    if names == "range":
+        for c in clients:
+            with pytest.raises(ValueError,
+                               match=r"cannot coerce for type \[text\]"):
+                c.search("t", body)
+        return
     with pytest.raises(NotPortedError) as e:
         port.search("t", body)
     assert names in str(e.value)
@@ -288,12 +295,14 @@ def test_unported_shapes_raise(clients, body, names):
     {"query": {"match_all": {}}, "from": 100, "size": 29,
      "search_after": [1.0]},
     {"query": {"match": {"body": "the"}}, "sort": ["_doc"]},
+    {"query": {"match": {"body": {"query": "the", "fuzziness": 1}}}},
 ])
 def test_formerly_unported_shapes_match_reference(clients, body):
     """A nested bool, a window past MAX_K, a nested phrase, a
-    search_after cursor and a `_doc` sort: the fast path declines them
-    (they raised before the general path, the phrase slice and sort were
-    ported), the general path serves the reference's response."""
+    search_after cursor, a `_doc` sort and a fuzzy match: the fast path
+    declines them (they raised before the general path, the phrase
+    slice, sort and the term expansions were ported), the general path
+    serves the reference's response."""
     ref, port = clients
     ctx = port._indices["t"].searcher.context()
     assert fastpath.make_spec(C.rewrite(dsl.parse_query(body["query"]), ctx),
@@ -377,6 +386,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "r = c.search('t', {'query': {'bool': {\n"
         "    'must': [{'match': {'body': 'hello'}}],\n"
         "    'filter': [{'range': {'n': {'gte': 1}}}]}}})\n"
+        "for q in ({'regexp': {'body': 'hel.*'}}, {'fuzzy': {'body': 'helo'}}):\n"
+        "    assert c.search('t', {'query': q})['hits']['total']['value'] == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'opensearch_tpu' or "
         "m.startswith('opensearch_tpu.'))\n"
@@ -401,3 +412,94 @@ def test_bench_corpus_matches_bench_py():
                                   bench.pick_queries(df, 64))
     np.testing.assert_array_equal(bench_corpus.pick_queries_real(df, 64),
                                   bench.pick_queries_real(df, 64))
+
+
+# ---------------------------------------------------------------------
+# the reference's errors: unknown query kinds, missing and existing
+# indices, a negative size
+# ---------------------------------------------------------------------
+
+def test_unknown_query_kind_is_a_400_and_an_msearch_entry(clients):
+    """A kind the reference does not parse is its parse error: 400 from
+    `search`, a per-body entry in msearch (the other bodies served); a
+    kind it parses and the port does not still raises NotPortedError."""
+    from opensearch_tpu.rest.client import ApiError as RefApiError
+    from opensearch_tpu_torch import ApiError
+    ref, port = clients
+    body = {"query": {"bogus": {}}}
+    with pytest.raises(RefApiError) as rerr:
+        ref.search("t", body)
+    with pytest.raises(ApiError) as perr:
+        port.search("t", body)
+    assert (perr.value.status, perr.value.err_type, str(perr.value)) == (
+        rerr.value.status, rerr.value.err_type, str(rerr.value)) == (
+        400, "parsing_exception", "unknown query [bogus]")
+    lines = [{}, body, {}, {"query": {"match": {"body": "the"}}}]
+    got = port.msearch(lines, index="t")["responses"]
+    want = ref.msearch(lines, index="t")["responses"]
+    assert got[0] == want[0] == {"error": {
+        "type": "ApiError", "reason": "unknown query [bogus]"}}
+    assert_same_response(got[1], want[1])
+    with pytest.raises(NotPortedError, match=r"query \[query_string\]"):
+        port.search("t", {"query": {"query_string": {"query": "the"}}})
+
+
+@pytest.mark.parametrize("call", ["search", "msearch", "get", "index",
+                                  "create", "refresh", "flush", "delete",
+                                  "forcemerge", "exists", "mget"])
+def test_index_errors_match_the_reference(call):
+    """A missing index raises IndexNotFoundError and an existing one
+    ResourceAlreadyExistsError where the reference's client raises them
+    (its classes' names and messages; the port's own copies); msearch
+    gives the reference's per-body entry; index creates the index."""
+    from opensearch_tpu.cluster import state as ref_state
+    from opensearch_tpu_torch import errors
+    calls = {
+        "search": lambda c: c.search("nope", {}),
+        "msearch": lambda c: c.msearch([{}, {}, {"index": "nope"},
+                                        {"query": {"match_all": {}}}],
+                                       index="nope"),
+        "get": lambda c: c.get("nope", "1"),
+        "index": lambda c: c.index("new", {"body": "x"}, id="1")["result"],
+        "create": lambda c: c.indices.create("t"),
+        "refresh": lambda c: c.indices.refresh("nope"),
+        "flush": lambda c: c.indices.flush("nope"),
+        "delete": lambda c: c.delete("nope", "1"),
+        "forcemerge": lambda c: c.indices.forcemerge("nope"),
+        "exists": lambda c: c.exists("nope", "1"),
+        "mget": lambda c: c.mget({"docs": [{"_index": "nope", "_id": "1"}]}),
+    }
+
+    def run(c):
+        c.index("t", {"body": "hello"}, id="1", refresh=True)
+        try:
+            return ("ok", calls[call](c))
+        except (ref_state.ClusterStateError, errors.ClusterStateError) as e:
+            return (type(e).__name__, str(e))
+    got = run(RestClient(device="cpu"))
+    assert got == run(RefClient())
+    if call == "msearch":
+        assert got[1]["responses"] == 2 * [{"error": {
+            "type": "IndexNotFoundError", "reason": "no such index [nope]"}}]
+    elif call == "create":
+        assert got == ("ResourceAlreadyExistsError",
+                       "index [t] already exists")
+    elif call not in ("index", "exists", "mget"):
+        assert got == ("IndexNotFoundError", "no such index [nope]")
+
+
+@pytest.mark.parametrize("size,frm", [(-1, 0), (-3, 0), (-1, 2), (2, -1)])
+def test_negative_size_and_from_serve_the_reference_page(clients, size, frm):
+    """A negative size or from is no 400: both packages cut their
+    windows and pages with the negative bound (size -1 drops the last of
+    the shard's candidates), and the pages are equal."""
+    ref, port = clients
+    for q in ({"match": {"body": "the"}}, {"match_all": {}}):
+        body = {"query": q, "size": size, "from": frm}
+        assert_same_response(port.search("t", body), ref.search("t", body))
+    lines = [{}, {"query": {"match": {"body": "the"}}, "size": size,
+                  "from": frm}]
+    (got,) = port.msearch(lines, index="t")["responses"]
+    (want,) = ref.msearch(lines, index="t")["responses"]
+    assert_same_response(got, want)
+    assert len(got["hits"]["hits"]) == len(want["hits"]["hits"])
