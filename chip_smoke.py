@@ -5,7 +5,7 @@
                           [--general-queries G] [--phrase-queries P]
                           [--phrase-sloppy S] [--agg-queries A]
                           [--sort-queries R] [--expand-queries E]
-                          [--seed S]
+                          [--compound-queries C] [--seed S]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -108,6 +108,26 @@ Phases, each of which fails the script when it fails:
      with their rows and postings, the regexp DFA's and fuzzy DP's event
      ms, the gather + mask, term scatter and top-k event ms, one batch a
      class profiled;
+ 13. (run after 12, before 8) compound and multi-field queries over
+     phase 7's end state, --compound-queries bodies a class from mid-df
+     body terms and title pool bigrams, through RestClient.msearch: a
+     best_fields multi_match over title^2 and body (tie 0.3), a
+     most_fields one, a phrase one over a title bigram, a dis_max of a
+     body term and a title match (tie 0.7), a boosting of a 2-term
+     match by a status term (0.2), a combined_fields over body and
+     title^2, a terms_set of 4 high-df body terms whose minimum is each
+     doc's rating, a pinned query of 10 ids (a re-indexed one, a repeated
+     one, an absent one) over a 2-term match, a bool of two named
+     shoulds and a named price range; and, after phase 8 on the merged
+     segment, a single-field most_fields multi_match (B3), a 2-term
+     match must with a dis_max of a status term and a 1% price range and
+     a 10% price range in the filter (B3) and a base64 wrapper of a
+     2-term match (the pruned ladder); every page against a numpy brute force of the reference's
+     formulas (dis_max, the boosting product, BM25F, the terms_set
+     count, pins first) and each named hit's matched_queries, 2 bodies
+     a class on the card against the CPU, the event ms of the tf gather,
+     the dis_max and BM25F combines, the term scatter and the top-k, the
+     device's peak bytes, one batch a class profiled;
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 16 of phase 5's match bodies on the segments with deletes,
@@ -126,8 +146,8 @@ Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
-one with phase 11's, one with phase 12's, a line with the kernels'
-numbers and, last, the device line.
+one with phase 11's, one with phase 12's, one with phase 13's, a line
+with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -4377,6 +4397,471 @@ def phase_expand_filter_merged(big: dict, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------
+# phase 13: compound and multi-field queries, named queries
+# ---------------------------------------------------------------------
+
+def body_terms(ix, terms, boost: float = 1.0) -> tuple:
+    """BM25 of a body term group (term ids, query order) with `boost`
+    folded into each weight, f32(boost x idf): (scores f32[n], number of
+    the terms each doc holds i32[n]) over the counted docs."""
+    import math
+    score = np.zeros(ix.n, np.float32)
+    count = np.zeros(ix.n, np.int32)
+    for t in terms:
+        if boost == 1.0:
+            d, c = ix.contributions(t)
+        else:
+            d, tf = ix.row(t)
+            n, df = ix.n_stats, len(d)
+            w = np.float32(boost * math.log(1.0 + (n - df + 0.5)
+                                            / (df + 0.5)))
+            c = (w * tf) / (tf + K1 * (OMB + (B * ix.dl[d]) / ix.avgdl()))
+        score[d] += c
+        count[d] += 1
+    return score, count
+
+
+def title_rows_of(ix, t: str):
+    """(counted docs, tfs) of title term `t` (none where the title
+    vocabulary lacks it)."""
+    rows = ix.title_rows(t)
+    if not rows:
+        return np.zeros(0, np.int64), np.zeros(0, np.float32)
+    starts, docs_all, tfs_all = ix.title[:3]
+    a, b_ = int(starts[rows[0]]), int(starts[rows[0] + 1])
+    d, tf = docs_all[a:b_].astype(np.int64), tfs_all[a:b_]
+    if ix.n_stats != ix.n:
+        keep = ix.counted[d]
+        d, tf = d[keep], tf[keep]
+    return d, tf
+
+
+def title_terms(ix, terms, boost: float = 1.0) -> tuple:
+    """body_terms over the title field (term strings): every title holds
+    TITLE_DL tokens."""
+    import math
+    from opensearch_tpu_torch import bench_corpus as bc
+    avgdl, n = ix.title_stats()
+    k = K1 * (OMB + (B * np.float32(bc.TITLE_DL)) / avgdl)
+    score = np.zeros(ix.n, np.float32)
+    count = np.zeros(ix.n, np.int32)
+    for t in terms:
+        d, tf = title_rows_of(ix, t)
+        if len(d) == 0:
+            continue
+        w = np.float32(boost * math.log(1.0 + (n - len(d) + 0.5)
+                                        / (len(d) + 0.5)))
+        score[d] += (w * tf) / (tf + k)
+        count[d] += 1
+    return score, count
+
+
+def np_dismax(parts, tie: float, boost: float) -> tuple:
+    """dis_max of children's (scores zero where unmatched, matched): the
+    best plus tie x the rest, x boost: (scores, matched)."""
+    best = total = np.zeros(len(parts[0][0]), np.float32)
+    matched = np.zeros(len(best), bool)
+    for s, ok in parts:
+        best = np.maximum(best, s)
+        total = total + s
+        matched |= ok
+    sc = best + np.float32(tie) * (total - best)
+    return np.where(matched, sc * np.float32(boost), np.float32(0)), matched
+
+
+def np_combined(ix, terms, weights, title_len) -> tuple:
+    """combined_fields' BM25F over body and title of the body term ids
+    and title strings in `terms` [(kind, term)], fields weighted by
+    `weights` (body, title): each term's tf summed over the fields and
+    the doc lengths likewise (the title's only where the doc has one,
+    `title_len`), idf from the union df (the fields share no term here),
+    the LUCENE-8563 saturation, terms summed in order: (scores,
+    matched)."""
+    import math
+    from opensearch_tpu_torch import bench_corpus as bc
+    wb, wt = np.float32(weights[0]), np.float32(weights[1])
+    n = ix.n_stats
+    dlc = np.float32(0) + wb * ix.dl
+    dlc = np.where(title_len, dlc + wt * np.float32(bc.TITLE_DL), dlc)
+    avgdl = np.float32(weights[0] * (ix.sum_dl / ix.n_stats)
+                       + weights[1] * float(ix.title_stats()[0]))
+    norm = K1 * (OMB + (B * dlc) / avgdl)
+    score = np.zeros(ix.n, np.float32)
+    count = np.zeros(ix.n, np.int32)
+    for kind, t in terms:
+        tfc = np.zeros(ix.n, np.float32)
+        if kind == "body":
+            d, tf = ix.row(t)
+            tfc[d] = wb * tf
+        else:
+            d, tf = title_rows_of(ix, t)
+            tfc[d] = wt * tf
+        idf = np.float32(math.log(1.0 + (n - len(d) + 0.5) / (len(d) + 0.5))
+                         if len(d) else 0.0)
+        hit = tfc > 0
+        score = score + np.where(hit, idf * (tfc / (tfc + norm)),
+                                 np.float32(0))
+        count += hit
+    return score, count >= 1
+
+
+def compound_classes(big: dict, n: int) -> dict:
+    """Phase 13's traffic on phase 7's end state, `n` bodies a class from
+    seeded pick_queries rows (mid-df body terms t...) and title pool
+    bigrams (p...): name -> [(body, oracle(ix) -> page, or (page, the
+    expected matched_queries of each hit))], every oracle reading the
+    CSR arrays and columns alone."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    title = big["title"]
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+    pairs = bc.pick_phrase_pairs(title[7], n, seed=31)
+    q = bc.pick_queries(df, n, seed=13)
+    rng = np.random.default_rng(131)
+    high = np.argsort(-df)[8:40]
+    has_title = (lambda ix: np.arange(ix.n) < ix.n0)
+
+    def t(i, j=0):
+        return vs[int(q[i][j])]
+
+    def p(i, j=0):
+        return tvs[int(title[5 + j][pairs[i]])]
+
+    def mm_best(i):
+        a, px = int(q[i][0]), p(i)
+        body = {"query": {"multi_match": {
+            "query": f"{vs[a]} {px}", "fields": ["title^2", "body"],
+            "tie_breaker": 0.3}}}
+
+        def oracle(ix):
+            st, ct = title_terms(ix, [px], 2.0)
+            sb, cb = body_terms(ix, [a])
+            return ix.page(*np_dismax([(st, ct > 0), (sb, cb > 0)], 0.3,
+                                      1.0), 0, 10)
+        return body, oracle
+
+    def mm_most(i):
+        a, px = int(q[i][0]), p(i, 1)
+        body = {"query": {"multi_match": {
+            "query": f"{vs[a]} {px}", "fields": ["title", "body"],
+            "type": "most_fields"}}}
+
+        def oracle(ix):
+            st, ct = title_terms(ix, [px])
+            sb, cb = body_terms(ix, [a])
+            ok = (ct > 0) | (cb > 0)
+            return ix.page(np.where(ok, ((np.float32(0) + st) + sb)
+                                    * np.float32(1), np.float32(0)), ok,
+                           0, 10)
+        return body, oracle
+
+    def mm_phrase(i):
+        terms = [p(i), p(i, 1)]
+        body = {"query": {"multi_match": {
+            "query": " ".join(terms), "fields": ["title", "body"],
+            "type": "phrase"}}}
+        return body, lambda ix: ix.phrase_page(terms)
+
+    def dis_max(i):
+        a, px, py = int(q[i][1]), p(i), p(i, 1)
+        body = {"query": {"dis_max": {"queries": [
+            {"term": {"body": vs[a]}},
+            {"match": {"title": f"{px} {py}"}}], "tie_breaker": 0.7}}}
+
+        def oracle(ix):
+            sb, cb = body_terms(ix, [a])
+            st, ct = title_terms(ix, [px, py])
+            return ix.page(*np_dismax([(sb, cb > 0), (st, ct > 0)], 0.7,
+                                      1.0), 0, 10)
+        return body, oracle
+
+    def boosting(i):
+        a, b_, st = int(q[i][0]), int(q[i][1]), i % 3
+        body = {"query": {"boosting": {
+            "positive": {"match": {"body": f"{vs[a]} {vs[b_]}"}},
+            "negative": {"term": {"status": bc.STATUS_VALUES[st]}},
+            "negative_boost": 0.2}}}
+
+        def oracle(ix):
+            s, c = body_terms(ix, [a, b_])
+            f = np.where(ix.status == st, np.float32(0.2), np.float32(1.0))
+            return ix.page((s * f) * np.float32(1.0), c > 0, 0, 10)
+        return body, oracle
+
+    def combined(i):
+        a, px = int(q[i][2]), p(i)
+        body = {"query": {"combined_fields": {
+            "query": f"{vs[a]} {px}", "fields": ["body", "title^2"]}}}
+
+        def oracle(ix):
+            return ix.page(*np_combined(ix, [("body", a), ("title", px)],
+                                        (1.0, 2.0), has_title(ix)), 0, 10)
+        return body, oracle
+
+    def terms_set(i):
+        terms = sorted(rng.choice(high, 4, replace=False).tolist())
+        body = {"query": {"terms_set": {"body": {
+            "terms": [vs[x] for x in terms],
+            "minimum_should_match_field": "rating"}}}}
+
+        def oracle(ix):
+            s, c = body_terms(ix, terms)
+            _ts, r_later, has_later = ix.later_arrays()
+            _ts0, r0, has0 = big["aggs"]
+            r = np.concatenate([r0, r_later]).astype(np.float32)
+            has = np.concatenate([has0, has_later])
+            need = np.where(has, np.maximum(r, np.float32(1)),
+                            np.float32(np.inf))
+            ok = c.astype(np.float32) >= need
+            return ix.page(np.where(ok, s, np.float32(0)), ok, 0, 10)
+        return body, oracle
+
+    def pinned(i):
+        a, b_ = int(q[i][0]), int(q[i][2])
+        re_id = str(big["reindexed"][i % len(big["reindexed"])][0])
+        picks = rng.choice(big["seg"].ndocs, 7, replace=False).tolist()
+        ids = [str(x) for x in picks[:3]] + [re_id, str(picks[1]),
+                                             str(10 ** 9)] + \
+            [str(x) for x in picks[3:]]
+        body = {"query": {"pinned": {"ids": ids, "organic": {
+            "match": {"body": f"{vs[a]} {vs[b_]}"}}}}}
+
+        def oracle(ix):
+            g_of = {s: ix.n0 + j for j, s in enumerate(ix.new_ids)}
+            pin = np.zeros(ix.n, np.float32)
+            for rank in range(len(ids) - 1, -1, -1):
+                s = ids[rank]
+                g = g_of.get(s, int(s) if int(s) < ix.n0 else -1)
+                if g >= 0:
+                    pin[g] = np.float32(1e6) - np.float32(rank)
+            s, c = body_terms(ix, [a, b_])
+            pinned_ = pin > 0
+            score = np.where(pinned_, pin, s * np.float32(1.0))
+            return ix.page(score, pinned_ | (c > 0), 0, 10)
+        return body, oracle
+
+    def named(i):
+        a, b_ = int(q[i][0]), int(q[i][1])
+        lo = 100 * (i % 5)
+        body = {"query": {"bool": {"should": [
+            {"match": {"body": {"query": vs[a], "_name": "first"}}},
+            {"match": {"body": {"query": vs[b_], "_name": "second"}}}],
+            "filter": [{"range": {"price": {"gte": lo, "lt": lo + 300,
+                                            "_name": "price"}}}],
+            "minimum_should_match": 1}}}
+
+        def oracle(ix):
+            sa, ca = body_terms(ix, [a])
+            sb, cb = body_terms(ix, [b_])
+            pm = (ix.price >= lo) & (ix.price < lo + 300)
+            ok = pm & ((ca > 0) | (cb > 0))
+            page = ix.page(np.where(ok, ((np.float32(0) + sa) + sb)
+                                    * np.float32(1), np.float32(0)), ok,
+                           0, 10)
+            names = []
+            for hid in page[0]:
+                g = (ix.n0 + ix.new_ids.index(hid) if hid in ix.new_ids
+                     else int(hid))
+                names.append([nm for nm, m in (("first", ca[g] > 0),
+                                               ("price", pm[g]),
+                                               ("second", cb[g] > 0)) if m])
+            return page, names
+        return body, oracle
+
+    makers = {"mm_best": mm_best, "mm_most": mm_most,
+              "mm_phrase": mm_phrase, "dis_max": dis_max,
+              "boosting": boosting, "combined": combined,
+              "terms_set": terms_set, "pinned": pinned, "named": named}
+    return {name: [f(i) for i in range(n)] for name, f in makers.items()}
+
+
+def compound_merged_classes(big: dict, n: int) -> dict:
+    """Phase 13's classes on phase 8's merged segment: a single-field
+    most_fields multi_match (B3), a 2-term match must with, in the
+    filter, a dis_max of a status term and a 1% price range beside a 10%
+    price range (B3; each body's 1% range its own), a base64 wrapper of
+    a 2-term match (the pruned ladder). The 10% range keeps each filter
+    list under 1/8 of the docs: a dense one (the status term alone is
+    1/3) would build its filter-specialized postings at its second use
+    (24.7 s at 8.8M passages on an H100 80GB HBM3, 700 W), which
+    the class's card == CPU check and profile would be."""
+    import base64
+    from opensearch_tpu_torch import bench_corpus as bc
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    q = bc.pick_queries(df, n, seed=17)
+    items: dict = {"mm_one_field": [], "compound_filter": [], "wrapper": []}
+    for i in range(n):
+        a, b_ = int(q[i][0]), int(q[i][1])
+        text = f"{vs[a]} {vs[b_]}"
+        group = (lambda a_, b2: lambda ix: ix.page(
+            *ix.group([a_, b2]), 0, 10))(a, b_)
+        items["mm_one_field"].append(({"query": {"multi_match": {
+            "query": text, "fields": ["body"], "type": "most_fields"}}},
+            group))
+        st, lo = i % 3, 200 + 10 * (i % 10)
+        items["compound_filter"].append(({"query": {"bool": {
+            "must": [{"match": {"body": text}}],
+            "filter": [{"dis_max": {"queries": [
+                {"term": {"status": bc.STATUS_VALUES[st]}},
+                {"range": {"price": {"gte": lo, "lt": lo + 10}}}]}},
+                {"range": {"price": {"gte": 200, "lt": 300}}}]}}},
+            (lambda a_, b2, st_, lo_: lambda ix: ix.bool_page(
+                [(a_, "fam"), (b2, "fam")], 1,
+                ((ix.status == st_) | ((ix.price >= lo_)
+                                       & (ix.price < lo_ + 10)))
+                & (ix.price >= 200) & (ix.price < 300), None))(
+                a, b_, st, lo)))
+        wrapped = base64.b64encode(json.dumps(
+            {"match": {"body": text}}).encode()).decode()
+        items["wrapper"].append(({"query": {"wrapper": {"query": wrapped}}},
+                                 (lambda a_, b2: lambda ix: ix.group_page(
+                                     [a_, b2]))(a, b_)))
+    return items
+
+
+def compound_timer():
+    """CUDA events around the compound layer's new ops (the dense tf
+    gather of combined_fields, the dis_max and BM25F combines) and the
+    general path's term scatter and top-k: -> (restore(), {op: [(start,
+    end)]})."""
+    import torch
+    from opensearch_tpu_torch.ops import scoring
+    spans: dict = {}
+    saved = []
+    for name, label in (("gather_tf_dense", "tf_gather"),
+                        ("dismax", "dismax"), ("bm25f", "combine"),
+                        ("score_term_group", "term_scatter"),
+                        ("topk_docs", "topk")):
+        real = getattr(scoring, name)
+
+        def timed(*a, _real=real, _label=label, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = _real(*a, **kw)
+            e1.record()
+            spans.setdefault(_label, []).append((e0, e1))
+            return out
+        setattr(scoring, name, timed)
+        saved.append((name, real))
+
+    def restore():
+        for name, real in saved:
+            setattr(scoring, name, real)
+    return restore, spans
+
+
+def run_compound_class(client, name: str, items, ix, cpu,
+                       rtol: float = 1e-6) -> dict:
+    """One class through msearch (counts set to 0 just before) under the
+    op timer, with the device's peak bytes above what it held before;
+    every page against the brute force (and, where the oracle gives
+    them, each hit's matched_queries), the first 2 bodies on the card
+    against the CPU, one batch profiled: -> the class's numbers."""
+    import torch
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import impactpath
+    bodies = [b for b, _o in items]
+    impactpath.reset_stats()
+    C.reset_stats()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    restore, spans = compound_timer()
+    try:
+        resps, wall, lat, counts, rungs = run_batches(client, bodies)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() - base
+    rungs = {**rungs, "impact_served": impactpath.STATS["served"],
+             "general": C.STATS["general_served"]}
+    t0 = time.perf_counter()
+    named = 0
+    for (b, oracle), r in zip(items, resps):
+        want = oracle(ix)
+        if len(want) == 2:
+            want, names = want
+            got = [h.get("matched_queries", []) for h in r["hits"]["hits"]]
+            if got != names:
+                raise AssertionError(f"{name} body {b}: matched_queries "
+                                     f"{got} != {names}")
+            named += sum(1 for x in got if x)
+        check_page(r, want, f"{name} body {b}", rtol)
+    t_oracle = time.perf_counter() - t0
+    lines = sum([[{}, b] for b in bodies[:2]], [])
+    t0 = time.perf_counter()
+    if strip_took(client.msearch(lines, index="bench")) \
+            != strip_took(cpu.msearch(lines, index="bench")):
+        raise AssertionError(f"{name}: 2 bodies: card and CPU responses "
+                             f"differ")
+    t_cpu = time.perf_counter() - t0
+    n = len(bodies)
+    ev = {k: sum(a.elapsed_time(e) for a, e in v) / n
+          for k, v in spans.items()}
+    idle = profile_batch(client, bodies)
+    log(f"  {name}: queries={n} wall_s={wall:.2f} qps={n / wall:.1f} "
+        f"batch_ms={lat[0]:.1f} kernel launches B1={counts['launches']} "
+        f"B2={counts['impact_launches']} B3={counts['bool_launches']} "
+        f"plain_calls={counts['plain_calls']} rungs " + " ".join(
+            f"{k}={v}" for k, v in rungs.items() if v)
+        + f"; {n} pages == numpy brute force ({t_oracle:.1f}s"
+        + (f", {named} hits' matched_queries" if named else "")
+        + f"); 2 bodies card == CPU ({t_cpu:.1f}s); event ms a body "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(ev.items()))
+        + f"; device peak bytes above the class's start {peak}")
+    return {"qps": n / wall, "batch_ms": lat[0], "counts": counts,
+            "rungs": rungs, "event_ms": ev, "peak_bytes": peak,
+            "oracle_s": t_oracle, "cpu_check_s": t_cpu,
+            "idle_share_one_batch": idle}
+
+
+def phase_compound_msmarco(big: dict, n: int) -> dict:
+    """Phase 13 over phase 7's end state (the corpus segment with 64
+    deletes, the re-indexed docs' segment): every class on the general
+    path (no fused kernel serves a segment with deletes or a named
+    body)."""
+    client = big["client"]
+    eng = client._indices["bench"].engine
+    cpu = twin_of(eng)
+    dev = client.device
+    out = {}
+    for name, items in compound_classes(big, n).items():
+        out[name] = r = run_compound_class(client, name, items, big["ix"],
+                                           cpu)
+        c = r["counts"]
+        if r["rungs"]["general"] == 0 or c["plain_calls"] or any(
+                c[k] for k in ("launches", "impact_launches",
+                               "bool_launches")):
+            raise AssertionError(f"{name}: not on the general path alone: "
+                                 f"{r}")
+    nbytes = {s.name: s.device_nbytes(dev) for s in eng.segments}
+    log(f"  general path device arrays after phase 13 (terms_set minimum "
+        f"columns among them): {nbytes} bytes")
+    return {"classes": out, "device_bytes": nbytes}
+
+
+def phase_compound_merged(big: dict, n: int) -> dict:
+    """Phase 13's last three classes on phase 8's merged segment: B3 for
+    the single-field multi_match and the compound filter, the pruned
+    ladder (B2, B1) for the wrapper."""
+    client = big["client"]
+    cpu = twin_of(client._indices["bench"].engine)
+    out = {}
+    for name, items in compound_merged_classes(big, n).items():
+        out[name] = r = run_compound_class(client, name, items, big["ix"],
+                                           cpu, rtol=9 * 2.0**-23)
+        c = r["counts"]
+        on = (c["bool_launches"] if name != "wrapper"
+              else c["launches"] + c["impact_launches"])
+        if not on or c["plain_calls"] or r["rungs"]["general"]:
+            raise AssertionError(f"{name}: not on its kernels: {r}")
+    return out
+
+
+# ---------------------------------------------------------------------
 # phase 8: deletes, updates and a forced merge at MS MARCO passage scale
 # ---------------------------------------------------------------------
 
@@ -4616,9 +5101,10 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
 
     # 6. on the merged segment: the kernels serve. First the 16 bodies
     # of step 4, the same count in one batch (their first use builds the
-    # merged segment's lazy per-row state), then 128 pruned
+    # merged segment's lazy per-row state), then 64 pruned (128 before
+    # phase 13 shared the time limit)
     cpu = twin()
-    n_after = min(128, len(big["bodies"]))
+    n_after = min(64, len(big["bodies"]))
     items = match_items(n_after)
     pages: dict = {}
     out["first_use"] = run_write_class(
@@ -4785,27 +5271,31 @@ def main() -> int:
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
     # phase 5 ran 2,048 queries before phase 6 shared the time limit,
     # 1,024 before phase 8 did; phase 7 ran 64 bodies a class before
-    # phase 8 did, 32 before phase 11 did
+    # phase 8 did, 32 before phase 11 did; before phase 13 did, phase 7
+    # ran 16 a class, phase 9 1,024 config-3 and 64 sloppy and prefix
+    # bodies, phase 10 16 a class, phase 11 16 and phase 12 8
     ap.add_argument("--queries", type=int, default=128)
     ap.add_argument("--bool-queries", type=int, default=1024)
-    ap.add_argument("--general-queries", type=int, default=16,
+    ap.add_argument("--general-queries", type=int, default=8,
                     help="phase-7 bodies per class")
-    ap.add_argument("--phrase-queries", type=int, default=1024,
+    ap.add_argument("--phrase-queries", type=int, default=512,
                     help="phase-9 config-3 and mixed bodies each")
-    ap.add_argument("--phrase-sloppy", type=int, default=64,
+    ap.add_argument("--phrase-sloppy", type=int, default=32,
                     help="phase-9 sloppy and prefix bodies together")
-    ap.add_argument("--agg-queries", type=int, default=16,
+    ap.add_argument("--agg-queries", type=int, default=8,
                     help="phase-10 bodies per class (the refinement class "
                     "takes at most 4)")
-    ap.add_argument("--sort-queries", type=int, default=16,
+    ap.add_argument("--sort-queries", type=int, default=8,
                     help="phase-11 bodies per class (the chains of (b) "
                     "and (c) add 4 pages each)")
-    ap.add_argument("--expand-queries", type=int, default=8,
+    ap.add_argument("--expand-queries", type=int, default=4,
                     help="phase-12 bodies per class")
+    ap.add_argument("--compound-queries", type=int, default=8,
+                    help="phase-13 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 12; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 12, 8); no result line")
+                    help="end after this phase (3 to 13; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 13, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4893,9 +5383,11 @@ def main() -> int:
         f"{args.ndocs}): bench.py's config 3, sloppy and prefix phrases, "
         f"its mixed stream" + at(t_start))
     n_mixed = min(args.phrase_queries, args.bool_queries)
-    if args.phrase_queries < 1024:
+    if args.phrase_queries < 1024 or args.phrase_sloppy < 64:
         log(f"  cut: {args.phrase_queries} config-3 and mixed bodies "
-            f"(1024 uncut), so that phases 7-8 fit the same time limit")
+            f"(1024 uncut) and {args.phrase_sloppy} sloppy and prefix "
+            f"bodies (64), so that phases 7-8 and 13 fit the same time "
+            f"limit")
     phrase = phase_phrase_msmarco(big, bools, args.phrase_queries,
                                   args.phrase_sloppy, n_mixed)
     if args.stop_after == 9:
@@ -4905,13 +5397,16 @@ def main() -> int:
         f"scale (ndocs={args.ndocs})" + at(t_start))
     if args.general_queries < 64:
         log(f"  cut: {args.general_queries} bodies a class (64 uncut), so "
-            f"that phases 8 and 11 fit the same time limit")
+            f"that phases 8, 11 and 13 fit the same time limit")
     general = phase_general_msmarco(big, args.general_queries)
     if args.stop_after == 7:
         return 0
 
     log(f"[10] size-0 analytics bodies (aggregations) at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
+    if args.agg_queries < 16:
+        log(f"  cut: {args.agg_queries} bodies a class (16 uncut), so "
+            f"that phase 13 fits the same time limit")
     aggs = phase_aggs_msmarco(big, args.agg_queries)
     if args.stop_after == 10:
         return 0
@@ -4919,6 +5414,9 @@ def main() -> int:
     log(f"[11] a search results page (sort, search_after, collapse, the "
         f"fetch options) at MS MARCO passage scale (ndocs={args.ndocs}): "
         f"classes (a)-(e) here, (f) after phase 8" + at(t_start))
+    if args.sort_queries < 16:
+        log(f"  cut: {args.sort_queries} bodies a class (16 uncut), so "
+            f"that phase 13 fits the same time limit")
     sort = phase_sort_msmarco(big, args.sort_queries)
     if args.stop_after == 11:
         return 0
@@ -4927,8 +5425,20 @@ def main() -> int:
         f"wildcard, regexp, fuzzy, fuzzy match, match_bool_prefix) at MS "
         f"MARCO passage scale (ndocs={args.ndocs}), on phase 7's end "
         f"state; the expanded-filter class after phase 8" + at(t_start))
+    if args.expand_queries < 8:
+        log(f"  cut: {args.expand_queries} bodies a class (8 uncut), so "
+            f"that phase 13 fits the same time limit")
     expand = phase_expand_msmarco(big, args.expand_queries)
     if args.stop_after == 12:
+        return 0
+
+    log(f"[13] compound and multi-field queries (multi_match, dis_max, "
+        f"boosting, combined_fields, terms_set, pinned) and named queries "
+        f"at MS MARCO passage scale (ndocs={args.ndocs}), on phase 7's end "
+        f"state; the single-field multi_match, compound-filter and "
+        f"wrapper classes after phase 8" + at(t_start))
+    compound = phase_compound_msmarco(big, args.compound_queries)
+    if args.stop_after == 13:
         return 0
 
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
@@ -4947,6 +5457,11 @@ def main() -> int:
     expand["bool_expanded_filter"] = phase_expand_filter_merged(
         big, args.expand_queries)
     xf = expand["bool_expanded_filter"]["counts"]
+    log("[13m] phase 13's single-field multi_match, compound filter and "
+        "wrapper classes, on phase 8's merged segment (the kernels decline "
+        "a segment with deletes)" + at(t_start))
+    compound["merged"] = phase_compound_merged(big, args.compound_queries)
+    cm = compound["merged"]
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -4956,6 +5471,7 @@ def main() -> int:
         "launches_results_page": sort["classes"]["f_snippets"]["launches"]
         .get("launches", 0),
         "launches_expanded_filter": xf["launches"],
+        "launches_compound": cm["wrapper"]["counts"]["launches"],
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -4966,6 +5482,7 @@ def main() -> int:
         "launches": big["impact_launches"],
         "launches_results_page": sort["classes"]["f_snippets"]["launches"]
         .get("impact_launches", 0),
+        "launches_compound": cm["wrapper"]["counts"]["impact_launches"],
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -4975,6 +5492,9 @@ def main() -> int:
         "replaces": "opensearch_tpu/ops/pallas_bm25.py:570",
         "launches": bools["bool_launches"],
         "launches_expanded_filter": xf["bool_launches"],
+        "launches_compound": sum(cm[k]["counts"]["bool_launches"]
+                                 for k in ("mm_one_field",
+                                           "compound_filter")),
         "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
                            egrid["max_abs_err"], bools["max_abs_err"]),
         **times(bools["b3"]), "bound_by": "bytes",
@@ -5006,6 +5526,9 @@ def main() -> int:
     print(json.dumps({"expand": {k: {kk: vv for kk, vv in v.items()
                                      if kk != "batch_ms"}
                                  for k, v in expand.items()}}), flush=True)
+    print(json.dumps({"compound": {
+        "classes": {**compound["classes"], **compound["merged"]},
+        "device_bytes": compound["device_bytes"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

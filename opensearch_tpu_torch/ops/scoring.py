@@ -186,6 +186,57 @@ def score_term_group(post: FieldPostings, rows: Sequence[int],
                       torch.where(live, counts, zero))
 
 
+def gather_tf_dense(post: FieldPostings, rows: Sequence[int], ndocs: int,
+                    t_pad: int) -> torch.Tensor:
+    """f32[t_pad, ndocs]: the raw tf of each of `rows` (-1 = absent term)
+    in each doc, by one flat scatter (combined_fields' BM25F needs tf
+    before saturation). Every (term, doc) index is written once."""
+    docs, tf, _dl, win, _bounds = gather_postings(post, rows)
+    out = torch.zeros(t_pad * ndocs, dtype=torch.float32,
+                      device=post.device)
+    out[win * ndocs + docs] = tf
+    return out.view(t_pad, ndocs)
+
+
+def bm25f(tfc: torch.Tensor, dlc: torch.Tensor, idf: np.ndarray,
+          k1: float, b: float, avgdl: float) -> tuple:
+    """combined_fields' BM25F over the weighted tf [T, ndocs] and doc
+    lengths [ndocs] (LUCENE-8563's form, no (k1 + 1) factor): (scores,
+    the number of terms each doc holds), both f32[ndocs], the terms
+    summed in order."""
+    dev = tfc.device
+    k1_t, omb_t, b_t = f32_scalars(k1, b, dev)
+    norm = k1_t * (omb_t + (b_t * dlc) / torch.tensor(np.float32(avgdl),
+                                                      device=dev))
+    sat = tfc / (tfc + norm[None, :])
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    scores = torch.zeros_like(dlc)
+    counts = torch.zeros_like(dlc)
+    for t in range(len(tfc)):
+        hit = tfc[t] > 0
+        scores = scores + torch.where(hit, float(np.float32(idf[t]))
+                                      * sat[t], zero)
+        counts = counts + hit.to(torch.float32)
+    return scores, counts
+
+
+def dismax(sms: Sequence[ScoredMask], tie: float, boost: float,
+           zeros: torch.Tensor) -> ScoredMask:
+    """dis_max over its children's (scores, counts): the best child's
+    score plus tie x the others' (their total, summed in child order,
+    less the best), x boost where any child matched."""
+    best = total = zeros
+    matched = torch.zeros(zeros.shape, dtype=torch.bool,
+                          device=zeros.device)
+    for sm in sms:
+        best = torch.maximum(best, sm.scores)
+        total = total + sm.scores
+        matched = matched | sm.matched
+    scores = best + tie * (total - best)
+    return ScoredMask(torch.where(matched, scores * boost, zeros),
+                      matched.to(torch.float32))
+
+
 def term_match_mask(post: FieldPostings, live: torch.Tensor,
                     rows: Sequence[int], ndocs: int) -> torch.Tensor:
     """Non-scoring terms filter: bool[ndocs], live docs with a posting in

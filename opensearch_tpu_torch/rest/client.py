@@ -36,6 +36,33 @@ from ..search.executor import ShardSearcher, msearch_batched, search_shards
 _INDEX_SETTINGS = {"number_of_shards", "number_of_replicas", "analysis",
                    "similarity"}
 
+# the public calls of the reference's client (dir() of its RestClient and
+# IndicesClient, opensearch_tpu/rest/client.py); one the port does not
+# define raises NotPortedError naming it, not AttributeError
+REFERENCE_CALLS = (
+    "bulk", "cancel_task", "clear_scroll", "cluster_stats", "count",
+    "create", "create_pit", "delete", "delete_by_query", "delete_pit",
+    "delete_remote_cluster", "delete_script", "delete_search_pipeline",
+    "exists", "explain", "field_caps", "flight_recorder",
+    "flight_recorder_dump", "get", "get_lifecycle_policy", "get_script",
+    "get_search_pipeline", "get_traces", "hot_threads", "index",
+    "indices_summary", "insights_status", "insights_top_queries",
+    "lifecycle_explain", "lifecycle_step", "metrics_history", "mget",
+    "msearch", "msearch_template", "mtermvectors", "nodes_stats",
+    "put_lifecycle_policy", "put_remote_cluster", "put_script",
+    "put_search_pipeline", "put_workload_group", "rank_eval", "reindex",
+    "remediation_status", "remote_info", "remotestore_restore",
+    "render_search_template", "rollover", "scroll", "search",
+    "search_template", "slo_status", "tasks", "termvectors", "update",
+    "update_by_query", "validate_query")
+REFERENCE_INDICES_CALLS = (
+    "analyze", "clone", "close", "create", "create_data_stream", "delete",
+    "delete_data_stream", "delete_index_template", "exists",
+    "exists_index_template", "flush", "forcemerge", "get", "get_alias",
+    "get_data_stream", "get_mapping", "get_settings", "open", "put_alias",
+    "put_index_template", "put_mapping", "put_settings", "put_template",
+    "refresh", "shrink", "split", "stats", "update_aliases")
+
 
 class ApiError(Exception):
     def __init__(self, status: int, err_type: str, reason: str):
@@ -114,6 +141,11 @@ class RestClient:
     def close(self) -> None:
         for svc in self._indices.values():
             svc.engine.close()
+
+    def __getattr__(self, name: str):
+        if name in REFERENCE_CALLS:
+            raise NotPortedError(f"rest call [{name}]")
+        raise AttributeError(name)
 
     # ---------------- index resolution ----------------
 
@@ -326,6 +358,11 @@ class RestClient:
 class IndicesClient:
     def __init__(self, client: RestClient):
         self.c = client
+
+    def __getattr__(self, name: str):
+        if name in REFERENCE_INDICES_CALLS:
+            raise NotPortedError(f"rest call [indices.{name}]")
+        raise AttributeError(name)
 
     def create(self, index: str, body: Optional[dict] = None) -> dict:
         if index in self.c._indices:

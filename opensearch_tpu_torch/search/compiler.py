@@ -28,7 +28,14 @@ raises `NotPortedError` (the reference serves them on its host span
 engine).
 `bool` becomes `LBool` and `constant_score` `LConstScore`, their filter
 and must_not clauses rewritten in filter context (`scoring=False`: a
-term there is a non-scoring match), as in the reference. Any other query
+term there is a non-scoring match), as in the reference. `dis_max`
+becomes `LDisMax`, `boosting` `LBoosting` (its negative side in filter
+context), `terms_set` with a minimum field `LTermsSet`, `pinned`
+`LPinned`, `combined_fields` `LCombined` (its union-df idf computed
+here), and a `multi_match` one child per field: an `LDisMax` of them for
+`best_fields`, `phrase` and `phrase_prefix`, else an `LBool` of shoulds
+(so `cross_fields` and `bool_prefix` serve `most_fields`' page, as in
+the reference). A clause's `_name` goes onto its node. Any other query
 or field kind raises `NotPortedError`.
 
 The general path (`emit`, `run_segment`) evaluates a plan as torch ops on
@@ -216,6 +223,56 @@ class LConstScore(LNode):
     boost: float = 1.0
 
 
+@dataclass
+class LDisMax(LNode):
+    children: List[LNode] = dc_field(default_factory=list)
+    tie_breaker: float = 0.0
+    boost: float = 1.0
+
+
+@dataclass
+class LBoosting(LNode):
+    """`positive` scores, times `negative_boost` where the filter-context
+    `negative` also matches."""
+
+    positive: Optional[LNode] = None
+    negative: Optional[LNode] = None
+    negative_boost: float = 0.5
+    boost: float = 1.0
+
+
+@dataclass
+class LTermsSet(LNode):
+    """terms_set: the child term group (msm 0) counts the matching terms
+    of each doc; a doc matches where the count reaches its own minimum,
+    the f32 value of `msm_field` (a doc without one never matches)."""
+
+    child: Optional[LTerms] = None
+    msm_field: Optional[str] = None
+
+
+@dataclass
+class LPinned(LNode):
+    """pinned: the listed ids score 1e6 - rank, above any organic score,
+    in list order; the organic matches follow, scores times `boost`."""
+
+    ids: Tuple[str, ...] = ()
+    organic: Optional[LNode] = None
+    boost: float = 1.0
+
+
+@dataclass
+class LCombined(LNode):
+    """combined_fields: BM25F. Each term's tf is summed over the weighted
+    fields before saturation, against the weighted doc lengths; `idf`
+    is each term's idf from the union of the fields' docs, x boost."""
+
+    fields: Tuple[Tuple[str, float], ...] = ()
+    terms: Tuple[str, ...] = ()
+    msm: int = 1
+    idf: Optional[np.ndarray] = None
+
+
 def _numeric_eq_node(ft, value: Any, boost: float) -> LRange:
     cv = coerce_value(ft, value)
     return LRange(field=ft.name, kind=_range_kind(ft), lo=cv, hi=cv,
@@ -227,6 +284,19 @@ def _range_kind(ft) -> str:
 
 
 def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
+    """DSL tree -> plan; a clause's `_name` goes onto its node."""
+    out = _rewrite(q, ctx, scoring)
+    out.name = q.name or out.name
+    return out
+
+
+def _field_boost(spec: str) -> Tuple[str, float]:
+    """`field^boost` -> (field, boost)."""
+    return (spec.split("^")[0],
+            float(spec.split("^")[1]) if "^" in spec else 1.0)
+
+
+def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
     if isinstance(q, dsl.MatchAllQuery):
         return LMatchAll(boost=q.boost)
     if isinstance(q, dsl.MatchNoneQuery):
@@ -412,6 +482,55 @@ def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
     if isinstance(q, dsl.ConstantScoreQuery):
         return LConstScore(child=rewrite(q.filter, ctx, False), boost=q.boost)
 
+    if isinstance(q, dsl.BoostingQuery):
+        return LBoosting(positive=rewrite(q.positive, ctx, scoring),
+                         negative=rewrite(q.negative, ctx, False),
+                         negative_boost=q.negative_boost, boost=q.boost)
+
+    if isinstance(q, dsl.DisMaxQuery):
+        return LDisMax(children=[rewrite(c, ctx, scoring) for c in q.queries],
+                       tie_breaker=q.tie_breaker, boost=q.boost)
+
+    if isinstance(q, dsl.MultiMatchQuery):
+        # one child per field (`field^boost`); best_fields and the phrase
+        # types take the best field, every other type (most_fields,
+        # cross_fields, bool_prefix) sums the fields, as the reference does
+        if q.type in ("phrase", "phrase_prefix"):
+            children = [rewrite(dsl.MatchPhraseQuery(
+                field=f, query=q.query, prefix=q.type == "phrase_prefix",
+                boost=b), ctx, scoring)
+                for f, b in map(_field_boost, q.fields)]
+        else:
+            children = [rewrite(dsl.MatchQuery(
+                field=f, query=q.query, operator=q.operator,
+                minimum_should_match=q.minimum_should_match, boost=b),
+                ctx, scoring) for f, b in map(_field_boost, q.fields)]
+        if q.type in ("best_fields", "phrase", "phrase_prefix"):
+            return LDisMax(children=children, tie_breaker=q.tie_breaker,
+                           boost=q.boost)
+        return LBool(shoulds=children, msm=1, boost=q.boost)
+
+    if isinstance(q, dsl.TermsSetQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        field = ft.name if ft else q.field
+        terms = [str(t) for t in q.terms]
+        if not terms:
+            return LMatchNone()
+        if q.minimum_should_match_script is not None:
+            raise NotPortedError("terms_set [minimum_should_match_script]")
+        child = _weighted_terms(field, terms, [1.0] * len(terms), ctx, 0,
+                                "score", q.boost)
+        return LTermsSet(child=child,
+                         msm_field=q.minimum_should_match_field)
+
+    if isinstance(q, dsl.CombinedFieldsQuery):
+        return _combined_node(q, ctx)
+
+    if isinstance(q, dsl.PinnedQuery):
+        return LPinned(ids=tuple(q.ids),
+                       organic=(rewrite(q.organic, ctx, scoring)
+                                if q.organic else None), boost=q.boost)
+
     if isinstance(q, dsl.PrefixQuery):
         return LExpandTerms(field=q.field,
                             expander=_prefix_expander(q.field, q.value,
@@ -482,6 +601,50 @@ def can_match(node: LNode, seg: Segment) -> bool:
     if isinstance(node, LIds):
         return any(seg.local_doc(i) >= 0 for i in node.ids)
     return True
+
+
+def _combined_node(q: dsl.CombinedFieldsQuery, ctx: ShardContext) -> LNode:
+    """The terms analyzed by the first field's analyzer, msm, and each
+    term's idf from the union df, computed once here in f64 and stored
+    as f32 (the reference's rewrite). Segments have disjoint doc spaces:
+    the union is taken within each segment and the sizes summed."""
+    fspecs = []
+    for f in q.fields:
+        name, w = f.rsplit("^", 1) if "^" in f else (f, "1")
+        ft = ctx.mappings.resolve_field(name)
+        try:
+            wf = float(w)
+        except ValueError:
+            raise dsl.QueryParseError(
+                f"[combined_fields] bad field boost [{f}]")
+        fspecs.append((ft.name if ft else name, wf))
+    terms = _analyze_query_text(fspecs[0][0], q.query, ctx, None)
+    if not terms:
+        return LMatchNone()
+    msm = len(terms) if q.operator == "and" else \
+        dsl.parse_minimum_should_match(q.minimum_should_match,
+                                       len(terms)) or 1
+    n = max(ctx.num_docs, 1)
+    idf = np.zeros(len(terms), np.float32)
+    for i, t in enumerate(terms):
+        df = 0
+        for seg in ctx.segments:
+            lists = []
+            for fname, _w in fspecs:
+                pb = seg.postings.get(fname)
+                r = pb.row(t) if pb is not None else -1
+                if r >= 0:
+                    a, b = pb.row_slice(r)
+                    lists.append(pb.doc_ids[a:b])
+            if len(lists) == 1:
+                df += len(lists[0])
+            elif lists:
+                df += len(np.unique(np.concatenate(lists)))
+        if df > 0:
+            idf[i] = q.boost * float(
+                np.log(1.0 + (n - df + 0.5) / (df + 0.5)))
+    return LCombined(fields=tuple(fspecs), terms=tuple(terms), msm=msm,
+                     idf=idf)
 
 
 def _weighted_terms(field: str, terms: List[str], boosts: List[float],
@@ -828,9 +991,14 @@ def reference_param_bytes(node: LNode, seg: Segment) -> int:
     filter whose parameters exceed FILTER_HASH_BYTE_CAP. A phrase ships
     its pairs padded to the reference's pow4 buckets (8 bytes a pair) and
     its scalars; an expansion its rows padded to a power of two (4 bytes
-    a row) and its boost. Phrases and expansions in the clause's scoring
-    children count; a term group's rows and weights and a range's bounds
-    are a few bytes each and are not counted."""
+    a row) and its boost; a terms_set its f32 minimum per doc and its
+    term group; a pinned query its i32 docs and f32 ranks padded to a
+    power of two (at least 8) and its boost; a combined_fields query its
+    rows per field, idf and scalars; a dis_max and a boosting their two
+    scalars. The clause's scoring children count (a dis_max's, a
+    boosting's both sides, a pinned's organic); a term group's rows and
+    weights and a range's bounds are a few bytes each and are not
+    counted."""
     if isinstance(node, LPhrase):
         pb = seg.postings.get(node.field)
         if pb is None or pb.pos_starts is None:
@@ -854,6 +1022,28 @@ def reference_param_bytes(node: LNode, seg: Segment) -> int:
                    for c in node.musts + node.shoulds)
     if isinstance(node, LConstScore):
         return reference_param_bytes(node.child, seg)
+    if isinstance(node, LDisMax):
+        # tie and boost, then the children
+        return 8 + sum(reference_param_bytes(c, seg) for c in node.children)
+    if isinstance(node, LBoosting):
+        # negative_boost and boost, then both sides
+        return (8 + reference_param_bytes(node.positive, seg)
+                + reference_param_bytes(node.negative, seg))
+    if isinstance(node, LTermsSet):
+        # the f32 minimum over ndocs_pad is the cap itself at 262,144
+        # docs, so its term group's rows, weights, aux and scalars count
+        t_pad = next_pow2(len(node.child.terms), floor=1)
+        return 4 * seg.ndocs_pad + 12 * t_pad + 12
+    if isinstance(node, LPinned):
+        n = len(pinned_docs(node, seg)[0])
+        return (8 * next_pow2(max(n, 1), floor=8) + 4
+                + (reference_param_bytes(node.organic, seg)
+                   if node.organic is not None else 0))
+    if isinstance(node, LCombined):
+        # rows and a weight per field, the idf, avgdl and msm
+        t_pad = next_pow2(len(node.terms), floor=1)
+        nf = len(node.fields)
+        return 4 * t_pad * (nf + 1) + 4 * nf + 8
     return 0
 
 
@@ -947,15 +1137,128 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
     if isinstance(node, LConstScore):
         return _flag(filters.filter_mask(node.child, seg, ctx, device)
                      & live, node.boost)
+    if isinstance(node, LDisMax):
+        return ops.dismax([emit(c, seg, ctx, device) for c in node.children],
+                          _f32(node.tie_breaker), _f32(node.boost), zeros)
+    if isinstance(node, LBoosting):
+        pos = emit(node.positive, seg, ctx, device)
+        neg = filters.filter_mask(node.negative, seg, ctx, device) & live
+        factor = torch.where(neg, _f32(node.negative_boost), 1.0)
+        scores = pos.scores * factor * _f32(node.boost)
+        return ops.ScoredMask(torch.where(pos.matched, scores, zeros),
+                              pos.count)
+    if isinstance(node, LTermsSet):
+        sm = emit(node.child, seg, ctx, device)     # msm 0: raw counts
+        ok = (sm.count >= terms_set_need(node, seg, device)) & live
+        return ops.ScoredMask(torch.where(ok, sm.scores, zeros),
+                              ok.to(torch.float32))
+    if isinstance(node, LPinned):
+        org = (emit(node.organic, seg, ctx, device)
+               if node.organic is not None else ops.ScoredMask(zeros, zeros))
+        pins = pin_scores(node, seg, device)
+        pinned = (pins > 0) & live
+        score = torch.where(pinned, pins, org.scores * _f32(node.boost))
+        matched = pinned | org.matched
+        return ops.ScoredMask(torch.where(matched, score, zeros),
+                              matched.to(torch.float32))
+    if isinstance(node, LCombined):
+        tfc, dlc, any_field = combined_tf(node, seg, device)
+        if not any_field:
+            return ops.ScoredMask(zeros, zeros)
+        sim = ctx.sim_for(node.fields[0][0])
+        avgdl = max(sum(w * ctx.avgdl(f) for f, w in node.fields), 1e-6)
+        idf = np.zeros(len(tfc), np.float32)
+        idf[:len(node.terms)] = node.idf
+        scores, counts = ops.bm25f(tfc, dlc, idf, float(sim.k1),
+                                   float(sim.b), avgdl)
+        ok = (counts >= _f32(node.msm)) & live
+        return ops.ScoredMask(torch.where(ok, scores, zeros),
+                              ok.to(torch.float32))
     raise NotPortedError(f"plan [{type(node).__name__}] on the general path")
 
 
+def terms_set_need(node: LTermsSet, seg: Segment,
+                   device: torch.device) -> torch.Tensor:
+    """f32[ndocs]: each doc's minimum count, max(f32 value of the
+    minimum field, 1), inf without a value; cached per segment."""
+    def make():
+        col = seg.numeric_cols.get(node.msm_field)
+        need = np.full(seg.ndocs, np.inf, np.float32)
+        if col is not None:
+            need[col.present] = col.values[col.present].astype(np.float32)
+        return torch.from_numpy(np.maximum(need, np.float32(1.0))).to(device)
+    return seg.device_cached(("terms_set_need", node.msm_field), device,
+                             make)
+
+
+def pinned_docs(node: LPinned, seg: Segment) -> Tuple[list, list]:
+    """(local docs, list ranks) of the pinned ids the segment holds."""
+    docs, ranks = [], []
+    for rank, i in enumerate(node.ids):
+        d = seg.local_doc(i)
+        if d >= 0:
+            docs.append(d)
+            ranks.append(rank)
+    return docs, ranks
+
+
+def pin_scores(node: LPinned, seg: Segment,
+               device: torch.device) -> torch.Tensor:
+    """f32[ndocs]: 1e6 - rank at each pinned doc, 0 elsewhere; a repeated
+    id keeps its first rank (a max). The 1e6 base keeps a rank step
+    exact in f32 (ulp(1e6) = 0.0625)."""
+    out = torch.zeros(seg.ndocs, dtype=torch.float32, device=device)
+    docs, ranks = pinned_docs(node, seg)
+    if docs:
+        score = np.float32(1e6) - np.asarray(ranks, np.float32)
+        out.scatter_reduce_(0, torch.as_tensor(docs, device=device),
+                            torch.from_numpy(score).to(device), "amax")
+    return out
+
+
+def combined_tf(node: LCombined, seg: Segment,
+                device: torch.device) -> tuple:
+    """(tf f32[T_pad, ndocs], doc lengths f32[ndocs], any field): each
+    term's tf and the doc lengths summed over the fields the segment
+    holds, each times its weight, in field order."""
+    nd = seg.ndocs
+    t_pad = next_pow2(len(node.terms), floor=1)
+    tfc = torch.zeros((t_pad, nd), dtype=torch.float32, device=device)
+    dlc = torch.zeros(nd, dtype=torch.float32, device=device)
+    any_field = False
+    for fname, w in node.fields:
+        pb = seg.postings.get(fname)
+        if pb is None:
+            continue
+        any_field = True
+        post = field_postings(seg, fname, device)
+        if post is not None:
+            rows = [pb.row(t) for t in node.terms]
+            rows += [-1] * (t_pad - len(rows))
+            tfc = tfc + _f32(w) * ops.gather_tf_dense(post, rows, nd, t_pad)
+        dlc = dlc + _f32(w) * seg.doc_lens_on(fname, device)
+    return tfc, dlc, any_field
+
+
+def combined_counts(node: LCombined, seg: Segment,
+                    device: torch.device) -> torch.Tensor:
+    """f32[ndocs]: the number of terms each doc holds (its weighted tf
+    above 0), deletes ignored."""
+    tfc = combined_tf(node, seg, device)[0]
+    return (tfc > 0).to(torch.float32).sum(0)
+
+
 def run_segment(lroot: LNode, seg: Segment, ctx: ShardContext, k_pad: int,
-                device: torch.device, agg_nodes=(), order=None) -> dict:
+                device: torch.device, agg_nodes=(), order=None,
+                named=()) -> dict:
     """The executor body: `lroot` over `seg`, its masked top `k_pad` (score
-    desc, doc asc), the total, the max score and, under "aggs", each agg
+    desc, doc asc), the total, the max score, under "aggs" each agg
     node's (spec, outputs) over the live-masked match (`emit_agg`, its
-    tensors as numpy arrays), all fetched in one copy.
+    tensors as numpy arrays) and under "named", for each (name, node) of
+    `named`, whether the node matches each top-k doc, all fetched in one
+    copy. The names come sorted, one entry a name (the last node of a
+    repeated name): the reference's jitted program returns them as a
+    dict, whose keys JAX sorts.
 
     With an `order` (`body.Order`) that ranks by more than the score, the
     top-k runs over its sort key (`sort_key`; ties by ascending doc), a
@@ -997,16 +1300,20 @@ def run_segment(lroot: LNode, seg: Segment, ctx: ShardContext, k_pad: int,
         vals, idx = ops.topk_docs(sm.scores, sm.matched, live, k_pad)
         leaves = [vals, idx, ops.total_hits(sm.matched, live)]
     aggs = {n.name: emit_agg(n, seg, ctx, match, device) for n in agg_nodes}
-    tree = _leaves_to_slots(aggs, leaves)
+    by_name = dict(named)
+    named_at = {nm: emit(by_name[nm], seg, ctx, device).matched[idx]
+                for nm in sorted(by_name)}
+    tree = _leaves_to_slots((aggs, named_at), leaves)
     host = torch.cat([t.double().reshape(-1) for t in leaves]).cpu().numpy()
     k = len(idx)
     sc = host[:k].astype(np.float32)
     STATS["general_served"] += 1
+    aggs_np, named_np = _slots_to_arrays(tree, host, leaves, np.cumsum(
+        [0] + [t.numel() for t in leaves]))
     out = {"topk_idx": host[k:2 * k].astype(np.int64), "topk_scores": sc,
            "total": int(host[2 * k]), "total_rel": "eq",
            "max_score": float(sc[0]) if k else float("-inf"),
-           "aggs": _slots_to_arrays(tree, host, leaves, np.cumsum(
-               [0] + [t.numel() for t in leaves]))}
+           "aggs": aggs_np, "named": named_np}
     if ordered:
         out["topk_key"] = sc
         out["topk_scores"] = host[2 * k + 1:3 * k + 1].astype(np.float32)

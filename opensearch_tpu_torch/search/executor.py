@@ -32,6 +32,12 @@ after it. Collapse keeps one candidate per group per segment on the
 device and per group across segments at the reduce; each group's
 `inner_hits` run as one sub-search.
 
+A body with a named clause (`_name`) leaves the kernels and the impact
+rung, as the reference's does (in msearch it runs as a single search):
+the general program evaluates each named node at the segment's top-k
+window, and a hit lists the names of those it matches, sorted, as
+`matched_queries`.
+
 A body with `aggs` (or `aggregations`) leaves the kernels and the impact
 rung, as the reference's does: the general program serves each segment
 and evaluates the agg tree over its live-masked match in the same pass
@@ -75,6 +81,7 @@ class Candidate:
     sort_values: Tuple            # host-comparable, direction-adjusted
     raw_sort_values: Tuple = ()   # the hit's `sort` array
     collapse_key: Any = None      # the collapse group (None: null group)
+    matched_queries: List[str] = dc_field(default_factory=list)
 
 
 @dataclass
@@ -89,6 +96,7 @@ class Plan:
     window: int
     order: B.Order
     aggs: List[A.AggNode] = dc_field(default_factory=list)
+    named: List[Tuple[str, C.LNode]] = dc_field(default_factory=list)
 
 
 @dataclass
@@ -121,15 +129,16 @@ class ShardSearcher:
 
     def plan(self, body: dict, ctx: C.ShardContext) -> Optional[Plan]:
         """-> the Plan of a body, or None for a plan with no hits and no
-        aggs. A body with aggs has no fast or impact spec (the
-        reference's `_body_eligible`)."""
+        aggs. A body with aggs or a named clause has no fast or impact
+        spec (the reference's `_body_eligible`)."""
         window = B.check_body(body)
         order = B.Order.of(body, window)
         aggs = A.parse_aggs(body.get("aggs", body.get("aggregations")))
         A.check_ported(aggs)
         lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
-        if aggs:
-            return Plan(lroot, None, None, window, order, aggs)
+        named = collect_named(lroot)
+        if aggs or named:
+            return Plan(lroot, None, None, window, order, aggs, named)
         if isinstance(lroot, C.LMatchNone):
             return None
         return Plan(lroot, fastpath.make_spec(lroot, window, body),
@@ -185,7 +194,7 @@ class ShardSearcher:
         # of two
         k_pad = min(next_pow2(max(plan.order.need, 16)), seg.ndocs_pad)
         return C.run_segment(plan.lroot, seg, ctx, k_pad, self.device,
-                             plan.aggs, plan.order)
+                             plan.aggs, plan.order, plan.named)
 
     def collect_view_topk(self, result: ShardQueryResult, view,
                           out: dict, order: B.Order) -> None:
@@ -220,15 +229,17 @@ class ShardSearcher:
     def collect_topk(self, result: ShardQueryResult, out: dict,
                      seg: Segment, seg_ord: int, order: B.Order) -> None:
         """Fold one segment's top-k output into the shard result: every
-        valid candidate with its host sort tuple, less those under
-        `min_score` (score order only) and, under several sort keys,
-        those not strictly after the cursor; the device counted the docs
-        after the cursor's primary key, and the host adds those tied with
-        it that are after its full tuple (the segment's window holds all
-        of them, `compiler.run_segment`)."""
+        valid candidate with its host sort tuple and the names of the
+        named clauses it matches (`out["named"]`: name -> matched at each
+        top-k doc, from the general program), less those under `min_score` (score order only) and, under
+        several sort keys, those not strictly after the cursor; the
+        device counted the docs after the cursor's primary key, and the
+        host adds those tied with it that are after its full tuple (the
+        segment's window holds all of them, `compiler.run_segment`)."""
         idx = out["topk_idx"]
         scores = out["topk_scores"]
         keys = out.get("topk_key", scores)
+        named = out.get("named")
         self._fold_totals(result, out)
         cursor = (cursor_tuple(order)
                   if order.after is not None and order.multi else None)
@@ -250,6 +261,9 @@ class ShardSearcher:
             if order.min_score is not None and not order.field_sort \
                     and sc < order.min_score:
                 continue
+            if named:
+                c.matched_queries = [nm for nm, hit in named.items()
+                                     if hit[j]]
             result.candidates.append(c)
 
     def fetch_phase(self, result: ShardQueryResult,
@@ -298,6 +312,8 @@ class ShardSearcher:
                                 hl_terms)
             if hl:
                 hit["highlight"] = hl
+        if c.matched_queries:
+            hit["matched_queries"] = c.matched_queries
         return hit
 
     def highlight(self, source: dict, hl_body: dict, hl_terms: dict) -> dict:
@@ -330,6 +346,28 @@ class ShardSearcher:
             if frags:
                 hl[fname] = frags
         return hl
+
+
+def collect_named(lroot: C.LNode) -> List[Tuple[str, C.LNode]]:
+    """(name, node) of every named node of a plan, as the reference's
+    `_collect_named` walks it: a bool's clauses, a dis_max's children, a
+    constant_score's or terms_set's child, a boosting's both sides; not
+    a pinned query's organic clause."""
+    out = []
+
+    def walk(n):
+        if n is None:
+            return
+        if n.name:
+            out.append((n.name, n))
+        for attr in ("musts", "shoulds", "must_nots", "filters", "children"):
+            for c in getattr(n, attr, ()):
+                walk(c)
+        for attr in ("child", "positive", "negative"):
+            walk(getattr(n, attr, None))
+
+    walk(lroot)
+    return out
 
 
 def finish_candidates(result: ShardQueryResult, need: int) -> None:

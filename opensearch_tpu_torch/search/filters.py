@@ -16,7 +16,11 @@ Served nodes:
   `LExpandTerms`: docs with a posting in any of the expanded rows;
 - `LConstScore`: its child's mask; `LMatchNone`: no doc; `LMatchAll`:
   every doc;
-- `LExists`: docs with a value (`present_mask`); `LIds`: the listed docs.
+- `LExists`: docs with a value (`present_mask`); `LIds`: the listed docs;
+- `LDisMax`: any child's docs; `LBoosting`: its positive side's;
+  `LTermsSet`: docs holding at least their own minimum of the terms;
+  `LPinned`: the pinned docs and the organic mask; `LCombined`: docs
+  holding at least `msm` of the terms over the weighted fields.
 Any other node raises `NotPortedError`. A mask ignores deletes: every
 consumer ANDs the segment's live mask itself (the general path starts
 each bool from it; the fast path serves no segment with deletes), so a
@@ -27,7 +31,11 @@ what the reference's mask-cache digest hashes: a term group's rows,
 weights, msm, avgdl, boost, similarity and mode; a range's kind, its
 i64 or f32 bounds, flags and boost; a bool's msm, boost and children. Clauses the reference
 caches as one mask share one mask here. A phrase's key is its term rows,
-slop and cost mode, an expansion's its rows.
+slop and cost mode, an expansion's its rows; a compound node's key holds
+what its mask reads (a dis_max's children, a boosting's positive side,
+a terms_set's minimum field and term group, a pinned query's docs and
+organic clause, a combined_fields query's weighted fields, rows and
+msm).
 """
 
 from __future__ import annotations
@@ -93,6 +101,24 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
         return ("ids", tuple(sorted({d for d in (seg.local_doc(i)
                                                   for i in node.ids)
                                      if d >= 0})))
+    if isinstance(node, C.LDisMax):
+        return ("dismax",) + tuple(mask_key(c, seg, ctx)
+                                   for c in node.children)
+    if isinstance(node, C.LBoosting):
+        return ("boosting", mask_key(node.positive, seg, ctx))
+    if isinstance(node, C.LTermsSet):
+        return ("terms_set", node.msm_field, mask_key(node.child, seg, ctx))
+    if isinstance(node, C.LPinned):
+        return ("pinned", tuple(sorted(set(C.pinned_docs(node, seg)[0]))),
+                None if node.organic is None
+                else mask_key(node.organic, seg, ctx))
+    if isinstance(node, C.LCombined):
+        rows = tuple(
+            tuple(pb.row(t) for t in node.terms) if pb is not None else None
+            for pb in (seg.postings.get(f) for f, _w in node.fields))
+        return ("combined", tuple((f, float(np.float32(w)))
+                                  for f, w in node.fields), rows,
+                float(np.float32(node.msm)))
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 
@@ -111,18 +137,7 @@ def filter_mask(node: C.LNode, seg, ctx: C.ShardContext,
 def _mask(node, seg, ctx, device) -> torch.Tensor:
     nd = seg.ndocs
     if isinstance(node, C.LTerms):
-        pb = seg.postings.get(node.field)
-        if pb is None:
-            return torch.zeros(nd, dtype=torch.bool, device=device)
-        count = torch.zeros(nd, dtype=torch.int32, device=device)
-        for t in node.terms:
-            r = pb.row(t)
-            if r < 0:
-                continue
-            a, b = pb.row_slice(r)
-            docs = torch.from_numpy(pb.doc_ids[a:b]).to(device).long()
-            # doc ids are unique within a row: one add per doc
-            count[docs] += 1
+        count = _term_counts(node, seg, device)
         if node.mode == "filter":
             return count > 0
         return (count > 0) & (count.to(torch.float32)
@@ -165,7 +180,42 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
         return present_mask(node.field, seg, device)
     if isinstance(node, C.LIds):
         return ops.docs_mask(mask_key(node, seg, ctx)[1], nd, device)
+    if isinstance(node, C.LDisMax):
+        m = torch.zeros(nd, dtype=torch.bool, device=device)
+        for c in node.children:
+            m |= filter_mask(c, seg, ctx, device)
+        return m
+    if isinstance(node, C.LBoosting):
+        return filter_mask(node.positive, seg, ctx, device)
+    if isinstance(node, C.LTermsSet):
+        return (_term_counts(node.child, seg, device).to(torch.float32)
+                >= C.terms_set_need(node, seg, device))
+    if isinstance(node, C.LPinned):
+        m = ops.docs_mask(C.pinned_docs(node, seg)[0], nd, device)
+        if node.organic is not None:
+            m |= filter_mask(node.organic, seg, ctx, device)
+        return m
+    if isinstance(node, C.LCombined):
+        return (C.combined_counts(node, seg, device)
+                >= float(np.float32(node.msm)))
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
+
+
+def _term_counts(node: C.LTerms, seg, device: torch.device) -> torch.Tensor:
+    """i32[ndocs]: how many of the group's terms each doc holds."""
+    count = torch.zeros(seg.ndocs, dtype=torch.int32, device=device)
+    pb = seg.postings.get(node.field)
+    if pb is None:
+        return count
+    for t in node.terms:
+        r = pb.row(t)
+        if r < 0:
+            continue
+        a, b = pb.row_slice(r)
+        docs = torch.from_numpy(pb.doc_ids[a:b]).to(device).long()
+        # doc ids are unique within a row: one add per doc
+        count[docs] += 1
+    return count
 
 
 def _bounds(node: C.LRange) -> tuple:

@@ -99,9 +99,12 @@ def _mark(text: str, spans: List[tuple], pre: str, post: str) -> str:
 
 def collect_query_terms(lnode) -> Dict[str, Set[str]]:
     """field -> the query's terms, from the logical plan: term groups,
-    phrases (a prefix last term as "term*"), and the must, should and
-    filter clauses of a bool and the child of a constant_score."""
-    from .compiler import LBool, LConstScore, LPhrase, LTerms
+    phrases (a prefix last term as "term*"), the must, should and filter
+    clauses of a bool, the child of a constant_score, a dis_max's
+    children and a boosting's positive side; not a combined_fields,
+    terms_set or pinned query, as in the reference."""
+    from .compiler import (LBool, LBoosting, LConstScore, LDisMax, LPhrase,
+                           LTerms)
 
     out: Dict[str, Set[str]] = {}
 
@@ -118,6 +121,11 @@ def collect_query_terms(lnode) -> Dict[str, Set[str]]:
                 walk(c)
         elif isinstance(n, LConstScore):
             walk(n.child)
+        elif isinstance(n, LDisMax):
+            for c in n.children:
+                walk(c)
+        elif isinstance(n, LBoosting):
+            walk(n.positive)
 
     walk(lnode)
     return out

@@ -1,9 +1,12 @@
 """Query DSL parsing for the query kinds the port serves (the match_all,
-match_none, term, terms, match, match_bool_prefix, match_phrase,
-match_phrase_prefix, span_term, span_near, intervals, bool,
-constant_score, range, exists, ids, prefix, wildcard, regexp and fuzzy
-subset of opensearch_tpu/search/query_dsl.py). A body without a query is
-`match_all`.
+match_none, term, terms, terms_set, match, multi_match, combined_fields,
+match_bool_prefix, match_phrase, match_phrase_prefix, span_term,
+span_near, intervals, bool, constant_score, boosting, dis_max, pinned,
+wrapper, range, exists, ids, prefix, wildcard, regexp and fuzzy subset of
+opensearch_tpu/search/query_dsl.py). A body without a query is
+`match_all`. A clause's `_name` is kept for `matched_queries`; a
+`wrapper` is its base64 JSON query, parsed again (its own `boost` and
+`_name` unread, as in the reference).
 
 Another kind the reference parses raises `NotPortedError` naming it; a
 kind it does not know, and malformed bodies, raise `QueryParseError`
@@ -12,6 +15,8 @@ kind it does not know, and malformed bodies, raise `QueryParseError`
 
 from __future__ import annotations
 
+import base64
+import json
 from dataclasses import dataclass, field as dc_field
 from typing import Any, List, Optional, Tuple
 
@@ -69,6 +74,56 @@ class MatchQuery(Query):
     minimum_should_match: Optional[str] = None
     analyzer: Optional[str] = None
     fuzziness: Optional[Any] = None
+
+
+@dataclass
+class MultiMatchQuery(Query):
+    fields: List[str] = dc_field(default_factory=list)
+    query: Any = None
+    type: str = "best_fields"
+    operator: str = "or"
+    tie_breaker: float = 0.0
+    minimum_should_match: Optional[str] = None
+
+
+@dataclass
+class TermsSetQuery(Query):
+    """terms_set: a per-doc minimum should match from a numeric field (a
+    script form is parsed and raises at the rewrite)."""
+
+    field: str = ""
+    terms: List[Any] = dc_field(default_factory=list)
+    minimum_should_match_field: Optional[str] = None
+    minimum_should_match_script: Optional[Any] = None
+
+
+@dataclass
+class CombinedFieldsQuery(Query):
+    """combined_fields: BM25F over weighted fields."""
+
+    query: Any = None
+    fields: List[str] = dc_field(default_factory=list)
+    operator: str = "or"
+    minimum_should_match: Optional[str] = None
+
+
+@dataclass
+class PinnedQuery(Query):
+    ids: List[str] = dc_field(default_factory=list)
+    organic: Optional[Query] = None
+
+
+@dataclass
+class BoostingQuery(Query):
+    positive: Optional[Query] = None
+    negative: Optional[Query] = None
+    negative_boost: float = 0.5
+
+
+@dataclass
+class DisMaxQuery(Query):
+    queries: List[Query] = dc_field(default_factory=list)
+    tie_breaker: float = 0.0
 
 
 @dataclass
@@ -188,8 +243,6 @@ def _common(q: Query, body: Any) -> None:
     if isinstance(body, dict):
         q.boost = float(body.get("boost", 1.0))
         q.name = body.get("_name")
-        if q.name is not None:
-            raise NotPortedError("named queries ([_name])")
 
 
 def parse_query(dsl: Optional[dict]) -> Query:
@@ -237,9 +290,27 @@ def parse_query(dsl: Optional[dict]) -> Query:
             raise QueryParseError("[terms] query requires exactly one field")
         f, vals = fields[0]
         if isinstance(vals, dict):
+            # a terms lookup: the reference reads the lookup object's keys
+            # as the terms (no hit), where OpenSearch fetches the terms
             raise NotPortedError("terms lookup")
         q = TermsQuery(field=f, values=list(vals))
         _common(q, opts)
+        return q
+
+    if kind == "terms_set":
+        f, spec = _one_entry(body, "terms_set")
+        if not isinstance(spec, dict) or "terms" not in spec:
+            raise QueryParseError("[terms_set] requires [terms]")
+        msf = spec.get("minimum_should_match_field")
+        mss = spec.get("minimum_should_match_script")
+        if msf is None and mss is None:
+            raise QueryParseError(
+                "[terms_set] requires [minimum_should_match_field] or "
+                "[minimum_should_match_script]")
+        q = TermsSetQuery(field=f, terms=list(spec["terms"]),
+                          minimum_should_match_field=msf,
+                          minimum_should_match_script=mss)
+        _common(q, spec)
         return q
 
     if kind == "match":
@@ -254,6 +325,43 @@ def parse_query(dsl: Optional[dict]) -> Query:
             _common(q, spec)
         else:
             q = MatchQuery(field=f, query=spec)
+        return q
+
+    if kind == "multi_match":
+        q = MultiMatchQuery(fields=list(body.get("fields", [])),
+                            query=body.get("query"),
+                            type=body.get("type", "best_fields"),
+                            operator=str(body.get("operator", "or")).lower(),
+                            tie_breaker=float(body.get("tie_breaker", 0.0)),
+                            minimum_should_match=body.get(
+                                "minimum_should_match"))
+        _common(q, body)
+        return q
+
+    if kind == "combined_fields":
+        q = CombinedFieldsQuery(query=body.get("query"),
+                                fields=list(body.get("fields", [])),
+                                operator=str(body.get("operator",
+                                                      "or")).lower(),
+                                minimum_should_match=body.get(
+                                    "minimum_should_match"))
+        if not q.fields:
+            raise QueryParseError("[combined_fields] requires [fields]")
+        _common(q, body)
+        return q
+
+    if kind == "wrapper":
+        try:
+            inner = json.loads(base64.b64decode(body["query"]))
+        except Exception as e:
+            raise QueryParseError(f"[wrapper] cannot decode query: {e}")
+        return parse_query(inner)
+
+    if kind == "pinned":
+        organic = body.get("organic")
+        q = PinnedQuery(ids=[str(i) for i in body.get("ids", [])],
+                        organic=parse_query(organic) if organic else None)
+        _common(q, body)
         return q
 
     if kind in ("match_phrase", "match_phrase_prefix"):
@@ -322,6 +430,21 @@ def parse_query(dsl: Optional[dict]) -> Query:
         _common(q, body)
         return q
 
+    if kind == "boosting":
+        q = BoostingQuery(positive=parse_query(body["positive"]),
+                          negative=parse_query(body["negative"]),
+                          negative_boost=float(body.get("negative_boost",
+                                                        0.5)))
+        _common(q, body)
+        return q
+
+    if kind == "dis_max":
+        q = DisMaxQuery(queries=[parse_query(x)
+                                 for x in body.get("queries", [])],
+                        tie_breaker=float(body.get("tie_breaker", 0.0)))
+        _common(q, body)
+        return q
+
     if kind == "match_bool_prefix":
         f, spec = _one_entry(body, "match_bool_prefix")
         if isinstance(spec, dict):
@@ -362,11 +485,10 @@ def parse_query(dsl: Optional[dict]) -> Query:
 # the other kinds the reference parses (opensearch_tpu/search/query_dsl.py
 # `parse_query`); any kind outside them and the port's is unknown there too
 REFERENCE_KINDS = frozenset((
-    "multi_match", "terms_set", "combined_fields", "wrapper", "pinned",
     "span_or", "span_not", "span_first", "span_containing", "span_within",
-    "span_multi", "field_masking_span", "boosting", "dis_max",
-    "query_string", "simple_query_string", "geo_distance",
-    "geo_bounding_box", "geo_polygon", "geo_shape", "more_like_this",
+    "span_multi", "field_masking_span", "query_string",
+    "simple_query_string", "geo_distance", "geo_bounding_box",
+    "geo_polygon", "geo_shape", "more_like_this",
     "function_score", "script", "script_score", "knn", "nested",
     "has_child", "has_parent", "parent_id", "rank_feature",
     "distance_feature", "neural_sparse", "hybrid", "percolate"))

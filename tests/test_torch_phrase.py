@@ -537,8 +537,8 @@ UNPORTED = [
         "query": "quick fox",
         "filter": {"not_containing": {"match": {"query": "brown"}}}}}}},
      r"intervals \[filter\] \[not_containing\]"),
-    ({"multi_match": {"query": "quick brown", "fields": ["body"],
-                      "type": "phrase"}}, "multi_match"),
+    ({"simple_query_string": {"query": "quick brown", "fields": ["body"]}},
+     r"query \[simple_query_string\]"),
     ({"query_string": {"query": "quick", "default_field": "body"}},
      r"query \[query_string\]"),
 ]

@@ -386,7 +386,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "r = c.search('t', {'query': {'bool': {\n"
         "    'must': [{'match': {'body': 'hello'}}],\n"
         "    'filter': [{'range': {'n': {'gte': 1}}}]}}})\n"
-        "for q in ({'regexp': {'body': 'hel.*'}}, {'fuzzy': {'body': 'helo'}}):\n"
+        "for q in ({'regexp': {'body': 'hel.*'}}, {'fuzzy': {'body': 'helo'}},\n"
+        "          {'multi_match': {'query': 'hello', 'fields': ['body'],\n"
+        "                           '_name': 'm'}},\n"
+        "          {'combined_fields': {'query': 'hello', 'fields': ['body']}}):\n"
         "    assert c.search('t', {'query': q})['hits']['total']['value'] == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'opensearch_tpu' or "
