@@ -5,7 +5,8 @@
                           [--general-queries G] [--phrase-queries P]
                           [--phrase-sloppy S] [--agg-queries A]
                           [--sort-queries R] [--expand-queries E]
-                          [--compound-queries C] [--seed S]
+                          [--compound-queries C] [--context-queries X]
+                          [--seed S] [--stop-after N]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -128,6 +129,29 @@ Phases, each of which fails the script when it fails:
      a class on the card against the CPU, the event ms of the tf gather,
      the dis_max and BM25F combines, the term scatter and the top-k, the
      device's peak bytes, one batch a class profiled;
+ 14. (run after 13, before 8) the search body's last options and the
+     calls around a search over phase 7's end state, --context-queries
+     bodies a class: count of phase 5's matches and phase 6's guardrail
+     bools against the brute force's totals; explain: true on matches
+     and filtered bools and the explain call on 8 ids, each
+     _explanation against a numpy evaluation of the same BM25 and the
+     hit's score; terminate_after 1 and a 1ms timeout on the two-segment
+     shard (gte totals), a 30s timeout giving the unbounded page; a
+     profile tree and validate_query verdicts; field_caps and the index
+     reads, and a small index deleted with its device state; then a
+     scroll of 8 pages of 500 over a mid-df term (a doc indexed after
+     the first page unseen, the pages disjoint and equal to the brute
+     force, a 404 after clear_scroll) and a point in time paging a 10%
+     price range newest first with 64 re-indexed and 64 deleted _ids
+     between its pages (the snapshot rule), a merge of a segment it holds
+     (its device state kept until delete_pit, then released), every
+     context cleared before phase 8; and, after phase 8 on the merged
+     segment, rescored bodies: a 2-term match (B2, B1) and phase 6's b3
+     bool shapes (B3) rescored over 50 lanes by a title pool bigram
+     phrase or a title term, the score modes cycling, one body of six
+     with two rescorers, each page against a numpy brute force of the
+     lanes, the rescore's event ms (emit + gather), bodies/s and p50/p99;
+     2 bodies a class on the card against the CPU;
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 16 of phase 5's match bodies on the segments with deletes,
@@ -146,8 +170,8 @@ Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
-one with phase 11's, one with phase 12's, one with phase 13's, a line
-with the kernels' numbers and, last, the device line.
+one with phase 11's, one with phase 12's, one with phase 13's, one with
+phase 14's, a line with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -2378,11 +2402,10 @@ class NumpyIndex:
         return ([self.id_of(int(g)) for g in docs[sel]],
                 score[sel].astype(np.float32).tolist(), len(docs))
 
-    def bool_page(self, slots, fam_msm: int, mask, const,
-                  size: int = 10) -> tuple:
+    def bool_scores(self, slots, fam_msm: int, mask, const) -> tuple:
         """A bool body as phase 6's `oracle_page` reads it (term slots
         "req" / "fam" / "bonus" summed in slot order, a filter mask, a
-        constant score or None), over the live docs: -> page()."""
+        constant score or None): (scores f32[n], passed bool[n])."""
         score = np.zeros(self.n, np.float32)
         n_req = np.zeros(self.n, np.int32)
         n_fam = np.zeros(self.n, np.int32)
@@ -2397,7 +2420,13 @@ class NumpyIndex:
         passed = mask & (n_req == want_req) & (n_fam >= fam_msm)
         if const is not None:
             score = np.full(self.n, np.float32(const), np.float32)
-        return self.page(score, passed, 0, size)
+        return score, passed
+
+    def bool_page(self, slots, fam_msm: int, mask, const,
+                  size: int = 10) -> tuple:
+        """page() of `bool_scores` over the live docs."""
+        return self.page(*self.bool_scores(slots, fam_msm, mask, const), 0,
+                         size)
 
     # ---------------- the positional title field ----------------
 
@@ -4862,6 +4891,624 @@ def phase_compound_merged(big: dict, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------
+# phase 14: the search body's last options and the calls around a search
+# ---------------------------------------------------------------------
+
+RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
+SCROLL_SIZE, SCROLL_PAGES = 500, 8
+PIT_SIZE, PIT_PAGES = 20, 4
+CONTEXT_WRITES = 64    # _ids (d) re-indexes between its pages, and deletes
+RESCORE_LANES = 16     # the kernels' lanes of a 10-hit page (K)
+SHORT_TIMEOUT = "1ms"  # spent by the big segment's query phase
+
+
+def np_combine(mode: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """A rescorer's score mode over f32 arrays, as the port combines."""
+    if mode == "total":
+        return a + b
+    if mode == "multiply":
+        return a * b
+    if mode == "avg":
+        return (a + b) / 2
+    return np.maximum(a, b) if mode == "max" else np.minimum(a, b)
+
+
+def rescored_page(ix, first, ok, rescorers, size: int = 10,
+                  k: int = RESCORE_LANES) -> tuple:
+    """The brute force of a rescored body on one segment: the first
+    phase's k best live matched docs by (score desc, doc asc) are the
+    lanes; each rescorer [(window_size, query weight, rescore weight,
+    mode, (scores f32[n], matched bool[n]))] turns the lanes before its
+    window into mode(qw x score, rw x rescore) where its query matches,
+    else qw x score; the page is the lanes by score, ties in lane order:
+    -> (ids, scores, total)."""
+    docs = np.flatnonzero(ok & ix.live)
+    lanes = top_by(first[docs], docs, k)
+    sc = first[lanes].astype(np.float32)
+    for ws, qw, rw, mode, (rs, rm) in rescorers:
+        qs = qw * sc
+        comb = np.where(rm[lanes], np_combine(mode, qs, rw * rs[lanes]), qs)
+        sc = np.where(np.arange(len(sc)) < ws, comb, sc).astype(np.float32)
+    order = np.argsort(-sc, kind="stable")[:size]
+    return ([ix.id_of(int(g)) for g in lanes[order]], sc[order].tolist(),
+            len(docs))
+
+
+def phrase_dense(ix, terms) -> tuple:
+    """(f32[n] scores, bool[n] matched) of a title match_phrase."""
+    d, s = ix.phrase(terms)
+    sc = np.zeros(ix.n, np.float32)
+    m = np.zeros(ix.n, bool)
+    sc[d], m[d] = s, True
+    return sc, m
+
+
+def rescore_classes(big: dict, n: int) -> dict:
+    """Phase 14's rescored bodies for the merged segment, `n` a class:
+    (a) a 2-term body match of phase 5, size 10, rescored over 50 lanes
+    (the kernels return 16) by a match_phrase of a title pool bigram of
+    one of its first-phase lanes (so that it matches), score modes
+    cycling, body 5 of each 6 with a second rescorer (a title term, max,
+    over 8 lanes); (a') phase 6's b3 bool shapes, rescored by a title
+    term of one of their lanes. name -> [(body, oracle(ix))]."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    ix = big["ix"]
+    title = big["title"]
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+    first_t, second_t, draw = title[5], title[6], title[8]
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    queries = bc.pick_queries(df, 4 * n)
+
+    def lane_pair(score, ok, i):
+        """A pool bigram of the title of one of the first phase's lanes
+        (a corpus doc, which has a title), or None without lanes."""
+        docs = np.flatnonzero(ok & ix.live)
+        lanes = [int(g) for g in top_by(score[docs], docs, RESCORE_LANES)
+                 if g < ix.n0]
+        if not lanes:
+            return None
+        g = lanes[(3 * i) % len(lanes)]
+        p = int(draw[g, i % 4])
+        return tvs[int(first_t[p])], tvs[int(second_t[p])]
+
+    match, boolean = [], []
+    cands = iter(range(len(big["body_terms"]) // 2))
+    while len(match) < n:
+        terms = list(big["body_terms"][2 * next(cands)])
+        score, ok = ix.group(terms)
+        i = len(match)
+        pair = lane_pair(score, ok, i)
+        if pair is None:
+            continue
+        a, b = pair
+        mode = RESCORE_MODES[i % len(RESCORE_MODES)]
+        body = {"query": {"match": {"body": " ".join(vs[t]
+                                                     for t in terms)}},
+                "size": 10, "rescore": [{"window_size": 50, "query": {
+                    "rescore_query": {"match_phrase": {"title": f"{a} {b}"}},
+                    "query_weight": 1.0, "rescore_query_weight": 1.5,
+                    "score_mode": mode}}]}
+        spec = [(50, 1.0, 1.5, mode, ("phrase", (a, b)))]
+        if i % 6 == 5:
+            body["rescore"].append({"window_size": 8, "query": {
+                "rescore_query": {"match": {"title": b}},
+                "score_mode": "max"}})
+            spec.append((8, 1.0, 1.0, "max", ("term", b)))
+        match.append((body, (lambda terms_, spec_: lambda ix_: (
+            rescored_page(ix_, *ix_.group(terms_), resolve(ix_, spec_))))(
+                terms, spec)))
+    for i in range(len(queries)):
+        if len(boolean) == n:
+            break
+        slots, fam, mask, const = bool_oracle("b3", i, queries, ix.status,
+                                              ix.price)
+        pair = lane_pair(*ix.bool_scores(slots, fam, mask, const), i + 1)
+        if pair is None:
+            continue
+        a = pair[0]
+        mode = RESCORE_MODES[(i + 2) % len(RESCORE_MODES)]
+        body = dict(bc.b3_body(i, queries, vs), rescore={
+            "window_size": 50, "query": {
+                "rescore_query": {"match": {"title": a}},
+                "rescore_query_weight": 2.0, "score_mode": mode}})
+        boolean.append((body, (lambda i_, spec_: lambda ix_: rescored_page(
+            ix_, *ix_.bool_scores(*bool_oracle("b3", i_, queries,
+                                               ix_.status, ix_.price)),
+            resolve(ix_, spec_)))(i, [(50, 1.0, 2.0, mode, ("term", a))])))
+    return {"a_rescore_match": match, "a2_rescore_bool": boolean}
+
+
+def resolve(ix, spec) -> list:
+    """A rescorer spec's query as dense (scores, matched) arrays."""
+    out = []
+    for ws, qw, rw, mode, (kind, arg) in spec:
+        if kind == "phrase":
+            q = phrase_dense(ix, list(arg))
+        else:
+            s, c = title_terms(ix, [arg])
+            q = (s, c > 0)
+        out.append((ws, qw, rw, mode, q))
+    return out
+
+
+def gather_timer():
+    """CUDA events around the rescore's second pass
+    (`compiler.gather_scores`: the rescore query's emit, then the gather
+    at the lanes), on the card: -> (restore(), [(start, end)])."""
+    import torch
+    from opensearch_tpu_torch.search import compiler as C
+    spans = []
+    real = C.gather_scores
+
+    def timed(lroot, seg, ctx, docs, device):
+        if device.type != "cuda":
+            return real(lroot, seg, ctx, docs, device)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(lroot, seg, ctx, docs, device)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+    C.gather_scores = timed
+
+    def restore():
+        C.gather_scores = real
+    return restore, spans
+
+
+def run_rescore_class(client, name: str, items, ix, cpu,
+                      rtol: float = 4e-6) -> dict:
+    """A rescored class body by body through RestClient.search (a
+    rescored body leaves an msearch batch), counts set to 0 just before,
+    under the gather timer: every page against the brute force, 2 bodies
+    on the card against the CPU: -> the class's numbers."""
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, impactpath
+    bm25.reset_counts()
+    fastpath.reset_stats()
+    impactpath.reset_stats()
+    C.reset_stats()
+    restore, spans = gather_timer()
+    lat, resps = [], []
+    t0 = time.perf_counter()
+    try:
+        for body, _o in items:
+            tb = time.perf_counter()
+            resps.append(client.search("bench", body))
+            lat.append((time.perf_counter() - tb) * 1e3)
+        device_bytes(client.device)    # a sync on the card
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    counts, rungs = dict(bm25.COUNTS), dict(fastpath.STATS)
+    rungs.update(impact_served=impactpath.STATS["served"],
+                 general=C.STATS["general_served"])
+    for (b, oracle), r in zip(items, resps):
+        check_page(r, oracle(ix), f"{name} body {b}", rtol)
+    for body, _o in items[:2]:
+        if strip_took(client.search("bench", body)) \
+                != strip_took(cpu.search("bench", body)):
+            raise AssertionError(f"{name}: card and CPU responses differ")
+    n = len(items)
+    ev_sum = sum(a.elapsed_time(e) for a, e in spans)
+    ev = ev_sum / max(len(spans), 1)
+    idle = (profile_batch(client, [b for b, _o in items[:4]])
+            if client.device.type == "cuda" else None)
+    out = {"bodies_per_s": n / wall, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "counts": counts,
+           "rungs": rungs, "rescore_event_ms_per_pass": ev,
+           "rescore_event_ms_per_body": ev_sum / n,
+           "rescore_passes": len(spans), "idle_share_one_batch": idle}
+    log(f"  {name}: bodies={n} bodies/s={n / wall:.1f} p50_ms="
+        f"{out['p50_ms']:.1f} p99_ms={out['p99_ms']:.1f} first phase: "
+        f"B1={counts['launches']} B2={counts['impact_launches']} "
+        f"B3={counts['bool_launches']} plain_calls={counts['plain_calls']} "
+        f"rungs " + " ".join(f"{k}={v}" for k, v in rungs.items() if v)
+        + f"; rescore passes {len(spans)}, event ms a pass (emit + gather) "
+        f"{ev:.3f}, a body {ev_sum / n:.3f}; {n} pages == numpy brute "
+        f"force; 2 bodies card == CPU; idle share of 4 bodies {idle}")
+    return out
+
+
+def phase_rescore_merged(big: dict, n: int) -> dict:
+    """Phase 14's rescore classes on phase 8's merged segment (the kernels
+    decline a segment with deletes): the first phase on B2 and B1 (the
+    match) and on B3 (the bool), the second as torch ops."""
+    client = big["client"]
+    cpu = twin_of(client._indices["bench"].engine)
+    out = {}
+    for name, items in rescore_classes(big, n).items():
+        # within 4e-6 relative: the first phase's and the rescore query's
+        # f32 sums (each within 1e-6 of the brute force), then combined
+        out[name] = r = run_rescore_class(client, name, items, big["ix"],
+                                          cpu)
+        c = r["counts"]
+        on = (c["bool_launches"] if name.startswith("a2")
+              else c["launches"] + c["impact_launches"])
+        if not on or c["plain_calls"] or r["rungs"]["general"] \
+                or r["rungs"]["impact_served"]:
+            raise AssertionError(f"{name}: the first phase is not on its "
+                                 f"kernels: {r}")
+    return out
+
+
+def device_bytes(dev) -> int:
+    """Bytes the caching allocator holds on the card (0 on the CPU)."""
+    import torch
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def np_explain(ix, terms, g: int) -> float:
+    """A body term group's explanation value of global doc g, the way
+    the reference's explain_doc sums it: Python floats, terms in query
+    order, f32 idf, k1 (1 - b + b dl / avgdl) with avgdl = sum_dl /
+    maxDoc."""
+    avgdl = ix.sum_dl / ix.n_stats
+    dl = float(ix.dl[g])
+    total = 0.0
+    for t in dict.fromkeys(terms):
+        d, tf = ix.row(t)
+        j = int(np.searchsorted(d, g))
+        if j < len(d) and d[j] == g:
+            w = float(ix.weight(len(d)))
+            tfv = float(tf[j])
+            kk = 1.2 * (1 - 0.75 + 0.75 * dl / max(avgdl, 1e-9))
+            total += w * tfv / (tfv + kk)
+    return total
+
+
+def g_of(ix, doc_id: str) -> int:
+    """The brute force's global id of a live `_id`: a corpus doc, else
+    the last doc indexed under it."""
+    if doc_id.isdigit() and int(doc_id) < ix.n0 and ix.live[int(doc_id)]:
+        return int(doc_id)
+    return ix.n0 + len(ix.new_ids) - 1 - ix.new_ids[::-1].index(doc_id)
+
+
+def phase_options_msmarco(big: dict, n: int) -> dict:
+    """Phase 14 on phase 7's end state (the big segment with deletes,
+    the re-indexed docs' segment): count, explain, the budgets, profile
+    and validate_query, the index reads; then a scroll and a point in
+    time over the same segments with writes between their pages; every
+    context cleared at the end. 2 bodies a class on the card against the
+    CPU."""
+    from opensearch_tpu_torch import ApiError
+    from opensearch_tpu_torch import bench_corpus as bc
+    client = big["client"]
+    ix = big["ix"]
+    eng = client._indices["bench"].engine
+    dev = client.device
+    cpu = twin_of(eng)
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    queries = bc.pick_queries(df, max(n, 4))
+    out: dict = {}
+    t0 = time.perf_counter()
+
+    def same_on_cpu(fn, what):
+        if strip_took(fn(client)) != strip_took(fn(cpu)):
+            raise AssertionError(f"{what}: card and CPU differ")
+
+    def match_terms(i):
+        return list(big["body_terms"][2 * i])
+
+    def match_q(i):
+        return {"match": {"body": " ".join(vs[t] for t in match_terms(i))}}
+
+    # (a0) a rescored body with the first phase on the general path (the
+    # kernels decline the big segment's deletes): the rescore's phase 2
+    # over two segments
+    body = {"query": match_q(0), "rescore": {"window_size": 16, "query": {
+        "rescore_query": {"match": {"body": vs[match_terms(1)[0]]}},
+        "score_mode": "total"}}}
+    if not client.search("bench", body)["hits"]["hits"]:
+        raise AssertionError("(a0) rescore: an empty page")
+    same_on_cpu(lambda c: c.search("bench", body), "(a0) rescore")
+    # (b) count: phase 5's matches and phase 6's guardrail bools
+    t = time.perf_counter()
+    for i in range(n):
+        ts = match_terms(i)
+        got = client.count("bench", {"query": match_q(i)})["count"]
+        want = int((ix.group(ts)[1] & ix.live).sum())
+        bbody = bc.bool_body(i, queries, vs)
+        gotb = client.count("bench", bbody)["count"]
+        wantb = ix.bool_page(*bool_oracle("guardrail", i, queries,
+                                          ix.status, ix.price))[2]
+        if (got, gotb) != (want, wantb):
+            raise AssertionError(f"(b) count {i}: {got}, {gotb} != the "
+                                 f"brute force {want}, {wantb}")
+        if i < 2:
+            same_on_cpu(lambda c: c.count("bench", bbody), "(b) count")
+    out["count_s"] = time.perf_counter() - t
+    log(f"  (b) count: {2 * n} bodies == the brute force's totals "
+        f"({out['count_s']:.2f}s), 2 card == CPU")
+    # (e) explain: explain: true on matches and bools, then the call
+    t = time.perf_counter()
+    worst = 0.0
+    for i in range(n):
+        ts = match_terms(i)
+        for q in (match_q(i), {"bool": {"must": [match_q(i)], "filter": [
+                {"term": {"status": "published"}}]}}):
+            resp = client.search("bench", {"query": q, "explain": True})
+            for h in resp["hits"]["hits"]:
+                g = g_of(ix, h["_id"])
+                want = np_explain(ix, ts, g)
+                got = h["_explanation"]["value"]
+                worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
+                if abs(got - want) > 1e-12 * abs(want) or not np.isclose(
+                        got, h["_score"], rtol=1e-5, atol=0):
+                    raise AssertionError(f"(e) explain {h['_id']}: {got} "
+                                         f"vs numpy {want}, score "
+                                         f"{h['_score']}")
+            if i < 2:
+                same_on_cpu(lambda c: c.search("bench", {
+                    "query": q, "explain": True, "size": 3}), "(e) explain")
+    hits = client.search("bench", {"query": match_q(0), "size": 6})
+    ids = [h["_id"] for h in hits["hits"]["hits"]] + [
+        str(g) for g in range(17, ix.n0, 4225) if ix.live[g]][:2]
+    for doc_id in ids:
+        got = client.explain("bench", doc_id, {"query": match_q(0)})
+        want = np_explain(ix, match_terms(0), g_of(ix, doc_id))
+        if abs(got["explanation"]["value"] - want) > 1e-12 * abs(want) \
+                or got["matched"] != (want > 0):
+            raise AssertionError(f"(e) explain call {doc_id}: {got} vs "
+                                 f"numpy {want}")
+    same_on_cpu(lambda c: c.explain("bench", ids[0], {"query": match_q(0)}),
+                "(e) explain call")
+    out["explain_s"] = time.perf_counter() - t
+    log(f"  (e) explain: {2 * n} bodies' hits and 8 explain calls == a "
+        f"numpy evaluation (largest relative difference {worst:.2e}), "
+        f"scores within 1e-5 ({out['explain_s']:.2f}s)")
+    # (f) terminate_after and timeout on the two-segment shard
+    full = client.search("bench", {"query": match_q(1)})
+    ta = client.search("bench", {"query": match_q(1), "terminate_after": 1})
+    to = client.search("bench", {"query": match_q(1),
+                                 "timeout": SHORT_TIMEOUT})
+    long = client.search("bench", {"query": match_q(1), "timeout": "30s"})
+    check_page(long, ix.page(*ix.group(match_terms(1)), 0, 10),
+               "(f) timeout 30s")
+    if not (ta.get("terminated_early") and ta["hits"]["total"]["relation"]
+            == "gte" and to["timed_out"] and to["hits"]["total"][
+                "relation"] == "gte" and not long["timed_out"]
+            and strip_took(long) == strip_took(full)):
+        raise AssertionError(f"(f) budgets: {ta['hits']['total']} "
+                             f"{to['timed_out']} {to['hits']['total']}")
+    same_on_cpu(lambda c: c.search("bench", {"query": match_q(1),
+                                             "terminate_after": 1}),
+                "(f) terminate_after")
+    log(f"  (f) terminate_after 1: terminated_early, total "
+        f"{ta['hits']['total']}; timeout {SHORT_TIMEOUT}: timed_out, total "
+        f"{to['hits']['total']}, {len(to['hits']['hits'])} hits; timeout "
+        f"30s == the unbounded page == the brute force")
+    # (g) profile and validate_query
+    prof = client.search("bench", {"query": match_q(2), "profile": True})
+    root = prof["profile"]["shards"][0]["searches"][0]["query"][0]
+    want_desc = f"body:{[vs[t] for t in dict.fromkeys(match_terms(2))]}"
+    if (root["type"], root["description"]) != ("Terms", want_desc) or \
+            root["time_in_nanos"] <= 0:
+        raise AssertionError(f"(g) profile root {root}")
+    verdicts = [client.validate_query("bench", b, explain=True)
+                for b in ({"query": match_q(2)}, {"query": {"nope": {}}},
+                          {"query": {"range": {"body": {"gte": 1}}}})]
+    if [v["valid"] for v in verdicts] != [True, False, False]:
+        raise AssertionError(f"(g) validate_query {verdicts}")
+    same_on_cpu(lambda c: c.validate_query("bench", {"query": match_q(2)},
+                                           explain=True), "(g) validate")
+    log(f"  (g) profile: root {root['type']}({root['description']}) "
+        f"{root['time_in_nanos']} ns, rescore_path "
+        f"{prof['profile']['shards'][0]['device']['rescore_path']}; "
+        f"validate_query verdicts True, False, False")
+    # (h) field caps and the index reads, then a small index deleted
+    caps = client.field_caps("bench")["fields"]
+    want_caps = {"body": "text", "title": "text", "status": "keyword",
+                 "price": "integer", "ts": "date", "rating": "double"}
+    if {f: next(iter(v)) for f, v in caps.items()} != want_caps:
+        raise AssertionError(f"(h) field_caps {caps}")
+    got = client.indices.get("bench")["bench"]
+    if got["mappings"] != client.indices.get_mapping("bench")["bench"][
+            "mappings"] or set(got["mappings"]["properties"]) != set(
+                want_caps) or client.indices.get_settings("bench") != {
+                    "bench": {"settings": {"index": {}}}}:
+        raise AssertionError(f"(h) indices.get {got}")
+    same_on_cpu(lambda c: c.indices.get("bench"), "(h) indices.get")
+    client.indices.create("small14", {"mappings": {"properties": {
+        "body": {"type": "text"}}}})
+    client.bulk(sum([[{"index": {"_index": "small14", "_id": str(i)}},
+                      {"body": f"w{i % 3} w{i % 5}"}] for i in range(40)],
+                    []), refresh=True)
+    client.search("small14", {"query": {"match": {"body": "w1 w2"}}})
+    segs = list(client._indices["small14"].engine.segments)
+    held = sum(bool(s.aligned or s.device_arrays) for s in segs)
+    client.indices.delete("small14")
+    if not held or client.indices.exists("small14") or any(
+            s.aligned or s.device_arrays for s in segs):
+        raise AssertionError("(h) indices.delete left device state")
+    log(f"  (h) field_caps, indices.get, get_mapping, get_settings on the "
+        f"{ix.n0}-passage index; a small index's device state released by "
+        f"indices.delete, exists false after")
+    bytes_before = device_bytes(dev)
+
+    # (c) scroll: a mid-df term, SCROLL_PAGES pages of SCROLL_SIZE
+    order = np.argsort(np.abs(df.astype(np.int64) - 50_000))
+    term = int(next(t for t in order if df[t] > SCROLL_PAGES * SCROLL_SIZE))
+    want_pages = [ix.group_page([term], k * SCROLL_SIZE, SCROLL_SIZE)
+                  for k in range(SCROLL_PAGES)]
+    sbody = {"query": {"match": {"body": vs[term]}}, "size": SCROLL_SIZE}
+    t = time.perf_counter()
+    first = client.search("bench", sbody, scroll="1m")
+    cfirst = cpu.search("bench", sbody, scroll="1m")
+    # a doc indexed and refreshed after the first page, outside the
+    # snapshot; (d)'s range holds it (it has no ts: sorted last there)
+    client.index("bench", {"body": f"{vs[term]} {vs[term]}",
+                           "status": "published", "price": 301},
+                 id="late14", refresh=True)
+    ix.add([term, term], 2, 301, "late14")
+    pages, lat = [first], []
+    cpages = [cfirst]
+    for _k in range(1, SCROLL_PAGES):
+        tb = time.perf_counter()
+        pages.append(client.scroll(first["_scroll_id"], scroll="1m"))
+        lat.append((time.perf_counter() - tb) * 1e3)
+        cpages.append(cpu.scroll(cfirst["_scroll_id"]))
+    seen: list = []
+    for k, (p, cp, want) in enumerate(zip(pages, cpages, want_pages)):
+        check_page(p, want, f"(c) scroll page {k}")
+        if strip_took({**p, "_scroll_id": 0}) \
+                != strip_took({**cp, "_scroll_id": 0}):
+            raise AssertionError(f"(c) scroll page {k}: card != CPU")
+        seen += [h["_id"] for h in p["hits"]["hits"]]
+    if len(seen) != len(set(seen)) or "late14" in seen \
+            or len(seen) != SCROLL_PAGES * SCROLL_SIZE:
+        raise AssertionError("(c) scroll pages overlap, miss docs or see "
+                             "the late doc")
+    for c, sid in ((client, first["_scroll_id"]),
+                   (cpu, cfirst["_scroll_id"])):
+        c.clear_scroll(scroll_id=sid)
+        try:
+            c.scroll(sid)
+            raise AssertionError("(c) a cleared scroll answered")
+        except ApiError as e:
+            if e.status != 404:
+                raise
+    out["scroll"] = {"df": int(df[term]), "pages": SCROLL_PAGES,
+                     "size": SCROLL_SIZE,
+                     "page_ms_p50": float(np.percentile(lat, 50)),
+                     "page_ms_p99": float(np.percentile(lat, 99)),
+                     "wall_s": time.perf_counter() - t}
+    log(f"  (c) scroll: term df {int(df[term])}, {SCROLL_PAGES} pages of "
+        f"{SCROLL_SIZE} == the brute force, disjoint, card == CPU; the "
+        f"late doc unseen; page ms p50 {out['scroll']['page_ms_p50']:.1f} "
+        f"p99 {out['scroll']['page_ms_p99']:.1f}; cleared, then 404")
+
+    # (d) point in time: newest first over a ~10% price range, with
+    # CONTEXT_WRITES re-indexed and as many deleted _ids between pages
+    t = time.perf_counter()
+    lo = 300      # the late doc's price, 301, is in the range
+    pbody = {"query": {"range": {"price": {"gte": lo, "lt": lo + 100}}},
+             "sort": [{"ts": "desc"}], "size": PIT_SIZE}
+    ts0 = big["aggs"][0]
+    later_ts, _r, later_has = ix.later_arrays()
+    ts_all = np.concatenate([ts0, later_ts])
+    has_ts = np.concatenate([np.ones(ix.n0, bool), later_has])
+    n_pit = ix.n
+    # a CPU twin over the same segments, the late doc's among them
+    cpu = twin_of(eng)
+    pid = client.create_pit("bench", keep_alive="2m")["pit_id"]
+    cpid = cpu.create_pit("bench", keep_alive="2m")["pit_id"]
+    snapshot = list(eng.segments)
+
+    def pit_page(after):
+        """The snapshot's page after the cursor: its docs (the first
+        n_pit of the brute force) live now, in the range, by (ts desc,
+        _id)."""
+        m = (ix.live[:n_pit] & (ix.price[:n_pit] >= lo)
+             & (ix.price[:n_pit] < lo + 100) & has_ts)
+        d = np.flatnonzero(m)
+        v = ts_all[d]
+        if after is not None:
+            d, v = d[v < after], v[v < after]
+        top = d[np.argsort(-v, kind="stable")[:4 * PIT_SIZE]].tolist()
+        top.sort(key=lambda g: (-int(ts_all[g]), ix.id_of(g)))
+        return [ix.id_of(g) for g in top[:PIT_SIZE]]
+
+    after = None
+    pit_pages = []
+    for k in range(PIT_PAGES):
+        b = dict(pbody, pit={"id": pid})
+        cb = dict(pbody, pit={"id": cpid})
+        if after is not None:
+            b["search_after"] = cb["search_after"] = [after]
+        resp = client.search(body=b)
+        cresp = cpu.search(body=cb)
+        got = [h["_id"] for h in resp["hits"]["hits"]]
+        if got != pit_page(after):
+            raise AssertionError(f"(d) pit page {k}: {got} != "
+                                 f"{pit_page(after)}")
+        if strip_took({**resp, "pit_id": 0}) \
+                != strip_took({**cresp, "pit_id": 0}):
+            raise AssertionError(f"(d) pit page {k}: card != CPU")
+        pit_pages.append(got)
+        after = resp["hits"]["hits"][-1]["sort"][0]
+        if k == 0:
+            # the next pages' leading hits and random others: half
+            # re-indexed (their new versions outside the snapshot), half
+            # deleted; the deletes flip the snapshot's live masks
+            nxt = [int(x) for x in pit_page(after)[:16]]
+            wrng = np.random.default_rng(141)
+            pool = np.flatnonzero(ix.live[:ix.n0])
+            pool = pool[~np.isin(pool, nxt)]
+            others = wrng.choice(pool, 2 * CONTEXT_WRITES - len(nxt),
+                                 replace=False).tolist()
+            chosen = nxt + others
+            reidx = sorted(chosen[0::2][:CONTEXT_WRITES])
+            dels = sorted(chosen[1::2][:CONTEXT_WRITES])
+            docs = []
+            for j, old in enumerate(reidx):
+                terms = [int(x) for x in queries[j % len(queries)][:2]]
+                docs.append((old, terms, j % 3, 900 + j % 50))
+            client.bulk(sum([[{"index": {"_index": "bench",
+                                         "_id": str(old)}},
+                              {"body": " ".join(vs[x] for x in terms),
+                               "status": bc.STATUS_VALUES[st],
+                               "price": pr}]
+                             for old, terms, st, pr in docs], [])
+                        + [{"delete": {"_index": "bench", "_id": str(d)}}
+                           for d in dels], refresh=True)
+            ix.reindex(docs)
+            ix.live[dels] = False
+    log(f"  (d) point in time: {PIT_PAGES} pages of {PIT_SIZE} newest "
+        f"first over a 10% price range == the brute force of the "
+        f"snapshot (the re-indexed versions unseen, the {CONTEXT_WRITES} "
+        f"deletes seen), card == CPU ({time.perf_counter() - t:.2f}s)")
+    # the deferred release: the late doc's segment, which the point in
+    # time holds, merges with the re-indexed versions' segment
+    late_seg = next(s for s in eng.segments if s.local_doc("late14") >= 0)
+    new_seg = eng.segments[-1]
+    if late_seg not in snapshot or new_seg in snapshot:
+        raise AssertionError("(d) unexpected segment layout")
+    eng.force_merge_group([late_seg, new_seg])
+    resp = client.search(body=dict(pbody, pit={"id": pid}))
+    if [h["_id"] for h in resp["hits"]["hits"]] != pit_page(None):
+        raise AssertionError("(d) pit page after the merge differs")
+    kept = bool(late_seg.aligned or late_seg.device_arrays)
+    released_new = not (new_seg.aligned or new_seg.device_arrays)
+    client.delete_pit({"pit_id": [pid]})
+    cpu.delete_pit({"pit_id": [cpid]})
+    if not (kept and released_new and late_seg.holders == 0
+            and not late_seg.device_arrays and not late_seg.aligned):
+        raise AssertionError("(d) the held segment's device state was not "
+                             "kept until delete_pit, then released")
+    try:
+        client.search(body=dict(pbody, pit={"id": pid}))
+        raise AssertionError("(d) a deleted point in time answered")
+    except ApiError as e:
+        if e.status != 404:
+            raise
+    held = [s.name for s in eng.segments + snapshot if s.holders]
+    bytes_after = device_bytes(dev)
+    if held or client._scrolls or client._pits:
+        raise AssertionError(f"contexts left before phase 8: {held}")
+    out["pit"] = {"pages": PIT_PAGES, "size": PIT_SIZE,
+                  "reindexed": CONTEXT_WRITES, "deleted": CONTEXT_WRITES,
+                  "wall_s": time.perf_counter() - t}
+    out["device_bytes"] = {"before_contexts": bytes_before,
+                           "after_contexts_cleared": bytes_after}
+    log(f"  (d) a merge of the held segment deferred its release until "
+        f"delete_pit, then released it; every context cleared; device "
+        f"bytes before the contexts {bytes_before}, after {bytes_after}; "
+        f"segments (name, ndocs, live) "
+        f"{[(s.name, s.ndocs, s.live_count) for s in eng.segments]}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------
 # phase 8: deletes, updates and a forced merge at MS MARCO passage scale
 # ---------------------------------------------------------------------
 
@@ -5292,10 +5939,12 @@ def main() -> int:
                     help="phase-12 bodies per class")
     ap.add_argument("--compound-queries", type=int, default=8,
                     help="phase-13 bodies per class")
+    ap.add_argument("--context-queries", type=int, default=8,
+                    help="phase-14 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 13; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 12, 13, 8); no result line")
+                    help="end after this phase (3 to 14; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 13, 14, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5441,6 +6090,15 @@ def main() -> int:
     if args.stop_after == 13:
         return 0
 
+    log(f"[14] the search body's last options and the calls around a "
+        f"search (count, explain, terminate_after, timeout, profile, "
+        f"validate_query, field_caps, the index reads, a scroll and a point "
+        f"in time) at MS MARCO passage scale (ndocs={args.ndocs}), on phase "
+        f"7's end state; the rescore classes after phase 8" + at(t_start))
+    options = phase_options_msmarco(big, args.context_queries)
+    if args.stop_after == 14:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
@@ -5462,6 +6120,10 @@ def main() -> int:
         "a segment with deletes)" + at(t_start))
     compound["merged"] = phase_compound_merged(big, args.compound_queries)
     cm = compound["merged"]
+    log("[14m] phase 14's rescore classes, on phase 8's merged segment (the "
+        "kernels decline a segment with deletes)" + at(t_start))
+    options["rescore"] = phase_rescore_merged(big, args.context_queries)
+    rc = [r["counts"] for r in options["rescore"].values()]
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -5472,6 +6134,7 @@ def main() -> int:
         .get("launches", 0),
         "launches_expanded_filter": xf["launches"],
         "launches_compound": cm["wrapper"]["counts"]["launches"],
+        "launches_body_options": sum(c["launches"] for c in rc),
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -5483,6 +6146,7 @@ def main() -> int:
         "launches_results_page": sort["classes"]["f_snippets"]["launches"]
         .get("impact_launches", 0),
         "launches_compound": cm["wrapper"]["counts"]["impact_launches"],
+        "launches_body_options": sum(c["impact_launches"] for c in rc),
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -5495,6 +6159,7 @@ def main() -> int:
         "launches_compound": sum(cm[k]["counts"]["bool_launches"]
                                  for k in ("mm_one_field",
                                            "compound_filter")),
+        "launches_body_options": sum(c["bool_launches"] for c in rc),
         "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
                            egrid["max_abs_err"], bools["max_abs_err"]),
         **times(bools["b3"]), "bound_by": "bytes",
@@ -5529,6 +6194,7 @@ def main() -> int:
     print(json.dumps({"compound": {
         "classes": {**compound["classes"], **compound["merged"]},
         "device_bytes": compound["device_bytes"]}}), flush=True)
+    print(json.dumps({"body_options": options}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

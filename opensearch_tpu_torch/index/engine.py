@@ -207,7 +207,8 @@ class Engine:
     def force_merge_group(self, group: List[Segment]) -> Segment:
         """Merge `group` into one segment, publish it in their place,
         re-anchor the version map on it and release the merged-away
-        segments' device state."""
+        segments' device state (at once, or when the last scroll or
+        point in time holding one lets go)."""
         name = f"_m{self._seg_counter}"
         self._seg_counter += 1
         merged = merge_segments(name, group, device=self.device)
@@ -219,7 +220,7 @@ class Engine:
                 loc.local_doc = int(where[id(loc.segment)][loc.local_doc])
                 loc.segment = merged
         for s in group:
-            s.release_device()
+            s.retire()
         self.__dict__.pop("_shard_view", None)
         return merged
 

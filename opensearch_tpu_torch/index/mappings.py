@@ -184,6 +184,39 @@ class Mappings:
                 f"{path}.{sub}", subcfg.get("type", "keyword"), subcfg)
         return ft
 
+    def to_dict(self) -> dict:
+        """The mapping as the reference's `Mappings.to_dict` renders it
+        (get_mapping, indices.get): each field's type, a text field's
+        analyzer other than standard, a normalizer, `index: false`, the
+        subfields' types, object paths as nested properties, `_meta`."""
+        props: dict = {}
+        for path, ft in self.fields.items():
+            node = props
+            parts = path.split(".")
+            skip = False
+            for p in parts[:-1]:
+                if ".".join(parts[:parts.index(p) + 1]) in self.fields:
+                    skip = True   # a dotted subfield of a mapped field
+                    break
+                node = node.setdefault(p, {}).setdefault("properties", {})
+            if skip:
+                continue
+            d: dict = {"type": ft.type}
+            if ft.type == "text" and ft.analyzer != "standard":
+                d["analyzer"] = ft.analyzer
+            if ft.normalizer:
+                d["normalizer"] = ft.normalizer
+            if not ft.index:
+                d["index"] = False
+            if ft.subfields:
+                d["fields"] = {s: {"type": sf.type}
+                               for s, sf in ft.subfields.items()}
+            node[parts[-1]] = d
+        out: dict = {"properties": props}
+        if self._meta:
+            out["_meta"] = self._meta
+        return out
+
     # ---------------- field resolution ----------------
 
     def resolve_field(self, name: str) -> Optional[FieldType]:

@@ -339,6 +339,10 @@ class Segment:
         self.aligned: dict = {}
         # the general path's device arrays (see `device_cached`)
         self.device_arrays: dict = {}
+        # scrolls and points in time reading this segment, and whether a
+        # merge has replaced it (see `hold` and `retire`)
+        self.holders = 0
+        self.retired = False
 
     # ---------------- codec v2: impact planes ----------------
 
@@ -510,6 +514,24 @@ class Segment:
         for k in ("filter_lists", "phrase_pairs", "date_buckets",
                   "kw_hashes"):
             self.__dict__.pop(k, None)
+
+    def hold(self) -> None:
+        """A scroll or point in time reads this segment: a merge that
+        replaces it defers releasing its device state until the last
+        holder lets go, as Lucene's reader reference counts do."""
+        self.holders += 1
+
+    def unhold(self) -> None:
+        self.holders -= 1
+        if self.holders == 0 and self.retired:
+            self.release_device()
+
+    def retire(self) -> None:
+        """A merge replaced this segment: release its device state now,
+        or when the last holder lets go."""
+        self.retired = True
+        if self.holders == 0:
+            self.release_device()
 
     # ---------------- persistence (flush / recovery) ----------------
 

@@ -1,6 +1,18 @@
 """RestClient: the dict-in / dict-out API facade (the document, bulk,
-search, msearch and indices subset of opensearch_tpu/rest/client.py),
-with the same request and response shapes for this subset.
+search, msearch, count, explain, validate_query, field_caps, scroll,
+point-in-time and indices subset of opensearch_tpu/rest/client.py), with
+the same request and response shapes for this subset.
+
+A search's `timeout` becomes one deadline where the call accepts the body
+(`utils/deadline.py`). A scroll (`search(..., scroll=...)`) and a point
+in time (`create_pit`, then searches with a `pit` body) freeze the
+index's segment list: their pages search that snapshot, offset paging
+for a scroll, and never see a later refresh; deletes flip the snapshot
+segments' live masks in place, so a page sees a later delete, as the
+reference's. A context holds its segments (`Segment.hold`), so a merge
+that replaces them releases their device state only when the last
+context goes: at `clear_scroll`, `delete_pit` or expiry. Keep-alives
+expire lazily, when a scroll or point-in-time search next looks.
 
 An index has one shard and no replicas. Its segments' postings live on the
 client's device: a card unless the caller asks for the CPU. With a
@@ -16,8 +28,11 @@ raises them; msearch turns a missing index into its per-body error entry.
 
 from __future__ import annotations
 
+import fnmatch
 import json
 import os
+import shutil
+import time
 import uuid
 from typing import Dict, List, Optional
 
@@ -27,11 +42,15 @@ from ..analysis import AnalysisRegistry
 from ..device import resolve_device
 from ..errors import (IndexNotFoundError, NotPortedError,
                       ResourceAlreadyExistsError)
-from ..index.engine import Engine, VersionConflictError
+from ..index.engine import DocLocation, Engine, VersionConflictError
 from ..index.mappings import Mappings
 from ..models.similarity import resolve_similarity
+from ..search import compiler as C
 from ..search import query_dsl as dsl
-from ..search.executor import ShardSearcher, msearch_batched, search_shards
+from ..search.executor import (ShardSearcher, msearch_batched,
+                               search_shards, search_snapshot)
+from ..search.explain import explain_doc
+from ..utils import deadline as DL
 
 _INDEX_SETTINGS = {"number_of_shards", "number_of_replicas", "analysis",
                    "similarity"}
@@ -76,10 +95,34 @@ class ApiError(Exception):
                 "status": self.status}
 
 
+def parse_keepalive_s(v, default: float = 60.0) -> float:
+    """A scroll or point-in-time keep-alive ("1m", "30s", "500ms" or a
+    number of seconds) in seconds; a malformed one is a 400 (the
+    reference's `_parse_keepalive_s`)."""
+    if v is None:
+        return default
+    if isinstance(v, (int, float)):
+        return float(v)
+    sv = str(v).strip()
+    try:
+        for suf, mult in (("micros", 1e-6), ("nanos", 1e-9), ("ms", 0.001),
+                          ("s", 1.0), ("m", 60.0), ("h", 3600.0),
+                          ("d", 86400.0)):
+            if sv.endswith(suf):
+                return float(sv[: -len(suf)]) * mult
+        return float(sv)
+    except ValueError:
+        raise ApiError(400, "illegal_argument_exception",
+                       f"failed to parse time value [{v}]")
+
+
 class IndexService:
     """One index: its mappings, its single shard's engine and searcher.
     With a `data_path` the shard's engine lives under
-    `<data_path>/<name>/0`."""
+    `<data_path>/<name>/0`. `settings` is the create body's settings as
+    the reference keeps them ({"index": {...}}); `mapping_body` the
+    create body's mapping with every put_mapping body merged in, which
+    the index's metadata file persists."""
 
     def __init__(self, name: str, body: Optional[dict],
                  device: torch.device, data_path: Optional[str] = None):
@@ -98,6 +141,8 @@ class IndexService:
             raise NotPortedError("number_of_replicas > 0")
         mapping = body.get("mappings")
         self.name = name
+        self.settings = {"index": settings}
+        self.mapping_body = dict(mapping or {})
         self.mappings = Mappings(mapping,
                                  analysis=AnalysisRegistry(
                                      settings.get("analysis")),
@@ -105,7 +150,6 @@ class IndexService:
         sim = settings.get("similarity", {})
         self.similarity = resolve_similarity(
             sim.get("default") if isinstance(sim, dict) else None)
-        self.body = body
         path = os.path.join(data_path, name, "0") if data_path else None
         self.engine = Engine(self.mappings, path=path, device=device)
         self.searcher = ShardSearcher(self.engine, device,
@@ -122,6 +166,10 @@ class RestClient:
         self.data_path = data_path
         self.indices = IndicesClient(self)
         self._indices: Dict[str, IndexService] = {}
+        # scroll / point-in-time id -> context (its index service, the
+        # segment snapshot it holds, its keep-alive and expiry)
+        self._scrolls: Dict[str, dict] = {}
+        self._pits: Dict[str, dict] = {}
         if data_path is not None:
             os.makedirs(data_path, exist_ok=True)
             self._recover_indices()
@@ -158,6 +206,44 @@ class RestClient:
         if svc is None:
             raise IndexNotFoundError(f"no such index [{index}]")
         return svc
+
+    def _resolve(self, expression, allow_no_indices: bool = True
+                 ) -> List[str]:
+        """Index names of an expression (`_all`, `*`, names, wildcards,
+        comma lists; the reference's `resolve` without aliases and data
+        streams)."""
+        if expression in (None, "", "_all", "*"):
+            return sorted(self._indices)
+        exprs = (expression if isinstance(expression, list)
+                 else str(expression).split(","))
+        out: List[str] = []
+        for ex in exprs:
+            ex = ex.strip()
+            if ex in self._indices:
+                out.append(ex)
+            elif "*" in ex or "?" in ex:
+                out.extend(sorted(n for n in self._indices
+                                  if fnmatch.fnmatch(n, ex)))
+            else:
+                raise IndexNotFoundError(f"no such index [{ex}]")
+        seen: set = set()
+        uniq = [x for x in out if not (x in seen or seen.add(x))]
+        if not uniq and not allow_no_indices:
+            raise IndexNotFoundError(f"no indices match [{expression}]")
+        return uniq
+
+    def _persist_meta(self, svc: IndexService) -> None:
+        """Write the index's metadata: its settings and its mapping as
+        the reference persists it (`to_dict()`, so the fields mapped
+        dynamically so far), with the mapping bodies it was given merged
+        over it, which keep the field options `to_dict` leaves out."""
+        if self.data_path is None:
+            return
+        with open(os.path.join(self.data_path, svc.name,
+                               "index_meta.json"), "w") as fh:
+            json.dump({"settings": svc.settings,
+                       "mappings": _deep_merge(svc.mappings.to_dict(),
+                                               svc.mapping_body)}, fh)
 
     def _svc_for_write(self, index: str) -> IndexService:
         if index not in self._indices:
@@ -321,14 +407,261 @@ class RestClient:
     # ---------------- search APIs ----------------
 
     def search(self, index: str = "_all", body: Optional[dict] = None,
-               **kw) -> dict:
+               scroll: Optional[str] = None, **kw) -> dict:
+        """A search; with `scroll` (a keep-alive) its response carries a
+        `_scroll_id` whose context pages the same body over the segments
+        of this moment; a `pit` body searches a point in time. The body's
+        `timeout` starts its deadline here."""
         body = dict(body or {})
         body.update({k: v for k, v in kw.items() if v is not None})
-        svc = self._svc(index)
+        token = None
+        if DL.current() is None:
+            try:
+                deadline = DL.Deadline.from_body(body)
+            except ValueError as e:
+                raise ApiError(400, "parsing_exception", str(e))
+            if deadline is not None:
+                token = DL.set_current(deadline)
         try:
-            return search_shards([svc.searcher], body, index_name=svc.name)
+            return self._search_deadlined(index, body, scroll)
+        except DL.PartialResultsUnacceptable as e:
+            raise ApiError(503, "search_phase_execution_exception", str(e))
+        finally:
+            if token is not None:
+                DL.reset_current(token)
+
+    def _search_deadlined(self, index: str, body: dict,
+                          scroll: Optional[str]) -> dict:
+        pit = body.pop("pit", None)
+        try:
+            if pit is not None:
+                return self._search_pit(pit, body)
+            svc = self._svc(index)
+            resp = search_shards([svc.searcher], body, index_name=svc.name)
         except dsl.QueryParseError as e:
             raise ApiError(400, "parsing_exception", str(e))
+        if scroll:
+            sid = uuid.uuid4().hex
+            ka = parse_keepalive_s(scroll if scroll is not True else None)
+            self._scrolls[sid] = {
+                **self._snapshot(svc), "index": index, "body": body,
+                "offset": int(body.get("from", 0))
+                + int(body.get("size", 10)),
+                "keep_alive": ka, "expires": time.time() + ka}
+            resp["_scroll_id"] = sid
+        return resp
+
+    # ---------------- scroll and point in time ----------------
+
+    @staticmethod
+    def _snapshot(svc: IndexService) -> dict:
+        """A context's frozen segment list, each segment held."""
+        segs = list(svc.engine.segments)
+        for seg in segs:
+            seg.hold()
+        return {"svc": svc, "segments": segs}
+
+    @staticmethod
+    def _release(ctx: dict) -> None:
+        for seg in ctx["segments"]:
+            seg.unhold()
+
+    def _search_context(self, ctx: dict, body: dict) -> dict:
+        """One page over a context's snapshot; an index deleted since
+        then gives the reference's empty page."""
+        svc = ctx["svc"]
+        if self._indices.get(svc.name) is not svc:
+            return search_snapshot([], [], body, ctx["index"])
+        return search_snapshot([svc.searcher], [ctx["segments"]], body,
+                               ctx["index"])
+
+    def _expire_contexts(self) -> None:
+        """Lazy keep-alive enforcement (the reference's reaper)."""
+        now = time.time()
+        for table in (self._scrolls, self._pits):
+            for key in [k for k, v in table.items()
+                        if v["expires"] <= now]:
+                self._release(table.pop(key))
+
+    def scroll(self, scroll_id: str, scroll: Optional[str] = None) -> dict:
+        """The next page of a scroll: its body again with `from` moved on
+        by `size`, over its snapshot."""
+        self._expire_contexts()
+        sctx = self._scrolls.get(scroll_id)
+        if sctx is None:
+            raise ApiError(404, "search_context_missing_exception",
+                           f"No search context found for id [{scroll_id}]")
+        ka = (parse_keepalive_s(scroll) if scroll
+              else sctx.get("keep_alive", 60.0))
+        sctx["keep_alive"] = ka
+        sctx["expires"] = time.time() + ka
+        body = dict(sctx["body"])
+        body["from"] = sctx["offset"]
+        resp = self._search_context(sctx, body)
+        sctx["offset"] += int(body.get("size", 10))
+        resp["_scroll_id"] = scroll_id
+        return resp
+
+    def clear_scroll(self, scroll_id=None, body: Optional[dict] = None
+                     ) -> dict:
+        ids = []
+        if scroll_id:
+            ids = (list(scroll_id) if isinstance(scroll_id, list)
+                   else [scroll_id])
+        if body:
+            bid = body.get("scroll_id", [])
+            ids.extend(bid if isinstance(bid, list) else [bid])
+        if any(sid in ("_all", "*") for sid in ids):
+            n = len(self._scrolls)
+            for sctx in self._scrolls.values():
+                self._release(sctx)
+            self._scrolls.clear()
+            return {"succeeded": True, "num_freed": n}
+        n = 0
+        for sid in ids:
+            sctx = self._scrolls.pop(sid, None)
+            if sctx is not None:
+                self._release(sctx)
+                n += 1
+        return {"succeeded": True, "num_freed": n}
+
+    def create_pit(self, index: str, keep_alive: str = "1m") -> dict:
+        """A point in time: the index's segment list of this moment."""
+        names = self._resolve(index)
+        if len(names) != 1:
+            raise NotPortedError("a point in time over several indices")
+        ka = parse_keepalive_s(keep_alive)
+        pid = uuid.uuid4().hex
+        self._pits[pid] = {**self._snapshot(self._indices[names[0]]),
+                           "index": index, "creation_time": time.time(),
+                           "keep_alive": ka, "expires": time.time() + ka}
+        return {"pit_id": pid, "creation_time": int(time.time() * 1000)}
+
+    def delete_pit(self, body: dict) -> dict:
+        ids = body.get("pit_id", [])
+        ids = ids if isinstance(ids, list) else [ids]
+        deleted = []
+        for p in ids:
+            pctx = self._pits.pop(p, None)
+            if pctx is not None:
+                self._release(pctx)
+                deleted.append(p)
+        return {"pits": [{"pit_id": p, "successful": True} for p in deleted]}
+
+    def _search_pit(self, pit: dict, body: dict) -> dict:
+        pit_id = pit["id"]
+        self._expire_contexts()
+        pctx = self._pits.get(pit_id)
+        if pctx is None:
+            raise ApiError(404, "search_context_missing_exception",
+                           f"Point in time [{pit_id}] not found")
+        # a keep_alive on the request extends the context
+        ka = (parse_keepalive_s(pit["keep_alive"])
+              if pit.get("keep_alive") else pctx.get("keep_alive", 60.0))
+        pctx["keep_alive"] = ka
+        pctx["expires"] = time.time() + ka
+        resp = self._search_context(pctx, body)
+        resp["pit_id"] = pit_id
+        return resp
+
+    # ---------------- count, explain, validate, field caps ----------------
+
+    def count(self, index: str = "_all", body: Optional[dict] = None
+              ) -> dict:
+        body = dict(body or {})
+        body["size"] = 0
+        body.pop("sort", None)
+        svc = self._svc(index)
+        resp = search_shards([svc.searcher], body, index_name=svc.name)
+        return {"count": resp["hits"]["total"]["value"],
+                "_shards": resp["_shards"]}
+
+    def explain(self, index: str, id: str, body: dict) -> dict:
+        """One doc's explanation under the body's query, with the
+        index-wide statistics; a buffered id is refreshed first, a
+        missing one is a 404."""
+        svc = self._svc(index)
+        eng = svc.engine
+        if id in eng._buffer_ids:
+            eng.refresh()
+        loc = eng.version_map.get(id)
+        if loc is None:
+            # a doc of a segment attached from arrays (index/convert.py)
+            copies = eng._attached_copies(id)
+            if copies:
+                seg, d = copies[0]
+                loc = DocLocation(int(seg.seq_nos[d]), in_buffer=False,
+                                  segment=seg, local_doc=d)
+        if loc is None or loc.in_buffer:
+            raise ApiError(404, "document_missing_exception",
+                           f"[{id}] missing")
+        ctx = svc.searcher.context()
+        lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
+        expl = explain_doc(lroot, loc.segment, loc.local_doc, ctx)
+        return {"_index": svc.name, "_id": id,
+                "matched": expl["value"] > 0, "explanation": expl}
+
+    def validate_query(self, index: str = "_all",
+                       body: Optional[dict] = None, explain: bool = False,
+                       rewrite: bool = False) -> dict:
+        """Parse and rewrite the query against every resolved index
+        without running it; `explain` and `rewrite` only add the
+        per-index entries (the plan's root as type(description))."""
+        body = body or {}
+        try:
+            names = self._resolve(index)
+        except IndexNotFoundError as e:
+            raise ApiError(404, "index_not_found_exception", str(e))
+        try:
+            q = dsl.parse_query(body.get("query", {"match_all": {}}))
+        except ValueError as e:     # QueryParseError is a ValueError
+            out = {"valid": False,
+                   "_shards": {"total": 1, "successful": 1, "failed": 0}}
+            if explain:
+                out["explanations"] = [
+                    {"index": n, "valid": False, "error": str(e)}
+                    for n in names] or [
+                    {"index": index, "valid": False, "error": str(e)}]
+            return out
+        explanations = []
+        all_valid = True
+        for n in names:
+            try:
+                detail = C.describe_plan(C.rewrite(
+                    q, self._indices[n].searcher.context()))
+                explanations.append({
+                    "index": n, "valid": True,
+                    "explanation":
+                        f"{detail['type']}({detail['description']})"})
+            except ValueError as e:
+                all_valid = False
+                explanations.append({"index": n, "valid": False,
+                                     "error": str(e)})
+        out = {"valid": all_valid,
+               "_shards": {"total": len(names) or 1,
+                           "successful": len(names) or 1, "failed": 0}}
+        if explain or rewrite:
+            out["explanations"] = explanations
+        return out
+
+    def field_caps(self, index: str = "_all", fields="*") -> dict:
+        """Each mapped field (subfields too) matching a pattern of
+        `fields`: its type, searchable and aggregatable."""
+        names = self._resolve(index)
+        pats = fields if isinstance(fields, list) else fields.split(",")
+        out: Dict[str, dict] = {}
+        for n in names:
+            allf = dict(self._indices[n].mappings.fields)
+            for f, ft in list(allf.items()):
+                for sub, sft in ft.subfields.items():
+                    allf[f"{f}.{sub}"] = sft
+            for f, ft in allf.items():
+                if not any(fnmatch.fnmatch(f, p) for p in pats):
+                    continue
+                out.setdefault(f, {}).setdefault(ft.type, {
+                    "type": ft.type, "searchable": ft.index,
+                    "aggregatable": ft.doc_values or ft.type == "text"})
+        return {"indices": names, "fields": out}
 
     def msearch(self, body: List[dict], index: Optional[str] = None) -> dict:
         """Alternating header / body dicts. Bodies that name one index run
@@ -370,12 +703,63 @@ class IndicesClient:
                 f"index [{index}] already exists")
         svc = IndexService(index, body, self.c.device, self.c.data_path)
         self.c._indices[index] = svc
-        if self.c.data_path is not None:
-            with open(os.path.join(self.c.data_path, index,
-                                   "index_meta.json"), "w") as fh:
-                json.dump(svc.body, fh)
+        self.c._persist_meta(svc)
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": index}
+
+    def delete(self, index: str) -> dict:
+        """Drop every resolved index: its device state, its engine and,
+        with a data path, its files. A scroll or point in time over it
+        then pages nothing, as the reference's."""
+        try:
+            names = self.c._resolve(index, allow_no_indices=False)
+        except IndexNotFoundError as e:
+            raise ApiError(404, "index_not_found_exception", str(e))
+        for n in names:
+            svc = self.c._indices.pop(n)
+            for seg in svc.engine.segments:
+                seg.release_device()
+            svc.engine.close()
+            if self.c.data_path is not None:
+                p = os.path.join(self.c.data_path, n)
+                if os.path.exists(p):
+                    shutil.rmtree(p)
+        return {"acknowledged": True}
+
+    def exists(self, index: str) -> bool:
+        try:
+            return bool(self.c._resolve(index, allow_no_indices=False))
+        except IndexNotFoundError:
+            return False
+
+    def get(self, index: str) -> dict:
+        out = {}
+        for n in self.c._resolve(index, allow_no_indices=False):
+            svc = self.c._indices[n]
+            idx = svc.settings["index"]
+            out[n] = {"settings": {"index": {
+                **idx, "number_of_shards": int(idx.get("number_of_shards",
+                                                       1)), "uuid": n}},
+                "mappings": svc.mappings.to_dict(), "aliases": {}}
+        return out
+
+    def get_mapping(self, index: str = "_all") -> dict:
+        return {n: {"mappings": self.c._indices[n].mappings.to_dict()}
+                for n in self.c._resolve(index)}
+
+    def put_mapping(self, index: str, body: dict) -> dict:
+        """Merge `body` into each resolved index's mapping and persist
+        it."""
+        for n in self.c._resolve(index, allow_no_indices=False):
+            svc = self.c._indices[n]
+            svc.mappings.merge(body)
+            svc.mapping_body = _deep_merge(svc.mapping_body, body)
+            self.c._persist_meta(svc)
+        return {"acknowledged": True}
+
+    def get_settings(self, index: str = "_all") -> dict:
+        return {n: {"settings": {"index": self.c._indices[n].settings[
+            "index"]}} for n in self.c._resolve(index)}
 
     def refresh(self, index: str = "_all") -> dict:
         names = list(self.c._indices) if index == "_all" else [index]

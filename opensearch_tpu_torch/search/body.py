@@ -7,8 +7,11 @@ Served: `query`, `size`, `from`, `track_total_hits`, `aggs`, `sort`
 (`_score`, `_doc`, numeric and keyword fields, `order`, `missing`, several
 keys), `search_after`, `track_scores`, `min_score`, `collapse` (with
 `inner_hits`), `_source` (a bool, a pattern, a list or includes /
-excludes), `docvalue_fields`, `fields`, `stored_fields` and `highlight`.
-Any other key, and a `_geo_distance`, `_script` or `nested` sort, raises
+excludes), `docvalue_fields`, `fields`, `stored_fields`, `highlight`,
+`rescore` (a rescorer or a list of them), `explain` (true: a per-hit
+`_explanation`), `terminate_after`, `timeout`,
+`allow_partial_search_results` and `profile`. `explain: "device_plan"`,
+any other key, and a `_geo_distance`, `_script` or `nested` sort, raises
 `NotPortedError` naming it.
 """
 
@@ -17,13 +20,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional
 
+import numpy as np
+
 from ..errors import NotPortedError
 from . import query_dsl as dsl
 
 BODY_KEYS = {"query", "size", "from", "track_total_hits", "_source", "aggs",
              "aggregations", "sort", "search_after", "track_scores",
              "min_score", "collapse", "highlight", "docvalue_fields",
-             "fields", "stored_fields"}
+             "fields", "stored_fields", "rescore", "explain",
+             "terminate_after", "timeout", "allow_partial_search_results",
+             "profile"}
 
 
 def norm_sort_specs(body: dict) -> List[dict]:
@@ -105,7 +112,63 @@ def check_body(body: dict) -> int:
     hl = body.get("highlight")
     if hl is not None and not isinstance(hl.get("fields", {}), dict):
         raise dsl.QueryParseError("[highlight] [fields] must be an object")
+    if body.get("explain") == "device_plan":
+        raise NotPortedError("explain [device_plan]")
     return frm + size
+
+
+@dataclass
+class Rescorer:
+    """One rescorer of a body's `rescore` (the reference's
+    `_apply_rescores` reading): the `window_size` first-phase lanes of
+    each segment it rescores, its query, the two weights and the score
+    mode."""
+
+    window: int
+    query: dsl.Query
+    query_weight: float
+    rescore_weight: float
+    mode: str
+
+
+def rescorers(body: dict) -> List[Rescorer]:
+    """The body's rescorers in list order; `window_size` defaults to 10,
+    both weights to 1, `score_mode` to total. An unknown score mode is
+    the reference's ValueError, raised where the scores combine
+    (`combine_rescore`)."""
+    rs_list = body.get("rescore")
+    if rs_list is None:
+        return []
+    if not isinstance(rs_list, list):
+        rs_list = [rs_list]
+    out = []
+    for rs in rs_list:
+        spec = rs.get("query", rs)
+        try:
+            q = dsl.parse_query(spec.get("rescore_query"))
+        except NotPortedError as e:
+            raise NotPortedError(f"rescore query: {e.what}")
+        out.append(Rescorer(int(rs.get("window_size", 10)), q,
+                            float(spec.get("query_weight", 1.0)),
+                            float(spec.get("rescore_query_weight", 1.0)),
+                            spec.get("score_mode", "total")))
+    return out
+
+
+def combine_rescore(mode: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The reference's `_combine_rescore` of the weighted first-phase
+    scores `a` and rescore scores `b`."""
+    if mode == "total":
+        return a + b
+    if mode == "multiply":
+        return a * b
+    if mode == "avg":
+        return (a + b) / 2
+    if mode == "max":
+        return np.maximum(a, b)
+    if mode == "min":
+        return np.minimum(a, b)
+    raise ValueError(f"unknown rescore score_mode [{mode}]")
 
 
 def rungs_eligible(body: dict) -> bool:

@@ -247,6 +247,7 @@ class LTermsSet(LNode):
     of each doc; a doc matches where the count reaches its own minimum,
     the f32 value of `msm_field` (a doc without one never matches)."""
 
+    field: str = ""
     child: Optional[LTerms] = None
     msm_field: Optional[str] = None
 
@@ -520,7 +521,7 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
             raise NotPortedError("terms_set [minimum_should_match_script]")
         child = _weighted_terms(field, terms, [1.0] * len(terms), ctx, 0,
                                 "score", q.boost)
-        return LTermsSet(child=child,
+        return LTermsSet(field=field, child=child,
                          msm_field=q.minimum_should_match_field)
 
     if isinstance(q, dsl.CombinedFieldsQuery):
@@ -1318,6 +1319,56 @@ def run_segment(lroot: LNode, seg: Segment, ctx: ShardContext, k_pad: int,
         out["topk_key"] = sc
         out["topk_scores"] = host[2 * k + 1:3 * k + 1].astype(np.float32)
         out["max_score"] = float(host[3 * k + 1])
+    return out
+
+
+def gather_scores(lroot: LNode, seg: Segment, ctx: ShardContext,
+                  docs: np.ndarray, device: torch.device) -> tuple:
+    """(scores f32[n], matched bool[n]) of `lroot` at the segment docs
+    `docs` (the reference's `run_gather_scores`, the rescore's second
+    pass): one dense `emit`, then a gather. The caller clamps `docs` to
+    the padded doc axis as the reference does; a doc past `ndocs` (the
+    reference's padding) scores 0 and does not match."""
+    sm = emit(lroot, seg, ctx, device)
+    d = torch.from_numpy(np.asarray(docs, np.int64)).to(device)
+    inside = d < seg.ndocs
+    d = torch.where(inside, d, torch.zeros_like(d))
+    out = torch.cat([torch.where(inside, sm.scores[d], 0.0),
+                     (sm.matched[d] & inside).to(torch.float32)])
+    host = out.cpu().numpy()
+    n = len(docs)
+    return host[:n], host[n:] > 0
+
+
+def describe_plan(node: Optional[LNode]) -> dict:
+    """The plan tree of the profile and validate_query calls (the
+    reference's `describe_plan`): each node's type (its class name less
+    the leading L), a description and its children; times live on the
+    root only."""
+    if node is None:
+        return {"type": "MatchAll", "description": "*:*"}
+    t = type(node).__name__.lstrip("L")
+    desc = ""
+    if isinstance(node, LTerms):
+        desc = f"{node.field}:{list(node.terms)[:8]}"
+    elif isinstance(node, LPhrase):
+        desc = f"{node.field}:\"{' '.join(node.terms)}\""
+    elif isinstance(node, LRange):
+        desc = f"{node.field}:[{node.lo} TO {node.hi}]"
+    elif getattr(node, "field", ""):
+        desc = str(node.field)
+    children = []
+    for attr in ("musts", "shoulds", "must_nots", "filters", "children"):
+        for c in getattr(node, attr, ()) or ():
+            children.append(describe_plan(c))
+    for attr in ("child", "positive", "negative", "filter", "organic"):
+        c = getattr(node, attr, None)
+        if isinstance(c, LNode):
+            children.append(describe_plan(c))
+    out = {"type": t, "description": desc, "time_in_nanos": 0,
+           "fused": True}
+    if children:
+        out["children"] = children
     return out
 
 

@@ -61,14 +61,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..errors import NotPortedError
 from ..index.engine import Engine
 from ..index.segment import Segment, next_pow2
+from ..utils import deadline as DL
 from . import aggregations as A
 from . import body as B
 from . import compiler as C
+from . import explain as X
 from . import fastpath, impactpath
 from . import highlight as H
 from . import query_dsl as dsl
+
+INT32_SENTINEL = np.int32(2**31 - 1)
 
 @dataclass
 class Candidate:
@@ -97,6 +102,9 @@ class Plan:
     order: B.Order
     aggs: List[A.AggNode] = dc_field(default_factory=list)
     named: List[Tuple[str, C.LNode]] = dc_field(default_factory=list)
+    # (rescorer, its rewritten query) in the body's order
+    rescores: List[Tuple[B.Rescorer, C.LNode]] = dc_field(
+        default_factory=list)
 
 
 @dataclass
@@ -109,6 +117,11 @@ class ShardQueryResult:
     segments: List[Segment] = dc_field(default_factory=list)
     # agg name -> one host partial per segment served
     agg_partials: Dict[str, list] = dc_field(default_factory=dict)
+    took_ms: float = 0.0
+    # the time budget ran out / the terminate_after budget was reached
+    # between segments
+    timed_out: bool = False
+    terminated_early: bool = False
 
 
 class ShardSearcher:
@@ -130,50 +143,104 @@ class ShardSearcher:
     def plan(self, body: dict, ctx: C.ShardContext) -> Optional[Plan]:
         """-> the Plan of a body, or None for a plan with no hits and no
         aggs. A body with aggs or a named clause has no fast or impact
-        spec (the reference's `_body_eligible`)."""
+        spec (the reference's `_body_eligible`). A rescored body keeps
+        the kernels, whose pruned ladder then certifies every lane the
+        rescore reads, but not the impact rung, which returns the page's
+        `window` lanes alone where the kernels and the general path
+        return K: a rescore window past the page would see fewer docs
+        there (the reference's client, whose mesh turns its impact rung
+        off, serves such a segment on the general path)."""
         window = B.check_body(body)
         order = B.Order.of(body, window)
         aggs = A.parse_aggs(body.get("aggs", body.get("aggregations")))
         A.check_ported(aggs)
         lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
         named = collect_named(lroot)
+        rescores = []
+        for r in B.rescorers(body):
+            try:
+                rescores.append((r, C.rewrite(r.query, ctx)))
+            except NotPortedError as e:
+                raise NotPortedError(f"rescore query: {e.what}")
         if aggs or named:
-            return Plan(lroot, None, None, window, order, aggs, named)
+            return Plan(lroot, None, None, window, order, aggs, named,
+                        rescores)
         if isinstance(lroot, C.LMatchNone):
             return None
-        return Plan(lroot, fastpath.make_spec(lroot, window, body),
+        fast = fastpath.make_spec(lroot, window, body)
+        if fast is not None and rescores:
+            # the rescore reads the first min(window_size, K) lanes: the
+            # pruned ladder certifies that many, not the page alone
+            k_lanes = min(next_pow2(max(window, 16)), fastpath.MAX_K)
+            fast.window = max(window, min(
+                max(r.window for r, _ in rescores), k_lanes))
+        return Plan(lroot, fast, None if rescores else
                     impactpath.make_spec(lroot, window, body), window,
-                    order)
+                    order, rescores=rescores)
 
-    def query_phase(self, body: dict) -> ShardQueryResult:
-        segments = list(self.engine.segments)
+    def query_phase(self, body: dict,
+                    segments: Optional[List[Segment]] = None
+                    ) -> ShardQueryResult:
+        """One shard's query phase over `segments` (the engine's current
+        list by default; a scroll or point in time passes its snapshot)
+        with those segments' collection statistics (an index is one
+        shard, so they are the reference's `stats_ctx` of a snapshot).
+        `terminate_after` and the ambient deadline
+        (`utils/deadline.py`) stop it between segments, as the
+        reference's: a stop with live segments left makes the total a
+        lower bound."""
+        t0 = time.monotonic()
+        snapshot = segments is not None
+        segments = list(self.engine.segments if segments is None
+                        else segments)
         ctx = self.context(segments)
         plan = self.plan(body, ctx)
         result = ShardQueryResult(shard=self.shard_id, segments=segments)
-        if plan is None:
-            return result
-        if plan.fast is not None and len(segments) > 1:
+        ta = int(body.get("terminate_after") or 0)
+        deadline = DL.current()
+        if (plan is not None and plan.fast is not None and len(segments) > 1
+                and not snapshot and not plan.rescores and not ta):
             # a many-segment shard runs a term group as ONE frontier launch
-            # over the concatenated shard view
+            # over the concatenated shard view (built over the engine's
+            # current segments, so a snapshot takes the per-segment loop);
+            # a rescore and terminate_after need that loop, as in the
+            # reference
             sv = fastpath.shard_search(self.engine, ctx, plan.fast,
                                        plan.window, self.device)
             if sv is not None:
                 view, out = sv
                 self.collect_view_topk(result, view, out, plan.order)
                 finish_candidates(result, plan.order.need)
+                result.took_ms = (time.monotonic() - t0) * 1000.0
                 return result
-        need_all = aggs_need_all_segments(plan.aggs)
+        need_all = plan is not None and aggs_need_all_segments(plan.aggs)
         for seg_ord, seg in enumerate(segments):
-            if seg.live_count == 0 or (not need_all and
-                                       not C.can_match(plan.lroot, seg)):
+            if ta and result.total >= ta:
+                result.terminated_early = True
+                if any(s.live_count for s in segments[seg_ord:]):
+                    result.total_rel = "gte"
+                break
+            if deadline is not None and deadline.exhausted():
+                result.timed_out = True
+                if any(s.live_count for s in segments[seg_ord:]):
+                    result.total_rel = "gte"
+                break
+            if plan is None or seg.live_count == 0 or (
+                    not need_all and not C.can_match(plan.lroot, seg)):
                 continue
             out = self.segment_query(plan, ctx, seg)
-            self.collect_topk(result, out, seg, seg_ord, plan.order)
+            self.collect_topk(result, out, seg, seg_ord, plan.order,
+                              plan.rescores, ctx)
             for node in plan.aggs:
                 spec, dev = out["aggs"][node.name]
                 result.agg_partials.setdefault(node.name, []).append(
                     device_agg_to_partial(node, spec, dev, seg))
-        finish_candidates(result, plan.order.need)
+        if ta and result.total >= ta:
+            # the budget was reached, on the last segment too
+            result.terminated_early = True
+        if plan is not None:
+            finish_candidates(result, plan.order.need)
+        result.took_ms = (time.monotonic() - t0) * 1000.0
         return result
 
     def segment_query(self, plan: Plan, ctx: C.ShardContext,
@@ -227,20 +294,28 @@ class ShardSearcher:
         return c
 
     def collect_topk(self, result: ShardQueryResult, out: dict,
-                     seg: Segment, seg_ord: int, order: B.Order) -> None:
+                     seg: Segment, seg_ord: int, order: B.Order,
+                     rescores=(), ctx: Optional[C.ShardContext] = None
+                     ) -> None:
         """Fold one segment's top-k output into the shard result: every
         valid candidate with its host sort tuple and the names of the
         named clauses it matches (`out["named"]`: name -> matched at each
-        top-k doc, from the general program), less those under `min_score` (score order only) and, under
-        several sort keys, those not strictly after the cursor; the
-        device counted the docs after the cursor's primary key, and the
-        host adds those tied with it that are after its full tuple (the
-        segment's window holds all of them, `compiler.run_segment`)."""
+        top-k doc, from the general program), less those under
+        `min_score` (score order only) and, under several sort keys,
+        those not strictly after the cursor; the device counted the docs
+        after the cursor's primary key, and the host adds those tied
+        with it that are after its full tuple (the segment's window holds
+        all of them, `compiler.run_segment`). The body's rescorers apply
+        to the lanes first (`apply_rescores`); the max score stays the
+        first phase's."""
         idx = out["topk_idx"]
         scores = out["topk_scores"]
         keys = out.get("topk_key", scores)
         named = out.get("named")
         self._fold_totals(result, out)
+        if rescores:
+            scores = apply_rescores(rescores, ctx, seg, idx,
+                                    keys > -np.inf, scores, self.device)
         cursor = (cursor_tuple(order)
                   if order.after is not None and order.multi else None)
         for j in range(len(scores)):
@@ -269,15 +344,28 @@ class ShardSearcher:
     def fetch_phase(self, result: ShardQueryResult,
                     selected: List[Candidate], body: dict,
                     index_name: str) -> List[dict]:
+        """The selected hits; with `explain`, each one's `_explanation`
+        under the statistics the query phase scored with (those of the
+        result's segments)."""
         hl_terms = {}
-        if body.get("highlight"):
+        explain = bool(body.get("explain"))
+        lroot = None
+        if body.get("highlight") or explain:
             ctx = self.context(result.segments)
-            hl_terms = H.collect_query_terms(
-                C.rewrite(dsl.parse_query(body.get("query")), ctx))
+            lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
+        if body.get("highlight"):
+            hl_terms = H.collect_query_terms(lroot)
         suppress = B.suppress_score(body)
-        return [self.fetch_one(result.segments[c.seg_ord], c, body,
-                               index_name, hl_terms, suppress)
-                for c in selected]
+        hits = []
+        for c in selected:
+            seg = result.segments[c.seg_ord]
+            hit = self.fetch_one(seg, c, body, index_name, hl_terms,
+                                 suppress)
+            if explain:
+                hit["_explanation"] = X.explain_doc(lroot, seg, c.local_doc,
+                                                    ctx)
+            hits.append(hit)
+        return hits
 
     def fetch_one(self, seg: Segment, c: Candidate, body: dict,
                   index_name: str, hl_terms: dict,
@@ -368,6 +456,31 @@ def collect_named(lroot: C.LNode) -> List[Tuple[str, C.LNode]]:
 
     walk(lroot)
     return out
+
+
+def apply_rescores(rescores, ctx: C.ShardContext, seg: Segment,
+                   idx: np.ndarray, valid: np.ndarray, scores: np.ndarray,
+                   device) -> np.ndarray:
+    """A segment's first-phase lanes after each rescorer in turn (the
+    reference's `_apply_rescores`): the valid lanes before `window_size`
+    take `combine_rescore(qw * score, rw * rescore)` where the rescore
+    query matches, else `qw * score`; the others keep their score. The
+    rescore query's scores and matches at the lanes' docs come from one
+    `compiler.gather_scores`, the invalid lanes' docs clamped as the
+    reference clamps them."""
+    pad = seg.ndocs_pad
+    docs = np.minimum(np.where(valid, idx, INT32_SENTINEL % pad),
+                      pad - 1).astype(np.int32)
+    for r, lr in rescores:
+        rscores, rmatched = C.gather_scores(lr, seg, ctx, docs, device)
+        in_window = np.arange(len(scores)) < r.window
+        qs = r.query_weight * scores
+        # an invalid lane's -inf times 0 is a NaN that np.where drops
+        with np.errstate(invalid="ignore"):
+            combined = np.where(rmatched, B.combine_rescore(
+                r.mode, qs, r.rescore_weight * rscores), qs)
+        scores = np.where(valid & in_window, combined, scores)
+    return scores
 
 
 def finish_candidates(result: ShardQueryResult, need: int) -> None:
@@ -713,13 +826,12 @@ def reduce_shard_results(shard_results: List[ShardQueryResult],
             "aggs": aggs_out}
 
 
-def finish_search(searchers: List[ShardSearcher],
-                  results: List[ShardQueryResult], body: dict,
-                  index_name: str, t0: float) -> dict:
-    """Coordinator reduce + fetch + response assembly (shared by search
-    and batched msearch), then collapse's inner hits and the refinement
-    of complex bucket subs."""
-    agg_nodes = A.parse_aggs(body.get("aggs", body.get("aggregations")))
+def reduce_and_fetch(searchers: List[ShardSearcher],
+                     results: List[ShardQueryResult], body: dict,
+                     index_name: str, agg_nodes: List[A.AggNode]) -> tuple:
+    """The coordinator reduce and each shard's fetch of its selected
+    candidates: -> (reduced, hits in page order, {(shard, segment,
+    doc): hit})."""
     reduced = reduce_shard_results(results, body, agg_nodes)
     hits_by_key: Dict[Tuple, dict] = {}
     for s, r in zip(searchers, results):
@@ -729,6 +841,18 @@ def finish_search(searchers: List[ShardSearcher],
                 hits_by_key[(c.shard, c.seg_ord, c.local_doc)] = h
     hits = [hits_by_key[(c.shard, c.seg_ord, c.local_doc)]
             for c in reduced["selected"]]
+    return reduced, hits, hits_by_key
+
+
+def finish_search(searchers: List[ShardSearcher],
+                  results: List[ShardQueryResult], body: dict,
+                  index_name: str, t0: float) -> dict:
+    """Coordinator reduce + fetch + response assembly (shared by search
+    and batched msearch), then collapse's inner hits and the refinement
+    of complex bucket subs."""
+    agg_nodes = A.parse_aggs(body.get("aggs", body.get("aggregations")))
+    reduced, hits, hits_by_key = reduce_and_fetch(searchers, results, body,
+                                                  index_name, agg_nodes)
     if body.get("collapse"):
         collapse_inner_hits(searchers, body, index_name, body["collapse"],
                             reduced["selected"], hits_by_key)
@@ -743,20 +867,57 @@ def finish_search(searchers: List[ShardSearcher],
         track_n = int(track)
         if total > track_n:
             total, relation = track_n, "gte"
+    timed_out = any(r.timed_out for r in results)
+    if body.get("allow_partial_search_results", True) is False \
+            and timed_out:
+        raise DL.PartialResultsUnacceptable(
+            "request timed out with allow_partial_search_results=false")
     # a sorted body shows max_score only with track_scores
     show_max = not body.get("sort") or bool(body.get("track_scores"))
     resp = {
         "took": int((time.monotonic() - t0) * 1000.0),
-        "timed_out": False,
+        "timed_out": timed_out,
         "_shards": {"total": len(searchers), "successful": len(searchers),
                     "skipped": 0, "failed": 0},
         "hits": {"total": {"value": total, "relation": relation},
                  "max_score": reduced["max_score"] if show_max else None,
                  "hits": hits},
     }
+    if any(r.terminated_early for r in results):
+        resp["terminated_early"] = True
     if reduced["aggs"]:
         resp["aggregations"] = reduced["aggs"]
+    if body.get("profile"):
+        resp["profile"] = profile_block(searchers, results, body)
     return resp
+
+
+def profile_block(searchers: List[ShardSearcher],
+                  results: List[ShardQueryResult], body: dict) -> dict:
+    """The response's `profile` (the reference's shape): per shard its
+    id, its query phase's wall ms, the plan tree (`describe_plan`, the
+    measured time on its root) and the top-k collector. `device` names
+    where the ladder's candidate-union rescore runs (the card's torch
+    ops, or the host oracle on the CPU). The reference's `device.jit`
+    (JAX program-cache traffic) and its `cost` block (the query-cost
+    accounting, not ported) are left out."""
+    plan_tree = C.describe_plan(C.rewrite(
+        dsl.parse_query(body.get("query")),
+        searchers[0].context(results[0].segments)))
+    device_attr = {"rescore_path": "device"
+                   if searchers[0].device.type == "cuda" else "host"}
+    shards = []
+    for r in results:
+        ns = int(r.took_ms * 1e6)
+        root = dict(plan_tree, time_in_nanos=ns, device=device_attr)
+        shards.append({"id": f"[shard][{r.shard}]", "query_ms": r.took_ms,
+                       "device": device_attr,
+                       "searches": [{"query": [root], "rewrite_time": 0,
+                                     "collector": [{
+                                         "name": "SimpleTopKCollector",
+                                         "reason": "search_top_hits",
+                                         "time_in_nanos": ns}]}]})
+    return {"shards": shards}
 
 
 def collapse_inner_hits(searchers: List[ShardSearcher], body: dict,
@@ -877,10 +1038,64 @@ def _agg_to_dsl(node: A.AggNode) -> dict:
 
 def search_shards(searchers: List[ShardSearcher], body: dict,
                   index_name: str = "") -> dict:
-    """Full query-then-fetch across shards -> OpenSearch-shaped response."""
+    """Full query-then-fetch across shards -> OpenSearch-shaped response.
+    Without an ambient deadline (the REST call installs one at accept),
+    the body's `timeout` starts one here, for this search alone."""
     t0 = time.monotonic()
-    results = [s.query_phase(body) for s in searchers]
-    return finish_search(searchers, results, body, index_name, t0)
+    dl_token = None
+    if DL.current() is None:
+        try:
+            deadline = DL.Deadline.from_body(body)
+        except ValueError as e:
+            raise dsl.QueryParseError(str(e))
+        if deadline is not None:
+            dl_token = DL.set_current(deadline)
+    try:
+        results = [s.query_phase(body) for s in searchers]
+        return finish_search(searchers, results, body, index_name, t0)
+    finally:
+        if dl_token is not None:
+            DL.reset_current(dl_token)
+
+
+def search_snapshot(searchers: List[ShardSearcher],
+                    snapshots: List[List[Segment]], body: dict,
+                    index_name: str) -> dict:
+    """A search over frozen segment lists, one per searcher (a scroll or
+    point-in-time page; the reference's `_search_snapshot`): the query
+    phase over the snapshot with its own statistics, the reduce and the
+    fetch, and the reference's plain response: `timed_out` false, no
+    `terminated_early`, the max score always shown, no track_total_hits
+    cap, no collapse inner hits, no profile."""
+    results = [s.query_phase(body, segments=segs)
+               for s, segs in zip(searchers, snapshots)]
+    reduced, hits, _ = reduce_and_fetch(
+        searchers, results, body, index_name,
+        A.parse_aggs(body.get("aggs", body.get("aggregations"))))
+    resp = {"took": 0, "timed_out": False,
+            "_shards": {"total": len(searchers),
+                        "successful": len(searchers), "skipped": 0,
+                        "failed": 0},
+            "hits": {"total": {"value": reduced["total"],
+                               "relation": reduced["total_rel"]},
+                     "max_score": reduced["max_score"], "hits": hits}}
+    if reduced["aggs"]:
+        resp["aggregations"] = reduced["aggs"]
+    return resp
+
+
+def batch_eligible(body: dict) -> bool:
+    """Bodies an msearch batch may serve (the reference's gate): not a
+    rescore, a profile or an explain, which its single search serves;
+    and, as its batched knn route, not a `terminate_after` or a live
+    `timeout`, which need the per-segment loop and its deadline."""
+    if body.get("rescore") or body.get("profile") or body.get("explain") \
+            or body.get("terminate_after"):
+        return False
+    try:
+        return DL.parse_timeout_s(body.get("timeout")) is None
+    except ValueError:
+        return False
 
 
 def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
@@ -907,6 +1122,9 @@ def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
         ctx = s.context()
         for bi, body in enumerate(bodies):
             if responses[bi] is not None or not ok[bi]:
+                continue
+            if not batch_eligible(body):
+                ok[bi] = False
                 continue
             try:
                 plan = s.plan(body, ctx)
@@ -955,7 +1173,11 @@ def msearch_batched(searchers: List[ShardSearcher], bodies: List[dict],
         if responses[bi] is not None:
             continue
         if not ok[bi]:
-            responses[bi] = search_shards(searchers, body, index_name)
+            try:
+                responses[bi] = search_shards(searchers, body, index_name)
+            except (dsl.QueryParseError, DL.PartialResultsUnacceptable) as e:
+                responses[bi] = {"error": {"type": "ApiError",
+                                           "reason": str(e)}}
             continue
         for r in results[bi]:
             # a body without hits (its plan None) has no order

@@ -394,10 +394,10 @@ def test_rest_calls_of_the_reference_client_raise_not_ported():
     assert pclient.REFERENCE_CALLS == public(RefClient)
     assert pclient.REFERENCE_INDICES_CALLS == public(RefIndicesClient)
     c = RestClient(device="cpu")
-    for name in ("count", "explain", "field_caps", "scroll", "create"):
+    for name in ("termvectors", "mtermvectors", "rank_eval", "create"):
         with pytest.raises(NotPortedError, match=rf"rest call \[{name}\]"):
             getattr(c, name)
-    for name in ("get_mapping", "put_settings", "stats", "delete"):
+    for name in ("analyze", "put_settings", "stats", "put_alias"):
         with pytest.raises(NotPortedError,
                            match=rf"rest call \[indices.{name}\]"):
             getattr(c.indices, name)
@@ -406,8 +406,11 @@ def test_rest_calls_of_the_reference_client_raise_not_ported():
     with pytest.raises(AttributeError):
         c.indices.no_such_call
     assert not hasattr(c, "no_such_call")
-    for name in ("search", "msearch", "bulk", "index", "get"):
+    for name in ("search", "msearch", "bulk", "index", "get", "count",
+                 "explain", "field_caps", "scroll", "create_pit"):
         assert callable(getattr(c, name))
+    for name in ("get_mapping", "get", "delete", "put_mapping"):
+        assert callable(getattr(c.indices, name))
 
 
 # ---------------------------------------------------------------------

@@ -555,9 +555,13 @@ def test_unported_span_and_interval_forms_raise(query, what):
 
 @pytest.mark.parametrize("option", ["rescore", "explain"])
 def test_phrase_body_options_outside_the_slice_raise(option):
+    """A phrase body's rescore and explain are served (tests/
+    test_torch_body_options.py); a rescore query of a kind outside the
+    port and the reference's `explain: "device_plan"` still raise."""
     _ref, port = clients("fox")
-    body = dict(mp("quick brown"), **{option: {"window_size": 5}
-                                      if option == "rescore" else True})
+    body = dict(mp("quick brown"), **{option: {"window_size": 5, "query": {
+        "rescore_query": {"function_score": {"query": {"match_all": {}}}}}}
+        if option == "rescore" else "device_plan"})
     with pytest.raises(NotPortedError, match=option):
         port.search("t", body)
 

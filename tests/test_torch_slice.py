@@ -267,7 +267,9 @@ def test_score_term_group_matches_reference(clients):
       "aggs": {"a": {"top_hits": {"size": 1}}}}, "aggs"),
     ({"query": {"match_all": {}}, "sort": [{"_geo_distance": {
         "loc": [0.0, 0.0]}}]}, "_geo_distance"),
-    ({"query": {"match": {"body": "the"}}, "rescore": {"window_size": 5}},
+    ({"query": {"match": {"body": "the"}}, "rescore": {
+        "window_size": 5, "query": {"rescore_query": {
+            "function_score": {"query": {"match_all": {}}}}}}},
      "rescore"),
 ])
 def test_unported_shapes_raise(clients, body, names):

@@ -285,10 +285,13 @@ def test_search_after_chains_match_reference(clients, name):
     ({"sort": [{"_script": {"script": "1"}}]}, "_script"),
     ({"sort": [{"price": {"order": "asc", "nested": {"path": "x"}}}]},
      "nested"),
-    ({"rescore": {}}, "rescore"), ({"explain": True}, "explain"),
+    ({"rescore": {"query": {"rescore_query": {"function_score": {}}}}},
+     "function_score"),
+    ({"explain": "device_plan"}, "device_plan"),
     ({"script_fields": {}}, "script_fields"),
-    ({"terminate_after": 5}, "terminate_after"),
-    ({"timeout": "1s"}, "timeout"), ({"profile": True}, "profile"),
+    ({"post_filter": {"match_all": {}}}, "post_filter"),
+    ({"indices_boost": [{"t": 2.0}]}, "indices_boost"),
+    ({"slice": {"id": 0, "max": 2}}, "slice"),
     ({"suggest": {}}, "suggest"), ({"knn": {}}, "knn")], ids=str)
 def test_options_outside_the_slice_raise(clients, body, name):
     _ref, port = clients
