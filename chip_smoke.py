@@ -67,8 +67,8 @@ Phases, each of which fails the script when it fails:
      monthly date_histogram and an avg of rating; (c) a 2-term match of
      phase 5 with a page, a price histogram and range, rating
      percentiles, price and status cardinalities; (d) filters, missing
-     and global; (e) 4 bodies of a weekly date_histogram with a terms
-     sub (one sub-search per bucket); every response against a numpy
+     and global; (e) 4 bodies of a quarter's weekly date_histogram
+     with a terms sub (one sub-search per bucket); every response against a numpy
      brute force (counts, keys, minima, maxima and pages exact, f32 sums
      within a probabilistic bound, HLL registers and sketch bins by a
      numpy copy of the reference's arithmetic), 2 bodies a class on the
@@ -152,6 +152,21 @@ Phases, each of which fails the script when it fails:
      with two rescorers, each page against a numpy brute force of the
      lanes, the rescore's event ms (emit + gather), bodies/s and p50/p99;
      2 bodies a class on the card against the CPU;
+ 15. (run after 14, before 8) the long-tail aggregations over phase 7's
+     end state, --longtail-queries bodies a class: (a) a composite of
+     status x day paged by after_key to its end, (b) a monthly
+     time-series panel (sum of price with derivative, cumulative_sum,
+     moving_fn, serial_diff, the *_bucket siblings and a bucket_sort),
+     (c) terms(status) > top_hits (one sub-search a bucket) and a root
+     top_hits under a match, (d) multi_terms(status, price), rare_terms
+     under a rare term and an adjacency_matrix of three filters, (e)
+     weighted_avg, median_absolute_deviation, matrix_stats and an
+     auto_date_histogram > avg, (f) significant_terms, a sampler >
+     significant_text(title) and a diversified_sampler > avg; every
+     response against a numpy brute force (LongtailOracle), one body a
+     class on the card against the CPU, bodies/s, p50/p99, event ms by
+     op, host ms of partials, finalize, pipelines and refinement, the
+     refinement's sub-searches, the device bytes around the phase;
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 16 of phase 5's match bodies on the segments with deletes,
@@ -171,7 +186,8 @@ behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
 one with phase 11's, one with phase 12's, one with phase 13's, one with
-phase 14's, a line with the kernels' numbers and, last, the device line.
+phase 14's, one with phase 15's, a line with the kernels' numbers and,
+last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -2824,7 +2840,9 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     memo: dict = {}
     idle = {}
     for name, items in classes.items():
-        sample = sorted(srng.choice(len(items), 2, replace=False).tolist())
+        # one body a class on the CPU (2 before phase 15 shared the time
+        # limit)
+        sample = sorted(srng.choice(len(items), 1, replace=False).tolist())
         # the impact rung's host work makes a re-run of a 9-term class
         # cost as much as its run: 4 bodies under the op timer
         out[name] = run_general_class(
@@ -2861,7 +2879,7 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     items = [(big["bodies"][j], (lambda ts: lambda ix_: ix_.page(
         *ix_.group(ts), 0, 10))(list(big["body_terms"][j])))
         for j in range(n)]
-    sample = sorted(srng.choice(n, 2, replace=False).tolist())
+    sample = sorted(srng.choice(n, 1, replace=False).tolist())
     log(f"  re-indexed {REINDEXED} _ids in {t_reindex:.2f}s: segments "
         f"{[(s.ndocs, s.live_count) for s in segs]}")
     out["reindexed_match"] = run_general_class(
@@ -2934,9 +2952,11 @@ def agg_classes(big: dict, n: int, n_refine: int) -> dict:
              "g": {"global": {}, "aggs": {"vc": {"value_count": {
                  "field": "price"}}}}}}
         for i in range(n)],
+        # a quarter's weeks a body, 13 or 14 sub-searches (a price range's
+        # 53 before phase 15 shared the time limit)
         "e_week_terms_refined": [
-        {"size": 0, "query": {"range": {"price": {"gte": 0,
-                                                  "lt": 250 * (i + 1)}}},
+        {"size": 0, "query": {"bool": {"filter": [{"range": {"ts": {
+            "gte": months[3 * (i % 4)], "lt": months[3 * (i % 4) + 3]}}}]}},
          "aggs": {"w": {"date_histogram": {"field": "ts",
                                            "calendar_interval": "week"},
                         "aggs": {"st": {"terms": {"field": "status"}}}}}}
@@ -3005,8 +3025,10 @@ class SumCheck:
         self.of_bound = 0.0
 
     def __call__(self, got, v: np.ndarray, what: str, div: int = 1):
-        exact = float(v.astype(np.float64).sum()) / div
-        bound = sum_bound(v) / div
+        self.exact(got, float(v.astype(np.float64).sum()) / div,
+                   sum_bound(v) / div, what)
+
+    def exact(self, got, exact: float, bound: float, what: str):
         err = abs(float(got) - exact)
         if err > bound:
             raise AssertionError(f"{what}: {got} vs exact {exact}: error "
@@ -3866,7 +3888,7 @@ def run_sort_class(client, name: str, bodies, chain: int, want_of,
         extra.update(want_of(body, r))
     t_oracle = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ncpu = 2
+    ncpu = 1         # 2 before phase 15 shared the time limit
     for body in reqs[:ncpu]:
         if strip_took(client.search("bench", body)) \
                 != strip_took(cpu.search("bench", body)):
@@ -4787,8 +4809,9 @@ def run_compound_class(client, name: str, items, ix, cpu,
     """One class through msearch (counts set to 0 just before) under the
     op timer, with the device's peak bytes above what it held before;
     every page against the brute force (and, where the oracle gives
-    them, each hit's matched_queries), the first 2 bodies on the card
-    against the CPU, one batch profiled: -> the class's numbers."""
+    them, each hit's matched_queries), the first body on the card
+    against the CPU (2 before phase 15 shared the time limit), one batch
+    profiled: -> the class's numbers."""
     import torch
     from opensearch_tpu_torch.search import compiler as C
     from opensearch_tpu_torch.search import impactpath
@@ -4838,7 +4861,7 @@ def run_compound_class(client, name: str, items, ix, cpu,
             f"{k}={v}" for k, v in rungs.items() if v)
         + f"; {n} pages == numpy brute force ({t_oracle:.1f}s"
         + (f", {named} hits' matched_queries" if named else "")
-        + f"); 2 bodies card == CPU ({t_cpu:.1f}s); event ms a body "
+        + f"); 1 body card == CPU ({t_cpu:.1f}s); event ms a body "
         + " ".join(f"{k}={v:.4f}" for k, v in sorted(ev.items()))
         + f"; device peak bytes above the class's start {peak}")
     return {"qps": n / wall, "batch_ms": lat[0], "counts": counts,
@@ -5088,7 +5111,7 @@ def run_rescore_class(client, name: str, items, ix, cpu,
                  general=C.STATS["general_served"])
     for (b, oracle), r in zip(items, resps):
         check_page(r, oracle(ix), f"{name} body {b}", rtol)
-    for body, _o in items[:2]:
+    for body, _o in items[:1]:
         if strip_took(client.search("bench", body)) \
                 != strip_took(cpu.search("bench", body)):
             raise AssertionError(f"{name}: card and CPU responses differ")
@@ -5748,10 +5771,10 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
 
     # 6. on the merged segment: the kernels serve. First the 16 bodies
     # of step 4, the same count in one batch (their first use builds the
-    # merged segment's lazy per-row state), then 64 pruned (128 before
-    # phase 13 shared the time limit)
+    # merged segment's lazy per-row state), then 32 pruned (128 before
+    # phase 13 shared the time limit, 64 before phase 15 did)
     cpu = twin()
-    n_after = min(64, len(big["bodies"]))
+    n_after = min(32, len(big["bodies"]))
     items = match_items(n_after)
     pages: dict = {}
     out["first_use"] = run_write_class(
@@ -5913,6 +5936,782 @@ def times(g: dict) -> dict:
             "first_batch_sum_bound_ms": g["sum_bound_ms"]}
 
 
+# ---------------------------------------------------------------------
+# phase 15: the long-tail aggregations (a composite export, a
+# time-series panel with pipelines, top hits, groupings, metrics,
+# significance and the samplers) at MS MARCO passage scale
+# ---------------------------------------------------------------------
+
+LT_PAGE = 500          # composite buckets a page in class (a)
+LT_OP_BODIES = 2       # bodies a class timed op by op
+LT_MONTH = {"field": "ts", "calendar_interval": "month"}
+# matrix_stats against the f64 brute force: the power sums are f32 over
+# millions of docs (centred about the index-wide mean), so the moments
+# carry their rounding: relative for the mean, variance and covariance,
+# absolute for the correlation, skewness and kurtosis
+LT_MS_TOL = {"mean": 1e-5, "variance": 1e-3, "covariance": 1e-3,
+             "correlation": 1e-3, "skewness": 1e-2, "kurtosis": 1e-2}
+
+
+def lt_query(i: int) -> dict:
+    """Query i of the classes AggOracle matches: match_all, then price
+    ranges 500 wide."""
+    if i == 0:
+        return {"match_all": {}}
+    lo = 250 * ((i - 1) % 3)
+    return {"range": {"price": {"gte": lo, "lt": lo + 500}}}
+
+
+def rare_term(ix) -> tuple:
+    """A body term whose live docs hold at least two distinct nonzero
+    counts of the statuses: (term, its smallest count)."""
+    df = np.diff(ix.starts)
+    for t in np.flatnonzero((df >= 6) & (df <= 60)).tolist():
+        d, _tf = ix.row(t)
+        c = np.bincount(ix.status[d[ix.live[d]]], minlength=3)
+        nz = sorted(set(c[c > 0].tolist()))
+        if len(nz) >= 2:
+            return t, nz[0]
+    raise AssertionError("no body term for rare_terms")
+
+
+def longtail_classes(big: dict, n: int) -> dict:
+    """Phase 15's bodies: class -> [(body, its match terms or None)], `n`
+    a class."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+
+    def match(i):
+        ts = list(big["body_terms"][2 * i])
+        return {"match": {"body": " ".join(vs[t] for t in ts)}}, ts
+
+    rt, rmax = rare_term(big["ix"])
+    composite = {"size": LT_PAGE, "sources": [
+        {"status": {"terms": {"field": "status"}}},
+        {"day": {"date_histogram": {"field": "ts",
+                                    "calendar_interval": "day"}}}]}
+    panel = {"date_histogram": LT_MONTH, "aggs": {
+        "s": {"sum": {"field": "price"}},
+        "d": {"derivative": {"buckets_path": "s"}},
+        "c": {"cumulative_sum": {"buckets_path": "s"}},
+        "mf": {"moving_fn": {"buckets_path": "s", "window": 3, "script":
+                             "MovingFunctions.unweightedAvg(values)"}},
+        "sd": {"serial_diff": {"buckets_path": "s", "lag": 1}},
+        "ab": {"avg_bucket": {"buckets_path": "s"}},
+        "mx": {"max_bucket": {"buckets_path": "s"}},
+        "sb": {"stats_bucket": {"buckets_path": "s"}},
+        "pb": {"percentiles_bucket": {"buckets_path": "s",
+                                      "percents": [50.0, 90.0]}},
+        "top": {"bucket_sort": {"sort": [{"s": {"order": "desc"}}],
+                                "size": 5}}}}
+    metrics = {
+        "w": {"weighted_avg": {"value": {"field": "rating"},
+                               "weight": {"field": "price"}}},
+        "m": {"median_absolute_deviation": {"field": "rating"}},
+        "x": {"matrix_stats": {"fields": ["price", "rating"]}},
+        "h": {"auto_date_histogram": {"field": "ts", "buckets": 12},
+              "aggs": {"a": {"avg": {"field": "rating"}}}}}
+    adjacency = {"adjacency_matrix": {"filters": {
+        "published": {"term": {"status": "published"}},
+        "cheap": {"range": {"price": {"lt": 100}}},
+        "rated": {"range": {"rating": {"gt": 5}}}}}}
+
+    def top_hits(i):
+        if i % 2 == 0:
+            return ({"size": 0, "query": lt_query(1 + i // 2), "aggs": {
+                "st": {"terms": {"field": "status"}, "aggs": {
+                    "th": {"top_hits": {
+                        "size": 3, "sort": [{"price": {"order": "desc"}}],
+                        "_source": {"includes": ["doc", "price"]}}}}}}},
+                None)
+        q, ts = match(i)
+        return ({"size": 0, "query": q, "aggs": {"th": {"top_hits": {
+            "size": 5, "_source": {"includes": ["doc"]}}}}}, ts)
+
+    def grouping(i):
+        if i % 4 in (0, 1):
+            return ({"size": 0, "query": lt_query(i % 4), "aggs": {
+                "mt": {"multi_terms": {"terms": [{"field": "status"},
+                                                 {"field": "price"}],
+                                       "size": 10}}}}, None)
+        if i % 4 == 2:
+            return ({"size": 0, "query": {"match": {"body": vs[rt]}},
+                     "aggs": {"r": {"rare_terms": {
+                         "field": "status", "max_doc_count": rmax}}}}, [rt])
+        return {"size": 0, "query": {"match_all": {}},
+                "aggs": {"adj": adjacency}}, None
+
+    def samplers(i):
+        q, ts = match(i)
+        return ({"size": 0, "query": q, "aggs": {
+            "sig": {"significant_terms": {"field": "status"}},
+            "s": {"sampler": {"shard_size": 200}, "aggs": {
+                "t": {"significant_text": {"field": "title"}}}},
+            "d": {"diversified_sampler": {"field": "status",
+                                          "max_docs_per_value": 50},
+                  "aggs": {"a": {"avg": {"field": "price"}}}}}}, ts)
+
+    return {
+        "a_composite_export": [
+            ({"size": 0, "query": lt_query(i), "aggs": {
+                "c": {"composite": composite}}}, None) for i in range(n)],
+        "b_time_series_panel": [
+            ({"size": 0, "query": lt_query(i), "aggs": {"m": panel}}, None)
+            for i in range(n)],
+        "c_top_hits": [top_hits(i) for i in range(n)],
+        "d_groupings": [grouping(i) for i in range(n)],
+        "e_metrics": [({"size": 0, "query": lt_query(i), "aggs": metrics},
+                       None) for i in range(n)],
+        "f_significance_samplers": [samplers(i) for i in range(n)]}
+
+
+class LongtailOracle(AggOracle):
+    """Phase 15's numpy brute force: AggOracle's columns and matches, the
+    match bodies' BM25 from NumpyIndex, and the segments of phase 7's
+    end state as global id ranges (the corpus segment, phase 7's
+    re-indexed docs', then the later docs')."""
+
+    def __init__(self, ix, aggcols, title):
+        super().__init__(ix, aggcols)
+        self.title = title
+
+    def segments(self) -> list:
+        ix = self.ix
+        return [(0, ix.n0), (ix.n0, ix.n0 + REINDEXED),
+                (ix.n0 + REINDEXED, ix.n)]
+
+    def months(self, c: dict) -> np.ndarray:
+        """i64 months since 1970-01 of every doc's ts (0 without one),
+        computed once for the docs indexed so far."""
+        if getattr(self, "_months", (None, 0))[1] != len(c["ts"]):
+            self._months = ((c["ts"] // DAY_MS).astype("datetime64[D]")
+                            .astype("datetime64[M]").astype(np.int64),
+                            len(c["ts"]))
+        return self._months[0]
+
+    def matched(self, body: dict, terms, c: dict) -> tuple:
+        """(live matched docs, BM25 scores or None) of a phase-15 query."""
+        if terms is None:
+            return self.match(body, c), None
+        score, ok = self.ix.group(terms)
+        return ok & c["live"], score
+
+
+def lt_bound_close(got, exact: float, bound: float, what: str) -> None:
+    if got is None or abs(float(got) - exact) > bound + 1e-9 * abs(exact):
+        raise AssertionError(f"{what}: {got} vs exact {exact} (bound "
+                             f"{bound})")
+
+
+def lt_check_composite(pages: list, m, c, what: str) -> None:
+    """The pages of one composite chain: together the (status, day)
+    groups of the matched docs with a ts, in order, each once; each page
+    LT_PAGE buckets but the last, its after_key its last key."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    mt = m & c["ts_present"]
+    day = c["ts"][mt] // DAY_MS
+    d0 = int(day.min()) if len(day) else 0
+    nd = int(day.max()) - d0 + 1 if len(day) else 1
+    counts = np.bincount(c["status"][mt].astype(np.int64) * nd + day - d0,
+                         minlength=3 * nd)
+    want = [(bc.STATUS_VALUES[u // nd], (d0 + u % nd) * DAY_MS,
+             int(counts[u])) for u in np.flatnonzero(counts).tolist()]
+    got = []
+    for k, p in enumerate(pages):
+        agg = p["aggregations"]["c"]
+        bs = agg["buckets"]
+        if (len(bs) != LT_PAGE and k != len(pages) - 1) or (
+                bs and agg["after_key"] != bs[-1]["key"]):
+            raise AssertionError(f"{what}: page {k} of {len(bs)} buckets")
+        got += [(b["key"]["status"], b["key"]["day"], b["doc_count"])
+                for b in bs]
+    if got != want:
+        raise AssertionError(f"{what}: {len(got)} composite buckets != the "
+                             f"{len(want)} groups")
+
+
+def lt_check_panel(resp: dict, m, c, oracle, sums: SumCheck,
+                   what: str) -> None:
+    """The monthly sums and every pipeline over them against exact f64
+    sums, each within the f32 bound of the sums it is made of."""
+    mt = m & c["ts_present"]
+    months = oracle.months(c)[mt]
+    pr = c["price"][mt]
+    m0 = int(months.min())
+    per = np.bincount(months - m0)
+    uniq = m0 + np.flatnonzero(per)
+    inv = (np.cumsum(per > 0) - 1)[months - m0]
+    s = [float(pr[inv == j].astype(np.float64).sum())
+         for j in range(len(uniq))]
+    bnd = [sum_bound(pr[inv == j]) for j in range(len(uniq))]
+    cnt = np.bincount(inv, minlength=len(uniq))
+    keys = [int(np.datetime64(u, "M").astype("datetime64[ms]").astype(
+        np.int64)) for u in uniq.tolist()]
+    agg = resp["aggregations"]["m"]
+    order = sorted(range(len(s)), key=lambda j: -s[j])[:5]
+    got = agg["buckets"]
+    if len(got) != len(order):
+        raise AssertionError(f"{what}: {len(got)} buckets after bucket_sort")
+    for b, j in zip(got, order):
+        if b["key"] != keys[j]:
+            # a swap only between sums within their bounds
+            jj = keys.index(b["key"])
+            if abs(s[jj] - s[j]) > bnd[jj] + bnd[j]:
+                raise AssertionError(f"{what}: bucket_sort order")
+            j = jj
+        if b["doc_count"] != int(cnt[j]):
+            raise AssertionError(f"{what}: month {keys[j]} count")
+        sums(b["s"]["value"], pr[inv == j], f"{what} sum")
+        prev = (s[j - 1], bnd[j - 1]) if j else None
+        for name in ("d", "sd"):
+            if prev is None:
+                if b[name]["value"] is not None:
+                    raise AssertionError(f"{what}: {name} of the first month")
+            else:
+                lt_bound_close(b[name]["value"], s[j] - prev[0],
+                               bnd[j] + prev[1], f"{what} {name}")
+        lt_bound_close(b["c"]["value"], sum(s[:j + 1]), sum(bnd[:j + 1]),
+                       f"{what} cumulative_sum")
+        win = range(max(0, j - 3), j)
+        if not win:
+            if b["mf"]["value"] is not None:
+                raise AssertionError(f"{what}: moving_fn of no window")
+        else:
+            lt_bound_close(b["mf"]["value"], sum(s[k] for k in win) / len(win),
+                           sum(bnd[k] for k in win) / len(win),
+                           f"{what} moving_fn")
+    top = max(bnd)
+    lt_bound_close(agg["ab"]["value"], sum(s) / len(s), sum(bnd) / len(s),
+                   f"{what} avg_bucket")
+    lt_bound_close(agg["mx"]["value"], max(s), 2 * top, f"{what} max_bucket")
+    sb = agg["sb"]
+    if sb["count"] != len(s):
+        raise AssertionError(f"{what}: stats_bucket count")
+    lt_bound_close(sb["sum"], sum(s), sum(bnd), f"{what} stats_bucket sum")
+    lt_bound_close(sb["min"], min(s), 2 * top, f"{what} stats_bucket min")
+    srt = sorted(s)
+    for pc in (50.0, 90.0):
+        idx = min(int(round(pc / 100.0 * len(srt) + 0.5)) - 1, len(srt) - 1)
+        lt_bound_close(agg["pb"]["values"][f"{pc:.1f}"], srt[max(idx, 0)],
+                       2 * top, f"{what} percentiles_bucket")
+
+
+def lt_source(oracle, g: int, includes) -> dict:
+    """A hit's `_source` filtered to `includes`: a corpus doc's is {"doc":
+    g} (and its title), a later doc's its indexed fields."""
+    ix = oracle.ix
+    if g < ix.n0:
+        src = {"doc": g}
+    else:
+        src = {"price": int(ix.price[g])}
+    return {k: v for k, v in src.items() if k in includes}
+
+
+def lt_check_top_hits(resp: dict, body: dict, m, score, oracle, c,
+                      what: str) -> None:
+    """terms(status) > top_hits: the statuses' counts, and in each bucket
+    its sub-search's first 3 candidates (a range scores every doc 1.0,
+    so the first docs in segment order), their `_source` filtered; a
+    root top_hits under a match: the page of the best 5 by score."""
+    ix = oracle.ix
+    aggs = resp["aggregations"]
+    if "st" in aggs:
+        check_terms(aggs["st"], c["status"][m], {}, what)
+        for b in aggs["st"]["buckets"]:
+            from opensearch_tpu_torch import bench_corpus as bc
+            o = bc.STATUS_VALUES.index(b["key"])
+            docs = np.flatnonzero(m & (c["status"] == o))
+            th = b["th"]["hits"]
+            got = [(h["_id"], h["_source"], h["_score"]) for h in th["hits"]]
+            want = [(ix.id_of(int(g)), lt_source(oracle, int(g),
+                                                 ("doc", "price")), 1.0)
+                    for g in docs[:3]]
+            if got != want or th["total"]["value"] != len(docs):
+                raise AssertionError(f"{what}: {b['key']} top_hits {got} != "
+                                     f"{want}")
+        return
+    th = aggs["th"]["hits"]
+    ids, scores, _total = ix.page(score, m, 0, 5)
+    check_page({"hits": {"hits": th["hits"], "total": {
+        "value": int(m.sum()), "relation": "eq"}}},
+        (ids, scores, int(m.sum())), f"{what} root top_hits")
+    docs = np.flatnonzero(m)
+    g_of = {ix.id_of(int(g)): int(g)
+            for g in docs[np.lexsort((docs, -score[docs]))][:10]}
+    if any(h["_source"] != lt_source(oracle, g_of[h["_id"]], ("doc",))
+           for h in th["hits"]):
+        raise AssertionError(f"{what}: root top_hits _source")
+
+
+def lt_check_groupings(resp: dict, body: dict, m, c, what: str) -> None:
+    from opensearch_tpu_torch import bench_corpus as bc
+    aggs = resp["aggregations"]
+    if "mt" in aggs:
+        code = c["status"][m].astype(np.int64) * 1000 + c["price"][m].astype(
+            np.int64)
+        counts = np.bincount(code, minlength=3000)
+        uniq = np.flatnonzero(counts)
+        items = sorted(zip(uniq.tolist(), counts[uniq].tolist()),
+                       key=lambda kv: (-kv[1], kv[0]))
+        want = [([bc.STATUS_VALUES[u // 1000], u % 1000], k)
+                for u, k in items[:10]]
+        got = [(b["key"], b["doc_count"]) for b in aggs["mt"]["buckets"]]
+        other = int(m.sum()) - sum(k for _u, k in want)
+        if got != want or aggs["mt"]["sum_other_doc_count"] != other or any(
+                b["key_as_string"] != f"{b['key'][0]}|{b['key'][1]}"
+                for b in aggs["mt"]["buckets"]):
+            raise AssertionError(f"{what}: multi_terms {got} != {want}")
+    if "r" in aggs:
+        mx = body["aggs"]["r"]["rare_terms"]["max_doc_count"]
+        cnt = np.bincount(c["status"][m], minlength=3)
+        want = sorted(((int(k), bc.STATUS_VALUES[o]) for o, k in
+                       enumerate(cnt) if 0 < k <= mx))
+        got = [(b["doc_count"], b["key"]) for b in aggs["r"]["buckets"]]
+        if got != want or not want or len(want) == int((cnt > 0).sum()):
+            raise AssertionError(f"{what}: rare_terms {got} != {want} "
+                                 f"(counts {cnt}, max {mx})")
+    if "adj" in aggs:
+        masks = {"cheap": m & (c["price"] < 100),
+                 "published": m & (c["status"] == 2),
+                 "rated": m & c["rating_present"]
+                 & (c["rating"] > np.float32(5.0))}
+        keys = sorted(masks)
+        want = [(k, int(masks[k].sum())) for k in keys]
+        want += [(f"{a}&{b}", int((masks[a] & masks[b]).sum()))
+                 for i, a in enumerate(keys) for b in keys[i + 1:]]
+        want = sorted((k, v) for k, v in want if v > 0)
+        got = [(b["key"], b["doc_count"]) for b in aggs["adj"]["buckets"]]
+        if got != want:
+            raise AssertionError(f"{what}: adjacency {got} != {want}")
+
+
+def lt_auto_keys(oracle, c, target: int) -> tuple:
+    """auto_date_histogram's segment rungs: each segment's ladder interval
+    over its own ts span (its deleted docs in it), each doc's key at its
+    segment's interval rounded down to the widest of them: (that
+    interval, i64 key of every doc), once per oracle state."""
+    from opensearch_tpu_torch.search import aggregations as A
+    memo = getattr(oracle, "_auto_keys", None)
+    if memo is not None and memo[0] == (target, len(c["ts"])):
+        return memo[1]
+    ladder = [ms for ms, _n in A.AUTO_LADDER]
+    ivs = []
+    for lo, hi in oracle.segments():
+        has = c["ts_present"][lo:hi]
+        span = (float(c["ts"][lo:hi][has].max() - c["ts"][lo:hi][has].min())
+                if has.any() else None)
+        ivs.append(ladder[0] if span is None else next(
+            (ms for ms in ladder if max(span, 1.0) / ms <= target),
+            ladder[-1]))
+    interval = max(ivs)
+    keys = np.zeros(len(c["ts"]), np.int64)
+    for (lo, hi), iv in zip(oracle.segments(), ivs):
+        keys[lo:hi] = (c["ts"][lo:hi] // iv) * iv // interval * interval
+    oracle._auto_keys = ((target, len(c["ts"])), (interval, keys))
+    return interval, keys
+
+
+def lt_auto_buckets(keys: np.ndarray, interval: int, target: int) -> tuple:
+    """The coordinator's coarser rungs over the matched docs' keys, each
+    rung rounding the last one's keys down, until the buckets fit
+    `target`: (interval ms, key of each doc)."""
+    from opensearch_tpu_torch.search import aggregations as A
+    ladder = [ms for ms, _n in A.AUTO_LADDER]
+    k = keys // interval
+    k0 = int(k.min()) if len(k) else 0
+    per = np.bincount(k - k0)
+    cur = (k0 + np.flatnonzero(per)) * interval
+    li = ladder.index(interval)
+    while len(np.unique(cur)) > target and li + 1 < len(ladder):
+        li += 1
+        interval = ladder[li]
+        cur = (cur // interval) * interval
+    return interval, cur[(np.cumsum(per > 0) - 1)[k - k0]]
+
+
+def lt_check_metrics(resp: dict, m, c, oracle, sums: SumCheck, sketch,
+                     ms_err: dict, what: str) -> None:
+    from opensearch_tpu_torch.search import aggregations as A
+    aggs = resp["aggregations"]
+    ok = m & c["rating_present"]
+    r, p = c["rating"][ok], c["price"][ok]
+    rp = r.astype(np.float64) * p.astype(np.float64)
+    vw, ws = float(rp.sum()), float(p.astype(np.float64).sum())
+    lt_bound_close(aggs["w"]["value"], vw / ws,
+                   (sum_bound(rp) + abs(vw / ws) * sum_bound(p)) / ws,
+                   f"{what} weighted_avg")
+    hist = np.bincount(np_dd_bins(r), minlength=8193)
+    want_mad = A.mad_from_hist(hist)
+    if aggs["m"]["value"] != want_mad:
+        sketch["mad_mismatches"] += 1
+        if not np.isclose(aggs["m"]["value"], want_mad, rtol=0.0205):
+            raise AssertionError(f"{what}: MAD {aggs['m']} vs {want_mad}")
+    x = aggs["x"]
+    X = np.stack([p, r]).astype(np.float64)
+    n = X.shape[1]
+    if x["doc_count"] != n:
+        raise AssertionError(f"{what}: matrix_stats count {x['doc_count']}")
+    mean = X.mean(axis=1)
+    d = X - mean[:, None]
+    cov = d @ d.T / (n - 1)
+    d2 = d * d
+    m2 = d2.mean(axis=1)
+    skew = (d2 * d).mean(axis=1) / m2 ** 1.5
+    kurt = (d2 * d2).mean(axis=1) / m2 ** 2
+    for i, f in enumerate(x["fields"]):
+        errs = {"mean": abs(f["mean"] - mean[i]) / abs(mean[i]),
+                "variance": abs(f["variance"] - cov[i, i]) / cov[i, i],
+                "covariance": max(abs(f["covariance"][g] - cov[i, j])
+                                  / np.sqrt(cov[i, i] * cov[j, j])
+                                  for j, g in enumerate(("price", "rating"))),
+                "correlation": max(abs(f["correlation"][g] - cov[i, j]
+                                       / np.sqrt(cov[i, i] * cov[j, j]))
+                                   for j, g in enumerate(("price", "rating"))),
+                "skewness": abs(f["skewness"] - skew[i]),
+                "kurtosis": abs(f["kurtosis"] - kurt[i])}
+        for k, e in errs.items():
+            ms_err[k] = max(ms_err.get(k, 0.0), float(e))
+            if e > LT_MS_TOL[k]:
+                raise AssertionError(f"{what}: matrix_stats {f['name']} {k} "
+                                     f"error {e} > {LT_MS_TOL[k]}")
+    mt = m & c["ts_present"]
+    interval, keys = lt_auto_keys(oracle, c, 12)
+    interval, keys = lt_auto_buckets(keys[mt], interval, 12)
+    h = aggs["h"]
+    k = keys // interval
+    k0 = int(k.min()) if len(k) else 0
+    per = np.bincount(k - k0)
+    uniq = (k0 + np.flatnonzero(per)) * interval
+    if h["interval"] != A.auto_interval_name(interval) or [
+            (b["key"], b["doc_count"]) for b in h["buckets"]] != list(
+                zip(uniq.tolist(), per[per > 0].tolist())):
+        raise AssertionError(f"{what}: auto_date_histogram {h['interval']} "
+                             f"{[(b['key'], b['doc_count']) for b in h['buckets']]}"
+                             f" vs {A.auto_interval_name(interval)} "
+                             f"{list(zip(uniq.tolist(), per[per > 0].tolist()))}")
+    # each bucket's avg(rating) within the f32 bound of its sum
+    rp = c["rating_present"][mt]
+    j = (np.cumsum(per > 0) - 1)[k - k0][rp]
+    rv = c["rating"][mt][rp].astype(np.float64)
+    nb = len(uniq)
+    cnt = np.bincount(j, minlength=nb)
+    tot = np.bincount(j, weights=rv, minlength=nb)
+    mag = np.bincount(j, weights=np.abs(rv), minlength=nb)
+    for b, n_j, t_j, a_j in zip(h["buckets"], cnt, tot, mag):
+        sums.exact(b["a"]["value"], t_j / n_j, LAMBDA * np.sqrt(n_j) * F32_U
+                   * a_j / n_j, f"{what} auto avg")
+
+
+def lt_sample(oracle, m, score, k: int, shard_wide: bool) -> np.ndarray:
+    """The sampled docs: per segment the matched docs scoring at least
+    its k-th best (all of them with fewer), or, with `shard_wide` and
+    more than k scores over the segments' top lists, those scoring at
+    least the k-th best of the shard."""
+    sel = np.zeros(len(m), bool)
+    tops = []
+    for lo, hi in oracle.segments():
+        d = lo + np.flatnonzero(m[lo:hi])
+        if hi - lo == 0:
+            continue
+        kk = min(k, hi - lo)
+        sc = score[d]
+        thr = (np.partition(sc, len(sc) - kk)[len(sc) - kk]
+               if len(sc) >= kk else -np.inf)
+        sel[d[sc >= thr]] = True
+        tops.append(np.sort(sc)[::-1][:kk])
+    allsc = np.concatenate(tops) if tops else np.zeros(0, np.float32)
+    if shard_wide and len(allsc) > k:
+        thr = np.sort(allsc)[-k]
+        sel = m & (score >= thr)
+    return sel
+
+
+def lt_check_samplers(resp: dict, m, score, oracle, c, what: str) -> None:
+    """significant_terms(status) against the live background; the
+    sampler's shard-wide sample and significant_text over its titles;
+    the diversified sample (at most 50 a status a segment) and its
+    average price."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    from opensearch_tpu_torch.search import aggregations as A
+    ix = oracle.ix
+    aggs = resp["aggregations"]
+    fg = np.bincount(c["status"][m], minlength=3)
+    bg = np.bincount(c["status"][c["live"]], minlength=3)
+    fgt, bgt = int(m.sum()), int(c["live"].sum())
+    want = sorted(((A.significance_score(int(fg[o]), fgt, int(bg[o]), bgt,
+                                         "jlh"), bc.STATUS_VALUES[o],
+                    int(fg[o]), int(bg[o])) for o in range(3)
+                   if fg[o] >= 3), key=lambda t: (-t[0], t[1]))
+    want = [(k, f, s, b) for s, k, f, b in want if s > 0]
+    sig = aggs["sig"]
+    got = [(b["key"], b["doc_count"], b["score"], b["bg_count"])
+           for b in sig["buckets"]]
+    if got != want or (sig["doc_count"], sig["bg_count"]) != (fgt, bgt):
+        raise AssertionError(f"{what}: significant_terms {got} != {want}")
+    sel = lt_sample(oracle, m, score, 200, True)
+    if aggs["s"]["doc_count"] != int(sel.sum()):
+        raise AssertionError(f"{what}: sampler {aggs['s']['doc_count']} "
+                             f"!= {int(sel.sum())}")
+    title = oracle.title
+    tstarts, first, second, draw = title[0], title[5], title[6], title[8]
+    tvs = bc.title_vocab_strings(len(tstarts) - 1)
+    tf: Counter = Counter()
+    n_fg = 0
+    for lo, hi in oracle.segments():
+        d = lo + np.flatnonzero(sel[lo:hi])
+        d = d[np.lexsort((d, -score[d]))][:200]
+        n_fg += len(d)
+        for g in d[d < ix.n0].tolist():
+            pr = draw[g].astype(np.int64)
+            tf.update(set(first[pr].tolist()) | set(second[pr].tolist()))
+    df = np.diff(tstarts)
+    scored = sorted(((A.significance_score(k, n_fg, int(df[t]), bgt, "jlh"),
+                      tvs[t], k, int(df[t])) for t, k in tf.items()
+                     if k >= 3), key=lambda x: (-x[0], x[1]))
+    want_t = [(key, k, s, b) for s, key, k, b in scored if s > 0][:10]
+    st = aggs["s"]["t"]
+    got_t = [(b["key"], b["doc_count"], b["score"], b["bg_count"])
+             for b in st["buckets"]]
+    if got_t != want_t or (st["doc_count"], st["bg_count"]) != (n_fg, bgt):
+        raise AssertionError(f"{what}: significant_text {got_t} != {want_t}")
+    dsel = np.zeros(len(m), bool)
+    per = lt_sample(oracle, m, score, 100, False)
+    for lo, hi in oracle.segments():
+        for o in range(3):
+            d = lo + np.flatnonzero(per[lo:hi] & (c["status"][lo:hi] == o))
+            dsel[d[np.lexsort((d, -score[d]))][:50]] = True
+    dv = aggs["d"]
+    if dv["doc_count"] != int(dsel.sum()):
+        raise AssertionError(f"{what}: diversified_sampler "
+                             f"{dv['doc_count']} != {int(dsel.sum())}")
+    pv = c["price"][dsel]
+    lt_bound_close(dv["a"]["value"], float(pv.astype(np.float64).mean()),
+                   sum_bound(pv) / len(pv), f"{what} diversified avg")
+
+
+def lt_close(got, want, rtol: float = 1e-4, scale: float = 0.0) -> bool:
+    """Card against CPU: equal but for floats, each within rtol of the
+    largest of itself, the floats beside it and `scale` (a difference of
+    sums or a moment near 0 carries the error of the sums beside it; the
+    brute force holds each side to its own bound)."""
+    if isinstance(want, dict):
+        near = max([abs(v) for v in want.values() if isinstance(v, float)]
+                   + [scale])
+        return isinstance(got, dict) and got.keys() == want.keys() and all(
+            lt_close(got[k], want[k], rtol, near) for k in want)
+    if isinstance(want, list):
+        return isinstance(got, list) and len(got) == len(want) and all(
+            lt_close(g, w, rtol, scale) for g, w in zip(got, want))
+    if isinstance(want, float) and isinstance(got, float):
+        return abs(got - want) <= rtol * max(abs(got), abs(want), scale) \
+            + 1e-9
+    return got == want
+
+
+def lt_pages(client, body: dict) -> list:
+    """A body's responses: a composite pages by after_key until a page
+    holds fewer than its size."""
+    agg = body["aggs"].get("c", {}).get("composite")
+    out = [client.search("bench", body)]
+    while agg is not None and len(
+            out[-1]["aggregations"]["c"]["buckets"]) == agg["size"]:
+        after = out[-1]["aggregations"]["c"]["after_key"]
+        out.append(client.search("bench", {**body, "aggs": {"c": {
+            "composite": {**agg, "after": after}}}}))
+    return out
+
+
+def longtail_timer():
+    """agg_op_timer's spans and host seconds, with the host seconds of
+    the pipelines and of the refinement (its sub-searches inside) and
+    the count of the refinement's sub-searches."""
+    from opensearch_tpu_torch.search import aggregations as A
+    from opensearch_tpu_torch.search import executor as E
+    restore0, spans, host = agg_op_timer()
+    depth = [0]
+    saved = []
+
+    def wrap(mod, name, label, refine=False):
+        real = getattr(mod, name)
+
+        def timed(*a, **kw):
+            if name == "search_shards" and depth[0]:
+                host["refinement_subsearches"] = host.get(
+                    "refinement_subsearches", 0) + 1
+            if (refine and depth[0]) or name == "search_shards":
+                return real(*a, **kw)
+            depth[0] += refine
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                depth[0] -= refine
+                host[label] = host.get(label, 0.0) + time.perf_counter() - t0
+        setattr(mod, name, timed)
+        saved.append((mod, name, real))
+    wrap(A, "apply_bucket_pipelines", "pipelines_host")
+    wrap(E, "refine_complex_subs", "refinement_host", refine=True)
+    wrap(E, "search_shards", "subsearches")
+
+    def restore():
+        for mod, name, real in reversed(saved):
+            setattr(mod, name, real)
+        restore0()
+    return restore, spans, host
+
+
+def longtail_cache_bytes(segs, dev) -> int:
+    """Device bytes of the long-tail aggs' per-segment caches: the
+    multi_terms ordinals and the date buckets."""
+    n = 0
+    for s in segs:
+        for k, v in s.device_arrays.items():
+            if k[0] in ("mterms", "dbuckets") and k[-1] == str(dev):
+                n += v.numel() * v.element_size()
+    return n
+
+
+def run_longtail_class(client, name: str, items, oracle, cpu, check,
+                       ncpu: int = 1) -> dict:
+    """One class body by body through RestClient.search (a composite
+    paged to its end), every response against the brute force, `ncpu`
+    bodies on the card against the CPU twin, then its first LT_OP_BODIES
+    bodies again under the op timer."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath
+    C.reset_stats()
+    bm25.reset_counts()
+    fastpath.reset_stats()
+    lat, resps = [], []
+    t_all = time.perf_counter()
+    for body, _ts in items:
+        t0 = time.perf_counter()
+        pages = lt_pages(client, body)
+        resps.append(pages)
+        lat += [(time.perf_counter() - t0) * 1e3 / len(pages)] * len(pages)
+    wall = time.perf_counter() - t_all
+    general = C.STATS["general_served"]
+    launches = {k: v for k, v in bm25.COUNTS.items() if v}
+    t0 = time.perf_counter()
+    c = oracle.cols()
+    for i, ((body, ts), pages) in enumerate(zip(items, resps)):
+        m, score = oracle.matched(body, ts, c)
+        check(pages, body, m, score, c, f"{name} body {i}")
+    t_oracle = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for (body, ts), pages in list(zip(items, resps))[:ncpu]:
+        want = [strip_took(r) for r in lt_pages(cpu, body)]
+        # the panel's differences of sums carry the sums' errors
+        scale = (max(abs(b["s"]["value"]) for b in want[0]["aggregations"][
+            "m"]["buckets"]) if name.startswith("b_") else 0.0)
+        if not lt_close([strip_took(r) for r in pages], want, 1e-4, scale):
+            raise AssertionError(f"{name}: card and CPU responses differ "
+                                 f"for {body}")
+        m, score = oracle.matched(body, ts, c)
+        check(want, body, m, score, c, f"{name} CPU")
+    t_cpu = time.perf_counter() - t0
+    nb = min(LT_OP_BODIES, len(items))
+    restore, spans, host = longtail_timer()
+    try:
+        for body, _ts in items[:nb]:
+            lt_pages(client, body)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    subs = host.pop("refinement_subsearches", 0)
+    ops_ms = {k: sum(a.elapsed_time(e) for a, e in v) / nb
+              for k, v in spans.items()}
+    host_ms = {k: v * 1e3 / nb for k, v in host.items()}
+    nreq = len(lat)
+    n = len(items)
+    log(f"  {name}: bodies={n} requests={nreq} wall_s={wall:.2f} "
+        f"bodies_per_s={n / wall:.1f} ms_p50={np.percentile(lat, 50):.1f} "
+        f"ms_p99={np.percentile(lat, 99):.1f} general={general} "
+        f"kernel_launches={launches}; == numpy brute force "
+        f"({t_oracle:.1f}s); {ncpu} card == CPU ({t_cpu:.1f}s); device ms "
+        f"per body ({nb} bodies, events) " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(ops_ms.items()))
+        + "; host ms per body " + " ".join(
+            f"{k}={v:.2f}" for k, v in sorted(host_ms.items()))
+        + f"; refinement sub-searches per body {subs / nb:.1f}")
+    if launches or general < nreq:
+        raise AssertionError(f"{name}: bodies with aggs left the general "
+                             f"path: {launches} general={general}")
+    return {"bodies": n, "requests": nreq, "bodies_per_s": n / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "op_ms": ops_ms, "host_ms": host_ms,
+            "refinement_subsearches_per_body": subs / nb,
+            "oracle_s": t_oracle, "cpu_s": t_cpu}
+
+
+def longtail_checks(oracle, sums: SumCheck, sketch: Counter,
+                    ms_err: dict) -> dict:
+    """class -> check(pages, body, matched, scores, columns, what)."""
+    return {
+        "a_composite_export": lambda p, b, m, s, c, w:
+            lt_check_composite(p, m, c, w),
+        "b_time_series_panel": lambda p, b, m, s, c, w:
+            lt_check_panel(p[0], m, c, oracle, sums, w),
+        "c_top_hits": lambda p, b, m, s, c, w:
+            lt_check_top_hits(p[0], b, m, s, oracle, c, w),
+        "d_groupings": lambda p, b, m, s, c, w:
+            lt_check_groupings(p[0], b, m, c, w),
+        "e_metrics": lambda p, b, m, s, c, w:
+            lt_check_metrics(p[0], m, c, oracle, sums, sketch, ms_err, w),
+        "f_significance_samplers": lambda p, b, m, s, c, w:
+            lt_check_samplers(p[0], m, s, oracle, c, w)}
+
+
+def phase_longtail_msmarco(big: dict, n: int) -> dict:
+    """Phase 15 on phase 7's end state (the corpus segment with deletes,
+    phase 7's re-indexed docs, the later docs' segment): classes (a)-(f)
+    of `longtail_classes`, every response against LongtailOracle, one
+    body a class on the card against the CPU."""
+    import torch
+    client = big["client"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    segs = list(eng.segments)
+    oracle = LongtailOracle(big["ix"], big["aggs"], big["title"])
+    if len(segs) != len(oracle.segments()):
+        raise AssertionError(f"phase 15 expects {len(oracle.segments())} "
+                             f"segments, not {len(segs)}")
+    cpu = twin_of(eng)
+    classes = longtail_classes(big, n)
+    sums = SumCheck()
+    sketch: Counter = Counter()
+    ms_err: dict = {}
+    checks = longtail_checks(oracle, sums, sketch, ms_err)
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    cache_before = longtail_cache_bytes(segs, dev)
+    t0 = time.perf_counter()
+    out = {name: run_longtail_class(client, name, items, oracle, cpu,
+                                    checks[name])
+           for name, items in classes.items()}
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated(dev)
+    cache_after = longtail_cache_bytes(segs, dev)
+    log(f"  sums: max relative error {sums.rel:.3e} ({sums.of_bound:.3e} of "
+        f"the bound); MAD one bin off: {sketch['mad_mismatches']}; "
+        f"matrix_stats' largest errors " + " ".join(
+            f"{k}={v:.2e}" for k, v in sorted(ms_err.items())))
+    log(f"  device bytes allocated: {mem_before} before the phase, "
+        f"{mem_after} after; its per-segment caches (multi_terms ordinals, "
+        f"date buckets) {cache_before} -> {cache_after} bytes, released "
+        f"with their segments (phase 8's merge); phase {time.perf_counter() - t0:.1f}s")
+    return {"classes": out, "device_bytes_before": mem_before,
+            "device_bytes_after": mem_after,
+            "cache_bytes_before": cache_before,
+            "cache_bytes_after": cache_after,
+            "sum_max_rel_err": sums.rel, "sum_err_of_bound": sums.of_bound,
+            "mad_mismatches": sketch["mad_mismatches"],
+            "matrix_stats_err": ms_err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
@@ -5920,14 +6719,16 @@ def main() -> int:
     # 1,024 before phase 8 did; phase 7 ran 64 bodies a class before
     # phase 8 did, 32 before phase 11 did; before phase 13 did, phase 7
     # ran 16 a class, phase 9 1,024 config-3 and 64 sloppy and prefix
-    # bodies, phase 10 16 a class, phase 11 16 and phase 12 8
+    # bodies, phase 10 16 a class, phase 11 16 and phase 12 8; before
+    # phase 15 did, phase 7 and phase 13 ran 8 a class and phase 9 32
+    # sloppy and prefix bodies
     ap.add_argument("--queries", type=int, default=128)
     ap.add_argument("--bool-queries", type=int, default=1024)
-    ap.add_argument("--general-queries", type=int, default=8,
+    ap.add_argument("--general-queries", type=int, default=4,
                     help="phase-7 bodies per class")
     ap.add_argument("--phrase-queries", type=int, default=512,
                     help="phase-9 config-3 and mixed bodies each")
-    ap.add_argument("--phrase-sloppy", type=int, default=32,
+    ap.add_argument("--phrase-sloppy", type=int, default=16,
                     help="phase-9 sloppy and prefix bodies together")
     ap.add_argument("--agg-queries", type=int, default=8,
                     help="phase-10 bodies per class (the refinement class "
@@ -5937,14 +6738,17 @@ def main() -> int:
                     "and (c) add 4 pages each)")
     ap.add_argument("--expand-queries", type=int, default=4,
                     help="phase-12 bodies per class")
-    ap.add_argument("--compound-queries", type=int, default=8,
+    ap.add_argument("--compound-queries", type=int, default=4,
                     help="phase-13 bodies per class")
     ap.add_argument("--context-queries", type=int, default=8,
                     help="phase-14 bodies per class")
+    ap.add_argument("--longtail-queries", type=int, default=4,
+                    help="phase-15 bodies per class (a composite body "
+                    "pages to its end)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 14; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 12, 13, 14, 8); no result line")
+                    help="end after this phase (3 to 15; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -6035,7 +6839,7 @@ def main() -> int:
     if args.phrase_queries < 1024 or args.phrase_sloppy < 64:
         log(f"  cut: {args.phrase_queries} config-3 and mixed bodies "
             f"(1024 uncut) and {args.phrase_sloppy} sloppy and prefix "
-            f"bodies (64), so that phases 7-8 and 13 fit the same time "
+            f"bodies (64), so that phases 7-8, 13 and 15 fit the same time "
             f"limit")
     phrase = phase_phrase_msmarco(big, bools, args.phrase_queries,
                                   args.phrase_sloppy, n_mixed)
@@ -6046,7 +6850,7 @@ def main() -> int:
         f"scale (ndocs={args.ndocs})" + at(t_start))
     if args.general_queries < 64:
         log(f"  cut: {args.general_queries} bodies a class (64 uncut), so "
-            f"that phases 8, 11 and 13 fit the same time limit")
+            f"that phases 8, 11, 13 and 15 fit the same time limit")
     general = phase_general_msmarco(big, args.general_queries)
     if args.stop_after == 7:
         return 0
@@ -6086,6 +6890,9 @@ def main() -> int:
         f"at MS MARCO passage scale (ndocs={args.ndocs}), on phase 7's end "
         f"state; the single-field multi_match, compound-filter and "
         f"wrapper classes after phase 8" + at(t_start))
+    if args.compound_queries < 8:
+        log(f"  cut: {args.compound_queries} bodies a class (8 uncut), so "
+            f"that phase 15 fits the same time limit")
     compound = phase_compound_msmarco(big, args.compound_queries)
     if args.stop_after == 13:
         return 0
@@ -6097,6 +6904,16 @@ def main() -> int:
         f"7's end state; the rescore classes after phase 8" + at(t_start))
     options = phase_options_msmarco(big, args.context_queries)
     if args.stop_after == 14:
+        return 0
+
+    log(f"[15] the long-tail aggregations (a composite export, a "
+        f"time-series panel with pipelines, top hits, multi / rare terms "
+        f"and adjacency_matrix, weighted_avg, MAD, matrix_stats and "
+        f"auto_date_histogram, significance and the samplers) at MS MARCO "
+        f"passage scale (ndocs={args.ndocs}), on phase 7's end state"
+        + at(t_start))
+    longtail = phase_longtail_msmarco(big, args.longtail_queries)
+    if args.stop_after == 15:
         return 0
 
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
@@ -6195,6 +7012,7 @@ def main() -> int:
         "classes": {**compound["classes"], **compound["merged"]},
         "device_bytes": compound["device_bytes"]}}), flush=True)
     print(json.dumps({"body_options": options}), flush=True)
+    print(json.dumps({"longtail_aggs": longtail}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -234,3 +234,141 @@ def ddsketch_value(b: int) -> float:
                                          * DD_LN_GAMMA))
     return float(-DD_MIN_MAG * np.exp((DD_HALF - 1 - b + 0.5)
                                       * DD_LN_GAMMA))
+
+
+# ---------------------------------------------------------------------
+# the long-tail kinds: weighted_avg, ordinal counts, composite ordinals,
+# matrix_stats' power sums, the samplers
+# ---------------------------------------------------------------------
+
+def weighted_avg_agg(v: torch.Tensor, v_present: torch.Tensor,
+                     w: torch.Tensor, w_present: torch.Tensor,
+                     match: torch.Tensor, v_missing: float, w_missing: float,
+                     has_v_missing: bool, has_w_missing: bool) -> tuple:
+    """(sum of value x weight f32, sum of weight f32, docs i64) over the
+    matched docs (the reference's WeightedAvgAggregator): a doc without
+    a value or a weight counts only where that side has a `missing`
+    default, which then stands in (an f32, as the reference's param)."""
+    veff = torch.where(v_present, v, float(np.float32(v_missing)))
+    weff = torch.where(w_present, w, float(np.float32(w_missing)))
+    ok = match
+    if not has_v_missing:
+        ok = ok & v_present
+    if not has_w_missing:
+        ok = ok & w_present
+    zero = torch.zeros((), dtype=torch.float32, device=v.device)
+    return (torch.where(ok, veff * weff, zero).sum(),
+            torch.where(ok, weff, zero).sum(), ok.sum())
+
+
+def ord_counts(ords: torch.Tensor, match: torch.Tensor,
+               nord: int) -> torch.Tensor:
+    """i64[nord] matched docs per doc-major ordinal (multi_terms'
+    combined ordinals); an ordinal below 0 (missing) is dropped."""
+    return bucket_counts(ord_buckets(ords, match, nord), nord)
+
+
+def ord_buckets(ords: torch.Tensor, match: torch.Tensor,
+                nord: int) -> torch.Tensor:
+    """i64[ndocs]: each matched doc's ordinal, else `nord` (dropped)."""
+    return torch.where(match & (ords >= 0), ords.long(),
+                       torch.full(ords.shape, nord, dtype=torch.int64,
+                                  device=ords.device))
+
+
+def composite_buckets(ords: list, sizes: list,
+                      match: torch.Tensor) -> tuple:
+    """(i64[ndocs] combined ordinal of each matched doc holding a value
+    of every source, else `total`; total): the reference's
+    `combined * n + o` over the sources in order, in i64. Each source's
+    ordinal is i32/i64[ndocs] in [0, n), below 0 where the doc lacks
+    it."""
+    dev = match.device
+    combined = torch.zeros(match.shape, dtype=torch.int64, device=dev)
+    valid = match
+    total = 1
+    for o, n in zip(ords, sizes):
+        valid = valid & (o >= 0)
+        combined = combined * n + o.long().clamp(min=0)
+        total *= max(n, 1)
+    return torch.where(valid, combined,
+                       torch.full_like(combined, total)), total
+
+
+def histogram_source_ords(values: torch.Tensor, present: torch.Tensor,
+                          interval: float, min_bucket: int,
+                          nb: int) -> torch.Tensor:
+    """i32[ndocs] a composite histogram source's bucket, floor(f32 value
+    / f32 interval) less `min_bucket`, -1 outside [0, nb) or missing."""
+    o = torch.floor(values / float(np.float32(interval))).to(
+        torch.int32) - min_bucket
+    return torch.where(present & (o >= 0) & (o < nb), o,
+                       torch.full_like(o, -1))
+
+
+def matrix_stats_sums(cols: list, shift: np.ndarray,
+                      match: torch.Tensor) -> dict:
+    """matrix_stats' power sums over the docs that match and hold every
+    field: count i64, s1..s4 f32[k] of (x - shift) and the pairwise
+    products xy f32[k, k], the columns centred about the f32 `shift` as
+    the reference centres them (its power sums are f32). Each pair's
+    products are summed by torch's reduction, as the powers are: the
+    CPU's f32 matrix product accumulates a dot product over millions of
+    docs less accurately than the reference's sums need."""
+    ok = match
+    for _v, p in cols:
+        ok = ok & p
+    dev = match.device
+    x = torch.stack([v for v, _p in cols]) - torch.from_numpy(
+        np.asarray(shift, np.float32)).to(dev)[:, None]
+    xw = x * ok.to(torch.float32)[None, :]
+    return {"count": ok.sum(), "s1": xw.sum(dim=1),
+            "s2": (xw * x).sum(dim=1), "s3": (xw * x * x).sum(dim=1),
+            "s4": (xw * x * x * x).sum(dim=1),
+            "xy": torch.stack([(xw[i] * x).sum(dim=1)
+                               for i in range(len(cols))])}
+
+
+def sampler_select(match: torch.Tensor, scores: torch.Tensor,
+                   shard_size: int, thr=None) -> tuple:
+    """(bool[ndocs] the sampled docs, f32[k] the segment's top scores or
+    None): the matched docs scoring at least the shard_size-th best
+    (score ties there admit more), or at least a shard-wide `thr` (the
+    sampler's second pass)."""
+    dev = match.device
+    masked = torch.where(match, scores,
+                         torch.full((), float("-inf"), device=dev))
+    if thr is not None:
+        return match & (masked >= float(np.float32(thr))), None
+    k = min(int(shard_size), masked.shape[0])
+    vals = torch.topk(masked, k).values
+    t = vals[k - 1]
+    t = torch.where(torch.isfinite(t), t,
+                    torch.full((), float("-inf"), device=dev))
+    return match & (masked >= t), vals
+
+
+def diversify(sel: torch.Tensor, ords: torch.Tensor, scores: torch.Tensor,
+              max_per_value: int) -> torch.Tensor:
+    """bool[ndocs]: at most `max_per_value` sampled docs per key (the
+    reference's diversified sampler). Its rounds take, per key, the best
+    remaining score, ties to the lowest doc, `max_per_value` times: the
+    same docs as each key's first `max_per_value` in (score desc, doc
+    asc) order, which two stable sorts of the sampled keyed docs give.
+    Docs without a key (ord < 0) stay."""
+    keyed = ords >= 0
+    chosen = sel & ~keyed
+    docs = torch.nonzero(sel & keyed).reshape(-1)
+    if docs.numel() == 0:
+        return chosen
+    o = torch.argsort(-scores[docs], stable=True)
+    g = ords[docs].long()[o]
+    by_key = torch.argsort(g, stable=True)
+    o, g = o[by_key], g[by_key]
+    pos = torch.arange(len(g), device=g.device)
+    head = torch.ones_like(g, dtype=torch.bool)
+    head[1:] = g[1:] != g[:-1]
+    first = torch.cummax(torch.where(head, pos, torch.zeros_like(pos)),
+                         0).values
+    chosen[docs[o[pos - first < max_per_value]]] = True
+    return chosen

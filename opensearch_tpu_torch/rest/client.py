@@ -153,7 +153,8 @@ class IndexService:
         path = os.path.join(data_path, name, "0") if data_path else None
         self.engine = Engine(self.mappings, path=path, device=device)
         self.searcher = ShardSearcher(self.engine, device,
-                                      similarity=self.similarity)
+                                      similarity=self.similarity,
+                                      index_name=name)
 
 
 class RestClient:

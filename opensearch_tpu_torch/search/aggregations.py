@@ -1,25 +1,43 @@
 """Aggregations on the host: the agg tree, the merge of per-segment
-partials and the response (the ported kinds of
-opensearch_tpu/search/aggregations.py).
+partials, the response and the pipeline aggregations (the served kinds
+of opensearch_tpu/search/aggregations.py).
 
 The device half lives in `compiler.emit_agg` (torch ops over the general
 path's match mask) and `executor` turns its outputs into the partials
-merged here. Ported kinds: `terms` (keyword doc values), `histogram`,
-`date_histogram` (fixed and calendar intervals, `offset`), `range`,
-`date_range`, `filter`, `filters`, `global`, `missing`, `min`, `max`,
-`sum`, `avg`, `stats`, `extended_stats`, `value_count`, `cardinality`
-(HyperLogLog registers, log2m 14), `percentiles` and `percentile_ranks`
-(a mergeable log-binned sketch). Terms buckets are exact per shard and
-keyed by value, so segments and merged segments agree. Every other kind
-the reference knows, pipeline aggregations included, raises
-`NotPortedError` naming it; an invalid tree raises the reference's
-ValueError.
+merged here. Served kinds:
+
+- bucket: `terms` (keyword doc values), `histogram`, `date_histogram`
+  (fixed and calendar intervals, `offset`), `range`, `date_range`,
+  `filter`, `filters`, `global`, `missing`, `composite` (terms,
+  histogram and date_histogram sources, paged by `after`),
+  `multi_terms`, `rare_terms`, `significant_terms`, `significant_text`,
+  `sampler`, `diversified_sampler`, `adjacency_matrix`,
+  `auto_date_histogram`;
+- metric: `min`, `max`, `sum`, `avg`, `stats`, `extended_stats`,
+  `value_count`, `cardinality` (HyperLogLog registers, log2m 14),
+  `percentiles` and `percentile_ranks` (a mergeable log-binned sketch),
+  `top_hits`, `weighted_avg`, `median_absolute_deviation` (over the
+  same sketch), `matrix_stats`;
+- pipeline (host work on finalized buckets): `derivative`,
+  `cumulative_sum`, `serial_diff`, `moving_avg`, `moving_fn` (the
+  `MovingFunctions.*` helpers), `bucket_sort`, `avg_bucket`,
+  `sum_bucket`, `min_bucket`, `max_bucket`, `stats_bucket`,
+  `percentiles_bucket`. A pipeline that reads a sub-agg the bucket
+  refinement resolves is `deferred` until after it (the executor's
+  `mark_deferred_pipelines` / `apply_deferred_tree`).
+
+Terms buckets are exact per shard and keyed by value, so segments and
+merged segments agree. Every other kind the reference knows raises
+`NotPortedError` naming it, as do the script-bearing pipelines
+(`bucket_script`, `bucket_selector`, a `moving_fn` script outside
+`MovingFunctions`); an invalid tree raises the reference's ValueError.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
 import math
+import re
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional
 
@@ -52,9 +70,36 @@ STATS_FAMILY = {"min", "max", "sum", "avg", "stats", "extended_stats",
 PORTED_KINDS = STATS_FAMILY | {
     "terms", "histogram", "date_histogram", "range", "date_range", "filter",
     "filters", "global", "missing", "cardinality", "percentiles",
-    "percentile_ranks"}
-# bucket kinds whose buckets share one keyed doc_count + subs layout
-_SINGLE_BUCKET = ("filter", "global", "missing")
+    "percentile_ranks", "composite", "multi_terms", "rare_terms",
+    "significant_terms", "significant_text", "sampler",
+    "diversified_sampler", "adjacency_matrix", "auto_date_histogram",
+    "top_hits", "weighted_avg", "median_absolute_deviation",
+    "matrix_stats"}
+SERVED_PIPELINES = PIPELINE_KINDS - {"bucket_script", "bucket_selector"}
+# bucket kinds whose response is one doc_count + subs
+_SINGLE_BUCKET = ("filter", "global", "missing", "sampler",
+                  "diversified_sampler")
+# bucket kinds keyed by value, merged by adding their buckets
+_KEYED = ("terms", "rare_terms", "multi_terms", "composite")
+
+# auto_date_histogram's rounding ladder: the reference's fixed-interval
+# approximation of OpenSearch's calendar ladder (a month is 30 days, a
+# year 365)
+AUTO_LADDER = [
+    (1_000, "1s"), (5_000, "5s"), (10_000, "10s"), (30_000, "30s"),
+    (60_000, "1m"), (300_000, "5m"), (600_000, "10m"), (1_800_000, "30m"),
+    (3_600_000, "1h"), (10_800_000, "3h"), (43_200_000, "12h"),
+    (86_400_000, "1d"), (604_800_000, "7d"), (2_592_000_000, "1M"),
+    (7_776_000_000, "3M"), (31_536_000_000, "1y"), (157_680_000_000, "5y"),
+    (315_360_000_000, "10y"), (3_153_600_000_000, "100y"),
+]
+
+
+def auto_interval_name(interval_ms: int) -> str:
+    for ms, name in AUTO_LADDER:
+        if ms == interval_ms:
+            return name
+    return f"{interval_ms}ms"
 
 
 @dataclass
@@ -64,6 +109,9 @@ class AggNode:
     body: dict
     subs: List["AggNode"] = dc_field(default_factory=list)
     pipelines: List["AggNode"] = dc_field(default_factory=list)
+    # a pipeline whose buckets_path reads a sub-agg the bucket refinement
+    # resolves runs after the refinement (executor.mark_deferred_pipelines)
+    deferred: bool = False
 
 
 def parse_aggs(aggs: Optional[dict]) -> List[AggNode]:
@@ -90,14 +138,38 @@ def parse_aggs(aggs: Optional[dict]) -> List[AggNode]:
     return out
 
 
+_MOVING_FN = re.compile(
+    r"\s*MovingFunctions\.(\w+)\(values(?:,\s*[\w.()]+)?\)\s*$")
+_MOVING_FNS = ("max", "min", "sum", "unweightedAvg", "stdDev",
+               "linearWeightedAvg")
+
+
+def _script_source(spec) -> str:
+    if isinstance(spec, dict):
+        return str(spec.get("source", spec.get("inline", "")))
+    return "" if spec is None else str(spec)
+
+
 def check_ported(nodes: List[AggNode]) -> None:
     """Raise NotPortedError naming the first kind of the tree that this
-    slice does not serve (pipelines included)."""
+    port does not serve: a kind outside PORTED_KINDS, a script-bearing
+    pipeline (`bucket_script`, `bucket_selector`, a `moving_fn` whose
+    script is not one of the `MovingFunctions` helpers). A pipeline at
+    the root is left to `compiler.emit_agg`, which raises the
+    reference's error."""
     for n in nodes:
-        if n.kind not in PORTED_KINDS:
+        if n.kind not in PORTED_KINDS and n.kind not in SERVED_PIPELINES:
             raise NotPortedError(f"aggs: aggregation kind [{n.kind}]")
         for p in n.pipelines:
-            raise NotPortedError(f"aggs: pipeline aggregation [{p.kind}]")
+            if p.kind not in SERVED_PIPELINES:
+                raise NotPortedError(f"aggs: pipeline aggregation "
+                                     f"[{p.kind}] (scripts)")
+            if p.kind == "moving_fn":
+                m = _MOVING_FN.match(_script_source(p.body.get("script")))
+                if not m or m.group(1) not in _MOVING_FNS:
+                    raise NotPortedError(
+                        "aggs: moving_fn scripts other than "
+                        "MovingFunctions.*")
         check_ported(n.subs)
 
 
@@ -110,21 +182,14 @@ def merge_partials(node: AggNode, partials: List[Optional[dict]]) -> dict:
     if not parts:
         return {}
     kind = node.kind
-    if kind in ("terms", "histogram", "date_histogram"):
-        acc: Dict[Any, dict] = {}
-        for p in parts:
-            for key, rec in p["buckets"].items():
-                slot = acc.setdefault(key, {"doc_count": 0, "subs": []})
-                slot["doc_count"] += rec["doc_count"]
-                slot["subs"].append(rec.get("subs"))
-        for slot in acc.values():
-            slot["subs"] = _merge_subs(node.subs, slot["subs"])
-        if kind == "terms":
-            return {"buckets": acc}
-        return {"buckets": acc, "interval": parts[0]["interval"],
+    if kind in _KEYED:
+        return {"buckets": _acc_buckets(node.subs, parts)}
+    if kind in ("histogram", "date_histogram"):
+        return {"buckets": _acc_buckets(node.subs, parts),
+                "interval": parts[0]["interval"],
                 "offset": parts[0].get("offset", 0.0)}
-    if kind in ("range", "date_range", "filters"):
-        acc = {}
+    if kind in ("range", "date_range", "filters", "adjacency_matrix"):
+        acc: Dict[Any, dict] = {}
         for p in parts:
             for key, rec in p["buckets"].items():
                 slot = acc.setdefault(key, {"doc_count": 0, "subs": [],
@@ -138,6 +203,41 @@ def merge_partials(node: AggNode, partials: List[Optional[dict]]) -> dict:
         return {"doc_count": sum(p["doc_count"] for p in parts),
                 "subs": _merge_subs(node.subs, [p.get("subs")
                                                 for p in parts])}
+    if kind in ("significant_terms", "significant_text"):
+        bg: Dict[Any, int] = {}
+        for p in parts:
+            for key, c in p["bg"].items():
+                bg[key] = bg.get(key, 0) + c
+        return {"buckets": _acc_buckets(node.subs, parts), "bg": bg,
+                "fg_total": sum(p["fg_total"] for p in parts),
+                "bg_total": sum(p["bg_total"] for p in parts)}
+    if kind == "auto_date_histogram":
+        # segments may have rounded at different intervals: coarsen all
+        # to the widest before adding (InternalAutoDateHistogram#reduce)
+        interval = max(p["interval_ms"] for p in parts)
+        return {"buckets": _coarsen(node.subs, [
+            (k, rec) for p in parts for k, rec in p["buckets"].items()],
+            interval), "interval_ms": interval}
+    if kind == "weighted_avg":
+        return {k: sum(p[k] for p in parts)
+                for k in ("vwsum", "wsum", "count")}
+    if kind == "matrix_stats":
+        # the shift is index-wide and the same in every non-empty
+        # partial; an empty one (no column) carries zeros
+        out = {"count": sum(p["count"] for p in parts),
+               "fields": parts[0]["fields"],
+               "shift": next((p["shift"] for p in parts
+                              if p["count"] > 0
+                              and p.get("shift") is not None), None)}
+        for key in ("s1", "s2", "s3", "s4", "xy"):
+            out[key] = np.sum([p[key] for p in parts], axis=0)
+        return out
+    if kind == "top_hits":
+        rows = [r for p in parts for r in p["hits"]]
+        rows.sort(key=lambda r: -r["_score"] if r["_score"] is not None
+                  else 0)
+        return {"hits": rows[:parts[0]["size"]],
+                "total": sum(p["total"] for p in parts)}
     if kind in STATS_FAMILY:
         return _merge_stats(parts)
     if kind == "cardinality":
@@ -145,13 +245,42 @@ def merge_partials(node: AggNode, partials: List[Optional[dict]]) -> dict:
         for p in parts[1:]:
             regs = np.maximum(regs, p["registers"])
         return {"registers": regs}
-    # percentiles / percentile_ranks: the sketch's bins are global, so
-    # adding histograms is the reduce
+    # percentiles / percentile_ranks / median_absolute_deviation: the
+    # sketch's bins are global, so adding histograms is the reduce
     hist = parts[0]["hist"].copy()
     for p in parts[1:]:
         hist += p["hist"]
+    if kind == "median_absolute_deviation":
+        return {"hist": hist}
     key = "percents" if kind == "percentiles" else "values"
     return {"hist": hist, key: parts[0][key]}
+
+
+def _acc_buckets(subs: List[AggNode], parts: List[dict]) -> Dict[Any, dict]:
+    """Keyed buckets and their sub partials added across segments."""
+    acc: Dict[Any, dict] = {}
+    for p in parts:
+        for key, rec in p["buckets"].items():
+            slot = acc.setdefault(key, {"doc_count": 0, "subs": []})
+            slot["doc_count"] += rec["doc_count"]
+            slot["subs"].append(rec.get("subs"))
+    for slot in acc.values():
+        slot["subs"] = _merge_subs(subs, slot["subs"])
+    return acc
+
+
+def _coarsen(subs: List[AggNode], items, interval: int) -> Dict[int, dict]:
+    """Date buckets (epoch-ms key, record with unmerged or merged subs)
+    rounded down to `interval` and added."""
+    acc: Dict[int, dict] = {}
+    for key, rec in items:
+        slot = acc.setdefault((int(key) // interval) * interval,
+                              {"doc_count": 0, "subs": []})
+        slot["doc_count"] += rec["doc_count"]
+        slot["subs"].append(rec.get("subs"))
+    for slot in acc.values():
+        slot["subs"] = _merge_subs(subs, slot["subs"])
+    return acc
 
 
 def _merge_stats(parts: List[dict]) -> dict:
@@ -173,14 +302,22 @@ def _merge_subs(subs: List[AggNode],
 
 # ---------------- finalize (response shaping) ----------------
 
-def _finalize_subs(node: AggNode, entry: dict, subs: dict) -> dict:
+def _finalize_subs(node: AggNode, entry: dict, subs: dict,
+                   pipelines: bool) -> dict:
     for sub in node.subs:
-        entry[sub.name] = finalize(sub, subs.get(sub.name, {}))
+        entry[sub.name] = finalize(sub, subs.get(sub.name, {}), pipelines)
     return entry
 
 
-def finalize(node: AggNode, merged: dict) -> dict:
-    """The response of one agg node from its merged partial."""
+def _with_pipelines(node: AggNode, result: dict, pipelines: bool) -> dict:
+    apply_bucket_pipelines(node, result, "all" if pipelines else "early")
+    return result
+
+
+def finalize(node: AggNode, merged: dict, pipelines: bool = True) -> dict:
+    """The response of one agg node from its merged partial. With
+    `pipelines` false only the pipelines not `deferred` run; the
+    executor runs the deferred ones after the bucket refinement."""
     kind = node.kind
     if not merged:
         return _empty_result(node)
@@ -201,12 +338,13 @@ def finalize(node: AggNode, merged: dict) -> dict:
         total_count = sum(v["doc_count"] for _, v in items)
         buckets = [_finalize_subs(node, {"key": k,
                                          "doc_count": int(v["doc_count"])},
-                                  v["subs"])
+                                  v["subs"], pipelines)
                    for k, v in items[:size]]
         shown = sum(b["doc_count"] for b in buckets)
-        return {"doc_count_error_upper_bound": 0,
-                "sum_other_doc_count": int(total_count - shown),
-                "buckets": buckets}
+        return _with_pipelines(node, {
+            "doc_count_error_upper_bound": 0,
+            "sum_other_doc_count": int(total_count - shown),
+            "buckets": buckets}, pipelines)
     if kind in ("histogram", "date_histogram"):
         buckets = []
         for b in sorted(merged["buckets"]):
@@ -219,24 +357,78 @@ def finalize(node: AggNode, merged: dict) -> dict:
             if kind == "date_histogram":
                 entry["key"] = int(key)
                 entry["key_as_string"] = format_epoch_ms(int(key))
-            buckets.append(_finalize_subs(node, entry, rec["subs"]))
-        return {"buckets": buckets}
+            buckets.append(_finalize_subs(node, entry, rec["subs"],
+                                          pipelines))
+        return _with_pipelines(node, {"buckets": buckets}, pipelines)
     if kind in ("range", "date_range"):
         buckets = []
         for key, rec in merged["buckets"].items():
             entry = {"key": key, "doc_count": int(rec["doc_count"])}
             if rec.get("meta"):
                 entry.update(rec["meta"])
-            buckets.append(_finalize_subs(node, entry, rec["subs"]))
-        return {"buckets": buckets}
+            buckets.append(_finalize_subs(node, entry, rec["subs"],
+                                          pipelines))
+        return _with_pipelines(node, {"buckets": buckets}, pipelines)
     if kind == "filters":
         return {"buckets": {
             key: _finalize_subs(node, {"doc_count": int(rec["doc_count"])},
-                                rec["subs"])
+                                rec["subs"], pipelines)
             for key, rec in merged["buckets"].items()}}
     if kind in _SINGLE_BUCKET:
         return _finalize_subs(node, {"doc_count": int(merged["doc_count"])},
-                              merged["subs"])
+                              merged["subs"], pipelines)
+    if kind in ("significant_terms", "significant_text"):
+        return _finalize_significant(node, merged, pipelines)
+    if kind == "composite":
+        return _finalize_composite(node, merged, pipelines)
+    if kind == "rare_terms":
+        max_dc = int(body.get("max_doc_count", 1))
+        items = sorted(((k, v) for k, v in merged["buckets"].items()
+                        if 0 < v["doc_count"] <= max_dc),
+                       key=lambda kv: (kv[1]["doc_count"], kv[0]))
+        return _with_pipelines(node, {"buckets": [
+            _finalize_subs(node, {"key": k, "doc_count": int(v["doc_count"])},
+                           v["subs"], pipelines) for k, v in items]},
+            pipelines)
+    if kind == "multi_terms":
+        size = int(body.get("size", 10))
+        items = sorted(((k, v) for k, v in merged["buckets"].items()
+                        if v["doc_count"] > 0),
+                       key=lambda kv: (-kv[1]["doc_count"], kv[0]))
+        buckets = [_finalize_subs(node, {
+            "key": list(k), "key_as_string": "|".join(str(x) for x in k),
+            "doc_count": int(v["doc_count"])}, v["subs"], pipelines)
+            for k, v in items[:size]]
+        total = sum(v["doc_count"] for _, v in items)
+        shown = sum(b["doc_count"] for b in buckets)
+        return _with_pipelines(node, {
+            "buckets": buckets, "sum_other_doc_count": int(total - shown)},
+            pipelines)
+    if kind == "adjacency_matrix":
+        buckets = []
+        for key in sorted(merged["buckets"]):
+            rec = merged["buckets"][key]
+            if rec["doc_count"] <= 0:
+                continue
+            buckets.append(_finalize_subs(node, {
+                "key": key, "doc_count": int(rec["doc_count"])},
+                rec["subs"], pipelines))
+        return _with_pipelines(node, {"buckets": buckets}, pipelines)
+    if kind == "auto_date_histogram":
+        return _finalize_auto_date(node, merged, pipelines)
+    if kind == "top_hits":
+        hits = merged["hits"]
+        return {"hits": {"total": {"value": int(merged["total"]),
+                                   "relation": "eq"},
+                         "max_score": hits[0]["_score"] if hits else None,
+                         "hits": hits}}
+    if kind == "weighted_avg":
+        w = merged.get("wsum", 0.0)
+        return {"value": None if not w else merged["vwsum"] / w}
+    if kind == "median_absolute_deviation":
+        return {"value": mad_from_hist(merged["hist"])}
+    if kind == "matrix_stats":
+        return _finalize_matrix_stats(merged)
     c = merged.get("count", 0)
     if kind == "value_count":
         return {"value": int(c)}
@@ -268,16 +460,206 @@ def finalize(node: AggNode, merged: dict) -> dict:
     return {"values": hist_percentile_ranks(merged)}
 
 
+def _finalize_auto_date(node: AggNode, merged: dict, pipelines: bool
+                        ) -> dict:
+    """Coarsen along the ladder until the buckets fit the target (the
+    reference's coordinator rounding), then shape as a date histogram
+    with the chosen `interval`'s name."""
+    target = max(int(node.body.get("buckets", 10)), 1)
+    interval = merged.get("interval_ms", 1000)
+    buckets = dict(merged.get("buckets", {}))
+    ladder = [ms for ms, _ in AUTO_LADDER]
+    li = next((i for i, ms in enumerate(ladder) if ms >= interval), 0)
+    while buckets and len(buckets) > target and li + 1 < len(ladder):
+        li += 1
+        interval = ladder[li]
+        buckets = _coarsen(node.subs, buckets.items(), interval)
+    out = [_finalize_subs(node, {
+        "key": int(key), "key_as_string": format_epoch_ms(int(key)),
+        "doc_count": int(buckets[key]["doc_count"])},
+        buckets[key]["subs"], pipelines) for key in sorted(buckets)]
+    return _with_pipelines(node, {"buckets": out,
+                                  "interval": auto_interval_name(interval)},
+                           pipelines)
+
+
+def mad_from_hist(hist: np.ndarray) -> Optional[float]:
+    """Median absolute deviation over the sketch (the reference's
+    `_mad_from_hist`): the weighted median of |bin value - median|, the
+    median itself weighted over the bins' representative values."""
+    total = float(hist.sum())
+    if total == 0:
+        return None
+    nz = np.nonzero(hist)[0]
+    centers = np.array([ddsketch_value(int(b)) for b in nz])
+    weights = hist[nz].astype(np.float64)
+
+    def weighted_median(vals, ws):
+        order = np.argsort(vals)
+        v, w = vals[order], ws[order]
+        cum = np.cumsum(w)
+        half = cum[-1] / 2.0
+        i = int(np.searchsorted(cum, half))
+        if cum[i] == half and i + 1 < len(v):
+            return float((v[i] + v[i + 1]) / 2.0)
+        return float(v[i])
+
+    med = weighted_median(centers, weights)
+    return weighted_median(np.abs(centers - med), weights)
+
+
+def composite_sources(node: AggNode) -> List[tuple]:
+    """[(name, source type, config, order)] of a composite body."""
+    out = []
+    for s in node.body.get("sources", []):
+        ((nm, spec),) = s.items()
+        ((stype, scfg),) = spec.items()
+        out.append((nm, stype, scfg, scfg.get("order", "asc")))
+    return out
+
+
+class CompVal:
+    """One source's value of a composite key, ordered by its direction."""
+
+    __slots__ = ("v", "desc")
+
+    def __init__(self, v, desc: bool):
+        self.v = v
+        self.desc = desc
+
+    def __lt__(self, other):
+        return (self.v > other.v) if self.desc else (self.v < other.v)
+
+    def __eq__(self, other):
+        return self.v == other.v
+
+
+def _finalize_composite(node: AggNode, merged: dict, pipelines: bool
+                        ) -> dict:
+    """One page of composite buckets: every merged bucket in the
+    sources' order, those after `after`, the first `size`, and the last
+    key shown as `after_key`."""
+    sources = composite_sources(node)
+    size = int(node.body.get("size", 10))
+    after = node.body.get("after")
+
+    def comp(key_tuple):
+        return tuple(CompVal(v, o == "desc")
+                     for v, (_, _, _, o) in zip(key_tuple, sources))
+
+    items = [(k, v) for k, v in merged["buckets"].items()
+             if v["doc_count"] > 0]
+    items.sort(key=lambda kv: comp(kv[0]))
+    if after is not None:
+        ac = comp(tuple(after[nm] for nm, _, _, _ in sources))
+        items = [kv for kv in items if comp(kv[0]) > ac]
+    buckets = [_finalize_subs(node, {
+        "key": {nm: v for (nm, _, _, _), v in zip(sources, key)},
+        "doc_count": int(rec["doc_count"])}, rec["subs"], pipelines)
+        for key, rec in items[:size]]
+    out = {"buckets": buckets}
+    if buckets:
+        out["after_key"] = buckets[-1]["key"]
+    return _with_pipelines(node, out, pipelines)
+
+
+def significance_score(fg: float, fg_total: float, bg: float,
+                       bg_total: float, heuristic: str) -> float:
+    """The reference's own significance heuristics over the foreground
+    and background frequencies: JLH (the default), chi_square,
+    percentage."""
+    if fg_total == 0 or bg_total == 0 or bg == 0:
+        return 0.0
+    fgp = fg / fg_total
+    bgp = bg / bg_total
+    if heuristic == "percentage":
+        return fg / bg
+    if heuristic == "chi_square":
+        num = (fgp - bgp) ** 2
+        den = bgp * (1 - bgp)
+        return (num / den) * bg_total if den > 0 else 0.0
+    return (fgp - bgp) * (fgp / bgp) if fgp > bgp else 0.0
+
+
+def _finalize_significant(node: AggNode, merged: dict, pipelines: bool
+                          ) -> dict:
+    body = node.body
+    heuristic = next((h for h in ("jlh", "chi_square", "percentage")
+                      if h in body), "jlh")
+    size = int(body.get("size", 10))
+    min_doc_count = int(body.get("min_doc_count", 3))
+    fg_total, bg_total = merged["fg_total"], merged["bg_total"]
+    scored = []
+    for key, rec in merged["buckets"].items():
+        fg = rec["doc_count"]
+        bg = merged["bg"].get(key, fg)
+        if fg < min_doc_count:
+            continue
+        score = significance_score(fg, fg_total, bg, bg_total, heuristic)
+        if score > 0:
+            scored.append((score, key, fg, bg, rec))
+    scored.sort(key=lambda t: (-t[0], t[1]))
+    buckets = [_finalize_subs(node, {"key": key, "doc_count": int(fg),
+                                     "score": score, "bg_count": int(bg)},
+                              rec["subs"], pipelines)
+               for score, key, fg, bg, rec in scored[:size]]
+    return _with_pipelines(node, {"doc_count": int(fg_total),
+                                  "bg_count": int(bg_total),
+                                  "buckets": buckets}, pipelines)
+
+
+def _finalize_matrix_stats(merged: dict) -> dict:
+    """Moments, covariances and correlations from the power sums, which
+    are centred about the index-wide `shift` (so `mean` below is the
+    small residual)."""
+    n = float(merged["count"])
+    fields = merged["fields"]
+    if n == 0:
+        return {"doc_count": 0, "fields": []}
+    s1, s2, s3, s4 = (np.asarray(merged[k], np.float64)
+                      for k in ("s1", "s2", "s3", "s4"))
+    xy = np.asarray(merged["xy"], np.float64)
+    shift = np.asarray(merged.get("shift", np.zeros(len(fields))),
+                       np.float64)
+    mean = s1 / n
+    m2 = s2 / n - mean ** 2
+    var = m2 * n / max(n - 1, 1)
+    out_fields = []
+    for i, f in enumerate(fields):
+        m2i = max(m2[i], 0.0)
+        m3 = s3[i] / n - 3 * mean[i] * s2[i] / n + 2 * mean[i] ** 3
+        m4 = (s4[i] / n - 4 * mean[i] * s3[i] / n
+              + 6 * mean[i] ** 2 * s2[i] / n - 3 * mean[i] ** 4)
+        cov, corr = {}, {}
+        for j, g in enumerate(fields):
+            c = (xy[i, j] - s1[i] * s1[j] / n) / max(n - 1, 1)
+            cov[g] = c
+            denom = math.sqrt(var[i] * var[j])
+            corr[g] = c / denom if denom > 0 else 0.0
+        out_fields.append({"name": f, "count": int(n),
+                           "mean": shift[i] + mean[i], "variance": var[i],
+                           "skewness": m3 / m2i ** 1.5 if m2i > 0 else 0.0,
+                           "kurtosis": m4 / m2i ** 2 if m2i > 0 else 0.0,
+                           "covariance": cov, "correlation": corr})
+    return {"doc_count": int(n), "fields": out_fields}
+
+
 def _empty_result(node: AggNode) -> dict:
     kind = node.kind
     if kind == "filters":
         return {"buckets": {}}
     if kind in ("terms", "histogram", "date_histogram", "range",
-                "date_range"):
+                "date_range", "composite", "rare_terms", "multi_terms",
+                "adjacency_matrix", "auto_date_histogram"):
         return {"buckets": []}
+    if kind in ("significant_terms", "significant_text"):
+        return {"doc_count": 0, "bg_count": 0, "buckets": []}
     if kind in _SINGLE_BUCKET:
         return {"doc_count": 0}
-    if kind in ("min", "max", "avg"):
+    if kind == "matrix_stats":
+        return {"doc_count": 0, "fields": []}
+    if kind in ("min", "max", "avg", "weighted_avg",
+                "median_absolute_deviation"):
         return {"value": None}
     if kind in ("sum", "value_count", "cardinality"):
         return {"value": 0}
@@ -331,3 +713,173 @@ def hist_percentile_ranks(merged: dict) -> Dict[str, Optional[float]]:
 def format_epoch_ms(ms: int) -> str:
     return _dt.datetime.fromtimestamp(ms / 1000.0, _dt.timezone.utc).strftime(
         "%Y-%m-%dT%H:%M:%S.%f")[:-3] + "Z"
+
+
+# ---------------- pipeline aggregations (host) ----------------
+
+def apply_pipelines_tree(node: AggNode, result) -> None:
+    """The deferred pipelines of a finalized subtree, post-order (for a
+    subtree the refinement did not reach: its early pipelines ran in
+    `finalize`)."""
+    if not isinstance(result, dict):
+        return
+    buckets = result.get("buckets")
+    if isinstance(buckets, list):
+        for b in buckets:
+            for s in node.subs:
+                apply_pipelines_tree(s, b.get(s.name))
+    elif isinstance(buckets, dict):
+        for bd in buckets.values():
+            for s in node.subs:
+                apply_pipelines_tree(s, bd.get(s.name))
+    else:
+        for s in node.subs:
+            apply_pipelines_tree(s, result.get(s.name))
+    apply_bucket_pipelines(node, result, "deferred")
+
+
+def bucket_path_value(b: dict, path: str):
+    """One `buckets_path` against a finalized bucket (the reference's
+    `_bucket_path_value`): `_count`, or `>` / `.` separated names walked
+    down the bucket, a dict at the end read at its "value". Any other
+    form (`_key`, `name[99.0]`) finds nothing there and reads None."""
+    if path == "_count":
+        return float(b["doc_count"])
+    node: Any = b
+    for part in path.replace(">", ".").split("."):
+        if not isinstance(node, dict):
+            return None
+        node = node.get(part)
+    if isinstance(node, dict):
+        node = node.get("value")
+    return node
+
+
+def moving_fn_eval(script: str, values: List[float]):
+    """A `moving_fn` over one window: the `MovingFunctions` helper the
+    script names (`check_ported` refused any other script)."""
+    name = _MOVING_FN.match(script).group(1)
+    if not values:
+        return 0 if name == "sum" else None
+    if name == "max":
+        return max(values)
+    if name == "min":
+        return min(values)
+    if name == "sum":
+        return sum(values)
+    if name == "unweightedAvg":
+        return sum(values) / len(values)
+    if name == "stdDev":
+        avg = sum(values) / len(values)
+        return math.sqrt(sum((x - avg) ** 2 for x in values) / len(values))
+    return (sum((i + 1) * x for i, x in enumerate(values))
+            / sum(range(1, len(values) + 1)))
+
+
+def apply_bucket_pipelines(node: AggNode, result: dict,
+                           which: str = "all") -> None:
+    """The pipelines of a bucket agg over its finalized buckets, in the
+    body's order (the reference's `_apply_bucket_pipelines`):
+    cumulative_sum, derivative, serial_diff, moving_avg and moving_fn
+    set a value in each bucket, bucket_sort reorders and cuts the list,
+    the *_bucket siblings set a value beside the buckets. `which`
+    picks "all", "early" (not deferred) or "deferred"."""
+    buckets = result.get("buckets")
+    if not isinstance(buckets, list):
+        return
+    for p in node.pipelines:
+        if (which == "early" and p.deferred) or (
+                which == "deferred" and not p.deferred):
+            continue
+        raw_path = p.body.get("buckets_path", "_count")
+        if p.kind == "bucket_sort":
+            sorts = p.body.get("sort", [])
+            frm = int(p.body.get("from", 0))
+            size = p.body.get("size")
+
+            def sort_key(b, sorts=sorts):
+                key = []
+                for s in sorts:
+                    ((pth, spec),) = (s.items() if isinstance(s, dict)
+                                      else [(s, "asc")])
+                    order = (spec.get("order", "asc")
+                             if isinstance(spec, dict) else spec)
+                    v = bucket_path_value(b, pth)
+                    v = float("-inf") if v is None else v
+                    key.append(-v if order == "desc" else v)
+                return tuple(key)
+
+            if sorts:
+                buckets.sort(key=sort_key)
+            end = frm + int(size) if size is not None else None
+            result["buckets"] = buckets = buckets[frm:end]
+            continue
+        series = [bucket_path_value(b, raw_path) for b in buckets]
+        vals = [v for v in series if v is not None]
+        if p.kind == "cumulative_sum":
+            run = 0.0
+            for b, v in zip(buckets, series):
+                run += (v or 0.0)
+                b[p.name] = {"value": run}
+        elif p.kind == "derivative":
+            prev = None
+            for b, v in zip(buckets, series):
+                b[p.name] = {"value": None if prev is None or v is None
+                             else v - prev}
+                prev = v
+        elif p.kind == "serial_diff":
+            lag = int(p.body.get("lag", 1))
+            for i, cur in enumerate(series):
+                ref = series[i - lag] if i >= lag else None
+                buckets[i][p.name] = {"value": None if cur is None
+                                      or ref is None else cur - ref}
+        elif p.kind in ("moving_avg", "moving_fn"):
+            window = int(p.body.get("window", 5))
+            shift = int(p.body.get("shift", 0))
+            # moving_avg's window holds the current bucket; moving_fn's
+            # (shift 0) ends before it
+            if p.kind == "moving_avg":
+                shift += 1
+            for i, b in enumerate(buckets):
+                win = [v for v in series[max(0, i - window + shift):
+                                         max(0, i + shift)]
+                       if v is not None]
+                if p.kind == "moving_fn":
+                    out = moving_fn_eval(_script_source(
+                        p.body.get("script")), win)
+                elif not win:
+                    out = None
+                elif p.body.get("model", "simple") == "linear":
+                    out = (sum((j + 1) * x for j, x in enumerate(win))
+                           / sum(range(1, len(win) + 1)))
+                else:
+                    out = sum(win) / len(win)
+                b[p.name] = {"value": out}
+        elif p.kind == "percentiles_bucket":
+            percents = p.body.get("percents",
+                                  [1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0])
+            svals = sorted(vals)
+            out = {}
+            for pc in percents:
+                if not svals:
+                    out[f"{pc:.1f}"] = None
+                else:
+                    idx = min(int(round(pc / 100.0 * len(svals) + 0.5)) - 1,
+                              len(svals) - 1)
+                    out[f"{pc:.1f}"] = svals[max(idx, 0)]
+            result[p.name] = {"values": out}
+        elif p.kind == "avg_bucket":
+            result[p.name] = {"value": sum(vals) / len(vals) if vals
+                              else None}
+        elif p.kind == "sum_bucket":
+            result[p.name] = {"value": sum(vals)}
+        elif p.kind == "min_bucket":
+            result[p.name] = {"value": min(vals) if vals else None}
+        elif p.kind == "max_bucket":
+            result[p.name] = {"value": max(vals) if vals else None}
+        else:   # stats_bucket
+            result[p.name] = {"count": len(vals), "sum": sum(vals),
+                              "min": min(vals) if vals else None,
+                              "max": max(vals) if vals else None,
+                              "avg": sum(vals) / len(vals) if vals
+                              else None}

@@ -68,7 +68,7 @@ from ..models.similarity import Similarity, resolve_similarity
 from ..ops import aggs as agg_ops
 from ..ops import positions as pos_ops
 from ..ops import scoring as ops
-from .aggregations import STATS_FAMILY
+from .aggregations import AUTO_LADDER, PIPELINE_KINDS, STATS_FAMILY
 from ..ops.bm25 import LANES
 from . import query_dsl as dsl
 from . import regexp as rx
@@ -1300,17 +1300,16 @@ def run_segment(lroot: LNode, seg: Segment, ctx: ShardContext, k_pad: int,
     else:
         vals, idx = ops.topk_docs(sm.scores, sm.matched, live, k_pad)
         leaves = [vals, idx, ops.total_hits(sm.matched, live)]
-    aggs = {n.name: emit_agg(n, seg, ctx, match, device) for n in agg_nodes}
+    # a root top_hits is served from the shard's candidates (executor)
+    aggs = {n.name: emit_agg(n, seg, ctx, match, device, sm.scores)
+            for n in agg_nodes if n.kind != "top_hits"}
     by_name = dict(named)
     named_at = {nm: emit(by_name[nm], seg, ctx, device).matched[idx]
                 for nm in sorted(by_name)}
-    tree = _leaves_to_slots((aggs, named_at), leaves)
-    host = torch.cat([t.double().reshape(-1) for t in leaves]).cpu().numpy()
+    host, (aggs_np, named_np) = fetch_tree((aggs, named_at), leaves)
     k = len(idx)
     sc = host[:k].astype(np.float32)
     STATS["general_served"] += 1
-    aggs_np, named_np = _slots_to_arrays(tree, host, leaves, np.cumsum(
-        [0] + [t.numel() for t in leaves]))
     out = {"topk_idx": host[k:2 * k].astype(np.int64), "topk_scores": sc,
            "total": int(host[2 * k]), "total_rel": "eq",
            "max_score": float(sc[0]) if k else float("-inf"),
@@ -1484,6 +1483,16 @@ def _leaves_to_slots(tree, leaves: List[torch.Tensor]):
 @dataclass(frozen=True)
 class _Slot:
     i: int
+
+
+def fetch_tree(tree, leaves: List[torch.Tensor]) -> tuple:
+    """(the f64 host copy of `leaves` and then of the tensors of `tree`,
+    `tree` with each tensor as a numpy array): one device-to-host copy."""
+    tree = _leaves_to_slots(tree, leaves)
+    host = torch.cat([t.double().reshape(-1) for t in leaves]).cpu().numpy() \
+        if leaves else np.zeros(0)
+    return host, _slots_to_arrays(tree, host, leaves, np.cumsum(
+        [0] + [t.numel() for t in leaves]))
 
 
 def _slots_to_arrays(tree, host: np.ndarray, leaves: List[torch.Tensor],
@@ -1667,13 +1676,18 @@ def filters_agg_items(body: dict) -> list:
 
 
 def agg_field(node, ctx: ShardContext) -> str:
-    field = node.body.get("field", "")
+    return _resolve(node.body.get("field", ""), ctx)
+
+
+def _resolve(field: str, ctx: ShardContext) -> str:
+    """A field name as mapped (an alias resolved), else as given."""
     ft = ctx.mappings.resolve_field(field)
     return ft.name if ft else field
 
 
 def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
-             device: torch.device) -> tuple:
+             device: torch.device, scores: Optional[torch.Tensor] = None
+             ) -> tuple:
     """-> (spec, out): the host spec of one agg node over `seg` (what the
     partial needs: fields, bucket windows, keys, sub specs) and its
     device outputs (a dict of tensors, None where the reference emits
@@ -1681,8 +1695,10 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
     Ordinal bucket kinds (terms, histogram, date_histogram) fuse only
     their stats-family subs into per-bucket scatters, as the reference's
     device pass does; the executor's refinement serves the other subs.
-    The container kinds (range, filter, filters, global, missing) run
-    every sub over their bucket's match."""
+    The container kinds (range, filter, filters, global, missing,
+    adjacency_matrix, the samplers) run every sub over their bucket's
+    match. `scores` (f32[ndocs], the query's) rank the samplers' and
+    significant_text's docs."""
     from . import filters
 
     kind = node.kind
@@ -1714,17 +1730,21 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
                        prefix: str = "") -> tuple:
         specs = []
         for i, sub in enumerate(node.subs):
-            sspec, sout = emit_agg(sub, seg, ctx, bucket_match, device)
+            sspec, sout = emit_agg(sub, seg, ctx, bucket_match, device,
+                                   scores)
             specs.append(sspec)
             if sout:
                 out[f"{prefix}sub{i}"] = sout
         return tuple(specs)
 
-    if kind == "terms":
+    if kind in ("terms", "rare_terms", "significant_terms"):
         field = agg_field(node, ctx)
         col = seg.keyword_cols.get(field)
         if col is None:
-            return ("terms_missing",), None
+            # a significant_terms segment without the field still adds its
+            # live docs to the background total
+            return (("sig_missing",), {}) if kind == "significant_terms" \
+                else (("terms_missing",), None)
         kw = seg.keyword_on(field, device)
         nv = len(col.vocab)
         out = {"counts": agg_ops.terms_counts(kw, match, nv)}
@@ -1735,6 +1755,9 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
             if scol is not None:
                 out[f"sub{i}"] = agg_ops.terms_sub_metric(kw, match, *scol,
                                                           nv)
+        if kind == "significant_terms":
+            out["fg_total"] = match.sum()
+            return ("sig_terms", field, tuple(specs)), out
         return ("terms", field, tuple(specs)), out
 
     if kind == "histogram":
@@ -1852,4 +1875,358 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
             pv = tuple(float(v) for v in body.get("values", ()))
         return (kind, pv), {"hist": hist}
 
+    if kind == "composite":
+        return _emit_composite(node, seg, ctx, match, device, stats_col)
+
+    if kind == "multi_terms":
+        sources = body.get("terms", [])
+        if len(sources) < 2:
+            raise dsl.QueryParseError(
+                "[multi_terms] requires at least two [terms] sources")
+        fields = tuple(s["field"] for s in sources)
+        vocab, ords = multi_terms_on(seg, ctx, fields, device)
+        nv = max(len(vocab), 1)
+        b = agg_ops.ord_buckets(ords, match, nv)
+        specs, out = bucketed_subs(b, nv)
+        out["counts"] = agg_ops.bucket_counts(b, nv)
+        return ("multi_terms", fields, specs), out
+
+    if kind == "auto_date_histogram":
+        field = agg_field(node, ctx)
+        interval_ms = auto_interval(seg.numeric_cols.get(field),
+                                    max(int(body.get("buckets", 10)), 1))
+        key = (field, interval_ms, 0, None)
+        ids, min_b, nb = host_date_buckets(seg, *key)
+        d_ids = seg.device_cached(("dbuckets",) + key, device,
+                                  lambda: torch.from_numpy(ids).to(device))
+        b = agg_ops.doc_buckets(d_ids, match, nb)
+        specs, out = bucketed_subs(b, nb)
+        out["counts"] = agg_ops.bucket_counts(b, nb)
+        return ("auto_date", min_b, interval_ms, specs), out
+
+    if kind == "adjacency_matrix":
+        raw = body.get("filters", {})
+        keys = sorted(raw)
+        masks = [filters.filter_mask(rewrite(dsl.parse_query(raw[k]), ctx,
+                                             scoring=False), seg, ctx, device)
+                 for k in keys]
+        cells = [(a,) for a in range(len(keys))] + [
+            (a, b) for a in range(len(keys))
+            for b in range(a + 1, len(keys))]
+        out, specs = {}, ()
+        for ci, cell in enumerate(cells):
+            bm = match
+            for a in cell:
+                bm = bm & masks[a]
+            out[f"c{ci}"] = bm.sum()
+            specs = container_subs(bm, out, prefix=f"c{ci}_")
+        return ("adjacency", tuple(keys), body.get("separator", "&"),
+                specs), out
+
+    if kind in ("sampler", "diversified_sampler"):
+        shard_size = max(int(body.get("shard_size", 100)), 1)
+        thr = getattr(node, "global_thr", None)
+        sel, tops = agg_ops.sampler_select(match, scores, shard_size, thr)
+        if kind == "diversified_sampler":
+            tops = None            # no shard-wide second pass
+            sel = agg_ops.diversify(
+                sel, diversity_ords(body.get("field", ""), seg, ctx, device),
+                scores, max(int(body.get("max_docs_per_value", 1)), 1))
+        out = {"doc_count": sel.sum()}
+        if tops is not None:
+            out["topscores"] = tops
+        return ("sampler", container_subs(sel, out)), out
+
+    if kind == "significant_text":
+        shard_size = int(body.get("shard_size", 200))
+        _vals, idx = ops.topk_docs(scores, match, match,
+                                   max(min(shard_size, seg.ndocs), 1))
+        return ("sig_text", body.get("field", "")), {
+            "idx": idx, "n": torch.clamp(match.sum(), max=len(idx))}
+
+    if kind == "top_hits":
+        # the root's is served from the shard's candidates (the
+        # executor), a bucket's by the refinement; elsewhere the
+        # reference has no partial for it
+        return ("top_hits",), {"size": torch.zeros((), device=device)}
+
+    if kind == "weighted_avg":
+        vspec, wspec = body.get("value", {}), body.get("weight", {})
+        vcol = seg.f32_on(_resolve(vspec.get("field", ""), ctx), device)
+        wcol = seg.f32_on(_resolve(wspec.get("field", ""), ctx), device)
+        has_vm = vspec.get("missing") is not None
+        has_wm = wspec.get("missing") is not None
+        if (vcol is None and not has_vm) or (wcol is None and not has_wm):
+            return ("wavg",), {"vwsum": torch.zeros((), device=device),
+                               "wsum": torch.zeros((), device=device),
+                               "count": torch.zeros((), dtype=torch.int64,
+                                                    device=device)}
+        none = (torch.zeros(seg.ndocs, dtype=torch.float32, device=device),
+                torch.zeros(seg.ndocs, dtype=torch.bool, device=device))
+        vw, ws, cnt = agg_ops.weighted_avg_agg(
+            *(vcol or none), *(wcol or none), match,
+            float(vspec.get("missing", 0.0) or 0.0),
+            float(wspec.get("missing", 0.0) or 0.0), has_vm, has_wm)
+        return ("wavg",), {"vwsum": vw, "wsum": ws, "count": cnt}
+
+    if kind == "median_absolute_deviation":
+        col = seg.f32_on(agg_field(node, ctx), device)
+        return ("mad",), {"hist": torch.zeros(
+            agg_ops.DD_NBINS, dtype=torch.int64, device=device)
+            if col is None else agg_ops.ddsketch_hist(*col, match)}
+
+    if kind == "matrix_stats":
+        fields = tuple(body.get("fields", []))
+        cols = [seg.f32_on(f, device) for f in fields]
+        if not fields or any(c is None for c in cols):
+            return ("matrix_stats", fields), {"count": torch.zeros(
+                (), dtype=torch.int64, device=device)}
+        shift = matrix_stats_shift(node, fields, ctx)
+        out = agg_ops.matrix_stats_sums(cols, shift, match)
+        return ("matrix_stats", fields, tuple(float(np.float32(x))
+                                              for x in shift)), out
+
+    if kind in PIPELINE_KINDS:
+        # a pipeline at the root: the reference's prepare refuses it
+        raise ValueError(f"cannot prepare aggregation [{kind}]")
     raise NotPortedError(f"aggs: aggregation kind [{kind}]")
+
+
+def _emit_composite(node, seg: Segment, ctx: ShardContext,
+                    match: torch.Tensor, device: torch.device,
+                    stats_col) -> tuple:
+    """A composite's combined ordinal of each matched doc over the
+    product of its sources' value spaces (the reference's
+    `_prepare_composite` with its emit): one bucket count over every
+    composite bucket of the segment; the coordinator pages them. A
+    terms source is the keyword's smallest ordinal (a multi-valued one
+    alone is counted value by value), a histogram source floor(f32 /
+    interval), a date_histogram source the date buckets; a doc lacking
+    a source is in no bucket, with or without `missing_bucket` (which
+    the reference does not read)."""
+    from .aggregations import composite_sources
+
+    sources = composite_sources(node)
+    infos, ords = [], []
+    for nm, stype, scfg, _order in sources:
+        field = _resolve(scfg.get("field", ""), ctx)
+        if stype == "terms":
+            col = seg.keyword_cols.get(field)
+            if col is None:
+                return ("terms_missing",), None
+            kw = seg.keyword_on(field, device)
+            if keyword_multi_valued(seg, field):
+                if len(sources) > 1:
+                    raise dsl.QueryParseError(
+                        "[composite] a multi-valued terms source cannot be "
+                        "combined with other sources")
+                nv = len(col.vocab)
+                out = {"counts": agg_ops.terms_counts(kw, match, nv)}
+                specs = []
+                for i, sub in enumerate(node.subs):
+                    scol = stats_col(sub)
+                    specs.append(scol is not None)
+                    if scol is not None:
+                        out[f"sub{i}"] = agg_ops.terms_sub_metric(
+                            kw, match, *scol, nv)
+                return ("composite_mv", field, tuple(specs)), out
+            infos.append(("terms", field, len(col.vocab), 0, 0.0, ""))
+            ords.append(kw[2])
+        elif stype == "histogram":
+            interval = float(scfg["interval"])
+            col = seg.numeric_cols.get(field)
+            if col is None or not col.present.any():
+                return ("terms_missing",), None
+            mn, mx = col.min_max
+            min_b = int(np.floor(mn / interval))
+            nb = int(np.floor(mx / interval)) - min_b + 1
+            infos.append(("hist", field, nb, min_b, interval, ""))
+            ords.append(agg_ops.histogram_source_ords(
+                *seg.f32_on(field, device), interval, min_b, nb))
+        elif stype == "date_histogram":
+            calendar = scfg.get("calendar_interval")
+            interval_ms = 0 if calendar else parse_interval_ms(scfg.get(
+                "fixed_interval", scfg.get("interval", "1d")))
+            key = (field, max(interval_ms, 1), 0, calendar)
+            ids, min_b, nb = host_date_buckets(seg, *key)
+            if nb <= 0:
+                return ("terms_missing",), None
+            infos.append(("date", field, nb, min_b,
+                          float(max(interval_ms, 1)), calendar or ""))
+            ords.append(seg.device_cached(
+                ("dbuckets",) + key, device,
+                lambda ids=ids: torch.from_numpy(ids).to(device)))
+        else:
+            raise dsl.QueryParseError(
+                f"[composite] unsupported source type [{stype}]")
+    total = int(np.prod([max(i[2], 1) for i in infos], dtype=np.int64))
+    if total > COMPOSITE_MAX_BUCKETS:
+        raise dsl.QueryParseError(
+            f"[composite] too many composite buckets [{total}] "
+            f"(limit {COMPOSITE_MAX_BUCKETS})")
+    b, total = agg_ops.composite_buckets(ords, [i[2] for i in infos], match)
+    out = {"counts": agg_ops.bucket_counts(b, total)}
+    specs = []
+    for i, sub in enumerate(node.subs):
+        scol = stats_col(sub)
+        specs.append(scol is not None)
+        if scol is not None:
+            vals, present = scol
+            sb = torch.where(present, b, torch.full_like(b, total))
+            out[f"sub{i}"] = agg_ops.bucket_metrics(sb, total, vals)
+    return ("composite", tuple(infos), total, tuple(specs)), out
+
+
+# the reference's composite limit; below it its i32 combined ordinal
+# cannot overflow
+COMPOSITE_MAX_BUCKETS = 1 << 22
+
+
+def keyword_multi_valued(seg: Segment, field: str) -> bool:
+    """Whether a doc of the segment holds two values of a keyword field;
+    cached per segment."""
+    cache = seg.__dict__.setdefault("kw_multi", {})
+    if field not in cache:
+        col = seg.keyword_cols[field]
+        cache[field] = bool(len(col.ords)) and int(
+            np.max(np.diff(col.starts))) > 1
+    return cache[field]
+
+
+def auto_interval(col, target: int) -> int:
+    """The smallest ladder interval that gives at most `target` buckets
+    over a date column's span in the segment (the reference's
+    `_auto_interval`)."""
+    if col is None or not col.present.any():
+        return AUTO_LADDER[0][0]
+    mn, mx = col.min_max
+    span = max(mx - mn, 1.0)
+    for ms, _name in AUTO_LADDER:
+        if span / ms <= target:
+            return ms
+    return AUTO_LADDER[-1][0]
+
+
+def multi_terms_host(seg: Segment, ctx: ShardContext,
+                     fields: Tuple[str, ...]) -> tuple:
+    """(vocab of key tuples, combined ordinal i32[ndocs], -1 where a doc
+    lacks a source) of a multi_terms source list over a segment (the
+    reference's `_multi_terms_cache`): a keyword source's smallest
+    ordinal, a numeric source's rank among its distinct values, mixed
+    into one i64 and made dense by one host np.unique; cached per
+    segment."""
+    cache = seg.__dict__.setdefault("multi_terms", {})
+    got = cache.get(fields)
+    if got is not None:
+        return got
+    per_field = []
+    for f in fields:
+        f = _resolve(f, ctx)
+        kcol = seg.keyword_cols.get(f)
+        ncol = seg.numeric_cols.get(f)
+        if kcol is not None:
+            per_field.append((kcol.min_ord, list(kcol.vocab)))
+        elif ncol is not None:
+            cast = float if ncol.kind == "float" else int
+            per_field.append((ncol.sort_ords(),
+                              [cast(v) for v in ncol.distinct]))
+        else:
+            per_field.append((np.full(seg.ndocs, -1, np.int32), []))
+    combined = np.zeros(seg.ndocs, np.int64)
+    valid = np.ones(seg.ndocs, bool)
+    mults = []
+    mult = 1
+    for ords, vocab in reversed(per_field):
+        valid &= ords >= 0
+        combined += np.maximum(ords, 0).astype(np.int64) * mult
+        mults.append(mult)
+        mult *= max(len(vocab), 1)
+    mults.reverse()
+    uniq, inv = np.unique(combined[valid], return_inverse=True)
+    ords_out = np.full(seg.ndocs, -1, np.int32)
+    ords_out[valid] = inv.reshape(-1).astype(np.int32)
+    vocab_out = []
+    for code in uniq.tolist():
+        key = []
+        for (_o, vocab), mm in zip(per_field, mults):
+            idx, code = divmod(code, mm)
+            key.append(vocab[idx] if idx < len(vocab) else None)
+        vocab_out.append(tuple(key))
+    cache[fields] = got = (vocab_out, ords_out)
+    return got
+
+
+def multi_terms_on(seg: Segment, ctx: ShardContext, fields: Tuple[str, ...],
+                   device) -> tuple:
+    vocab, ords = multi_terms_host(seg, ctx, fields)
+    return vocab, seg.device_cached(("mterms", fields), device,
+                                    lambda: torch.from_numpy(ords).to(device))
+
+
+def diversity_ords(field: str, seg: Segment, ctx: ShardContext,
+                   device) -> torch.Tensor:
+    """i32[ndocs] a diversified_sampler's key: a keyword's smallest
+    ordinal, a numeric field's rank, -1 (no key) without the field."""
+    field = _resolve(field, ctx)
+    if field in seg.keyword_cols:
+        return seg.keyword_on(field, device)[2]
+    if field in seg.numeric_cols:
+        return seg.sort_ords_on(field, device)
+    return torch.full((seg.ndocs,), -1, dtype=torch.int32, device=device)
+
+
+def col_sum(seg: Segment, field: str) -> Tuple[float, int]:
+    """(f64 sum, count) of a numeric column's present values, deleted
+    docs included (the reference's `_col_sum`); cached per segment."""
+    cache = seg.__dict__.setdefault("col_sums", {})
+    if field not in cache:
+        col = seg.numeric_cols.get(field)
+        cache[field] = ((0.0, 0) if col is None or not col.present.any()
+                        else (float(col.values[col.present].astype(
+                            np.float64).sum()), int(col.present.sum())))
+    return cache[field]
+
+
+def matrix_stats_shift(node, fields: Tuple[str, ...],
+                       ctx: ShardContext) -> np.ndarray:
+    """f64[k] the index-wide mean of each field, the centre of the
+    matrix_stats power sums (the reference's `_ms_shift`), once per
+    agg node."""
+    shift = getattr(node, "ms_shift", None)
+    if shift is None:
+        shift = np.zeros(len(fields), np.float64)
+        for i, f in enumerate(fields):
+            sums = [col_sum(s, f) for s in ctx.segments]
+            cnt = sum(c for _, c in sums)
+            shift[i] = sum(t for t, _ in sums) / cnt if cnt else 0.0
+        node.ms_shift = shift
+    return shift
+
+
+def kw_doc_counts(seg: Segment, field: str) -> dict:
+    """value -> live docs holding it (significant_terms' background),
+    cached per segment and live generation."""
+    cache = seg.__dict__.get("kw_doc_counts")
+    if cache is None or cache.get("__gen") != seg.live_gen:
+        cache = seg.__dict__["kw_doc_counts"] = {"__gen": seg.live_gen}
+    if field not in cache:
+        col = seg.keyword_cols.get(field)
+        out: dict = {}
+        if col is not None and len(col.vocab):
+            counts = np.bincount(col.ords[seg.live[col.doc_of_value]],
+                                 minlength=len(col.vocab))
+            out = {col.vocab[i]: int(c) for i, c in enumerate(counts)
+                   if c > 0}
+        cache[field] = out
+    return cache[field]
+
+
+def run_agg_only(lroot: LNode, node, seg: Segment, ctx: ShardContext,
+                 device: torch.device) -> tuple:
+    """(spec, outputs as numpy) of one agg node over `lroot`'s live
+    match in `seg`, without a top-k (the reference's `run_agg_only`:
+    the sampler's shard-wide second pass)."""
+    sm = emit(lroot, seg, ctx, device)
+    spec, out = emit_agg(node, seg, ctx, sm.matched & seg.live_on(device),
+                         device, sm.scores)
+    return spec, fetch_tree(out, [])[1]

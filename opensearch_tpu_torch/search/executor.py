@@ -43,12 +43,18 @@ rung, as the reference's does: the general program serves each segment
 and evaluates the agg tree over its live-masked match in the same pass
 (`compiler.emit_agg`). A segment `can_match` rules out is still read
 when an agg sees docs outside the match (`global`, `filter`, `filters`,
-`missing`). Each segment's outputs become host partials keyed by value
-(terms by string, histograms by bucket key), the coordinator merges and
-finalizes them (`search/aggregations.py`), and a bucket sub-agg outside
-the stats family under `terms`, `histogram` or `date_histogram` is then
-served by one size-0 sub-search per bucket (`refine_complex_subs`), as
-the reference does.
+`missing`, `significant_terms`' background). Each segment's outputs
+become host partials keyed by value (terms by string, histograms by
+bucket key), the coordinator merges and finalizes them
+(`search/aggregations.py`), and a bucket sub-agg outside the stats
+family under an ordinal bucket kind (`ORDINAL_KINDS`) is then served by
+one size-0 sub-search per bucket (`refine_complex_subs`), as the
+reference does; the pipelines that read such a sub run after it
+(`mark_deferred_pipelines`). A root `top_hits` reads the shard's
+candidates (the window of the body's rung, 16 docs a segment for a
+size-0 body, as in the reference), and a root `sampler` over several
+segments takes its second pass at one shard-wide score threshold
+(`resample_samplers`).
 """
 
 from __future__ import annotations
@@ -128,11 +134,12 @@ class ShardSearcher:
     """Executes searches over one shard's engine on one device."""
 
     def __init__(self, engine: Engine, device: torch.device,
-                 shard_id: int = 0, similarity=None):
+                 shard_id: int = 0, similarity=None, index_name: str = ""):
         self.engine = engine
         self.device = device
         self.shard_id = shard_id
         self.similarity = similarity
+        self.index_name = index_name
 
     def context(self, segments: Optional[List[Segment]] = None
                 ) -> C.ShardContext:
@@ -214,6 +221,7 @@ class ShardSearcher:
                 result.took_ms = (time.monotonic() - t0) * 1000.0
                 return result
         need_all = plan is not None and aggs_need_all_segments(plan.aggs)
+        ran = []
         for seg_ord, seg in enumerate(segments):
             if ta and result.total >= ta:
                 result.terminated_early = True
@@ -229,19 +237,71 @@ class ShardSearcher:
                     not need_all and not C.can_match(plan.lroot, seg)):
                 continue
             out = self.segment_query(plan, ctx, seg)
+            ran.append(seg)
             self.collect_topk(result, out, seg, seg_ord, plan.order,
                               plan.rescores, ctx)
             for node in plan.aggs:
+                if node.kind == "top_hits":
+                    continue
                 spec, dev = out["aggs"][node.name]
                 result.agg_partials.setdefault(node.name, []).append(
-                    device_agg_to_partial(node, spec, dev, seg))
+                    device_agg_to_partial(node, spec, dev, seg, ctx))
         if ta and result.total >= ta:
             # the budget was reached, on the last segment too
             result.terminated_early = True
         if plan is not None:
+            self.resample_samplers(plan, result, ran, ctx)
+            self.root_top_hits(plan, result)
             finish_candidates(result, plan.order.need)
         result.took_ms = (time.monotonic() - t0) * 1000.0
         return result
+
+    def resample_samplers(self, plan: Plan, result: ShardQueryResult,
+                          ran: List[Segment], ctx: C.ShardContext) -> None:
+        """A root sampler's second pass (the reference's
+        `_resample_samplers`): the first pass sampled each segment's
+        best shard_size docs; over several segments, the merged top
+        scores give one shard-wide threshold (the shard_size-th best),
+        and the agg tree alone reruns on each segment at it. A sampler
+        under another bucket keeps the per-segment pass."""
+        for node in plan.aggs:
+            if node.kind != "sampler":
+                continue
+            parts = [p for p in result.agg_partials.get(node.name, []) if p]
+            tops = [p.pop("topscores") for p in parts if "topscores" in p]
+            if len(parts) <= 1 or not tops:
+                continue
+            shard_size = max(int(node.body.get("shard_size", 100)), 1)
+            scores = np.concatenate(tops)
+            scores = scores[np.isfinite(scores)]
+            if len(scores) <= shard_size:
+                continue        # fewer matches than shard_size: exact
+            node.global_thr = float(np.sort(scores)[-shard_size])
+            try:
+                result.agg_partials[node.name] = [
+                    device_agg_to_partial(node, *C.run_agg_only(
+                        plan.lroot, node, seg, ctx, self.device), seg, ctx)
+                    for seg in ran]
+            finally:
+                node.global_thr = None
+
+    def root_top_hits(self, plan: Plan, result: ShardQueryResult) -> None:
+        """A root top_hits' partial: the shard's candidates (every
+        segment's top-k window, before the cut to the page) by score
+        descending, stably, its first `size` fetched with the agg's own
+        body (`_source`, `sort`), as the reference's query phase does;
+        its `from` and `sort` do not reorder them there either."""
+        for node in plan.aggs:
+            if node.kind != "top_hits":
+                continue
+            top = sorted(result.candidates, key=lambda c: -(c.score or 0.0))
+            size = int(node.body.get("size", 3))
+            suppress = B.suppress_score(node.body)
+            hits = [self.fetch_one(result.segments[c.seg_ord], c, node.body,
+                                   self.index_name, {}, suppress)
+                    for c in top[:size]]
+            result.agg_partials[node.name] = [
+                {"hits": hits, "total": result.total, "size": size}]
 
     def segment_query(self, plan: Plan, ctx: C.ShardContext,
                       seg: Segment) -> dict:
@@ -669,9 +729,10 @@ def extract_source_values(src: dict, path: str) -> List:
 
 def aggs_need_all_segments(agg_nodes: List[A.AggNode]) -> bool:
     """True if an agg of the tree sees docs outside the query's match
-    (global, filter, filters, missing), so that `can_match` may not skip
-    a segment."""
-    return any(n.kind in ("global", "filter", "filters", "missing")
+    (global, filter, filters, missing, significant_terms' background),
+    so that `can_match` may not skip a segment."""
+    return any(n.kind in ("global", "filter", "filters", "missing",
+                          "significant_terms")
                or aggs_need_all_segments(n.subs) for n in agg_nodes)
 
 
@@ -690,14 +751,27 @@ def _bucket_subs(node: A.AggNode, sub_flags, out: dict, j: int) -> dict:
 
 
 def _sub_partials(node: A.AggNode, sub_specs, out: dict, seg: Segment,
-                  prefix: str = "") -> dict:
+                  ctx, prefix: str = "") -> dict:
     """The partials of a container bucket's sub-aggs."""
     subs = {}
     for i, sub in enumerate(node.subs):
         r = out.get(f"{prefix}sub{i}")
         if r is not None:
-            subs[sub.name] = device_agg_to_partial(sub, sub_specs[i], r, seg)
+            subs[sub.name] = device_agg_to_partial(sub, sub_specs[i], r, seg,
+                                                   ctx)
     return subs
+
+
+def _keyed_buckets(node: A.AggNode, out: dict, keys, sub_flags) -> dict:
+    """Nonzero counts keyed by `keys[ordinal]`, with their stats subs."""
+    buckets = {}
+    for o in np.nonzero(out["counts"] > 0)[0]:
+        rec: dict = {"doc_count": int(out["counts"][o])}
+        subs = _bucket_subs(node, sub_flags, out, int(o))
+        if subs:
+            rec["subs"] = subs
+        buckets[keys[o]] = rec
+    return buckets
 
 
 def _hist_partial(node: A.AggNode, out: dict, min_b: int, interval: float,
@@ -711,7 +785,8 @@ def _hist_partial(node: A.AggNode, out: dict, min_b: int, interval: float,
 
 
 def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
-                          seg: Segment) -> Optional[dict]:
+                          seg: Segment, ctx: C.ShardContext
+                          ) -> Optional[dict]:
     """One segment's `emit_agg` outputs (numpy) -> the host partial
     `aggregations.merge_partials` takes (the reference's
     `_device_agg_to_partial`), or None where the segment contributes
@@ -719,18 +794,72 @@ def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
     if out is None:
         return None
     kind = spec[0]
-    if kind == "terms":
+    if kind in ("terms", "sig_terms"):
         _, field, sub_flags = spec
-        vocab = seg.keyword_cols[field].vocab
-        counts = out["counts"]
-        buckets = {}
-        for o in np.nonzero(counts > 0)[0]:
-            rec: dict = {"doc_count": int(counts[o])}
-            subs = _bucket_subs(node, sub_flags, out, int(o))
-            if subs:
-                rec["subs"] = subs
-            buckets[vocab[o]] = rec
-        return {"buckets": buckets}
+        part = {"buckets": _keyed_buckets(
+            node, out, seg.keyword_cols[field].vocab, sub_flags)}
+        if kind == "sig_terms":
+            part.update(fg_total=int(out["fg_total"]),
+                        bg=C.kw_doc_counts(seg, field),
+                        bg_total=seg.live_count)
+        return part
+    if kind == "sig_missing":
+        return {"buckets": {}, "fg_total": 0, "bg": {},
+                "bg_total": seg.live_count}
+    if kind == "multi_terms":
+        _, fields, sub_flags = spec
+        vocab, _ords = C.multi_terms_host(seg, ctx, fields)
+        return {"buckets": _keyed_buckets(node, out, vocab, sub_flags)}
+    if kind == "composite_mv":
+        _, field, sub_flags = spec
+        return {"buckets": _keyed_buckets(
+            node, out, [(v,) for v in seg.keyword_cols[field].vocab],
+            sub_flags)}
+    if kind == "composite":
+        return _composite_partial(node, spec, out, seg)
+    if kind == "auto_date":
+        _, min_b, interval_ms, sub_flags = spec
+        part = _hist_partial(node, out, min_b, float(interval_ms), 0.0,
+                             sub_flags)
+        return {"buckets": {int(b * interval_ms): rec
+                            for b, rec in part["buckets"].items()},
+                "interval_ms": int(interval_ms)}
+    if kind == "adjacency":
+        _, keys, sep, sub_specs = spec
+        labels = list(keys) + [f"{keys[a]}{sep}{keys[b]}"
+                               for a in range(len(keys))
+                               for b in range(a + 1, len(keys))]
+        return {"buckets": {label: {
+            "doc_count": int(out[f"c{ci}"]),
+            "subs": _sub_partials(node, sub_specs, out, seg, ctx,
+                                  f"c{ci}_")}
+            for ci, label in enumerate(labels)}}
+    if kind == "sampler":
+        part = {"doc_count": int(out["doc_count"]),
+                "subs": _sub_partials(node, spec[1], out, seg, ctx)}
+        if "topscores" in out:
+            part["topscores"] = out["topscores"]
+        return part
+    if kind == "sig_text":
+        return _significant_text_partial(spec[1], out, seg, ctx)
+    if kind == "top_hits":
+        raise ValueError("cannot build partial for agg spec [top_hits]")
+    if kind == "wavg":
+        return {"vwsum": float(out["vwsum"]), "wsum": float(out["wsum"]),
+                "count": int(out["count"])}
+    if kind == "mad":
+        return {"hist": out["hist"]}
+    if kind == "matrix_stats":
+        fields = list(spec[1])
+        k = len(fields)
+        if len(spec) < 3:
+            return {"count": 0, "fields": fields, "shift": np.zeros(k),
+                    "s1": np.zeros(k), "s2": np.zeros(k), "s3": np.zeros(k),
+                    "s4": np.zeros(k), "xy": np.zeros((k, k))}
+        return {"count": int(out["count"]), "fields": fields,
+                "shift": np.asarray(spec[2], np.float64),
+                **{key: np.asarray(out[key], np.float64)
+                   for key in ("s1", "s2", "s3", "s4", "xy")}}
     if kind == "hist":
         _, min_b, interval, offset, sub_flags = spec
         return _hist_partial(node, out, min_b, interval, offset, sub_flags)
@@ -758,18 +887,19 @@ def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
             buckets[key] = {"doc_count": int(out["counts"][ri]),
                             "meta": meta,
                             "subs": _sub_partials(node, sub_specs, out, seg,
-                                                  f"r{ri}_")}
+                                                  ctx, f"r{ri}_")}
         return {"buckets": buckets}
     if kind in ("filter", "filters"):
         _, keys, sub_specs = spec
         recs = [{"doc_count": int(out[f"k{ki}"]["count"]),
-                 "subs": _sub_partials(node, sub_specs, out[f"k{ki}"], seg)}
+                 "subs": _sub_partials(node, sub_specs, out[f"k{ki}"], seg,
+                                       ctx)}
                 for ki in range(len(keys))]
         return recs[0] if kind == "filter" else {"buckets": dict(zip(keys,
                                                                      recs))}
     if kind in ("global", "missing"):
         return {"doc_count": int(out["count"]),
-                "subs": _sub_partials(node, spec[1], out, seg)}
+                "subs": _sub_partials(node, spec[1], out, seg, ctx)}
     if kind == "stats_missing":
         return {"count": 0, "sum": 0.0, "min": float("inf"),
                 "max": float("-inf"), "sumsq": 0.0}
@@ -787,9 +917,61 @@ def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
     return {"hist": out["hist"], key: list(spec[1])}
 
 
+def _composite_partial(node: A.AggNode, spec: tuple, out: dict,
+                       seg: Segment) -> dict:
+    """A composite's buckets keyed by the tuple of its sources' values,
+    decoded from each nonzero combined ordinal: a keyword, a histogram
+    key (bucket x interval), a date bucket's epoch ms."""
+    _, infos, _total, sub_flags = spec
+    keys = {}
+    for comb in np.nonzero(out["counts"] > 0)[0].tolist():
+        vals = []
+        rem = comb
+        for stype, field, n, min_b, interval, cal in reversed(infos):
+            rem, o = divmod(rem, n)
+            if stype == "terms":
+                vals.append(seg.keyword_cols[field].vocab[o])
+            elif stype == "hist":
+                vals.append((min_b + o) * interval)
+            elif cal:
+                vals.append(C.calendar_bucket_to_epoch_ms(min_b + o, cal))
+            else:
+                vals.append(int((min_b + o) * interval))
+        keys[comb] = tuple(reversed(vals))
+    return {"buckets": _keyed_buckets(node, out, keys, sub_flags)}
+
+
+def _significant_text_partial(field: str, out: dict, seg: Segment,
+                              ctx: C.ShardContext) -> dict:
+    """significant_text (the reference's `_significant_text_partial`):
+    the sampled docs' `field` text from `_source`, re-analyzed with the
+    field's search analyzer, each token counted once a doc; its
+    background is the token's doc frequency in the segment's
+    postings."""
+    docs = out["idx"][:int(out["n"])]
+    fg: Dict[str, int] = {}
+    for d in docs.tolist():
+        src = seg.sources[d]
+        v = src.get(field) if isinstance(src, dict) else None
+        if v is None:
+            continue
+        seen = set()
+        for text in (v if isinstance(v, list) else [v]):
+            seen.update(C._analyze_query_text(field, str(text), ctx))
+        for tok in seen:
+            fg[tok] = fg.get(tok, 0) + 1
+    pb = seg.postings.get(field)
+    return {"buckets": {tok: {"doc_count": c, "subs": {}}
+                        for tok, c in fg.items()},
+            "bg": {tok: pb.doc_freq(tok) if pb is not None else 0
+                   for tok in fg},
+            "fg_total": len(docs), "bg_total": seg.live_count}
+
+
 def reduce_shard_results(shard_results: List[ShardQueryResult],
                          body: dict,
-                         agg_nodes: Optional[List[A.AggNode]] = None) -> dict:
+                         agg_nodes: Optional[List[A.AggNode]] = None,
+                         defer_pipelines: bool = False) -> dict:
     size = int(body.get("size", 10))
     frm = int(body.get("from", 0))
     all_cands: List[Candidate] = []
@@ -819,7 +1001,8 @@ def reduce_shard_results(shard_results: List[ShardQueryResult],
         partials = [p for r in shard_results
                     for p in r.agg_partials.get(node.name, [])]
         aggs_out[node.name] = A.finalize(
-            node, A.merge_partials(node, partials) if partials else {})
+            node, A.merge_partials(node, partials) if partials else {},
+            pipelines=not defer_pipelines)
     return {"selected": all_cands[frm: frm + size], "total": total,
             "total_rel": total_rel,
             "max_score": None if max_score == float("-inf") else max_score,
@@ -828,11 +1011,13 @@ def reduce_shard_results(shard_results: List[ShardQueryResult],
 
 def reduce_and_fetch(searchers: List[ShardSearcher],
                      results: List[ShardQueryResult], body: dict,
-                     index_name: str, agg_nodes: List[A.AggNode]) -> tuple:
+                     index_name: str, agg_nodes: List[A.AggNode],
+                     defer_pipelines: bool = False) -> tuple:
     """The coordinator reduce and each shard's fetch of its selected
     candidates: -> (reduced, hits in page order, {(shard, segment,
     doc): hit})."""
-    reduced = reduce_shard_results(results, body, agg_nodes)
+    reduced = reduce_shard_results(results, body, agg_nodes,
+                                   defer_pipelines)
     hits_by_key: Dict[Tuple, dict] = {}
     for s, r in zip(searchers, results):
         sel = [c for c in reduced["selected"] if c.shard == r.shard]
@@ -848,11 +1033,14 @@ def finish_search(searchers: List[ShardSearcher],
                   results: List[ShardQueryResult], body: dict,
                   index_name: str, t0: float) -> dict:
     """Coordinator reduce + fetch + response assembly (shared by search
-    and batched msearch), then collapse's inner hits and the refinement
-    of complex bucket subs."""
+    and batched msearch), then collapse's inner hits, the refinement of
+    complex bucket subs and the pipelines deferred until after it."""
     agg_nodes = A.parse_aggs(body.get("aggs", body.get("aggregations")))
-    reduced, hits, hits_by_key = reduce_and_fetch(searchers, results, body,
-                                                  index_name, agg_nodes)
+    for node in agg_nodes:
+        mark_deferred_pipelines(node)
+    reduced, hits, hits_by_key = reduce_and_fetch(
+        searchers, results, body, index_name, agg_nodes,
+        defer_pipelines=bool(agg_nodes))
     if body.get("collapse"):
         collapse_inner_hits(searchers, body, index_name, body["collapse"],
                             reduced["selected"], hits_by_key)
@@ -860,6 +1048,8 @@ def finish_search(searchers: List[ShardSearcher],
         refine_complex_subs(searchers, index_name, node,
                             reduced["aggs"][node.name], body.get("query"),
                             [])
+    for node in agg_nodes:
+        apply_deferred_tree(node, reduced["aggs"][node.name])
     track = body.get("track_total_hits", True)
     relation = reduced["total_rel"]
     total = reduced["total"]
@@ -951,27 +1141,63 @@ def collapse_inner_hits(searchers: List[ShardSearcher], body: dict,
                 "hits": resp["hits"]}
 
 
-_ORDINAL_KINDS = ("terms", "histogram", "date_histogram")
+ORDINAL_KINDS = {"terms", "significant_terms", "histogram", "date_histogram",
+                 "composite", "rare_terms", "multi_terms",
+                 "auto_date_histogram", "significant_text"}
+_WALK_CONTAINERS = {"filter", "filters", "range", "date_range", "global",
+                    "missing"}
 
 
-def _bucket_filter(node: A.AggNode, bucket: dict) -> dict:
+def _date_bucket_end(key: int, cal: Optional[str], body: dict) -> int:
+    """The epoch ms where the date bucket starting at `key` ends."""
+    if cal:
+        return C.calendar_bucket_to_epoch_ms(
+            int(C.calendar_bucket_ids(np.array([key]), cal)[0]) + 1, cal)
+    return key + C.parse_interval_ms(body.get(
+        "fixed_interval", body.get("interval", "1d")))
+
+
+def _bucket_filter(node: A.AggNode, bucket: dict) -> Optional[dict]:
     """The DSL filter of exactly one finalized bucket's docs."""
-    field = node.body.get("field")
-    if node.kind == "terms":
+    body = node.body
+    field = body.get("field")
+    kind = node.kind
+    if kind in ("terms", "significant_terms", "rare_terms",
+                "significant_text"):
+        # significant_text's keys are tokens of the text field: a term
+        # query on it matches the docs holding the token
         return {"term": {field: bucket["key"]}}
-    if node.kind == "histogram":
+    if kind == "multi_terms":
+        return {"bool": {"filter": [
+            {"term": {src["field"]: v}}
+            for src, v in zip(body.get("terms", []), bucket["key"])]}}
+    if kind == "histogram":
         return {"range": {field: {
             "gte": bucket["key"],
-            "lt": bucket["key"] + float(node.body["interval"])}}}
-    key = int(bucket["key"])
-    cal = node.body.get("calendar_interval")
-    if cal:
-        end = C.calendar_bucket_to_epoch_ms(
-            int(C.calendar_bucket_ids(np.array([key]), cal)[0]) + 1, cal)
-    else:
-        end = key + C.parse_interval_ms(node.body.get(
-            "fixed_interval", node.body.get("interval", "1d")))
-    return {"range": {field: {"gte": key, "lt": end}}}
+            "lt": bucket["key"] + float(body["interval"])}}}
+    if kind == "auto_date_histogram":
+        key = int(bucket["key"])
+        return {"range": {field: {"gte": key,
+                                  "lt": key + bucket["_interval_ms"]}}}
+    if kind == "date_histogram":
+        key = int(bucket["key"])
+        return {"range": {field: {"gte": key, "lt": _date_bucket_end(
+            key, body.get("calendar_interval"), body)}}}
+    if kind == "composite":
+        flt = []
+        for nm, stype, scfg, _ in A.composite_sources(node):
+            v = bucket["key"][nm]
+            f = scfg.get("field")
+            if stype == "terms":
+                flt.append({"term": {f: v}})
+            elif stype == "histogram":
+                flt.append({"range": {f: {
+                    "gte": v, "lt": v + float(scfg["interval"])}}})
+            else:
+                flt.append({"range": {f: {"gte": int(v), "lt": _date_bucket_end(
+                    int(v), scfg.get("calendar_interval"), scfg)}}})
+        return {"bool": {"filter": flt}} if len(flt) != 1 else flt[0]
+    return None
 
 
 def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
@@ -980,10 +1206,11 @@ def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
     """Bucket refinement (the reference's `_refine_complex_subs`): walk
     the finalized tree through the containers (filter, filters, range,
     date_range, global, missing), collecting each bucket's filter; for
-    each bucket of a terms / histogram / date_histogram node with subs
+    each bucket of an ordinal bucket node (`ORDINAL_KINDS`) with subs
     outside the stats family, run one size-0 sub-search of the query
-    and those filters whose own aggs are those subs, and put its
-    results in the bucket."""
+    and those filters whose own aggs are those subs (their pipelines
+    with them), and put its results in the bucket. The samplers and
+    adjacency_matrix stop the walk, as in the reference."""
     if result is None:
         return
     kind = node.kind
@@ -993,15 +1220,22 @@ def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
             refine_complex_subs(searchers, index_name, s, sub_result_of(s.name),
                                 q, flt)
 
-    if kind in _ORDINAL_KINDS:
+    if kind in ORDINAL_KINDS:
         complex_subs = [s for s in node.subs if s.kind not in A.STATS_FAMILY]
-        if not complex_subs:
+        buckets = result.get("buckets")
+        if not isinstance(buckets, list) or not complex_subs:
             return
-        for b in result["buckets"]:
+        interval_ms = {n: ms for ms, n in A.AUTO_LADDER}.get(
+            result.get("interval"), 1000)
+        for b in buckets:
+            if kind == "auto_date_histogram":
+                b["_interval_ms"] = interval_ms
+            bf = _bucket_filter(node, b)
+            b.pop("_interval_ms", None)
             sub_body = {"size": 0,
                         "query": {"bool": {
                             "must": [query] if query else [],
-                            "filter": filters + [_bucket_filter(node, b)]}},
+                            "filter": filters + [bf]}},
                         "aggs": {s.name: _agg_to_dsl(s)
                                  for s in complex_subs}}
             resp = search_shards(searchers, sub_body, index_name)
@@ -1031,9 +1265,72 @@ def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
 
 def _agg_to_dsl(node: A.AggNode) -> dict:
     spec: dict = {node.kind: node.body}
-    if node.subs:
-        spec["aggs"] = {s.name: _agg_to_dsl(s) for s in node.subs}
+    subs = {s.name: _agg_to_dsl(s) for s in node.subs + node.pipelines}
+    if subs:
+        spec["aggs"] = subs
     return spec
+
+
+def _pipeline_inputs(p: A.AggNode) -> set:
+    """The first names of every buckets_path (and bucket_sort sort key)
+    a pipeline reads."""
+    raw = p.body.get("buckets_path", "_count")
+    paths = list(raw.values()) if isinstance(raw, dict) else [raw]
+    if p.kind == "bucket_sort":
+        for s in p.body.get("sort", []):
+            if isinstance(s, dict):
+                paths.extend(s.keys())
+            elif isinstance(s, str):
+                paths.append(s)
+    return {str(pth).replace(">", ".").split(".")[0] for pth in paths if pth}
+
+
+def mark_deferred_pipelines(node: A.AggNode) -> None:
+    """Defer the pipelines that read a sub the refinement resolves (a
+    complex sub of an ordinal bucket node), and those that read a
+    deferred pipeline's output (the reference's
+    `_mark_deferred_pipelines`)."""
+    deferred = ({s.name for s in node.subs if s.kind not in A.STATS_FAMILY}
+                if node.kind in ORDINAL_KINDS else set())
+    for p in node.pipelines:
+        p.deferred = False
+    changed = True
+    while changed:
+        changed = False
+        for p in node.pipelines:
+            if not p.deferred and _pipeline_inputs(p) & deferred:
+                p.deferred = True
+                deferred.add(p.name)
+                changed = True
+    for s in node.subs:
+        mark_deferred_pipelines(s)
+
+
+def apply_deferred_tree(node: A.AggNode, result) -> None:
+    """The deferred pipelines after the refinement, along its walk (the
+    reference's `_apply_deferred_tree`): a refined bucket's complex subs
+    came back from their sub-search with every pipeline applied, so the
+    walk does not enter them; a subtree it never reached gets the plain
+    post-order pass."""
+    if not isinstance(result, dict):
+        return
+    if node.kind in ORDINAL_KINDS:
+        A.apply_bucket_pipelines(node, result, "deferred")
+        return
+    if node.kind in _WALK_CONTAINERS:
+        buckets = result.get("buckets")
+        if isinstance(buckets, list):
+            subs = [(s, b.get(s.name)) for b in buckets for s in node.subs]
+        elif isinstance(buckets, dict):
+            subs = [(s, b.get(s.name)) for b in buckets.values()
+                    for s in node.subs]
+        else:
+            subs = [(s, result.get(s.name)) for s in node.subs]
+        for s, r in subs:
+            apply_deferred_tree(s, r)
+        A.apply_bucket_pipelines(node, result, "deferred")
+        return
+    A.apply_pipelines_tree(node, result)
 
 
 def search_shards(searchers: List[ShardSearcher], body: dict,

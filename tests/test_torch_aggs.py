@@ -751,23 +751,35 @@ def test_seeded_bodies_after_a_forcemerge_and_in_msearch():
 # ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("aggs,name", [
-    ({"x": {"top_hits": {"size": 1}}}, "top_hits"),
-    ({"x": {"composite": {"sources": []}}}, "composite"),
+    ({"x": {"ip_range": {"field": "ip", "ranges": [{"to": "10.0.0.5"}]}}},
+     "ip_range"),
+    ({"x": {"geotile_grid": {"field": "g"}}}, "geotile_grid"),
     ({"x": {"geohash_grid": {"field": "g"}}}, "geohash_grid"),
+    ({"x": {"geo_bounds": {"field": "g"}}}, "geo_bounds"),
     ({"x": {"nested": {"path": "n"}}}, "nested"),
+    ({"x": {"nested": {"path": "n"}, "aggs": {
+        "r": {"reverse_nested": {}}}}}, "nested"),
+    ({"x": {"terms": {"field": "cat"}, "aggs": {
+        "r": {"reverse_nested": {}}}}}, "reverse_nested"),
     ({"x": {"children": {"type": "c"}}}, "children"),
-    ({"x": {"sampler": {}}}, "sampler"),
-    ({"x": {"significant_terms": {"field": "cat"}}}, "significant_terms"),
-    ({"x": {"multi_terms": {"terms": []}}}, "multi_terms"),
+    ({"x": {"parent": {"type": "c"}}}, "parent"),
     ({"x": {"scripted_metric": {}}}, "scripted_metric"),
-    ({"x": {"weighted_avg": {}}}, "weighted_avg"),
     ({"x": {"terms": {"field": "cat"}, "aggs": {
-        "y": {"rare_terms": {"field": "cat"}}}}}, "rare_terms"),
+        "y": {"scripted_metric": {"map_script": "state.n = 1"}}}}},
+     "scripted_metric"),
     ({"x": {"histogram": {"field": "price", "interval": 1}, "aggs": {
-        "c": {"cumulative_sum": {"buckets_path": "_count"}}}}},
-     "cumulative_sum"),
+        "c": {"bucket_script": {"buckets_path": {"n": "_count"},
+                                "script": "params.n"}}}}},
+     "bucket_script"),
     ({"x": {"terms": {"field": "cat"}, "aggs": {
-        "b": {"bucket_sort": {"size": 1}}}}}, "bucket_sort"),
+        "b": {"bucket_selector": {"buckets_path": {"n": "_count"},
+                                  "script": "params.n > 1"}}}}},
+     "bucket_selector"),
+    ({"x": {"histogram": {"field": "price", "interval": 1}, "aggs": {
+        "m": {"moving_fn": {"buckets_path": "_count", "window": 2,
+                            "script": "double s = 0; for (v in values) "
+                                      "{ s += v } return s"}}}}},
+     "moving_fn"),
 ])
 def test_unported_kinds_raise(seeded_clients, aggs, name):
     _, port = seeded_clients

@@ -264,7 +264,7 @@ def test_score_term_group_matches_reference(clients):
      "span_or"),
     ({"query": {"range": {"body": {"gte": 1}}}}, "range"),
     ({"query": {"match": {"body": "the"}},
-      "aggs": {"a": {"top_hits": {"size": 1}}}}, "aggs"),
+      "aggs": {"a": {"scripted_metric": {}}}}, "aggs"),
     ({"query": {"match_all": {}}, "sort": [{"_geo_distance": {
         "loc": [0.0, 0.0]}}]}, "_geo_distance"),
     ({"query": {"match": {"body": "the"}}, "rescore": {
