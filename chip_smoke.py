@@ -6,6 +6,7 @@
                           [--phrase-sloppy S] [--agg-queries A]
                           [--sort-queries R] [--expand-queries E]
                           [--compound-queries C] [--context-queries X]
+                          [--longtail-queries L] [--vector-queries V]
                           [--seed S] [--stop-after N]
 
 Phases, each of which fails the script when it fails:
@@ -167,6 +168,28 @@ Phases, each of which fails the script when it fails:
      class on the card against the CPU, bodies/s, p50/p99, event ms by
      op, host ms of partials, finalize, pipelines and refinement, the
      refinement's sub-searches, the device bytes around the phase;
+ 16. (run after 15, before 8) dense vectors, kNN and hybrid search over
+     phase 7's end state: a cosine `vec` field of 768 dims with the
+     default IVF method (nlist round(sqrt(n)), nprobe nlist // 8) on
+     every corpus passage, its vectors drawn on the card from --seed (a
+     mixture of 4,096 unit centres plus noise) and attached to the corpus
+     segment; --vector-queries bodies a class (query vectors: passages'
+     vectors plus noise; hits fetch `_source` without `vec`): (a) exact
+     kNN, (b) IVF kNN at the default probe (its recall@10 against (a)),
+     (c) a kNN filtered by a status term and a price range, and a bool of
+     a 2-term match with a kNN should, (d) the body's kNN section alone
+     and beside a match, (e) hybrid bodies of a 2-term match and a kNN:
+     rrf, linear min_max [0.3, 0.7], linear l2, rrf with a terms
+     aggregation over the fused window, (f) one msearch of 64 exact
+     bodies; every page against a brute force apart from the port (f64
+     cosine of the host's vectors, the probe over the card's own lists
+     and centroids, the fusion recomputed from the oracle's sub-pages),
+     one body a class card == CPU (the CPU twin reusing the card's IVF
+     index), bodies/s, p50/p99, the scan's, probe's and top-k's event ms
+     a body against their bounds, the k-means and fill seconds, the
+     vector device bytes and the process's resident bytes; after phase
+     8, one body of (a), (b) and (e) on the merged segment (its IVF
+     rebuilt, timed; the hybrid body's match on B1 / B2);
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 16 of phase 5's match bodies on the segments with deletes,
@@ -180,14 +203,22 @@ Phases, each of which fails the script when it fails:
      every page against the numpy brute force with the writes applied,
      2 bodies a class on the card against the CPU. Phase 4 runs the write
      path small on the card and the CPU (tiered and forced merges, bulk
-     deletes and updates, flush and recovery).
+     deletes and updates, flush and recovery). Phase 4 then runs a small
+     vector index on both: three 64-dim fields (cosine, dot_product,
+     l2_norm), each with an IVF method, 2,700 docs in 9 refreshes (a
+     tiered merge) with deletes; exact and IVF pages, a filtered kNN, kNN
+     in a bool, the body's kNN section and hybrid bodies card == CPU
+     within tolerance (scores 1e-6 relative, an L2 score the rounding of
+     its expansion), the IVF lists built on the card equal to the CPU's
+     but where rows tie, then the pages through a flush, a recovery and a
+     forcemerge.
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
 one with phase 11's, one with phase 12's, one with phase 13's, one with
-phase 14's, one with phase 15's, a line with the kernels' numbers and,
-last, the device line.
+phase 14's, one with phase 15's, one with phase 16's, a line with the
+kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -197,6 +228,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -210,7 +242,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
 NDOCS_MSMARCO = 8_800_000
 BATCH = 64                     # msearch bodies per request in phase 5
-PHASE5_CPU_BODIES = 16         # phase 5's bodies held card == CPU
+PHASE5_CPU_BODIES = 8          # phase 5's bodies held card == CPU
+PHASE6_CPU_BODIES = 32         # phase 6's bodies a mix held card == CPU
 RUNGS = ("pruned_served", "pruned_rescued", "pruned_rescued2",
          "pruned_dview", "pruned_escalated", "impact_frontier",
          "shard_view_served")
@@ -1706,8 +1739,8 @@ def phase_msmarco(ndocs: int, nq: int) -> dict:
         f" jobs, {ncand} candidates (device {t_dev * 1e3:.1f} ms)")
 
     # sampled bodies through the port on the card and on the CPU, the
-    # same segment object (16 of them since phase 12 shares the time
-    # limit: the CPU took 26.5-43.0 s for 64)
+    # same segment object (16 of them since phase 12 shared the time
+    # limit: the CPU took 26.5-43.0 s for 64; 8 since phase 16 did)
     srng = np.random.default_rng(7)
     sample = sorted(srng.choice(nq, PHASE5_CPU_BODIES, replace=False)
                     .tolist())
@@ -1928,21 +1961,23 @@ def phase_bool_msmarco(big: dict, nq: int) -> dict:
                                  big["a_docs"])
     b3 = time_bool_groups(client, seg, mixes["b3"][:BATCH], big["a_docs"])
 
-    # 64 sampled bodies per mix, on the card and on the CPU (one segment,
+    # PHASE6_CPU_BODIES sampled bodies per mix (64 before phase 16
+    # shared the time limit), on the card and on the CPU (one segment,
     # one set of filter lists: the same routes)
     cpu = cpu_twin(seg)
     srng = np.random.default_rng(11)
     for name, bodies in mixes.items():
-        sample = sorted(srng.choice(nq, 64, replace=False).tolist())
+        sample = sorted(srng.choice(nq, PHASE6_CPU_BODIES,
+                                    replace=False).tolist())
         lines = sum([[{}, bodies[i]] for i in sample], [])
         on_card = strip_took(client.msearch(lines, index="bench"))
         t0 = time.perf_counter()
         on_cpu = strip_took(cpu.msearch(lines, index="bench"))
         if on_card != on_cpu:
-            raise AssertionError(f"{name}: 64 sampled bodies: card and "
-                                 f"CPU responses differ")
-        log(f"  {name}: 64 sampled bodies, card == CPU responses (CPU "
-            f"{time.perf_counter() - t0:.1f}s)")
+            raise AssertionError(f"{name}: {len(sample)} sampled bodies: "
+                                 f"card and CPU responses differ")
+        log(f"  {name}: {len(sample)} sampled bodies, card == CPU "
+            f"responses (CPU {time.perf_counter() - t0:.1f}s)")
         # 16 of them against the numpy brute force
         t0 = time.perf_counter()
         for i in sample[:16]:
@@ -5553,8 +5588,8 @@ def run_write_class(client, name: str, items, ix, cpu, rtol=1e-6,
                     memo=None) -> dict:
     """One class of bodies through msearch (counts and rungs set to 0
     just before), every page against the brute force (kept in `memo` by
-    item index, when given, for a class of the same pages), 2 bodies on
-    the card against `cpu`: -> the class's numbers."""
+    item index, when given, for a class of the same pages), one body on
+    the card against `cpu` (2 before phase 16 shared the time limit): -> the class's numbers."""
     from opensearch_tpu_torch.search import compiler as C
     from opensearch_tpu_torch.search import impactpath
     bodies = [b for b, _o in items]
@@ -5570,11 +5605,11 @@ def run_write_class(client, name: str, items, ix, cpu, rtol=1e-6,
             memo[j] = oracle(ix)
         check_page(r, memo[j], f"{name} body {b}", rtol)
     t_oracle = time.perf_counter() - t0
-    lines = sum([[{}, b] for b in bodies[:2]], [])
+    lines = sum([[{}, b] for b in bodies[:1]], [])
     t0 = time.perf_counter()
     if strip_took(client.msearch(lines, index="bench")) \
             != strip_took(cpu.msearch(lines, index="bench")):
-        raise AssertionError(f"{name}: 2 bodies: card and CPU responses "
+        raise AssertionError(f"{name}: 1 body: card and CPU responses "
                              f"differ")
     t_cpu = time.perf_counter() - t0
     n = len(bodies)
@@ -5587,7 +5622,7 @@ def run_write_class(client, name: str, items, ix, cpu, rtol=1e-6,
         f"B3={counts['bool_launches']} plain_calls={counts['plain_calls']}"
         f" rungs " + " ".join(f"{k}={v}" for k, v in rungs.items() if v)
         + f" relations={dict(rels)}; {n} pages == numpy brute force "
-        f"({t_oracle:.1f}s); 2 bodies card == CPU ({t_cpu:.1f}s)")
+        f"({t_oracle:.1f}s); 1 body card == CPU ({t_cpu:.1f}s)")
     out = {"qps": n / wall, "p50": float(np.percentile(lat, 50)),
            "p99": float(np.percentile(lat, 99)), "batch_ms": lat,
            "counts": counts, "rungs": rungs}
@@ -5637,6 +5672,10 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
     # 1. bulk-delete 1% of the big segment's _ids (not the re-indexed ones)
     n_del = seg.ndocs // DELETE_SHARE
     cand = np.flatnonzero(seg.live)
+    # nothing here holds the corpus segment past the merge: its vector
+    # column (27 GB of host memory at 8.8M passages) goes with it
+    del seg
+    big.pop("seg")
     dels = rng.choice(cand, n_del, replace=False)
     t0 = time.perf_counter()
     for i in range(0, n_del, BULK_ITEMS):
@@ -5711,6 +5750,12 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
         return got
     torch.cuda.synchronize()
     bytes_before = torch.cuda.memory_allocated(dev)
+    # host memory for the merge's copies (the new vector column is as
+    # large as the old): the replaced segments' caches, on the card and
+    # the host, go now, not at their retirement after the merge
+    for s in eng.segments:
+        s.release_device()
+    rss_before = rss_bytes()[0]
     torch.cuda.reset_peak_memory_stats(dev)
     device_merge.merge_sorted_runs = timed_sort
     t0 = time.perf_counter()
@@ -5723,6 +5768,8 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
     bytes_after = torch.cuda.memory_allocated(dev)
     peak = torch.cuda.max_memory_allocated(dev)
     (merged,) = eng.segments
+    big["seg"] = merged
+    gc.collect()
     t0 = time.perf_counter()
     fastpath.get_aligned(merged, "body", dev)
     torch.cuda.synchronize()
@@ -5738,12 +5785,15 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
         f"(merge_sorted_runs event ms {sort_ms:.1f}, {len(spans)} calls) + "
         f"title positions {split['positions_s']:.2f}s "
         f"({len(merged.postings['title'].positions)} positions) + "
-        f"quantize {split['quantize_s']:.2f}s; then aligned layout + heads "
+        f"quantize {split['quantize_s']:.2f}s + vectors "
+        f"{split['vectors_s']:.2f}s; then aligned layout + heads "
         f"{t_align:.2f}s")
     log(f"  device bytes: before the merge {bytes_before}, after it "
-        f"{bytes_after} (the replaced segments' device state released), "
+        f"{bytes_after} (the replaced segments' state released just before "
+        f"it), "
         f"with the merged segment's aligned layout {bytes_aligned}; peak "
-        f"during the merge {peak}")
+        f"during the merge {peak}; host RSS before the merge {rss_before}, "
+        f"now / the process's peak {rss_bytes()}")
     live = int(ix.live.sum())
     if not merged.ndocs == merged.live_count == live:
         raise AssertionError(f"merged segment: ndocs {merged.ndocs} live "
@@ -6712,6 +6762,973 @@ def phase_longtail_msmarco(big: dict, n: int) -> dict:
             "matrix_stats_err": ms_err}
 
 
+# ---------------------------------------------------------------------
+# dense vectors, kNN and hybrid search: phase 4's small checks, phase
+# 16 at MS MARCO passage scale, phase 8's merged bodies
+# ---------------------------------------------------------------------
+
+VEC_DIMS = 768         # the vectors of phase 16 (a BERT-base embedding)
+VEC_CENTRES = 4096     # unit centres of the mixture
+VEC_NOISE = 0.02       # per-dimension noise of a passage about its centre
+VEC_QNOISE = 0.01      # per-dimension noise of a query about its passage
+VEC_CHUNK = 1 << 19    # rows generated, uploaded or scored a step
+VEC_WINDOW = 100       # the hybrid bodies' fusion window
+VEC_MSEARCH = 64       # exact bodies of class (f)'s msearch
+VEC_RTOL = 1e-6
+VEC_EPS = 2.0 ** -23
+VEC_SMALL_DIMS = 64
+VEC_SMALL_FIELDS = ("cos", "dot", "l2")
+VEC_SMALL_MAPPING = {"mappings": {"properties": {
+    "cos": {"type": "dense_vector", "dims": VEC_SMALL_DIMS,
+            "similarity": "cosine", "method": {"name": "ivf"}},
+    "dot": {"type": "dense_vector", "dims": VEC_SMALL_DIMS,
+            "similarity": "dot_product",
+            "method": {"name": "ivf", "parameters": {"nlist": 24}}},
+    "l2": {"type": "knn_vector", "dimension": VEC_SMALL_DIMS,
+           "space_type": "l2_norm",
+           "method": {"name": "ivf", "parameters": {"nlist": 32,
+                                                    "nprobe": 6}}},
+    "body": {"type": "text"}, "status": {"type": "keyword"},
+    "price": {"type": "integer"}}}}
+
+
+def vec_close(a: float, b: float, tol: tuple) -> bool:
+    """|a - b| within tol = (rtol, atol, sq): atol + rtol |b| + sq b^2."""
+    return abs(a - b) <= tol[1] + tol[0] * abs(b) + tol[2] * b * b
+
+
+def same_vec(got, want, tol=(VEC_RTOL, 0.0, 0.0), path="") -> None:
+    """Two responses equal apart from `took`, floats within `tol`
+    (`vec_close`); in a hits list, hits whose `want` scores lie within
+    2 tol of each other may come in either order (a run of them cut by
+    the page's end may hold other such docs)."""
+    if isinstance(want, dict):
+        if not (isinstance(got, dict) and set(got) == set(want)):
+            raise AssertionError(f"{path}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        for k in want:
+            if k == "took":
+                continue
+            if k == "hits" and isinstance(want[k], list):
+                _same_hits(got[k], want[k], tol, path + "hits.")
+            elif k in ("_score", "max_score") and want[k] is not None:
+                if got[k] is None or not vec_close(got[k], want[k], tol):
+                    raise AssertionError(f"{path}{k}: {got[k]} != "
+                                         f"{want[k]}")
+            else:
+                same_vec(got[k], want[k], tol, f"{path}{k}.")
+    elif isinstance(want, list):
+        if not (isinstance(got, list) and len(got) == len(want)):
+            raise AssertionError(f"{path}: list lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_vec(g, w, tol, f"{path}{i}.")
+    elif isinstance(want, float) and isinstance(got, float):
+        if not vec_close(got, want, tol):
+            raise AssertionError(f"{path}: {got} != {want}")
+    elif got != want:
+        raise AssertionError(f"{path}: {got} != {want}")
+
+
+def _same_hits(got: list, want: list, tol, path: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{path}: {len(got)} hits != {len(want)}")
+    i = 0
+    while i < len(want):
+        j = i + 1
+        while (j < len(want) and want[j]["_score"] is not None
+               and want[j - 1]["_score"] is not None
+               and vec_close(want[j]["_score"], want[j - 1]["_score"],
+                             tuple(2 * t for t in tol))):
+            j += 1
+        by_id = {h["_id"]: h for h in want[i:j]}
+        for g in got[i:j]:
+            w = by_id.get(g["_id"])
+            if w is None:
+                # a tie run cut by the page's end
+                if not (j == len(want) and j - i > 1 and vec_close(
+                        g["_score"], want[i]["_score"],
+                        tuple(2 * t for t in tol))):
+                    raise AssertionError(f"{path}{i}: {g['_id']} not in "
+                                         f"{sorted(by_id)}")
+                continue
+            same_vec(g, w, tol, f"{path}{i}.")
+        i = j
+
+
+def l2_tolerance(vsq_max: float, q) -> tuple:
+    """The tolerance of an L2 score S = 1 / (1 + d2): the expansion
+    d2 = |v|^2 + |q|^2 - 2 v.q cancels, so its rounding is a few ulp of
+    |v|^2 + |q|^2 whatever the distance, and S moves by S^2 times it;
+    plus VEC_RTOL relative."""
+    q = np.asarray(q, np.float64)
+    return VEC_RTOL, 0.0, 4 * VEC_EPS * (vsq_max + float(q @ q))
+
+
+def ivf_lists_agree(got: np.ndarray, want: np.ndarray, mat: np.ndarray,
+                    cents: np.ndarray, rtol: float = 1e-6) -> int:
+    """Two IVF builds' lists over the same scored matrix `mat` (rows) and
+    `want`'s centroids: equal, but where a row's two nearest centroids
+    are within `rtol` (it may sit in either list), or where two rows of
+    one list are equally near its centroid within `rtol` (their slots
+    may swap); distances are the build's ||c||^2 - 2 v.c in f64, `rtol`
+    relative to ||c||^2 + 2 |v| |c|. -> the number of such slots; any
+    other difference raises."""
+    if got.shape != want.shape:
+        raise AssertionError(f"IVF lists {got.shape} != {want.shape}")
+    m = np.asarray(mat, np.float64)
+    c = np.asarray(cents, np.float64)
+    csq = (c * c).sum(1)
+    cn = np.sqrt(csq)
+
+    def dist(r, li):
+        v = m[r]
+        return csq[li] - 2 * v @ c[li], rtol * (csq[li] + 2 * np.sqrt(
+            v @ v) * cn[li])
+
+    def near_tied(r):
+        d = csq - 2 * m[r] @ c.T
+        a, b = np.argsort(d, kind="stable")[:2]
+        return d[b] - d[a] <= max(dist(r, a)[1], dist(r, b)[1])
+    bad = np.argwhere(got != want)
+    for li, s in bad:
+        rg, rw = int(got[li, s]), int(want[li, s])
+        same_list = (rg >= 0 and rw >= 0 and rg in set(want[li].tolist())
+                     and rw in set(got[li].tolist()))
+        if same_list:
+            (dg, tg), (dw, tw) = dist(rg, li), dist(rw, li)
+            if abs(dg - dw) <= max(tg, tw):
+                continue
+        if all(r < 0 or near_tied(r) for r in (rg, rw)):
+            continue
+        raise AssertionError(f"IVF list {li} slot {s}: row {rg} != {rw}")
+    return len(bad)
+
+
+def vec_small_docs(rng, n: int) -> tuple:
+    """n docs of phase 4's vector index: three clustered 64-dim fields
+    (every ninth doc without them), a body, a status and a price: ->
+    (docs, {field: f32[n, 64]})."""
+    vecs = {}
+    for f in VEC_SMALL_FIELDS:
+        centres = rng.normal(size=(24, VEC_SMALL_DIMS)).astype(np.float32)
+        vecs[f] = (centres[rng.integers(0, 24, n)] + 0.3 * rng.normal(
+            size=(n, VEC_SMALL_DIMS))).astype(np.float32)
+    words = ["red", "fox", "dog", "tree", "blue", "quick", "moon", "lake"]
+    docs = []
+    for i in range(n):
+        d = {"body": " ".join(rng.choice(words, int(rng.integers(2, 7)))),
+             "status": STATUS[i % 3], "price": int(rng.integers(1000))}
+        if i % 9:
+            for f in VEC_SMALL_FIELDS:
+                d[f] = vecs[f][i].tolist()
+        docs.append(d)
+    return docs, vecs
+
+
+def vec_small_bodies(rng, vecs, vsq_max: float) -> list:
+    """(body, tolerance) pairs: per field the default route (IVF) and the
+    exact scan at two vectors (one on `dot`), a filtered kNN, kNN in a
+    bool, the body's kNN section beside a query, and hybrid rrf / linear
+    bodies; scores within VEC_RTOL, an L2 score within its expansion's
+    rounding at the query (`l2_tolerance`), a fused score within one step
+    of its 7-place rounding."""
+    out = []
+    for f in VEC_SMALL_FIELDS:
+        for i in (3, 200)[:1 if f == "dot" else 2]:
+            q = (vecs[f][i] + 0.05 * rng.normal(size=VEC_SMALL_DIMS)
+                 ).astype(np.float32).tolist()
+            tol = (l2_tolerance(vsq_max, q) if f == "l2"
+                   else (VEC_RTOL, 0.0, 0.0))
+            fused = (tol[0], 1.5e-7, tol[2])
+            knn = {"knn": {f: {"vector": q, "k": 10}}}
+            out += [
+                ({"size": 10, "query": knn}, tol),
+                ({"size": 10, "query": {"knn": {f: {
+                    "vector": q, "k": 10, "exact": True}}}}, tol),
+                ({"size": 10, "query": {"knn": {f: {
+                    "vector": q, "filter": {"term": {"status": "draft"}}}}}},
+                 tol),
+                ({"size": 10, "query": {"bool": {
+                    "must": [{"match": {"body": "fox"}}], "should": [knn],
+                    "filter": [{"range": {"price": {"lt": 600}}}]}}}, tol),
+                ({"size": 10, "query": {"match": {"body": "red lake"}},
+                  "knn": {"field": f, "query_vector": q, "k": 10}}, tol),
+                ({"size": 10, "query": {"hybrid": {"queries": [
+                    {"match": {"body": "blue moon"}}, knn]}},
+                  "aggs": {"st": {"terms": {"field": "status"}}}}, fused),
+            ]
+            if f != "l2":
+                # a linear fusion normalizes L2 scores by their spread,
+                # past which the expansion's rounding has no bound
+                out.append(({"size": 10, "query": {"hybrid": {
+                    "queries": [{"match": {"body": "blue moon"}}, knn],
+                    "fusion": {"method": "linear", "weights": [0.3, 0.7],
+                               "normalization": "l2"}}}}, fused))
+    return out
+
+
+def run_vectors_small(name: str, docs, bodies) -> tuple:
+    """Phase 4's vector index on `name` under a data path: 8 refreshes of
+    docs (the 8th merges the tier), a 9th, 40 deletes; `bodies` through
+    msearch and single searches; flush and a recovery serving the same
+    pages; a forcemerge serving them again: -> (responses before the
+    flush, after the forcemerge, each segment's IvfIndex per field before
+    the flush, their scored matrices, kNN scans and probes)."""
+    import tempfile
+    import torch
+    from opensearch_tpu_torch import RestClient
+    from opensearch_tpu_torch.ops import knn as knn_ops
+
+    n = len(docs)
+    per = n // 9
+    lines = sum([[{}, b] for b, _t in bodies], [])
+    knn_ops.reset_stats()
+    with tempfile.TemporaryDirectory() as path:
+        c = RestClient(device=name, data_path=path)
+        c.indices.create("v", VEC_SMALL_MAPPING)
+        for r in range(9):
+            hi = n if r == 8 else per * (r + 1)
+            c.bulk(sum([[{"index": {"_index": "v", "_id": f"d{i}"}},
+                         docs[i]] for i in range(per * r, hi)], []),
+                   refresh=True)
+        c.bulk([{"delete": {"_index": "v", "_id": f"d{i}"}}
+                for i in range(0, n, n // 40)], refresh=True)
+        segs = c._indices["v"].engine.segments
+        if len(segs) != 2 or not segs[0].name.startswith("_m"):
+            raise AssertionError(f"{name}: vectors, small: no tiered merge: "
+                                 f"{[(s.name, s.ndocs) for s in segs]}")
+        before = [c.msearch(lines, index="v")["responses"],
+                  [c.search("v", b) for b, _t in bodies]]
+        ivfs = [{f: s.vector_cols[f].ivf for f in VEC_SMALL_FIELDS}
+                for s in segs]
+        mats = [{f: s.vector_on(f, c.device)["mat"].cpu().numpy()
+                 for f in VEC_SMALL_FIELDS} for s in segs]
+        c.indices.flush("v")
+        c.close()
+        c = RestClient(device=name, data_path=path)
+        again = c.msearch(lines, index="v")["responses"]
+        for i, ((_b, tol), g, w) in enumerate(zip(bodies, again,
+                                                  before[0])):
+            same_vec(g, w, tol, f"{name} recovered {i}: ")
+        c.indices.forcemerge("v")
+        if len(c._indices["v"].engine.segments) != 1:
+            raise AssertionError(f"{name}: vectors, small: no forcemerge")
+        merged = c.msearch(lines, index="v")["responses"]
+        c.close()
+    if name == "cuda":
+        torch.cuda.synchronize()
+    return before, merged, ivfs, mats, dict(knn_ops.STATS)
+
+
+def phase_vectors_small(rng) -> dict:
+    """Phase 4's vector checks: the same bulk and bodies on the card and
+    on the CPU; pages within tolerance (scores 1e-6 relative, L2 the
+    expansion's rounding), the IVF lists built on the card equal to the
+    CPU's under the tie rule (`ivf_lists_agree`), scans and probes on
+    both, then the pages through a flush, a recovery and a forcemerge."""
+    docs, vecs = vec_small_docs(rng, 2700)
+    vsq_max = float((vecs["l2"].astype(np.float64) ** 2).sum(1).max())
+    bodies = vec_small_bodies(rng, vecs, vsq_max)
+    t0 = time.perf_counter()
+    out = {name: run_vectors_small(name, docs, bodies)
+           for name in ("cuda", "cpu")}
+    t_run = time.perf_counter() - t0
+    gc, cc = out["cuda"], out["cpu"]
+    for part in (0, 1):
+        for i, ((_b, tol), g, w) in enumerate(zip(bodies, gc[0][part],
+                                                  cc[0][part])):
+            same_vec(g, w, tol, f"vectors small {i}: ")
+    for i, ((_b, tol), g, w) in enumerate(zip(bodies, gc[1], cc[1])):
+        same_vec(g, w, tol, f"vectors merged {i}: ")
+    swapped = 0
+    for s, (gi, ci) in enumerate(zip(gc[2], cc[2])):
+        for f in VEC_SMALL_FIELDS:
+            swapped += ivf_lists_agree(gi[f].lists, ci[f].lists,
+                                       cc[3][s][f], ci[f].centroids)
+    if not (gc[4]["exact"] and gc[4]["ivf"]):
+        raise AssertionError(f"vectors, small: no scan or no probe on the "
+                             f"card: {gc[4]}")
+    log(f"  vectors, small: {len(docs)} docs x 3 fields of "
+        f"{VEC_SMALL_DIMS} dims (cosine, dot_product, l2_norm; IVF), "
+        f"{len(bodies)} bodies: card == CPU within tolerance before and "
+        f"after a flush, a recovery and a forcemerge; IVF lists of both "
+        f"segments card == CPU ({swapped} slots differ under the tie rule); "
+        f"card scans {gc[4]['exact']}, probes {gc[4]['ivf']} ({t_run:.1f}s)")
+    return {"bodies": len(bodies), "ivf_slots_tied": swapped}
+
+
+# ---------------------------------------------------------------------
+# phase 16: dense vectors, kNN and hybrid search at MS MARCO scale
+# ---------------------------------------------------------------------
+
+def vector_chunks(n: int, seed: int, dev):
+    """Phase 16's n passage vectors of VEC_DIMS on the card, VEC_CHUNK
+    rows at a time: a mixture of VEC_CENTRES unit centres plus
+    VEC_NOISE per dimension from a seeded torch.Generator, so that a
+    second pass yields the same bits: -> (first row, f32 rows, their
+    centres)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    centres = torch.randn(VEC_CENTRES, VEC_DIMS, generator=gen, device=dev)
+    centres /= torch.linalg.vector_norm(centres, dim=1, keepdim=True)
+    for a in range(0, n, VEC_CHUNK):
+        m = min(VEC_CHUNK, n - a)
+        idx = torch.randint(0, VEC_CENTRES, (m,), generator=gen, device=dev)
+        yield a, centres[idx] + VEC_NOISE * torch.randn(
+            m, VEC_DIMS, generator=gen, device=dev), idx
+
+
+def make_vectors(n: int, seed: int, dev) -> tuple:
+    """`vector_chunks` copied to the host once: -> (f32[n, VEC_DIMS],
+    each row's centre)."""
+    import torch
+    out = np.empty((n, VEC_DIMS), np.float32)
+    which = np.empty(n, np.int64)
+    # each chunk lands in a pinned buffer, then 8 threads copy it into the
+    # host array (the first writes to its fresh pages fault them in)
+    stage = torch.empty((VEC_CHUNK, VEC_DIMS), dtype=torch.float32,
+                        pin_memory=torch.device(dev).type == "cuda")
+    staged = stage.numpy()
+    step = VEC_CHUNK // 8
+
+    def put(job):
+        a, s0, m = job
+        out[a + s0:a + min(s0 + step, m)] = staged[s0:min(s0 + step, m)]
+    with ThreadPoolExecutor(8) as pool:
+        for a, x, idx in vector_chunks(n, seed, dev):
+            m = len(x)
+            stage[:m].copy_(x)
+            which[a:a + m] = idx.cpu().numpy()
+            list(pool.map(put, [(a, s0, m) for s0 in range(0, m, step)]))
+    return out, which
+
+
+def rss_bytes() -> tuple:
+    """(the process's resident bytes now, its peak)."""
+    import resource
+    with open("/proc/self/statm") as fh:
+        now = int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+class VecOracle:
+    """Phase 16's brute force, apart from the port: cosine scores
+    (1 + q.v / (|q| |v|)) / 2 in f64 of the passage vectors (corpus doc
+    g is row g), over the live docs of `ix`; the IVF probe read from an
+    index's centroids and lists (f64 centroid scores, the nprobe best
+    with ties to the lower list) mapped to corpus docs by `to_g`. The
+    vectors are the host's array `vecs`, or, where the caller has let it
+    go, `vector_chunks` drawn again from `seed` (the same bits)."""
+
+    def __init__(self, vecs, ix, dev, n0: int = 0, seed: int = 0):
+        self.v, self.ix, self.dev = vecs, ix, dev
+        self.n0 = len(vecs) if vecs is not None else n0
+        self.seed = seed
+
+    def chunks(self):
+        """(first row, f32 rows on the card) over the corpus docs."""
+        import torch
+        if self.v is None:
+            for a, x, _idx in vector_chunks(self.n0, self.seed, self.dev):
+                yield a, x
+            return
+        for a in range(0, self.n0, VEC_CHUNK):
+            yield a, torch.from_numpy(self.v[a:a + VEC_CHUNK]).to(self.dev)
+
+    def live(self) -> np.ndarray:
+        return self.ix.live[:self.n0]
+
+    def unit(self, q) -> np.ndarray:
+        q = np.asarray(q, np.float64)
+        return q / max(np.linalg.norm(q), 1e-300)
+
+    def at(self, docs: np.ndarray, q) -> np.ndarray:
+        """f64 scores of corpus docs `docs`."""
+        x = self.v[docs].astype(np.float64)
+        x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-300)
+        return (1.0 + x @ self.unit(q)) / 2.0
+
+    def probe(self, q, ivf, nprobe: int, to_g: np.ndarray) -> list:
+        """The probed docs' masks over the corpus (bool[n0]); two where
+        the nprobe-th and next lists' scores lie within 1e-6 relative
+        (either may be probed)."""
+        s = np.asarray(ivf.centroids, np.float64) @ self.unit(q)
+        order = np.lexsort((np.arange(len(s)), -s))
+        picks = [order[:nprobe]]
+        if nprobe < len(s) and s[order[nprobe - 1]] - s[order[nprobe]] \
+                <= 1e-6 * abs(s[order[nprobe]]):
+            picks.append(np.concatenate([order[:nprobe - 1],
+                                         order[nprobe:nprobe + 1]]))
+        masks = []
+        for p in picks:
+            rows = ivf.lists[p].reshape(-1)
+            m = np.zeros(self.n0, bool)
+            m[to_g[rows[rows >= 0]]] = True
+            masks.append(m)
+        return masks
+
+    def top(self, reqs: list) -> list:
+        """reqs: [(query vector, mask bool[n0] or None, c)] -> per request
+        (corpus docs, f64 scores) of its c best live docs in the mask by
+        (score desc, doc asc), and the mask's live count; one f64 pass
+        over the vectors on the card, VEC_CHUNK rows a step."""
+        import torch
+        q = torch.tensor(np.stack([self.unit(r[0]) for r in reqs]),
+                         dtype=torch.float64, device=self.dev)
+        live = self.live()
+        masks = [torch.from_numpy(live if m is None else m & live).to(
+            self.dev) for _q, m, _c in reqs]
+        parts = [[] for _ in reqs]
+        for a, x in self.chunks():
+            x = x.double()
+            x /= torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(
+                1e-300)
+            s = (1.0 + x @ q.T) / 2.0
+            for j, (_q, _m, c) in enumerate(reqs):
+                sj = torch.where(masks[j][a:a + len(x)], s[:, j],
+                                 float("-inf"))
+                val, idx = torch.topk(sj, min(c + 8, len(x)))
+                ok = torch.isfinite(val)
+                parts[j].append((idx[ok].cpu().numpy() + a,
+                                 val[ok].cpu().numpy()))
+        out = []
+        for j, (_q, _m, c) in enumerate(reqs):
+            g = np.concatenate([p[0] for p in parts[j]])
+            sc = np.concatenate([p[1] for p in parts[j]])
+            o = np.lexsort((g, -sc))[:c]
+            out.append((g[o], sc[o], int(masks[j].sum())))
+        return out
+
+
+def vec_page(ix, docs, scores, total: int, frm: int = 0,
+             size: int = 10) -> tuple:
+    """(ids, scores, total) of ranked corpus docs, positions frm..+size."""
+    return ([ix.id_of(int(g)) for g in docs[frm:frm + size]],
+            [float(s) for s in scores[frm:frm + size]], total)
+
+
+def oracle_fusion(lists: list, spec: dict) -> list:
+    """Fusion recomputed from ranked [(key, score)] lists: RRF sums
+    w / (rank_constant + rank); linear sums w x the list's min-max or L2
+    normalized score; order fused desc, best (list, rank), key."""
+    fused, best = {}, {}
+    for li, lst in enumerate(lists):
+        w = spec["weights"][li]
+        sc = np.asarray([s for _k, s in lst], np.float64)
+        if spec["method"] == "rrf":
+            part = w / (spec.get("rank_constant", 60) + np.arange(
+                1, len(lst) + 1))
+        elif spec.get("normalization", "min_max") == "l2":
+            nrm = np.sqrt((sc * sc).sum())
+            part = w * (sc / nrm if nrm > 0 else sc * 0)
+        else:
+            lo, hi = (sc.min(), sc.max()) if len(sc) else (0.0, 0.0)
+            part = w * ((sc - lo) / (hi - lo) if hi > lo
+                        else np.ones_like(sc))
+        for r, ((k, _s), p) in enumerate(zip(lst, part)):
+            fused[k] = fused.get(k, 0.0) + float(p)
+            best.setdefault(k, (li, r))
+    return sorted(fused.items(), key=lambda kv: (-kv[1], best[kv[0]],
+                                                 kv[0]))
+
+
+def vec_op_timer():
+    """CUDA events around the scan, the probe and the top-k: ->
+    (restore(), {op: [(start, end)]})."""
+    import torch
+    from opensearch_tpu_torch.ops import knn as knn_ops, scoring
+    spans: dict = {}
+    saved = []
+    for mod, name, label in ((knn_ops, "exact_scan", "scan"),
+                             (knn_ops, "ivf_probe", "probe"),
+                             (scoring, "topk_docs", "topk")):
+        real = getattr(mod, name)
+
+        def timed(*a, _real=real, _label=label, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = _real(*a, **kw)
+            e1.record()
+            spans.setdefault(_label, []).append((e0, e1))
+            return out
+        setattr(mod, name, timed)
+        saved.append((mod, name, real))
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return restore, spans
+
+
+def run_vec_class(client, name: str, items, cpu=None, msearch=False,
+                  tol=(VEC_RTOL, 0.0, 0.0)) -> dict:
+    """One class body by body through RestClient.search (or as one
+    msearch), kNN and bm25 counts set to 0 just before, the scan / probe
+    / top-k event ms a body, then the first body on the card against the
+    CPU twin: -> the class's numbers, its responses under "resps"."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25, knn as knn_ops
+    bodies = [b for b, _s in items]
+    torch.cuda.synchronize()
+    knn_ops.reset_stats()
+    bm25.reset_counts()
+    restore, spans = vec_op_timer()
+    lat = []
+    t0 = time.perf_counter()
+    try:
+        if msearch:
+            resps = client.msearch(sum([[{}, b] for b in bodies], []),
+                                   index="bench")["responses"]
+            lat.append((time.perf_counter() - t0) * 1e3)
+        else:
+            resps = []
+            for b in bodies:
+                t1 = time.perf_counter()
+                resps.append(client.search("bench", b))
+                lat.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    counts = {**dict(knn_ops.STATS), **{k: bm25.COUNTS[k] for k in (
+        "launches", "impact_launches", "bool_launches", "plain_calls")}}
+    op_ms = {k: sum(a.elapsed_time(e) for a, e in v) / len(bodies)
+             for k, v in spans.items()}
+    t_cpu = 0.0
+    if cpu is not None:
+        t0 = time.perf_counter()
+        want = (cpu.msearch([{}, bodies[0]], index="bench")["responses"][0]
+                if msearch else cpu.search("bench", bodies[0]))
+        t_cpu = time.perf_counter() - t0
+        same_vec(resps[0], want, tol, f"{name} card vs CPU: ")
+    out = {"bodies": len(bodies), "wall_s": wall,
+           "bodies_per_s": len(bodies) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "first_ms": lat[0], "op_ms": op_ms, "counts": counts,
+           "resps": resps}
+    if len(lat) > 1:
+        out["bodies_per_s_after_first"] = (len(lat) - 1) / (sum(lat[1:])
+                                                           / 1e3)
+    log(f"  {name}: {len(bodies)} bodies in {wall:.2f}s "
+        f"({out['bodies_per_s']:.1f}/s) p50 {out['p50_ms']:.1f} p99 "
+        f"{out['p99_ms']:.1f} ms, first {lat[0]:.1f} ms; event ms a body "
+        + " ".join(f"{k}={v:.3f}" for k, v in sorted(op_ms.items()))
+        + f"; counts {counts}" + (f"; one body card == CPU ({t_cpu:.1f}s)"
+                                  if cpu is not None else ""))
+    return out
+
+
+def drop_cpu_state(segs) -> None:
+    """Drop the CPU twins' cached state of `segs` (aligned copies, masks,
+    the general path's arrays, a vector matrix): what a later twin needs
+    is rebuilt, mostly copied from the card's."""
+    for s in segs:
+        for cache in (s.aligned, s.device_arrays):
+            for k in [k for k in cache if k and k[-1] == "cpu"]:
+                del cache[k]
+
+
+def vec_twin(eng):
+    """A CPU client over the engine's segments with phase 16's mapping."""
+    cpu = twin_of(eng)
+    cpu.indices.put_mapping("bench", VEC_PUT_MAPPING)
+    return cpu
+
+
+VEC_PUT_MAPPING = {"properties": {"vec": {
+    "type": "dense_vector", "dims": VEC_DIMS, "similarity": "cosine",
+    "method": {"name": "ivf"}}}}
+
+
+def vec_bodies(big: dict, vq: np.ndarray, n: int) -> dict:
+    """Phase 16's bodies: class -> [(body, spec)], spec what the brute
+    force needs (the query's row of `vq`, the route, a filter, terms)."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    terms = [list(big["body_terms"][2 * j]) for j in range(n)]
+
+    def text(j):
+        return " ".join(vs[int(t)] for t in terms[j])
+    src = {"_source": {"excludes": ["vec"]}}
+
+    def knn(j, **kw):
+        return {"knn": {"vec": dict(vector=vq[j].tolist(), k=10, **kw)}}
+    out = {"a_exact": [], "b_ivf": [], "c_filtered_bool": [],
+           "d_body_section": [], "e_hybrid": [], "f_msearch": []}
+    for j in range(n):
+        out["a_exact"].append(({**src, "size": 10,
+                                "query": knn(j, exact=True)},
+                               {"q": j, "kind": "exact"}))
+        out["b_ivf"].append(({**src, "size": 10, "query": knn(j)},
+                             {"q": j, "kind": "ivf"}))
+        k = n + j
+        if j % 2 == 0:
+            st, lo = j % 3, 100 * (j % 7)
+            flt = {"bool": {"filter": [
+                {"term": {"status": bc.STATUS_VALUES[st]}},
+                {"range": {"price": {"gte": lo, "lt": lo + 300}}}]}}
+            out["c_filtered_bool"].append((
+                {**src, "size": 10, "query": knn(k, filter=flt)},
+                {"q": k, "kind": "ivf", "status": st,
+                 "price": (lo, lo + 300)}))
+        else:
+            out["c_filtered_bool"].append((
+                {**src, "size": 10, "query": {"bool": {
+                    "must": [{"match": {"body": text(j)}}],
+                    "should": [knn(k)]}}},
+                {"q": k, "kind": "bool_must", "terms": terms[j]}))
+        k = 2 * n + j
+        section = {"field": "vec", "query_vector": vq[k].tolist(), "k": 10}
+        if j % 2 == 0:
+            out["d_body_section"].append((
+                {**src, "size": 10, "knn": section},
+                {"q": k, "kind": "ivf"}))
+        else:
+            out["d_body_section"].append((
+                {**src, "size": 10, "knn": section,
+                 "query": {"match": {"body": text(j)}}},
+                {"q": k, "kind": "bool_should", "terms": terms[j]}))
+        k = 3 * n + j
+        fusion = [{"method": "rrf", "window_size": VEC_WINDOW},
+                  {"method": "linear", "weights": [0.3, 0.7],
+                   "normalization": "min_max", "window_size": VEC_WINDOW},
+                  {"method": "linear", "normalization": "l2",
+                   "window_size": VEC_WINDOW},
+                  {"method": "rrf", "window_size": VEC_WINDOW}][j % 4]
+        body = {**src, "size": 10, "query": {"hybrid": {
+            "queries": [{"match": {"body": text(j)}}, knn(k)],
+            "fusion": fusion}}}
+        if j % 4 == 3:
+            body["aggs"] = {"st": {"terms": {"field": "status"}}}
+        out["e_hybrid"].append((body, {"q": k, "kind": "hybrid",
+                                       "terms": terms[j],
+                                       "fusion": fusion,
+                                       "aggs": j % 4 == 3}))
+    for j in range(VEC_MSEARCH):
+        k = 4 * n + j
+        out["f_msearch"].append(({**src, "size": 10,
+                                  "query": knn(k, exact=True)},
+                                 {"q": k, "kind": "exact"}))
+    return out
+
+
+def vec_query_vectors(vecs: np.ndarray, live: np.ndarray, m: int,
+                      seed: int) -> np.ndarray:
+    """m query vectors: live passages' vectors plus VEC_QNOISE noise."""
+    rng = np.random.default_rng([seed, 16])
+    rows = rng.choice(np.flatnonzero(live), m, replace=False)
+    return (vecs[rows] + VEC_QNOISE * rng.normal(
+        size=(m, VEC_DIMS))).astype(np.float32)
+
+
+def vec_checks(oracle: VecOracle, ix, vq, items: list, ivf, nprobe: int,
+               to_g: np.ndarray, columns) -> list:
+    """One check a body (resp -> None, raising on a difference) from one
+    f64 pass of the brute force over every request the bodies need."""
+    status, price = columns
+    reqs, plan = [], []
+
+    def want(q, mask, c):
+        reqs.append((vq[q], mask, c))
+        return len(reqs) - 1
+
+    n0 = oracle.n0
+    for body, spec in items:
+        q = spec["q"]
+        masks = ([None] if spec["kind"] == "exact"
+                 else oracle.probe(vq[q], ivf, nprobe, to_g))
+        if "status" in spec:
+            lo, hi = spec["price"]
+            f = (status[:n0] == spec["status"]) & (price[:n0] >= lo) \
+                & (price[:n0] < hi)
+            masks = [m & f for m in masks]
+        c = VEC_WINDOW if spec["kind"] == "hybrid" else 10
+        plan.append((body, spec, masks, [want(q, m, c) for m in masks]))
+    got = oracle.top(reqs)
+    checks = []
+    for body, spec, masks, rid in plan:
+        variants = [vec_expect(oracle, ix, vq, body, spec, m, got[r])
+                    for m, r in zip(masks, rid)]
+        checks.append(lambda resp, vs=variants, b=body: vec_check(
+            resp, vs, b))
+    return checks
+
+
+def vec_expect(oracle, ix, vq, body, spec, mask, top) -> tuple:
+    """(page (ids, scores, total), tolerance, extra checks) of one body
+    under one probe variant."""
+    docs, sc, total = top
+    kind = spec["kind"]
+    if kind in ("exact", "ivf"):
+        return vec_page(ix, docs, sc, total), (VEC_RTOL, 0.0, 0.0), None
+    n0 = oracle.n0
+    bm, ok = ix.group(spec["terms"])
+    ok = ok & ix.live
+    if kind in ("bool_must", "bool_should"):
+        inp = np.zeros(ix.n, bool)
+        inp[:n0] = mask & oracle.live()
+        score = np.where(ok, bm, 0.0).astype(np.float64)
+        cand = np.flatnonzero(ok)
+        if kind == "bool_should":
+            cand = np.union1d(cand, docs)
+        kn = cand[inp[cand]]
+        score[kn] += oracle.at(kn, vq[spec["q"]])
+        o = np.lexsort((cand, -score[cand]))
+        matched = ok | inp if kind == "bool_should" else ok
+        return (vec_page(ix, cand[o], score[cand][o], int(matched.sum())),
+                (VEC_RTOL, 0.0, 0.0), None)
+    # hybrid: the oracle's two sub-pages, fused
+    mids, msc, mtotal = ix.page(bm, ok, 0, VEC_WINDOW)
+    sub = [[(("bench", i), float(s)) for i, s in zip(mids, msc)],
+           [(("bench", ix.id_of(int(g))), float(s))
+            for g, s in zip(docs, sc)]]
+    fusion = dict({"weights": [1.0, 1.0]}, **spec["fusion"])
+    fused = oracle_fusion(sub, fusion)
+    atol = 1.5e-7
+    if fusion["method"] == "linear" and fusion["normalization"] == \
+            "min_max":
+        # a score's rounding, scaled by its list's spread
+        for w, lst in zip(fusion["weights"], sub):
+            s = np.asarray([x for _k, x in lst])
+            if len(s) and s.max() > s.min():
+                atol += w * 2e-6 * np.abs(s).max() / (s.max() - s.min())
+    page = ([k[1] for k, _s in fused[:10]], [s for _k, s in fused[:10]],
+            None)
+    extra = {"totals": (total, max(total, mtotal))}
+    if spec["aggs"]:
+        from opensearch_tpu_torch import bench_corpus as bc
+        cnt = Counter(bc.STATUS_VALUES[int(ix.status[oracle_global(
+            ix, k[1])])] for k, _s in fused)
+        extra["buckets"] = [{"key": k, "doc_count": v} for k, v in sorted(
+            cnt.items(), key=lambda kv: (-kv[1], kv[0]))]
+    return page, (0.0, atol, 0.0), extra
+
+
+def oracle_global(ix, doc_id: str) -> int:
+    """The global id of the live doc with `_id` doc_id."""
+    if doc_id.isdigit() and int(doc_id) < ix.n0 and ix.live[int(doc_id)]:
+        return int(doc_id)
+    for k in range(len(ix.new_ids) - 1, -1, -1):
+        if ix.new_ids[k] == doc_id and ix.live[ix.n0 + k]:
+            return ix.n0 + k
+    raise AssertionError(f"no live doc [{doc_id}] in the brute force")
+
+
+def vec_check(resp: dict, variants: list, body: dict) -> None:
+    """A response against the brute force's page (any probe variant)."""
+    errors = []
+    for (ids, scores, total), tol, extra in variants:
+        try:
+            h = resp["hits"]
+            got = [(x["_id"], x["_score"]) for x in h["hits"]]
+            want_hits = [{"_id": i, "_score": s} for i, s in zip(ids,
+                                                                  scores)]
+            _same_hits([{"_id": i, "_score": s} for i, s in got],
+                       want_hits, tol, "hits.")
+            t = h["total"]
+            if extra is None:
+                if t != {"value": total, "relation": "eq"}:
+                    raise AssertionError(f"total {t} != {total}")
+            else:
+                lo, hi = extra["totals"]
+                if not (t["relation"] == "gte" and lo <= t["value"] <= hi):
+                    raise AssertionError(f"hybrid total {t} not in "
+                                         f"[{lo}, {hi}] gte")
+                if "buckets" in extra and resp["aggregations"]["st"][
+                        "buckets"] != extra["buckets"]:
+                    raise AssertionError(
+                        f"aggs over fusion {resp['aggregations']} != "
+                        f"{extra['buckets']}")
+            return
+        except AssertionError as e:
+            errors.append(str(e))
+    raise AssertionError(f"body {json.dumps(body)[:300]} != brute force: "
+                         f"{errors}")
+
+
+def phase_vectors_msmarco(big: dict, n: int, seed: int) -> dict:
+    """Phase 16 on phase 7's end state: a cosine `vec` field of VEC_DIMS
+    with the mapping's default IVF, its column attached to the corpus
+    segment (every passage has a vector; phase 7's re-indexed docs and
+    phase 14's later docs have none), `n` bodies a class of (a) exact kNN,
+    (b) IVF kNN at the default probe (recall@10 against (a)), (c) a
+    filtered kNN and a bool of a match with a kNN should, (d) the body's
+    kNN section alone and beside a query, (e) hybrid rrf, linear min_max
+    [0.3, 0.7], linear l2 and rrf with a terms agg over the fused window,
+    (f) one msearch of VEC_MSEARCH exact bodies; every page against
+    VecOracle (the probe over the card's own lists and centroids), one
+    body a class card == CPU (the CPU twin reuses the card's IVF index)."""
+    import torch
+    from opensearch_tpu_torch.index.segment import VectorColumn
+    from opensearch_tpu_torch.ops import ann
+    client, seg, ix = big["client"], big["seg"], big["ix"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    n0 = seg.ndocs
+    if seg not in eng.segments or n0 != ix.n0 \
+            or not np.array_equal(seg.live, ix.live[:n0]):
+        raise AssertionError("phase 16: the corpus segment or its live docs "
+                             "differ from the brute force's")
+    torch.cuda.synchronize()
+    bytes0 = torch.cuda.memory_allocated(dev)
+    rss0 = rss_bytes()[0]
+    # host memory for the vectors and the CPU twin's unit-normed copy:
+    # the earlier twins' CPU state goes (a later twin copies it back), and
+    # the caches no later phase reads on these segments (filter lists,
+    # phrase pairs, date buckets, keyword hashes: rebuilt on use)
+    drop_cpu_state(eng.segments)
+    for s in eng.segments:
+        for k in ("filter_lists", "phrase_pairs", "date_buckets",
+                  "kw_hashes"):
+            s.__dict__.pop(k, None)
+    log(f"  host RSS {rss0} before the phase, {rss_bytes()[0]} without the "
+        f"earlier CPU twins' state and the segments' host caches")
+    t0 = time.perf_counter()
+    vecs, _which = make_vectors(n0, seed, dev)
+    t_gen = time.perf_counter() - t0
+    client.indices.put_mapping("bench", VEC_PUT_MAPPING)
+    ft = eng.mappings.resolve_field("vec")
+    seg.vector_cols["vec"] = VectorColumn("vec", vecs, np.ones(n0, bool),
+                                          ft.vector_similarity,
+                                          method=ft.vector_method)
+    log(f"  {n0} x {VEC_DIMS} vectors ({vecs.nbytes} bytes) drawn on the "
+        f"card from {VEC_CENTRES} unit centres + {VEC_NOISE} noise and "
+        f"copied to the host in {t_gen:.1f}s; host RSS now / peak "
+        f"{rss_bytes()}")
+    vq = vec_query_vectors(vecs, ix.live[:n0], 4 * n + VEC_MSEARCH, seed)
+    classes = vec_bodies(big, vq, n)
+    cpu = vec_twin(eng)
+    out: dict = {"classes": {}}
+    resps: dict = {}
+    for name, items in classes.items():
+        if name == "b_ivf":
+            torch.cuda.synchronize()
+            out["device_bytes_scan"] = torch.cuda.memory_allocated(dev)
+        r = run_vec_class(client, name, items, cpu,
+                          msearch=name == "f_msearch",
+                          tol=(VEC_RTOL, 1.5e-7, 0.0)
+                          if name == "e_hybrid" else
+                          (VEC_RTOL, 0.0, 0.0))
+        out["classes"][name] = r
+        resps[name] = r.pop("resps")
+        if name == "b_ivf":
+            out["ivf_build"] = dict(ann.LAST_BUILD)
+    torch.cuda.synchronize()
+    col = seg.vector_cols["vec"]
+    ivf = col.ivf
+    out["device_bytes"] = torch.cuda.memory_allocated(dev) - bytes0
+    out["nlist"], out["cap"], out["nprobe"] = (ivf.nlist, ivf.cap,
+                                               ivf.default_nprobe)
+    # the brute force, one f64 pass on the card over the host's vectors
+    oracle = VecOracle(vecs, ix, dev)
+    t0 = time.perf_counter()
+    everything = [it for items in classes.values() for it in items]
+    checks = vec_checks(oracle, ix, vq, everything, ivf, ivf.default_nprobe,
+                        np.arange(n0), (ix.status, ix.price))
+    flat = [r for name in classes for r in resps[name]]
+    for check, r in zip(checks, flat):
+        check(r)
+    t_oracle = time.perf_counter() - t0
+    # recall@10 of the probe against the scan, the same query vectors
+    rec = [len({h["_id"] for h in a["hits"]["hits"]}
+               & {h["_id"] for h in b["hits"]["hits"]}) / 10
+           for a, b in zip(resps["a_exact"], resps["b_ivf"])]
+    out["recall_at_10"] = float(np.mean(rec))
+    scan_bytes = n0 * VEC_DIMS * 4
+    probe_bytes = ivf.default_nprobe * ivf.cap * VEC_DIMS * 4
+    out["scan_bound_ms"] = scan_bytes / HBM_BYTES_PER_S * 1e3
+    out["probe_bound_ms"] = probe_bytes / HBM_BYTES_PER_S * 1e3
+    out["hybrid_launches"] = {k: out["classes"]["e_hybrid"]["counts"][k]
+                              for k in ("launches", "impact_launches")}
+    out["rss_bytes"], out["rss_peak_bytes"] = rss_bytes()
+    b = out["ivf_build"]
+    log(f"  IVF: nlist {ivf.nlist}, cap {ivf.cap}, default nprobe "
+        f"{ivf.default_nprobe}; k-means {b['kmeans_s']:.2f}s, top-2 "
+        f"assignment {b['assign_s']:.2f}s, fill {b['fill_s']:.2f}s; "
+        f"recall@10 of (b) against (a) {out['recall_at_10']:.3f}")
+    log(f"  bounds at 3.35 TB/s: scan {out['scan_bound_ms']:.2f} ms "
+        f"({scan_bytes} bytes), probe {out['probe_bound_ms']:.2f} ms "
+        f"({ivf.default_nprobe} x {ivf.cap} rows of {VEC_DIMS * 4} bytes); "
+        f"vector device bytes {out['device_bytes']} (with the scan alone "
+        f"{out['device_bytes_scan'] - bytes0}); B1 / B2 launches of the "
+        f"hybrid bodies {out['hybrid_launches']}; every page == the brute "
+        f"force "
+        f"({t_oracle:.1f}s); host RSS now / peak {out['rss_bytes']} / "
+        f"{out['rss_peak_bytes']}")
+    if out["classes"]["a_exact"]["counts"]["exact"] == 0 \
+            or out["classes"]["b_ivf"]["counts"]["ivf"] == 0:
+        raise AssertionError("phase 16: no scan or no probe ran")
+    # the CPU twin's state (its unit-normed matrix in host memory) goes
+    drop_cpu_state(eng.segments)
+    # the corpus segment's column keeps the vectors until phase 8's merge
+    # replaces it; phase 8's oracle draws them again from the seed
+    big["vec"] = {"seed": seed, "n0": n0, "vq": vq, "n": n}
+    return out
+
+
+def phase_vectors_merged(big: dict) -> dict:
+    """Phase 8's merged segment: one body of classes (a), (b) and (e) of
+    phase 16 (the IVF rebuilt on the merged column, timed), each page
+    against VecOracle over the merged segment's lists (merged rows map to
+    the live corpus docs in order), its vectors drawn again from the
+    seed; 1,000 sampled merged rows against them; the hybrid body's
+    match on B1 / B2."""
+    import torch
+    from opensearch_tpu_torch.ops import ann
+    client, ix = big["client"], big["ix"]
+    vq, n, n0 = big["vec"]["vq"], big["vec"]["n"], big["vec"]["n0"]
+    eng = client._indices["bench"].engine
+    (merged,) = eng.segments
+    live_g = np.flatnonzero(ix.live)
+    col = merged.vector_cols["vec"]
+    k = int((live_g < n0).sum())
+    srng = np.random.default_rng(23)
+    rows = np.sort(srng.choice(k, 1000, replace=False))
+    oracle = VecOracle(None, ix, client.device, n0=n0,
+                       seed=big["vec"]["seed"])
+    drawn = np.empty((len(rows), VEC_DIMS), np.float32)
+    g = live_g[rows]
+    for a, x in oracle.chunks():
+        at = (g >= a) & (g < a + len(x))
+        if at.any():
+            drawn[at] = x[torch.from_numpy(g[at] - a).to(x.device)].cpu(
+            ).numpy()
+    if not (np.array_equal(col.values[rows], drawn)
+            and col.present[:k].all() and not col.present[k:].any()):
+        raise AssertionError("merged vectors != the live corpus rows")
+    classes = vec_bodies(big, vq, n)
+    picks = {"a_exact": classes["a_exact"][:1],
+             "b_ivf": classes["b_ivf"][:1],
+             "e_hybrid": classes["e_hybrid"][:1]}
+    out: dict = {"classes": {}}
+    resps = []
+    for name, items in picks.items():
+        r = run_vec_class(client, f"{name}, merged", items)
+        resps += r.pop("resps")
+        out["classes"][name] = r
+        if name == "b_ivf":
+            out["ivf_build"] = dict(ann.LAST_BUILD)
+    ivf = col.ivf
+    checks = vec_checks(oracle, ix, vq, [it for items in picks.values()
+                                         for it in items], ivf,
+                        ivf.default_nprobe, live_g, (ix.status, ix.price))
+    for check, r in zip(checks, resps):
+        check(r)
+    c = out["classes"]["e_hybrid"]["counts"]
+    if c["launches"] + c["impact_launches"] == 0 or c["plain_calls"]:
+        raise AssertionError(f"merged hybrid: its match not on B1 / B2: {c}")
+    b = out["ivf_build"]
+    log(f"  merged: IVF rebuilt (nlist {ivf.nlist}, cap {ivf.cap}): "
+        f"k-means {b['kmeans_s']:.2f}s, assignment {b['assign_s']:.2f}s, "
+        f"fill {b['fill_s']:.2f}s; 3 pages == the brute force; the hybrid "
+        f"body's B1 / B2 launches {c['launches']} / {c['impact_launches']}")
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
@@ -6721,34 +7738,41 @@ def main() -> int:
     # ran 16 a class, phase 9 1,024 config-3 and 64 sloppy and prefix
     # bodies, phase 10 16 a class, phase 11 16 and phase 12 8; before
     # phase 15 did, phase 7 and phase 13 ran 8 a class and phase 9 32
-    # sloppy and prefix bodies
+    # sloppy and prefix bodies; before phase 16 did, phase 9 ran 512
+    # config-3 and mixed bodies and 16 sloppy and prefix bodies, phases
+    # 12, 13 and 15 4 bodies a class and phase 10 8 (phase 7's count also
+    # seeds which _ids it re-indexes, which later phases' data follow)
     ap.add_argument("--queries", type=int, default=128)
     ap.add_argument("--bool-queries", type=int, default=1024)
     ap.add_argument("--general-queries", type=int, default=4,
                     help="phase-7 bodies per class")
-    ap.add_argument("--phrase-queries", type=int, default=512,
+    ap.add_argument("--phrase-queries", type=int, default=256,
                     help="phase-9 config-3 and mixed bodies each")
-    ap.add_argument("--phrase-sloppy", type=int, default=16,
+    ap.add_argument("--phrase-sloppy", type=int, default=8,
                     help="phase-9 sloppy and prefix bodies together")
-    ap.add_argument("--agg-queries", type=int, default=8,
+    ap.add_argument("--agg-queries", type=int, default=4,
                     help="phase-10 bodies per class (the refinement class "
                     "takes at most 4)")
     ap.add_argument("--sort-queries", type=int, default=8,
                     help="phase-11 bodies per class (the chains of (b) "
                     "and (c) add 4 pages each)")
-    ap.add_argument("--expand-queries", type=int, default=4,
+    ap.add_argument("--expand-queries", type=int, default=2,
                     help="phase-12 bodies per class")
-    ap.add_argument("--compound-queries", type=int, default=4,
+    ap.add_argument("--compound-queries", type=int, default=2,
                     help="phase-13 bodies per class")
     ap.add_argument("--context-queries", type=int, default=8,
                     help="phase-14 bodies per class")
-    ap.add_argument("--longtail-queries", type=int, default=4,
+    ap.add_argument("--longtail-queries", type=int, default=2,
                     help="phase-15 bodies per class (a composite body "
                     "pages to its end)")
+    ap.add_argument("--vector-queries", type=int, default=4,
+                    help="phase-16 bodies per class (class (f) is one "
+                    "msearch of 64)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 15; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 8); no result line")
+                    help="end after this phase (3 to 16; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 8); no result "
+                    "line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -6811,6 +7835,7 @@ def main() -> int:
 
     log("[4] slice, small: RestClient on cuda vs cpu" + at(t_start))
     phase_slice_small(rng(7))
+    vec_small = phase_vectors_small(rng(9))
     if args.stop_after == 4:
         return 0
 
@@ -6839,8 +7864,8 @@ def main() -> int:
     if args.phrase_queries < 1024 or args.phrase_sloppy < 64:
         log(f"  cut: {args.phrase_queries} config-3 and mixed bodies "
             f"(1024 uncut) and {args.phrase_sloppy} sloppy and prefix "
-            f"bodies (64), so that phases 7-8, 13 and 15 fit the same time "
-            f"limit")
+            f"bodies (64), so that phases 7-8, 13, 15 and 16 fit the same "
+            f"time limit")
     phrase = phase_phrase_msmarco(big, bools, args.phrase_queries,
                                   args.phrase_sloppy, n_mixed)
     if args.stop_after == 9:
@@ -6859,7 +7884,7 @@ def main() -> int:
         f"scale (ndocs={args.ndocs})" + at(t_start))
     if args.agg_queries < 16:
         log(f"  cut: {args.agg_queries} bodies a class (16 uncut), so "
-            f"that phase 13 fits the same time limit")
+            f"that phases 13 and 16 fit the same time limit")
     aggs = phase_aggs_msmarco(big, args.agg_queries)
     if args.stop_after == 10:
         return 0
@@ -6880,7 +7905,7 @@ def main() -> int:
         f"state; the expanded-filter class after phase 8" + at(t_start))
     if args.expand_queries < 8:
         log(f"  cut: {args.expand_queries} bodies a class (8 uncut), so "
-            f"that phase 13 fits the same time limit")
+            f"that phases 13 and 16 fit the same time limit")
     expand = phase_expand_msmarco(big, args.expand_queries)
     if args.stop_after == 12:
         return 0
@@ -6892,7 +7917,7 @@ def main() -> int:
         f"wrapper classes after phase 8" + at(t_start))
     if args.compound_queries < 8:
         log(f"  cut: {args.compound_queries} bodies a class (8 uncut), so "
-            f"that phase 15 fits the same time limit")
+            f"that phases 15 and 16 fit the same time limit")
     compound = phase_compound_msmarco(big, args.compound_queries)
     if args.stop_after == 13:
         return 0
@@ -6912,8 +7937,20 @@ def main() -> int:
         f"auto_date_histogram, significance and the samplers) at MS MARCO "
         f"passage scale (ndocs={args.ndocs}), on phase 7's end state"
         + at(t_start))
+    if args.longtail_queries < 4:
+        log(f"  cut: {args.longtail_queries} bodies a class (4 uncut), so "
+            f"that phase 16 fits the same time limit")
     longtail = phase_longtail_msmarco(big, args.longtail_queries)
     if args.stop_after == 15:
+        return 0
+
+    log(f"[16] dense vectors, kNN (exact scan and balanced IVF) and hybrid "
+        f"search (RRF, linear min_max / l2) at MS MARCO passage scale "
+        f"(ndocs={args.ndocs}, {VEC_DIMS} dims), on phase 7's end state; "
+        f"classes (a), (b), (e) again after phase 8" + at(t_start))
+    vectors = phase_vectors_msmarco(big, args.vector_queries, args.seed)
+    vectors["small"] = vec_small
+    if args.stop_after == 16:
         return 0
 
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
@@ -6941,6 +7978,10 @@ def main() -> int:
         "kernels decline a segment with deletes)" + at(t_start))
     options["rescore"] = phase_rescore_merged(big, args.context_queries)
     rc = [r["counts"] for r in options["rescore"].values()]
+    log("[16m] phase 16's classes (a), (b) and (e), on phase 8's merged "
+        "segment (its IVF index rebuilt)" + at(t_start))
+    vectors["merged"] = phase_vectors_merged(big)
+    vh = vectors["merged"]["classes"]["e_hybrid"]["counts"]
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -6952,6 +7993,7 @@ def main() -> int:
         "launches_expanded_filter": xf["launches"],
         "launches_compound": cm["wrapper"]["counts"]["launches"],
         "launches_body_options": sum(c["launches"] for c in rc),
+        "launches_hybrid": vh["launches"],
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -6964,6 +8006,7 @@ def main() -> int:
         .get("impact_launches", 0),
         "launches_compound": cm["wrapper"]["counts"]["impact_launches"],
         "launches_body_options": sum(c["impact_launches"] for c in rc),
+        "launches_hybrid": vh["impact_launches"],
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -7013,6 +8056,7 @@ def main() -> int:
         "device_bytes": compound["device_bytes"]}}), flush=True)
     print(json.dumps({"body_options": options}), flush=True)
     print(json.dumps({"longtail_aggs": longtail}), flush=True)
+    print(json.dumps({"vectors": vectors}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ The arguments are exactly what an opensearch_tpu Segment holds for its
 inverted fields (CSR postings with their positions, doc lengths, text
 stats and, on codec v2, each field's ImpactPlane arrays) and its doc
 values (each NumericColumn's kind, values and present mask, each
-KeywordColumn's vocab and ordinal arrays), so a segment built there (or a CSR corpus made from a seed, as
+KeywordColumn's vocab and ordinal arrays) and its dense vectors (each
+VectorColumn's values, present mask, similarity and method), so a
+segment built there (or a CSR corpus made from a seed, as
 `bench_corpus.py` does) carries across without re-indexing.
 """
 
@@ -16,7 +18,7 @@ import numpy as np
 
 from ..errors import NotPortedError
 from .segment import (CODEC_V2, ImpactPlane, KeywordColumn, NumericColumn,
-                      PostingsBlock, Segment, TextFieldStats,
+                      PostingsBlock, Segment, TextFieldStats, VectorColumn,
                       default_codec_version)
 
 IMPACT_FIELDS = ("q", "scale", "bits", "k1", "b", "avgdl", "dl_max",
@@ -37,6 +39,7 @@ def segment_from_arrays(name: str, ndocs: int,
                         impacts: Optional[Dict[str, dict]] = None,
                         numeric_cols: Optional[Dict[str, object]] = None,
                         keyword_cols: Optional[Dict[str, object]] = None,
+                        vector_cols: Optional[Dict[str, object]] = None,
                         device=None) -> Segment:
     """`postings[field]` = dict(vocab, starts, doc_ids, tfs) in CSR form
     (vocab sorted, docs ascending per row), with `pos_starts` and
@@ -54,7 +57,10 @@ def segment_from_arrays(name: str, ndocs: int,
     of its `kind`, `values` and `present`, taken as it is: kind "int"
     (exact i64) or "float" (f64). `keyword_cols[field]` = a reference
     segment's KeywordColumn, or a dict of its `vocab`, `starts`, `ords`,
-    `doc_of_value` and `min_ord`."""
+    `doc_of_value` and `min_ord`. `vector_cols[field]` = a reference
+    segment's VectorColumn, or a dict of its `values` (f32 [ndocs,
+    dims], taken without a copy where it is f32 already), `present`,
+    `similarity` and `method`; its IVF index is built on first use."""
     blocks = {}
     for field, p in postings.items():
         vocab = list(p["vocab"])
@@ -93,11 +99,19 @@ def segment_from_arrays(name: str, ndocs: int,
             np.asarray(get("ords"), np.int32),
             np.asarray(get("doc_of_value"), np.int32),
             np.asarray(get("min_ord"), np.int32))
+    vcols = {}
+    for field, col in (vector_cols or {}).items():
+        get = _getter(col)
+        vcols[field] = VectorColumn(
+            field, np.asarray(get("values"), np.float32),
+            np.asarray(get("present"), bool),
+            get("similarity") or "cosine", method=get("method"))
     seg = Segment(name, int(ndocs), blocks,
                   {f: np.asarray(v, np.int64) for f, v in doc_lens.items()},
                   {f: TextFieldStats(int(dc), int(sdl))
                    for f, (dc, sdl) in text_stats.items()},
-                  [], [], numeric_cols=cols, keyword_cols=kcols)
+                  [], [], numeric_cols=cols, keyword_cols=kcols,
+                  vector_cols=vcols)
     seg.ids = ids
     seg.sources = sources
     # a lazy id view is not enumerated: nothing in this slice looks ids up

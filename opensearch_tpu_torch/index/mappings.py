@@ -1,13 +1,19 @@
 """Field mappings and document parsing (the text, keyword, integer,
-long, date, boolean, double and float subset of
+long, date, boolean, double, float and dense vector subset of
 opensearch_tpu/index/mappings.py).
 
 Documents are parsed on the host into per-field term lists (text and
 keyword), the token positions of text fields, keyword doc values (the
-normalized values of keyword fields and subfields) and numeric doc
-values: integer, long, date (epoch millis) and boolean (0/1) as exact
-i64, double and float as f64. The device only ever sees term rows,
-positions, keyword ordinals and numeric columns. Explicit and dynamic
+normalized values of keyword fields and subfields), numeric doc
+values (integer, long, date (epoch millis) and boolean (0/1) as exact
+i64, double and float as f64) and dense vectors (`dense_vector` /
+`knn_vector`: a list is ONE vector, whose length must equal the mapped
+`dims`). The device only ever sees term rows, positions, keyword
+ordinals, numeric columns and vector matrices. A vector field's
+`similarity` / `space_type` is kept as given (`cosine`, `dot_product` /
+`innerproduct`; any other name scores as L2, as in the reference), and
+its `method` / `index_options` normalize to the reference's
+{"name": "ivf", "nlist", "nprobe"} or None (`flat`, `exact`: the scan). Explicit and dynamic
 fields are served with the reference's dynamic rules: strings map to text
 + a `.keyword` subfield with ignore_above 256, ISO-date strings to
 `date`, JSON integers to `long`, floats to `double` and booleans to
@@ -32,10 +38,14 @@ KEYWORD_TYPES = {"keyword"}
 INT_TYPES = {"integer", "long", "date", "boolean"}
 FLOAT_TYPES = {"double", "float"}
 NUMERIC_TYPES = INT_TYPES | FLOAT_TYPES
+VECTOR_TYPES = {"dense_vector", "knn_vector"}
 _INT_BITS = {"integer": 31, "long": 63}
 _FIELD_OPTIONS = {"type", "analyzer", "search_analyzer", "normalizer",
                   "index", "doc_values", "ignore_above", "norms", "fields",
                   "format"}
+# a vector field's own parameters (dims, similarity, ANN method)
+_VECTOR_OPTIONS = {"dims", "dimension", "similarity", "space_type",
+                   "method", "index_options"}
 _MAPPING_KEYS = {"properties", "dynamic", "_meta"}
 
 
@@ -52,6 +62,11 @@ class FieldType:
     doc_values: bool = True
     date_format: Optional[str] = None
     subfields: Dict[str, "FieldType"] = dc_field(default_factory=dict)
+    dims: int = 0                       # dense_vector dimension
+    vector_similarity: str = "cosine"   # cosine | dot_product | l2_norm
+    # ANN method: {"name": "ivf", "nlist": int|None, "nprobe": int|None},
+    # or None for the exact scan (the default)
+    vector_method: Optional[dict] = None
 
     @property
     def has_norms(self) -> bool:
@@ -75,6 +90,8 @@ class ParsedDocument:
     # values of an array field are 100 positions apart
     positions: Dict[str, List[Tuple[str, int]]] = dc_field(
         default_factory=dict)
+    # vector field -> its one vector
+    vectors: Dict[str, List[float]] = dc_field(default_factory=dict)
 
 
 def _parse_date(value: Any, fmt: Optional[str]) -> int:
@@ -132,6 +149,26 @@ def coerce_value(ft: "FieldType", value: Any):
     return iv
 
 
+def _vector_method(path: str, cfg: dict) -> Optional[dict]:
+    """A vector field's `method` / `index_options` as the reference
+    normalizes it: {"name": "ivf", "nlist", "nprobe"} (from `parameters`
+    or the method itself), None for `flat` / `exact` or no method; any
+    other name is its ValueError."""
+    method = cfg.get("method") or cfg.get("index_options")
+    if not method:
+        return None
+    name = method.get("name", method.get("type", "ivf"))
+    if name not in ("ivf", "flat", "exact"):
+        raise ValueError(f"unknown ANN method [{name}] for field [{path}] "
+                         f"(supported: ivf, flat)")
+    if name != "ivf":
+        return None
+    p = method.get("parameters", method)
+    return {"name": "ivf",
+            "nlist": int(p["nlist"]) if p.get("nlist") else None,
+            "nprobe": int(p["nprobe"]) if p.get("nprobe") else None}
+
+
 class Mappings:
     """Per-index mappings with dynamic mapping for strings."""
 
@@ -164,10 +201,13 @@ class Mappings:
             self.fields[path] = self._build_field(path, ftype, cfg)
 
     def _build_field(self, path: str, ftype: str, cfg: dict) -> FieldType:
-        if ftype not in TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES:
+        if ftype not in TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES \
+                | VECTOR_TYPES:
             raise NotPortedError(f"field type [{ftype}] (field [{path}])")
+        allowed = _FIELD_OPTIONS | (_VECTOR_OPTIONS if ftype in VECTOR_TYPES
+                                    else set())
         for key in cfg:
-            if key not in _FIELD_OPTIONS:
+            if key not in allowed:
                 raise NotPortedError(f"field parameter [{key}] (field [{path}])")
         ft = FieldType(
             name=path, type=ftype,
@@ -178,7 +218,12 @@ class Mappings:
             ignore_above=cfg.get("ignore_above"),
             norms=cfg.get("norms", True),
             doc_values=cfg.get("doc_values", True),
-            date_format=cfg.get("format"))
+            date_format=cfg.get("format"),
+            dims=int(cfg.get("dims", cfg.get("dimension", 0))),
+            vector_similarity=cfg.get("similarity",
+                                      cfg.get("space_type", "cosine")))
+        if ftype in VECTOR_TYPES:
+            ft.vector_method = _vector_method(path, cfg)
         for sub, subcfg in cfg.get("fields", {}).items():
             ft.subfields[sub] = self._build_field(
                 f"{path}.{sub}", subcfg.get("type", "keyword"), subcfg)
@@ -295,6 +340,8 @@ class Mappings:
 
     def _index_value(self, ft: FieldType, value: Any,
                      parsed: ParsedDocument) -> None:
+        if ft.type in VECTOR_TYPES and isinstance(value, list):
+            value = [value]     # the whole list is ONE vector value
         values = value if isinstance(value, list) else [value]
         for v in values:
             if v is not None:
@@ -316,6 +363,14 @@ class Mappings:
             return
         if ft.type in NUMERIC_TYPES:
             parsed.numerics.setdefault(name, []).append(coerce_value(ft, v))
+            return
+        if ft.type in VECTOR_TYPES:
+            vec = [float(x) for x in (v if isinstance(v, list) else [v])]
+            if ft.dims and len(vec) != ft.dims:
+                raise ValueError(
+                    f"vector length [{len(vec)}] differs from mapped dims "
+                    f"[{ft.dims}] for field [{name}]")
+            parsed.vectors[name] = vec
             return
         s = str(v)      # keyword
         if ft.ignore_above is not None and len(s) > ft.ignore_above:

@@ -6,7 +6,10 @@ live docs in input order, as the reference does, so the merged internal
 ids equal the reference's (with its BP doc-id reorder off: the port keeps
 concatenation order, its tie key). Numeric columns keep their kind;
 keyword columns merge over the union of their vocabs with ordinals
-remapped and deleted docs' values dropped. Postings (text and keyword rows) merge
+remapped and deleted docs' values dropped; vector columns keep their
+similarity and method, their rows copied in blocks of VECTOR_CHUNK_ROWS
+(no second full copy of a column stands beside the merged one), and the
+merged column builds its IVF index on first use. Postings (text and keyword rows) merge
 as one sort of (union row, new doc) triples: on the engine's device at
 DEVICE_MERGE_MIN postings and above (`ops/device_merge.merge_sorted_runs`),
 else `np.lexsort`; a positional field's position runs follow their
@@ -31,19 +34,20 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..errors import NotPortedError
 from ..ops import device_merge
-from .segment import (CODEC_V2, KeywordColumn, NumericColumn,
-                      PostingsBlock, Segment, TextFieldStats,
-                      default_codec_version)
+from .segment import (CODEC_V2, VECTOR_CHUNK_ROWS, KeywordColumn,
+                      NumericColumn, PostingsBlock, Segment, TextFieldStats,
+                      VectorColumn, default_codec_version)
 
 # planes of a reference segment that no port segment carries
-_UNPORTED_PLANES = ("geo_cols", "vector_cols", "shape_cols", "nested",
-                    "term_vectors", "stored_vals")
+_UNPORTED_PLANES = ("geo_cols", "shape_cols", "nested", "term_vectors",
+                    "stored_vals")
 
 # the reference's reorder threshold (index/reorder.py)
 REORDER_MIN_DOCS = 1 << 15
@@ -51,8 +55,9 @@ REORDER_MIN_DOCS = 1 << 15
 # wall seconds of the last merge by step: host_concat_s (doc maps, row
 # remap, concatenation, CSR slicing and the other planes), sort_s (the
 # (row, doc) sort, merge_sorted_runs on the device or np.lexsort),
-# positions_s (the positions' gather and regather, on the host) and
-# quantize_s (the impact planes' rebuild)
+# positions_s (the positions' gather and regather, on the host),
+# quantize_s (the impact planes' rebuild) and vectors_s (the vector
+# columns' copy)
 LAST_MERGE: Dict[str, float] = {}
 
 
@@ -288,6 +293,40 @@ def _merge_keywords(field: str, segments, dmaps,
                          docs.astype(np.int32), min_ord)
 
 
+def _merge_vectors(field: str, segments, live_masks, dmaps,
+                   ndocs: int) -> VectorColumn:
+    """One vector column over the merged doc ids: the first input's
+    similarity and method, the live rows copied block by block, the
+    blocks on a few threads (numpy releases the interpreter lock for
+    the copies, and a fresh column's first writes fault its pages in). A
+    block's live docs take consecutive new ids (`doc_maps`), so each
+    block lands in one slice of the merged rows."""
+    first = next(s.vector_cols[field] for s in segments
+                 if field in s.vector_cols)
+    values = np.zeros((ndocs, first.dims), np.float32)
+    present = np.zeros(ndocs, bool)
+    step = VECTOR_CHUNK_ROWS // 4
+
+    def copy(job):
+        col, m, dmap, a = job
+        mm = m[a:a + step]
+        to = dmap[a:a + step][mm]
+        if len(to):
+            rows = slice(int(to[0]), int(to[0]) + len(to))
+            # mode "clip" writes straight into `out` (the default mode
+            # buffers it: a block's copy more on each thread)
+            np.take(col.values[a:a + step], np.flatnonzero(mm), axis=0,
+                    out=values[rows], mode="clip")
+            present[rows] = col.present[a:a + step][mm]
+    jobs = [(s.vector_cols[field], m, dmap, a)
+            for s, m, dmap in zip(segments, live_masks, dmaps)
+            if field in s.vector_cols for a in range(0, s.ndocs, step)]
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(copy, jobs))
+    return VectorColumn(field, values, present, first.similarity,
+                        method=first.method)
+
+
 def merge_segments(name: str, segments: List[Segment],
                    device=None) -> Segment:
     """Compacting multiway merge of N segments into one; large postings
@@ -348,7 +387,15 @@ def merge_segments(name: str, segments: List[Segment],
     t1 = time.perf_counter()
     if default_codec_version() >= CODEC_V2:
         merged.build_impacts(device=device)
+    t2 = time.perf_counter()
+    # last, when the postings' and the quantizer's temporaries are gone:
+    # a column may be as large as every other plane together
+    merged.vector_cols = {f: _merge_vectors(f, segments, live_masks, dmaps,
+                                            ndocs)
+                          for f in sorted({f for s in segments
+                                           for f in s.vector_cols})}
     LAST_MERGE.clear()
     LAST_MERGE.update(host_concat_s=t_host, sort_s=t_sort,
-                      positions_s=t_pos, quantize_s=time.perf_counter() - t1)
+                      positions_s=t_pos, quantize_s=t2 - t1,
+                      vectors_s=time.perf_counter() - t2)
     return merged

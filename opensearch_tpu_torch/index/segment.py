@@ -31,6 +31,15 @@ sidecar. The quantizer runs as torch ops on the engine's device for large
 planes (`ops/device_merge.py`) and in numpy below DEVICE_IMPACT_MIN
 postings, as the reference does. Feature planes (rank_features) are not
 ported.
+
+`vector_cols` holds each dense vector field's `VectorColumn`: f32
+[ndocs, dims] values, a `present` mask, the similarity and the ANN
+method, built at refresh. Its device arrays (`vector_on`) are the
+scored matrix (unit-normed on the device for cosine, unpadded: zero
+columns add nothing to a dot product), `present` and, for L2, each
+row's squared norm; its balanced IVF index is built lazily from that
+matrix on first use (`ivf_on`, `ops/ann.py`) and kept on the column's
+host side, so a twin of the segment on another device reuses it.
 """
 
 from __future__ import annotations
@@ -198,6 +207,12 @@ def _impact_sidecar(pb: "PostingsBlock", q: np.ndarray):
     return block_starts, block_off, block_max
 
 
+# rows of a vector matrix moved to a device (or merged) per step
+VECTOR_CHUNK_ROWS = 1 << 20
+# the similarities whose score reads the raw dot product alone
+COSINE_DOT = ("cosine", "dot_product", "innerproduct")
+
+
 def next_pow2(n: int, floor: int = 16) -> int:
     n = max(int(n), floor)
     return 1 << (n - 1).bit_length()
@@ -293,6 +308,25 @@ class KeywordColumn:
 
 
 @dataclass
+class VectorColumn:
+    """Dense vectors of one field for kNN search: `values[d]` is doc d's
+    vector (zeros where `present[d]` is false). `method` is the mapping's
+    ANN method ({"name": "ivf", "nlist", "nprobe"}) or None (the exact
+    scan only); `ivf` is its IvfIndex once built, None before."""
+
+    field: str
+    values: np.ndarray        # f32[ndocs, dims]
+    present: np.ndarray       # bool[ndocs]
+    similarity: str = "cosine"
+    method: Optional[dict] = None
+    ivf: object = None
+
+    @property
+    def dims(self) -> int:
+        return int(self.values.shape[1])
+
+
+@dataclass
 class TextFieldStats:
     doc_count: int = 0        # docs containing this field
     sum_dl: int = 0           # total tokens across docs
@@ -310,7 +344,8 @@ class Segment:
                  ids, sources, seq_nos: Optional[np.ndarray] = None,
                  codec_version: int = CODEC_V1,
                  numeric_cols: Optional[Dict[str, NumericColumn]] = None,
-                 keyword_cols: Optional[Dict[str, KeywordColumn]] = None):
+                 keyword_cols: Optional[Dict[str, KeywordColumn]] = None,
+                 vector_cols: Optional[Dict[str, VectorColumn]] = None):
         Segment._seq += 1
         self.uid = Segment._seq
         self.name = name
@@ -320,6 +355,7 @@ class Segment:
         self.text_stats = text_stats
         self.numeric_cols = numeric_cols or {}
         self.keyword_cols = keyword_cols or {}
+        self.vector_cols = vector_cols or {}
         self.ids = ids
         self.sources = sources
         self.seq_nos = (seq_nos if seq_nos is not None
@@ -493,11 +529,74 @@ class Segment:
                     torch.from_numpy(pb.tfs).to(device), imp)
         return self.device_cached(("csr", field), device, make)
 
+    def vector_on(self, field: str, device) -> Optional[dict]:
+        """{"mat": f32[ndocs, dims], "present": bool[ndocs], "sq":
+        f32[ndocs] or None} of a vector column on `device`, or None
+        without the column: the scored matrix (each row divided by
+        max(its norm, 1e-12) for cosine, the values as they are
+        otherwise) and, for L2, each row's squared norm. The matrix is
+        filled chunk by chunk, so a copy of the values never stands
+        beside it on the device (on the CPU, a non-cosine matrix is the
+        host array itself)."""
+        col = self.vector_cols.get(field)
+        if col is None:
+            return None
+
+        def make():
+            vals = col.values
+            dev = torch.device(device)
+            if col.similarity != "cosine" and dev.type == "cpu":
+                mat = torch.from_numpy(vals)
+            else:
+                mat = torch.empty(vals.shape, dtype=torch.float32,
+                                  device=dev)
+                step = VECTOR_CHUNK_ROWS
+                for a in range(0, len(vals), step):
+                    part = torch.from_numpy(vals[a:a + step]).to(dev)
+                    if col.similarity == "cosine":
+                        torch.div(part, torch.linalg.vector_norm(
+                            part, dim=1, keepdim=True).clamp_min(1e-12),
+                            out=mat[a:a + step])
+                    else:
+                        mat[a:a + step] = part
+            sq = None
+            if col.similarity not in COSINE_DOT:
+                sq = torch.cat([(mat[a:a + VECTOR_CHUNK_ROWS] ** 2).sum(1)
+                                for a in range(0, len(vals),
+                                               VECTOR_CHUNK_ROWS)])
+            return {"mat": mat, "sq": sq,
+                    "present": torch.from_numpy(col.present).to(dev)}
+        return self.device_cached(("vector", field), device, make)
+
+    def ivf_on(self, field: str, device):
+        """The balanced IVF index of a vector column whose mapping asked
+        for one, as (IvfIndex, centroids f32[nlist, dims], lists
+        i64[nlist, cap]) on `device`; None without one (no column, no
+        IVF method, no present vector). Built on first use from the
+        scored matrix on `device` and kept on the column."""
+        col = self.vector_cols.get(field)
+        if col is None or not col.method or col.method.get("name") != "ivf":
+            return None
+        if col.ivf is None:
+            from ..ops.ann import build_ivf
+            arr = self.vector_on(field, device)
+            col.ivf = build_ivf(arr["mat"], col.present,
+                                nlist=col.method.get("nlist"),
+                                nprobe=col.method.get("nprobe"))
+            if col.ivf is None:
+                return None
+        ivf = col.ivf
+        return self.device_cached(("ivf", field), device, lambda: (
+            ivf, torch.from_numpy(ivf.centroids).to(device),
+            torch.from_numpy(ivf.lists.astype(np.int64)).to(device)))
+
     def device_nbytes(self, device) -> int:
         """Bytes of the general path's device arrays on `device`."""
         n = 0
         for k, v in self.device_arrays.items():
             if k[-1] == str(device):
+                if isinstance(v, dict):
+                    v = tuple(v.values())
                 for t in (v if isinstance(v, tuple) else (v,)):
                     if isinstance(t, torch.Tensor):
                         n += t.numel() * t.element_size()
@@ -507,8 +606,9 @@ class Segment:
         """Drop the search layer's state now (aligned postings, heads,
         filtered views, quality tiers, filter masks and lists, the general
         path's arrays, the phrase pairs on the host and the device, the
-        aggregations' date buckets and keyword hashes), not at garbage
-        collection: a merge calls it on the segments it replaces."""
+        aggregations' date buckets and keyword hashes, the vector
+        matrices and IVF lists), not at garbage collection: a merge calls
+        it on the segments it replaces."""
         self.aligned = {}
         self.device_arrays = {}
         for k in ("filter_lists", "phrase_pairs", "date_buckets",
@@ -539,8 +639,10 @@ class Segment:
         """Write the segment under `path` in the reference's layout
         (arrays.npz, meta.json, vocab files, stored.jsonl): live mask,
         seq_nos, codec, postings, impact planes and their sidecars,
-        numeric and keyword columns, doc lengths and text stats, so that
-        `load` serves bit-equal pages without re-quantizing."""
+        numeric and keyword columns, vector columns (values, present,
+        similarity and method; the IVF index is rebuilt on first use, as
+        the reference's), doc lengths and text stats, so that `load`
+        serves bit-equal pages without re-quantizing."""
         os.makedirs(path, exist_ok=True)
         arrays: Dict[str, np.ndarray] = {"live": self.live,
                                          "seq_nos": self.seq_nos}
@@ -586,6 +688,11 @@ class Segment:
             with open(os.path.join(path, f"kwvocab__{_fname(f)}.txt"),
                       "w") as fh:
                 fh.write("\n".join(col.vocab))
+        for f, col in self.vector_cols.items():
+            arrays[f"vec__{f}__values"] = col.values
+            arrays[f"vec__{f}__present"] = col.present
+            meta.setdefault("vector", {})[f] = {
+                "similarity": col.similarity, "method": col.method}
         for f, dl in self.doc_lens.items():
             arrays[f"dl__{f}"] = dl
         np.savez(os.path.join(path, "arrays.npz"), **arrays)
@@ -599,12 +706,10 @@ class Segment:
     @classmethod
     def load(cls, path: str) -> "Segment":
         """A segment written by `save` (or by the reference's). Planes the
-        port does not have (geo, vectors, shapes, nested) raise
-        NotPortedError."""
+        port does not have (geo, shapes, nested) raise NotPortedError."""
         with open(os.path.join(path, "meta.json")) as fh:
             meta = json.load(fh)
-        if meta.get("geo") or meta.get("vector") \
-                or meta.get("shape") or meta.get("nested"):
+        if meta.get("geo") or meta.get("shape") or meta.get("nested"):
             raise NotPortedError("loading a segment with planes the port "
                                  "does not have")
         arrays = np.load(os.path.join(path, "arrays.npz"),
@@ -651,6 +756,11 @@ class Segment:
                 f, content.split("\n") if content else [],
                 arrays[f"kw__{f}__starts"], arrays[f"kw__{f}__ords"],
                 arrays[f"kw__{f}__docs"], arrays[f"kw__{f}__min_ord"])
+        vectors = {f: VectorColumn(f, arrays[f"vec__{f}__values"],
+                                   arrays[f"vec__{f}__present"],
+                                   m.get("similarity", "cosine"),
+                                   method=m.get("method"))
+                   for f, m in meta.get("vector", {}).items()}
         doc_lens = {k[len("dl__"):]: arrays[k] for k in arrays.files
                     if k.startswith("dl__")}
         seg = cls(meta["name"], meta["ndocs"], postings, doc_lens,
@@ -658,7 +768,8 @@ class Segment:
                    for f, (dc, sd) in meta["text_stats"].items()},
                   ids, sources, seq_nos=arrays["seq_nos"],
                   codec_version=int(meta.get("codec", CODEC_V1)),
-                  numeric_cols=numeric, keyword_cols=keyword)
+                  numeric_cols=numeric, keyword_cols=keyword,
+                  vector_cols=vectors)
         seg.live = arrays["live"].copy()
         seg.id2doc = {d: i for i, d in enumerate(ids) if seg.live[i]}
         return seg
@@ -778,11 +889,28 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
     keyword_cols = {f: _keyword_column(f, parsed_docs)
                     for f in sorted({f for pd in parsed_docs
                                      for f in pd.keywords})}
+    vector_cols: Dict[str, VectorColumn] = {}
+    for fname in sorted({f for pd in parsed_docs for f in pd.vectors}):
+        ft = mappings.resolve_field(fname)
+        dims = next(len(pd.vectors[fname]) for pd in parsed_docs
+                    if fname in pd.vectors)
+        values = np.zeros((ndocs, dims), np.float32)
+        present = np.zeros(ndocs, bool)
+        for doc_i, pd in enumerate(parsed_docs):
+            vec = pd.vectors.get(fname)
+            if vec is not None:
+                values[doc_i] = vec
+                present[doc_i] = True
+        vector_cols[fname] = VectorColumn(
+            fname, values, present,
+            ft.vector_similarity if ft is not None else "cosine",
+            method=ft.vector_method if ft is not None else None)
     seq = np.asarray(seq_nos, dtype=np.int64) if seq_nos is not None else None
     seg = Segment(name, ndocs, pack_postings(parsed_docs),
                   doc_lens, text_stats, [d.doc_id for d in parsed_docs],
                   [d.source for d in parsed_docs], seq_nos=seq,
-                  numeric_cols=numeric_cols, keyword_cols=keyword_cols)
+                  numeric_cols=numeric_cols, keyword_cols=keyword_cols,
+                  vector_cols=vector_cols)
     if default_codec_version() >= CODEC_V2:
         seg.build_impacts(device=device)
     return seg

@@ -10,7 +10,8 @@ keys), `search_after`, `track_scores`, `min_score`, `collapse` (with
 excludes), `docvalue_fields`, `fields`, `stored_fields`, `highlight`,
 `rescore` (a rescorer or a list of them), `explain` (true: a per-hit
 `_explanation`), `terminate_after`, `timeout`,
-`allow_partial_search_results` and `profile`. `explain: "device_plan"`,
+`allow_partial_search_results`, `profile` and `knn` (the top-level kNN
+section, `executor.compose_knn_query`). `explain: "device_plan"`,
 any other key, and a `_geo_distance`, `_script` or `nested` sort, raises
 `NotPortedError` naming it.
 """
@@ -30,7 +31,7 @@ BODY_KEYS = {"query", "size", "from", "track_total_hits", "_source", "aggs",
              "min_score", "collapse", "highlight", "docvalue_fields",
              "fields", "stored_fields", "rescore", "explain",
              "terminate_after", "timeout", "allow_partial_search_results",
-             "profile"}
+             "profile", "knn"}
 
 
 def norm_sort_specs(body: dict) -> List[dict]:
@@ -174,14 +175,15 @@ def combine_rescore(mode: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def rungs_eligible(body: dict) -> bool:
     """The body options the fused kernels and the impact rung serve (the
     reference's `_body_eligible` beside its window check): no sort or a
-    lone `_score` descending one, no cursor, no collapse; and, in the
-    port, no `min_score` either, which the general path applies."""
+    lone `_score` descending one, no cursor, no collapse, no top-level
+    `knn` section; and, in the port, no `min_score` either, which the
+    general path applies."""
     specs = norm_sort_specs(body)
     if specs and not (len(specs) == 1 and specs[0]["field"] == "_score"
                       and specs[0].get("order", "desc") == "desc"):
         return False
     return (body.get("search_after") is None and not body.get("collapse")
-            and body.get("min_score") is None)
+            and body.get("min_score") is None and not body.get("knn"))
 
 
 @dataclass

@@ -35,7 +35,12 @@ context), `terms_set` with a minimum field `LTermsSet`, `pinned`
 here), and a `multi_match` one child per field: an `LDisMax` of them for
 `best_fields`, `phrase` and `phrase_prefix`, else an `LBool` of shoulds
 (so `cross_fields` and `bool_prefix` serve `most_fields`' page, as in
-the reference). A clause's `_name` goes onto its node. Any other query
+the reference). A `knn` query becomes `LKnn` (its vector unit-normed in
+f32 numpy for a cosine field, its filter rewritten in filter context);
+its `k` is not read, so it matches every live doc with a vector (a probe:
+every such doc in the probed lists), as in the reference. A `hybrid`
+query reaching the rewrite is nested inside another query: the
+reference's 400. A clause's `_name` goes onto its node. Any other query
 or field kind raises `NotPortedError`.
 
 The general path (`emit`, `run_segment`) evaluates a plan as torch ops on
@@ -43,7 +48,9 @@ the engine's device: every node becomes dense per-doc (scores, match
 count) arrays (`ops/scoring.ScoredMask`), filter and must_not clauses
 come from the cached masks of `search/filters.py`, a phrase is the pair
 join of `ops/positions.py` over pair keys cached per segment and device,
-and a masked top-k closes it. It serves every shape the fused kernels
+a kNN node the exact scan or the IVF probe of `ops/knn.py` over the
+segment's vector matrix (`Segment.vector_on`, `Segment.ivf_on`), and a
+masked top-k closes it. It serves every shape the fused kernels
 and the impact rung decline.
 """
 
@@ -66,6 +73,7 @@ from ..index.mappings import (FLOAT_TYPES, KEYWORD_TYPES, NUMERIC_TYPES,
 from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
 from ..ops import aggs as agg_ops
+from ..ops import knn as knn_ops
 from ..ops import positions as pos_ops
 from ..ops import scoring as ops
 from .aggregations import AUTO_LADDER, PIPELINE_KINDS, STATS_FAMILY
@@ -274,6 +282,22 @@ class LCombined(LNode):
     idf: Optional[np.ndarray] = None
 
 
+@dataclass
+class LKnn(LNode):
+    """kNN over a vector field: `vector` is f32 (unit-normed for cosine);
+    `nprobe` None takes the IVF index's default, `exact` forces the scan
+    on a field with an IVF method."""
+
+    field: str = ""
+    vector: Optional[np.ndarray] = None
+    k: int = 10
+    filter: Optional[LNode] = None
+    similarity: str = "cosine"
+    boost: float = 1.0
+    nprobe: Optional[int] = None
+    exact: bool = False
+
+
 def _numeric_eq_node(ft, value: Any, boost: float) -> LRange:
     cv = coerce_value(ft, value)
     return LRange(field=ft.name, kind=_range_kind(ft), lo=cv, hi=cv,
@@ -298,6 +322,10 @@ def _field_boost(spec: str) -> Tuple[str, float]:
 
 
 def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
+    if isinstance(q, dsl.HybridQuery):
+        raise dsl.QueryParseError(
+            "[hybrid] must be the top-level query — sub-queries fuse at "
+            "the coordinator merge and cannot nest inside other queries")
     if isinstance(q, dsl.MatchAllQuery):
         return LMatchAll(boost=q.boost)
     if isinstance(q, dsl.MatchNoneQuery):
@@ -555,6 +583,18 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
                                                      ctx.device),
                             boost=q.boost)
 
+    if isinstance(q, dsl.KnnQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        sim = ft.vector_similarity if ft is not None else "cosine"
+        vec = np.asarray(q.vector, np.float32)
+        if sim == "cosine":
+            vec = vec / max(float(np.linalg.norm(vec)), 1e-12)
+        return LKnn(field=q.field, vector=vec, k=q.k,
+                    filter=rewrite(q.filter, ctx, False) if q.filter
+                    else None,
+                    similarity=sim, boost=q.boost, nprobe=q.nprobe,
+                    exact=q.exact)
+
     raise NotPortedError(f"query [{type(q).__name__}]")
 
 
@@ -598,9 +638,12 @@ def can_match(node: LNode, seg: Segment) -> bool:
     if isinstance(node, LExists):
         f = node.field
         return (f in seg.postings or f in seg.numeric_cols
-                or f in seg.keyword_cols or f in seg.doc_lens)
+                or f in seg.keyword_cols or f in seg.vector_cols
+                or f in seg.doc_lens)
     if isinstance(node, LIds):
         return any(seg.local_doc(i) >= 0 for i in node.ids)
+    if isinstance(node, LKnn):
+        return node.field in seg.vector_cols
     return True
 
 
@@ -1175,7 +1218,54 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
         ok = (counts >= _f32(node.msm)) & live
         return ops.ScoredMask(torch.where(ok, scores, zeros),
                               ok.to(torch.float32))
+    if isinstance(node, LKnn):
+        score, matched = knn_scores(node, seg, device)
+        matched = matched & live
+        if node.filter is not None:
+            matched = matched & filters.filter_mask(node.filter, seg, ctx,
+                                                    device)
+        score = torch.where(matched, score * _f32(node.boost), zeros)
+        return ops.ScoredMask(score, matched.to(torch.float32))
     raise NotPortedError(f"plan [{type(node).__name__}] on the general path")
+
+
+def knn_nprobe(node: LKnn, seg: Segment, device) -> Optional[tuple]:
+    """(device IVF arrays, nprobe) where the node takes the probe: the
+    mapping asked for IVF, the query did not force the scan and the
+    segment has an index (built here on first use); its nprobe clamped
+    to the segment's nlist. None: the exact scan."""
+    if node.exact:
+        return None
+    got = seg.ivf_on(node.field, device)
+    if got is None:
+        return None
+    ivf = got[0]
+    return got, int(min(node.nprobe or ivf.default_nprobe, ivf.nlist))
+
+
+def knn_scores(node: LKnn, seg: Segment, device) -> tuple:
+    """(scores f32[ndocs], matched bool[ndocs]) of a kNN node before the
+    live mask, its filter and its boost: every present row on the scan,
+    the probed lists' rows on the IVF route; zeros without the column.
+    A query vector longer than the field's dims is cut, as the
+    reference slices it, and a shorter one is numpy's broadcast
+    ValueError, as there; |q|^2 is the whole vector's."""
+    arr = seg.vector_on(node.field, device)
+    if arr is None:
+        z = torch.zeros(seg.ndocs, dtype=torch.float32, device=device)
+        return z, z > 0
+    dims = seg.vector_cols[node.field].dims
+    qv = np.zeros(dims, np.float32)
+    qv[:dims] = node.vector[:dims]
+    q = torch.from_numpy(qv).to(device)
+    qsq = float(np.float32(np.dot(node.vector, node.vector)))
+    probe = knn_nprobe(node, seg, device)
+    if probe is None:
+        return knn_ops.exact_scan(arr, q, qsq, node.similarity)
+    (_ivf, cents, lists), nprobe = probe
+    score, hit = knn_ops.ivf_probe(arr, cents, lists, q, qsq,
+                                   node.similarity, nprobe)
+    return score, hit & arr["present"]
 
 
 def terms_set_need(node: LTermsSet, seg: Segment,

@@ -161,7 +161,7 @@ class ShardSearcher:
         order = B.Order.of(body, window)
         aggs = A.parse_aggs(body.get("aggs", body.get("aggregations")))
         A.check_ported(aggs)
-        lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
+        lroot = C.rewrite(compose_knn_query(body), ctx)
         named = collect_named(lroot)
         rescores = []
         for r in B.rescorers(body):
@@ -1333,11 +1333,43 @@ def apply_deferred_tree(node: A.AggNode, result) -> None:
     A.apply_pipelines_tree(node, result)
 
 
+def compose_knn_query(body: dict) -> dsl.Query:
+    """The body's query with its top-level `knn` section ({"field",
+    "query_vector" (or "vector"), "k", "filter", "boost", "nprobe" or
+    "method_parameters.nprobe", "exact"}) folded in: the kNN query alone,
+    or a bool `should` of the query and it (msm 1), as the reference's
+    `compose_knn_query`."""
+    query = (dsl.parse_query(body.get("query"))
+             if body.get("query") or "knn" not in body else None)
+    spec = body.get("knn")
+    if spec is not None:
+        nprobe = spec.get("method_parameters", {}).get(
+            "nprobe", spec.get("nprobe"))
+        kq = dsl.KnnQuery(field=spec["field"],
+                          vector=list(spec.get("query_vector",
+                                               spec.get("vector", []))),
+                          k=int(spec.get("k", 10)),
+                          filter=(dsl.parse_query(spec["filter"])
+                                  if spec.get("filter") else None),
+                          boost=float(spec.get("boost", 1.0)),
+                          nprobe=int(nprobe) if nprobe is not None else None,
+                          exact=bool(spec.get("exact", False)))
+        query = (dsl.BoolQuery(should=[query, kq], minimum_should_match="1")
+                 if query is not None else kq)
+    return query
+
+
 def search_shards(searchers: List[ShardSearcher], body: dict,
                   index_name: str = "") -> dict:
     """Full query-then-fetch across shards -> OpenSearch-shaped response.
     Without an ambient deadline (the REST call installs one at accept),
-    the body's `timeout` starts one here, for this search alone."""
+    the body's `timeout` starts one here, for this search alone. A
+    `hybrid` body runs each sub-query as a search of its own through this
+    same entry and fuses their pages (`search/fusion.py`)."""
+    from . import fusion
+    if fusion.is_hybrid_body(body):
+        return fusion.run_hybrid(
+            body, lambda sub: search_shards(searchers, sub, index_name))
     t0 = time.monotonic()
     dl_token = None
     if DL.current() is None:
@@ -1383,11 +1415,13 @@ def search_snapshot(searchers: List[ShardSearcher],
 
 def batch_eligible(body: dict) -> bool:
     """Bodies an msearch batch may serve (the reference's gate): not a
-    rescore, a profile or an explain, which its single search serves;
-    and, as its batched knn route, not a `terminate_after` or a live
-    `timeout`, which need the per-segment loop and its deadline."""
+    rescore, a profile, an explain or a hybrid body, which its single
+    search serves; and, as its batched knn route, not a `terminate_after`
+    or a live `timeout`, which need the per-segment loop and its
+    deadline."""
+    from . import fusion
     if body.get("rescore") or body.get("profile") or body.get("explain") \
-            or body.get("terminate_after"):
+            or body.get("terminate_after") or fusion.is_hybrid_body(body):
         return False
     try:
         return DL.parse_timeout_s(body.get("timeout")) is None

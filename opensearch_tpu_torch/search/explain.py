@@ -10,8 +10,8 @@ phrase its sloppy frequency's; bool sums its must and should clauses
 times its boost, dis_max takes the best plus the tie breaker times the
 rest, constant_score, range, match_all and exists give their boost where
 they match. Every other node the port serves (boosting, terms_set,
-pinned, combined_fields, ids, match_none, the term expansions) gets the
-reference's fallback: 0.0 described by its class name. The reference's
+pinned, combined_fields, ids, match_none, the term expansions, kNN) gets
+the reference's fallback: 0.0 described by its class name. The reference's
 nested, join and host-span branches have no node to walk here: the
 port's rewrite raises NotPortedError for those queries before a search
 reaches the fetch.

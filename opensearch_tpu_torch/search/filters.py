@@ -20,7 +20,9 @@ Served nodes:
 - `LDisMax`: any child's docs; `LBoosting`: its positive side's;
   `LTermsSet`: docs holding at least their own minimum of the terms;
   `LPinned`: the pinned docs and the organic mask; `LCombined`: docs
-  holding at least `msm` of the terms over the weighted fields.
+  holding at least `msm` of the terms over the weighted fields;
+- `LKnn`: the docs with a vector (on the IVF route, those in the probed
+  lists) that its own filter matches.
 Any other node raises `NotPortedError`. A mask ignores deletes: every
 consumer ANDs the segment's live mask itself (the general path starts
 each bool from it; the fast path serves no segment with deletes), so a
@@ -35,7 +37,8 @@ slop and cost mode, an expansion's its rows; a compound node's key holds
 what its mask reads (a dis_max's children, a boosting's positive side,
 a terms_set's minimum field and term group, a pinned query's docs and
 organic clause, a combined_fields query's weighted fields, rows and
-msm).
+msm, a kNN node's field, its filter and, on the IVF route, its vector
+and nprobe).
 """
 
 from __future__ import annotations
@@ -119,6 +122,13 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
         return ("combined", tuple((f, float(np.float32(w)))
                                   for f, w in node.fields), rows,
                 float(np.float32(node.msm)))
+    if isinstance(node, C.LKnn):
+        probe = C.knn_nprobe(node, seg, ctx.device)
+        route = (None if probe is None else
+                 (np.asarray(node.vector, np.float32).tobytes(), probe[1]))
+        return ("knn", node.field, route,
+                None if node.filter is None
+                else mask_key(node.filter, seg, ctx))
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 
@@ -198,6 +208,16 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
     if isinstance(node, C.LCombined):
         return (C.combined_counts(node, seg, device)
                 >= float(np.float32(node.msm)))
+    if isinstance(node, C.LKnn):
+        arr = seg.vector_on(node.field, device)
+        if arr is None:
+            return torch.zeros(nd, dtype=torch.bool, device=device)
+        # the scan matches every present row: no product is needed
+        m = (arr["present"] if C.knn_nprobe(node, seg, device) is None
+             else C.knn_scores(node, seg, device)[1])
+        if node.filter is not None:
+            m = m & filter_mask(node.filter, seg, ctx, device)
+        return m
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 

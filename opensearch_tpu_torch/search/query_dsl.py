@@ -2,11 +2,14 @@
 match_none, term, terms, terms_set, match, multi_match, combined_fields,
 match_bool_prefix, match_phrase, match_phrase_prefix, span_term,
 span_near, intervals, bool, constant_score, boosting, dis_max, pinned,
-wrapper, range, exists, ids, prefix, wildcard, regexp and fuzzy subset of
-opensearch_tpu/search/query_dsl.py). A body without a query is
-`match_all`. A clause's `_name` is kept for `matched_queries`; a
+wrapper, range, exists, ids, prefix, wildcard, regexp, fuzzy, knn and
+hybrid subset of opensearch_tpu/search/query_dsl.py). A body without a
+query is `match_all`. A clause's `_name` is kept for `matched_queries`; a
 `wrapper` is its base64 JSON query, parsed again (its own `boost` and
-`_name` unread, as in the reference).
+`_name` unread, as in the reference). A `hybrid` query keeps its
+sub-queries as raw dicts (each is parsed here to surface a malformed one
+as a 400, then served as its own search, `search/fusion.py`), with its
+fusion spec validated by `parse_fusion_spec`.
 
 Another kind the reference parses raises `NotPortedError` naming it; a
 kind it does not know, and malformed bodies, raise `QueryParseError`
@@ -18,7 +21,7 @@ from __future__ import annotations
 import base64
 import json
 from dataclasses import dataclass, field as dc_field
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..errors import NotPortedError
 
@@ -230,6 +233,27 @@ class MatchBoolPrefixQuery(Query):
 @dataclass
 class ConstantScoreQuery(Query):
     filter: Optional[Query] = None
+
+
+@dataclass
+class KnnQuery(Query):
+    field: str = ""
+    vector: List[float] = dc_field(default_factory=list)
+    k: int = 10           # parsed; no search reads it (as in the reference)
+    filter: Optional[Query] = None
+    # IVF overrides (the k-NN query's `method_parameters`): nprobe widens
+    # or narrows the probe; exact=True forces the scan
+    nprobe: Optional[int] = None
+    exact: bool = False
+
+
+@dataclass
+class HybridQuery(Query):
+    """Top-level hybrid retrieval: N sub-queries (raw dicts), each served
+    as its own search, fused at the coordinator (`search/fusion.py`)."""
+
+    queries: List[dict] = dc_field(default_factory=list)
+    fusion: Dict[str, Any] = dc_field(default_factory=dict)
 
 
 def _one_entry(d: dict, what: str) -> Tuple[str, Any]:
@@ -477,9 +501,93 @@ def parse_query(dsl: Optional[dict]) -> Query:
         _common(q, spec)
         return q
 
+    if kind == "knn":
+        # the k-NN plugin's form: {"knn": {"field": {"vector": [...],
+        # "k": 10, "filter": {...}}}}
+        f, spec = _one_entry(body, "knn")
+        mp = spec.get("method_parameters", {})
+        nprobe = mp.get("nprobe", spec.get("nprobe"))
+        q = KnnQuery(field=f, vector=list(spec["vector"]),
+                     k=int(spec.get("k", 10)),
+                     filter=(parse_query(spec["filter"])
+                             if spec.get("filter") else None),
+                     nprobe=int(nprobe) if nprobe is not None else None,
+                     exact=bool(spec.get("exact", False)))
+        _common(q, spec)
+        return q
+
+    if kind == "hybrid":
+        subs = body.get("queries")
+        if not isinstance(subs, list) or not subs:
+            raise QueryParseError("[hybrid] requires a non-empty [queries] "
+                                  "list")
+        if len(subs) > MAX_HYBRID_SUB_QUERIES:
+            raise QueryParseError(
+                f"[hybrid] supports at most {MAX_HYBRID_SUB_QUERIES} "
+                f"sub-queries, got {len(subs)}")
+        for sub in subs:
+            if not isinstance(sub, dict):
+                raise QueryParseError("[hybrid] sub-queries must be query "
+                                      "objects")
+            if isinstance(parse_query(sub), HybridQuery):
+                raise QueryParseError("[hybrid] queries cannot nest")
+        q = HybridQuery(queries=[dict(s) for s in subs],
+                        fusion=parse_fusion_spec(body.get("fusion"),
+                                                 len(subs)))
+        _common(q, body)
+        return q
+
     if kind in REFERENCE_KINDS:
         raise NotPortedError(f"query [{kind}]")
     raise QueryParseError(f"unknown query [{kind}]")
+
+
+# the neural-search plugin's HybridQueryBuilder takes at most 5
+MAX_HYBRID_SUB_QUERIES = 5
+_FUSION_METHODS = ("rrf", "linear")
+_FUSION_NORMS = ("min_max", "l2")
+# pages fuse over fixed-depth rank windows, so `from` / `size` page into
+# one list instead of re-fusing another window per page
+DEFAULT_FUSION_WINDOW = 100
+
+
+def parse_fusion_spec(spec, n_sub: int) -> Dict[str, Any]:
+    """The [hybrid] fusion parameters, validated as the reference's:
+    method `rrf` (default) or `linear`, rank_constant (60, at least 1),
+    weights (1.0 each, one per sub-query, finite and non-negative),
+    normalization `min_max` (default) or `l2`, window_size (100, at
+    least 1); anything else is a 400."""
+    spec = dict(spec or {})
+    method = str(spec.get("method", "rrf")).lower()
+    if method not in _FUSION_METHODS:
+        raise QueryParseError(
+            f"[hybrid] unknown fusion method [{method}] "
+            f"(supported: {', '.join(_FUSION_METHODS)})")
+    norm = str(spec.get("normalization", "min_max")).lower()
+    if norm not in _FUSION_NORMS:
+        raise QueryParseError(
+            f"[hybrid] unknown normalization [{norm}] "
+            f"(supported: {', '.join(_FUSION_NORMS)})")
+    try:
+        rank_constant = float(spec.get("rank_constant", 60))
+        window = int(spec.get("window_size", DEFAULT_FUSION_WINDOW))
+        weights = [float(w) for w in spec.get("weights", [1.0] * n_sub)]
+    except (TypeError, ValueError) as e:
+        raise QueryParseError(f"[hybrid] malformed fusion spec: {e}")
+    if rank_constant < 1:
+        raise QueryParseError("[hybrid] rank_constant must be >= 1")
+    if window < 1:
+        raise QueryParseError("[hybrid] window_size must be >= 1")
+    if len(weights) != n_sub:
+        raise QueryParseError(
+            f"[hybrid] weights length [{len(weights)}] must match the "
+            f"sub-query count [{n_sub}]")
+    if any(w < 0 or w != w for w in weights):
+        raise QueryParseError("[hybrid] weights must be finite and "
+                              "non-negative")
+    return {"method": method, "rank_constant": rank_constant,
+            "weights": weights, "normalization": norm,
+            "window_size": window}
 
 
 # the other kinds the reference parses (opensearch_tpu/search/query_dsl.py
@@ -489,9 +597,9 @@ REFERENCE_KINDS = frozenset((
     "span_multi", "field_masking_span", "query_string",
     "simple_query_string", "geo_distance", "geo_bounding_box",
     "geo_polygon", "geo_shape", "more_like_this",
-    "function_score", "script", "script_score", "knn", "nested",
+    "function_score", "script", "script_score", "nested",
     "has_child", "has_parent", "parent_id", "rank_feature",
-    "distance_feature", "neural_sparse", "hybrid", "percolate"))
+    "distance_feature", "neural_sparse", "percolate"))
 
 
 _INTERVAL_RULES = ("match", "prefix", "wildcard", "fuzzy", "all_of",

@@ -388,11 +388,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "r = c.search('t', {'query': {'bool': {\n"
         "    'must': [{'match': {'body': 'hello'}}],\n"
         "    'filter': [{'range': {'n': {'gte': 1}}}]}}})\n"
+        "c.indices.create('v', {'mappings': {'properties': {'e': {\n"
+        "    'type': 'dense_vector', 'dims': 2, 'method': {'name': 'ivf'}}}}})\n"
+        "c.bulk([{'index': {'_index': 'v', '_id': str(i)}} if j == 0 else\n"
+        "        {'e': [1.0, i], 'body': 'hello'} for i in range(9)\n"
+        "        for j in range(2)], refresh=True)\n"
+        "c.indices.forcemerge('v')\n"
+        "c.indices.flush('v')\n"
         "for q in ({'regexp': {'body': 'hel.*'}}, {'fuzzy': {'body': 'helo'}},\n"
         "          {'multi_match': {'query': 'hello', 'fields': ['body'],\n"
         "                           '_name': 'm'}},\n"
         "          {'combined_fields': {'query': 'hello', 'fields': ['body']}}):\n"
         "    assert c.search('t', {'query': q})['hits']['total']['value'] == 1\n"
+        "for q in ({'knn': {'e': {'vector': [1.0, 2.0], 'exact': True}}},\n"
+        "          {'hybrid': {'queries': [{'match': {'body': 'hello'}},\n"
+        "                                  {'knn': {'e': {'vector': [1.0, 0.5],\n"
+        "                                                 'exact': True}}}]}}):\n"
+        "    assert c.search('v', {'query': q})['hits']['total']['value'] == 9\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'opensearch_tpu' or "
         "m.startswith('opensearch_tpu.'))\n"

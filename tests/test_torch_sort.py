@@ -292,7 +292,7 @@ def test_search_after_chains_match_reference(clients, name):
     ({"post_filter": {"match_all": {}}}, "post_filter"),
     ({"indices_boost": [{"t": 2.0}]}, "indices_boost"),
     ({"slice": {"id": 0, "max": 2}}, "slice"),
-    ({"suggest": {}}, "suggest"), ({"knn": {}}, "knn")], ids=str)
+    ({"suggest": {}}, "suggest"), ({"derived": {}}, "derived")], ids=str)
 def test_options_outside_the_slice_raise(clients, body, name):
     _ref, port = clients
     with pytest.raises(NotPortedError) as e:
