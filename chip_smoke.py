@@ -7,7 +7,7 @@
                           [--sort-queries R] [--expand-queries E]
                           [--compound-queries C] [--context-queries X]
                           [--longtail-queries L] [--vector-queries V]
-                          [--seed S] [--stop-after N]
+                          [--sparse-queries W] [--seed S] [--stop-after N]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -190,14 +190,38 @@ Phases, each of which fails the script when it fails:
      vector device bytes and the process's resident bytes; after phase
      8, one body of (a), (b) and (e) on the merged segment (its IVF
      rebuilt, timed; the hybrid body's match on B1 / B2);
+ 17. (run after 16, before 8) learned sparse retrieval, rank_feature and
+     distance_feature over phase 16's end state: a `rank_features` field
+     `emb` with index_impacts on every corpus passage (64 distinct tokens
+     a passage, the first distinct of a Zipf(1.1) stream over BERT-base's
+     30,522 WordPiece tokens, weights expovariate(1) + 0.05 to 3 places,
+     drawn from --seed on the card and made CSR there, its FEATURE plane
+     quantized there) and a log-normal `pagerank` rank_feature column,
+     attached to the corpus segment; --sparse-queries bodies a class
+     (bench.py's learned-sparse queries: 3 rare head tokens, up to 8
+     popular tail tokens): (a) neural_sparse on the pruned sparse rung,
+     (b) the same with exact totals, (c) neural_sparse in a bool with a
+     match and a status filter (the general path's sparse dot), (d) a
+     match with rank_feature shoulds over a feature and the column (each
+     function), (e) a match with a distance_feature on `ts`, (f) hybrids
+     of a match, a neural_sparse and an exact kNN on `vec` (rrf, linear
+     min_max); every page against a brute force apart from the port (the
+     f32 sparse dot in token order, the feature functions, the f32 hi/lo
+     distance, the fusion of its sub-pages), one body a class card ==
+     CPU, bodies/s, p50/p99, the rung's device pass, the feature scatter
+     and the top-k in event ms a body against their byte bounds, the
+     rung's planning and certificate in host ms, the rung's counts, the
+     CSR's and the plane's seconds, device bytes and host RSS; after
+     phase 8, one body of (a), (c) and (f) on the merged segment (its
+     FEATURE plane rebuilt, against numpy on sampled rows);
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
-     refresh, 16 of phase 5's match bodies on the segments with deletes,
+     refresh, 8 of phase 5's match bodies on the segments with deletes,
      then a forcemerge into one segment with OPENSEARCH_TPU_REORDER=0
      (the reference's BP reorder is not ported; the merge's time by
-     step, the device bytes around it) and, on it, the same 16 bodies
-     in one batch, phase 5's match bodies pruned and with exact totals
-     and b3-mix bodies, each class on its kernel alone, 16 config-3
+     step, the device bytes and host RSS around it) and, on it, the same
+     8 bodies in one batch, then pruned and with exact totals, and the b3
+     mix's price-range bodies, each class on its kernel alone, 16 config-3
      phrases on the general path (positions through the merge) and 4
      class-(a)/(b) agg bodies (keyword and date columns through it);
      every page against the numpy brute force with the writes applied,
@@ -211,14 +235,19 @@ Phases, each of which fails the script when it fails:
      within tolerance (scores 1e-6 relative, an L2 score the rounding of
      its expansion), the IVF lists built on the card equal to the CPU's
      but where rows tie, then the pages through a flush, a recovery and a
-     forcemerge.
+     forcemerge. Phase 4 last runs a small sparse index on both: 7,000
+     docs (rank_features with index_impacts, a rank_feature, a date) in
+     two refreshes with deletes, each segment's FEATURE plane (the first
+     quantized on the card) and the merged one against their numpy form,
+     neural_sparse, rank_feature, distance_feature and hybrid pages card
+     == CPU before and after a forcemerge.
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
 one with phase 11's, one with phase 12's, one with phase 13's, one with
-phase 14's, one with phase 15's, one with phase 16's, a line with the
-kernels' numbers and, last, the device line.
+phase 14's, one with phase 15's, one with phase 16's, one with phase
+17's, a line with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -227,6 +256,7 @@ prints neither result line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import gc
 import json
@@ -1542,21 +1572,63 @@ def cpu_twin(seg):
     return cpu
 
 
-def phase_msmarco(ndocs: int, nq: int) -> dict:
+class HostDraws:
+    """Phase 5's host draws (the body's token keys, the title corpus, the
+    guardrail and aggregation columns: numpy, from their seeds) on a
+    daemon thread started before phase 1, so they run beside phases 1-4
+    (numpy's draws release the interpreter lock); `get()` waits for them
+    and raises what the thread raised."""
+
+    def __init__(self, ndocs: int):
+        import threading
+        self.ndocs = ndocs
+        self.out = self.err = None
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        from opensearch_tpu_torch import bench_corpus as bc
+        try:
+            t0 = time.perf_counter()
+            keys = bc.corpus_keys(self.ndocs)
+            columns = bc.guardrail_columns(self.ndocs)
+            aggcols = bc.agg_columns(self.ndocs)
+            t1 = time.perf_counter()
+            title = bc.build_title_corpus(self.ndocs)
+            self.out = (keys, columns, aggcols, title, t1 - t0,
+                        time.perf_counter() - t1)
+        except BaseException as e:     # re-raised by get()
+            self.err = e
+
+    def get(self) -> tuple:
+        """The draws, once: this object lets go of them (the keys alone
+        are 4.2 GB at 8.8M passages)."""
+        t0 = time.perf_counter()
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        self.wait_s = time.perf_counter() - t0
+        out, self.out = self.out, None
+        return out
+
+
+def phase_msmarco(ndocs: int, nq: int, draws: HostDraws = None) -> dict:
     import torch
     from opensearch_tpu_torch import RestClient, bench_corpus as bc
     from opensearch_tpu_torch.ops import bm25
     from opensearch_tpu_torch.search import compiler as C, fastpath
     from opensearch_tpu_torch.search import query_dsl as dsl
 
+    draws = draws or HostDraws(ndocs)
+    keys, columns, aggcols, title, t_keys, t_title = draws.get()
     t0 = time.perf_counter()
-    corpus = bc.build_corpus(ndocs, device="cuda")
-    columns = bc.guardrail_columns(ndocs)
-    aggcols = bc.agg_columns(ndocs)
-    t_corpus = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    title = bc.build_title_corpus(ndocs)
-    t_title = time.perf_counter() - t0
+    corpus = bc.build_corpus(ndocs, device="cuda", keys=keys)
+    del keys
+    t_corpus = t_keys + time.perf_counter() - t0
+    log(f"  host draws (token keys, title, columns) {t_keys + t_title:.1f}s "
+        f"on a thread beside phases 1-4; phase 5 waited {draws.wait_s:.1f}s "
+        f"for them")
     client = RestClient(device="cuda")
     dev = client.device
     t1 = time.perf_counter()
@@ -5001,14 +5073,15 @@ def phrase_dense(ix, terms) -> tuple:
     return sc, m
 
 
-def rescore_classes(big: dict, n: int) -> dict:
+def rescore_classes(big: dict, n: int, b3_kinds=(0, 1, 2, 3)) -> dict:
     """Phase 14's rescored bodies for the merged segment, `n` a class:
     (a) a 2-term body match of phase 5, size 10, rescored over 50 lanes
     (the kernels return 16) by a match_phrase of a title pool bigram of
     one of its first-phase lanes (so that it matches), score modes
     cycling, body 5 of each 6 with a second rescorer (a title term, max,
-    over 8 lanes); (a') phase 6's b3 bool shapes, rescored by a title
-    term of one of their lanes. name -> [(body, oracle(ix))]."""
+    over 8 lanes); (a') phase 6's b3 bool shapes of `b3_kinds` (i % 4),
+    rescored by a title term of one of their lanes. name -> [(body,
+    oracle(ix))]."""
     from opensearch_tpu_torch import bench_corpus as bc
     ix = big["ix"]
     title = big["title"]
@@ -5059,6 +5132,8 @@ def rescore_classes(big: dict, n: int) -> dict:
     for i in range(len(queries)):
         if len(boolean) == n:
             break
+        if i % 4 not in b3_kinds:
+            continue
         slots, fam, mask, const = bool_oracle("b3", i, queries, ix.status,
                                               ix.price)
         pair = lane_pair(*ix.bool_scores(slots, fam, mask, const), i + 1)
@@ -5178,7 +5253,10 @@ def phase_rescore_merged(big: dict, n: int) -> dict:
     client = big["client"]
     cpu = twin_of(client._indices["bench"].engine)
     out = {}
-    for name, items in rescore_classes(big, n).items():
+    # the b3 shapes' price-range kinds: the status kinds would build the
+    # dense status filters' postings on the merged segment first (about
+    # 50 s at 8.8M passages), a route phase 6 runs before the merge
+    for name, items in rescore_classes(big, n, b3_kinds=(2, 3)).items():
         # within 4e-6 relative: the first phase's and the rescore query's
         # f32 sums (each within 1e-6 of the brute force), then combined
         out[name] = r = run_rescore_class(client, name, items, big["ix"],
@@ -5571,6 +5649,8 @@ def phase_options_msmarco(big: dict, n: int) -> dict:
 # ---------------------------------------------------------------------
 
 DELETE_SHARE = 100     # 1 in 100 of the big segment's _ids is deleted
+MERGE_FIRST = 8        # phase 8's match bodies before the merge (16 before
+#                        phase 17), and first after it
 BULK_ITEMS = 1000      # items per bulk request
 
 
@@ -5638,8 +5718,8 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
     partial doc: new status and price) and upsert as many new _ids,
     refresh; phase 5's match bodies on that state (the impact rung); then
     forcemerge into one segment and, on it, phase 5's match bodies
-    pruned, the same with exact totals and b3-mix bodies, each class on
-    its kernel. Every page against the numpy brute force with the writes
+    pruned, the same with exact totals and the b3 mix's price-range
+    bodies, each class on its kernel. Every page against the numpy brute force with the writes
     applied, 2 bodies a class on the card against the CPU."""
     import torch
     from opensearch_tpu_torch import RestClient
@@ -5734,7 +5814,8 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
 
     # 4. phase 5's match bodies on the segments with deletes
     out["before_merge"] = run_write_class(client, "match, deletes",
-                                          match_items(16), ix, twin())
+                                          match_items(MERGE_FIRST), ix,
+                                          twin())
 
     # 5. forcemerge
     spans = []
@@ -5755,12 +5836,14 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
     # the host, go now, not at their retirement after the merge
     for s in eng.segments:
         s.release_device()
+    trim_host()
     rss_before = rss_bytes()[0]
     torch.cuda.reset_peak_memory_stats(dev)
     device_merge.merge_sorted_runs = timed_sort
     t0 = time.perf_counter()
     try:
-        client.indices.forcemerge("bench", max_num_segments=1)
+        with RssPeak() as merge_rss:
+            client.indices.forcemerge("bench", max_num_segments=1)
     finally:
         device_merge.merge_sorted_runs = real_sort
     torch.cuda.synchronize()
@@ -5793,7 +5876,8 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
         f"it), "
         f"with the merged segment's aligned layout {bytes_aligned}; peak "
         f"during the merge {peak}; host RSS before the merge {rss_before}, "
-        f"now / the process's peak {rss_bytes()}")
+        f"its peak during the merge {merge_rss.peak}, now / the process's "
+        f"peak {rss_bytes()}")
     live = int(ix.live.sum())
     if not merged.ndocs == merged.live_count == live:
         raise AssertionError(f"merged segment: ndocs {merged.ndocs} live "
@@ -5814,32 +5898,38 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
         n_post += b - a
     log(f"  merged segment: ndocs == live == {live} (the brute force's); "
         f"1000 sampled rows ({n_post} postings) == a numpy merge")
-    out.update(merge=split, device_bytes_before=bytes_before,
+    out.update(merge=split, rss_before_merge=rss_before,
+               rss_peak_merge=merge_rss.peak,
+               device_bytes_before=bytes_before,
                device_bytes_after=bytes_after,
                device_bytes_with_aligned=bytes_aligned, device_peak=peak,
                sampled_rows=1000, sampled_postings=n_post)
 
-    # 6. on the merged segment: the kernels serve. First the 16 bodies
-    # of step 4, the same count in one batch (their first use builds the
-    # merged segment's lazy per-row state), then 32 pruned (128 before
-    # phase 13 shared the time limit, 64 before phase 15 did)
+    # 6. on the merged segment: the kernels serve. First the bodies of
+    # step 4 in one batch (their first use builds the merged segment's
+    # lazy per-row state, row by row), then the same bodies pruned and
+    # with exact totals (128 pruned before phase 13 shared the time
+    # limit, 64 before phase 15 did, 32 before phase 17 did)
     cpu = twin()
-    n_after = min(32, len(big["bodies"]))
-    items = match_items(n_after)
+    items = match_items(min(MERGE_FIRST, len(big["bodies"])))
     pages: dict = {}
     out["first_use"] = run_write_class(
-        client, "match, merged, the 16 bodies of the segments with deletes",
-        items[:16], ix, cpu, memo=pages)
+        client, f"match, merged, the {MERGE_FIRST} bodies of the segments "
+        f"with deletes", items[:MERGE_FIRST], ix, cpu, memo=pages)
     out["pruned"] = run_write_class(client, "match, merged, pruned", items,
                                     ix, cpu, memo=pages)
     out["dense"] = run_write_class(
         client, "match, merged, track_total_hits",
         [(dict(b, track_total_hits=True), o) for b, o in items], ix, cpu,
         memo=pages)
+    # the b3 mix's price-range kinds (i % 4 in (2, 3): the filter as a
+    # slot or a probe); its status kinds would build the dense status
+    # filters' postings on the merged segment first (about 50 s at 8.8M
+    # passages), a route phase 6 runs before the merge
     queries = bc.pick_queries(df, 64)
     b3 = [(bc.b3_body(i, queries, vs), (lambda i_: lambda ix_: ix_.bool_page(
         *bool_oracle("b3", i_, queries, ix_.status, ix_.price)))(i))
-        for i in range(64)]
+        for i in range(64) if i % 4 in (2, 3)]
     # B3 sums in slot order; phase 6's tolerance for three slots
     out["b3"] = run_write_class(client, "b3 mix, merged", b3, ix, cpu,
                                 rtol=9 * 2.0**-23)
@@ -7104,6 +7194,40 @@ def make_vectors(n: int, seed: int, dev) -> tuple:
     return out, which
 
 
+def trim_host() -> None:
+    """Collect garbage and hand the C heap's free pages back to the OS
+    (glibc's malloc_trim on this process), so that state already freed
+    no longer counts in the resident bytes."""
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+
+
+class RssPeak:
+    """The process's largest resident bytes while the block runs, read
+    from /proc/self/statm every 20 ms on a thread (the kernel's own peak
+    counts the whole run)."""
+
+    def __enter__(self):
+        import threading
+        self.peak = rss_bytes()[0]
+        self._stop = threading.Event()
+
+        def watch():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, rss_bytes()[0])
+        self._thread = threading.Thread(target=watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes()[0])
+
+
 def rss_bytes() -> tuple:
     """(the process's resident bytes now, its peak)."""
     import resource
@@ -7584,6 +7708,7 @@ def phase_vectors_msmarco(big: dict, n: int, seed: int) -> dict:
         for k in ("filter_lists", "phrase_pairs", "date_buckets",
                   "kw_hashes"):
             s.__dict__.pop(k, None)
+    trim_host()
     log(f"  host RSS {rss0} before the phase, {rss_bytes()[0]} without the "
         f"earlier CPU twins' state and the segments' host caches")
     t0 = time.perf_counter()
@@ -7729,6 +7854,823 @@ def phase_vectors_merged(big: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# learned sparse retrieval, rank_feature and distance_feature: phase 4's
+# small index and phase 17 at MS MARCO scale
+# ---------------------------------------------------------------------
+
+SP_VOCAB = 30_522      # BERT-base's WordPiece vocabulary
+SP_ZIPF = 1.1          # token popularity (bench.py's hybrid corpus)
+SP_TOKENS = 64         # distinct tokens a passage
+SP_DRAWS = 128         # iid draws a passage; its first SP_TOKENS distinct
+SP_CHUNK = 1 << 17     # passages drawn a step
+SP_WINDOW = 50         # the hybrid bodies' fusion window
+SP_RTOL = 1e-6
+SP_MAPPING = {"properties": {
+    "emb": {"type": "rank_features", "index_impacts": True},
+    "pagerank": {"type": "rank_feature"}}}
+SP_FUNCTIONS = (("saturation", {}), ("log", {"log": {"scaling_factor": 2.0}}),
+                ("sigmoid", {"sigmoid": {"pivot": 1.2, "exponent": 0.8}}),
+                ("linear", {"linear": {}}))
+SP_SMALL_MAPPING = {"mappings": {"properties": {
+    "body": {"type": "text"}, "st": {"type": "keyword"},
+    "emb": {"type": "rank_features", "index_impacts": True},
+    "pr": {"type": "rank_feature"}, "ts": {"type": "date"}}}}
+
+
+def sp_token(t: int) -> str:
+    """Token t's feature name, zero-padded: names sort as the ranks do."""
+    return f"s{t:05d}"
+
+
+def sp_query_tokens(rng, vocab: int) -> dict:
+    """bench.py's learned-sparse query: 3 rare head tokens (ranks 120
+    and up, uniform) weighted 3 / (r + 1), up to 8 popular tail tokens
+    (the top 100 by popularity) weighted 0.25 / (1 + r) + 0.02."""
+    head = rng.choice(np.arange(120, vocab), 3, replace=False)
+    p = 1.0 / np.arange(1, 101) ** SP_ZIPF
+    tail = dict.fromkeys(int(t) for t in rng.choice(100, 8, p=p / p.sum()))
+    toks = {sp_token(int(t)): round(3.0 / (r + 1), 3)
+            for r, t in enumerate(head)}
+    for r, t in enumerate(tail):
+        toks.setdefault(sp_token(t), round(0.25 / (1 + r) + 0.02, 3))
+    return toks
+
+
+def sp_plane_check(pb, what: str, rows=None) -> None:
+    """A FEATURE plane against its numpy form: scale = max / qmax in
+    double, q = round(w / f32(scale)) in f32 (half to even) clipped, and
+    the per-128-posting block maxima of each row; over every row, or the
+    rows `rows` (the scale and the block counts still over all)."""
+    ip = pb.impact
+    qmax = (1 << ip.bits) - 1
+    scale = float(pb.tfs.max()) / qmax
+    lens = np.diff(pb.starts)
+    nblk = -(-lens // 128)
+    bstarts = np.concatenate([[0], np.cumsum(nblk)]).astype(np.int64)
+    ok = (ip.kind == "feature" and ip.scale == scale
+          and np.array_equal(ip.block_starts, bstarts)
+          and len(ip.q) == pb.size)
+    for r in [None] if rows is None else rows:
+        a, b = (0, pb.size) if r is None else pb.row_slice(int(r))
+        ba, bb = (0, int(bstarts[-1])) if r is None else (
+            int(bstarts[r]), int(bstarts[r + 1]))
+        q = np.minimum(np.round(pb.tfs[a:b] / np.float32(scale)),
+                       qmax).astype(ip.q.dtype)
+        row = np.repeat(np.arange(len(lens)), nblk)[ba:bb] if r is None \
+            else np.full(bb - ba, r)
+        boff = (pb.starts[row] + 128 * (np.arange(ba, bb) - bstarts[row])
+                ).astype(np.int64)
+        bmax = np.maximum.reduceat(q, boff - a) if len(boff) else q[:0]
+        ok = ok and ip.q.dtype == q.dtype and np.array_equal(ip.q[a:b], q) \
+            and np.array_equal(ip.block_off[ba:bb], boff) \
+            and np.array_equal(ip.block_max[ba:bb], bmax)
+    if not ok:
+        raise AssertionError(f"{what}: the FEATURE plane != its numpy form")
+
+
+def sp_small_docs(rng, n: int) -> list:
+    """n docs of phase 4's sparse index: 24 Zipf(1.1) draws a doc over
+    2,000 tokens (weights expovariate(1) + 0.05, 3 places), a pagerank
+    on 4 in 5, a date, a body and a status."""
+    p = 1.0 / np.arange(1, 2001) ** SP_ZIPF
+    p /= p.sum()
+    words = ["red", "fox", "dog", "tree", "blue", "quick", "moon", "lake"]
+    docs = []
+    for i in range(n):
+        toks = rng.choice(2000, 24, p=p)
+        d = {"body": " ".join(rng.choice(words, int(rng.integers(2, 7)))),
+             "st": "abc"[i % 3],
+             "emb": {sp_token(int(t)): round(float(rng.exponential()) + 0.05,
+                                             3) for t in toks},
+             "ts": int(1_704_067_200_000 + rng.integers(0, 300 * DAY_MS))}
+        if i % 5:
+            d["pr"] = round(float(rng.lognormal()), 4)
+        docs.append(d)
+    return docs
+
+
+def sp_small_bodies(rng) -> list:
+    """Phase 4's sparse bodies: neural_sparse (pruned, exact totals,
+    boosted), in a bool, as a filter; rank_feature in each function over
+    a feature and the column; distance_feature; a hybrid."""
+    match = {"match": {"body": "fox tree"}}
+    out = []
+    for i in range(4):
+        toks = sp_query_tokens(rng, 2000)
+        out += [{"query": {"neural_sparse": {"emb": {"query_tokens": toks}}},
+                 "size": (10, 3)[i % 2]},
+                {"query": {"neural_sparse": {"emb": {
+                    "query_tokens": toks, "boost": 1.5}}},
+                 "track_total_hits": True},
+                {"query": {"bool": {"must": [match],
+                                    "filter": [{"term": {"st": "b"}}],
+                                    "should": [{"neural_sparse": {"emb": {
+                                        "query_tokens": toks}}}]}}}]
+    for _name, fn in SP_FUNCTIONS:
+        for field in ("emb.s00007", "pr"):
+            out.append({"query": {"bool": {"must": [match], "should": [
+                {"rank_feature": dict(field=field, **fn)}]}}})
+    out += [
+        {"query": {"bool": {"must": [match], "should": [
+            {"distance_feature": {"field": "ts", "origin":
+                                  "2024-06-01T00:00:00Z", "pivot": "7d"}}]}}},
+        {"query": {"bool": {"must": [match], "filter": [
+            {"rank_feature": {"field": "emb.s00003"}},
+            {"neural_sparse": {"emb": {"query_tokens": {"s00001": 1.0}}}}]}}},
+        {"query": {"hybrid": {"queries": [
+            match, {"neural_sparse": {"emb": {"query_tokens":
+                                              sp_query_tokens(rng, 2000)}}}],
+            "fusion": {"method": "rrf", "window_size": 30}}}}]
+    return out
+
+
+def run_sparse_small(name: str, docs, bodies) -> tuple:
+    """Phase 4's sparse index on `name`: two refreshes (5,000 and 2,000
+    docs), 40 deletes; `bodies` one by one, then a forcemerge and the
+    bodies again; each segment's FEATURE plane against its numpy form
+    (the first past DEVICE_IMPACT_MIN postings: quantized by the torch
+    quantizer on `name`): -> (responses before, after the merge, the
+    impact rung's counts)."""
+    from opensearch_tpu_torch import RestClient
+    from opensearch_tpu_torch.ops import device_merge
+    from opensearch_tpu_torch.search import impactpath
+    c = RestClient(device=name)
+    c.indices.create("sp", SP_SMALL_MAPPING)
+    for a, b in ((0, 5000), (5000, len(docs))):
+        c.bulk(sum([[{"index": {"_index": "sp", "_id": f"d{i}"}}, docs[i]]
+                    for i in range(a, b)], []), refresh=True)
+    c.bulk([{"delete": {"_index": "sp", "_id": f"d{i}"}}
+            for i in range(0, len(docs), len(docs) // 40)], refresh=True)
+    segs = c._indices["sp"].engine.segments
+    if segs[0].postings["emb"].size < device_merge.DEVICE_IMPACT_MIN:
+        raise AssertionError("sparse, small: the first segment's plane is "
+                             "below the device quantizer's size")
+    for s in segs:
+        sp_plane_check(s.postings["emb"], f"{name} segment {s.name}")
+    impactpath.reset_stats()
+    before = [c.search("sp", b) for b in bodies]
+    c.indices.forcemerge("sp")
+    (merged,) = c._indices["sp"].engine.segments
+    sp_plane_check(merged.postings["emb"], f"{name} merged")
+    after = [c.search("sp", b) for b in bodies]
+    return before, after, {k: v for k, v in impactpath.STATS.items()
+                           if k.startswith("sparse_")}
+
+
+def phase_sparse_small(rng) -> dict:
+    """Phase 4's sparse checks: the same bulk and bodies on the card and
+    on the CPU; FEATURE planes against numpy (built on the card past
+    DEVICE_IMPACT_MIN postings, in numpy below it, and by the merge);
+    pages card == CPU within 1e-6 relative before and after the merge;
+    the sparse rung served and pruned on the card as on the CPU."""
+    docs = sp_small_docs(rng, 7000)
+    bodies = sp_small_bodies(rng)
+    t0 = time.perf_counter()
+    out = {name: run_sparse_small(name, docs, bodies)
+           for name in ("cuda", "cpu")}
+    for part in (0, 1):
+        for i, (g, w) in enumerate(zip(out["cuda"][part],
+                                       out["cpu"][part])):
+            same_vec(g, w, (SP_RTOL, 0.0, 0.0) if "hybrid" not in json.dumps(
+                bodies[i]) else (SP_RTOL, 1.5e-7, 0.0),
+                f"sparse small {part} {i}: ")
+    st = out["cuda"][2]
+    if st != out["cpu"][2] or not st["sparse_served"] \
+            or not st["sparse_blocks_skipped"]:
+        raise AssertionError(f"sparse, small: the sparse rung's counts "
+                             f"card {st} cpu {out['cpu'][2]}")
+    log(f"  sparse, small: {len(docs)} docs (rank_features with "
+        f"index_impacts, rank_feature, a date), {len(bodies)} bodies: "
+        f"FEATURE planes == numpy (the first segment's quantized on the "
+        f"card), card == CPU before and after a forcemerge; sparse rung "
+        f"{st} ({time.perf_counter() - t0:.1f}s)")
+    return st
+
+
+def _first_distinct(draws, k: int) -> tuple:
+    """(the first k distinct values of each row of `draws` in draw order
+    [rows, k] of the rows that hold k, those rows' mask)."""
+    import torch
+    s, idx = torch.sort(draws, dim=1, stable=True)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    isfirst = torch.zeros_like(first).scatter_(1, idx, first)
+    keep = isfirst & (torch.cumsum(isfirst, 1) <= k)
+    ok = keep.sum(1) == k
+    return draws[ok][keep[ok]].view(-1, k), ok
+
+
+def sparse_draw(n: int, seed: int, dev) -> tuple:
+    """Phase 17's data on `dev` from a seeded torch.Generator: each of n
+    passages' SP_TOKENS distinct tokens, the first distinct values of an
+    iid Zipf(SP_ZIPF) stream over SP_VOCAB tokens (sampling without
+    replacement in proportion to popularity; a row short of SP_TOKENS
+    after SP_DRAWS draws draws on), their weights expovariate(1) + 0.05
+    rounded to 3 places, and a log-normal pagerank a passage: -> (tokens
+    i16[n, SP_TOKENS], weights f32[n, SP_TOKENS], pagerank f64[n])."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed) * 1000 + 17)
+    cdf = torch.cumsum(torch.arange(1, SP_VOCAB + 1, dtype=torch.float64,
+                                    device=dev) ** -SP_ZIPF, 0)
+    cdf /= cdf[-1].clone()
+
+    def draw(rows: int):
+        u = torch.rand(rows, SP_DRAWS, dtype=torch.float64, generator=gen,
+                       device=dev)
+        return torch.searchsorted(cdf, u).clamp_(max=SP_VOCAB - 1)
+    tok = torch.empty((n, SP_TOKENS), dtype=torch.int16, device=dev)
+    w = torch.empty((n, SP_TOKENS), dtype=torch.float32, device=dev)
+    for a in range(0, n, SP_CHUNK):
+        m = min(SP_CHUNK, n - a)
+        draws = draw(m)
+        rows = torch.arange(a, a + m, device=dev)
+        while len(rows):
+            got, ok = _first_distinct(draws, SP_TOKENS)
+            tok[rows[ok]] = got.to(torch.int16)
+            rows, draws = rows[~ok], draws[~ok]
+            if len(rows):
+                draws = torch.cat([draws, draw(len(rows))], 1)
+        e = torch.empty((m, SP_TOKENS), dtype=torch.float64,
+                        device=dev).exponential_(generator=gen)
+        w[a:a + m] = (torch.round((e + 0.05) * 1000.0) / 1000.0).float()
+    pagerank = torch.empty(n, dtype=torch.float64,
+                           device=dev).log_normal_(0.0, 1.0, generator=gen)
+    return tok, w, pagerank
+
+
+def sparse_csr(tok, w) -> tuple:
+    """The passages' tokens as CSR postings, built on their device: rows
+    by token (the tokens that occur), docs ascending within a row (a
+    stable sort of the passage-major tokens), the weights beside them:
+    -> (token ids i64[rows], starts i64[rows + 1], doc ids i32[P],
+    weights f32[P]) on the host."""
+    import torch
+    k = tok.shape[1]
+    flat = tok.reshape(-1)
+    keys, perm = torch.sort(flat, stable=True)
+    counts = torch.bincount(keys.to(torch.int32), minlength=SP_VOCAB)
+    del keys
+    docs = torch.div(perm, k, rounding_mode="floor").to(torch.int32).cpu()
+    weights = w.reshape(-1)[perm].cpu()
+    del perm
+    counts = counts.cpu().numpy().astype(np.int64)
+    present = np.flatnonzero(counts)
+    starts = np.zeros(len(present) + 1, np.int64)
+    np.cumsum(counts[present], out=starts[1:])
+    return present, starts, docs.numpy(), weights.numpy()
+
+
+class SparseOracle:
+    """Phase 17's brute force, apart from the port: the passages' CSR as
+    drawn (corpus doc g is passage g), their pagerank and the dates of
+    every doc, over the live docs and statistics of `ix` (NumpyIndex).
+    Scores are f32 in the port's order: a sparse dot sums query weight x
+    stored weight token by token (sorted names), then x boost; the
+    feature functions and the distance are the reference's f32 forms."""
+
+    def __init__(self, token_ids, starts, docs, weights, pagerank, ts,
+                 ts_present, ix, dev):
+        self.row_of = {int(t): i for i, t in enumerate(token_ids)}
+        self.starts, self.docs, self.weights = starts, docs, weights
+        self.pagerank, self.ts, self.ts_present = pagerank, ts, ts_present
+        self.ix, self.dev = ix, dev
+        self.n0 = len(pagerank)
+
+    def row(self, name: str) -> tuple:
+        r = self.row_of.get(int(name[1:]), -1)
+        if r < 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.float32)
+        a, b = int(self.starts[r]), int(self.starts[r + 1])
+        return self.docs[a:b].astype(np.int64), self.weights[a:b]
+
+    def dot(self, tokens: dict, boost: float = 1.0) -> tuple:
+        """(scores f32[ix.n], docs holding a token): the f32 adds token by
+        token on `dev` (a row's docs are distinct: one add a doc)."""
+        import torch
+        score = torch.zeros(self.ix.n, dtype=torch.float32, device=self.dev)
+        hit = torch.zeros(self.ix.n, dtype=torch.bool, device=self.dev)
+        for name in sorted(tokens):
+            d, w = self.row(name)
+            d = torch.from_numpy(d).to(self.dev)
+            score.index_add_(0, d, torch.from_numpy(w).to(self.dev)
+                             * float(np.float32(tokens[name])))
+            hit[d] = True
+        if boost != 1.0:
+            score = score * float(np.float32(boost))
+        return score.cpu().numpy(), hit.cpu().numpy()
+
+    def feature(self, field: str, fn: str, spec: dict) -> tuple:
+        """rank_feature over `emb.<token>` or `pagerank`: (scores
+        f32[ix.n], docs with the value); the saturation pivot by default
+        the arithmetic mean of the values (deleted docs included)."""
+        vals = np.zeros(self.ix.n, np.float32)
+        has = np.zeros(self.ix.n, bool)
+        if field == "pagerank":
+            raw = self.pagerank
+            vals[:self.n0] = raw.astype(np.float32)
+            has[:self.n0] = True
+        else:
+            d, raw = self.row(field.split(".", 1)[1])
+            vals[d] = raw
+            has[d] = True
+        p = spec.get(fn, {})
+        if fn == "saturation":
+            p1 = np.float32(p.get("pivot", float(np.mean(raw.astype(
+                np.float64)))))
+            out = vals / (vals + p1)
+        elif fn == "log":
+            out = np.log(np.float32(p["scaling_factor"]) + vals)
+        elif fn == "sigmoid":
+            e = np.float32(p["exponent"])
+            we = np.power(np.maximum(vals, np.float32(0)), e)
+            pe = np.power(np.float32(p["pivot"]), e)
+            out = we / (we + pe)
+        else:
+            out = vals
+        return np.where(has, out, np.float32(0)).astype(np.float32), has
+
+    def distance(self, origin: int, pivot_ms: float) -> tuple:
+        """distance_feature on `ts`: pivot / (pivot + d) with d the f32
+        distance over the biased (hi, lo) words of the dates."""
+        ts = self.ts
+        hi, lo = ts >> 32, (ts & 0xFFFFFFFF) - (1 << 31)
+        ohi, olo = origin >> 32, (origin & 0xFFFFFFFF) - (1 << 31)
+        d = np.abs((hi - ohi).astype(np.int32).astype(np.float32)
+                   * np.float32(2.0 ** 32)
+                   + (lo.astype(np.int32).astype(np.float32)
+                      - np.float32(olo)))
+        pv = np.float32(pivot_ms)
+        return (np.where(self.ts_present, pv / (pv + d), np.float32(0))
+                .astype(np.float32), self.ts_present)
+
+
+def sp_classes(big: dict, n: int, rng, vq: np.ndarray) -> dict:
+    """Phase 17's bodies: class -> [(body, spec)], spec what the brute
+    force needs; `vq` the hybrids' kNN query vectors."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    terms = [list(big["body_terms"][(2 * j + 1) % len(big["body_terms"])])
+             for j in range(3 * n)]
+
+    def text(j):
+        return " ".join(vs[int(t)] for t in terms[j])
+    src = {"_source": {"excludes": ["vec"]}}
+    out = {k: [] for k in ("a_pruned", "b_exact", "c_bool", "d_rank_feature",
+                           "e_distance", "f_hybrid")}
+    for j in range(n):
+        toks = sp_query_tokens(rng, SP_VOCAB)
+        out["a_pruned"].append(({**src, "size": 10, "query": {
+            "neural_sparse": {"emb": {"query_tokens": toks}}}},
+            {"kind": "dot", "tokens": toks}))
+        toks = sp_query_tokens(rng, SP_VOCAB)
+        out["b_exact"].append(({**src, "size": 10, "track_total_hits": True,
+                                "query": {"neural_sparse": {"emb": {
+                                    "query_tokens": toks}}}},
+                               {"kind": "dot", "tokens": toks}))
+        toks = sp_query_tokens(rng, SP_VOCAB)
+        st = j % 3
+        out["c_bool"].append(({**src, "size": 10, "query": {"bool": {
+            "must": [{"match": {"body": text(j)}}],
+            "filter": [{"term": {"status": bc.STATUS_VALUES[st]}}],
+            "should": [{"neural_sparse": {"emb": {"query_tokens": toks}}}]
+        }}}, {"kind": "bool", "terms": terms[j], "status": st,
+              "tokens": toks}))
+        fn, spec = SP_FUNCTIONS[j % 4]
+        feat = sp_token(int(rng.integers(100, 2000)))
+        out["d_rank_feature"].append(({**src, "size": 10, "query": {"bool": {
+            "must": [{"match": {"body": text(n + j)}}],
+            "should": [{"rank_feature": dict(field=f"emb.{feat}", **spec)},
+                       {"rank_feature": dict(field="pagerank", **spec)}]}}},
+            {"kind": "rank", "terms": terms[n + j], "fn": fn, "spec": spec,
+             "fields": [f"emb.{feat}", "pagerank"]}))
+        out["e_distance"].append(({**src, "size": 10, "query": {"bool": {
+            "must": [{"match": {"body": text(2 * n + j)}}],
+            "should": [{"distance_feature": {
+                "field": "ts", "origin": bc.TS_HI, "pivot": "7d"}}]}}},
+            {"kind": "distance", "terms": terms[2 * n + j]}))
+        toks = sp_query_tokens(rng, SP_VOCAB)
+        fusion = ({"method": "rrf", "window_size": SP_WINDOW} if j % 2 == 0
+                  else {"method": "linear", "normalization": "min_max",
+                        "window_size": SP_WINDOW})
+        q = vq[j]
+        out["f_hybrid"].append(({**src, "size": 10, "query": {"hybrid": {
+            "queries": [{"match": {"body": text(j)}},
+                        {"neural_sparse": {"emb": {"query_tokens": toks}}},
+                        {"knn": {"vec": {"vector": q.tolist(), "k": 10,
+                                         "exact": True}}}],
+            "fusion": fusion}}},
+            {"kind": "hybrid", "terms": terms[j], "tokens": toks, "q": q,
+             "fusion": fusion}))
+    return out
+
+
+def sp_want(oracle: SparseOracle, ix, body: dict, spec: dict,
+            vec_oracle=None) -> tuple:
+    """The brute force's page of one body: (ids, scores, total) or, for a
+    hybrid, (fused [(key, score)], (lo, hi) of its total)."""
+    kind = spec["kind"]
+    if kind == "dot":
+        sc, hit = oracle.dot(spec["tokens"])
+        return ix.page(sc, hit, 0, 10)
+    bm, ok = ix.group(spec["terms"])
+    ok = ok & ix.live
+    if kind == "bool":
+        sc, _hit = oracle.dot(spec["tokens"])
+        ok = ok & (ix.status == spec["status"])
+        return ix.page(bm + sc, ok, 0, 10)
+    if kind == "rank":
+        total = bm
+        for f in spec["fields"]:
+            total = total + oracle.feature(f, spec["fn"], spec["spec"])[0]
+        return ix.page(total, ok, 0, 10)
+    if kind == "distance":
+        from opensearch_tpu_torch import bench_corpus as bc
+        return ix.page(bm + oracle.distance(bc.TS_HI, 7 * DAY_MS)[0], ok, 0,
+                       10)
+    # hybrid: the three sub-pages, fused
+    mids, msc, mtotal = ix.page(bm, ok, 0, SP_WINDOW)
+    sc, hit = oracle.dot(spec["tokens"])
+    sids, ssc, stotal = ix.page(sc, hit, 0, SP_WINDOW)
+    docs, vsc, vtotal = spec.get("knn_top") or vec_oracle.top(
+        [(spec["q"], None, SP_WINDOW)])[0]
+    subs = [[(("bench", i), float(s)) for i, s in zip(mids, msc)],
+            [(("bench", i), float(s)) for i, s in zip(sids, ssc)],
+            [(("bench", ix.id_of(int(g))), float(s))
+             for g, s in zip(docs, vsc)]]
+    fusion = dict({"weights": [1.0, 1.0, 1.0]}, **spec["fusion"])
+    return oracle_fusion(subs, fusion), (0, max(mtotal, stotal, vtotal)), subs
+
+
+def sp_check(resp: dict, want: tuple, spec: dict, what: str) -> None:
+    """A response against `sp_want`'s page: ids, scores within 1e-6
+    relative, a pruned total a lower bound; a hybrid's fused page within
+    one step of its 7-place rounding (plus a min_max list's score
+    rounding over its spread) and its total `gte` within [lo, hi]."""
+    if spec["kind"] != "hybrid":
+        check_page(resp, want, what, SP_RTOL)
+        return
+    fused, (lo, hi), subs = want
+    atol = 1.5e-7
+    if spec["fusion"]["method"] == "linear":
+        for lst in subs:
+            s = np.asarray([x for _k, x in lst])
+            if len(s) and s.max() > s.min():
+                atol += 2e-6 * np.abs(s).max() / (s.max() - s.min())
+    want_hits = [{"_id": k[1], "_score": s} for k, s in fused[:10]]
+    got = [{"_id": h["_id"], "_score": h["_score"]}
+           for h in resp["hits"]["hits"]]
+    try:
+        _same_hits(got, want_hits, (0.0, atol, 0.0), "hits.")
+    except AssertionError as e:
+        raise AssertionError(f"{what} != the brute force's fusion: {e}")
+    t = resp["hits"]["total"]
+    if not (t["relation"] == "gte" and lo <= t["value"] <= hi):
+        raise AssertionError(f"{what}: hybrid total {t} not in [{lo}, {hi}]")
+
+
+def sp_timer():
+    """CUDA events around the sparse rung's device pass and the general
+    path's feature gather / scatter and top-k, host clocks around the
+    rung's planning and certificate: -> (restore(), {op: [spans]})."""
+    import torch
+    from opensearch_tpu_torch.ops import scoring
+    from opensearch_tpu_torch.search import impactpath
+    spans: dict = {}
+    saved = []
+    for mod, name, label, dev_timed in (
+            (impactpath, "impact_program", "rung_pass", True),
+            (scoring, "feature_score", "feature_scatter", True),
+            (scoring, "topk_docs", "topk", True),
+            (impactpath, "_plan_blocks", "plan_host", False),
+            (impactpath, "_exact_scores", "certify_host", False)):
+        real = getattr(mod, name)
+
+        def timed(*a, _real=real, _label=label, _dev=dev_timed, **kw):
+            if _dev:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = _real(*a, **kw)
+                e1.record()
+                spans.setdefault(_label, []).append((e0, e1))
+                return out
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            spans.setdefault(_label, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(mod, name, timed)
+        saved.append((mod, name, real))
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return restore, spans
+
+
+def sp_postings(oracle: SparseOracle, tokens: dict) -> int:
+    return sum(len(oracle.row(t)[0]) for t in tokens)
+
+
+def run_sp_class(client, name: str, items, cpu=None, cpu_body=None) -> dict:
+    """One class body by body through RestClient.search, the counts set to
+    0 just before: bodies/s, p50 / p99, the ops' event ms and host ms a
+    body, the sparse rung's counts, B1 / B2 launches; then one body on
+    the card against the CPU twin (`cpu_body`, the class's first body by
+    default): -> the class's numbers, its responses under "resps"."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import impactpath
+    bodies = [b for b, _s in items]
+    torch.cuda.synchronize()
+    impactpath.reset_stats()
+    bm25.reset_counts()
+    restore, spans = sp_timer()
+    lat = []
+    t0 = time.perf_counter()
+    try:
+        resps = []
+        for b in bodies:
+            t1 = time.perf_counter()
+            resps.append(client.search("bench", b))
+            lat.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    ms = {k: sum(s if isinstance(s, float) else s[0].elapsed_time(s[1])
+                 for s in v) / len(bodies) for k, v in spans.items()}
+    counts = {**{k: v for k, v in impactpath.STATS.items()
+                 if k.startswith("sparse_")},
+              **{k: bm25.COUNTS[k] for k in ("launches", "impact_launches",
+                                             "bool_launches",
+                                             "plain_calls")}}
+    t_cpu = 0.0
+    if cpu is not None:
+        body = cpu_body or bodies[0]
+        t0 = time.perf_counter()
+        want = cpu.search("bench", body)
+        t_cpu = time.perf_counter() - t0
+        got = resps[0] if cpu_body is None else client.search("bench", body)
+        same_vec(got, want, (SP_RTOL, 1.5e-7, 0.0),
+                 f"{name} card vs CPU: ")
+    out = {"bodies": len(bodies), "wall_s": wall,
+           "bodies_per_s": len(bodies) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
+           "ms_a_body": ms, "counts": counts, "cpu_s": t_cpu,
+           "resps": resps}
+    if len(lat) > 1:
+        out["bodies_per_s_after_first"] = (len(lat) - 1) / (sum(lat[1:])
+                                                           / 1e3)
+    log(f"  {name}: {len(bodies)} bodies in {wall:.2f}s "
+        f"({out['bodies_per_s']:.1f}/s) p50 {out['p50_ms']:.1f} p99 "
+        f"{out['p99_ms']:.1f} ms, first {lat[0]:.1f} ms; ms a body "
+        + " ".join(f"{k}={v:.3f}" for k, v in sorted(ms.items()))
+        + f"; counts {counts}" + (f"; one body card == CPU ({t_cpu:.1f}s)"
+                                  if cpu is not None else ""))
+    return out
+
+
+def sp_attach(big: dict, seed: int) -> dict:
+    """Phase 17's data drawn on the card, its CSR built there and copied
+    to the host, attached to the corpus segment as the `emb` field (a
+    PostingsBlock with its FEATURE plane) and the `pagerank` column, the
+    mapping put: -> the timings, bytes and the oracle's arrays."""
+    import torch
+    from opensearch_tpu_torch.index.segment import (
+        NumericColumn, PostingsBlock, build_feature_impact_plane)
+    client, seg = big["client"], big["seg"]
+    dev = client.device
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    n0 = seg.ndocs
+    sync()
+    t0 = time.perf_counter()
+    tok, w, pagerank = sparse_draw(n0, seed, dev)
+    sync()
+    t_draw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    token_ids, starts, docs, weights = sparse_csr(tok, w)
+    del tok, w
+    pr = pagerank.cpu().numpy()
+    del pagerank
+    t_csr = time.perf_counter() - t0
+    vocab = [sp_token(int(t)) for t in token_ids]
+    pb = PostingsBlock("emb", vocab, {t: i for i, t in enumerate(vocab)},
+                       starts, docs, weights, feature=True)
+    t0 = time.perf_counter()
+    pb.impact = build_feature_impact_plane(pb, device=dev)
+    t_plane = time.perf_counter() - t0
+    seg.postings["emb"] = pb
+    seg.numeric_cols["pagerank"] = NumericColumn("pagerank", "float", pr,
+                                                 np.ones(n0, bool))
+    client.indices.put_mapping("bench", SP_MAPPING)
+    return {"draw_s": t_draw, "csr_s": t_csr, "plane_s": t_plane,
+            "postings": int(pb.size), "rows": len(vocab),
+            "plane_bytes": int(pb.impact.nbytes),
+            "csr_host_bytes": int(docs.nbytes + weights.nbytes),
+            "arrays": (token_ids, starts, docs, weights, pr)}
+
+
+def sp_oracle(big: dict, arrays) -> SparseOracle:
+    """The brute force over phase 17's arrays and every doc's date (the
+    corpus's `ts` column, then the docs indexed later)."""
+    ix = big["ix"]
+    token_ids, starts, docs, weights, pr = arrays
+    ts_c, _rating, _present = big["aggs"]
+    ts_l, _r, has_l = ix.later_arrays()
+    ts = np.concatenate([ts_c.astype(np.int64), ts_l])
+    present = np.concatenate([np.ones(len(ts_c), bool), has_l])
+    return SparseOracle(token_ids, starts, docs, weights, pr, ts, present,
+                        ix, big["client"].device)
+
+
+def phase_sparse_msmarco(big: dict, n: int, seed: int) -> dict:
+    """Phase 17 on phase 16's end state: a `rank_features` field `emb`
+    with index_impacts (64 distinct tokens a passage over SP_VOCAB,
+    Zipf(1.1), drawn and made CSR on the card, its FEATURE plane
+    quantized there) and a `pagerank` rank_feature column attached to
+    the corpus segment; `n` bodies a class of (a) neural_sparse on the
+    pruned sparse rung, (b) the same with exact totals, (c) neural_sparse
+    in a bool with a match and a status filter (the general path's
+    sparse dot), (d) a match with rank_feature shoulds (each function,
+    over a feature and the column), (e) a match with a distance_feature
+    on `ts`, (f) a hybrid of a match, a neural_sparse and an exact kNN
+    (rrf, linear min_max); every page against SparseOracle, one body a
+    class card == CPU (class (f)'s a hybrid of its match and
+    neural_sparse: a kNN on the CPU twin needs a second unit-normed copy
+    of the 27 GB of vectors in host memory)."""
+    import torch
+    from opensearch_tpu_torch.search import impactpath
+    client, seg, ix = big["client"], big["seg"], big["ix"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    if seg not in eng.segments or not np.array_equal(seg.live,
+                                                     ix.live[:seg.ndocs]):
+        raise AssertionError("phase 17: the corpus segment or its live docs "
+                             "differ from the brute force's")
+    drop_cpu_state(eng.segments)
+    trim_host()
+    torch.cuda.synchronize()
+    bytes0 = torch.cuda.memory_allocated(dev)
+    rss0 = rss_bytes()
+    rss_watch = RssPeak().__enter__()
+    att = sp_attach(big, seed)
+    arrays = att.pop("arrays")
+    torch.cuda.synchronize()
+    log(f"  emb: {att['postings']} postings over {att['rows']} tokens "
+        f"({SP_TOKENS} distinct a passage, Zipf({SP_ZIPF}) over {SP_VOCAB}) "
+        f"drawn on the card in {att['draw_s']:.1f}s, CSR built there and "
+        f"copied to the host in {att['csr_s']:.1f}s ({att['csr_host_bytes']}"
+        f" bytes), FEATURE plane {att['plane_s']:.1f}s ({att['plane_bytes']}"
+        f" bytes); host RSS {rss0} at the phase's start, now / peak "
+        f"{rss_bytes()}")
+    t0 = time.perf_counter()
+    pb = seg.postings["emb"]
+    sample = np.random.default_rng([seed, 18]).choice(pb.nterms, 200,
+                                                      replace=False)
+    sp_plane_check(pb, "phase 17", rows=np.concatenate([[0, 1], sample]))
+    log(f"  the FEATURE plane == its numpy form on 202 rows, the two "
+        f"largest among them ({time.perf_counter() - t0:.1f}s)")
+    oracle = sp_oracle(big, arrays)
+    # the vectors drawn again on the card from phase 16's seed (faster
+    # than uploading the host's 27 GB)
+    vec_oracle = VecOracle(None, ix, dev, n0=seg.ndocs,
+                           seed=big["vec"]["seed"])
+    vq = vec_query_vectors(seg.vector_cols["vec"].values, ix.live[:seg.ndocs],
+                           n, seed + 1)
+    classes = sp_classes(big, n, np.random.default_rng([seed, 17]), vq)
+    # the hybrids' kNN sub-pages in one pass over the vectors
+    hyb = [s for _b, s in classes["f_hybrid"]]
+    for s, top in zip(hyb, vec_oracle.top([(s["q"], None, SP_WINDOW)
+                                           for s in hyb])):
+        s["knn_top"] = top
+    cpu = twin_of(eng)
+    cpu.indices.put_mapping("bench", SP_MAPPING)
+    cpu.indices.put_mapping("bench", VEC_PUT_MAPPING)
+    out: dict = {"build": att, "classes": {}}
+    for name, items in classes.items():
+        cpu_body = None
+        if name == "f_hybrid":
+            q = items[0][0]["query"]["hybrid"]
+            cpu_body = {**items[0][0], "query": {"hybrid": {
+                "queries": q["queries"][:2], "fusion": q["fusion"]}}}
+        r = run_sp_class(client, f"({name[0]}) {name[2:]}", items, cpu,
+                         cpu_body)
+        resps = r.pop("resps")
+        t0 = time.perf_counter()
+        for j, ((body, spec), resp) in enumerate(zip(items, resps)):
+            sp_check(resp, sp_want(oracle, ix, body, spec, vec_oracle),
+                     spec, f"phase 17 {name} {j}")
+        r["oracle_s"] = time.perf_counter() - t0
+        if items[0][1]["kind"] in ("dot", "bool", "hybrid"):
+            posts = [sp_postings(oracle, s["tokens"]) for _b, s in items]
+            r["token_postings_a_body"] = float(np.mean(posts))
+        out["classes"][name] = r
+    a = out["classes"]["a_pruned"]
+    if not a["counts"]["sparse_served"] \
+            or not a["counts"]["sparse_blocks_skipped"]:
+        raise AssertionError(f"phase 17: class (a) skipped no block on the "
+                             f"sparse rung: {a['counts']}")
+    if out["classes"]["b_exact"]["counts"]["sparse_blocks_skipped"]:
+        raise AssertionError("phase 17: class (b) pruned")
+    # byte bounds at 3.35 TB/s: the rung reads 4 + 2 bytes a kept posting;
+    # the general path's gather 8 bytes a posting and writes the f32
+    # scores and counts; the top-k reads the scores and the live mask
+    nd = seg.ndocs
+    kept = (a["counts"]["sparse_postings_total"]
+            - a["counts"]["sparse_postings_skipped"]) / a["bodies"]
+    c = out["classes"]["c_bool"]
+    out["bounds_ms"] = {
+        "rung_pass_a": (kept * 6 + 8 * nd) / HBM_BYTES_PER_S * 1e3,
+        "feature_scatter_c": (c["token_postings_a_body"] * 8 + 8 * nd)
+        / HBM_BYTES_PER_S * 1e3,
+        "topk": 5 * nd / HBM_BYTES_PER_S * 1e3}
+    torch.cuda.synchronize()
+    out["device_bytes"] = torch.cuda.memory_allocated(dev) - bytes0
+    rss_watch.__exit__()
+    out["rss_start"], out["rss_end"] = rss0[0], rss_bytes()[0]
+    out["rss_peak"] = rss_watch.peak
+    f = out["classes"]["f_hybrid"]["counts"]
+    out["hybrid_launches"] = {k: f[k] for k in ("launches",
+                                                "impact_launches")}
+    log(f"  bounds at 3.35 TB/s: rung pass (a) "
+        f"{out['bounds_ms']['rung_pass_a']:.4f} ms ({kept:.0f} kept "
+        f"postings a body), feature gather / scatter (c) "
+        f"{out['bounds_ms']['feature_scatter_c']:.4f} ms, top-k "
+        f"{out['bounds_ms']['topk']:.4f} ms; device bytes {out['device_bytes']}"
+        f"; B1 / B2 launches of the hybrids {out['hybrid_launches']}; host "
+        f"RSS start {out['rss_start']}, end {out['rss_end']}, the phase's "
+        f"peak {out['rss_peak']}, the process's {rss_bytes()[1]}")
+    drop_cpu_state(eng.segments)
+    # the oracle's CSR goes (host memory for phase 8's merge): the merged
+    # classes draw it again from the seed
+    for _b, s in classes["f_hybrid"]:
+        s.pop("knn_top")
+    big["sparse"] = {"classes": classes, "seed": seed}
+    impactpath.reset_stats()
+    return out
+
+
+def phase_sparse_merged(big: dict) -> dict:
+    """Phase 8's merged segment: its FEATURE plane rebuilt by the merge
+    against its numpy form, the merged `emb` rows against the live
+    passages' rows, and one body of classes (a), (c) and (f) against the
+    brute force."""
+    import torch
+    client, ix = big["client"], big["ix"]
+    eng = client._indices["bench"].engine
+    (merged,) = eng.segments
+    pb = merged.postings["emb"]
+    t0 = time.perf_counter()
+    tok, w, pagerank = sparse_draw(big["vec"]["n0"], big["sparse"]["seed"],
+                                   client.device)
+    arrays = sparse_csr(tok, w) + (pagerank.cpu().numpy(),)
+    del tok, w, pagerank
+    oracle = sp_oracle(big, arrays)
+    t_draw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sample = np.random.default_rng(19).choice(pb.nterms, 200, replace=False)
+    sp_plane_check(pb, "merged", rows=np.concatenate([[0, 1], sample]))
+    live_g = np.flatnonzero(ix.live)
+    new_of = np.full(ix.n, -1, np.int64)
+    new_of[live_g] = np.arange(len(live_g))
+    for name in (sp_token(0), sp_token(57), sp_token(4321)):
+        d, w = oracle.row(name)
+        keep = ix.live[d]
+        a, b = pb.row_slice(pb.row(name))
+        if not (np.array_equal(pb.doc_ids[a:b], new_of[d[keep]])
+                and np.array_equal(pb.tfs[a:b], w[keep])):
+            raise AssertionError(f"merged emb row {name} != the live "
+                                 f"passages'")
+    t_check = time.perf_counter() - t0
+    classes = big["sparse"]["classes"]
+    vec_oracle = VecOracle(None, ix, client.device, n0=big["vec"]["n0"],
+                           seed=big["vec"]["seed"])
+    out = {"classes": {}, "check_s": t_check, "redraw_s": t_draw}
+    for name in ("a_pruned", "c_bool", "f_hybrid"):
+        items = classes[name][:1]
+        r = run_sp_class(client, f"({name[0]}) {name[2:]}, merged", items)
+        for (body, spec), resp in zip(items, r.pop("resps")):
+            sp_check(resp, sp_want(oracle, ix, body, spec, vec_oracle),
+                     spec, f"merged {name}")
+        out["classes"][name] = r
+    if not out["classes"]["a_pruned"]["counts"]["sparse_served"]:
+        raise AssertionError("merged: class (a) not on the sparse rung")
+    c = out["classes"]["f_hybrid"]["counts"]
+    log(f"  merged: the brute force's CSR drawn again from the seed "
+        f"({t_draw:.1f}s); FEATURE plane == numpy on 202 rows, 3 rows == the "
+        f"live passages' ({t_check:.1f}s); 3 pages == the brute force; the hybrid's B1 / "
+        f"B2 launches {c['launches']} / {c['impact_launches']}")
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
@@ -7740,15 +8682,18 @@ def main() -> int:
     # phase 15 did, phase 7 and phase 13 ran 8 a class and phase 9 32
     # sloppy and prefix bodies; before phase 16 did, phase 9 ran 512
     # config-3 and mixed bodies and 16 sloppy and prefix bodies, phases
-    # 12, 13 and 15 4 bodies a class and phase 10 8 (phase 7's count also
-    # seeds which _ids it re-indexes, which later phases' data follow)
+    # 12, 13 and 15 4 bodies a class and phase 10 8; before phase 17 did,
+    # phase 9 ran 8 sloppy and prefix bodies and phase 8 16 match bodies
+    # around its merge and the whole b3 mix on the merged segment (phase
+    # 7's count also seeds which _ids it re-indexes, which later phases'
+    # data follow)
     ap.add_argument("--queries", type=int, default=128)
     ap.add_argument("--bool-queries", type=int, default=1024)
     ap.add_argument("--general-queries", type=int, default=4,
                     help="phase-7 bodies per class")
     ap.add_argument("--phrase-queries", type=int, default=256,
                     help="phase-9 config-3 and mixed bodies each")
-    ap.add_argument("--phrase-sloppy", type=int, default=8,
+    ap.add_argument("--phrase-sloppy", type=int, default=4,
                     help="phase-9 sloppy and prefix bodies together")
     ap.add_argument("--agg-queries", type=int, default=4,
                     help="phase-10 bodies per class (the refinement class "
@@ -7768,16 +8713,19 @@ def main() -> int:
     ap.add_argument("--vector-queries", type=int, default=4,
                     help="phase-16 bodies per class (class (f) is one "
                     "msearch of 64)")
+    ap.add_argument("--sparse-queries", type=int, default=4,
+                    help="phase-17 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 16; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 8); no result "
+                    help="end after this phase (3 to 17; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 8); no result "
                     "line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    draws = HostDraws(args.ndocs) if args.stop_after not in (3, 4) else None
     from opensearch_tpu_torch.ops import _build
     t_start = time.perf_counter()
 
@@ -7836,6 +8784,7 @@ def main() -> int:
     log("[4] slice, small: RestClient on cuda vs cpu" + at(t_start))
     phase_slice_small(rng(7))
     vec_small = phase_vectors_small(rng(9))
+    sp_small = phase_sparse_small(rng(10))
     if args.stop_after == 4:
         return 0
 
@@ -7847,7 +8796,7 @@ def main() -> int:
     if args.queries < 2048:
         log(f"  cut: {args.queries} match queries (2048 uncut), so that "
             f"phases 6-12 fit the same time limit")
-    big = phase_msmarco(args.ndocs, args.queries)
+    big = phase_msmarco(args.ndocs, args.queries, draws)
     if args.stop_after == 5:
         return 0
 
@@ -7953,6 +8902,17 @@ def main() -> int:
     if args.stop_after == 16:
         return 0
 
+    log(f"[17] learned sparse retrieval (neural_sparse on the impact "
+        f"rung's FEATURE plane and the general path's sparse dot), "
+        f"rank_feature and distance_feature at MS MARCO passage scale "
+        f"(ndocs={args.ndocs}, {SP_TOKENS} tokens a passage over "
+        f"{SP_VOCAB}), on phase 16's end state; classes (a), (c), (f) again "
+        f"after phase 8" + at(t_start))
+    sparse = phase_sparse_msmarco(big, args.sparse_queries, args.seed)
+    sparse["small"] = sp_small
+    if args.stop_after == 17:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
@@ -7982,6 +8942,10 @@ def main() -> int:
         "segment (its IVF index rebuilt)" + at(t_start))
     vectors["merged"] = phase_vectors_merged(big)
     vh = vectors["merged"]["classes"]["e_hybrid"]["counts"]
+    log("[17m] phase 17's classes (a), (c) and (f), on phase 8's merged "
+        "segment (its FEATURE plane rebuilt by the merge)" + at(t_start))
+    sparse["merged"] = phase_sparse_merged(big)
+    sh = sparse["hybrid_launches"]
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -7994,6 +8958,7 @@ def main() -> int:
         "launches_compound": cm["wrapper"]["counts"]["launches"],
         "launches_body_options": sum(c["launches"] for c in rc),
         "launches_hybrid": vh["launches"],
+        "launches_sparse_hybrid": sh["launches"],
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -8007,6 +8972,7 @@ def main() -> int:
         "launches_compound": cm["wrapper"]["counts"]["impact_launches"],
         "launches_body_options": sum(c["impact_launches"] for c in rc),
         "launches_hybrid": vh["impact_launches"],
+        "launches_sparse_hybrid": sh["impact_launches"],
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -8057,6 +9023,7 @@ def main() -> int:
     print(json.dumps({"body_options": options}), flush=True)
     print(json.dumps({"longtail_aggs": longtail}), flush=True)
     print(json.dumps({"vectors": vectors}), flush=True)
+    print(json.dumps({"sparse": sparse}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,13 +24,12 @@ import numpy as np
 from .index.convert import segment_from_arrays
 
 
-def build_corpus(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
-                 seed: int = 0, device=None):
-    """-> (starts i64[vocab+1], doc_ids i32[P], tfs f32[P], dl i64[ndocs],
-    df i64[vocab]) of a CSR body field. The (term, doc) keys are counted
-    on `device` (the CPU when None): the same sorted keys and counts as
-    bench.py's np.unique."""
-    import torch
+def corpus_keys(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
+                seed: int = 0) -> np.ndarray:
+    """The body field's tokens drawn from `seed` as (term * ndocs + doc)
+    keys, i64 in token order: the host half of `build_corpus` (numpy's
+    draws release the interpreter lock, so a caller may run it on a
+    thread)."""
     rng = np.random.default_rng(seed)
     dl = np.clip(rng.lognormal(np.log(avg_dl), 0.4, ndocs), 8,
                  256).astype(np.int64)
@@ -38,8 +37,19 @@ def build_corpus(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
     doc_of_tok = np.repeat(np.arange(ndocs, dtype=np.int64), dl)
     terms = rng.zipf(1.15, total).astype(np.int64)
     terms = np.where(terms > vocab, rng.integers(1, vocab, total), terms) - 1
-    keys = terms * ndocs + doc_of_tok
-    del terms, doc_of_tok
+    return terms * ndocs + doc_of_tok
+
+
+def build_corpus(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
+                 seed: int = 0, device=None, keys=None):
+    """-> (starts i64[vocab+1], doc_ids i32[P], tfs f32[P], dl i64[ndocs],
+    df i64[vocab]) of a CSR body field. The (term, doc) keys
+    (`corpus_keys`, or `keys` drawn by it already) are counted on
+    `device` (the CPU when None): the same sorted keys and counts as
+    bench.py's np.unique."""
+    import torch
+    if keys is None:
+        keys = corpus_keys(ndocs, vocab, avg_dl, seed)
     u, c = torch.unique(torch.from_numpy(keys).to(device or "cpu"),
                         sorted=True, return_counts=True)
     del keys

@@ -2,7 +2,8 @@
 
 The arguments are exactly what an opensearch_tpu Segment holds for its
 inverted fields (CSR postings with their positions, doc lengths, text
-stats and, on codec v2, each field's ImpactPlane arrays) and its doc
+stats and, on codec v2, each field's ImpactPlane arrays, a feature
+field's FEATURE plane among them) and its doc
 values (each NumericColumn's kind, values and present mask, each
 KeywordColumn's vocab and ordinal arrays) and its dense vectors (each
 VectorColumn's values, present mask, similarity and method), so a
@@ -43,15 +44,19 @@ def segment_from_arrays(name: str, ndocs: int,
                         device=None) -> Segment:
     """`postings[field]` = dict(vocab, starts, doc_ids, tfs) in CSR form
     (vocab sorted, docs ascending per row), with `pos_starts` and
-    `positions` for a positional field; `text_stats[field]` =
+    `positions` for a positional field and `feature` True for a
+    rank_features / sparse_vector field (the tfs its weights);
+    `text_stats[field]` =
     (doc_count, sum_dl); `live` None means no deletes. `ids`/`sources` may
     be any indexable sequences (a lazy view serves a synthetic corpus).
 
     `impacts[field]` = dict of IMPACT_FIELDS (a reference segment's
-    ImpactPlane) attaches those planes as they are and stamps the segment
-    codec v2. Without it the segment is codec v2 with planes built here
-    (quantized on `device`), unless OPENSEARCH_TPU_CODEC=1 pins v1, as a
-    refresh does.
+    ImpactPlane, and its `kind`, "feature" for a FEATURE plane) attaches
+    those planes as they are and stamps the segment codec v2. Without it
+    the segment is codec v2 with planes built here (quantized on
+    `device`; a FEATURE plane for each feature field whose `postings`
+    entry sets `index_impacts`), unless OPENSEARCH_TPU_CODEC=1 pins v1,
+    as a refresh does.
 
     `numeric_cols[field]` = a reference segment's NumericColumn, or a dict
     of its `kind`, `values` and `present`, taken as it is: kind "int"
@@ -71,7 +76,8 @@ def segment_from_arrays(name: str, ndocs: int,
                 or len(tfs) != len(doc_ids):
             raise ValueError(f"inconsistent CSR arrays for field [{field}]")
         pb = PostingsBlock(field, vocab, {t: i for i, t in enumerate(vocab)},
-                           starts, doc_ids, tfs)
+                           starts, doc_ids, tfs,
+                           feature=bool(p.get("feature", False)))
         if p.get("pos_starts") is not None:
             pb.pos_starts = np.asarray(p["pos_starts"], np.int64)
             pb.positions = np.asarray(p["positions"], np.int32)
@@ -123,8 +129,13 @@ def segment_from_arrays(name: str, ndocs: int,
     if impacts is not None:
         for field, fields in impacts.items():
             blocks[field].impact = ImpactPlane(
-                **{k: fields[k] for k in IMPACT_FIELDS})
+                **{k: fields[k] for k in IMPACT_FIELDS},
+                kind=str(fields.get("kind") or "bm25"))
+            if blocks[field].impact.kind == "feature":
+                blocks[field].feature = True
         seg.codec_version = CODEC_V2
     elif default_codec_version() >= CODEC_V2:
-        seg.build_impacts(device=device)
+        seg.build_impacts(feature_fields=[
+            f for f, p in postings.items()
+            if p.get("feature") and p.get("index_impacts")], device=device)
     return seg

@@ -1,15 +1,22 @@
 """Field mappings and document parsing (the text, keyword, integer,
-long, date, boolean, double, float and dense vector subset of
+long, date, boolean, double, float, rank_feature, rank_features /
+sparse_vector and dense vector subset of
 opensearch_tpu/index/mappings.py).
 
 Documents are parsed on the host into per-field term lists (text and
 keyword), the token positions of text fields, keyword doc values (the
 normalized values of keyword fields and subfields), numeric doc
 values (integer, long, date (epoch millis) and boolean (0/1) as exact
-i64, double and float as f64) and dense vectors (`dense_vector` /
+i64, double, float and rank_feature as f64; a rank_feature value must
+be positive), feature weights (`rank_features` / `sparse_vector`: an
+object of feature -> positive weight, kept per doc in
+`ParsedDocument.features`; `positive_score_impact` flips the
+rank_feature functions, `index_impacts` asks for a codec-v2 FEATURE
+impact plane and is a ValueError on any other type) and dense vectors
+(`dense_vector` /
 `knn_vector`: a list is ONE vector, whose length must equal the mapped
 `dims`). The device only ever sees term rows, positions, keyword
-ordinals, numeric columns and vector matrices. A vector field's
+ordinals, numeric columns, feature postings and vector matrices. A vector field's
 `similarity` / `space_type` is kept as given (`cosine`, `dot_product` /
 `innerproduct`; any other name scores as L2, as in the reference), and
 its `method` / `index_options` normalize to the reference's
@@ -36,13 +43,15 @@ KEYWORD_TYPES = {"keyword"}
 # the ported subset of the reference's long family (exact i64 doc values:
 # dates as epoch millis, booleans as 0/1) and of its float family (f64)
 INT_TYPES = {"integer", "long", "date", "boolean"}
-FLOAT_TYPES = {"double", "float"}
+FLOAT_TYPES = {"double", "float", "rank_feature"}
 NUMERIC_TYPES = INT_TYPES | FLOAT_TYPES
 VECTOR_TYPES = {"dense_vector", "knn_vector"}
+# feature-weight CSR fields: rows are features, the tf slot the weight
+FEATURE_TYPES = {"rank_features", "sparse_vector"}
 _INT_BITS = {"integer": 31, "long": 63}
 _FIELD_OPTIONS = {"type", "analyzer", "search_analyzer", "normalizer",
                   "index", "doc_values", "ignore_above", "norms", "fields",
-                  "format"}
+                  "format", "positive_score_impact", "index_impacts"}
 # a vector field's own parameters (dims, similarity, ANN method)
 _VECTOR_OPTIONS = {"dims", "dimension", "similarity", "space_type",
                    "method", "index_options"}
@@ -67,6 +76,10 @@ class FieldType:
     # ANN method: {"name": "ivf", "nlist": int|None, "nprobe": int|None},
     # or None for the exact scan (the default)
     vector_method: Optional[dict] = None
+    # rank_feature(s): False flips the scoring functions
+    positive_score_impact: bool = True
+    # rank_features / sparse_vector: build a FEATURE impact plane
+    index_impacts: bool = False
 
     @property
     def has_norms(self) -> bool:
@@ -92,6 +105,8 @@ class ParsedDocument:
         default_factory=dict)
     # vector field -> its one vector
     vectors: Dict[str, List[float]] = dc_field(default_factory=dict)
+    # feature field -> {feature: weight}
+    features: Dict[str, Dict[str, float]] = dc_field(default_factory=dict)
 
 
 def _parse_date(value: Any, fmt: Optional[str]) -> int:
@@ -138,7 +153,11 @@ def coerce_value(ft: "FieldType", value: Any):
             raise ValueError(f"cannot parse boolean [{value}]")
         return 1 if bool(value) else 0
     if t in FLOAT_TYPES:
-        return float(value)
+        fv = float(value)
+        if t == "rank_feature" and fv <= 0:
+            raise ValueError(
+                f"[rank_feature] fields must hold positive values, got [{fv}]")
+        return fv
     if t not in _INT_BITS:
         raise ValueError(f"cannot coerce for type [{t}]")
     iv = int(value)
@@ -202,7 +221,7 @@ class Mappings:
 
     def _build_field(self, path: str, ftype: str, cfg: dict) -> FieldType:
         if ftype not in TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES \
-                | VECTOR_TYPES:
+                | VECTOR_TYPES | FEATURE_TYPES:
             raise NotPortedError(f"field type [{ftype}] (field [{path}])")
         allowed = _FIELD_OPTIONS | (_VECTOR_OPTIONS if ftype in VECTOR_TYPES
                                     else set())
@@ -224,6 +243,14 @@ class Mappings:
                                       cfg.get("space_type", "cosine")))
         if ftype in VECTOR_TYPES:
             ft.vector_method = _vector_method(path, cfg)
+        ft.positive_score_impact = bool(cfg.get("positive_score_impact",
+                                                True))
+        if "index_impacts" in cfg:
+            if ftype not in FEATURE_TYPES:
+                raise ValueError(
+                    f"Field [{path}]: [index_impacts] only applies to "
+                    f"rank_features/sparse_vector fields")
+            ft.index_impacts = bool(cfg["index_impacts"])
         for sub, subcfg in cfg.get("fields", {}).items():
             ft.subfields[sub] = self._build_field(
                 f"{path}.{sub}", subcfg.get("type", "keyword"), subcfg)
@@ -317,10 +344,19 @@ class Mappings:
         for key, value in obj.items():
             path = f"{prefix}{key}"
             if isinstance(value, dict):
-                self._parse_obj(value, f"{path}.", parsed)
+                ft = self.resolve_field(path)
+                if ft is not None and ft.type in FEATURE_TYPES:
+                    self._index_value(ft, value, parsed)
+                else:
+                    self._parse_obj(value, f"{path}.", parsed)
                 continue
             values = value if isinstance(value, list) else [value]
             if values and all(isinstance(v, dict) for v in values):
+                lft = self.resolve_field(path)
+                if lft is not None and lft.type in FEATURE_TYPES:
+                    raise ValueError(
+                        f"[{lft.type}] field [{path}] does not support "
+                        f"arrays of feature objects")
                 for v in values:
                     self._parse_obj(v, f"{path}.", parsed)
                 continue
@@ -363,6 +399,20 @@ class Mappings:
             return
         if ft.type in NUMERIC_TYPES:
             parsed.numerics.setdefault(name, []).append(coerce_value(ft, v))
+            return
+        if ft.type in FEATURE_TYPES:
+            if not isinstance(v, dict):
+                raise ValueError(
+                    f"[{ft.type}] field [{name}] must hold an object of "
+                    f"feature weights")
+            bucket = parsed.features.setdefault(name, {})
+            for feat, w in v.items():
+                w = float(w)
+                if w <= 0:
+                    raise ValueError(
+                        f"[{ft.type}] weights must be positive, got "
+                        f"[{feat}]={w}")
+                bucket[str(feat)] = w
             return
         if ft.type in VECTOR_TYPES:
             vec = [float(x) for x in (v if isinstance(v, list) else [v])]

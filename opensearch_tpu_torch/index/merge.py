@@ -13,10 +13,13 @@ merged column builds its IVF index on first use. Postings (text and keyword rows
 as one sort of (union row, new doc) triples: on the engine's device at
 DEVICE_MERGE_MIN postings and above (`ops/device_merge.merge_sorted_runs`),
 else `np.lexsort`; a positional field's position runs follow their
-postings through the sort's order. Codec-v2 impact planes are rebuilt
+postings through the sort's order. A field that one input holds keeps
+that input's order (a doc map keeps it), so it merges without the sort. Codec-v2 impact planes are rebuilt
 from the merged tf and doc-length planes: the merged field's avgdl
 differs from every input's, so carried quantized values would bake a
-stale norm.
+stale norm. Feature fields (rank_features / sparse_vector) merge as
+postings whose tf slot is the weight, and a FEATURE plane is rebuilt
+for every field that any input carried one for.
 
 The reference runs a BP doc-id reorder on a codec-v2 merge of
 REORDER_MIN_DOCS docs or more (opensearch_tpu/index/reorder.py), and its
@@ -145,11 +148,6 @@ def _check_ported(segments: List[Segment]) -> None:
         for attr in _UNPORTED_PLANES:
             if getattr(s, attr, None):
                 raise NotPortedError(f"merging a segment with [{attr}]")
-        for f, pb in s.postings.items():
-            if pb.impact is not None and \
-                    getattr(pb.impact, "kind", "bm25") != "bm25":
-                raise NotPortedError(f"merging a feature impact plane "
-                                     f"(field [{f}])")
 
 
 def _merge_ids_sources(segments, live_masks):
@@ -194,6 +192,11 @@ def _merge_postings(field: str, segments, dmaps, device):
     has_pos = all(field not in s.postings
                   or s.postings[field].pos_starts is not None
                   for s in segments)
+    held = [(s, dmap) for s, dmap in zip(segments, dmaps)
+            if field in s.postings and s.postings[field].size]
+    if len(held) == 1 and held[0][0].postings[field].vocab == vocab_union:
+        return _merge_one_input(field, *held[0], has_pos, vocab_union,
+                                new_row_of)
     rows_parts, docs_parts, tfs_parts = [], [], []
     plen_parts, pos_parts = [], []
     t_pos = 0.0
@@ -244,7 +247,10 @@ def _merge_postings(field: str, segments, dmaps, device):
     t_sort = time.perf_counter() - t0
     pb = PostingsBlock(field, vocab_union, new_row_of, starts,
                        docs.astype(np.int32, copy=False),
-                       tfs.astype(np.float32, copy=False))
+                       tfs.astype(np.float32, copy=False),
+                       feature=any(s.postings[field].feature
+                                   for s in segments
+                                   if field in s.postings))
     if has_pos:
         t1 = time.perf_counter()
         # positions were concatenated in pre-sort posting order
@@ -258,6 +264,48 @@ def _merge_postings(field: str, segments, dmaps, device):
         np.cumsum(plens, out=pb.pos_starts[1:])
         t_pos += time.perf_counter() - t1
     return pb, t_sort, t_pos
+
+
+def _merge_one_input(field: str, s, dmap, has_pos: bool, vocab, row_of):
+    """`_merge_postings` where one input holds every posting of the field
+    under the merged vocab: its live docs keep their order within each
+    row (a doc map keeps an input's order), so the sorted merge's result
+    is that input's CSR with deleted docs dropped and doc ids remapped,
+    built without the sort; -> (PostingsBlock, 0.0, positions
+    seconds)."""
+    pb = s.postings[field]
+    docs = dmap.astype(np.int32)[pb.doc_ids]
+    tfs = pb.tfs
+    starts = pb.starts
+    keep = None
+    if s.live_count != s.ndocs:
+        keep = docs >= 0
+        lens = np.diff(pb.starts)
+        counts = np.zeros(len(lens), np.int64)
+        nz = lens > 0
+        counts[nz] = np.add.reduceat(keep, pb.starts[:-1][nz],
+                                     dtype=np.int64)
+        starts = np.zeros(len(lens) + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        docs, tfs = docs[keep], tfs[keep]
+    # without deletes the tf and position arrays are shared: a
+    # segment's postings are never written after its build
+    out = PostingsBlock(field, vocab, row_of, starts, docs,
+                        np.asarray(tfs, np.float32), feature=pb.feature)
+    t_pos = 0.0
+    if has_pos:
+        t1 = time.perf_counter()
+        plens = np.diff(pb.pos_starts)
+        if keep is None:
+            out.positions = pb.positions
+        else:
+            plens = plens[keep]
+            out.positions = pb.positions[ranges_gather(
+                pb.pos_starts[:-1][keep], plens)]
+        out.pos_starts = np.zeros(len(plens) + 1, np.int64)
+        np.cumsum(plens, out=out.pos_starts[1:])
+        t_pos = time.perf_counter() - t1
+    return out, 0.0, t_pos
 
 
 def _merge_keywords(field: str, segments, dmaps,
@@ -386,7 +434,12 @@ def merge_segments(name: str, segments: List[Segment],
     t_host = time.perf_counter() - t0 - t_sort - t_pos
     t1 = time.perf_counter()
     if default_codec_version() >= CODEC_V2:
-        merged.build_impacts(device=device)
+        # a FEATURE plane is rebuilt wherever any input carried one: the
+        # opt-in travels with the data, so a merge needs no mappings
+        merged.build_impacts(feature_fields={
+            f for s in segments for f, pb in s.postings.items()
+            if pb.impact is not None and pb.impact.kind == "feature"},
+            device=device)
     t2 = time.perf_counter()
     # last, when the postings' and the quantizer's temporaries are gone:
     # a column may be as large as every other plane together

@@ -29,8 +29,17 @@ evaluated at build time under nominal similarity parameters, quantized to
 u8/u16 with one global per-field scale, plus a per-128-posting block-max
 sidecar. The quantizer runs as torch ops on the engine's device for large
 planes (`ops/device_merge.py`) and in numpy below DEVICE_IMPACT_MIN
-postings, as the reference does. Feature planes (rank_features) are not
-ported.
+postings, as the reference does.
+
+Feature fields (`rank_features` / `sparse_vector`) are CSR postings too:
+rows are the sorted feature vocabulary and the tf slot carries each
+doc's f32 weight (`PostingsBlock.feature`; no positions, no doc
+lengths). A field whose mapping sets `index_impacts` gets a FEATURE
+impact plane (`ImpactPlane.kind == "feature"`): the weights quantized
+directly with one global scale, max weight / qmax, and the same block
+sidecar, so `neural_sparse` serves on the impact rung; its device
+arrays keep the f32 weights beside the plane (`csr_on`), which
+`rank_feature` and the general path's sparse dot read.
 
 `vector_cols` holds each dense vector field's `VectorColumn`: f32
 [ndocs, dims] values, a `present` mask, the similarity and the ANN
@@ -95,6 +104,10 @@ class ImpactPlane:
     block_starts: np.ndarray  # i64[nterms+1] block-CSR row pointers
     block_off: np.ndarray     # i64[nblocks] flat element start per block
     block_max: np.ndarray     # u8/u16[nblocks] max q per block
+    # "bm25": q dequantizes to the tf saturation at the build params;
+    # "feature": q dequantizes to the stored feature weight itself, so
+    # quantization is the only error (drift_bound never applies)
+    kind: str = "bm25"
 
     @property
     def qmax(self) -> int:
@@ -185,6 +198,40 @@ def build_impact_plane(pb: "PostingsBlock", dl: Optional[np.ndarray],
                        block_off=block_off, block_max=block_max)
 
 
+def build_feature_impact_plane(pb: "PostingsBlock",
+                               bits: Optional[int] = None,
+                               device=None) -> Optional[ImpactPlane]:
+    """Quantize one feature field's weights into a FEATURE plane: scale
+    = max weight / qmax (in double), q = round(w / f32(scale)) in f32,
+    half to even, clipped to qmax, plus the block sidecar; None for an
+    empty or all-zero field. Planes of at least DEVICE_IMPACT_MIN
+    postings quantize as torch ops on `device` (the CPU when None),
+    equal to the numpy form bit for bit."""
+    if pb.size == 0:
+        return None
+    bits = default_impact_bits() if bits is None else int(bits)
+    qmax = (1 << bits) - 1
+    dtype = np.uint8 if bits == 8 else np.uint16
+    from ..ops.device_merge import quantize_features, use_device_impacts
+    if use_device_impacts(pb.size):
+        got = quantize_features(pb.tfs, qmax, device)
+        if got is None:
+            return None
+        q, scale = got
+    else:
+        w = pb.tfs.astype(np.float32)
+        m = float(w.max())
+        if m <= 0.0:
+            return None
+        scale = m / qmax
+        q = np.minimum(np.round(w / np.float32(scale)), qmax).astype(dtype)
+    block_starts, block_off, block_max = _impact_sidecar(pb, q)
+    return ImpactPlane(q=q, scale=float(scale), bits=bits,
+                       k1=0.0, b=0.0, avgdl=1.0, dl_max=0,
+                       block_starts=block_starts, block_off=block_off,
+                       block_max=block_max, kind="feature")
+
+
 def _impact_sidecar(pb: "PostingsBlock", q: np.ndarray):
     """Per-IMPACT_BLOCK-posting block-max sidecar over one quantized
     plane: (block_starts i64[nterms+1], block_off i64[nblocks],
@@ -234,6 +281,8 @@ class PostingsBlock:
     positions: Optional[np.ndarray] = None    # i32[total positions]
     # codec v2: quantized eager impacts + block-max sidecar (None on v1)
     impact: Optional[ImpactPlane] = None
+    # a rank_features / sparse_vector field: the tf slot is an f32 weight
+    feature: bool = False
 
     @property
     def nterms(self) -> int:
@@ -386,14 +435,18 @@ class Segment:
                       feature_fields: Sequence[str] = (),
                       device=None) -> None:
         """Build quantized impact planes for every text-scored field
-        (fields with a doc-length column) and stamp the segment codec v2.
-        Idempotent. Feature planes (rank_features fields that opted into
-        `index_impacts`) are not ported and raise."""
-        if feature_fields:
-            raise NotPortedError("feature impact planes (rank_features "
-                                 "fields with index_impacts)")
+        (fields with a doc-length column) and a FEATURE plane for each of
+        `feature_fields` (feature fields whose mapping set
+        `index_impacts`), and stamp the segment codec v2. Idempotent."""
+        feature_fields = set(feature_fields)
         for f, pb in self.postings.items():
-            if pb.impact is not None or f not in self.doc_lens:
+            if pb.impact is not None:
+                continue
+            if f in feature_fields and f not in self.doc_lens:
+                pb.impact = build_feature_impact_plane(pb, bits=bits,
+                                                       device=device)
+                continue
+            if f not in self.doc_lens:
                 continue
             st = self.text_stats.get(f)
             avgdl = (st.sum_dl / st.doc_count
@@ -523,8 +576,15 @@ class Segment:
         pb = self.postings[field]
 
         def make():
-            imp = (None if pb.impact is None else
-                   torch.from_numpy(pb.impact.q.astype(np.int32)).to(device))
+            imp = None
+            if pb.impact is not None:
+                q = pb.impact.q
+                # uploaded at its own width, widened on the device
+                if q.dtype == np.uint16:
+                    imp = torch.from_numpy(q.view(np.int16)).to(device).to(
+                        torch.int32) & 0xFFFF
+                else:
+                    imp = torch.from_numpy(q).to(device).to(torch.int32)
             return (torch.from_numpy(pb.doc_ids).to(device),
                     torch.from_numpy(pb.tfs).to(device), imp)
         return self.device_cached(("csr", field), device, make)
@@ -669,9 +729,10 @@ class Segment:
                 meta["impacts"][f] = {"scale": ip.scale, "bits": ip.bits,
                                       "k1": ip.k1, "b": ip.b,
                                       "avgdl": ip.avgdl,
-                                      "dl_max": ip.dl_max, "kind": "bm25"}
+                                      "dl_max": ip.dl_max, "kind": ip.kind}
             meta["postings"][f] = {"vocab_file": True,
-                                   "positional": pb.pos_starts is not None}
+                                   "positional": pb.pos_starts is not None,
+                                   "feature": pb.feature}
             with open(os.path.join(path, f"vocab__{_fname(f)}.txt"),
                       "w") as fh:
                 fh.write("\n".join(pb.vocab))
@@ -742,7 +803,11 @@ class Segment:
                     dl_max=int(im["dl_max"]),
                     block_starts=arrays[f"imp__{f}__bstarts"],
                     block_off=arrays[f"imp__{f}__boff"],
-                    block_max=arrays[f"imp__{f}__bmax"])
+                    block_max=arrays[f"imp__{f}__bmax"],
+                    kind=str(im.get("kind", "bm25")))
+            # a reference segment marks a feature field by its plane alone
+            pb.feature = bool(meta["postings"][f].get("feature")) or (
+                pb.impact is not None and pb.impact.kind == "feature")
             postings[f] = pb
         numeric = {f: NumericColumn(f, m["kind"],
                                     arrays[f"num__{f}__values"],
@@ -854,12 +919,39 @@ def _keyword_column(fname: str, parsed_docs: list) -> KeywordColumn:
                          np.asarray(flat_docs, dtype=np.int32), min_ord)
 
 
+def feature_postings(fname: str, parsed_docs: list) -> PostingsBlock:
+    """One feature field's CSR postings: rows are the sorted features,
+    docs ascending within a row, the tf slot each doc's f32 weight."""
+    feat_docs: Dict[str, List[Tuple[int, float]]] = {}
+    for doc_i, pd in enumerate(parsed_docs):
+        for feat, w in pd.features.get(fname, {}).items():
+            feat_docs.setdefault(feat, []).append((doc_i, w))
+    vocab = sorted(feat_docs)
+    starts = np.zeros(len(vocab) + 1, dtype=np.int64)
+    np.cumsum([len(feat_docs[t]) for t in vocab], out=starts[1:])
+    flat = [p for t in vocab for p in feat_docs[t]]
+    return PostingsBlock(
+        fname, vocab, {t: i for i, t in enumerate(vocab)}, starts,
+        np.fromiter((d for d, _ in flat), np.int32, count=len(flat)),
+        np.fromiter((w for _, w in flat), np.float32, count=len(flat)),
+        feature=True)
+
+
+def feature_impact_fields(mappings: Mappings, fields) -> List[str]:
+    """The feature fields among `fields` whose mapping set
+    `index_impacts`: those get a FEATURE plane at a refresh."""
+    return [f for f in sorted(fields)
+            if getattr(mappings.resolve_field(f), "index_impacts", False)]
+
+
 def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                   seq_nos: Optional[List[int]] = None,
                   device=None) -> Segment:
     """Build an immutable segment from buffered parsed docs (the refresh
-    path): positional postings, codec v2 unless OPENSEARCH_TPU_CODEC=1,
-    with large impact planes quantized on `device`."""
+    path): positional postings, feature postings, codec v2 unless
+    OPENSEARCH_TPU_CODEC=1, with large impact planes (FEATURE planes for
+    the feature fields whose mapping set `index_impacts`) quantized on
+    `device`."""
     ndocs = len(parsed_docs)
     doc_lens: Dict[str, np.ndarray] = {}
     text_stats: Dict[str, TextFieldStats] = {}
@@ -905,12 +997,17 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
             fname, values, present,
             ft.vector_similarity if ft is not None else "cosine",
             method=ft.vector_method if ft is not None else None)
+    postings = pack_postings(parsed_docs)
+    feat_fields = {f for pd in parsed_docs for f in pd.features}
+    for fname in sorted(feat_fields):
+        postings[fname] = feature_postings(fname, parsed_docs)
     seq = np.asarray(seq_nos, dtype=np.int64) if seq_nos is not None else None
-    seg = Segment(name, ndocs, pack_postings(parsed_docs),
+    seg = Segment(name, ndocs, postings,
                   doc_lens, text_stats, [d.doc_id for d in parsed_docs],
                   [d.source for d in parsed_docs], seq_nos=seq,
                   numeric_cols=numeric_cols, keyword_cols=keyword_cols,
                   vector_cols=vector_cols)
     if default_codec_version() >= CODEC_V2:
-        seg.build_impacts(device=device)
+        seg.build_impacts(feature_fields=feature_impact_fields(
+            mappings, feat_fields), device=device)
     return seg

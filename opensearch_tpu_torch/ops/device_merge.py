@@ -12,7 +12,8 @@ bit for bit.
 
 Above DEVICE_IMPACT_MIN postings the quantizer runs as torch ops on the
 engine's device, so refresh does not serialize on a host pass; below it
-the numpy branch of `index/segment.build_impact_plane` runs. The f32
+the numpy branch of `index/segment.build_impact_plane` runs (and of
+`build_feature_impact_plane` for a feature field's weights). The f32
 expression, the global scale and round-half-to-even match the reference's
 jitted quantizer; every scalar is a 0-d tensor on the device, so each
 operation rounds once in f32 as the reference's weak-typed scalars do.
@@ -20,7 +21,7 @@ operation rounds once in f32 as the reference's weak-typed scalars do.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +76,39 @@ def quantize_impacts(tfs: np.ndarray, dl_of: np.ndarray, k1: float,
     scale = torch.where(m > 0, m / f32(qmax), f32(1.0))
     q = torch.clamp(torch.round(imp / scale), max=qmax).to(torch.int32)
     return q.cpu().numpy(), float(scale.cpu())
+
+
+# postings a step of the feature quantizer moves to the device
+FEATURE_CHUNK = 1 << 26
+
+
+def quantize_features(weights: np.ndarray, qmax: int, device=None
+                      ) -> Optional[Tuple[np.ndarray, float]]:
+    """-> (q u8/u16[P] (u8 when qmax is 255), scale) of a FEATURE plane
+    computed on `device` (the CPU when None) in steps of FEATURE_CHUNK
+    weights, or None when no weight is positive: scale = max / qmax in
+    double, q = round(w / f32(scale)) in f32, half to even, clipped to
+    qmax; bit-equal to `index/segment.build_feature_impact_plane`'s
+    numpy form (the max is exact, the division rounds once)."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    w = np.ascontiguousarray(weights, np.float32)
+    step = FEATURE_CHUNK
+    m = max((float(torch.from_numpy(w[a:a + step]).to(dev).max().cpu())
+             for a in range(0, len(w), step)), default=0.0)
+    if m <= 0.0:
+        return None
+    scale = m / qmax
+    div = torch.tensor(np.float32(scale), device=dev)
+    u8 = qmax <= 255
+    q = np.empty(len(w), np.uint8 if u8 else np.uint16)
+    for a in range(0, len(w), step):
+        part = torch.clamp(torch.round(
+            torch.from_numpy(w[a:a + step]).to(dev) / div), max=qmax).to(
+                torch.int32)
+        # u16 values travel as their i16 bit patterns
+        part = part.to(torch.uint8 if u8 else torch.int16).cpu().numpy()
+        q[a:a + len(part)] = part if u8 else part.view(np.uint16)
+    return q, scale
 
 
 def use_device_impacts(total_postings: int) -> bool:

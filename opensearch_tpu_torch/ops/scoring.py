@@ -1,5 +1,6 @@
-"""Scoring primitives of the general query path (the BM25 subset of
-opensearch_tpu/ops/scoring.py), as plain tensor code on any device.
+"""Scoring primitives of the general query path (the BM25, feature and
+rank_feature subset of opensearch_tpu/ops/scoring.py), as plain tensor
+code on any device.
 
 `posting_contrib` is THE per-posting f32 expression every scorer in the
 port evaluates, in this exact operation order (no fused multiply-add):
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -235,6 +236,53 @@ def dismax(sms: Sequence[ScoredMask], tie: float, boost: float,
     scores = best + tie * (total - best)
     return ScoredMask(torch.where(matched, scores * boost, zeros),
                       matched.to(torch.float32))
+
+
+def feature_score(post: FieldPostings, live: torch.Tensor,
+                  rows: Sequence[int], ndocs: int,
+                  contrib_fn: Callable) -> ScoredMask:
+    """Score a feature-postings row group (rank_feature, the sparse dot):
+    gather each row's (doc, f32 weight) postings, `contrib_fn(weight,
+    row index of each posting)`, per-doc sums row by row in row order,
+    match counts; zero outside `live`. A row < 0 (absent feature) adds
+    nothing."""
+    dev = post.device
+    starts, lens = post.windows(rows)
+    src, win = gather_windows(starts, lens, dev)
+    docs = post.d_docs[src].long()
+    contrib = contrib_fn(post.d_tfs[src], win)
+    bounds = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=bounds[1:])
+    scores = torch.zeros(ndocs, dtype=torch.float32, device=dev)
+    _add_by_segment(scores, docs, contrib, bounds)
+    counts = torch.zeros(ndocs, dtype=torch.float32, device=dev)
+    counts.index_add_(0, docs, torch.ones_like(contrib))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return ScoredMask(torch.where(live, scores, zero),
+                      torch.where(live, counts, zero))
+
+
+def rank_feature_value(w: torch.Tensor, fn: str, p1: float, p2: float,
+                       positive: bool) -> torch.Tensor:
+    """The four rank_feature functions in f32 (the reference's
+    RankFeatureQuery): saturation w / (w + pivot), log ln(scaling + w),
+    sigmoid w^e / (w^e + pivot^e), linear w; `positive=False`
+    (positive_score_impact false) flips saturation and sigmoid to
+    pivot / (pivot + w) and pivot^e / (pivot^e + w^e). `p1` / `p2` are
+    taken as f32 scalars."""
+    a = torch.tensor(np.float32(p1), device=w.device)
+    if fn == "linear":
+        return w
+    if fn == "saturation":
+        return a / (a + w) if not positive else w / (w + a)
+    if fn == "log":
+        return torch.log(a + w)
+    if fn == "sigmoid":
+        e = torch.tensor(np.float32(p2), device=w.device)
+        we = torch.pow(torch.clamp(w, min=0.0), e)
+        pe = torch.pow(a, e)
+        return pe / (pe + we) if not positive else we / (we + pe)
+    raise ValueError(f"unknown rank_feature function [{fn}]")
 
 
 def term_match_mask(post: FieldPostings, live: torch.Tensor,

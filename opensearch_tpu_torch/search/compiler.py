@@ -38,9 +38,15 @@ here), and a `multi_match` one child per field: an `LDisMax` of them for
 the reference). A `knn` query becomes `LKnn` (its vector unit-normed in
 f32 numpy for a cosine field, its filter rewritten in filter context);
 its `k` is not read, so it matches every live doc with a vector (a probe:
-every such doc in the probed lists), as in the reference. A `hybrid`
-query reaching the rewrite is nested inside another query: the
-reference's 400. A clause's `_name` goes onto its node. Any other query
+every such doc in the probed lists), as in the reference. A
+`rank_feature` becomes `LRankFeature` over a rank_feature column or
+over the feature of the longest mapped prefix of a `rank_features` /
+`sparse_vector` field (the default saturation pivot the reference's
+arithmetic mean), a `neural_sparse` with raw `query_tokens`
+`LSparseDot` (tokens sorted, f32 weights), a `distance_feature` on a
+date field `LDistanceFeature` (any other type is the reference's 400).
+A `hybrid` query reaching the rewrite is nested inside another query:
+the reference's 400. A clause's `_name` goes onto its node. Any other query
 or field kind raises `NotPortedError`.
 
 The general path (`emit`, `run_segment`) evaluates a plan as torch ops on
@@ -49,8 +55,12 @@ count) arrays (`ops/scoring.ScoredMask`), filter and must_not clauses
 come from the cached masks of `search/filters.py`, a phrase is the pair
 join of `ops/positions.py` over pair keys cached per segment and device,
 a kNN node the exact scan or the IVF probe of `ops/knn.py` over the
-segment's vector matrix (`Segment.vector_on`, `Segment.ivf_on`), and a
-masked top-k closes it. It serves every shape the fused kernels
+segment's vector matrix (`Segment.vector_on`, `Segment.ivf_on`), a
+feature node a gather of its rows' (doc, weight) postings, the
+function or the query weight times the weight, and a scatter row by
+row (`ops/scoring.feature_score`), a distance_feature the reference's
+f32 distance over the date column's (hi, lo) words, and a masked top-k
+closes it. It serves every shape the fused kernels
 and the impact rung decline.
 """
 
@@ -68,8 +78,9 @@ import numpy as np
 import torch
 
 from ..errors import NotPortedError
-from ..index.mappings import (FLOAT_TYPES, KEYWORD_TYPES, NUMERIC_TYPES,
-                              Mappings, coerce_value)
+from ..index.mappings import (FEATURE_TYPES, FLOAT_TYPES, KEYWORD_TYPES,
+                              NUMERIC_TYPES, Mappings, _parse_date,
+                              coerce_value)
 from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
 from ..ops import aggs as agg_ops
@@ -296,6 +307,42 @@ class LKnn(LNode):
     boost: float = 1.0
     nprobe: Optional[int] = None
     exact: bool = False
+
+
+@dataclass
+class LRankFeature(LNode):
+    """rank_feature: one feature row of a feature field (gather -> f ->
+    scatter), or a rank_feature numeric column (`feature` None)."""
+
+    field: str = ""
+    feature: Optional[str] = None
+    fn: str = "saturation"
+    p1: float = 1.0
+    p2: float = 1.0
+    positive: bool = True
+    boost: float = 1.0
+
+
+@dataclass
+class LSparseDot(LNode):
+    """Learned-sparse dot product: the sum over the query's tokens (sorted)
+    of query weight x stored weight, over a feature field."""
+
+    field: str = ""
+    tokens: List[str] = dc_field(default_factory=list)
+    weights: Optional[np.ndarray] = None     # f32, one per token
+    boost: float = 1.0
+
+
+@dataclass
+class LDistanceFeature(LNode):
+    """distance_feature on a date field: boost * pivot / (pivot + |t -
+    origin|), origin in epoch millis, pivot in millis."""
+
+    field: str = ""
+    origin: int = 0
+    pivot: float = 0.0
+    boost: float = 1.0
 
 
 def _numeric_eq_node(ft, value: Any, boost: float) -> LRange:
@@ -595,7 +642,98 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
                     similarity=sim, boost=q.boost, nprobe=q.nprobe,
                     exact=q.exact)
 
+    if isinstance(q, dsl.RankFeatureQuery):
+        return _rewrite_rank_feature(q, ctx)
+
+    if isinstance(q, dsl.NeuralSparseQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        if ft is None or ft.type not in FEATURE_TYPES:
+            raise dsl.QueryParseError(
+                f"[neural_sparse] field [{q.field}] is not a rank_features/"
+                f"sparse_vector field")
+        toks = sorted(q.tokens)
+        return LSparseDot(field=ft.name, tokens=toks,
+                          weights=np.asarray([q.tokens[t] for t in toks],
+                                             np.float32),
+                          boost=q.boost)
+
+    if isinstance(q, dsl.DistanceFeatureQuery):
+        ft = ctx.mappings.resolve_field(q.field)
+        if ft is None:
+            raise dsl.QueryParseError(
+                f"[distance_feature] unknown field [{q.field}]")
+        if ft.type == "date":
+            return LDistanceFeature(
+                field=ft.name, origin=_parse_date(q.origin, ft.date_format),
+                pivot=float(parse_interval_ms(q.pivot)), boost=q.boost)
+        # geo_point fields are not ported: the mapping refuses them
+        raise dsl.QueryParseError(
+            f"[distance_feature] field [{q.field}] must be a date or "
+            f"geo_point field")
+
     raise NotPortedError(f"query [{type(q).__name__}]")
+
+
+def _rewrite_rank_feature(q: dsl.RankFeatureQuery,
+                          ctx: ShardContext) -> LNode:
+    """A rank_feature column, or `field.feature` read as the feature of
+    the longest mapped prefix of a feature field; the function's
+    parameters (the default saturation pivot from `_default_pivot`)."""
+    m = ctx.mappings
+    ft = m.resolve_field(q.field)
+    if ft is not None and ft.type == "rank_feature":
+        field, feature, positive = ft.name, None, ft.positive_score_impact
+    else:
+        parts = q.field.split(".")
+        field = feature = None
+        for cut in range(len(parts) - 1, 0, -1):
+            pft = m.resolve_field(".".join(parts[:cut]))
+            if pft is not None and pft.type in FEATURE_TYPES:
+                field, feature = pft.name, ".".join(parts[cut:])
+                positive = pft.positive_score_impact
+                break
+        if field is None:
+            raise dsl.QueryParseError(
+                f"[rank_feature] field [{q.field}] is not a rank_feature or "
+                f"rank_features feature")
+    fn, p1, p2 = q.function, 1.0, 1.0
+    if not positive and fn in ("log", "linear"):
+        raise dsl.QueryParseError(
+            f"[rank_feature] [{fn}] is incompatible with "
+            f"positive_score_impact=false fields")
+    if fn == "saturation":
+        p1 = (q.pivot if q.pivot is not None
+              else _default_pivot(ctx, field, feature))
+    elif fn == "log":
+        p1 = float(q.scaling_factor)
+    elif fn == "sigmoid":
+        p1, p2 = float(q.pivot), float(q.exponent)
+    return LRankFeature(field=field, feature=feature, fn=fn, p1=float(p1),
+                        p2=float(p2), positive=positive, boost=q.boost)
+
+
+def _default_pivot(ctx: ShardContext, field: str,
+                   feature: Optional[str]) -> float:
+    """The default saturation pivot as the reference computes it: the
+    arithmetic mean of the feature's values over every segment, deleted
+    docs included (OpenSearch reads an approximate geometric mean from
+    the index statistics)."""
+    total, count = 0.0, 0
+    for s in ctx.segments:
+        if feature is None:
+            col = s.numeric_cols.get(field)
+            if col is not None and col.present.any():
+                total += float(col.values[col.present].sum())
+                count += int(col.present.sum())
+        else:
+            pb = s.postings.get(field)
+            if pb is not None:
+                r = pb.row(feature)
+                if r >= 0:
+                    a, b = pb.row_slice(r)
+                    total += float(pb.tfs[a:b].sum())
+                    count += b - a
+    return (total / count) if count else 1.0
 
 
 def can_match(node: LNode, seg: Segment) -> bool:
@@ -644,6 +782,10 @@ def can_match(node: LNode, seg: Segment) -> bool:
         return any(seg.local_doc(i) >= 0 for i in node.ids)
     if isinstance(node, LKnn):
         return node.field in seg.vector_cols
+    if isinstance(node, (LRankFeature, LSparseDot)):
+        # a feature field's CSR lives in postings, a rank_feature column
+        # in the numeric columns
+        return node.field in seg.postings or node.field in seg.numeric_cols
     return True
 
 
@@ -914,7 +1056,8 @@ def field_postings(seg: Segment, field: str,
     """The postings of `field` over `seg` on `device`, cached: windows
     into the fastpath's resident aligned layout (no bytes added), or a CSR
     copy where that layout cannot pack the field. None without
-    postings."""
+    postings (a feature field among them: its tf slot is an f32
+    weight)."""
     pb = seg.postings.get(field)
     if pb is None or pb.size == 0:
         return None
@@ -1226,7 +1369,83 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
                                                     device)
         score = torch.where(matched, score * _f32(node.boost), zeros)
         return ops.ScoredMask(score, matched.to(torch.float32))
+    if isinstance(node, LRankFeature):
+        return rank_feature_scores(node, seg, device, live, zeros)
+    if isinstance(node, LSparseDot):
+        post = field_postings(seg, node.field, device)
+        if post is None:
+            return ops.ScoredMask(zeros, zeros)
+        pb = seg.postings[node.field]
+        rows = [-1] * next_pow2(len(node.tokens), floor=8)
+        rows[:len(node.tokens)] = [pb.row(t) for t in node.tokens]
+        qw = np.zeros(len(rows), np.float32)
+        qw[:len(node.tokens)] = node.weights
+        sm = ops.feature_score(post, live, rows, nd, lambda w, ti:
+                               ops.per_window(qw, ti) * w)
+        return ops.ScoredMask(sm.scores * _f32(node.boost), sm.count)
+    if isinstance(node, LDistanceFeature):
+        split = date_split_on(seg, node.field, device)
+        if split is None:
+            return ops.ScoredMask(zeros, zeros)
+        hi, lo, present = split
+        ohi, olo = split_i64(node.origin)
+        # the reference's f32 distance from the biased (hi, lo) words:
+        # the low word's f32 rounds an epoch-ms difference to a multiple
+        # of 128 ms or coarser
+        dist = torch.abs((hi - ohi).to(torch.float32) * 4294967296.0
+                         + (lo.to(torch.float32) - float(np.float32(olo))))
+        pivot = torch.tensor(np.float32(node.pivot), device=device)
+        boost = torch.tensor(np.float32(node.boost), device=device)
+        mask = present & live
+        return ops.ScoredMask(
+            torch.where(mask, boost * pivot / (pivot + dist), zeros),
+            mask.to(torch.float32))
     raise NotPortedError(f"plan [{type(node).__name__}] on the general path")
+
+
+def rank_feature_scores(node: LRankFeature, seg: Segment, device, live,
+                        zeros) -> ops.ScoredMask:
+    """(scores, counts) of a rank_feature node: the function over its
+    feature row's postings (a doc without the feature does not match),
+    or over the f32 view of its column where a value is present."""
+    if node.feature is None:
+        col = seg.f32_on(node.field, device)
+        if col is None:
+            return ops.ScoredMask(zeros, zeros)
+        v = ops.rank_feature_value(col[0], node.fn, node.p1, node.p2,
+                                   node.positive)
+        mask = col[1] & live
+        return ops.ScoredMask(torch.where(mask, v * _f32(node.boost), zeros),
+                              mask.to(torch.float32))
+    post = field_postings(seg, node.field, device)
+    if post is None:
+        return ops.ScoredMask(zeros, zeros)
+    sm = ops.feature_score(
+        post, live, [seg.postings[node.field].row(node.feature)], seg.ndocs,
+        lambda w, _ti: ops.rank_feature_value(w, node.fn, node.p1, node.p2,
+                                              node.positive))
+    return ops.ScoredMask(sm.scores * _f32(node.boost), sm.count)
+
+
+def split_i64(v: int) -> Tuple[int, int]:
+    """An i64 as the reference's (hi i32, lo i32 biased by 2^31) words."""
+    v = int(v)
+    return v >> 32, (v & 0xFFFFFFFF) - (1 << 31)
+
+
+def date_split_on(seg: Segment, field: str, device) -> Optional[tuple]:
+    """(hi i32[ndocs], lo i32[ndocs] biased by 2^31, present) of an
+    integer column on `device` (the reference's split of an i64 column),
+    or None without the column; cached per segment."""
+    col = seg.numeric_on(field, device)
+    if col is None:
+        return None
+
+    def make():
+        v, present = col
+        return ((v >> 32).to(torch.int32),
+                ((v & 0xFFFFFFFF) - (1 << 31)).to(torch.int32), present)
+    return seg.device_cached(("split", field), device, make)
 
 
 def knn_nprobe(node: LKnn, seg: Segment, device) -> Optional[tuple]:

@@ -6,7 +6,8 @@ Query-then-fetch: the query phase serves each segment through three
 rungs in the reference's order: the fused kernels (`search/fastpath.py`;
 for a single term-group search over a shard of several segments, once
 over the concatenated shard view), then, for a pure term group they
-decline, the codec-v2 impact rung (`search/impactpath.py`), then the
+decline or a root `neural_sparse` over a FEATURE plane, the codec-v2
+impact rung (`search/impactpath.py`), then the
 general program (`compiler.run_segment`), which serves any plan. It
 returns light candidate descriptors; the coordinator merges them, and the
 fetch phase materializes each winner's hit: `_id`, `_score`, `sort`,
@@ -504,7 +505,8 @@ def collect_named(lroot: C.LNode) -> List[Tuple[str, C.LNode]]:
     out = []
 
     def walk(n):
-        if n is None:
+        # a rank_feature node's `positive` is a flag, not a clause
+        if not isinstance(n, C.LNode):
             return
         if n.name:
             out.append((n.name, n))

@@ -233,8 +233,9 @@ class AlignedPostings:
 
 def packable(seg, field: str) -> bool:
     """False when a posting of `field` exceeds the packing bounds (tf
-    above TF_MAX or a doc length above DL_MAX): the fast path declines the
-    field on this segment. Cached on the segment."""
+    above TF_MAX or a doc length above DL_MAX) or `field` is a feature
+    field (its tf slot an f32 weight): the fast path declines the field
+    on this segment. Cached on the segment."""
     key = ("packable", field, "")
     got = seg.aligned.get(key)
     if got is None:
@@ -243,7 +244,7 @@ def packable(seg, field: str) -> bool:
         # a doc's length counts its tokens in the field, each of which
         # is in one of its postings: the longest doc bounds every posting
         got = pb is None or pb.size == 0 or (
-            float(pb.tfs.max()) <= TF_MAX
+            not pb.feature and float(pb.tfs.max()) <= TF_MAX
             and (dl is None or len(dl) == 0 or int(dl.max()) <= DL_MAX))
         seg.aligned[key] = got
     return got

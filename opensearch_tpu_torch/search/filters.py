@@ -22,7 +22,10 @@ Served nodes:
   `LPinned`: the pinned docs and the organic mask; `LCombined`: docs
   holding at least `msm` of the terms over the weighted fields;
 - `LKnn`: the docs with a vector (on the IVF route, those in the probed
-  lists) that its own filter matches.
+  lists) that its own filter matches;
+- `LRankFeature`: the docs holding its feature (a column: a value);
+  `LSparseDot`: the docs holding any of its tokens; `LDistanceFeature`:
+  the docs with a date.
 Any other node raises `NotPortedError`. A mask ignores deletes: every
 consumer ANDs the segment's live mask itself (the general path starts
 each bool from it; the fast path serves no segment with deletes), so a
@@ -129,6 +132,14 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
         return ("knn", node.field, route,
                 None if node.filter is None
                 else mask_key(node.filter, seg, ctx))
+    if isinstance(node, C.LRankFeature):
+        return ("rank_feature", node.field, node.feature)
+    if isinstance(node, C.LSparseDot):
+        pb = seg.postings.get(node.field)
+        return ("sparse_dot", node.field, None if pb is None
+                else tuple(pb.row(t) for t in node.tokens))
+    if isinstance(node, C.LDistanceFeature):
+        return ("distance_feature", node.field)
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 
@@ -218,6 +229,23 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
         if node.filter is not None:
             m = m & filter_mask(node.filter, seg, ctx, device)
         return m
+    if isinstance(node, C.LRankFeature) and node.feature is None:
+        col = seg.numeric_on(node.field, device)
+        return (torch.zeros(nd, dtype=torch.bool, device=device)
+                if col is None else col[1])
+    if isinstance(node, (C.LRankFeature, C.LSparseDot)):
+        post = C.field_postings(seg, node.field, device)
+        if post is None:
+            return torch.zeros(nd, dtype=torch.bool, device=device)
+        pb = seg.postings[node.field]
+        rows = ([pb.row(node.feature)] if isinstance(node, C.LRankFeature)
+                else [pb.row(t) for t in node.tokens])
+        return ops.term_match_mask(post, torch.ones(nd, dtype=torch.bool,
+                                                    device=device), rows, nd)
+    if isinstance(node, C.LDistanceFeature):
+        col = seg.numeric_on(node.field, device)
+        return (torch.zeros(nd, dtype=torch.bool, device=device)
+                if col is None else col[1])
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 

@@ -1,6 +1,7 @@
 """The codec-v2 impact rung: a pure BM25 term group over the quantized
-impact plane with host block-max pruning, certified exact against the f32
-host oracle (the BM25 kind of opensearch_tpu/search/impactpath.py).
+impact plane, or a root `neural_sparse` dot product over a FEATURE plane,
+with host block-max pruning, certified exact against the f32 host oracle
+(opensearch_tpu/search/impactpath.py).
 
 Between the fused kernels and the general path, as in the reference's
 executor: a pure term-group search the fastpath declines on a segment (a
@@ -29,8 +30,17 @@ Totals are exact ("eq") on unpruned passes and a lower bound ("gte")
 under pruning; bodies with an explicit track_total_hits, or msm > 1, plan
 unpruned. Served scores live in the host-oracle f32 domain, bit-equal to
 the reference's. `_error_bound` is also the serve margin of the
-fastpath's impact frontier pass. The learned-sparse kind waits for
-feature planes, which are not ported.
+fastpath's impact frontier pass.
+
+The sparse kind (a root `LSparseDot`: tokens, every weight >= 0, boost
+>= 0, over a field whose plane is a FEATURE plane) runs the same ladder:
+the plan prices blocks at (weight x boost) x scale x block max, `E` is
+the quantization half-step alone (feature weights do not depend on the
+query, so no parameter drift), and the served exact scores are the
+general path's sparse dot: the term-ordered f32 sum of weight x stored
+weight, then x boost. A BM25 group reads only a BM25 plane, a sparse
+dot only a FEATURE plane; `STATS` counts the sparse kind apart as well
+(`sparse_*`).
 """
 
 from __future__ import annotations
@@ -54,9 +64,11 @@ CAND_FLOOR = 32
 KEEP_FACTOR = 8
 KEEP_MIN = 512
 
-STATS = {"served": 0, "pruned_served": 0, "phase2_served": 0,
-         "escalated": 0, "blocks_total": 0, "blocks_skipped": 0,
-         "postings_total": 0, "postings_skipped": 0}
+_RUNG_KEYS = ("served", "pruned_served", "phase2_served", "escalated",
+              "blocks_total", "blocks_skipped", "postings_total",
+              "postings_skipped")
+STATS = {**{k: 0 for k in _RUNG_KEYS},
+         **{f"sparse_{k}": 0 for k in _RUNG_KEYS}}
 
 
 def reset_stats() -> None:
@@ -64,27 +76,51 @@ def reset_stats() -> None:
         STATS[k] = 0
 
 
+def _count(key: str, sparse: bool, n: int = 1) -> None:
+    STATS[key] += n
+    if sparse:
+        STATS[f"sparse_{key}"] += n
+
+
 class ImpactSpec:
-    """A search the impact rung can serve: one plain BM25 term group,
-    score order, a window in 1..MAX_K."""
+    """A search the impact rung can serve, score order, a window in
+    1..MAX_K: one plain BM25 term group (kind "bm25") or a root sparse
+    dot (kind "sparse")."""
 
-    __slots__ = ("lt", "window", "prune_ok")
+    __slots__ = ("lt", "window", "prune_ok", "kind")
 
-    def __init__(self, lt, window: int, prune_ok: bool):
+    def __init__(self, lt, window: int, prune_ok: bool,
+                 kind: str = "bm25"):
         self.lt = lt
         self.window = window
         self.prune_ok = prune_ok
+        self.kind = kind
+
+
+def _ok_sparse(lroot) -> bool:
+    """A sparse dot usable as the rung's root: tokens, every weight >= 0
+    and boost >= 0 (the plan's bounds assume monotone contributions)."""
+    if not isinstance(lroot, C.LSparseDot) or not len(lroot.tokens):
+        return False
+    w = np.asarray(lroot.weights, np.float32)
+    return bool(np.all(w >= 0)) and float(lroot.boost) >= 0.0
 
 
 def make_spec(lroot, window: int, body: dict) -> Optional[ImpactSpec]:
-    if window > MAX_K or window < 1 or not _ok_group(lroot) \
-            or not rungs_eligible(body):
+    if window > MAX_K or window < 1 or not rungs_eligible(body):
         return None
-    # pruning changes total-hit semantics (lower bound, "gte") and
-    # relaxed-msm counting is unsound: explicit total tracking or msm > 1
-    # ride the unpruned impact pass
-    prune_ok = "track_total_hits" not in body and int(lroot.msm) <= 1
-    return ImpactSpec(lroot, int(window), prune_ok)
+    if _ok_group(lroot):
+        # pruning changes total-hit semantics (lower bound, "gte") and
+        # relaxed-msm counting is unsound: explicit total tracking or
+        # msm > 1 ride the unpruned impact pass
+        prune_ok = "track_total_hits" not in body and int(lroot.msm) <= 1
+        return ImpactSpec(lroot, int(window), prune_ok)
+    if _ok_sparse(lroot):
+        # any-token match (msm 1): only explicit total tracking stops the
+        # prune
+        return ImpactSpec(lroot, int(window), "track_total_hits" not in body,
+                          kind="sparse")
+    return None
 
 
 # pruned-remainder budget as a fraction of theta_hat: the per-term cut
@@ -317,9 +353,12 @@ def _plan_blocks(pb, plane, rows: np.ndarray, weights: np.ndarray,
 
 
 def _exact_scores(seg, field: str, rows: np.ndarray, weights: np.ndarray,
-                  k1: float, b_eff: float, avgdl: float, cand: np.ndarray):
+                  k1: float, b_eff: float, avgdl: float, cand: np.ndarray,
+                  dot: bool = False):
     """Exact f32 scores and per-term match counts of `cand` against the
-    FULL rows: term-ordered accumulation, the host oracle's domain."""
+    FULL rows: term-ordered accumulation, the host oracle's domain.
+    `dot`: the learned-sparse domain, each term's contribution w_t x the
+    stored weight (the tf slot of a feature field)."""
     pb = seg.postings.get(field)
     dl = seg.doc_lens.get(field)
     dl_c = (dl[cand].astype(np.float32) if dl is not None
@@ -339,7 +378,8 @@ def _exact_scores(seg, field: str, rows: np.ndarray, weights: np.ndarray,
         pos_c = np.minimum(pos, b - a - 1)
         found = rowdocs[pos_c] == cand
         tf = np.where(found, pb.tfs[a + pos_c], 0.0).astype(np.float32)
-        contrib = np.float32(weights[i]) * tf / (tf + kfac)
+        contrib = (np.float32(weights[i]) * tf if dot
+                   else np.float32(weights[i]) * tf / (tf + kfac))
         exact += np.where(found, contrib, 0.0).astype(np.float32)
         counts += found
     return exact, counts
@@ -404,8 +444,9 @@ def impact_program(post: ops.FieldPostings, live: torch.Tensor,
 def segment_search(seg, ctx, spec: ImpactSpec, k: int,
                    device: torch.device) -> Optional[dict]:
     """Serve one spec over one codec-v2 segment, or None: the general
-    program runs instead (codec v1, no plane, negative weights, or a
-    certificate that fails through phase 2)."""
+    program runs instead (codec v1, no plane or a plane of the other
+    kind, negative weights, or a certificate that fails through phase
+    2)."""
     lt = spec.lt
     if getattr(seg, "codec_version", CODEC_V1) < CODEC_V2:
         return None
@@ -413,33 +454,52 @@ def segment_search(seg, ctx, spec: ImpactSpec, k: int,
     if pb is None or pb.impact is None or pb.size == 0:
         return None
     plane = pb.impact
+    sparse = spec.kind == "sparse"
+    # a BM25 group reads a BM25 plane, a sparse dot a FEATURE plane: the
+    # dequantized domain is baked into the quantized values
+    if plane.kind != ("feature" if sparse else "bm25"):
+        return None
     window = max(int(spec.window or k), 1)
     Ccand = min(next_pow2(max(2 * window, CAND_FLOOR)), seg.ndocs_pad)
-    nt = len(lt.terms)
+    if sparse:
+        # the plan prices blocks in the boost-folded domain (w x boost);
+        # the served scores are the general path's: the term-ordered sum
+        # of w x weight, then one multiply by boost
+        terms = list(lt.tokens)
+        exact_weights = np.asarray(lt.weights, np.float32)[:len(terms)]
+        exact_scale = np.float32(lt.boost)
+        weights = exact_weights * exact_scale
+        k1q, b_eff, avgdlq, msm, drift = 0.0, 0.0, 1.0, 1.0, 0.0
+    else:
+        terms = list(lt.terms)
+        weights = np.asarray(lt.weights, np.float32)[:len(terms)]
+        exact_weights, exact_scale = weights, np.float32(1.0)
+        sim = lt.sim
+        k1q = float(sim.k1)
+        b_eff = float(sim.b) if lt.has_norms else 0.0
+        avgdlq = float(ctx.avgdl(lt.field))
+        msm = float(lt.msm)
+        drift = None
+    nt = len(terms)
     rows = np.full(nt, -1, np.int64)
-    for i, t in enumerate(lt.terms):
+    for i, t in enumerate(terms):
         rows[i] = pb.row(t)
-    weights = np.asarray(lt.weights, np.float32)[:nt]
-    sim = lt.sim
-    k1q = float(sim.k1)
-    b_eff = float(sim.b) if lt.has_norms else 0.0
-    avgdlq = float(ctx.avgdl(lt.field))
-    msm = float(lt.msm)
     if np.any(weights < 0):
         return None              # negative boosts void the prune bounds
 
-    eps_imp = plane.quant_err() + plane.drift_bound(k1q, b_eff, avgdlq)
+    eps_imp = plane.quant_err() + (
+        0.0 if sparse else plane.drift_bound(k1q, b_eff, avgdlq))
     offs, lens, bw, bterm, kept_post, rem, nblocks, total_post = \
         _plan_blocks(pb, plane, rows, weights, Ccand, spec.prune_ok,
                      window, eps_imp, ndocs=seg.ndocs)
     pruned = rem > 0.0 or kept_post < total_post
-    STATS["blocks_total"] += nblocks
-    STATS["blocks_skipped"] += nblocks - len(offs)
-    STATS["postings_total"] += total_post
-    STATS["postings_skipped"] += total_post - kept_post
+    _count("blocks_total", sparse, nblocks)
+    _count("blocks_skipped", sparse, nblocks - len(offs))
+    _count("postings_total", sparse, total_post)
+    _count("postings_skipped", sparse, total_post - kept_post)
     if kept_post == 0:
         # no queried term has postings here: an exact empty page
-        STATS["served"] += 1
+        _count("served", sparse)
         return _empty(window)
 
     post = C.field_postings(seg, lt.field, device)
@@ -456,14 +516,20 @@ def segment_search(seg, ctx, spec: ImpactSpec, k: int,
     if nvalid == 0:
         if pruned:
             # matches may hide entirely in pruned blocks
-            STATS["escalated"] += 1
+            _count("escalated", sparse)
             return None
-        STATS["served"] += 1
+        _count("served", sparse)
         return _empty(window)
 
+    def exact_of(docs: np.ndarray) -> tuple:
+        exact, counts = _exact_scores(seg, lt.field, rows, exact_weights,
+                                      k1q, b_eff, avgdlq, docs, dot=sparse)
+        if exact_scale != np.float32(1.0):
+            exact = (exact * exact_scale).astype(np.float32)
+        return exact, counts
+
     cand = idx[:nvalid]
-    exact, counts = _exact_scores(seg, lt.field, rows, weights, k1q, b_eff,
-                                  avgdlq, cand)
+    exact, counts = exact_of(cand)
     pass_msm = counts >= msm
     exact_m = np.where(pass_msm, exact, -np.inf).astype(np.float32)
     n_pass = int(pass_msm.sum())
@@ -471,7 +537,7 @@ def segment_search(seg, ctx, spec: ImpactSpec, k: int,
     order = np.lexsort((cand, -exact_m))
     theta = (float(exact_m[order[window - 1]]) if n_pass >= window
              else -np.inf)
-    E = _error_bound(plane, weights, rows, k1q, b_eff, avgdlq)
+    E = _error_bound(plane, weights, rows, k1q, b_eff, avgdlq, drift=drift)
 
     # displacement bound for every non-candidate doc: seen-but-lost docs
     # (only when the window filled) carry approx <= the C-th approx + E +
@@ -480,14 +546,14 @@ def segment_search(seg, ctx, spec: ImpactSpec, k: int,
     if nvalid == Ccand:
         bound = max(bound, float(vals[nvalid - 1]) + E + rem)
     if theta > -np.inf and bound < theta:
-        STATS["served"] += 1
+        _count("served", sparse)
         if pruned:
-            STATS["pruned_served"] += 1
+            _count("pruned_served", sparse)
         tot = total if not pruned or msm <= 1 else n_pass
         return _result(exact_m, cand, order, window, tot, rel)
     if not pruned and nvalid < Ccand:
         # the candidate set IS every matching doc: exact by construction
-        STATS["served"] += 1
+        _count("served", sparse)
         return _result(exact_m, cand, order, window, total, "eq")
 
     # phase 2: every doc any kept block mentions; unseen docs are then
@@ -498,8 +564,7 @@ def segment_search(seg, ctx, spec: ImpactSpec, k: int,
         union = np.unique(np.concatenate(ids)).astype(np.int64)
         if len(union) and seg.live_count != seg.ndocs:
             union = union[seg.live[union]]
-        exact2, counts2 = _exact_scores(seg, lt.field, rows, weights, k1q,
-                                        b_eff, avgdlq, union)
+        exact2, counts2 = exact_of(union)
         pass2 = counts2 >= msm
         exact2_m = np.where(pass2, exact2, -np.inf).astype(np.float32)
         n2 = int(pass2.sum())
@@ -507,10 +572,10 @@ def segment_search(seg, ctx, spec: ImpactSpec, k: int,
         theta2 = (float(exact2_m[order2[window - 1]]) if n2 >= window
                   else -np.inf)
         if theta2 > -np.inf and rem + E < theta2:
-            STATS["served"] += 1
-            STATS["pruned_served"] += 1
-            STATS["phase2_served"] += 1
+            _count("served", sparse)
+            _count("pruned_served", sparse)
+            _count("phase2_served", sparse)
             return _result(exact2_m, union, order2, window, n2, "gte")
 
-    STATS["escalated"] += 1
+    _count("escalated", sparse)
     return None

@@ -2,8 +2,9 @@
 match_none, term, terms, terms_set, match, multi_match, combined_fields,
 match_bool_prefix, match_phrase, match_phrase_prefix, span_term,
 span_near, intervals, bool, constant_score, boosting, dis_max, pinned,
-wrapper, range, exists, ids, prefix, wildcard, regexp, fuzzy, knn and
-hybrid subset of opensearch_tpu/search/query_dsl.py). A body without a
+wrapper, range, exists, ids, prefix, wildcard, regexp, fuzzy, knn,
+rank_feature, distance_feature, neural_sparse (raw `query_tokens` only)
+and hybrid subset of opensearch_tpu/search/query_dsl.py). A body without a
 query is `match_all`. A clause's `_name` is kept for `matched_queries`; a
 `wrapper` is its base64 JSON query, parsed again (its own `boost` and
 `_name` unread, as in the reference). A `hybrid` query keeps its
@@ -245,6 +246,35 @@ class KnnQuery(Query):
     # or narrows the probe; exact=True forces the scan
     nprobe: Optional[int] = None
     exact: bool = False
+
+
+@dataclass
+class RankFeatureQuery(Query):
+    """A rank_feature(s) value through one of four monotone functions."""
+
+    field: str = ""
+    function: str = "saturation"   # saturation | log | sigmoid | linear
+    pivot: Optional[float] = None  # saturation / sigmoid
+    scaling_factor: Optional[float] = None  # log
+    exponent: Optional[float] = None        # sigmoid
+
+
+@dataclass
+class DistanceFeatureQuery(Query):
+    """boost * pivot / (pivot + distance) on a date field."""
+
+    field: str = ""
+    origin: Any = None
+    pivot: Any = None
+
+
+@dataclass
+class NeuralSparseQuery(Query):
+    """Learned-sparse dot product over a rank_features / sparse_vector
+    field, from raw `query_tokens` (model inference is not the engine's)."""
+
+    field: str = ""
+    tokens: Dict[str, float] = dc_field(default_factory=dict)
 
 
 @dataclass
@@ -516,6 +546,49 @@ def parse_query(dsl: Optional[dict]) -> Query:
         _common(q, spec)
         return q
 
+    if kind == "rank_feature":
+        fns = [k for k in ("saturation", "log", "sigmoid", "linear")
+               if k in body]
+        if len(fns) > 1:
+            raise QueryParseError(
+                "[rank_feature] accepts at most one function")
+        fn = fns[0] if fns else "saturation"
+        spec = body.get(fn) or {}
+        if fn == "log" and "scaling_factor" not in spec:
+            raise QueryParseError(
+                "[rank_feature] [log] requires scaling_factor")
+        if fn == "sigmoid" and ("pivot" not in spec
+                                or "exponent" not in spec):
+            raise QueryParseError(
+                "[rank_feature] [sigmoid] requires pivot and exponent")
+        q = RankFeatureQuery(field=body["field"], function=fn,
+                             pivot=spec.get("pivot"),
+                             scaling_factor=spec.get("scaling_factor"),
+                             exponent=spec.get("exponent"))
+        _common(q, body)
+        return q
+
+    if kind == "distance_feature":
+        if body.get("origin") is None or body.get("pivot") is None:
+            raise QueryParseError(
+                "[distance_feature] requires origin and pivot")
+        q = DistanceFeatureQuery(field=body["field"], origin=body["origin"],
+                                 pivot=body["pivot"])
+        _common(q, body)
+        return q
+
+    if kind == "neural_sparse":
+        f, spec = _one_entry(body, "neural_sparse")
+        tokens = spec.get("query_tokens")
+        if not isinstance(tokens, dict) or not tokens:
+            raise QueryParseError(
+                "[neural_sparse] requires query_tokens (raw token weights; "
+                "model inference is out of engine scope)")
+        q = NeuralSparseQuery(field=f, tokens={str(t): float(w)
+                                               for t, w in tokens.items()})
+        _common(q, spec)
+        return q
+
     if kind == "hybrid":
         subs = body.get("queries")
         if not isinstance(subs, list) or not subs:
@@ -598,8 +671,7 @@ REFERENCE_KINDS = frozenset((
     "simple_query_string", "geo_distance", "geo_bounding_box",
     "geo_polygon", "geo_shape", "more_like_this",
     "function_score", "script", "script_score", "nested",
-    "has_child", "has_parent", "parent_id", "rank_feature",
-    "distance_feature", "neural_sparse", "percolate"))
+    "has_child", "has_parent", "parent_id", "percolate"))
 
 
 _INTERVAL_RULES = ("match", "prefix", "wildcard", "fuzzy", "all_of",

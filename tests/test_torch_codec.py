@@ -208,10 +208,32 @@ def test_heads_and_frontiers_match(segments, monkeypatch):
 
 
 def test_feature_planes_are_not_ported(segments):
-    from opensearch_tpu_torch import NotPortedError
+    """Feature planes are ported: a field named in `feature_fields` that
+    the segment lacks builds nothing (the body's plane stays), and a
+    rank_features field with index_impacts gets the reference's FEATURE
+    plane at a refresh."""
     _rseg, pseg = segments
-    with pytest.raises(NotPortedError, match="feature impact planes"):
-        pseg.build_impacts(feature_fields=["tags"])
+    plane = pseg.postings["body"].impact
+    pseg.build_impacts(feature_fields=["tags"])
+    assert pseg.postings["body"].impact is plane and "tags" not in \
+        pseg.postings
+    rng = np.random.default_rng(4)
+    mapping = {"settings": {"number_of_replicas": 0}, "mappings": {
+        "properties": {"emb": {"type": "rank_features",
+                               "index_impacts": True}}}}
+    docs = [{"emb": {f"t{j}": round(float(rng.exponential()) + 0.05, 3)
+                     for j in rng.choice(60, 6)}} for _ in range(300)]
+    segs = []
+    for c in (RefClient(), RestClient(device="cpu")):
+        c.indices.create("f", mapping)
+        c.bulk(sum([[{"index": {"_index": "f", "_id": str(i)}}, d]
+                    for i, d in enumerate(docs)], []), refresh=True)
+        segs.append((c.node.indices["f"].shards[0].segments[0]
+                     if isinstance(c, RefClient)
+                     else c._indices["f"].engine.segments[0]))
+    rp, pp = (s.postings["emb"].impact for s in segs)
+    assert pp.kind == rp.kind == "feature"
+    assert_same_plane(pp, rp)
 
 
 def test_drop_impacts_demotes_to_v1(segments):

@@ -274,13 +274,44 @@ def test_hybrid_stats_and_sub_bodies():
 
 
 def test_hybrid_with_unported_sub_queries_raise(clients):
+    """A hybrid's neural_sparse and rank_feature sub-queries serve since
+    learned sparse retrieval was ported (the reference's 400s on this
+    index's fields, its fused pages over a feature index); a percolate
+    sub-query still raises NotPortedError."""
     _ref, port = clients
-    for sub, what in (({"neural_sparse": {"body": {"query_tokens": {
-            "fox": 1.0}}}}, "neural_sparse"),
-            ({"rank_feature": {"field": "f"}}, "rank_feature")):
-        with pytest.raises(NotPortedError) as e:
-            port.search("v", {"query": hybrid([{"match_all": {}}, sub])})
-        assert f"[{what}]" in str(e.value)
+    with pytest.raises(NotPortedError) as e:
+        port.search("v", {"query": hybrid([{"match_all": {}}, {
+            "percolate": {"field": "q", "document": {}}}])})
+    assert "[percolate]" in str(e.value)
+    for sub in ({"neural_sparse": {"body": {"query_tokens": {"fox": 1.0}}}},
+                {"rank_feature": {"field": "f"}}):
+        ref, got = _errors(clients, {"query": hybrid([{"match_all": {}},
+                                                      sub])})
+        assert ref is not None and ref[1] == 400 and got == ref, (ref, got)
+    mapping = {"mappings": {"properties": {
+        "body": {"type": "text"},
+        "emb": {"type": "rank_features", "index_impacts": True},
+        "pr": {"type": "rank_feature"}}}}
+    rng = np.random.default_rng(16)
+    docs = [{"body": " ".join(rng.choice(["fox", "dog", "tree"], 3)),
+             "emb": {f"t{j}": round(float(rng.exponential()) + 0.05, 3)
+                     for j in rng.choice(40, 5)},
+             "pr": round(float(rng.lognormal()), 3)} for _ in range(120)]
+    out = []
+    for c in (RefClient(), RestClient(device="cpu")):
+        c.indices.create("f", mapping)
+        c.bulk(sum([[{"index": {"_index": "f", "_id": str(i)}}, d]
+                    for i, d in enumerate(docs)], []), refresh=True)
+        out.append([c.search("f", {"query": hybrid(subs, **spec)})
+                    for subs, spec in (
+            ([{"match": {"body": "fox"}},
+              {"neural_sparse": {"emb": {"query_tokens": {
+                  "t1": 1.0, "t7": 0.4}}}}], {}),
+            ([{"match": {"body": "dog"}}, {"rank_feature": {"field": "pr"}},
+              {"rank_feature": {"field": "emb.t3", "linear": {}}}],
+             {"method": "linear"}))])
+    for w, g in zip(*out):
+        chip_smoke.same_vec(g, w, TOL)
 
 
 # ---------------------------------------------------------------------

@@ -448,22 +448,57 @@ def test_device_arrays_and_release(clients):
 
 
 def test_unported_feature_kinds_still_raise(clients):
-    _ref, port = clients
+    """The feature kinds serve since learned sparse retrieval was ported:
+    on this index's fields they are the reference's 400s, and over a
+    rank_features / sparse_vector index they serve the reference's
+    pages; percolate and more_like_this still raise NotPortedError."""
+    ref, port = clients
     for body, what in (
-            ({"query": {"neural_sparse": {"body": {
-                "query_tokens": {"fox": 1.0}}}}}, "neural_sparse"),
-            ({"query": {"rank_feature": {"field": "f"}}}, "rank_feature"),
-            ({"query": {"distance_feature": {
-                "field": "price", "origin": 1, "pivot": 2}}},
-             "distance_feature")):
+            ({"query": {"percolate": {"field": "q", "document": {}}}},
+             "percolate"),
+            ({"query": {"more_like_this": {"like": "fox"}}},
+             "more_like_this")):
         with pytest.raises(NotPortedError) as e:
             port.search("v", body)
         assert f"[{what}]" in str(e.value)
-    for ftype in ("rank_features", "sparse_vector"):
-        with pytest.raises(NotPortedError) as e:
-            RestClient(device="cpu").indices.create("f", {"mappings": {
-                "properties": {"f": {"type": ftype}}}})
-        assert f"[{ftype}]" in str(e.value)
+    for body in (
+            {"query": {"neural_sparse": {"body": {
+                "query_tokens": {"fox": 1.0}}}}},
+            {"query": {"rank_feature": {"field": "f"}}},
+            {"query": {"distance_feature": {
+                "field": "price", "origin": 1, "pivot": 2}}}):
+        outs = []
+        for c in (ref, port):
+            try:
+                c.search("v", body)
+                outs.append(None)
+            except Exception as e:      # each package's own ApiError
+                outs.append((type(e).__name__, getattr(e, "status", None),
+                             str(e)))
+        assert outs[0] is not None and outs[0][1] == 400 \
+            and outs[1] == outs[0], outs
+    docs = [{"f": {"fox": 1.5, "dog": 0.25}, "g": {"tree": 2.0},
+             "r": 3.0, "t": "2024-03-0%d" % (1 + i % 9)}
+            for i in range(40)]
+    mapping = {"mappings": {"properties": {
+        "f": {"type": "rank_features", "index_impacts": True},
+        "g": {"type": "sparse_vector"}, "r": {"type": "rank_feature"},
+        "t": {"type": "date"}}}}
+    got = []
+    for c in (RefClient(), RestClient(device="cpu")):
+        c.indices.create("f", copy.deepcopy(mapping))
+        c.bulk(sum([[{"index": {"_index": "f", "_id": str(i)}}, d]
+                    for i, d in enumerate(docs)], []), refresh=True)
+        got.append([c.search("f", {"query": q}) for q in (
+            {"neural_sparse": {"f": {"query_tokens": {"fox": 2.0}}}},
+            {"neural_sparse": {"g": {"query_tokens": {"tree": 1.0}}}},
+            {"rank_feature": {"field": "f.dog", "log": {
+                "scaling_factor": 1.5}}},
+            {"rank_feature": {"field": "r"}},
+            {"distance_feature": {"field": "t", "origin": "2024-03-05",
+                                  "pivot": "2d"}})])
+    for w, g in zip(*got):
+        same(g, w)
 
 
 def test_similarity_names_outside_the_three_score_as_l2():
