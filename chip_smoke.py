@@ -7,7 +7,8 @@
                           [--sort-queries R] [--expand-queries E]
                           [--compound-queries C] [--context-queries X]
                           [--longtail-queries L] [--vector-queries V]
-                          [--sparse-queries W] [--seed S] [--stop-after N]
+                          [--sparse-queries W] [--field-queries F]
+                          [--seed S] [--stop-after N]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -214,6 +215,27 @@ Phases, each of which fails the script when it fails:
      CSR's and the plane's seconds, device bytes and host RSS; after
      phase 8, one body of (a), (c) and (f) on the merged segment (its
      FEATURE plane rebuilt, against numpy on sampled rows);
+ 18. (run after 17, before 8) text analysis and the scalar field types
+     over phase 17's end state: `title_en`, an english-analyzed text
+     field made from the title's own draw (each of the 1,000 title terms
+     an English surface form, bench_corpus.english_title_forms: 30
+     stopwords at the most drawn ranks, the rest stems x inflections;
+     each form analyzed once, the tokens remapped, stopwords dropped with
+     their position gaps kept and sorted into postings on the card, its
+     codec-v2 plane built there), and on every corpus passage `client_ip`
+     (ip: 65,536 addresses in 16 /16 subnets, Zipf(1.1)), `stock`
+     (short), `grade` (byte), `price_scaled` (scaled_float, factor 100),
+     `views` (unsigned_long, a third at or past 2^63) and `shop`
+     (constant_keyword); --field-queries bodies a class: (a) a pruned
+     english match of inflected words and a stopword, (b) the same with
+     exact totals, (c) the match in a bool with a CIDR filter and a short
+     range, (d) a match sorted by views desc with docvalue_fields of
+     client_ip and views, (e) size-0 ip_range, terms on client_ip and
+     stats on price_scaled; every page against a numpy brute force
+     (FtOracle), one body a class card == CPU, the routes each class
+     took, the phase's seconds, device bytes and host RSS; after phase 8,
+     one body of (a), (b), (c) and (e) on the merged segment (title_en's
+     rows against the live passages');
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 8 of phase 5's match bodies on the segments with deletes,
@@ -240,14 +262,23 @@ Phases, each of which fails the script when it fails:
      two refreshes with deletes, each segment's FEATURE plane (the first
      quantized on the card) and the merged one against their numpy form,
      neural_sparse, rank_feature, distance_feature and hybrid pages card
-     == CPU before and after a forcemerge.
+     == CPU before and after a forcemerge. Phase 4 then runs a small
+     field-type index on both (phase_fields_small): 8,000 docs with every
+     language analyzer but smartcn, custom char filters, tokenizers,
+     token filters and a normalizer, every scalar type of phase 18 and
+     match_only_text, search_as_you_type, binary, alias, token_count,
+     icu_collation_keyword, store / copy_to / null_value and a dynamic
+     template; its bodies and indices.analyze calls card == CPU (agg
+     sums within 1e-4 relative) before and after a forcemerge, pages
+     against a numpy brute force.
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
 one with phase 11's, one with phase 12's, one with phase 13's, one with
 phase 14's, one with phase 15's, one with phase 16's, one with phase
-17's, a line with the kernels' numbers and, last, the device line.
+17's, one with phase 18's, a line with the kernels' numbers and, last,
+the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -8671,6 +8702,871 @@ def phase_sparse_merged(big: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 18: text analysis and the scalar field types (small beside phase
+# 4, then at MS MARCO passage scale on phase 17's end state)
+# ---------------------------------------------------------------------
+
+FT_ANALYSIS = {
+    "char_filter": {
+        "amp": {"type": "mapping", "mappings": ["& => and", "ph => f"]},
+        "nums": {"type": "pattern_replace", "pattern": "(\\d+)",
+                 "replacement": "n$1"}},
+    "tokenizer": {
+        "dash": {"type": "pattern", "pattern": "[-\\s/]+"},
+        "caps": {"type": "pattern", "pattern": "([a-z]+)", "group": 1},
+        "grams": {"type": "ngram", "min_gram": 2, "max_gram": 3},
+        "edges": {"type": "edge_ngram", "min_gram": 1, "max_gram": 4}},
+    "filter": {
+        "short": {"type": "length", "min": 2, "max": 30},
+        "syn": {"type": "synonym", "synonyms": ["fox, tod",
+                                                "quick => fast"]},
+        "kw": {"type": "keyword_marker", "keywords": ["running"]},
+        "ovr": {"type": "stemmer_override", "rules": ["dogs => hound"]},
+        "shing": {"type": "shingle", "max_shingle_size": 3},
+        "cut": {"type": "truncate", "length": 6},
+        "lim": {"type": "limit", "max_token_count": 50},
+        "wd": {"type": "word_delimiter_graph", "catenate_words": True},
+        "cap": {"type": "pattern_capture", "patterns": ["(\\d+)"]},
+        "el": {"type": "elision"},
+        "ng": {"type": "ngram", "min_gram": 3, "max_gram": 4},
+        "eg": {"type": "edge_ngram", "min_gram": 2, "max_gram": 5},
+        "stop_en": {"type": "stop"},
+        "ph": {"type": "phonetic", "encoder": "metaphone"},
+        "tr": {"type": "icu_transform", "id": "Any-Latin"}},
+    "analyzer": {
+        "chain": {"type": "custom",
+                  "char_filter": ["html_strip", "amp", "nums"],
+                  "tokenizer": "dash",
+                  "filter": ["el", "lowercase", "asciifolding", "short",
+                             "kw", "ovr", "syn", "porter_stem", "unique",
+                             "lim"]},
+        "grams": {"tokenizer": "grams", "filter": ["lowercase"]},
+        "edges": {"tokenizer": "edges"},
+        "caps": {"tokenizer": "caps", "filter": ["uppercase", "reverse",
+                                                 "trim"]},
+        "shingles": {"tokenizer": "whitespace",
+                     "filter": ["lowercase", "stop_en", "shing"]},
+        "parts": {"tokenizer": "whitespace",
+                  "filter": ["wd", "cap", "decimal_digit", "apostrophe",
+                             "cut"]},
+        "sub": {"tokenizer": "letter", "filter": ["lowercase", "ng", "eg"]},
+        "sounds": {"tokenizer": "lowercase", "filter": ["ph"]},
+        "intl": {"tokenizer": "standard",
+                 "filter": ["tr", "icu_folding", "cjk_width", "cjk_bigram",
+                            "stemmer", "polish_stem", "ukrainian_stem"]},
+        "keyword_ws": {"tokenizer": "keyword", "filter": ["trim"]}},
+    "normalizer": {"fold": {"type": "custom",
+                            "char_filter": ["amp"],
+                            "filter": ["lowercase", "asciifolding"]}}}
+FT_LANGS = ("english", "cjk", "kuromoji", "nori", "icu_analyzer", "polish",
+            "ukrainian")
+FT_SMALL_MAPPING = {"settings": {"analysis": FT_ANALYSIS}, "mappings": {
+    "dynamic_templates": [{"dyn_kw": {"match": "dyn_*",
+                                      "mapping": {"type": "keyword"}}}],
+    "properties": {
+        **{f"t_{lang}": {"type": "text", "analyzer": lang}
+           for lang in FT_LANGS},
+        "title": {"type": "text", "analyzer": "english", "copy_to": "all"},
+        "all": {"type": "text"},
+        "body": {"type": "text", "analyzer": "chain"},
+        "tag": {"type": "keyword", "normalizer": "fold",
+                "null_value": "none", "store": True},
+        "addr": {"type": "ip", "store": True},
+        "stock": {"type": "short", "null_value": 0},
+        "grade": {"type": "byte"},
+        "hf": {"type": "half_float"},
+        "price": {"type": "scaled_float", "scaling_factor": 100,
+                  "store": True},
+        "views": {"type": "unsigned_long"},
+        "ntok": {"type": "token_count", "analyzer": "standard"},
+        "shop": {"type": "constant_keyword", "value": "acme"},
+        "coll": {"type": "icu_collation_keyword", "strength": "primary"},
+        "mot": {"type": "match_only_text"},
+        "sayt": {"type": "search_as_you_type"},
+        "blob": {"type": "binary"},
+        "price_alias": {"type": "alias", "path": "price"}}}}
+FT_WORDS = {
+    "english": ["running", "runs", "ran", "foxes", "jumped", "lazy", "dogs",
+                "the", "a", "of", "kennels", "shoes", "john's", "quickly"],
+    "cjk": ["北京大学", "博物馆", "中文", "东京都", "ＡＢＣ"],
+    "kuromoji": ["東京都の", "観光案内所", "カタカナ", "ひらがなを"],
+    "nori": ["한국어를", "학생들이", "서울에서", "공부하는"],
+    "icu_analyzer": ["Café", "Résumé", "ＦＵＬＬ", "straße", "naïve"],
+    "polish": ["książkami", "domach", "kotów", "zażółć", "i"],
+    "ukrainian": ["книжками", "будинках", "українського", "і"]}
+FT_SMALL_DOCS = 8000
+
+
+def ft_small_docs(rng, n: int) -> list:
+    """Phase 4's field-type docs: a text per language analyzer, an
+    english title with at least one word that is not a stopword, the
+    custom chain's HTML body, every scalar type (some values missing or
+    null, an ip array every 17th doc), a dynamic `dyn_` string."""
+    en = FT_WORDS["english"]
+    docs = []
+    for i in range(n):
+        d = {f"t_{lang}": " ".join(rng.choice(FT_WORDS[lang], 3))
+             for lang in FT_LANGS}
+        d["title"] = " ".join([str(rng.choice(en[:7]))]
+                              + list(rng.choice(en, int(rng.integers(1, 5)))))
+        d.update({
+            "body": "<p>" + "-".join(rng.choice(en, 3)) + f"</p> & ph{i % 7}",
+            "tag": (None if i % 7 == 0
+                    else str(rng.choice(["Café", "CAFE", "tea", "T&ea"]))),
+            "addr": f"10.{i % 4}.{(i // 4) % 8}.{i % 250}",
+            "stock": None if i % 11 == 0 else int(rng.integers(-300, 300)),
+            "grade": int(rng.integers(-100, 100)),
+            "hf": float(rng.random()),
+            "price": float(rng.random() * 100),
+            "views": int(rng.integers(0, 1 << 62))
+            + ((1 << 63) if i % 3 == 0 else 0),
+            "ntok": " ".join(rng.choice(en, int(rng.integers(1, 6)))),
+            "coll": str(rng.choice(["Apple", "apple", "Äpple", "banana"])),
+            "mot": " ".join(rng.choice(en, 5)),
+            "sayt": " ".join(rng.choice(en, 4)),
+            "blob": "aGVsbG8=",
+            "dyn_x": f"v{i % 4}"})
+        if i % 13 == 0:
+            for f in ("addr", "price", "views", "mot", "grade"):
+                del d[f]
+        if i % 17 == 0:
+            d["addr"] = [d.get("addr", "10.9.9.9"), "192.168.0.1"]
+        docs.append(d)
+    return docs
+
+
+FT_SMALL_BODIES = [
+    {"query": {"term": {"addr": "10.1.1.1"}}},
+    {"query": {"term": {"addr": "10.1.0.0/16"}}},
+    {"query": {"terms": {"addr": ["10.2.0.0/16", "192.168.0.1"]}}},
+    {"query": {"range": {"addr": {"gte": "10.1.0.0", "lt": "10.3.0.0"}}}},
+    {"query": {"term": {"stock": 0}}},
+    {"query": {"range": {"stock": {"gte": -10, "lte": 100}}}},
+    {"query": {"range": {"grade": {"gt": 50}}}},
+    {"query": {"range": {"price": {"gte": 10.5, "lte": 60}}}},
+    {"query": {"range": {"views": {"gte": 1 << 63}}}},
+    {"query": {"exists": {"field": "views"}}},
+    {"query": {"match": {"title": "running foxes"}}},
+    {"query": {"match": {"title": "runs dogs"}}, "track_total_hits": True},
+    {"query": {"match": {"t_polish": "książki"}}},
+    {"query": {"match": {"t_kuromoji": "観光"}}},
+    {"query": {"match": {"body": "running fast"}}},
+    {"query": {"match_phrase": {"title": "lazy dogs"}}},
+    {"query": {"match_phrase": {"mot": "lazy dogs"}}},
+    {"query": {"term": {"tag": "CAFÉ"}}},
+    {"query": {"term": {"coll": "APPLE"}}},
+    {"query": {"term": {"dyn_x": "v1"}}},
+    {"query": {"multi_match": {"query": "quick fo", "type": "bool_prefix",
+                               "fields": ["sayt", "sayt._2gram",
+                                          "sayt._3gram"]}}},
+    {"query": {"bool": {"must": [{"match": {"title": "running"}}],
+                        "filter": [{"term": {"addr": "10.0.0.0/16"}},
+                                   {"range": {"stock": {"gte": 0}}}]}}},
+    {"query": {"match": {"title": "dogs"}}, "sort": [{"views": "desc"}],
+     "docvalue_fields": ["addr", "views", "price", "stock"]},
+    {"query": {"match": {"title": "dogs"}}, "stored_fields": ["tag",
+                                                              "price"]},
+    {"size": 0, "aggs": {
+        "r": {"ip_range": {"field": "addr", "ranges": [
+            {"to": "10.1.0.0"}, {"from": "10.1.0.0"},
+            {"mask": "10.2.0.0/16"}]}},
+        "t": {"terms": {"field": "addr"}},
+        "s": {"stats": {"field": "price"}},
+        "c": {"terms": {"field": "coll"}}}},
+]
+
+
+def ft_small_analyze() -> list:
+    """indices.analyze bodies: every analyzer of FT_ANALYSIS and every
+    language analyzer on the index, a field, the built-ins without an
+    index."""
+    text = ("<b>John's</b> Running-dogs & ph 42 quickly Café "
+            "北京大学 한국어를 książkami українського")
+    out = [("ft", {"analyzer": a, "text": text}) for a in FT_ANALYSIS[
+        "analyzer"]]
+    out += [("ft", {"analyzer": lang, "text": text}) for lang in FT_LANGS]
+    out += [("ft", {"field": "tag", "text": "T&ea Café"}),
+            ("ft", {"field": "sayt._index_prefix", "text": "quick fox"}),
+            (None, {"analyzer": "english", "text": [text, "the foxes"]})]
+    return out
+
+
+def ft_same(got, want, body, what: str) -> None:
+    """Card == CPU: equal apart from `took`, but for an aggregation's
+    f32 sums, which the card and the CPU add in other orders (within
+    1e-4 relative, as phase 10 holds them)."""
+    if body is not None and "aggs" in body:
+        same_vec(strip_took(got), strip_took(want), (1e-4, 0.0, 0.0),
+                 what + ": ")
+    elif strip_took(got) != strip_took(want):
+        raise AssertionError(f"{what}: card != CPU")
+
+
+def ft_small_run(name: str, docs, bodies) -> tuple:
+    """Phase 4's field-type index on `name`: two refreshes, deletes,
+    `bodies` and the analyze calls, then a forcemerge and the bodies
+    again: -> (responses before, after, analyze responses, parse s)."""
+    from opensearch_tpu_torch import RestClient
+    c = RestClient(device=name)
+    c.indices.create("ft", json.loads(json.dumps(FT_SMALL_MAPPING)))
+    t0 = time.perf_counter()
+    cut = len(docs) * 5 // 8
+    for a, b in ((0, cut), (cut, len(docs))):
+        bulk_checked(c, sum([[{"index": {"_index": "ft", "_id": f"d{i}"}},
+                              docs[i]] for i in range(a, b)], []), "index",
+                     {"created": 201})
+        c.indices.refresh("ft")
+    t_bulk = time.perf_counter() - t0
+    bulk_checked(c, [{"delete": {"_index": "ft", "_id": f"d{i}"}}
+                     for i in range(0, len(docs), 97)], "delete",
+                 {"deleted": 200})
+    c.indices.refresh("ft")
+    before = [c.search("ft", json.loads(json.dumps(b))) for b in bodies]
+    analyzed = [c.indices.analyze(ix, b) for ix, b in ft_small_analyze()]
+    c.indices.forcemerge("ft")
+    after = [c.search("ft", json.loads(json.dumps(b))) for b in bodies]
+    return before, after, analyzed, t_bulk
+
+
+class FtSmallOracle:
+    """The small phase's brute force over the docs themselves: which live
+    docs hold each value, BM25 (f32, the port's per-term order) of a
+    `match` over the english analyzer's terms with the index statistics
+    (deleted docs count until the merge drops them)."""
+
+    def __init__(self, docs, deleted):
+        from opensearch_tpu_torch.analysis import AnalysisRegistry
+        from opensearch_tpu_torch.index.mappings import ip_to_int
+        self.n = len(docs)
+        self.live = np.ones(self.n, bool)
+        self.live[list(deleted)] = False
+        self.en = AnalysisRegistry().get("english")
+        self.title = [self.en.terms(d["title"]) for d in docs]
+        self.dl = np.asarray([len(t) for t in self.title], np.float32)
+
+        def ips(d):
+            v = d.get("addr")
+            return [ip_to_int(x) for x in (v if isinstance(v, list)
+                                           else [v] if v else [])]
+        self.addr = [ips(d) for d in docs]
+        self.stock = np.asarray([d["stock"] if d.get("stock") is not None
+                                 else 0 for d in docs], np.int64)
+        self.price = [d.get("price") for d in docs]
+        self.views = [d.get("views") for d in docs]
+
+    def ids(self, mask) -> list:
+        return [f"d{i}" for i in np.flatnonzero(mask & self.live)]
+
+    def match_page(self, terms, merged: bool, size: int = 10) -> tuple:
+        import math
+        counted = self.live if merged else np.ones(self.n, bool)
+        n = int(counted.sum())
+        avgdl = np.float32(self.dl[counted].sum()
+                           / (counted & (self.dl > 0)).sum())
+        score = np.zeros(self.n, np.float32)
+        hit = np.zeros(self.n, bool)
+        for t in dict.fromkeys(terms):
+            tf = np.asarray([toks.count(t) for toks in self.title],
+                            np.float32)
+            has = (tf > 0) & counted
+            df = int(has.sum())
+            if not df:
+                continue
+            w = np.float32(math.log(1.0 + (n - df + 0.5) / (df + 0.5)))
+            c = (w * tf) / (tf + K1 * (OMB + (B * self.dl) / avgdl))
+            score = np.where(has, score + c, score).astype(np.float32)
+            hit |= has
+        docs = np.flatnonzero(hit & self.live)
+        order = np.lexsort((docs, -score[docs]))[:size]
+        return ([f"d{i}" for i in docs[order]],
+                score[docs[order]].tolist(), len(docs))
+
+
+def ft_small_check(oracle: FtSmallOracle, resps, merged: bool) -> int:
+    """Pages of FT_SMALL_BODIES against the brute force: the filter
+    bodies' totals and first pages (constant scores: doc order), the
+    english matches' pages, the sort's order and docvalue_fields, the
+    ip_range counts: -> bodies checked."""
+    from opensearch_tpu_torch.index.mappings import ip_to_int
+    checked = 0
+    pages = {0: lambda a: ip_to_int("10.1.1.1") in a,
+             # a CIDR or range reads the column: the first value
+             1: lambda a: any(ip_to_int("10.1.0.0") <= x
+                              <= ip_to_int("10.1.255.255") for x in a[:1]),
+             3: lambda a: any(ip_to_int("10.1.0.0") <= x
+                              < ip_to_int("10.3.0.0") for x in a[:1])}
+    for i, pred in pages.items():
+        mask = np.asarray([pred(a) for a in oracle.addr])
+        want = oracle.ids(mask)
+        h = resps[i]["hits"]
+        if h["total"]["value"] != len(want) or [
+                x["_id"] for x in h["hits"]] != want[:10]:
+            raise AssertionError(f"fields small body {i} != brute force")
+        checked += 1
+    mask = (oracle.stock >= -10) & (oracle.stock <= 100)
+    if resps[5]["hits"]["total"]["value"] != len(oracle.ids(mask)):
+        raise AssertionError("fields small: short range != brute force")
+    vmask = np.asarray([v is not None and v >= 1 << 63
+                        for v in oracle.views])
+    if resps[8]["hits"]["total"]["value"] != len(oracle.ids(vmask)):
+        raise AssertionError("fields small: unsigned_long range != brute "
+                             "force")
+    checked += 2
+    for i, text in ((10, "running foxes"), (11, "runs dogs")):
+        check_page(resps[i], oracle.match_page(oracle.en.terms(text),
+                                               merged),
+                   f"fields small match {i}")
+        checked += 1
+    # the sort: the matching live docs by views desc, missing last
+    match = np.asarray(["dog" in t for t in oracle.title]) & oracle.live
+    key = [(-(v if v is not None else -1), j) for j, v in
+           enumerate(oracle.views)]
+    order = sorted(np.flatnonzero(match), key=lambda j: key[j])[:10]
+    got = resps[22]["hits"]["hits"]
+    if [x["_id"] for x in got] != [f"d{j}" for j in order] or any(
+            x["fields"].get("views") != [oracle.views[j]]
+            for x, j in zip(got, order) if oracle.views[j] is not None):
+        raise AssertionError("fields small: the views sort != brute force")
+    buckets = resps[24]["aggregations"]["r"]["buckets"]
+    bounds = [(None, "10.1.0.0"), ("10.1.0.0", None),
+              ("10.2.0.0", "10.3.0.0")]
+    for bk, (lo, hi) in zip(buckets, bounds):
+        lo_i = ip_to_int(lo) if lo else -1
+        hi_i = ip_to_int(hi) if hi else 1 << 64
+        want = sum(1 for j in np.flatnonzero(oracle.live)
+                   if any(lo_i <= x < hi_i for x in oracle.addr[j][:1]))
+        if bk["doc_count"] != want:
+            raise AssertionError(f"fields small: ip_range {bk} != {want}")
+    if resps[24]["aggregations"]["t"]["buckets"]:
+        raise AssertionError("fields small: terms on an ip has buckets")
+    return checked + 2
+
+
+def phase_fields_small(rng) -> dict:
+    """Phase 4's text analysis and field types: FT_SMALL_DOCS docs bulk-
+    indexed through the write path on the card and on the CPU into an
+    index with every language analyzer but smartcn (jieba: not on the
+    card's machine), custom char filters, tokenizers, token filters and
+    a normalizer, every scalar type of the slice, store / copy_to /
+    null_value and a dynamic template; two refreshes, deletes, the
+    bodies and analyze calls, a forcemerge, the bodies again: card ==
+    CPU (exact; an aggregation's f32 sums within 1e-4 relative), pages
+    against FtSmallOracle."""
+    docs = ft_small_docs(rng, FT_SMALL_DOCS)
+    t0 = time.perf_counter()
+    out = {name: ft_small_run(name, docs, FT_SMALL_BODIES)
+           for name in ("cuda", "cpu")}
+    for part in (0, 1, 2):
+        for i, (g, w) in enumerate(zip(out["cuda"][part], out["cpu"][part])):
+            ft_same(g, w, FT_SMALL_BODIES[i] if part < 2 else None,
+                    f"fields small: part {part} body {i}")
+    oracle = FtSmallOracle(docs, range(0, len(docs), 97))
+    n = ft_small_check(oracle, out["cuda"][0], merged=False)
+    n += ft_small_check(oracle, out["cuda"][1], merged=True)
+    log(f"  fields, small: {len(docs)} docs ({len(FT_LANGS)} language "
+        f"analyzers, {len(FT_ANALYSIS['analyzer'])} custom analyzers, a "
+        f"normalizer, 13 field types, store / copy_to / null_value, a "
+        f"dynamic template), {len(FT_SMALL_BODIES)} bodies and "
+        f"{len(out['cuda'][2])} analyze calls card == CPU before and after "
+        f"a forcemerge; {n} pages == the brute force; bulk + refresh "
+        f"{out['cuda'][3]:.1f}s on the card's client, "
+        f"{out['cpu'][3]:.1f}s on the CPU's "
+        f"({time.perf_counter() - t0:.1f}s)")
+    res = {"docs": len(docs), "bodies": len(FT_SMALL_BODIES),
+           "analyze_calls": len(out["cuda"][2]), "pages_checked": n,
+           "bulk_refresh_s": out["cuda"][3],
+           "host_ms_a_doc": out["cuda"][3] / len(docs) * 1e3}
+    del oracle, out
+    # the two clients' heap back to the OS before phase 5's draws land
+    trim_host()
+    return res
+
+
+FT_MAPPING = {"properties": {
+    "title_en": {"type": "text", "analyzer": "english"},
+    "client_ip": {"type": "ip"}, "stock": {"type": "short"},
+    "grade": {"type": "byte"},
+    "price_scaled": {"type": "scaled_float", "scaling_factor": 100},
+    "views": {"type": "unsigned_long"},
+    "shop": {"type": "constant_keyword", "value": "acme"}}}
+FT_SUBNET = "172.18.0.0/16"           # class (c)'s CIDR filter
+FT_RANGES = [{"to": "172.17.0.0"}, {"mask": "172.16.0.0/14"},
+             {"from": "172.20.0.0", "to": "172.24.0.0"},
+             {"key": "rest", "from": "172.24.0.0"}]
+
+
+def sync(dev) -> None:
+    """Wait for the card when `dev` is one."""
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def en_remap(title: tuple, forms: list, analyzer, dev) -> dict:
+    """The title's tokens under the english analyzer, remapped on `dev`:
+    each title term's surface form analyzed once (a stopword drops out,
+    forms that share a stem share a row); the passages' tokens rebuilt
+    from the title draw, remapped, stopwords removed (positions keep
+    their gaps, a doc's length counts the kept tokens), sorted by (row,
+    doc, position) and cut into postings: -> the CSR arrays on the host
+    and the timings."""
+    import torch
+    tstarts, _d, _t, _ps, _p, first, second, _pc, draw = title
+    t0 = time.perf_counter()
+    analyzed = [analyzer.terms(f) for f in forms]
+    if any(len(a) > 1 for a in analyzed):
+        raise AssertionError("a title form analyzed to several tokens")
+    vocab = sorted({a[0] for a in analyzed if a})
+    row_of = {t: i for i, t in enumerate(vocab)}
+    remap = np.asarray([row_of[a[0]] if a else -1 for a in analyzed],
+                       np.int64)
+    t_analyze = time.perf_counter() - t0
+    sync(dev)
+    t0 = time.perf_counter()
+    n = draw.shape[0]
+    pr = torch.from_numpy(draw.astype(np.int64)).to(dev)
+    tok = torch.empty((n, 8), dtype=torch.int64, device=dev)
+    tok[:, 0::2] = torch.from_numpy(first).to(dev)[pr]
+    tok[:, 1::2] = torch.from_numpy(second).to(dev)[pr]
+    del pr
+    new = torch.from_numpy(remap).to(dev)[tok]
+    del tok
+    keep = new >= 0
+    dl = keep.sum(1)
+    doc = torch.arange(n, dtype=torch.int64, device=dev)[:, None].expand(
+        n, 8)
+    pos = torch.arange(8, dtype=torch.int64, device=dev)[None, :].expand(
+        n, 8)
+    key = (new << 27 | doc << 3 | pos)[keep]
+    del new, keep, doc, pos
+    key = torch.sort(key).values
+    td = key >> 3
+    head = torch.ones(len(td), dtype=torch.bool, device=dev)
+    head[1:] = td[1:] != td[:-1]
+    idx = torch.nonzero(head).squeeze(1)
+    counts = torch.diff(idx, append=torch.tensor([len(td)], device=dev))
+    rows = key[idx] >> 27
+    out = {"vocab": vocab, "remap": remap,
+           "doc_ids": (td[idx] & ((1 << 24) - 1)).to(torch.int32).cpu()
+           .numpy(),
+           "tfs": counts.to(torch.float32).cpu().numpy(),
+           "positions": (key & 7).to(torch.int32).cpu().numpy(),
+           "dl": dl.cpu().numpy().astype(np.int64)}
+    starts = np.zeros(len(vocab) + 1, np.int64)
+    np.cumsum(torch.bincount(rows, minlength=len(vocab)).cpu().numpy(),
+              out=starts[1:])
+    pos_starts = np.zeros(len(idx) + 1, np.int64)
+    np.cumsum(counts.cpu().numpy(), out=pos_starts[1:])
+    out.update(starts=starts, pos_starts=pos_starts)
+    del key, td, head, idx, counts, rows
+    sync(dev)
+    out["remap_s"] = time.perf_counter() - t0
+    out["analyze_s"] = t_analyze
+    out["analyzer_ms_a_form"] = t_analyze / len(forms) * 1e3
+    return out
+
+
+def ft_attach(big: dict, seed: int) -> dict:
+    """Phase 18's fields attached to the corpus segment: `title_en` (the
+    title remapped through the english analyzer on the card, its codec-v2
+    impact plane built there), the `client_ip` column and its address
+    postings, `stock`, `grade`, `price_scaled`, `views` and `shop` (one
+    term, every passage); the mapping put: -> the timings, bytes and the
+    oracle's arrays."""
+    import torch
+    from opensearch_tpu_torch import bench_corpus as bc
+    from opensearch_tpu_torch.index.segment import (
+        KeywordColumn, NumericColumn, PostingsBlock, TextFieldStats,
+        build_impact_plane)
+    client, seg = big["client"], big["seg"]
+    dev = client.device
+    n0 = seg.ndocs
+    title = big["title"]
+    forms = bc.english_title_forms(title[5], title[6], title[7],
+                                   len(title[0]) - 1)
+    client.indices.put_mapping("bench", FT_MAPPING)
+    mappings = client._indices["bench"].mappings
+    en = en_remap(title, forms, mappings.analysis.get("english"), dev)
+    vocab = en["vocab"]
+    pb = PostingsBlock("title_en", vocab, {t: i for i, t in enumerate(vocab)},
+                       en["starts"], en["doc_ids"], en["tfs"],
+                       en["pos_starts"], en["positions"])
+    dl = en["dl"]
+    doc_count, sum_dl = int((dl > 0).sum()), int(dl.sum())
+    t0 = time.perf_counter()
+    pb.impact = build_impact_plane(pb, dl, avgdl=sum_dl / doc_count,
+                                   device=dev)
+    sync(dev)
+    t_plane = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cols = bc.field_type_columns(n0, big["columns"][1], seed)
+    ipi = cols["client_ip"].astype(np.int64)
+    used = np.unique(ipi)
+    names = [bc.ip_pool_str(i) for i in used]
+    order = sorted(range(len(used)), key=names.__getitem__)
+    row_of = np.empty(bc.IP_POOL, np.int64)
+    row_of[used[order]] = np.arange(len(used))
+    rows = row_of[ipi]
+    ip_docs = np.argsort(rows, kind="stable").astype(np.int32)
+    ip_starts = np.zeros(len(used) + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=len(used)), out=ip_starts[1:])
+    ip_vocab = [names[j] for j in order]
+    ones = np.ones(n0, bool)
+    empty_pos = (np.zeros(n0 + 1, np.int64), np.empty(0, np.int32))
+    seg.postings["client_ip"] = PostingsBlock(
+        "client_ip", ip_vocab, {t: i for i, t in enumerate(ip_vocab)},
+        ip_starts, ip_docs, np.ones(n0, np.float32), *empty_pos)
+    seg.postings["shop"] = PostingsBlock(
+        "shop", ["acme"], {"acme": 0}, np.asarray([0, n0], np.int64),
+        np.arange(n0, dtype=np.int32), np.ones(n0, np.float32), *empty_pos)
+    seg.keyword_cols["shop"] = KeywordColumn(
+        "shop", ["acme"], np.arange(n0 + 1, dtype=np.int64),
+        np.zeros(n0, np.int32), np.arange(n0, dtype=np.int32),
+        np.zeros(n0, np.int32))
+    ip_int = bc.ip_pool_int(ipi)
+    for f, kind, v in (("client_ip", "int", ip_int),
+                       ("stock", "int", cols["stock"]),
+                       ("grade", "int", cols["grade"]),
+                       ("price_scaled", "float", cols["price_scaled"]),
+                       ("views", "uint", cols["views_biased"])):
+        seg.numeric_cols[f] = NumericColumn(f, kind, v, ones)
+    t_cols = time.perf_counter() - t0
+    seg.postings["title_en"] = pb
+    seg.doc_lens["title_en"] = dl
+    seg.text_stats["title_en"] = TextFieldStats(doc_count, sum_dl)
+    nbytes = (pb.doc_ids.nbytes + pb.tfs.nbytes + pb.pos_starts.nbytes
+              + pb.positions.nbytes + dl.nbytes)
+    col_bytes = sum(c.values.nbytes + c.present.nbytes
+                    for f, c in seg.numeric_cols.items()
+                    if f in ("client_ip", "stock", "grade", "price_scaled",
+                             "views")) + ip_docs.nbytes + n0 * 8
+    return {"analyze_s": en["analyze_s"], "remap_s": en["remap_s"],
+            "analyzer_ms_a_form": en["analyzer_ms_a_form"],
+            "plane_s": t_plane, "columns_s": t_cols,
+            "postings": int(pb.size), "rows": len(vocab),
+            "stopword_forms": int((en["remap"] < 0).sum()),
+            "tokens_kept": sum_dl, "plane_bytes": int(pb.impact.nbytes),
+            "title_en_host_bytes": int(nbytes),
+            "column_host_bytes": int(col_bytes),
+            "arrays": {"starts": en["starts"], "docs": en["doc_ids"],
+                       "tfs": en["tfs"], "dl": dl, "vocab": vocab,
+                       "forms": forms, "remap": en["remap"],
+                       "ip": ip_int, "stock": cols["stock"],
+                       "grade": cols["grade"],
+                       "price_scaled": cols["price_scaled"],
+                       "views": cols["views_biased"]}}
+
+
+class FtOracle:
+    """Phase 18's brute force over its own arrays (corpus docs 0..n0-1;
+    the docs indexed later hold none of the fields) and NumpyIndex's live
+    and counted docs: title_en BM25 in f32 with the port's per-term
+    order (idf over maxDoc, avgdl over the docs with a title_en token),
+    the columns' filters, the views sort, ip_range, stats."""
+
+    def __init__(self, arrays: dict, ix):
+        self.a = arrays
+        self.ix = ix
+        self.n0 = len(arrays["dl"])
+        self.dl = arrays["dl"].astype(np.float32)
+
+    def pad(self, v, fill) -> np.ndarray:
+        """A corpus column over every global doc (`fill` for later
+        docs)."""
+        out = np.full(self.ix.n, fill, v.dtype)
+        out[:self.n0] = v
+        return out
+
+    def row(self, term: str):
+        r = self.a["vocab"].index(term)
+        lo, hi = int(self.a["starts"][r]), int(self.a["starts"][r + 1])
+        return self.a["docs"][lo:hi].astype(np.int64), self.a["tfs"][lo:hi]
+
+    def scores(self, terms) -> tuple:
+        import math
+        counted = self.ix.counted[:self.n0]
+        avgdl = np.float32(self.dl[counted].sum()
+                           / (counted & (self.dl > 0)).sum())
+        n = self.ix.n_stats
+        score = np.zeros(self.ix.n, np.float32)
+        hit = np.zeros(self.ix.n, bool)
+        for t in dict.fromkeys(terms):
+            if t not in self.a["vocab"]:
+                continue
+            d, tf = self.row(t)
+            keep = counted[d]
+            d, tf = d[keep], tf[keep]
+            df = len(d)
+            w = np.float32(math.log(1.0 + (n - df + 0.5) / (df + 0.5)))
+            score[d] += (w * tf) / (tf + K1 * (OMB + (B * self.dl[d])
+                                               / avgdl))
+            hit[d] = True
+        return score, hit
+
+    def filters(self, spec: dict) -> np.ndarray:
+        from opensearch_tpu_torch.index.mappings import ip_to_int
+        import ipaddress
+        net = ipaddress.ip_network(spec["cidr"])
+        ip = self.pad(self.a["ip"], -1)
+        stock = self.pad(self.a["stock"], -1)
+        lo, hi = spec["stock"]
+        has = np.zeros(self.ix.n, bool)
+        has[:self.n0] = True
+        return (has & (ip >= ip_to_int(str(net.network_address)))
+                & (ip <= ip_to_int(str(net.broadcast_address)))
+                & (stock >= lo) & (stock <= hi))
+
+
+def ft_classes(arrays: dict, n: int, rng) -> dict:
+    """`n` bodies a class: (a) a pruned english match on title_en (two
+    inflected forms of distinct stems and a stopword), (b) the same with
+    exact totals, (c) the match in a bool with a client_ip CIDR filter and
+    a stock range, (d) a one-word match sorted by views desc with
+    docvalue_fields of client_ip and views, (e) size-0 ip_range, terms on
+    client_ip and stats on price_scaled under a one-word match:
+    -> {class: [(body, spec)]}."""
+    forms, remap = arrays["forms"], arrays["remap"]
+    vocab = arrays["vocab"]
+    df = np.diff(arrays["starts"])
+    stops = [f for f, r in zip(forms, remap) if r < 0]
+    # the forms of rows neither rare nor of the densest tenth
+    ok_rows = set(np.flatnonzero((df > np.quantile(df, 0.3))
+                                 & (df < np.quantile(df, 0.9))).tolist())
+    cand = [(f, int(r)) for f, r in zip(forms, remap) if r in ok_rows]
+    out = {k: [] for k in ("a_pruned", "b_exact", "c_bool", "d_sort",
+                           "e_aggs")}
+    for i in range(n):
+        j1, j2 = rng.choice(len(cand), 2, replace=False)
+        while cand[j2][1] == cand[j1][1]:
+            j2 = int(rng.integers(len(cand)))
+        (f1, r1), (f2, r2) = cand[j1], cand[j2]
+        text = f"{f1} {stops[i % len(stops)]} {f2}"
+        terms = [vocab[r1], vocab[r2]]
+        m = {"match": {"title_en": text}}
+        out["a_pruned"].append(({"query": m, "size": 10},
+                                {"terms": terms}))
+        out["b_exact"].append(({"query": m, "size": 10,
+                                "track_total_hits": True},
+                               {"terms": terms}))
+        lo = int(rng.integers(0, 300))
+        spec = {"terms": terms, "cidr": FT_SUBNET, "stock": (lo, lo + 150)}
+        out["c_bool"].append(({"query": {"bool": {"must": [m], "filter": [
+            {"term": {"client_ip": FT_SUBNET}},
+            {"range": {"stock": {"gte": lo, "lte": lo + 150}}}]}},
+            "size": 10}, spec))
+        one = {"match": {"title_en": f1}}
+        out["d_sort"].append(({"query": one, "size": 10,
+                               "sort": [{"views": "desc"}],
+                               "docvalue_fields": ["client_ip", "views"]},
+                              {"terms": [vocab[r1]]}))
+        out["e_aggs"].append(({"query": {"match": {"title_en": f2}},
+                               "size": 0, "aggs": {
+            "r": {"ip_range": {"field": "client_ip", "ranges": FT_RANGES}},
+            "t": {"terms": {"field": "client_ip"}},
+            "s": {"stats": {"field": "price_scaled"}}}},
+            {"terms": [vocab[r2]]}))
+    return out
+
+
+def ft_check(oracle: FtOracle, name: str, body: dict, spec: dict, resp,
+             sums: SumCheck, what: str) -> None:
+    """One response of class `name` against the brute force."""
+    from opensearch_tpu_torch.index.mappings import ip_to_int
+    ix = oracle.ix
+    score, hit = oracle.scores(spec["terms"])
+    if name in ("a_pruned", "b_exact"):
+        check_page(resp, ix.page(score, hit, 0, 10), what)
+        return
+    if name == "c_bool":
+        check_page(resp, ix.page(score, hit & oracle.filters(spec), 0, 10),
+                   what)
+        return
+    docs = np.flatnonzero(hit & ix.live)
+    if name == "d_sort":
+        # views desc (the biased column keeps the order), ties by doc; the
+        # matching docs all hold a views value (corpus docs)
+        v = oracle.a["views"][docs]
+        sel = docs[np.lexsort((docs, ~v))][:10]
+        ip = oracle.a["ip"]
+        want = [(ix.id_of(int(g)), [int(oracle.a["views"][g]) + (1 << 63)],
+                 {"client_ip": [int(ip[g])],
+                  "views": [int(oracle.a["views"][g]) + (1 << 63)]})
+                for g in sel]
+        got = [(h["_id"], h["sort"], h["fields"])
+               for h in resp["hits"]["hits"]]
+        if got != want or resp["hits"]["total"]["value"] != len(docs):
+            raise AssertionError(f"{what}: sorted page != brute force")
+        return
+    aggs = resp["aggregations"]
+    ip = oracle.pad(oracle.a["ip"], -1)[docs]
+    ip = ip[ip >= 0]
+    for bk, r in zip(aggs["r"]["buckets"], FT_RANGES):
+        if "mask" in r:
+            import ipaddress
+            net = ipaddress.ip_network(r["mask"])
+            lo = ip_to_int(str(net.network_address))
+            hi = ip_to_int(str(net.broadcast_address)) + 1
+        else:
+            lo = ip_to_int(r["from"]) if "from" in r else -1
+            hi = ip_to_int(r["to"]) if "to" in r else 1 << 63
+        if bk["doc_count"] != int(((ip >= lo) & (ip < hi)).sum()):
+            raise AssertionError(f"{what}: ip_range bucket {bk}")
+    if aggs["t"]["buckets"]:
+        raise AssertionError(f"{what}: terms on an ip field has buckets "
+                             f"(the reference keeps no keyword doc values "
+                             f"for an ip)")
+    ps = oracle.a["price_scaled"][docs[docs < oracle.n0]]
+    check_stats(aggs["s"], ps.astype(np.float32), sums, f"{what} stats")
+
+
+def run_ft_class(client, name: str, items, oracle: FtOracle, sums,
+                 cpu=None, label: str = "") -> dict:
+    """One class body by body through RestClient.search (the counts set
+    to 0 just before), each page against the brute force, the first body
+    on the card against the CPU twin: -> the class's numbers."""
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, impactpath
+    bodies = [b for b, _s in items]
+    sync(client.device)
+    impactpath.reset_stats()
+    fastpath.reset_stats()
+    C.reset_stats()
+    bm25.reset_counts()
+    lat, resps = [], []
+    t0 = time.perf_counter()
+    for b in bodies:
+        t1 = time.perf_counter()
+        resps.append(client.search("bench", b))
+        lat.append((time.perf_counter() - t1) * 1e3)
+    sync(client.device)
+    wall = time.perf_counter() - t0
+    counts = {**{k: bm25.COUNTS[k] for k in ("launches", "impact_launches",
+                                             "bool_launches",
+                                             "plain_calls")},
+              "impact_rung": sum(impactpath.STATS[k] for k in (
+                  "served", "pruned_served", "phase2_served", "escalated")),
+              "pruned_ladder": sum(fastpath.STATS.get(k, 0) for k in RUNGS),
+              "general": C.STATS["general_served"]}
+    t0 = time.perf_counter()
+    for j, ((b, spec), r) in enumerate(zip(items, resps)):
+        ft_check(oracle, name, b, spec, r, sums,
+                 f"phase 18 {name}{label} {j}")
+    t_oracle = time.perf_counter() - t0
+    t_cpu = 0.0
+    if cpu is not None:
+        t0 = time.perf_counter()
+        want = cpu.search("bench", bodies[0])
+        t_cpu = time.perf_counter() - t0
+        ft_same(resps[0], want, bodies[0], f"phase 18 {name}")
+    if counts["plain_calls"]:
+        raise AssertionError(f"phase 18 {name}: a plain call on the card")
+    out = {"bodies": len(bodies), "wall_s": wall,
+           "bodies_per_s": len(bodies) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
+           "counts": counts, "oracle_s": t_oracle, "cpu_s": t_cpu}
+    log(f"  {name}{label}: {len(bodies)} bodies in {wall:.2f}s p50 "
+        f"{out['p50_ms']:.1f} p99 {out['p99_ms']:.1f} first "
+        f"{lat[0]:.1f} ms; routes {counts}; pages == brute force "
+        f"({t_oracle:.1f}s)" + (f"; body 0 card == CPU ({t_cpu:.1f}s)"
+                                 if cpu is not None else ""))
+    return out
+
+
+def ft_twin(eng):
+    cpu = twin_of(eng)
+    cpu.indices.put_mapping("bench", FT_MAPPING)
+    return cpu
+
+
+def phase_fields_msmarco(big: dict, n: int, seed: int) -> dict:
+    """Phase 18 on phase 17's end state: FT_MAPPING's fields attached to
+    the corpus segment (`ft_attach`), `n` bodies a class of `ft_classes`,
+    every page against FtOracle, one body a class card == CPU; seconds,
+    device bytes and host RSS at the phase's start, peak and end."""
+    import torch
+    client, seg, ix = big["client"], big["seg"], big["ix"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    drop_cpu_state(eng.segments)
+    trim_host()
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    bytes0 = torch.cuda.memory_allocated(dev)
+    rss0 = rss_bytes()
+    rss_watch = RssPeak().__enter__()
+    att = ft_attach(big, seed)
+    arrays = att.pop("arrays")
+    torch.cuda.synchronize()
+    bytes_attach = torch.cuda.memory_allocated(dev) - bytes0
+    log(f"  title_en: {len(arrays['forms'])} title forms through the "
+        f"english analyzer in {att['analyze_s'] * 1e3:.1f} ms "
+        f"({att['analyzer_ms_a_form']:.4f} ms a form; "
+        f"{att['stopword_forms']} stopwords), {att['postings']} postings "
+        f"over {att['rows']} stems ({att['tokens_kept']} tokens kept) "
+        f"remapped on the card in {att['remap_s']:.2f}s, impact plane "
+        f"{att['plane_s']:.2f}s ({att['plane_bytes']} bytes), "
+        f"{att['title_en_host_bytes']} host bytes; columns and ip postings "
+        f"{att['columns_s']:.2f}s ({att['column_host_bytes']} host bytes)")
+    oracle = FtOracle(arrays, ix)
+    classes = ft_classes(arrays, n, np.random.default_rng([seed, 18]))
+    cpu = ft_twin(eng)
+    sums = SumCheck()
+    out: dict = {"build": att, "classes": {}}
+    for name, items in classes.items():
+        out["classes"][name] = run_ft_class(client, name, items, oracle,
+                                            sums, cpu)
+    torch.cuda.synchronize()
+    out["device_bytes_attach"] = bytes_attach
+    out["device_bytes"] = torch.cuda.memory_allocated(dev) - bytes0
+    rss_watch.__exit__()
+    out["rss_start"], out["rss_end"] = rss0[0], rss_bytes()[0]
+    out["rss_peak"] = rss_watch.peak
+    out["seconds"] = time.perf_counter() - t_phase
+    out["sum_rel_err"] = sums.rel
+    log(f"  phase 18: {out['seconds']:.1f}s; device bytes "
+        f"{bytes_attach} after the attach, {out['device_bytes']} at the "
+        f"end; host RSS start {out['rss_start']}, peak {out['rss_peak']}, "
+        f"end {out['rss_end']}, the process's {rss_bytes()[1]}")
+    drop_cpu_state(eng.segments)
+    big["fields"] = {"classes": classes, "seed": seed, "arrays": arrays}
+    return out
+
+
+def phase_fields_merged(big: dict) -> dict:
+    """Phase 8's merged segment: classes (a), (b), (c) and (e) again, one
+    body each, against the brute force (deleted docs compacted away), the
+    merged title_en rows against the live passages'."""
+    client, ix = big["client"], big["ix"]
+    eng = client._indices["bench"].engine
+    (merged,) = eng.segments
+    f = big["fields"]
+    oracle = FtOracle(f["arrays"], ix)
+    live_g = np.flatnonzero(ix.live)
+    new_of = np.full(ix.n, -1, np.int64)
+    new_of[live_g] = np.arange(len(live_g))
+    pb = merged.postings["title_en"]
+    for term in oracle.a["vocab"][:3]:
+        d, tf = oracle.row(term)
+        keep = ix.live[d]
+        a, b = pb.row_slice(pb.row(term))
+        if not (np.array_equal(pb.doc_ids[a:b], new_of[d[keep]])
+                and np.array_equal(pb.tfs[a:b], tf[keep])):
+            raise AssertionError(f"merged title_en row {term} != the live "
+                                 f"passages'")
+    if merged.numeric_cols["views"].kind != "uint":
+        raise AssertionError("merged views column lost its kind")
+    sums = SumCheck()
+    out = {"classes": {}}
+    for name in ("a_pruned", "b_exact", "c_bool", "e_aggs"):
+        out["classes"][name] = run_ft_class(
+            client, name, f["classes"][name][:1], oracle, sums,
+            label=", merged")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
@@ -8715,11 +9611,13 @@ def main() -> int:
                     "msearch of 64)")
     ap.add_argument("--sparse-queries", type=int, default=4,
                     help="phase-17 bodies per class")
+    ap.add_argument("--field-queries", type=int, default=4,
+                    help="phase-18 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 17; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 8); no result "
-                    "line")
+                    help="end after this phase (3 to 18; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18, 8); no "
+                    "result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -8785,6 +9683,7 @@ def main() -> int:
     phase_slice_small(rng(7))
     vec_small = phase_vectors_small(rng(9))
     sp_small = phase_sparse_small(rng(10))
+    ft_small = phase_fields_small(rng(11))
     if args.stop_after == 4:
         return 0
 
@@ -8913,6 +9812,16 @@ def main() -> int:
     if args.stop_after == 17:
         return 0
 
+    log(f"[18] text analysis and the scalar field types (an english "
+        f"title_en remapped on the card from the title, client_ip, stock, "
+        f"grade, price_scaled, views, shop) at MS MARCO passage scale "
+        f"(ndocs={args.ndocs}), on phase 17's end state; classes (a), (b), "
+        f"(c), (e) again after phase 8" + at(t_start))
+    fields = phase_fields_msmarco(big, args.field_queries, args.seed)
+    fields["small"] = ft_small
+    if args.stop_after == 18:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
@@ -8946,6 +9855,11 @@ def main() -> int:
         "segment (its FEATURE plane rebuilt by the merge)" + at(t_start))
     sparse["merged"] = phase_sparse_merged(big)
     sh = sparse["hybrid_launches"]
+    log("[18m] phase 18's classes (a), (b), (c) and (e), on phase 8's "
+        "merged segment (title_en's plane and the columns carried by the "
+        "merge)" + at(t_start))
+    fields["merged"] = phase_fields_merged(big)
+    fm = {k: v["counts"] for k, v in fields["merged"]["classes"].items()}
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -8959,6 +9873,7 @@ def main() -> int:
         "launches_body_options": sum(c["launches"] for c in rc),
         "launches_hybrid": vh["launches"],
         "launches_sparse_hybrid": sh["launches"],
+        "launches_fields": sum(c["launches"] for c in fm.values()),
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -8973,6 +9888,7 @@ def main() -> int:
         "launches_body_options": sum(c["impact_launches"] for c in rc),
         "launches_hybrid": vh["impact_launches"],
         "launches_sparse_hybrid": sh["impact_launches"],
+        "launches_fields": sum(c["impact_launches"] for c in fm.values()),
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -8986,6 +9902,7 @@ def main() -> int:
                                  for k in ("mm_one_field",
                                            "compound_filter")),
         "launches_body_options": sum(c["bool_launches"] for c in rc),
+        "launches_fields": sum(c["bool_launches"] for c in fm.values()),
         "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
                            egrid["max_abs_err"], bools["max_abs_err"]),
         **times(bools["b3"]), "bound_by": "bytes",
@@ -9024,6 +9941,7 @@ def main() -> int:
     print(json.dumps({"longtail_aggs": longtail}), flush=True)
     print(json.dumps({"vectors": vectors}), flush=True)
     print(json.dumps({"sparse": sparse}), flush=True)
+    print(json.dumps({"fields": fields}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -405,3 +405,93 @@ def mixed_body(i: int, queries, vs, pairs, title, size: int = 10) -> dict:
     if r < 8:
         return match_body(i, queries, vs, size)
     return phrase_body(i, pairs, title, size)
+
+
+# ---------------------------------------------------------------------
+# the title's English surface forms and the scalar field types' columns
+# ---------------------------------------------------------------------
+
+EN_INFLECTIONS = ("", "s", "ing", "ed", "er", "ly")
+_EN_ONSETS = ("b", "br", "c", "ch", "cl", "d", "dr", "f", "fl", "g", "gr",
+              "h", "j", "k", "l", "m", "n", "p", "pl", "qu", "r", "s",
+              "sh", "sl", "st", "t", "th", "tr", "v", "w")
+_EN_VOWELS = ("a", "e", "i", "o", "u", "ai", "ea", "oo")
+_EN_CODAS = ("b", "ck", "d", "ft", "g", "k", "l", "lt", "m", "mp", "n",
+             "nd", "nk", "p", "rt", "sk", "st", "t", "x")
+
+
+def english_title_forms(first: np.ndarray, second: np.ndarray,
+                        pair_counts: np.ndarray, tvocab: int = 1000,
+                        n_stop: int = 30, seed: int = 11) -> list:
+    """An English surface form for each of the title's `tvocab` terms
+    (build_title_corpus), from `seed`: the `n_stop` terms the title pool
+    draws most often become the first `n_stop` of Lucene's English
+    stopwords (sorted), every other term a stem x inflection (EN_INFLECTIONS:
+    a stem's forms stem alike under the english analyzer's Porter
+    stemmer, so their postings merge), the stems made of one or two
+    syllables. The forms are distinct lowercase words."""
+    from .analysis.filters import ENGLISH_STOPWORDS
+    freq = (np.bincount(first, weights=pair_counts, minlength=tvocab)
+            + np.bincount(second, weights=pair_counts, minlength=tvocab))
+    order = np.argsort(-freq, kind="stable")
+    stops = sorted(ENGLISH_STOPWORDS)[:n_stop]
+    rng = np.random.default_rng(seed)
+    n_rest = tvocab - n_stop
+    n_stems = -(-n_rest // len(EN_INFLECTIONS))
+    stems: list = []
+    seen = set(ENGLISH_STOPWORDS)
+    while len(stems) < n_stems:
+        w = "".join(str(rng.choice(part)) for part in (
+            _EN_ONSETS, _EN_VOWELS, _EN_CODAS))
+        if rng.random() < 0.5:
+            w += "".join(str(rng.choice(part)) for part in (
+                _EN_VOWELS, _EN_CODAS))
+        if w not in seen:
+            seen.add(w)
+            stems.append(w)
+    forms = [s + inf for s in stems for inf in EN_INFLECTIONS][:n_rest]
+    forms = [forms[i] for i in rng.permutation(n_rest)]
+    out = [""] * tvocab
+    for rank, t in enumerate(order):
+        out[int(t)] = stops[rank] if rank < n_stop else forms[rank - n_stop]
+    return out
+
+
+# the client addresses: 16 /16 subnets (172.16.0.0/12), 4,096 hosts each
+IP_POOL = 1 << 16
+IP_BASE = (0xFFFF << 32) | (172 << 24) | (16 << 16)
+
+
+def ip_pool_int(i: np.ndarray) -> np.ndarray:
+    """The IPv4-mapped integer of pool address `i`: subnet i >> 12 of
+    172.16.0.0/12, host i & 4095 within it."""
+    i = np.asarray(i, np.int64)
+    return IP_BASE + ((i >> 12) << 16) + (i & 4095)
+
+
+def ip_pool_str(i: int) -> str:
+    i = int(i)
+    return f"172.{16 + (i >> 12)}.{(i & 4095) >> 8}.{i & 255}"
+
+
+def field_type_columns(ndocs: int, price: np.ndarray, seed: int = 12
+                       ) -> dict:
+    """The scalar field types' columns, drawn from `seed`: `client_ip`
+    pool indices (u16[ndocs]: Zipf(1.1) ranks over IP_POOL addresses,
+    the ranks spread over the subnets by a permutation), `stock`
+    (short, 0..500), `grade` (byte, -100..100), `price_scaled`
+    (scaled_float, factor 100: the price over 100) and `views`
+    (unsigned_long: a third of the values at or past 2^63)."""
+    rng = np.random.default_rng(seed)
+    rank = rng.zipf(1.1, ndocs)
+    rank = np.where(rank > IP_POOL, rng.integers(1, IP_POOL, ndocs),
+                    rank) - 1
+    ip = rng.permutation(IP_POOL)[rank].astype(np.uint16)
+    stock = rng.integers(0, 501, ndocs).astype(np.int64)
+    grade = rng.integers(-100, 101, ndocs).astype(np.int64)
+    views = rng.integers(0, 1 << 62, ndocs, dtype=np.int64)
+    high = rng.random(ndocs) < 1 / 3
+    return {"client_ip": ip, "stock": stock, "grade": grade,
+            "price_scaled": np.round(price.astype(np.float64)) / 100.0,
+            "views_biased": np.where(high, views, views - (1 << 62)
+                                     - (1 << 62))}

@@ -41,6 +41,7 @@ def segment_from_arrays(name: str, ndocs: int,
                         numeric_cols: Optional[Dict[str, object]] = None,
                         keyword_cols: Optional[Dict[str, object]] = None,
                         vector_cols: Optional[Dict[str, object]] = None,
+                        stored_vals: Optional[list] = None,
                         device=None) -> Segment:
     """`postings[field]` = dict(vocab, starts, doc_ids, tfs) in CSR form
     (vocab sorted, docs ascending per row), with `pos_starts` and
@@ -60,9 +61,10 @@ def segment_from_arrays(name: str, ndocs: int,
 
     `numeric_cols[field]` = a reference segment's NumericColumn, or a dict
     of its `kind`, `values` and `present`, taken as it is: kind "int"
-    (exact i64) or "float" (f64). `keyword_cols[field]` = a reference
-    segment's KeywordColumn, or a dict of its `vocab`, `starts`, `ords`,
-    `doc_of_value` and `min_ord`. `vector_cols[field]` = a reference
+    (exact i64), "uint" (an unsigned_long's biased i64) or "float" (f64).
+    `keyword_cols[field]` = a reference segment's KeywordColumn, or a dict
+    of its `vocab`, `starts`, `ords`, `doc_of_value` and `min_ord`.
+    `stored_vals` = per doc its `store: true` values, or None. `vector_cols[field]` = a reference
     segment's VectorColumn, or a dict of its `values` (f32 [ndocs,
     dims], taken without a copy where it is f32 already), `present`,
     `similarity` and `method`; its IVF index is built on first use."""
@@ -90,7 +92,7 @@ def segment_from_arrays(name: str, ndocs: int,
     for field, col in (numeric_cols or {}).items():
         get = _getter(col)
         kind = get("kind")
-        if kind not in ("int", "float"):
+        if kind not in ("int", "uint", "float"):
             raise NotPortedError(f"numeric column [{field}] of kind "
                                  f"[{kind}]")
         cols[field] = NumericColumn(
@@ -117,7 +119,9 @@ def segment_from_arrays(name: str, ndocs: int,
                   {f: TextFieldStats(int(dc), int(sdl))
                    for f, (dc, sdl) in text_stats.items()},
                   [], [], numeric_cols=cols, keyword_cols=kcols,
-                  vector_cols=vcols)
+                  vector_cols=vcols,
+                  stored_vals=(list(stored_vals) if stored_vals is not None
+                               else None))
     seg.ids = ids
     seg.sources = sources
     # a lazy id view is not enumerated: nothing in this slice looks ids up

@@ -1,36 +1,54 @@
-"""Field mappings and document parsing (the text, keyword, integer,
-long, date, boolean, double, float, rank_feature, rank_features /
-sparse_vector and dense vector subset of
-opensearch_tpu/index/mappings.py).
+"""Field mappings and document parsing (a copy of
+opensearch_tpu/index/mappings.py without the range family, flat_object,
+annotated_text, geo, nested, join, percolator, derived and star_tree
+fields, which raise `NotPortedError`).
 
 Documents are parsed on the host into per-field term lists (text and
 keyword), the token positions of text fields, keyword doc values (the
 normalized values of keyword fields and subfields), numeric doc
-values (integer, long, date (epoch millis) and boolean (0/1) as exact
-i64, double, float and rank_feature as f64; a rank_feature value must
-be positive), feature weights (`rank_features` / `sparse_vector`: an
-object of feature -> positive weight, kept per doc in
-`ParsedDocument.features`; `positive_score_impact` flips the
-rank_feature functions, `index_impacts` asks for a codec-v2 FEATURE
-impact plane and is a ValueError on any other type) and dense vectors
-(`dense_vector` /
-`knn_vector`: a list is ONE vector, whose length must equal the mapped
-`dims`). The device only ever sees term rows, positions, keyword
-ordinals, numeric columns, feature postings and vector matrices. A vector field's
-`similarity` / `space_type` is kept as given (`cosine`, `dot_product` /
-`innerproduct`; any other name scores as L2, as in the reference), and
-its `method` / `index_options` normalize to the reference's
-{"name": "ivf", "nlist", "nprobe"} or None (`flat`, `exact`: the scan). Explicit and dynamic
-fields are served with the reference's dynamic rules: strings map to text
-+ a `.keyword` subfield with ignore_above 256, ISO-date strings to
-`date`, JSON integers to `long`, floats to `double` and booleans to
-`boolean`. Every other field type, mapping option, dynamic template or
-dynamic value type raises `NotPortedError`.
+values, stored values (`store: true`: the raw JSON values), feature
+weights and dense vectors. The device only ever sees term rows,
+positions, keyword ordinals, numeric columns, feature postings and
+vector matrices.
+
+- Text: `text`, `match_only_text` (each distinct term once: no tf, no
+  norms, no positions; phrases verify against `_source`) and
+  `search_as_you_type` (its `_2gram` ... `_{max_shingle_size}gram`
+  shingle subfields and an `_index_prefix` edge-ngram subfield).
+- Keyword: `keyword`, `ip` (a numeric column of the IPv4-mapped integer
+  plus a term of its string), `constant_keyword` (one value, fixed by
+  the mapping or by the first document, applied to every document) and
+  `icu_collation_keyword` (collation sort keys, strength primary,
+  secondary or tertiary).
+- Numeric, exact i64: integer, long, short, byte (range-checked),
+  date (epoch millis), boolean (0/1), token_count (the analyzer's token
+  count) and unsigned_long (`v - U64_BIAS`: order-exact biased i64);
+  f64: double, float, half_float (no f16 rounding, as the reference),
+  scaled_float (`round(v * scaling_factor) / scaling_factor`; the
+  factor is required), rank_feature (positive).
+- `rank_features` / `sparse_vector` (feature -> positive weight),
+  `dense_vector` / `knn_vector` (a list is ONE vector of `dims`), `binary`
+  (kept in `_source` only) and `alias` (`path`: resolved by
+  `resolve_field`).
+
+Field parameters `store`, `copy_to`, `null_value` and `boost` are read as
+the reference reads them. Dynamic fields follow the reference's rules:
+the first `dynamic_templates` entry whose `match` (fnmatch on the last
+path segment; its other conditions are not read, as in the reference)
+fits gives the mapping, else strings map to text + a `.keyword` subfield
+with ignore_above 256, ISO-date strings to `date`, JSON integers to
+`long`, floats to `double` and booleans to `boolean`.
+
+An IPv6 address outside ::ffff:0:0/96 has an integer past i64: the
+reference accepts the document and then fails its refresh with an
+OverflowError; the port refuses the document with a ValueError (400).
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import fnmatch
+import ipaddress
 import numbers
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Tuple
@@ -38,24 +56,39 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..analysis import AnalysisRegistry, Analyzer
 from ..errors import NotPortedError
 
-TEXT_TYPES = {"text"}
-KEYWORD_TYPES = {"keyword"}
-# the ported subset of the reference's long family (exact i64 doc values:
-# dates as epoch millis, booleans as 0/1) and of its float family (f64)
-INT_TYPES = {"integer", "long", "date", "boolean"}
-FLOAT_TYPES = {"double", "float", "rank_feature"}
+TEXT_TYPES = {"text", "match_only_text", "search_as_you_type"}
+KEYWORD_TYPES = {"keyword", "ip", "constant_keyword",
+                 "icu_collation_keyword"}
+INT_TYPES = {"long", "integer", "short", "byte", "date", "boolean",
+             "unsigned_long", "token_count"}
+FLOAT_TYPES = {"double", "float", "half_float", "rank_feature",
+               "scaled_float"}
 NUMERIC_TYPES = INT_TYPES | FLOAT_TYPES
 VECTOR_TYPES = {"dense_vector", "knn_vector"}
 # feature-weight CSR fields: rows are features, the tf slot the weight
 FEATURE_TYPES = {"rank_features", "sparse_vector"}
-_INT_BITS = {"integer": 31, "long": 63}
+# kept in _source only
+SOURCE_ONLY_TYPES = {"binary"}
+# unsigned_long stores order-preserving BIASED i64 (v - 2^63) so 64-bit
+# compares and sorts stay exact; the f32 view and the fetch unbias
+U64_BIAS = 1 << 63
+_INT_BITS = {"long": 63, "integer": 31, "short": 15, "byte": 7}
 _FIELD_OPTIONS = {"type", "analyzer", "search_analyzer", "normalizer",
                   "index", "doc_values", "ignore_above", "norms", "fields",
-                  "format", "positive_score_impact", "index_impacts"}
+                  "format", "positive_score_impact", "index_impacts",
+                  "store", "copy_to", "null_value", "boost"}
 # a vector field's own parameters (dims, similarity, ANN method)
 _VECTOR_OPTIONS = {"dims", "dimension", "similarity", "space_type",
                    "method", "index_options"}
-_MAPPING_KEYS = {"properties", "dynamic", "_meta"}
+# a type's own parameters
+_TYPE_OPTIONS = {
+    "dense_vector": _VECTOR_OPTIONS, "knn_vector": _VECTOR_OPTIONS,
+    "scaled_float": {"scaling_factor"},
+    "constant_keyword": {"value"},
+    "icu_collation_keyword": {"strength", "language", "country"},
+    "search_as_you_type": {"max_shingle_size"},
+}
+_MAPPING_KEYS = {"properties", "dynamic", "_meta", "dynamic_templates"}
 
 
 @dataclass
@@ -69,6 +102,10 @@ class FieldType:
     ignore_above: Optional[int] = None
     norms: bool = True
     doc_values: bool = True
+    store: bool = False
+    null_value: Any = None
+    copy_to: List[str] = dc_field(default_factory=list)
+    boost: float = 1.0
     date_format: Optional[str] = None
     subfields: Dict[str, "FieldType"] = dc_field(default_factory=dict)
     dims: int = 0                       # dense_vector dimension
@@ -80,10 +117,16 @@ class FieldType:
     positive_score_impact: bool = True
     # rank_features / sparse_vector: build a FEATURE impact plane
     index_impacts: bool = False
+    # scaled_float: values quantize to round(v * f) / f
+    scaling_factor: Optional[float] = None
+    # constant_keyword: the index-wide value (from the mapping, or the
+    # first document that sets it)
+    const_value: Optional[str] = None
 
     @property
     def has_norms(self) -> bool:
-        return self.type in TEXT_TYPES and self.norms
+        return self.type in TEXT_TYPES and self.norms and \
+            self.type != "match_only_text"
 
 
 @dataclass
@@ -107,6 +150,8 @@ class ParsedDocument:
     vectors: Dict[str, List[float]] = dc_field(default_factory=dict)
     # feature field -> {feature: weight}
     features: Dict[str, Dict[str, float]] = dc_field(default_factory=dict)
+    # store: true field -> its raw JSON values
+    stored: Dict[str, list] = dc_field(default_factory=dict)
 
 
 def _parse_date(value: Any, fmt: Optional[str]) -> int:
@@ -137,10 +182,28 @@ def _parse_date(value: Any, fmt: Optional[str]) -> int:
     return int(dt.timestamp() * 1000)
 
 
+def ip_to_int(value: str) -> int:
+    """An IP as an integer, v4 mapped into v6 space (Lucene
+    InetAddressPoint), as the reference's `_ip_to_int`."""
+    ip = ipaddress.ip_address(value)
+    if isinstance(ip, ipaddress.IPv4Address):
+        ip = ipaddress.IPv6Address(f"::ffff:{value}")
+    return int(ip)
+
+
+def int_to_ip(v: int) -> str:
+    """The address of an `ip` column value: dotted IPv4 inside
+    ::ffff:0:0/96, else the IPv6 form."""
+    ip = ipaddress.IPv6Address(int(v))
+    return str(ip.ipv4_mapped) if ip.ipv4_mapped is not None else str(ip)
+
+
 def coerce_value(ft: "FieldType", value: Any):
     """A raw JSON value as its column value, as the reference's
-    coerce_value: epoch millis for a date, 0/1 for a boolean, a
-    range-checked int for integer/long, a float for double/float."""
+    coerce_value: epoch millis for a date, 0/1 for a boolean, the
+    IPv4-mapped integer for an ip, v - 2^63 for an unsigned_long, a
+    range-checked int for the rest of the long family, a float for the
+    float family (scaled_float rounded to its factor)."""
     t = ft.type
     if t == "date":
         return _parse_date(value, ft.date_format)
@@ -152,20 +215,31 @@ def coerce_value(ft: "FieldType", value: Any):
                 return 0
             raise ValueError(f"cannot parse boolean [{value}]")
         return 1 if bool(value) else 0
+    if t == "ip":
+        return ip_to_int(str(value))
+    if t == "unsigned_long":
+        iv = int(value)
+        if not 0 <= iv < (1 << 64):
+            raise ValueError(
+                f"value [{value}] out of range for field type [unsigned_long]")
+        return iv - U64_BIAS
+    if t in INT_TYPES:
+        iv = int(value)
+        bits = _INT_BITS.get(t, 63)
+        if not (-(1 << bits)) <= iv < (1 << bits):
+            raise ValueError(f"value [{value}] out of range for field type "
+                             f"[{t}]")
+        return iv
+    if t == "scaled_float":
+        sf = ft.scaling_factor or 1.0
+        return round(float(value) * sf) / sf
     if t in FLOAT_TYPES:
         fv = float(value)
         if t == "rank_feature" and fv <= 0:
             raise ValueError(
                 f"[rank_feature] fields must hold positive values, got [{fv}]")
         return fv
-    if t not in _INT_BITS:
-        raise ValueError(f"cannot coerce for type [{t}]")
-    iv = int(value)
-    bits = _INT_BITS[t]
-    if not (-(1 << bits)) <= iv < (1 << bits):
-        raise ValueError(f"value [{value}] out of range for field type "
-                         f"[{t}]")
-    return iv
+    raise ValueError(f"cannot coerce for type [{t}]")
 
 
 def _vector_method(path: str, cfg: dict) -> Optional[dict]:
@@ -196,7 +270,9 @@ class Mappings:
                  dynamic: bool | str = True):
         self.analysis = analysis or AnalysisRegistry()
         self.fields: Dict[str, FieldType] = {}
+        self.aliases: Dict[str, str] = {}
         self.dynamic = dynamic
+        self.dynamic_templates: List[dict] = []
         self._meta: dict = {}
         if mapping:
             self.merge(mapping)
@@ -208,12 +284,16 @@ class Mappings:
         if "dynamic" in mapping:
             self.dynamic = mapping["dynamic"]
         self._meta.update(mapping.get("_meta", {}))
+        self.dynamic_templates.extend(mapping.get("dynamic_templates", []))
         self._merge_props(mapping.get("properties", {}), prefix="")
 
     def _merge_props(self, props: dict, prefix: str) -> None:
         for name, cfg in props.items():
             path = f"{prefix}{name}"
             ftype = cfg.get("type", "object" if "properties" in cfg else "text")
+            if ftype == "alias":
+                self.aliases[path] = cfg["path"]
+                continue
             if ftype == "object":
                 self._merge_props(cfg.get("properties", {}), prefix=f"{path}.")
                 continue
@@ -221,22 +301,37 @@ class Mappings:
 
     def _build_field(self, path: str, ftype: str, cfg: dict) -> FieldType:
         if ftype not in TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES \
-                | VECTOR_TYPES | FEATURE_TYPES:
+                | VECTOR_TYPES | FEATURE_TYPES | SOURCE_ONLY_TYPES:
             raise NotPortedError(f"field type [{ftype}] (field [{path}])")
-        allowed = _FIELD_OPTIONS | (_VECTOR_OPTIONS if ftype in VECTOR_TYPES
-                                    else set())
+        allowed = _FIELD_OPTIONS | _TYPE_OPTIONS.get(ftype, set())
         for key in cfg:
             if key not in allowed:
                 raise NotPortedError(f"field parameter [{key}] (field [{path}])")
+        normalizer = cfg.get("normalizer")
+        if ftype == "icu_collation_keyword":
+            # values index and doc-value as collation sort keys
+            strength = cfg.get("strength", "tertiary")
+            if strength not in ("primary", "secondary", "tertiary"):
+                raise ValueError(
+                    f"[icu_collation_keyword] field [{path}]: unsupported "
+                    f"strength [{strength}] (supported: primary, "
+                    f"secondary, tertiary)")
+            normalizer = f"_icu_collation:{strength}"
+        copy_to = cfg.get("copy_to", [])
         ft = FieldType(
             name=path, type=ftype,
             analyzer=cfg.get("analyzer", "standard"),
             search_analyzer=cfg.get("search_analyzer"),
-            normalizer=cfg.get("normalizer"),
+            normalizer=normalizer,
             index=cfg.get("index", True),
             ignore_above=cfg.get("ignore_above"),
             norms=cfg.get("norms", True),
             doc_values=cfg.get("doc_values", True),
+            store=cfg.get("store", False),
+            null_value=cfg.get("null_value"),
+            copy_to=list(copy_to if isinstance(copy_to, list)
+                         else [copy_to]),
+            boost=cfg.get("boost", 1.0),
             date_format=cfg.get("format"),
             dims=int(cfg.get("dims", cfg.get("dimension", 0))),
             vector_similarity=cfg.get("similarity",
@@ -251,7 +346,32 @@ class Mappings:
                     f"Field [{path}]: [index_impacts] only applies to "
                     f"rank_features/sparse_vector fields")
             ft.index_impacts = bool(cfg["index_impacts"])
+        if ftype == "scaled_float":
+            if "scaling_factor" not in cfg:
+                raise ValueError(
+                    f"Field [{path}] misses required parameter "
+                    f"[scaling_factor]")
+            ft.scaling_factor = float(cfg["scaling_factor"])
+        if ftype == "constant_keyword" and cfg.get("value") is not None:
+            ft.const_value = str(cfg["value"])
+        if ftype == "search_as_you_type":
+            # the main field, shingle subfields and an edge-ngram prefix
+            # field for bool_prefix (OpenSearch SearchAsYouTypeFieldMapper)
+            shingles = int(cfg.get("max_shingle_size", 3))
+            self.analysis.ensure_sayt_chains(shingles)
+            for n in range(2, shingles + 1):
+                ft.subfields[f"_{n}gram"] = FieldType(
+                    name=f"{path}._{n}gram", type="text",
+                    analyzer=f"__sayt_{n}gram")
+            ft.subfields["_index_prefix"] = FieldType(
+                name=f"{path}._index_prefix", type="text",
+                analyzer="__sayt_prefix",
+                search_analyzer=cfg.get("analyzer", "standard"))
         for sub, subcfg in cfg.get("fields", {}).items():
+            if ftype == "search_as_you_type" and sub in ft.subfields:
+                # the mapping `to_dict` persists names the generated
+                # subfields by type alone: a recovery keeps the chains
+                continue
             ft.subfields[sub] = self._build_field(
                 f"{path}.{sub}", subcfg.get("type", "keyword"), subcfg)
         return ft
@@ -259,8 +379,9 @@ class Mappings:
     def to_dict(self) -> dict:
         """The mapping as the reference's `Mappings.to_dict` renders it
         (get_mapping, indices.get): each field's type, a text field's
-        analyzer other than standard, a normalizer, `index: false`, the
-        subfields' types, object paths as nested properties, `_meta`."""
+        analyzer other than standard, an icu_collation_keyword's
+        strength, a normalizer, `index: false`, the subfields' types,
+        object paths as nested properties, `_meta`."""
         props: dict = {}
         for path, ft in self.fields.items():
             node = props
@@ -276,7 +397,10 @@ class Mappings:
             d: dict = {"type": ft.type}
             if ft.type == "text" and ft.analyzer != "standard":
                 d["analyzer"] = ft.analyzer
-            if ft.normalizer:
+            if ft.type == "icu_collation_keyword":
+                d["strength"] = (ft.normalizer or "_icu_collation:tertiary"
+                                 ).split(":", 1)[1]
+            elif ft.normalizer:
                 d["normalizer"] = ft.normalizer
             if not ft.index:
                 d["index"] = False
@@ -292,11 +416,13 @@ class Mappings:
     # ---------------- field resolution ----------------
 
     def resolve_field(self, name: str) -> Optional[FieldType]:
+        name = self.aliases.get(name, name)
         ft = self.fields.get(name)
         if ft is not None:
             return ft
         if "." in name:   # multi-field lookup: "title.keyword"
             parent, sub = name.rsplit(".", 1)
+            parent = self.aliases.get(parent, parent)
             pft = self.fields.get(parent)
             if pft and sub in pft.subfields:
                 return pft.subfields[sub]
@@ -315,6 +441,11 @@ class Mappings:
     # ---------------- dynamic mapping ----------------
 
     def _dynamic_type(self, path: str, value: Any) -> FieldType:
+        for tmpl in self.dynamic_templates:
+            rule = next(iter(tmpl.values()))
+            if fnmatch.fnmatch(path.split(".")[-1], rule.get("match", "*")):
+                cfg = dict(rule.get("mapping", {}))
+                return self._build_field(path, cfg.get("type", "text"), cfg)
         if isinstance(value, bool):
             return self._build_field(path, "boolean", {})
         if isinstance(value, int):
@@ -338,6 +469,13 @@ class Mappings:
               routing: Optional[str] = None) -> ParsedDocument:
         parsed = ParsedDocument(doc_id=doc_id, source=source, routing=routing)
         self._parse_obj(source, "", parsed)
+        # a constant_keyword applies to every document once its value is
+        # known
+        for ft in self.fields.values():
+            if ft.type == "constant_keyword" and ft.const_value is not None:
+                parsed.terms.setdefault(ft.name, []).append(ft.const_value)
+                parsed.keywords.setdefault(ft.name, []).append(
+                    ft.const_value)
         return parsed
 
     def _parse_obj(self, obj: dict, prefix: str, parsed: ParsedDocument) -> None:
@@ -380,22 +518,68 @@ class Mappings:
             value = [value]     # the whole list is ONE vector value
         values = value if isinstance(value, list) else [value]
         for v in values:
-            if v is not None:
-                self._index_single(ft, v, parsed)
+            if v is None:
+                v = ft.null_value
+                if v is None:
+                    continue
+            self._index_single(ft, v, parsed)
         for sub in ft.subfields.values():
             self._index_value(sub, value, parsed)
+        for target in ft.copy_to:
+            tft = self.resolve_field(target)
+            if tft is None:
+                tft = self._dynamic_type(target, values[0] if values else "")
+                self.fields[target] = tft
+            self._index_value(tft, value, parsed)
 
     def _index_single(self, ft: FieldType, v: Any,
                       parsed: ParsedDocument) -> None:
         name = ft.name
+        if ft.store:
+            parsed.stored.setdefault(name, []).append(v)
         if ft.type in TEXT_TYPES:
+            if not ft.index:
+                return
+            tokens = self.index_analyzer(ft).analyze(str(v))
+            tl = parsed.terms.setdefault(name, [])
+            if ft.type == "match_only_text":
+                # no freqs, no norms, no positions: each term once
+                seen = set(tl)
+                for t in tokens:
+                    if t.text not in seen:
+                        tl.append(t.text)
+                        seen.add(t.text)
+                return
+            tl.extend(t.text for t in tokens)
+            pl = parsed.positions.setdefault(name, [])
+            # the position gap between the values of an array field
+            base = max(p for _, p in pl) + 100 if pl else 0
+            pl.extend((t.text, base + t.position) for t in tokens)
+            return
+        if ft.type in SOURCE_ONLY_TYPES:
+            return
+        if ft.type == "token_count":
+            tokens = self.analysis.get(ft.analyzer).analyze(str(v))
+            parsed.numerics.setdefault(name, []).append(len(tokens))
+            return
+        if ft.type == "constant_keyword":
+            s = str(v)
+            if ft.const_value is None:
+                ft.const_value = s      # the first value fixes it
+            elif s != ft.const_value:
+                raise ValueError(
+                    f"[constant_keyword] field [{name}] only accepts value "
+                    f"[{ft.const_value}], got [{s}]")
+            return                      # indexed for every doc in parse()
+        if ft.type == "ip":
+            iv = coerce_value(ft, v)
+            if iv >= 1 << 63:
+                raise ValueError(
+                    f"ip field [{name}]: [{v}] lies outside ::ffff:0:0/96 "
+                    f"and does not fit the i64 column")
+            parsed.numerics.setdefault(name, []).append(iv)
             if ft.index:
-                tokens = self.index_analyzer(ft).analyze(str(v))
-                parsed.terms.setdefault(name, []).extend(t.text for t in tokens)
-                pl = parsed.positions.setdefault(name, [])
-                # the position gap between the values of an array field
-                base = max(p for _, p in pl) + 100 if pl else 0
-                pl.extend((t.text, base + t.position) for t in tokens)
+                parsed.terms.setdefault(name, []).append(str(v))
             return
         if ft.type in NUMERIC_TYPES:
             parsed.numerics.setdefault(name, []).append(coerce_value(ft, v))
@@ -422,7 +606,7 @@ class Mappings:
                     f"[{ft.dims}] for field [{name}]")
             parsed.vectors[name] = vec
             return
-        s = str(v)      # keyword
+        s = str(v)      # keyword, icu_collation_keyword
         if ft.ignore_above is not None and len(s) > ft.ignore_above:
             return
         norm = self.index_analyzer(ft).terms(s)

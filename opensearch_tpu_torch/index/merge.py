@@ -49,8 +49,7 @@ from .segment import (CODEC_V2, VECTOR_CHUNK_ROWS, KeywordColumn,
                       VectorColumn, default_codec_version)
 
 # planes of a reference segment that no port segment carries
-_UNPORTED_PLANES = ("geo_cols", "shape_cols", "nested", "term_vectors",
-                    "stored_vals")
+_UNPORTED_PLANES = ("geo_cols", "shape_cols", "nested", "term_vectors")
 
 # the reference's reorder threshold (index/reorder.py)
 REORDER_MIN_DOCS = 1 << 15
@@ -428,9 +427,15 @@ def merge_segments(name: str, segments: List[Segment],
         text_stats[f] = TextFieldStats(doc_count=int((dl > 0).sum()),
                                        sum_dl=int(dl.sum()))
 
+    stored_vals = None
+    if any(s.stored_vals for s in segments):
+        # in the concatenation order of `ids`
+        stored_vals = [s.stored_vals[i] if s.stored_vals else None
+                       for s, m in zip(segments, live_masks)
+                       for i in np.flatnonzero(m)]
     merged = Segment(name, ndocs, postings, doc_lens, text_stats, ids,
                      sources, seq_nos=seq_nos, numeric_cols=numeric_cols,
-                     keyword_cols=keyword_cols)
+                     keyword_cols=keyword_cols, stored_vals=stored_vals)
     t_host = time.perf_counter() - t0 - t_sort - t_pos
     t1 = time.perf_counter()
     if default_codec_version() >= CODEC_V2:

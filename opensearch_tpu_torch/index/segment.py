@@ -9,12 +9,14 @@ queries read. `doc_lens` holds each text
 field's per-doc token count and `text_stats` its (doc_count, sum_dl), the
 collection statistics BM25 reads. `numeric_cols` holds each numeric
 field's doc values (the first value of each doc and a `present` mask):
-exact i64 for integer, long, date and boolean fields (kind "int"), f64
-for double and float fields (kind "float"); range filters and
+exact i64 for the long family (kind "int"), unsigned_long as the
+order-exact biased i64 v - 2^63 (kind "uint"; its f32 view unbiases), f64
+for the float family (kind "float"); range filters and
 aggregations read them. `keyword_cols` holds each keyword field's doc
 values as segment-local ordinals into a sorted vocab (a doc-major CSR of
 the doc's distinct values, and the doc's least ordinal), which terms
-aggregations read. The host arrays are numpy. The
+aggregations read. `stored_vals` holds each doc's `store: true` values
+(written to and read from stored.jsonl as the reference's `_stored`). The host arrays are numpy. The
 search layer builds the device-resident aligned layout it needs
 (`search/fastpath.py`); the general query path and the aggregations
 read, per device and cached on the segment, the live mask, doc lengths,
@@ -312,7 +314,8 @@ class NumericColumn:
     doc d (0 where `present[d]` is false)."""
 
     field: str
-    kind: str                 # "int" (exact i64) | "float" (f64)
+    kind: str                 # "int" (exact i64) | "uint" (unsigned_long
+                              # as v - 2^63, i64) | "float" (f64)
     values: np.ndarray        # i64[ndocs] | f64[ndocs]
     present: np.ndarray       # bool[ndocs]
 
@@ -394,7 +397,8 @@ class Segment:
                  codec_version: int = CODEC_V1,
                  numeric_cols: Optional[Dict[str, NumericColumn]] = None,
                  keyword_cols: Optional[Dict[str, KeywordColumn]] = None,
-                 vector_cols: Optional[Dict[str, VectorColumn]] = None):
+                 vector_cols: Optional[Dict[str, VectorColumn]] = None,
+                 stored_vals: Optional[list] = None):
         Segment._seq += 1
         self.uid = Segment._seq
         self.name = name
@@ -405,6 +409,9 @@ class Segment:
         self.numeric_cols = numeric_cols or {}
         self.keyword_cols = keyword_cols or {}
         self.vector_cols = vector_cols or {}
+        # per doc: {field: [raw values]} of its `store: true` fields, or
+        # None; None for the whole segment when no doc stores a field
+        self.stored_vals = stored_vals
         self.ids = ids
         self.sources = sources
         self.seq_nos = (seq_nos if seq_nos is not None
@@ -540,12 +547,13 @@ class Segment:
         """(values f32[ndocs], present bool[ndocs]): the f32 view of a
         numeric column that aggregations read, cast on the host as the
         reference's `_num_field_arrays` casts it (a long or date column
-        rounds to f32 there too), or None without the column."""
+        rounds to f32 there too; an unsigned_long column unbiases in f64
+        first), or None without the column."""
         col = self.numeric_cols.get(field)
         if col is None:
             return None
         return self.device_cached(("f32", field), device, lambda: (
-            torch.from_numpy(col.values.astype(np.float32)).to(device),
+            torch.from_numpy(f32_view(col)).to(device),
             torch.from_numpy(col.present).to(device)))
 
     def sort_ords_on(self, field: str, device):
@@ -761,8 +769,10 @@ class Segment:
             json.dump(meta, fh)
         with open(os.path.join(path, "stored.jsonl"), "w") as fh:
             for i in range(self.ndocs):
-                fh.write(json.dumps({"_id": self.ids[i],
-                                     "_source": self.sources[i]}) + "\n")
+                rec = {"_id": self.ids[i], "_source": self.sources[i]}
+                if self.stored_vals and self.stored_vals[i]:
+                    rec["_stored"] = self.stored_vals[i]
+                fh.write(json.dumps(rec) + "\n")
 
     @classmethod
     def load(cls, path: str) -> "Segment":
@@ -775,12 +785,13 @@ class Segment:
                                  "does not have")
         arrays = np.load(os.path.join(path, "arrays.npz"),
                          allow_pickle=False)
-        ids, sources = [], []
+        ids, sources, stored_vals = [], [], []
         with open(os.path.join(path, "stored.jsonl")) as fh:
             for line in fh:
                 rec = json.loads(line)
                 ids.append(rec["_id"])
                 sources.append(rec["_source"])
+                stored_vals.append(rec.get("_stored"))
         postings = {}
         for f in meta["postings"]:
             with open(os.path.join(path, f"vocab__{_fname(f)}.txt")) as fh:
@@ -834,10 +845,37 @@ class Segment:
                   ids, sources, seq_nos=arrays["seq_nos"],
                   codec_version=int(meta.get("codec", CODEC_V1)),
                   numeric_cols=numeric, keyword_cols=keyword,
-                  vector_cols=vectors)
+                  vector_cols=vectors,
+                  stored_vals=(stored_vals if any(stored_vals) else None))
         seg.live = arrays["live"].copy()
         seg.id2doc = {d: i for i, d in enumerate(ids) if seg.live[i]}
         return seg
+
+
+def f32_view(col: NumericColumn) -> np.ndarray:
+    """f32[ndocs]: the values aggregations and scripts read, as the
+    reference's `_num_field_arrays` casts them; an unsigned_long column
+    unbiases back to its magnitude in f64 before the cast."""
+    if col.kind == "uint":
+        return (col.values.astype(np.float64) + float(1 << 63)).astype(
+            np.float32)
+    return col.values.astype(np.float32)
+
+
+def numeric_kind(mappings: Mappings, fname: str) -> str:
+    """The column kind of a numeric field (the reference's
+    `_numeric_kind`)."""
+    ft = mappings.resolve_field(fname)
+    if ft is not None and ft.type == "unsigned_long":
+        return "uint"
+    return "float" if ft is not None and ft.type in FLOAT_TYPES else "int"
+
+
+def stored_values(parsed_docs: list) -> Optional[list]:
+    """Per doc its `store: true` values, or None when no doc has one."""
+    if not any(d.stored for d in parsed_docs):
+        return None
+    return [dict(d.stored) if d.stored else None for d in parsed_docs]
 
 
 def _fname(field: str) -> str:
@@ -966,9 +1004,7 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                 dl[doc_i] = len(terms)
     numeric_cols: Dict[str, NumericColumn] = {}
     for fname in sorted({f for pd in parsed_docs for f in pd.numerics}):
-        ft = mappings.resolve_field(fname)
-        kind = "float" if ft is not None and ft.type in FLOAT_TYPES \
-            else "int"
+        kind = numeric_kind(mappings, fname)
         values = np.zeros(ndocs, dtype=np.float64 if kind == "float"
                           else np.int64)
         present = np.zeros(ndocs, dtype=bool)
@@ -1006,7 +1042,8 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                   doc_lens, text_stats, [d.doc_id for d in parsed_docs],
                   [d.source for d in parsed_docs], seq_nos=seq,
                   numeric_cols=numeric_cols, keyword_cols=keyword_cols,
-                  vector_cols=vector_cols)
+                  vector_cols=vector_cols,
+                  stored_vals=stored_values(parsed_docs))
     if default_codec_version() >= CODEC_V2:
         seg.build_impacts(feature_fields=feature_impact_fields(
             mappings, feat_fields), device=device)

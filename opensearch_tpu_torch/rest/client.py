@@ -698,6 +698,32 @@ class IndicesClient:
             raise NotPortedError(f"rest call [indices.{name}]")
         raise AttributeError(name)
 
+    def analyze(self, index: Optional[str] = None,
+                body: Optional[dict] = None) -> dict:
+        """The tokens of `text` (a string or a list) under the body's
+        `analyzer`, or a `field`'s index analyzer, of an index's registry
+        or of the built-ins (the reference's `analyze`)."""
+        body = body or {}
+        text = body.get("text", "")
+        texts = text if isinstance(text, list) else [text]
+        if index is not None:
+            svc = self.c._svc(index)
+            registry = svc.mappings.analysis
+            if "field" in body:
+                ft = svc.mappings.resolve_field(body["field"])
+                analyzer = (svc.mappings.index_analyzer(ft) if ft
+                            else registry.get("standard"))
+            else:
+                analyzer = registry.get(body.get("analyzer", "standard"))
+        else:
+            analyzer = AnalysisRegistry().get(body.get("analyzer",
+                                                       "standard"))
+        return {"tokens": [
+            {"token": tok.text, "position": tok.position,
+             "start_offset": tok.start_offset, "end_offset": tok.end_offset,
+             "type": "<ALPHANUM>"}
+            for t in texts for tok in analyzer.analyze(t)]}
+
     def create(self, index: str, body: Optional[dict] = None) -> dict:
         if index in self.c._indices:
             raise ResourceAlreadyExistsError(

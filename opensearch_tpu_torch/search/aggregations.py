@@ -12,7 +12,8 @@ merged here. Served kinds:
   histogram and date_histogram sources, paged by `after`),
   `multi_terms`, `rare_terms`, `significant_terms`, `significant_text`,
   `sampler`, `diversified_sampler`, `adjacency_matrix`,
-  `auto_date_histogram`;
+  `auto_date_histogram`, `ip_range` (exact i64 bounds over an ip
+  column: `from` inclusive, `to` exclusive, a `mask` its network);
 - metric: `min`, `max`, `sum`, `avg`, `stats`, `extended_stats`,
   `value_count`, `cardinality` (HyperLogLog registers, log2m 14),
   `percentiles` and `percentile_ranks` (a mergeable log-binned sketch),
@@ -74,7 +75,7 @@ PORTED_KINDS = STATS_FAMILY | {
     "significant_terms", "significant_text", "sampler",
     "diversified_sampler", "adjacency_matrix", "auto_date_histogram",
     "top_hits", "weighted_avg", "median_absolute_deviation",
-    "matrix_stats"}
+    "matrix_stats", "ip_range"}
 SERVED_PIPELINES = PIPELINE_KINDS - {"bucket_script", "bucket_selector"}
 # bucket kinds whose response is one doc_count + subs
 _SINGLE_BUCKET = ("filter", "global", "missing", "sampler",
@@ -188,7 +189,8 @@ def merge_partials(node: AggNode, partials: List[Optional[dict]]) -> dict:
         return {"buckets": _acc_buckets(node.subs, parts),
                 "interval": parts[0]["interval"],
                 "offset": parts[0].get("offset", 0.0)}
-    if kind in ("range", "date_range", "filters", "adjacency_matrix"):
+    if kind in ("range", "date_range", "ip_range", "filters",
+                "adjacency_matrix"):
         acc: Dict[Any, dict] = {}
         for p in parts:
             for key, rec in p["buckets"].items():
@@ -360,7 +362,7 @@ def finalize(node: AggNode, merged: dict, pipelines: bool = True) -> dict:
             buckets.append(_finalize_subs(node, entry, rec["subs"],
                                           pipelines))
         return _with_pipelines(node, {"buckets": buckets}, pipelines)
-    if kind in ("range", "date_range"):
+    if kind in ("range", "date_range", "ip_range"):
         buckets = []
         for key, rec in merged["buckets"].items():
             entry = {"key": key, "doc_count": int(rec["doc_count"])}
@@ -649,7 +651,7 @@ def _empty_result(node: AggNode) -> dict:
     if kind == "filters":
         return {"buckets": {}}
     if kind in ("terms", "histogram", "date_histogram", "range",
-                "date_range", "composite", "rare_terms", "multi_terms",
+                "date_range", "ip_range", "composite", "rare_terms", "multi_terms",
                 "adjacency_matrix", "auto_date_histogram"):
         return {"buckets": []}
     if kind in ("significant_terms", "significant_text"):

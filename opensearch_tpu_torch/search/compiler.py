@@ -7,11 +7,17 @@ serves).
 A term, terms or match query on a text or keyword field becomes one
 weighted term group (`LTerms`) with the reference's per-term weights (idf
 x boost, f32) and minimum should match; on a numeric field it becomes an
-`LRange` (terms: a bool of them): exact i64 on an integer, long, date or
-boolean field, f32 on a double or float field (a `match` on a date field
+`LRange` (terms: a bool of them): exact i64 on the long family
+(integer, long, short, byte, date, boolean, token_count, unsigned_long),
+f32 on the float family (a `match` on a date field
 analyzes its text, as in the reference). A date bound parses as the
 field's dates do (`index/mappings._parse_date`); a `range` on any other
-field type raises the reference's `ValueError`. A match whose terms
+field type raises the reference's `ValueError`. On an `ip` field a term
+is its address string's row and a CIDR (a term, or a member of terms)
+the exact i64 range of its mapped integers, a `range` its integers; an
+unsigned_long compares its biased i64. A phrase on a `match_only_text`
+field becomes `LSourcePhrase`: the terms' conjunction re-verified from
+`_source`, scored at the constant phrase weight. A match whose terms
 analyze away, a range on an unmapped field, or `match_none` becomes
 `LMatchNone`; `match_all` `LMatchAll`, `exists` `LExists`, `ids` `LIds`.
 `prefix`, `wildcard`, `regexp`, `fuzzy` and a `range` on a keyword field
@@ -68,6 +74,7 @@ from __future__ import annotations
 
 import datetime as _dt
 import fnmatch
+import ipaddress
 import re
 import zlib
 from bisect import bisect_left, bisect_right
@@ -80,7 +87,7 @@ import torch
 from ..errors import NotPortedError
 from ..index.mappings import (FEATURE_TYPES, FLOAT_TYPES, KEYWORD_TYPES,
                               NUMERIC_TYPES, Mappings, _parse_date,
-                              coerce_value)
+                              coerce_value, ip_to_int)
 from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
 from ..ops import aggs as agg_ops
@@ -188,6 +195,31 @@ class LPhrase(LNode):
     max_expansions: int = 50
     ordered: bool = False              # span_near in_order, intervals ordered
     gap_cost: bool = False             # span / intervals gaps, not moves
+
+
+@dataclass
+class LSourcePhrase(LNode):
+    """A phrase over a positions-less `match_only_text` field: candidates
+    from the terms' postings conjunction, the phrase verified by
+    re-analyzing `_source` (OpenSearch's SourceConfirmedTextQuery); a hit
+    scores the constant phrase weight, as in the reference (no freqs are
+    indexed)."""
+
+    field: str = ""
+    terms: List[str] = dc_field(default_factory=list)
+    slop: int = 0
+    weight: float = 1.0
+
+    def docs(self, seg: Segment, mappings: Mappings) -> List[int]:
+        """The segment's docs (deleted ones too) where the phrase holds,
+        ascending, cached per segment."""
+        cache = seg.__dict__.setdefault("_source_phrase_docs", {})
+        key = (self.field, tuple(self.terms), self.slop)
+        got = cache.get(key)
+        if got is None:
+            got = _source_phrase_docs(self, seg, mappings)
+            cache[key] = got
+        return got
 
 
 @dataclass
@@ -345,6 +377,22 @@ class LDistanceFeature(LNode):
     boost: float = 1.0
 
 
+def _ip_cidr_node(field: str, mask: str, boost: float) -> LNode:
+    """A CIDR as the exact i64 range of its mapped integers (the
+    reference's `_ip_cidr_node`); a network past the i64 column (IPv6
+    outside ::ffff:0:0/96, which no document holds) matches nothing."""
+    try:
+        net = ipaddress.ip_network(mask, strict=False)
+    except ValueError as e:
+        raise dsl.QueryParseError(f"invalid IP mask [{mask}]: {e}")
+    lo = ip_to_int(str(net.network_address))
+    hi = ip_to_int(str(net.broadcast_address))
+    if lo >= 1 << 63:
+        return LMatchNone()
+    return LRange(field=field, kind="int", lo=lo, hi=min(hi, (1 << 63) - 1),
+                  include_lo=True, include_hi=True, boost=boost)
+
+
 def _numeric_eq_node(ft, value: Any, boost: float) -> LRange:
     cv = coerce_value(ft, value)
     return LRange(field=ft.name, kind=_range_kind(ft), lo=cv, hi=cv,
@@ -380,6 +428,9 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
 
     if isinstance(q, dsl.TermQuery):
         ft = ctx.mappings.resolve_field(q.field)
+        if (ft is not None and ft.type == "ip" and isinstance(q.value, str)
+                and "/" in q.value):
+            return _ip_cidr_node(ft.name, q.value, q.boost)
         if ft is not None and ft.type in NUMERIC_TYPES:
             return _numeric_eq_node(ft, q.value, q.boost)
         field = ft.name if ft else q.field
@@ -391,6 +442,15 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
 
     if isinstance(q, dsl.TermsQuery):
         ft = ctx.mappings.resolve_field(q.field)
+        if ft is not None and ft.type == "ip" and any(
+                isinstance(v, str) and "/" in v for v in q.values):
+            # CIDR members expand to ranges; exact ips stay term matches
+            return LBool(shoulds=[
+                _ip_cidr_node(ft.name, v, 1.0)
+                if isinstance(v, str) and "/" in v else
+                _weighted_terms(ft.name, [_index_term(ft.name, v, ctx)],
+                                [1.0], ctx, 1, "filter", 1.0)
+                for v in q.values], msm=1, boost=q.boost)
         if ft is not None and ft.type in NUMERIC_TYPES:
             return LBool(shoulds=[_numeric_eq_node(ft, v, 1.0)
                                   for v in q.values], msm=1, boost=q.boost)
@@ -529,7 +589,7 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
         ft = ctx.mappings.resolve_field(q.field)
         if ft is None:
             return LMatchNone()
-        if ft.type in KEYWORD_TYPES:
+        if ft.type in KEYWORD_TYPES and ft.type != "ip":
             return LExpandTerms(field=ft.name,
                                 expander=_keyword_range_expander(ft.name, q),
                                 boost=q.boost)
@@ -780,6 +840,9 @@ def can_match(node: LNode, seg: Segment) -> bool:
                 or f in seg.doc_lens)
     if isinstance(node, LIds):
         return any(seg.local_doc(i) >= 0 for i in node.ids)
+    if isinstance(node, LSourcePhrase):
+        pb = seg.postings.get(node.field)
+        return pb is not None and all(pb.row(t) >= 0 for t in node.terms)
     if isinstance(node, LKnn):
         return node.field in seg.vector_cols
     if isinstance(node, (LRankFeature, LSparseDot)):
@@ -978,6 +1041,13 @@ def _phrase_node(field: str, terms: List[str], slop: int, ctx: ShardContext,
     sum (Lucene's PhraseWeight); a prefix last term stands in with the df
     of its expansions' union, capped at N."""
     ft = ctx.mappings.resolve_field(field)
+    if ft is not None and ft.type == "match_only_text":
+        n = ctx.num_docs
+        sim = ctx.sim_for(field)
+        w = sum(sim.term_weight(1.0, n, min(ctx.doc_freq(field, t), n))
+                for t in terms if ctx.doc_freq(field, t) > 0)
+        return LSourcePhrase(field=field, terms=terms, slop=slop,
+                             weight=(w or 1.0) * boost)
     sim = ctx.sim_for(field)
     has_norms = bool(ft is not None and ft.has_norms and sim.uses_norms)
     n = ctx.num_docs
@@ -1000,6 +1070,67 @@ def _phrase_node(field: str, terms: List[str], slop: int, ctx: ShardContext,
                    sim=sim, has_norms=has_norms, prefix_last=prefix_last,
                    max_expansions=max_expansions, ordered=ordered,
                    gap_cost=gap_cost)
+
+
+def _source_phrase_docs(node: LSourcePhrase, seg: Segment,
+                        mappings: Mappings) -> List[int]:
+    """The docs holding every term of `node` whose `_source` passes the
+    phrase test (the reference's LSourcePhrase emit)."""
+    pb = seg.postings.get(node.field)
+    if pb is None:
+        return []
+    rows = [pb.row(t) for t in node.terms]
+    if any(r < 0 for r in rows):
+        return []
+    cand = None
+    for r in rows:
+        a, b = pb.row_slice(r)
+        d = pb.doc_ids[a:b]
+        cand = d if cand is None else np.intersect1d(cand, d,
+                                                     assume_unique=True)
+        if len(cand) == 0:
+            break
+    ft = mappings.resolve_field(node.field)
+    analyzer = mappings.index_analyzer(ft) if ft is not None else None
+    return [int(d) for d in (cand if cand is not None else ())
+            if _source_phrase_match(seg, int(d), node.field, node.terms,
+                                    node.slop, analyzer)]
+
+
+def _source_phrase_match(seg: Segment, doc: int, field: str,
+                         terms: List[str], slop: int, analyzer) -> bool:
+    """Re-analyze one doc's `_source` value(s) of `field` and test the
+    phrase with the median-offset total-movement slop cost (a copy of
+    the reference's)."""
+    if analyzer is None:
+        return False
+    node = seg.sources[doc]
+    for part in field.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return False
+        node = node[part]
+    values = node if isinstance(node, list) else [node]
+    base = 0
+    positions: dict = {}
+    for v in values:
+        toks = analyzer.analyze(str(v))
+        last = 0
+        for t in toks:
+            positions.setdefault(t.text, []).append(base + t.position)
+            last = t.position
+        base += last + 100          # the value gap, as at index time
+    per_term = [positions.get(t) for t in terms]
+    if any(p is None for p in per_term):
+        return False
+    for p0 in per_term[0]:
+        deltas = [0.0]
+        for i, plist in enumerate(per_term[1:], start=1):
+            # the nearest adjusted position to the anchor
+            deltas.append(float(min((p - i - p0 for p in plist), key=abs)))
+        med = sorted(deltas)[len(deltas) // 2]
+        if sum(abs(d - med) for d in deltas) <= slop:
+            return True
+    return False
 
 
 def _analyze_query_text(field: str, text: Any, ctx: ShardContext,
@@ -1301,6 +1432,9 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
     if isinstance(node, LIds):
         docs = [d for d in (seg.local_doc(i) for i in node.ids) if d >= 0]
         return _flag(ops.docs_mask(docs, nd, device) & live, node.boost)
+    if isinstance(node, LSourcePhrase):
+        docs = node.docs(seg, ctx.mappings)
+        return _flag(ops.docs_mask(docs, nd, device) & live, node.weight)
     if isinstance(node, LBool):
         m_sms = [emit(c, seg, ctx, device) for c in node.musts]
         s_sms = [emit(c, seg, ctx, device) for c in node.shoulds]
@@ -1953,6 +2087,28 @@ def coerce_agg_ranges(kind: str, body: dict, field: str,
     return coerced
 
 
+def ip_range_spec(body: dict) -> tuple:
+    """(keys, (from, to) strings, (lo, hi) integers) of an ip_range agg,
+    as the reference reads them: a `mask` covers its network (hi one
+    past the broadcast address), `from` is inclusive, `to` exclusive."""
+    keys, bounds, ints = [], [], []
+    for r in body.get("ranges", []):
+        if "mask" in r:
+            net = ipaddress.ip_network(r["mask"], strict=False)
+            keys.append(r.get("key", r["mask"]))
+            bounds.append((str(net.network_address),
+                           str(net.broadcast_address)))
+            ints.append((ip_to_int(str(net.network_address)),
+                         ip_to_int(str(net.broadcast_address)) + 1))
+        else:
+            keys.append(r.get("key",
+                              f"{r.get('from', '*')}-{r.get('to', '*')}"))
+            bounds.append((r.get("from"), r.get("to")))
+            ints.append((ip_to_int(r["from"]) if r.get("from") else None,
+                         ip_to_int(r["to"]) if r.get("to") else None))
+    return keys, bounds, ints
+
+
 def range_agg_spec(ranges: List[dict]) -> tuple:
     """(f32 lows, f32 highs, bucket keys, from/to metas) of a range agg."""
     nr = len(ranges)
@@ -2120,6 +2276,28 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
             bm = match & present & (vals >= lo) & (vals < hi)
             specs = container_subs(bm, out, prefix=f"r{ri}_")
         return ("range", tuple(keys), bounds, specs), out
+
+    if kind == "ip_range":
+        field = agg_field(node, ctx)
+        keys, bounds, ints = ip_range_spec(body)
+        col = seg.numeric_on(field, device)
+        if col is None:     # every bucket counts 0, as in the reference
+            return (("ip_range", tuple(keys), tuple(bounds), ()),
+                    {"counts": torch.zeros(len(keys), dtype=torch.int64)})
+        vals, present = col
+        masks = []
+        for lo, hi in ints:
+            m = match & present
+            if lo is not None:
+                m = m & (vals >= min(lo, (1 << 63) - 1))
+            if hi is not None:
+                m = m & (vals < min(hi, (1 << 63) - 1))
+            masks.append(m)
+        out = {"counts": torch.stack([m.sum() for m in masks])}
+        specs = ()       # the same for every bucket
+        for ri, bm in enumerate(masks):
+            specs = container_subs(bm, out, prefix=f"r{ri}_")
+        return ("ip_range", tuple(keys), tuple(bounds), specs), out
 
     if kind in ("filter", "filters"):
         items = ([(None, body)] if kind == "filter"

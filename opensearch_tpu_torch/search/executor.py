@@ -440,12 +440,17 @@ class ShardSearcher:
                 hit["_score"] = None
         stored_opt = body.get("stored_fields")
         # asking for stored_fields suppresses _source unless the body
-        # opts back in; the port stores no field apart from _source
+        # opts back in
         src_opt = body.get("_source", True if stored_opt is None else False)
         if src_opt is not False:
             hit["_source"] = filter_source(seg.sources[doc], src_opt)
         if stored_opt and stored_opt != "_none_":
-            hit.setdefault("fields", {})
+            stored = (seg.stored_vals[doc] if seg.stored_vals else None) or {}
+            flds = hit.setdefault("fields", {})
+            for f in (stored_opt if isinstance(stored_opt, list)
+                      else [stored_opt]):
+                if f in stored:
+                    flds[f] = list(stored[f])
         if body.get("docvalue_fields"):
             hit.setdefault("fields", {}).update(
                 docvalue_fields(seg, doc, body["docvalue_fields"]))
@@ -572,9 +577,15 @@ class StrKey:
 
 
 def render_numeric(col, doc: int):
-    """A numeric column's value of `doc` as JSON shows it."""
+    """A numeric column's value of `doc` as JSON shows it (the
+    reference's `_render_numeric`): an unsigned_long unbiased, an ip as
+    its integer."""
     v = col.values[doc]
-    return float(v) if col.kind == "float" else int(v)
+    if col.kind == "float":
+        return float(v)
+    if col.kind == "uint":
+        return int(v) + (1 << 63)
+    return int(v)
 
 
 def _field_order(spec: dict) -> Tuple[bool, bool]:
@@ -888,6 +899,21 @@ def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
                 meta["to"] = hi
             buckets[key] = {"doc_count": int(out["counts"][ri]),
                             "meta": meta,
+                            "subs": _sub_partials(node, sub_specs, out, seg,
+                                                  ctx, f"r{ri}_")}
+        return {"buckets": buckets}
+    if kind == "ip_range":
+        _, keys, bounds, sub_specs = spec
+        counts = out["counts"]
+        buckets = {}
+        for ri, key in enumerate(keys):
+            frm, to = bounds[ri]
+            meta = {}
+            if frm is not None:
+                meta["from"] = frm
+            if to is not None:
+                meta["to"] = to
+            buckets[key] = {"doc_count": int(counts[ri]), "meta": meta,
                             "subs": _sub_partials(node, sub_specs, out, seg,
                                                   ctx, f"r{ri}_")}
         return {"buckets": buckets}

@@ -7,12 +7,14 @@ Served nodes:
 - `LTerms` in filter mode (a term or terms clause): docs with a posting in
   any of the term rows; in score mode (a match in filter context): docs
   with postings in at least `msm` of the term rows;
-- `LRange`: the exact i64 bounds over an integer/long/date/boolean
-  column, or f32 bounds over the f32 view of a double/float column (the
-  reference's `float_range_mask`), docs with a value only;
+- `LRange`: the exact i64 bounds over a long-family column (an ip's
+  integers, an unsigned_long's biased values), or f32 bounds over the
+  f32 view of a float-family column (the reference's
+  `float_range_mask`), docs with a value only;
 - `LBool` of served nodes: musts and filters ANDed, must_nots negated,
   shoulds counted against `msm`;
 - `LPhrase`: docs where the phrase occurs (its frequency is above 0);
+  `LSourcePhrase`: the docs whose `_source` holds the phrase;
   `LExpandTerms`: docs with a posting in any of the expanded rows;
 - `LConstScore`: its child's mask; `LMatchNone`: no doc; `LMatchAll`:
   every doc;
@@ -103,6 +105,8 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
         return ("match_all",)
     if isinstance(node, C.LExists):
         return ("exists", node.field)
+    if isinstance(node, C.LSourcePhrase):
+        return ("source_phrase", node.field, tuple(node.terms), node.slop)
     if isinstance(node, C.LIds):
         return ("ids", tuple(sorted({d for d in (seg.local_doc(i)
                                                   for i in node.ids)
@@ -201,6 +205,8 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
         return present_mask(node.field, seg, device)
     if isinstance(node, C.LIds):
         return ops.docs_mask(mask_key(node, seg, ctx)[1], nd, device)
+    if isinstance(node, C.LSourcePhrase):
+        return ops.docs_mask(node.docs(seg, ctx.mappings), nd, device)
     if isinstance(node, C.LDisMax):
         m = torch.zeros(nd, dtype=torch.bool, device=device)
         for c in node.children:

@@ -751,8 +751,8 @@ def test_seeded_bodies_after_a_forcemerge_and_in_msearch():
 # ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("aggs,name", [
-    ({"x": {"ip_range": {"field": "ip", "ranges": [{"to": "10.0.0.5"}]}}},
-     "ip_range"),
+    ({"x": {"geo_distance": {"field": "g", "origin": "0,0", "ranges": [
+        {"to": 100}]}}}, "geo_distance"),
     ({"x": {"geotile_grid": {"field": "g"}}}, "geotile_grid"),
     ({"x": {"geohash_grid": {"field": "g"}}}, "geohash_grid"),
     ({"x": {"geo_bounds": {"field": "g"}}}, "geo_bounds"),

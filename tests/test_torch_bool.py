@@ -466,14 +466,13 @@ def test_numeric_values_out_of_range_and_unported_types_raise():
         "i": {"type": "integer"}}}})
     with pytest.raises(ApiError, match="out of range"):
         port.index("x", {"i": 2**31}, id="1")
-    for ftype in ("short", "half_float", "ip"):
+    for ftype in ("integer_range", "flat_object", "annotated_text"):
         with pytest.raises(NotPortedError, match=ftype):
             RestClient(device="cpu").indices.create("y", {"mappings": {
                 "properties": {"v": {"type": ftype}}}})
-    with pytest.raises(NotPortedError, match="dynamic_templates"):
+    with pytest.raises(NotPortedError, match="_source"):
         RestClient(device="cpu").indices.create("z", {"mappings": {
-            "dynamic_templates": [{"s": {"match": "*", "mapping": {
-                "type": "keyword"}}}]}})
+            "_source": {"enabled": False}}})
 
 
 def test_segment_from_arrays_takes_reference_numeric_columns(one_segment):

@@ -397,7 +397,7 @@ def test_rest_calls_of_the_reference_client_raise_not_ported():
     for name in ("termvectors", "mtermvectors", "rank_eval", "create"):
         with pytest.raises(NotPortedError, match=rf"rest call \[{name}\]"):
             getattr(c, name)
-    for name in ("analyze", "put_settings", "stats", "put_alias"):
+    for name in ("shrink", "put_settings", "stats", "put_alias"):
         with pytest.raises(NotPortedError,
                            match=rf"rest call \[indices.{name}\]"):
             getattr(c.indices, name)
@@ -406,6 +406,8 @@ def test_rest_calls_of_the_reference_client_raise_not_ported():
     with pytest.raises(AttributeError):
         c.indices.no_such_call
     assert not hasattr(c, "no_such_call")
+    assert c.indices.analyze(body={"text": "Hi"})["tokens"][0]["token"] \
+        == "hi"
     for name in ("search", "msearch", "bulk", "index", "get", "count",
                  "explain", "field_caps", "scroll", "create_pit"):
         assert callable(getattr(c, name))

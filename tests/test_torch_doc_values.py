@@ -86,10 +86,11 @@ def test_bad_dates_raise_as_the_reference(value):
 
 
 def test_unported_mapping_options_raise():
-    with pytest.raises(NotPortedError, match="dynamic_templates"):
-        Mappings({"dynamic_templates": [{"a": {"mapping": {}}}]})
-    with pytest.raises(NotPortedError, match="null_value"):
-        Mappings({"properties": {"d": {"type": "date", "null_value": 0}}})
+    with pytest.raises(NotPortedError, match="_source"):
+        Mappings({"_source": {"enabled": False}})
+    with pytest.raises(NotPortedError, match="term_vector"):
+        Mappings({"properties": {"d": {"type": "text",
+                                       "term_vector": "yes"}}})
 
 
 def _bulk(client, docs, index="t", start=0):

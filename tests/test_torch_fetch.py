@@ -202,9 +202,17 @@ def test_score_sorted_fetch_bodies_stay_on_the_kernels(bulk):
 
 
 def test_store_mapping_still_raises():
-    """The port stores no field beside `_source`: `stored_fields` only
-    suppresses `_source`, and a `store` mapping raises."""
+    """A `store` mapping keeps the field's raw values beside `_source`
+    (`stored_fields` returns them); a field parameter the port does not
+    serve still raises."""
     from opensearch_tpu_torch.errors import NotPortedError
-    with pytest.raises(NotPortedError, match="store"):
-        RestClient(device="cpu").indices.create("x", {"mappings": {
-            "properties": {"t": {"type": "text", "store": True}}}})
+    c = RestClient(device="cpu")
+    c.indices.create("x", {"mappings": {
+        "properties": {"t": {"type": "text", "store": True}}}})
+    c.index("x", {"t": "a b"}, id="1", refresh=True)
+    hit = c.search("x", {"stored_fields": ["t"]})["hits"]["hits"][0]
+    assert hit["fields"] == {"t": ["a b"]} and "_source" not in hit
+    with pytest.raises(NotPortedError, match="term_vector"):
+        RestClient(device="cpu").indices.create("y", {"mappings": {
+            "properties": {"t": {"type": "text",
+                                 "term_vector": "with_positions"}}}})
