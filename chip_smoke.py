@@ -291,6 +291,7 @@ import ctypes
 import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -9567,6 +9568,494 @@ def phase_fields_merged(big: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 19: query strings, function_score, script / script_score and the
+# host script contexts
+# ---------------------------------------------------------------------
+
+SC_SMALL_DOCS = 3000
+SC_QUERIES = 4         # phase 19's bodies a class
+SC_WORDS = ["red", "blue", "green", "shirt", "hat", "coat", "wool", "silk",
+            "warm", "light", "dress", "scarf", "boot", "linen", "sale"]
+SC_MAPPING = {"mappings": {"properties": {
+    "name": {"type": "text"}, "status": {"type": "keyword"},
+    "price": {"type": "float"}, "qty": {"type": "integer"},
+    "tag": {"type": "keyword"}}}}
+
+
+def sc_small_bodies() -> list:
+    """Phase 4's host script contexts: script_fields, `_script` sorts,
+    terms_set's minimum_should_match_script, scripted_metric,
+    bucket_script, bucket_selector and a scripted moving_fn."""
+    match = {"match": {"name": "shirt wool boot"}}
+    return [
+        {"query": match, "script_fields": {
+            "margin": {"script": {"source": "doc['price'].value * 0.5"}},
+            "label": {"script": "doc['status'].value + '!'"}}},
+        {"query": match, "size": 20, "sort": [{"_script": {
+            "type": "number", "order": "desc", "script": {
+                "source": "doc['qty'].value * params.m + doc['price'].value",
+                "params": {"m": 3}}}}]},
+        {"query": match, "size": 20, "sort": [{"status": "asc"}, {
+            "_script": {"type": "string", "script":
+                        "doc['tag'].value + doc['status'].value"}}]},
+        {"query": {"terms_set": {"name": {
+            "terms": ["red", "shirt", "wool", "hat", "silk"],
+            "minimum_should_match_script": {
+                "source": "Math.max(1, doc['qty'].value / 5)"}}}}},
+        {"size": 0, "query": match, "aggs": {"m": {"scripted_metric": {
+            "init_script": "state.t = []",
+            "map_script": "state.t.add(doc['qty'].value)",
+            "combine_script": "def s = 0; for (t in state.t) { s += t } "
+                              "return s",
+            "reduce_script": "def s = 0; for (a in states) { s += a } "
+                             "return s"}}}},
+        {"size": 0, "aggs": {"h": {"terms": {"field": "tag"}, "aggs": {
+            "q": {"sum": {"field": "qty"}},
+            "r": {"bucket_script": {"buckets_path": {"n": "_count",
+                                                    "q": "q"},
+                                    "script": "params.q / params.n"}},
+            "k": {"bucket_selector": {"buckets_path": {"n": "_count"},
+                                      "script": "params.n > 300"}}}}}},
+        {"size": 0, "aggs": {"h": {"histogram": {"field": "qty",
+                                                 "interval": 4}, "aggs": {
+            "m": {"moving_fn": {"buckets_path": "_count", "window": 3,
+                                "script": "def s = 0; for (v in values) "
+                                          "{ s += v } return s / 2"}}}}}},
+    ]
+
+
+def sc_small_run(name: str, docs, bodies) -> tuple:
+    """The script contexts on one device: two segments, deletes, the
+    bodies, scripted updates (an update, a scripted upsert twice, a noop
+    and a ctx.op delete), a refresh, the bodies again."""
+    from opensearch_tpu_torch import RestClient
+    c = RestClient(device=name)
+    c.indices.create("s", SC_MAPPING)
+    half = len(docs) // 2
+    for lo, hi in ((0, half), (half, len(docs))):
+        c.bulk(sum([[{"index": {"_index": "s", "_id": f"d{i}"}}, docs[i]]
+                    for i in range(lo, hi)], []), refresh=True)
+    c.bulk([{"delete": {"_index": "s", "_id": f"d{i}"}}
+            for i in range(0, half, 13)], refresh=True)
+    first = [strip_took(c.search("s", b)) for b in bodies]
+    updates = [
+        c.update("s", "d1", {"script": {"source": "ctx._source.qty += "
+                                        "params.n", "params": {"n": 40}}}),
+        c.update("s", "k", {"scripted_upsert": True, "upsert": {"qty": 0},
+                            "script": "ctx._source.qty += 1"}),
+        c.update("s", "k", {"scripted_upsert": True, "upsert": {"qty": 0},
+                            "script": "ctx._source.qty += 1"}),
+        c.update("s", "d2", {"script": "ctx._source.name += ' x'; "
+                                       "ctx.op = 'none'"}),
+        c.update("s", "d3", {"script": "if (ctx._source.qty >= 0) "
+                                       "{ ctx.op = 'delete' }"})]
+    c.indices.refresh("s")
+    gets = [c.get("s", i)["_source"] for i in ("d1", "k", "d2")]
+    then = [strip_took(c.search("s", b)) for b in bodies]
+    return first, [{k: u.get(k) for k in ("_id", "result")}
+                   for u in updates], gets, then, c.exists("s", "d3")
+
+
+def phase_scripts_small(rng) -> dict:
+    """Phase 4's host script contexts at SC_SMALL_DOCS docs, card == CPU
+    (exact: they run on the host over the same documents)."""
+    docs = [{"name": " ".join(rng.choice(SC_WORDS, int(rng.integers(2, 6)))),
+             "status": ["new", "sale", "old"][int(rng.integers(3))],
+             "price": float(np.float32(rng.uniform(1, 200))),
+             "qty": int(rng.integers(0, 30)),
+             "tag": f"t{int(rng.integers(5))}"}
+            for _ in range(SC_SMALL_DOCS)]
+    bodies = sc_small_bodies()
+    t0 = time.perf_counter()
+    out = {name: sc_small_run(name, docs, bodies) for name in ("cuda", "cpu")}
+    if out["cuda"] != out["cpu"]:
+        for part, (g, w) in enumerate(zip(out["cuda"], out["cpu"])):
+            if g != w:
+                raise AssertionError(f"scripts small: part {part} differs "
+                                     f"between cuda and cpu:\n{g}\n{w}")
+    first, updates, gets, then, d3 = out["cuda"]
+    if not first[0]["hits"]["hits"] or "fields" not in \
+            first[0]["hits"]["hits"][0] or d3 \
+            or gets[1]["qty"] != 2 or updates[3]["result"] != "noop":
+        raise AssertionError(f"scripts small: unexpected responses "
+                             f"{updates} {gets} {d3}")
+    log(f"  scripts, small: {len(docs)} docs, {len(bodies)} bodies "
+        f"(script_fields, _script sorts, terms_set script, scripted_metric,"
+        f" bucket_script / bucket_selector, scripted moving_fn) before and "
+        f"after 5 scripted updates / upserts / ctx.op: card == CPU "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"docs": len(docs), "bodies": len(bodies),
+            "updates": len(updates)}
+
+
+SC_ORIGIN = 1_704_067_200_000 + 200 * 86_400_000    # 2024-07-19, epoch ms
+SC_SCALE_MS, SC_OFFSET_MS = 30 * 86_400_000, 86_400_000
+SC_SEED = 20_251
+
+
+def sc_fs_body(text: str) -> dict:
+    """Class (d): a shop's relevance by popularity and recency."""
+    return {"query": {"function_score": {
+        "query": {"match": {"body": text}},
+        "functions": [
+            {"field_value_factor": {"field": "rating", "factor": 1.0,
+                                    "modifier": "log1p", "missing": 1}},
+            {"gauss": {"ts": {"origin": SC_ORIGIN, "scale": "30d",
+                              "offset": "1d", "decay": 0.5}}},
+            {"filter": {"term": {"status": "published"}}, "weight": 1.5}],
+        "score_mode": "sum", "boost_mode": "multiply"}}, "size": 10}
+
+
+def sc_classes(big: dict, n: int) -> dict:
+    """`n` bodies a class drawn from phase 5's query terms (each item
+    (body, spec)): (a) query_string on body under default_operator and,
+    half with a status clause (the other half also against the brute
+    force of its terms, all required); (b) query_string over body and title^2
+    with a quoted title phrase; (c) simple_query_string `a b -c` on body,
+    half with a prefix or a phrase; (d) function_score; (e) script_score
+    and a match filtered by a script; (f) random_score, boost_mode
+    replace. The spec holds what the check reads: the JSON DSL
+    equivalent of (a)-(c), the term ids of (d)-(f)."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    corpus = big["corpus"]
+    vs = bc.vocab_strings(len(corpus[0]) - 1)
+    terms = big["body_terms"]
+    title = big["title"]
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+    pairs = bc.pick_phrase_pairs(title[7], n, seed=19)
+    # a 10% price filter: under 1/8 of the docs, so its re-runs on the
+    # merged segment build no filter-specialized postings
+    price_p = float(np.percentile(big["columns"][1], 90))
+    out = {k: [] for k in ("a_query_string", "b_multi_field",
+                           "c_simple", "d_function_score", "e_scripts",
+                           "f_random")}
+    for i in range(n):
+        ts = terms[(2 * i) % len(terms)]
+        t3 = terms[(2 * i + 1) % len(terms)]
+        # 2 terms of a pair query, or 3-4 of a real one, all required
+        ids = [int(t) for t in (ts[:2] if i % 3 == 0 else t3[:2 + i % 3])]
+        words = [vs[t] for t in ids]
+        status = bc.STATUS_VALUES[i % 3]
+        q = " ".join(words) + (f" status:{status}" if i % 2 else "")
+        equiv = [{"match": {"body": {"query": w, "operator": "and"}}}
+                 for w in words]
+        if i % 2:
+            equiv.append({"match": {"status": {"query": status,
+                                               "operator": "and"}}})
+        out["a_query_string"].append((
+            {"query": {"query_string": {"query": q, "default_field": "body",
+                                        "default_operator": "and"}}},
+            {"query": {"bool": {"must": equiv}},
+             **({} if i % 2 else {"all": ids})}))
+        a = tvs[title[5][pairs[i]]]
+        b = tvs[title[6][pairs[i]]]
+        w3 = vs[t3[0]]
+        out["b_multi_field"].append((
+            {"query": {"query_string": {"query": f'"{a} {b}" {w3}',
+                                        "fields": ["body", "title^2"]}}},
+            {"query": {"bool": {"should": [
+                {"dis_max": {"queries": [
+                    {"match_phrase": {"body": {"query": f"{a} {b}",
+                                               "slop": 0}}},
+                    {"match_phrase": {"title": {"query": f"{a} {b}",
+                                                "slop": 0, "boost": 2.0}}}]}},
+                {"dis_max": {"queries": [
+                    {"match": {"body": {"query": w3, "operator": "or"}}},
+                    {"match": {"title": {"query": w3, "operator": "or",
+                                         "boost": 2.0}}}]}}],
+                "minimum_should_match": "1"}}}))
+        x, y = vs[ts[0]], vs[ts[1]]
+        z = vs[t3[-1]]
+        extra, extra_q = "", []
+        if i % 4 == 1:
+            extra = f" {vs[t3[0]][:6]}*"
+            extra_q = [{"prefix": {"body": vs[t3[0]][:6]}}]
+        elif i % 4 == 3:
+            extra = f' "{vs[t3[0]]} {x}"'
+            extra_q = [{"match_phrase": {"body": {
+                "query": f"{vs[t3[0]]} {x}", "slop": 0}}}]
+        out["c_simple"].append((
+            {"query": {"simple_query_string": {"query": f"{x} {y} -{z}"
+                                               + extra,
+                                               "fields": ["body"]}}},
+            {"query": {"bool": {
+                "should": [{"match": {"body": {"query": x}}},
+                           {"match": {"body": {"query": y}}}] + extra_q,
+                "must_not": [{"match": {"body": {"query": z}}}],
+                "minimum_should_match": "1"}}, "plain": not extra,
+             "terms": [int(ts[0]), int(ts[1])], "not": int(t3[-1])}))
+        two = list(ts[:2])
+        text = f"{vs[two[0]]} {vs[two[1]]}"
+        out["d_function_score"].append((sc_fs_body(text), {"terms": two}))
+        if i % 2 == 0:
+            body = {"query": {"script_score": {
+                "query": {"match": {"body": text}},
+                "script": {"source": "_score * Math.log(2 + "
+                                     "doc['rating'].value) * params.w",
+                           "params": {"w": 1.5}}}}, "size": 10}
+            spec = {"terms": two, "kind": "script_score"}
+        else:
+            body = {"query": {"bool": {
+                "must": [{"match": {"body": text}}],
+                "filter": [{"script": {"script": {
+                    "source": "doc['price'].value > params.p",
+                    "params": {"p": price_p}}}}]}}, "size": 10}
+            spec = {"terms": two, "kind": "script_filter", "p": price_p}
+        out["e_scripts"].append((body, spec))
+        out["f_random"].append((
+            {"query": {"function_score": {
+                "query": {"match": {"body": text}},
+                "random_score": {"seed": SC_SEED + i},
+                "boost_mode": "replace"}}, "size": 10},
+            {"terms": two, "seed": SC_SEED + i}))
+    return out
+
+
+def np_random_values(seed: int, n: int) -> np.ndarray:
+    """The reference's random_score hash of doc indices 0..n-1 (uint32
+    steps), over [0, 1) in f32."""
+    h = (np.arange(n, dtype=np.uint32) * np.uint32(2654435761)
+         ^ np.uint32(np.int32(seed).view(np.uint32)))
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x45D9F3B)
+    h = h ^ (h >> np.uint32(16))
+    return h.astype(np.float32) / np.float32(2**32)
+
+
+class ScOracle:
+    """Phase 19's numpy brute force over NumpyIndex's docs: phase 5's
+    BM25 (`NumpyIndex.group`) times the functions in f32 over the f32
+    views of the rating, ts, price and status columns (AggOracle's)."""
+
+    def __init__(self, ix, aggcols, eng):
+        self.ix = ix
+        self.cols = AggOracle(ix, aggcols).cols()
+        self.eng = eng
+
+    def page(self, body: dict, spec: dict) -> tuple:
+        ix, c = self.ix, self.cols
+        if "all" in spec:           # (a) without status: every term
+            return ix.page(*ix.group(spec["all"], len(spec["all"])), 0, 10)
+        score, ok = ix.group(spec["terms"], 1)
+        f32 = np.float32
+        if "seed" in spec:
+            return self.random_page(spec["seed"], ok)
+        if "not" in spec:           # (c)'s plain `a b -c`
+            ok = ok.copy()
+            ok[ix.row(spec["not"])[0]] = False
+        elif spec.get("kind") == "script_score":
+            r = np.where(c["rating_present"], c["rating"], f32(0))
+            score = (score * np.log(f32(2) + r)) * f32(1.5)
+        elif spec.get("kind") == "script_filter":
+            ok = ok & (c["price"] > f32(spec["p"]))
+        else:
+            r = np.where(c["rating_present"], c["rating"] * f32(1.0),
+                         f32(1))
+            v1 = np.log10(r + f32(1.0))
+            tsf = c["ts"].astype(np.float32)
+            a = f32(math.log(0.5) / (float(SC_SCALE_MS) ** 2))
+            d = np.abs(tsf - f32(SC_ORIGIN))
+            d = np.maximum(d - f32(SC_OFFSET_MS), f32(0))
+            v2 = np.where(c["ts_present"], np.exp(a * d * d), f32(1))
+            v3 = np.where(c["status"] == 2, f32(1.5), f32(0))
+            score = score * ((v1 + v2) + v3)
+        return ix.page(np.where(ok, score, f32(0)).astype(np.float32),
+                       ok, 0, 10)
+
+    def random_page(self, seed: int, ok: np.ndarray) -> tuple:
+        """random_score, boost_mode replace: each matched doc's hash of
+        its segment-local index; ties by (segment, local doc)."""
+        ix = self.ix
+        segs = self.eng.segments
+        if segs[0].ndocs != ix.n0:
+            raise AssertionError("the corpus segment is not the first")
+        docs = np.flatnonzero(ok & ix.live)
+        seg_of = np.zeros(len(docs), np.int64)
+        local = docs.copy()
+        for j in np.flatnonzero(docs >= ix.n0):
+            sid = ix.id_of(int(docs[j]))
+            for s_ord, s in enumerate(segs[1:], 1):
+                d = s.local_doc(sid)
+                if d >= 0 and s.live[d]:
+                    seg_of[j], local[j] = s_ord, d
+                    break
+        vals = np.zeros(len(docs), np.float32)
+        for s_ord in np.unique(seg_of):
+            sel = seg_of == s_ord
+            vals[sel] = np_random_values(seed, segs[s_ord].ndocs)[local[sel]]
+        order = np.lexsort((local, seg_of, -vals))[:10]
+        return ([ix.id_of(int(docs[j])) for j in order],
+                vals[order].tolist(), len(docs))
+
+
+def sc_close(got: dict, want: dict, rtol: float, what: str) -> None:
+    """Card against the CPU twin where a transcendental enters: totals
+    equal, scores within rtol, ids and order identical but for swaps
+    between scores within rtol."""
+    gh, wh = got["hits"]["hits"], want["hits"]["hits"]
+    wsc = {h["_id"]: h["_score"] for h in wh}
+    ok = (got["hits"]["total"] == want["hits"]["total"]
+          and len(gh) == len(wh))
+    for g, w in zip(gh, wh):
+        ws = wsc.get(g["_id"])
+        ok = ok and ws is not None and abs(g["_score"] - ws) <= rtol * abs(
+            ws) and abs(ws - w["_score"]) <= rtol * abs(w["_score"])
+    if not ok:
+        raise AssertionError(f"{what}: card != CPU\n{got['hits']}\n"
+                             f"{want['hits']}")
+
+
+SC_RTOL = 1e-5      # a transcendental enters: another libm than numpy's
+
+
+def run_sc_class(client, name: str, items, oracle, cpu=None,
+                 label: str = "") -> dict:
+    """One class body by body through RestClient.search (the counts set
+    to 0 just before): (a)-(c) each page against its JSON DSL page
+    through the same client (and (a) without status against the brute
+    force, since both pages take one route), (d)-(f) against the brute
+    force; the first
+    body on the card against the CPU twin: -> the class's numbers."""
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, impactpath
+    bodies = [b for b, _s in items]
+    sync(client.device)
+    impactpath.reset_stats()
+    fastpath.reset_stats()
+    C.reset_stats()
+    bm25.reset_counts()
+    lat, resps = [], []
+    t0 = time.perf_counter()
+    for b in bodies:
+        t1 = time.perf_counter()
+        resps.append(client.search("bench", b))
+        lat.append((time.perf_counter() - t1) * 1e3)
+    sync(client.device)
+    wall = time.perf_counter() - t0
+    counts = {**{k: bm25.COUNTS[k] for k in ("launches", "impact_launches",
+                                             "bool_launches",
+                                             "plain_calls")},
+              "impact_rung": sum(impactpath.STATS[k] for k in (
+                  "served", "pruned_served", "phase2_served", "escalated")),
+              "pruned_ladder": sum(fastpath.STATS.get(k, 0) for k in RUNGS),
+              "b3_filter_slot": fastpath.STATS.get("b3_filter_slot", 0),
+              "b3_filtered_postings": fastpath.STATS.get(
+                  "b3_filtered_postings", 0),
+              "general": C.STATS["general_served"]}
+    t0 = time.perf_counter()
+    for j, ((b, spec), r) in enumerate(zip(items, resps)):
+        what = f"phase 19 {name}{label} {j}"
+        if "query" in spec:          # (a)-(c): the JSON DSL page
+            want = client.search("bench", {"query": spec["query"]})
+            if strip_took(r) != strip_took(want):
+                raise AssertionError(f"{what}: string page != its DSL "
+                                     f"page\n{r['hits']}\n{want['hits']}")
+            if "all" in spec:
+                check_page(r, oracle.page(b, spec), what)
+        else:
+            check_page(r, oracle.page(b, spec), what,
+                       rtol=0.0 if "seed" in spec else
+                       1e-6 if "not" in spec else SC_RTOL)
+    t_check = time.perf_counter() - t0
+    t_cpu = 0.0
+    if cpu is not None:
+        t0 = time.perf_counter()
+        want = cpu.search("bench", bodies[0])
+        t_cpu = time.perf_counter() - t0
+        if name.startswith(("d_", "e_")):
+            sc_close(resps[0], want, SC_RTOL, f"phase 19 {name}")
+        elif strip_took(resps[0]) != strip_took(want):
+            raise AssertionError(f"phase 19 {name}: card != CPU")
+    if counts["plain_calls"]:
+        raise AssertionError(f"phase 19 {name}: a plain call on the card")
+    out = {"bodies": len(bodies), "wall_s": wall,
+           "bodies_per_s": len(bodies) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
+           "counts": counts, "check_s": t_check, "cpu_s": t_cpu}
+    log(f"  {name}{label}: {len(bodies)} bodies in {wall:.2f}s "
+        f"({out['bodies_per_s']:.1f} bodies/s) p50 {out['p50_ms']:.1f} p99 "
+        f"{out['p99_ms']:.1f} first {lat[0]:.1f} ms; routes {counts}; pages "
+        f"checked ({t_check:.1f}s)"
+        + (f"; body 0 card == CPU ({t_cpu:.1f}s)" if cpu is not None
+           else ""))
+    return out
+
+
+def phase_scripts_msmarco(big: dict) -> dict:
+    """Phase 19 on phase 18's end state (the kernels decline the corpus
+    segment, which has deletes): SC_QUERIES bodies a class of `sc_classes`,
+    (a)-(c) against their JSON DSL pages, (d)-(f) against ScOracle, one
+    body a class card == CPU; seconds, device bytes and host RSS."""
+    import torch
+    client, ix = big["client"], big["ix"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    bytes0 = torch.cuda.memory_allocated(dev)
+    rss0 = rss_bytes()
+    rss_watch = RssPeak().__enter__()
+    classes = sc_classes(big, SC_QUERIES)
+    oracle = ScOracle(ix, big["aggs"], eng)
+    cpu = ft_twin(eng)
+    out: dict = {"classes": {}}
+    for name, items in classes.items():
+        out["classes"][name] = run_sc_class(client, name, items, oracle,
+                                            cpu)
+    torch.cuda.synchronize()
+    out["device_bytes"] = torch.cuda.memory_allocated(dev) - bytes0
+    rss_watch.__exit__()
+    out["rss_start"], out["rss_end"] = rss0[0], rss_bytes()[0]
+    out["rss_peak"] = rss_watch.peak
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {out['seconds']:.1f}s; device bytes "
+        f"{out['device_bytes']} above the phase's start; host RSS start "
+        f"{out['rss_start']}, peak {out['rss_peak']}, end {out['rss_end']}")
+    drop_cpu_state(eng.segments)
+    big["scripts"] = {"classes": classes}
+    return out
+
+
+def phase_scripts_merged(big: dict) -> dict:
+    """Phase 8's merged segment: (a) without its status clause and the
+    plain (c) bodies (B3: a bool of one-term groups on body), (d) and
+    (e)'s script-filtered match (B3, the script's mask by eval_device)
+    against the brute force (deleted docs compacted away)."""
+    client, ix = big["client"], big["ix"]
+    eng = client._indices["bench"].engine
+    classes = big["scripts"]["classes"]
+    oracle = ScOracle(ix, big["aggs"], eng)
+    cpu = twin_of(eng)
+    picks = {
+        "a_query_string": [it for j, it in enumerate(
+            classes["a_query_string"]) if j % 2 == 0][:2],
+        # against the brute force: the DSL page would be a second use
+        # of the must_not's dense filter, which builds the
+        # filter-specialized postings (tens of seconds at 8.8M)
+        "c_simple": [(b, {k: v for k, v in spec.items() if k != "query"})
+                     for b, spec in classes["c_simple"] if spec["plain"]][:2],
+        "d_function_score": classes["d_function_score"][:1],
+        "e_script_filter": [it for it in classes["e_scripts"]
+                            if it[1]["kind"] == "script_filter"][:2]}
+    out = {"classes": {}}
+    for name, items in picks.items():
+        r = out["classes"][name] = run_sc_class(
+            client, name, items, oracle, cpu if name.startswith("e") else
+            None, label=", merged")
+        c = r["counts"]
+        on = c["launches"] + c["impact_launches"] + c["bool_launches"]
+        if name == "d_function_score":
+            if not c["general"]:
+                raise AssertionError(f"{name}: not on the general path {c}")
+        elif not on or c["general"] or (name == "e_script_filter"
+                                        and not c["bool_launches"]):
+            raise AssertionError(f"{name}: not on its kernels: {c}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
@@ -9580,14 +10069,15 @@ def main() -> int:
     # config-3 and mixed bodies and 16 sloppy and prefix bodies, phases
     # 12, 13 and 15 4 bodies a class and phase 10 8; before phase 17 did,
     # phase 9 ran 8 sloppy and prefix bodies and phase 8 16 match bodies
-    # around its merge and the whole b3 mix on the merged segment (phase
-    # 7's count also seeds which _ids it re-indexes, which later phases'
-    # data follow)
+    # around its merge and the whole b3 mix on the merged segment; before
+    # phase 19 did, phase 9 ran 256 config-3 and mixed bodies (phase 7's
+    # count also seeds which _ids it re-indexes, which later phases' data
+    # follow)
     ap.add_argument("--queries", type=int, default=128)
     ap.add_argument("--bool-queries", type=int, default=1024)
     ap.add_argument("--general-queries", type=int, default=4,
                     help="phase-7 bodies per class")
-    ap.add_argument("--phrase-queries", type=int, default=256,
+    ap.add_argument("--phrase-queries", type=int, default=128,
                     help="phase-9 config-3 and mixed bodies each")
     ap.add_argument("--phrase-sloppy", type=int, default=4,
                     help="phase-9 sloppy and prefix bodies together")
@@ -9615,9 +10105,9 @@ def main() -> int:
                     help="phase-18 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 18; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18, 8); no "
-                    "result line")
+                    help="end after this phase (3 to 19; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 8); "
+                    "no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -9684,6 +10174,7 @@ def main() -> int:
     vec_small = phase_vectors_small(rng(9))
     sp_small = phase_sparse_small(rng(10))
     ft_small = phase_fields_small(rng(11))
+    sc_small = phase_scripts_small(rng(12))
     if args.stop_after == 4:
         return 0
 
@@ -9822,6 +10313,15 @@ def main() -> int:
     if args.stop_after == 18:
         return 0
 
+    log(f"[19] query strings (query_string, simple_query_string), "
+        f"function_score, script_score and a script filter at MS MARCO "
+        f"passage scale (ndocs={args.ndocs}), on phase 18's end state; "
+        f"classes (a), (c), (d), (e) again after phase 8" + at(t_start))
+    scripts = phase_scripts_msmarco(big)
+    scripts["small"] = sc_small
+    if args.stop_after == 19:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
@@ -9860,6 +10360,10 @@ def main() -> int:
         "merge)" + at(t_start))
     fields["merged"] = phase_fields_merged(big)
     fm = {k: v["counts"] for k, v in fields["merged"]["classes"].items()}
+    log("[19m] phase 19's classes (a), (c), (d) and (e)'s script-filtered "
+        "match, on phase 8's merged segment" + at(t_start))
+    scripts["merged"] = phase_scripts_merged(big)
+    scm = {k: v["counts"] for k, v in scripts["merged"]["classes"].items()}
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -9874,6 +10378,7 @@ def main() -> int:
         "launches_hybrid": vh["launches"],
         "launches_sparse_hybrid": sh["launches"],
         "launches_fields": sum(c["launches"] for c in fm.values()),
+        "launches_scripts": sum(c["launches"] for c in scm.values()),
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -9889,6 +10394,7 @@ def main() -> int:
         "launches_hybrid": vh["impact_launches"],
         "launches_sparse_hybrid": sh["impact_launches"],
         "launches_fields": sum(c["impact_launches"] for c in fm.values()),
+        "launches_scripts": sum(c["impact_launches"] for c in scm.values()),
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -9903,6 +10409,7 @@ def main() -> int:
                                            "compound_filter")),
         "launches_body_options": sum(c["bool_launches"] for c in rc),
         "launches_fields": sum(c["bool_launches"] for c in fm.values()),
+        "launches_scripts": sum(c["bool_launches"] for c in scm.values()),
         "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
                            egrid["max_abs_err"], bools["max_abs_err"]),
         **times(bools["b3"]), "bound_by": "bytes",
@@ -9942,6 +10449,7 @@ def main() -> int:
     print(json.dumps({"vectors": vectors}), flush=True)
     print(json.dumps({"sparse": sparse}), flush=True)
     print(json.dumps({"fields": fields}), flush=True)
+    print(json.dumps({"scripts": scripts}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ raises them; msearch turns a missing index into its per-body error entry.
 
 from __future__ import annotations
 
+import copy
 import fnmatch
 import json
 import os
@@ -45,6 +46,7 @@ from ..errors import (IndexNotFoundError, NotPortedError,
 from ..index.engine import DocLocation, Engine, VersionConflictError
 from ..index.mappings import Mappings
 from ..models.similarity import resolve_similarity
+from ..script import painless_lite as pl
 from ..search import compiler as C
 from ..search import query_dsl as dsl
 from ..search.executor import (ShardSearcher, msearch_batched,
@@ -156,6 +158,18 @@ class IndexService:
                                       similarity=self.similarity,
                                       index_name=name)
 
+
+def _run_update_script_or_400(script_body, src: dict, meta: dict):
+    """Deep-copy `src`, run the update script, map ScriptError to 400.
+    The deep copy matters: engine.get() hands back the live stored
+    _source, and a script that mutates nested state then sets
+    ctx.op='none' must not corrupt the segment in place."""
+    src_str, prm = dsl.parse_script_spec(script_body)
+    try:
+        return pl.run_update_script(src_str, prm, copy.deepcopy(src), meta)
+    except pl.ScriptError as e:
+        raise ApiError(400, "illegal_argument_exception",
+                       f"failed to execute script: {e}")
 
 class RestClient:
     """`device` is where segment postings live and the kernels run: the
@@ -321,8 +335,10 @@ class RestClient:
                routing: Optional[str] = None, refresh: bool = False) -> dict:
         """Partial-doc update and upserts (reference UpdateHelper): `doc`
         deep-merged into the current source (a no-op when nothing changes
-        and `detect_noop` holds), `doc_as_upsert`, `upsert`. Update
-        scripts are not ported and raise."""
+        and `detect_noop` holds), `doc_as_upsert`, `upsert`, a script
+        (painless-lite over a deep copy of the source: `ctx.op` "none" or
+        "noop" is a no-op, "delete" deletes) and `scripted_upsert` (the
+        script runs over the upsert document)."""
         svc = self._svc_for_write(index)
         current = svc.engine.get(id)
         if current is None:
@@ -330,9 +346,15 @@ class RestClient:
                 return self.index(index, body["doc"], id=id,
                                   routing=routing, refresh=refresh)
             if "upsert" in body:
+                upsert_src = dict(body["upsert"])
                 if body.get("scripted_upsert") and "script" in body:
-                    raise NotPortedError("update script")
-                return self.index(index, dict(body["upsert"]), id=id,
+                    upsert_src, op = _run_update_script_or_400(
+                        body["script"], upsert_src,
+                        {"_index": svc.name, "_id": id, "op": "create"})
+                    if op in ("none", "delete"):
+                        return {"_index": svc.name, "_id": id,
+                                "result": "noop"}
+                return self.index(index, upsert_src, id=id,
                                   routing=routing, refresh=refresh)
             raise ApiError(404, "document_missing_exception",
                            f"[{id}]: document missing")
@@ -344,7 +366,18 @@ class RestClient:
             return self.index(index, merged, id=id, routing=routing,
                               refresh=refresh)
         if "script" in body:
-            raise NotPortedError("update script")
+            meta = {"_index": svc.name, "_id": id,
+                    "_version": current.get("_version", 1),
+                    "_routing": routing}
+            new_src, op = _run_update_script_or_400(body["script"], src,
+                                                    meta)
+            if op == "none":
+                return {"_index": svc.name, "_id": id, "result": "noop"}
+            if op == "delete":
+                return self.delete(index, id, routing=routing,
+                                   refresh=refresh)
+            return self.index(index, new_src, id=id, routing=routing,
+                              refresh=refresh)
         raise ApiError(400, "action_request_validation_exception",
                        "update requires doc, upsert or script")
 

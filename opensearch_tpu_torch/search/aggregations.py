@@ -21,7 +21,9 @@ merged here. Served kinds:
   same sketch), `matrix_stats`;
 - pipeline (host work on finalized buckets): `derivative`,
   `cumulative_sum`, `serial_diff`, `moving_avg`, `moving_fn` (the
-  `MovingFunctions.*` helpers), `bucket_sort`, `avg_bucket`,
+  `MovingFunctions.*` helpers, else a painless-lite script over
+  `values`), `bucket_script`, `bucket_selector`, `bucket_sort`,
+  `avg_bucket`,
   `sum_bucket`, `min_bucket`, `max_bucket`, `stats_bucket`,
   `percentiles_bucket`. A pipeline that reads a sub-agg the bucket
   refinement resolves is `deferred` until after it (the executor's
@@ -29,9 +31,8 @@ merged here. Served kinds:
 
 Terms buckets are exact per shard and keyed by value, so segments and
 merged segments agree. Every other kind the reference knows raises
-`NotPortedError` naming it, as do the script-bearing pipelines
-(`bucket_script`, `bucket_selector`, a `moving_fn` script outside
-`MovingFunctions`); an invalid tree raises the reference's ValueError.
+`NotPortedError` naming it; an invalid tree raises the reference's
+ValueError.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ import numpy as np
 
 from ..errors import NotPortedError
 from ..ops.aggs import ddsketch_bin, ddsketch_value
+from ..script import painless_lite as pl
+from . import query_dsl as dsl
 
 BUCKET_KINDS = {"terms", "histogram", "date_histogram", "range", "date_range",
                 "geo_distance",
@@ -75,8 +78,8 @@ PORTED_KINDS = STATS_FAMILY | {
     "significant_terms", "significant_text", "sampler",
     "diversified_sampler", "adjacency_matrix", "auto_date_histogram",
     "top_hits", "weighted_avg", "median_absolute_deviation",
-    "matrix_stats", "ip_range"}
-SERVED_PIPELINES = PIPELINE_KINDS - {"bucket_script", "bucket_selector"}
+    "matrix_stats", "ip_range", "scripted_metric"}
+SERVED_PIPELINES = PIPELINE_KINDS
 # bucket kinds whose response is one doc_count + subs
 _SINGLE_BUCKET = ("filter", "global", "missing", "sampler",
                   "diversified_sampler")
@@ -145,32 +148,14 @@ _MOVING_FNS = ("max", "min", "sum", "unweightedAvg", "stdDev",
                "linearWeightedAvg")
 
 
-def _script_source(spec) -> str:
-    if isinstance(spec, dict):
-        return str(spec.get("source", spec.get("inline", "")))
-    return "" if spec is None else str(spec)
-
-
 def check_ported(nodes: List[AggNode]) -> None:
     """Raise NotPortedError naming the first kind of the tree that this
-    port does not serve: a kind outside PORTED_KINDS, a script-bearing
-    pipeline (`bucket_script`, `bucket_selector`, a `moving_fn` whose
-    script is not one of the `MovingFunctions` helpers). A pipeline at
-    the root is left to `compiler.emit_agg`, which raises the
-    reference's error."""
+    port does not serve (a kind outside PORTED_KINDS). A pipeline at the
+    root is left to `compiler.emit_agg`, which raises the reference's
+    error."""
     for n in nodes:
         if n.kind not in PORTED_KINDS and n.kind not in SERVED_PIPELINES:
             raise NotPortedError(f"aggs: aggregation kind [{n.kind}]")
-        for p in n.pipelines:
-            if p.kind not in SERVED_PIPELINES:
-                raise NotPortedError(f"aggs: pipeline aggregation "
-                                     f"[{p.kind}] (scripts)")
-            if p.kind == "moving_fn":
-                m = _MOVING_FN.match(_script_source(p.body.get("script")))
-                if not m or m.group(1) not in _MOVING_FNS:
-                    raise NotPortedError(
-                        "aggs: moving_fn scripts other than "
-                        "MovingFunctions.*")
         check_ported(n.subs)
 
 
@@ -183,6 +168,8 @@ def merge_partials(node: AggNode, partials: List[Optional[dict]]) -> dict:
     if not parts:
         return {}
     kind = node.kind
+    if kind == "scripted_metric":
+        return {"states": [st for p in parts for st in p["states"]]}
     if kind in _KEYED:
         return {"buckets": _acc_buckets(node.subs, parts)}
     if kind in ("histogram", "date_histogram"):
@@ -324,6 +311,15 @@ def finalize(node: AggNode, merged: dict, pipelines: bool = True) -> dict:
     if not merged:
         return _empty_result(node)
     body = node.body
+    if kind == "scripted_metric":
+        # the reduce script over every segment's combined state
+        states = merged.get("states", [])
+        reduce_src = body.get("reduce_script")
+        if reduce_src:
+            src, prm = script_spec(reduce_src, {})
+            return {"value": pl.execute(src, {"states": states,
+                                              "params": prm})}
+        return {"value": states}
     if kind == "terms":
         size = int(body.get("size", 10))
         order = body.get("order", {"_count": "desc"})
@@ -661,7 +657,7 @@ def _empty_result(node: AggNode) -> dict:
     if kind == "matrix_stats":
         return {"doc_count": 0, "fields": []}
     if kind in ("min", "max", "avg", "weighted_avg",
-                "median_absolute_deviation"):
+                "median_absolute_deviation", "scripted_metric"):
         return {"value": None}
     if kind in ("sum", "value_count", "cardinality"):
         return {"value": 0}
@@ -757,10 +753,15 @@ def bucket_path_value(b: dict, path: str):
     return node
 
 
-def moving_fn_eval(script: str, values: List[float]):
-    """A `moving_fn` over one window: the `MovingFunctions` helper the
-    script names (`check_ported` refused any other script)."""
-    name = _MOVING_FN.match(script).group(1)
+def moving_fn_eval(script: str, values: List[float], params: dict):
+    """A `moving_fn` over one window (the reference's `_moving_fn_eval`):
+    the `MovingFunctions` helper the script names, else the script run
+    by painless-lite over `values` and `params`."""
+    m = _MOVING_FN.match(script)
+    if not m or m.group(1) not in _MOVING_FNS:
+        return pl.execute(script, {"values": list(values),
+                                   "params": params})
+    name = m.group(1)
     if not values:
         return 0 if name == "sum" else None
     if name == "max":
@@ -776,6 +777,51 @@ def moving_fn_eval(script: str, values: List[float]):
         return math.sqrt(sum((x - avg) ** 2 for x in values) / len(values))
     return (sum((i + 1) * x for i, x in enumerate(values))
             / sum(range(1, len(values) + 1)))
+
+
+def script_spec(spec, defaults: dict) -> tuple:
+    """(source, params) of a scripted_metric script: a string keeps the
+    agg's params, a dict adds its own over them (the reference's
+    `_script_spec`)."""
+    if isinstance(spec, str):
+        return spec, dict(defaults)
+    prm = dict(defaults)
+    prm.update(spec.get("params", {}))
+    return spec.get("source", ""), prm
+
+
+def _bucket_script(p: AggNode, buckets: list, raw_path) -> list:
+    """bucket_script sets each bucket's value, bucket_selector keeps the
+    buckets whose script is truthy (the reference's loop): each
+    buckets_path variable lands in params and in the script's scope; a
+    bucket missing one is kept unevaluated (gap_policy skip)."""
+    src, sparams = dsl.parse_script_spec(p.body.get("script"))
+    paths = raw_path if isinstance(raw_path, dict) else {"_value": raw_path}
+    keep = []
+    for b in buckets:
+        variables = {"params": dict(sparams)}
+        missing = False
+        for var, pth in paths.items():
+            v = bucket_path_value(b, pth)
+            if v is None:
+                missing = True
+            variables["params"][var] = v
+            variables[var] = v
+        if missing:
+            if p.kind == "bucket_script":
+                b[p.name] = {"value": None}
+            keep.append(b)
+            continue
+        try:
+            val = pl.execute(src, variables)
+        except pl.ScriptError as e:
+            raise ValueError(f"[{p.name}] script error: {e}")
+        if p.kind == "bucket_script":
+            b[p.name] = {"value": float(val) if val is not None else None}
+            keep.append(b)
+        elif val:
+            keep.append(b)
+    return keep
 
 
 def apply_bucket_pipelines(node: AggNode, result: dict,
@@ -794,6 +840,11 @@ def apply_bucket_pipelines(node: AggNode, result: dict,
                 which == "deferred" and not p.deferred):
             continue
         raw_path = p.body.get("buckets_path", "_count")
+        if p.kind in ("bucket_script", "bucket_selector"):
+            keep = _bucket_script(p, buckets, raw_path)
+            if p.kind == "bucket_selector":
+                result["buckets"] = buckets = keep
+            continue
         if p.kind == "bucket_sort":
             sorts = p.body.get("sort", [])
             frm = int(p.body.get("from", 0))
@@ -847,8 +898,9 @@ def apply_bucket_pipelines(node: AggNode, result: dict,
                                          max(0, i + shift)]
                        if v is not None]
                 if p.kind == "moving_fn":
-                    out = moving_fn_eval(_script_source(
-                        p.body.get("script")), win)
+                    src, sparams = dsl.parse_script_spec(
+                        p.body.get("script"))
+                    out = moving_fn_eval(src, win, sparams)
                 elif not win:
                     out = None
                 elif p.body.get("model", "simple") == "linear":

@@ -10,10 +10,13 @@ keys), `search_after`, `track_scores`, `min_score`, `collapse` (with
 excludes), `docvalue_fields`, `fields`, `stored_fields`, `highlight`,
 `rescore` (a rescorer or a list of them), `explain` (true: a per-hit
 `_explanation`), `terminate_after`, `timeout`,
-`allow_partial_search_results`, `profile` and `knn` (the top-level kNN
-section, `executor.compose_knn_query`). `explain: "device_plan"`,
-any other key, and a `_geo_distance`, `_script` or `nested` sort, raises
-`NotPortedError` naming it.
+`allow_partial_search_results`, `profile`, `knn` (the top-level kNN
+section, `executor.compose_knn_query`) and `script_fields` (a host
+painless-lite script per hit). A `_script` sort key is a host script per
+doc (`executor.host_sort_values`); as the primary key, each segment
+hands the host every match, and `collapse` or `search_after` with it is
+the reference's 400. `explain: "device_plan"`, any other key, and a
+`_geo_distance` or `nested` sort, raises `NotPortedError` naming it.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ BODY_KEYS = {"query", "size", "from", "track_total_hits", "_source", "aggs",
              "min_score", "collapse", "highlight", "docvalue_fields",
              "fields", "stored_fields", "rescore", "explain",
              "terminate_after", "timeout", "allow_partial_search_results",
-             "profile", "knn"}
+             "profile", "knn", "script_fields"}
 
 
 def norm_sort_specs(body: dict) -> List[dict]:
@@ -50,7 +53,7 @@ def norm_sort_specs(body: dict) -> List[dict]:
         if not isinstance(s, dict) or len(s) != 1:
             raise dsl.QueryParseError(f"malformed sort [{s}]")
         ((f, spec),) = s.items()
-        if f in ("_geo_distance", "_script"):
+        if f == "_geo_distance":
             raise NotPortedError(f"[{f}] sort")
         if isinstance(spec, str):
             out.append({"field": f, "order": spec})
@@ -61,6 +64,12 @@ def norm_sort_specs(body: dict) -> List[dict]:
         else:
             raise dsl.QueryParseError(f"malformed sort [{s}]")
     return out
+
+
+def is_script_sort(specs: List[dict]) -> bool:
+    """The sort's first key is a `_script`: its order is computed on the
+    host, over every matching doc of a segment."""
+    return bool(specs) and specs[0]["field"] == "_script"
 
 
 def is_field_sort(specs: List[dict]) -> bool:
@@ -107,6 +116,9 @@ def check_body(body: dict) -> int:
     if collapse is not None and (not isinstance(collapse, dict)
                                  or not collapse.get("field")):
         raise dsl.QueryParseError("[collapse] requires [field]")
+    if collapse and is_script_sort(norm_sort_specs(body)):
+        raise dsl.QueryParseError(
+            "cannot use [collapse] with a primary _script sort")
     after = body.get("search_after")
     if after is not None and not isinstance(after, list):
         raise dsl.QueryParseError("[search_after] must be an array")
@@ -214,6 +226,10 @@ class Order:
     @property
     def field_sort(self) -> bool:
         return is_field_sort(self.specs)
+
+    @property
+    def script_sort(self) -> bool:
+        return is_script_sort(self.specs)
 
     @property
     def multi(self) -> bool:

@@ -52,8 +52,15 @@ arithmetic mean), a `neural_sparse` with raw `query_tokens`
 `LSparseDot` (tokens sorted, f32 weights), a `distance_feature` on a
 date field `LDistanceFeature` (any other type is the reference's 400).
 A `hybrid` query reaching the rewrite is nested inside another query:
-the reference's 400. A clause's `_name` goes onto its node. Any other query
-or field kind raises `NotPortedError`.
+the reference's 400. A `query_string` or `simple_query_string` becomes
+the DSL tree of `search/querystring.py` (no field or `*`: the text
+fields in mapping order) and is rewritten as that tree; `function_score`
+becomes `LFuncScore` (its functions' filters in filter context),
+`script` `LScriptFilter` and `script_score` `LScriptScore` (their source
+checked by `validate_device_script`: a compile error is the reference's
+400), a terms_set's `minimum_should_match_script` an `LTermsSet` whose
+minimum the host runs per doc. A clause's `_name` goes onto its node.
+Any other query or field kind raises `NotPortedError`.
 
 The general path (`emit`, `run_segment`) evaluates a plan as torch ops on
 the engine's device: every node becomes dense per-doc (scores, match
@@ -65,9 +72,13 @@ segment's vector matrix (`Segment.vector_on`, `Segment.ivf_on`), a
 feature node a gather of its rows' (doc, weight) postings, the
 function or the query weight times the weight, and a scatter row by
 row (`ops/scoring.feature_score`), a distance_feature the reference's
-f32 distance over the date column's (hi, lo) words, and a masked top-k
-closes it. It serves every shape the fused kernels
-and the impact rung decline.
+f32 distance over the date column's (hi, lo) words, a function_score
+the reference's factors (field_value_factor and its modifiers, the
+random_score hash, a script, gauss / exp / linear decays over a
+numeric or date column's f32 view, weights) combined by score and boost
+mode, a script or script_score painless-lite's `eval_device` over the
+columns' f32 views, and a masked top-k closes it. It serves every shape
+the fused kernels and the impact rung decline.
 """
 
 from __future__ import annotations
@@ -75,7 +86,9 @@ from __future__ import annotations
 import datetime as _dt
 import fnmatch
 import ipaddress
+import math
 import re
+import time
 import zlib
 from bisect import bisect_left, bisect_right
 from dataclasses import dataclass, field as dc_field
@@ -86,8 +99,8 @@ import torch
 
 from ..errors import NotPortedError
 from ..index.mappings import (FEATURE_TYPES, FLOAT_TYPES, KEYWORD_TYPES,
-                              NUMERIC_TYPES, Mappings, _parse_date,
-                              coerce_value, ip_to_int)
+                              NUMERIC_TYPES, TEXT_TYPES, Mappings,
+                              _parse_date, coerce_value, ip_to_int)
 from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
 from ..ops import aggs as agg_ops
@@ -96,6 +109,7 @@ from ..ops import positions as pos_ops
 from ..ops import scoring as ops
 from .aggregations import AUTO_LADDER, PIPELINE_KINDS, STATS_FAMILY
 from ..ops.bm25 import LANES
+from ..script import painless_lite as pl
 from . import query_dsl as dsl
 from . import regexp as rx
 
@@ -296,11 +310,15 @@ class LBoosting(LNode):
 class LTermsSet(LNode):
     """terms_set: the child term group (msm 0) counts the matching terms
     of each doc; a doc matches where the count reaches its own minimum,
-    the f32 value of `msm_field` (a doc without one never matches)."""
+    the f32 value of `msm_field` (a doc without one never matches) or of
+    `script` ((source, params), run per doc on the host with
+    `params.num_terms`)."""
 
     field: str = ""
     child: Optional[LTerms] = None
     msm_field: Optional[str] = None
+    script: Optional[tuple] = None
+    num_terms: int = 0
 
 
 @dataclass
@@ -374,6 +392,42 @@ class LDistanceFeature(LNode):
     field: str = ""
     origin: int = 0
     pivot: float = 0.0
+    boost: float = 1.0
+
+
+@dataclass
+class LFuncScore(LNode):
+    """function_score: the child's score combined with its functions'
+    factors (each masked by its filter, in filter context)."""
+
+    child: Optional[LNode] = None
+    functions: List[dsl.ScoreFunction] = dc_field(default_factory=list)
+    fn_filters: List[Optional[LNode]] = dc_field(default_factory=list)
+    score_mode: str = "multiply"
+    boost_mode: str = "multiply"
+    min_score: Optional[float] = None
+    boost: float = 1.0
+
+
+@dataclass
+class LScriptFilter(LNode):
+    """`script` query: the docs where the script's value is nonzero. The
+    AST is a hashable tuple; numeric params are f32 scalars."""
+
+    ast: tuple = ()
+    params: dict = dc_field(default_factory=dict)
+    boost: float = 1.0
+
+
+@dataclass
+class LScriptScore(LNode):
+    """`script_score` query: the script replaces the child's score;
+    `_score` binds to the child's score vector."""
+
+    child: Optional[LNode] = None
+    ast: tuple = ()
+    params: dict = dc_field(default_factory=dict)
+    min_score: Optional[float] = None
     boost: float = 1.0
 
 
@@ -652,12 +706,19 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
         terms = [str(t) for t in q.terms]
         if not terms:
             return LMatchNone()
-        if q.minimum_should_match_script is not None:
-            raise NotPortedError("terms_set [minimum_should_match_script]")
         child = _weighted_terms(field, terms, [1.0] * len(terms), ctx, 0,
                                 "score", q.boost)
+        script = None
+        if q.minimum_should_match_script is not None:
+            src, prm = dsl.parse_script_spec(q.minimum_should_match_script)
+            try:
+                pl.parse(src)
+            except pl.ScriptError as e:
+                raise dsl.QueryParseError(f"[terms_set] bad script: {e}")
+            script = (src, prm or {})
         return LTermsSet(field=field, child=child,
-                         msm_field=q.minimum_should_match_field)
+                         msm_field=q.minimum_should_match_field,
+                         script=script, num_terms=len(terms))
 
     if isinstance(q, dsl.CombinedFieldsQuery):
         return _combined_node(q, ctx)
@@ -731,7 +792,69 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
             f"[distance_feature] field [{q.field}] must be a date or "
             f"geo_point field")
 
+    if isinstance(q, (dsl.QueryStringQuery, dsl.SimpleQueryStringQuery)):
+        return _rewrite_query_string(q, ctx, scoring)
+
+    if isinstance(q, dsl.ScriptQuery):
+        try:
+            ast = pl.validate_device_script(q.source)
+        except pl.ScriptError as e:
+            raise dsl.QueryParseError(f"[script] compile error: {e}")
+        return LScriptFilter(ast=ast, params=q.params or {}, boost=q.boost)
+
+    if isinstance(q, dsl.ScriptScoreQuery):
+        try:
+            ast = pl.validate_device_script(q.source)
+        except pl.ScriptError as e:
+            raise dsl.QueryParseError(f"[script_score] compile error: {e}")
+        return LScriptScore(child=rewrite(q.query or dsl.MatchAllQuery(),
+                                          ctx, scoring),
+                            ast=ast, params=q.params or {},
+                            min_score=q.min_score, boost=q.boost)
+
+    if isinstance(q, dsl.FunctionScoreQuery):
+        child = rewrite(q.query or dsl.MatchAllQuery(), ctx, scoring)
+        fn_filters = [rewrite(f.filter, ctx, False) if f.filter else None
+                      for f in q.functions]
+        for f in q.functions:
+            if f.kind == "script_score":
+                try:
+                    pl.validate_device_script(f.script or "")
+                except pl.ScriptError as e:
+                    raise dsl.QueryParseError(
+                        f"[script_score] compile error: {e}")
+        return LFuncScore(child=child, functions=q.functions,
+                          fn_filters=fn_filters, score_mode=q.score_mode,
+                          boost_mode=q.boost_mode, min_score=q.min_score,
+                          boost=q.boost)
+
     raise NotPortedError(f"query [{type(q).__name__}]")
+
+
+def _rewrite_query_string(q, ctx: ShardContext, scoring: bool) -> LNode:
+    """query_string / simple_query_string: the string's DSL tree
+    (`search/querystring.py`) through this rewrite, so a string serves
+    the plan of the JSON DSL it stands for. `*` (or no field) reads every
+    text field in mapping order (the reference's list also holds
+    `annotated_text`, which the port does not map)."""
+    from . import querystring as qsmod
+    default_fields = q.fields or ([q.default_field]
+                                  if getattr(q, "default_field", None)
+                                  else ["*"])
+    if list(default_fields) == ["*"]:
+        default_fields = [f for f, ft in ctx.mappings.fields.items()
+                          if ft.type in TEXT_TYPES]
+        if not default_fields:
+            default_fields = list(ctx.mappings.fields)[:1] or ["_all"]
+    if isinstance(q, dsl.SimpleQueryStringQuery):
+        tree = qsmod.parse_simple_query_string(q.query, list(default_fields),
+                                               q.default_operator)
+    else:
+        tree = qsmod.parse_query_string(
+            q.query, list(default_fields), q.default_operator,
+            phrase_slop=int(getattr(q, "phrase_slop", 0) or 0))
+    tree.boost = tree.boost * q.boost
+    return rewrite(tree, ctx, scoring)
 
 
 def _rewrite_rank_feature(q: dsl.RankFeatureQuery,
@@ -849,6 +972,8 @@ def can_match(node: LNode, seg: Segment) -> bool:
         # a feature field's CSR lives in postings, a rank_feature column
         # in the numeric columns
         return node.field in seg.postings or node.field in seg.numeric_cols
+    if isinstance(node, LFuncScore):
+        return node.child is None or can_match(node.child, seg)
     return True
 
 
@@ -1362,6 +1487,12 @@ def reference_param_bytes(node: LNode, seg: Segment) -> int:
         t_pad = next_pow2(len(node.terms), floor=1)
         nf = len(node.fields)
         return 4 * t_pad * (nf + 1) + 4 * nf + 8
+    if isinstance(node, LScriptScore):
+        return reference_param_bytes(node.child, seg)
+    if isinstance(node, LFuncScore):
+        return reference_param_bytes(node.child, seg) + sum(
+            reference_param_bytes(f, seg) for f in node.fn_filters
+            if f is not None)
     return 0
 
 
@@ -1534,7 +1665,292 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
         return ops.ScoredMask(
             torch.where(mask, boost * pivot / (pivot + dist), zeros),
             mask.to(torch.float32))
+    if isinstance(node, LFuncScore):
+        return _emit_fnscore(node, seg, ctx, device)
+    if isinstance(node, LScriptFilter):
+        mask = script_filter_mask(node, seg, device) & live
+        return _flag(mask, node.boost)
+    if isinstance(node, LScriptScore):
+        child = emit(node.child, seg, ctx, device)
+        env = script_env(node.ast, node.params, seg, device, child.scores)
+        scores = pl.eval_device(node.ast, env) * dev_f32(node.boost, device)
+        min_score = (node.min_score if node.min_score is not None
+                     else F32_MIN)
+        matched = child.matched & (scores >= dev_f32(min_score, device))
+        return ops.ScoredMask(torch.where(matched, scores, zeros),
+                              matched.to(torch.float32))
     raise NotPortedError(f"plan [{type(node).__name__}] on the general path")
+
+
+# ---------------------------------------------------------------------
+# function_score, script and script_score (the reference computes them in
+# jnp inside its general program: torch ops here)
+# ---------------------------------------------------------------------
+
+F32_MIN = -3.4e38
+
+
+def dev_f32(v, device) -> torch.Tensor:
+    """An f32 scalar on `device` (the reference's `_scalar_f32` param):
+    a divisor or an operand the card's kernels must not fold into a
+    reciprocal of a host scalar."""
+    return torch.tensor(np.float32(v), device=device)
+
+
+def script_param_values(params: dict) -> dict:
+    """The numeric params of a score / filter script as f32 values, in
+    key order (a bool is 0 or 1); any other param is the reference's
+    400."""
+    out = {}
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, bool):
+            v = float(v)
+        if not isinstance(v, (int, float)):
+            raise dsl.QueryParseError(
+                f"script param [{k}] must be numeric in score/filter "
+                f"scripts")
+        out[k] = np.float32(v)
+    return out
+
+
+def script_params_on(params: dict, device) -> dict:
+    """`script_param_values` as f32 scalars on `device`."""
+    return {k: torch.tensor(v, device=device)
+            for k, v in script_param_values(params).items()}
+
+
+def script_env(ast: tuple, params: dict, seg: Segment, device,
+               score: Optional[torch.Tensor]) -> pl.DeviceEnv:
+    """A device script bound to one segment (the reference's
+    `_prepare_script` and `_script_env`): each doc['f'] it reads is the
+    f32 view of the column (`Segment.f32_on`; an epoch-ms date rounds to
+    a multiple of 2^17 ms near 2026), absent where the segment lacks it;
+    its params f32 scalars."""
+    cols, present = {}, {}
+    for f in pl.referenced_doc_fields(ast):
+        col = seg.f32_on(f, device)
+        if col is not None:
+            cols[f], present[f] = col
+    return pl.DeviceEnv(device, cols, present, score,
+                        script_params_on(params, device), seg.ndocs)
+
+
+def script_filter_mask(node: LScriptFilter, seg: Segment,
+                       device) -> torch.Tensor:
+    """bool[ndocs]: where the script's value is nonzero (deletes
+    ignored)."""
+    env = script_env(node.ast, node.params, seg, device, None)
+    return pl.eval_device(node.ast, env) != 0
+
+
+def _parse_time_ms(s) -> float:
+    """'10d' / '3h' / a number (ms) -> milliseconds (a decay's scale and
+    offset on a date field): fractional amounts and weeks."""
+    if isinstance(s, (int, float)):
+        return float(s)
+    mm = re.fullmatch(r"\s*([\d.]+)\s*(ms|s|m|h|d|w)\s*", str(s))
+    if not mm:
+        raise dsl.QueryParseError(f"invalid time value [{s}]")
+    mult = {"ms": 1, "w": 7 * 86_400_000}.get(mm.group(2)) or \
+        _FIXED_MS[mm.group(2)]
+    return float(mm.group(1)) * mult
+
+
+def decay_params(fn: dsl.ScoreFunction, seg: Segment,
+                 ctx: ShardContext) -> tuple:
+    """(field, origin, a, offset, column exists) of a gauss / exp /
+    linear decay (the reference's `_prepare_decay`): origin, scale and
+    offset parsed per field family (a date's origin in epoch ms, "now"
+    or none the current time; its scale and offset time values), and the
+    shape constant `a` (gauss exp(a d^2), exp exp(a d), linear
+    max(0, (a - d) / a)) computed in f64. A geo_point field raises
+    NotPortedError; a malformed value is the reference's 400."""
+    field = ctx.mappings.aliases.get(fn.field, fn.field)
+    ft = ctx.mappings.resolve_field(field)
+    ftype = ft.type if ft is not None else "float"
+    shape = fn.decay_shape
+    if ftype == "geo_point":
+        raise NotPortedError(f"[{shape}] decay on a geo_point field")
+    try:
+        if ftype == "date":
+            origin = (float(time.time() * 1000)
+                      if fn.origin in (None, "now")
+                      else float(_parse_date(fn.origin, ft.date_format
+                                             if ft is not None else None)))
+            scale = _parse_time_ms(fn.scale)
+            offset = _parse_time_ms(fn.offset or 0)
+        else:
+            if fn.origin is None:
+                raise dsl.QueryParseError("[decay] numeric requires [origin]")
+            scale = float(fn.scale)
+            offset = float(fn.offset or 0)
+            origin = float(fn.origin)
+    except (ValueError, TypeError, KeyError) as e:
+        raise dsl.QueryParseError(f"[{shape}] decay on [{field}]: {e}")
+    if scale <= 0:
+        raise dsl.QueryParseError("[decay] scale must be > 0")
+    decay = min(max(float(fn.decay), 1e-12), 1.0 - 1e-12)
+    if shape == "gauss":
+        a = math.log(decay) / (scale * scale)
+    elif shape == "exp":
+        a = math.log(decay) / scale
+    else:
+        a = scale / (1.0 - decay)
+    return field, origin, a, offset, field in seg.numeric_cols
+
+
+def random_score_values(seed: int, nd: int, device) -> torch.Tensor:
+    """f32[nd]: the reference's uint32 hash of each doc index with the
+    seed, over [0, 1): the same steps in i64, each product masked to 32
+    bits (the seed as the reference's int32, then its uint32 bits)."""
+    m32 = 0xFFFFFFFF
+    s32 = int(np.int32(seed)) & m32
+    h = torch.arange(nd, dtype=torch.int64, device=device)
+    h = ((h * 2654435761) & m32) ^ s32
+    h = h ^ (h >> 16)
+    h = (h * 0x45D9F3B) & m32
+    h = h ^ (h >> 16)
+    return h.to(torch.float32) / dev_f32(2.0 ** 32, device)
+
+
+def _emit_fnscore(node: LFuncScore, seg: Segment, ctx: ShardContext,
+                  device) -> ops.ScoredMask:
+    """function_score over one segment, in the reference's order: the
+    child, each function's factor times its weight (where its filter
+    does not match, the score mode's neutral), the factors combined by
+    `score_mode`, then with the child's score by `boost_mode`, times the
+    boost; a doc matches where the child does and its score reaches
+    `min_score`."""
+    nd = seg.ndocs
+    child = emit(node.child, seg, ctx, device)
+    factors = []
+    for fn, filt in zip(node.functions, node.fn_filters):
+        w = dev_f32(fn.weight, device)
+        if fn.kind == "field_value_factor":
+            factor = dev_f32(fn.factor, device)
+            missing = dev_f32(fn.missing if fn.missing is not None else 1.0,
+                              device)
+            col = seg.f32_on(fn.field, device)
+            if col is not None:
+                v = torch.where(col[1], col[0] * factor, missing)
+            else:
+                v = missing.expand(nd)
+            v = apply_modifier(v, fn.modifier, device)
+        elif fn.kind == "random_score":
+            v = random_score_values(fn.seed, nd, device)
+        elif fn.kind == "script_score":
+            ast = pl.parse(fn.script or "")
+            env = script_env(ast, fn.script_params or {}, seg, device,
+                             child.scores)
+            v = pl.eval_device(ast, env)
+        elif fn.kind == "decay":
+            field, origin, a, offset, exists = decay_params(fn, seg, ctx)
+            a_t = dev_f32(a, device)
+            if exists:
+                vals, present = seg.f32_on(field, device)
+                d = torch.abs(vals - dev_f32(origin, device))
+                d = torch.clamp_min(d - dev_f32(offset, device), 0.0)
+                if fn.decay_shape == "gauss":
+                    v = torch.exp(a_t * d * d)
+                elif fn.decay_shape == "exp":
+                    v = torch.exp(a_t * d)
+                else:
+                    v = torch.clamp_min((a_t - d) / a_t, 0.0)
+                # docs without a value don't decay (factor 1)
+                v = torch.where(present, v, 1.0)
+            else:
+                v = torch.ones(nd, dtype=torch.float32, device=device)
+        else:  # weight
+            v = torch.ones(nd, dtype=torch.float32, device=device)
+        v = v * w
+        if filt is not None:
+            fmask = emit(filt, seg, ctx, device).matched
+            v = torch.where(fmask, v, _score_mode_neutral(node.score_mode))
+        factors.append(v)
+    if factors:
+        fac = _combine_factors(factors, node.score_mode, device)
+    else:
+        fac = torch.ones(nd, dtype=torch.float32, device=device)
+    scores = _combine_boost(child.scores, fac, node.boost_mode, device)
+    scores = scores * dev_f32(node.boost, device)
+    min_score = node.min_score if node.min_score is not None else F32_MIN
+    matched = child.matched & (scores >= dev_f32(min_score, device))
+    scores = torch.where(matched, scores, 0.0)
+    return ops.ScoredMask(scores, matched.to(torch.float32))
+
+
+def apply_modifier(v: torch.Tensor, modifier: str, device) -> torch.Tensor:
+    """field_value_factor's modifier (the reference's `_apply_modifier`)."""
+    if modifier == "none":
+        return v
+    if modifier == "log":
+        return torch.log10(torch.clamp_min(v, 1e-9))
+    if modifier == "log1p":
+        return torch.log10(v + 1.0)
+    if modifier == "log2p":
+        return torch.log10(v + 2.0)
+    if modifier == "ln":
+        return torch.log(torch.clamp_min(v, 1e-9))
+    if modifier == "ln1p":
+        return torch.log1p(v)
+    if modifier == "ln2p":
+        return torch.log(v + 2.0)
+    if modifier == "square":
+        return v * v
+    if modifier == "sqrt":
+        return torch.sqrt(torch.clamp_min(v, 0.0))
+    if modifier == "reciprocal":
+        return dev_f32(1.0, device) / torch.clamp_min(v, 1e-9)
+    raise ValueError(f"unknown modifier [{modifier}]")
+
+
+def _score_mode_neutral(mode: str) -> float:
+    return 1.0 if mode == "multiply" else 0.0
+
+
+def _combine_factors(factors: List[torch.Tensor], mode: str,
+                     device) -> torch.Tensor:
+    if mode == "multiply":
+        out = factors[0]
+        for f in factors[1:]:
+            out = out * f
+        return out
+    if mode in ("sum", "avg"):
+        out = factors[0]
+        for f in factors[1:]:
+            out = out + f
+        return out / dev_f32(len(factors), device) if mode == "avg" else out
+    if mode == "max":
+        out = factors[0]
+        for f in factors[1:]:
+            out = torch.maximum(out, f)
+        return out
+    if mode == "min":
+        out = factors[0]
+        for f in factors[1:]:
+            out = torch.minimum(out, f)
+        return out
+    if mode == "first":
+        return factors[0]
+    raise ValueError(f"unknown score_mode [{mode}]")
+
+
+def _combine_boost(score: torch.Tensor, factor: torch.Tensor, mode: str,
+                   device) -> torch.Tensor:
+    if mode == "multiply":
+        return score * factor
+    if mode == "sum":
+        return score + factor
+    if mode == "replace":
+        return factor
+    if mode == "avg":
+        return (score + factor) / dev_f32(2.0, device)
+    if mode == "max":
+        return torch.maximum(score, factor)
+    if mode == "min":
+        return torch.minimum(score, factor)
+    raise ValueError(f"unknown boost_mode [{mode}]")
 
 
 def rank_feature_scores(node: LRankFeature, seg: Segment, device, live,
@@ -1624,15 +2040,41 @@ def knn_scores(node: LKnn, seg: Segment, device) -> tuple:
 def terms_set_need(node: LTermsSet, seg: Segment,
                    device: torch.device) -> torch.Tensor:
     """f32[ndocs]: each doc's minimum count, max(f32 value of the
-    minimum field, 1), inf without a value; cached per segment."""
+    minimum field, 1), inf without a value, or max(the script's value,
+    1): the script runs once when it reads no doc field, else once a doc
+    (deleted docs too) on the host, with `params.num_terms`, as the
+    reference's prepare runs it; cached per segment."""
     def make():
-        col = seg.numeric_cols.get(node.msm_field)
         need = np.full(seg.ndocs, np.inf, np.float32)
-        if col is not None:
-            need[col.present] = col.values[col.present].astype(np.float32)
+        if node.msm_field is not None:
+            col = seg.numeric_cols.get(node.msm_field)
+            if col is not None:
+                need[col.present] = col.values[col.present].astype(
+                    np.float32)
+        else:
+            src, prm = node.script
+            ast = pl.parse(src)
+            variables = {"params": {**prm, "num_terms": node.num_terms}}
+            flds = pl.referenced_doc_fields(ast)
+            if not flds:
+                need[:] = float(pl.execute(ast, variables))
+            else:
+                for d in range(seg.ndocs):
+                    dv = {f: pl.doc_view_for(seg, d, f) for f in flds}
+                    need[d] = float(pl.execute(ast, {**variables,
+                                                     "doc": dv}))
         return torch.from_numpy(np.maximum(need, np.float32(1.0))).to(device)
-    return seg.device_cached(("terms_set_need", node.msm_field), device,
-                             make)
+    return seg.device_cached(("terms_set_need", terms_set_key(node)),
+                             device, make)
+
+
+def terms_set_key(node: LTermsSet) -> tuple:
+    """What a terms_set's minimums read: the minimum field, or the
+    script's source, params and term count."""
+    if node.script is None:
+        return (node.msm_field,)
+    src, prm = node.script
+    return (src, repr(sorted(prm.items())), node.num_terms)
 
 
 def pinned_docs(node: LPinned, seg: Segment) -> Tuple[list, list]:
@@ -2473,6 +2915,9 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
         return ("matrix_stats", fields, tuple(float(np.float32(x))
                                               for x in shift)), out
 
+    if kind == "scripted_metric":
+        # its map script runs per matched doc on the host (executor)
+        return ("scripted",), {"match_mask": match}
     if kind in PIPELINE_KINDS:
         # a pipeline at the root: the reference's prepare refuses it
         raise ValueError(f"cannot prepare aggregation [{kind}]")

@@ -26,7 +26,12 @@ a field sort or several keys); the host then orders every candidate by
 the full sort tuple (`host_sort_values`, the `_id` last), as the
 reference does. Where the primary key ties past a segment's window the
 page is the window's best, not the exact best (the reference's
-approximation). A `search_after` cursor serves every hit strictly after
+approximation). A `_script` sort key is a painless-lite script the host
+runs per doc; as the primary key, each segment hands the host every
+match (its device key is missing everywhere), as the reference does. A
+hit's `script_fields` run on the host at the fetch. A device script's
+evaluation fault in the general program is the reference's 400. A
+`search_after` cursor serves every hit strictly after
 the cursor's full tuple: under several keys the device also keeps the
 docs tied with the cursor's primary value and the host drops those not
 after it. Collapse keeps one candidate per group per segment on the
@@ -55,7 +60,9 @@ reference does; the pipelines that read such a sub run after it
 candidates (the window of the body's rung, 16 docs a segment for a
 size-0 body, as in the reference), and a root `sampler` over several
 segments takes its second pass at one shard-wide score threshold
-(`resample_samplers`).
+(`resample_samplers`). A `scripted_metric` runs its init, map and
+combine scripts per segment on the host over the segment's match
+(`scripted_metric_partial`), its reduce script at the coordinator.
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ import torch
 from ..errors import NotPortedError
 from ..index.engine import Engine
 from ..index.segment import Segment, next_pow2
+from ..script import painless_lite as pl
 from ..utils import deadline as DL
 from . import aggregations as A
 from . import body as B
@@ -318,11 +326,23 @@ class ShardSearcher:
                                             plan.window, self.device)
             if out is not None:
                 return out
-        # the reference's window: the body's need, at least 16, a power
-        # of two
-        k_pad = min(next_pow2(max(plan.order.need, 16)), seg.ndocs_pad)
-        return C.run_segment(plan.lroot, seg, ctx, k_pad, self.device,
-                             plan.aggs, plan.order, plan.named)
+        if plan.order.script_sort:
+            if plan.order.after is not None:
+                raise dsl.QueryParseError("search_after is not supported "
+                                          "with a primary _script sort")
+            # the script's order is the host's: every match of the
+            # segment is a candidate
+            k_pad = seg.ndocs_pad
+        else:
+            # the reference's window: the body's need, at least 16, a
+            # power of two
+            k_pad = min(next_pow2(max(plan.order.need, 16)), seg.ndocs_pad)
+        try:
+            return C.run_segment(plan.lroot, seg, ctx, k_pad, self.device,
+                                 plan.aggs, plan.order, plan.named)
+        except pl.ScriptError as e:
+            # a device script's evaluation fault is the client's (400)
+            raise dsl.QueryParseError(f"script compile error: {e}")
 
     def collect_view_topk(self, result: ShardQueryResult, view,
                           out: dict, order: B.Order) -> None:
@@ -461,6 +481,17 @@ class ShardSearcher:
                 vals = extract_source_values(seg.sources[doc], fname)
                 if vals:
                     flds[fname] = vals
+        if body.get("script_fields"):
+            flds = hit.setdefault("fields", {})
+            for fname, fspec in body["script_fields"].items():
+                src_str, prm = dsl.parse_script_spec(fspec.get("script"))
+                try:
+                    v = pl.run_field_script(src_str, prm, seg, doc,
+                                            score=c.score)
+                except pl.ScriptError as e:
+                    raise dsl.QueryParseError(
+                        f"[script_fields.{fname}]: {e}")
+                flds[fname] = v if isinstance(v, list) else [v]
         if body.get("highlight"):
             hl = self.highlight(seg.sources[doc], body["highlight"],
                                 hl_terms)
@@ -616,6 +647,19 @@ def host_sort_values(specs: List[dict], seg: Segment, doc: int,
         if f == "_doc":
             comp.append(doc)
             raw.append(doc)
+            continue
+        if f == "_script":
+            src_str, prm = dsl.parse_script_spec(spec.get("script"))
+            try:
+                v = pl.run_field_script(src_str, prm, seg, doc, score=score)
+            except pl.ScriptError as e:
+                raise dsl.QueryParseError(f"[_script sort]: {e}")
+            if spec.get("type") == "string":
+                comp.append((0, StrKey(str(v), desc)))
+            else:
+                v = float(v)
+                comp.append((0, -v if desc else v))
+            raw.append(v)
             continue
         col = seg.numeric_cols.get(f)
         if col is not None and col.present[doc]:
@@ -807,6 +851,8 @@ def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
     if out is None:
         return None
     kind = spec[0]
+    if kind == "scripted":
+        return scripted_metric_partial(node, out["match_mask"], seg)
     if kind in ("terms", "sig_terms"):
         _, field, sub_flags = spec
         part = {"buckets": _keyed_buckets(
@@ -994,6 +1040,46 @@ def _significant_text_partial(field: str, out: dict, seg: Segment,
             "bg": {tok: pb.doc_freq(tok) if pb is not None else 0
                    for tok in fg},
             "fg_total": len(docs), "bg_total": seg.live_count}
+
+
+def scripted_metric_partial(node: A.AggNode, mask: np.ndarray,
+                            seg: Segment) -> dict:
+    """One segment's scripted_metric state (the reference's
+    `_scripted_metric_partial`): the init script, the map script over
+    each matched doc in doc order (`doc['f']` read from the segment's
+    columns), the combine script; the agg's `params` under each
+    script's own."""
+    body = node.body
+    sparams = body.get("params", {})
+    state: Dict[str, Any] = {}
+    if body.get("init_script"):
+        src, prm = A.script_spec(body["init_script"], sparams)
+        pl.execute(src, {"state": state, "params": prm})
+    map_src, map_prm = A.script_spec(body.get("map_script", ""), sparams)
+
+    class _Doc(dict):
+        def __init__(self, d):
+            self._d = d
+            super().__init__()
+
+        def __getitem__(self, f):
+            return pl.doc_view_for(seg, self._d, f)
+
+        def get(self, f, default=None):
+            return pl.doc_view_for(seg, self._d, f)
+
+        def containsKey(self, f):  # noqa: N802 (painless API)
+            return not pl.doc_view_for(seg, self._d, f).empty
+
+    for d in np.nonzero(np.asarray(mask)[:seg.ndocs])[0]:
+        pl.execute(map_src, {"state": state, "params": map_prm,
+                             "doc": _Doc(int(d))})
+    if body.get("combine_script"):
+        src, prm = A.script_spec(body["combine_script"], sparams)
+        combined = pl.execute(src, {"state": state, "params": prm})
+    else:
+        combined = state
+    return {"states": [combined]}
 
 
 def reduce_shard_results(shard_results: List[ShardQueryResult],

@@ -27,11 +27,17 @@ Served nodes:
   lists) that its own filter matches;
 - `LRankFeature`: the docs holding its feature (a column: a value);
   `LSparseDot`: the docs holding any of its tokens; `LDistanceFeature`:
-  the docs with a date.
+  the docs with a date;
+- `LScriptFilter`: the docs where the script's value is nonzero, the
+  script evaluated over the segment's f32 columns (`eval_device`);
+  `LScriptScore` and `LFuncScore`: the docs their own emit matches (the
+  child's, cut at `min_score`).
 Any other node raises `NotPortedError`. A mask ignores deletes: every
 consumer ANDs the segment's live mask itself (the general path starts
 each bool from it; the fast path serves no segment with deletes), so a
-delete leaves the cached masks valid.
+delete leaves the cached masks valid (the function_score and
+script_score masks hold the live mask of their first use: a later
+delete only clears docs the consumer's live mask clears too).
 
 Masks are cached per (segment, device) under a structural key made of
 what the reference's mask-cache digest hashes: a term group's rows,
@@ -43,7 +49,9 @@ what its mask reads (a dis_max's children, a boosting's positive side,
 a terms_set's minimum field and term group, a pinned query's docs and
 organic clause, a combined_fields query's weighted fields, rows and
 msm, a kNN node's field, its filter and, on the IVF route, its vector
-and nprobe).
+and nprobe; a script's AST and f32 params; a function_score's child,
+modes, min_score, boost and each function's kind, f32 parameters and
+filter; a terms_set script's source, params and term count).
 """
 
 from __future__ import annotations
@@ -117,7 +125,8 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
     if isinstance(node, C.LBoosting):
         return ("boosting", mask_key(node.positive, seg, ctx))
     if isinstance(node, C.LTermsSet):
-        return ("terms_set", node.msm_field, mask_key(node.child, seg, ctx))
+        return ("terms_set", C.terms_set_key(node),
+                mask_key(node.child, seg, ctx))
     if isinstance(node, C.LPinned):
         return ("pinned", tuple(sorted(set(C.pinned_docs(node, seg)[0]))),
                 None if node.organic is None
@@ -144,7 +153,52 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
                 else tuple(pb.row(t) for t in node.tokens))
     if isinstance(node, C.LDistanceFeature):
         return ("distance_feature", node.field)
+    if isinstance(node, C.LScriptFilter):
+        return ("script", node.ast, _script_params_key(node.params))
+    if isinstance(node, C.LScriptScore):
+        return ("script_score", node.ast, _script_params_key(node.params),
+                _f32_or_min(node.min_score), float(np.float32(node.boost)),
+                mask_key(node.child, seg, ctx))
+    if isinstance(node, C.LFuncScore):
+        return ("function_score", mask_key(node.child, seg, ctx),
+                tuple(_function_key(fn, filt, seg, ctx)
+                      for fn, filt in zip(node.functions, node.fn_filters)),
+                node.score_mode, node.boost_mode,
+                _f32_or_min(node.min_score), float(np.float32(node.boost)))
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
+
+
+def _script_params_key(params: dict) -> tuple:
+    """A score / filter script's params as the f32 values it reads (a
+    non-numeric one is the reference's 400, as the mask would raise)."""
+    return tuple((k, float(v))
+                 for k, v in C.script_param_values(params).items())
+
+
+def _f32_or_min(v) -> float:
+    return float(np.float32(C.F32_MIN if v is None else v))
+
+
+def _function_key(fn, filt, seg, ctx) -> tuple:
+    """One function_score function's key: its kind, f32 weight, what its
+    factor reads (a decay its resolved f32 origin, scale constant and
+    offset) and its filter's key."""
+    if fn.kind == "field_value_factor":
+        what = (fn.field, float(np.float32(fn.factor)),
+                _f32_or_min(1.0 if fn.missing is None else fn.missing),
+                fn.modifier)
+    elif fn.kind == "random_score":
+        what = (int(np.int32(fn.seed)),)
+    elif fn.kind == "script_score":
+        what = (fn.script, _script_params_key(fn.script_params or {}))
+    elif fn.kind == "decay":
+        field, origin, a, offset, exists = C.decay_params(fn, seg, ctx)
+        what = (fn.decay_shape, field, float(np.float32(origin)),
+                float(np.float32(a)), float(np.float32(offset)), exists)
+    else:
+        what = ()
+    return (fn.kind, float(np.float32(fn.weight)), what,
+            None if filt is None else mask_key(filt, seg, ctx))
 
 
 def filter_mask(node: C.LNode, seg, ctx: C.ShardContext,
@@ -252,6 +306,11 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
         col = seg.numeric_on(node.field, device)
         return (torch.zeros(nd, dtype=torch.bool, device=device)
                 if col is None else col[1])
+    if isinstance(node, C.LScriptFilter):
+        return C.script_filter_mask(node, seg, device)
+    if isinstance(node, (C.LScriptScore, C.LFuncScore)):
+        # the min_score cut reads the scores: the node's own emit
+        return C.emit(node, seg, ctx, device).matched
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 
 

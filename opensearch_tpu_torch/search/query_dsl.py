@@ -3,9 +3,12 @@ match_none, term, terms, terms_set, match, multi_match, combined_fields,
 match_bool_prefix, match_phrase, match_phrase_prefix, span_term,
 span_near, intervals, bool, constant_score, boosting, dis_max, pinned,
 wrapper, range, exists, ids, prefix, wildcard, regexp, fuzzy, knn,
-rank_feature, distance_feature, neural_sparse (raw `query_tokens` only)
-and hybrid subset of opensearch_tpu/search/query_dsl.py). A body without a
-query is `match_all`. A clause's `_name` is kept for `matched_queries`; a
+rank_feature, distance_feature, neural_sparse (raw `query_tokens` only),
+hybrid, query_string, simple_query_string, function_score, script and
+script_score subset of opensearch_tpu/search/query_dsl.py). A body
+without a query is `match_all`. A script is painless-lite source with
+its params (`parse_script_spec`); the strings' grammars live in
+`search/querystring.py`. A clause's `_name` is kept for `matched_queries`; a
 `wrapper` is its base64 JSON query, parsed again (its own `boost` and
 `_name` unread, as in the reference). A `hybrid` query keeps its
 sub-queries as raw dicts (each is parsed here to surface a malformed one
@@ -284,6 +287,73 @@ class HybridQuery(Query):
 
     queries: List[dict] = dc_field(default_factory=list)
     fusion: Dict[str, Any] = dc_field(default_factory=dict)
+
+
+@dataclass
+class QueryStringQuery(Query):
+    query: str = ""
+    default_field: Optional[str] = None
+    fields: List[str] = dc_field(default_factory=list)
+    default_operator: str = "or"
+    phrase_slop: int = 0
+
+
+@dataclass
+class SimpleQueryStringQuery(Query):
+    query: str = ""
+    fields: List[str] = dc_field(default_factory=list)
+    default_operator: str = "or"
+
+
+@dataclass
+class ScoreFunction:
+    """One function of a function_score: kind weight | field_value_factor
+    | random_score | script_score | decay (gauss, exp or linear over one
+    field: origin, scale, offset, decay)."""
+
+    kind: str
+    weight: float = 1.0
+    filter: Optional[Query] = None
+    field: Optional[str] = None
+    factor: float = 1.0
+    modifier: str = "none"
+    missing: Optional[float] = None
+    seed: int = 0
+    script: Optional[str] = None   # painless-lite source
+    script_params: Optional[dict] = None
+    decay_shape: Optional[str] = None   # gauss | exp | linear
+    origin: Any = None
+    scale: Any = None
+    offset: Any = None
+    decay: float = 0.5
+
+
+@dataclass
+class FunctionScoreQuery(Query):
+    query: Optional[Query] = None
+    functions: List[ScoreFunction] = dc_field(default_factory=list)
+    score_mode: str = "multiply"   # multiply | sum | avg | max | min | first
+    boost_mode: str = "multiply"   # multiply | sum | replace | avg | max | min
+    max_boost: float = 3.4e38
+    min_score: Optional[float] = None
+
+
+@dataclass
+class ScriptQuery(Query):
+    """`script` query: the docs where the expression is truthy."""
+
+    source: str = ""
+    params: Optional[dict] = None
+
+
+@dataclass
+class ScriptScoreQuery(Query):
+    """`script_score` query: the script replaces the child's score."""
+
+    query: Optional[Query] = None
+    source: str = ""
+    params: Optional[dict] = None
+    min_score: Optional[float] = None
 
 
 def _one_entry(d: dict, what: str) -> Tuple[str, Any]:
@@ -610,6 +680,92 @@ def parse_query(dsl: Optional[dict]) -> Query:
         _common(q, body)
         return q
 
+    if kind == "query_string":
+        q = QueryStringQuery(query=body["query"],
+                             default_field=body.get("default_field"),
+                             fields=list(body.get("fields", [])),
+                             default_operator=str(body.get(
+                                 "default_operator", "or")).lower(),
+                             phrase_slop=int(body.get("phrase_slop", 0)))
+        _common(q, body)
+        return q
+
+    if kind == "simple_query_string":
+        q = SimpleQueryStringQuery(query=body["query"],
+                                   fields=list(body.get("fields", [])),
+                                   default_operator=str(body.get(
+                                       "default_operator", "or")).lower())
+        _common(q, body)
+        return q
+
+    if kind == "function_score":
+        inner = (parse_query(body.get("query")) if body.get("query")
+                 else MatchAllQuery())
+        functions = []
+        raw_fns = body.get("functions", [])
+        if not raw_fns:  # single-function shorthand
+            raw_fns = [{k: v for k, v in body.items()
+                        if k in ("weight", "field_value_factor",
+                                 "random_score", "script_score", "gauss",
+                                 "exp", "linear")}]
+        for fn in raw_fns:
+            filt = parse_query(fn["filter"]) if "filter" in fn else None
+            shape = next((s for s in ("gauss", "exp", "linear") if s in fn),
+                         None)
+            if shape is not None:
+                spec = dict(fn[shape])
+                spec.pop("multi_value_mode", None)
+                if len(spec) != 1:
+                    raise QueryParseError(
+                        f"[{shape}] decay needs exactly one field")
+                dfield, dspec = next(iter(spec.items()))
+                if "scale" not in dspec:
+                    raise QueryParseError(f"[{shape}] requires [scale]")
+                functions.append(ScoreFunction(
+                    "decay", fn.get("weight", 1.0), filt, dfield,
+                    decay_shape=shape, origin=dspec.get("origin"),
+                    scale=dspec["scale"], offset=dspec.get("offset", 0),
+                    decay=float(dspec.get("decay", 0.5))))
+            elif "field_value_factor" in fn:
+                fv = fn["field_value_factor"]
+                functions.append(ScoreFunction(
+                    "field_value_factor", fn.get("weight", 1.0), filt,
+                    fv["field"], fv.get("factor", 1.0),
+                    fv.get("modifier", "none"), fv.get("missing")))
+            elif "random_score" in fn:
+                functions.append(ScoreFunction(
+                    "random_score", fn.get("weight", 1.0), filt,
+                    seed=int(fn["random_score"].get("seed", 0))))
+            elif "script_score" in fn:
+                src, prm = parse_script_spec(
+                    fn["script_score"].get("script"))
+                functions.append(ScoreFunction(
+                    "script_score", fn.get("weight", 1.0), filt, script=src,
+                    script_params=prm))
+            elif "weight" in fn:
+                functions.append(ScoreFunction("weight", float(fn["weight"]),
+                                               filt))
+        q = FunctionScoreQuery(query=inner, functions=functions,
+                               score_mode=body.get("score_mode", "multiply"),
+                               boost_mode=body.get("boost_mode", "multiply"),
+                               min_score=body.get("min_score"))
+        _common(q, body)
+        return q
+
+    if kind == "script":
+        src, prm = parse_script_spec(body.get("script"))
+        q = ScriptQuery(source=src, params=prm)
+        _common(q, body)
+        return q
+
+    if kind == "script_score":
+        src, prm = parse_script_spec(body.get("script"))
+        q = ScriptScoreQuery(query=parse_query(body.get("query")),
+                             source=src, params=prm,
+                             min_score=body.get("min_score"))
+        _common(q, body)
+        return q
+
     if kind in REFERENCE_KINDS:
         raise NotPortedError(f"query [{kind}]")
     raise QueryParseError(f"unknown query [{kind}]")
@@ -667,11 +823,9 @@ def parse_fusion_spec(spec, n_sub: int) -> Dict[str, Any]:
 # `parse_query`); any kind outside them and the port's is unknown there too
 REFERENCE_KINDS = frozenset((
     "span_or", "span_not", "span_first", "span_containing", "span_within",
-    "span_multi", "field_masking_span", "query_string",
-    "simple_query_string", "geo_distance", "geo_bounding_box",
-    "geo_polygon", "geo_shape", "more_like_this",
-    "function_score", "script", "script_score", "nested",
-    "has_child", "has_parent", "parent_id", "percolate"))
+    "span_multi", "field_masking_span", "geo_distance",
+    "geo_bounding_box", "geo_polygon", "geo_shape", "more_like_this",
+    "nested", "has_child", "has_parent", "parent_id", "percolate"))
 
 
 _INTERVAL_RULES = ("match", "prefix", "wildcard", "fuzzy", "all_of",
@@ -715,6 +869,22 @@ def parse_interval_rule(spec: dict) -> IntervalRule:
         rule.filter_kind = fk[0]
         parse_interval_rule(filt[fk[0]])
     return rule
+
+
+def parse_script_spec(spec) -> Tuple[str, dict]:
+    """{"source": ..., "params": ...} | "inline src" -> (source, params)
+    (OpenSearch's Script.parse; `lang` is accepted and ignored:
+    painless-lite is the only engine)."""
+    if spec is None:
+        raise QueryParseError("missing required [script]")
+    if isinstance(spec, str):
+        return spec, {}
+    if isinstance(spec, dict):
+        src = spec.get("source", spec.get("inline"))
+        if not isinstance(src, str):
+            raise QueryParseError("script requires a [source] string")
+        return src, dict(spec.get("params") or {})
+    raise QueryParseError("malformed [script]")
 
 
 def parse_minimum_should_match(spec: Optional[str], n_optional: int) -> int:

@@ -264,12 +264,12 @@ def test_score_term_group_matches_reference(clients):
      "span_or"),
     ({"query": {"range": {"body": {"gte": 1}}}}, "range"),
     ({"query": {"match": {"body": "the"}},
-      "aggs": {"a": {"scripted_metric": {}}}}, "aggs"),
+      "aggs": {"a": {"geo_bounds": {"field": "loc"}}}}, "aggs"),
     ({"query": {"match_all": {}}, "sort": [{"_geo_distance": {
         "loc": [0.0, 0.0]}}]}, "_geo_distance"),
     ({"query": {"match": {"body": "the"}}, "rescore": {
         "window_size": 5, "query": {"rescore_query": {
-            "function_score": {"query": {"match_all": {}}}}}}},
+            "span_or": {"clauses": [{"span_term": {"body": "the"}}]}}}}},
      "rescore"),
 ])
 def test_unported_shapes_raise(clients, body, names):
@@ -400,6 +400,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                           '_name': 'm'}},\n"
         "          {'combined_fields': {'query': 'hello', 'fields': ['body']}}):\n"
         "    assert c.search('t', {'query': q})['hits']['total']['value'] == 1\n"
+        "import opensearch_tpu_torch.script.painless_lite\n"
+        "import opensearch_tpu_torch.search.querystring\n"
+        "for q in ({'query_string': {'query': 'body:hel* AND n:[1 TO 9]'}},\n"
+        "          {'simple_query_string': {'query': 'hello -bye'}},\n"
+        "          {'function_score': {'query': {'match': {'body': 'hello'}},\n"
+        "              'gauss': {'n': {'origin': 3, 'scale': 2}}}},\n"
+        "          {'script_score': {'query': {'match_all': {}},\n"
+        "              'script': 'doc[\"n\"].value * 2'}},\n"
+        "          {'bool': {'filter': [{'script': {'script': {\n"
+        "              'source': 'doc[\"n\"].value > params.p',\n"
+        "              'params': {'p': 1}}}}]}}):\n"
+        "    assert c.search('t', {'query': q})['hits']['total']['value'] == 1\n"
+        "c.update('t', '1', {'script': 'ctx._source.n += 1'})\n"
         "for q in ({'knn': {'e': {'vector': [1.0, 2.0], 'exact': True}}},\n"
         "          {'hybrid': {'queries': [{'match': {'body': 'hello'}},\n"
         "                                  {'knn': {'e': {'vector': [1.0, 0.5],\n"
@@ -457,8 +470,9 @@ def test_unknown_query_kind_is_a_400_and_an_msearch_entry(clients):
     assert got[0] == want[0] == {"error": {
         "type": "ApiError", "reason": "unknown query [bogus]"}}
     assert_same_response(got[1], want[1])
-    with pytest.raises(NotPortedError, match=r"query \[query_string\]"):
-        port.search("t", {"query": {"query_string": {"query": "the"}}})
+    with pytest.raises(NotPortedError, match=r"query \[more_like_this\]"):
+        port.search("t", {"query": {"more_like_this": {
+            "fields": ["body"], "like": "the"}}})
 
 
 @pytest.mark.parametrize("call", ["search", "msearch", "get", "index",

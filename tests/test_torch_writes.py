@@ -14,7 +14,7 @@ import pytest
 import chip_smoke
 from opensearch_tpu.rest.client import ApiError as RefApiError
 from opensearch_tpu.rest.client import RestClient as RefClient
-from opensearch_tpu_torch import ApiError, NotPortedError, RestClient
+from opensearch_tpu_torch import ApiError, RestClient
 from tests.test_torch_slice import assert_same_response
 
 jax.config.update("jax_platforms", "cpu")
@@ -150,12 +150,23 @@ def test_write_calls_match_reference(case, monkeypatch):
      "scripted_upsert": True},
 ])
 def test_update_scripts_are_not_ported(body):
-    port = seed(RestClient(device="cpu"))
+    """Update scripts serve the reference's responses (they were not
+    ported before painless-lite was): a scripted update and a scripted
+    upsert, through `update` and through `bulk`."""
+    ref, port = seed(RefClient()), seed(RestClient(device="cpu"))
     doc_id = "3" if "upsert" not in body else "absent"
-    with pytest.raises(NotPortedError, match="update script"):
-        port.update("w", doc_id, body)
-    with pytest.raises(NotPortedError, match="update script"):
-        port.bulk([{"update": {"_index": "w", "_id": doc_id}}, body])
+    for c in (ref, port):
+        c.update("w", doc_id, body)
+    assert port.get("w", doc_id)["_source"] == \
+        ref.get("w", doc_id)["_source"]
+    lines = [{"update": {"_index": "w", "_id": doc_id}}, body]
+    got, want = port.bulk(lines), ref.bulk(lines)
+    assert [{k: it["update"].get(k) for k in ("_id", "result", "status")}
+            for it in got["items"]] == [
+        {k: it["update"].get(k) for k in ("_id", "result", "status")}
+        for it in want["items"]]
+    assert port.get("w", doc_id)["_source"] == \
+        ref.get("w", doc_id)["_source"]
 
 
 def test_flush_and_recovery_serve_equal_responses(tmp_path, monkeypatch):
