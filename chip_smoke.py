@@ -8,7 +8,7 @@
                           [--compound-queries C] [--context-queries X]
                           [--longtail-queries L] [--vector-queries V]
                           [--sparse-queries W] [--field-queries F]
-                          [--seed S] [--stop-after N]
+                          [--geo-queries Z] [--seed S] [--stop-after N]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -236,6 +236,29 @@ Phases, each of which fails the script when it fails:
      took, the phase's seconds, device bytes and host RSS; after phase 8,
      one body of (a), (b), (c) and (e) on the merged segment (title_en's
      rows against the live passages');
+ 19. (run after 18, before 8) query strings, function_score and scripts
+     over phase 18's end state (SC_QUERIES bodies a class; see
+     phase_scripts_msmarco);
+ 20. (run after 19, before 8) geo and range fields over phase 19's end
+     state: `location` (geo_point: 1,000 cities uniform over lat
+     [-60, 70] and lon [-180, 180), each corpus passage at a city picked
+     by Zipf(1.1) plus a 0.2-degree Gaussian offset, 2% without one) and
+     `valid` (date_range: a start uniform over 2025, a lognormal 1-90
+     days, 5% without one) drawn by bench_corpus.geo_columns from
+     --seed and attached to the corpus segment; --geo-queries bodies a
+     class: (a) a 2-term match with a 25 km geo_distance filter around
+     one of the 10 largest cities, (b) a geo_bounding_box sorted by
+     _geo_distance, size 20, (c) a 6-vertex geo_polygon (or a geo_shape
+     polygon `within`) in a bool filter with the match, (d) a gauss on
+     location over the match (or a distance_feature should), (e) size 0
+     under a match: geohash_grid precision 5 size 100 with a
+     geo_centroid sub, geo_bounds, geo_distance rings, (f) a range on
+     valid by relation in a bool filter with the match; every page
+     against GeoOracle (the docs within 1e-5 of a radius counted
+     apart), one body a class card == CPU, the routes, bodies/s,
+     p50/p99, the first body, the grid cells' seconds, device bytes and
+     host RSS; after phase 8, one body of (a), (b), (e) and (f) on the
+     merged segment (the columns against the live passages');
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 8 of phase 5's match bodies on the segments with deletes,
@@ -270,15 +293,21 @@ Phases, each of which fails the script when it fails:
      icu_collation_keyword, store / copy_to / null_value and a dynamic
      template; its bodies and indices.analyze calls card == CPU (agg
      sums within 1e-4 relative) before and after a forcemerge, pages
-     against a numpy brute force.
+     against a numpy brute force. Phase 4 last runs an index of every new
+     family of phase 20 on both (phase_geo_small): 1,200 docs with the six
+     range types, a flat_object, an annotated_text, a geo_point in each
+     accepted form and a geo_shape of each kind, the relations, paths,
+     annotations, geo queries, sort, decays, aggs and an indexed_shape
+     card == CPU before and after a flush and a recovery (equal to the
+     first pages) and a forcemerge.
 Every timed kernel reports device ms (the card's time alone: calls queued
 behind a sleep kernel, `device_ms`) and call ms (events around one whole
 call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
 one with phase 11's, one with phase 12's, one with phase 13's, one with
 phase 14's, one with phase 15's, one with phase 16's, one with phase
-17's, one with phase 18's, a line with the kernels' numbers and, last,
-the device line.
+17's, one with phase 18's, one with phase 19's, one with phase 20's, a
+line with the kernels' numbers and, last, the device line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -300,6 +329,8 @@ from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+T_IMPORTED = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
 NDOCS_MSMARCO = 8_800_000
@@ -1605,44 +1636,48 @@ def cpu_twin(seg):
 
 
 class HostDraws:
-    """Phase 5's host draws (the body's token keys, the title corpus, the
-    guardrail and aggregation columns: numpy, from their seeds) on a
-    daemon thread started before phase 1, so they run beside phases 1-4
-    (numpy's draws release the interpreter lock); `get()` waits for them
-    and raises what the thread raised."""
+    """Phase 5's host draws (the body's token draws, seed 0; the guardrail
+    columns, seed 3; the aggregation columns, seed 4; the title corpus,
+    seed 2: numpy, each from its own generator) on a daemon thread each,
+    started before phase 1, so they run beside phases 1-4 and beside each
+    other (numpy's draws release the interpreter lock); each array is
+    the one a single thread would draw. `get()` waits for them and
+    raises what a thread raised."""
 
     def __init__(self, ndocs: int):
         import threading
-        self.ndocs = ndocs
-        self.out = self.err = None
-        self.t0 = time.perf_counter()
-        self.thread = threading.Thread(target=self._run, daemon=True)
-        self.thread.start()
-
-    def _run(self) -> None:
         from opensearch_tpu_torch import bench_corpus as bc
+        self.ndocs = ndocs
+        self.out, self.secs, self.err = {}, {}, None
+        jobs = {"tokens": bc.corpus_draws, "columns": bc.guardrail_columns,
+                "aggcols": bc.agg_columns, "title": bc.build_title_corpus}
+        self.threads = [threading.Thread(target=self._run, args=(k, fn),
+                                         daemon=True)
+                        for k, fn in jobs.items()]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, name: str, fn) -> None:
         try:
             t0 = time.perf_counter()
-            keys = bc.corpus_keys(self.ndocs)
-            columns = bc.guardrail_columns(self.ndocs)
-            aggcols = bc.agg_columns(self.ndocs)
-            t1 = time.perf_counter()
-            title = bc.build_title_corpus(self.ndocs)
-            self.out = (keys, columns, aggcols, title, t1 - t0,
-                        time.perf_counter() - t1)
+            self.out[name] = fn(self.ndocs)
+            self.secs[name] = time.perf_counter() - t0
         except BaseException as e:     # re-raised by get()
             self.err = e
 
     def get(self) -> tuple:
-        """The draws, once: this object lets go of them (the keys alone
-        are 4.2 GB at 8.8M passages)."""
+        """(token draws, columns, aggcols, title, the token draws'
+        seconds, title's seconds), once: this object lets go of them (the
+        token draws alone are 8.5 GB at 8.8M passages)."""
         t0 = time.perf_counter()
-        self.thread.join()
+        for t in self.threads:
+            t.join()
         if self.err is not None:
             raise self.err
         self.wait_s = time.perf_counter() - t0
         out, self.out = self.out, None
-        return out
+        return (out["tokens"], out["columns"], out["aggcols"], out["title"],
+                self.secs["tokens"], self.secs["title"])
 
 
 def phase_msmarco(ndocs: int, nq: int, draws: HostDraws = None) -> dict:
@@ -1653,14 +1688,18 @@ def phase_msmarco(ndocs: int, nq: int, draws: HostDraws = None) -> dict:
     from opensearch_tpu_torch.search import query_dsl as dsl
 
     draws = draws or HostDraws(ndocs)
-    keys, columns, aggcols, title, t_keys, t_title = draws.get()
+    tokens, columns, aggcols, title, t_keys, t_title = draws.get()
+    draws_wait_s = draws.wait_s
+    rss_draws = rss_bytes()[0]
     t0 = time.perf_counter()
-    corpus = bc.build_corpus(ndocs, device="cuda", keys=keys)
-    del keys
+    corpus = bc.build_corpus(ndocs, device="cuda", draws=tokens)
+    del tokens
     t_corpus = t_keys + time.perf_counter() - t0
-    log(f"  host draws (token keys, title, columns) {t_keys + t_title:.1f}s "
-        f"on a thread beside phases 1-4; phase 5 waited {draws.wait_s:.1f}s "
-        f"for them")
+    log(f"  host draws (tokens {t_keys:.1f}s, title {t_title:.1f}s, "
+        f"columns {draws.secs['columns'] + draws.secs['aggcols']:.1f}s) on "
+        f"a thread each beside phases 1-4; phase 5 waited "
+        f"{draws.wait_s:.1f}s for them; host RSS {rss_draws} with them "
+        f"in hand")
     client = RestClient(device="cuda")
     dev = client.device
     t1 = time.perf_counter()
@@ -1864,7 +1903,7 @@ def phase_msmarco(ndocs: int, nq: int, draws: HostDraws = None) -> dict:
             "max_abs_err": worst, "b1": b1, "b2": b2, "client": client,
             "seg": seg, "corpus": corpus, "columns": columns,
             "title": title, "aggs": aggcols, "a_docs": a_docs,
-            "bodies": bodies,
+            "bodies": bodies, "draws_wait_s": draws_wait_s,
             "body_terms": [t for i in range(nq // 2)
                            for t in (list(q2[i][:2]), list(q6[i]))]}
 
@@ -5901,8 +5940,8 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
         f"title positions {split['positions_s']:.2f}s "
         f"({len(merged.postings['title'].positions)} positions) + "
         f"quantize {split['quantize_s']:.2f}s + vectors "
-        f"{split['vectors_s']:.2f}s; then aligned layout + heads "
-        f"{t_align:.2f}s")
+        f"{split['vectors_s']:.2f}s + geo {split.get('geo_s', 0.0):.2f}s; "
+        f"then aligned layout + heads {t_align:.2f}s")
     log(f"  device bytes: before the merge {bytes_before}, after it "
         f"{bytes_after} (the replaced segments' state released just before "
         f"it), "
@@ -9425,24 +9464,38 @@ def run_ft_class(client, name: str, items, oracle: FtOracle, sums,
                  cpu=None, label: str = "") -> dict:
     """One class body by body through RestClient.search (the counts set
     to 0 just before), each page against the brute force, the first body
-    on the card against the CPU twin: -> the class's numbers."""
+    on the card against the CPU twin; the device bytes after each body,
+    which past the first may grow by no more than the filter-mask
+    cache's masks on the card, itself held to its byte bound: -> the
+    class's numbers."""
+    import torch
     from opensearch_tpu_torch.ops import bm25
     from opensearch_tpu_torch.search import compiler as C
-    from opensearch_tpu_torch.search import fastpath, impactpath
+    from opensearch_tpu_torch.search import fastpath, filters, impactpath
     bodies = [b for b, _s in items]
-    sync(client.device)
+    dev = client.device
+    sync(dev)
     impactpath.reset_stats()
     fastpath.reset_stats()
     C.reset_stats()
     bm25.reset_counts()
-    lat, resps = [], []
+    lat, resps, dev_bytes, mask_bytes = [], [], [], []
     t0 = time.perf_counter()
     for b in bodies:
         t1 = time.perf_counter()
         resps.append(client.search("bench", b))
         lat.append((time.perf_counter() - t1) * 1e3)
-    sync(client.device)
+        dev_bytes.append(torch.cuda.memory_allocated(dev))
+        mask_bytes.append(filters.mask_cache_stats(dev)["device_bytes"])
+    sync(dev)
     wall = time.perf_counter() - t0
+    stats = filters.mask_cache_stats()
+    grew = (dev_bytes[-1] - dev_bytes[0]) - (mask_bytes[-1] - mask_bytes[0])
+    if stats["bytes"] > stats["max_bytes"] or grew > (1 << 20):
+        raise AssertionError(
+            f"phase 20 {name}{label}: device bytes after each body "
+            f"{dev_bytes}, the mask cache's on the card {mask_bytes}, its "
+            f"bytes {stats['bytes']} of {stats['max_bytes']}")
     counts = {**{k: bm25.COUNTS[k] for k in ("launches", "impact_launches",
                                              "bool_launches",
                                              "plain_calls")},
@@ -10056,6 +10109,830 @@ def phase_scripts_merged(big: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 20: geo_point, geo_shape and the range family
+# ---------------------------------------------------------------------
+
+GEO_QUERIES = 4        # phase 20's bodies a class
+GEO_RTOL = 1e-5        # f32 haversine: another libm than numpy's
+CENTROID_RTOL = 1e-6   # geo_centroid's f32 sums in another order
+GEO_MAPPING = {"properties": {"location": {"type": "geo_point"},
+                              "valid": {"type": "date_range"}}}
+GEO_RINGS_KM = ((None, 10), (10, 50), (50, 200))
+DEG32 = np.float32(math.pi / 180.0)
+
+
+def geo_attach(big: dict, seed: int) -> dict:
+    """Phase 20's fields attached to the corpus segment: `location` (a
+    GeoColumn) and `valid` (its `valid#lo` / `valid#hi` columns) drawn by
+    bench_corpus.geo_columns from `seed`, the mapping put: -> the draw's
+    seconds, the host bytes and the arrays."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    from opensearch_tpu_torch.index.segment import GeoColumn, NumericColumn
+    client, seg = big["client"], big["seg"]
+    t0 = time.perf_counter()
+    g = bc.geo_columns(seg.ndocs, seed)
+    t_draw = time.perf_counter() - t0
+    client.indices.put_mapping("bench", GEO_MAPPING)
+    seg.geo_cols["location"] = GeoColumn("location", g["lat"], g["lon"],
+                                         g["present"])
+    for side in ("lo", "hi"):
+        seg.numeric_cols[f"valid#{side}"] = NumericColumn(
+            f"valid#{side}", "int", g[f"valid_{side}"], g["valid_present"])
+    nbytes = sum(g[k].nbytes for k in ("lat", "lon", "present", "valid_lo",
+                                       "valid_hi", "valid_present"))
+    return {"draw_s": t_draw, "host_bytes": int(nbytes), "arrays": g}
+
+
+def haversine32(lat, lon, olat: float, olon: float) -> np.ndarray:
+    """The reference's f32 haversine meters of f32 points to an origin
+    rounded to f32, numpy f32 ops in its order (another libm than the
+    card's: GEO_RTOL)."""
+    f32 = np.float32
+    p1 = lat * DEG32
+    p2 = f32(olat) * DEG32
+    dphi = p2 - p1
+    dlmb = (f32(olon) - lon) * DEG32
+    s1, s2 = np.sin(dphi / f32(2)), np.sin(dlmb / f32(2))
+    a = s1 * s1 + np.cos(p1) * np.cos(p2) * (s2 * s2)
+    return f32(2 * 6371008.8) * np.arcsin(np.sqrt(np.clip(a, f32(0), f32(1))))
+
+
+def haversine64(lat, lon, olat: float, olon: float) -> np.ndarray:
+    """f64 haversine meters of the f32 points (the host sort value)."""
+    p1, p2 = np.radians(lat.astype(np.float64)), math.radians(olat)
+    dl = np.radians(olon - lon.astype(np.float64))
+    a = (np.sin((p2 - p1) / 2) ** 2
+         + np.cos(p1) * math.cos(p2) * np.sin(dl / 2) ** 2)
+    return 2 * 6371008.8 * np.arcsin(np.sqrt(np.minimum(a, 1.0)))
+
+
+class GeoOracle:
+    """Phase 20's brute force over its own arrays (corpus docs 0..n0-1;
+    the docs indexed later hold neither field) and NumpyIndex's live and
+    counted docs: BM25 by `NumpyIndex.group`, the reference's f32
+    haversine, box and ray-cast, the polygon relation in f64, the range
+    relations on the i64 columns, the geohash cells in f64."""
+
+    def __init__(self, g: dict, ix):
+        self.g, self.ix = g, ix
+        self.n0 = len(g["lat"])
+
+    def pad(self, v, fill) -> np.ndarray:
+        out = np.full(self.ix.n, fill, v.dtype)
+        out[:self.n0] = v
+        return out
+
+    def has(self) -> np.ndarray:
+        return self.pad(self.g["present"], False)
+
+    def dist(self, olat: float, olon: float, docs) -> np.ndarray:
+        """f32[n]: the reference's f32 distance of each of `docs` (global
+        ids) with a point, +inf elsewhere."""
+        out = np.full(self.ix.n, np.float32(np.inf), np.float32)
+        d = docs[(docs < self.n0)]
+        d = d[self.g["present"][d]]
+        out[d] = haversine32(self.g["lat"][d], self.g["lon"][d], olat, olon)
+        return out
+
+    def band(self, olat: float, olon: float, radii, docs) -> np.ndarray:
+        """The docs of `docs` whose f64 distance lies within GEO_RTOL of a
+        radius: the f32 haversines of the card and of numpy may decide
+        them apart."""
+        out = np.zeros(self.ix.n, bool)
+        d = docs[(docs < self.n0)]
+        d = d[self.g["present"][d]]
+        d64 = haversine64(self.g["lat"][d], self.g["lon"][d], olat, olon)
+        for r in radii:
+            out[d[np.abs(d64 - r) <= GEO_RTOL * r]] = True
+        return out
+
+    def box(self, top, left, bottom, right) -> np.ndarray:
+        f32 = np.float32
+        lat, lon = self.g["lat"], self.g["lon"]
+        m = ((lat <= f32(top)) & (lat >= f32(bottom)) & (lon >= f32(left))
+             & (lon <= f32(right)) & self.g["present"])
+        return self.pad(m, False)
+
+    def ray_cast(self, lats, lons) -> np.ndarray:
+        """geo_polygon: f32 crossings over the ring closed by its first
+        vertex, one rounding per op (the port's)."""
+        vlat = np.asarray(list(lats) + [lats[0]], np.float32)
+        vlon = np.asarray(list(lons) + [lons[0]], np.float32)
+        cand = np.flatnonzero(self.g["present"]
+                              & (self.g["lat"] >= vlat.min())
+                              & (self.g["lat"] <= vlat.max()))
+        y, x = self.g["lat"][cand][:, None], self.g["lon"][cand][:, None]
+        y1, y2, x1, x2 = vlat[:-1], vlat[1:], vlon[:-1], vlon[1:]
+        spans = ((y1 <= y) & (y < y2)) | ((y2 <= y) & (y < y1))
+        denom = np.where(y2 == y1, np.float32(1e-30), y2 - y1)
+        xin = x1 + (y - y1) / denom * (x2 - x1)
+        m = np.zeros(self.n0, bool)
+        m[cand] = (spans & (x < xin)).sum(1) % 2 == 1
+        return self.pad(m, False)
+
+    def within_ring(self, lats, lons) -> tuple:
+        """geo_shape `within` a polygon on the points: the f64 ray-cast
+        or on an edge (1e-9 degrees); -> (mask, docs within 1e-7 degrees
+        of an edge, which a relation's tolerance may decide)."""
+        vx = np.asarray(lons, np.float64)
+        vy = np.asarray(lats, np.float64)
+        x = self.g["lon"].astype(np.float64)[:, None]
+        y = self.g["lat"].astype(np.float64)[:, None]
+        cand = np.flatnonzero(self.g["present"] & (y[:, 0] >= vy.min() - 1)
+                              & (y[:, 0] <= vy.max() + 1))
+        x, y = x[cand], y[cand]
+        x1, y1 = vx, vy
+        x2, y2 = np.roll(vx, -1), np.roll(vy, -1)
+        spans = ((y1 <= y) & (y < y2)) | ((y2 <= y) & (y < y1))
+        denom = np.where(y2 == y1, 1e-300, y2 - y1)
+        inside = (spans & (x < x1 + (y - y1) / denom * (x2 - x1))).sum(1) % 2
+        ex, ey = x2 - x1, y2 - y1
+        ln = np.sqrt(ex * ex + ey * ey)
+        t = np.clip(((x - x1) * ex + (y - y1) * ey) / (ln * ln), 0, 1)
+        off = np.hypot(x - (x1 + t * ex), y - (y1 + t * ey)).min(1)
+        m = np.zeros(self.n0, bool)
+        near = np.zeros(self.n0, bool)
+        m[cand] = (inside == 1) | (off <= 1e-9)
+        near[cand] = off <= 1e-7
+        return self.pad(m, False), self.pad(near, False)
+
+    def relation(self, rel: str, a: int, b: int) -> np.ndarray:
+        lo, hi = self.g["valid_lo"], self.g["valid_hi"]
+        if rel == "within":
+            m = (lo >= a) & (hi <= b)
+        elif rel == "contains":
+            m = (lo <= a) & (hi >= b)
+        else:
+            m = (lo <= b) & (hi >= a)
+        return self.pad(m & self.g["valid_present"], False)
+
+    def geohash(self, docs: np.ndarray, precision: int) -> np.ndarray:
+        """i64: the geohash cell code of each corpus doc of `docs` (f64 of
+        its f32 point, the bits interleaved lon first)."""
+        nbits = 5 * precision
+        lonb, latb = (nbits + 1) // 2, nbits // 2
+        lat = self.g["lat"][docs].astype(np.float64)
+        lon = self.g["lon"][docs].astype(np.float64)
+        li = np.clip(np.floor((lon + 180.0) / 360.0 * (1 << lonb)), 0,
+                     (1 << lonb) - 1).astype(np.int64)
+        la = np.clip(np.floor((lat + 90.0) / 180.0 * (1 << latb)), 0,
+                     (1 << latb) - 1).astype(np.int64)
+        code = np.zeros(len(docs), np.int64)
+        for bit in range(nbits):
+            src, k = ((li, lonb - 1 - bit // 2) if bit % 2 == 0
+                      else (la, latb - 1 - bit // 2))
+            code = (code << 1) | ((src >> k) & 1)
+        return code
+
+
+def geohash_str(code: int, precision: int) -> str:
+    b32 = "0123456789bcdefghjkmnpqrstuvwxyz"
+    return "".join(b32[(code >> (5 * (precision - 1 - i))) & 31]
+                   for i in range(precision))
+
+
+def geohash_cell_box(cell: str) -> tuple:
+    """(lat lo, lat hi, lon lo, lon hi) of a geohash cell."""
+    box = [-90.0, 90.0, -180.0, 180.0]
+    is_lon = True
+    for ch in cell:
+        bits = "0123456789bcdefghjkmnpqrstuvwxyz".index(ch)
+        for m in (16, 8, 4, 2, 1):
+            j = 2 if is_lon else 0
+            mid = (box[j] + box[j + 1]) / 2
+            box[j if bits & m else j + 1] = mid
+            is_lon = not is_lon
+    return tuple(box)
+
+
+def geo_classes(big: dict, g: dict, n: int, rng) -> dict:
+    """`n` bodies a class: (a) a store locator (a 2-term match, a 25 km
+    geo_distance filter around one of the 10 largest cities), (b) a map
+    viewport (a geo_bounding_box around a city, sorted by `_geo_distance`
+    from its centre, size 20), (c) a delivery zone (a 6-vertex
+    geo_polygon, or half the bodies a geo_shape polygon `within` on
+    location, in a bool filter with the match), (d) a "near me" boost (a
+    gauss on location, scale 10 km, offset 2 km, over the match; half the
+    bodies a distance_feature should), (e) a map panel (size 0 under the
+    match: geohash_grid precision 5 size 100 with a geo_centroid sub,
+    geo_bounds, geo_distance rings 0-10, 10-50, 50-200 km), (f)
+    availability (a `range` on valid, intersects / within /
+    contains, in a bool filter with the match): -> {class: [(body,
+    spec)]}."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    terms = big["body_terms"]
+    clat, clon = g["city_lat"], g["city_lon"]
+    # cities away from the antimeridian (a box there would wrap)
+    inland = [k for k in range(len(clat)) if abs(clon[k]) < 170.0]
+    out = {k: [] for k in ("a_locator", "b_viewport", "c_zone", "d_near",
+                           "e_panel", "f_valid")}
+    for i in range(n):
+        two = [int(t) for t in terms[(2 * i) % len(terms)][:2]]
+        text = f"{vs[two[0]]} {vs[two[1]]}"
+        match = {"match": {"body": text}}
+        k = inland[i % 10]
+        lat, lon = float(clat[k]), float(clon[k])
+        out["a_locator"].append(({"query": {"bool": {
+            "must": [match], "filter": [{"geo_distance": {
+                "distance": "25km", "location": {"lat": lat,
+                                                 "lon": lon}}}]}},
+            "size": 10}, {"terms": two, "origin": (lat, lon),
+                          "radius": 25000.0}))
+        k = inland[10 + i]
+        lat, lon = float(clat[k]), float(clon[k])
+        box = (lat + 0.15, lon - 0.2, lat - 0.15, lon + 0.2)
+        out["b_viewport"].append(({"query": {"geo_bounding_box": {
+            "location": {"top_left": {"lat": box[0], "lon": box[1]},
+                         "bottom_right": {"lat": box[2], "lon": box[3]}}}},
+            "sort": [{"_geo_distance": {"location": {"lat": lat,
+                                                     "lon": lon}}}],
+            "size": 20}, {"box": box, "origin": (lat, lon)}))
+        k = inland[2 + i]
+        lat, lon = float(clat[k]), float(clon[k])
+        rot = float(rng.uniform(0, math.pi / 3))
+        lats = [lat + 0.15 * math.sin(rot + j * math.pi / 3)
+                for j in range(6)]
+        lons = [lon + 0.2 * math.cos(rot + j * math.pi / 3)
+                for j in range(6)]
+        if i % 2 == 0:
+            flt = {"geo_polygon": {"location": {"points": [
+                {"lat": a, "lon": b} for a, b in zip(lats, lons)]}}}
+        else:
+            ring = [[b, a] for a, b in zip(lats, lons)]
+            flt = {"geo_shape": {"location": {"shape": {
+                "type": "polygon", "coordinates": [ring + ring[:1]]},
+                "relation": "within"}}}
+        out["c_zone"].append(({"query": {"bool": {
+            "must": [match], "filter": [flt]}}, "size": 10},
+            {"terms": two, "ring": (lats, lons), "shape": i % 2 == 1}))
+        k = inland[i % 10]
+        lat, lon = float(clat[k]), float(clon[k])
+        if i % 2 == 0:
+            body = {"query": {"function_score": {"query": match, "gauss": {
+                "location": {"origin": {"lat": lat, "lon": lon},
+                             "scale": "10km", "offset": "2km"}}}},
+                "size": 10}
+        else:
+            body = {"query": {"bool": {"must": [match], "should": [
+                {"distance_feature": {"field": "location",
+                                      "origin": [lon, lat],
+                                      "pivot": "10km"}}]}}, "size": 10}
+        out["d_near"].append((body, {"terms": two, "origin": (lat, lon),
+                                     "gauss": i % 2 == 0}))
+        k = inland[i % 10]
+        lat, lon = float(clat[k]), float(clon[k])
+        out["e_panel"].append(({"query": match, "size": 0, "aggs": {
+            "grid": {"geohash_grid": {"field": "location", "precision": 5,
+                                      "size": 100},
+                     "aggs": {"c": {"geo_centroid": {"field": "location"}}}},
+            "b": {"geo_bounds": {"field": "location"}},
+            "r": {"geo_distance": {
+                "field": "location", "origin": f"{lat},{lon}", "unit": "km",
+                "ranges": [({"from": a} if a is not None else {})
+                           | {"to": b} for a, b in GEO_RINGS_KM]}}}},
+            {"terms": two, "origin": (lat, lon)}))
+        rel = ("intersects", "within", "contains")[i % 3]
+        a = int(rng.integers(bc.YEAR_2025_MS[0], bc.YEAR_2025_MS[1]))
+        span = {"intersects": 7, "within": 60, "contains": 1}[rel]
+        b = a + span * bc.DAY_MS
+        out["f_valid"].append(({"query": {"bool": {
+            "must": [match], "filter": [{"range": {"valid": {
+                "gte": a, "lte": b, "relation": rel}}}]}}, "size": 10},
+            {"terms": two, "rel": rel, "a": a, "b": b}))
+    return out
+
+
+def check_band_page(resp: dict, ix, score, hit, band, what: str,
+                    rtol: float = 1e-6) -> int:
+    """check_page with the docs of `band` left out of both sides: the
+    port's hits less the band's against the brute force's page without
+    them, the total the brute force's without them plus at most the
+    band's live matched docs: -> that count."""
+    in_band = np.flatnonzero(band & hit & ix.live)
+    nb = len(in_band)
+    if not nb:
+        check_page(resp, ix.page(score, hit, 0, 10), what, rtol)
+        return 0
+    skip = {ix.id_of(int(g)) for g in in_band}
+    hits = [h for h in resp["hits"]["hits"] if h["_id"] not in skip]
+    ids, sc, total = ix.page(score, hit & ~band, 0, len(hits))
+    t = resp["hits"]["total"]["value"]
+    if not total <= t <= total + nb:
+        raise AssertionError(f"{what}: total {t} vs {total} + {nb} in the "
+                             f"band")
+    check_page({"hits": {"hits": hits, "total": {
+        "value": total, "relation": "eq"}}}, (ids, sc, total), what, rtol)
+    return nb
+
+
+def geo_check(oracle: GeoOracle, name: str, spec: dict, resp: dict,
+              what: str) -> int:
+    """One response of class `name` against the brute force: -> the docs
+    in the haversine band."""
+    ix = oracle.ix
+    f32 = np.float32
+    if name == "b_viewport":
+        m = oracle.box(*spec["box"]) & ix.live
+        docs = np.flatnonzero(m)
+        d = haversine64(oracle.g["lat"][docs], oracle.g["lon"][docs],
+                        *spec["origin"])
+        ids = [ix.id_of(int(x)) for x in docs]
+        order = sorted(range(len(docs)), key=lambda j: (d[j], ids[j]))[:20]
+        got = [(h["_id"], h["sort"][0]) for h in resp["hits"]["hits"]]
+        ok = (resp["hits"]["total"]["value"] == len(docs)
+              and [x[0] for x in got] == [ids[j] for j in order]
+              and all(abs(v - d[j]) <= 1e-9 * max(d[j], 1.0)
+                      for (_i, v), j in zip(got, order)))
+        if not ok:
+            raise AssertionError(f"{what}: viewport page != brute force")
+        return 0
+    if name == "e_panel":
+        return geo_check_panel(oracle, spec, resp, what)
+    score, hit = ix.group(spec["terms"], 1)
+    cand = np.flatnonzero(hit)
+    if name == "a_locator":
+        lat, lon = spec["origin"]
+        ok = oracle.dist(lat, lon, cand) <= f32(spec["radius"])
+        return check_band_page(resp, ix, score, hit & ok, oracle.band(
+            lat, lon, [spec["radius"]], cand), what)
+    if name == "c_zone":
+        lats, lons = spec["ring"]
+        if spec["shape"]:
+            m, near = oracle.within_ring(lats, lons)
+            return check_band_page(resp, ix, score, hit & m, near, what)
+        return check_band_page(resp, ix, score, hit
+                               & oracle.ray_cast(lats, lons),
+                               np.zeros(ix.n, bool), what)
+    if name == "d_near":
+        lat, lon = spec["origin"]
+        d = oracle.dist(lat, lon, cand)
+        has = oracle.has()
+        if spec["gauss"]:
+            a = f32(math.log(0.5) / (10000.0 * 10000.0))
+            dd = np.maximum(d - f32(2000.0), f32(0))
+            v = np.where(has, np.exp(a * dd * dd), f32(1)).astype(f32)
+            score = (score * v) * f32(1.0)
+        else:
+            pv = f32(10000.0)
+            score = score + np.where(has, (f32(1.0) * pv) / (pv + d), f32(0))
+        check_page(resp, ix.page(score.astype(f32), hit, 0, 10), what,
+                   rtol=GEO_RTOL)
+        return 0
+    if name == "f_valid":
+        check_page(resp, ix.page(score, hit & oracle.relation(
+            spec["rel"], spec["a"], spec["b"]), 0, 10), what)
+        return 0
+    raise ValueError(name)
+
+
+def geo_check_panel(oracle: GeoOracle, spec: dict, resp: dict,
+                    what: str) -> int:
+    """(e): the grid's cells and counts, each bucket's centroid over the
+    docs in its cell's box (the reference refines a grid bucket's
+    geo_centroid by a geo_bounding_box sub-search, edges inclusive;
+    within CENTROID_RTOL of the f64 mean), the bounds and the rings: ->
+    the docs in the rings' band."""
+    ix, g, f32 = oracle.ix, oracle.g, np.float32
+    _s, hit = ix.group(spec["terms"], 1)
+    docs = np.flatnonzero(hit & ix.live & oracle.has())
+    aggs = resp["aggregations"]
+    if resp["hits"]["total"]["value"] != int((hit & ix.live).sum()):
+        raise AssertionError(f"{what}: total")
+    codes, counts = np.unique(oracle.geohash(docs, 5), return_counts=True)
+    # a code's order is its string's (fixed-width base 32)
+    order = np.lexsort((codes, -counts))[:100]
+    top = [(geohash_str(int(codes[j]), 5), int(counts[j])) for j in order]
+    got = aggs["grid"]["buckets"]
+    if [(b["key"], b["doc_count"]) for b in got] != top:
+        raise AssertionError(f"{what}: grid != brute force")
+    lat, lon = g["lat"][docs], g["lon"][docs]
+    for b in got:
+        la0, la1, lo0, lo1 = geohash_cell_box(b["key"])
+        m = ((lat <= f32(la1)) & (lat >= f32(la0)) & (lon >= f32(lo0))
+             & (lon <= f32(lo1)))
+        want = (lat[m].astype(np.float64).mean(),
+                lon[m].astype(np.float64).mean())
+        c = b["c"]
+        if c["count"] != int(m.sum()) or any(
+                abs(x - y) > CENTROID_RTOL * max(abs(y), 1.0)
+                for x, y in ((c["location"]["lat"], want[0]),
+                             (c["location"]["lon"], want[1]))):
+            raise AssertionError(f"{what}: centroid of {b['key']} {c} vs "
+                                 f"{want} over {int(m.sum())}")
+    bnd = aggs["b"]["bounds"]
+    if (bnd["top_left"] != {"lat": float(lat.max()), "lon": float(lon.min())}
+            or bnd["bottom_right"] != {"lat": float(lat.min()),
+                                       "lon": float(lon.max())}):
+        raise AssertionError(f"{what}: geo_bounds {bnd}")
+    olat, olon = spec["origin"]
+    d = haversine32(lat, lon, olat, olon)
+    radii = [1000.0 * x for pair in GEO_RINGS_KM for x in pair
+             if x is not None]
+    d64 = haversine64(lat, lon, olat, olon)
+    band = np.zeros(len(docs), bool)
+    for r in radii:
+        band |= np.abs(d64 - r) <= GEO_RTOL * r
+    nb = int(band.sum())
+    for bk, (a, b) in zip(aggs["r"]["buckets"], GEO_RINGS_KM):
+        lo = f32(-np.inf) if a is None else f32(a * 1000.0)
+        want = int(((d >= lo) & (d < f32(b * 1000.0))).sum())
+        if abs(bk["doc_count"] - want) > nb:
+            raise AssertionError(f"{what}: ring {a}-{b} {bk['doc_count']} "
+                                 f"vs {want}")
+    return nb
+
+
+def run_geo_class(client, name: str, items, oracle: GeoOracle, cpu=None,
+                  label: str = "") -> dict:
+    """One class body by body through RestClient.search (the counts set
+    to 0 just before), each page against the brute force, the first body
+    on the card against the CPU twin; the device bytes after each body,
+    which past the first may grow by no more than the filter-mask
+    cache's masks on the card, itself held to its byte bound: -> the
+    class's numbers."""
+    import torch
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, filters, impactpath
+    bodies = [b for b, _s in items]
+    dev = client.device
+    sync(dev)
+    impactpath.reset_stats()
+    fastpath.reset_stats()
+    C.reset_stats()
+    bm25.reset_counts()
+    lat, resps, dev_bytes, mask_bytes = [], [], [], []
+    t0 = time.perf_counter()
+    for b in bodies:
+        t1 = time.perf_counter()
+        resps.append(client.search("bench", b))
+        lat.append((time.perf_counter() - t1) * 1e3)
+        dev_bytes.append(torch.cuda.memory_allocated(dev))
+        mask_bytes.append(filters.mask_cache_stats(dev)["device_bytes"])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    stats = filters.mask_cache_stats()
+    grew = (dev_bytes[-1] - dev_bytes[0]) - (mask_bytes[-1] - mask_bytes[0])
+    if stats["bytes"] > stats["max_bytes"] or grew > (1 << 20):
+        raise AssertionError(
+            f"phase 20 {name}{label}: device bytes after each body "
+            f"{dev_bytes}, the mask cache's on the card {mask_bytes}, its "
+            f"bytes {stats['bytes']} of {stats['max_bytes']}")
+    counts = {**{k: bm25.COUNTS[k] for k in ("launches", "impact_launches",
+                                             "bool_launches",
+                                             "plain_calls")},
+              "impact_rung": sum(impactpath.STATS[k] for k in (
+                  "served", "pruned_served", "phase2_served", "escalated")),
+              "pruned_ladder": sum(fastpath.STATS.get(k, 0) for k in RUNGS),
+              "b3_filter_slot": fastpath.STATS.get("b3_filter_slot", 0),
+              "b3_filtered_postings": fastpath.STATS.get(
+                  "b3_filtered_postings", 0),
+              "general": C.STATS["general_served"]}
+    cells_s = C.STATS["geo_grid_cells_s"]
+    t0 = time.perf_counter()
+    band = sum(geo_check(oracle, name, spec, r,
+                         f"phase 20 {name}{label} {j}")
+               for j, ((_b, spec), r) in enumerate(zip(items, resps)))
+    t_check = time.perf_counter() - t0
+    t_cpu = 0.0
+    if cpu is not None:
+        first, got = bodies[0], resps[0]
+        if name == "e_panel":
+            # the grid without its geo_centroid sub: at 8.8M the CPU twin
+            # would refine each of its 100 buckets by a search over every
+            # doc (62.5 s a body on the H100 machine's 8-core host); the
+            # brute force holds the centroids
+            first = json.loads(json.dumps(first))
+            first["aggs"]["grid"].pop("aggs")
+            got = client.search("bench", first)
+        t0 = time.perf_counter()
+        want = cpu.search("bench", first)
+        t_cpu = time.perf_counter() - t0
+        same_vec(strip_took(got), strip_took(want), (GEO_RTOL, 0.0, 0.0),
+                 f"phase 20 {name}: card != CPU: ")
+    if counts["plain_calls"]:
+        raise AssertionError(f"phase 20 {name}: a plain call on the card")
+    out = {"bodies": len(bodies), "wall_s": wall,
+           "bodies_per_s": len(bodies) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
+           "counts": counts, "band_docs": band, "grid_cells_s": cells_s,
+           "check_s": t_check, "cpu_s": t_cpu,
+           "device_bytes_after_each_body": dev_bytes,
+           "mask_cache_device_bytes": mask_bytes,
+           "hits": [r["hits"]["total"]["value"] for r in resps]}
+    log(f"  {name}{label}: {len(bodies)} bodies in {wall:.2f}s p50 "
+        f"{out['p50_ms']:.1f} p99 {out['p99_ms']:.1f} first "
+        f"{lat[0]:.1f} ms; totals {out['hits']}; routes {counts}; device "
+        f"bytes after each body "
+        f"{dev_bytes} (the mask cache's {mask_bytes}); grid cells "
+        f"{cells_s:.2f}s; "
+        f"pages == brute force ({t_check:.1f}s, {band} docs in the "
+        f"haversine band)" + (f"; body 0 card == CPU ({t_cpu:.1f}s)"
+                              if cpu is not None else ""))
+    return out
+
+
+def geo_twin(eng):
+    cpu = twin_of(eng)
+    cpu.indices.put_mapping("bench", GEO_MAPPING)
+    return cpu
+
+
+def phase_geo_msmarco(big: dict, n: int, seed: int) -> dict:
+    """Phase 20 on phase 19's end state: `location` and `valid` attached
+    to the corpus segment (`geo_attach`), `n` bodies a class of
+    `geo_classes`, every page against GeoOracle, one body a class card ==
+    CPU; seconds, device bytes and host RSS at the phase's start, peak
+    and end."""
+    import torch
+    client, ix = big["client"], big["ix"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    drop_cpu_state(eng.segments)
+    trim_host()
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    bytes0 = torch.cuda.memory_allocated(dev)
+    rss0 = rss_bytes()
+    rss_watch = RssPeak().__enter__()
+    att = geo_attach(big, seed)
+    g = att.pop("arrays")
+    log(f"  location and valid drawn in {att['draw_s']:.2f}s "
+        f"({att['host_bytes']} host bytes): "
+        f"{int(g['present'].sum())} points around "
+        f"{len(g['city_lat'])} cities, {int(g['valid_present'].sum())} "
+        f"validity ranges")
+    oracle = GeoOracle(g, ix)
+    classes = geo_classes(big, g, n, np.random.default_rng([seed, 20]))
+    cpu = geo_twin(eng)
+    out: dict = {"build": att, "classes": {}}
+    for name, items in classes.items():
+        out["classes"][name] = run_geo_class(client, name, items, oracle,
+                                             cpu)
+    torch.cuda.synchronize()
+    out["device_bytes"] = torch.cuda.memory_allocated(dev) - bytes0
+    rss_watch.__exit__()
+    out["rss_start"], out["rss_end"] = rss0[0], rss_bytes()[0]
+    out["rss_peak"] = rss_watch.peak
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {out['seconds']:.1f}s; device bytes "
+        f"{out['device_bytes']} above the phase's start; host RSS start "
+        f"{out['rss_start']}, peak {out['rss_peak']}, end {out['rss_end']}")
+    drop_cpu_state(eng.segments)
+    big["geo"] = {"classes": classes, "arrays": g}
+    return out
+
+
+def phase_geo_merged(big: dict) -> dict:
+    """Phase 8's merged segment: classes (a), (b), (e) and (f) again, one
+    body each, against the brute force (deleted docs compacted away),
+    the merged location and valid columns against the live passages'."""
+    client, ix = big["client"], big["ix"]
+    eng = client._indices["bench"].engine
+    (merged,) = eng.segments
+    geo = big["geo"]
+    g = geo["arrays"]
+    oracle = GeoOracle(g, ix)
+    live = np.flatnonzero(ix.live[:oracle.n0])
+    col = merged.geo_cols["location"]
+    lo = merged.numeric_cols["valid#lo"]
+    ok = (np.array_equal(col.lat[:len(live)], g["lat"][live])
+          and np.array_equal(col.present[:len(live)], g["present"][live])
+          and np.array_equal(lo.values[:len(live)], g["valid_lo"][live])
+          and not col.present[len(live):].any())
+    if not ok:
+        raise AssertionError("merged location / valid != the live "
+                             "passages'")
+    out = {"classes": {}}
+    for name in ("a_locator", "b_viewport", "e_panel", "f_valid"):
+        out["classes"][name] = run_geo_class(
+            client, name, geo["classes"][name][:1], oracle,
+            label=", merged")
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 4's index of every new family
+# ---------------------------------------------------------------------
+
+GEO_SMALL_DOCS = 1200
+GEO_SMALL_MAPPING = {"properties": {
+    "body": {"type": "text"}, "n": {"type": "integer"},
+    "ir": {"type": "integer_range"}, "lr": {"type": "long_range"},
+    "fr": {"type": "float_range"}, "dr": {"type": "double_range"},
+    "when": {"type": "date_range"}, "ips": {"type": "ip_range"},
+    "attrs": {"type": "flat_object"}, "note": {"type": "annotated_text"},
+    "loc": {"type": "geo_point"}, "area": {"type": "geo_shape"}}}
+GEO_SMALL_WORDS = ["cafe", "park", "bar", "shop", "river", "hotel"]
+
+
+def _sq(lon: float, lat: float, h: float) -> list:
+    return [[lon - h, lat - h], [lon + h, lat - h], [lon + h, lat + h],
+            [lon - h, lat + h], [lon - h, lat - h]]
+
+
+def _wkt(ring) -> str:
+    return "(" + ", ".join(f"{x:.5f} {y:.5f}" for x, y in ring) + ")"
+
+
+def geo_small_shape(kind: int, lon: float, lat: float):
+    """A geo_shape value of each kind near (lon, lat), WKT or GeoJSON."""
+    return [
+        {"type": "Point", "coordinates": [lon, lat]},
+        f"LINESTRING ({lon:.5f} {lat:.5f}, {lon + .3:.5f} {lat + .2:.5f})",
+        {"type": "Polygon", "coordinates": [_sq(lon, lat, .4),
+                                            _sq(lon, lat, .1)]},
+        "MULTIPOLYGON ((" + _wkt(_sq(lon, lat, .2)) + "), ("
+        + _wkt(_sq(lon + 1, lat, .2)) + "))",
+        {"type": "envelope", "coordinates": [[lon - .3, lat + .2],
+                                             [lon + .3, lat - .2]]},
+        {"type": "circle", "coordinates": [lon, lat], "radius": "15km"},
+        f"POLYGON ({_wkt(_sq(lon, lat, .05))})"][kind % 7]
+
+
+def geo_small_docs(rng, n: int) -> list:
+    """Docs carrying every new family at once: the six range types, a
+    flat_object with nested leaves and arrays, an annotated_text with
+    markup (nested spans too), a geo_point in each accepted form, a
+    geo_shape of each kind."""
+    centres = [(40.7, -74.0), (48.85, 2.35), (35.7, 139.7), (-33.9, 151.2)]
+    docs = []
+    for i in range(n):
+        clat, clon = centres[int(rng.integers(len(centres)))]
+        lat = round(float(clat + rng.normal(0, 0.3)), 5)
+        lon = round(float(clon + rng.normal(0, 0.3)), 5)
+        a = int(rng.integers(-50, 50))
+        f = round(float(rng.normal(0, 10)), 3)
+        t = 1_735_689_600_000 + int(rng.integers(0, 365)) * 86_400_000
+        w = GEO_SMALL_WORDS
+        d = {"body": " ".join(rng.choice(w, 3)), "n": int(rng.integers(100)),
+             "ir": {"gte": a, "lt": a + int(rng.integers(1, 30))},
+             "lr": {"gt": a * 10**12, "lte": (a + 9) * 10**12},
+             "fr": {"gte": f, "lte": f + 2.5},
+             "dr": {"gt": f, "lt": f + 1.0},
+             "when": {"gte": t, "lte": t + int(rng.integers(1, 60))
+                      * 86_400_000},
+             "ips": {"gte": f"10.0.0.{i % 200}",
+                     "lte": f"10.0.1.{i % 200}"},
+             "attrs": {"color": str(rng.choice(["red", "blue"])),
+                       "size": {"w": int(rng.integers(1, 4)),
+                                "h": [1, int(rng.integers(2, 5))]},
+                       "tags": ["x", {"deep": str(rng.choice(w))}]},
+             "note": f"the [{rng.choice(w)} spot](Place&Food) near "
+                     f"[Acme Corp](Acme%20Corp) [outer [inner](In)](Out)",
+             "loc": [{"lat": lat, "lon": lon}, f"{lat},{lon}", [lon, lat],
+                     [[lon, lat], [lon + 1.0, lat]]][i % 4],
+             "area": geo_small_shape(i, lon, lat)}
+        if i % 9 == 0:
+            del d["loc"], d["ir"], d["attrs"]
+        if i % 11 == 0:
+            del d["area"]
+        docs.append(d)
+    return docs
+
+
+def geo_small_bodies() -> list:
+    env = {"type": "envelope", "coordinates": [[-74.6, 41.2],
+                                               [-73.4, 40.2]]}
+    holed = {"type": "Polygon", "coordinates": [_sq(139.7, 35.7, .8),
+                                                _sq(139.7, 35.7, .2)]}
+    wkt = "POLYGON (" + _wkt(_sq(2.35, 48.85, .5)) + ")"
+    hexa = [{"lat": 48.85 + .4 * math.sin(k * math.pi / 3),
+             "lon": 2.35 + .5 * math.cos(k * math.pi / 3)} for k in range(6)]
+    out = [{"query": {"range": {f: {"gte": lo, "lte": hi,
+                                    "relation": rel}}}, "size": 30}
+           for f, lo, hi in (("ir", 0, 20), ("lr", 0, 10**13),
+                             ("fr", -1.0, 3.0), ("dr", 0.5, 0.6),
+                             ("when", "2025-03-01", "2025-04-01"),
+                             ("ips", "10.0.0.50", "10.0.0.90"))
+           for rel in ("intersects", "within", "contains")]
+    out += [{"query": {"term": {"ir": 5}}}, {"query": {"term": {
+        "ips": "10.0.0.77"}}}, {"query": {"exists": {"field": "ir"}}},
+        {"query": {"term": {"attrs.color": "red"}}, "size": 20},
+        {"query": {"term": {"attrs.tags.deep": "bar"}}},
+        {"query": {"exists": {"field": "attrs.size.h"}}},
+        {"query": {"term": {"attrs": "blue"}}},
+        {"query": {"match": {"note": "spot acme"}}, "size": 20,
+         "highlight": {"fields": {"note": {}}}},
+        {"query": {"term": {"note": "Acme Corp"}}},
+        {"query": {"match_phrase": {"note": "near acme"}}},
+        {"query": {"geo_distance": {"distance": "30km",
+                                    "loc": "40.7,-74.0"}}, "size": 30},
+        {"query": {"geo_bounding_box": {"loc": {
+            "top_left": {"lat": 49.2, "lon": 1.9},
+            "bottom_right": {"lat": 48.5, "lon": 2.8}}}}, "size": 30},
+        {"query": {"geo_polygon": {"loc": {"points": hexa}}}, "size": 30},
+        {"query": {"match": {"body": "cafe"}}, "size": 20,
+         "sort": [{"_geo_distance": {"loc": [2.35, 48.85], "unit": "km"}}]},
+        {"query": {"function_score": {"query": {"match": {"body": "bar"}},
+                                      "exp": {"loc": {"origin": "35.7,139.7",
+                                                      "scale": "20km"}}}}},
+        {"query": {"distance_feature": {"field": "loc",
+                                        "origin": [151.2, -33.9],
+                                        "pivot": "5km"}}},
+        {"size": 0, "aggs": {
+            "g": {"geohash_grid": {"field": "loc", "precision": 4},
+                  "aggs": {"c": {"geo_centroid": {"field": "loc"}}}},
+            "t": {"geotile_grid": {"field": "loc", "precision": 7}},
+            "b": {"geo_bounds": {"field": "loc"}},
+            "r": {"geo_distance": {"field": "loc", "origin": "48.85,2.35",
+                                   "unit": "km", "ranges": [
+                                       {"to": 20}, {"from": 20}]}},
+            "a": {"terms": {"field": "attrs"}}}}]
+    for rel in ("intersects", "within", "contains", "disjoint"):
+        for shape in (env, holed, wkt, {"type": "Point",
+                                        "coordinates": [2.35, 48.85]}):
+            out.append({"query": {"geo_shape": {"area": {
+                "shape": shape, "relation": rel}}}, "size": 30})
+    out.append({"query": {"geo_shape": {"loc": {"shape": env,
+                                                "relation": "within"}}},
+                "size": 30})
+    out.append({"query": {"geo_shape": {"area": {"indexed_shape": {
+        "index": "zones", "id": "nyc", "path": "zone"}}}}, "size": 30})
+    return out
+
+
+def geo_small_run(name: str, docs, bodies, path: str) -> tuple:
+    """Phase 4's geo and range index on `name`: two refreshes, deletes,
+    `bodies`; a flush and a recovery from `path`, the bodies; a
+    forcemerge, the bodies again: -> (responses, bulk + refresh s)."""
+    from opensearch_tpu_torch import RestClient
+    c = RestClient(device=name, data_path=path)
+    c.indices.create("geo", {"mappings": json.loads(json.dumps(
+        GEO_SMALL_MAPPING))})
+    c.indices.create("zones", {"mappings": {"properties": {
+        "zone": {"type": "geo_shape"}}}})
+    c.index("zones", {"zone": {"type": "envelope", "coordinates": [
+        [-74.6, 41.2], [-73.4, 40.2]]}}, id="nyc", refresh=True)
+    t0 = time.perf_counter()
+    cut = len(docs) * 5 // 8
+    for a, b in ((0, cut), (cut, len(docs))):
+        bulk_checked(c, sum([[{"index": {"_index": "geo", "_id": f"d{i}"}},
+                              docs[i]] for i in range(a, b)], []), "index",
+                     {"created": 201})
+        c.indices.refresh("geo")
+    t_bulk = time.perf_counter() - t0
+    bulk_checked(c, [{"delete": {"_index": "geo", "_id": f"d{i}"}}
+                     for i in range(0, len(docs), 97)], "delete",
+                 {"deleted": 200})
+    c.indices.refresh("geo")
+    out = [[c.search("geo", json.loads(json.dumps(b))) for b in bodies]]
+    c.indices.flush("geo")
+    c.indices.flush("zones")
+    c.close()
+    c = RestClient(device=name, data_path=path)
+    out.append([c.search("geo", json.loads(json.dumps(b))) for b in bodies])
+    c.indices.forcemerge("geo", max_num_segments=1)
+    out.append([c.search("geo", json.loads(json.dumps(b))) for b in bodies])
+    c.close()
+    return out, t_bulk
+
+
+def phase_geo_small(rng) -> dict:
+    """Phase 4's index of every new family (GEO_SMALL_DOCS docs through
+    the write path on the card and on the CPU): the range relations, the
+    flat_object paths, the annotations, every geo query, the sort, the
+    decays and the geo aggs, an indexed_shape; before and after a flush
+    and a recovery, and after a forcemerge: card == CPU (distances,
+    scores and f32 sums within GEO_RTOL), the recovered pages == the
+    first ones on each device."""
+    import tempfile
+    docs = geo_small_docs(rng, GEO_SMALL_DOCS)
+    bodies = geo_small_bodies()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {name: geo_small_run(name, docs, bodies,
+                                   os.path.join(tmp, name))
+               for name in ("cuda", "cpu")}
+    tol = (GEO_RTOL, 0.0, 0.0)
+    for part in range(3):
+        for i, (g, w) in enumerate(zip(out["cuda"][0][part],
+                                       out["cpu"][0][part])):
+            same_vec(strip_took(g), strip_took(w), tol,
+                     f"geo small: part {part} body {i}: card != CPU: ")
+    for name in ("cuda", "cpu"):
+        for i, (g, w) in enumerate(zip(out[name][0][1], out[name][0][0])):
+            if strip_took(g) != strip_took(w):
+                raise AssertionError(f"geo small {name}: body {i} after "
+                                     f"the recovery != before")
+    hits = sum(r["hits"]["total"]["value"] for r in out["cuda"][0][0])
+    log(f"  geo and ranges, small: {len(docs)} docs (six range types, "
+        f"flat_object, annotated_text, geo_point, geo_shape), "
+        f"{len(bodies)} bodies card == CPU before and after a flush + "
+        f"recovery and a forcemerge ({hits} hits); bulk + refresh "
+        f"{out['cuda'][1]:.1f}s on the card's client, "
+        f"{out['cpu'][1]:.1f}s on the CPU's "
+        f"({time.perf_counter() - t0:.1f}s)")
+    res = {"docs": len(docs), "bodies": len(bodies), "hits": hits,
+           "bulk_refresh_s": out["cuda"][1]}
+    del out
+    trim_host()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
@@ -10103,11 +10980,13 @@ def main() -> int:
                     help="phase-17 bodies per class")
     ap.add_argument("--field-queries", type=int, default=4,
                     help="phase-18 bodies per class")
+    ap.add_argument("--geo-queries", type=int, default=GEO_QUERIES,
+                    help="phase-20 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 19; they run 3, 4, 5, "
-                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 8); "
-                    "no result line")
+                    help="end after this phase (3 to 20; they run 3, 4, 5, "
+                    "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, "
+                    "8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -10175,6 +11054,7 @@ def main() -> int:
     sp_small = phase_sparse_small(rng(10))
     ft_small = phase_fields_small(rng(11))
     sc_small = phase_scripts_small(rng(12))
+    geo_small = phase_geo_small(rng(13))
     if args.stop_after == 4:
         return 0
 
@@ -10322,6 +11202,16 @@ def main() -> int:
     if args.stop_after == 19:
         return 0
 
+    log(f"[20] geo and range fields (a location geo_point around 1,000 "
+        f"Zipf(1.1) cities, a valid date_range) at MS MARCO passage scale "
+        f"(ndocs={args.ndocs}), on phase 19's end state; classes (a), (b), "
+        f"(e), (f) again after phase 8" + at(t_start))
+    geo = phase_geo_msmarco(big, args.geo_queries, args.seed)
+    geo["small"] = geo_small
+    geo["draws_wait_s"] = big["draws_wait_s"]
+    if args.stop_after == 20:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
@@ -10364,6 +11254,14 @@ def main() -> int:
         "match, on phase 8's merged segment" + at(t_start))
     scripts["merged"] = phase_scripts_merged(big)
     scm = {k: v["counts"] for k, v in scripts["merged"]["classes"].items()}
+    log("[20m] phase 20's classes (a), (b), (e) and (f), on phase 8's "
+        "merged segment (location and valid carried by the merge)"
+        + at(t_start))
+    geo["merged"] = phase_geo_merged(big)
+    geo["merge"] = {"geo_s": writes["merge"].get("geo_s"),
+                    "rss_peak_merge": writes["rss_peak_merge"],
+                    "rss_peak_process": rss_bytes()[1]}
+    gm = {k: v["counts"] for k, v in geo["merged"]["classes"].items()}
 
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
@@ -10379,6 +11277,7 @@ def main() -> int:
         "launches_sparse_hybrid": sh["launches"],
         "launches_fields": sum(c["launches"] for c in fm.values()),
         "launches_scripts": sum(c["launches"] for c in scm.values()),
+        "launches_geo": sum(c["launches"] for c in gm.values()),
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -10395,6 +11294,7 @@ def main() -> int:
         "launches_sparse_hybrid": sh["impact_launches"],
         "launches_fields": sum(c["impact_launches"] for c in fm.values()),
         "launches_scripts": sum(c["impact_launches"] for c in scm.values()),
+        "launches_geo": sum(c["impact_launches"] for c in gm.values()),
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -10410,6 +11310,7 @@ def main() -> int:
         "launches_body_options": sum(c["bool_launches"] for c in rc),
         "launches_fields": sum(c["bool_launches"] for c in fm.values()),
         "launches_scripts": sum(c["bool_launches"] for c in scm.values()),
+        "launches_geo": sum(c["bool_launches"] for c in gm.values()),
         "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
                            egrid["max_abs_err"], bools["max_abs_err"]),
         **times(bools["b3"]), "bound_by": "bytes",
@@ -10430,7 +11331,9 @@ def main() -> int:
         "bound_ms": ngrid["largest"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "parity": "exact",
         "note": "no caller in the package; times from the phase-3 grid"}]
-    log(f"  total {time.perf_counter() - t_start:.1f}s")
+    log(f"  total {time.perf_counter() - t_start:.1f}s "
+        f"({time.perf_counter() - T_IMPORTED:.1f}s since the script's "
+        f"imports)")
     print(json.dumps({"phrase": {k: {kk: vv for kk, vv in v.items()
                                      if kk != "batch_ms"}
                                  for k, v in phrase.items()}}), flush=True)
@@ -10450,11 +11353,15 @@ def main() -> int:
     print(json.dumps({"sparse": sparse}), flush=True)
     print(json.dumps({"fields": fields}), flush=True)
     print(json.dumps({"scripts": scripts}), flush=True)
+    print(json.dumps({"geo": geo}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    sys.stderr.flush()
+    # the result is out: end here, not after the interpreter has freed
+    # the run's host arrays and the card's state object by object
+    os._exit(0)
 
 
 if __name__ == "__main__":

@@ -24,34 +24,48 @@ import numpy as np
 from .index.convert import segment_from_arrays
 
 
-def corpus_keys(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
-                seed: int = 0) -> np.ndarray:
-    """The body field's tokens drawn from `seed` as (term * ndocs + doc)
-    keys, i64 in token order: the host half of `build_corpus` (numpy's
-    draws release the interpreter lock, so a caller may run it on a
-    thread)."""
+def corpus_draws(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
+                 seed: int = 0) -> tuple:
+    """The body field's random draws from `seed`, in bench.py's order:
+    (doc lengths i64[ndocs], Zipf(1.15) ranks i64[tokens], the uniform
+    ranks that replace those past `vocab`) -- the host half of
+    `build_corpus`, nothing but numpy's generator (whose draws release
+    the interpreter lock, so a caller may run it on a thread)."""
     rng = np.random.default_rng(seed)
     dl = np.clip(rng.lognormal(np.log(avg_dl), 0.4, ndocs), 8,
                  256).astype(np.int64)
     total = int(dl.sum())
-    doc_of_tok = np.repeat(np.arange(ndocs, dtype=np.int64), dl)
-    terms = rng.zipf(1.15, total).astype(np.int64)
-    terms = np.where(terms > vocab, rng.integers(1, vocab, total), terms) - 1
-    return terms * ndocs + doc_of_tok
+    terms = rng.zipf(1.15, total).astype(np.int64, copy=False)
+    return dl, terms, rng.integers(1, vocab, total)
+
+
+def corpus_keys(draws: tuple, vocab: int = 200_000, device=None):
+    """The (term * ndocs + doc) keys of `corpus_draws`, i64 in token
+    order, on `device` (the CPU when None): integer steps, the same on
+    any device."""
+    import torch
+    dl, terms, repl = (torch.from_numpy(a).to(device or "cpu")
+                       for a in draws)
+    terms = torch.where(terms > vocab, repl, terms) - 1
+    del repl
+    ndocs = len(dl)
+    return terms * ndocs + torch.repeat_interleave(
+        torch.arange(ndocs, dtype=torch.int64, device=terms.device), dl)
 
 
 def build_corpus(ndocs: int, vocab: int = 200_000, avg_dl: int = 56,
-                 seed: int = 0, device=None, keys=None):
+                 seed: int = 0, device=None, draws=None):
     """-> (starts i64[vocab+1], doc_ids i32[P], tfs f32[P], dl i64[ndocs],
-    df i64[vocab]) of a CSR body field. The (term, doc) keys
-    (`corpus_keys`, or `keys` drawn by it already) are counted on
-    `device` (the CPU when None): the same sorted keys and counts as
-    bench.py's np.unique."""
+    df i64[vocab]) of a CSR body field. The (term, doc) keys of
+    `corpus_draws` (or of `draws` drawn by it already) are made and
+    counted on `device` (the CPU when None): the same sorted keys and
+    counts as bench.py's np.unique."""
     import torch
-    if keys is None:
-        keys = corpus_keys(ndocs, vocab, avg_dl, seed)
-    u, c = torch.unique(torch.from_numpy(keys).to(device or "cpu"),
-                        sorted=True, return_counts=True)
+    if draws is None:
+        draws = corpus_draws(ndocs, vocab, avg_dl, seed)
+    keys = corpus_keys(draws, vocab, device)
+    del draws
+    u, c = torch.unique(keys, sorted=True, return_counts=True)
     del keys
     uniq, counts = u.cpu().numpy(), c.cpu().numpy()
     del u, c
@@ -495,3 +509,46 @@ def field_type_columns(ndocs: int, price: np.ndarray, seed: int = 12
             "price_scaled": np.round(price.astype(np.float64)) / 100.0,
             "views_biased": np.where(high, views, views - (1 << 62)
                                      - (1 << 62))}
+
+
+GEO_CITIES = 1000
+GEO_SIGMA_DEG = 0.2
+GEO_MISSING = 0.02
+VALID_MISSING = 0.05
+YEAR_2025_MS = (1_735_689_600_000, 1_767_225_600_000)
+DAY_MS = 86_400_000
+
+
+def geo_columns(ndocs: int, seed: int = 20) -> dict:
+    """A `location` geo_point and a `valid` date_range per passage, drawn
+    from `seed`: GEO_CITIES city centres uniform over lat [-60, 70] and
+    lon [-180, 180), each passage at a city picked by Zipf(1.1) over the
+    ranks (the skew of geonames' city populations) plus a Gaussian
+    offset of GEO_SIGMA_DEG degrees, GEO_MISSING of the passages without
+    one; `valid` starts uniformly over 2025 (epoch ms) and lasts a
+    lognormal 1-90 days, VALID_MISSING without one. -> {"city_lat",
+    "city_lon" f64[GEO_CITIES] in rank order, "lat", "lon"
+    f32[ndocs], "present" bool[ndocs], "valid_lo", "valid_hi"
+    i64[ndocs], "valid_present" bool[ndocs]}."""
+    rng = np.random.default_rng(seed)
+    city_lat = rng.uniform(-60.0, 70.0, GEO_CITIES)
+    city_lon = rng.uniform(-180.0, 180.0, GEO_CITIES)
+    p = np.arange(1, GEO_CITIES + 1, dtype=np.float64) ** -1.1
+    city = rng.choice(GEO_CITIES, ndocs, p=p / p.sum())
+    lat = np.clip(city_lat[city] + rng.normal(0.0, GEO_SIGMA_DEG, ndocs),
+                  -90.0, 90.0)
+    lon = city_lon[city] + rng.normal(0.0, GEO_SIGMA_DEG, ndocs)
+    lon = (lon + 180.0) % 360.0 - 180.0
+    present = rng.random(ndocs) >= GEO_MISSING
+    start = rng.integers(*YEAR_2025_MS, ndocs, dtype=np.int64)
+    days = np.clip(rng.lognormal(np.log(10.0), 1.0, ndocs), 1.0, 90.0)
+    vpresent = rng.random(ndocs) >= VALID_MISSING
+    return {"city_lat": city_lat, "city_lon": city_lon,
+            "lat": np.where(present, lat, 0.0).astype(np.float32),
+            "lon": np.where(present, lon, 0.0).astype(np.float32),
+            "present": present,
+            "valid_lo": np.where(vpresent, start, 0),
+            "valid_hi": np.where(vpresent, start
+                                 + np.round(days * DAY_MS).astype(np.int64),
+                                 0),
+            "valid_present": vpresent}

@@ -5,8 +5,10 @@ inverted fields (CSR postings with their positions, doc lengths, text
 stats and, on codec v2, each field's ImpactPlane arrays, a feature
 field's FEATURE plane among them) and its doc
 values (each NumericColumn's kind, values and present mask, each
-KeywordColumn's vocab and ordinal arrays) and its dense vectors (each
-VectorColumn's values, present mask, similarity and method), so a
+KeywordColumn's vocab and ordinal arrays), its dense vectors (each
+VectorColumn's values, present mask, similarity and method) and its geo
+fields (each GeoColumn's lat, lon and present mask, each ShapeColumn's
+specs, bounding boxes and present mask), so a
 segment built there (or a CSR corpus made from a seed, as
 `bench_corpus.py` does) carries across without re-indexing.
 """
@@ -18,9 +20,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from ..errors import NotPortedError
-from .segment import (CODEC_V2, ImpactPlane, KeywordColumn, NumericColumn,
-                      PostingsBlock, Segment, TextFieldStats, VectorColumn,
-                      default_codec_version)
+from .segment import (CODEC_V2, GeoColumn, ImpactPlane, KeywordColumn,
+                      NumericColumn, PostingsBlock, Segment, ShapeColumn,
+                      TextFieldStats, VectorColumn, default_codec_version)
 
 IMPACT_FIELDS = ("q", "scale", "bits", "k1", "b", "avgdl", "dl_max",
                  "block_starts", "block_off", "block_max")
@@ -42,6 +44,8 @@ def segment_from_arrays(name: str, ndocs: int,
                         keyword_cols: Optional[Dict[str, object]] = None,
                         vector_cols: Optional[Dict[str, object]] = None,
                         stored_vals: Optional[list] = None,
+                        geo_cols: Optional[Dict[str, object]] = None,
+                        shape_cols: Optional[Dict[str, object]] = None,
                         device=None) -> Segment:
     """`postings[field]` = dict(vocab, starts, doc_ids, tfs) in CSR form
     (vocab sorted, docs ascending per row), with `pos_starts` and
@@ -67,7 +71,13 @@ def segment_from_arrays(name: str, ndocs: int,
     `stored_vals` = per doc its `store: true` values, or None. `vector_cols[field]` = a reference
     segment's VectorColumn, or a dict of its `values` (f32 [ndocs,
     dims], taken without a copy where it is f32 already), `present`,
-    `similarity` and `method`; its IVF index is built on first use."""
+    `similarity` and `method`; its IVF index is built on first use.
+    `geo_cols[field]` = a reference segment's GeoColumn, or a dict of its
+    `lat`, `lon` (f32) and `present`; `shape_cols[field]` = a reference
+    segment's ShapeColumn, or a dict of its `specs` (per doc a list of
+    GeoJSON / WKT specs, or None), `minx`, `miny`, `maxx`, `maxy` (f64)
+    and `present`. A range field's [lo, hi] are numeric columns named
+    `<field>#lo` / `<field>#hi`."""
     blocks = {}
     for field, p in postings.items():
         vocab = list(p["vocab"])
@@ -114,6 +124,20 @@ def segment_from_arrays(name: str, ndocs: int,
             field, np.asarray(get("values"), np.float32),
             np.asarray(get("present"), bool),
             get("similarity") or "cosine", method=get("method"))
+    gcols = {}
+    for field, col in (geo_cols or {}).items():
+        get = _getter(col)
+        gcols[field] = GeoColumn(field, np.asarray(get("lat"), np.float32),
+                                 np.asarray(get("lon"), np.float32),
+                                 np.asarray(get("present"), bool))
+    scols = {}
+    for field, col in (shape_cols or {}).items():
+        get = _getter(col)
+        scols[field] = ShapeColumn(
+            field, list(get("specs")),
+            *(np.asarray(get(k), np.float64)
+              for k in ("minx", "miny", "maxx", "maxy")),
+            np.asarray(get("present"), bool))
     seg = Segment(name, int(ndocs), blocks,
                   {f: np.asarray(v, np.int64) for f, v in doc_lens.items()},
                   {f: TextFieldStats(int(dc), int(sdl))
@@ -121,7 +145,8 @@ def segment_from_arrays(name: str, ndocs: int,
                   [], [], numeric_cols=cols, keyword_cols=kcols,
                   vector_cols=vcols,
                   stored_vals=(list(stored_vals) if stored_vals is not None
-                               else None))
+                               else None),
+                  geo_cols=gcols, shape_cols=scols)
     seg.ids = ids
     seg.sources = sources
     # a lazy id view is not enumerated: nothing in this slice looks ids up

@@ -1,31 +1,45 @@
 """Field mappings and document parsing (a copy of
-opensearch_tpu/index/mappings.py without the range family, flat_object,
-annotated_text, geo, nested, join, percolator, derived and star_tree
-fields, which raise `NotPortedError`).
+opensearch_tpu/index/mappings.py without the nested, join, percolator,
+derived and star_tree fields, which raise `NotPortedError`).
 
 Documents are parsed on the host into per-field term lists (text and
 keyword), the token positions of text fields, keyword doc values (the
 normalized values of keyword fields and subfields), numeric doc
 values, stored values (`store: true`: the raw JSON values), feature
-weights and dense vectors. The device only ever sees term rows,
-positions, keyword ordinals, numeric columns, feature postings and
-vector matrices.
+weights, dense vectors, geo points and geo shapes. The device only ever
+sees term rows, positions, keyword ordinals, numeric columns, feature
+postings, vector matrices and geo columns.
 
 - Text: `text`, `match_only_text` (each distinct term once: no tf, no
   norms, no positions; phrases verify against `_source`) and
   `search_as_you_type` (its `_2gram` ... `_{max_shingle_size}gram`
-  shingle subfields and an `_index_prefix` edge-ngram subfield).
+  shingle subfields and an `_index_prefix` edge-ngram subfield) and
+  `annotated_text` (`[text](value&value)` markup: the plain text is
+  analyzed, each URL-decoded annotation value is an exact term at the
+  position of the first token it covers, `parse_annotated_text`).
 - Keyword: `keyword`, `ip` (a numeric column of the IPv4-mapped integer
   plus a term of its string), `constant_keyword` (one value, fixed by
   the mapping or by the first document, applied to every document) and
   `icu_collation_keyword` (collation sort keys, strength primary,
-  secondary or tertiary).
+  secondary or tertiary), `flat_object` (every leaf value a term and a
+  doc value of the field, each `path=value` one of `<field>#paths`; a
+  dotted query path resolves to a synthetic keyword field with
+  `flat_prefix`).
 - Numeric, exact i64: integer, long, short, byte (range-checked),
   date (epoch millis), boolean (0/1), token_count (the analyzer's token
   count) and unsigned_long (`v - U64_BIAS`: order-exact biased i64);
   f64: double, float, half_float (no f16 rounding, as the reference),
   scaled_float (`round(v * scaling_factor) / scaling_factor`; the
   factor is required), rank_feature (positive).
+- The range family (`integer_range`, `long_range`, `float_range`,
+  `double_range`, `date_range`, `ip_range`): a `{gte|gt|lte|lt}` object
+  as the closed [lo, hi] of the member type's column form, in the
+  numeric columns `<field>#lo` and `<field>#hi` (an open bound one step
+  or one f64 ulp inward, a missing bound the member's extreme).
+- `geo_point` ({lat, lon}, "lat,lon" or GeoJSON [lon, lat]; the first
+  point of a doc is its column value) and `geo_shape` (GeoJSON or WKT,
+  parsed at index time by `search/geo.parse_shape`: a bad shape is a
+  400; the specs and their bounding boxes are kept).
 - `rank_features` / `sparse_vector` (feature -> positive weight),
   `dense_vector` / `knn_vector` (a list is ONE vector of `dims`), `binary`
   (kept in `_source` only) and `alias` (`path`: resolved by
@@ -49,21 +63,34 @@ from __future__ import annotations
 import datetime as _dt
 import fnmatch
 import ipaddress
+import math
 import numbers
+import re
+import urllib.parse
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..analysis import AnalysisRegistry, Analyzer
 from ..errors import NotPortedError
 
-TEXT_TYPES = {"text", "match_only_text", "search_as_you_type"}
-KEYWORD_TYPES = {"keyword", "ip", "constant_keyword",
+TEXT_TYPES = {"text", "match_only_text", "search_as_you_type",
+              "annotated_text"}
+KEYWORD_TYPES = {"keyword", "ip", "constant_keyword", "flat_object",
                  "icu_collation_keyword"}
 INT_TYPES = {"long", "integer", "short", "byte", "date", "boolean",
              "unsigned_long", "token_count"}
 FLOAT_TYPES = {"double", "float", "half_float", "rank_feature",
                "scaled_float"}
 NUMERIC_TYPES = INT_TYPES | FLOAT_TYPES
+# range family: closed [lo, hi] interval columns `field#lo` / `field#hi`
+# in the member type's column form, queried by relation
+RANGE_TYPES = {"integer_range", "long_range", "float_range", "double_range",
+               "date_range", "ip_range"}
+RANGE_MEMBER = {"integer_range": "integer", "long_range": "long",
+                "float_range": "float", "double_range": "double",
+                "date_range": "date", "ip_range": "ip"}
+GEO_TYPES = {"geo_point"}
+SHAPE_TYPES = {"geo_shape"}
 VECTOR_TYPES = {"dense_vector", "knn_vector"}
 # feature-weight CSR fields: rows are features, the tf slot the weight
 FEATURE_TYPES = {"rank_features", "sparse_vector"}
@@ -87,7 +114,14 @@ _TYPE_OPTIONS = {
     "constant_keyword": {"value"},
     "icu_collation_keyword": {"strength", "language", "country"},
     "search_as_you_type": {"max_shingle_size"},
+    "geo_point": {"ignore_malformed", "ignore_z_value"},
+    "geo_shape": {"ignore_malformed", "ignore_z_value", "orientation",
+                  "coerce"},
+    "flat_object": {"depth_limit"},
+    **{t: {"coerce"} for t in RANGE_TYPES},
 }
+# types a JSON object (or an array of objects) is one value of
+_OBJECT_VALUE_TYPES = GEO_TYPES | SHAPE_TYPES | RANGE_TYPES | {"flat_object"}
 _MAPPING_KEYS = {"properties", "dynamic", "_meta", "dynamic_templates"}
 
 
@@ -122,6 +156,9 @@ class FieldType:
     # constant_keyword: the index-wide value (from the mapping, or the
     # first document that sets it)
     const_value: Optional[str] = None
+    # the synthetic keyword field of a flat_object leaf path: its query
+    # terms are "<flat_prefix>=<value>" on `<root>#paths`
+    flat_prefix: Optional[str] = None
 
     @property
     def has_norms(self) -> bool:
@@ -152,6 +189,35 @@ class ParsedDocument:
     features: Dict[str, Dict[str, float]] = dc_field(default_factory=dict)
     # store: true field -> its raw JSON values
     stored: Dict[str, list] = dc_field(default_factory=dict)
+    # geo_point field -> (lat, lon) per value
+    geos: Dict[str, List[Tuple[float, float]]] = dc_field(
+        default_factory=dict)
+    # geo_shape field -> (spec, bbox) per value
+    shapes: Dict[str, List[Any]] = dc_field(default_factory=dict)
+
+
+_ANNOT_RE = re.compile(r"\[([^\]]*)\]\(([^)]+)\)")
+
+
+def parse_annotated_text(raw: str):
+    """-> (plain text, [(char start, char end, [annotation values])]):
+    `[text](value1&value2)` markup, the covered text kept in the plain
+    stream, each `&`-separated value URL-decoded."""
+    plain_parts = []
+    spans = []
+    pos = 0
+    last = 0
+    for m in _ANNOT_RE.finditer(raw):
+        plain_parts.append(raw[last:m.start()])
+        pos += m.start() - last
+        text = m.group(1)
+        anns = [urllib.parse.unquote(a) for a in m.group(2).split("&") if a]
+        spans.append((pos, pos + len(text), anns))
+        plain_parts.append(text)
+        pos += len(text)
+        last = m.end()
+    plain_parts.append(raw[last:])
+    return "".join(plain_parts), spans
 
 
 def _parse_date(value: Any, fmt: Optional[str]) -> int:
@@ -301,7 +367,8 @@ class Mappings:
 
     def _build_field(self, path: str, ftype: str, cfg: dict) -> FieldType:
         if ftype not in TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES \
-                | VECTOR_TYPES | FEATURE_TYPES | SOURCE_ONLY_TYPES:
+                | VECTOR_TYPES | FEATURE_TYPES | SOURCE_ONLY_TYPES \
+                | RANGE_TYPES | GEO_TYPES | SHAPE_TYPES:
             raise NotPortedError(f"field type [{ftype}] (field [{path}])")
         allowed = _FIELD_OPTIONS | _TYPE_OPTIONS.get(ftype, set())
         for key in cfg:
@@ -426,6 +493,15 @@ class Mappings:
             pft = self.fields.get(parent)
             if pft and sub in pft.subfields:
                 return pft.subfields[sub]
+            # a flat_object leaf: "f.a.b" is the term "a.b=<v>" on
+            # "f#paths"
+            parts = name.split(".")
+            for i in range(1, len(parts)):
+                rft = self.fields.get(".".join(parts[:i]))
+                if rft is not None and rft.type == "flat_object":
+                    return FieldType(name=f"{'.'.join(parts[:i])}#paths",
+                                     type="keyword",
+                                     flat_prefix=".".join(parts[i:]))
         return None
 
     def index_analyzer(self, ft: FieldType) -> Analyzer:
@@ -483,7 +559,8 @@ class Mappings:
             path = f"{prefix}{key}"
             if isinstance(value, dict):
                 ft = self.resolve_field(path)
-                if ft is not None and ft.type in FEATURE_TYPES:
+                if ft is not None and (ft.type in FEATURE_TYPES
+                                       or ft.type in _OBJECT_VALUE_TYPES):
                     self._index_value(ft, value, parsed)
                 else:
                     self._parse_obj(value, f"{path}.", parsed)
@@ -495,6 +572,10 @@ class Mappings:
                     raise ValueError(
                         f"[{lft.type}] field [{path}] does not support "
                         f"arrays of feature objects")
+                if lft is not None and lft.type in _OBJECT_VALUE_TYPES:
+                    for v in values:
+                        self._index_value(lft, v, parsed)
+                    continue
                 for v in values:
                     self._parse_obj(v, f"{path}.", parsed)
                 continue
@@ -514,6 +595,9 @@ class Mappings:
 
     def _index_value(self, ft: FieldType, value: Any,
                      parsed: ParsedDocument) -> None:
+        if (ft.type in GEO_TYPES and isinstance(value, list) and value
+                and isinstance(value[0], numbers.Number)):
+            value = [value]     # GeoJSON [lon, lat] is one point
         if ft.type in VECTOR_TYPES and isinstance(value, list):
             value = [value]     # the whole list is ONE vector value
         values = value if isinstance(value, list) else [value]
@@ -540,7 +624,10 @@ class Mappings:
         if ft.type in TEXT_TYPES:
             if not ft.index:
                 return
-            tokens = self.index_analyzer(ft).analyze(str(v))
+            raw_text, annot_spans = str(v), []
+            if ft.type == "annotated_text":
+                raw_text, annot_spans = parse_annotated_text(raw_text)
+            tokens = self.index_analyzer(ft).analyze(raw_text)
             tl = parsed.terms.setdefault(name, [])
             if ft.type == "match_only_text":
                 # no freqs, no norms, no positions: each term once
@@ -552,9 +639,18 @@ class Mappings:
                 return
             tl.extend(t.text for t in tokens)
             pl = parsed.positions.setdefault(name, [])
-            # the position gap between the values of an array field
+            # the position gap between the values of an array field (an
+            # annotation term may sit below the value's last position)
             base = max(p for _, p in pl) + 100 if pl else 0
             pl.extend((t.text, base + t.position) for t in tokens)
+            for cs, ce, anns in annot_spans:
+                # each value an exact term at the first covered token
+                tok = next((t for t in tokens
+                            if cs <= t.start_offset < ce), None)
+                at_pos = base + (tok.position if tok else 0)
+                for a in anns:
+                    tl.append(a)
+                    pl.append((a, at_pos))
             return
         if ft.type in SOURCE_ONLY_TYPES:
             return
@@ -583,6 +679,38 @@ class Mappings:
             return
         if ft.type in NUMERIC_TYPES:
             parsed.numerics.setdefault(name, []).append(coerce_value(ft, v))
+            return
+        if ft.type == "flat_object":
+            # every leaf a term and doc value of the field, and its
+            # "path=value" a term and doc value of `name#paths`
+            if not isinstance(v, dict):
+                raise ValueError(
+                    f"[flat_object] field [{name}] must hold an object")
+            for sub_path, leaf in _flat_leaves(v, ""):
+                s = str(leaf)
+                parsed.terms.setdefault(name, []).append(s)
+                parsed.keywords.setdefault(name, []).append(s)
+                parsed.terms.setdefault(f"{name}#paths", []).append(
+                    f"{sub_path}={s}")
+                parsed.keywords.setdefault(f"{name}#paths", []).append(
+                    f"{sub_path}={s}")
+            return
+        if ft.type in RANGE_TYPES:
+            lo, hi = parse_range_value(ft, v)
+            if lo > hi:
+                raise ValueError(
+                    f"[{ft.type}] field [{name}]: lower bound [{lo}] > "
+                    f"upper bound [{hi}]")
+            parsed.numerics.setdefault(f"{name}#lo", []).append(lo)
+            parsed.numerics.setdefault(f"{name}#hi", []).append(hi)
+            return
+        if ft.type in GEO_TYPES:
+            parsed.geos.setdefault(name, []).append(parse_geo(v))
+            return
+        if ft.type in SHAPE_TYPES:
+            from ..search.geo import parse_shape
+            sh = parse_shape(v)     # a bad shape is an index-time 400
+            parsed.shapes.setdefault(name, []).append((v, sh.bbox))
             return
         if ft.type in FEATURE_TYPES:
             if not isinstance(v, dict):
@@ -615,3 +743,86 @@ class Mappings:
             parsed.terms.setdefault(name, []).append(s)
         if ft.doc_values:
             parsed.keywords.setdefault(name, []).append(s)
+
+
+def _flat_leaves(obj: dict, prefix: str):
+    """Depth-first (path, scalar) leaves of a flat_object value."""
+    for k, v in obj.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, f"{path}.")
+        elif isinstance(v, list):
+            for item in v:
+                if isinstance(item, dict):
+                    yield from _flat_leaves(item, f"{path}.")
+                elif item is not None:
+                    yield path, item
+        elif v is not None:
+            yield path, v
+
+
+_RANGE_INT_BOUNDS = {
+    "integer": (-(1 << 31), (1 << 31) - 1),
+    "long": (-(1 << 63), (1 << 63) - 1),
+    "date": (-(1 << 63), (1 << 63) - 1),
+    "ip": (0, (1 << 63) - 1),
+}
+
+
+def range_member_coerce(member: str, value: Any, ft: FieldType):
+    """One bound of a range value in the member type's column form: a
+    date in epoch ms (the field's format), an ip as its i64 integer
+    (IPv4-mapped only), an integer or long as int, else a float."""
+    if member == "date":
+        return _parse_date(value, ft.date_format)
+    if member == "ip":
+        iv = ip_to_int(str(value))
+        if iv >= (1 << 63):
+            raise ValueError(
+                "ip_range supports IPv4(-mapped) addresses only in this "
+                "engine (value exceeds the exact i64 column range)")
+        return iv
+    if member in ("integer", "long"):
+        return int(value)
+    return float(value)
+
+
+def parse_range_value(ft: FieldType, v: Any) -> Tuple[Any, Any]:
+    """{gte|gt|lte|lt} -> the closed [lo, hi] in column form: an open
+    bound moves one step (integers) or one f64 ulp (floats) inward, a
+    missing one is the member's extreme (+-inf for floats)."""
+    if not isinstance(v, dict):
+        raise ValueError(
+            f"[{ft.type}] field [{ft.name}] must hold a range object")
+    member = RANGE_MEMBER[ft.type]
+    is_int = member in _RANGE_INT_BOUNDS
+    lo, hi = (_RANGE_INT_BOUNDS[member] if is_int
+              else (-math.inf, math.inf))
+    for key, val in v.items():
+        if val is None:
+            continue
+        cv = range_member_coerce(member, val, ft)
+        if key == "gte":
+            lo = cv
+        elif key == "gt":
+            lo = cv + 1 if is_int else math.nextafter(cv, math.inf)
+        elif key == "lte":
+            hi = cv
+        elif key == "lt":
+            hi = cv - 1 if is_int else math.nextafter(cv, -math.inf)
+        else:
+            raise ValueError(f"unknown range bound [{key}]")
+    return lo, hi
+
+
+def parse_geo(v: Any) -> Tuple[float, float]:
+    """(lat, lon) of a geo_point value: {"lat", "lon"}, "lat,lon" or
+    GeoJSON [lon, lat]."""
+    if isinstance(v, dict):
+        return float(v["lat"]), float(v["lon"])
+    if isinstance(v, str):
+        lat, lon = v.split(",")
+        return float(lat), float(lon)
+    if isinstance(v, (list, tuple)):
+        return float(v[1]), float(v[0])
+    raise ValueError(f"cannot parse geo_point [{v}]")

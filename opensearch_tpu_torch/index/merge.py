@@ -9,7 +9,9 @@ keyword columns merge over the union of their vocabs with ordinals
 remapped and deleted docs' values dropped; vector columns keep their
 similarity and method, their rows copied in blocks of VECTOR_CHUNK_ROWS
 (no second full copy of a column stands beside the merged one), and the
-merged column builds its IVF index on first use. Postings (text and keyword rows) merge
+merged column builds its IVF index on first use; geo columns (lat, lon,
+present) and shape columns (specs, bounding boxes, present) follow their
+docs to the merged ids. Postings (text and keyword rows) merge
 as one sort of (union row, new doc) triples: on the engine's device at
 DEVICE_MERGE_MIN postings and above (`ops/device_merge.merge_sorted_runs`),
 else `np.lexsort`; a positional field's position runs follow their
@@ -44,12 +46,13 @@ import numpy as np
 
 from ..errors import NotPortedError
 from ..ops import device_merge
-from .segment import (CODEC_V2, VECTOR_CHUNK_ROWS, KeywordColumn,
-                      NumericColumn, PostingsBlock, Segment, TextFieldStats,
-                      VectorColumn, default_codec_version)
+from .segment import (CODEC_V2, VECTOR_CHUNK_ROWS, GeoColumn,
+                      KeywordColumn, NumericColumn, PostingsBlock, Segment,
+                      ShapeColumn, TextFieldStats, VectorColumn,
+                      default_codec_version)
 
 # planes of a reference segment that no port segment carries
-_UNPORTED_PLANES = ("geo_cols", "shape_cols", "nested", "term_vectors")
+_UNPORTED_PLANES = ("nested", "term_vectors")
 
 # the reference's reorder threshold (index/reorder.py)
 REORDER_MIN_DOCS = 1 << 15
@@ -58,8 +61,8 @@ REORDER_MIN_DOCS = 1 << 15
 # remap, concatenation, CSR slicing and the other planes), sort_s (the
 # (row, doc) sort, merge_sorted_runs on the device or np.lexsort),
 # positions_s (the positions' gather and regather, on the host),
-# quantize_s (the impact planes' rebuild) and vectors_s (the vector
-# columns' copy)
+# quantize_s (the impact planes' rebuild), vectors_s (the vector
+# columns' copy) and geo_s (the geo and shape columns' copy)
 LAST_MERGE: Dict[str, float] = {}
 
 
@@ -374,6 +377,41 @@ def _merge_vectors(field: str, segments, live_masks, dmaps,
                         method=first.method)
 
 
+def _merge_geo(segments, live_masks, dmaps, ndocs: int) -> tuple:
+    """(geo_cols, shape_cols) over the merged doc ids."""
+    geo_cols: Dict[str, GeoColumn] = {}
+    for f in sorted({f for s in segments for f in s.geo_cols}):
+        lat = np.zeros(ndocs, np.float32)
+        lon = np.zeros(ndocs, np.float32)
+        present = np.zeros(ndocs, bool)
+        for s, m, dmap in zip(segments, live_masks, dmaps):
+            col = s.geo_cols.get(f)
+            if col is not None:
+                lat[dmap[m]] = col.lat[m]
+                lon[dmap[m]] = col.lon[m]
+                present[dmap[m]] = col.present[m]
+        geo_cols[f] = GeoColumn(f, lat, lon, present)
+    shape_cols: Dict[str, ShapeColumn] = {}
+    for f in sorted({f for s in segments for f in s.shape_cols}):
+        specs: list = [None] * ndocs
+        box = np.empty((4, ndocs))
+        box[:2], box[2:] = np.inf, -np.inf
+        present = np.zeros(ndocs, bool)
+        for s, m, dmap in zip(segments, live_masks, dmaps):
+            col = s.shape_cols.get(f)
+            if col is None:
+                continue
+            tgt = dmap[m]
+            for old_i, new_i in zip(np.flatnonzero(m), tgt):
+                specs[new_i] = col.specs[old_i]
+            for j, arr in enumerate((col.minx, col.miny, col.maxx,
+                                     col.maxy)):
+                box[j, tgt] = arr[m]
+            present[tgt] = col.present[m]
+        shape_cols[f] = ShapeColumn(f, specs, *box, present)
+    return geo_cols, shape_cols
+
+
 def merge_segments(name: str, segments: List[Segment],
                    device=None) -> Segment:
     """Compacting multiway merge of N segments into one; large postings
@@ -433,10 +471,14 @@ def merge_segments(name: str, segments: List[Segment],
         stored_vals = [s.stored_vals[i] if s.stored_vals else None
                        for s, m in zip(segments, live_masks)
                        for i in np.flatnonzero(m)]
+    t_geo = time.perf_counter()
+    geo_cols, shape_cols = _merge_geo(segments, live_masks, dmaps, ndocs)
+    t_geo = time.perf_counter() - t_geo
     merged = Segment(name, ndocs, postings, doc_lens, text_stats, ids,
                      sources, seq_nos=seq_nos, numeric_cols=numeric_cols,
-                     keyword_cols=keyword_cols, stored_vals=stored_vals)
-    t_host = time.perf_counter() - t0 - t_sort - t_pos
+                     keyword_cols=keyword_cols, stored_vals=stored_vals,
+                     geo_cols=geo_cols, shape_cols=shape_cols)
+    t_host = time.perf_counter() - t0 - t_sort - t_pos - t_geo
     t1 = time.perf_counter()
     if default_codec_version() >= CODEC_V2:
         # a FEATURE plane is rebuilt wherever any input carried one: the
@@ -455,5 +497,5 @@ def merge_segments(name: str, segments: List[Segment],
     LAST_MERGE.clear()
     LAST_MERGE.update(host_concat_s=t_host, sort_s=t_sort,
                       positions_s=t_pos, quantize_s=t2 - t1,
-                      vectors_s=time.perf_counter() - t2)
+                      vectors_s=time.perf_counter() - t2, geo_s=t_geo)
     return merged

@@ -51,6 +51,14 @@ columns add nothing to a dot product), `present` and, for L2, each
 row's squared norm; its balanced IVF index is built lazily from that
 matrix on first use (`ivf_on`, `ops/ann.py`) and kept on the column's
 host side, so a twin of the segment on another device reuses it.
+
+`geo_cols` holds each geo_point field's `GeoColumn` (f32 lat / lon of a
+doc's first point and a `present` mask; `geo_on` puts them on a
+device), `shape_cols` each geo_shape field's `ShapeColumn`: the host
+specs of each doc and its f64 bounding box columns, the prefilter of
+the exact host relation tests (`bbox_candidates`, `shape`). A range
+field's [lo, hi] are the numeric columns `<field>#lo` / `<field>#hi` in
+its member type's kind.
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ import numpy as np
 import torch
 
 from ..errors import NotPortedError
-from .mappings import FLOAT_TYPES, Mappings
+from .mappings import FLOAT_TYPES, RANGE_MEMBER, Mappings
 
 CODEC_V1 = 1
 CODEC_V2 = 2
@@ -379,6 +387,60 @@ class VectorColumn:
 
 
 @dataclass
+class GeoColumn:
+    """Doc values of one geo_point field: the f32 lat / lon of each doc's
+    first point (0 where `present[d]` is false)."""
+
+    field: str
+    lat: np.ndarray           # f32[ndocs]
+    lon: np.ndarray           # f32[ndocs]
+    present: np.ndarray       # bool[ndocs]
+
+
+@dataclass
+class ShapeColumn:
+    """One geo_shape field: per doc its specs (GeoJSON / WKT, or None)
+    and the bounding box of all of them in f64 columns (+-inf where
+    absent). The exact relations run on the host over the docs whose box
+    overlaps the query's (`bbox_candidates`), as in the reference."""
+
+    field: str
+    specs: list               # per doc: a list of specs, or None
+    minx: np.ndarray          # f64[ndocs]
+    miny: np.ndarray
+    maxx: np.ndarray
+    maxy: np.ndarray
+    present: np.ndarray       # bool[ndocs]
+    _parsed: Optional[list] = None     # lazily parsed Shape per doc
+
+    def shape(self, doc: int):
+        """The doc's Shape (several values merge into one collection)."""
+        from ..search.geo import Shape, parse_shape
+        if self._parsed is None:
+            self._parsed = [None] * len(self.specs)
+        s = self._parsed[doc]
+        if s is None and self.specs[doc]:
+            parts = [parse_shape(sp) for sp in self.specs[doc]]
+            if len(parts) == 1:
+                s = parts[0]
+            else:
+                s = Shape()
+                s.points = np.concatenate([p.points for p in parts])
+                for p in parts:
+                    s.lines += p.lines
+                    s.polys += p.polys
+                s.finish()
+            self._parsed[doc] = s
+        return s
+
+    def bbox_candidates(self, qbbox) -> np.ndarray:
+        """bool[ndocs]: the docs whose box overlaps the query box."""
+        qminx, qminy, qmaxx, qmaxy = qbbox
+        return (self.present & (self.minx <= qmaxx) & (self.maxx >= qminx)
+                & (self.miny <= qmaxy) & (self.maxy >= qminy))
+
+
+@dataclass
 class TextFieldStats:
     doc_count: int = 0        # docs containing this field
     sum_dl: int = 0           # total tokens across docs
@@ -398,7 +460,9 @@ class Segment:
                  numeric_cols: Optional[Dict[str, NumericColumn]] = None,
                  keyword_cols: Optional[Dict[str, KeywordColumn]] = None,
                  vector_cols: Optional[Dict[str, VectorColumn]] = None,
-                 stored_vals: Optional[list] = None):
+                 stored_vals: Optional[list] = None,
+                 geo_cols: Optional[Dict[str, GeoColumn]] = None,
+                 shape_cols: Optional[Dict[str, ShapeColumn]] = None):
         Segment._seq += 1
         self.uid = Segment._seq
         self.name = name
@@ -409,6 +473,8 @@ class Segment:
         self.numeric_cols = numeric_cols or {}
         self.keyword_cols = keyword_cols or {}
         self.vector_cols = vector_cols or {}
+        self.geo_cols = geo_cols or {}
+        self.shape_cols = shape_cols or {}
         # per doc: {field: [raw values]} of its `store: true` fields, or
         # None; None for the whole segment when no doc stores a field
         self.stored_vals = stored_vals
@@ -426,8 +492,7 @@ class Segment:
         # posting layout consult this attribute
         self.codec_version = int(codec_version)
         # search-layer caches keyed by (field, device): AlignedPostings,
-        # quality tiers and filtered views, built by search/fastpath.py,
-        # and filter masks, built by search/filters.py
+        # quality tiers and filtered views, built by search/fastpath.py
         self.aligned: dict = {}
         # the general path's device arrays (see `device_cached`)
         self.device_arrays: dict = {}
@@ -597,6 +662,18 @@ class Segment:
                     torch.from_numpy(pb.tfs).to(device), imp)
         return self.device_cached(("csr", field), device, make)
 
+    def geo_on(self, field: str, device) -> Optional[dict]:
+        """{"lat", "lon": f32[ndocs], "present": bool[ndocs]} of a
+        geo_point column on `device` (the reference's
+        `_geo_field_arrays`), or None without the column."""
+        col = self.geo_cols.get(field)
+        if col is None:
+            return None
+        return self.device_cached(("geo", field), device, lambda: {
+            "lat": torch.from_numpy(col.lat).to(device),
+            "lon": torch.from_numpy(col.lon).to(device),
+            "present": torch.from_numpy(col.present).to(device)})
+
     def vector_on(self, field: str, device) -> Optional[dict]:
         """{"mat": f32[ndocs, dims], "present": bool[ndocs], "sq":
         f32[ndocs] or None} of a vector column on `device`, or None
@@ -679,8 +756,8 @@ class Segment:
         it on the segments it replaces."""
         self.aligned = {}
         self.device_arrays = {}
-        for k in ("filter_lists", "phrase_pairs", "date_buckets",
-                  "kw_hashes"):
+        for k in ("filter_lists", "filter_mask_owner", "phrase_pairs",
+                  "date_buckets", "kw_hashes", "geo_grid_cells"):
             self.__dict__.pop(k, None)
 
     def hold(self) -> None:
@@ -709,14 +786,15 @@ class Segment:
         seq_nos, codec, postings, impact planes and their sidecars,
         numeric and keyword columns, vector columns (values, present,
         similarity and method; the IVF index is rebuilt on first use, as
-        the reference's), doc lengths and text stats, so that `load`
-        serves bit-equal pages without re-quantizing."""
+        the reference's), geo columns, shape columns (bbox and present
+        arrays, the specs in a JSON file), doc lengths and text stats, so
+        that `load` serves bit-equal pages without re-quantizing."""
         os.makedirs(path, exist_ok=True)
         arrays: Dict[str, np.ndarray] = {"live": self.live,
                                          "seq_nos": self.seq_nos}
         meta: dict = {"name": self.name, "ndocs": self.ndocs,
                       "codec": self.codec_version, "postings": {},
-                      "numeric": {}, "keyword": {}, "geo": {},
+                      "numeric": {}, "keyword": {},
                       "impacts": {},
                       "text_stats": {f: [st.doc_count, st.sum_dl]
                                      for f, st in self.text_stats.items()}}
@@ -762,6 +840,19 @@ class Segment:
             arrays[f"vec__{f}__present"] = col.present
             meta.setdefault("vector", {})[f] = {
                 "similarity": col.similarity, "method": col.method}
+        for f, col in self.geo_cols.items():
+            arrays[f"geo__{f}__lat"] = col.lat
+            arrays[f"geo__{f}__lon"] = col.lon
+            arrays[f"geo__{f}__present"] = col.present
+        meta["geo"] = sorted(self.geo_cols)
+        meta["shape"] = sorted(self.shape_cols)
+        for f, col in self.shape_cols.items():
+            arrays[f"shape__{f}__bbox"] = np.stack(
+                [col.minx, col.miny, col.maxx, col.maxy])
+            arrays[f"shape__{f}__present"] = col.present
+            with open(os.path.join(path, f"shapes__{_fname(f)}.json"),
+                      "w") as fh:
+                json.dump(col.specs, fh)
         for f, dl in self.doc_lens.items():
             arrays[f"dl__{f}"] = dl
         np.savez(os.path.join(path, "arrays.npz"), **arrays)
@@ -776,13 +867,13 @@ class Segment:
 
     @classmethod
     def load(cls, path: str) -> "Segment":
-        """A segment written by `save` (or by the reference's). Planes the
-        port does not have (geo, shapes, nested) raise NotPortedError."""
+        """A segment written by `save` (or by the reference's). A nested
+        plane, which the port does not have, raises NotPortedError."""
         with open(os.path.join(path, "meta.json")) as fh:
             meta = json.load(fh)
-        if meta.get("geo") or meta.get("shape") or meta.get("nested"):
+        if meta.get("nested"):
             raise NotPortedError("loading a segment with planes the port "
-                                 "does not have")
+                                 "does not have (nested)")
         arrays = np.load(os.path.join(path, "arrays.npz"),
                          allow_pickle=False)
         ids, sources, stored_vals = [], [], []
@@ -837,6 +928,17 @@ class Segment:
                                    m.get("similarity", "cosine"),
                                    method=m.get("method"))
                    for f, m in meta.get("vector", {}).items()}
+        geo = {f: GeoColumn(f, arrays[f"geo__{f}__lat"],
+                            arrays[f"geo__{f}__lon"],
+                            arrays[f"geo__{f}__present"])
+               for f in meta.get("geo") or ()}
+        shapes = {}
+        for f in meta.get("shape") or ():
+            with open(os.path.join(path, f"shapes__{_fname(f)}.json")) as fh:
+                specs = json.load(fh)
+            bbox = arrays[f"shape__{f}__bbox"]
+            shapes[f] = ShapeColumn(f, specs, bbox[0], bbox[1], bbox[2],
+                                    bbox[3], arrays[f"shape__{f}__present"])
         doc_lens = {k[len("dl__"):]: arrays[k] for k in arrays.files
                     if k.startswith("dl__")}
         seg = cls(meta["name"], meta["ndocs"], postings, doc_lens,
@@ -846,7 +948,8 @@ class Segment:
                   codec_version=int(meta.get("codec", CODEC_V1)),
                   numeric_cols=numeric, keyword_cols=keyword,
                   vector_cols=vectors,
-                  stored_vals=(stored_vals if any(stored_vals) else None))
+                  stored_vals=(stored_vals if any(stored_vals) else None),
+                  geo_cols=geo, shape_cols=shapes)
         seg.live = arrays["live"].copy()
         seg.id2doc = {d: i for i, d in enumerate(ids) if seg.live[i]}
         return seg
@@ -864,8 +967,13 @@ def f32_view(col: NumericColumn) -> np.ndarray:
 
 def numeric_kind(mappings: Mappings, fname: str) -> str:
     """The column kind of a numeric field (the reference's
-    `_numeric_kind`)."""
+    `_numeric_kind`): a range field's `#lo` / `#hi` column takes its
+    member type's."""
     ft = mappings.resolve_field(fname)
+    if ft is None and fname.endswith(("#lo", "#hi")):
+        rft = mappings.resolve_field(fname[:-3])
+        member = RANGE_MEMBER.get(rft.type) if rft is not None else None
+        return "float" if member in ("float", "double") else "int"
     if ft is not None and ft.type == "unsigned_long":
         return "uint"
     return "float" if ft is not None and ft.type in FLOAT_TYPES else "int"
@@ -1033,6 +1141,33 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
             fname, values, present,
             ft.vector_similarity if ft is not None else "cosine",
             method=ft.vector_method if ft is not None else None)
+    geo_cols: Dict[str, GeoColumn] = {}
+    for fname in sorted({f for pd in parsed_docs for f in pd.geos}):
+        lat = np.zeros(ndocs, dtype=np.float32)
+        lon = np.zeros(ndocs, dtype=np.float32)
+        present = np.zeros(ndocs, dtype=bool)
+        for doc_i, pd in enumerate(parsed_docs):
+            vals = pd.geos.get(fname)
+            if vals:
+                lat[doc_i], lon[doc_i] = vals[0]
+                present[doc_i] = True
+        geo_cols[fname] = GeoColumn(fname, lat, lon, present)
+    shape_cols: Dict[str, ShapeColumn] = {}
+    for fname in sorted({f for pd in parsed_docs for f in pd.shapes}):
+        specs: list = [None] * ndocs
+        box = np.empty((4, ndocs))
+        box[:2], box[2:] = np.inf, -np.inf
+        present = np.zeros(ndocs, bool)
+        for doc_i, pd in enumerate(parsed_docs):
+            vals = pd.shapes.get(fname)     # [(spec, bbox)]
+            if not vals:
+                continue
+            specs[doc_i] = [sp for sp, _bx in vals]
+            present[doc_i] = True
+            for _sp, bx in vals:
+                box[:2, doc_i] = np.minimum(box[:2, doc_i], bx[:2])
+                box[2:, doc_i] = np.maximum(box[2:, doc_i], bx[2:])
+        shape_cols[fname] = ShapeColumn(fname, specs, *box, present)
     postings = pack_postings(parsed_docs)
     feat_fields = {f for pd in parsed_docs for f in pd.features}
     for fname in sorted(feat_fields):
@@ -1043,7 +1178,8 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                   [d.source for d in parsed_docs], seq_nos=seq,
                   numeric_cols=numeric_cols, keyword_cols=keyword_cols,
                   vector_cols=vector_cols,
-                  stored_vals=stored_values(parsed_docs))
+                  stored_vals=stored_values(parsed_docs),
+                  geo_cols=geo_cols, shape_cols=shape_cols)
     if default_codec_version() >= CODEC_V2:
         seg.build_impacts(feature_fields=feature_impact_fields(
             mappings, feat_fields), device=device)

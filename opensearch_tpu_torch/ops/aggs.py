@@ -261,6 +261,28 @@ def weighted_avg_agg(v: torch.Tensor, v_present: torch.Tensor,
             torch.where(ok, weff, zero).sum(), ok.sum())
 
 
+def geo_bounds_agg(lat: torch.Tensor, lon: torch.Tensor,
+                   present: torch.Tensor, match: torch.Tensor) -> tuple:
+    """(top, bottom, left, right, count) over the matched docs with a
+    point (the reference's GeoBoundsAggregator, no longitude wrap):
+    +-F32_MAX sentinels where no doc counts."""
+    ok = match & present
+    big = torch.full((), F32_MAX, dtype=torch.float32, device=lat.device)
+    return (torch.where(ok, lat, -big).max(), torch.where(ok, lat, big).min(),
+            torch.where(ok, lon, big).min(), torch.where(ok, lon, -big).max(),
+            ok.sum())
+
+
+def geo_centroid_agg(lat: torch.Tensor, lon: torch.Tensor,
+                     present: torch.Tensor, match: torch.Tensor) -> tuple:
+    """(sum of lat f32, sum of lon f32, count) over the matched docs with
+    a point (the reference's GeoCentroidAggregator)."""
+    ok = match & present
+    zero = torch.zeros((), dtype=torch.float32, device=lat.device)
+    return (torch.where(ok, lat, zero).sum(), torch.where(ok, lon, zero).sum(),
+            ok.sum())
+
+
 def ord_counts(ords: torch.Tensor, match: torch.Tensor,
                nord: int) -> torch.Tensor:
     """i64[nord] matched docs per doc-major ordinal (multi_terms'

@@ -1,6 +1,6 @@
-"""Scoring primitives of the general query path (the BM25, feature and
-rank_feature subset of opensearch_tpu/ops/scoring.py), as plain tensor
-code on any device.
+"""Scoring primitives of the general query path (the BM25, feature,
+rank_feature and geo subset of opensearch_tpu/ops/scoring.py), as plain
+tensor code on any device.
 
 `posting_contrib` is THE per-posting f32 expression every scorer in the
 port evaluates, in this exact operation order (no fused multiply-add):
@@ -364,6 +364,76 @@ def docs_mask(docs: Sequence[int], ndocs: int,
     if len(docs):
         m[torch.as_tensor(np.asarray(docs, np.int64), device=device)] = True
     return m
+
+
+# ---------------- geo (jnp in the reference, not Pallas) ----------------
+
+EARTH_R = 6371008.8
+
+
+def f32_on(v, device) -> torch.Tensor:
+    """An f32 scalar on `device` (the reference's `_scalar_f32` param):
+    a divisor or an operand the card's kernels must not fold into a
+    reciprocal of a host scalar."""
+    return torch.tensor(np.float32(v), device=device)
+
+
+def deg2rad(x: torch.Tensor) -> torch.Tensor:
+    """x * f32(pi / 180), as `jnp.deg2rad` computes it."""
+    return x * f32_on(math.pi / 180.0, x.device)
+
+
+def haversine(p1: torch.Tensor, p2: torch.Tensor, dphi: torch.Tensor,
+              dlmb: torch.Tensor) -> torch.Tensor:
+    """Meters (f32) from radians: 2r asin(sqrt(clip(sin(dphi/2)^2 +
+    cos(p1) cos(p2) sin(dlmb/2)^2, 0, 1))), in the reference's order of
+    operations; each op rounds on its own (no fused multiply-add)."""
+    s1 = torch.sin(dphi / 2.0)
+    s2 = torch.sin(dlmb / 2.0)
+    a = s1 * s1 + torch.cos(p1) * torch.cos(p2) * (s2 * s2)
+    two_r = f32_on(2.0 * EARTH_R, a.device)
+    return two_r * torch.asin(torch.sqrt(torch.clamp(a, 0.0, 1.0)))
+
+
+def geo_distance_vec(geo: dict, lat, lon) -> torch.Tensor:
+    """f32[ndocs]: the haversine meters of each doc's point to (lat,
+    lon), the origin rounded to f32 (the reference's `geo_distance_vec`)."""
+    dev = geo["lat"].device
+    p1 = deg2rad(geo["lat"])
+    p2 = deg2rad(f32_on(lat, dev))
+    return haversine(p1, p2, p2 - p1, deg2rad(f32_on(lon, dev) - geo["lon"]))
+
+
+def geo_distance_mask(geo: dict, lat, lon, radius_m,
+                      inclusive: bool = True) -> torch.Tensor:
+    """bool[ndocs]: docs with a point within `radius_m` (f32) of (lat,
+    lon); strictly inside where not `inclusive`."""
+    d = geo_distance_vec(geo, lat, lon)
+    r = f32_on(radius_m, d.device)
+    return ((d <= r) if inclusive else (d < r)) & geo["present"]
+
+
+def point_in_polygon_mask(geo: dict, plat: np.ndarray,
+                          plon: np.ndarray) -> torch.Tensor:
+    """bool[ndocs]: the ray-cast of each doc's point against the closed
+    ring `plat` / `plon` (f32 vertices, the first repeated after the
+    last, so the edge from the last vertex closes it): a doc is inside
+    where an odd number of edges span its latitude with the crossing's
+    longitude east of it. A flat edge takes the denominator 1e-30. The
+    crossing `x1 + (y - y1) / denom * (x2 - x1)` rounds each op on its
+    own, where the reference's CPU build may contract an FMA."""
+    dev = geo["lat"].device
+    vlat = torch.from_numpy(np.asarray(plat, np.float32)).to(dev)
+    vlon = torch.from_numpy(np.asarray(plon, np.float32)).to(dev)
+    x = geo["lon"][:, None]
+    y = geo["lat"][:, None]
+    x1, y1 = vlon[None, :-1], vlat[None, :-1]
+    x2, y2 = vlon[None, 1:], vlat[None, 1:]
+    spans = ((y1 <= y) & (y < y2)) | ((y2 <= y) & (y < y1))
+    denom = torch.where(y2 == y1, f32_on(1e-30, dev), y2 - y1)
+    xin = x1 + (y - y1) / denom * (x2 - x1)
+    crossings = (spans & (x < xin)).sum(dim=1)
+    return (crossings % 2 == 1) & geo["present"]
 
 
 # ---------------- top-k ----------------

@@ -21,6 +21,11 @@ client's device: a card unless the caller asks for the CPU. With a
 commit point) under `<data_path>/<index>/0`, and a client opened on the
 same path recovers every index found there.
 
+A `geo_shape` query's `indexed_shape` ({index, id, path}) is replaced by
+the shape stored at `path` ("shape" by default) of that document before
+a search, a count or an explain parses the body, as the reference's
+client does (a missing document or path is its 400).
+
 A missing index raises `IndexNotFoundError` and creating an existing one
 `ResourceAlreadyExistsError` (`errors.py`), where the reference's client
 raises them; msearch turns a missing index into its per-body error entry.
@@ -466,6 +471,8 @@ class RestClient:
 
     def _search_deadlined(self, index: str, body: dict,
                           scroll: Optional[str]) -> dict:
+        if body.get("query") is not None:
+            body["query"] = self._resolve_shape_refs(body["query"])
         pit = body.pop("pit", None)
         try:
             if pit is not None:
@@ -598,6 +605,46 @@ class RestClient:
         resp["pit_id"] = pit_id
         return resp
 
+    def _resolve_shape_refs(self, node):
+        """A copy of the query tree with each `geo_shape` field's
+        `indexed_shape` replaced by the stored shape (the reference's
+        `_resolve_percolate_refs`, without percolate)."""
+        if isinstance(node, dict):
+            return {k: ({fk: self._resolve_indexed_shape(fv)
+                         for fk, fv in v.items()}
+                        if k == "geo_shape" and isinstance(v, dict)
+                        else self._resolve_shape_refs(v))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [self._resolve_shape_refs(v) for v in node]
+        return node
+
+    def _resolve_indexed_shape(self, spec):
+        if not (isinstance(spec, dict)
+                and isinstance(spec.get("indexed_shape"), dict)):
+            return spec
+        ref = spec["indexed_shape"]
+        if not (ref.get("index") and ref.get("id")):
+            raise ApiError(400, "parsing_exception",
+                           "[geo_shape] indexed_shape needs [index] and [id]")
+        try:
+            got = self.get(ref["index"], ref["id"],
+                           routing=ref.get("routing"))
+        except (ApiError, IndexNotFoundError):
+            raise ApiError(400, "illegal_argument_exception",
+                           f"indexed shape [{ref['index']}/{ref['id']}] "
+                           f"not found")
+        shape = got.get("_source", {})
+        for part in str(ref.get("path", "shape")).split("."):
+            shape = shape.get(part) if isinstance(shape, dict) else None
+        if shape is None:
+            raise ApiError(400, "illegal_argument_exception",
+                           f"shape path [{ref.get('path', 'shape')}] not "
+                           f"found in indexed document")
+        out = {fk: fv for fk, fv in spec.items() if fk != "indexed_shape"}
+        out["shape"] = shape
+        return out
+
     # ---------------- count, explain, validate, field caps ----------------
 
     def count(self, index: str = "_all", body: Optional[dict] = None
@@ -605,6 +652,8 @@ class RestClient:
         body = dict(body or {})
         body["size"] = 0
         body.pop("sort", None)
+        if body.get("query") is not None:
+            body["query"] = self._resolve_shape_refs(body["query"])
         svc = self._svc(index)
         resp = search_shards([svc.searcher], body, index_name=svc.name)
         return {"count": resp["hits"]["total"]["value"],
@@ -630,7 +679,9 @@ class RestClient:
             raise ApiError(404, "document_missing_exception",
                            f"[{id}] missing")
         ctx = svc.searcher.context()
-        lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
+        qdict = (self._resolve_shape_refs(body["query"])
+                 if body.get("query") is not None else None)
+        lroot = C.rewrite(dsl.parse_query(qdict), ctx)
         expl = explain_doc(lroot, loc.segment, loc.local_doc, ctx)
         return {"_index": svc.name, "_id": id,
                 "matched": expl["value"] > 0, "explanation": expl}

@@ -13,12 +13,17 @@ merged here. Served kinds:
   `multi_terms`, `rare_terms`, `significant_terms`, `significant_text`,
   `sampler`, `diversified_sampler`, `adjacency_matrix`,
   `auto_date_histogram`, `ip_range` (exact i64 bounds over an ip
-  column: `from` inclusive, `to` exclusive, a `mask` its network);
+  column: `from` inclusive, `to` exclusive, a `mask` its network),
+  `geo_distance` (rings [from, to) of f32 haversine meters from an
+  origin, in its `unit`), `geohash_grid` and `geotile_grid` (cells
+  computed on the host, ordered by count then key, cut at `size`;
+  `shard_size` is not read, as in the reference);
 - metric: `min`, `max`, `sum`, `avg`, `stats`, `extended_stats`,
   `value_count`, `cardinality` (HyperLogLog registers, log2m 14),
   `percentiles` and `percentile_ranks` (a mergeable log-binned sketch),
   `top_hits`, `weighted_avg`, `median_absolute_deviation` (over the
-  same sketch), `matrix_stats`;
+  same sketch), `matrix_stats`, `geo_bounds` (no longitude wrap; an
+  empty one is `{}`), `geo_centroid` (f32 sums over the count);
 - pipeline (host work on finalized buckets): `derivative`,
   `cumulative_sum`, `serial_diff`, `moving_avg`, `moving_fn` (the
   `MovingFunctions.*` helpers, else a painless-lite script over
@@ -78,13 +83,15 @@ PORTED_KINDS = STATS_FAMILY | {
     "significant_terms", "significant_text", "sampler",
     "diversified_sampler", "adjacency_matrix", "auto_date_histogram",
     "top_hits", "weighted_avg", "median_absolute_deviation",
-    "matrix_stats", "ip_range", "scripted_metric"}
+    "matrix_stats", "ip_range", "scripted_metric", "geo_distance",
+    "geohash_grid", "geotile_grid", "geo_bounds", "geo_centroid"}
 SERVED_PIPELINES = PIPELINE_KINDS
 # bucket kinds whose response is one doc_count + subs
 _SINGLE_BUCKET = ("filter", "global", "missing", "sampler",
                   "diversified_sampler")
 # bucket kinds keyed by value, merged by adding their buckets
-_KEYED = ("terms", "rare_terms", "multi_terms", "composite")
+_KEYED = ("terms", "rare_terms", "multi_terms", "composite",
+          "geohash_grid", "geotile_grid")
 
 # auto_date_histogram's rounding ladder: the reference's fixed-interval
 # approximation of OpenSearch's calendar ladder (a month is 30 days, a
@@ -176,8 +183,8 @@ def merge_partials(node: AggNode, partials: List[Optional[dict]]) -> dict:
         return {"buckets": _acc_buckets(node.subs, parts),
                 "interval": parts[0]["interval"],
                 "offset": parts[0].get("offset", 0.0)}
-    if kind in ("range", "date_range", "ip_range", "filters",
-                "adjacency_matrix"):
+    if kind in ("range", "date_range", "ip_range", "geo_distance",
+                "filters", "adjacency_matrix"):
         acc: Dict[Any, dict] = {}
         for p in parts:
             for key, rec in p["buckets"].items():
@@ -210,6 +217,19 @@ def merge_partials(node: AggNode, partials: List[Optional[dict]]) -> dict:
     if kind == "weighted_avg":
         return {k: sum(p[k] for p in parts)
                 for k in ("vwsum", "wsum", "count")}
+    if kind == "geo_bounds":
+        live = [p for p in parts if p["count"] > 0]
+        if not live:
+            return {"count": 0}
+        return {"count": sum(p["count"] for p in live),
+                "top": max(p["top"] for p in live),
+                "bottom": min(p["bottom"] for p in live),
+                "left": min(p["left"] for p in live),
+                "right": max(p["right"] for p in live)}
+    if kind == "geo_centroid":
+        return {"count": sum(p["count"] for p in parts),
+                "slat": sum(p.get("slat", 0.0) for p in parts),
+                "slon": sum(p.get("slon", 0.0) for p in parts)}
     if kind == "matrix_stats":
         # the shift is index-wide and the same in every non-empty
         # partial; an empty one (no column) carries zeros
@@ -358,7 +378,7 @@ def finalize(node: AggNode, merged: dict, pipelines: bool = True) -> dict:
             buckets.append(_finalize_subs(node, entry, rec["subs"],
                                           pipelines))
         return _with_pipelines(node, {"buckets": buckets}, pipelines)
-    if kind in ("range", "date_range", "ip_range"):
+    if kind in ("range", "date_range", "ip_range", "geo_distance"):
         buckets = []
         for key, rec in merged["buckets"].items():
             entry = {"key": key, "doc_count": int(rec["doc_count"])}
@@ -379,6 +399,29 @@ def finalize(node: AggNode, merged: dict, pipelines: bool = True) -> dict:
         return _finalize_significant(node, merged, pipelines)
     if kind == "composite":
         return _finalize_composite(node, merged, pipelines)
+    if kind in ("geohash_grid", "geotile_grid"):
+        items = sorted(((k, v) for k, v in merged["buckets"].items()
+                        if v["doc_count"] > 0),
+                       key=lambda kv: (-kv[1]["doc_count"], kv[0]))
+        return _with_pipelines(node, {"buckets": [
+            _finalize_subs(node, {"key": k, "doc_count": int(v["doc_count"])},
+                           v["subs"], pipelines)
+            for k, v in items[:int(body.get("size", 10000))]]}, pipelines)
+    if kind == "geo_bounds":
+        if merged.get("count", 0) == 0:
+            return {}
+        return {"bounds": {
+            "top_left": {"lat": float(merged["top"]),
+                         "lon": float(merged["left"])},
+            "bottom_right": {"lat": float(merged["bottom"]),
+                             "lon": float(merged["right"])}}}
+    if kind == "geo_centroid":
+        c = merged.get("count", 0)
+        if not c:
+            return {"count": 0}
+        return {"location": {"lat": float(merged["slat"] / c),
+                             "lon": float(merged["slon"] / c)},
+                "count": int(c)}
     if kind == "rare_terms":
         max_dc = int(body.get("max_doc_count", 1))
         items = sorted(((k, v) for k, v in merged["buckets"].items()
@@ -648,8 +691,11 @@ def _empty_result(node: AggNode) -> dict:
         return {"buckets": {}}
     if kind in ("terms", "histogram", "date_histogram", "range",
                 "date_range", "ip_range", "composite", "rare_terms", "multi_terms",
-                "adjacency_matrix", "auto_date_histogram"):
+                "adjacency_matrix", "auto_date_histogram", "geohash_grid",
+                "geotile_grid"):
         return {"buckets": []}
+    if kind == "geo_centroid":
+        return {"count": 0}
     if kind in ("significant_terms", "significant_text"):
         return {"doc_count": 0, "bg_count": 0, "buckets": []}
     if kind in _SINGLE_BUCKET:

@@ -5,7 +5,9 @@ bodies the fused kernels and the impact rung may serve.
 
 Served: `query`, `size`, `from`, `track_total_hits`, `aggs`, `sort`
 (`_score`, `_doc`, numeric and keyword fields, `order`, `missing`, several
-keys), `search_after`, `track_scores`, `min_score`, `collapse` (with
+keys, `_geo_distance` from an origin with its `unit`; `mode`,
+`distance_type` and `ignore_unmapped` are accepted and not read, as in
+the reference), `search_after`, `track_scores`, `min_score`, `collapse` (with
 `inner_hits`), `_source` (a bool, a pattern, a list or includes /
 excludes), `docvalue_fields`, `fields`, `stored_fields`, `highlight`,
 `rescore` (a rescorer or a list of them), `explain` (true: a per-hit
@@ -16,7 +18,7 @@ painless-lite script per hit). A `_script` sort key is a host script per
 doc (`executor.host_sort_values`); as the primary key, each segment
 hands the host every match, and `collapse` or `search_after` with it is
 the reference's 400. `explain: "device_plan"`, any other key, and a
-`_geo_distance` or `nested` sort, raises `NotPortedError` naming it.
+`nested` sort, raises `NotPortedError` naming it.
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ BODY_KEYS = {"query", "size", "from", "track_total_hits", "_source", "aggs",
              "terminate_after", "timeout", "allow_partial_search_results",
              "profile", "knn", "script_fields"}
 
+# the options of a `_geo_distance` sort; its other key is the geo field
+GEO_SORT_OPTS = {"order", "unit", "mode", "distance_type",
+                 "ignore_unmapped", "nested"}
+
 
 def norm_sort_specs(body: dict) -> List[dict]:
     """The body's sort as [{"field", "order"?, "missing"?}] (the
@@ -54,7 +60,8 @@ def norm_sort_specs(body: dict) -> List[dict]:
             raise dsl.QueryParseError(f"malformed sort [{s}]")
         ((f, spec),) = s.items()
         if f == "_geo_distance":
-            raise NotPortedError(f"[{f}] sort")
+            out.append(geo_sort_spec(spec))
+            continue
         if isinstance(spec, str):
             out.append({"field": f, "order": spec})
         elif isinstance(spec, dict):
@@ -64,6 +71,23 @@ def norm_sort_specs(body: dict) -> List[dict]:
         else:
             raise dsl.QueryParseError(f"malformed sort [{s}]")
     return out
+
+
+def geo_sort_spec(spec: dict) -> dict:
+    """A `_geo_distance` sort as the reference's spec: {"field":
+    "_geo_distance", "geo_field", "origin": (lat, lon), "order" (asc by
+    default), "unit" (m by default)}; a missing distance sorts last."""
+    if not isinstance(spec, dict):
+        raise dsl.QueryParseError(f"malformed sort [_geo_distance: {spec}]")
+    if spec.get("nested") is not None:
+        raise NotPortedError("[nested] sort")
+    geo_fields = [k for k in spec if k not in GEO_SORT_OPTS]
+    if len(geo_fields) != 1:
+        raise dsl.QueryParseError(
+            "[_geo_distance] sort needs exactly one geo field")
+    return {"field": "_geo_distance", "geo_field": geo_fields[0],
+            "origin": dsl.parse_geo(spec[geo_fields[0]]),
+            "order": spec.get("order", "asc"), "unit": spec.get("unit", "m")}
 
 
 def is_script_sort(specs: List[dict]) -> bool:

@@ -50,7 +50,15 @@ over the feature of the longest mapped prefix of a `rank_features` /
 `sparse_vector` field (the default saturation pivot the reference's
 arithmetic mean), a `neural_sparse` with raw `query_tokens`
 `LSparseDot` (tokens sorted, f32 weights), a `distance_feature` on a
-date field `LDistanceFeature` (any other type is the reference's 400).
+date or geo_point field `LDistanceFeature` (any other type is the
+reference's 400). A `range` on a range field becomes the constant-score
+bool of two `LRange`s over its `#lo` / `#hi` columns that its
+`relation` asks (`_range_field_node`), a `term` on one the containment
+of the value, `exists` the `#lo` column's; a term on a flat_object leaf
+path is its `path=value` term on `<root>#paths`, `exists` there a
+prefix expansion. `geo_distance`, `geo_bounding_box`, `geo_polygon` and
+`geo_shape` become `LGeoDist`, `LGeoBox`, `LGeoPolygon` and
+`LGeoShape`.
 A `hybrid` query reaching the rewrite is nested inside another query:
 the reference's 400. A `query_string` or `simple_query_string` becomes
 the DSL tree of `search/querystring.py` (no field or `*`: the text
@@ -75,10 +83,15 @@ row (`ops/scoring.feature_score`), a distance_feature the reference's
 f32 distance over the date column's (hi, lo) words, a function_score
 the reference's factors (field_value_factor and its modifiers, the
 random_score hash, a script, gauss / exp / linear decays over a
-numeric or date column's f32 view, weights) combined by score and boost
-mode, a script or script_score painless-lite's `eval_device` over the
-columns' f32 views, and a masked top-k closes it. It serves every shape
-the fused kernels and the impact rung decline.
+numeric or date column's f32 view or a geo_point's f32 haversine,
+weights) combined by score and boost mode, a script or script_score
+painless-lite's `eval_device` over the columns' f32 views, a geo node
+the haversine radius, the box or the ray-cast over `Segment.geo_on`
+(`ops/scoring.py`) or a geo_shape's exact host mask (`geo_shape_mask`),
+and a masked top-k closes it. The geo aggregations count a haversine's
+rings, bound and average the points, or count the cells of
+`geo_grid_cells` (f64 numpy on the host, once per segment). It serves
+every shape the fused kernels and the impact rung decline.
 """
 
 from __future__ import annotations
@@ -99,8 +112,10 @@ import torch
 
 from ..errors import NotPortedError
 from ..index.mappings import (FEATURE_TYPES, FLOAT_TYPES, KEYWORD_TYPES,
-                              NUMERIC_TYPES, TEXT_TYPES, Mappings,
-                              _parse_date, coerce_value, ip_to_int)
+                              NUMERIC_TYPES, RANGE_MEMBER, RANGE_TYPES,
+                              TEXT_TYPES, Mappings, _parse_date,
+                              coerce_value, ip_to_int, parse_geo,
+                              parse_range_value, range_member_coerce)
 from ..index.segment import Segment, next_pow2
 from ..models.similarity import Similarity, resolve_similarity
 from ..ops import aggs as agg_ops
@@ -386,12 +401,63 @@ class LSparseDot(LNode):
 
 @dataclass
 class LDistanceFeature(LNode):
-    """distance_feature on a date field: boost * pivot / (pivot + |t -
-    origin|), origin in epoch millis, pivot in millis."""
+    """distance_feature: boost * pivot / (pivot + distance). On a date
+    field (kind "date") the origin is epoch millis and the pivot millis;
+    on a geo_point field (kind "geo") the origin is (lat, lon) and the
+    pivot meters."""
 
     field: str = ""
-    origin: int = 0
+    kind: str = "date"
+    origin: Any = 0
     pivot: float = 0.0
+    boost: float = 1.0
+
+
+@dataclass
+class LGeoDist(LNode):
+    """geo_distance: docs whose point lies within `radius_m` of (lat,
+    lon) (strictly inside where not `inclusive`)."""
+
+    field: str = ""
+    lat: float = 0.0
+    lon: float = 0.0
+    radius_m: float = 0.0
+    boost: float = 1.0
+    inclusive: bool = True
+
+
+@dataclass
+class LGeoBox(LNode):
+    """geo_bounding_box over a geo_point column (edges inclusive)."""
+
+    field: str = ""
+    top: float = 0.0
+    left: float = 0.0
+    bottom: float = 0.0
+    right: float = 0.0
+    boost: float = 1.0
+
+
+@dataclass
+class LGeoPolygon(LNode):
+    """geo_polygon over a geo_point column: the ray-cast against the
+    ring's vertices."""
+
+    field: str = ""
+    lats: Tuple[float, ...] = ()
+    lons: Tuple[float, ...] = ()
+    boost: float = 1.0
+
+
+@dataclass
+class LGeoShape(LNode):
+    """geo_shape: a relation against a parsed `geo.Shape`, computed
+    exactly on the host per segment (`geo_shape_mask`) and uploaded as
+    a mask, as the reference does."""
+
+    field: str = ""
+    shape: Any = None
+    relation: str = "intersects"
     boost: float = 1.0
 
 
@@ -457,6 +523,30 @@ def _range_kind(ft) -> str:
     return "float" if ft.type in FLOAT_TYPES else "int"
 
 
+def _range_field_node(ft, q: dsl.RangeQuery) -> LNode:
+    """A range query on a range field (the reference's
+    `_range_field_node`): its bounds as the closed [a, b] an indexed
+    value would be, against the `#lo` / `#hi` columns by relation --
+    intersects: lo <= b and hi >= a; within: lo >= a and hi <= b;
+    contains: lo <= a and hi >= b. Constant score."""
+    kind = "float" if RANGE_MEMBER[ft.type] in ("float", "double") else "int"
+    bounds = {k: v for k, v in (("gte", q.gte), ("gt", q.gt),
+                                ("lte", q.lte), ("lt", q.lt))
+              if v is not None}
+    a, b = parse_range_value(ft, bounds)
+    lo_f, hi_f = f"{ft.name}#lo", f"{ft.name}#hi"
+    if q.relation == "within":
+        parts = [LRange(field=lo_f, kind=kind, lo=a),
+                 LRange(field=hi_f, kind=kind, hi=b)]
+    elif q.relation == "contains":
+        parts = [LRange(field=lo_f, kind=kind, hi=a),
+                 LRange(field=hi_f, kind=kind, lo=b)]
+    else:
+        parts = [LRange(field=lo_f, kind=kind, hi=b),
+                 LRange(field=hi_f, kind=kind, lo=a)]
+    return LConstScore(child=LBool(filters=parts), boost=q.boost)
+
+
 def rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool = True) -> LNode:
     """DSL tree -> plan; a clause's `_name` goes onto its node."""
     out = _rewrite(q, ctx, scoring)
@@ -482,6 +572,15 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
 
     if isinstance(q, dsl.TermQuery):
         ft = ctx.mappings.resolve_field(q.field)
+        if ft is not None and ft.type in RANGE_TYPES:
+            # containment: the stored [lo, hi] covers the value
+            member = RANGE_MEMBER[ft.type]
+            cv = range_member_coerce(member, q.value, ft)
+            kind = "float" if member in ("float", "double") else "int"
+            return LConstScore(child=LBool(filters=[
+                LRange(field=f"{ft.name}#lo", kind=kind, hi=cv),
+                LRange(field=f"{ft.name}#hi", kind=kind, lo=cv)]),
+                boost=q.boost)
         if (ft is not None and ft.type == "ip" and isinstance(q.value, str)
                 and "/" in q.value):
             return _ip_cidr_node(ft.name, q.value, q.boost)
@@ -643,6 +742,8 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
         ft = ctx.mappings.resolve_field(q.field)
         if ft is None:
             return LMatchNone()
+        if ft.type in RANGE_TYPES:
+            return _range_field_node(ft, q)
         if ft.type in KEYWORD_TYPES and ft.type != "ip":
             return LExpandTerms(field=ft.name,
                                 expander=_keyword_range_expander(ft.name, q),
@@ -664,7 +765,29 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
 
     if isinstance(q, dsl.ExistsQuery):
         ft = ctx.mappings.resolve_field(q.field)
+        if ft is not None and ft.type in RANGE_TYPES:
+            return LExists(field=f"{ft.name}#lo", boost=q.boost)
+        if ft is not None and ft.flat_prefix:
+            # a flat_object leaf exists where any "path=..." term does
+            return LExpandTerms(
+                field=ft.name,
+                expander=_prefix_expander(ft.name, f"{ft.flat_prefix}=",
+                                          False),
+                boost=q.boost)
         return LExists(field=ft.name if ft else q.field, boost=q.boost)
+
+    if isinstance(q, dsl.GeoDistanceQuery):
+        return LGeoDist(field=q.field, lat=q.lat, lon=q.lon,
+                        radius_m=q.distance_m, boost=q.boost,
+                        inclusive=q.inclusive)
+    if isinstance(q, dsl.GeoBoundingBoxQuery):
+        return LGeoBox(field=q.field, top=q.top, left=q.left,
+                       bottom=q.bottom, right=q.right, boost=q.boost)
+    if isinstance(q, dsl.GeoPolygonQuery):
+        return LGeoPolygon(field=q.field, lats=tuple(q.lats),
+                           lons=tuple(q.lons), boost=q.boost)
+    if isinstance(q, dsl.GeoShapeQuery):
+        return _geo_shape_node(q, ctx)
 
     if isinstance(q, dsl.IdsQuery):
         return LIds(ids=list(q.values), boost=q.boost)
@@ -787,7 +910,10 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
             return LDistanceFeature(
                 field=ft.name, origin=_parse_date(q.origin, ft.date_format),
                 pivot=float(parse_interval_ms(q.pivot)), boost=q.boost)
-        # geo_point fields are not ported: the mapping refuses them
+        if ft.type == "geo_point":
+            return LDistanceFeature(
+                field=ft.name, kind="geo", origin=parse_geo(q.origin),
+                pivot=dsl.parse_distance(q.pivot), boost=q.boost)
         raise dsl.QueryParseError(
             f"[distance_feature] field [{q.field}] must be a date or "
             f"geo_point field")
@@ -831,12 +957,34 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
     raise NotPortedError(f"query [{type(q).__name__}]")
 
 
+def _geo_shape_node(q: dsl.GeoShapeQuery, ctx: ShardContext) -> LNode:
+    """geo_shape on a geo_shape or geo_point field: its shape parsed (a
+    malformed one is the reference's 400); an unmapped field matches
+    nothing under `ignore_unmapped`, else is a 400."""
+    from .geo import ShapeParseError, parse_shape
+    ft = ctx.mappings.resolve_field(q.field)
+    if ft is None:
+        if q.ignore_unmapped:
+            return LMatchNone()
+        raise dsl.QueryParseError(
+            f"[geo_shape] failed to find geo field [{q.field}]")
+    if ft.type not in ("geo_shape", "geo_point"):
+        raise dsl.QueryParseError(
+            f"[geo_shape] field [{q.field}] is of type [{ft.type}], "
+            f"not geo_shape/geo_point")
+    try:
+        shape = parse_shape(q.shape)
+    except ShapeParseError as e:
+        raise dsl.QueryParseError(f"[geo_shape] {e}")
+    return LGeoShape(field=q.field, shape=shape, relation=q.relation,
+                     boost=q.boost)
+
+
 def _rewrite_query_string(q, ctx: ShardContext, scoring: bool) -> LNode:
     """query_string / simple_query_string: the string's DSL tree
     (`search/querystring.py`) through this rewrite, so a string serves
     the plan of the JSON DSL it stands for. `*` (or no field) reads every
-    text field in mapping order (the reference's list also holds
-    `annotated_text`, which the port does not map)."""
+    text field in mapping order."""
     from . import querystring as qsmod
     default_fields = q.fields or ([q.default_field]
                                   if getattr(q, "default_field", None)
@@ -959,8 +1107,13 @@ def can_match(node: LNode, seg: Segment) -> bool:
     if isinstance(node, LExists):
         f = node.field
         return (f in seg.postings or f in seg.numeric_cols
-                or f in seg.keyword_cols or f in seg.vector_cols
+                or f in seg.keyword_cols or f in seg.geo_cols
+                or f in seg.vector_cols or f in seg.shape_cols
                 or f in seg.doc_lens)
+    if isinstance(node, (LGeoDist, LGeoBox, LGeoPolygon)):
+        return node.field in seg.geo_cols
+    if isinstance(node, LGeoShape):
+        return node.field in seg.shape_cols or node.field in seg.geo_cols
     if isinstance(node, LIds):
         return any(seg.local_doc(i) >= 0 for i in node.ids)
     if isinstance(node, LSourcePhrase):
@@ -1270,8 +1423,11 @@ def _analyze_query_text(field: str, text: Any, ctx: ShardContext,
 
 def _index_term(field: str, value: Any, ctx: ShardContext) -> str:
     """Single exact term for term/terms queries: the keyword normalizer
-    applies, text fields match the raw token (reference TermQueryBuilder)."""
+    applies, text fields match the raw token (reference TermQueryBuilder);
+    a flat_object leaf path its "path=value" term."""
     ft = ctx.mappings.resolve_field(field)
+    if ft is not None and ft.flat_prefix:
+        return f"{ft.flat_prefix}={value}"
     if ft is not None and ft.type in KEYWORD_TYPES:
         norm = ctx.mappings.index_analyzer(ft).terms(str(value))
         return norm[0] if norm else str(value)
@@ -1299,7 +1455,9 @@ def rescore_cand_bucket(n: int) -> Optional[int]:
 # the general path: one plan over one segment, as torch ops
 # ---------------------------------------------------------------------
 
-STATS = {"general_served": 0}
+# general_served: bodies the general path served; geo_grid_cells_s: the
+# host seconds of the geo grids' cell caches built (their first uses)
+STATS = {"general_served": 0, "geo_grid_cells_s": 0.0}
 
 
 def reset_stats() -> None:
@@ -1439,9 +1597,10 @@ def reference_param_bytes(node: LNode, seg: Segment) -> int:
     power of two (at least 8) and its boost; a combined_fields query its
     rows per field, idf and scalars; a dis_max and a boosting their two
     scalars. The clause's scoring children count (a dis_max's, a
-    boosting's both sides, a pinned's organic); a term group's rows and
-    weights and a range's bounds are a few bytes each and are not
-    counted."""
+    boosting's both sides, a pinned's organic); a geo_shape its bool
+    mask per padded doc, a geo_polygon its padded ring; a term group's
+    rows and weights, a range's bounds and a geo node's scalars are a
+    few bytes each and are not counted."""
     if isinstance(node, LPhrase):
         pb = seg.postings.get(node.field)
         if pb is None or pb.pos_starts is None:
@@ -1489,6 +1648,13 @@ def reference_param_bytes(node: LNode, seg: Segment) -> int:
         return 4 * t_pad * (nf + 1) + 4 * nf + 8
     if isinstance(node, LScriptScore):
         return reference_param_bytes(node.child, seg)
+    if isinstance(node, LGeoShape):
+        # the host mask as a bool per padded doc, and the boost
+        return seg.ndocs_pad + 4
+    if isinstance(node, LGeoPolygon):
+        # the ring's f32 lats and lons padded to a power of two (at least
+        # 8), and the boost
+        return 8 * next_pow2(max(len(node.lats) + 1, 2), floor=8) + 4
     if isinstance(node, LFuncScore):
         return reference_param_bytes(node.child, seg) + sum(
             reference_param_bytes(f, seg) for f in node.fn_filters
@@ -1648,6 +1814,20 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
         sm = ops.feature_score(post, live, rows, nd, lambda w, ti:
                                ops.per_window(qw, ti) * w)
         return ops.ScoredMask(sm.scores * _f32(node.boost), sm.count)
+    if isinstance(node, LDistanceFeature) and node.kind == "geo":
+        geo = seg.geo_on(node.field, device)
+        if geo is None:
+            return ops.ScoredMask(zeros, zeros)
+        # the reference's order: the doc's latitude first
+        p1 = ops.deg2rad(geo["lat"])
+        p2 = ops.deg2rad(ops.f32_on(node.origin[0], device))
+        dist = ops.haversine(p1, p2, p2 - p1, ops.deg2rad(
+            ops.f32_on(node.origin[1], device) - geo["lon"]))
+        pivot = ops.f32_on(node.pivot, device)
+        mask = geo["present"] & live
+        return ops.ScoredMask(
+            torch.where(mask, ops.f32_on(node.boost, device) * pivot
+                        / (pivot + dist), zeros), mask.to(torch.float32))
     if isinstance(node, LDistanceFeature):
         split = date_split_on(seg, node.field, device)
         if split is None:
@@ -1673,13 +1853,107 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
     if isinstance(node, LScriptScore):
         child = emit(node.child, seg, ctx, device)
         env = script_env(node.ast, node.params, seg, device, child.scores)
-        scores = pl.eval_device(node.ast, env) * dev_f32(node.boost, device)
+        scores = pl.eval_device(node.ast, env) * ops.f32_on(node.boost, device)
         min_score = (node.min_score if node.min_score is not None
                      else F32_MIN)
-        matched = child.matched & (scores >= dev_f32(min_score, device))
+        matched = child.matched & (scores >= ops.f32_on(min_score, device))
         return ops.ScoredMask(torch.where(matched, scores, zeros),
                               matched.to(torch.float32))
+    if isinstance(node, (LGeoDist, LGeoBox, LGeoPolygon, LGeoShape)):
+        mask = geo_mask(node, seg, device)
+        return _flag(mask & live, node.boost)
     raise NotPortedError(f"plan [{type(node).__name__}] on the general path")
+
+
+def geo_mask(node: LNode, seg: Segment, device) -> torch.Tensor:
+    """bool[ndocs] of a geo node over `seg` (deletes ignored): the
+    haversine radius, the box (edges inclusive), the ray-cast over the
+    polygon's ring closed by its first vertex, or the host mask of a
+    geo_shape; no doc without the column."""
+    if isinstance(node, LGeoShape):
+        return torch.from_numpy(geo_shape_mask(node, seg)).to(device)
+    geo = seg.geo_on(node.field, device)
+    if geo is None:
+        return torch.zeros(seg.ndocs, dtype=torch.bool, device=device)
+    if isinstance(node, LGeoDist):
+        return ops.geo_distance_mask(geo, node.lat, node.lon, node.radius_m,
+                                     inclusive=node.inclusive)
+    if isinstance(node, LGeoBox):
+        lat, lon = geo["lat"], geo["lon"]
+        return ((lat <= ops.f32_on(node.top, device))
+                & (lat >= ops.f32_on(node.bottom, device))
+                & (lon >= ops.f32_on(node.left, device))
+                & (lon <= ops.f32_on(node.right, device)) & geo["present"])
+    lats = np.asarray(node.lats + node.lats[:1], np.float32)
+    lons = np.asarray(node.lons + node.lons[:1], np.float32)
+    return ops.point_in_polygon_mask(geo, lats, lons)
+
+
+def geo_shape_mask(node: LGeoShape, seg: Segment) -> np.ndarray:
+    """bool[ndocs] of a geo_shape relation, exact, on the host (the
+    reference's prepare): on a geo_shape field the bbox prefilter, then
+    the relation per candidate (disjoint: every present doc but those
+    that intersect); on a geo_point field the vectorized f64 point test
+    (in or on the shape for intersects / within, neither for disjoint, a
+    point query at the same f32 point for contains), run only over the
+    points inside the shape's box widened by `_edge_margin` (no point
+    outside it is in or on the shape). Built per request, as the
+    reference's prepare builds it; in filter context `filters.filter_mask`
+    caches its device copy."""
+    from . import geo as G
+    mask = np.zeros(seg.ndocs, bool)
+    col = seg.shape_cols.get(node.field)
+    gc = seg.geo_cols.get(node.field)
+    if col is not None:
+        cands = np.nonzero(col.bbox_candidates(node.shape.bbox))[0]
+        if node.relation == "disjoint":
+            mask[col.present] = True
+            for d in cands:
+                if G.intersects(col.shape(int(d)), node.shape):
+                    mask[d] = False
+        else:
+            for d in cands:
+                if G.relation_matches(col.shape(int(d)), node.shape,
+                                      node.relation):
+                    mask[d] = True
+    elif gc is not None:
+        if node.relation in ("intersects", "within", "disjoint"):
+            x0, y0, x1, y1 = node.shape.bbox
+            w = _edge_margin(node.shape)
+            lon, lat = gc.lon.astype(np.float64), gc.lat.astype(np.float64)
+            cand = np.flatnonzero(gc.present & (lon >= x0 - w)
+                                  & (lon <= x1 + w) & (lat >= y0 - w)
+                                  & (lat <= y1 + w))
+            pts = np.stack([lon[cand], lat[cand]], axis=1)
+            m = np.zeros(seg.ndocs, bool)
+            m[cand] = (G.points_in_shape(pts, node.shape)
+                       | G._points_on_edges(pts, node.shape))
+            mask = (~m if node.relation == "disjoint" else m) & gc.present
+        elif (len(node.shape.points) == 1 and not node.shape.polys
+              and not node.shape.lines):
+            qx, qy = node.shape.points[0]
+            mask = ((gc.lon == np.float32(qx)) & (gc.lat == np.float32(qy))
+                    & gc.present)
+    return mask
+
+
+def _edge_margin(shape, eps: float = 1e-9) -> float:
+    """Degrees around a shape's box beyond which no point is on one of
+    its edges under `geo._points_on_segments`' tolerance (eps scaled by
+    the edge's length, eps past its ends), with room to spare."""
+    from . import geo as G
+    a, b = G._shape_edges(shape)
+    ln = np.sqrt(((b - a) ** 2).sum(-1)) if len(a) else np.zeros(0)
+    ln = ln[ln > eps]
+    return 4 * eps * max(1.0, 1.0 / float(ln.min())) if len(ln) else 4 * eps
+
+
+def shape_key(shape) -> tuple:
+    """A hashable key of a parsed Shape: its points, lines and rings."""
+    return (shape.points.tobytes(),
+            tuple(ln.tobytes() for ln in shape.lines),
+            tuple((o.tobytes(), tuple(h.tobytes() for h in hs))
+                  for o, hs in shape.polys))
 
 
 # ---------------------------------------------------------------------
@@ -1690,11 +1964,6 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
 F32_MIN = -3.4e38
 
 
-def dev_f32(v, device) -> torch.Tensor:
-    """An f32 scalar on `device` (the reference's `_scalar_f32` param):
-    a divisor or an operand the card's kernels must not fold into a
-    reciprocal of a host scalar."""
-    return torch.tensor(np.float32(v), device=device)
 
 
 def script_param_values(params: dict) -> dict:
@@ -1757,23 +2026,39 @@ def _parse_time_ms(s) -> float:
     return float(mm.group(1)) * mult
 
 
+def parse_distance_m(s) -> float:
+    """A distance ('10km', '500m', a number of meters) in meters; a
+    malformed one is the reference's 400."""
+    try:
+        return dsl.parse_distance(s)
+    except (ValueError, TypeError):
+        raise dsl.QueryParseError(f"invalid distance [{s}]")
+
+
 def decay_params(fn: dsl.ScoreFunction, seg: Segment,
                  ctx: ShardContext) -> tuple:
-    """(field, origin, a, offset, column exists) of a gauss / exp /
+    """(field, origin, a, offset, column exists, kind) of a gauss / exp /
     linear decay (the reference's `_prepare_decay`): origin, scale and
-    offset parsed per field family (a date's origin in epoch ms, "now"
-    or none the current time; its scale and offset time values), and the
-    shape constant `a` (gauss exp(a d^2), exp exp(a d), linear
-    max(0, (a - d) / a)) computed in f64. A geo_point field raises
-    NotPortedError; a malformed value is the reference's 400."""
+    offset parsed per field family (kind "geo": a geo_point's origin
+    (lat, lon), its scale and offset distances in meters; kind "num": a
+    date's origin in epoch ms, "now" or none the current time, its scale
+    and offset time values, or a number's), and the shape constant `a`
+    (gauss exp(a d^2), exp exp(a d), linear max(0, (a - d) / a))
+    computed in f64. A malformed value is the reference's 400."""
     field = ctx.mappings.aliases.get(fn.field, fn.field)
     ft = ctx.mappings.resolve_field(field)
     ftype = ft.type if ft is not None else "float"
     shape = fn.decay_shape
-    if ftype == "geo_point":
-        raise NotPortedError(f"[{shape}] decay on a geo_point field")
+    kind = "num"
     try:
-        if ftype == "date":
+        if field in seg.geo_cols or ftype == "geo_point":
+            kind = "geo"
+            if fn.origin is None:
+                raise dsl.QueryParseError("[decay] geo requires [origin]")
+            origin = parse_geo(fn.origin)
+            scale = parse_distance_m(fn.scale)
+            offset = parse_distance_m(fn.offset or 0)
+        elif ftype == "date":
             origin = (float(time.time() * 1000)
                       if fn.origin in (None, "now")
                       else float(_parse_date(fn.origin, ft.date_format
@@ -1797,7 +2082,8 @@ def decay_params(fn: dsl.ScoreFunction, seg: Segment,
         a = math.log(decay) / scale
     else:
         a = scale / (1.0 - decay)
-    return field, origin, a, offset, field in seg.numeric_cols
+    cols = seg.geo_cols if kind == "geo" else seg.numeric_cols
+    return field, origin, a, offset, field in cols, kind
 
 
 def random_score_values(seed: int, nd: int, device) -> torch.Tensor:
@@ -1811,7 +2097,7 @@ def random_score_values(seed: int, nd: int, device) -> torch.Tensor:
     h = h ^ (h >> 16)
     h = (h * 0x45D9F3B) & m32
     h = h ^ (h >> 16)
-    return h.to(torch.float32) / dev_f32(2.0 ** 32, device)
+    return h.to(torch.float32) / ops.f32_on(2.0 ** 32, device)
 
 
 def _emit_fnscore(node: LFuncScore, seg: Segment, ctx: ShardContext,
@@ -1826,10 +2112,10 @@ def _emit_fnscore(node: LFuncScore, seg: Segment, ctx: ShardContext,
     child = emit(node.child, seg, ctx, device)
     factors = []
     for fn, filt in zip(node.functions, node.fn_filters):
-        w = dev_f32(fn.weight, device)
+        w = ops.f32_on(fn.weight, device)
         if fn.kind == "field_value_factor":
-            factor = dev_f32(fn.factor, device)
-            missing = dev_f32(fn.missing if fn.missing is not None else 1.0,
+            factor = ops.f32_on(fn.factor, device)
+            missing = ops.f32_on(fn.missing if fn.missing is not None else 1.0,
                               device)
             col = seg.f32_on(fn.field, device)
             if col is not None:
@@ -1845,12 +2131,22 @@ def _emit_fnscore(node: LFuncScore, seg: Segment, ctx: ShardContext,
                              child.scores)
             v = pl.eval_device(ast, env)
         elif fn.kind == "decay":
-            field, origin, a, offset, exists = decay_params(fn, seg, ctx)
-            a_t = dev_f32(a, device)
+            field, origin, a, offset, exists, dkind = decay_params(fn, seg,
+                                                                   ctx)
+            a_t = ops.f32_on(a, device)
             if exists:
-                vals, present = seg.f32_on(field, device)
-                d = torch.abs(vals - dev_f32(origin, device))
-                d = torch.clamp_min(d - dev_f32(offset, device), 0.0)
+                if dkind == "geo":
+                    geo = seg.geo_on(field, device)
+                    # the reference's order: the origin's latitude first
+                    p1 = ops.deg2rad(ops.f32_on(origin[0], device))
+                    p2 = ops.deg2rad(geo["lat"])
+                    d = ops.haversine(p1, p2, p2 - p1, ops.deg2rad(
+                        geo["lon"] - ops.f32_on(origin[1], device)))
+                    present = geo["present"]
+                else:
+                    vals, present = seg.f32_on(field, device)
+                    d = torch.abs(vals - ops.f32_on(origin, device))
+                d = torch.clamp_min(d - ops.f32_on(offset, device), 0.0)
                 if fn.decay_shape == "gauss":
                     v = torch.exp(a_t * d * d)
                 elif fn.decay_shape == "exp":
@@ -1873,9 +2169,9 @@ def _emit_fnscore(node: LFuncScore, seg: Segment, ctx: ShardContext,
     else:
         fac = torch.ones(nd, dtype=torch.float32, device=device)
     scores = _combine_boost(child.scores, fac, node.boost_mode, device)
-    scores = scores * dev_f32(node.boost, device)
+    scores = scores * ops.f32_on(node.boost, device)
     min_score = node.min_score if node.min_score is not None else F32_MIN
-    matched = child.matched & (scores >= dev_f32(min_score, device))
+    matched = child.matched & (scores >= ops.f32_on(min_score, device))
     scores = torch.where(matched, scores, 0.0)
     return ops.ScoredMask(scores, matched.to(torch.float32))
 
@@ -1901,7 +2197,7 @@ def apply_modifier(v: torch.Tensor, modifier: str, device) -> torch.Tensor:
     if modifier == "sqrt":
         return torch.sqrt(torch.clamp_min(v, 0.0))
     if modifier == "reciprocal":
-        return dev_f32(1.0, device) / torch.clamp_min(v, 1e-9)
+        return ops.f32_on(1.0, device) / torch.clamp_min(v, 1e-9)
     raise ValueError(f"unknown modifier [{modifier}]")
 
 
@@ -1920,7 +2216,7 @@ def _combine_factors(factors: List[torch.Tensor], mode: str,
         out = factors[0]
         for f in factors[1:]:
             out = out + f
-        return out / dev_f32(len(factors), device) if mode == "avg" else out
+        return out / ops.f32_on(len(factors), device) if mode == "avg" else out
     if mode == "max":
         out = factors[0]
         for f in factors[1:]:
@@ -1945,7 +2241,7 @@ def _combine_boost(score: torch.Tensor, factor: torch.Tensor, mode: str,
     if mode == "replace":
         return factor
     if mode == "avg":
-        return (score + factor) / dev_f32(2.0, device)
+        return (score + factor) / ops.f32_on(2.0, device)
     if mode == "max":
         return torch.maximum(score, factor)
     if mode == "min":
@@ -2284,6 +2580,16 @@ def sort_key(specs: List[dict], seg: Segment, scores: torch.Tensor,
         return -torch.arange(nd, dtype=torch.float32, device=device)
     desc = primary.get("order", "asc") == "desc"
     missing_last = primary.get("missing", "_last") == "_last"
+    miss = torch.full((), -MISSING_KEY if missing_last else MISSING_KEY,
+                      dtype=torch.float32, device=device)
+    if field == "_geo_distance":
+        # f32 haversine meters from the f32 origin; the host orders the
+        # window exactly
+        geo = seg.geo_on(primary["geo_field"], device)
+        if geo is None:
+            return miss.expand(nd)
+        dist = ops.geo_distance_vec(geo, *primary["origin"])
+        return torch.where(geo["present"], dist if desc else -dist, miss)
     if field in seg.numeric_cols:
         o = seg.sort_ords_on(field, device)
     elif field in seg.keyword_cols:
@@ -2291,8 +2597,6 @@ def sort_key(specs: List[dict], seg: Segment, scores: torch.Tensor,
     else:
         o = torch.full((nd,), -1, dtype=torch.int32, device=device)
     ords = o.to(torch.float32)
-    miss = torch.full((), -MISSING_KEY if missing_last else MISSING_KEY,
-                      dtype=torch.float32, device=device)
     return torch.where(o >= 0, ords if desc else -ords, miss)
 
 
@@ -2493,6 +2797,83 @@ def host_date_buckets(seg: Segment, field: str, interval_ms: int,
                mx - mn + 1)
     cache[key] = got
     return got
+
+
+GEOHASH_B32 = "0123456789bcdefghjkmnpqrstuvwxyz"
+
+
+def geohash_strings(codes: np.ndarray, precision: int) -> List[str]:
+    """The base-32 geohash strings of interleaved cell codes."""
+    out = []
+    for c in codes.tolist():
+        out.append("".join(
+            GEOHASH_B32[(c >> (5 * (precision - 1 - i))) & 31]
+            for i in range(precision)))
+    return out
+
+
+def geohash_codes(col, precision: int, device) -> tuple:
+    """(distinct geohash codes ascending, each doc's index into them) of
+    a GeoColumn's points (absent ones too, at (0, 0)), on `device`."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    lat = torch.from_numpy(col.lat).to(dev).to(torch.float64)
+    lon = torch.from_numpy(col.lon).to(dev).to(torch.float64)
+    nbits = 5 * precision
+    lonb, latb = (nbits + 1) // 2, nbits // 2
+    li = torch.clamp(torch.floor((lon + 180.0) / 360.0 * (1 << lonb)),
+                     0, (1 << lonb) - 1).to(torch.int64)
+    la = torch.clamp(torch.floor((lat + 90.0) / 180.0 * (1 << latb)),
+                     0, (1 << latb) - 1).to(torch.int64)
+    codes = torch.zeros_like(li)
+    for b in range(nbits):
+        src, idx = ((li, lonb - 1 - b // 2) if b % 2 == 0
+                    else (la, latb - 1 - b // 2))
+        codes = (codes << 1) | ((src >> idx) & 1)
+    uniq, inv = torch.unique(codes, sorted=True, return_inverse=True)
+    return uniq.cpu().numpy(), inv.cpu().numpy()
+
+
+def geo_grid_cells(seg: Segment, field: str, kind: str, precision: int,
+                   device=None) -> tuple:
+    """(cell keys, i32[ndocs] each doc's cell ordinal, -1 without a
+    point) of a geohash_grid / geotile_grid over a geo_point column (the
+    reference's `_geo_grid_cache`), once per (segment, field, kind,
+    precision); the device then counts ordinals. Geohash interleaves the
+    lon / lat bits, lon first, its cells computed on `device` (the CPU
+    when None) in f64 and i64: adds, a divide, a multiply by a power of
+    two and a floor, each exact or correctly rounded as numpy's, so the
+    codes are the reference's bit for bit. A tile is "z/x/y" of the Web
+    Mercator grid (latitude clipped to +-85.05112878), f64 numpy on the
+    host as in the reference."""
+    cache = seg.__dict__.setdefault("geo_grid_cells", {})
+    key = (field, kind, precision)
+    got = cache.get(key)
+    if got is not None:
+        return got
+    t0 = time.perf_counter()
+    col = seg.geo_cols.get(field)
+    ords = np.full(seg.ndocs, -1, np.int32)
+    vocab: List[str] = []
+    if col is not None and col.present.any():
+        lat = col.lat.astype(np.float64)
+        lon = col.lon.astype(np.float64)
+        if kind == "geotile_grid":
+            n = 1 << precision
+            x = np.clip(np.floor((lon + 180.0) / 360.0 * n), 0, n - 1)
+            latr = np.deg2rad(np.clip(lat, -85.05112878, 85.05112878))
+            y = np.clip(np.floor(
+                (1.0 - np.log(np.tan(latr) + 1.0 / np.cos(latr)) / np.pi)
+                / 2.0 * n), 0, n - 1)
+            codes = x.astype(np.int64) * n + y.astype(np.int64)
+            uniq, inv = np.unique(codes, return_inverse=True)
+            vocab = [f"{precision}/{int(c) // n}/{int(c) % n}" for c in uniq]
+        else:
+            uniq, inv = geohash_codes(col, precision, device)
+            vocab = geohash_strings(uniq, precision)
+        ords = np.where(col.present, inv.reshape(-1).astype(np.int32), -1)
+    cache[key] = (vocab, ords)
+    STATS["geo_grid_cells_s"] += time.perf_counter() - t0
+    return cache[key]
 
 
 def crc32_vocab_hashes(vocab) -> np.ndarray:
@@ -2718,6 +3099,70 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
             bm = match & present & (vals >= lo) & (vals < hi)
             specs = container_subs(bm, out, prefix=f"r{ri}_")
         return ("range", tuple(keys), bounds, specs), out
+
+    if kind == "geo_distance":
+        # rings from an origin: the haversine vector, then the range
+        # agg's [from, to) counts in meters
+        field = agg_field(node, ctx)
+        if "origin" not in body:
+            raise dsl.QueryParseError(
+                "[geo_distance] aggregation requires [origin]")
+        try:
+            olat, olon = parse_geo(body["origin"])
+            unit_m = dsl.parse_distance(f"1{body.get('unit', 'm')}")
+        except (ValueError, TypeError, KeyError) as e:
+            raise dsl.QueryParseError(f"[geo_distance] {e}")
+        ranges = body.get("ranges", [])
+        lows = np.full(len(ranges), -np.inf, dtype=np.float32)
+        highs = np.full(len(ranges), np.inf, dtype=np.float32)
+        keys, disp = [], []
+        for i, rg in enumerate(ranges):
+            frm, to = rg.get("from"), rg.get("to")
+            if frm is not None:
+                lows[i] = float(frm) * unit_m
+            if to is not None:
+                highs[i] = float(to) * unit_m
+            keys.append(rg.get("key", f"{frm if frm is not None else '*'}-"
+                                      f"{to if to is not None else '*'}"))
+            disp.append((float(frm) if frm is not None else float("-inf"),
+                         float(to) if to is not None else float("inf")))
+        geo = seg.geo_on(field, device)
+        if geo is None:
+            return ("geo_range", tuple(keys), tuple(disp), ()), None
+        dist = ops.geo_distance_vec(geo, olat, olon)
+        out = {"counts": agg_ops.range_counts(dist, geo["present"], match,
+                                              lows, highs)}
+        specs = ()       # the same for every bucket
+        for ri in range(len(ranges)):
+            bm = (match & geo["present"] & (dist >= float(lows[ri]))
+                  & (dist < float(highs[ri])))
+            specs = container_subs(bm, out, prefix=f"r{ri}_")
+        return ("geo_range", tuple(keys), tuple(disp), specs), out
+
+    if kind in ("geohash_grid", "geotile_grid"):
+        field = agg_field(node, ctx)
+        precision = int(body.get("precision",
+                                 5 if kind == "geohash_grid" else 7))
+        vocab, ords = geo_grid_cells(seg, field, kind, precision, device)
+        nv = max(len(vocab), 1)
+        d_ords = seg.device_cached(("gords", field, kind, precision), device,
+                                   lambda: torch.from_numpy(ords).to(device))
+        b = agg_ops.ord_buckets(d_ords, match, nv)
+        specs, out = bucketed_subs(b, nv)
+        out["counts"] = agg_ops.bucket_counts(b, nv)
+        return ("geo_grid", field, kind, precision, specs), out
+
+    if kind in ("geo_bounds", "geo_centroid"):
+        geo = seg.geo_on(agg_field(node, ctx), device)
+        if geo is None:
+            return ("geo_stat",), {"count": torch.zeros((), device=device)}
+        args = (geo["lat"], geo["lon"], geo["present"], match)
+        if kind == "geo_bounds":
+            names = ("top", "bottom", "left", "right", "count")
+            return ("geo_stat",), dict(zip(names,
+                                           agg_ops.geo_bounds_agg(*args)))
+        return ("geo_stat",), dict(zip(("slat", "slon", "count"),
+                                       agg_ops.geo_centroid_agg(*args)))
 
     if kind == "ip_range":
         field = agg_field(node, ctx)

@@ -68,6 +68,7 @@ combine scripts per segment on the host over the segment's match
 from __future__ import annotations
 
 import fnmatch
+import math
 import time
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Tuple
@@ -626,13 +627,32 @@ def _field_order(spec: dict) -> Tuple[bool, bool]:
     return desc, spec.get("missing", "_last") == "_last"
 
 
+def geo_sort_value(spec: dict, seg: Segment, doc: int) -> Optional[float]:
+    """A doc's `_geo_distance` sort value: the f64 haversine from its f32
+    point to the origin, in the spec's unit (the reference's host
+    value), or None without a point."""
+    col = seg.geo_cols.get(spec["geo_field"])
+    if col is None or not col.present[doc]:
+        return None
+    olat, olon = spec["origin"]
+    p1 = math.radians(float(col.lat[doc]))
+    p2 = math.radians(olat)
+    dl = math.radians(olon - float(col.lon[doc]))
+    a = (math.sin((p2 - p1) / 2) ** 2
+         + math.cos(p1) * math.cos(p2) * math.sin(dl / 2) ** 2)
+    dist_m = 2 * 6371008.8 * math.asin(math.sqrt(min(a, 1.0)))
+    # an unknown unit is meters, as in the reference
+    return dist_m / dsl.DISTANCE_UNITS.get(spec.get("unit", "m"), 1.0)
+
+
 def host_sort_values(specs: List[dict], seg: Segment, doc: int,
                      score: float) -> Tuple[Tuple, Tuple]:
     """(comparison tuple, ascending; the hit's raw sort values) of one
     doc (the reference's `_host_sort_values`): per key the score
-    (negated descending), the local doc, or for a field (0, value) with
-    a missing value at (1, 0) last or (-1, 0) first; then the `_id`.
-    Without a sort: (-score,), ties left to the stable sorts."""
+    (negated descending), the local doc, or for a field or a
+    `_geo_distance` (0, value) with a missing value at (1, 0) last or
+    (-1, 0) first; then the `_id`. Without a sort: (-score,), ties left
+    to the stable sorts."""
     if not specs:
         return (-score,), (score,)
     comp: list = []
@@ -647,6 +667,14 @@ def host_sort_values(specs: List[dict], seg: Segment, doc: int,
         if f == "_doc":
             comp.append(doc)
             raw.append(doc)
+            continue
+        if f == "_geo_distance":
+            v = geo_sort_value(spec, seg, doc)
+            if v is None:
+                comp.append((1 if missing_last else -1, 0.0))
+            else:
+                comp.append((0, -v if desc else v))
+            raw.append(v)
             continue
         if f == "_script":
             src_str, prm = dsl.parse_script_spec(spec.get("script"))
@@ -933,7 +961,7 @@ def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
             C.calendar_bucket_to_epoch_ms(min_b + j, calendar): rec
             for j, rec in part["buckets"].items()}
         return part
-    if kind == "range":
+    if kind in ("range", "geo_range"):
         _, keys, bounds, sub_specs = spec
         buckets = {}
         for ri, key in enumerate(keys):
@@ -948,6 +976,12 @@ def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
                             "subs": _sub_partials(node, sub_specs, out, seg,
                                                   ctx, f"r{ri}_")}
         return {"buckets": buckets}
+    if kind == "geo_grid":
+        _, field, gkind, precision, sub_flags = spec
+        vocab = C.geo_grid_cells(seg, field, gkind, precision)[0]
+        return {"buckets": _keyed_buckets(node, out, vocab, sub_flags)}
+    if kind == "geo_stat":
+        return {k: float(v) for k, v in out.items()}
     if kind == "ip_range":
         _, keys, bounds, sub_specs = spec
         counts = out["counts"]
@@ -1256,6 +1290,7 @@ def collapse_inner_hits(searchers: List[ShardSearcher], body: dict,
 
 
 ORDINAL_KINDS = {"terms", "significant_terms", "histogram", "date_histogram",
+                 "geohash_grid", "geotile_grid",
                  "composite", "rare_terms", "multi_terms",
                  "auto_date_histogram", "significant_text"}
 _WALK_CONTAINERS = {"filter", "filters", "range", "date_range", "global",
@@ -1269,6 +1304,41 @@ def _date_bucket_end(key: int, cal: Optional[str], body: dict) -> int:
             int(C.calendar_bucket_ids(np.array([key]), cal)[0]) + 1, cal)
     return key + C.parse_interval_ms(body.get(
         "fixed_interval", body.get("interval", "1d")))
+
+
+def geohash_bbox(cell: str) -> tuple:
+    """(lat lo, lat hi, lon lo, lon hi) of a geohash cell."""
+    lat_lo, lat_hi, lon_lo, lon_hi = -90.0, 90.0, -180.0, 180.0
+    is_lon = True
+    for ch in cell:
+        bits = C.GEOHASH_B32.index(ch)
+        for b in (16, 8, 4, 2, 1):
+            if is_lon:
+                mid = (lon_lo + lon_hi) / 2
+                if bits & b:
+                    lon_lo = mid
+                else:
+                    lon_hi = mid
+            else:
+                mid = (lat_lo + lat_hi) / 2
+                if bits & b:
+                    lat_lo = mid
+                else:
+                    lat_hi = mid
+            is_lon = not is_lon
+    return lat_lo, lat_hi, lon_lo, lon_hi
+
+
+def geotile_bbox(cell: str) -> tuple:
+    """(lat lo, lat hi, lon lo, lon hi) of a "z/x/y" map tile."""
+    z, x, y = (int(p) for p in cell.split("/"))
+    n = 1 << z
+
+    def lat_of(yy):
+        return math.degrees(math.atan(math.sinh(math.pi * (1 - 2 * yy / n))))
+
+    return (lat_of(y + 1), lat_of(y), x / n * 360.0 - 180.0,
+            (x + 1) / n * 360.0 - 180.0)
 
 
 def _bucket_filter(node: A.AggNode, bucket: dict) -> Optional[dict]:
@@ -1297,6 +1367,13 @@ def _bucket_filter(node: A.AggNode, bucket: dict) -> Optional[dict]:
         key = int(bucket["key"])
         return {"range": {field: {"gte": key, "lt": _date_bucket_end(
             key, body.get("calendar_interval"), body)}}}
+    if kind in ("geohash_grid", "geotile_grid"):
+        lat_lo, lat_hi, lon_lo, lon_hi = (
+            geohash_bbox(bucket["key"]) if kind == "geohash_grid"
+            else geotile_bbox(bucket["key"]))
+        return {"geo_bounding_box": {field: {
+            "top": lat_hi, "left": lon_lo, "bottom": lat_lo,
+            "right": lon_hi}}}
     if kind == "composite":
         flt = []
         for nm, stype, scfg, _ in A.composite_sources(node):
@@ -1370,6 +1447,22 @@ def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
                 rng["lt"] = bucket["to"]
             walk(bucket.get, filters + [{"range": {
                 node.body.get("field"): rng}}])
+    elif kind == "geo_distance":
+        # the device's [from, to) buckets: strictly inside `to`, and not
+        # strictly inside `from`
+        field, origin = node.body.get("field"), node.body.get("origin")
+        unit = node.body.get("unit", "m")
+        for bucket in result.get("buckets") or []:
+            flt: List[dict] = []
+            if bucket.get("to") is not None:
+                flt.append({"geo_distance": {
+                    "distance": f"{bucket['to']}{unit}", field: origin,
+                    "_inclusive": False}})
+            if bucket.get("from") is not None:
+                flt.append({"bool": {"must_not": [{"geo_distance": {
+                    "distance": f"{bucket['from']}{unit}", field: origin,
+                    "_inclusive": False}}]}})
+            walk(bucket.get, filters + flt)
     elif kind == "global":
         walk(result.get, [], None)
     elif kind == "missing":

@@ -27,7 +27,10 @@ Served nodes:
   lists) that its own filter matches;
 - `LRankFeature`: the docs holding its feature (a column: a value);
   `LSparseDot`: the docs holding any of its tokens; `LDistanceFeature`:
-  the docs with a date;
+  the docs with a date or a geo point;
+- `LGeoDist`, `LGeoBox`, `LGeoPolygon`: the geo_point docs inside the
+  radius, the box or the ring (`compiler.geo_mask`); `LGeoShape`: the
+  host mask of its relation (`compiler.geo_shape_mask`);
 - `LScriptFilter`: the docs where the script's value is nonzero, the
   script evaluated over the segment's f32 columns (`eval_device`);
   `LScriptScore` and `LFuncScore`: the docs their own emit matches (the
@@ -39,11 +42,13 @@ delete leaves the cached masks valid (the function_score and
 script_score masks hold the live mask of their first use: a later
 delete only clears docs the consumer's live mask clears too).
 
-Masks are cached per (segment, device) under a structural key made of
-what the reference's mask-cache digest hashes: a term group's rows,
-weights, msm, avgdl, boost, similarity and mode; a range's kind, its
-i64 or f32 bounds, flags and boost; a bool's msm, boost and children. Clauses the reference
-caches as one mask share one mask here. A phrase's key is its term rows,
+Masks are cached per (segment, device), least recently used first out,
+in one cache bounded by bytes (`FILTER_MASK_MAX_BYTES`, the reference's
+`_FILTER_MASK_MAX_BYTES`), under a structural key made of what the
+reference's mask-cache digest hashes: a term group's rows, weights,
+msm, avgdl, boost, similarity and mode; a range's kind, its i64 or f32
+bounds, flags and boost; a bool's msm, boost and children. Clauses the
+reference caches as one mask share one mask here. A phrase's key is its term rows,
 slop and cost mode, an expansion's its rows; a compound node's key holds
 what its mask reads (a dis_max's children, a boosting's positive side,
 a terms_set's minimum field and term group, a pinned query's docs and
@@ -51,10 +56,18 @@ organic clause, a combined_fields query's weighted fields, rows and
 msm, a kNN node's field, its filter and, on the IVF route, its vector
 and nprobe; a script's AST and f32 params; a function_score's child,
 modes, min_score, boost and each function's kind, f32 parameters and
-filter; a terms_set script's source, params and term count).
+filter; a terms_set script's source, params and term count; a geo
+node's field and its parameters as f32 where the reference ships them
+as f32 scalars or vertices (a radius's `inclusive` flag beside them), a
+geo_shape's relation and shape). A segment's masks leave the cache
+when it releases its device state or is collected.
 """
 
 from __future__ import annotations
+
+import collections
+import itertools
+import weakref
 
 import numpy as np
 import torch
@@ -66,6 +79,15 @@ from . import compiler as C
 
 I64_MIN = -(2**63)
 I64_MAX = 2**63 - 1
+
+# the reference's filter-mask cache bound (IndicesQueryCache's): a body
+# whose masks are its own (a locator's origin, a viewport's box, a grid
+# bucket's refinement box) cannot grow the cache past it
+FILTER_MASK_MAX_BYTES = 256 << 20
+# (segment owner, key, device) -> bool[ndocs], least recently used first
+_MASKS: collections.OrderedDict = collections.OrderedDict()
+_MASK_BYTES = [0]
+_OWNERS = itertools.count()
 
 
 def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
@@ -153,6 +175,19 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
                 else tuple(pb.row(t) for t in node.tokens))
     if isinstance(node, C.LDistanceFeature):
         return ("distance_feature", node.field)
+    if isinstance(node, C.LGeoDist):
+        return ("geo_distance", node.field, _f32s(node.lat, node.lon,
+                                                  node.radius_m),
+                node.inclusive)
+    if isinstance(node, C.LGeoBox):
+        return ("geo_box", node.field, _f32s(node.top, node.left,
+                                             node.bottom, node.right))
+    if isinstance(node, C.LGeoPolygon):
+        return ("geo_polygon", node.field, _f32s(*node.lats),
+                _f32s(*node.lons))
+    if isinstance(node, C.LGeoShape):
+        return ("geo_shape", node.field, node.relation,
+                C.shape_key(node.shape))
     if isinstance(node, C.LScriptFilter):
         return ("script", node.ast, _script_params_key(node.params))
     if isinstance(node, C.LScriptScore):
@@ -166,6 +201,10 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
                 node.score_mode, node.boost_mode,
                 _f32_or_min(node.min_score), float(np.float32(node.boost)))
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
+
+
+def _f32s(*vals) -> tuple:
+    return tuple(float(np.float32(v)) for v in vals)
 
 
 def _script_params_key(params: dict) -> tuple:
@@ -192,8 +231,9 @@ def _function_key(fn, filt, seg, ctx) -> tuple:
     elif fn.kind == "script_score":
         what = (fn.script, _script_params_key(fn.script_params or {}))
     elif fn.kind == "decay":
-        field, origin, a, offset, exists = C.decay_params(fn, seg, ctx)
-        what = (fn.decay_shape, field, float(np.float32(origin)),
+        field, origin, a, offset, exists, kind = C.decay_params(fn, seg, ctx)
+        what = (fn.decay_shape, field,
+                _f32s(*origin) if kind == "geo" else _f32s(origin),
                 float(np.float32(a)), float(np.float32(offset)), exists)
     else:
         what = ()
@@ -201,15 +241,56 @@ def _function_key(fn, filt, seg, ctx) -> tuple:
             None if filt is None else mask_key(filt, seg, ctx))
 
 
+class _MaskOwner:
+    """A segment's handle on its cached masks: they leave the cache when
+    the segment drops the handle (`Segment.release_device`) or is
+    collected."""
+
+    __slots__ = ("n", "__weakref__")
+
+    def __init__(self):
+        self.n = next(_OWNERS)
+        weakref.finalize(self, _purge, self.n)
+
+
+def _purge(owner: int) -> None:
+    for k in [k for k in _MASKS if k[0] == owner]:
+        _MASK_BYTES[0] -= _nbytes(_MASKS.pop(k))
+
+
+def _nbytes(mask: torch.Tensor) -> int:
+    return mask.numel() * mask.element_size()
+
+
+def mask_cache_stats(device=None) -> dict:
+    """The mask cache's entries and bytes (the reference's
+    `filter_mask_cache_stats`), and the bytes of its masks on `device`
+    where one is given."""
+    out = {"entries": len(_MASKS), "bytes": _MASK_BYTES[0],
+           "max_bytes": FILTER_MASK_MAX_BYTES}
+    if device is not None:
+        out["device_bytes"] = sum(_nbytes(m) for k, m in _MASKS.items()
+                                  if k[2] == str(device))
+    return out
+
+
 def filter_mask(node: C.LNode, seg, ctx: C.ShardContext,
                 device: torch.device) -> torch.Tensor:
     """bool[ndocs] on `device`: the docs of `seg` that `node` matches,
-    cached per segment and device."""
-    key = ("mask", mask_key(node, seg, ctx), str(device))
-    mask = seg.aligned.get(key)
-    if mask is None:
-        mask = _mask(node, seg, ctx, device)
-        seg.aligned[key] = mask
+    cached per segment and device under the byte bound."""
+    owner = seg.__dict__.get("filter_mask_owner")
+    if owner is None:
+        owner = seg.__dict__["filter_mask_owner"] = _MaskOwner()
+    key = (owner.n, mask_key(node, seg, ctx), str(device))
+    mask = _MASKS.get(key)
+    if mask is not None:
+        _MASKS.move_to_end(key)
+        return mask
+    mask = _mask(node, seg, ctx, device)
+    _MASKS[key] = mask
+    _MASK_BYTES[0] += _nbytes(mask)
+    while _MASK_BYTES[0] > FILTER_MASK_MAX_BYTES and len(_MASKS) > 1:
+        _MASK_BYTES[0] -= _nbytes(_MASKS.popitem(last=False)[1])
     return mask
 
 
@@ -303,9 +384,10 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
         return ops.term_match_mask(post, torch.ones(nd, dtype=torch.bool,
                                                     device=device), rows, nd)
     if isinstance(node, C.LDistanceFeature):
-        col = seg.numeric_on(node.field, device)
-        return (torch.zeros(nd, dtype=torch.bool, device=device)
-                if col is None else col[1])
+        return present_mask(node.field, seg, device)
+    if isinstance(node, (C.LGeoDist, C.LGeoBox, C.LGeoPolygon,
+                         C.LGeoShape)):
+        return C.geo_mask(node, seg, device)
     if isinstance(node, C.LScriptFilter):
         return C.script_filter_mask(node, seg, device)
     if isinstance(node, (C.LScriptScore, C.LFuncScore)):
@@ -361,9 +443,10 @@ def range_mask(node: C.LRange, seg, device: torch.device):
 def present_mask(field: str, seg, device: torch.device) -> torch.Tensor:
     """bool[ndocs]: the docs of `seg` with a value in `field`, as the
     reference's `exists` reads them: a numeric column's present flags, a
-    keyword column's docs with a value, a text field's nonzero doc
-    lengths, else no doc (a keyword field without doc values). Cached per
-    segment and device."""
+    keyword column's docs with a value, a geo_point column's present
+    flags, a text field's nonzero doc lengths, else no doc (a keyword
+    field without doc values, a geo_shape field). Cached per segment and
+    device."""
     def make():
         col = seg.numeric_on(field, device)
         if col is not None:
@@ -371,6 +454,9 @@ def present_mask(field: str, seg, device: torch.device) -> torch.Tensor:
         kw = seg.keyword_on(field, device)
         if kw is not None:
             return kw[2] >= 0
+        geo = seg.geo_on(field, device)
+        if geo is not None:
+            return geo["present"]
         if field in seg.doc_lens:
             return torch.from_numpy(seg.doc_lens[field] > 0).to(device)
         return torch.zeros(seg.ndocs, dtype=torch.bool, device=device)

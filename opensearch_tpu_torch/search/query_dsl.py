@@ -4,9 +4,13 @@ match_bool_prefix, match_phrase, match_phrase_prefix, span_term,
 span_near, intervals, bool, constant_score, boosting, dis_max, pinned,
 wrapper, range, exists, ids, prefix, wildcard, regexp, fuzzy, knn,
 rank_feature, distance_feature, neural_sparse (raw `query_tokens` only),
-hybrid, query_string, simple_query_string, function_score, script and
-script_score subset of opensearch_tpu/search/query_dsl.py). A body
-without a query is `match_all`. A script is painless-lite source with
+hybrid, query_string, simple_query_string, function_score, script,
+script_score, geo_distance, geo_bounding_box, geo_polygon and geo_shape
+subset of opensearch_tpu/search/query_dsl.py). A distance parses with its
+unit (`parse_distance`), a point from every form the reference accepts
+(`index.mappings.parse_geo`); a `geo_shape` body's `indexed_shape` is
+resolved by the client before the parse. A body without a query is
+`match_all`. A script is painless-lite source with
 its params (`parse_script_spec`); the strings' grammars live in
 `search/querystring.py`. A clause's `_name` is kept for `matched_queries`; a
 `wrapper` is its base64 JSON query, parsed again (its own `boost` and
@@ -28,6 +32,7 @@ from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..errors import NotPortedError
+from ..index.mappings import parse_geo
 
 
 class QueryParseError(ValueError):
@@ -263,8 +268,43 @@ class RankFeatureQuery(Query):
 
 
 @dataclass
+class GeoDistanceQuery(Query):
+    field: str = ""
+    lat: float = 0.0
+    lon: float = 0.0
+    distance_m: float = 0.0
+    # `_inclusive` false: a strict < at the radius
+    inclusive: bool = True
+
+
+@dataclass
+class GeoBoundingBoxQuery(Query):
+    field: str = ""
+    top: float = 0.0
+    left: float = 0.0
+    bottom: float = 0.0
+    right: float = 0.0
+
+
+@dataclass
+class GeoPolygonQuery(Query):
+    field: str = ""
+    # vertex lists, parallel (lat[i], lon[i])
+    lats: List[float] = dc_field(default_factory=list)
+    lons: List[float] = dc_field(default_factory=list)
+
+
+@dataclass
+class GeoShapeQuery(Query):
+    field: str = ""
+    shape: Any = None              # GeoJSON dict or WKT string
+    relation: str = "intersects"   # intersects | disjoint | within | contains
+    ignore_unmapped: bool = False
+
+
+@dataclass
 class DistanceFeatureQuery(Query):
-    """boost * pivot / (pivot + distance) on a date field."""
+    """boost * pivot / (pivot + distance) on a date or geo_point field."""
 
     field: str = ""
     origin: Any = None
@@ -766,6 +806,69 @@ def parse_query(dsl: Optional[dict]) -> Query:
         _common(q, body)
         return q
 
+    if kind == "geo_distance":
+        dist = parse_distance(body["distance"])
+        fields = [(k, v) for k, v in body.items()
+                  if k not in ("distance", "boost", "_name",
+                               "validation_method", "_inclusive")]
+        f, point = fields[0]
+        lat, lon = parse_geo(point)
+        q = GeoDistanceQuery(field=f, lat=lat, lon=lon, distance_m=dist,
+                             inclusive=bool(body.get("_inclusive", True)))
+        _common(q, body)
+        return q
+
+    if kind == "geo_bounding_box":
+        fields = [(k, v) for k, v in body.items()
+                  if k not in ("boost", "_name", "validation_method")]
+        f, box = fields[0]
+        tl = box.get("top_left")
+        if tl is not None:
+            tlat, tlon = parse_geo(tl)
+            blat, blon = parse_geo(box.get("bottom_right"))
+        else:
+            tlat, tlon, blat, blon = (box["top"], box["left"],
+                                      box["bottom"], box["right"])
+        q = GeoBoundingBoxQuery(field=f, top=tlat, left=tlon, bottom=blat,
+                                right=blon)
+        _common(q, body)
+        return q
+
+    if kind == "geo_polygon":
+        fields = [(k, v) for k, v in body.items()
+                  if k not in ("boost", "_name", "validation_method")]
+        if not fields or not isinstance(fields[0][1], dict):
+            raise QueryParseError("[geo_polygon] requires a field with "
+                                  "a [points] object")
+        f, spec = fields[0]
+        pts = [parse_geo(p) for p in spec.get("points", [])]
+        if len(pts) < 3:
+            raise QueryParseError(
+                "[geo_polygon] requires at least 3 points")
+        q = GeoPolygonQuery(field=f, lats=[p[0] for p in pts],
+                            lons=[p[1] for p in pts])
+        _common(q, body)
+        return q
+
+    if kind == "geo_shape":
+        fields = [(k, v) for k, v in body.items()
+                  if k not in ("boost", "_name", "ignore_unmapped")]
+        if not fields:
+            raise QueryParseError("[geo_shape] requires a field")
+        f, spec = fields[0]
+        shape = spec.get("shape", spec.get("indexed_shape"))
+        if shape is None:
+            raise QueryParseError(
+                "[geo_shape] requires [shape] (or a resolved [indexed_shape])")
+        rel = str(spec.get("relation", "intersects")).lower()
+        if rel not in ("intersects", "disjoint", "within", "contains"):
+            raise QueryParseError(f"[geo_shape] unknown relation [{rel}]")
+        q = GeoShapeQuery(field=f, shape=shape, relation=rel,
+                          ignore_unmapped=bool(body.get("ignore_unmapped",
+                                                        False)))
+        _common(q, body)
+        return q
+
     if kind in REFERENCE_KINDS:
         raise NotPortedError(f"query [{kind}]")
     raise QueryParseError(f"unknown query [{kind}]")
@@ -823,9 +926,8 @@ def parse_fusion_spec(spec, n_sub: int) -> Dict[str, Any]:
 # `parse_query`); any kind outside them and the port's is unknown there too
 REFERENCE_KINDS = frozenset((
     "span_or", "span_not", "span_first", "span_containing", "span_within",
-    "span_multi", "field_masking_span", "geo_distance",
-    "geo_bounding_box", "geo_polygon", "geo_shape", "more_like_this",
-    "nested", "has_child", "has_parent", "parent_id", "percolate"))
+    "span_multi", "field_masking_span", "more_like_this", "nested",
+    "has_child", "has_parent", "parent_id", "percolate"))
 
 
 _INTERVAL_RULES = ("match", "prefix", "wildcard", "fuzzy", "all_of",
@@ -869,6 +971,26 @@ def parse_interval_rule(spec: dict) -> IntervalRule:
         rule.filter_kind = fk[0]
         parse_interval_rule(filt[fk[0]])
     return rule
+
+
+# meters per distance unit (the reference's DistanceUnit), longest
+# suffix first
+DISTANCE_UNITS = {"nauticalmiles": 1852.0, "kilometers": 1000.0,
+                  "meters": 1.0, "miles": 1609.344, "nmi": 1852.0,
+                  "km": 1000.0, "mi": 1609.344, "yd": 0.9144, "ft": 0.3048,
+                  "in": 0.0254, "mm": 0.001, "cm": 0.01, "m": 1.0}
+
+
+def parse_distance(d) -> float:
+    """'5km', '100m', '2mi' -> meters (the reference's DistanceUnit). The
+    longest suffix wins ('5nmi' is nautical miles, not '5n' miles)."""
+    if isinstance(d, (int, float)):
+        return float(d)
+    s = str(d).strip().lower()
+    for suf, mult in DISTANCE_UNITS.items():
+        if s.endswith(suf):
+            return float(s[: -len(suf)]) * mult
+    return float(s)
 
 
 def parse_script_spec(spec) -> Tuple[str, dict]:

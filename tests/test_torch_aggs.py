@@ -538,26 +538,35 @@ def test_deep_agg_bodies(deep_clients, i):
     assert_same(port.search("t", body), ref.search("t", body), body)
 
 
-# tests/test_aggs_extended.py: its logs data (its geo_point field left
-# out: the port has no geo fields) and bodies over ported kinds
+# tests/test_aggs_extended.py: its logs data (its geo_point `pos` too)
+# and bodies over ported kinds
 LOGS_MAPPING = {"properties": {"msg": {"type": "text"},
                                "service": {"type": "keyword"},
                                "level": {"type": "keyword"},
                                "latency": {"type": "double"},
                                "bytes": {"type": "double"},
-                               "day": {"type": "integer"}}}
+                               "day": {"type": "integer"},
+                               "pos": {"type": "geo_point"}}}
 LOGS_ROWS = [(str(i), {"msg": m, "service": sv, "level": lv, "latency": la,
-                       "bytes": by, "day": d})
-             for i, (m, sv, lv, la, by, d) in enumerate([
-                 ("error timeout", "svc-b", "error", 90.0, 900.0, 1),
-                 ("error crash bang", "svc-b", "error", 80.0, 800.0, 1),
-                 ("error disk full today", "svc-b", "error", 85.0, 850.0, 1),
-                 ("ok request", "svc-a", "info", 10.0, 100.0, 2),
-                 ("ok request", "svc-a", "info", 12.0, 120.0, 2),
-                 ("ok request", "svc-c", "info", 11.0, 110.0, 3),
-                 ("ok request", "svc-b", "info", 13.0, 130.0, 3),
+                       "bytes": by, "day": d,
+                       "pos": {"lat": plat, "lon": plon}})
+             for i, (m, sv, lv, la, by, d, (plat, plon)) in enumerate([
+                 ("error timeout", "svc-b", "error", 90.0, 900.0, 1,
+                  (52.37, 4.89)),
+                 ("error crash bang", "svc-b", "error", 80.0, 800.0, 1,
+                  (52.38, 4.90)),
+                 ("error disk full today", "svc-b", "error", 85.0, 850.0, 1,
+                  (52.52, 13.40)),
+                 ("ok request", "svc-a", "info", 10.0, 100.0, 2,
+                  (48.85, 2.35)),
+                 ("ok request", "svc-a", "info", 12.0, 120.0, 2,
+                  (48.86, 2.35)),
+                 ("ok request", "svc-c", "info", 11.0, 110.0, 3,
+                  (40.71, -74.00)),
+                 ("ok request", "svc-b", "info", 13.0, 130.0, 3,
+                  (40.72, -74.01)),
                  ("error timeout woes in the late afternoon", "svc-a",
-                  "error", 95.0, 950.0, 4)])]
+                  "error", 95.0, 950.0, 4, (52.37, 4.89))])]
 LOGS_BODIES = [
     {"size": 0, "aggs": {"h": {"histogram": {"field": "day", "interval": 1},
                                "aggs": {"lat": {"avg": {"field": "latency"}},
@@ -569,6 +578,16 @@ LOGS_BODIES = [
      "aggs": {"p": {"percentiles": {"field": "latency",
                                     "percents": [50.0, 100.0]}},
               "e": {"extended_stats": {"field": "bytes"}}}},
+    {"size": 0, "aggs": {"g": {"geohash_grid": {"field": "pos",
+                                                "precision": 3}}}},
+    {"size": 0, "aggs": {"g": {"geotile_grid": {"field": "pos",
+                                                "precision": 8}}}},
+    {"size": 0, "aggs": {"g": {"geohash_grid": {"field": "pos",
+                                                "precision": 5,
+                                                "size": 2}}}},
+    {"size": 0, "query": {"term": {"level": "error"}},
+     "aggs": {"g": {"geohash_grid": {"field": "pos", "precision": 1},
+                    "aggs": {"l": {"avg": {"field": "latency"}}}}}},
 ]
 
 
@@ -784,10 +803,11 @@ def test_seeded_bodies_after_a_forcemerge_and_in_msearch():
 def test_unported_kinds_raise(seeded_clients, aggs, name):
     """The kinds still unported raise NotPortedError naming them; the
     script kinds (scripted_metric, bucket_script, bucket_selector, a
-    scripted moving_fn) serve the reference's response."""
+    scripted moving_fn) and the geo kinds (over the unmapped `g`: empty
+    in both) serve the reference's response."""
     ref, port = seeded_clients
     body = {"size": 0, "aggs": aggs}
-    if name in SCRIPT_KINDS:
+    if name in SCRIPT_KINDS + GEO_KINDS:
         assert_same(port.search("s", body), ref.search("s", body), body)
         return
     with pytest.raises(NotPortedError, match=name):
@@ -796,6 +816,7 @@ def test_unported_kinds_raise(seeded_clients, aggs, name):
 
 SCRIPT_KINDS = ("scripted_metric", "bucket_script", "bucket_selector",
                 "moving_fn")
+GEO_KINDS = ("geo_distance", "geotile_grid", "geohash_grid", "geo_bounds")
 
 
 @pytest.mark.parametrize("aggs", [

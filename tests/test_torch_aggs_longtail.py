@@ -10,8 +10,8 @@ against the JAX package on the CPU.
   sampler and the diversified rounds, which it computes inline there).
 - End to end: the bodies of tests/test_aggs_longtail.py,
   test_aggs_extended.py, test_aggregations.py's pipeline and root
-  top_hits tests and test_aggs_deep.py over the served kinds (their ip
-  and geo fields left out: the port has neither), and a seeded set over
+  top_hits tests and test_aggs_deep.py over the served kinds (with
+  their ip and geo_point fields), and a seeded set over
   three segments with deletes, through both RestClients, over one and
   two segments, after a forcemerge and in msearch; a composite paged to
   its end.
@@ -317,22 +317,30 @@ def both(clients, body, index="t"):
 
 
 # tests/test_aggs_longtail.py's shop data (its ip and geo_point fields
-# left out) and its bodies over the served kinds
+# too) and its bodies over the served kinds
 SHOP_MAPPING = {"properties": {
     "desc": {"type": "text"}, "grade": {"type": "double"},
     "weight": {"type": "double"}, "brand": {"type": "keyword"},
-    "color": {"type": "keyword"}, "ts": {"type": "date"},
+    "color": {"type": "keyword"}, "ip": {"type": "ip"},
+    "loc": {"type": "geo_point"}, "ts": {"type": "date"},
     "price": {"type": "long"}}}
 SHOP_ROWS = []
-for _did, _g, _w, _b, _c, _ts, _p in [
-        ("1", 1.0, 2.0, "acme", "red", "2026-01-01", 10),
-        ("2", 2.0, 3.0, "acme", "blue", "2026-01-02", 20),
-        ("3", 3.0, 1.0, "bolt", "red", "2026-01-05", 10),
-        ("4", 4.0, 4.0, "bolt", "green", "2026-02-01", 30),
-        ("5", 5.0, None, "cork", "blue", "2026-02-15", 20),
-        ("6", 2.5, 2.0, "dune", "red", "2026-03-01", 40)]:
+for _did, _g, _w, _b, _c, _ip, (_lat, _lon), _ts, _p in [
+        ("1", 1.0, 2.0, "acme", "red", "10.0.0.1", (10, 20), "2026-01-01",
+         10),
+        ("2", 2.0, 3.0, "acme", "blue", "10.0.0.200", (12, 22), "2026-01-02",
+         20),
+        ("3", 3.0, 1.0, "bolt", "red", "10.0.1.1", (-5, 30), "2026-01-05",
+         10),
+        ("4", 4.0, 4.0, "bolt", "green", "192.168.1.7", (8, -10),
+         "2026-02-01", 30),
+        ("5", 5.0, None, "cork", "blue", "10.0.0.17", (0, 0), "2026-02-15",
+         20),
+        ("6", 2.5, 2.0, "dune", "red", "10.0.0.42", (3, 4), "2026-03-01",
+         40)]:
     _src = {"desc": "widget thing", "grade": _g, "brand": _b, "color": _c,
-            "ts": _ts, "price": _p}
+            "ip": _ip, "loc": {"lat": _lat, "lon": _lon}, "ts": _ts,
+            "price": _p}
     if _w is not None:
         _src["weight"] = _w
     SHOP_ROWS.append((_did, _src))
@@ -396,6 +404,15 @@ SHOP_BODIES = [
             "aggs": {"th": {"top_hits": {"size": 1}}}}}, None),
     ({"h": {"terms": {"field": "brand"}},
       "x": {"avg_bucket": {"buckets_path": "h>_count"}}}, None),
+    ({"b": {"geo_bounds": {"field": "loc"}}}, None),
+    ({"b": {"geo_bounds": {"field": "loc"}}}, {"term": {"color": "red"}}),
+    ({"cen": {"geo_centroid": {"field": "loc"}}}, None),
+    ({"t": {"terms": {"field": "brand"},
+            "aggs": {"cen": {"geo_centroid": {"field": "loc"}}}}}, None),
+    ({"ips": {"ip_range": {"field": "ip", "ranges": [
+        {"to": "10.0.0.100"}, {"from": "10.0.0.100"}]}}}, None),
+    ({"ips": {"ip_range": {"field": "ip", "ranges": [
+        {"mask": "10.0.0.0/24"}, {"mask": "192.168.0.0/16"}]}}}, None),
 ]
 
 
@@ -418,14 +435,9 @@ def test_longtail_bodies(shop, i):
     both(shop, body, "shop")
 
 
-# tests/test_aggs_extended.py's logs data (its geo_point left out): the
+# tests/test_aggs_extended.py's logs data (its geo_point `pos` too): the
 # pipelines, significant_terms, the sampler, matrix_stats
-LOGS_MAPPING = {"properties": {"msg": {"type": "text"},
-                               "service": {"type": "keyword"},
-                               "level": {"type": "keyword"},
-                               "latency": {"type": "double"},
-                               "bytes": {"type": "double"},
-                               "day": {"type": "integer"}}}
+LOGS_MAPPING = TA.LOGS_MAPPING
 LOGS_ROWS = TA.LOGS_ROWS
 
 

@@ -466,7 +466,7 @@ def test_numeric_values_out_of_range_and_unported_types_raise():
         "i": {"type": "integer"}}}})
     with pytest.raises(ApiError, match="out of range"):
         port.index("x", {"i": 2**31}, id="1")
-    for ftype in ("integer_range", "flat_object", "annotated_text"):
+    for ftype in ("nested", "join", "percolator", "star_tree"):
         with pytest.raises(NotPortedError, match=ftype):
             RestClient(device="cpu").indices.create("y", {"mappings": {
                 "properties": {"v": {"type": ftype}}}})

@@ -361,8 +361,8 @@ def test_unported_planes_raise():
     docs = make_docs(40, seed=4)
     port = write_script(docs, 2)(RestClient(device="cpu"))
     s0, s1 = segs(port, False)
-    s1.geo_cols = {"loc": object()}
-    with pytest.raises(NotPortedError, match="geo_cols"):
+    s1.nested = {"loc": object()}
+    with pytest.raises(NotPortedError, match="nested"):
         merge.merge_segments("_m", [s0, s1])
 
 

@@ -524,13 +524,25 @@ def test_unknown_modes_raise_the_reference_value_error(clients):
 
 
 def test_decay_on_a_geo_point_field_is_not_ported():
-    port = RestClient(device="cpu")
-    port.index("g", {"name": "x"}, id="1", refresh=True)
-    port._indices["g"].engine.mappings.fields["name"].type = "geo_point"
-    from opensearch_tpu_torch import NotPortedError
-    with pytest.raises(NotPortedError, match="geo_point"):
-        port.search("g", {"query": {"function_score": {"gauss": {
-            "name": {"origin": "0,0", "scale": "1km"}}}}})
+    """Geo decays are ported since the geo slice: the same body over a
+    geo_point field gives the reference's page, scores within RTOL_T (a
+    transcendental enters: the f32 haversine and exp)."""
+    points = np.random.default_rng(4).uniform(-1, 1, (60, 2))
+    pages = []
+    for c in (RefClient(), RestClient(device="cpu")):
+        c.indices.create("g", {"settings": {"number_of_replicas": 0},
+                               "mappings": {"properties": {
+                                   "name": {"type": "geo_point"}}}})
+        c.bulk(sum([[{"index": {"_index": "g", "_id": str(i)}},
+                     {"name": {"lat": float(lat), "lon": float(lon)}}]
+                    for i, (lat, lon) in enumerate(points)], []),
+               refresh=True)
+        pages.append([c.search("g", {"size": 60, "query": {
+            "function_score": {shape: {"name": {
+                "origin": "0,0", "scale": "50km", "offset": "5km"}}}}})
+            for shape in ("gauss", "exp", "linear")])
+    for want, got in zip(*pages):
+        same_page(got, want, rtol=RTOL_T)
 
 
 def test_script_filter_rides_b3_where_the_reference_does(

@@ -275,8 +275,14 @@ def test_score_term_group_matches_reference(clients):
 def test_unported_shapes_raise(clients, body, names):
     """Unported shapes raise NotPortedError naming them; a `range` on a
     text field (it raised NotPortedError before keyword ranges were
-    ported) raises the reference's ValueError in both packages."""
-    _ref, port = clients
+    ported) raises the reference's ValueError in both packages; a
+    geo_bounds agg and a `_geo_distance` sort (ported with the geo slice)
+    serve the reference's response over an unmapped `loc`."""
+    ref, port = clients
+    if names in ("aggs", "_geo_distance"):
+        assert chip_smoke.strip_took(port.search("t", body)) == \
+            chip_smoke.strip_took(ref.search("t", body))
+        return
     if names == "range":
         for c in clients:
             with pytest.raises(ValueError,
@@ -418,6 +424,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                                  {'knn': {'e': {'vector': [1.0, 0.5],\n"
         "                                                 'exact': True}}}]}}):\n"
         "    assert c.search('v', {'query': q})['hits']['total']['value'] == 9\n"
+        "import opensearch_tpu_torch.search.geo\n"
+        "c.indices.create('g', {'mappings': {'properties': {\n"
+        "    'loc': {'type': 'geo_point'}, 'area': {'type': 'geo_shape'},\n"
+        "    'r': {'type': 'date_range'}, 'f': {'type': 'flat_object'},\n"
+        "    'a': {'type': 'annotated_text'}}}})\n"
+        "c.index('g', {'loc': '1,2', 'area': 'POINT (2 1)', 'f': {'k': 'v'},\n"
+        "              'r': {'gte': '2025-01-01'}, 'a': '[x](y)'}, id='1',\n"
+        "        refresh=True)\n"
+        "c.indices.forcemerge('g')\n"
+        "c.indices.flush('g')\n"
+        "for q in ({'geo_distance': {'distance': '1km', 'loc': '1,2'}},\n"
+        "          {'geo_shape': {'area': {'shape': 'POINT (2 1)'}}},\n"
+        "          {'range': {'r': {'gte': '2025-02-01'}}},\n"
+        "          {'term': {'f.k': 'v'}}, {'term': {'a': 'y'}}):\n"
+        "    assert c.search('g', {'query': q, 'aggs': {'b': {'geo_bounds':\n"
+        "        {'field': 'loc'}}}, 'sort': [{'_geo_distance': {\n"
+        "        'loc': [0, 0]}}]})['hits']['total']['value'] == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'opensearch_tpu' or "
         "m.startswith('opensearch_tpu.'))\n"

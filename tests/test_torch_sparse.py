@@ -852,7 +852,7 @@ def test_host_draws_thread_equals_the_corpus_functions():
     from opensearch_tpu_torch import bench_corpus as bc
     draws = chip_smoke.HostDraws(3000)
     keys, columns, aggcols, title, _t1, _t2 = draws.get()
-    got = bc.build_corpus(3000, keys=keys)
+    got = bc.build_corpus(3000, draws=keys)
     for g, w in zip(got, bc.build_corpus(3000)):
         assert g.dtype == w.dtype and np.array_equal(g, w)
     for g, w in zip(columns + aggcols + title,
