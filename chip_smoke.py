@@ -8,7 +8,8 @@
                           [--compound-queries C] [--context-queries X]
                           [--longtail-queries L] [--vector-queries V]
                           [--sparse-queries W] [--field-queries F]
-                          [--geo-queries Z] [--seed S] [--stop-after N]
+                          [--geo-queries Z] [--seed S]
+                          [--stop-after N]
 
 Phases, each of which fails the script when it fails:
   1. card: name, power limit, torch and CUDA versions;
@@ -259,6 +260,27 @@ Phases, each of which fails the script when it fails:
      p50/p99, the first body, the grid cells' seconds, device bytes and
      host RSS; after phase 8, one body of (a), (b), (e) and (f) on the
      merged segment (the columns against the live passages');
+ 21. (run after 20, before 8) index administration over phase 20's end
+     state: (a) an alias with a write index on the corpus index, phase
+     5's first 8 2-term match bodies (pruned, then with track_total_hits) and
+     8 of phase 6's price-range b3 bodies through it and by name, as
+     single searches and as one msearch (pages, routes and launches
+     equal; pages against the numpy brute force), counts and gets
+     through it, a `create` 201 then 409; (b) mtermvectors of 64
+     passages' title with term and field statistics and a 5-term
+     tf-idf filter, and an artificial doc, against a brute force over
+     the title draw; (c) put_settings (dynamic acknowledged and read
+     back, static and final 400), blocks.write's 403, close (a search's
+     400, msearch's error entry) and open with the card's bytes and the
+     segments unchanged and (a)'s pages again, indices.stats against the
+     segments' arrays; (d) an index template `res-*` and an index of the
+     first RESIZE_DOCS passages through bulk, clone / shrink / split
+     to one shard (a split to 2 raises NotPortedError), (a)'s bodies on
+     each against the brute force and the source's pages, one target
+     card == CPU, an atomic alias swap; then the indices go; after
+     phase 8, (a) again on the merged segment, where the kernels serve.
+     From phase 16 on, each class's brute force and CPU twin run on a
+     verification thread while the card serves the next class;
   8. writes and a merge over the same segment: bulk deletes of 1% of its
      _ids, updates of phase 7's re-indexed _ids and as many upserts, a
      refresh, 8 of phase 5's match bodies on the segments with deletes,
@@ -306,8 +328,9 @@ call, the wrapper's host work inside). Then a line with phase 9's
 numbers, one with phase 7's, one with phase 10's, one with phase 8's,
 one with phase 11's, one with phase 12's, one with phase 13's, one with
 phase 14's, one with phase 15's, one with phase 16's, one with phase
-17's, one with phase 18's, one with phase 19's, one with phase 20's, a
-line with the kernels' numbers and, last, the device line.
+17's, one with phase 18's, one with phase 19's, one with phase 20's, one
+with phase 21's, a line with the kernels' numbers and, last, the device
+line.
 Exits non-zero without a device line when no card is visible.
 `--stop-after N` ends after phase N (a quick build-and-check run); it
 prints neither result line.
@@ -325,7 +348,7 @@ import os
 import subprocess
 import sys
 import time
-from collections import Counter
+from collections import Counter, OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -6719,6 +6742,24 @@ def lt_close(got, want, rtol: float = 1e-4, scale: float = 0.0) -> bool:
     return got == want
 
 
+def lt_sorted_as(got: dict, want: dict, tol: float) -> dict:
+    """The card's panel with its bucket_sort order put in the CPU's where
+    the two orders differ only between months whose sums lie within
+    `tol` of each other (f32 sums in another order: the swap
+    `lt_check_panel` allows against the brute force)."""
+    gb, wb = got["aggregations"]["m"]["buckets"], want["aggregations"][
+        "m"]["buckets"]
+    by_key = {b["key"]: b for b in gb}
+    if [b["key"] for b in gb] == [b["key"] for b in wb] \
+            or set(by_key) != {b["key"] for b in wb} or not all(
+                abs(g["s"]["value"] - w["s"]["value"]) <= tol
+                for g, w in zip(gb, wb)):
+        return got
+    out = json.loads(json.dumps(got))
+    out["aggregations"]["m"]["buckets"] = [by_key[b["key"]] for b in wb]
+    return out
+
+
 def lt_pages(client, body: dict) -> list:
     """A body's responses: a composite pages by after_key until a page
     holds fewer than its size."""
@@ -6817,7 +6858,11 @@ def run_longtail_class(client, name: str, items, oracle, cpu, check,
         # the panel's differences of sums carry the sums' errors
         scale = (max(abs(b["s"]["value"]) for b in want[0]["aggregations"][
             "m"]["buckets"]) if name.startswith("b_") else 0.0)
-        if not lt_close([strip_took(r) for r in pages], want, 1e-4, scale):
+        got = [strip_took(r) for r in pages]
+        if name.startswith("b_"):
+            got = [lt_sorted_as(g, w, 1e-4 * scale)
+                   for g, w in zip(got, want)]
+        if not lt_close(got, want, 1e-4, scale):
             raise AssertionError(f"{name}: card and CPU responses differ "
                                  f"for {body}")
         m, score = oracle.matched(body, ts, c)
@@ -7491,19 +7536,21 @@ def run_vec_class(client, name: str, items, cpu=None, msearch=False,
         "launches", "impact_launches", "bool_launches", "plain_calls")}}
     op_ms = {k: sum(a.elapsed_time(e) for a, e in v) / len(bodies)
              for k, v in spans.items()}
-    t_cpu = 0.0
-    if cpu is not None:
-        t0 = time.perf_counter()
-        want = (cpu.msearch([{}, bodies[0]], index="bench")["responses"][0]
-                if msearch else cpu.search("bench", bodies[0]))
-        t_cpu = time.perf_counter() - t0
-        same_vec(resps[0], want, tol, f"{name} card vs CPU: ")
     out = {"bodies": len(bodies), "wall_s": wall,
            "bodies_per_s": len(bodies) / wall,
            "p50_ms": float(np.percentile(lat, 50)),
            "p99_ms": float(np.percentile(lat, 99)),
            "first_ms": lat[0], "op_ms": op_ms, "counts": counts,
            "resps": resps}
+    if cpu is not None:
+        def verify():
+            t0 = time.perf_counter()
+            want = (cpu.msearch([{}, bodies[0]], index="bench")[
+                "responses"][0] if msearch else cpu.search("bench",
+                                                           bodies[0]))
+            out["cpu_s"] = time.perf_counter() - t0
+            same_vec(resps[0], want, tol, f"{name} card vs CPU: ")
+        VERIFY.submit(f"phase 16 {name} card == CPU", verify)
     if len(lat) > 1:
         out["bodies_per_s_after_first"] = (len(lat) - 1) / (sum(lat[1:])
                                                            / 1e3)
@@ -7511,7 +7558,7 @@ def run_vec_class(client, name: str, items, cpu=None, msearch=False,
         f"({out['bodies_per_s']:.1f}/s) p50 {out['p50_ms']:.1f} p99 "
         f"{out['p99_ms']:.1f} ms, first {lat[0]:.1f} ms; event ms a body "
         + " ".join(f"{k}={v:.3f}" for k, v in sorted(op_ms.items()))
-        + f"; counts {counts}" + (f"; one body card == CPU ({t_cpu:.1f}s)"
+        + f"; counts {counts}" + ("; one body card == CPU on the verifier"
                                   if cpu is not None else ""))
     return out
 
@@ -7797,6 +7844,7 @@ def phase_vectors_msmarco(big: dict, n: int, seed: int) -> dict:
     vq = vec_query_vectors(vecs, ix.live[:n0], 4 * n + VEC_MSEARCH, seed)
     classes = vec_bodies(big, vq, n)
     cpu = vec_twin(eng)
+    share_with_verifier(eng.segments)
     out: dict = {"classes": {}}
     resps: dict = {}
     for name, items in classes.items():
@@ -7812,6 +7860,10 @@ def phase_vectors_msmarco(big: dict, n: int, seed: int) -> dict:
         resps[name] = r.pop("resps")
         if name == "b_ivf":
             out["ivf_build"] = dict(ann.LAST_BUILD)
+        # one class's CPU twin at a time beside the card: a twin's kNN
+        # over its 27 GB unit-normed copy beside the next class's host
+        # work raised the process's RSS peak by 0.29 GB
+        VERIFY.drain()
     torch.cuda.synchronize()
     col = seg.vector_cols["vec"]
     ivf = col.ivf
@@ -7857,6 +7909,7 @@ def phase_vectors_msmarco(big: dict, n: int, seed: int) -> dict:
     if out["classes"]["a_exact"]["counts"]["exact"] == 0 \
             or out["classes"]["b_ivf"]["counts"]["ivf"] == 0:
         raise AssertionError("phase 16: no scan or no probe ran")
+    out["verify_wait_s"] = drain_log("phase 16")
     # the CPU twin's state (its unit-normed matrix in host memory) goes
     drop_cpu_state(eng.segments)
     # the corpus segment's column keeps the vectors until phase 8's merge
@@ -8478,21 +8531,22 @@ def run_sp_class(client, name: str, items, cpu=None, cpu_body=None) -> dict:
               **{k: bm25.COUNTS[k] for k in ("launches", "impact_launches",
                                              "bool_launches",
                                              "plain_calls")}}
-    t_cpu = 0.0
-    if cpu is not None:
-        body = cpu_body or bodies[0]
-        t0 = time.perf_counter()
-        want = cpu.search("bench", body)
-        t_cpu = time.perf_counter() - t0
-        got = resps[0] if cpu_body is None else client.search("bench", body)
-        same_vec(got, want, (SP_RTOL, 1.5e-7, 0.0),
-                 f"{name} card vs CPU: ")
     out = {"bodies": len(bodies), "wall_s": wall,
            "bodies_per_s": len(bodies) / wall,
            "p50_ms": float(np.percentile(lat, 50)),
            "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
-           "ms_a_body": ms, "counts": counts, "cpu_s": t_cpu,
-           "resps": resps}
+           "ms_a_body": ms, "counts": counts, "resps": resps}
+    if cpu is not None:
+        body = cpu_body or bodies[0]
+        got = resps[0] if cpu_body is None else client.search("bench", body)
+
+        def verify():
+            t0 = time.perf_counter()
+            want = cpu.search("bench", body)
+            out["cpu_s"] = time.perf_counter() - t0
+            same_vec(got, want, (SP_RTOL, 1.5e-7, 0.0),
+                     f"{name} card vs CPU: ")
+        VERIFY.submit(f"phase 17 {name} card == CPU", verify)
     if len(lat) > 1:
         out["bodies_per_s_after_first"] = (len(lat) - 1) / (sum(lat[1:])
                                                            / 1e3)
@@ -8500,7 +8554,7 @@ def run_sp_class(client, name: str, items, cpu=None, cpu_body=None) -> dict:
         f"({out['bodies_per_s']:.1f}/s) p50 {out['p50_ms']:.1f} p99 "
         f"{out['p99_ms']:.1f} ms, first {lat[0]:.1f} ms; ms a body "
         + " ".join(f"{k}={v:.3f}" for k, v in sorted(ms.items()))
-        + f"; counts {counts}" + (f"; one body card == CPU ({t_cpu:.1f}s)"
+        + f"; counts {counts}" + ("; one body card == CPU on the verifier"
                                   if cpu is not None else ""))
     return out
 
@@ -8624,6 +8678,7 @@ def phase_sparse_msmarco(big: dict, n: int, seed: int) -> dict:
     cpu = twin_of(eng)
     cpu.indices.put_mapping("bench", SP_MAPPING)
     cpu.indices.put_mapping("bench", VEC_PUT_MAPPING)
+    share_with_verifier(eng.segments)
     out: dict = {"build": att, "classes": {}}
     for name, items in classes.items():
         cpu_body = None
@@ -8634,11 +8689,14 @@ def phase_sparse_msmarco(big: dict, n: int, seed: int) -> dict:
         r = run_sp_class(client, f"({name[0]}) {name[2:]}", items, cpu,
                          cpu_body)
         resps = r.pop("resps")
-        t0 = time.perf_counter()
-        for j, ((body, spec), resp) in enumerate(zip(items, resps)):
-            sp_check(resp, sp_want(oracle, ix, body, spec, vec_oracle),
-                     spec, f"phase 17 {name} {j}")
-        r["oracle_s"] = time.perf_counter() - t0
+
+        def verify(items=items, resps=resps, r=r, name=name):
+            t0 = time.perf_counter()
+            for j, ((body, spec), resp) in enumerate(zip(items, resps)):
+                sp_check(resp, sp_want(oracle, ix, body, spec, vec_oracle),
+                         spec, f"phase 17 {name} {j}")
+            r["oracle_s"] = time.perf_counter() - t0
+        VERIFY.submit(f"phase 17 {name} brute force", verify)
         if items[0][1]["kind"] in ("dot", "bool", "hybrid"):
             posts = [sp_postings(oracle, s["tokens"]) for _b, s in items]
             r["token_postings_a_body"] = float(np.mean(posts))
@@ -8678,6 +8736,7 @@ def phase_sparse_msmarco(big: dict, n: int, seed: int) -> dict:
         f"; B1 / B2 launches of the hybrids {out['hybrid_launches']}; host "
         f"RSS start {out['rss_start']}, end {out['rss_end']}, the phase's "
         f"peak {out['rss_peak']}, the process's {rss_bytes()[1]}")
+    out["verify_wait_s"] = drain_log("phase 17")
     drop_cpu_state(eng.segments)
     # the oracle's CSR goes (host memory for phase 8's merge): the merged
     # classes draw it again from the seed
@@ -9503,29 +9562,31 @@ def run_ft_class(client, name: str, items, oracle: FtOracle, sums,
                   "served", "pruned_served", "phase2_served", "escalated")),
               "pruned_ladder": sum(fastpath.STATS.get(k, 0) for k in RUNGS),
               "general": C.STATS["general_served"]}
-    t0 = time.perf_counter()
-    for j, ((b, spec), r) in enumerate(zip(items, resps)):
-        ft_check(oracle, name, b, spec, r, sums,
-                 f"phase 18 {name}{label} {j}")
-    t_oracle = time.perf_counter() - t0
-    t_cpu = 0.0
-    if cpu is not None:
-        t0 = time.perf_counter()
-        want = cpu.search("bench", bodies[0])
-        t_cpu = time.perf_counter() - t0
-        ft_same(resps[0], want, bodies[0], f"phase 18 {name}")
     if counts["plain_calls"]:
         raise AssertionError(f"phase 18 {name}: a plain call on the card")
     out = {"bodies": len(bodies), "wall_s": wall,
            "bodies_per_s": len(bodies) / wall,
            "p50_ms": float(np.percentile(lat, 50)),
            "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
-           "counts": counts, "oracle_s": t_oracle, "cpu_s": t_cpu}
+           "counts": counts}
+
+    def verify():
+        t0 = time.perf_counter()
+        for j, ((b, spec), r) in enumerate(zip(items, resps)):
+            ft_check(oracle, name, b, spec, r, sums,
+                     f"phase 18 {name}{label} {j}")
+        out["oracle_s"] = time.perf_counter() - t0
+        if cpu is not None:
+            t0 = time.perf_counter()
+            want = cpu.search("bench", bodies[0])
+            out["cpu_s"] = time.perf_counter() - t0
+            ft_same(resps[0], want, bodies[0], f"phase 18 {name}")
+    VERIFY.submit(f"phase 18 {name}{label}", verify)
     log(f"  {name}{label}: {len(bodies)} bodies in {wall:.2f}s p50 "
         f"{out['p50_ms']:.1f} p99 {out['p99_ms']:.1f} first "
-        f"{lat[0]:.1f} ms; routes {counts}; pages == brute force "
-        f"({t_oracle:.1f}s)" + (f"; body 0 card == CPU ({t_cpu:.1f}s)"
-                                 if cpu is not None else ""))
+        f"{lat[0]:.1f} ms; routes {counts}; pages == brute force"
+        + ("; body 0 card == CPU" if cpu is not None else "")
+        + " on the verifier")
     return out
 
 
@@ -9567,6 +9628,7 @@ def phase_fields_msmarco(big: dict, n: int, seed: int) -> dict:
     oracle = FtOracle(arrays, ix)
     classes = ft_classes(arrays, n, np.random.default_rng([seed, 18]))
     cpu = ft_twin(eng)
+    share_with_verifier(eng.segments)
     sums = SumCheck()
     out: dict = {"build": att, "classes": {}}
     for name, items in classes.items():
@@ -9578,6 +9640,7 @@ def phase_fields_msmarco(big: dict, n: int, seed: int) -> dict:
     rss_watch.__exit__()
     out["rss_start"], out["rss_end"] = rss0[0], rss_bytes()[0]
     out["rss_peak"] = rss_watch.peak
+    out["verify_wait_s"] = drain_log("phase 18")
     out["seconds"] = time.perf_counter() - t_phase
     out["sum_rel_err"] = sums.rel
     log(f"  phase 18: {out['seconds']:.1f}s; device bytes "
@@ -9618,6 +9681,7 @@ def phase_fields_merged(big: dict) -> dict:
         out["classes"][name] = run_ft_class(
             client, name, f["classes"][name][:1], oracle, sums,
             label=", merged")
+    drain_log("phase 18m")
     return out
 
 
@@ -9999,41 +10063,47 @@ def run_sc_class(client, name: str, items, oracle, cpu=None,
               "general": C.STATS["general_served"]}
     t0 = time.perf_counter()
     for j, ((b, spec), r) in enumerate(zip(items, resps)):
-        what = f"phase 19 {name}{label} {j}"
         if "query" in spec:          # (a)-(c): the JSON DSL page
             want = client.search("bench", {"query": spec["query"]})
             if strip_took(r) != strip_took(want):
-                raise AssertionError(f"{what}: string page != its DSL "
-                                     f"page\n{r['hits']}\n{want['hits']}")
-            if "all" in spec:
-                check_page(r, oracle.page(b, spec), what)
-        else:
-            check_page(r, oracle.page(b, spec), what,
-                       rtol=0.0 if "seed" in spec else
-                       1e-6 if "not" in spec else SC_RTOL)
-    t_check = time.perf_counter() - t0
-    t_cpu = 0.0
-    if cpu is not None:
-        t0 = time.perf_counter()
-        want = cpu.search("bench", bodies[0])
-        t_cpu = time.perf_counter() - t0
-        if name.startswith(("d_", "e_")):
-            sc_close(resps[0], want, SC_RTOL, f"phase 19 {name}")
-        elif strip_took(resps[0]) != strip_took(want):
-            raise AssertionError(f"phase 19 {name}: card != CPU")
+                raise AssertionError(f"phase 19 {name}{label} {j}: string "
+                                     f"page != its DSL page\n{r['hits']}\n"
+                                     f"{want['hits']}")
+    t_dsl = time.perf_counter() - t0
     if counts["plain_calls"]:
         raise AssertionError(f"phase 19 {name}: a plain call on the card")
     out = {"bodies": len(bodies), "wall_s": wall,
            "bodies_per_s": len(bodies) / wall,
            "p50_ms": float(np.percentile(lat, 50)),
            "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
-           "counts": counts, "check_s": t_check, "cpu_s": t_cpu}
+           "counts": counts, "dsl_s": t_dsl}
+
+    def verify():
+        t0 = time.perf_counter()
+        for j, ((b, spec), r) in enumerate(zip(items, resps)):
+            what = f"phase 19 {name}{label} {j}"
+            if "query" not in spec:
+                check_page(r, oracle.page(b, spec), what,
+                           rtol=0.0 if "seed" in spec else
+                           1e-6 if "not" in spec else SC_RTOL)
+            elif "all" in spec:
+                check_page(r, oracle.page(b, spec), what)
+        out["check_s"] = time.perf_counter() - t0
+        if cpu is not None:
+            t0 = time.perf_counter()
+            want = cpu.search("bench", bodies[0])
+            out["cpu_s"] = time.perf_counter() - t0
+            if name.startswith(("d_", "e_")):
+                sc_close(resps[0], want, SC_RTOL, f"phase 19 {name}")
+            elif strip_took(resps[0]) != strip_took(want):
+                raise AssertionError(f"phase 19 {name}: card != CPU")
+    VERIFY.submit(f"phase 19 {name}{label}", verify)
     log(f"  {name}{label}: {len(bodies)} bodies in {wall:.2f}s "
         f"({out['bodies_per_s']:.1f} bodies/s) p50 {out['p50_ms']:.1f} p99 "
         f"{out['p99_ms']:.1f} first {lat[0]:.1f} ms; routes {counts}; pages "
-        f"checked ({t_check:.1f}s)"
-        + (f"; body 0 card == CPU ({t_cpu:.1f}s)" if cpu is not None
-           else ""))
+        f"== their DSL pages ({t_dsl:.1f}s), the brute force"
+        + ("; body 0 card == CPU" if cpu is not None else "")
+        + " on the verifier")
     return out
 
 
@@ -10054,6 +10124,7 @@ def phase_scripts_msmarco(big: dict) -> dict:
     classes = sc_classes(big, SC_QUERIES)
     oracle = ScOracle(ix, big["aggs"], eng)
     cpu = ft_twin(eng)
+    share_with_verifier(eng.segments)
     out: dict = {"classes": {}}
     for name, items in classes.items():
         out["classes"][name] = run_sc_class(client, name, items, oracle,
@@ -10063,6 +10134,7 @@ def phase_scripts_msmarco(big: dict) -> dict:
     rss_watch.__exit__()
     out["rss_start"], out["rss_end"] = rss0[0], rss_bytes()[0]
     out["rss_peak"] = rss_watch.peak
+    out["verify_wait_s"] = drain_log("phase 19")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 19: {out['seconds']:.1f}s; device bytes "
         f"{out['device_bytes']} above the phase's start; host RSS start "
@@ -10082,6 +10154,7 @@ def phase_scripts_merged(big: dict) -> dict:
     classes = big["scripts"]["classes"]
     oracle = ScOracle(ix, big["aggs"], eng)
     cpu = twin_of(eng)
+    share_with_verifier(eng.segments)
     picks = {
         "a_query_string": [it for j, it in enumerate(
             classes["a_query_string"]) if j % 2 == 0][:2],
@@ -10106,6 +10179,7 @@ def phase_scripts_merged(big: dict) -> dict:
         elif not on or c["general"] or (name == "e_script_filter"
                                         and not c["bool_launches"]):
             raise AssertionError(f"{name}: not on its kernels: {c}")
+    drain_log("phase 19m")
     return out
 
 
@@ -10591,12 +10665,16 @@ def run_geo_class(client, name: str, items, oracle: GeoOracle, cpu=None,
                   "b3_filtered_postings", 0),
               "general": C.STATS["general_served"]}
     cells_s = C.STATS["geo_grid_cells_s"]
-    t0 = time.perf_counter()
-    band = sum(geo_check(oracle, name, spec, r,
-                         f"phase 20 {name}{label} {j}")
-               for j, ((_b, spec), r) in enumerate(zip(items, resps)))
-    t_check = time.perf_counter() - t0
-    t_cpu = 0.0
+    if counts["plain_calls"]:
+        raise AssertionError(f"phase 20 {name}: a plain call on the card")
+    out = {"bodies": len(bodies), "wall_s": wall,
+           "bodies_per_s": len(bodies) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
+           "counts": counts, "grid_cells_s": cells_s,
+           "device_bytes_after_each_body": dev_bytes,
+           "mask_cache_device_bytes": mask_bytes,
+           "hits": [r["hits"]["total"]["value"] for r in resps]}
     if cpu is not None:
         first, got = bodies[0], resps[0]
         if name == "e_panel":
@@ -10607,31 +10685,28 @@ def run_geo_class(client, name: str, items, oracle: GeoOracle, cpu=None,
             first = json.loads(json.dumps(first))
             first["aggs"]["grid"].pop("aggs")
             got = client.search("bench", first)
+
+    def verify():
         t0 = time.perf_counter()
-        want = cpu.search("bench", first)
-        t_cpu = time.perf_counter() - t0
-        same_vec(strip_took(got), strip_took(want), (GEO_RTOL, 0.0, 0.0),
-                 f"phase 20 {name}: card != CPU: ")
-    if counts["plain_calls"]:
-        raise AssertionError(f"phase 20 {name}: a plain call on the card")
-    out = {"bodies": len(bodies), "wall_s": wall,
-           "bodies_per_s": len(bodies) / wall,
-           "p50_ms": float(np.percentile(lat, 50)),
-           "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
-           "counts": counts, "band_docs": band, "grid_cells_s": cells_s,
-           "check_s": t_check, "cpu_s": t_cpu,
-           "device_bytes_after_each_body": dev_bytes,
-           "mask_cache_device_bytes": mask_bytes,
-           "hits": [r["hits"]["total"]["value"] for r in resps]}
+        out["band_docs"] = sum(
+            geo_check(oracle, name, spec, r, f"phase 20 {name}{label} {j}")
+            for j, ((_b, spec), r) in enumerate(zip(items, resps)))
+        out["check_s"] = time.perf_counter() - t0
+        if cpu is not None:
+            t0 = time.perf_counter()
+            want = cpu.search("bench", first)
+            out["cpu_s"] = time.perf_counter() - t0
+            same_vec(strip_took(got), strip_took(want),
+                     (GEO_RTOL, 0.0, 0.0), f"phase 20 {name}: card != CPU: ")
+    VERIFY.submit(f"phase 20 {name}{label}", verify)
     log(f"  {name}{label}: {len(bodies)} bodies in {wall:.2f}s p50 "
         f"{out['p50_ms']:.1f} p99 {out['p99_ms']:.1f} first "
         f"{lat[0]:.1f} ms; totals {out['hits']}; routes {counts}; device "
         f"bytes after each body "
         f"{dev_bytes} (the mask cache's {mask_bytes}); grid cells "
-        f"{cells_s:.2f}s; "
-        f"pages == brute force ({t_check:.1f}s, {band} docs in the "
-        f"haversine band)" + (f"; body 0 card == CPU ({t_cpu:.1f}s)"
-                              if cpu is not None else ""))
+        f"{cells_s:.2f}s; pages == brute force (the docs in the haversine "
+        f"band counted)" + ("; body 0 card == CPU" if cpu is not None
+                            else "") + " on the verifier")
     return out
 
 
@@ -10668,6 +10743,7 @@ def phase_geo_msmarco(big: dict, n: int, seed: int) -> dict:
     oracle = GeoOracle(g, ix)
     classes = geo_classes(big, g, n, np.random.default_rng([seed, 20]))
     cpu = geo_twin(eng)
+    share_with_verifier(eng.segments)
     out: dict = {"build": att, "classes": {}}
     for name, items in classes.items():
         out["classes"][name] = run_geo_class(client, name, items, oracle,
@@ -10677,6 +10753,7 @@ def phase_geo_msmarco(big: dict, n: int, seed: int) -> dict:
     rss_watch.__exit__()
     out["rss_start"], out["rss_end"] = rss0[0], rss_bytes()[0]
     out["rss_peak"] = rss_watch.peak
+    out["verify_wait_s"] = drain_log("phase 20")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 20: {out['seconds']:.1f}s; device bytes "
         f"{out['device_bytes']} above the phase's start; host RSS start "
@@ -10711,6 +10788,778 @@ def phase_geo_merged(big: dict) -> dict:
         out["classes"][name] = run_geo_class(
             client, name, geo["classes"][name][:1], oracle,
             label=", merged")
+    drain_log("phase 20m")
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 21: index administration around a search at MS MARCO scale
+# ---------------------------------------------------------------------
+
+ADMIN_BODIES = 8       # phase 21's bodies a class in (a)
+ADMIN_ALIAS = "passages"
+TV_DOCS = 64           # corpus docs whose title (b) reads
+TV_TERMS = 5           # (b)'s filter: max_num_terms
+RESIZE_DOCS = 5_000    # passages of (d)'s own index
+RESIZE_MAPPING = {"properties": {"body": {"type": "text"},
+                                 "status": {"type": "keyword"},
+                                 "price": {"type": "integer"}}}
+B3_RTOL = 9 * 2.0 ** -23   # B3 sums in slot order (phase 6's tolerance)
+
+
+class Verifier:
+    """Checks that read only their own arrays and the responses given to
+    them (numpy brute forces, CPU twins) on one worker thread, while the
+    main thread drives the card through the next class. `drain` waits
+    for them all and raises the first failure; `wait_s` is what the main
+    thread spent waiting there, the verification left on the critical
+    path."""
+
+    def __init__(self):
+        self.pool = ThreadPoolExecutor(1, thread_name_prefix="verify")
+        self.todo: list = []
+        self.busy_s = 0.0
+        self.wait_s = 0.0
+
+    def submit(self, what: str, fn) -> None:
+        def run():
+            t0 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                self.busy_s += time.perf_counter() - t0
+        self.todo.append((what, self.pool.submit(run)))
+
+    def drain(self) -> float:
+        t0 = time.perf_counter()
+        todo, self.todo = self.todo, []
+        err = None
+        for what, fut in todo:
+            try:
+                fut.result()
+            except Exception as e:     # noqa: BLE001 (re-raised below)
+                err = err or AssertionError(f"{what}: {e!r}")
+        waited = time.perf_counter() - t0
+        self.wait_s += waited
+        if err is not None:
+            raise err
+        return waited
+
+
+VERIFY = Verifier()
+
+
+def drain_log(what: str) -> float:
+    """Wait for the verifier at a phase's end: -> the seconds waited."""
+    waited = VERIFY.drain()
+    log(f"  {what}: the verifier's checks held; the phase waited "
+        f"{waited:.1f}s for them at its end")
+    return waited
+
+
+class MainThreadCounts(dict):
+    """A module's counter dict whose updates from any thread but the main
+    one land in a scratch copy of that thread: a CPU twin's search on the
+    verification thread counts no launch, rung or route of the card's
+    classes. Readers on the main thread see the dict itself."""
+
+    def __init__(self, base: dict):
+        super().__init__(base)
+        import threading
+        self._local = threading.local()
+        self._main = threading.main_thread()
+
+    def _scratch(self):
+        import threading
+        if threading.current_thread() is self._main:
+            return None
+        d = getattr(self._local, "d", None)
+        if d is None:
+            d = self._local.d = dict.fromkeys(dict.keys(self), 0)
+        return d
+
+    def __getitem__(self, k):
+        d = self._scratch()
+        return dict.__getitem__(self, k) if d is None else d.get(k, 0)
+
+    def __setitem__(self, k, v):
+        d = self._scratch()
+        if d is None:
+            dict.__setitem__(self, k, v)
+        else:
+            d[k] = v
+
+    def get(self, k, default=None):
+        d = self._scratch()
+        return dict.get(self, k, default) if d is None else d.get(k, default)
+
+
+class SnapshotDict(dict):
+    """A cache dict whose iteration walks a snapshot of its keys, so that
+    a thread iterating it never meets another thread's insert."""
+
+    def __iter__(self):
+        return iter(list(dict.keys(self)))
+
+    def keys(self):
+        return list(dict.keys(self))
+
+    def items(self):
+        return list(dict.items(self))
+
+    def values(self):
+        return list(dict.values(self))
+
+
+def share_with_verifier(segs) -> None:
+    """What a CPU twin on the verification thread shares with the card's
+    searches made safe for it: the counters (per thread), the filter-mask
+    cache and the segments' cache dicts (snapshot iteration)."""
+    from opensearch_tpu_torch.ops import bm25, knn as knn_ops
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, filters, impactpath
+    for mod, name in ((bm25, "COUNTS"), (fastpath, "STATS"),
+                      (impactpath, "STATS"), (C, "STATS"),
+                      (knn_ops, "STATS")):
+        if not isinstance(getattr(mod, name), MainThreadCounts):
+            setattr(mod, name, MainThreadCounts(getattr(mod, name)))
+    if not isinstance(filters._MASKS, SnapshotOrderedDict):
+        filters._MASKS = SnapshotOrderedDict(filters._MASKS)
+    for s in segs:
+        for attr in ("aligned", "device_arrays"):
+            if type(getattr(s, attr)) is dict:
+                setattr(s, attr, SnapshotDict(getattr(s, attr)))
+
+
+class SnapshotOrderedDict(OrderedDict):
+    """The filter-mask LRU with snapshot iteration."""
+
+    def __iter__(self):
+        return iter(list(OrderedDict.keys(self)))
+
+    def items(self):
+        return list(OrderedDict.items(self))
+
+    def values(self):
+        return list(OrderedDict.values(self))
+
+
+def admin_matches(big: dict) -> list:
+    """(body, term ids) of phase 5's first ADMIN_BODIES 2-term match
+    bodies (bench.py's configuration 1; its 6-term bodies cost seconds
+    each on the impact rung while the corpus segment has deletes)."""
+    return list(zip(big["bodies"][0::2], big["body_terms"][0::2]))[
+        :ADMIN_BODIES]
+
+
+def admin_items(big: dict, bools: dict) -> dict:
+    """(a)'s classes as (body, brute force) items: phase 5's 2-term match
+    bodies (pruned), the same with track_total_hits, and as many of phase
+    6's b3 bodies with a price-range filter (the kinds phase 8 runs on
+    the merged segment)."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    match = [(b, (lambda ts: lambda ix: ix.page(*ix.group(ts), 0, 10))(
+        list(ts))) for b, ts in admin_matches(big)]
+    queries = bools["queries"]
+    b3 = [(bc.b3_body(i, queries, vs), (lambda i_: lambda ix: ix.bool_page(
+        *bool_oracle("b3", i_, queries, ix.status, ix.price)))(i))
+        for i in range(2 * ADMIN_BODIES) if i % 4 in (2, 3)]
+    return {"match": match,
+            "dense": [(dict(b, track_total_hits=True), o) for b, o in match],
+            "b3": b3}
+
+
+def route_counts() -> dict:
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, impactpath
+    return {**{k: bm25.COUNTS[k] for k in ("launches", "impact_launches",
+                                           "bool_launches", "plain_calls")},
+            "impact_rung": sum(impactpath.STATS[k] for k in (
+                "served", "pruned_served", "phase2_served", "escalated")),
+            "pruned_ladder": sum(fastpath.STATS.get(k, 0) for k in RUNGS),
+            "b3_filter_slot": fastpath.STATS.get("b3_filter_slot", 0),
+            "b3_filtered_postings": fastpath.STATS.get(
+                "b3_filtered_postings", 0),
+            "general": C.STATS["general_served"]}
+
+
+def admin_pass(client, index: str, bodies, msearch: bool) -> tuple:
+    """`bodies` through `index` (one search each, or one msearch), the
+    counts set to 0 just before: -> (responses, ms a request, counts)."""
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, impactpath
+    sync(client.device)
+    bm25.reset_counts()
+    fastpath.reset_stats()
+    impactpath.reset_stats()
+    C.reset_stats()
+    lat = []
+    if msearch:
+        t0 = time.perf_counter()
+        resps = client.msearch(sum([[{}, b] for b in bodies], []),
+                               index=index)["responses"]
+        lat.append((time.perf_counter() - t0) * 1e3)
+    else:
+        resps = []
+        for b in bodies:
+            t0 = time.perf_counter()
+            resps.append(client.search(index, b))
+            lat.append((time.perf_counter() - t0) * 1e3)
+    sync(client.device)
+    return resps, lat, route_counts()
+
+
+def strip_index(resp):
+    """A response without `took` and the hits' `_index`."""
+    if isinstance(resp, dict):
+        return {k: strip_index(v) for k, v in resp.items()
+                if k not in ("took", "_index")}
+    if isinstance(resp, list):
+        return [strip_index(v) for v in resp]
+    return resp
+
+
+def run_admin_class(client, name: str, items, target: str, by: str,
+                    check, rtol: float) -> tuple:
+    """One class of (a) through `target` (an alias) and `by` (the
+    index's name), as single searches and as one msearch each: the
+    alias's pages, routes and launches equal the name's; the alias's
+    pages go to the verifier against `check(j)`: -> (the class's
+    numbers, the single searches' responses)."""
+    bodies = [b for b, _o in items]
+    out: dict = {}
+    singles = None
+    t0 = time.perf_counter()
+    for form, ms in (("singles", False), ("msearch", True)):
+        got, lat, counts = admin_pass(client, target, bodies, ms)
+        want, _lat, want_counts = admin_pass(client, by, bodies, ms)
+        if strip_index(got) != strip_index(want) or counts != want_counts:
+            raise AssertionError(
+                f"phase 21 {name} {form}: through [{target}] != by name "
+                f"[{by}]: routes {counts} vs {want_counts}")
+        if client.device.type == "cuda" and counts["plain_calls"]:
+            raise AssertionError(f"phase 21 {name}: a plain call on the "
+                                 f"card")
+        out[form] = {"ms": lat, "counts": counts,
+                     "hits": [r["hits"]["total"]["value"] for r in got]}
+        if not ms:
+            singles = got
+            out[form].update(p50_ms=float(np.percentile(lat, 50)),
+                             p99_ms=float(np.percentile(lat, 99)))
+
+        def verify(resps=got, form=form):
+            t1 = time.perf_counter()
+            for j, r in enumerate(resps):
+                check_page(r, check(j), f"phase 21 {name} {form} {j}", rtol)
+            out[form]["check_s"] = time.perf_counter() - t1
+        VERIFY.submit(f"phase 21 {name} {form}", verify)
+    out["seconds"] = time.perf_counter() - t0
+    s, m = out["singles"], out["msearch"]
+    log(f"  {name} through [{target}] and [{by}]: {len(bodies)} singles p50 "
+        f"{s['p50_ms']:.1f} p99 {s['p99_ms']:.1f} ms, one msearch "
+        f"{m['ms'][0]:.1f} ms; routes singles {s['counts']}, msearch "
+        f"{m['counts']}; pages, routes and launches equal by name "
+        f"({out['seconds']:.2f}s for both forms and both names)")
+    return out, singles
+
+
+def memo_checks(items, ix) -> tuple:
+    """check(j) of a class: its brute-force page, computed once (on the
+    verifier's thread) and shared by the classes of the same pages."""
+    memo: dict = {}
+
+    def check(j):
+        if j not in memo:
+            memo[j] = items[j][1](ix)
+        return memo[j]
+    return check, memo
+
+
+def tv_expected(big: dict, docs: list, art: list, n_live: int) -> dict:
+    """(b)'s brute force over the title draw: each doc's title tokens,
+    their term_freq, positions and offsets; doc_freq and ttf over every
+    corpus passage (deleted ones counted, as the postings hold them);
+    sum_doc_freq, doc_count and sum_ttf; the filter's tf-idf top
+    TV_TERMS (log(1 + (n - df + 0.5) / (df + 0.5)) with n the live docs,
+    ties in first-occurrence order, the score rounded to 6 places). ->
+    {"docs": [expected term vectors], "sum_ttf": exact}."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    title = big["title"]
+    draw, first, second = title[8], title[5], title[6]
+    n0, V = len(draw), len(title[0]) - 1
+    tvs = bc.title_vocab_strings(V)
+    tok = np.empty((n0, 8), np.int16)
+    tok[:, 0::2] = first[draw]
+    tok[:, 1::2] = second[draw]
+    ttf = np.bincount(tok.ravel(), minlength=V)
+    srt = np.sort(tok, axis=1)
+    head = np.ones_like(srt, bool)
+    head[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    df = np.bincount(srt[head], minlength=V)
+    fstats = {"sum_doc_freq": int(head.sum()), "doc_count": n0,
+              "sum_ttf": int(ttf.sum())}
+    del srt, head
+
+    def one(tokens) -> dict:
+        terms: dict = {}
+        for pos, t in enumerate(tokens):
+            e = terms.setdefault(int(t), {"term_freq": 0, "tokens": []})
+            e["term_freq"] += 1
+            e["tokens"].append({"position": pos, "start_offset": 6 * pos,
+                                "end_offset": 6 * pos + 5})
+        ranked = []
+        for t, e in terms.items():
+            d = int(df[t])
+            if d < 1:
+                continue
+            idf = math.log(1.0 + (n_live - d + 0.5) / (d + 0.5))
+            ranked.append((tvs[t], {**e, "doc_freq": d, "ttf": int(ttf[t]),
+                                    "score": round(e["term_freq"] * idf,
+                                                   6)}, e["term_freq"] * idf))
+        ranked.sort(key=lambda x: -x[2])
+        return {"terms": dict(sorted((s, e) for s, e, _ in
+                                     ranked[:TV_TERMS])),
+                "field_statistics": fstats}
+    return {"docs": [one(tok[g]) for g in docs],
+            "art": one(np.asarray(art, np.int64)), "fstats": fstats}
+
+
+def tv_same(got: dict, want: dict, what: str) -> None:
+    """A title term vector against the brute force's: equal, but a ttf
+    or sum_ttf past 2^24, which the reference's formula sums in f32, may
+    sit within that sum's rounding (2^-24 relative a level of its
+    pairwise sum)."""
+    def close(g, w):
+        return g == w or (w >= 1 << 24 and abs(g - w) <= w * 2.0 ** -19)
+    gt, wt = got["terms"], want["terms"]
+    fs_g, fs_w = got["field_statistics"], want["field_statistics"]
+    ok = (list(gt) == list(wt)
+          and all({k: v for k, v in gt[t].items() if k != "ttf"}
+                  == {k: v for k, v in wt[t].items() if k != "ttf"}
+                  and close(gt[t]["ttf"], wt[t]["ttf"]) for t in wt)
+          and fs_g["sum_doc_freq"] == fs_w["sum_doc_freq"]
+          and fs_g["doc_count"] == fs_w["doc_count"]
+          and close(fs_g["sum_ttf"], fs_w["sum_ttf"]))
+    if not ok:
+        raise AssertionError(f"{what}: term vectors != the brute force:\n"
+                             f"{got}\n{want}")
+
+
+def resize_corpus(big: dict, n: int) -> tuple:
+    """The first `n` passages of the corpus draw, doc-major: -> (their
+    bulk lines with body text rendered from the token draw, status and
+    price; the term-major CSR of those passages (starts, doc_ids, tfs,
+    dl, df) that the brute force reads; their status ordinals and
+    prices)."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    starts, doc_ids, tfs, _dl, df = big["corpus"]
+    status, price = big["columns"]
+    vs = bc.vocab_strings(len(df))
+    sel = np.flatnonzero(doc_ids < n)
+    term = (np.searchsorted(starts, sel, side="right") - 1).astype(np.int64)
+    d, tf = doc_ids[sel].astype(np.int64), tfs[sel]
+    V = len(df)
+    sub_starts = np.zeros(V + 1, np.int64)
+    np.cumsum(np.bincount(term, minlength=V), out=sub_starts[1:])
+    dl = np.bincount(d, weights=tf, minlength=n).astype(np.int64)
+    sub = (sub_starts, d.astype(np.int32), tf.astype(np.float32), dl,
+           np.diff(sub_starts))
+    order = np.argsort(d, kind="stable")
+    bounds = np.searchsorted(d[order], np.arange(n + 1))
+    t_o, tf_o = term[order], tf[order].astype(np.int64)
+    lines = []
+    for k in range(n):
+        a, b = bounds[k], bounds[k + 1]
+        body = " ".join(" ".join([vs[t]] * c)
+                        for t, c in zip(t_o[a:b].tolist(),
+                                        tf_o[a:b].tolist()))
+        lines += [{"index": {"_index": "res-src", "_id": str(k)}},
+                  {"body": body, "status": bc.STATUS_VALUES[status[k]],
+                   "price": int(price[k])}]
+    return lines, sub, status[:n], price[:n]
+
+
+def resize_items(big: dict, bools: dict, sub, status, price) -> dict:
+    """(d)'s classes over the resized corpus: the match bodies of (a)
+    pruned and dense, and its b3 bodies, each against oracle_page over
+    the passages' own CSR."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    n = len(status)
+    everyone = np.ones(n, bool)
+
+    def as_str(page):
+        ids, scores, total = page
+        return [str(i) for i in ids], scores, total
+    match = [(b, (lambda ts: lambda _ix: as_str(oracle_page(
+        sub, [(int(t), "fam") for t in ts], 1, everyone, None, 10)))(
+        list(ts))) for b, ts in admin_matches(big)]
+    queries = bools["queries"]
+    b3 = [(bc.b3_body(i, queries, vs), (lambda i_: lambda _ix: as_str(
+        oracle_page(sub, *bool_oracle("b3", i_, queries, status, price),
+                    10)))(i))
+        for i in range(2 * ADMIN_BODIES) if i % 4 in (2, 3)]
+    return {"match": match,
+            "dense": [(dict(b, track_total_hits=True), o) for b, o in match],
+            "b3": b3}
+
+
+def device_peak(dev) -> int:
+    """The caching allocator's peak bytes on the card (0 on the CPU)."""
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def phase_admin_msmarco(big: dict, bools: dict, resize_docs: int,
+                        seed: int, card: str) -> dict:
+    """Phase 21 on phase 20's end state: (a) an alias with a write index
+    over the corpus index, (a)'s bodies through it and by name; (b) term
+    vectors of TV_DOCS passages' title and an artificial doc against the
+    title draw's brute force; (c) put_settings, blocks, close / open
+    (no re-upload) and indices.stats on the corpus index; (d) an index
+    template, an index of `resize_docs` passages of its own, clone /
+    shrink / split, and an atomic alias swap. Seconds, p50 / p99, kernel
+    launches, device bytes and host RSS at the phase's start, peak and
+    end."""
+    from opensearch_tpu_torch import ApiError, RestClient
+    from opensearch_tpu_torch.errors import NotPortedError
+    client, ix = big["client"], big["ix"]
+    dev = client.device
+    eng = client._indices["bench"].engine
+    trim_host()
+    sync(dev)
+    t_phase = time.perf_counter()
+    bytes0 = device_bytes(dev)
+    rss0 = rss_bytes()
+    rss_watch = RssPeak().__enter__()
+    out: dict = {"classes": {}}
+    secs: dict = {}
+
+    # (a) through an alias at the corpus index's full scale
+    t0 = time.perf_counter()
+    client.indices.put_alias("bench", ADMIN_ALIAS, {"is_write_index": True})
+    if client.indices.get_alias(name=ADMIN_ALIAS) != {
+            "bench": {"aliases": {ADMIN_ALIAS: {"is_write_index": True}}}}:
+        raise AssertionError("phase 21: the alias did not read back")
+    items = admin_items(big, bools)
+    checks = {}
+    pages_a = []
+    for cls in ("match", "dense", "b3"):
+        if cls != "dense":
+            checks[cls] = memo_checks(items[cls], ix)
+        check = checks["match" if cls == "dense" else cls][0]
+        out["classes"][f"a_{cls}"], singles = run_admin_class(
+            client, f"(a) {cls}", items[cls], ADMIN_ALIAS, "bench", check,
+            B3_RTOL if cls == "b3" else 1e-6)
+        pages_a += singles
+    counts = []
+    for b, _o in items["match"]:
+        c1 = client.count(ADMIN_ALIAS, {"query": b["query"]})
+        if c1 != client.count("bench", {"query": b["query"]}):
+            raise AssertionError("phase 21: a count through the alias != "
+                                 "by name")
+        counts.append(c1["count"])
+
+    def verify_counts():
+        want = [checks["match"][0](j)[2] for j in range(len(counts))]
+        if counts != want:
+            raise AssertionError(f"phase 21 counts {counts} != the brute "
+                                 f"force's {want}")
+    VERIFY.submit("phase 21 (a) counts", verify_counts)
+    pool = np.flatnonzero(ix.live[:ix.n0])
+    rng = np.random.default_rng([seed, 21])
+    for g in rng.choice(pool, 4, replace=False).tolist():
+        if client.get(ADMIN_ALIAS, str(g)) != client.get("bench", str(g)):
+            raise AssertionError(f"phase 21: get [{g}] through the alias "
+                                 f"!= by name")
+    new_id = "phase21-created"
+    got = client.create(ADMIN_ALIAS, new_id, {"status": "draft", "price": 1})
+    if got["result"] != "created" or got["_index"] != "bench":
+        raise AssertionError(f"phase 21: create through the alias: {got}")
+    try:
+        client.create(ADMIN_ALIAS, new_id, {"status": "draft", "price": 2})
+        raise AssertionError("phase 21: a second create gave no 409")
+    except ApiError as e:
+        if e.status != 409:
+            raise
+    client.delete(ADMIN_ALIAS, new_id)
+    if any(d is not None for d in eng.buffer):
+        raise AssertionError("phase 21: the created doc stayed buffered")
+    secs["a"] = time.perf_counter() - t0
+    log(f"  (a) counts {counts} and 4 gets through [{ADMIN_ALIAS}] == by "
+        f"name; create through it 201 ('created' in [bench]), again 409, "
+        f"then deleted unrefreshed ({secs['a']:.1f}s for (a))")
+
+    # (b) term vectors at the corpus index's full scale
+    t0 = time.perf_counter()
+    tv_docs = sorted(rng.choice(pool, TV_DOCS, replace=False).tolist())
+    art_doc = tv_docs[0]
+    title = big["title"]
+    art = [int(x) for p in title[8][art_doc].astype(np.int64)
+           for x in (title[5][p], title[6][p])][::-1]
+    from opensearch_tpu_torch import bench_corpus as bc
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+    opts = {"fields": ["title"], "term_statistics": True,
+            "field_statistics": True, "filter": {"max_num_terms": TV_TERMS}}
+    t1 = time.perf_counter()
+    resp = client.mtermvectors({"docs": [
+        {"_index": ADMIN_ALIAS, "_id": str(g), **opts} for g in tv_docs]})
+    art_resp = client.termvectors(ADMIN_ALIAS, body={
+        "doc": {"title": " ".join(tvs[t] for t in art)}, **opts})
+    tv_ms = (time.perf_counter() - t1) * 1e3
+    n_live = int(ix.live.sum())
+
+    def verify_tv():
+        want = tv_expected(big, tv_docs, art, n_live)
+        for g, r, w in zip(tv_docs, resp["docs"], want["docs"]):
+            if not r["found"] or r["_id"] != str(g):
+                raise AssertionError(f"phase 21 (b): doc {g}: {r}")
+            tv_same(r["term_vectors"]["title"], w, f"phase 21 (b) {g}")
+        tv_same(art_resp["term_vectors"]["title"], want["art"],
+                "phase 21 (b) artificial doc")
+    VERIFY.submit("phase 21 (b)", verify_tv)
+    secs["b"] = time.perf_counter() - t0
+    out["classes"]["b_termvectors"] = {"docs": TV_DOCS, "ms": tv_ms}
+    log(f"  (b) mtermvectors of {TV_DOCS} passages' title and an artificial "
+        f"doc in {tv_ms:.1f} ms (term and field statistics from the "
+        f"corpus segment's host CSR, a filter of {TV_TERMS} terms); the "
+        f"brute force over the title draw on the verifier")
+
+    # (c) settings, blocks, close / open and stats at full scale
+    t0 = time.perf_counter()
+    r = client.indices.put_settings(ADMIN_ALIAS, {"index": {
+        "refresh_interval": "30s", "max_result_window": 50000}})
+    got = client.indices.get_settings(ADMIN_ALIAS)["bench"]["settings"][
+        "index"]
+    if not r["acknowledged"] or got.get("refresh_interval") != "30s" \
+            or got.get("max_result_window") != 50000:
+        raise AssertionError(f"phase 21 (c): settings read back {got}")
+    for body, word in (({"index": {"analysis": {"analyzer": {"a": {
+            "type": "standard"}}}}}, "non dynamic"),
+            ({"index": {"number_of_shards": 2}}, "final")):
+        try:
+            client.indices.put_settings("bench", body)
+            raise AssertionError(f"phase 21 (c): {body} acknowledged")
+        except ApiError as e:
+            if e.status != 400 or word not in e.reason:
+                raise
+    client.indices.put_settings("bench", {"index.blocks.write": True})
+    try:
+        client.index(ADMIN_ALIAS, {"status": "draft"}, id="blocked")
+        raise AssertionError("phase 21 (c): a write under blocks.write")
+    except ApiError as e:
+        if (e.status, e.err_type) != (403, "cluster_block_exception"):
+            raise
+    client.indices.put_settings("bench", {"index.blocks.write": False})
+    segs = list(eng.segments)
+    bytes_before = device_bytes(dev)
+    t1 = time.perf_counter()
+    client.indices.close(ADMIN_ALIAS)
+    close_ms = (time.perf_counter() - t1) * 1e3
+    body0 = items["match"][0][0]
+    try:
+        client.search(ADMIN_ALIAS, body0)
+        raise AssertionError("phase 21 (c): a search of a closed index")
+    except ApiError as e:
+        if (e.status, e.err_type) != (400, "index_closed_exception"):
+            raise
+    err = client.msearch([{}, body0], index="bench")["responses"][0]
+    if "closed" not in str(err.get("error")):
+        raise AssertionError(f"phase 21 (c): msearch of a closed index: "
+                             f"{err}")
+    t1 = time.perf_counter()
+    client.indices.open("bench")
+    open_ms = (time.perf_counter() - t1) * 1e3
+    bytes_after = device_bytes(dev)
+    if bytes_after != bytes_before or any(
+            a is not b for a, b in zip(eng.segments, segs)):
+        raise AssertionError(f"phase 21 (c): open changed the card's bytes "
+                             f"({bytes_before} -> {bytes_after}) or the "
+                             f"segments")
+    again = [r for cls in ("match", "dense", "b3")
+             for r in admin_pass(client, ADMIN_ALIAS,
+                                 [b for b, _o in items[cls]], False)[0]]
+    if strip_took(again) != strip_took(pages_a):
+        raise AssertionError("phase 21 (c): pages after open != (a)'s")
+    st = client.indices.stats(ADMIN_ALIAS)["indices"]["bench"]["total"]
+    docs = sum(s.live_count for s in eng.segments) + sum(
+        1 for d in eng.buffer if d is not None)
+    store = sum(pb.doc_ids.nbytes + pb.tfs.nbytes + pb.starts.nbytes
+                for s in eng.segments for pb in s.postings.values()) + sum(
+        c.values.nbytes for s in eng.segments
+        for c in s.numeric_cols.values())
+    if st["docs"]["count"] != docs or docs != n_live \
+            or st["store"]["size_in_bytes"] != store:
+        raise AssertionError(f"phase 21 (c): stats {st['docs']} "
+                             f"{st['store']} != {docs} docs ({n_live} "
+                             f"live in the brute force), {store} bytes")
+    secs["c"] = time.perf_counter() - t0
+    out["classes"]["c_admin"] = {"close_ms": close_ms, "open_ms": open_ms,
+                                 "device_bytes": bytes_after,
+                                 "stats": {k: st[k] for k in (
+                                     "docs", "store", "segments",
+                                     "indexing", "refresh", "merges")}}
+    log(f"  (c) put_settings (dynamic) acknowledged and read back, static "
+        f"and final 400, blocks.write 403 then lifted; close {close_ms:.1f} "
+        f"ms (search 400 index_closed_exception, msearch's error entry), "
+        f"open {open_ms:.1f} ms with the card's bytes unchanged "
+        f"({bytes_after}) and (a)'s pages again; stats docs "
+        f"{st['docs']['count']} and store {st['store']['size_in_bytes']} "
+        f"bytes == the segments' arrays ({secs['c']:.1f}s for (c))")
+
+    # (d) a template, an index of its own, clone / shrink / split
+    t0 = time.perf_counter()
+    os.environ["OPENSEARCH_TPU_REORDER"] = "0"
+    client.indices.put_index_template("res", {
+        "index_patterns": ["res-*"], "template": {
+            "settings": {"number_of_shards": 1, "number_of_replicas": 0},
+            "mappings": RESIZE_MAPPING, "aliases": {"res-all": {}}}})
+    t1 = time.perf_counter()
+    lines, sub, status, price = resize_corpus(big, resize_docs)
+    render_s = time.perf_counter() - t1
+    client.indices.create("res-src", {"aliases": {"res-cur": {}}})
+    if client.indices.get_alias(name="res-all"):
+        raise AssertionError("phase 21 (d): a template's alias applied at "
+                             "create (the reference applies none)")
+    t1 = time.perf_counter()
+    step = 2 * 5000
+    for i in range(0, len(lines), step):
+        r = client.bulk(lines[i:i + step],
+                        refresh=i + step >= len(lines))
+        if r["errors"]:
+            raise AssertionError("phase 21 (d): bulk errors")
+    bulk_s = time.perf_counter() - t1
+    del lines
+    client.indices.put_settings("res-src", {"index.blocks.write": True})
+    resize_s = {}
+    for kind, target, body in (
+            ("clone", "res-clone", None),
+            ("shrink", "res-shrink", {"settings": {"index": {
+                "number_of_shards": 1}}}),
+            ("split", "res-split", {"settings": {"index": {
+                "number_of_shards": 1}}})):
+        t1 = time.perf_counter()
+        r = getattr(client.indices, kind)("res-src", target, body)
+        resize_s[kind] = time.perf_counter() - t1
+        if r["copied_docs"] != resize_docs:
+            raise AssertionError(f"phase 21 (d): {kind} copied {r}")
+    try:
+        client.indices.split("res-src", "res-wide", {"settings": {
+            "index": {"number_of_shards": 2}}})
+        raise AssertionError("phase 21 (d): a split to 2 shards served")
+    except NotPortedError:
+        pass
+    ritems = resize_items(big, bools, sub, status, price)
+    names = ("res-src", "res-clone", "res-shrink", "res-split")
+    resized: dict = {}
+    rchecks = {cls: memo_checks(ritems[cls], None)[0]
+               for cls in ("match", "b3")}
+    for cls in ("match", "dense", "b3"):
+        bodies = [b for b, _o in ritems[cls]]
+        first = None
+        per = {}
+        for n_ in names:
+            resps, lat, c = admin_pass(client, n_, bodies, True)
+            if dev.type == "cuda" and c["plain_calls"]:
+                raise AssertionError(f"phase 21 (d): a plain call on {n_}")
+            if first is None:
+                first = resps
+                check = rchecks["match" if cls == "dense" else cls]
+
+                def verify(resps=resps, cls=cls, check=check):
+                    for j, r in enumerate(resps):
+                        check_page(r, check(j), f"phase 21 (d) {cls} {j}",
+                                   B3_RTOL)
+                VERIFY.submit(f"phase 21 (d) {cls}", verify)
+            elif strip_index(resps) != strip_index(first):
+                raise AssertionError(f"phase 21 (d) {cls}: {n_}'s pages != "
+                                     f"res-src's")
+            per[n_] = {"ms": lat[0], "counts": c}
+        resized[cls] = per
+    twin = RestClient(device="cpu")
+    twin.indices.create("res-clone", {"mappings": RESIZE_MAPPING})
+    twin._indices["res-clone"].engine.segments = list(
+        client._indices["res-clone"].engine.segments)
+    share_with_verifier(twin._indices["res-clone"].engine.segments)
+    card_pages = {cls: admin_pass(client, "res-clone",
+                                  [b for b, _o in ritems[cls]], False)[0]
+                  for cls in ritems}
+
+    def verify_twin():
+        for cls, items_ in ritems.items():
+            for b, got_ in zip([b for b, _o in items_], card_pages[cls]):
+                if strip_took(twin.search("res-clone", b)) \
+                        != strip_took(got_):
+                    raise AssertionError(f"phase 21 (d) {cls}: card != CPU "
+                                         f"on res-clone")
+    VERIFY.submit("phase 21 (d) card == CPU", verify_twin)
+    client.indices.update_aliases({"actions": [
+        {"remove": {"index": "res-src", "alias": "res-cur"}},
+        {"add": {"index": "res-clone", "alias": "res-cur"}}]})
+    if client.indices.get_alias(name="res-cur") != {
+            "res-clone": {"aliases": {"res-cur": {}}}}:
+        raise AssertionError("phase 21 (d): the alias swap")
+    body0 = ritems["b3"][0][0]
+    if strip_took(client.search("res-cur", body0)) != strip_took(
+            client.search("res-clone", body0)):
+        raise AssertionError("phase 21 (d): a search through the swapped "
+                             "alias != res-clone's")
+    VERIFY.drain()
+    client.indices.delete("res-*")
+    client.indices.delete_index_template("res")
+    del twin, sub
+    secs["d"] = time.perf_counter() - t0
+    out["classes"]["d_resize"] = {
+        "docs": resize_docs, "render_s": render_s, "bulk_s": bulk_s,
+        "resize_s": resize_s, "classes": resized}
+    log(f"  (d) template res-* (its alias not applied at create, as the "
+        f"reference); res-src of {resize_docs} passages rendered in "
+        f"{render_s:.1f}s, bulk + refresh {bulk_s:.1f}s; "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in resize_s.items())
+        + "; a split to 2 shards NotPortedError; "
+        + "; ".join(f"{cls}: " + ", ".join(
+            f"{n_} {v['ms']:.1f} ms B1={v['counts']['launches']} "
+            f"B2={v['counts']['impact_launches']} "
+            f"B3={v['counts']['bool_launches']}" for n_, v in per.items())
+            for cls, per in resized.items())
+        + f"; every page == res-src's == the brute force, res-clone card "
+        f"== CPU, res-cur swapped atomically to res-clone; indices "
+        f"deleted ({secs['d']:.1f}s for (d))")
+    sync(dev)
+    rss_watch.__exit__()
+    out.update(seconds=time.perf_counter() - t_phase, class_s=secs,
+               device_bytes_start=bytes0,
+               device_bytes_peak=device_peak(dev),
+               device_bytes_end=device_bytes(dev),
+               rss_start=rss0[0], rss_peak=rss_watch.peak,
+               rss_end=rss_bytes()[0], verify_busy_s=VERIFY.busy_s,
+               verify_wait_s=VERIFY.wait_s)
+    drop_cpu_state(eng.segments)
+    log(f"  phase 21 ({card}): {out['seconds']:.1f}s; device bytes start "
+        f"{bytes0}, end {out['device_bytes_end']} (the process's peak "
+        f"{out['device_bytes_peak']}); host RSS start {out['rss_start']}, "
+        f"peak {out['rss_peak']}, end {out['rss_end']}")
+    big["admin"] = {"items": items, "checks": checks}
+    return out
+
+
+def phase_admin_merged(big: dict) -> dict:
+    """Phase 8's merged segment (the kernels serve it): (a)'s classes
+    again through the alias and by name, each against the brute force
+    with the writes applied and the merge's compaction."""
+    client, ix = big["client"], big["ix"]
+    adm = big.pop("admin")
+    out = {}
+    for cls in ("match", "dense", "b3"):
+        items = adm["items"][cls]
+        check = memo_checks(items, ix)[0]
+        out[cls] = run_admin_class(client, f"(a) {cls}, merged", items,
+                                   ADMIN_ALIAS, "bench", check,
+                                   B3_RTOL if cls == "b3" else 1e-6)[0]
+    VERIFY.drain()
     return out
 
 
@@ -10984,9 +11833,9 @@ def main() -> int:
                     help="phase-20 bodies per class")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 20; they run 3, 4, 5, "
+                    help="end after this phase (3 to 21; they run 3, 4, 5, "
                     "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, "
-                    "8); no result line")
+                    "21, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -11212,6 +12061,20 @@ def main() -> int:
     if args.stop_after == 20:
         return 0
 
+    log(f"[21] index administration around a search (an alias with a "
+        f"write index, create, term vectors, put_settings and write "
+        f"blocks, close / open, indices.stats; an index template and "
+        f"clone / shrink / split of an index of its own) at MS MARCO "
+        f"passage scale (ndocs={args.ndocs}), on phase 20's end state; "
+        f"class (a) again after phase 8" + at(t_start))
+    log(f"  cut: (d)'s index holds the first {RESIZE_DOCS} passages "
+        f"(not {args.ndocs}): a resize re-indexes every document through "
+        f"the host write path, as the reference's does")
+    admin = phase_admin_msmarco(big, bools, RESIZE_DOCS, args.seed,
+                                smi[0])
+    if args.stop_after == 21:
+        return 0
+
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
@@ -11262,7 +12125,25 @@ def main() -> int:
                     "rss_peak_merge": writes["rss_peak_merge"],
                     "rss_peak_process": rss_bytes()[1]}
     gm = {k: v["counts"] for k, v in geo["merged"]["classes"].items()}
+    log("[21m] phase 21's class (a), through the alias and by name, on "
+        "phase 8's merged segment" + at(t_start))
+    admin["merged"] = phase_admin_merged(big)
 
+    def admin_launches(key: str) -> int:
+        """Phase 21's launches of one kernel: (a) before and after the
+        merge through the alias (the runs by name launch as many), (d)
+        on every resized index."""
+        runs = [c[form]["counts"] for part in (
+            [admin["classes"][f"a_{k}"] for k in ("match", "dense", "b3")],
+            list(admin["merged"].values())) for c in part
+            for form in ("singles", "msearch")]
+        runs += [v["counts"] for per in admin["classes"]["d_resize"][
+            "classes"].values() for v in per.values()]
+        return sum(c[key] for c in runs)
+
+    drain_log("the run")
+    log(f"  the verifier: {VERIFY.busy_s:.1f}s of checks on its thread, "
+        f"{VERIFY.wait_s:.1f}s of them waited for at the phases' ends")
     kernels = [{
         "name": "fused_bm25_topk_tfdl", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/bm25_tfdl.cu",
@@ -11278,6 +12159,7 @@ def main() -> int:
         "launches_fields": sum(c["launches"] for c in fm.values()),
         "launches_scripts": sum(c["launches"] for c in scm.values()),
         "launches_geo": sum(c["launches"] for c in gm.values()),
+        "launches_admin": admin_launches("launches"),
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -11295,6 +12177,7 @@ def main() -> int:
         "launches_fields": sum(c["impact_launches"] for c in fm.values()),
         "launches_scripts": sum(c["impact_launches"] for c in scm.values()),
         "launches_geo": sum(c["impact_launches"] for c in gm.values()),
+        "launches_admin": admin_launches("impact_launches"),
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -11311,6 +12194,7 @@ def main() -> int:
         "launches_fields": sum(c["bool_launches"] for c in fm.values()),
         "launches_scripts": sum(c["bool_launches"] for c in scm.values()),
         "launches_geo": sum(c["bool_launches"] for c in gm.values()),
+        "launches_admin": admin_launches("bool_launches"),
         "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
                            egrid["max_abs_err"], bools["max_abs_err"]),
         **times(bools["b3"]), "bound_by": "bytes",
@@ -11354,6 +12238,7 @@ def main() -> int:
     print(json.dumps({"fields": fields}), flush=True)
     print(json.dumps({"scripts": scripts}), flush=True)
     print(json.dumps({"geo": geo}), flush=True)
+    print(json.dumps({"admin": admin}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

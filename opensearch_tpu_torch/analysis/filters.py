@@ -25,7 +25,13 @@ ENGLISH_STOPWORDS = frozenset(
 
 
 def lowercase_filter(tokens: List[Token]) -> List[Token]:
-    return [t.with_text(t.text.lower()) for t in tokens]
+    # a token already lower case passes as it is (no filter changes a
+    # token in place)
+    out = []
+    for t in tokens:
+        low = t.text.lower()
+        out.append(t if low == t.text else t.with_text(low))
+    return out
 
 
 def uppercase_filter(tokens: List[Token]) -> List[Token]:

@@ -40,10 +40,8 @@ _LETTER_RE = re.compile(r"[^\W\d_]+", re.UNICODE)
 
 
 def _re_tokenize(text: str, pattern: re.Pattern) -> List[Token]:
-    out = []
-    for pos, m in enumerate(pattern.finditer(text)):
-        out.append(Token(m.group(0), pos, m.start(), m.end()))
-    return out
+    return [Token(m.group(0), pos, *m.span())
+            for pos, m in enumerate(pattern.finditer(text))]
 
 
 def standard_tokenizer(text: str) -> List[Token]:

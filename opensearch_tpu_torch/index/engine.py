@@ -1,6 +1,9 @@
 """The index engine: buffered writes, realtime get, refresh, tiered merge,
 flush and recovery (opensearch_tpu/index/engine.py without its ingest
-instrumentation and its streaming refresh builder).
+instrumentation and its streaming refresh builder). It keeps the counters
+and the writer buffer's shape that an index's stats report: index,
+delete, refresh, flush and merge totals, the buffer's docs and sampled
+bytes, and each refresh's accept-to-visible delays.
 
 Write path: parse -> version/concurrency check -> translog append (when
 the engine has a path) -> in-memory buffer. `refresh()` turns the buffer
@@ -23,11 +26,30 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from ..utils import metrics
 from .mappings import Mappings, ParsedDocument
 from .merge import (TieredMergePolicy, check_no_reorder, doc_maps,
                     merge_segments)
 from .segment import Segment, build_segment
 from .translog import Translog
+
+# the writer buffer's byte estimate folds in every FLUSH_EVERY accepted
+# docs and at refresh, sizing at most BYTES_SAMPLE of them (the
+# reference's ingest instrumentation)
+FLUSH_EVERY = 64
+BYTES_SAMPLE = 8
+
+
+def doc_bytes(source: dict) -> int:
+    """A structural byte estimate of one source's top level."""
+    est = 24
+    for k, v in source.items():
+        est += len(k) + 8
+        if isinstance(v, str):
+            est += len(v)
+        elif isinstance(v, (list, tuple)):
+            est += 8 * len(v)
+    return est
 
 
 class VersionConflictError(Exception):
@@ -53,11 +75,20 @@ class Engine:
         self.segments: List[Segment] = []
         self.buffer: List[Optional[ParsedDocument]] = []
         self.buffer_seq: List[int] = []
+        # accept-time monotonic stamp per buffered doc (parallel to
+        # `buffer`): refresh records the accept-to-visible delays
+        self.buffer_accepts: List[float] = []
         self._buffer_ids: Dict[str, int] = {}
+        # the buffer's folded byte estimate and the docs not yet folded
+        self._buf_bytes = 0
+        self._pend_docs = 0
+        self.index_name = ""      # names the refresh-to-visible sketch
         self.seq_no = -1
         self._seg_counter = 0
         self.version_map: Dict[str, DocLocation] = {}
         self.translog: Optional[Translog] = None
+        self.stats = {"index_ops": 0, "delete_ops": 0, "refreshes": 0,
+                      "flushes": 0, "merges": 0}
         if path is not None:
             os.makedirs(path, exist_ok=True)
             self._recover()
@@ -103,7 +134,12 @@ class Engine:
         self._buffer_ids[doc_id] = len(self.buffer)
         self.buffer.append(parsed)
         self.buffer_seq.append(seq)
+        self.buffer_accepts.append(time.monotonic())
         self.version_map[doc_id] = DocLocation(seq, in_buffer=True)
+        self.stats["index_ops"] += 1
+        self._pend_docs += 1
+        if self._pend_docs >= FLUSH_EVERY:
+            self._fold_pending()
         return {"_id": doc_id, "_seq_no": seq,
                 "_primary_term": self.primary_term,
                 "result": "updated" if existed else "created"}
@@ -119,6 +155,7 @@ class Engine:
         if found:
             self._delete_previous(doc_id)
             self.version_map.pop(doc_id, None)
+        self.stats["delete_ops"] += 1
         return {"_id": doc_id, "_seq_no": seq,
                 "_primary_term": self.primary_term,
                 "result": "deleted" if found else "not_found"}
@@ -177,23 +214,57 @@ class Engine:
         return sum(s.live_count for s in self.segments) + \
             sum(1 for d in self.buffer if d is not None)
 
+    def _fold_pending(self) -> None:
+        """Fold the docs accepted since the last fold into the buffer's
+        byte estimate: the mean size of at most BYTES_SAMPLE docs of the
+        buffer's tail, scaled to the fold."""
+        n = self._pend_docs
+        if not n:
+            return
+        tail = self.buffer[-n:]
+        samples = [p for p in tail[::max(1, n // BYTES_SAMPLE)]
+                   if p is not None][:BYTES_SAMPLE]
+        if samples:
+            self._buf_bytes += int(sum(doc_bytes(p.source) for p in samples)
+                                   / len(samples) * n)
+        self._pend_docs = 0
+
+    def buffer_stats(self) -> dict:
+        """Docs pending refresh and the buffer's folded byte estimate."""
+        return {"docs": sum(1 for d in self.buffer if d is not None),
+                "bytes": self._buf_bytes}
+
+    def merge_backlog(self) -> int:
+        """Merge groups the policy would run right now."""
+        return len([g for g in self.merge_policy.find_merges(self.segments)
+                    if len(g) >= 2 or any(s.live_count < s.ndocs
+                                          for s in g)])
+
     def refresh(self) -> bool:
-        live = [(d, s) for d, s in zip(self.buffer, self.buffer_seq)
+        self._fold_pending()
+        live = [(d, s, a) for d, s, a in zip(self.buffer, self.buffer_seq,
+                                             self.buffer_accepts)
                 if d is not None]
         self.buffer = []
         self.buffer_seq = []
+        self.buffer_accepts = []
         self._buffer_ids = {}
+        self._buf_bytes = 0
         if not live:
             return False
-        docs = [d for d, _ in live]
-        seqs = [s for _, s in live]
+        docs = [d for d, _, _ in live]
+        seqs = [s for _, s, _ in live]
         seg = build_segment(f"_{self._seg_counter}", docs, self.mappings,
                             seq_nos=seqs, device=self.device)
         self._seg_counter += 1
         self.segments.append(seg)
-        for local, (d, s) in enumerate(live):
+        for local, (d, s, _a) in enumerate(live):
             self.version_map[d.doc_id] = DocLocation(
                 s, in_buffer=False, segment=seg, local_doc=local)
+        self.stats["refreshes"] += 1
+        # the docs became searchable here, before the merge work
+        metrics.record_refresh_to_visible(
+            self.index_name, [a for _, _, a in live], time.monotonic())
         self.maybe_merge()
         return True
 
@@ -222,6 +293,7 @@ class Engine:
         for s in group:
             s.retire()
         self.__dict__.pop("_shard_view", None)
+        self.stats["merges"] += 1
         return merged
 
     def force_merge(self, max_num_segments: int = 1) -> None:
@@ -257,6 +329,7 @@ class Engine:
         os.replace(tmp, os.path.join(self.path, "commit.json"))
         if self.translog:
             self.translog.prune_below(gen)
+        self.stats["flushes"] += 1
 
     # ---------------- recovery ----------------
 

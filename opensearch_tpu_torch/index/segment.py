@@ -996,49 +996,64 @@ def pack_postings(parsed_docs: list) -> Dict[str, PostingsBlock]:
     field whose term lists are all empty still gets an (empty) block.
     Every field gets its token positions (none for a keyword field: an
     all-empty positions CSR, as in the reference), flattened in posting
-    order, ascending within a posting."""
-    field_term_docs: Dict[str, Dict[str, dict]] = {}
-    field_term_pos: Dict[str, Dict[str, dict]] = {}
+    order, ascending within a posting. The tokens of a field are
+    flattened, interned and sorted as (term, doc) keys in numpy (the
+    reference's native packer's scheme)."""
+    field_tokens: Dict[str, list] = {}
+    field_docs: Dict[str, list] = {}
+    field_pos: Dict[str, list] = {}
     for doc_i, pd in enumerate(parsed_docs):
         for fname, terms in pd.terms.items():
-            td = field_term_docs.setdefault(fname, {})
-            for t in terms:
-                postings = td.setdefault(t, {})
-                postings[doc_i] = postings.get(doc_i, 0) + 1
+            field_tokens.setdefault(fname, []).extend(terms)
+            field_docs.setdefault(fname, []).append((doc_i, len(terms)))
         for fname, tps in pd.positions.items():
-            tp = field_term_pos.setdefault(fname, {})
-            for t, p in tps:
-                tp.setdefault(t, {}).setdefault(doc_i, []).append(p)
+            field_pos.setdefault(fname, []).append((doc_i, tps))
+    ndocs = max(len(parsed_docs), 1)
     out: Dict[str, PostingsBlock] = {}
-    for fname, term_docs in field_term_docs.items():
-        vocab = sorted(term_docs)
-        lens = np.fromiter((len(term_docs[t]) for t in vocab), np.int64,
-                           count=len(vocab))
+    for fname, tokens in field_tokens.items():
+        vocab = sorted(set(tokens))
+        tid = {t: i for i, t in enumerate(vocab)}
+        pairs = field_docs[fname]
+        doc_of = np.repeat(
+            np.fromiter((d for d, _ in pairs), np.int64, count=len(pairs)),
+            np.fromiter((c for _, c in pairs), np.int64, count=len(pairs)))
+        key = np.fromiter((tid[t] for t in tokens), np.int64,
+                          count=len(tokens)) * ndocs + doc_of
+        ukey, tf = np.unique(key, return_counts=True)
         starts = np.zeros(len(vocab) + 1, dtype=np.int64)
-        np.cumsum(lens, out=starts[1:])
-        doc_ids = np.empty(int(starts[-1]), dtype=np.int32)
-        tfs = np.empty(int(starts[-1]), dtype=np.float32)
-        tp = field_term_pos.get(fname, {})
-        plens = np.zeros(int(starts[-1]), np.int64)
-        chunks: List[List[int]] = []
-        k = 0
-        for t in vocab:
-            d = term_docs[t]
-            for doc_i in sorted(d):
-                doc_ids[k] = doc_i
-                tfs[k] = d[doc_i]
-                plist = sorted(tp.get(t, {}).get(doc_i, ()))
-                plens[k] = len(plist)
-                chunks.append(plist)
-                k += 1
-        pos_starts = np.zeros(len(plens) + 1, np.int64)
+        np.cumsum(np.bincount(ukey // ndocs, minlength=len(vocab)),
+                  out=starts[1:])
+        doc_ids = (ukey % ndocs).astype(np.int32)
+        tfs = tf.astype(np.float32)
+        # positions: (posting key, position) pairs sorted, kept where the
+        # posting exists
+        pterms, pvals, pdocs = [], [], []
+        for doc_i, tps in field_pos.get(fname, ()):
+            if tps:
+                ts, ps = zip(*tps)
+                pterms.extend(ts)
+                pvals.extend(ps)
+                pdocs.append((doc_i, len(tps)))
+        prow = np.fromiter((tid.get(t, -1) for t in pterms), np.int64,
+                           count=len(pterms))
+        pdoc = np.repeat(
+            np.fromiter((d for d, _ in pdocs), np.int64, count=len(pdocs)),
+            np.fromiter((c for _, c in pdocs), np.int64, count=len(pdocs)))
+        known = prow >= 0
+        pk = prow[known] * ndocs + pdoc[known]
+        pv = np.asarray(pvals, np.int64)[known]
+        order = np.lexsort((pv, pk))
+        pk, pv = pk[order], pv[order]
+        at = np.searchsorted(ukey, pk)
+        keep = (at < len(ukey)) & (ukey[np.minimum(at, len(ukey) - 1)]
+                                   == pk) if len(ukey) else pk < 0
+        pk, pv = pk[keep], pv[keep]
+        plens = (np.searchsorted(pk, ukey, side="right")
+                 - np.searchsorted(pk, ukey, side="left"))
+        pos_starts = np.zeros(len(ukey) + 1, np.int64)
         np.cumsum(plens, out=pos_starts[1:])
-        positions = np.fromiter((p for c in chunks for p in c), np.int32,
-                                count=int(pos_starts[-1]))
-        out[fname] = PostingsBlock(fname, vocab,
-                                   {t: i for i, t in enumerate(vocab)},
-                                   starts, doc_ids, tfs, pos_starts,
-                                   positions)
+        out[fname] = PostingsBlock(fname, vocab, tid, starts, doc_ids, tfs,
+                                   pos_starts, pv.astype(np.int32))
     return out
 
 

@@ -1,7 +1,8 @@
 """RestClient: the dict-in / dict-out API facade (the document, bulk,
 search, msearch, count, explain, validate_query, field_caps, scroll,
-point-in-time and indices subset of opensearch_tpu/rest/client.py), with
-the same request and response shapes for this subset.
+point-in-time, term vector and indices subset of
+opensearch_tpu/rest/client.py), with the same request and response shapes
+for this subset.
 
 A search's `timeout` becomes one deadline where the call accepts the body
 (`utils/deadline.py`). A scroll (`search(..., scroll=...)`) and a point
@@ -16,10 +17,20 @@ expire lazily, when a scroll or point-in-time search next looks.
 
 An index has one shard and no replicas. Its segments' postings live on the
 client's device: a card unless the caller asks for the CPU. With a
-`data_path`, each index keeps its metadata in
-`<data_path>/<index>/index_meta.json` and its shard (translog, segments,
-commit point) under `<data_path>/<index>/0`, and a client opened on the
-same path recovers every index found there.
+`data_path`, each index keeps its metadata (settings, mapping, open or
+closed) in `<data_path>/<index>/index_meta.json` and its shard (translog,
+segments, commit point) under `<data_path>/<index>/0`, and a client opened
+on the same path recovers every index found there. Aliases and index
+templates live in memory only, as in the reference.
+
+Index names resolve through the client's metadata (`cluster/state.py`):
+names, comma lists, wildcards and aliases. A write through an alias goes
+to its write index; a search, count or msearch through an expression that
+names more than one open index raises NotPortedError, as does one through
+an alias that carries a `filter` or a `routing` (the reference serves
+such a search unfiltered). A closed index refuses searches and writes
+with index_closed_exception; `index.blocks.write` (or `read_only`)
+refuses writes with cluster_block_exception.
 
 A `geo_shape` query's `indexed_shape` ({index, id, path}) is replaced by
 the shape stored at `path` ("shape" by default) of that document before
@@ -28,7 +39,8 @@ client does (a missing document or path is its 400).
 
 A missing index raises `IndexNotFoundError` and creating an existing one
 `ResourceAlreadyExistsError` (`errors.py`), where the reference's client
-raises them; msearch turns a missing index into its per-body error entry.
+raises them; msearch turns a missing or closed index into its per-body
+error entry.
 """
 
 from __future__ import annotations
@@ -36,31 +48,36 @@ from __future__ import annotations
 import copy
 import fnmatch
 import json
+import math
 import os
 import shutil
 import time
 import uuid
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..analysis import AnalysisRegistry
+from ..cluster import admin
+from ..cluster.admin import IndexClosedError, SettingsError
+from ..cluster.state import AliasMetadata, ClusterMetadata, IndexMetadata
 from ..device import resolve_device
-from ..errors import (IndexNotFoundError, NotPortedError,
+from ..errors import (ClusterStateError, IndexNotFoundError, NotPortedError,
                       ResourceAlreadyExistsError)
 from ..index.engine import DocLocation, Engine, VersionConflictError
-from ..index.mappings import Mappings
+from ..index.mappings import Mappings, parse_annotated_text
 from ..models.similarity import resolve_similarity
 from ..script import painless_lite as pl
 from ..search import compiler as C
+from ..search import fastpath
 from ..search import query_dsl as dsl
 from ..search.executor import (ShardSearcher, msearch_batched,
                                search_shards, search_snapshot)
 from ..search.explain import explain_doc
 from ..utils import deadline as DL
-
-_INDEX_SETTINGS = {"number_of_shards", "number_of_replicas", "analysis",
-                   "similarity"}
+from ..utils import metrics
+from ..utils.slowlog import SlowLog
 
 # the public calls of the reference's client (dir() of its RestClient and
 # IndicesClient, opensearch_tpu/rest/client.py); one the port does not
@@ -123,45 +140,128 @@ def parse_keepalive_s(v, default: float = 60.0) -> float:
                        f"failed to parse time value [{v}]")
 
 
-class IndexService:
-    """One index: its mappings, its single shard's engine and searcher.
-    With a `data_path` the shard's engine lives under
-    `<data_path>/<name>/0`. `settings` is the create body's settings as
-    the reference keeps them ({"index": {...}}); `mapping_body` the
-    create body's mapping with every put_mapping body merged in, which
-    the index's metadata file persists."""
+def unported_setting(key: str, value) -> Optional[str]:
+    """The name of an index setting (flattened, `index.` stripped) whose
+    effect the port does not serve, or None: more shards or replicas than
+    one and none, and the ingest, search pipeline and lifecycle settings
+    the reference acts on."""
+    if key == "number_of_shards" and int(value) != 1:
+        return "number_of_shards > 1"
+    if key == "number_of_replicas" and int(value) > 0:
+        return "number_of_replicas > 0"
+    if key in ("default_pipeline", "search.default_pipeline") \
+            or key.startswith("lifecycle."):
+        return f"index setting [{key}]"
+    return None
 
-    def __init__(self, name: str, body: Optional[dict],
+
+class IndexService:
+    """One index: its metadata, mappings, single shard's engine and
+    searcher, and slow logs. With a `data_path` the shard's engine lives
+    under `<data_path>/<name>/0`. `meta.settings` holds the settings as
+    the reference keeps them ({"index": {...}}); `mapping_body` the create
+    body's mapping with every put_mapping body merged in, which the
+    index's metadata file persists."""
+
+    def __init__(self, meta: IndexMetadata, mapping: Optional[dict],
                  device: torch.device, data_path: Optional[str] = None):
-        body = body or {}
-        for key in body:
-            if key not in ("settings", "mappings"):
-                raise NotPortedError(f"create index option [{key}]")
-        settings = dict(body.get("settings", {}))
-        settings = dict(settings.get("index", settings))
-        for key in settings:
-            if key not in _INDEX_SETTINGS:
-                raise NotPortedError(f"index setting [{key}]")
-        if int(settings.get("number_of_shards", 1)) != 1:
-            raise NotPortedError("number_of_shards > 1")
-        if int(settings.get("number_of_replicas", 0)) != 0:
-            raise NotPortedError("number_of_replicas > 0")
-        mapping = body.get("mappings")
-        self.name = name
-        self.settings = {"index": settings}
+        settings = meta.settings.setdefault("index", {})
+        for key, value in admin.flatten(settings).items():
+            what = unported_setting(key, value)
+            if what is not None:
+                raise NotPortedError(what)
+        self.meta = meta
+        self.name = meta.name
         self.mapping_body = dict(mapping or {})
         self.mappings = Mappings(mapping,
                                  analysis=AnalysisRegistry(
                                      settings.get("analysis")),
                                  dynamic=(mapping or {}).get("dynamic", True))
-        sim = settings.get("similarity", {})
-        self.similarity = resolve_similarity(
-            sim.get("default") if isinstance(sim, dict) else None)
-        path = os.path.join(data_path, name, "0") if data_path else None
+        self.similarity = _similarity(settings)
+        path = os.path.join(data_path, meta.name, "0") if data_path else None
         self.engine = Engine(self.mappings, path=path, device=device)
+        self.engine.index_name = meta.name
         self.searcher = ShardSearcher(self.engine, device,
                                       similarity=self.similarity,
-                                      index_name=name)
+                                      index_name=meta.name)
+        self.search_slowlog = SlowLog(meta.name, meta.settings, "search",
+                                      "query")
+        self.index_slowlog = SlowLog(meta.name, meta.settings, "indexing",
+                                     "index")
+
+    def reapply_static_settings(self) -> None:
+        """After an open: the analysis chains and the default similarity
+        from the settings, which may have changed while the index was
+        closed; the segments and their device arrays stay as they are."""
+        idx = self.meta.settings.get("index", {})
+        self.mappings.analysis = AnalysisRegistry(idx.get("analysis"))
+        for ft in self.mappings.fields.values():
+            if ft.type == "search_as_you_type":
+                shingles = sum(1 for s in ft.subfields if s.endswith("gram"))
+                self.mappings.analysis.ensure_sayt_chains(shingles + 1)
+        self.similarity = _similarity(idx)
+        self.searcher.similarity = self.similarity
+
+    def stats(self) -> dict:
+        """The reference's index stats: docs, store bytes (each segment's
+        postings doc ids, tfs and row starts, and its numeric columns'
+        values), slow logs, segments, indexing and its buffer, refresh
+        (with the refresh-to-visible percentiles once a refresh has run),
+        flush and merges."""
+        eng = self.engine
+        store_bytes = 0
+        for seg in eng.segments:
+            for pb in seg.postings.values():
+                store_bytes += (pb.doc_ids.nbytes + pb.tfs.nbytes
+                                + pb.starts.nbytes)
+            for col in seg.numeric_cols.values():
+                store_bytes += col.values.nbytes
+        ops = eng.stats
+        buf = eng.buffer_stats()
+        rtv = metrics.percentiles(metrics.refresh_to_visible_name(self.name))
+        return {"docs": {"count": eng.num_docs},
+                "store": {"size_in_bytes": store_bytes},
+                "slowlog": {"search": self.search_slowlog.stats(),
+                            "indexing": self.index_slowlog.stats()},
+                "segments": {"count": len(eng.segments)},
+                "indexing": {"index_total": ops["index_ops"],
+                             "delete_total": ops["delete_ops"],
+                             "buffer": {"docs": buf["docs"],
+                                        "bytes": buf["bytes"]}},
+                "refresh": {"total": ops["refreshes"],
+                            **({"refresh_to_visible_ms": rtv}
+                               if rtv else {})},
+                "flush": {"total": ops["flushes"]},
+                "merges": {"total": ops["merges"],
+                           "backlog": eng.merge_backlog()}}
+
+
+def _similarity(idx_settings: dict):
+    sim = idx_settings.get("similarity", {})
+    return resolve_similarity(sim.get("default") if isinstance(sim, dict)
+                              else None)
+
+
+def _get_source_path(src: dict, path: str):
+    node: Any = src
+    for p in path.split("."):
+        if isinstance(node, dict):
+            node = node.get(p)
+        else:
+            return None
+    return node
+
+
+def _map_admin_errors(fn, *args):
+    """cluster/admin.py's errors -> the reference's ApiErrors."""
+    try:
+        return fn(*args)
+    except IndexClosedError as e:
+        raise ApiError(400, "index_closed_exception", str(e))
+    except SettingsError as e:
+        raise ApiError(400, "illegal_argument_exception", str(e))
+    except IndexNotFoundError as e:
+        raise ApiError(404, "index_not_found_exception", str(e))
 
 
 def _run_update_script_or_400(script_body, src: dict, meta: dict):
@@ -184,6 +284,7 @@ class RestClient:
     def __init__(self, device="cuda", data_path: Optional[str] = None):
         self.device = resolve_device(device)
         self.data_path = data_path
+        self.metadata = ClusterMetadata()
         self.indices = IndicesClient(self)
         self._indices: Dict[str, IndexService] = {}
         # scroll / point-in-time id -> context (its index service, the
@@ -195,16 +296,23 @@ class RestClient:
             self._recover_indices()
 
     def _recover_indices(self) -> None:
-        """Open every index persisted under `data_path`: its metadata,
-        then its shard from the last commit point and the translog."""
+        """Open every index persisted under `data_path`: its metadata
+        (a closed index recovers closed), then its shard from the last
+        commit point and the translog."""
         for name in sorted(os.listdir(self.data_path)):
-            meta = os.path.join(self.data_path, name, "index_meta.json")
-            if not os.path.exists(meta):
+            path = os.path.join(self.data_path, name, "index_meta.json")
+            if not os.path.exists(path):
                 continue
-            with open(meta) as fh:
-                body = json.load(fh)
-            self._indices[name] = IndexService(name, body, self.device,
-                                               self.data_path)
+            with open(path) as fh:
+                saved = json.load(fh)
+            meta = IndexMetadata(name, settings=saved.get("settings", {}))
+            meta.state = saved.get("state", "open")
+            self._register(IndexService(meta, saved.get("mappings"),
+                                        self.device, self.data_path))
+
+    def _register(self, svc: IndexService) -> None:
+        self._indices[svc.name] = svc
+        self.metadata.indices[svc.name] = svc.meta
 
     def close(self) -> None:
         for svc in self._indices.values():
@@ -215,60 +323,151 @@ class RestClient:
             raise NotPortedError(f"rest call [{name}]")
         raise AttributeError(name)
 
-    # ---------------- index resolution ----------------
+    # ---------------- index metadata ----------------
 
-    def _svc(self, index: str) -> IndexService:
-        if index == "_all":
-            if len(self._indices) != 1:
-                raise NotPortedError("a search over several indices")
-            return next(iter(self._indices.values()))
-        svc = self._indices.get(index)
-        if svc is None:
-            raise IndexNotFoundError(f"no such index [{index}]")
-        return svc
+    def _create_index(self, name: str, body: Optional[dict] = None) -> dict:
+        """A new index: the matching templates' settings under the body's,
+        the first matching template's mapping where the body has none,
+        and the body's aliases (the reference's `_create_index_locked`)."""
+        if name in self._indices:
+            raise ResourceAlreadyExistsError(f"index [{name}] already exists")
+        body = body or {}
+        settings = dict(body.get("settings", {}))
+        mapping = body.get("mappings")
+        for tmpl in reversed(self.metadata.matching_templates(name)):
+            tbody = tmpl.get("template", tmpl)
+            merged = dict(tbody.get("settings", {}))
+            merged.update(settings)
+            settings = merged
+            if mapping is None and tbody.get("mappings"):
+                mapping = tbody["mappings"]
+        meta = IndexMetadata(name, settings={
+            "index": copy.deepcopy(settings.get("index", settings))})
+        svc = IndexService(meta, mapping, self.device, self.data_path)
+        self._register(svc)
+        for alias, acfg in body.get("aliases", {}).items():
+            self._put_alias(alias, name, acfg)
+        self._persist_meta(svc)
+        return {"acknowledged": True, "shards_acknowledged": True,
+                "index": name}
 
-    def _resolve(self, expression, allow_no_indices: bool = True
-                 ) -> List[str]:
-        """Index names of an expression (`_all`, `*`, names, wildcards,
-        comma lists; the reference's `resolve` without aliases and data
-        streams)."""
-        if expression in (None, "", "_all", "*"):
-            return sorted(self._indices)
-        exprs = (expression if isinstance(expression, list)
-                 else str(expression).split(","))
-        out: List[str] = []
-        for ex in exprs:
-            ex = ex.strip()
-            if ex in self._indices:
-                out.append(ex)
-            elif "*" in ex or "?" in ex:
-                out.extend(sorted(n for n in self._indices
-                                  if fnmatch.fnmatch(n, ex)))
-            else:
-                raise IndexNotFoundError(f"no such index [{ex}]")
-        seen: set = set()
-        uniq = [x for x in out if not (x in seen or seen.add(x))]
-        if not uniq and not allow_no_indices:
-            raise IndexNotFoundError(f"no indices match [{expression}]")
-        return uniq
+    def _put_alias(self, alias: str, index: str,
+                   cfg: Optional[dict] = None) -> None:
+        am = self.metadata.aliases.setdefault(alias, AliasMetadata(alias))
+        am.indices[index] = cfg or {}
+
+    def update_aliases(self, actions: List[dict]) -> dict:
+        """`add` and `remove` actions, applied in order; aliases left with
+        no index go."""
+        for action in actions:
+            ((verb, spec),) = action.items()
+            indices = spec.get("indices", [spec.get("index")])
+            aliases = spec.get("aliases", [spec.get("alias")])
+            for idx in indices:
+                for name in self.metadata.resolve(idx,
+                                                  allow_no_indices=False):
+                    for al in aliases:
+                        if verb == "add":
+                            cfg = {k: v for k, v in spec.items()
+                                   if k in ("filter", "is_write_index",
+                                            "routing")}
+                            self._put_alias(al, name, cfg)
+                        elif verb == "remove":
+                            am = self.metadata.aliases.get(al)
+                            if am:
+                                am.indices.pop(name, None)
+                        else:
+                            raise ClusterStateError(
+                                f"unknown alias action [{verb}]")
+        self._drop_empty_aliases()
+        return {"acknowledged": True}
+
+    def _drop_empty_aliases(self) -> None:
+        self.metadata.aliases = {a: am for a, am
+                                 in self.metadata.aliases.items()
+                                 if am.indices}
 
     def _persist_meta(self, svc: IndexService) -> None:
-        """Write the index's metadata: its settings and its mapping as
-        the reference persists it (`to_dict()`, so the fields mapped
-        dynamically so far), with the mapping bodies it was given merged
-        over it, which keep the field options `to_dict` leaves out."""
+        """Write the index's metadata: its settings, its state and its
+        mapping as the reference persists it (`to_dict()`, so the fields
+        mapped dynamically so far), with the mapping bodies it was given
+        merged over it, which keep the field options `to_dict` leaves
+        out."""
         if self.data_path is None:
             return
         with open(os.path.join(self.data_path, svc.name,
                                "index_meta.json"), "w") as fh:
-            json.dump({"settings": svc.settings,
+            json.dump({"settings": svc.meta.settings,
                        "mappings": _deep_merge(svc.mappings.to_dict(),
-                                               svc.mapping_body)}, fh)
+                                               svc.mapping_body),
+                       "state": svc.meta.state}, fh)
+
+    # ---------------- index resolution ----------------
+
+    def _check_alias_options(self, expression, names: List[str]) -> None:
+        """A search through an alias with a `filter` or a `routing` for
+        one of `names` raises: the reference serves it unfiltered."""
+        if expression in (None, "", "_all", "*"):
+            return
+        exprs = (expression if isinstance(expression, list)
+                 else str(expression).split(","))
+        for ex in exprs:
+            ex = ex.strip()
+            if ex in self._indices:
+                continue
+            for alias, am in self.metadata.aliases.items():
+                if alias != ex and not (("*" in ex or "?" in ex)
+                                        and fnmatch.fnmatch(alias, ex)):
+                    continue
+                for n in names:
+                    for opt in ("filter", "routing"):
+                        if am.indices.get(n, {}).get(opt) is not None:
+                            raise NotPortedError(
+                                f"a search through an alias with a "
+                                f"[{opt}]")
+
+    def _open_names(self, index) -> List[str]:
+        """The open indices an expression names: a closed index named
+        (or behind a named alias) raises IndexClosedError, one matched by
+        a wildcard drops out."""
+        names = admin.check_open(self, self.metadata.resolve(index), index)
+        self._check_alias_options(index, names)
+        return names
+
+    def _svc(self, index: str) -> IndexService:
+        """The one open index a search, count or msearch reads."""
+        names = self._open_names(index)
+        if len(names) != 1:
+            raise NotPortedError("a search over several indices")
+        return self._indices[names[0]]
+
+    def _svc_of(self, index: str) -> IndexService:
+        """The index a get, explain or term vector reads: the name, or
+        its alias's write index."""
+        return self._indices[self.metadata.write_index(index)]
 
     def _svc_for_write(self, index: str) -> IndexService:
-        if index not in self._indices:
-            self.indices.create(index)
-        return self._indices[index]
+        """The index a write goes to (its alias's write index), created
+        when it does not exist; a closed index is the reference's 400."""
+        try:
+            concrete = self.metadata.write_index(index)
+        except IndexNotFoundError:
+            self._create_index(index)
+            concrete = index
+        svc = self._indices[concrete]
+        if svc.meta.state == "close":
+            raise ApiError(400, "index_closed_exception",
+                           f"closed index [{concrete}]")
+        return svc
+
+    @staticmethod
+    def _check_write_block(svc: IndexService) -> None:
+        """`index.blocks.write` or `read_only` refuses the write."""
+        blocks = svc.meta.settings.get("index", {}).get("blocks", {})
+        if blocks.get("write") or blocks.get("read_only"):
+            raise ApiError(403, "cluster_block_exception",
+                           f"index [{svc.name}] blocked by: "
+                           f"[FORBIDDEN/8/index write (api)]")
 
     # ---------------- document APIs ----------------
 
@@ -277,7 +476,9 @@ class RestClient:
               op_type: str = "index", if_seq_no: Optional[int] = None,
               if_primary_term: Optional[int] = None) -> dict:
         svc = self._svc_for_write(index)
+        self._check_write_block(svc)
         doc_id = id if id is not None else uuid.uuid4().hex[:20]
+        t0 = time.monotonic()
         try:
             res = svc.engine.index_doc(doc_id, body, routing, if_seq_no,
                                        if_primary_term, op_type)
@@ -287,13 +488,18 @@ class RestClient:
             raise ApiError(400, "mapper_parsing_exception", str(e))
         if refresh:
             svc.engine.refresh()
+        svc.index_slowlog.maybe_log(time.monotonic() - t0, {"_id": doc_id})
         res["_index"] = svc.name
         res["_shards"] = {"total": 1, "successful": 1, "failed": 0}
         return res
 
+    def create(self, index: str, id: str, body: dict, **kw) -> dict:
+        """Index a new document: a 409 when the id exists."""
+        return self.index(index, body, id=id, op_type="create", **kw)
+
     def get(self, index: str, id: str, routing: Optional[str] = None
             ) -> dict:
-        svc = self._svc(index)
+        svc = self._svc_of(index)
         res = svc.engine.get(id)
         if res is None:
             raise ApiError(404, "document_missing_exception",
@@ -323,7 +529,11 @@ class RestClient:
     def delete(self, index: str, id: str, routing: Optional[str] = None,
                refresh: bool = False, if_seq_no: Optional[int] = None,
                if_primary_term: Optional[int] = None) -> dict:
-        svc = self._svc(index)
+        svc = self._svc_of(index)
+        if svc.meta.state == "close":
+            raise ApiError(400, "index_closed_exception",
+                           f"closed index [{svc.name}]")
+        self._check_write_block(svc)
         try:
             res = svc.engine.delete_doc(id, if_seq_no, if_primary_term)
         except VersionConflictError as e:
@@ -345,6 +555,7 @@ class RestClient:
         "noop" is a no-op, "delete" deletes) and `scripted_upsert` (the
         script runs over the upsert document)."""
         svc = self._svc_for_write(index)
+        self._check_write_block(svc)
         current = svc.engine.get(id)
         if current is None:
             if body.get("doc_as_upsert") and "doc" in body:
@@ -440,7 +651,11 @@ class RestClient:
                                        "error": e.body()["error"]}})
         if refresh:
             for idx in touched:
-                self._indices[idx].engine.refresh()
+                try:
+                    svc = self._svc_of(idx)
+                except IndexNotFoundError:
+                    continue
+                svc.engine.refresh()
         return {"took": 0, "errors": errors, "items": items}
 
     # ---------------- search APIs ----------------
@@ -478,9 +693,20 @@ class RestClient:
             if pit is not None:
                 return self._search_pit(pit, body)
             svc = self._svc(index)
+            slow = svc.search_slowlog
+            before = dict(fastpath.STATS) if slow.thresholds else None
+            t0 = time.monotonic()
             resp = search_shards([svc.searcher], body, index_name=svc.name)
+            if before is not None:
+                slow.maybe_log(time.monotonic() - t0, body.get("query"),
+                               extra=lambda: {"fastpath_rungs": {
+                                   k: v - before.get(k, 0)
+                                   for k, v in fastpath.STATS.items()
+                                   if v != before.get(k, 0)}})
         except dsl.QueryParseError as e:
             raise ApiError(400, "parsing_exception", str(e))
+        except IndexClosedError as e:
+            raise ApiError(400, "index_closed_exception", str(e))
         if scroll:
             sid = uuid.uuid4().hex
             ka = parse_keepalive_s(scroll if scroll is not True else None)
@@ -568,7 +794,8 @@ class RestClient:
 
     def create_pit(self, index: str, keep_alive: str = "1m") -> dict:
         """A point in time: the index's segment list of this moment."""
-        names = self._resolve(index)
+        names = self.metadata.resolve(index)
+        self._check_alias_options(index, names)
         if len(names) != 1:
             raise NotPortedError("a point in time over several indices")
         ka = parse_keepalive_s(keep_alive)
@@ -663,7 +890,7 @@ class RestClient:
         """One doc's explanation under the body's query, with the
         index-wide statistics; a buffered id is refreshed first, a
         missing one is a 404."""
-        svc = self._svc(index)
+        svc = self._svc_of(index)
         eng = svc.engine
         if id in eng._buffer_ids:
             eng.refresh()
@@ -694,7 +921,7 @@ class RestClient:
         per-index entries (the plan's root as type(description))."""
         body = body or {}
         try:
-            names = self._resolve(index)
+            names = self.metadata.resolve(index)
         except IndexNotFoundError as e:
             raise ApiError(404, "index_not_found_exception", str(e))
         try:
@@ -732,7 +959,7 @@ class RestClient:
     def field_caps(self, index: str = "_all", fields="*") -> dict:
         """Each mapped field (subfields too) matching a pattern of
         `fields`: its type, searchable and aggregatable."""
-        names = self._resolve(index)
+        names = self.metadata.resolve(index)
         pats = fields if isinstance(fields, list) else fields.split(",")
         out: Dict[str, dict] = {}
         for n in names:
@@ -747,6 +974,101 @@ class RestClient:
                     "type": ft.type, "searchable": ft.index,
                     "aggregatable": ft.doc_values or ft.type == "text"})
         return {"indices": names, "fields": out}
+
+    # ---------------- term vectors ----------------
+
+    def termvectors(self, index: str, id: Optional[str] = None,
+                    body: Optional[dict] = None,
+                    fields: Optional[List[str]] = None,
+                    term_statistics: bool = False,
+                    field_statistics: bool = True,
+                    positions: bool = True, offsets: bool = True) -> dict:
+        """A stored doc's or an artificial `doc`'s term vectors (the
+        reference's `termvectors`): each text, keyword and annotated_text
+        field's terms with their frequency, positions and offsets (an
+        annotation at its first covered token's), `term_statistics`
+        (doc_freq, ttf) and `field_statistics` (sum_doc_freq, doc_count,
+        sum_ttf) read from the segments' host CSR (deleted docs counted,
+        as there), and the tf-idf `filter` block."""
+        body = body or {}
+        fields = fields or body.get("fields")
+        term_statistics = bool(body.get("term_statistics", term_statistics))
+        field_statistics = bool(body.get("field_statistics",
+                                         field_statistics))
+        positions = bool(body.get("positions", positions))
+        offsets = bool(body.get("offsets", offsets))
+        tv_filter = body.get("filter") or {}
+        svc = self._svc_of(index)
+        if body.get("doc") is not None:
+            src = body["doc"]
+            resp_id = id or ""
+        else:
+            if id is None:
+                raise ApiError(400, "action_request_validation_exception",
+                               "termvectors needs an [id] or a [doc]")
+            try:
+                src = self.get(index, id)["_source"]
+            except ApiError:
+                return {"_index": svc.name, "_id": id, "found": False}
+            resp_id = id
+        segs = list(svc.engine.segments)
+
+        def term_stats(fname: str, term: str):
+            df = ttf = 0
+            for seg in segs:
+                pb = seg.postings.get(fname)
+                if pb is None:
+                    continue
+                r = pb.row(term)
+                if r >= 0:
+                    a, b = int(pb.starts[r]), int(pb.starts[r + 1])
+                    df += b - a
+                    ttf += int(pb.tfs[a:b].sum())
+            return df, ttf
+
+        out_fields = {}
+        for fname, ft in list(svc.mappings.fields.items()):
+            if ft.type not in ("text", "keyword", "annotated_text") or \
+                    (fields and fname not in fields):
+                continue
+            vals = _get_source_path(src, fname)
+            if vals is None:
+                continue
+            terms = _field_terms(svc.mappings, ft, vals, positions, offsets)
+            if not terms:
+                continue
+            ndocs = max(sum(seg.live_count for seg in segs), 1)
+            if term_statistics or tv_filter:
+                for term, t in terms.items():
+                    df, ttf = term_stats(fname, term)
+                    if term_statistics:
+                        t["doc_freq"] = df
+                        t["ttf"] = ttf
+                    t["_df"] = df
+            if tv_filter:
+                terms = _tv_filter(terms, tv_filter, ndocs)
+            for t in terms.values():
+                t.pop("_df", None)
+            fblock: dict = {"terms": dict(sorted(terms.items()))}
+            if field_statistics:
+                fblock["field_statistics"] = _field_statistics(segs, fname)
+            out_fields[fname] = fblock
+        return {"_index": svc.name, "_id": resp_id, "found": True,
+                "term_vectors": out_fields}
+
+    def mtermvectors(self, body: dict, index: Optional[str] = None) -> dict:
+        """Each `docs` entry's term vectors (its `_index`, `_id` and
+        options)."""
+        docs = []
+        for spec in body.get("docs", []):
+            idx = spec.get("_index", index)
+            if idx is None:
+                raise ApiError(400, "action_request_validation_exception",
+                               "mtermvectors doc needs an [_index]")
+            docs.append(self.termvectors(
+                idx, spec.get("_id"), body={k: v for k, v in spec.items()
+                                            if not k.startswith("_")}))
+        return {"docs": docs}
 
     def msearch(self, body: List[dict], index: Optional[str] = None) -> dict:
         """Alternating header / body dicts. Bodies that name one index run
@@ -764,9 +1086,13 @@ class RestClient:
             return {"took": 0, "responses": []}
         try:
             svc = self._svc(names.pop())
-        except IndexNotFoundError as e:
+        except (IndexNotFoundError, IndexClosedError) as e:
+            # the reference's per-body entry: a closed index's is the
+            # ApiError its single search raises
+            kind = ("ApiError" if isinstance(e, IndexClosedError)
+                    else type(e).__name__)
             return {"took": 0, "responses": [
-                {"error": {"type": type(e).__name__, "reason": str(e)}}
+                {"error": {"type": kind, "reason": str(e)}}
                 for _ in pairs]}
         responses = msearch_batched([svc.searcher], [b for _, b in pairs],
                                     index_name=svc.name)
@@ -791,7 +1117,7 @@ class IndicesClient:
         text = body.get("text", "")
         texts = text if isinstance(text, list) else [text]
         if index is not None:
-            svc = self.c._svc(index)
+            svc = self.c._svc_of(index)
             registry = svc.mappings.analysis
             if "field" in body:
                 ft = svc.mappings.resolve_field(body["field"])
@@ -809,25 +1135,22 @@ class IndicesClient:
             for t in texts for tok in analyzer.analyze(t)]}
 
     def create(self, index: str, body: Optional[dict] = None) -> dict:
-        if index in self.c._indices:
-            raise ResourceAlreadyExistsError(
-                f"index [{index}] already exists")
-        svc = IndexService(index, body, self.c.device, self.c.data_path)
-        self.c._indices[index] = svc
-        self.c._persist_meta(svc)
-        return {"acknowledged": True, "shards_acknowledged": True,
-                "index": index}
+        return self.c._create_index(index, body)
 
     def delete(self, index: str) -> dict:
-        """Drop every resolved index: its device state, its engine and,
-        with a data path, its files. A scroll or point in time over it
-        then pages nothing, as the reference's."""
+        """Drop every resolved index (an alias resolves to its indices):
+        its device state, its engine, its place in every alias (an alias
+        left empty goes) and, with a data path, its files. A scroll or
+        point in time over it then pages nothing, as the reference's."""
         try:
-            names = self.c._resolve(index, allow_no_indices=False)
+            names = self.c.metadata.resolve(index, allow_no_indices=False)
         except IndexNotFoundError as e:
             raise ApiError(404, "index_not_found_exception", str(e))
         for n in names:
             svc = self.c._indices.pop(n)
+            self.c.metadata.indices.pop(n, None)
+            for am in self.c.metadata.aliases.values():
+                am.indices.pop(n, None)
             for seg in svc.engine.segments:
                 seg.release_device()
             svc.engine.close()
@@ -835,33 +1158,35 @@ class IndicesClient:
                 p = os.path.join(self.c.data_path, n)
                 if os.path.exists(p):
                     shutil.rmtree(p)
+        self.c._drop_empty_aliases()
         return {"acknowledged": True}
 
     def exists(self, index: str) -> bool:
         try:
-            return bool(self.c._resolve(index, allow_no_indices=False))
+            return bool(self.c.metadata.resolve(index, allow_no_indices=False))
         except IndexNotFoundError:
             return False
 
     def get(self, index: str) -> dict:
         out = {}
-        for n in self.c._resolve(index, allow_no_indices=False):
+        for n in self.c.metadata.resolve(index, allow_no_indices=False):
             svc = self.c._indices[n]
-            idx = svc.settings["index"]
+            aliases = {a: am.indices[n] for a, am
+                       in self.c.metadata.aliases.items() if n in am.indices}
             out[n] = {"settings": {"index": {
-                **idx, "number_of_shards": int(idx.get("number_of_shards",
-                                                       1)), "uuid": n}},
-                "mappings": svc.mappings.to_dict(), "aliases": {}}
+                **svc.meta.settings.get("index", {}),
+                "number_of_shards": svc.meta.num_shards, "uuid": n}},
+                "mappings": svc.mappings.to_dict(), "aliases": aliases}
         return out
 
     def get_mapping(self, index: str = "_all") -> dict:
         return {n: {"mappings": self.c._indices[n].mappings.to_dict()}
-                for n in self.c._resolve(index)}
+                for n in self.c.metadata.resolve(index)}
 
     def put_mapping(self, index: str, body: dict) -> dict:
         """Merge `body` into each resolved index's mapping and persist
         it."""
-        for n in self.c._resolve(index, allow_no_indices=False):
+        for n in self.c.metadata.resolve(index, allow_no_indices=False):
             svc = self.c._indices[n]
             svc.mappings.merge(body)
             svc.mapping_body = _deep_merge(svc.mapping_body, body)
@@ -869,27 +1194,181 @@ class IndicesClient:
         return {"acknowledged": True}
 
     def get_settings(self, index: str = "_all") -> dict:
-        return {n: {"settings": {"index": self.c._indices[n].settings[
-            "index"]}} for n in self.c._resolve(index)}
+        return {n: {"settings": {"index": self.c._indices[n].meta.settings
+                                 .get("index", {})}}
+                for n in self.c.metadata.resolve(index)}
+
+    def put_settings(self, index: str, body: dict,
+                     preserve_existing: bool = False) -> dict:
+        """Dynamic settings apply to open indices, static ones only to
+        closed ones, final ones never (cluster/admin.py)."""
+        return _map_admin_errors(admin.update_index_settings, self.c, index,
+                                 body, preserve_existing)
+
+    def close(self, index: str) -> dict:
+        return _map_admin_errors(admin.close_index, self.c, index)
+
+    def open(self, index: str) -> dict:
+        return _map_admin_errors(admin.open_index, self.c, index)
+
+    def shrink(self, index: str, target: str,
+               body: Optional[dict] = None) -> dict:
+        return _map_admin_errors(admin.resize_index, self.c, index, target,
+                                 "shrink", body)
+
+    def split(self, index: str, target: str,
+              body: Optional[dict] = None) -> dict:
+        return _map_admin_errors(admin.resize_index, self.c, index, target,
+                                 "split", body)
+
+    def clone(self, index: str, target: str,
+              body: Optional[dict] = None) -> dict:
+        return _map_admin_errors(admin.resize_index, self.c, index, target,
+                                 "clone", body)
 
     def refresh(self, index: str = "_all") -> dict:
-        names = list(self.c._indices) if index == "_all" else [index]
-        for n in names:
-            self.c._svc(n).engine.refresh()
+        for n in self.c.metadata.resolve(index):
+            self.c._indices[n].engine.refresh()
         return {"_shards": {"successful": 1, "failed": 0}}
 
     def flush(self, index: str = "_all") -> dict:
-        names = list(self.c._indices) if index == "_all" else [index]
+        names = self.c.metadata.resolve(index)
         for n in names:
-            self.c._svc(n).engine.flush()
+            self.c._indices[n].engine.flush()
         return {"_shards": {"successful": len(names), "failed": 0}}
 
     def forcemerge(self, index: str = "_all",
                    max_num_segments: int = 1) -> dict:
-        names = list(self.c._indices) if index == "_all" else [index]
-        for n in names:
-            self.c._svc(n).engine.force_merge(max_num_segments)
+        for n in self.c.metadata.resolve(index):
+            self.c._indices[n].engine.force_merge(max_num_segments)
         return {"_shards": {"successful": 1, "failed": 0}}
+
+    def stats(self, index: str = "_all") -> dict:
+        out = {n: self.c._indices[n].stats()
+               for n in self.c.metadata.resolve(index)}
+        total = {"docs": {"count": sum(v["docs"]["count"]
+                                       for v in out.values())}}
+        return {"_all": {"primaries": total, "total": total},
+                "indices": {n: {"primaries": v, "total": v}
+                            for n, v in out.items()}}
+
+    def get_alias(self, index: str = "_all",
+                  name: Optional[str] = None) -> dict:
+        """Every alias (or the one named) by index; like the reference's,
+        the `index` argument selects nothing."""
+        out: Dict[str, dict] = {}
+        for a, am in self.c.metadata.aliases.items():
+            if name and a != name:
+                continue
+            for n, cfg in am.indices.items():
+                out.setdefault(n, {"aliases": {}})["aliases"][a] = cfg
+        return out
+
+    def update_aliases(self, body: dict) -> dict:
+        return self.c.update_aliases(body.get("actions", []))
+
+    def put_alias(self, index: str, name: str,
+                  body: Optional[dict] = None) -> dict:
+        return self.c.update_aliases(
+            [{"add": {"index": index, "alias": name, **(body or {})}}])
+
+    def put_index_template(self, name: str, body: dict) -> dict:
+        self.c.metadata.templates[name] = body
+        return {"acknowledged": True}
+
+    put_template = put_index_template
+
+    def delete_index_template(self, name: str) -> dict:
+        if self.c.metadata.templates.pop(name, None) is None:
+            raise ApiError(404, "resource_not_found_exception",
+                           f"index template [{name}] missing")
+        return {"acknowledged": True}
+
+    def exists_index_template(self, name: str) -> bool:
+        return name in self.c.metadata.templates
+
+
+def _field_terms(mappings, ft, vals, positions: bool,
+                 offsets: bool) -> Dict[str, dict]:
+    """term -> {term_freq, tokens} of one field's values in a source."""
+    terms: Dict[str, dict] = {}
+    for v in (vals if isinstance(vals, list) else [vals]):
+        if ft.type == "keyword":
+            t = terms.setdefault(str(v), {"term_freq": 0})
+            t["term_freq"] += 1
+            continue
+        raw_v = str(v)
+        annot_spans: list = []
+        if ft.type == "annotated_text":
+            raw_v, annot_spans = parse_annotated_text(raw_v)
+        toks = list(mappings.index_analyzer(ft).analyze(raw_v))
+        for (cs, ce, anns) in annot_spans:
+            # an annotation takes its first covered token's position and
+            # offsets, as at index time
+            tok0 = next((t for t in toks if cs <= t.start_offset < ce), None)
+            if tok0 is None:
+                continue
+            for a in anns:
+                toks.append(type(tok0)(text=a, position=tok0.position,
+                                       start_offset=tok0.start_offset,
+                                       end_offset=tok0.end_offset))
+        for tok in toks:
+            t = terms.setdefault(tok.text, {"term_freq": 0, "tokens": []})
+            t["term_freq"] += 1
+            entry = {}
+            if positions:
+                entry["position"] = tok.position
+            if offsets:
+                entry["start_offset"] = tok.start_offset
+                entry["end_offset"] = tok.end_offset
+            if entry:
+                t["tokens"].append(entry)
+    return terms
+
+
+def _tv_filter(terms: Dict[str, dict], tv_filter: dict,
+               ndocs: int) -> Dict[str, dict]:
+    """The term vectors' `filter`: terms within the tf and df limits,
+    ranked by tf * log(1 + (n - df + 0.5) / (df + 0.5)), the first
+    `max_num_terms` kept, each with its score rounded to 6 places."""
+    min_tf = int(tv_filter.get("min_term_freq", 1))
+    min_df = int(tv_filter.get("min_doc_freq", 1))
+    max_df = int(tv_filter.get("max_doc_freq", 1 << 60))
+    kept = {}
+    for term, t in terms.items():
+        df = t["_df"]
+        if t["term_freq"] < min_tf or df < min_df or df > max_df:
+            continue
+        idf = math.log(1.0 + (ndocs - df + 0.5) / (df + 0.5))
+        kept[term] = (t["term_freq"] * idf, t)
+    maxn = tv_filter.get("max_num_terms")
+    ranked = sorted(kept.items(), key=lambda kv: -kv[1][0])
+    if maxn is not None:
+        ranked = ranked[: int(maxn)]
+    out = {}
+    for term, (score, t) in ranked:
+        t["score"] = round(score, 6)
+        out[term] = t
+    return out
+
+
+def _field_statistics(segs, fname: str) -> dict:
+    sum_ttf = sum_df = doc_count = 0
+    for seg in segs:
+        pb = seg.postings.get(fname)
+        if pb is not None:
+            sum_df += len(pb.doc_ids)
+            # a segment's postings never change: their tf total is kept
+            total = pb.__dict__.get("_tf_total")
+            if total is None:
+                total = pb.__dict__["_tf_total"] = int(pb.tfs.sum())
+            sum_ttf += total
+        if fname in seg.text_stats:
+            doc_count += seg.text_stats[fname].doc_count
+        elif pb is not None:
+            doc_count += len(np.unique(pb.doc_ids))
+    return {"sum_doc_freq": sum_df, "doc_count": doc_count,
+            "sum_ttf": sum_ttf}
 
 
 def _deep_merge(base: dict, patch: dict) -> dict:

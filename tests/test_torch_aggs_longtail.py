@@ -1011,3 +1011,22 @@ def test_phase15_brute_force_matches_the_port(bench_longtail, cls):
     if cls == "f_significance_samplers":
         assert all(port.search("bench", b)["aggregations"]["s"]["t"][
             "doc_count"] > 0 for b, _ in items)
+
+
+def test_panel_card_cpu_order_allows_only_near_tie_swaps():
+    """Phase 15's card == CPU comparison of the panel: a bucket_sort
+    order that differs from the CPU's only between months whose sums lie
+    within the comparison's tolerance is the CPU's order (the swap the
+    brute force's lt_check_panel allows); a farther reorder fails."""
+    import chip_smoke as CS
+
+    def panel(rows):
+        return {"aggregations": {"m": {"buckets": [
+            {"key": k, "s": {"value": v}} for k, v in rows]}}}
+    want = panel([(1, 10.0), (2, 9.99999), (3, 5.0)])
+    near = panel([(2, 10.00001), (1, 9.99998), (3, 5.0)])
+    far = panel([(3, 5.0), (1, 10.0), (2, 9.99999)])
+    assert not CS.lt_close(near, want, 1e-4, 10.0)
+    assert CS.lt_close(CS.lt_sorted_as(near, want, 1e-3), want, 1e-4, 10.0)
+    assert not CS.lt_close(CS.lt_sorted_as(far, want, 1e-3), want, 1e-4,
+                           10.0)

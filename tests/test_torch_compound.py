@@ -398,10 +398,11 @@ def test_rest_calls_of_the_reference_client_raise_not_ported():
     assert pclient.REFERENCE_CALLS == public(RefClient)
     assert pclient.REFERENCE_INDICES_CALLS == public(RefIndicesClient)
     c = RestClient(device="cpu")
-    for name in ("termvectors", "mtermvectors", "rank_eval", "create"):
+    for name in ("rank_eval", "reindex", "update_by_query", "rollover"):
         with pytest.raises(NotPortedError, match=rf"rest call \[{name}\]"):
             getattr(c, name)
-    for name in ("shrink", "put_settings", "stats", "put_alias"):
+    for name in ("create_data_stream", "get_data_stream",
+                 "delete_data_stream"):
         with pytest.raises(NotPortedError,
                            match=rf"rest call \[indices.{name}\]"):
             getattr(c.indices, name)
@@ -413,9 +414,14 @@ def test_rest_calls_of_the_reference_client_raise_not_ported():
     assert c.indices.analyze(body={"text": "Hi"})["tokens"][0]["token"] \
         == "hi"
     for name in ("search", "msearch", "bulk", "index", "get", "count",
-                 "explain", "field_caps", "scroll", "create_pit"):
+                 "explain", "field_caps", "scroll", "create_pit", "create",
+                 "termvectors", "mtermvectors"):
         assert callable(getattr(c, name))
-    for name in ("get_mapping", "get", "delete", "put_mapping"):
+    for name in ("get_mapping", "get", "delete", "put_mapping",
+                 "get_settings", "put_settings", "close", "open", "shrink",
+                 "split", "clone", "stats", "get_alias", "update_aliases",
+                 "put_alias", "put_index_template", "put_template",
+                 "delete_index_template", "exists_index_template"):
         assert callable(getattr(c.indices, name))
 
 

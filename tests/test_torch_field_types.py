@@ -556,10 +556,16 @@ def test_phase18_brute_force_matches_pages(bench_small):
     classes = chip_smoke.ft_classes(arrays, 3,
                                     np.random.default_rng(17))
     cpu = chip_smoke.ft_twin(port2._indices["bench"].engine)
+    chip_smoke.share_with_verifier(port2._indices["bench"].engine.segments)
     sums = chip_smoke.SumCheck()
+    outs = []
     for name, items in classes.items():
         r = chip_smoke.run_ft_class(port2, name, items, oracle, sums, cpu)
         assert r["bodies"] == 3
+        outs.append(r)
+    # the pages' checks and the CPU twin ran on the verifier's thread
+    chip_smoke.VERIFY.drain()
+    assert all("oracle_s" in r and "cpu_s" in r for r in outs)
     body, spec = classes["d_sort"][0]
     resp = port2.search("bench", body)
     bad = copy.deepcopy(resp)

@@ -441,6 +441,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    assert c.search('g', {'query': q, 'aggs': {'b': {'geo_bounds':\n"
         "        {'field': 'loc'}}}, 'sort': [{'_geo_distance': {\n"
         "        'loc': [0, 0]}}]})['hits']['total']['value'] == 1\n"
+        "import opensearch_tpu_torch.cluster.admin\n"
+        "c.indices.put_index_template('tp', {'index_patterns': ['a*']})\n"
+        "c.indices.create('a1', {'aliases': {'al': {}}})\n"
+        "c.create('al', '1', {'body': 'hello'}, refresh=True)\n"
+        "c.indices.put_settings('a1', {'index.blocks.write': True})\n"
+        "c.indices.clone('a1', 'a2')\n"
+        "c.indices.close('a2')\n"
+        "c.indices.open('a2')\n"
+        "assert c.search('a2', {'query': {'match': {'body': 'hello'}}})[\n"
+        "    'hits']['total']['value'] == 1\n"
+        "assert c.mtermvectors({'docs': [{'_index': 'al', '_id': '1'}]})[\n"
+        "    'docs'][0]['found']\n"
+        "assert c.indices.stats('a*')['_all']['total']['docs']['count'] == 2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'opensearch_tpu' or "
         "m.startswith('opensearch_tpu.'))\n"
