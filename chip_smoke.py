@@ -2977,22 +2977,24 @@ def run_general_class(client, name: str, items, ix, sample, cpu,
     rungs = {**{k: impactpath.STATS[k] for k in
                 ("served", "pruned_served", "phase2_served", "escalated")},
              "general": C.STATS["general_served"]}
-    t0 = time.perf_counter()
-    for (b, oracle), r in zip(items, resps):
-        # exact-total twins of a body share its brute force
-        key = json.dumps({k: v for k, v in b.items()
-                          if k != "track_total_hits"}, sort_keys=True)
-        if key not in memo:
-            memo[key] = oracle(ix)
-        check_page(r, memo[key], f"{name} body {b}")
-    t_oracle = time.perf_counter() - t0
+
+    def pages():
+        for (b, oracle), r in zip(items, resps):
+            # exact-total twins of a body share its brute force
+            key = json.dumps({k: v for k, v in b.items()
+                              if k != "track_total_hits"}, sort_keys=True)
+            if key not in memo:
+                memo[key] = oracle(ix)
+            check_page(r, memo[key], f"{name} body {b}")
     lines = sum([[{}, bodies[i]] for i in sample], [])
-    t0 = time.perf_counter()
-    if strip_took(client.msearch(lines, index="bench")) \
-            != strip_took(cpu.msearch(lines, index="bench")):
-        raise AssertionError(f"{name}: sampled bodies: card and CPU "
-                             f"responses differ")
-    t_cpu = time.perf_counter() - t0
+    on_card = strip_took(client.msearch(lines, index="bench"))
+
+    def twin():
+        if on_card != strip_took(cpu.msearch(lines, index="bench")):
+            raise AssertionError(f"{name}: sampled bodies: card and CPU "
+                                 f"responses differ")
+    checks: dict = {}
+    defer_checks(f"phase 7 {name}", checks, pages, twin)
     nb = min(op_bodies, len(bodies))
     restore, spans = op_timer()
     try:
@@ -3013,13 +3015,13 @@ def run_general_class(client, name: str, items, ix, sample, cpu,
         f"phase2={rungs['phase2_served']} escalated={rungs['escalated']} "
         f"general={rungs['general']} relations={dict(rels)} kernel "
         f"launches B1={counts['launches']} B2={counts['impact_launches']} "
-        f"B3={counts['bool_launches']}; {n} pages == numpy brute force "
-        f"({t_oracle:.1f}s); {len(sample)} sampled card == CPU "
-        f"({t_cpu:.1f}s); op ms per body " + " ".join(
+        f"B3={counts['bool_launches']}; {n} pages against the numpy brute "
+        f"force and {len(sample)} sampled card == CPU on the verifier; "
+        f"op ms per body " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(ops_ms.items())))
     return {"qps": n / wall, "p50": float(np.percentile(lat, 50)),
             "p99": float(np.percentile(lat, 99)), "rungs": rungs,
-            "op_ms": ops_ms}
+            "op_ms": ops_ms, "checks": checks}
 
 
 def phase_general_msmarco(big: dict, n: int) -> dict:
@@ -3034,6 +3036,7 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     ix = big.get("ix") or NumpyIndex(big["corpus"], big["columns"],
                                      big["title"])
     cpu = cpu_twin(seg)
+    share_with_verifier([seg])
     classes = general_classes(big, n)
     srng = np.random.default_rng(13)
     out: dict = {}
@@ -3052,6 +3055,9 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
         if name == "mixed_field_bool":
             idle[name] = profile_batch(client,
                                        [b for b, _o in items[:OP_BODIES]])
+    # the checks read the segment and the brute force as they are: done
+    # before the re-index deletes docs in place
+    drain_log("phase 7's classes")
     # re-index n existing _ids: the big segment gets n deleted docs, a new
     # segment takes their new versions
     vs = bc.vocab_strings(len(big["corpus"][4]))
@@ -3077,6 +3083,7 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     cpu2 = RestClient(device="cpu")
     cpu2.indices.create("bench", BENCH_MAPPING)
     cpu2._indices["bench"].engine.segments = list(segs)
+    share_with_verifier(segs)
     items = [(big["bodies"][j], (lambda ts: lambda ix_: ix_.page(
         *ix_.group(ts), 0, 10))(list(big["body_terms"][j])))
         for j in range(n)]
@@ -3086,6 +3093,7 @@ def phase_general_msmarco(big: dict, n: int) -> dict:
     out["reindexed_match"] = run_general_class(
         client, "reindexed_match", items, ix, sample, cpu2, op_ms, {},
         IMPACT_OP_BODIES)
+    drain_log("phase 7")
     nbytes = {s.name: s.device_nbytes(dev) for s in segs}
     log(f"  general path device arrays (live masks, numeric columns, doc "
         f"lengths, CSR copies; the postings are the aligned layout's): "
@@ -3538,19 +3546,26 @@ def run_agg_class(client, name: str, bodies, oracle: AggOracle, cpu,
     wall = time.perf_counter() - t_all
     general = C.STATS["general_served"]
     launches = dict(bm25.COUNTS)
-    t0 = time.perf_counter()
-    for i, (b, r) in enumerate(zip(bodies, resps)):
-        check_agg_response(r, b, oracle, sums, sketch, f"{name} body {i}",
-                           None if pages is None else pages(i))
-    t_oracle = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for b in bodies[:ncpu]:
-        got, gs = split_sums(strip_took(client.search("bench", b)))
-        want, ws = split_sums(strip_took(cpu.search("bench", b)))
-        if got != want or not np.allclose(gs, ws, rtol=1e-4, atol=0):
-            raise AssertionError(f"{name}: card and CPU responses differ "
-                                 f"for {b}")
-    t_cpu = time.perf_counter() - t0
+    checks: dict = {}
+
+    def check_pages():
+        for i, (b, r) in enumerate(zip(bodies, resps)):
+            check_agg_response(r, b, oracle, sums, sketch,
+                               f"{name} body {i}",
+                               None if pages is None else pages(i))
+        checks.update(sum_max_rel_err=sums.rel,
+                      sum_err_of_bound=sums.of_bound,
+                      percentile_mismatches=sketch["percentile_mismatches"])
+    on_card = [split_sums(strip_took(client.search("bench", b)))
+               for b in bodies[:ncpu]]
+
+    def twin():
+        for b, (got, gs) in zip(bodies, on_card):
+            want, ws = split_sums(strip_took(cpu.search("bench", b)))
+            if got != want or not np.allclose(gs, ws, rtol=1e-4, atol=0):
+                raise AssertionError(f"{name}: card and CPU responses "
+                                     f"differ for {b}")
+    defer_checks(f"phase 10 {name}", checks, check_pages, twin)
     ms = client.msearch(sum([[{}, b] for b in bodies[:2]], []),
                         index="bench")["responses"]
     if [split_sums(strip_took(r))[0] for r in ms] != \
@@ -3572,11 +3587,9 @@ def run_agg_class(client, name: str, bodies, oracle: AggOracle, cpu,
         f" ms_p50={np.percentile(lat, 50):.1f} "
         f"ms_p99={np.percentile(lat, 99):.1f} first_ms={lat[0]:.1f} "
         f"general={general} kernel_launches="
-        f"{ {k: v for k, v in launches.items() if v} }; {n} responses == "
-        f"numpy brute force ({t_oracle:.1f}s; sums: max relative error "
-        f"{sums.rel:.3e}, {sums.of_bound:.3e} of the bound; percentile "
-        f"values one bin off: {sketch['percentile_mismatches']}); {ncpu} "
-        f"card == CPU ({t_cpu:.1f}s); device ms per body (events) " + " ".join(
+        f"{ {k: v for k, v in launches.items() if v} }; {n} responses "
+        f"against the numpy brute force and {ncpu} card == CPU on the "
+        f"verifier; device ms per body (events) " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(ops_ms.items()))
         + "; host ms per body " + " ".join(
             f"{k}={v:.2f}" for k, v in sorted(host_ms.items())))
@@ -3586,9 +3599,7 @@ def run_agg_class(client, name: str, bodies, oracle: AggOracle, cpu,
     return {"bodies": n, "bodies_per_s": n / wall,
             "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
-            "sum_max_rel_err": sums.rel, "sum_err_of_bound": sums.of_bound,
-            "percentile_mismatches": sketch["percentile_mismatches"],
-            "op_ms": ops_ms, "host_ms": host_ms}
+            "checks": checks, "op_ms": ops_ms, "host_ms": host_ms}
 
 
 def agg_register_check(client, seg, body) -> dict:
@@ -3632,6 +3643,7 @@ def phase_aggs_msmarco(big: dict, n: int) -> dict:
     cpu = RestClient(device="cpu")
     cpu.indices.create("bench", BENCH_MAPPING)
     cpu._indices["bench"].engine.segments = segs
+    share_with_verifier(segs)
     n_refine = min(4, n)
     classes = agg_classes(big, n, n_refine)
     log(f"  {n} bodies a class, {n_refine} of the refinement class (e) "
@@ -3665,6 +3677,7 @@ def phase_aggs_msmarco(big: dict, n: int) -> dict:
     if check["register_mismatches"]:
         raise AssertionError("HLL registers differ from the reference's "
                              "arithmetic")
+    drain_log("phase 10")
     nbytes = agg_column_bytes(segs, dev)
     log(f"  aggregation device arrays (f32 views of price, ts and rating, "
         f"status ordinals, date buckets, keyword hashes): {nbytes} bytes "
@@ -4083,19 +4096,23 @@ def run_sort_class(client, name: str, bodies, chain: int, want_of,
     general = C.STATS["general_served"]
     launches = {k: v for k, v in bm25.COUNTS.items() if v}
     rungs = {k: v for k, v in fastpath.STATS.items() if v}
-    t0 = time.perf_counter()
-    extra: Counter = Counter()
-    for body, r in zip(reqs, resps):
-        extra.update(want_of(body, r))
-    t_oracle = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    checks: dict = {}
+
+    def pages():
+        extra: Counter = Counter()
+        for body, r in zip(reqs, resps):
+            extra.update(want_of(body, r))
+        checks.update(extra)
     ncpu = 1         # 2 before phase 15 shared the time limit
-    for body in reqs[:ncpu]:
-        if strip_took(client.search("bench", body)) \
-                != strip_took(cpu.search("bench", body)):
-            raise AssertionError(f"{name}: card and CPU responses differ "
-                                 f"for {body}")
-    t_cpu = time.perf_counter() - t0
+    on_card = [strip_took(client.search("bench", body))
+               for body in reqs[:ncpu]]
+
+    def twin():
+        for body, got in zip(reqs, on_card):
+            if got != strip_took(cpu.search("bench", body)):
+                raise AssertionError(f"{name}: card and CPU responses "
+                                     f"differ for {body}")
+    defer_checks(f"phase 11 {name}", checks, pages, twin)
     nb = min(OP_BODIES, len(reqs))
     restore, spans, host, calls = sort_op_timer()
     try:
@@ -4118,9 +4135,8 @@ def run_sort_class(client, name: str, bodies, chain: int, want_of,
         f"ms_p99={np.percentile(lat, 99):.1f} first_ms={lat[0]:.1f} "
         f"after_first_per_s={len(rest) / (sum(rest) / 1e3):.1f} "
         f"general={general} kernel_launches={launches} rungs={rungs}; {n} "
-        f"responses == numpy brute force ({t_oracle:.1f}s) "
-        f"{dict(extra)}; {ncpu} card == CPU ({t_cpu:.1f}s); device ms "
-        f"per body (events) " + " ".join(
+        f"responses against the numpy brute force and {ncpu} card == CPU "
+        f"on the verifier; device ms per body (events) " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(ops_ms.items()))
         + "; host ms per body " + " ".join(
             f"{k}={v:.3f}" for k, v in sorted(host_ms.items())))
@@ -4128,7 +4144,7 @@ def run_sort_class(client, name: str, bodies, chain: int, want_of,
             "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99)), "first_ms": lat[0],
             "general": general, "launches": launches, "rungs": rungs,
-            "op_ms": ops_ms, "host_ms": host_ms, **dict(extra)}
+            "op_ms": ops_ms, "host_ms": host_ms, "checks": checks}
 
 
 def sort_checker(big: dict, oracle: SortOracle):
@@ -4213,6 +4229,7 @@ def phase_sort_msmarco(big: dict, n: int) -> dict:
     oracle = SortOracle(big["ix"], big["aggs"])
     want_of = sort_checker(big, oracle)
     cpu = twin_of(eng)
+    share_with_verifier(segs)
     out: dict = {}
     nbytes0 = sort_ords_bytes(segs, dev)
     for name, bodies in sort_classes(big, n).items():
@@ -4224,6 +4241,7 @@ def phase_sort_msmarco(big: dict, n: int) -> dict:
                 or out[name]["general"] < out[name]["requests"]:
             raise AssertionError(f"{name}: not on the general path: "
                                  f"{out[name]}")
+    drain_log("phase 11")
     nbytes = sort_ords_bytes(segs, dev)
     slots = next_pow2_16(segs[0].ndocs + 1)
     log(f"  sort ordinals on the card (price, ts, rating of both "
@@ -4267,9 +4285,12 @@ def phase_snippets_merged(big: dict, n: int) -> dict:
     kernels serve it): score-ordered title matches with highlighted
     titles, B2 on the default bodies, B1 on those with exact totals."""
     client = big["client"]
+    eng = client._indices["bench"].engine
+    share_with_verifier(eng.segments)
     out = run_sort_class(client, "f_snippets (merged segment)",
                          snippet_bodies(big, n), 0, snippet_checker(big),
-                         twin_of(client._indices["bench"].engine))
+                         twin_of(eng))
+    drain_log("phase 11f")
     la = out["launches"]
     if not la.get("launches") or not la.get("impact_launches") \
             or la.get("plain_calls") or out["general"]:
@@ -4565,18 +4586,20 @@ def run_expand_class(client, name: str, items, ix, cpu, rtol=1e-6,
         restore()
     rungs = {**rungs, "impact_served": impactpath.STATS["served"],
              "general": C.STATS["general_served"]}
-    t0 = time.perf_counter()
-    for (b, oracle), r in zip(items, resps):
-        check_page(r, oracle(ix), f"{name} body {b}", rtol)
-    t_oracle = time.perf_counter() - t0
+
+    def pages():
+        for (b, oracle), r in zip(items, resps):
+            check_page(r, oracle(ix), f"{name} body {b}", rtol)
     lines = sum([[{}, bodies[i]] for i in cpu_bodies if i < len(bodies)],
                 [])
-    t0 = time.perf_counter()
-    if strip_took(client.msearch(lines, index="bench")) \
-            != strip_took(cpu.msearch(lines, index="bench")):
-        raise AssertionError(f"{name}: 2 bodies: card and CPU responses "
-                             f"differ")
-    t_cpu = time.perf_counter() - t0
+    on_card = strip_took(client.msearch(lines, index="bench"))
+
+    def twin():
+        if on_card != strip_took(cpu.msearch(lines, index="bench")):
+            raise AssertionError(f"{name}: 2 bodies: card and CPU "
+                                 f"responses differ")
+    checks: dict = {}
+    defer_checks(f"phase 12 {name}", checks, pages, twin)
     n = len(bodies)
     ev = {k: sum(a.elapsed_time(e) for a, e in v) / n
           for k, v in st["events"].items()}
@@ -4592,8 +4615,8 @@ def run_expand_class(client, name: str, items, ix, cpu, rtol=1e-6,
         f"B1={counts['launches']} B2={counts['impact_launches']} "
         f"B3={counts['bool_launches']} plain_calls={counts['plain_calls']}"
         f" rungs " + " ".join(f"{k}={v}" for k, v in rungs.items() if v)
-        + f" relations={dict(rels)}; {n} pages == numpy brute force "
-        f"({t_oracle:.1f}s); 2 bodies card == CPU ({t_cpu:.1f}s)")
+        + f" relations={dict(rels)}; {n} pages against the numpy brute "
+        f"force and 2 bodies card == CPU on the verifier")
     log(f"  {name}: per body: expansion host ms " + " ".join(
         f"{k}={v:.3f}" for k, v in sorted(host.items()))
         + "; rows (min, max, mean over segments) " + " ".join(
@@ -4606,7 +4629,7 @@ def run_expand_class(client, name: str, items, ix, cpu, rtol=1e-6,
             "p99": float(np.percentile(lat, 99)), "batch_ms": lat,
             "counts": counts, "rungs": rungs, "expand_host_ms": host,
             "rows": rows, "postings": post, "event_ms": ev,
-            "idle_share_one_batch": idle}
+            "idle_share_one_batch": idle, "checks": checks}
 
 
 def phase_expand_msmarco(big: dict, n: int) -> dict:
@@ -4615,7 +4638,9 @@ def phase_expand_msmarco(big: dict, n: int) -> dict:
     path (no fused kernel serves an expansion in scoring position, and
     none serves a segment with deletes)."""
     client = big["client"]
-    cpu = twin_of(client._indices["bench"].engine)
+    eng = client._indices["bench"].engine
+    cpu = twin_of(eng)
+    share_with_verifier(eng.segments)
     out = {}
     for name, items in expand_classes(big, n).items():
         out[name] = r = run_expand_class(client, name, items, big["ix"], cpu)
@@ -4625,6 +4650,7 @@ def phase_expand_msmarco(big: dict, n: int) -> dict:
                                "bool_launches")):
             raise AssertionError(f"{name}: not on the general path alone: "
                                  f"{r}")
+    drain_log("phase 12")
     return out
 
 
@@ -4633,13 +4659,15 @@ def phase_expand_filter_merged(big: dict, n: int) -> dict:
     as a slot or a probe, filter-specialized postings from a dense
     filter's second use) or the pruned ladder over the filtered view."""
     client = big["client"]
+    eng = client._indices["bench"].engine
+    share_with_verifier(eng.segments)
     # the dense filter once: card == CPU and the profile on prefix-filter
     # bodies (see filter_classes)
     out = run_expand_class(client, "bool_expanded_filter (merged segment)",
-                           filter_classes(big, n), big["ix"],
-                           twin_of(client._indices["bench"].engine),
+                           filter_classes(big, n), big["ix"], twin_of(eng),
                            rtol=9 * 2.0**-23, cpu_bodies=(1, 3),
                            profiled=slice(1, None))
+    drain_log("phase 12f")
     c = out["counts"]
     if not (c["bool_launches"] or c["launches"]) or c["plain_calls"] \
             or out["rungs"]["general"]:
@@ -5031,26 +5059,30 @@ def run_compound_class(client, name: str, items, ix, cpu,
     peak = torch.cuda.max_memory_allocated() - base
     rungs = {**rungs, "impact_served": impactpath.STATS["served"],
              "general": C.STATS["general_served"]}
-    t0 = time.perf_counter()
-    named = 0
-    for (b, oracle), r in zip(items, resps):
-        want = oracle(ix)
-        if len(want) == 2:
-            want, names = want
-            got = [h.get("matched_queries", []) for h in r["hits"]["hits"]]
-            if got != names:
-                raise AssertionError(f"{name} body {b}: matched_queries "
-                                     f"{got} != {names}")
-            named += sum(1 for x in got if x)
-        check_page(r, want, f"{name} body {b}", rtol)
-    t_oracle = time.perf_counter() - t0
+    checks: dict = {}
+
+    def pages():
+        named = 0
+        for (b, oracle), r in zip(items, resps):
+            want = oracle(ix)
+            if len(want) == 2:
+                want, names = want
+                got = [h.get("matched_queries", [])
+                       for h in r["hits"]["hits"]]
+                if got != names:
+                    raise AssertionError(f"{name} body {b}: "
+                                         f"matched_queries {got} != {names}")
+                named += sum(1 for x in got if x)
+            check_page(r, want, f"{name} body {b}", rtol)
+        checks["named_hits"] = named
     lines = sum([[{}, b] for b in bodies[:2]], [])
-    t0 = time.perf_counter()
-    if strip_took(client.msearch(lines, index="bench")) \
-            != strip_took(cpu.msearch(lines, index="bench")):
-        raise AssertionError(f"{name}: 2 bodies: card and CPU responses "
-                             f"differ")
-    t_cpu = time.perf_counter() - t0
+    on_card = strip_took(client.msearch(lines, index="bench"))
+
+    def twin():
+        if on_card != strip_took(cpu.msearch(lines, index="bench")):
+            raise AssertionError(f"{name}: 2 bodies: card and CPU "
+                                 f"responses differ")
+    defer_checks(f"phase 13 {name}", checks, pages, twin)
     n = len(bodies)
     ev = {k: sum(a.elapsed_time(e) for a, e in v) / n
           for k, v in spans.items()}
@@ -5060,15 +5092,14 @@ def run_compound_class(client, name: str, items, ix, cpu,
         f"B2={counts['impact_launches']} B3={counts['bool_launches']} "
         f"plain_calls={counts['plain_calls']} rungs " + " ".join(
             f"{k}={v}" for k, v in rungs.items() if v)
-        + f"; {n} pages == numpy brute force ({t_oracle:.1f}s"
-        + (f", {named} hits' matched_queries" if named else "")
-        + f"); 1 body card == CPU ({t_cpu:.1f}s); event ms a body "
+        + f"; {n} pages against the numpy brute force (and matched_"
+        f"queries) and 2 bodies card == CPU on the verifier; event ms a "
+        f"body "
         + " ".join(f"{k}={v:.4f}" for k, v in sorted(ev.items()))
         + f"; device peak bytes above the class's start {peak}")
     return {"qps": n / wall, "batch_ms": lat[0], "counts": counts,
             "rungs": rungs, "event_ms": ev, "peak_bytes": peak,
-            "oracle_s": t_oracle, "cpu_check_s": t_cpu,
-            "idle_share_one_batch": idle}
+            "checks": checks, "idle_share_one_batch": idle}
 
 
 def phase_compound_msmarco(big: dict, n: int) -> dict:
@@ -5079,6 +5110,7 @@ def phase_compound_msmarco(big: dict, n: int) -> dict:
     client = big["client"]
     eng = client._indices["bench"].engine
     cpu = twin_of(eng)
+    share_with_verifier(eng.segments)
     dev = client.device
     out = {}
     for name, items in compound_classes(big, n).items():
@@ -5090,6 +5122,7 @@ def phase_compound_msmarco(big: dict, n: int) -> dict:
                                "bool_launches")):
             raise AssertionError(f"{name}: not on the general path alone: "
                                  f"{r}")
+    drain_log("phase 13")
     nbytes = {s.name: s.device_nbytes(dev) for s in eng.segments}
     log(f"  general path device arrays after phase 13 (terms_set minimum "
         f"columns among them): {nbytes} bytes")
@@ -5101,7 +5134,9 @@ def phase_compound_merged(big: dict, n: int) -> dict:
     the single-field multi_match and the compound filter, the pruned
     ladder (B2, B1) for the wrapper."""
     client = big["client"]
-    cpu = twin_of(client._indices["bench"].engine)
+    eng = client._indices["bench"].engine
+    cpu = twin_of(eng)
+    share_with_verifier(eng.segments)
     out = {}
     for name, items in compound_merged_classes(big, n).items():
         out[name] = r = run_compound_class(client, name, items, big["ix"],
@@ -5111,6 +5146,7 @@ def phase_compound_merged(big: dict, n: int) -> dict:
               else c["launches"] + c["impact_launches"])
         if not on or c["plain_calls"] or r["rungs"]["general"]:
             raise AssertionError(f"{name}: not on its kernels: {r}")
+    drain_log("phase 13m")
     return out
 
 
@@ -5772,20 +5808,22 @@ def run_write_class(client, name: str, items, ix, cpu, rtol=1e-6,
     resps, wall, lat, counts, rungs = run_batches(client, bodies)
     rungs = {**rungs, "impact_served": impactpath.STATS["served"],
              "general": C.STATS["general_served"]}
-    t0 = time.perf_counter()
     memo = {} if memo is None else memo
-    for j, ((b, oracle), r) in enumerate(zip(items, resps)):
-        if j not in memo:
-            memo[j] = oracle(ix)
-        check_page(r, memo[j], f"{name} body {b}", rtol)
-    t_oracle = time.perf_counter() - t0
+
+    def pages():
+        for j, ((b, oracle), r) in enumerate(zip(items, resps)):
+            if j not in memo:
+                memo[j] = oracle(ix)
+            check_page(r, memo[j], f"{name} body {b}", rtol)
     lines = sum([[{}, b] for b in bodies[:1]], [])
-    t0 = time.perf_counter()
-    if strip_took(client.msearch(lines, index="bench")) \
-            != strip_took(cpu.msearch(lines, index="bench")):
-        raise AssertionError(f"{name}: 1 body: card and CPU responses "
-                             f"differ")
-    t_cpu = time.perf_counter() - t0
+    on_card = strip_took(client.msearch(lines, index="bench"))
+
+    def twin():
+        if on_card != strip_took(cpu.msearch(lines, index="bench")):
+            raise AssertionError(f"{name}: 1 body: card and CPU responses "
+                                 f"differ")
+    checks: dict = {}
+    defer_checks(f"phase 8 {name}", checks, pages, twin)
     n = len(bodies)
     rels = Counter(r["hits"]["total"]["relation"] for r in resps)
     log(f"  {name}: queries={n} batch={BATCH} wall_s={wall:.2f} "
@@ -5795,11 +5833,11 @@ def run_write_class(client, name: str, items, ix, cpu, rtol=1e-6,
         f"B1={counts['launches']} B2={counts['impact_launches']} "
         f"B3={counts['bool_launches']} plain_calls={counts['plain_calls']}"
         f" rungs " + " ".join(f"{k}={v}" for k, v in rungs.items() if v)
-        + f" relations={dict(rels)}; {n} pages == numpy brute force "
-        f"({t_oracle:.1f}s); 1 body card == CPU ({t_cpu:.1f}s)")
+        + f" relations={dict(rels)}; {n} pages against the numpy brute "
+        f"force and 1 body card == CPU on the verifier")
     out = {"qps": n / wall, "p50": float(np.percentile(lat, 50)),
            "p99": float(np.percentile(lat, 99)), "batch_ms": lat,
-           "counts": counts, "rungs": rungs}
+           "counts": counts, "rungs": rungs, "checks": checks}
     if len(lat) > 1:
         out["qps_after_first_batch"] = (n - BATCH) / (wall - lat[0] / 1e3)
     return out
@@ -5907,9 +5945,13 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
             for j in range(n)]
 
     # 4. phase 5's match bodies on the segments with deletes
+    share_with_verifier(eng.segments)
     out["before_merge"] = run_write_class(client, "match, deletes",
                                           match_items(MERGE_FIRST), ix,
                                           twin())
+    # the checks read the segments and the brute force before the merge
+    # replaces and compacts them
+    drain_log("phase 8's class before the merge")
 
     # 5. forcemerge
     spans = []
@@ -6005,6 +6047,7 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
     # with exact totals (128 pruned before phase 13 shared the time
     # limit, 64 before phase 15 did, 32 before phase 17 did)
     cpu = twin()
+    share_with_verifier(eng.segments)
     items = match_items(min(MERGE_FIRST, len(big["bodies"])))
     pages: dict = {}
     out["first_use"] = run_write_class(
@@ -6058,6 +6101,7 @@ def phase_writes_msmarco(big: dict, rng) -> dict:
                 or r["general"]:
             raise AssertionError(f"merged segment, {name}: not served by "
                                  f"its kernel alone: {c} {r}")
+    drain_log("phase 8")
     return out
 
 
@@ -6846,28 +6890,32 @@ def run_longtail_class(client, name: str, items, oracle, cpu, check,
     wall = time.perf_counter() - t_all
     general = C.STATS["general_served"]
     launches = {k: v for k, v in bm25.COUNTS.items() if v}
-    t0 = time.perf_counter()
-    c = oracle.cols()
-    for i, ((body, ts), pages) in enumerate(zip(items, resps)):
-        m, score = oracle.matched(body, ts, c)
-        check(pages, body, m, score, c, f"{name} body {i}")
-    t_oracle = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for (body, ts), pages in list(zip(items, resps))[:ncpu]:
-        want = [strip_took(r) for r in lt_pages(cpu, body)]
-        # the panel's differences of sums carry the sums' errors
-        scale = (max(abs(b["s"]["value"]) for b in want[0]["aggregations"][
-            "m"]["buckets"]) if name.startswith("b_") else 0.0)
-        got = [strip_took(r) for r in pages]
-        if name.startswith("b_"):
-            got = [lt_sorted_as(g, w, 1e-4 * scale)
-                   for g, w in zip(got, want)]
-        if not lt_close(got, want, 1e-4, scale):
-            raise AssertionError(f"{name}: card and CPU responses differ "
-                                 f"for {body}")
-        m, score = oracle.matched(body, ts, c)
-        check(want, body, m, score, c, f"{name} CPU")
-    t_cpu = time.perf_counter() - t0
+    checks: dict = {}
+
+    def check_pages():
+        c = oracle.cols()
+        for i, ((body, ts), pages) in enumerate(zip(items, resps)):
+            m, score = oracle.matched(body, ts, c)
+            check(pages, body, m, score, c, f"{name} body {i}")
+
+    def twin():
+        c = oracle.cols()
+        for (body, ts), pages in list(zip(items, resps))[:ncpu]:
+            want = [strip_took(r) for r in lt_pages(cpu, body)]
+            # the panel's differences of sums carry the sums' errors
+            scale = (max(abs(b["s"]["value"]) for b in want[0][
+                "aggregations"]["m"]["buckets"])
+                if name.startswith("b_") else 0.0)
+            got = [strip_took(r) for r in pages]
+            if name.startswith("b_"):
+                got = [lt_sorted_as(g, w, 1e-4 * scale)
+                       for g, w in zip(got, want)]
+            if not lt_close(got, want, 1e-4, scale):
+                raise AssertionError(f"{name}: card and CPU responses "
+                                     f"differ for {body}")
+            m, score = oracle.matched(body, ts, c)
+            check(want, body, m, score, c, f"{name} CPU")
+    defer_checks(f"phase 15 {name}", checks, check_pages, twin)
     nb = min(LT_OP_BODIES, len(items))
     restore, spans, host = longtail_timer()
     try:
@@ -6885,8 +6933,8 @@ def run_longtail_class(client, name: str, items, oracle, cpu, check,
     log(f"  {name}: bodies={n} requests={nreq} wall_s={wall:.2f} "
         f"bodies_per_s={n / wall:.1f} ms_p50={np.percentile(lat, 50):.1f} "
         f"ms_p99={np.percentile(lat, 99):.1f} general={general} "
-        f"kernel_launches={launches}; == numpy brute force "
-        f"({t_oracle:.1f}s); {ncpu} card == CPU ({t_cpu:.1f}s); device ms "
+        f"kernel_launches={launches}; against the numpy brute force and "
+        f"{ncpu} card == CPU on the verifier; device ms "
         f"per body ({nb} bodies, events) " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(ops_ms.items()))
         + "; host ms per body " + " ".join(
@@ -6900,7 +6948,7 @@ def run_longtail_class(client, name: str, items, oracle, cpu, check,
             "p99_ms": float(np.percentile(lat, 99)),
             "op_ms": ops_ms, "host_ms": host_ms,
             "refinement_subsearches_per_body": subs / nb,
-            "oracle_s": t_oracle, "cpu_s": t_cpu}
+            "checks": checks}
 
 
 def longtail_checks(oracle, sums: SumCheck, sketch: Counter,
@@ -6936,6 +6984,7 @@ def phase_longtail_msmarco(big: dict, n: int) -> dict:
         raise AssertionError(f"phase 15 expects {len(oracle.segments())} "
                              f"segments, not {len(segs)}")
     cpu = twin_of(eng)
+    share_with_verifier(segs)
     classes = longtail_classes(big, n)
     sums = SumCheck()
     sketch: Counter = Counter()
@@ -6948,6 +6997,7 @@ def phase_longtail_msmarco(big: dict, n: int) -> dict:
     out = {name: run_longtail_class(client, name, items, oracle, cpu,
                                     checks[name])
            for name, items in classes.items()}
+    drain_log("phase 15")
     torch.cuda.synchronize()
     mem_after = torch.cuda.memory_allocated(dev)
     cache_after = longtail_cache_bytes(segs, dev)
@@ -10848,10 +10898,77 @@ class Verifier:
 
 VERIFY = Verifier()
 
+VERIFY_SWITCH_S = 0.0005
+
+# seconds the main thread spent in the numpy brute forces and the page
+# comparisons, by phase (`time_checks`)
+CHECK_S: dict = {}
+CHECK_PHASE = ["-"]
+
+
+def time_checks() -> None:
+    """Count the main thread's seconds in the brute forces (the oracles'
+    methods) and the comparisons (the check_* functions) into
+    CHECK_S[CHECK_PHASE[0]], the outermost call only: what a phase spends
+    checking rather than serving, the CPU twins' searches aside."""
+    import threading
+    mod = sys.modules[__name__]
+    main = threading.main_thread()
+    depth = [0]
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            if threading.current_thread() is not main or depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                CHECK_S[CHECK_PHASE[0]] = CHECK_S.get(
+                    CHECK_PHASE[0], 0.0) + time.perf_counter() - t0
+        return timed
+    for name in dir(mod):
+        obj = getattr(mod, name)
+        if name.startswith(("check_", "lt_check_", "oracle_")) \
+                and callable(obj) and not isinstance(obj, type):
+            setattr(mod, name, wrap(obj))
+    for cls in (NumpyIndex, SortOracle, AggOracle, LongtailOracle,
+                SumCheck):
+        for name, obj in list(vars(cls).items()):
+            if name.startswith("_"):
+                continue
+            if isinstance(obj, (staticmethod, classmethod)):
+                setattr(cls, name, type(obj)(wrap(obj.__func__)))
+            elif callable(obj):
+                setattr(cls, name, wrap(obj))
+
+
+def defer_checks(what: str, out: dict, pages=None, twin=None) -> None:
+    """A class's checks on the verifier thread: `pages()` (the brute
+    forces against the card's pages, which no later class reads), then
+    `twin()` (the CPU twin's responses against the card's, taken on the
+    main thread before), their seconds into out["oracle_s"] and
+    out["cpu_check_s"]."""
+    def verify():
+        for key, fn in (("oracle_s", pages), ("cpu_check_s", twin)):
+            if fn is not None:
+                t0 = time.perf_counter()
+                fn()
+                out[key] = time.perf_counter() - t0
+    VERIFY.submit(what, verify)
+
+
+# seconds each drain_log waited for the verifier, by what it closed
+DRAIN_S: dict = {}
+
 
 def drain_log(what: str) -> float:
     """Wait for the verifier at a phase's end: -> the seconds waited."""
     waited = VERIFY.drain()
+    DRAIN_S[what] = waited
     log(f"  {what}: the verifier's checks held; the phase waited "
         f"{waited:.1f}s for them at its end")
     return waited
@@ -11782,6 +11899,1062 @@ def phase_geo_small(rng) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------
+# phase 22: nested objects, the parent-child join, more_like_this and
+# the percolator (OpenSearch Benchmark's `nested` and `percolator`
+# workloads' shapes, drawn from the seed)
+# ---------------------------------------------------------------------
+
+QA_QUESTIONS = 2_000_000      # a cut of the `nested` workload's ~11.2M
+QA_JOIN_QUESTIONS = 1_000_000
+QA_SMALL = 5_000              # phase 4's bulked-vs-attached draw
+ALERTS = 10_000               # a cut of the `percolator` workload's queries
+PERC_DOCS = 64
+MLT_MERGED = 8
+ONE_SHARD = {"number_of_shards": 1, "number_of_replicas": 0}
+
+
+def near_tie_same(got, want, rtol: float = 1e-6, path: str = "") -> None:
+    """Two responses equal apart from `took`: floats within rtol relative
+    (f32 sums in another order on the card), hits whose scores lie within
+    1e-5 of each other in either order, the rest exactly."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{path}: keys {got!r:.200} != {want!r:.200}")
+        for k, w in want.items():
+            if k == "took":
+                continue
+            g = got[k]
+            if k == "hits" and isinstance(w, list):
+                if len(g) != len(w):
+                    raise AssertionError(f"{path}hits: {len(g)} != {len(w)}")
+                sc = [h.get("_score") for h in w]
+                g, i = list(g), 0
+                while i < len(w):
+                    j = i + 1
+                    while (j < len(w) and sc[i] is not None
+                           and sc[j] is not None
+                           and abs(sc[j - 1] - sc[j]) <= 1e-5 * abs(sc[j - 1])):
+                        j += 1
+                    by = {h["_id"]: h for h in g[i:j]}
+                    if j - i > 1 and set(by) == {h["_id"] for h in w[i:j]}:
+                        g[i:j] = [by[h["_id"]] for h in w[i:j]]
+                    i = j
+            near_tie_same(g, w, rtol, f"{path}{k}.")
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{path}: {got!r:.200} != {want!r:.200}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            near_tie_same(g, w, rtol, f"{path}{i}.")
+    elif isinstance(want, float) and isinstance(got, float):
+        if not abs(got - want) <= rtol * abs(want):
+            raise AssertionError(f"{path}: {got} != {want}")
+    elif got != want:
+        raise AssertionError(f"{path}: {got!r} != {want!r}")
+
+
+def qa_draw(seed: int) -> tuple:
+    """Phase 22's Q&A draw (numpy, `bench_corpus.qa_draws`): -> (draw,
+    seconds). main() runs it on a thread beside phase 21."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    t0 = time.perf_counter()
+    return bc.qa_draws(QA_QUESTIONS, seed=22 + seed), time.perf_counter() - t0
+
+
+def qa_client(dev, d, n: int, m: int):
+    """A RestClient on `dev` with `qa` (the first n questions of the draw,
+    attached with their answers' NestedBlock) and `qa_join` (the first m
+    and their answers, joined), one segment each."""
+    from opensearch_tpu_torch import RestClient, bench_corpus as bc
+    c = RestClient(device=dev)
+    attach_qa(c, bc.qa_segment(d, n, device=c.device),
+              bc.qa_join_segment(d, m, device=c.device))
+    return c
+
+
+def attach_qa(c, seg, jseg) -> None:
+    from opensearch_tpu_torch import bench_corpus as bc
+    c.indices.create("qa", {"settings": ONE_SHARD,
+                            "mappings": bc.QA_MAPPING})
+    c._indices["qa"].engine.segments = [seg]
+    c.indices.create("qa_join", {"settings": ONE_SHARD,
+                                 "mappings": bc.QA_JOIN_MAPPING})
+    c._indices["qa_join"].engine.segments = [jseg]
+
+
+def same_segments(a, b, what: str) -> None:
+    """Two segments' planes equal: postings (with positions), keyword and
+    numeric columns, doc lengths, ids, nested blocks."""
+    if a.ndocs != b.ndocs or set(a.postings) != set(b.postings) \
+            or set(a.keyword_cols) != set(b.keyword_cols) \
+            or set(a.numeric_cols) != set(b.numeric_cols) \
+            or set(a.nested) != set(b.nested):
+        raise AssertionError(f"phase 4 {what}: planes differ")
+    for f, pa in a.postings.items():
+        pb = b.postings[f]
+        if pa.vocab != pb.vocab or not all(np.array_equal(
+                getattr(pa, k), getattr(pb, k)) for k in (
+                "starts", "doc_ids", "tfs", "pos_starts", "positions")):
+            raise AssertionError(f"phase 4 {what}: postings [{f}]")
+    for f, ka in a.keyword_cols.items():
+        kb = b.keyword_cols[f]
+        if ka.vocab != kb.vocab or not all(np.array_equal(
+                getattr(ka, k), getattr(kb, k)) for k in (
+                "starts", "ords", "doc_of_value", "min_ord")):
+            raise AssertionError(f"phase 4 {what}: keyword [{f}]")
+    for f, na in a.numeric_cols.items():
+        nb = b.numeric_cols[f]
+        if not (np.array_equal(na.values, nb.values)
+                and np.array_equal(na.present, nb.present)):
+            raise AssertionError(f"phase 4 {what}: numeric [{f}]")
+    for f, dl in a.doc_lens.items():
+        if not np.array_equal(dl, b.doc_lens[f]):
+            raise AssertionError(f"phase 4 {what}: doc lengths [{f}]")
+    if [a.ids[i] for i in range(a.ndocs)] != [b.ids[i]
+                                              for i in range(b.ndocs)]:
+        raise AssertionError(f"phase 4 {what}: ids")
+    for p, ba in a.nested.items():
+        if not np.array_equal(ba.parent_of, b.nested[p].parent_of):
+            raise AssertionError(f"phase 4 {what}: [{p}] parents")
+        same_segments(ba.child, b.nested[p].child, f"{what}/{p}")
+
+
+def phase_qa_small(rng, dev: str = "cuda") -> dict:
+    """Phase 4's Q&A check: a QA_SMALL-question draw bulked through the
+    write path (each answer of the join index routed to its question)
+    and attached (`bench_corpus.qa_segment` / `qa_join_segment`) on the
+    card: the planes equal; classes (a)-(h)'s bodies give the same pages
+    on the bulked and the attached index, and the same on the CPU."""
+    from opensearch_tpu_torch import RestClient, bench_corpus as bc
+    t0 = time.perf_counter()
+    d = bc.qa_draws(QA_SMALL, seed=int(rng.integers(1 << 30)))
+    m = QA_SMALL // 2
+    bulked = RestClient(device=dev)
+    bulked.indices.create("qa", {"settings": ONE_SHARD,
+                                 "mappings": bc.QA_MAPPING})
+    bulked.bulk(sum([[{"index": {"_index": "qa", "_id": bc.qa_id(i)}},
+                      bc.qa_source(d, i)] for i in range(QA_SMALL)], []),
+                refresh=True)
+    bulked.indices.create("qa_join", {"settings": ONE_SHARD,
+                                      "mappings": bc.QA_JOIN_MAPPING})
+    lines = []
+    for i in range(m + int(d["ans_starts"][m])):
+        src = bc.qa_join_source(d, m, i)
+        meta = {"_index": "qa_join", "_id": bc.qa_id(i)}
+        if i >= m:
+            meta["routing"] = src["rel"]["parent"]
+        lines += [{"index": meta}, src]
+    bulked.bulk(lines, refresh=True)
+    attached = qa_client(dev, d, QA_SMALL, m)
+    cpu = qa_client("cpu", d, QA_SMALL, m)
+    for idx in ("qa", "qa_join"):
+        same_segments(bulked._indices[idx].engine.segments[0],
+                      attached._indices[idx].engine.segments[0], idx)
+    items = qa_items(d, QA_SMALL, m, 2, rng)
+    n = 0
+    for name, (idx, bodies, _check) in items.items():
+        for b in bodies:
+            want = bulked.search(idx, b)
+            near_tie_same(attached.search(idx, b), want, path=f"{name} ")
+            near_tie_same(cpu.search(idx, b), want, path=f"{name} cpu ")
+            n += 1
+    log(f"  qa small: {QA_SMALL} questions ({int(d['ans_starts'][-1])} "
+        f"answers) and a join index of {m}: bulked planes == attached; "
+        f"{n} bodies of (a)-(h) equal bulked / attached / CPU "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"bodies": n, "seconds": time.perf_counter() - t0}
+
+
+def qa_items(d: dict, n: int, m: int, k: int, rng) -> dict:
+    """Phase 22's Q&A classes, `k` bodies each: name -> (index, bodies,
+    check(j, resp) against the draw's brute force)."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    a0, a1 = int(d["ans_starts"][0]), int(d["ans_starts"][n])
+    au = d["ans_user"][:a1]
+    # users and tags of mid frequency: selective bodies, as a search box's
+    ucount = np.bincount(au, minlength=bc.QA_USERS)
+    users = np.flatnonzero((ucount >= 3) & (ucount <= 200))
+    tcount = np.bincount(d["tag"][:int(d["tag_starts"][n])],
+                         minlength=bc.QA_TAGS)
+    tags = np.flatnonzero((tcount >= 5) & (tcount <= 2000))
+    pick_u = rng.choice(users, k)
+    pick_t = rng.choice(tags, k)
+    day = 86_400_000
+    los = rng.integers(*bc.QA_DATES, k) // day * day
+    wc = np.bincount(d["title_tok"][:int(d["title_starts"][n])],
+                     minlength=bc.QA_TITLE_VOCAB)
+    words = np.flatnonzero((wc >= 20) & (wc <= 5000))
+    pick_w = rng.choice(words, (k, 2))
+    years = rng.integers(2009, 2017, k)
+    out = {}
+    out["a_nested"] = ("qa", [{"query": {"nested": {
+        "path": "answers", "score_mode": "avg", "query": {"bool": {"must": [
+            {"term": {"answers.user": bc.qa_user(int(u))}},
+            {"range": {"answers.date": {"gte": int(lo)}}}]}}}}}
+        for u, lo in zip(pick_u, los)], None)
+    out["b_nested_sort"] = ("qa", [{"query": {"term": {
+        "tag": bc.qa_tag(int(t))}}, "sort": [{"answers.date": {
+            "order": "desc", "mode": "max", "nested": {"path": "answers"}}}]}
+        for t in pick_t], None)
+    out["c_reverse_nested"] = ("qa", [{"size": 0, "query": {"term": {
+        "tag": bc.qa_tag(int(t))}}, "aggs": {"ans": {
+            "nested": {"path": "answers"}, "aggs": {"yr": {
+                "filter": {"range": {"answers.date": {
+                    "gte": f"{y}-01-01", "lt": f"{y + 1}-01-01"}}},
+                "aggs": {"month": {"date_histogram": {
+                    "field": "answers.date", "calendar_interval": "month"},
+                    "aggs": {"q": {"reverse_nested": {}, "aggs": {
+                        "tags": {"terms": {"field": "tag"}}}}}}}}}}}}
+        for t, y in zip(pick_t, years)], None)
+    out["d_inner_hits"] = ("qa", [{"query": {"bool": {"must": [
+        {"match": {"title": " ".join(bc.qa_word(int(w)) for w in ws)}}],
+        "should": [{"nested": {"path": "answers", "score_mode": "max",
+                               "query": {"term": {
+                                   "answers.user": bc.qa_user(int(u))}},
+                               "inner_hits": {"size": 3}}}]}}}
+        for ws, u in zip(pick_w, pick_u)], None)
+    for mode in ("max", "none"):
+        out[f"e_has_child_{mode}"] = ("qa_join", [{"query": {"has_child": {
+            "type": "answer", "score_mode": mode, "query": {"bool": {
+                "must": [{"term": {"user": bc.qa_user(int(u))}},
+                         {"range": {"date": {"gte": int(lo)}}}]}}}}}
+            for u, lo in zip(pick_u, los)], None)
+    out["f_has_parent"] = ("qa_join", [{"query": {"has_parent": {
+        "parent_type": "question", "score": True, "query": {"term": {
+            "tag": bc.qa_tag(int(t))}}}}} for t in pick_t], None)
+    parents = rng.choice(np.flatnonzero(np.diff(d["ans_starts"][:m + 1])
+                                        > 0), k)
+    out["g_parent_id"] = ("qa_join", [{"query": {"parent_id": {
+        "type": "answer", "id": bc.qa_id(int(p))}}} for p in parents], None)
+    out["h_join_aggs"] = ("qa_join", [{"size": 0, "query": {"bool": {
+        "should": [{"term": {"tag": bc.qa_tag(int(t))}},
+                   {"term": {"user": bc.qa_user(int(u))}}]}},
+        "aggs": {"kids": {"children": {"type": "answer"}, "aggs": {
+            "users": {"terms": {"field": "user"}}}},
+            "dads": {"parent": {"type": "answer"}, "aggs": {
+                "tags": {"terms": {"field": "tag"}}}}}}
+        for t, u in zip(pick_t, pick_u)], None)
+    return out
+
+
+def f32_avg_table(s: np.float32, kmax: int) -> np.ndarray:
+    """f32 avg of k equal child scores for k = 0..kmax: their f32 sum in
+    any order (every order adds the same value), over k."""
+    out = np.zeros(kmax + 1, np.float32)
+    acc = np.float32(0.0)
+    for k in range(1, kmax + 1):
+        acc = np.float32(acc + s)
+        out[k] = np.float32(acc / np.float32(k))
+    return out
+
+
+def kw_score(n: int, df: int) -> np.float32:
+    """BM25 of one keyword term (tf 1, no norms) over n docs, df."""
+    import math
+    w = np.float32(math.log(1.0 + (n - df + 0.5) / (df + 0.5)))
+    k = np.float32(K1 * (np.float32(1.0) + np.float32(0.0)))
+    return np.float32((w * np.float32(1.0)) / (np.float32(1.0) + k))
+
+
+def ranked(ids: np.ndarray, score: np.ndarray, size: int = 10,
+           name=None) -> tuple:
+    """(ids, scores, total): (score desc, doc asc), the first `size`."""
+    sel = np.lexsort((ids, -score))[:size]
+    name = name or (lambda g: str(g))
+    return ([name(int(g)) for g in ids[sel]],
+            score[sel].astype(np.float32).tolist(), len(ids))
+
+
+class QaOracle:
+    """Phase 22's brute force over the Q&A draw, apart from the port."""
+
+    def __init__(self, d: dict, n: int, m: int):
+        from opensearch_tpu_torch import bench_corpus as bc
+        self.d, self.n, self.m = d, n, m
+        self.na = int(d["ans_starts"][n])
+        self.jna = int(d["ans_starts"][m])
+        self.parent = np.repeat(np.arange(n), np.diff(d["ans_starts"][:n + 1]))
+        self.au, self.ad = d["ans_user"][:self.na], d["ans_date"][:self.na]
+        # each tag's questions, ascending (a question's tags are distinct)
+        gdoc = np.repeat(np.arange(n), np.diff(d["tag_starts"][:n + 1]))
+        gtag = d["tag"][:len(gdoc)]
+        order = np.argsort(gtag, kind="stable")
+        self.tag_docs_all = gdoc[order]
+        self.tag_at = np.searchsorted(gtag[order], np.arange(bc.QA_TAGS + 1))
+        self._max_date = None
+
+    def pred(self, u: int, lo: int, upto: int) -> tuple:
+        """(matched parents, matching children a parent) of "an answer of
+        user u on or after lo" over the first `upto` questions."""
+        na = int(self.d["ans_starts"][upto])
+        cm = (self.au[:na] == u) & (self.ad[:na] >= lo)
+        return np.unique(self.parent[:na][cm], return_counts=True)
+
+    def a_page(self, u: int, lo: int) -> tuple:
+        s = np.float32(kw_score(self.na, int((self.au == u).sum()))
+                       + np.float32(1.0))
+        p, k = self.pred(u, lo, self.n)
+        tab = f32_avg_table(s, int(k.max()) if len(k) else 0)
+        return ranked(p, tab[k] if len(k) else np.zeros(0, np.float32),
+                      name=qa_id_of)
+
+    def b_hits(self, t: int) -> list:
+        """[(id, max answer date or None)] of tag t's questions, sorted
+        by that date desc (missing last), then id."""
+        docs = self.tag_docs(t, self.n)
+        if self._max_date is None:
+            self._max_date = np.full(self.n, np.iinfo(np.int64).min)
+            np.maximum.at(self._max_date, self.parent, self.ad)
+        mx = self._max_date
+        key = [(0, -int(mx[g])) if mx[g] > np.iinfo(np.int64).min
+               else (1, 0) for g in docs]
+        order = sorted(range(len(docs)),
+                       key=lambda i: (key[i], qa_id_of(docs[i])))
+        return [(qa_id_of(docs[i]), None if key[i][0] else -key[i][1])
+                for i in order], len(docs)
+
+    def tag_docs(self, t: int, upto: int) -> np.ndarray:
+        docs = self.tag_docs_all[self.tag_at[t]:self.tag_at[t + 1]]
+        return docs[docs < upto]
+
+    def c_buckets(self, t: int, year: int) -> list:
+        """[(month start ms, answers, questions, [(tag, count)] top 10)]
+        of tag t's questions' answers in `year`, each month that has
+        one."""
+        import datetime as dt
+        d = self.d
+        docs = self.tag_docs(t, self.n)
+        qmask = np.zeros(self.n, bool)
+        qmask[docs] = True
+        lo = int(dt.datetime(year, 1, 1, tzinfo=dt.timezone.utc)
+                 .timestamp() * 1000)
+        hi = int(dt.datetime(year + 1, 1, 1, tzinfo=dt.timezone.utc)
+                 .timestamp() * 1000)
+        cm = qmask[self.parent] & (self.ad >= lo) & (self.ad < hi)
+        months = np.array([dt.datetime.fromtimestamp(
+            x / 1000, dt.timezone.utc).month for x in self.ad[cm]], int)
+        par = self.parent[cm]
+        out = []
+        if not len(months):
+            return out
+        for mo in range(months.min(), months.max() + 1):
+            sel = months == mo
+            if not sel.any():
+                continue      # no empty bucket, as the reference's
+            qs = np.unique(par[sel])
+            tags = Counter()
+            for q in qs.tolist():
+                g0, g1 = int(d["tag_starts"][q]), int(d["tag_starts"][q + 1])
+                tags.update(d["tag"][g0:g1].tolist())
+            top = sorted(tags.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+            out.append((int(dt.datetime(year, mo, 1, tzinfo=dt.timezone.utc)
+                            .timestamp() * 1000), int(sel.sum()), len(qs),
+                        [(qa_tag_of(k), c) for k, c in top]))
+        return out
+
+    def d_page(self, words, u: int, title) -> tuple:
+        """(ids, scores, total) and the inner hits' (total, offsets) of
+        a title match (OR) plus a nested max of user u's answers."""
+        score, ok = title(words)
+        s = kw_score(self.na, int((self.au == u).sum()))
+        p, _k = self.pred(u, np.iinfo(np.int64).min, self.n)
+        nested = np.zeros(self.n, np.float32)
+        nested[p] = s
+        score = np.where(ok, np.float32(score + nested), np.float32(0.0))
+        docs = np.flatnonzero(ok)
+        return ranked(docs, score[docs], name=qa_id_of)
+
+    def inner(self, q: int, u: int) -> tuple:
+        a, b = int(self.d["ans_starts"][q]), int(self.d["ans_starts"][q + 1])
+        offs = [j - a for j in range(a, b) if self.au[j] == u]
+        return len(offs), offs[:3]
+
+    def e_page(self, u: int, lo: int, mode: str) -> tuple:
+        m, jn = self.m, self.m + self.jna
+        s = np.float32(kw_score(jn, int((self.au[:self.jna] == u).sum()))
+                       + np.float32(1.0))
+        p, _k = self.pred(u, lo, m)
+        return ranked(p, np.full(len(p), s if mode == "max" else 1.0,
+                                 np.float32), name=qa_id_of)
+
+    def f_page(self, t: int) -> tuple:
+        jn = self.m + self.jna
+        qs = self.tag_docs(t, self.m)
+        s = kw_score(jn, len(qs))
+        kids = np.concatenate([np.arange(self.d["ans_starts"][q],
+                                         self.d["ans_starts"][q + 1])
+                               for q in qs.tolist()] or [np.zeros(0, int)])
+        return ranked(self.m + kids, np.full(len(kids), s, np.float32),
+                      name=qa_id_of)
+
+    def g_page(self, q: int) -> tuple:
+        a, b = int(self.d["ans_starts"][q]), int(self.d["ans_starts"][q + 1])
+        kids = self.m + np.arange(a, b)
+        return ranked(kids, np.ones(len(kids), np.float32), name=qa_id_of)
+
+    def h_aggs(self, t: int, u: int) -> tuple:
+        """(children doc_count, users top 10, parents doc_count, tags top
+        10) under "tag t or user u"."""
+        d, m, jna = self.d, self.m, self.jna
+        qs = self.tag_docs(t, m)
+        kids = (np.concatenate([np.arange(d["ans_starts"][q],
+                                          d["ans_starts"][q + 1])
+                                for q in qs.tolist()])
+                if len(qs) else np.zeros(0, int))
+        users = Counter(self.au[kids].tolist())
+        dads = np.unique(self.parent[:jna][self.au[:jna] == u])
+        tags = Counter()
+        for q in dads.tolist():
+            tags.update(d["tag"][int(d["tag_starts"][q]):
+                                 int(d["tag_starts"][q + 1])].tolist())
+
+        def top(c, name):
+            return [(name(k), v) for k, v in sorted(
+                c.items(), key=lambda kv: (-kv[1], kv[0]))[:10]]
+        return (len(kids), top(users, qa_user_of), len(dads),
+                top(tags, qa_tag_of))
+
+
+def once(make):
+    """A getter of make()'s value, made on the first call."""
+    got = []
+
+    def get():
+        if not got:
+            got.append(make())
+        return got[0]
+    return get
+
+
+def qa_id_of(g) -> str:
+    return f"{int(g):08d}"
+
+
+def qa_tag_of(t) -> str:
+    return f"tag{int(t):05d}"
+
+
+def qa_user_of(u) -> str:
+    return f"u{int(u):07d}"
+
+
+def terms_of(agg: dict) -> list:
+    return [(b["key"], b["doc_count"]) for b in agg["buckets"]]
+
+
+def qa_title_scorer(d: dict, n: int):
+    """title(words) -> (BM25 f32[n] of a match OR over the words, in
+    order; matched bool[n]) over the draw's titles."""
+    import math
+    tok = d["title_tok"][:int(d["title_starts"][n])]
+    dl = np.diff(d["title_starts"][:n + 1]).astype(np.float32)
+    avgdl = np.float32(int(dl.sum()) / n)
+    doc = np.repeat(np.arange(n), np.diff(d["title_starts"][:n + 1]))
+    order = np.argsort(tok, kind="stable")
+    at = np.searchsorted(tok[order], np.arange(int(tok.max()) + 2))
+    doc = doc[order]
+
+    def title(words):
+        score = np.zeros(n, np.float32)
+        ok = np.zeros(n, bool)
+        for w in words:
+            tf = np.bincount(doc[at[w]:at[w + 1]],
+                             minlength=n).astype(np.float32)
+            has = tf > 0
+            df = int(has.sum())
+            wt = np.float32(math.log(1.0 + (n - df + 0.5) / (df + 0.5)))
+            k = K1 * (OMB + (B * dl) / avgdl)
+            score = np.where(has, np.float32(score + (wt * tf) / (tf + k)),
+                             score)
+            ok |= has
+        return score, ok
+    return title
+
+
+def qa_checks(items: dict, oracle, scorer) -> dict:
+    """name -> check(j, resp) of each Q&A class's body j; `oracle()` and
+    `scorer()` give the QaOracle and the title scorer, built by the first
+    check that asks (on the verifier)."""
+
+    def args(name, j):
+        return items[name][1][j]
+
+    def a(j, r):
+        o = oracle()
+        q = args("a_nested", j)["query"]["nested"]["query"]["bool"]["must"]
+        u = int(q[0]["term"]["answers.user"][1:])
+        lo = q[1]["range"]["answers.date"]["gte"]
+        check_page(r, o.a_page(u, lo), f"phase 22 (a) {j}")
+
+    def b(j, r):
+        o = oracle()
+        t = int(args("b_nested_sort", j)["query"]["term"]["tag"][3:])
+        want, total = o.b_hits(t)
+        got = [(h["_id"], h["sort"][0]) for h in r["hits"]["hits"]]
+        if got != want[:10] or r["hits"]["total"]["value"] != total:
+            raise AssertionError(f"phase 22 (b) {j}: {got} != {want[:10]}")
+
+    def c(j, r):
+        o = oracle()
+        body = args("c_reverse_nested", j)
+        t = int(body["query"]["term"]["tag"][3:])
+        y = int(body["aggs"]["ans"]["aggs"]["yr"]["filter"]["range"][
+            "answers.date"]["gte"][:4])
+        got = [(bk["key"], bk["doc_count"], bk["q"]["doc_count"],
+                terms_of(bk["q"]["tags"]))
+               for bk in r["aggregations"]["ans"]["yr"]["month"]["buckets"]]
+        if got != o.c_buckets(t, y):
+            raise AssertionError(f"phase 22 (c) {j}: {got} != "
+                                 f"{o.c_buckets(t, y)}")
+
+    def dd(j, r):
+        o = oracle()
+        q = args("d_inner_hits", j)["query"]["bool"]
+        words = [int(w[1:]) for w in q["must"][0]["match"]["title"].split()]
+        u = int(q["should"][0]["nested"]["query"]["term"]["answers.user"][1:])
+        check_page(r, o.d_page(words, u, scorer()), f"phase 22 (d) {j}")
+        for h in r["hits"]["hits"]:
+            ih = h["inner_hits"]["answers"]["hits"]
+            tot, offs = o.inner(int(h["_id"]), u)
+            if (ih["total"]["value"], [x["_nested"]["offset"]
+                                       for x in ih["hits"]]) != (tot, offs):
+                raise AssertionError(f"phase 22 (d) {j} inner hits of "
+                                     f"{h['_id']}")
+
+    def e(mode):
+        def chk(j, r):
+            o = oracle()
+            q = args(f"e_has_child_{mode}", j)["query"]["has_child"][
+                "query"]["bool"]["must"]
+            u = int(q[0]["term"]["user"][1:])
+            lo = q[1]["range"]["date"]["gte"]
+            want = o.e_page(u, lo, mode)
+            check_page(r, want, f"phase 22 (e) {mode} {j}")
+            if mode == "none":
+                # the join's parents are (a)'s nested predicate's over the
+                # same questions
+                p, _k = o.pred(u, lo, o.m)
+                if [qa_id_of(g) for g in p[:10]] != want[0] or \
+                        len(p) != want[2]:
+                    raise AssertionError(f"phase 22 (e) {j} != (a)'s "
+                                         f"predicate")
+        return chk
+
+    def f(j, r):
+        o = oracle()
+        t = int(args("f_has_parent", j)["query"]["has_parent"]["query"][
+            "term"]["tag"][3:])
+        check_page(r, o.f_page(t), f"phase 22 (f) {j}")
+
+    def g(j, r):
+        o = oracle()
+        q = int(args("g_parent_id", j)["query"]["parent_id"]["id"])
+        check_page(r, o.g_page(q), f"phase 22 (g) {j}")
+
+    def h(j, r):
+        o = oracle()
+        sh = args("h_join_aggs", j)["query"]["bool"]["should"]
+        t, u = int(sh[0]["term"]["tag"][3:]), int(sh[1]["term"]["user"][1:])
+        ag = r["aggregations"]
+        got = (ag["kids"]["doc_count"], terms_of(ag["kids"]["users"]),
+               ag["dads"]["doc_count"], terms_of(ag["dads"]["tags"]))
+        if got != o.h_aggs(t, u):
+            raise AssertionError(f"phase 22 (h) {j}: {got} != "
+                                 f"{o.h_aggs(t, u)}")
+    return {"a_nested": a, "b_nested_sort": b, "c_reverse_nested": c,
+            "d_inner_hits": dd, "e_has_child_max": e("max"),
+            "e_has_child_none": e("none"), "f_has_parent": f,
+            "g_parent_id": g, "h_join_aggs": h}
+
+
+def qa_op_timer(dev):
+    """CUDA events around the nested child emit, the whole nested emit,
+    the join's slot pre-pass and its emit (on the main thread, on a
+    card): -> (restore(), {op: [(start, end)]})."""
+    import threading
+    import torch
+    from opensearch_tpu_torch.search import compiler as C, join
+    spans: dict = {}
+    saved = []
+    if dev.type != "cuda":
+        return (lambda: None), spans
+    main = threading.main_thread()
+    for mod, name in ((C, "nested_child_match"), (C, "_emit_nested"),
+                      (join, "join_prepass"), (join, "emit_join")):
+        real = getattr(mod, name)
+
+        def timed(*a, _real=real, _label=name, **kw):
+            if threading.current_thread() is not main:
+                return _real(*a, **kw)
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            out = _real(*a, **kw)
+            s1.record()
+            spans.setdefault(_label, []).append((s0, s1))
+            return out
+        setattr(mod, name, timed)
+        saved.append((mod, name, real))
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return restore, spans
+
+
+def span_ms(spans: dict) -> dict:
+    import torch
+    if spans:
+        torch.cuda.synchronize()
+    return {k: float(sum(a.elapsed_time(b) for a, b in v))
+            for k, v in spans.items()}
+
+
+def run_qa_class(client, name: str, idx: str, bodies, check,
+                 twin=None) -> dict:
+    """One class: its bodies singly on the card (counts set to 0 just
+    before), the pages to the verifier against `check`, the first body
+    on `twin` (the CPU) against the card's: -> bodies/s, p50 / p99 ms,
+    the first body apart, the routes and launches."""
+    from opensearch_tpu_torch.ops import bm25
+    from opensearch_tpu_torch.search import compiler as C
+    from opensearch_tpu_torch.search import fastpath, impactpath
+    sync(client.device)
+    bm25.reset_counts()
+    fastpath.reset_stats()
+    impactpath.reset_stats()
+    C.reset_stats()
+    restore, spans = qa_op_timer(client.device)
+    lat, resps = [], []
+    t0 = time.perf_counter()
+    try:
+        for b in bodies:
+            t1 = time.perf_counter()
+            resps.append(client.search(idx, copy_body(b)))
+            sync(client.device)
+            lat.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    counts = route_counts()
+    if client.device.type == "cuda" and counts["plain_calls"]:
+        raise AssertionError(f"phase 22 {name}: a plain call on the card")
+    out = {"bodies": len(bodies), "bodies_per_s": len(bodies) / wall,
+           "first_ms": lat[0], "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "after_first_per_s": ((len(bodies) - 1)
+                                 / (wall - lat[0] / 1e3)
+                                 if len(bodies) > 1 else None),
+           "counts": counts, "event_ms": span_ms(spans), "ms": lat,
+           "hits": [r["hits"]["total"]["value"] for r in resps]}
+
+    def verify():
+        t2 = time.perf_counter()
+        for j, r in enumerate(resps):
+            check(j, r)
+        out["check_s"] = time.perf_counter() - t2
+        if twin is not None:
+            near_tie_same(twin.search(idx, copy_body(bodies[0])), resps[0],
+                          path=f"phase 22 {name} card == CPU: ")
+    VERIFY.submit(f"phase 22 {name}", verify)
+    log(f"  ({name}) {len(bodies)} bodies: {out['bodies_per_s']:.1f}/s, "
+        f"p50 {out['p50_ms']:.1f} p99 {out['p99_ms']:.1f} ms, first "
+        f"{lat[0]:.1f} ms; B1={counts['launches']} "
+        f"B2={counts['impact_launches']} B3={counts['bool_launches']} "
+        f"general={counts['general']} impact_rung={counts['impact_rung']}"
+        f"; events " + ", ".join(f"{k} {v:.2f} ms"
+                                 for k, v in out["event_ms"].items()))
+    return out
+
+
+def copy_body(b: dict) -> dict:
+    return json.loads(json.dumps(b))
+
+
+def passage_terms(big: dict, docs) -> dict:
+    """doc -> {term id: tf} of corpus passages, read back from the CSR."""
+    starts, doc_ids, tfs = big["corpus"][:3]
+    lut = np.zeros(len(big["corpus"][3]), bool)
+    lut[np.asarray(docs)] = True
+    pos = np.flatnonzero(lut[doc_ids])
+    rows = np.searchsorted(starts, pos, side="right") - 1
+    out: dict = {int(g): {} for g in docs}
+    for p, r in zip(pos.tolist(), rows.tolist()):
+        out[int(doc_ids[p])][r] = int(tfs[p])
+    return out
+
+
+def passage_text(terms: dict, vs) -> str:
+    return " ".join(" ".join([vs[t]] * tf) for t, tf in terms.items())
+
+
+def mlt_items(big: dict, k: int, rng) -> tuple:
+    """(i)'s bodies: `like` a live corpus passage's text rebuilt from the
+    CSR, min_term_freq 1, min_doc_freq 5, max_query_terms 25; every
+    fourth also `unlike` another passage's. -> (bodies, [(like terms,
+    unlike terms)])."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    ix = big["ix"]
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    pool = np.flatnonzero(ix.live[:ix.n0])
+    picks = rng.choice(pool, 2 * k, replace=False)
+    terms = passage_terms(big, picks)
+    bodies, wants = [], []
+    for j in range(k):
+        like = terms[int(picks[j])]
+        body = {"more_like_this": {"fields": ["body"],
+                                   "like": passage_text(like, vs),
+                                   "min_term_freq": 1, "min_doc_freq": 5,
+                                   "max_query_terms": 25}}
+        unlike = {}
+        if j % 4 == 3:
+            unlike = terms[int(picks[k + j])]
+            body["more_like_this"]["unlike"] = passage_text(unlike, vs)
+        bodies.append({"query": body})
+        wants.append((like, unlike))
+    return bodies, wants
+
+
+def ix_df(ix, t: int) -> int:
+    """The doc frequency the statistics count for term t: the row's
+    length, without copying it while every doc is counted; after a
+    compaction its counted docs, kept per (term, statistics)."""
+    if ix.n_stats == ix.n:
+        return (int(ix.starts[t + 1] - ix.starts[t])
+                + len(ix.extra.get(int(t), ((),))[0]))
+    cache = ix.__dict__.setdefault("df_cache", {})
+    key = (int(t), ix.n_stats, ix.n)
+    if key not in cache:
+        cache[key] = len(ix.row(t)[0])
+    return cache[key]
+
+
+def mlt_page(ix, like: dict, unlike: dict, vs, max_terms: int = 25
+             ) -> tuple:
+    """The reference's term selection (tf x idf over the shard's
+    statistics, the best `max_terms` by score then term, 30% of them
+    required) and its BM25 page over the NumpyIndex."""
+    import math
+    n = ix.n_stats
+    scored = []
+    for t, tf in like.items():
+        if t in unlike:
+            continue
+        df = ix_df(ix, t)
+        if df < 5:
+            continue
+        scored.append((tf * math.log(1.0 + (n - df + 0.5) / (df + 0.5)),
+                       vs[t], t))
+    scored.sort(key=lambda x: (-x[0], x[1]))
+    sel = [t for _s, _v, t in scored[:max_terms]]
+    return ix.page(*ix.group(sel, max(int(0.30 * len(sel)), 1)), 0, 10)
+
+
+def alert_queries(big: dict, rng) -> list:
+    """ALERTS stored queries over passage fields, as a saved-search tier
+    holds them: 60% a match of 1-3 body terms, 20% a 2-term match under
+    a status filter, 10% a title phrase of a pair of the title pool, 10%
+    a price range. -> [(query, evaluator kind and arguments)]."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    df = big["corpus"][4]
+    vs = bc.vocab_strings(len(df))
+    # terms in 0.02%-1% of the passages: a saved search's selective words
+    nd = len(big["corpus"][3])
+    mid = np.flatnonzero((df >= nd // 5000) & (df <= nd // 100))
+    title = big["title"]
+    first, second = title[5], title[6]
+    tvs = bc.title_vocab_strings(len(title[0]) - 1)
+    out = []
+    for i in range(ALERTS):
+        u = rng.random()
+        if u < 0.6:
+            ts = rng.choice(mid, int(rng.integers(1, 4)), replace=False)
+            out.append(({"match": {"body": " ".join(vs[t] for t in ts)}},
+                        ("any", set(ts.tolist()))))
+        elif u < 0.8:
+            ts = rng.choice(mid, 2, replace=False)
+            st = int(rng.integers(0, 3))
+            out.append(({"bool": {"must": [{"match": {"body": " ".join(
+                vs[t] for t in ts)}}], "filter": [{"term": {
+                    "status": bc.STATUS_VALUES[st]}}]}},
+                ("any_status", set(ts.tolist()), st)))
+        elif u < 0.9:
+            p = int(rng.integers(0, len(first)))
+            a, b = tvs[first[p]], tvs[second[p]]
+            out.append(({"match_phrase": {"title": f"{a} {b}"}},
+                        ("phrase", a, b)))
+        else:
+            lo = int(rng.integers(0, 900))
+            hi = lo + int(rng.integers(10, 100))
+            out.append(({"range": {"price": {"gte": lo, "lt": hi}}},
+                        ("price", lo, hi)))
+    return out
+
+
+def alert_matches(kind: tuple, terms: set, title: list, status: int,
+                  price: int) -> bool:
+    if kind[0] == "any":
+        return bool(kind[1] & terms)
+    if kind[0] == "any_status":
+        return bool(kind[1] & terms) and status == kind[2]
+    if kind[0] == "phrase":
+        return any(x == kind[1] and y == kind[2]
+                   for x, y in zip(title, title[1:]))
+    return kind[1] <= price < kind[2]
+
+
+def percolate_docs(big: dict, k: int, rng) -> tuple:
+    """k live corpus passages as percolated documents (body, title,
+    status, price): -> (documents, [(terms, title tokens, status,
+    price)])."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    ix = big["ix"]
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    picks = rng.choice(np.flatnonzero(ix.live[:ix.n0]), k, replace=False)
+    terms = passage_terms(big, picks)
+    src = bc.LazySources(ix.n0, big["title"])
+    status, price = big["columns"]
+    docs, facts = [], []
+    for g in picks.tolist():
+        t = src[g]["title"]
+        docs.append({"body": passage_text(terms[g], vs), "title": t,
+                     "status": bc.STATUS_VALUES[int(status[g])],
+                     "price": int(price[g])})
+        facts.append((set(terms[g]), t.split(), int(status[g]),
+                      int(price[g])))
+    return docs, facts
+
+
+def phase_qa_msmarco(big: dict, n: int, seed: int, card: str,
+                     draws=None) -> dict:
+    """Phase 22 on phase 21's end state: (a)-(d) over `qa`, QA_QUESTIONS
+    questions with nested answers attached as one segment; (e)-(h) over
+    `qa_join`, the first QA_JOIN_QUESTIONS and their answers joined;
+    (i) more_like_this over the corpus index; (j) the percolator over
+    `alerts`, ALERTS stored queries bulked through the write path. Every
+    class against its numpy brute force and one body card == CPU on the
+    verifier; seconds, bodies/s, p50 / p99, routes, launches, the
+    nested / join event ms, the JoinIndex build, candidates a percolated
+    doc, device bytes and host RSS around the phase. The three indices
+    are deleted at its end."""
+    from opensearch_tpu_torch import RestClient, bench_corpus as bc
+    from opensearch_tpu_torch.search import join, percolate
+    client, ix = big["client"], big["ix"]
+    dev = client.device
+    trim_host()
+    sync(dev)
+    t_phase = time.perf_counter()
+    bytes0 = device_bytes(dev)
+    rss0 = rss_bytes()
+    rss_watch = RssPeak().__enter__()
+    rng = np.random.default_rng([seed, 22])
+    out: dict = {"classes": {}}
+    secs: dict = {}
+
+    # (i) more_like_this over the corpus index ("related passages"),
+    # first: its checks run on the verifier beside the Q&A classes, and
+    # it needs no Q&A draw
+    t0 = time.perf_counter()
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    bodies, wants = mlt_items(big, n, rng)
+    secs["i_texts"] = time.perf_counter() - t0
+    eng = client._indices["bench"].engine
+    cpu = RestClient(device="cpu")
+    cpu.indices.create("bench", BENCH_MAPPING)
+    cpu._indices["bench"].engine.segments = list(eng.segments)
+    share_with_verifier(eng.segments)
+
+    def mlt_check(j, r):
+        check_page(r, mlt_page(ix, *wants[j], vs), f"phase 22 (i) {j}")
+    out["classes"]["i_more_like_this"] = run_qa_class(
+        client, "i_more_like_this", "bench", bodies, mlt_check, cpu)
+    secs["i_more_like_this"] = time.perf_counter() - t0
+    big["qa_mlt"] = (bodies[:MLT_MERGED], wants[:MLT_MERGED])
+
+    t0 = time.perf_counter()
+    d, out["draw_s"] = draws.result() if draws else qa_draw(seed)
+    secs["draw_wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    attach_qa(client, bc.qa_segment(d, QA_QUESTIONS, device=dev),
+              bc.qa_join_segment(d, QA_JOIN_QUESTIONS, device=dev))
+    secs["attach"] = time.perf_counter() - t0
+    segs = [client._indices[i].engine.segments[0] for i in ("qa", "qa_join")]
+    segs += [b.child for b in segs[0].nested.values()]
+    share_with_verifier(segs)
+    twin = RestClient(device="cpu")
+    attach_qa(twin, *(client._indices[i].engine.segments[0]
+                      for i in ("qa", "qa_join")))
+    items = qa_items(d, QA_QUESTIONS, QA_JOIN_QUESTIONS, n, rng)
+    checks = qa_checks(
+        items, once(lambda: QaOracle(d, QA_QUESTIONS, QA_JOIN_QUESTIONS)),
+        once(lambda: qa_title_scorer(d, QA_QUESTIONS)))
+    na = int(d["ans_starts"][QA_QUESTIONS])
+    jna = int(d["ans_starts"][QA_JOIN_QUESTIONS])
+    log(f"  qa: {QA_QUESTIONS} questions, {na} answers drawn in "
+        f"{out['draw_s']:.1f}s beside phase 21 (waited "
+        f"{secs['draw_wait']:.1f}s), attached with their NestedBlock (and "
+        f"qa_join: {QA_JOIN_QUESTIONS} questions + {jna} answers) in "
+        f"{secs['attach']:.1f}s")
+    join.clear_cache()
+    for name, (idx, bodies, _c) in items.items():
+        t0 = time.perf_counter()
+        out["classes"][name] = run_qa_class(client, name, idx, bodies,
+                                            checks[name], twin)
+        if name.startswith("e_has_child_max"):
+            out["join_index_build_s"] = join.LAST_BUILD_S[0]
+        secs[name] = time.perf_counter() - t0
+    log(f"  JoinIndex build {out.get('join_index_build_s', 0.0):.2f}s "
+        f"over {QA_JOIN_QUESTIONS + jna} docs")
+
+    # (j) the percolator ("alerting and saved-search notification")
+    t0 = time.perf_counter()
+    queries = alert_queries(big, rng)
+    client.indices.create("alerts", {"settings": ONE_SHARD, "mappings": {
+        "properties": {"query": {"type": "percolator"},
+                       "body": {"type": "text"}, "title": {"type": "text"},
+                       "status": {"type": "keyword"},
+                       "price": {"type": "integer"}}}})
+    client.bulk(sum([[{"index": {"_index": "alerts", "_id": f"a{i:05d}"}},
+                      {"query": q}] for i, (q, _k) in enumerate(queries)],
+                    []), refresh=True)
+    secs["j_bulk"] = time.perf_counter() - t0
+    docs, facts = percolate_docs(big, PERC_DOCS, rng)
+    cands: list = []
+    want: list = []
+
+    def matched():
+        """The stored queries each document matches (numpy), once."""
+        if not want:
+            want.extend([f"a{i:05d}" for i, (_q, kind) in enumerate(queries)
+                         if alert_matches(kind, *f)] for f in facts)
+        return want
+
+    def perc_check(j, r):
+        got = [h["_id"] for h in r["hits"]["hits"]]
+        w = matched()[j]
+        if got != w or r["hits"]["total"]["value"] != len(w):
+            raise AssertionError(f"phase 22 (j) {j}: {len(got)} ids != "
+                                 f"{len(w)}")
+    pbodies = [{"query": {"percolate": {"field": "query", "document": doc}},
+                "size": ALERTS} for doc in docs]
+    real_mask = percolate.segment_mask
+
+    def counted_mask(*a, **kw):
+        m = real_mask(*a, **kw)
+        cands.append(percolate.LAST_CANDIDATES[0])
+        return m
+    percolate.segment_mask = counted_mask
+    try:
+        out["classes"]["j_percolate"] = run_qa_class(
+            client, "j_percolate", "alerts", pbodies, perc_check,
+            twin_alerts(client))
+        t1 = time.perf_counter()
+        resp = client.search("alerts", {"query": {"percolate": {
+            "field": "query", "documents": docs}}, "size": ALERTS})
+        multi_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        percolate.segment_mask = real_mask
+    got = {h["_id"]: h["fields"]["_percolator_document_slot"]
+           for h in resp["hits"]["hits"]}
+
+    def check_slots():
+        slots = {}
+        for j, ids in enumerate(matched()):
+            for a in ids:
+                slots.setdefault(a, []).append(j)
+        if got != slots:
+            raise AssertionError(f"phase 22 (j) documents: {len(got)} hits "
+                                 f"!= {len(slots)}")
+    VERIFY.submit("phase 22 (j) documents", check_slots)
+    out["classes"]["j_percolate"].update(
+        candidates_per_doc=float(np.mean(cands[:PERC_DOCS])),
+        documents_body_ms=multi_ms, documents_hits=len(got),
+        documents_candidates=cands[-1] if len(cands) > PERC_DOCS else None)
+    secs["j_percolate"] = time.perf_counter() - t0
+    log(f"  (j) {ALERTS} stored queries bulked in {secs['j_bulk']:.1f}s; "
+        f"{out['classes']['j_percolate']['candidates_per_doc']:.0f} "
+        f"candidates a document; one body of {PERC_DOCS} documents "
+        f"{multi_ms:.1f} ms, {len(got)} hits (their slots against numpy's "
+        f"on the verifier)")
+
+    drain_log("phase 22")
+    for name in ("qa", "qa_join", "alerts"):
+        client.indices.delete(name)
+    del twin, cpu, items, checks, d, segs, queries, docs, facts, want
+    join.clear_cache()
+    drop_cpu_state(eng.segments)
+    gc.collect()
+    trim_host()
+    sync(dev)
+    rss_watch.__exit__()
+    out.update(seconds=time.perf_counter() - t_phase, class_s=secs,
+               device_bytes_start=bytes0,
+               device_bytes_peak=device_peak(dev),
+               device_bytes_end=device_bytes(dev),
+               rss_start=rss0[0], rss_peak=rss_watch.peak,
+               rss_end=rss_bytes()[0])
+    if out["rss_end"] - out["rss_start"] > 1 << 30:
+        raise AssertionError(f"phase 22: host RSS {out['rss_end']} more "
+                             f"than 1 GB above its start {out['rss_start']}")
+    if out["device_bytes_end"] - bytes0 > 64 << 20:
+        raise AssertionError(f"phase 22: device bytes "
+                             f"{out['device_bytes_end']} more than 64 MiB "
+                             f"above its start {bytes0}")
+    log(f"  phase 22 ({card}): {out['seconds']:.1f}s; device bytes start "
+        f"{bytes0}, end {out['device_bytes_end']}; host RSS start "
+        f"{out['rss_start']}, peak {out['rss_peak']}, end {out['rss_end']}")
+    return out
+
+
+def twin_alerts(client):
+    """A CPU client over the card's `alerts` segments."""
+    from opensearch_tpu_torch import RestClient
+    cpu = RestClient(device="cpu")
+    cpu.indices.create("alerts", {"settings": ONE_SHARD,
+                                  "mappings": client._indices["alerts"]
+                                  .engine.mappings.to_dict()})
+    segs = client._indices["alerts"].engine.segments
+    share_with_verifier(segs)
+    cpu._indices["alerts"].engine.segments = list(segs)
+    return cpu
+
+
+def qa_launches(qa: dict, key: str) -> int:
+    """Phase 22's and 22m's launches of one kernel."""
+    return (sum(c["counts"][key] for c in qa["classes"].values())
+            + qa["merged"]["counts"][key])
+
+
+def phase_qa_merged(big: dict) -> dict:
+    """22m: (i)'s first MLT_MERGED bodies on phase 8's merged corpus
+    segment against the brute force with the writes applied; a group of
+    25 terms is past the kernels' MAX_T = 8 slots (the impact rung
+    serves it), so the same bodies run again with max_query_terms 8,
+    which the kernels serve."""
+    from opensearch_tpu_torch import bench_corpus as bc
+    client, ix = big["client"], big["ix"]
+    bodies, wants = big.pop("qa_mlt")
+    vs = bc.vocab_strings(len(big["corpus"][4]))
+    t0 = time.perf_counter()
+    out = {}
+    for nt in (25, 8):
+        def check(j, r, nt=nt):
+            check_page(r, mlt_page(ix, *wants[j], vs, nt),
+                       f"phase 22m (i) {nt} terms {j}")
+        bs = [{"query": {"more_like_this": {
+            **b["query"]["more_like_this"], "max_query_terms": nt}}}
+            for b in bodies]
+        out[f"terms_{nt}"] = run_qa_class(
+            client, f"i_more_like_this merged, {nt} terms", "bench", bs,
+            check)
+    drain_log("phase 22m")
+    out["seconds"] = time.perf_counter() - t0
+    out["counts"] = {k: sum(out[f"terms_{nt}"]["counts"][k]
+                            for nt in (25, 8))
+                     for k in out["terms_8"]["counts"]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ndocs", type=int, default=NDOCS_MSMARCO)
@@ -11831,17 +13004,26 @@ def main() -> int:
                     help="phase-18 bodies per class")
     ap.add_argument("--geo-queries", type=int, default=GEO_QUERIES,
                     help="phase-20 bodies per class")
+    ap.add_argument("--qa-queries", type=int, default=32,
+                    help="phase-22 bodies per class ((j) percolates 64 "
+                    "documents)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="end after this phase (3 to 21; they run 3, 4, 5, "
+                    help="end after this phase (3 to 22; they run 3, 4, 5, "
                     "6, 9, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, "
-                    "21, 8); no result line")
+                    "21, 22, 8); no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     draws = HostDraws(args.ndocs) if args.stop_after not in (3, 4) else None
+    time_checks()
+    # the verifier thread's brute forces are many short numpy calls: at
+    # the default 5 ms switch interval each waits that long for the
+    # interpreter lock while the main thread plans in Python (40x slower
+    # in a measured loop, 5x at 0.5 ms)
+    sys.setswitchinterval(VERIFY_SWITCH_S)
     from opensearch_tpu_torch.ops import _build
     t_start = time.perf_counter()
 
@@ -11904,6 +13086,7 @@ def main() -> int:
     ft_small = phase_fields_small(rng(11))
     sc_small = phase_scripts_small(rng(12))
     geo_small = phase_geo_small(rng(13))
+    qa_small = phase_qa_small(rng(14))
     if args.stop_after == 4:
         return 0
 
@@ -11915,12 +13098,14 @@ def main() -> int:
     if args.queries < 2048:
         log(f"  cut: {args.queries} match queries (2048 uncut), so that "
             f"phases 6-12 fit the same time limit")
+    CHECK_PHASE[0] = "5"
     big = phase_msmarco(args.ndocs, args.queries, draws)
     if args.stop_after == 5:
         return 0
 
     log(f"[6] bool traffic at MS MARCO passage scale (ndocs={args.ndocs})"
         + at(t_start))
+    CHECK_PHASE[0] = "6"
     bools = phase_bool_msmarco(big, args.bool_queries)
     if args.stop_after == 6:
         return 0
@@ -11934,6 +13119,7 @@ def main() -> int:
             f"(1024 uncut) and {args.phrase_sloppy} sloppy and prefix "
             f"bodies (64), so that phases 7-8, 13, 15 and 16 fit the same "
             f"time limit")
+    CHECK_PHASE[0] = "9"
     phrase = phase_phrase_msmarco(big, bools, args.phrase_queries,
                                   args.phrase_sloppy, n_mixed)
     if args.stop_after == 9:
@@ -11944,6 +13130,7 @@ def main() -> int:
     if args.general_queries < 64:
         log(f"  cut: {args.general_queries} bodies a class (64 uncut), so "
             f"that phases 8, 11, 13 and 15 fit the same time limit")
+    CHECK_PHASE[0] = "7"
     general = phase_general_msmarco(big, args.general_queries)
     if args.stop_after == 7:
         return 0
@@ -11953,6 +13140,7 @@ def main() -> int:
     if args.agg_queries < 16:
         log(f"  cut: {args.agg_queries} bodies a class (16 uncut), so "
             f"that phases 13 and 16 fit the same time limit")
+    CHECK_PHASE[0] = "10"
     aggs = phase_aggs_msmarco(big, args.agg_queries)
     if args.stop_after == 10:
         return 0
@@ -11963,6 +13151,7 @@ def main() -> int:
     if args.sort_queries < 16:
         log(f"  cut: {args.sort_queries} bodies a class (16 uncut), so "
             f"that phase 13 fits the same time limit")
+    CHECK_PHASE[0] = "11"
     sort = phase_sort_msmarco(big, args.sort_queries)
     if args.stop_after == 11:
         return 0
@@ -11974,6 +13163,7 @@ def main() -> int:
     if args.expand_queries < 8:
         log(f"  cut: {args.expand_queries} bodies a class (8 uncut), so "
             f"that phases 13 and 16 fit the same time limit")
+    CHECK_PHASE[0] = "12"
     expand = phase_expand_msmarco(big, args.expand_queries)
     if args.stop_after == 12:
         return 0
@@ -11986,6 +13176,7 @@ def main() -> int:
     if args.compound_queries < 8:
         log(f"  cut: {args.compound_queries} bodies a class (8 uncut), so "
             f"that phases 15 and 16 fit the same time limit")
+    CHECK_PHASE[0] = "13"
     compound = phase_compound_msmarco(big, args.compound_queries)
     if args.stop_after == 13:
         return 0
@@ -11995,6 +13186,7 @@ def main() -> int:
         f"validate_query, field_caps, the index reads, a scroll and a point "
         f"in time) at MS MARCO passage scale (ndocs={args.ndocs}), on phase "
         f"7's end state; the rescore classes after phase 8" + at(t_start))
+    CHECK_PHASE[0] = "14"
     options = phase_options_msmarco(big, args.context_queries)
     if args.stop_after == 14:
         return 0
@@ -12008,6 +13200,7 @@ def main() -> int:
     if args.longtail_queries < 4:
         log(f"  cut: {args.longtail_queries} bodies a class (4 uncut), so "
             f"that phase 16 fits the same time limit")
+    CHECK_PHASE[0] = "15"
     longtail = phase_longtail_msmarco(big, args.longtail_queries)
     if args.stop_after == 15:
         return 0
@@ -12016,6 +13209,7 @@ def main() -> int:
         f"search (RRF, linear min_max / l2) at MS MARCO passage scale "
         f"(ndocs={args.ndocs}, {VEC_DIMS} dims), on phase 7's end state; "
         f"classes (a), (b), (e) again after phase 8" + at(t_start))
+    CHECK_PHASE[0] = "16"
     vectors = phase_vectors_msmarco(big, args.vector_queries, args.seed)
     vectors["small"] = vec_small
     if args.stop_after == 16:
@@ -12070,15 +13264,35 @@ def main() -> int:
     log(f"  cut: (d)'s index holds the first {RESIZE_DOCS} passages "
         f"(not {args.ndocs}): a resize re-indexes every document through "
         f"the host write path, as the reference's does")
+    qa_draws = (ThreadPoolExecutor(1).submit(qa_draw, args.seed)
+                if args.stop_after != 21 else None)
     admin = phase_admin_msmarco(big, bools, RESIZE_DOCS, args.seed,
                                 smi[0])
     if args.stop_after == 21:
+        return 0
+
+    log(f"[22] nested objects, the parent-child join, more_like_this and "
+        f"the percolator (OpenSearch Benchmark's nested and percolator "
+        f"workloads' shapes, drawn from the seed) beside the corpus "
+        f"(ndocs={args.ndocs}), on phase 21's end state; class (i) again "
+        f"after phase 8" + at(t_start))
+    log(f"  cut: qa holds {QA_QUESTIONS} questions (the nested workload's "
+        f"~11.2M), qa_join its first {QA_JOIN_QUESTIONS}, alerts {ALERTS} "
+        f"stored queries (the percolator workload's millions): host memory "
+        f"and the run's limit")
+    CHECK_PHASE[0] = "22"
+    qa = phase_qa_msmarco(big, args.qa_queries, args.seed, smi[0],
+                          qa_draws)
+    qa_draws = None     # the future holds the draw: it goes with phase 22
+    qa["small"] = qa_small
+    if args.stop_after == 22:
         return 0
 
     log(f"[8] deletes, updates and a forced merge at MS MARCO passage "
         f"scale (ndocs={args.ndocs})" + at(t_start))
     log("  cut: no flush and recovery at this size (about 6 GB to write "
         "and read, and the heads' build again); phase 4 runs them small")
+    CHECK_PHASE[0] = "8"
     writes = phase_writes_msmarco(big, rng(8))
     log("[11f] class (f), a results page with snippets, on phase 8's "
         "merged segment (the kernels decline a segment with deletes)"
@@ -12127,7 +13341,11 @@ def main() -> int:
     gm = {k: v["counts"] for k, v in geo["merged"]["classes"].items()}
     log("[21m] phase 21's class (a), through the alias and by name, on "
         "phase 8's merged segment" + at(t_start))
+    CHECK_PHASE[0] = "8m"
     admin["merged"] = phase_admin_merged(big)
+    log("[22m] phase 22's class (i), more_like_this, on phase 8's merged "
+        "segment (the kernels serve it)" + at(t_start))
+    qa["merged"] = phase_qa_merged(big)
 
     def admin_launches(key: str) -> int:
         """Phase 21's launches of one kernel: (a) before and after the
@@ -12142,6 +13360,9 @@ def main() -> int:
         return sum(c[key] for c in runs)
 
     drain_log("the run")
+    log("  checks on the main thread (brute forces and comparisons, the "
+        "CPU twins aside), seconds by phase: " + ", ".join(
+            f"[{k}] {v:.1f}" for k, v in CHECK_S.items()))
     log(f"  the verifier: {VERIFY.busy_s:.1f}s of checks on its thread, "
         f"{VERIFY.wait_s:.1f}s of them waited for at the phases' ends")
     kernels = [{
@@ -12160,6 +13381,7 @@ def main() -> int:
         "launches_scripts": sum(c["launches"] for c in scm.values()),
         "launches_geo": sum(c["launches"] for c in gm.values()),
         "launches_admin": admin_launches("launches"),
+        "launches_qa": qa_launches(qa, "launches"),
         "max_abs_err": max(grid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b1"]), "bound_by": "bytes",
@@ -12178,6 +13400,7 @@ def main() -> int:
         "launches_scripts": sum(c["impact_launches"] for c in scm.values()),
         "launches_geo": sum(c["impact_launches"] for c in gm.values()),
         "launches_admin": admin_launches("impact_launches"),
+        "launches_qa": qa_launches(qa, "impact_launches"),
         "max_abs_err": max(igrid["max_abs_err"], egrid["max_abs_err"],
                            big["max_abs_err"]),
         **times(big["b2"]), "bound_by": "bytes",
@@ -12195,6 +13418,7 @@ def main() -> int:
         "launches_scripts": sum(c["bool_launches"] for c in scm.values()),
         "launches_geo": sum(c["bool_launches"] for c in gm.values()),
         "launches_admin": admin_launches("bool_launches"),
+        "launches_qa": qa_launches(qa, "bool_launches"),
         "max_abs_err": max(bgrid["max_abs_err"], pgrid["max_abs_err"],
                            egrid["max_abs_err"], bools["max_abs_err"]),
         **times(bools["b3"]), "bound_by": "bytes",
@@ -12239,6 +13463,11 @@ def main() -> int:
     print(json.dumps({"scripts": scripts}), flush=True)
     print(json.dumps({"geo": geo}), flush=True)
     print(json.dumps({"admin": admin}), flush=True)
+    print(json.dumps({"qa": qa}), flush=True)
+    print(json.dumps({"margin": {"check_s": CHECK_S, "drain_s": DRAIN_S,
+                                 "verify_busy_s": VERIFY.busy_s,
+                                 "verify_wait_s": VERIFY.wait_s}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,12 @@ columns (`agg_columns`): a `date` `ts` over 2024 and a `double`
 third configuration has it: 8 tokens a passage, 4 bigrams from a
 2,000-pair Zipf(1.3) pool over 1,000 terms; the phrase and mixed bodies
 are bench.py's.
+
+The Q&A corpus (`qa_draws`) follows OpenSearch Benchmark's `nested`
+workload's schema: questions with a title, tags, a user and a
+creationDate, and nested answers with a user and a date;
+`qa_segment` attaches it as one segment with its answers' NestedBlock,
+`qa_join_segment` as questions and answers joined by a `join` field.
 """
 
 from __future__ import annotations
@@ -552,3 +558,298 @@ def geo_columns(ndocs: int, seed: int = 20) -> dict:
                                  + np.round(days * DAY_MS).astype(np.int64),
                                  0),
             "valid_present": vpresent}
+
+
+# ---------------------------------------------------------------------
+# the Q&A corpus: OpenSearch Benchmark's `nested` workload's schema
+# (StackOverflow questions with nested answers), drawn from a seed
+# ---------------------------------------------------------------------
+
+QA_TITLE_VOCAB = 30_000
+QA_TAGS = 20_000
+QA_USERS = 1_000_000
+QA_DATES = (1_199_145_600_000, 1_514_764_800_000)   # 2008-01-01, 2018-01-01
+QA_ANSWER_MEAN = 1.6
+QA_ANSWER_LAG_DAYS = 90.0
+QA_MAPPING = {"properties": {
+    "qid": {"type": "keyword"}, "title": {"type": "text"},
+    "tag": {"type": "keyword"}, "user": {"type": "keyword"},
+    "creationDate": {"type": "date"},
+    "answers": {"type": "nested", "properties": {
+        "user": {"type": "keyword"}, "date": {"type": "date"}}}}}
+QA_JOIN_MAPPING = {"properties": {
+    "rel": {"type": "join", "relations": {"question": "answer"}},
+    "tag": {"type": "keyword"}, "creationDate": {"type": "date"},
+    "user": {"type": "keyword"}, "date": {"type": "date"}}}
+
+
+def _zipf_choice(rng, n: int, size: int, a: float = 1.1) -> np.ndarray:
+    p = np.arange(1, n + 1, dtype=np.float64) ** -a
+    return rng.choice(n, size, p=p / p.sum())
+
+
+def qa_draws(n: int, seed: int = 22) -> dict:
+    """n questions drawn from `seed`: a title of 8-12 tokens (Zipf(1.1)
+    over QA_TITLE_VOCAB words), 1-5 distinct tags (Zipf(1.1) over
+    QA_TAGS), a user (Zipf(1.1) over QA_USERS), a creationDate uniform
+    over 2008-2017 (epoch ms) and a geometric count of answers of mean
+    QA_ANSWER_MEAN, each with a user and a date on or after the
+    question's (an exponential lag of QA_ANSWER_LAG_DAYS days). -> {
+    "title_starts", "title_tok", "tag_starts", "tag" (sorted within a
+    question), "user", "date", "ans_starts", "ans_user", "ans_date"}."""
+    rng = np.random.default_rng(seed)
+    tlen = rng.integers(8, 13, n)
+    title_starts = np.zeros(n + 1, np.int64)
+    np.cumsum(tlen, out=title_starts[1:])
+    title_tok = _zipf_choice(rng, QA_TITLE_VOCAB, int(title_starts[-1]))
+    ntag = rng.integers(1, 6, n)
+    tag_doc = np.repeat(np.arange(n, dtype=np.int64), ntag)
+    pairs = np.unique(tag_doc * QA_TAGS
+                      + _zipf_choice(rng, QA_TAGS, len(tag_doc)))
+    tag_starts = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(pairs // QA_TAGS, minlength=n), out=tag_starts[1:])
+    user = _zipf_choice(rng, QA_USERS, n)
+    date = rng.integers(*QA_DATES, n, dtype=np.int64)
+    nans = rng.geometric(1.0 / (1.0 + QA_ANSWER_MEAN), n) - 1
+    ans_starts = np.zeros(n + 1, np.int64)
+    np.cumsum(nans, out=ans_starts[1:])
+    na = int(ans_starts[-1])
+    ans_user = _zipf_choice(rng, QA_USERS, na)
+    lag = rng.exponential(QA_ANSWER_LAG_DAYS * DAY_MS, na).astype(np.int64)
+    return {"n": n, "title_starts": title_starts, "title_tok": title_tok,
+            "tag_starts": tag_starts, "tag": pairs % QA_TAGS, "user": user,
+            "date": date, "ans_starts": ans_starts, "ans_user": ans_user,
+            "ans_date": np.repeat(date, nans) + lag}
+
+
+def qa_word(i: int) -> str:
+    return f"w{i:05d}"
+
+
+def qa_tag(i: int) -> str:
+    return f"tag{i:05d}"
+
+
+def qa_user(i: int) -> str:
+    return f"u{i:07d}"
+
+
+def qa_id(i: int) -> str:
+    return f"{i:08d}"
+
+
+class PaddedIds:
+    """Doc ids qa_id(i), materialized on demand; their order is the
+    docs' (sorted vocabularies of ids stay in doc order)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return qa_id(int(i))
+
+    def find(self, doc_id: str) -> int:
+        ok = len(doc_id) == 8 and doc_id.isdigit()
+        return int(doc_id) if ok and int(doc_id) < self.n else -1
+
+
+def qa_source(d: dict, i: int) -> dict:
+    """Question i's `_source` as a bulk request carries it."""
+    a, b = int(d["ans_starts"][i]), int(d["ans_starts"][i + 1])
+    t0, t1 = int(d["title_starts"][i]), int(d["title_starts"][i + 1])
+    g0, g1 = int(d["tag_starts"][i]), int(d["tag_starts"][i + 1])
+    return {"qid": qa_id(i),
+            "title": " ".join(qa_word(int(w)) for w in d["title_tok"][t0:t1]),
+            "tag": [qa_tag(int(t)) for t in d["tag"][g0:g1]],
+            "user": qa_user(int(d["user"][i])),
+            "creationDate": int(d["date"][i]),
+            "answers": [{"user": qa_user(int(d["ans_user"][j])),
+                         "date": int(d["ans_date"][j])} for j in range(a, b)]}
+
+
+class QaSources:
+    """The questions' (or, with `answers`, the answers') sources,
+    materialized on demand."""
+
+    def __init__(self, d: dict, n: int, answers: bool = False):
+        self.d, self.n, self.answers = d, n, answers
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        i = int(i)
+        if self.answers:
+            return {"user": qa_user(int(self.d["ans_user"][i])),
+                    "date": int(self.d["ans_date"][i])}
+        return qa_source(self.d, i)
+
+
+def _field(rows: np.ndarray, docs: np.ndarray, ndocs: int, names,
+           positions: np.ndarray = None, keyword: bool = True) -> tuple:
+    """(CSR postings, keyword column or None) of one field from its
+    (value row, doc) occurrences, given in doc order (docs nondecreasing,
+    a doc's rows ascending unless `positions` is given, a doc's positions
+    ascending): the postings' rows and the column's vocab are the rows
+    present, `names(row)` each, in row order (which sorts the names);
+    repeats are tf; without `positions` the all-empty positions of a
+    keyword field."""
+    rows = np.asarray(rows, np.int64)
+    docs = np.asarray(docs, np.int64)
+    counts = np.bincount(rows) if len(rows) else np.zeros(1, np.int64)
+    present = np.flatnonzero(counts)
+    remap = np.cumsum(counts > 0) - 1
+    ords = remap[rows]
+    vocab = [names(int(r)) for r in present]
+    # row-major order, docs (and a doc's positions) kept in order: a
+    # stable sort of the row ordinals (a radix sort below 2^16 rows)
+    small = np.uint16 if len(present) < (1 << 16) else np.uint32
+    order = np.argsort(ords.astype(small), kind="stable")
+    r, dd = ords[order], docs[order]
+    new = np.ones(len(r), bool)
+    new[1:] = (r[1:] != r[:-1]) | (dd[1:] != dd[:-1])
+    first = np.flatnonzero(new)
+    tf = np.diff(np.append(first, len(r)))
+    starts = np.zeros(len(present) + 1, np.int64)
+    np.cumsum(np.bincount(r[first], minlength=len(present)), out=starts[1:])
+    post = {"vocab": vocab, "starts": starts,
+            "doc_ids": dd[first].astype(np.int32),
+            "tfs": tf.astype(np.float32),
+            "pos_starts": np.zeros(len(first) + 1, np.int64),
+            "positions": np.zeros(0, np.int32)}
+    if positions is not None:
+        np.cumsum(tf, out=post["pos_starts"][1:])
+        post["positions"] = np.asarray(positions)[order].astype(np.int32)
+    if not keyword:
+        return post, None
+    kstarts = np.zeros(ndocs + 1, np.int64)
+    np.cumsum(np.bincount(docs, minlength=ndocs), out=kstarts[1:])
+    min_ord = np.full(ndocs, -1, np.int32)
+    has = kstarts[1:] > kstarts[:-1]
+    min_ord[has] = ords[kstarts[:-1][has]]
+    return post, {"vocab": vocab, "starts": kstarts,
+                  "ords": ords.astype(np.int32),
+                  "doc_of_value": docs.astype(np.int32), "min_ord": min_ord}
+
+
+def qa_segment(d: dict, n: int, device=None, name: str = "qa0"):
+    """The first n questions of a draw as one attached segment of the
+    `nested` mapping (QA_MAPPING) with its answers' NestedBlock: the
+    arrays a bulk of qa_source(d, i) and a refresh build."""
+    docs = np.arange(n, dtype=np.int64)
+    tcount = np.diff(d["title_starts"][:n + 1])
+    t1 = int(d["title_starts"][n])
+    tdoc = np.repeat(docs, tcount)
+    tpos = np.arange(t1, dtype=np.int64) - np.repeat(
+        d["title_starts"][:n], tcount)
+    g1 = int(d["tag_starts"][n])
+    gdoc = np.repeat(docs, np.diff(d["tag_starts"][:n + 1]))
+    postings, keyword = {}, {}
+    postings["title"], _ = _field(d["title_tok"][:t1], tdoc, n, qa_word,
+                                  tpos, keyword=False)
+    for f, rows, fdocs, names in (("tag", d["tag"][:g1], gdoc, qa_tag),
+                                  ("user", d["user"][:n], docs, qa_user),
+                                  ("qid", docs, docs, qa_id)):
+        postings[f], keyword[f] = _field(rows, fdocs, n, names)
+    numeric = {"creationDate": {"kind": "int", "values": d["date"][:n],
+                                "present": np.ones(n, bool)}}
+    acount = np.diff(d["ans_starts"][:n + 1])
+    na = int(d["ans_starts"][n])
+    adocs = np.arange(na, dtype=np.int64)
+    apost, akw = _field(d["ans_user"][:na], adocs, na, qa_user)
+    child = segment_from_arrays(
+        f"{name}/answers", na, {"answers.user": apost}, {}, {},
+        ChildIds(d, n), QaSources(d, na, answers=True),
+        keyword_cols={"answers.user": akw},
+        numeric_cols={"answers.date": {"kind": "int",
+                                       "values": d["ans_date"][:na],
+                                       "present": np.ones(na, bool)}},
+        device=device)
+    return segment_from_arrays(
+        name, n, postings, {"title": tcount}, {"title": (n, t1)},
+        PaddedIds(n), QaSources(d, n), numeric_cols=numeric,
+        keyword_cols=keyword,
+        nested={"answers": (child, np.repeat(docs, acount))},
+        device=device)
+
+
+class ChildIds:
+    """The answers' doc ids ("<question id>#answers#<k>"), on demand."""
+
+    def __init__(self, d: dict, n: int):
+        self.starts = d["ans_starts"][:n + 1]
+        self.n = int(self.starts[-1])
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, j):
+        p = int(np.searchsorted(self.starts, int(j), side="right")) - 1
+        return f"{qa_id(p)}#answers#{int(j) - int(self.starts[p])}"
+
+
+def qa_join_segment(d: dict, m: int, device=None, name: str = "qj0"):
+    """The first m questions (docs 0..m-1, relation `question`, their
+    tags and creationDate) and their answers (docs m.., relation
+    `answer` under their question, its user and date) as one attached
+    segment of QA_JOIN_MAPPING: what a bulk of them, each answer routed
+    to its question, and a refresh build."""
+    na = int(d["ans_starts"][m])
+    n = m + na
+    qdocs = np.arange(m, dtype=np.int64)
+    adocs = np.arange(m, n, dtype=np.int64)
+    parent = np.repeat(qdocs, np.diff(d["ans_starts"][:m + 1]))
+    rel = np.concatenate([np.ones(m, np.int64), np.zeros(na, np.int64)])
+    alldocs = np.arange(n, dtype=np.int64)
+    g1 = int(d["tag_starts"][m])
+    gdoc = np.repeat(qdocs, np.diff(d["tag_starts"][:m + 1]))
+
+    def rel_name(r):
+        return ("answer", "question")[r]
+    postings, keyword = {}, {}
+    for f, rows, fdocs, names in (
+            ("rel", rel, alldocs, rel_name),
+            ("rel#parent", parent, adocs, qa_id),
+            ("tag", d["tag"][:g1], gdoc, qa_tag),
+            ("user", d["ans_user"][:na], adocs, qa_user)):
+        postings[f], keyword[f] = _field(rows, fdocs, n, names)
+    numeric = {f: {"kind": "int",
+                   "values": np.concatenate([a, b]).astype(np.int64),
+                   "present": np.concatenate([pa, pb])}
+               for f, a, b, pa, pb in (
+                   ("creationDate", d["date"][:m], np.zeros(na, np.int64),
+                    np.ones(m, bool), np.zeros(na, bool)),
+                   ("date", np.zeros(m, np.int64), d["ans_date"][:na],
+                    np.zeros(m, bool), np.ones(na, bool)))}
+    return segment_from_arrays(
+        name, n, postings, {}, {}, PaddedIds(n), QaJoinSources(d, m),
+        numeric_cols=numeric, keyword_cols=keyword, device=device)
+
+
+def qa_join_source(d: dict, m: int, i: int) -> dict:
+    """Doc i of qa_join_segment's order as a bulk request carries it."""
+    if i < m:
+        g0, g1 = int(d["tag_starts"][i]), int(d["tag_starts"][i + 1])
+        return {"rel": "question",
+                "tag": [qa_tag(int(t)) for t in d["tag"][g0:g1]],
+                "creationDate": int(d["date"][i])}
+    j = i - m
+    p = int(np.searchsorted(d["ans_starts"], j, side="right")) - 1
+    return {"rel": {"name": "answer", "parent": qa_id(p)},
+            "user": qa_user(int(d["ans_user"][j])),
+            "date": int(d["ans_date"][j])}
+
+
+class QaJoinSources:
+    def __init__(self, d: dict, m: int):
+        self.d, self.m = d, m
+        self.n = m + int(d["ans_starts"][m])
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return qa_join_source(self.d, self.m, int(i))

@@ -8,7 +8,8 @@ values (each NumericColumn's kind, values and present mask, each
 KeywordColumn's vocab and ordinal arrays), its dense vectors (each
 VectorColumn's values, present mask, similarity and method) and its geo
 fields (each GeoColumn's lat, lon and present mask, each ShapeColumn's
-specs, bounding boxes and present mask), so a
+specs, bounding boxes and present mask) and its nested blocks (each
+path's child segment, built here the same way, and its parent map), so a
 segment built there (or a CSR corpus made from a seed, as
 `bench_corpus.py` does) carries across without re-indexing.
 """
@@ -21,7 +22,7 @@ import numpy as np
 
 from ..errors import NotPortedError
 from .segment import (CODEC_V2, GeoColumn, ImpactPlane, KeywordColumn,
-                      NumericColumn, PostingsBlock, Segment, ShapeColumn,
+                      NestedBlock, NumericColumn, PostingsBlock, Segment, ShapeColumn,
                       TextFieldStats, VectorColumn, default_codec_version)
 
 IMPACT_FIELDS = ("q", "scale", "bits", "k1", "b", "avgdl", "dl_max",
@@ -46,6 +47,7 @@ def segment_from_arrays(name: str, ndocs: int,
                         stored_vals: Optional[list] = None,
                         geo_cols: Optional[Dict[str, object]] = None,
                         shape_cols: Optional[Dict[str, object]] = None,
+                        nested: Optional[Dict[str, tuple]] = None,
                         device=None) -> Segment:
     """`postings[field]` = dict(vocab, starts, doc_ids, tfs) in CSR form
     (vocab sorted, docs ascending per row), with `pos_starts` and
@@ -77,7 +79,9 @@ def segment_from_arrays(name: str, ndocs: int,
     segment's ShapeColumn, or a dict of its `specs` (per doc a list of
     GeoJSON / WKT specs, or None), `minx`, `miny`, `maxx`, `maxy` (f64)
     and `present`. A range field's [lo, hi] are numeric columns named
-    `<field>#lo` / `<field>#hi`."""
+    `<field>#lo` / `<field>#hi`. `nested[path]` = (the children's
+    Segment, from this function too, i32 parent doc of each child,
+    nondecreasing)."""
     blocks = {}
     for field, p in postings.items():
         vocab = list(p["vocab"])
@@ -146,7 +150,11 @@ def segment_from_arrays(name: str, ndocs: int,
                   vector_cols=vcols,
                   stored_vals=(list(stored_vals) if stored_vals is not None
                                else None),
-                  geo_cols=gcols, shape_cols=scols)
+                  geo_cols=gcols, shape_cols=scols,
+                  nested={path: NestedBlock(child, np.asarray(parent_of,
+                                                              np.int32))
+                          for path, (child, parent_of)
+                          in (nested or {}).items()})
     seg.ids = ids
     seg.sources = sources
     # a lazy id view is not enumerated: nothing in this slice looks ids up

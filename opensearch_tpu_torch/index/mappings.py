@@ -1,6 +1,6 @@
 """Field mappings and document parsing (a copy of
-opensearch_tpu/index/mappings.py without the nested, join, percolator,
-derived and star_tree fields, which raise `NotPortedError`).
+opensearch_tpu/index/mappings.py without the derived and star_tree
+fields, which raise `NotPortedError`).
 
 Documents are parsed on the host into per-field term lists (text and
 keyword), the token positions of text fields, keyword doc values (the
@@ -52,6 +52,16 @@ path segment; its other conditions are not read, as in the reference)
 fits gives the mapping, else strings map to text + a `.keyword` subfield
 with ignore_above 256, ISO-date strings to `date`, JSON integers to
 `long`, floats to `double` and booleans to `boolean`.
+
+Document structure: a `nested` path's objects parse into child
+documents of the enclosing one (`ParsedDocument.nested`: a deeper nested
+path hangs off its child; `include_in_parent` / `include_in_root`, which
+the reference does not read, raise NotPortedError); a `join` field (one
+an index) indexes its relation as a term and a child's parent id on
+`<field>#parent`, and a child without a routing is a 400; a
+`percolator` field validates its stored query at index time and keeps
+its pre-filter terms in the hidden keyword column `<field>#terms`
+(`search/percolate.extract_index_terms`).
 
 An IPv6 address outside ::ffff:0:0/96 has an integer past i64: the
 reference accepts the document and then fails its refresh with an
@@ -119,7 +129,13 @@ _TYPE_OPTIONS = {
                   "coerce"},
     "flat_object": {"depth_limit"},
     **{t: {"coerce"} for t in RANGE_TYPES},
+    "join": {"relations"},
 }
+# the document-structure types besides objects
+STRUCTURE_TYPES = {"join", "percolator"}
+# a nested object's options that the reference reads no further (it
+# indexes children alone, where OpenSearch copies them into the parent)
+_NESTED_UNREAD = ("include_in_parent", "include_in_root")
 # types a JSON object (or an array of objects) is one value of
 _OBJECT_VALUE_TYPES = GEO_TYPES | SHAPE_TYPES | RANGE_TYPES | {"flat_object"}
 _MAPPING_KEYS = {"properties", "dynamic", "_meta", "dynamic_templates"}
@@ -159,6 +175,8 @@ class FieldType:
     # the synthetic keyword field of a flat_object leaf path: its query
     # terms are "<flat_prefix>=<value>" on `<root>#paths`
     flat_prefix: Optional[str] = None
+    # join: {"parent_relation": ["child_relation", ...]}
+    relations: Dict[str, List[str]] = dc_field(default_factory=dict)
 
     @property
     def has_norms(self) -> bool:
@@ -194,6 +212,10 @@ class ParsedDocument:
         default_factory=dict)
     # geo_shape field -> (spec, bbox) per value
     shapes: Dict[str, List[Any]] = dc_field(default_factory=dict)
+    # nested path -> its objects, each a child document (its fields keep
+    # their full dotted paths; a deeper nested path hangs off its child)
+    nested: Dict[str, List["ParsedDocument"]] = dc_field(
+        default_factory=dict)
 
 
 _ANNOT_RE = re.compile(r"\[([^\]]*)\]\(([^)]+)\)")
@@ -340,6 +362,8 @@ class Mappings:
         self.dynamic = dynamic
         self.dynamic_templates: List[dict] = []
         self._meta: dict = {}
+        self.nested_paths: set = set()
+        self.join_field: Optional[str] = None    # at most one an index
         if mapping:
             self.merge(mapping)
 
@@ -360,15 +384,27 @@ class Mappings:
             if ftype == "alias":
                 self.aliases[path] = cfg["path"]
                 continue
-            if ftype == "object":
+            if ftype in ("object", "nested"):
+                if ftype == "nested":
+                    for key in _NESTED_UNREAD:
+                        if cfg.get(key):
+                            raise NotPortedError(
+                                f"field parameter [{key}] (field [{path}])")
+                    self.nested_paths.add(path)
                 self._merge_props(cfg.get("properties", {}), prefix=f"{path}.")
                 continue
             self.fields[path] = self._build_field(path, ftype, cfg)
+            if ftype == "join":
+                if self.join_field is not None and self.join_field != path:
+                    raise ValueError(
+                        f"only one [join] field can be defined per index, "
+                        f"found [{self.join_field}] and [{path}]")
+                self.join_field = path
 
     def _build_field(self, path: str, ftype: str, cfg: dict) -> FieldType:
         if ftype not in TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES \
                 | VECTOR_TYPES | FEATURE_TYPES | SOURCE_ONLY_TYPES \
-                | RANGE_TYPES | GEO_TYPES | SHAPE_TYPES:
+                | RANGE_TYPES | GEO_TYPES | SHAPE_TYPES | STRUCTURE_TYPES:
             raise NotPortedError(f"field type [{ftype}] (field [{path}])")
         allowed = _FIELD_OPTIONS | _TYPE_OPTIONS.get(ftype, set())
         for key in cfg:
@@ -405,6 +441,9 @@ class Mappings:
                                       cfg.get("space_type", "cosine")))
         if ftype in VECTOR_TYPES:
             ft.vector_method = _vector_method(path, cfg)
+        if ftype == "join":
+            ft.relations = {p: (c if isinstance(c, list) else [c])
+                            for p, c in cfg.get("relations", {}).items()}
         ft.positive_score_impact = bool(cfg.get("positive_score_impact",
                                                 True))
         if "index_impacts" in cfg:
@@ -462,6 +501,8 @@ class Mappings:
             if skip:
                 continue
             d: dict = {"type": ft.type}
+            if ft.relations:
+                d["relations"] = ft.relations
             if ft.type == "text" and ft.analyzer != "standard":
                 d["analyzer"] = ft.analyzer
             if ft.type == "icu_collation_keyword":
@@ -475,6 +516,12 @@ class Mappings:
                 d["fields"] = {s: {"type": sf.type}
                                for s, sf in ft.subfields.items()}
             node[parts[-1]] = d
+        for npath in sorted(self.nested_paths):
+            parts = npath.split(".")
+            node = props
+            for p in parts[:-1]:
+                node = node.setdefault(p, {}).setdefault("properties", {})
+            node.setdefault(parts[-1], {})["type"] = "nested"
         out: dict = {"properties": props}
         if self._meta:
             out["_meta"] = self._meta
@@ -557,10 +604,14 @@ class Mappings:
     def _parse_obj(self, obj: dict, prefix: str, parsed: ParsedDocument) -> None:
         for key, value in obj.items():
             path = f"{prefix}{key}"
+            if path in self.nested_paths:
+                self._parse_nested(path, value, parsed)
+                continue
             if isinstance(value, dict):
                 ft = self.resolve_field(path)
                 if ft is not None and (ft.type in FEATURE_TYPES
-                                       or ft.type in _OBJECT_VALUE_TYPES):
+                                       or ft.type in _OBJECT_VALUE_TYPES
+                                       or ft.type in STRUCTURE_TYPES):
                     self._index_value(ft, value, parsed)
                 else:
                     self._parse_obj(value, f"{path}.", parsed)
@@ -593,6 +644,26 @@ class Mappings:
                 self.fields[path] = ft
             self._index_value(ft, value, parsed)
 
+    def _parse_nested(self, path: str, value: Any,
+                      parsed: ParsedDocument) -> None:
+        """Each object of a nested path is a child document of the
+        nearest enclosing document (a null is missing); a non-object
+        value is the reference's 400."""
+        if value is None:
+            return
+        bucket = parsed.nested.setdefault(path, [])
+        for child_obj in (value if isinstance(value, list) else [value]):
+            if child_obj is None:
+                continue
+            if not isinstance(child_obj, dict):
+                raise ValueError(f"object mapping for [{path}] tried to "
+                                 f"parse a non-object value")
+            child = ParsedDocument(
+                doc_id=f"{parsed.doc_id}#{path}#{len(bucket)}",
+                source=child_obj, routing=None)
+            bucket.append(child)
+            self._parse_obj(child_obj, f"{path}.", child)
+
     def _index_value(self, ft: FieldType, value: Any,
                      parsed: ParsedDocument) -> None:
         if (ft.type in GEO_TYPES and isinstance(value, list) and value
@@ -621,6 +692,12 @@ class Mappings:
         name = ft.name
         if ft.store:
             parsed.stored.setdefault(name, []).append(v)
+        if ft.type == "percolator":
+            self._index_percolator(ft, v, parsed)
+            return
+        if ft.type == "join":
+            self._index_join(ft, v, parsed)
+            return
         if ft.type in TEXT_TYPES:
             if not ft.index:
                 return
@@ -743,6 +820,57 @@ class Mappings:
             parsed.terms.setdefault(name, []).append(s)
         if ft.doc_values:
             parsed.keywords.setdefault(name, []).append(s)
+
+    def _index_percolator(self, ft: FieldType, v: Any,
+                          parsed: ParsedDocument) -> None:
+        """A stored query, validated now (a bad one is the reference's
+        400) and kept in `_source`; its pre-filter terms ("field\0term")
+        become the hidden keyword column `<field>#terms`, and a query
+        without a necessary term the `<field>#flags` value "any"."""
+        if not isinstance(v, dict):
+            raise ValueError(
+                f"percolator field [{ft.name}] must hold a query object")
+        from ..search.percolate import extract_index_terms
+        from ..search.query_dsl import QueryParseError
+        try:
+            terms, always = extract_index_terms(v, self)
+        except QueryParseError as e:
+            raise ValueError(f"percolator query is invalid: {e}")
+        if terms:
+            parsed.keywords.setdefault(f"{ft.name}#terms", []).extend(terms)
+        if always:
+            parsed.keywords.setdefault(f"{ft.name}#flags", []).append("any")
+
+    def _index_join(self, ft: FieldType, v: Any,
+                    parsed: ParsedDocument) -> None:
+        """A join value: the relation's name, or {"name", "parent"} for
+        a child, which must carry a routing. The relation is a term and
+        a doc value of the field, a child's parent id one of
+        `<field>#parent`."""
+        name = ft.name
+        if isinstance(v, str):
+            rel, parent = v, None
+        elif isinstance(v, dict):
+            rel, parent = v.get("name"), v.get("parent")
+        else:
+            raise ValueError(f"cannot parse join field value [{v}]")
+        child_rels = {c for cs in ft.relations.values() for c in cs}
+        if rel not in set(ft.relations) | child_rels:
+            raise ValueError(f"unknown join name [{rel}] for field [{name}]")
+        if rel in child_rels:
+            if parent is None:
+                raise ValueError(
+                    f"[parent] is missing for join field [{name}] "
+                    f"child relation [{rel}]")
+            if parsed.routing is None:
+                raise ValueError(
+                    "[routing] is missing for a doc with a child join "
+                    f"relation [{rel}]")
+            parsed.terms.setdefault(f"{name}#parent", []).append(str(parent))
+            parsed.keywords.setdefault(f"{name}#parent", []).append(
+                str(parent))
+        parsed.terms.setdefault(name, []).append(rel)
+        parsed.keywords.setdefault(name, []).append(rel)
 
 
 def _flat_leaves(obj: dict, prefix: str):

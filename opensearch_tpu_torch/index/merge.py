@@ -30,6 +30,11 @@ served pages then can differ from those of its unreordered merge
 raises NotPortedError("BP reorder"), unless OPENSEARCH_TPU_REORDER=0
 (the reference's own switch) turns the reorder off, as it does there.
 
+A nested path's children merge as their own segments, those of deleted
+parents dropped and their parent ids remapped (`_merge_nested`); an
+input with term vectors (`term_vectors`, a reference plane the port does
+not build) raises NotPortedError.
+
 Inputs whose `ids` / `sources` are lazy views (a synthetic corpus) merge
 into `MergedView`s that map a new doc to (input, old doc), so no list of
 millions of strings is built.
@@ -47,12 +52,13 @@ import numpy as np
 from ..errors import NotPortedError
 from ..ops import device_merge
 from .segment import (CODEC_V2, VECTOR_CHUNK_ROWS, GeoColumn,
-                      KeywordColumn, NumericColumn, PostingsBlock, Segment,
+                      KeywordColumn, NestedBlock, NumericColumn,
+                      PostingsBlock, Segment,
                       ShapeColumn, TextFieldStats, VectorColumn,
                       default_codec_version)
 
 # planes of a reference segment that no port segment carries
-_UNPORTED_PLANES = ("nested", "term_vectors")
+_UNPORTED_PLANES = ("term_vectors",)
 
 # the reference's reorder threshold (index/reorder.py)
 REORDER_MIN_DOCS = 1 << 15
@@ -412,6 +418,32 @@ def _merge_geo(segments, live_masks, dmaps, ndocs: int) -> tuple:
     return geo_cols, shape_cols
 
 
+def _merge_nested(name: str, npath: str, segments: List[Segment], dmaps,
+                  device) -> Optional[NestedBlock]:
+    """One nested path's block of the merged segment (the reference's
+    merge): the children of deleted parents dropped, the rest merged as
+    their own segments, their parent ids remapped; None without any
+    child."""
+    child_segs, saved, parents = [], [], []
+    for s, dmap in zip(segments, dmaps):
+        blk = s.nested.get(npath)
+        if blk is None or blk.child.ndocs == 0:
+            continue
+        keep = (dmap[blk.parent_of] >= 0) & blk.child.live
+        saved.append(blk.child.live)
+        blk.child.live = keep       # drives the child compaction
+        child_segs.append(blk.child)
+        parents.append(dmap[blk.parent_of[keep]].astype(np.int32))
+    if not child_segs:
+        return None
+    try:
+        merged_child = merge_segments(f"{name}/{npath}", child_segs, device)
+    finally:
+        for cs, old in zip(child_segs, saved):
+            cs.live = old
+    return NestedBlock(merged_child, np.concatenate(parents))
+
+
 def merge_segments(name: str, segments: List[Segment],
                    device=None) -> Segment:
     """Compacting multiway merge of N segments into one; large postings
@@ -474,10 +506,14 @@ def merge_segments(name: str, segments: List[Segment],
     t_geo = time.perf_counter()
     geo_cols, shape_cols = _merge_geo(segments, live_masks, dmaps, ndocs)
     t_geo = time.perf_counter() - t_geo
+    nested = {npath: _merge_nested(name, npath, segments, dmaps, device)
+              for npath in sorted({p for s in segments for p in s.nested})}
     merged = Segment(name, ndocs, postings, doc_lens, text_stats, ids,
                      sources, seq_nos=seq_nos, numeric_cols=numeric_cols,
                      keyword_cols=keyword_cols, stored_vals=stored_vals,
-                     geo_cols=geo_cols, shape_cols=shape_cols)
+                     geo_cols=geo_cols, shape_cols=shape_cols,
+                     nested={p: b for p, b in nested.items()
+                             if b is not None})
     t_host = time.perf_counter() - t0 - t_sort - t_pos - t_geo
     t1 = time.perf_counter()
     if default_codec_version() >= CODEC_V2:

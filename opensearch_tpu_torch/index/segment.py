@@ -59,6 +59,12 @@ specs of each doc and its f64 bounding box columns, the prefilter of
 the exact host relation tests (`bbox_candidates`, `shape`). A range
 field's [lo, hi] are the numeric columns `<field>#lo` / `<field>#hi` in
 its member type's kind.
+
+`nested` holds a `NestedBlock` for each nested path: the children's own
+segment (built recursively at refresh, so a deeper path hangs off its
+child segment) and the i32 child -> parent map; impact planes, device
+release, save and load recurse into it. A child's liveness is its
+parent's, gathered through the map at query time.
 """
 
 from __future__ import annotations
@@ -73,7 +79,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..errors import NotPortedError
 from .mappings import FLOAT_TYPES, RANGE_MEMBER, Mappings
 
 CODEC_V1 = 1
@@ -446,6 +451,30 @@ class TextFieldStats:
     sum_dl: int = 0           # total tokens across docs
 
 
+@dataclass
+class NestedBlock:
+    """The children of one nested path: a full child-space segment (its
+    docs are the nested objects, fields keyed by dotted path) and the
+    child -> parent doc map, nondecreasing (the reference's NestedBlock;
+    Lucene keeps a parent's children as adjacent docs of its block)."""
+
+    child: "Segment"
+    parent_of: np.ndarray      # i32[child.ndocs]
+
+    def children_of(self, parent_doc: int) -> Tuple[int, int]:
+        a = int(np.searchsorted(self.parent_of, parent_doc, side="left"))
+        b = int(np.searchsorted(self.parent_of, parent_doc, side="right"))
+        return a, b
+
+    def parent_on(self, device):
+        """i64[child.ndocs] parent docs on `device`, cached on the
+        child segment."""
+        return self.child.device_cached(
+            ("parent_of",), device,
+            lambda: torch.from_numpy(self.parent_of.astype(np.int64)).to(
+                device))
+
+
 class Segment:
     """One immutable searchable unit."""
 
@@ -462,7 +491,8 @@ class Segment:
                  vector_cols: Optional[Dict[str, VectorColumn]] = None,
                  stored_vals: Optional[list] = None,
                  geo_cols: Optional[Dict[str, GeoColumn]] = None,
-                 shape_cols: Optional[Dict[str, ShapeColumn]] = None):
+                 shape_cols: Optional[Dict[str, ShapeColumn]] = None,
+                 nested: Optional[Dict[str, NestedBlock]] = None):
         Segment._seq += 1
         self.uid = Segment._seq
         self.name = name
@@ -475,6 +505,8 @@ class Segment:
         self.vector_cols = vector_cols or {}
         self.geo_cols = geo_cols or {}
         self.shape_cols = shape_cols or {}
+        # nested path -> its children's block
+        self.nested: Dict[str, NestedBlock] = nested or {}
         # per doc: {field: [raw values]} of its `store: true` fields, or
         # None; None for the whole segment when no doc stores a field
         self.stored_vals = stored_vals
@@ -526,6 +558,8 @@ class Segment:
             pb.impact = build_impact_plane(pb, self.doc_lens.get(f),
                                            avgdl=avgdl, bits=bits,
                                            device=device)
+        for blk in self.nested.values():
+            blk.child.build_impacts(bits=bits, device=device)
         self.codec_version = CODEC_V2
         self.aligned = {}
         self.device_arrays = {}
@@ -535,6 +569,8 @@ class Segment:
         layouts rebuilt without them on next use."""
         for pb in self.postings.values():
             pb.impact = None
+        for blk in self.nested.values():
+            blk.child.drop_impacts()
         self.codec_version = CODEC_V1
         self.aligned = {}
         self.device_arrays = {}
@@ -736,8 +772,10 @@ class Segment:
             torch.from_numpy(ivf.lists.astype(np.int64)).to(device)))
 
     def device_nbytes(self, device) -> int:
-        """Bytes of the general path's device arrays on `device`."""
-        n = 0
+        """Bytes of the general path's device arrays on `device`, the
+        nested children's included."""
+        n = sum(blk.child.device_nbytes(device)
+                for blk in self.nested.values())
         for k, v in self.device_arrays.items():
             if k[-1] == str(device):
                 if isinstance(v, dict):
@@ -757,8 +795,11 @@ class Segment:
         self.aligned = {}
         self.device_arrays = {}
         for k in ("filter_lists", "filter_mask_owner", "phrase_pairs",
-                  "date_buckets", "kw_hashes", "geo_grid_cells"):
+                  "date_buckets", "kw_hashes", "geo_grid_cells",
+                  "nested_sort_cache", "percolator_queries"):
             self.__dict__.pop(k, None)
+        for blk in self.nested.values():
+            blk.child.release_device()
 
     def hold(self) -> None:
         """A scroll or point in time reads this segment: a merge that
@@ -855,6 +896,10 @@ class Segment:
                 json.dump(col.specs, fh)
         for f, dl in self.doc_lens.items():
             arrays[f"dl__{f}"] = dl
+        meta["nested"] = sorted(self.nested)
+        for npath, blk in self.nested.items():
+            blk.child.save(os.path.join(path, f"nested__{_fname(npath)}"))
+            arrays[f"nested__{npath}__parent"] = blk.parent_of
         np.savez(os.path.join(path, "arrays.npz"), **arrays)
         with open(os.path.join(path, "meta.json"), "w") as fh:
             json.dump(meta, fh)
@@ -867,13 +912,10 @@ class Segment:
 
     @classmethod
     def load(cls, path: str) -> "Segment":
-        """A segment written by `save` (or by the reference's). A nested
-        plane, which the port does not have, raises NotPortedError."""
+        """A segment written by `save` (or by the reference's), its
+        nested children's segments with it."""
         with open(os.path.join(path, "meta.json")) as fh:
             meta = json.load(fh)
-        if meta.get("nested"):
-            raise NotPortedError("loading a segment with planes the port "
-                                 "does not have (nested)")
         arrays = np.load(os.path.join(path, "arrays.npz"),
                          allow_pickle=False)
         ids, sources, stored_vals = [], [], []
@@ -949,7 +991,12 @@ class Segment:
                   numeric_cols=numeric, keyword_cols=keyword,
                   vector_cols=vectors,
                   stored_vals=(stored_vals if any(stored_vals) else None),
-                  geo_cols=geo, shape_cols=shapes)
+                  geo_cols=geo, shape_cols=shapes,
+                  nested={npath: NestedBlock(
+                      cls.load(os.path.join(path,
+                                            f"nested__{_fname(npath)}")),
+                      arrays[f"nested__{npath}__parent"])
+                      for npath in meta.get("nested") or ()})
         seg.live = arrays["live"].copy()
         seg.id2doc = {d: i for i, d in enumerate(ids) if seg.live[i]}
         return seg
@@ -1183,6 +1230,18 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                 box[:2, doc_i] = np.minimum(box[:2, doc_i], bx[:2])
                 box[2:, doc_i] = np.maximum(box[2:, doc_i], bx[2:])
         shape_cols[fname] = ShapeColumn(fname, specs, *box, present)
+    # each nested path's children: a segment of their own
+    nested: Dict[str, NestedBlock] = {}
+    for npath in sorted({p for pd in parsed_docs for p in pd.nested}):
+        child_docs, parent_of = [], []
+        for doc_i, pd in enumerate(parsed_docs):
+            for child in pd.nested.get(npath, ()):
+                child_docs.append(child)
+                parent_of.append(doc_i)
+        nested[npath] = NestedBlock(
+            build_segment(f"{name}/{npath}", child_docs, mappings,
+                          device=device),
+            np.asarray(parent_of, dtype=np.int32))
     postings = pack_postings(parsed_docs)
     feat_fields = {f for pd in parsed_docs for f in pd.features}
     for fname in sorted(feat_fields):
@@ -1194,7 +1253,7 @@ def build_segment(name: str, parsed_docs: list, mappings: Mappings,
                   numeric_cols=numeric_cols, keyword_cols=keyword_cols,
                   vector_cols=vector_cols,
                   stored_vals=stored_values(parsed_docs),
-                  geo_cols=geo_cols, shape_cols=shape_cols)
+                  geo_cols=geo_cols, shape_cols=shape_cols, nested=nested)
     if default_codec_version() >= CODEC_V2:
         seg.build_impacts(feature_fields=feature_impact_fields(
             mappings, feat_fields), device=device)

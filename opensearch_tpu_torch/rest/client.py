@@ -25,8 +25,10 @@ templates live in memory only, as in the reference.
 
 Index names resolve through the client's metadata (`cluster/state.py`):
 names, comma lists, wildcards and aliases. A write through an alias goes
-to its write index; a search, count or msearch through an expression that
-names more than one open index raises NotPortedError, as does one through
+to its write index; a search, count, msearch or point in time through an
+expression that names no open index serves the reference's empty response
+(no shards, a total of 0); one that names more than one open index raises
+NotPortedError, as does one through
 an alias that carries a `filter` or a `routing` (the reference serves
 such a search unfiltered). A closed index refuses searches and writes
 with index_closed_exception; `index.blocks.write` (or `read_only`)
@@ -98,6 +100,8 @@ REFERENCE_CALLS = (
     "render_search_template", "rollover", "scroll", "search",
     "search_template", "slo_status", "tasks", "termvectors", "update",
     "update_by_query", "validate_query")
+# the reference client's namespaces other than `indices`
+REFERENCE_NAMESPACES = ("cat", "cluster", "ingest", "snapshot")
 REFERENCE_INDICES_CALLS = (
     "analyze", "clone", "close", "create", "create_data_stream", "delete",
     "delete_data_stream", "delete_index_template", "exists",
@@ -319,7 +323,7 @@ class RestClient:
             svc.engine.close()
 
     def __getattr__(self, name: str):
-        if name in REFERENCE_CALLS:
+        if name in REFERENCE_CALLS or name in REFERENCE_NAMESPACES:
             raise NotPortedError(f"rest call [{name}]")
         raise AttributeError(name)
 
@@ -434,9 +438,13 @@ class RestClient:
         self._check_alias_options(index, names)
         return names
 
-    def _svc(self, index: str) -> IndexService:
-        """The one open index a search, count or msearch reads."""
+    def _svc(self, index: str) -> Optional[IndexService]:
+        """The one open index a search, count or msearch reads, or None
+        where the expression names no open index (the reference's empty
+        response)."""
         names = self._open_names(index)
+        if not names:
+            return None
         if len(names) != 1:
             raise NotPortedError("a search over several indices")
         return self._indices[names[0]]
@@ -474,7 +482,10 @@ class RestClient:
     def index(self, index: str, body: dict, id: Optional[str] = None,
               routing: Optional[str] = None, refresh: bool = False,
               op_type: str = "index", if_seq_no: Optional[int] = None,
-              if_primary_term: Optional[int] = None) -> dict:
+              if_primary_term: Optional[int] = None,
+              pipeline: Optional[str] = None) -> dict:
+        if pipeline is not None:
+            raise NotPortedError("ingest pipeline")
         svc = self._svc_for_write(index)
         self._check_write_block(svc)
         doc_id = id if id is not None else uuid.uuid4().hex[:20]
@@ -547,13 +558,22 @@ class RestClient:
         return res
 
     def update(self, index: str, id: str, body: dict,
-               routing: Optional[str] = None, refresh: bool = False) -> dict:
+               routing: Optional[str] = None, refresh: bool = False,
+               retry_on_conflict: Optional[int] = None,
+               if_seq_no: Optional[int] = None,
+               if_primary_term: Optional[int] = None) -> dict:
         """Partial-doc update and upserts (reference UpdateHelper): `doc`
         deep-merged into the current source (a no-op when nothing changes
         and `detect_noop` holds), `doc_as_upsert`, `upsert`, a script
         (painless-lite over a deep copy of the source: `ctx.op` "none" or
         "noop" is a no-op, "delete" deletes) and `scripted_upsert` (the
-        script runs over the upsert document)."""
+        script runs over the upsert document). `retry_on_conflict` changes
+        nothing with one writer; `if_seq_no` / `if_primary_term`, which
+        the reference ignores on an update where OpenSearch checks them,
+        raise NotPortedError."""
+        if if_seq_no is not None or if_primary_term is not None:
+            raise NotPortedError("[if_seq_no] / [if_primary_term] on an "
+                                 "update")
         svc = self._svc_for_write(index)
         self._check_write_block(svc)
         current = svc.engine.get(id)
@@ -687,12 +707,16 @@ class RestClient:
     def _search_deadlined(self, index: str, body: dict,
                           scroll: Optional[str]) -> dict:
         if body.get("query") is not None:
-            body["query"] = self._resolve_shape_refs(body["query"])
+            body["query"] = self._resolve_percolate_refs(body["query"])
         pit = body.pop("pit", None)
         try:
             if pit is not None:
                 return self._search_pit(pit, body)
             svc = self._svc(index)
+            if svc is None:
+                if scroll:
+                    raise NotPortedError("a scroll over no open index")
+                return search_snapshot([], [], body, index)
             slow = svc.search_slowlog
             before = dict(fastpath.STATS) if slow.thresholds else None
             t0 = time.monotonic()
@@ -737,7 +761,7 @@ class RestClient:
         """One page over a context's snapshot; an index deleted since
         then gives the reference's empty page."""
         svc = ctx["svc"]
-        if self._indices.get(svc.name) is not svc:
+        if svc is None or self._indices.get(svc.name) is not svc:
             return search_snapshot([], [], body, ctx["index"])
         return search_snapshot([svc.searcher], [ctx["segments"]], body,
                                ctx["index"])
@@ -793,14 +817,17 @@ class RestClient:
         return {"succeeded": True, "num_freed": n}
 
     def create_pit(self, index: str, keep_alive: str = "1m") -> dict:
-        """A point in time: the index's segment list of this moment."""
+        """A point in time: the index's segment list of this moment (none
+        where the expression names no index: its pages are empty)."""
         names = self.metadata.resolve(index)
         self._check_alias_options(index, names)
-        if len(names) != 1:
+        if len(names) > 1:
             raise NotPortedError("a point in time over several indices")
         ka = parse_keepalive_s(keep_alive)
         pid = uuid.uuid4().hex
-        self._pits[pid] = {**self._snapshot(self._indices[names[0]]),
+        snap = (self._snapshot(self._indices[names[0]]) if names
+                else {"svc": None, "segments": []})
+        self._pits[pid] = {**snap,
                            "index": index, "creation_time": time.time(),
                            "keep_alive": ka, "expires": time.time() + ka}
         return {"pit_id": pid, "creation_time": int(time.time() * 1000)}
@@ -832,18 +859,31 @@ class RestClient:
         resp["pit_id"] = pit_id
         return resp
 
-    def _resolve_shape_refs(self, node):
-        """A copy of the query tree with each `geo_shape` field's
-        `indexed_shape` replaced by the stored shape (the reference's
-        `_resolve_percolate_refs`, without percolate)."""
+    def _resolve_percolate_refs(self, node):
+        """A copy of the query tree with each `percolate` that names a
+        stored document by `index` / `id` (and no `document(s)`) given
+        that document's `_source` as its `document`, and each `geo_shape`
+        field's `indexed_shape` replaced by the stored shape; a percolate
+        body's documents are not descended into."""
         if isinstance(node, dict):
-            return {k: ({fk: self._resolve_indexed_shape(fv)
-                         for fk, fv in v.items()}
-                        if k == "geo_shape" and isinstance(v, dict)
-                        else self._resolve_shape_refs(v))
-                    for k, v in node.items()}
+            out = {}
+            for k, v in node.items():
+                if k == "percolate" and isinstance(v, dict):
+                    if ("document" not in v and "documents" not in v
+                            and v.get("index") and v.get("id")):
+                        got = self.get(v["index"], v["id"],
+                                       routing=v.get("routing"))
+                        v = dict(v)
+                        v["document"] = got.get("_source", {})
+                    out[k] = v
+                elif k == "geo_shape" and isinstance(v, dict):
+                    out[k] = {fk: self._resolve_indexed_shape(fv)
+                              for fk, fv in v.items()}
+                else:
+                    out[k] = self._resolve_percolate_refs(v)
+            return out
         if isinstance(node, list):
-            return [self._resolve_shape_refs(v) for v in node]
+            return [self._resolve_percolate_refs(v) for v in node]
         return node
 
     def _resolve_indexed_shape(self, spec):
@@ -880,9 +920,10 @@ class RestClient:
         body["size"] = 0
         body.pop("sort", None)
         if body.get("query") is not None:
-            body["query"] = self._resolve_shape_refs(body["query"])
+            body["query"] = self._resolve_percolate_refs(body["query"])
         svc = self._svc(index)
-        resp = search_shards([svc.searcher], body, index_name=svc.name)
+        resp = (search_snapshot([], [], body, index) if svc is None else
+                search_shards([svc.searcher], body, index_name=svc.name))
         return {"count": resp["hits"]["total"]["value"],
                 "_shards": resp["_shards"]}
 
@@ -906,7 +947,7 @@ class RestClient:
             raise ApiError(404, "document_missing_exception",
                            f"[{id}] missing")
         ctx = svc.searcher.context()
-        qdict = (self._resolve_shape_refs(body["query"])
+        qdict = (self._resolve_percolate_refs(body["query"])
                  if body.get("query") is not None else None)
         lroot = C.rewrite(dsl.parse_query(qdict), ctx)
         expl = explain_doc(lroot, loc.segment, loc.local_doc, ctx)
@@ -1084,8 +1125,9 @@ class RestClient:
             raise NotPortedError("an msearch over several indices")
         if not pairs:
             return {"took": 0, "responses": []}
+        name = names.pop()
         try:
-            svc = self._svc(names.pop())
+            svc = self._svc(name)
         except (IndexNotFoundError, IndexClosedError) as e:
             # the reference's per-body entry: a closed index's is the
             # ApiError its single search raises
@@ -1094,6 +1136,9 @@ class RestClient:
             return {"took": 0, "responses": [
                 {"error": {"type": kind, "reason": str(e)}}
                 for _ in pairs]}
+        if svc is None:
+            return {"took": 0, "responses": [
+                search_snapshot([], [], b, name) for _, b in pairs]}
         responses = msearch_batched([svc.searcher], [b for _, b in pairs],
                                     index_name=svc.name)
         return {"took": 0, "responses": responses}

@@ -84,11 +84,13 @@ PORTED_KINDS = STATS_FAMILY | {
     "diversified_sampler", "adjacency_matrix", "auto_date_histogram",
     "top_hits", "weighted_avg", "median_absolute_deviation",
     "matrix_stats", "ip_range", "scripted_metric", "geo_distance",
-    "geohash_grid", "geotile_grid", "geo_bounds", "geo_centroid"}
+    "geohash_grid", "geotile_grid", "geo_bounds", "geo_centroid",
+    "nested", "reverse_nested", "children", "parent"}
 SERVED_PIPELINES = PIPELINE_KINDS
 # bucket kinds whose response is one doc_count + subs
 _SINGLE_BUCKET = ("filter", "global", "missing", "sampler",
-                  "diversified_sampler")
+                  "diversified_sampler", "nested", "reverse_nested",
+                  "children", "parent")
 # bucket kinds keyed by value, merged by adding their buckets
 _KEYED = ("terms", "rare_terms", "multi_terms", "composite",
           "geohash_grid", "geotile_grid")

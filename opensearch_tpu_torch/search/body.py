@@ -17,8 +17,13 @@ section, `executor.compose_knn_query`) and `script_fields` (a host
 painless-lite script per hit). A `_script` sort key is a host script per
 doc (`executor.host_sort_values`); as the primary key, each segment
 hands the host every match, and `collapse` or `search_after` with it is
-the reference's 400. `explain: "device_plan"`, any other key, and a
-`nested` sort, raises `NotPortedError` naming it.
+the reference's 400. A field sort with `nested: {path}` ranks each
+parent by its children's values of the field reduced by `mode` (min
+ascending, max descending by default; `compiler.nested_sort_values`). A
+`_geo_distance` sort's `nested` is not read, as in the reference, but
+over a geo field inside the nested path (which the reference serves as
+missing everywhere) it raises `NotPortedError`. `explain:
+"device_plan"` and any other key raise `NotPortedError` naming it.
 """
 
 from __future__ import annotations
@@ -65,8 +70,6 @@ def norm_sort_specs(body: dict) -> List[dict]:
         if isinstance(spec, str):
             out.append({"field": f, "order": spec})
         elif isinstance(spec, dict):
-            if spec.get("nested") is not None:
-                raise NotPortedError("[nested] sort")
             out.append({"field": f, **spec})
         else:
             raise dsl.QueryParseError(f"malformed sort [{s}]")
@@ -79,12 +82,14 @@ def geo_sort_spec(spec: dict) -> dict:
     default), "unit" (m by default)}; a missing distance sorts last."""
     if not isinstance(spec, dict):
         raise dsl.QueryParseError(f"malformed sort [_geo_distance: {spec}]")
-    if spec.get("nested") is not None:
-        raise NotPortedError("[nested] sort")
     geo_fields = [k for k in spec if k not in GEO_SORT_OPTS]
     if len(geo_fields) != 1:
         raise dsl.QueryParseError(
             "[_geo_distance] sort needs exactly one geo field")
+    npath = (spec.get("nested") or {}).get("path")
+    if npath and geo_fields[0].startswith(f"{npath}."):
+        raise NotPortedError("[nested] _geo_distance sort over a field of "
+                             "the nested path")
     return {"field": "_geo_distance", "geo_field": geo_fields[0],
             "origin": dsl.parse_geo(spec[geo_fields[0]]),
             "order": spec.get("order", "asc"), "unit": spec.get("unit", "m")}

@@ -67,7 +67,16 @@ becomes `LFuncScore` (its functions' filters in filter context),
 `script` `LScriptFilter` and `script_score` `LScriptScore` (their source
 checked by `validate_device_script`: a compile error is the reference's
 400), a terms_set's `minimum_should_match_script` an `LTermsSet` whose
-minimum the host runs per doc. A clause's `_name` goes onto its node.
+minimum the host runs per doc. A `nested` query becomes `LNested`
+(its child plan rewritten over the path's child segments' statistics,
+`nested_context`; a deeper path asked from an outer level through the
+chain of enclosing paths; an unmapped path the reference's 400),
+`has_child` / `has_parent` `LHasChild` / `LHasParent` over the index's
+`JoinIndex` (`search/join.py`) and `parent_id` a constant-score filter
+on `<join>#parent`; `more_like_this` the reference's term selection
+(`_rewrite_mlt`) as one weighted term group (one field) or a bool of
+single-term groups; `percolate` `LPercolate` over the candidates' mini
+segment (`search/percolate.py`). A clause's `_name` goes onto its node.
 Any other query or field kind raises `NotPortedError`.
 
 The general path (`emit`, `run_segment`) evaluates a plan as torch ops on
@@ -88,7 +97,17 @@ weights) combined by score and boost mode, a script or script_score
 painless-lite's `eval_device` over the columns' f32 views, a geo node
 the haversine radius, the box or the ray-cast over `Segment.geo_on`
 (`ops/scoring.py`) or a geo_shape's exact host mask (`geo_shape_mask`),
-and a masked top-k closes it. The geo aggregations count a haversine's
+a nested node its child plan over the child segment (a child live
+where its parent is), its matches counted and its scores reduced into
+the parents by `index_add` / `scatter_reduce` (sum, avg, max, min,
+none), a join node its slot vectors' window (`join.emit_join`), a
+percolate node the host's match mask, and a masked top-k closes it.
+A `nested` sort ranks each parent by its children's values reduced by
+the sort's mode (`nested_sort_values`); the `nested` /
+`reverse_nested` aggs move the match into a path's child segment and
+back up `ShardContext.nest_stack`, `children` / `parent` join the query's
+root plan (`ShardContext.current_lroot`) through the slot pre-pass
+(`join_agg_match`). The geo aggregations count a haversine's
 rings, bound and average the points, or count the cells of
 `geo_grid_cells` (f64 numpy on the host, once per segment). It serves
 every shape the fused kernels and the impact rung decline.
@@ -96,6 +115,7 @@ every shape the fused kernels and the impact rung decline.
 
 from __future__ import annotations
 
+import copy
 import datetime as _dt
 import fnmatch
 import ipaddress
@@ -139,6 +159,12 @@ class ShardContext:
         self.default_sim = resolve_similarity(similarity)
         # where the expanders' device passes run: the engine's device
         self.device = torch.device("cpu") if device is None else device
+        # the query's root plan, which children / parent aggs join
+        # against (set by the executor's plan)
+        self.current_lroot: Optional["LNode"] = None
+        # the nested aggs' levels down to the segment an agg reads, root
+        # first: (path, segment, parent map, live) each; empty at the root
+        self.nest_stack: tuple = ()
 
     def sim_for(self, field: str) -> Similarity:
         return self.default_sim
@@ -459,6 +485,64 @@ class LGeoShape(LNode):
     shape: Any = None
     relation: str = "intersects"
     boost: float = 1.0
+
+
+@dataclass
+class LNested(LNode):
+    """Block-join to the parent: the child plan runs over the nested
+    path's child segment, its scores reduce into the parents by the
+    child -> parent map (sum, avg, max, min, none)."""
+
+    path: str = ""
+    child: Optional[LNode] = None
+    child_ctx: Optional["ShardContext"] = None
+    score_mode: str = "avg"
+    boost: float = 1.0
+
+
+@dataclass
+class LHasChild(LNode):
+    """Parents with matching children: the child plan's scores scattered
+    into the shard's join slot space over every segment (`search/join.py`),
+    then each segment's window sliced out."""
+
+    join_field: str = ""
+    child_rel: str = ""
+    child: Optional[LNode] = None          # inner query AND join==child
+    parent_filter: Optional[LNode] = None  # join==parent
+    score_mode: str = "none"
+    min_children: int = 1
+    max_children: int = 2**31 - 1
+    boost: float = 1.0
+    join_index: Any = None
+    pre: Any = None                        # the slot vectors, once
+
+
+@dataclass
+class LHasParent(LNode):
+    """Children whose parent matches: the parent plan's match and scores
+    at the parents' own slots, gathered through each child's slot."""
+
+    join_field: str = ""
+    parent_rel: str = ""
+    child: Optional[LNode] = None          # inner query AND join==parent
+    child_filter: Optional[LNode] = None   # join in the child relations
+    use_score: bool = False
+    boost: float = 1.0
+    join_index: Any = None
+    pre: Any = None
+
+
+@dataclass
+class LPercolate(LNode):
+    """Stored queries matching candidate documents: a host mask per
+    segment (`search/percolate.py`) the device plan reads."""
+
+    field: str = ""
+    mini_seg: Any = None
+    mini_ctx: Any = None
+    boost: float = 1.0
+    _masks: dict = dc_field(default_factory=dict, repr=False, compare=False)
 
 
 @dataclass
@@ -954,7 +1038,234 @@ def _rewrite(q: dsl.Query, ctx: ShardContext, scoring: bool) -> LNode:
                           boost_mode=q.boost_mode, min_score=q.min_score,
                           boost=q.boost)
 
+    if isinstance(q, dsl.MoreLikeThisQuery):
+        return _rewrite_mlt(q, ctx, scoring)
+
+    if isinstance(q, dsl.NestedQuery):
+        return _rewrite_nested(q, ctx, scoring)
+
+    if isinstance(q, (dsl.HasChildQuery, dsl.HasParentQuery,
+                      dsl.ParentIdQuery)):
+        return _rewrite_join(q, ctx, scoring)
+
+    if isinstance(q, dsl.PercolateQuery):
+        from .percolate import build_mini
+        ft = ctx.mappings.resolve_field(q.field)
+        if ft is None or ft.type != "percolator":
+            raise dsl.QueryParseError(
+                f"[percolate] field [{q.field}] is not a percolator field")
+        if not q.documents:
+            raise dsl.QueryParseError(
+                "[percolate] document reference was not resolved "
+                "(use the REST layer, or inline `document`)")
+        try:
+            mini_seg, mini_ctx = build_mini(ctx.mappings, q.documents,
+                                            ctx.device)
+        except ValueError as e:
+            raise dsl.QueryParseError(
+                f"[percolate] cannot parse document: {e}")
+        return LPercolate(field=ft.name, mini_seg=mini_seg,
+                          mini_ctx=mini_ctx, boost=q.boost)
+
     raise NotPortedError(f"query [{type(q).__name__}]")
+
+
+def _rewrite_nested(q: dsl.NestedQuery, ctx: ShardContext,
+                    scoring: bool) -> LNode:
+    """`nested`: an unmapped path is the reference's 400 (match_none
+    with `ignore_unmapped`); a deeper path asked from an outer level
+    goes through the chain of enclosing nested paths whose blocks the
+    segments hold; the child plan is rewritten with the child space's
+    statistics (`nested_context`)."""
+    m = ctx.mappings
+    if q.path not in m.nested_paths:
+        if q.ignore_unmapped:
+            return LMatchNone()
+        raise dsl.QueryParseError(
+            f"[nested] failed to find nested object under path [{q.path}]")
+    if not any(q.path in s.nested for s in ctx.segments):
+        parts = q.path.split(".")
+        for cut in range(len(parts) - 1, 0, -1):
+            pfx = ".".join(parts[:cut])
+            if pfx in m.nested_paths and any(pfx in s.nested
+                                             for s in ctx.segments):
+                inner_q = dsl.NestedQuery(path=q.path, query=q.query,
+                                          score_mode=q.score_mode,
+                                          ignore_unmapped=q.ignore_unmapped)
+                outer = dsl.NestedQuery(path=pfx, query=inner_q,
+                                        score_mode=q.score_mode,
+                                        boost=q.boost)
+                return _rewrite(outer, ctx, scoring)
+    child_ctx = nested_context(ctx, q.path)
+    return LNested(path=q.path, child=rewrite(q.query, child_ctx, scoring),
+                   child_ctx=child_ctx, score_mode=q.score_mode,
+                   boost=q.boost)
+
+
+def nested_context(ctx: ShardContext, path: str) -> ShardContext:
+    """The child space's statistics context: BM25 idf and avgdl over the
+    nested path's child docs, as Lucene's over its child docs."""
+    return ShardContext(ctx.mappings,
+                        [s.nested[path].child for s in ctx.segments
+                         if path in s.nested],
+                        similarity=ctx.default_sim, device=ctx.device)
+
+
+def _rewrite_mlt(q: dsl.MoreLikeThisQuery, ctx: ShardContext,
+                 scoring: bool) -> LNode:
+    """more_like_this (Lucene MoreLikeThis, the reference's rewrite): the
+    like items' term frequencies (a text, an `_id`'s live `_source` or a
+    `doc`), less the unlike items' terms, the stop words, terms under
+    `min_term_freq`, outside the word lengths or the doc frequencies;
+    ranked by tf x idf, the best `max_query_terms` searched as one
+    weighted term group (one field; `boost_terms` scales each term's
+    boost by its score over the best) or a bool of single-term groups
+    (several fields), `minimum_should_match` over the selected terms.
+    A liked `_id` is excluded unless `include`."""
+    fields = list(q.fields) or [name for name, ft in ctx.mappings.fields.items()
+                                if ft.type == "text"]
+    if not fields:
+        return LMatchNone()
+    stop = set(q.stop_words)
+
+    def texts_of(item, liked_ids):
+        if isinstance(item, str):
+            return {f: [item] for f in fields}
+        if not isinstance(item, dict):
+            raise dsl.QueryParseError("[more_like_this] invalid like item")
+        if "doc" in item:
+            src = item["doc"]
+        else:
+            did = item.get("_id")
+            if did is None:
+                raise dsl.QueryParseError(
+                    "[more_like_this] like item needs text, [_id] or [doc]")
+            liked_ids.append(str(did))
+            src = None
+            for seg in ctx.segments:
+                d = seg.local_doc(str(did))
+                if d >= 0 and seg.live[d]:
+                    src = seg.sources[d]
+                    break
+            if src is None:
+                return {}
+        out = {}
+        for f in fields:
+            v = src.get(f)
+            if isinstance(v, str):
+                out[f] = [v]
+            elif isinstance(v, list):
+                out[f] = [str(x) for x in v]
+        return out
+
+    liked_ids: List[str] = []
+    tf_counts: dict = {}
+    for item in q.like:
+        for f, texts in texts_of(item, liked_ids).items():
+            for text in texts:
+                for t in _analyze_query_text(f, text, ctx):
+                    tf_counts[(f, t)] = tf_counts.get((f, t), 0) + 1
+    skip: set = set()
+    for item in q.unlike:
+        for f, texts in texts_of(item, []).items():
+            for text in texts:
+                skip.update((f, t) for t in _analyze_query_text(f, text, ctx))
+    n = max(ctx.num_docs, 1)
+    scored = []
+    for (f, t), tf in tf_counts.items():
+        if (f, t) in skip or t in stop or tf < q.min_term_freq:
+            continue
+        if len(t) < q.min_word_length or (
+                q.max_word_length and len(t) > q.max_word_length):
+            continue
+        df = ctx.doc_freq(f, t)
+        if df < q.min_doc_freq or df > q.max_doc_freq or df <= 0:
+            continue
+        scored.append((tf * ops.bm25_idf(n, df), f, t))
+    scored.sort(key=lambda x: (-x[0], x[1], x[2]))
+    scored = scored[:q.max_query_terms]
+    if not scored:
+        return LMatchNone()
+    best = scored[0][0]
+    by_field: dict = {}
+    for sc, f, t in scored:
+        boost = (q.boost_terms * sc / best) if q.boost_terms > 0 else 1.0
+        by_field.setdefault(f, []).append((t, boost))
+    msm = max(dsl.parse_minimum_should_match(q.minimum_should_match,
+                                             len(scored)), 1)
+    mode = "score" if scoring else "filter"
+    if len(by_field) == 1:
+        ((f, pairs),) = by_field.items()
+        node: LNode = _weighted_terms(f, [t for t, _ in pairs],
+                                      [b for _, b in pairs], ctx, msm, mode,
+                                      q.boost)
+    else:
+        # one single-term group a clause: msm counts terms across fields
+        node = LBool(shoulds=[_weighted_terms(f, [t], [b], ctx, 1, mode, 1.0)
+                              for f, pairs in by_field.items()
+                              for t, b in pairs],
+                     msm=msm, boost=q.boost)
+    if liked_ids and not q.include:
+        return LBool(musts=[node], must_nots=[LIds(ids=liked_ids)])
+    return node
+
+
+def _rewrite_join(q, ctx: ShardContext, scoring: bool) -> LNode:
+    """has_child, has_parent and parent_id over the index's join field:
+    an unknown relation (or no join field) is the reference's 400, or
+    match_none with `ignore_unmapped`; parent_id is a constant-score
+    filter on `<join>#parent` and the child relation."""
+    from .join import get_join_index
+
+    m = ctx.mappings
+    jf = m.join_field
+    kind = {dsl.HasChildQuery: "has_child", dsl.HasParentQuery: "has_parent",
+            dsl.ParentIdQuery: "parent_id"}[type(q)]
+    relations = m.fields[jf].relations if jf else {}
+    child_rels_all = {c for cs in relations.values() for c in cs}
+
+    def unmapped(msg: str) -> LNode:
+        if q.ignore_unmapped:
+            return LMatchNone()
+        raise dsl.QueryParseError(f"[{kind}] {msg}")
+
+    def rel_filter(field: str, rels: List[str]) -> LTerms:
+        return _weighted_terms(field, rels, [1.0] * len(rels), ctx, 1,
+                               "filter", 1.0)
+
+    if jf is None:
+        return unmapped("no [join] field is mapped on this index")
+    if kind == "parent_id":
+        if q.type not in child_rels_all:
+            return unmapped(f"[{q.type}] is not a child relation")
+        return LConstScore(child=LBool(filters=[
+            rel_filter(f"{jf}#parent", [q.id]), rel_filter(jf, [q.type])]),
+            boost=q.boost)
+    ji = get_join_index(ctx.segments, jf)
+    if kind == "has_child":
+        parent_rel = next((p for p, cs in relations.items()
+                           if q.type in cs), None)
+        if parent_rel is None:
+            return unmapped(
+                f"[{q.type}] is not a child relation of the join field")
+        inner = rewrite(q.query or dsl.MatchAllQuery(), ctx, scoring)
+        return LHasChild(join_field=jf, child_rel=q.type,
+                         child=LBool(musts=[inner],
+                                     filters=[rel_filter(jf, [q.type])]),
+                         parent_filter=rel_filter(jf, [parent_rel]),
+                         score_mode=q.score_mode,
+                         min_children=q.min_children,
+                         max_children=q.max_children, boost=q.boost,
+                         join_index=ji)
+    if q.parent_type not in relations:
+        return unmapped(f"[{q.parent_type}] is not a parent relation")
+    inner = rewrite(q.query or dsl.MatchAllQuery(), ctx, scoring)
+    return LHasParent(join_field=jf, parent_rel=q.parent_type,
+                      child=LBool(musts=[inner],
+                                  filters=[rel_filter(jf, [q.parent_type])]),
+                      child_filter=rel_filter(
+                          jf, sorted(relations[q.parent_type])),
+                      use_score=q.score, boost=q.boost, join_index=ji)
 
 
 def _geo_shape_node(q: dsl.GeoShapeQuery, ctx: ShardContext) -> LNode:
@@ -1127,6 +1438,18 @@ def can_match(node: LNode, seg: Segment) -> bool:
         return node.field in seg.postings or node.field in seg.numeric_cols
     if isinstance(node, LFuncScore):
         return node.child is None or can_match(node.child, seg)
+    if isinstance(node, LNested):
+        blk = seg.nested.get(node.path)
+        return (blk is not None and blk.child.ndocs > 0
+                and can_match(node.child, blk.child))
+    if isinstance(node, LPercolate):
+        return (f"{node.field}#terms" in seg.keyword_cols
+                or f"{node.field}#flags" in seg.keyword_cols)
+    if isinstance(node, LHasChild):
+        # the slot pre-pass spans every segment; this one holds parents
+        return can_match(node.parent_filter, seg)
+    if isinstance(node, LHasParent):
+        return can_match(node.child_filter, seg)
     return True
 
 
@@ -1862,7 +2185,63 @@ def emit(node: LNode, seg: Segment, ctx: ShardContext,
     if isinstance(node, (LGeoDist, LGeoBox, LGeoPolygon, LGeoShape)):
         mask = geo_mask(node, seg, device)
         return _flag(mask & live, node.boost)
+    if isinstance(node, LNested):
+        return _emit_nested(node, seg, live, zeros, device)
+    if isinstance(node, (LHasChild, LHasParent)):
+        from . import join
+        return join.emit_join(node, seg, ctx, live, zeros, device)
+    if isinstance(node, LPercolate):
+        from .percolate import segment_mask
+        mask = node._masks.get(seg.uid)
+        if mask is None:
+            mask = node._masks[seg.uid] = torch.from_numpy(segment_mask(
+                node.field, node.mini_seg, node.mini_ctx, seg)).to(device)
+        return _flag(mask & live, node.boost)
     raise NotPortedError(f"plan [{type(node).__name__}] on the general path")
+
+
+def nested_child_match(node: LNested, seg: Segment, live: torch.Tensor,
+                       device) -> Optional[tuple]:
+    """(child ScoredMask, child match, parent map) of a nested node over
+    `seg`'s block, or None where the segment has no child of its path.
+    A child is live where its parent is."""
+    blk = seg.nested.get(node.path)
+    if blk is None or blk.child.ndocs == 0:
+        return None
+    parent = blk.parent_on(device)
+    sm = emit(node.child, blk.child, node.child_ctx, device)
+    return sm, sm.matched & live[parent], parent
+
+
+def _emit_nested(node: LNested, seg: Segment, live: torch.Tensor,
+                 zeros: torch.Tensor, device) -> ops.ScoredMask:
+    """The parents' (scores, match) of a nested node: the matching
+    children counted into their parents, the scores reduced by the score
+    mode (sum and avg f32 scatter-adds, max and min scatter-reduces), as
+    the reference's emit."""
+    got = nested_child_match(node, seg, live, device)
+    if got is None:
+        return ops.ScoredMask(zeros, zeros)
+    sm, cmatch, parent = got
+    cnt = zeros.index_add(0, parent, cmatch.to(torch.float32))
+    pmatch = cnt > 0
+    mode = node.score_mode
+    if mode == "none":
+        pscores = pmatch.to(torch.float32)
+    elif mode in ("max", "min"):
+        fill = float("-inf") if mode == "max" else float("inf")
+        red = torch.full_like(zeros, fill).scatter_reduce(
+            0, parent, torch.where(cmatch, sm.scores, fill),
+            "amax" if mode == "max" else "amin")
+        pscores = torch.where(pmatch, red, zeros)
+    else:
+        total = zeros.index_add(0, parent, torch.where(cmatch, sm.scores,
+                                                       0.0))
+        pscores = (total / torch.clamp(cnt, min=1.0) if mode == "avg"
+                   else total)
+    pmatch = pmatch & live
+    return ops.ScoredMask(torch.where(pmatch, pscores * _f32(node.boost),
+                                      zeros), pmatch.to(torch.float32))
 
 
 def geo_mask(node: LNode, seg: Segment, device) -> torch.Tensor:
@@ -2590,7 +2969,22 @@ def sort_key(specs: List[dict], seg: Segment, scores: torch.Tensor,
             return miss.expand(nd)
         dist = ops.geo_distance_vec(geo, *primary["origin"])
         return torch.where(geo["present"], dist if desc else -dist, miss)
-    if field in seg.numeric_cols:
+    nspec = primary.get("nested")
+    if nspec and nspec.get("path"):
+        mode = primary.get("mode", "max" if desc else "min")
+        vals, present = nested_sort_values(seg, field, nspec["path"], mode)
+        if vals is None:
+            return miss.expand(nd)
+
+        def make():
+            ords = np.full(nd, -1, np.int32)
+            if present.any():
+                ords[present] = np.searchsorted(np.unique(vals[present]),
+                                                vals[present])
+            return torch.from_numpy(ords).to(device)
+        o = seg.device_cached(("nested_sort", field, nspec["path"], mode),
+                              device, make)
+    elif field in seg.numeric_cols:
         o = seg.sort_ords_on(field, device)
     elif field in seg.keyword_cols:
         o = seg.keyword_on(field, device)[2]
@@ -2598,6 +2992,43 @@ def sort_key(specs: List[dict], seg: Segment, scores: torch.Tensor,
         o = torch.full((nd,), -1, dtype=torch.int32, device=device)
     ords = o.to(torch.float32)
     return torch.where(o >= 0, ords if desc else -ords, miss)
+
+
+def nested_sort_values(seg: Segment, field: str, path: str, mode: str):
+    """(f64[ndocs] values, present) of each parent's nested children's
+    `field` reduced by `mode` (min, max, sum, avg), or (None, None)
+    where the path's children lack the column (the reference's
+    `_nested_sort_values`); cached on the segment."""
+    cache = seg.__dict__.setdefault("nested_sort_cache", {})
+    key = (field, path, mode)
+    got = cache.get(key)
+    if got is not None:
+        return got
+    blk = seg.nested.get(path)
+    col = blk.child.numeric_cols.get(field) if blk is not None else None
+    if col is None:
+        got = cache[key] = (None, None)
+        return got
+    n, nc = seg.ndocs, blk.child.ndocs
+    keep = col.present[:nc] & blk.child.live[:nc]
+    p = blk.parent_of[:nc][keep]
+    v = col.values[:nc][keep].astype(np.float64)
+    out = np.full(n, np.inf if mode == "min" else
+                  (-np.inf if mode == "max" else 0.0), np.float64)
+    if mode == "min":
+        np.minimum.at(out, p, v)
+    elif mode == "max":
+        np.maximum.at(out, p, v)
+    else:
+        np.add.at(out, p, v)
+    present = np.zeros(n, bool)
+    present[np.unique(p)] = True
+    if mode == "avg":
+        cnt = np.zeros(n, np.float64)
+        np.add.at(cnt, p, 1.0)
+        out = out / np.maximum(cnt, 1.0)
+    got = cache[key] = (np.where(present, out, 0.0), present)
+    return got
 
 
 def after_key(after: list, specs: List[dict],
@@ -3198,6 +3629,16 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
             out[f"k{ki}"] = entry
         return (kind, tuple(k for k, _ in items), specs), out
 
+    if kind in ("nested", "reverse_nested"):
+        return _emit_nested_agg(node, seg, ctx, match, device)
+
+    if kind in ("children", "parent"):
+        bm = join_agg_match(node, seg, ctx, device)
+        if bm is None:
+            return ("terms_missing",), None
+        out = {"doc_count": bm.sum()}
+        return ("join_agg", seg, container_subs(bm, out)), out
+
     if kind in ("global", "missing"):
         if kind == "global":
             bm = seg.live_on(device)
@@ -3367,6 +3808,104 @@ def emit_agg(node, seg: Segment, ctx: ShardContext, match: torch.Tensor,
         # a pipeline at the root: the reference's prepare refuses it
         raise ValueError(f"cannot prepare aggregation [{kind}]")
     raise NotPortedError(f"aggs: aggregation kind [{kind}]")
+
+
+def _emit_nested_agg(node, seg: Segment, ctx: ShardContext,
+                     match: torch.Tensor, device) -> tuple:
+    """`nested`: the match moves into the path's child segment (a child
+    counts where its parent matches) and the subs run there, with the
+    level pushed on `ctx.nest_stack`; `reverse_nested` climbs the stack to
+    its `path` (the root without one), a doc counting where any of its
+    children does, and runs its subs at that level. The reference's 400s:
+    a reverse_nested outside a nested agg, or to a path that is not an
+    enclosing level above the current one."""
+    body = node.body
+    stack = ctx.nest_stack
+    if node.kind == "nested":
+        blk = seg.nested.get(body.get("path"))
+        if blk is None or blk.child.ndocs == 0:
+            return ("terms_missing",), None
+        stack = stack or ((None, seg, None, seg.live_on(device)),)
+        parent = blk.parent_on(device)
+        live = blk.child.live_on(device) & stack[-1][3][parent]
+        target, bm = blk.child, match[parent] & live
+        stack = stack + ((body.get("path"), blk.child, parent, live),)
+        kind = "nested_agg"
+    else:
+        if len(stack) < 2:
+            raise dsl.QueryParseError("[reverse_nested] must be nested "
+                                      "inside a [nested] aggregation")
+        rpath = body.get("path")
+        ti = 0 if rpath is None else next(
+            (i for i, lvl in enumerate(stack) if lvl[0] == rpath), None)
+        if ti is None:
+            raise dsl.QueryParseError(
+                f"[reverse_nested] path [{rpath}] is not an enclosing "
+                f"nested level")
+        if len(stack) - 1 - ti <= 0:
+            raise dsl.QueryParseError("[reverse_nested] path must point "
+                                      "above the current level")
+        bm = match
+        for lvl in range(len(stack) - 1, ti, -1):
+            up = stack[lvl - 1]
+            bm = (torch.zeros(up[1].ndocs, device=device).index_add(
+                0, stack[lvl][2], bm.to(torch.float32)) > 0) & up[3]
+        target = stack[ti][1]
+        stack = stack[:ti + 1] if ti > 0 else ()
+        kind = "reverse_nested"
+    sctx = copy.copy(ctx)
+    sctx.nest_stack = stack
+    out = {"doc_count": bm.sum()}
+    specs = []
+    for i, sub in enumerate(node.subs):
+        sspec, sout = emit_agg(sub, target, sctx, bm, device, None)
+        specs.append(sspec)
+        if sout:
+            out[f"sub{i}"] = sout
+    return (kind, target, tuple(specs)), out
+
+
+def join_agg_match(node, seg: Segment, ctx: ShardContext,
+                   device) -> Optional[torch.Tensor]:
+    """bool[ndocs] of the docs a `children` / `parent` agg buckets over
+    `seg`: the children of the parents the query matched, or the parents
+    of the children it matched, over the whole shard through the join's
+    slot pre-pass (run once per agg node); None without a join field. A
+    relation that is no child relation is the reference's 400."""
+    from . import join
+
+    jf = ctx.mappings.join_field
+    if jf is None:
+        return None
+    kind = node.kind
+    relations = ctx.mappings.fields[jf].relations
+    child_rel = node.body.get("type")
+    parent_rel = next((p for p, cs in relations.items() if child_rel in cs),
+                      None)
+    if parent_rel is None:
+        raise dsl.QueryParseError(
+            f"[{kind}] [{child_rel}] is not a child relation of the join "
+            f"field")
+    ji = join.get_join_index(ctx.segments, jf)
+    got = node.__dict__.get("join_pre")
+    if got is None:
+        rel = {r: _weighted_terms(jf, [name], [1.0], ctx, 1, "filter", 1.0)
+               for r, name in (("child", child_rel), ("parent", parent_rel))}
+        plan = LBool(musts=[ctx.current_lroot or LMatchAll()],
+                     filters=[rel["parent" if kind == "children"
+                                  else "child"]])
+        got = node.__dict__["join_pre"] = (join.join_prepass(
+            plan, ji, ("cnt",), ctx, device,
+            self_slots=kind == "children")["cnt"], rel)
+    g, rel = got
+    live = seg.live_on(device)
+    if kind == "children":
+        pslot = ji.pslot_on(seg, device)
+        return ((pslot >= 0) & (g[torch.clamp(pslot, 0, ji.gsize - 1)] > 0)
+                & emit(rel["child"], seg, ctx, device).matched & live)
+    base = ji.seg_base(seg)
+    return ((g[base:base + seg.ndocs] > 0)
+            & emit(rel["parent"], seg, ctx, device).matched & live)
 
 
 def _emit_composite(node, seg: Segment, ctx: ShardContext,

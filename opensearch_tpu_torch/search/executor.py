@@ -49,20 +49,28 @@ rung, as the reference's does: the general program serves each segment
 and evaluates the agg tree over its live-masked match in the same pass
 (`compiler.emit_agg`). A segment `can_match` rules out is still read
 when an agg sees docs outside the match (`global`, `filter`, `filters`,
-`missing`, `significant_terms`' background). Each segment's outputs
+`missing`, `significant_terms`' background, `children`, `parent`).
+Each segment's outputs
 become host partials keyed by value (terms by string, histograms by
 bucket key), the coordinator merges and finalizes them
 (`search/aggregations.py`), and a bucket sub-agg outside the stats
 family under an ordinal bucket kind (`ORDINAL_KINDS`) is then served by
 one size-0 sub-search per bucket (`refine_complex_subs`), as the
 reference does; the pipelines that read such a sub run after it
-(`mark_deferred_pipelines`). A root `top_hits` reads the shard's
+(`mark_deferred_pipelines`); inside a `nested` agg that sub-search
+re-enters the nested levels, where the reference's refinement stops
+(ROADMAP Queue 3). A root `top_hits` reads the shard's
 candidates (the window of the body's rung, 16 docs a segment for a
 size-0 body, as in the reference), and a root `sampler` over several
 segments takes its second pass at one shard-wide score threshold
 (`resample_samplers`). A `scripted_metric` runs its init, map and
 combine scripts per segment on the host over the segment's match
 (`scripted_metric_partial`), its reduce script at the coordinator.
+
+The fetch adds a nested, has_child or has_parent clause's `inner_hits`
+and a multi-document percolation's `_percolator_document_slot`
+(`search/inner_hits.py`), and a `nested` sort key's value
+(`host_sort_values`).
 """
 
 from __future__ import annotations
@@ -87,6 +95,7 @@ from . import compiler as C
 from . import explain as X
 from . import fastpath, impactpath
 from . import highlight as H
+from . import inner_hits as IH
 from . import query_dsl as dsl
 
 INT32_SENTINEL = np.int32(2**31 - 1)
@@ -172,6 +181,7 @@ class ShardSearcher:
         aggs = A.parse_aggs(body.get("aggs", body.get("aggregations")))
         A.check_ported(aggs)
         lroot = C.rewrite(compose_knn_query(body), ctx)
+        ctx.current_lroot = lroot      # children / parent aggs join on it
         named = collect_named(lroot)
         rescores = []
         for r in B.rescorers(body):
@@ -432,11 +442,21 @@ class ShardSearcher:
         hl_terms = {}
         explain = bool(body.get("explain"))
         lroot = None
+        ctx = self.context(result.segments)
         if body.get("highlight") or explain:
-            ctx = self.context(result.segments)
             lroot = C.rewrite(dsl.parse_query(body.get("query")), ctx)
         if body.get("highlight"):
             hl_terms = H.collect_query_terms(lroot)
+        qtree = dsl.parse_query(body.get("query")) if selected else None
+        nested_ihs = [n for n in walk_query_nodes(qtree, dsl.NestedQuery)
+                      if n.inner_hits is not None]
+        join_ihs = [n for n in walk_query_nodes(
+            qtree, (dsl.HasChildQuery, dsl.HasParentQuery))
+            if n.inner_hits is not None]
+        perc_multi = [pq for pq in walk_query_nodes(qtree,
+                                                    dsl.PercolateQuery)
+                      if len(pq.documents) > 1]
+        ih_cache: dict = {}
         suppress = B.suppress_score(body)
         hits = []
         for c in selected:
@@ -446,6 +466,15 @@ class ShardSearcher:
             if explain:
                 hit["_explanation"] = X.explain_doc(lroot, seg, c.local_doc,
                                                     ctx)
+            for nq in nested_ihs:
+                IH.add_nested_inner_hits(hit, nq, seg, c.local_doc, ctx,
+                                         ih_cache, self.device)
+            for jq in join_ihs:
+                IH.add_join_inner_hits(hit, jq, seg, c.local_doc, ctx,
+                                       ih_cache, self.device)
+            for pq in perc_multi:
+                IH.add_percolate_slots(hit, pq, seg, c.local_doc, ctx,
+                                       ih_cache)
             hits.append(hit)
         return hits
 
@@ -676,6 +705,19 @@ def host_sort_values(specs: List[dict], seg: Segment, doc: int,
                 comp.append((0, -v if desc else v))
             raw.append(v)
             continue
+        nspec = spec.get("nested")
+        if nspec and nspec.get("path"):
+            vals, present = C.nested_sort_values(
+                seg, f, nspec["path"],
+                spec.get("mode", "max" if desc else "min"))
+            if vals is not None and present[doc]:
+                v = float(vals[doc])
+                comp.append((0, -v if desc else v))
+                raw.append(v)
+            else:
+                comp.append((1 if missing_last else -1, 0.0))
+                raw.append(None)
+            continue
         if f == "_script":
             src_str, prm = dsl.parse_script_spec(spec.get("script"))
             try:
@@ -812,12 +854,31 @@ def extract_source_values(src: dict, path: str) -> List:
     return node if isinstance(node, list) else [node]
 
 
+def walk_query_nodes(q, types) -> List:
+    """The nodes of a DSL tree of the given types, depth first (the
+    reference's `_walk_query_nodes`)."""
+    out: List = []
+
+    def walk(node):
+        if not hasattr(node, "__dataclass_fields__"):
+            return
+        if isinstance(node, types):
+            out.append(node)
+        for fname in node.__dataclass_fields__:
+            v = getattr(node, fname)
+            for x in (v if isinstance(v, list) else [v]):
+                if isinstance(x, dsl.Query):
+                    walk(x)
+    walk(q)
+    return out
+
+
 def aggs_need_all_segments(agg_nodes: List[A.AggNode]) -> bool:
     """True if an agg of the tree sees docs outside the query's match
-    (global, filter, filters, missing, significant_terms' background),
-    so that `can_match` may not skip a segment."""
+    (global, filter, filters, missing, significant_terms' background,
+    children and parent), so that `can_match` may not skip a segment."""
     return any(n.kind in ("global", "filter", "filters", "missing",
-                          "significant_terms")
+                          "significant_terms", "children", "parent")
                or aggs_need_all_segments(n.subs) for n in agg_nodes)
 
 
@@ -921,6 +982,10 @@ def device_agg_to_partial(node: A.AggNode, spec: tuple, out: Optional[dict],
             "subs": _sub_partials(node, sub_specs, out, seg, ctx,
                                   f"c{ci}_")}
             for ci, label in enumerate(labels)}}
+    if kind in ("nested_agg", "reverse_nested", "join_agg"):
+        _, sub_seg, sub_specs = spec
+        return {"doc_count": int(round(float(out["doc_count"]))),
+                "subs": _sub_partials(node, sub_specs, out, sub_seg, ctx)}
     if kind == "sampler":
         part = {"doc_count": int(out["doc_count"]),
                 "subs": _sub_partials(node, spec[1], out, seg, ctx)}
@@ -1393,7 +1458,8 @@ def _bucket_filter(node: A.AggNode, bucket: dict) -> Optional[dict]:
 
 def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
                         node: A.AggNode, result: Optional[dict],
-                        query: Optional[dict], filters: List[dict]) -> None:
+                        query: Optional[dict], filters: List[dict],
+                        nest: tuple = ()) -> None:
     """Bucket refinement (the reference's `_refine_complex_subs`): walk
     the finalized tree through the containers (filter, filters, range,
     date_range, global, missing), collecting each bucket's filter; for
@@ -1401,15 +1467,26 @@ def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
     outside the stats family, run one size-0 sub-search of the query
     and those filters whose own aggs are those subs (their pipelines
     with them), and put its results in the bucket. The samplers and
-    adjacency_matrix stop the walk, as in the reference."""
+    adjacency_matrix stop the walk, as in the reference.
+
+    The walk also goes into a `nested` agg, where the reference's stops:
+    `nest` holds each enclosing level's (path, the filters collected
+    above it), `filters` those of the current child level, and a bucket
+    there is refined by a sub-search whose aggs re-enter each level
+    (`nested` -> a `filter` of that level's filters, the bucket's at the
+    innermost) around the complex subs. So a reverse_nested (or any
+    other complex sub) of a terms or date_histogram bucket inside
+    `nested` gets OpenSearch's counts, where the reference serves
+    doc_count 0 (ROADMAP Queue 3). reverse_nested, children and parent
+    stop the walk."""
     if result is None:
         return
     kind = node.kind
 
-    def walk(sub_result_of, flt, q=query):
+    def walk(sub_result_of, flt, q=query, nst=nest):
         for s in node.subs:
             refine_complex_subs(searchers, index_name, s, sub_result_of(s.name),
-                                q, flt)
+                                q, flt, nst)
 
     if kind in ORDINAL_KINDS:
         complex_subs = [s for s in node.subs if s.kind not in A.STATS_FAMILY]
@@ -1423,15 +1500,27 @@ def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
                 b["_interval_ms"] = interval_ms
             bf = _bucket_filter(node, b)
             b.pop("_interval_ms", None)
+            aggs = {s.name: _agg_to_dsl(s) for s in complex_subs}
+            root_filters = filters + [bf]
+            if nest:
+                # re-enter the nested levels, innermost last
+                root_filters = nest[0][1]
+                levels = [lv[1] for lv in nest[1:]] + [filters + [bf]]
+                for (path, _), flt in reversed(list(zip(nest, levels))):
+                    aggs = {"__nested": {"nested": {"path": path}, "aggs": {
+                        "__bucket": {"filter": {"bool": {"filter": flt}},
+                                     "aggs": aggs}}}}
             sub_body = {"size": 0,
                         "query": {"bool": {
                             "must": [query] if query else [],
-                            "filter": filters + [bf]}},
-                        "aggs": {s.name: _agg_to_dsl(s)
-                                 for s in complex_subs}}
-            resp = search_shards(searchers, sub_body, index_name)
+                            "filter": root_filters}},
+                        "aggs": aggs}
+            got = search_shards(searchers, sub_body, index_name)[
+                "aggregations"]
+            for _ in nest:
+                got = got["__nested"]["__bucket"]
             for s in complex_subs:
-                b[s.name] = resp["aggregations"][s.name]
+                b[s.name] = got[s.name]
     elif kind == "filter":
         walk(result.get, filters + [node.body])
     elif kind == "filters":
@@ -1463,8 +1552,11 @@ def refine_complex_subs(searchers: List[ShardSearcher], index_name: str,
                     "distance": f"{bucket['from']}{unit}", field: origin,
                     "_inclusive": False}}]}})
             walk(bucket.get, filters + flt)
+    elif kind == "nested":
+        walk(result.get, [],
+             nst=nest + ((node.body.get("path"), filters),))
     elif kind == "global":
-        walk(result.get, [], None)
+        walk(result.get, [], None, ())
     elif kind == "missing":
         walk(result.get, filters + [{"bool": {"must_not": [
             {"exists": {"field": node.body.get("field")}}]}}])

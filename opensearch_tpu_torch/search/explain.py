@@ -11,10 +11,14 @@ times its boost, dis_max takes the best plus the tie breaker times the
 rest, constant_score, range, match_all and exists give their boost where
 they match. Every other node the port serves (boosting, terms_set,
 pinned, combined_fields, ids, match_none, the term expansions, kNN) gets
-the reference's fallback: 0.0 described by its class name. The reference's
-nested, join and host-span branches have no node to walk here: the
-port's rewrite raises NotPortedError for those queries before a search
-reaches the fetch.
+the reference's fallback: 0.0 described by its class name. A nested
+node reduces the child program's scores in the doc's block by its score
+mode, each matching child explained as a detail; has_child reduces its
+matching children's, has_parent takes its parent's (or 1), both from
+the device program over their segments, as the reference's. The
+reference's host-span branch has no node to walk here: the port's
+rewrite raises NotPortedError for those queries before a search reaches
+the fetch.
 """
 
 from __future__ import annotations
@@ -194,7 +198,80 @@ def explain_doc(lroot: C.LNode, seg: Segment, doc: int,
             val = n.boost if ok else 0.0
             return val, {"value": val, "description": f"exists [{f}]",
                          "details": []}
+        if isinstance(n, C.LNested):
+            return _explain_nested(n, seg, doc)
+        if isinstance(n, C.LHasChild):
+            ji = n.join_index
+            vals = []
+            dense: dict = {}
+            for cseg, cd in ji.children_of(ji.seg_base(seg) + doc):
+                if cseg.uid not in dense:
+                    dense[cseg.uid] = _dense(n.child, cseg, ctx)
+                csc, cm = dense[cseg.uid]
+                if cm[cd] and cseg.live[cd]:
+                    vals.append(float(csc[cd]))
+            mode = n.score_mode
+            total = 0.0
+            if max(n.min_children, 1) <= len(vals) <= n.max_children:
+                total = _reduce(vals, mode) * n.boost
+            return total, {"value": total,
+                           "description": (f"has_child [{n.child_rel}] "
+                                           f"{mode} of {len(vals)} matching "
+                                           f"children"),
+                           "details": []}
+        if isinstance(n, C.LHasParent):
+            ji = n.join_index
+            slot = int(ji.pslot(seg)[doc])
+            loc = ji.slot_to_doc(slot) if slot >= 0 else None
+            total = 0.0
+            if loc is not None:
+                pseg, pd = loc
+                psc, pm = _dense(n.child, pseg, ctx)
+                if pm[pd] and pseg.live[pd]:
+                    total = (float(psc[pd]) if n.use_score else 1.0) * n.boost
+            return total, {"value": total,
+                           "description": f"has_parent [{n.parent_rel}]",
+                           "details": []}
         return 0.0, {"value": 0.0, "description": type(n).__name__,
                      "details": []}
 
     return walk(lroot)[1]
+
+
+def _dense(node: C.LNode, seg: Segment, ctx) -> tuple:
+    """(scores, matched) of `node` over every doc of `seg`, as numpy: the
+    device program the query ran, whose matches a host walk cannot see in
+    filter context."""
+    sm = C.emit(node, seg, ctx, ctx.device)
+    return sm.scores.cpu().numpy(), sm.matched.cpu().numpy()
+
+
+def _reduce(vals: List[float], mode: str) -> float:
+    return (sum(vals) / len(vals) if mode == "avg" else
+            max(vals) if mode == "max" else
+            min(vals) if mode == "min" else
+            1.0 if mode == "none" else sum(vals))
+
+
+def _explain_nested(n: C.LNested, seg: Segment, doc: int) -> tuple:
+    """A nested node: its score from the child program's matches in the
+    doc's block, reduced by the score mode, with each matching child's
+    explanation as a detail."""
+    blk = seg.nested.get(n.path)
+    if blk is None or blk.child.ndocs == 0:
+        return 0.0, {"value": 0.0, "description": "no nested docs",
+                     "details": []}
+    csc, cm = _dense(n.child, blk.child, n.child_ctx)
+    a, b = blk.children_of(doc)
+    vals = [float(csc[i]) for i in range(a, b) if cm[i]]
+    if not vals:
+        return 0.0, {"value": 0.0,
+                     "description": f"no matching children in [{n.path}]",
+                     "details": []}
+    total = _reduce(vals, n.score_mode) * n.boost
+    return total, {"value": total,
+                   "description": f"nested [{n.path}] {n.score_mode} of "
+                                  f"children:",
+                   "details": [explain_doc(n.child, blk.child, cd,
+                                           n.child_ctx)
+                               for cd in range(a, b) if cm[cd]]}

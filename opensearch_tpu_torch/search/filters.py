@@ -194,6 +194,16 @@ def mask_key(node: C.LNode, seg, ctx: C.ShardContext) -> tuple:
         return ("script_score", node.ast, _script_params_key(node.params),
                 _f32_or_min(node.min_score), float(np.float32(node.boost)),
                 mask_key(node.child, seg, ctx))
+    if isinstance(node, C.LNested):
+        blk = seg.nested.get(node.path)
+        return ("nested", node.path, None if blk is None else
+                mask_key(node.child, blk.child, node.child_ctx))
+    if isinstance(node, (C.LHasChild, C.LHasParent, C.LPercolate)):
+        # a join reads every segment, a percolation its candidates: a key
+        # of its own a node, never shared
+        if "mask_token" not in node.__dict__:
+            node.__dict__["mask_token"] = next(_OWNERS)
+        return ("once", node.__dict__["mask_token"])
     if isinstance(node, C.LFuncScore):
         return ("function_score", mask_key(node.child, seg, ctx),
                 tuple(_function_key(fn, filt, seg, ctx)
@@ -390,8 +400,18 @@ def _mask(node, seg, ctx, device) -> torch.Tensor:
         return C.geo_mask(node, seg, device)
     if isinstance(node, C.LScriptFilter):
         return C.script_filter_mask(node, seg, device)
-    if isinstance(node, (C.LScriptScore, C.LFuncScore)):
-        # the min_score cut reads the scores: the node's own emit
+    if isinstance(node, C.LNested):
+        blk = seg.nested.get(node.path)
+        if blk is None or blk.child.ndocs == 0:
+            return torch.zeros(nd, dtype=torch.bool, device=device)
+        cm = (filter_mask(node.child, blk.child, node.child_ctx, device)
+              & blk.child.live_on(device))
+        return torch.zeros(nd, device=device).index_add(
+            0, blk.parent_on(device), cm.to(torch.float32)) > 0
+    if isinstance(node, (C.LScriptScore, C.LFuncScore, C.LHasChild,
+                         C.LHasParent, C.LPercolate)):
+        # the min_score cut reads the scores, a join every segment, a
+        # percolation its candidates: the node's own emit
         return C.emit(node, seg, ctx, device).matched
     raise NotPortedError(f"filter clause [{type(node).__name__}]")
 

@@ -5,7 +5,8 @@ span_near, intervals, bool, constant_score, boosting, dis_max, pinned,
 wrapper, range, exists, ids, prefix, wildcard, regexp, fuzzy, knn,
 rank_feature, distance_feature, neural_sparse (raw `query_tokens` only),
 hybrid, query_string, simple_query_string, function_score, script,
-script_score, geo_distance, geo_bounding_box, geo_polygon and geo_shape
+script_score, geo_distance, geo_bounding_box, geo_polygon, geo_shape,
+nested, has_child, has_parent, parent_id, more_like_this and percolate
 subset of opensearch_tpu/search/query_dsl.py). A distance parses with its
 unit (`parse_distance`), a point from every form the reference accepts
 (`index.mappings.parse_geo`); a `geo_shape` body's `indexed_shape` is
@@ -394,6 +395,81 @@ class ScriptScoreQuery(Query):
     source: str = ""
     params: Optional[dict] = None
     min_score: Optional[float] = None
+
+
+@dataclass
+class MoreLikeThisQuery(Query):
+    """Select the liked texts' or docs' interesting terms by tf x idf and
+    search them as a weighted OR (Lucene MoreLikeThis)."""
+
+    fields: List[str] = dc_field(default_factory=list)
+    like: List[Any] = dc_field(default_factory=list)   # str | {"_id"|"doc"}
+    unlike: List[Any] = dc_field(default_factory=list)
+    max_query_terms: int = 25
+    min_term_freq: int = 2
+    min_doc_freq: int = 5
+    max_doc_freq: int = 2**31 - 1
+    min_word_length: int = 0
+    max_word_length: int = 0          # 0: unbounded
+    stop_words: List[str] = dc_field(default_factory=list)
+    minimum_should_match: Optional[str] = "30%"
+    boost_terms: float = 0.0
+    include: bool = False
+
+
+@dataclass
+class NestedQuery(Query):
+    path: str = ""
+    query: Optional[Query] = None
+    score_mode: str = "avg"   # avg | sum | max | min | none
+    ignore_unmapped: bool = False
+    inner_hits: Optional[dict] = None
+
+
+@dataclass
+class HasChildQuery(Query):
+    """Parents with matching children."""
+
+    type: str = ""
+    query: Optional[Query] = None
+    score_mode: str = "none"  # none | min | max | sum | avg
+    min_children: int = 1
+    max_children: int = 2**31 - 1
+    ignore_unmapped: bool = False
+    inner_hits: Optional[dict] = None
+
+
+@dataclass
+class HasParentQuery(Query):
+    """Children whose parent matches."""
+
+    parent_type: str = ""
+    query: Optional[Query] = None
+    score: bool = False
+    ignore_unmapped: bool = False
+    inner_hits: Optional[dict] = None
+
+
+@dataclass
+class ParentIdQuery(Query):
+    """Children of one parent id."""
+
+    type: str = ""
+    id: str = ""
+    ignore_unmapped: bool = False
+
+
+@dataclass
+class PercolateQuery(Query):
+    """Stored percolator queries matched against candidate documents;
+    an `index` / `id` reference is resolved by the client before the
+    parse."""
+
+    field: str = ""
+    documents: List[dict] = dc_field(default_factory=list)
+    index: Optional[str] = None
+    id: Optional[str] = None
+    routing: Optional[str] = None
 
 
 def _one_entry(d: dict, what: str) -> Tuple[str, Any]:
@@ -869,6 +945,84 @@ def parse_query(dsl: Optional[dict]) -> Query:
         _common(q, body)
         return q
 
+    if kind == "more_like_this":
+        like = body.get("like", [])
+        like = like if isinstance(like, list) else [like]
+        unlike = body.get("unlike", [])
+        unlike = unlike if isinstance(unlike, list) else [unlike]
+        if not like:
+            raise QueryParseError("[more_like_this] requires [like]")
+        q = MoreLikeThisQuery(
+            fields=list(body.get("fields", [])), like=like, unlike=unlike,
+            max_query_terms=int(body.get("max_query_terms", 25)),
+            min_term_freq=int(body.get("min_term_freq", 2)),
+            min_doc_freq=int(body.get("min_doc_freq", 5)),
+            max_doc_freq=int(body.get("max_doc_freq", 2**31 - 1)),
+            min_word_length=int(body.get("min_word_length", 0)),
+            max_word_length=int(body.get("max_word_length", 0)),
+            stop_words=list(body.get("stop_words", [])),
+            minimum_should_match=body.get("minimum_should_match", "30%"),
+            boost_terms=float(body.get("boost_terms", 0.0)),
+            include=bool(body.get("include", False)))
+        _common(q, body)
+        return q
+
+    if kind == "nested":
+        q = NestedQuery(path=body["path"], query=parse_query(body["query"]),
+                        score_mode=body.get("score_mode", "avg"),
+                        ignore_unmapped=bool(body.get("ignore_unmapped",
+                                                      False)),
+                        inner_hits=body.get("inner_hits"))
+        _common(q, body)
+        return q
+
+    if kind == "has_child":
+        if body.get("score_mode", "none") not in ("none", "min", "max",
+                                                  "sum", "avg"):
+            raise QueryParseError(
+                f"[has_child] unknown score_mode [{body['score_mode']}]")
+        q = HasChildQuery(type=body["type"], query=parse_query(body["query"]),
+                          score_mode=body.get("score_mode", "none"),
+                          min_children=int(body.get("min_children", 1)),
+                          max_children=int(body.get("max_children",
+                                                    2**31 - 1)),
+                          ignore_unmapped=bool(body.get("ignore_unmapped",
+                                                        False)),
+                          inner_hits=body.get("inner_hits"))
+        _common(q, body)
+        return q
+
+    if kind == "has_parent":
+        q = HasParentQuery(parent_type=body["parent_type"],
+                           query=parse_query(body["query"]),
+                           score=bool(body.get("score", False)),
+                           ignore_unmapped=bool(body.get("ignore_unmapped",
+                                                         False)),
+                           inner_hits=body.get("inner_hits"))
+        _common(q, body)
+        return q
+
+    if kind == "parent_id":
+        q = ParentIdQuery(type=body["type"], id=str(body["id"]),
+                          ignore_unmapped=bool(body.get("ignore_unmapped",
+                                                        False)))
+        _common(q, body)
+        return q
+
+    if kind == "percolate":
+        docs = body.get("documents")
+        if docs is None and body.get("document") is not None:
+            docs = [body["document"]]
+        if docs is None and body.get("index") is None:
+            raise QueryParseError(
+                "[percolate] requires `document`, `documents`, or "
+                "`index`+`id`")
+        q = PercolateQuery(field=body["field"], documents=list(docs or []),
+                           index=body.get("index"), id=body.get("id"),
+                           routing=body.get("routing"))
+        _common(q, body)
+        return q
+
     if kind in REFERENCE_KINDS:
         raise NotPortedError(f"query [{kind}]")
     raise QueryParseError(f"unknown query [{kind}]")
@@ -926,8 +1080,7 @@ def parse_fusion_spec(spec, n_sub: int) -> Dict[str, Any]:
 # `parse_query`); any kind outside them and the port's is unknown there too
 REFERENCE_KINDS = frozenset((
     "span_or", "span_not", "span_first", "span_containing", "span_within",
-    "span_multi", "field_masking_span", "more_like_this", "nested",
-    "has_child", "has_parent", "parent_id", "percolate"))
+    "span_multi", "field_masking_span"))
 
 
 _INTERVAL_RULES = ("match", "prefix", "wildcard", "fuzzy", "all_of",

@@ -388,6 +388,31 @@ def test_split_and_clone(pair):
         400)
 
 
+def test_resize_of_a_sayt_index_keeps_the_chains():
+    """A clone of an index with a search_as_you_type field: the target
+    is created from the source's `to_dict()`, which names the generated
+    subfields by type; the port keeps their shingle chains (OpenSearch's
+    page), the reference rebuilds them as plain text (ROADMAP Queue 3):
+    "quick brown" on `ss._2gram` / `ss._3gram` totals 1 / 0 in the
+    port's clone, as on its source, and 2 / 2 in the reference's."""
+    ref, port = RefClient(), RestClient(device="cpu")
+    for c in (ref, port):
+        c.indices.create("s", {"settings": dict(ONE), "mappings": {
+            "properties": {"ss": {"type": "search_as_you_type"}}}})
+        for i, t in enumerate(("quick brown fox", "quick red fox")):
+            c.index("s", {"ss": t}, id=str(i), refresh=True)
+        c.indices.put_settings("s", {"index": {"blocks": {"write": True}}})
+        c.indices.clone("s", "s2")
+    totals = {}
+    for name, c in (("ref", ref), ("port", port)):
+        totals[name] = [[c.search(i, {"query": {"match": {
+            f: "quick brown"}}})["hits"]["total"]["value"]
+            for f in ("ss._2gram", "ss._3gram", "ss._index_prefix")]
+            for i in ("s", "s2")]
+    assert totals["port"] == [[1, 0, 2], [1, 0, 2]]
+    assert totals["ref"] == [[1, 0, 2], [2, 2, 2]]
+
+
 def test_resize_of_segments_with_deletes_and_aliases():
     docs = make_docs(40, seed=11)
     pair = (fill(RefClient(), docs=docs, split=25),
@@ -468,6 +493,63 @@ def test_aliases_and_wildcards():
         {"swap": {"index": "logs-2024-01", "alias": "x"}}]}))
     same_error(pair, lambda c: c.indices.update_aliases({"actions": [
         {"add": {"index": "nope", "alias": "x"}}]}))
+
+
+def test_an_expression_naming_no_open_index_is_empty():
+    """A search, count, msearch or point in time whose expression names
+    no open index (an unmatched wildcard, every match closed) serves the
+    reference's empty response: no shards, a total of 0, no hits, the
+    aggregations empty; a count of 0."""
+    pair = logs_pair()
+    aggs = {"query": {"match": {"body": "fox"}},
+            "aggs": {"t": {"terms": {"field": "tag"}}}}
+    for expr in ("nope*", "nope-*,none-*"):
+        got = both(pair, lambda c: c.search(expr, MATCH))
+        assert got["_shards"]["total"] == 0
+        assert got["hits"]["total"]["value"] == 0 and not got["hits"]["hits"]
+        both(pair, lambda c: c.search(expr, aggs))
+        assert both(pair, lambda c: c.count(expr))["count"] == 0
+        both(pair, lambda c: c.msearch([{"index": expr}, MATCH,
+                                        {"index": expr}, aggs]))
+
+    def pit_page(c):
+        pid = c.create_pit("nope*")["pit_id"]
+        resp = c.search(body={"pit": {"id": pid}, **MATCH})
+        assert resp.pop("pit_id") == pid
+        return resp
+    both(pair, pit_page)
+    for c in pair:
+        c.indices.close("logs-2024-01")
+        c.indices.close("logs-2024-02")
+    both(pair, lambda c: c.search("logs-2024-*", MATCH))
+    assert both(pair, lambda c: c.count("_all"))["count"] == 0
+
+
+def test_update_and_index_keyword_options():
+    """ROADMAP Queue 3's three decisions: `retry_on_conflict` on an
+    update is accepted (one writer: it changes nothing); `if_seq_no` /
+    `if_primary_term` on an update, which the reference ignores where
+    OpenSearch checks them, raise NotPortedError; `pipeline=` on an
+    index raises NotPortedError("ingest pipeline")."""
+    pair = (fill(RefClient()), fill(RestClient(device="cpu")))
+    ref, port = pair
+    both(pair, lambda c: c.update("idx", "3", {"doc": {"n": 33}},
+                                  retry_on_conflict=3, refresh=True))
+    both(pair, lambda c: c.update("idx", "new", {"doc": {"n": 1},
+                                                 "doc_as_upsert": True},
+                                  retry_on_conflict=1, refresh=True))
+    both(pair, lambda c: c.get("idx", "3"))
+    both(pair, lambda c: c.search("idx", {"query": {"term": {"n": 33}}}))
+    for kw in ({"if_seq_no": 0}, {"if_primary_term": 1},
+               {"if_seq_no": 0, "if_primary_term": 1}):
+        ref.update("idx", "4", {"doc": {"n": 44}}, **kw)
+        with pytest.raises(NotPortedError, match="if_seq_no"):
+            port.update("idx", "4", {"doc": {"n": 44}}, **kw)
+    with pytest.raises(NotPortedError, match="ingest pipeline"):
+        port.index("idx", {"body": "x"}, id="p", pipeline="p1")
+    assert port.get("idx", "4")["_source"]["n"] == 4
+    with pytest.raises(ApiError):
+        port.get("idx", "p")
 
 
 def test_reads_through_a_one_index_alias():
@@ -843,14 +925,17 @@ def admin_bench():
     return big, {"queries": bc.pick_queries(df, 64)}
 
 
-def test_phase21_on_a_small_bench_corpus(admin_bench):
+def test_phase21_on_a_small_bench_corpus(admin_bench, monkeypatch):
     """Phase 21 whole on the CPU over 3,000 passages (the corpus segment
     with deletes, the re-indexed docs' segment): (a)'s pages through the
     alias == by name == the brute force, (b)'s term vectors == the title
     draw's brute force, (c)'s settings, blocks, close / open and stats,
     (d)'s resize of 400 passages == its brute force; then (a) again after
-    a forcemerge."""
+    a forcemerge. The phase sets OPENSEARCH_TPU_REORDER=0 for its merges;
+    the test restores the variable, so that it does not reach the tests
+    a worker runs after it."""
     import chip_smoke
+    monkeypatch.setenv("OPENSEARCH_TPU_REORDER", "0")
     big, bools = admin_bench
     out = chip_smoke.phase_admin_msmarco(big, bools, 400, 0, "cpu")
     assert not chip_smoke.VERIFY.todo

@@ -406,6 +406,12 @@ def test_rest_calls_of_the_reference_client_raise_not_ported():
         with pytest.raises(NotPortedError,
                            match=rf"rest call \[indices.{name}\]"):
             getattr(c.indices, name)
+    # the reference's other namespaces (ROADMAP Queue 3, closed in the
+    # slice of nested objects and joins)
+    for name in ("cat", "cluster", "ingest", "snapshot"):
+        assert hasattr(RefClient(), name)
+        with pytest.raises(NotPortedError, match=rf"rest call \[{name}\]"):
+            getattr(c, name)
     with pytest.raises(AttributeError):
         c.no_such_call
     with pytest.raises(AttributeError):

@@ -497,6 +497,33 @@ def test_phase4_fields_small_oracle_catches_a_wrong_page():
         chip_smoke.ft_small_check(oracle, bad, merged=True)
 
 
+SAYT_TEXTS = ("quick brown fox", "quick red fox")
+
+
+def _sayt_totals(c, index, fields=("ss._2gram", "ss._3gram")):
+    return [c.search(index, {"query": {"match": {f: "quick brown"}}})[
+        "hits"]["total"]["value"] for f in fields]
+
+
+def test_sayt_subfields_named_in_a_mapping_keep_their_chains():
+    """A create body that names a search_as_you_type field's `_2gram` as
+    `{"type": "text"}`: the port keeps the shingle chain (OpenSearch's
+    page), the reference rebuilds it as plain text (ROADMAP Queue 3, the
+    recovery note): "quick brown" on `ss._2gram` totals 1 in the port
+    and 2 in the reference; the mapping reads back the same."""
+    body = {"mappings": {"properties": {"ss": {
+        "type": "search_as_you_type",
+        "fields": {"_2gram": {"type": "text"}}}}}}
+    ref, port = RefClient(), RestClient(device="cpu")
+    for c in (ref, port):
+        c.indices.create("s", copy.deepcopy(body))
+        for i, t in enumerate(SAYT_TEXTS):
+            c.index("s", {"ss": t}, id=str(i), refresh=True)
+    assert port.indices.get_mapping("s") == ref.indices.get_mapping("s")
+    assert _sayt_totals(port, "s") == [1, 0]
+    assert _sayt_totals(ref, "s") == [2, 0]
+
+
 def test_english_title_forms():
     """bench_corpus's English forms of the title vocabulary: distinct
     words, the 30 most drawn terms Lucene's stopwords, every other form

@@ -20,7 +20,7 @@ import pytest
 
 import chip_smoke
 from opensearch_tpu.rest.client import RestClient as RefClient
-from opensearch_tpu_torch import NotPortedError, RestClient
+from opensearch_tpu_torch import RestClient
 from opensearch_tpu_torch.index.segment import VectorColumn
 from opensearch_tpu_torch.search import fusion
 from tests.test_torch_compound import bench_small  # noqa: F401
@@ -275,16 +275,12 @@ def test_hybrid_stats_and_sub_bodies():
 
 def test_hybrid_with_unported_sub_queries_raise(clients):
     """A hybrid's neural_sparse and rank_feature sub-queries serve since
-    learned sparse retrieval was ported (the reference's 400s on this
-    index's fields, its fused pages over a feature index); a percolate
-    sub-query still raises NotPortedError."""
-    _ref, port = clients
-    with pytest.raises(NotPortedError) as e:
-        port.search("v", {"query": hybrid([{"match_all": {}}, {
-            "percolate": {"field": "q", "document": {}}}])})
-    assert "[percolate]" in str(e.value)
+    learned sparse retrieval was ported, and a percolate sub-query since
+    the percolator was: the reference's 400s on this index's fields, its
+    fused pages over a feature index."""
     for sub in ({"neural_sparse": {"body": {"query_tokens": {"fox": 1.0}}}},
-                {"rank_feature": {"field": "f"}}):
+                {"rank_feature": {"field": "f"}},
+                {"percolate": {"field": "q", "document": {}}}):
         ref, got = _errors(clients, {"query": hybrid([{"match_all": {}},
                                                       sub])})
         assert ref is not None and ref[1] == 400 and got == ref, (ref, got)

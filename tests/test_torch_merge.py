@@ -358,11 +358,14 @@ def test_lazy_ids_stay_lazy_across_a_merge():
 
 
 def test_unported_planes_raise():
+    """A reference segment's term vectors, which no port segment builds,
+    refuse a merge (nested blocks merge since nested objects were
+    ported)."""
     docs = make_docs(40, seed=4)
     port = write_script(docs, 2)(RestClient(device="cpu"))
     s0, s1 = segs(port, False)
-    s1.nested = {"loc": object()}
-    with pytest.raises(NotPortedError, match="nested"):
+    s1.term_vectors = {"body": object()}
+    with pytest.raises(NotPortedError, match="term_vectors"):
         merge.merge_segments("_m", [s0, s1])
 
 

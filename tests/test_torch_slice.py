@@ -454,6 +454,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert c.mtermvectors({'docs': [{'_index': 'al', '_id': '1'}]})[\n"
         "    'docs'][0]['found']\n"
         "assert c.indices.stats('a*')['_all']['total']['docs']['count'] == 2\n"
+        "import opensearch_tpu_torch.search.join\n"
+        "import opensearch_tpu_torch.search.percolate\n"
+        "c.indices.create('qa', {'mappings': {'properties': {\n"
+        "    'ans': {'type': 'nested'}, 'q': {'type': 'percolator'},\n"
+        "    'j': {'type': 'join', 'relations': {'p': 'c'}}}}})\n"
+        "c.index('qa', {'j': 'p', 'ans': [{'u': 'x'}], 'body': 'hello'},\n"
+        "        id='p1')\n"
+        "c.index('qa', {'j': {'name': 'c', 'parent': 'p1'}, 'u': 'x',\n"
+        "               'q': {'match': {'body': 'hello'}}}, id='c1',\n"
+        "        routing='p1', refresh=True)\n"
+        "for q in ({'nested': {'path': 'ans', 'query': {'term': {'ans.u': 'x'}}}},\n"
+        "          {'has_child': {'type': 'c', 'query': {'match_all': {}}}},\n"
+        "          {'percolate': {'field': 'q', 'document': {'body': 'hello'}}},\n"
+        "          {'more_like_this': {'like': 'hello', 'min_term_freq': 1,\n"
+        "                              'min_doc_freq': 1}}):\n"
+        "    assert c.search('qa', {'query': q})['hits']['total']['value'] == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'opensearch_tpu' or "
         "m.startswith('opensearch_tpu.'))\n"
@@ -488,7 +504,9 @@ def test_bench_corpus_matches_bench_py():
 def test_unknown_query_kind_is_a_400_and_an_msearch_entry(clients):
     """A kind the reference does not parse is its parse error: 400 from
     `search`, a per-body entry in msearch (the other bodies served); a
-    kind it parses and the port does not still raises NotPortedError."""
+    kind it parses and the port does not still raises NotPortedError
+    (a span kind; more_like_this serves the reference's page since it was
+    ported)."""
     from opensearch_tpu.rest.client import ApiError as RefApiError
     from opensearch_tpu_torch import ApiError
     ref, port = clients
@@ -506,9 +524,12 @@ def test_unknown_query_kind_is_a_400_and_an_msearch_entry(clients):
     assert got[0] == want[0] == {"error": {
         "type": "ApiError", "reason": "unknown query [bogus]"}}
     assert_same_response(got[1], want[1])
-    with pytest.raises(NotPortedError, match=r"query \[more_like_this\]"):
-        port.search("t", {"query": {"more_like_this": {
-            "fields": ["body"], "like": "the"}}})
+    mlt = {"query": {"more_like_this": {"fields": ["body"], "like": "the",
+                                         "min_term_freq": 1}}}
+    assert_same_response(port.search("t", mlt), ref.search("t", mlt))
+    with pytest.raises(NotPortedError, match=r"query \[span_or\]"):
+        port.search("t", {"query": {"span_or": {"clauses": [
+            {"span_term": {"body": "the"}}]}}})
 
 
 @pytest.mark.parametrize("call", ["search", "msearch", "get", "index",

@@ -295,12 +295,13 @@ def test_search_after_chains_match_reference(clients, name):
     ({"suggest": {}}, "suggest"), ({"derived": {}}, "derived")], ids=str)
 def test_options_outside_the_slice_raise(clients, body, name):
     """The options outside the port raise NotPortedError naming them; a
-    `_script` sort, a function_score rescore, `script_fields` and a
+    `_script` sort, a function_score rescore, `script_fields`, a
     `_geo_distance` sort (on a field the index does not map: every doc
-    missing, last) serve the reference's response."""
+    missing, last) and a `nested` sort (over a path the index does not
+    map: the same) serve the reference's response."""
     ref, port = clients
     if name in ("_script", "function_score", "script_fields",
-                "_geo_distance"):
+                "_geo_distance", "nested"):
         assert_same(port.search("t", body), ref.search("t", body))
         return
     with pytest.raises(NotPortedError) as e:

@@ -36,7 +36,7 @@ from opensearch_tpu.index import segment as rseg_mod
 from opensearch_tpu.ops import scoring as rops
 from opensearch_tpu.rest.client import RestClient as RefClient
 from opensearch_tpu.search import impactpath as rip
-from opensearch_tpu_torch import NotPortedError, RestClient
+from opensearch_tpu_torch import RestClient
 from opensearch_tpu_torch.index import segment as pseg_mod
 from opensearch_tpu_torch.index.convert import segment_from_arrays
 from opensearch_tpu_torch.ops import device_merge
@@ -44,6 +44,7 @@ from opensearch_tpu_torch.ops import scoring as ops
 from opensearch_tpu_torch.search import compiler as C
 from opensearch_tpu_torch.search import impactpath
 from tests.test_torch_compound import bench_small  # noqa: F401
+from tests.test_torch_compound import same
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -722,13 +723,24 @@ def test_convert_carries_feature_postings_and_planes(clients):
 
 
 def test_still_unported_kinds_raise(clients):
-    _ref, port = clients
-    for q, what in (({"percolate": {"field": "q", "document": {}}},
-                     "percolate"),
-                    ({"more_like_this": {"like": "fox"}}, "more_like_this")):
-        with pytest.raises(NotPortedError) as e:
-            port.search("s", {"query": q})
-        assert f"[{what}]" in str(e.value)
+    """percolate and more_like_this serve since they were ported: on this
+    index (no percolator field) the reference's 400 and its page."""
+    ref, port = clients
+    outs = []
+    for q in ({"percolate": {"field": "q", "document": {}}},
+              {"more_like_this": {"like": "fox", "min_term_freq": 1}}):
+        got = []
+        for c in (ref, port):
+            try:
+                got.append(c.search("s", {"query": q}))
+            except Exception as e:      # each package's own ApiError
+                got.append((e.status, e.err_type, e.reason))
+        if isinstance(got[0], tuple):
+            assert got[0] == got[1], (q, got)
+        else:
+            same(got[1], got[0])
+        outs.append(got[0])
+    assert outs[0][0] == 400
 
 
 def test_engine_refresh_builds_feature_planes_on_device_path(monkeypatch):
